@@ -1,0 +1,455 @@
+// K2: hand-derived pullback of the layer stack, input cotangents only, f32.
+//
+// Replaces the TPU kernel sake_tpu/kernels/resid_ef.py:resid_energy_forces
+// -> bwd_kernel (the pallas_call at resid_ef.py:1272): layer_bwd_resid over
+// the layers in reverse, reading the residuals K1 (resid_fwd.cu) wrote.
+// Given the cotangents of the final (h, x, v) it returns those of the
+// initial (h, x, v); forces are -dx.
+//
+// Design: one thread block per molecule walks the layers in reverse; the
+// cotangent state (dh, dx, dv) stays in shared memory. Per layer the node
+// part (gate MLP, node MLP, post-norm MLP) runs first and leaves
+// d_pool_sq and d_hatt in shared memory; then one receiver row i at a
+// time pulls back its N sender edges. Sender-side cotangents are column
+// sums over receivers (d_o_j, d_a_j and the +d_d0 term of dx), so they are
+// accumulated in shared memory across the row loop; receiver-side ones
+// (d_o_i, d_a_i, -d_d0) are row sums. The self pair is kept: its r is the
+// regularized sqrt(relu(r^2) + 1e-5) and its logit was pushed down by
+// 1e5, exactly as in the forward.
+//
+// What bounds it on an H100: as K1, f32 FMA issue and per-row
+// synchronisation; the transposed x_mixing product d_xm @ w_xmix^T is the
+// widest, register-tiled like K1's. Weights
+// are read transposed from copies the wrapper makes, so every product
+// reads W row-major and coalesced. The residual reads (about 0.87 MB per
+// molecule and layer) are coalesced row blocks.
+
+#include "resid_common.cuh"
+
+namespace sake {
+
+constexpr int kBwdTileCols = 2;  // columns per tile in mm_tiled
+constexpr int kBwdTiledMinCols = 128;  // narrowest tiled product
+
+// This kernel's block products (see mm_smem).
+template <class ST>
+__device__ __forceinline__ void mm(int n, int kd, int m, const float* A, int lda,
+                                   const float* __restrict__ W, ST st) {
+  mm_smem<kBwdTileCols, kBwdTiledMinCols>(n, kd, m, A, lda, W, st);
+}
+
+// Shared-memory buffers of K2, in floats: the cotangent state, the
+// layer's inputs and sender-sum accumulators, per-row buffers, and one
+// scratch region the node phase and the row loop take turns to use.
+struct BwdSmem {
+  float *sdh, *sdx, *sdv, *sh, *sx, *sv, *saj, *sai, *sdaj, *sdai, *sdoj, *sdoi,
+      *sdhatt, *sdpsq, *sdvn, *sdvo, *sdxs, *sdxr;
+  float *sdp, *sd, *sr, *st, *sir, *sdr, *sdd, *she, *sdhe, *satt, *ssem, *sdat, *se0,
+      *srbf, *sdrbf, *sdpre, *scr;
+};
+
+__host__ __device__ inline BwdSmem carve_bwd(Carver& cv, const Dims& d) {
+  const long long N = d.N, F = d.F, H = d.H, R = d.R, K = d.K, C = d.C;
+  BwdSmem s;
+  s.sdh = cv.take(N * F);         // cotangent of h (state / accumulator)
+  s.sdx = cv.take(3 * N);
+  s.sdv = cv.take(3 * N);
+  s.sh = cv.take(N * F);          // h_in
+  s.sx = cv.take(3 * N);
+  s.sv = cv.take(3 * N);
+  s.saj = cv.take(N * R);         // recomputed h @ w_in_j + b_in
+  s.sai = cv.take(N * R);
+  s.sdaj = cv.take(N * R);        // sum over receivers
+  s.sdai = cv.take(N * R);
+  s.sdoj = cv.take(N * H);        // sum over receivers
+  s.sdoi = cv.take(N * H);
+  s.sdhatt = cv.take(N * H * K);
+  s.sdpsq = cv.take(N * C);
+  s.sdvn = cv.take(3 * N);        // d_v_new
+  s.sdvo = cv.take(3 * N);        // d_v_in
+  s.sdxs = cv.take(3 * N);        // + d_d0 at sender
+  s.sdxr = cv.take(3 * N);        // - d_d0 at receiver
+  s.sdp = cv.take(3 * C);         // row: d_pooled
+  s.sd = cv.take(3 * N);          // row: d0
+  s.sr = cv.take(N);
+  s.st = cv.take(N);
+  s.sir = cv.take(N);
+  s.sdr = cv.take(N);             // row: d_r
+  s.sdd = cv.take(3 * N);         // row: d_d0
+  s.she = cv.take(N * H);
+  s.sdhe = cv.take(N * H);
+  s.satt = cv.take(N * K);
+  s.ssem = cv.take(N * K);
+  s.sdat = cv.take(N * K);        // row: d_att -> d_sem_pre
+  s.se0 = cv.take(N * H);         // row: e0 -> d_e0
+  s.srbf = cv.take(N * R);
+  s.sdrbf = cv.take(N * R);
+  s.sdpre = cv.take(N * R);
+  const long long rows = N * C + N * H * K, node = N * (4 * H + F + 1);
+  s.scr = cv.take(rows > node ? rows : node);
+  return s;
+}
+
+__host__ __device__ inline long long bwd_smem_floats(const Dims& d) {
+  Carver cv{nullptr};
+  carve_bwd(cv, d);
+  return cv.off;
+}
+
+__global__ void __launch_bounds__(512)
+resid_bwd_kernel(Dims d, const float* __restrict__ bh, const float* __restrict__ bx,
+                 const float* __restrict__ bv, const float* __restrict__ upd, Leaves L,
+                 Leaves LT, Resids RS, const float* __restrict__ dh_fin,
+                 const float* __restrict__ dx_fin, const float* __restrict__ dv_fin,
+                 float* dh_out, float* dx_out, float* dv_out) {
+  extern __shared__ float4 smem4[];
+  const int b = blockIdx.x;
+  const int B = d.B, N = d.N, F = d.F, H = d.H, R = d.R, K = d.K, C = d.C;
+  const int HK = H * K, NN = N * N;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarp = nt >> 5;
+  const float n_eff = (float)N;
+
+  Carver cv{reinterpret_cast<float*>(smem4)};
+  const BwdSmem S = carve_bwd(cv, d);
+  float *sdh = S.sdh, *sdx = S.sdx, *sdv = S.sdv, *sh = S.sh, *sx = S.sx, *sv = S.sv,
+        *saj = S.saj, *sai = S.sai, *sdaj = S.sdaj, *sdai = S.sdai, *sdoj = S.sdoj,
+        *sdoi = S.sdoi, *sdhatt = S.sdhatt, *sdpsq = S.sdpsq, *sdvn = S.sdvn,
+        *sdvo = S.sdvo, *sdxs = S.sdxs, *sdxr = S.sdxr, *sdp = S.sdp, *sd = S.sd,
+        *sr = S.sr, *st = S.st, *sir = S.sir, *sdr = S.sdr, *sdd = S.sdd, *she = S.she,
+        *sdhe = S.sdhe, *satt = S.satt, *ssem = S.ssem, *sdat = S.sdat, *se0 = S.se0,
+        *srbf = S.srbf, *sdrbf = S.sdrbf, *sdpre = S.sdpre, *scr = S.scr;
+  float* scf = scr;               // row: (N, C) coeff -> d_xm
+  float* sdha = scr + N * C;      // row: (N, HK) d_he_att
+  float* sdg0 = scr;              // node: (N, H)
+  float* sduv = sdg0 + N * H;     // node: (N, F)
+  float* sdnp = sduv + N * F;     // node: (N, H)
+  float* sdps1 = sdnp + N * H;    // node: (N, H)
+  float* sdps0 = sdps1 + N * H;   // node: (N, H)
+  float* sdg1 = sdps0 + N * H;    // node: (N)
+
+  for (int e = tid; e < N * F; e += nt) sdh[e] = dh_fin[(size_t)b * N * F + e];
+  for (int e = tid; e < 3 * N; e += nt) {
+    const int k = e / N, i = e % N;
+    sdx[e] = dx_fin[((size_t)k * B + b) * N + i];
+    sdv[e] = dv_fin[((size_t)k * B + b) * N + i];
+  }
+  __syncthreads();
+
+  for (int l = d.depth - 1; l >= 0; --l) {
+    const float u = upd[l];
+    const size_t lb = (size_t)l * B + b;
+    auto W = [&](int leaf) { return L.at(leaf, l); };
+    auto WT = [&](int leaf) { return LT.at(leaf, l); };
+
+    // layer inputs
+    for (int e = tid; e < N * F; e += nt) sh[e] = bh[lb * N * F + e];
+    for (int e = tid; e < 3 * N; e += nt) {
+      const int k = e / N, i = e % N;
+      sx[e] = bx[(((size_t)l * 3 + k) * B + b) * N + i];
+      sv[e] = bv[(((size_t)l * 3 + k) * B + b) * N + i];
+      sdxs[e] = 0.f;
+      sdxr[e] = 0.f;
+    }
+    for (int e = tid; e < N * R; e += nt) sdaj[e] = 0.f;
+    for (int e = tid; e < N * H; e += nt) sdoj[e] = 0.f;
+    __syncthreads();
+
+    // a_j, a_i recomputed from h_in (pre = a_j[j] + a_i[i])
+    const float* b_in = W(B_IN);
+    mm(N, F, R, sh, F, W(W_IN_J),
+            [&](int r, int c, float a) { saj[r * R + c] = a + b_in[c]; });
+    mm(N, F, R, sh, F, W(W_IN_I),
+            [&](int r, int c, float a) { sai[r * R + c] = a; });
+
+    // position/velocity gates: x_out = x + u*v_new, v_out = v + u*(v_new - v)
+    const float* g1 = RS.p[RS_G1] + lb * N;
+    for (int i = tid; i < N; i += nt) {
+      const float sg = sigmoidf_(g1[i]);
+      const float gate = 2.f * sg;
+      float d_gate = 0.f;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const float dvn = u * (sdx[k * N + i] + sdv[k * N + i]);
+        sdvn[k * N + i] = dvn;
+        d_gate += dvn * sv[k * N + i];
+        sdvo[k * N + i] = gate * dvn + (1.f - u) * sdv[k * N + i];
+      }
+      sdg1[i] = d_gate * 2.f * sg * (1.f - sg);
+    }
+    __syncthreads();
+
+    // gate MLP: g1 = silu(g0) @ w_vel1, g0 = h_out @ w_vel0 + b_vel0
+    {
+      const float* wv1 = W(W_VEL1);
+      const float* g0 = RS.p[RS_G0] + lb * N * H;
+      for (int e = tid; e < N * H; e += nt) {
+        const int i = e / H, h = e % H;
+        sdg0[e] = (sdg1[i] * wv1[h]) * dsiluf_(g0[e]);
+      }
+    }
+    __syncthreads();
+    mm(N, H, F, sdg0, H, WT(W_VEL0),
+            [&](int r, int c, float a) { sdh[r * F + c] += a; });  // dho
+    __syncthreads();
+
+    // h_out = h_in + silu(uv), uv = silu(node_pre) @ w_node1 + b_node1
+    {
+      const float* uv = RS.p[RS_UV] + lb * N * F;
+      for (int e = tid; e < N * F; e += nt) sduv[e] = sdh[e] * dsiluf_(uv[e]);
+    }
+    __syncthreads();
+    {
+      const float* np = RS.p[RS_NODE_PRE] + lb * N * H;
+      mm(N, F, H, sduv, F, WT(W_NODE1),
+              [&](int r, int c, float a) { sdnp[r * H + c] = a * dsiluf_(np[r * H + c]); });
+    }
+    __syncthreads();
+
+    // node_pre = h @ w_node_h + hatt @ w_node_agg + h_comb @ w_node_comb + b
+    mm(N, H, F, sdnp, H, WT(W_NODE_H), [&](int r, int c, float a) { sdh[r * F + c] += a; });
+    mm(N, H, HK, sdnp, H, WT(W_NODE_AGG),
+            [&](int r, int c, float a) { sdhatt[r * HK + c] = a; });
+    {
+      const float* ps1 = RS.p[RS_PS1] + lb * N * H;
+      mm(N, H, H, sdnp, H, WT(W_NODE_COMB),
+              [&](int r, int c, float a) { sdps1[r * H + c] = a * dsiluf_(ps1[r * H + c]); });
+    }
+    __syncthreads();
+    {
+      const float* ps0 = RS.p[RS_PS0] + lb * N * H;
+      mm(N, H, H, sdps1, H, WT(W_POST1),
+              [&](int r, int c, float a) { sdps0[r * H + c] = a * dsiluf_(ps0[r * H + c]); });
+    }
+    __syncthreads();
+    mm(N, H, C, sdps0, H, WT(W_POST0),
+            [&](int r, int c, float a) { sdpsq[r * C + c] = a; });
+    __syncthreads();
+
+    const float* wvmix = W(W_VMIX);
+    const float* w_o_r = W(W_O_R);
+    const float* rbf_m = W(RBF_M);
+    const float* rbf_b = W(RBF_B);
+    const float* pool[3] = {RS.p[RS_POOL0] + lb * N * C, RS.p[RS_POOL1] + lb * N * C,
+                            RS.p[RS_POOL2] + lb * N * C};
+
+    for (int i = 0; i < N; ++i) {
+      const size_t erow = lb * NN + (size_t)i * N;
+
+      // d_pooled for row i; stage the row's residuals
+      for (int c = tid; c < C; c += nt) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+          sdp[k * C + c] = sdvn[k * N + i] * wvmix[c] / n_eff +
+                           2.f * pool[k][i * C + c] * sdpsq[i * C + c] / (n_eff * n_eff);
+      }
+      for (int j = tid; j < N; j += nt) {
+        const float r = RS.p[RS_R][erow + j];
+        sr[j] = r;
+        st[j] = RS.p[RS_T][erow + j];
+        sir[j] = 1.f / (r + 1e-5f);
+#pragma unroll
+        for (int k = 0; k < 3; ++k) sd[k * N + j] = sx[k * N + j] - sx[k * N + i];
+      }
+      load_smem(scf, RS.p[RS_COEFF] + erow * C, N * C);
+      load_smem(she, RS.p[RS_H_E] + erow * H, N * H);
+      load_smem(se0, RS.p[RS_E0] + erow * H, N * H);
+      load_smem(satt, RS.p[RS_ATT] + erow * K, N * K);
+      load_smem(ssem, RS.p[RS_SEM_PRE] + erow * K, N * K);
+      load_smem(srbf, RS.p[RS_RBF] + erow * R, N * R);
+      __syncthreads();
+
+      // pooled_k = sum_j coeff * u_k: d_u_k[j] = coeff[j] . d_pooled_k
+      for (int j = warp; j < N; j += nwarp) {
+        float du[3] = {0.f, 0.f, 0.f};
+        for (int c = lane; c < C; c += 32) {
+          const float cf = scf[j * C + c];
+#pragma unroll
+          for (int k = 0; k < 3; ++k) du[k] += cf * sdp[k * C + c];
+        }
+#pragma unroll
+        for (int k = 0; k < 3; ++k) du[k] = warp_sum(du[k]);
+        if (lane == 0) {
+          const float ir = sir[j];
+          float d_ir = 0.f;
+#pragma unroll
+          for (int k = 0; k < 3; ++k) {
+            sdd[k * N + j] = du[k] * ir;
+            d_ir += du[k] * sd[k * N + j];
+          }
+          sdr[j] = -(ir * ir) * d_ir;
+        }
+      }
+      __syncthreads();
+
+      // coeff = tanh(xm): d_xm = d_coeff * (1 - coeff^2), in place
+      for (int e = tid; e < N * C; e += nt) {
+        const int j = e / C, c = e % C;
+        const float ir = sir[j];
+        const float dc = sdp[c] * (sd[j] * ir) + sdp[C + c] * (sd[N + j] * ir) +
+                         sdp[2 * C + c] * (sd[2 * N + j] * ir);
+        const float cf = scf[e];
+        scf[e] = dc * (1.f - cf * cf);
+      }
+      __syncthreads();
+
+      // d_he_att = d_xm @ w_xmix^T + d_hatt[i] (hatt sums he_att over senders)
+      mm(N, C, HK, scf, C, WT(W_XMIX),
+              [&](int r, int c, float a) { sdha[r * HK + c] = a + sdhatt[i * HK + c]; });
+      __syncthreads();
+
+      // he_att[j, h*K + k] = h_e[j, h] * att[j, k]
+      for (int e = tid; e < N * H; e += nt) {
+        const int j = e / H, h = e % H;
+        float s = 0.f;
+        for (int k = 0; k < K; ++k) s += sdha[j * HK + h * K + k] * satt[j * K + k];
+        sdhe[e] = s;
+      }
+      for (int e = tid; e < N * K; e += nt) {
+        const int j = e / K, k = e % K;
+        float s = 0.f;
+        for (int h = 0; h < H; ++h) s += sdha[j * HK + h * K + k] * she[j * H + h];
+        sdat[e] = s;
+      }
+      __syncthreads();
+
+      // softmax over senders, then celu2: one warp per head
+      for (int k = warp; k < K; k += nwarp) {
+        float s = 0.f;
+        for (int j = lane; j < N; j += 32) s += sdat[j * K + k] * satt[j * K + k];
+        s = warp_sum(s);
+        for (int j = lane; j < N; j += 32) {
+          const float a = satt[j * K + k];
+          const float dl = a * (sdat[j * K + k] - s);
+          const float sp = ssem[j * K + k];
+          sdat[j * K + k] = dl * (sp > 0.f ? 1.f : expf(sp / 2.f));
+        }
+      }
+      __syncthreads();
+      mm(N, K, H, sdat, K, WT(W_SEM),
+              [&](int r, int c, float a) { sdhe[r * H + c] += a; });
+      __syncthreads();
+
+      // h_e = silu(e0) @ w_o1 + b_o1: d_e0 in place of e0
+      mm(N, H, H, sdhe, H, WT(W_O1),
+              [&](int r, int c, float a) { se0[r * H + c] = a * dsiluf_(se0[r * H + c]); });
+      __syncthreads();
+
+      // e0 = o_j[j] + o_i[i] + o_f + r * w_o_r + b_o0
+      for (int e = tid; e < N * H; e += nt) sdoj[e] += se0[e];
+      for (int h = tid; h < H; h += nt) {
+        float s = 0.f;
+        for (int j = 0; j < N; ++j) s += se0[j * H + h];
+        sdoi[i * H + h] = s;
+      }
+      for (int j = warp; j < N; j += nwarp) {
+        float s = 0.f;
+        for (int h = lane; h < H; h += 32) s += se0[j * H + h] * w_o_r[h];
+        s = warp_sum(s);
+        if (lane == 0) sdr[j] += s;
+      }
+      // o_f = (rbf * pre) @ w_o_f
+      mm(N, H, R, se0, H, WT(W_O_F),
+              [&](int r, int c, float a) {
+                const float pre = saj[r * R + c] + sai[i * R + c];
+                sdrbf[r * R + c] = a * pre;
+                sdpre[r * R + c] = a * srbf[r * R + c];
+              });
+      __syncthreads();
+
+      for (int e = tid; e < N * R; e += nt) sdaj[e] += sdpre[e];
+      for (int c = tid; c < R; c += nt) {
+        float s = 0.f;
+        for (int j = 0; j < N; ++j) s += sdpre[j * R + c];
+        sdai[i * R + c] = s;
+      }
+      // rbf = exp(-b (t - m)^2), t = exp(-r)
+      for (int j = warp; j < N; j += nwarp) {
+        const float t = st[j];
+        float s = 0.f;
+        for (int c = lane; c < R; c += 32)
+          s += sdrbf[j * R + c] * srbf[j * R + c] * (-2.f * rbf_b[c] * (t - rbf_m[c]));
+        s = warp_sum(s);
+        if (lane == 0) sdr[j] += (-t) * s;
+      }
+      __syncthreads();
+
+      // r = sqrt(relu(s) + eps), s = |d0|^2, d0 = x[j] - x[i]
+      for (int j = tid; j < N; j += nt) {
+        const float r = sr[j];
+        const float ds = sdr[j] * (0.5f / r) * (r * r > kEps ? 1.f : 0.f);
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          const float v = sdd[k * N + j] + 2.f * sd[k * N + j] * ds;
+          sdd[k * N + j] = v;
+          sdxs[k * N + j] += v;
+        }
+      }
+      __syncthreads();
+      if (tid < 3) {
+        float s = 0.f;
+        for (int j = 0; j < N; ++j) s += sdd[tid * N + j];
+        sdxr[tid * N + i] += s;
+      }
+      __syncthreads();
+    }
+
+    // node projections: d_h += d_a_j w_in_j^T + d_a_i w_in_i^T + d_o_j w_o_j^T + d_o_i w_o_i^T
+    mm(N, R, F, sdaj, R, WT(W_IN_J),
+            [&](int r, int c, float a) { sdh[r * F + c] += a; });
+    __syncthreads();
+    mm(N, R, F, sdai, R, WT(W_IN_I),
+            [&](int r, int c, float a) { sdh[r * F + c] += a; });
+    __syncthreads();
+    mm(N, H, F, sdoj, H, WT(W_O_J),
+            [&](int r, int c, float a) { sdh[r * F + c] += a; });
+    __syncthreads();
+    mm(N, H, F, sdoi, H, WT(W_O_I),
+            [&](int r, int c, float a) { sdh[r * F + c] += a; });
+    for (int e = tid; e < 3 * N; e += nt) {
+      sdx[e] = sdx[e] + sdxs[e] - sdxr[e];
+      sdv[e] = sdvo[e];
+    }
+    __syncthreads();
+  }
+
+  for (int e = tid; e < N * F; e += nt) dh_out[(size_t)b * N * F + e] = sdh[e];
+  for (int e = tid; e < 3 * N; e += nt) {
+    const int k = e / N, i = e % N;
+    dx_out[((size_t)k * B + b) * N + i] = sdx[e];
+    dv_out[((size_t)k * B + b) * N + i] = sdv[e];
+  }
+}
+
+}  // namespace sake
+
+extern "C" long long sake_resid_bwd_smem_bytes(int B, int N, int F, int H, int R, int K,
+                                               int C, int depth) {
+  sake::Dims d{B, N, F, H, R, K, C, depth};
+  return sake::bwd_smem_floats(d) * (long long)sizeof(float);
+}
+
+extern "C" int sake_resid_bwd(const float* bh, const float* bx, const float* bv,
+                              const float* upd, const void* const* leaf_ptrs,
+                              const void* const* leaf_t_ptrs, const long long* leaf_strides,
+                              void* const* resid_ptrs, const float* dh_fin,
+                              const float* dx_fin, const float* dv_fin, float* dh_out,
+                              float* dx_out, float* dv_out, int B, int N, int F, int H,
+                              int R, int K, int C, int depth, void* stream) {
+  sake::Dims d{B, N, F, H, R, K, C, depth};
+  sake::Leaves L, LT;
+  for (int i = 0; i < sake::kLeaves; ++i) {
+    L.p[i] = static_cast<const float*>(leaf_ptrs[i]);
+    LT.p[i] = static_cast<const float*>(leaf_t_ptrs[i]);
+    L.stride[i] = LT.stride[i] = leaf_strides[i];
+  }
+  sake::Resids RS;
+  for (int i = 0; i < sake::kResids; ++i) RS.p[i] = static_cast<float*>(resid_ptrs[i]);
+  const size_t smem = sake::bwd_smem_floats(d) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      sake::resid_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  sake::resid_bwd_kernel<<<B, 512, smem, static_cast<cudaStream_t>(stream)>>>(
+      d, bh, bx, bv, upd, L, LT, RS, dh_fin, dx_fin, dv_fin, dh_out, dx_out, dv_out);
+  return (int)cudaGetLastError();
+}

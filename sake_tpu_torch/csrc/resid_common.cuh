@@ -1,0 +1,212 @@
+// Shared pieces of the resid_ef kernels: leaf/residual tables and the
+// block-level products both kernels are built from.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace sake {
+
+constexpr int kLeaves = 29;
+constexpr int kResids = 17;
+
+// Order of sake_tpu_torch.kernels.leaves.LEAF_NAMES.
+enum Leaf {
+  W_IN_J, W_IN_I, B_IN, RBF_M, RBF_B,
+  W_O_J, W_O_I, W_O_F, W_O_R, B_O0, W_O1, B_O1,
+  W_SEM, B_SEM, W_XMIX,
+  W_POST0, B_POST0, W_POST1, B_POST1,
+  W_NODE_H, W_NODE_AGG, W_NODE_COMB, B_NODE0, W_NODE1, B_NODE1,
+  W_VMIX, W_VEL0, B_VEL0, W_VEL1
+};
+
+// Order of EDGE_RESIDS + NODE_RESIDS in sake_tpu_torch.kernels.resid_ef.
+enum Resid {
+  RS_R, RS_T, RS_RBF, RS_E0, RS_H_E, RS_SEM_PRE, RS_ATT, RS_COEFF,
+  RS_POOL0, RS_POOL1, RS_POOL2, RS_PS0, RS_PS1, RS_NODE_PRE, RS_UV,
+  RS_G0, RS_G1
+};
+
+struct Leaves {
+  const float* p[kLeaves];
+  long long stride[kLeaves];  // elements per layer
+  __device__ __forceinline__ const float* at(int leaf, int layer) const {
+    return p[leaf] + stride[leaf] * layer;
+  }
+};
+
+struct Resids {
+  float* p[kResids];
+};
+
+struct Dims {
+  int B, N, F, H, R, K, C, depth;
+};
+
+constexpr float kEps = 1e-5f;  // inside the distance sqrt
+constexpr float kInf = 1e5f;   // subtracted from self-pair logits
+
+__device__ __forceinline__ float sigmoidf_(float x) { return 1.f / (1.f + expf(-x)); }
+__device__ __forceinline__ float siluf_(float x) { return x * sigmoidf_(x); }
+__device__ __forceinline__ float dsiluf_(float x) {
+  const float s = sigmoidf_(x);
+  return s * (1.f + x * (1.f - s));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+constexpr int kTileRows = 7;  // divides aspirin's N = 21: no idle rows
+
+// Block-level products out(r, c) = sum_k A(r, k) * W[k * m + c] for r < n,
+// c < m, each output handed to st(r, c, value). W is row-major (kd, m) in
+// device memory (L2-resident), A lives in shared memory. Every variant
+// sums over k in order.
+//
+// Register-tiled: each thread owns kTileRows rows and CT (2 or 4)
+// adjacent columns and reads A (row stride lda) as float4, so one shared
+// load feeds 4 * CT FMAs. Needs kd, m and lda to be multiples of 4 and
+// 16-byte aligned A and W.
+template <int CT, class ST>
+__device__ __forceinline__ void mm_tiled(int n, int kd, int m, const float* A, int lda,
+                                         const float* __restrict__ W, ST st) {
+  static_assert(CT == 2 || CT == 4, "column tile is a float2 or a float4");
+  const int mc = m / CT;
+  const int nch = (n + kTileRows - 1) / kTileRows;
+  for (int it = threadIdx.x; it < nch * mc; it += blockDim.x) {
+    const int c = (it % mc) * CT;
+    const int r0 = (it / mc) * kTileRows;
+    float acc[kTileRows][CT];
+#pragma unroll
+    for (int q = 0; q < kTileRows; ++q)
+#pragma unroll
+      for (int t = 0; t < CT; ++t) acc[q][t] = 0.f;
+    for (int k = 0; k < kd; k += 4) {
+      float w[4][CT];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float* wk = W + (size_t)(k + u) * m + c;
+        if constexpr (CT == 4) {
+          const float4 v = __ldg(reinterpret_cast<const float4*>(wk));
+          w[u][0] = v.x; w[u][1] = v.y; w[u][2] = v.z; w[u][3] = v.w;
+        } else {
+          const float2 v = __ldg(reinterpret_cast<const float2*>(wk));
+          w[u][0] = v.x; w[u][1] = v.y;
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kTileRows; ++q) {
+        const float4 a =
+            *reinterpret_cast<const float4*>(A + (size_t)min(r0 + q, n - 1) * lda + k);
+#pragma unroll
+        for (int t = 0; t < CT; ++t) {
+          acc[q][t] = fmaf(a.x, w[0][t], acc[q][t]);
+          acc[q][t] = fmaf(a.y, w[1][t], acc[q][t]);
+          acc[q][t] = fmaf(a.z, w[2][t], acc[q][t]);
+          acc[q][t] = fmaf(a.w, w[3][t], acc[q][t]);
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kTileRows; ++q) {
+      const int r = r0 + q;
+      if (r < n) {
+#pragma unroll
+        for (int t = 0; t < CT; ++t) st(r, c + t, acc[q][t]);
+      }
+    }
+  }
+}
+
+// One output per thread: out(r, c) as a dot product over k. A warp covers
+// consecutive columns of one row, so A is a broadcast and W coalesced.
+// For products of medium width (m = 50 or 64 here), where the tiled
+// product would leave most of the block idle.
+template <class AF, class ST>
+__device__ __forceinline__ void mm_cols(int n, int kd, int m, AF A,
+                                        const float* __restrict__ W, ST st) {
+  for (int it = threadIdx.x; it < n * m; it += blockDim.x) {
+    const int r = it / m, c = it % m;
+    float acc = 0.f;
+#pragma unroll 8
+    for (int k = 0; k < kd; ++k) acc = fmaf(A(r, k), __ldg(W + (size_t)k * m + c), acc);
+    st(r, c, acc);
+  }
+}
+
+// One warp per row for very narrow products (m <= 8, e.g. the 4 semantic
+// heads): lanes split k, a shuffle tree sums the partials.
+template <class ST>
+__device__ __forceinline__ void mm_warp(int n, int kd, int m, const float* A, int lda,
+                                        const float* __restrict__ W, ST st) {
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < n; r += blockDim.x >> 5) {
+    float acc[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[c] = 0.f;
+    for (int k = lane; k < kd; k += 32) {
+      const float a = A[r * lda + k];
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        if (c < m) acc[c] = fmaf(a, __ldg(W + (size_t)k * m + c), acc[c]);
+    }
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      if (c < m) {
+        const float v = warp_sum(acc[c]);
+        if (lane == 0) st(r, c, v);
+      }
+    }
+  }
+}
+
+// A @ W for A in shared memory, picked by width (uniform across the block):
+// register-tiled with CT-column tiles for products at least MinCols wide
+// when widths and alignments allow, a warp per row for m <= 8, else one
+// output per thread. Each kernel fixes both for its block size; measured
+// on an H100 at aspirin's widths: K1 (256 threads) is fastest with 4-column
+// tiles for every product from 16 columns up, K2 (512 threads) with
+// 2-column tiles for the products of 128 columns and more only.
+template <int CT, int MinCols, class ST>
+__device__ __forceinline__ void mm_smem(int n, int kd, int m, const float* A, int lda,
+                                        const float* __restrict__ W, ST st) {
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(A) | reinterpret_cast<uintptr_t>(W);
+  const bool aligned = (addr & 15) == 0;
+  if (m >= MinCols && aligned && ((kd | m | lda) & 3) == 0) {
+    mm_tiled<CT>(n, kd, m, A, lda, W, st);
+  } else if (m <= 8) {
+    mm_warp(n, kd, m, A, lda, W, st);
+  } else {
+    mm_cols(n, kd, m, [&](int r, int k) { return A[r * lda + k]; }, W, st);
+  }
+}
+
+// dst[0:n] = src[0:n], shared <- device, in float4 where alignment allows.
+__device__ __forceinline__ void load_smem(float* dst, const float* src, int n) {
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src);
+  if (((addr & 15) | (n & 3)) == 0) {
+    const float4* s4 = reinterpret_cast<const float4*>(src);
+    float4* d4 = reinterpret_cast<float4*>(dst);
+    for (int e = threadIdx.x; e < (n >> 2); e += blockDim.x) d4[e] = s4[e];
+  } else {
+    for (int e = threadIdx.x; e < n; e += blockDim.x) dst[e] = src[e];
+  }
+}
+
+// Carves 16-byte-aligned float buffers out of dynamic shared memory. With
+// a null base it only counts, which is how the host sizes the allocation
+// with the same code the kernel uses.
+struct Carver {
+  float* base;
+  long long off = 0;
+  __host__ __device__ float* take(long long n) {
+    float* p = base ? base + off : nullptr;
+    off += (n + 3) & ~3LL;
+    return p;
+  }
+};
+
+}  // namespace sake

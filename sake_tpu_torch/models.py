@@ -1,0 +1,88 @@
+"""The SAKE model and its energy readout.
+
+Port of ``sake_tpu/models.py`` (``SAKEModel``, ``energy_readout``,
+``energy_and_forces``). ``SAKEModel`` holds linen-named submodules
+(``embedding_in``, ``layer_0`` ... ``layer_{depth-1}``, ``embedding_out``);
+its ``forward`` runs ``kernels/functional.model_forward`` and its
+``energy_and_forces`` goes through ``kernels/dispatch`` (the K1 + K2 CUDA
+kernels on a GPU).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from sake_tpu_torch.blocks import MLP, Dense
+from sake_tpu_torch.kernels.dispatch import dispatch_energy_forces
+from sake_tpu_torch.kernels.functional import ModelParams, model_forward, per_layer
+from sake_tpu_torch.layers import DenseSAKELayer
+from sake_tpu_torch.utils import coloring
+
+
+class SAKEModel(nn.Module):
+    """Stack of dense SAKE layers with in/out embeddings.
+
+    ``in_features`` is the width of the node features ``h`` (flax infers
+    it at ``init``). ``generator`` seeds the initialization.
+    """
+
+    def __init__(self, hidden_features: int, out_features: int = 1, depth: int = 4,
+                 n_heads: int = 4, update: Sequence[bool] | bool = True, *,
+                 in_features: int, device=None, generator: torch.Generator | None = None):
+        super().__init__()
+        kw = dict(device=device, generator=generator)
+        self.n_heads = n_heads
+        self.depth = depth
+        self.updates = per_layer(update, depth)
+        self.embedding_in = Dense(in_features, hidden_features, **kw)
+        for i, upd in enumerate(self.updates):
+            self.add_module(
+                f"layer_{i}",
+                DenseSAKELayer(hidden_features, hidden_features, hidden_features,
+                               n_heads=n_heads, update=upd,
+                               velocity=any(self.updates[:i]), **kw),
+            )
+        self.embedding_out = MLP(hidden_features, (hidden_features, out_features), **kw)
+
+    def layers(self):
+        return [getattr(self, f"layer_{i}") for i in range(self.depth)]
+
+    def functional_params(self) -> ModelParams:
+        out = self.embedding_out
+        return ModelParams(
+            self.embedding_in.kernel, self.embedding_in.bias,
+            tuple(layer.params() for layer in self.layers()),
+            out.dense_0.kernel, out.dense_0.bias, out.dense_1.kernel, out.dense_1.bias,
+        )
+
+    def forward(self, h, x, v=None, mask=None):
+        """``(out (B, N, out), x (B, N, 3), v)``."""
+        return model_forward(self.functional_params(), h, x, v, n_heads=self.n_heads,
+                             update=self.updates, mask=mask)
+
+    def energy_and_forces(self, h, x, mask=None):
+        """Raw (uncolored) ``E (B,)`` and ``F = -dE/dx (B, N, 3)``, summed over
+        atoms and outputs, through the dispatch (K1 + K2 on CUDA tensors)."""
+        return dispatch_energy_forces(self.functional_params(), h, x, mask,
+                                      n_heads=self.n_heads, update=self.updates)
+
+
+def energy_readout(h_out, mask=None, mean=0.0, std=1.0):
+    """``E = std * sum_i h_i + mean`` with optional node ``mask (..., N)``."""
+    if mask is not None:
+        h_out = h_out * mask[..., None]
+    return coloring(h_out.sum(dim=(-2, -1)), mean, std)
+
+
+def energy_and_forces(model: nn.Module, h, x, mask=None, mean=0.0, std=1.0):
+    """Energy and ``F = -dE/dx`` by autograd through ``model.forward``
+    (the plain path; ``SAKEModel.energy_and_forces`` is the kernel path)."""
+    with torch.enable_grad():
+        xg = x.detach().requires_grad_(True)
+        h_out, _, _ = model(h, xg, mask=mask)
+        e = energy_readout(h_out, mask=mask, mean=mean, std=std)
+        (g,) = torch.autograd.grad(e.sum(), xg)
+    return e.detach(), -g

@@ -1,0 +1,42 @@
+"""The CUDA build of the port: what can be checked without ``nvcc``."""
+
+import pytest
+
+from sake_tpu_torch.kernels import build, resid_ef
+from sake_tpu_torch.kernels.leaves import LEAF_NAMES
+
+
+def test_source_hash_covers_every_source(tmp_path, monkeypatch):
+    names = {p.name for p in build._sources()}
+    assert {"resid_fwd.cu", "resid_bwd.cu", "resid_common.cuh"} <= names
+    base = build.source_hash()
+    for src in build._sources():
+        copy = tmp_path / "csrc"
+        copy.mkdir(exist_ok=True)
+        for p in build._sources():
+            text = p.read_text()
+            (copy / p.name).write_text(text + ("\n// edit\n" if p == src else ""))
+        monkeypatch.setattr(build, "CSRC", copy)
+        assert build.source_hash() != base, src.name
+        monkeypatch.setattr(build, "CSRC", src.parent)
+    assert build.source_hash() == base
+
+
+def test_build_without_nvcc_raises_clearly(tmp_path, monkeypatch):
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(build.os.path, "exists", lambda p: False)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build.build()
+
+
+def test_kernel_tables_match_the_python_order():
+    """The C enums index leaves and residuals by position."""
+    src = (build.CSRC / "resid_common.cuh").read_text()
+    leaf_enum = src[src.index("enum Leaf {"):src.index("};", src.index("enum Leaf {"))]
+    resid_enum = src[src.index("enum Resid {"):src.index("};", src.index("enum Resid {"))]
+    leaves = [t.strip() for t in leaf_enum.split("{")[1].split(",") if t.strip()]
+    resids = [t.strip() for t in resid_enum.split("{")[1].split(",") if t.strip()]
+    assert leaves == [n.upper() for n in LEAF_NAMES]
+    assert [r.removeprefix("RS_") for r in resids] == [n.upper() for n in resid_ef.RESIDS]
