@@ -2,26 +2,43 @@
 
     python3 chip_smoke.py
 
-Phases (each prints its own line; any failure exits non-zero):
+Phases (each prints its own lines; any failure exits non-zero):
 
 1. device: requires CUDA (no CPU fallback); prints the card's name and
-   power limit as nvidia-smi reports them.
-2. build: compiles the K1/K2 CUDA sources of ``sake_tpu_torch/csrc`` with
-   nvcc and prints the build time.
-3. kernels vs plain: at full width (hidden 64, C 256, R 50, 4 heads),
+   power limit as nvidia-smi reports them. TF32 is off for matmuls and cuDNN.
+2. build: compiles ``sake_tpu_torch/csrc/*.cu`` with nvcc (one process per
+   source, in parallel) and prints the build time and ptxas's register
+   and spill lines.
+3. kernels vs plain, MD17: at full width (hidden 64, C 256, R 50, 4 heads),
    aspirin's N = 21 and B = 37, K1 against ``resid_fwd_plain`` (boundary
-   states and all 17 residuals) and K2 against ``resid_bwd_plain``
-   (dh, dx, dv); max relative error = max|kernel - plain| / max|plain| per
-   tensor, limit 1e-4. TF32 is off for matmuls and cuDNN.
-4. slice: ``SAKEModel(64, depth=6, n_heads=4)`` from a seeded init serves
-   aspirin E + F requests of B in {1, 37, 512, 2048} through
+   states and all 17 residuals) and K2 against ``resid_bwd_plain`` (dh, dx,
+   dv), unmasked and with random edge masks; max relative error =
+   max|kernel - plain| / max|plain| per tensor, limit 1e-4.
+4. MD17 slice: ``SAKEModel(64, depth=6, n_heads=4)`` from a seeded init
+   serves aspirin E + F requests of B in {1, 37, 512, 2048} through
    ``tasks/md17.make_energy_force_fn`` -> dispatch -> K1 + K2, checked
    against the plain f32 autograd path (chunks of 256):
    ``f_err = max|dF| / max|F|`` <= 1e-4 and ``e_err = max|dE| / max|E|``
-   on raw (uncolored) energies <= 1e-5. The launch counters must move, and
-   an edge mask on CUDA tensors must raise ``NotImplementedError``.
-   Then both paths are timed at B = 2048 in chunks of 512 with CUDA events,
-   in turns, and the kernel path's time is split into K1 + K2 and the rest.
+   on raw (uncolored) energies <= 1e-5. The launch counters must move. Then
+   both paths are timed at B = 2048 in chunks of 512 with CUDA events, in
+   turns, and the kernel path's time is split into K1 + K2 and the rest.
+5. kernels vs plain, QM9: a ``synthesize_qm9`` training batch at the
+   ``qm9_kernel`` widths (B = 64, N = 29, hidden 64, depth 6) with its real
+   masks: the masked K1 (boundaries and all 17 residuals), the forward
+   without residuals (h_fin, x_fin), the training pullback (dh, dx, dv) and
+   the parameter-gradient kernel (each of the 29 leaves of each layer),
+   limit 1e-4 relative per tensor.
+6. QM9 slice: ``tasks/qm9.run`` at the ``qm9_kernel`` settings (kernel
+   backbone, one device, batch 64, 4096 synthetic molecules) for 2 epochs
+   of 53 steps and the valid/test evaluation through the forward without
+   residuals. Every kernel of the path must launch, every step's loss must
+   be finite and the last below the first.
+7. QM9 step parity and timing: from one seeded init, step 1's loss and
+   every parameter gradient of the kernel branch against the plain branch
+   (1e-4 relative per leaf), the first 5 steps' losses (1e-3 relative);
+   then the train step of both branches timed in turns (every run
+   printed) and each kernel timed at the slice's shapes beside its plain
+   version and its bound.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -39,11 +56,17 @@ import numpy as np
 
 K1_TOL = K2_TOL = 1e-4
 F_TOL, E_TOL = 1e-4, 1e-5
+QM9_TOL = 1e-4  # kernels and step-1 gradients, relative per tensor
+LOSS_TOL = 1e-3  # the first steps' losses, relative
 FULL = dict(hidden=64, depth=6, heads=4)
 REQUESTS = (1, 37, 512, 2048)
 SEED = 0
 CHECK_CHUNK = 256  # molecules per autograd pass of the plain reference in the checks
 PATH_CHUNK = 512  # resid_energy_forces' chunk; the plain path is timed at it too
+QM9_EPOCHS = 2
+PARITY_STEPS = 5
+# H100 SXM peaks (NVIDIA's data sheet): f32 outside the tensor cores, HBM3
+PEAK_F32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 
 
 def fail(msg: str):
@@ -53,6 +76,10 @@ def fail(msg: str):
 
 def rel_err(got, want) -> float:
     return float((got - want).abs().max() / (want.abs().max() + 1e-30))
+
+
+def abs_err(got, want) -> float:
+    return float((got - want).abs().max())
 
 
 def cuda_ms(fn, reps: int = 3, warmup: int = 1) -> float:
@@ -70,6 +97,53 @@ def cuda_ms(fn, reps: int = 3, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def nbytes(*trees) -> int:
+    """Bytes of every tensor in nested tuples, lists and dicts."""
+    import torch
+
+    total = 0
+    for t in trees:
+        if isinstance(t, torch.Tensor):
+            total += t.numel() * t.element_size()
+        elif isinstance(t, dict):
+            total += nbytes(*t.values())
+        elif isinstance(t, (list, tuple)):
+            total += nbytes(*t)
+    return total
+
+
+def layer_fma(N, F, H, R, K, C):
+    """Multiply-adds of the matrix products of one molecule and layer, for
+    the forward, the input pullback and the parameter-gradient contractions.
+    Elementwise work (exp, tanh, sigmoid, sums) is not counted, so bounds
+    built on these counts are lower bounds."""
+    HK, E = H * K, N * N
+    fwd = (E * (R * H + H * H + H * K + HK * C + 3 * C)  # o_f, o1, sem, x_mixing, pooled
+           + N * (F * (2 * R + 2 * H) + C * H + 2 * H * H + 2 * F * H + HK * H + H * F
+                  + 3 * C + H))  # projections, post MLP, node MLP, gate, v_mixing
+    bwd = (E * (C * HK + 2 * HK + K * H + H * H + H * R + 6 * C)
+           + N * (2 * F * R + 2 * R * F + 2 * H * F + 3 * H * F + HK * H + 2 * H * H
+                  + C * H + 3 * C + H))
+    grads = (E * (R * H + H * H + H * K + HK * C)
+             + N * (2 * F * R + 2 * F * H + C * H + H * H + F * H + HK * H + H * H
+                    + H * F + 3 * C + F * H + H))
+    return dict(fwd=fwd, bwd=bwd, grads=grads)
+
+
+def bound(fma: float, moved: int):
+    """``(bound_ms, bound_by)``: the larger of the f32 operations (2 per
+    multiply-add) over the card's peak and the bytes over its memory rate."""
+    t_ops, t_bytes = 2 * fma / PEAK_F32_FLOPS * 1e3, moved / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def kernel_entry(name, source, replaces, launches, max_abs_err, ms, plain_ms, fma, moved):
+    bound_ms, bound_by = bound(fma, moved)
+    return dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
+                max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)  # no one PyTorch call runs a layer stack
+
+
 def main() -> int:
     import torch
 
@@ -81,7 +155,6 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from sake_tpu_torch.data.md17 import synthesize_md17
     from sake_tpu_torch.kernels import build, resid_ef
-    from sake_tpu_torch.kernels.dispatch import dispatch_energy_forces
     from sake_tpu_torch.kernels.functional import embed, energy_and_forces_fn
     from sake_tpu_torch.kernels.leaves import transposed, wide_stack
     from sake_tpu_torch.tasks.md17 import (
@@ -108,7 +181,7 @@ def main() -> int:
     build.load()
     print(f"BUILD ok {time.perf_counter() - t0:.2f} s -> {lib_path.parent.name}", flush=True)
     for line in (lib_path.parent / "ptxas.txt").read_text().splitlines():
-        if "registers" in line or "spill" in line:
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
             print(f"PTXAS {line.strip()}", flush=True)
 
     data = synthesize_md17(n_samples=max(REQUESTS), seed=SEED)
@@ -123,7 +196,7 @@ def main() -> int:
     leaves = wide_stack(params, cfg.n_heads)
     N = len(data.z)
 
-    # -- 3. kernels vs plain at full width, B = 37 ------------------------------
+    # -- 3. kernels vs plain at full width, B = 37, unmasked and masked ---------
     rng = np.random.RandomState(SEED + 1)
     Bk = 37
     tdev = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
@@ -131,33 +204,35 @@ def main() -> int:
     h37 = embed(params, species.to(dev).expand(Bk, N, -1)).contiguous()
     v37 = tdev(0.1 * rng.randn(3, Bk, N))
     upd = [1.0, 0.3, 0.0, 1.0, 1.0, 1.0]  # exercises the gate at 0 < upd < 1
-    with torch.no_grad():
-        k1 = resid_ef.resid_fwd(leaves, h37, x37, v37, upd)
-        p1 = resid_ef.resid_fwd_plain(leaves, h37, x37, v37, upd)
-        torch.cuda.synchronize()
-        k1_err = {n: rel_err(a, b) for n, a, b in zip(
-            ("bh", "bx", "bv", "h_fin", "x_fin", "v_fin"), k1[:6], p1[:6])}
-        k1_err.update({n: rel_err(k1.resid[n], p1.resid[n]) for n in resid_ef.RESIDS})
-        k1_abs = max(float((a - b).abs().max()) for a, b in
-                     [*zip(k1[:6], p1[:6]), *((k1.resid[n], p1.resid[n]) for n in resid_ef.RESIDS)])
-        seeds = (tdev(rng.randn(Bk, N, FULL["hidden"])), tdev(rng.randn(3, Bk, N)),
-                 tdev(rng.randn(3, Bk, N)))
-        k2 = resid_ef.resid_bwd(leaves, p1, upd, *seeds)
-        p2 = resid_ef.resid_bwd_plain(leaves, p1, upd, *seeds)
-        torch.cuda.synchronize()
-    k2_err = {n: rel_err(a, b) for n, a, b in zip(("dh", "dx", "dv"), k2, p2)}
-    k2_abs = max(float((a - b).abs().max()) for a, b in zip(k2, p2))
-    worst1, worst2 = max(k1_err, key=k1_err.get), max(k2_err, key=k2_err.get)
-    print(f"K1 vs plain (B={Bk}, N={N}, depth 6): max rel err {k1_err[worst1]:.3e} ({worst1}), "
-          f"max abs err {k1_abs:.3e}", flush=True)
-    print("K1 per tensor " + json.dumps({k: float(f"{v:.3e}") for k, v in k1_err.items()}),
-          flush=True)
-    print(f"K2 vs plain: max rel err {k2_err[worst2]:.3e} ({worst2}), max abs err {k2_abs:.3e} "
-          + json.dumps({k: float(f"{v:.3e}") for k, v in k2_err.items()}), flush=True)
-    if not (k1_err[worst1] <= K1_TOL and k2_err[worst2] <= K2_TOL):
-        fail(f"kernel vs plain beyond {K1_TOL}")
+    nm37 = (np.arange(N)[None] < rng.randint(3, N + 1, size=Bk)[:, None]).astype(np.float32)
+    nm37[0] = 0.0  # one fully padded molecule
+    masks = {"unmasked": None, "masked": tdev((nm37[:, :, None] * nm37[:, None, :])[..., None])}
+    abs_md17 = {"resid_fwd": 0.0, "resid_bwd": 0.0}
+    for label, m4 in masks.items():
+        with torch.no_grad():
+            k1 = resid_ef.resid_fwd(leaves, h37, x37, v37, upd, mask=m4)
+            p1 = resid_ef.resid_fwd_plain(leaves, h37, x37, v37, upd, mask=m4)
+            seeds = (tdev(rng.randn(Bk, N, FULL["hidden"])), tdev(rng.randn(3, Bk, N)),
+                     tdev(rng.randn(3, Bk, N)))
+            k2 = resid_ef.resid_bwd(leaves, p1, upd, *seeds, mask=m4)
+            p2 = resid_ef.resid_bwd_plain(leaves, p1, upd, *seeds, mask=m4)
+            torch.cuda.synchronize()
+        pairs1 = [*zip(("bh", "bx", "bv", "h_fin", "x_fin", "v_fin"), k1[:6], p1[:6]),
+                  *((n, k1.resid[n], p1.resid[n]) for n in resid_ef.RESIDS)]
+        k1_err = {n: rel_err(a, b) for n, a, b in pairs1}
+        k2_err = {n: rel_err(a, b) for n, a, b in zip(("dh", "dx", "dv"), k2, p2)}
+        abs_md17["resid_fwd"] = max(abs_md17["resid_fwd"], *(abs_err(a, b) for _, a, b in pairs1))
+        abs_md17["resid_bwd"] = max(abs_md17["resid_bwd"], *(abs_err(a, b) for a, b in zip(k2, p2)))
+        worst1, worst2 = max(k1_err, key=k1_err.get), max(k2_err, key=k2_err.get)
+        print(f"K1 vs plain {label} (B={Bk}, N={N}, depth 6): max rel err {k1_err[worst1]:.3e} "
+              f"({worst1}) " + json.dumps({k: float(f"{v:.3e}") for k, v in k1_err.items()}),
+              flush=True)
+        print(f"K2 vs plain {label}: max rel err {k2_err[worst2]:.3e} ({worst2}) "
+              + json.dumps({k: float(f"{v:.3e}") for k, v in k2_err.items()}), flush=True)
+        if not (k1_err[worst1] <= K1_TOL and k2_err[worst2] <= K2_TOL):
+            fail(f"{label} kernel vs plain beyond {K1_TOL}")
 
-    # -- 4. the slice: serve aspirin E + F through K1 + K2 -----------------------
+    # -- 4. the MD17 slice: serve aspirin E + F through K1 + K2 -----------------
     serve = make_energy_force_fn(model, species, e_mean, e_std)
 
     def plain_ef(x, chunk=CHECK_CHUNK):
@@ -171,24 +246,15 @@ def main() -> int:
         return torch.cat(es), torch.cat(fs)
 
     xs_all = torch.as_tensor(data.x, device=dev)
-    # an edge mask on CUDA tensors raises: no silent plain path
-    try:
-        dispatch_energy_forces(params, species.to(dev).expand(2, N, -1), xs_all[:2],
-                               torch.ones(2, N, N, device=dev))
-    except NotImplementedError as exc:
-        print(f"MASK a CUDA edge mask raises NotImplementedError ({exc})", flush=True)
-    else:
-        fail("a CUDA edge mask did not raise NotImplementedError")
-
     resid_ef.resid_fwd.launches = 0
     resid_ef.resid_bwd.launches = 0
     answers = {B: serve(xs_all[:B]) for B in REQUESTS}
     torch.cuda.synchronize()
-    launches = {"resid_fwd": resid_ef.resid_fwd.launches,
-                "resid_bwd": resid_ef.resid_bwd.launches}
-    print(f"SLICE launches {json.dumps(launches)}", flush=True)
-    if min(launches.values()) == 0:
-        fail("the main path did not launch every kernel")
+    md17_launches = {"resid_fwd": resid_ef.resid_fwd.launches,
+                     "resid_bwd": resid_ef.resid_bwd.launches}
+    print(f"SLICE launches {json.dumps(md17_launches)}", flush=True)
+    if min(md17_launches.values()) == 0:
+        fail("the MD17 path did not launch every kernel")
     worst = {"f_err": 0.0, "e_err": 0.0}
     for B, (e, f) in answers.items():
         if e.shape != (B, 1) or f.shape != (B, N, 3):
@@ -248,22 +314,265 @@ def main() -> int:
           f"path's {ms_kernel:.3f} ms; outside {outside:.3f} ms "
           f"({100 * outside / ms_kernel:.2f}%): leaf restaging {t_stage:.3f} ms, "
           f"embed {t_embed:.3f} ms, readout seed {n_chunks}x{t_seed:.3f} ms", flush=True)
-
-    kernels = [
-        dict(name="resid_fwd", route="cuda", source="sake_tpu_torch/csrc/resid_fwd.cu",
-             replaces="sake_tpu/kernels/resid_ef.py:1099", launches=launches["resid_fwd"],
-             max_abs_err=k1_abs, ms=t_k1, plain_ms=t_p1),
-        dict(name="resid_bwd", route="cuda", source="sake_tpu_torch/csrc/resid_bwd.cu",
-             replaces="sake_tpu/kernels/resid_ef.py:1211", launches=launches["resid_bwd"],
-             max_abs_err=k2_abs, ms=t_k2, plain_ms=t_p2),
-    ]
     print("SLICE " + json.dumps({"evals_per_s_kernel": 2048e3 / ms_kernel,
                                  "evals_per_s_plain": 2048e3 / ms_plain, **worst}), flush=True)
+    dims21 = (N, FULL["hidden"], FULL["hidden"], 50, FULL["heads"], 256)
+    fma21 = {k: v * PATH_CHUNK * cfg.depth for k, v in layer_fma(*dims21).items()}
+    kernels = [
+        kernel_entry("resid_fwd", "sake_tpu_torch/csrc/resid_fwd.cu",
+                     "sake_tpu/kernels/resid_ef.py:1099", md17_launches["resid_fwd"],
+                     abs_md17["resid_fwd"], t_k1, t_p1, fma21["fwd"],
+                     nbytes(leaves, hc, xc, zc, fwd)),
+        kernel_entry("resid_bwd", "sake_tpu_torch/csrc/resid_bwd.cu",
+                     "sake_tpu/kernels/resid_ef.py:1211", md17_launches["resid_bwd"],
+                     abs_md17["resid_bwd"], t_k2, t_p2, fma21["bwd"],
+                     nbytes(leaves, leaves_t, fwd.bh, fwd.bx, fwd.bv, fwd.resid, dh, zc, zc,
+                            dh, zc, zc)),
+    ]
+    del fwd, answers
+
+    kernels += qm9_phases(dev, smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def qm9_phases(dev, smi) -> list:
+    """Phases 5-7 (see the module docstring); returns their kernel entries."""
+    import torch
+
+    from sake_tpu_torch.data.qm9 import dimenet_split, load_qm9
+    from sake_tpu_torch.kernels import resid_ef
+    from sake_tpu_torch.kernels.adapter import model_params_from_linen
+    from sake_tpu_torch.kernels.functional import embed
+    from sake_tpu_torch.kernels.leaves import LEAF_NAMES, transposed, wide_stack
+    from sake_tpu_torch.tasks import qm9 as task
+    from sake_tpu_torch.train import (
+        TrainState,
+        make_optimizer,
+        run_epoch,
+        shuffle_batches,
+        tree_leaves,
+    )
+    from sake_tpu_torch.train.metrics import MetricLogger
+
+    cfg = task.QM9Config(use_kernel_backbone=True, data_parallel=False, n_epochs=QM9_EPOCHS)
+    plain_cfg = task.QM9Config(data_parallel=False)
+    data = load_qm9(None, cfg.n_samples, seed=cfg.seed)
+    tr_idx, _, _ = dimenet_split(len(data.x))
+    n_classes = int(data.charges.max()) + 1
+    y_mean, y_std = float(data.y[tr_idx].mean()), float(data.y[tr_idx].std())
+    train = task.prepare_split(data, tr_idx, n_classes, y_mean, y_std, dev)
+    new_model = lambda: task.QM9Model(cfg, n_classes, device=dev,
+                                      generator=torch.Generator().manual_seed(cfg.seed))
+    batches = shuffle_batches(np.random.RandomState(cfg.seed), train, cfg.batch_size)
+    batch = batches[0]
+    B, N = batch["x"].shape[:2]
+    F, depth = cfg.hidden_features, cfg.depth
+
+    # -- 5. kernels vs plain at the QM9 shapes ----------------------------------
+    params, _ = task.make_forward(cfg, new_model())
+    upd = [1.0] * depth
+    with torch.no_grad():
+        kp = params["kp"]
+        leaves = wide_stack(kp, cfg.n_heads)
+        leaves_t = transposed(leaves)
+        h0 = embed(kp, batch["species"]).contiguous()
+        xs = batch["x"].permute(2, 0, 1).contiguous()
+        zs = torch.zeros_like(xs)
+        m4 = batch["edge_mask"][..., None].contiguous()
+        dh = torch.randn(B, N, F, device=dev, generator=torch.Generator(dev).manual_seed(3))
+        k4 = resid_ef.resid_fwd(leaves, h0, xs, zs, upd, mask=m4)
+        p4 = resid_ef.resid_fwd_plain(leaves, h0, xs, zs, upd, mask=m4)
+        k6 = resid_ef.resid_infer(leaves, h0, xs, zs, upd, mask=m4)
+        p6 = resid_ef.resid_infer_plain(leaves, h0, xs, zs, upd, mask=m4)
+        k5 = resid_ef.resid_bwd_rows(leaves, p4, upd, dh, zs, zs, mask=m4, leaves_t=leaves_t)
+        p5 = resid_ef.resid_bwd_rows_plain(leaves, p4, upd, dh, zs, zs, mask=m4)
+        kg = resid_ef.param_grads(leaves, p4, k5[3])
+        pg = resid_ef.param_grads_plain(leaves, p4, p5[3])
+        pg_same = resid_ef.param_grads_plain(leaves, p4, k5[3])
+        torch.cuda.synchronize()
+    checks = {
+        "resid_fwd_masked": [*zip(("bh", "bx", "bv", "h_fin", "x_fin", "v_fin"), k4[:6], p4[:6]),
+                             *((n, k4.resid[n], p4.resid[n]) for n in resid_ef.RESIDS)],
+        "resid_infer": [("h_fin", k6[0], p6[0]), ("x_fin", k6[1], p6[1])],
+        "resid_bwd_rows": [*zip(("dh", "dx", "dv"), k5[:3], p5[:3]),
+                           *((n, k5[3][n], p5[3][n]) for n in resid_ef.ROWS)],
+        "param_grads": [(f"{n}[{l}]", kg[n][l], pg[n][l]) for n in LEAF_NAMES
+                        for l in range(depth)],
+        "param_grads_same_rows": [(f"{n}[{l}]", kg[n][l], pg_same[n][l]) for n in LEAF_NAMES
+                                  for l in range(depth)],
+    }
+    abs_qm9 = {}
+    for name, pairs in checks.items():
+        errs = {n: rel_err(a, b) for n, a, b in pairs}
+        abs_qm9[name] = max(abs_err(a, b) for _, a, b in pairs)
+        w = max(errs, key=errs.get)
+        print(f"QM9 {name} vs plain (B={B}, N={N}, depth {depth}, masked): max rel err "
+              f"{errs[w]:.3e} ({w}), max abs err {abs_qm9[name]:.3e} "
+              + json.dumps({k: float(f"{v:.2e}") for k, v in errs.items()}), flush=True)
+        if errs[w] > QM9_TOL:
+            fail(f"QM9 {name} beyond {QM9_TOL}")
+    del k4, k6, k5, p5, kg, pg, pg_same, checks
+
+    # -- 6. the QM9 slice through tasks/qm9.run -----------------------------------
+    counters = (resid_ef.resid_fwd, resid_ef.resid_infer, resid_ef.resid_bwd_rows,
+                resid_ef.param_grads, resid_ef.resid_bwd)
+    step_losses = []
+
+    def recording_epoch(step_fn, state, batches_):
+        state, losses = run_epoch(step_fn, state, batches_)
+        step_losses.append(losses)
+        return state, losses
+
+    task.run_epoch = recording_epoch  # keeps every step's loss of the run
+    for c in counters:
+        c.launches = 0
+    logger = MetricLogger(stream=sys.stdout)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, results = task.run(cfg, logger, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    task.run_epoch = run_epoch
+    qm9_launches = {c.__name__: c.launches for c in counters}
+    losses = torch.cat(step_losses).cpu()
+    print(f"QM9 SLICE launches {json.dumps(qm9_launches)}; {len(losses)} steps in "
+          f"{wall:.2f} s with the evaluation; loss first {float(losses[0]):.6f} last "
+          f"{float(losses[-1]):.6f}; valid MAE {results['valid_mae']:.6f} "
+          f"(CI {[float(v) for v in results['valid_mae_ci']]}), test MAE "
+          f"{results['test_mae']:.6f}", flush=True)
+    print("QM9 SLICE losses " + json.dumps([float(f"{v:.6f}") for v in losses]), flush=True)
+    if min(v for k, v in qm9_launches.items() if k != "resid_bwd") == 0:
+        fail("the QM9 path did not launch every kernel")
+    if not (torch.isfinite(losses).all() and losses[-1] < losses[0]
+            and losses[-10:].mean() < losses[:10].mean()):
+        fail("the QM9 training loss is not finite or did not fall")
+    if not all(np.isfinite(results[k]) for k in ("valid_mae", "test_mae")):
+        fail("non-finite QM9 evaluation")
+
+    # -- 7. step parity against the plain branch, and timing --------------------
+    branches = {}
+    for name, c in (("kernel", cfg), ("plain", plain_cfg)):
+        prm, fwd_fn = task.make_forward(c, new_model())
+        branches[name] = dict(params=prm, forward=fwd_fn, step=task.make_train_step(fwd_fn),
+                              state=TrainState.create(params=prm, tx=make_optimizer(
+                                  c.learning_rate, weight_decay=c.weight_decay)))
+
+    def loss_and_grads(br):
+        leaves_ = tree_leaves(br["params"])
+        pred = br["forward"](br["params"], batch["species"], batch["x"], batch["edge_mask"],
+                             batch["node_mask"])
+        loss = ((pred - batch["y"]) ** 2).mean()
+        return loss.detach(), dict(zip(map(id, leaves_), torch.autograd.grad(
+            loss, leaves_, allow_unused=True)))
+
+    head_names = [(d, w) for d in ("dense_0", "dense_1") for w in ("kernel", "bias")]
+    lk, gk = loss_and_grads(branches["kernel"])
+    lp, gp = loss_and_grads(branches["plain"])
+    pk = branches["kernel"]["params"]
+    got = resid_ef.flat_params(pk["kp"]) + [pk["head"][d][w] for d, w in head_names]
+    got = [gk[id(t)] for t in got]
+    tree = {}  # the plain branch's gradients by linen name
+    for name, prm in branches["plain"]["params"].items():
+        *path, leaf = name.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        g = gp[id(prm)]
+        node[leaf] = torch.zeros_like(prm) if g is None else g
+    want = (resid_ef.flat_params(model_params_from_linen(tree["backbone"], dev))
+            + [tree["head"]["head"][d][w] for d, w in head_names])
+    grad_err = [rel_err(a, b) for a, b in zip(got, want)]
+    loss_err = abs(float(lk - lp)) / abs(float(lp))
+    print(f"QM9 STEP 1 kernel vs plain branch: loss {float(lk):.7f} vs {float(lp):.7f} "
+          f"(rel {loss_err:.2e}); gradients of {len(got)} leaves, max rel err "
+          f"{max(grad_err):.3e} (leaf {int(np.argmax(grad_err))})", flush=True)
+    if loss_err > QM9_TOL or max(grad_err) > QM9_TOL:
+        fail(f"QM9 step 1 beyond {QM9_TOL}")
+    traj = {}
+    for name, br in branches.items():
+        traj[name] = []
+        for b_ in batches[:PARITY_STEPS]:
+            br["state"], loss = br["step"](br["state"], b_)
+            traj[name].append(float(loss))
+    traj_err = max(abs(a - b) / abs(b) for a, b in zip(traj["kernel"], traj["plain"]))
+    print(f"QM9 STEPS 1-{PARITY_STEPS} losses kernel {json.dumps(traj['kernel'])} plain "
+          f"{json.dumps(traj['plain'])}: max rel diff {traj_err:.2e}", flush=True)
+    if traj_err > LOSS_TOL:
+        fail(f"QM9 step losses differ beyond {LOSS_TOL}")
+
+    # train step time, kernel and plain branches in turns, 5 steps a run
+    runs = {"plain": [], "kernel": []}
+    timed = batches[PARITY_STEPS : PARITY_STEPS + 5]
+    for side in ("plain", "kernel", "kernel", "plain", "plain", "kernel"):
+        br = branches[side]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b_ in timed:
+            br["state"], _ = br["step"](br["state"], b_)
+        torch.cuda.synchronize()
+        runs[side].append((time.perf_counter() - t0) * 1e3 / len(timed))
+    step_ms = {k: sum(v) / len(v) for k, v in runs.items()}
+    # where the kernel branch's step goes: the optimizer update alone, and
+    # the forward + backward without it
+    br = branches["kernel"]
+    zero_grads = [torch.zeros_like(p) for p in tree_leaves(br["params"])]
+    t_opt = cuda_ms(lambda: br["state"].apply_gradients(zero_grads))
+    t_fb = cuda_ms(lambda: loss_and_grads(br))
+    print(f"QM9 TIMING train step at B={B}: kernel {step_ms['kernel']:.2f} ms = "
+          f"{B * 1e3 / step_ms['kernel']:.1f} samples/s; plain {step_ms['plain']:.2f} ms = "
+          f"{B * 1e3 / step_ms['plain']:.1f} samples/s (ms per step, runs {json.dumps(runs)}; "
+          f"{smi})", flush=True)
+    print(f"QM9 BREAKDOWN kernel-branch step {step_ms['kernel']:.2f} ms: forward + backward "
+          f"{t_fb:.2f} ms, optimizer update {t_opt:.2f} ms ({len(zero_grads)} tensors)",
+          flush=True)
+
+    # per kernel at the slice's shapes
+    with torch.no_grad():
+        rows = resid_ef.resid_bwd_rows(leaves, p4, upd, dh, zs, zs, mask=m4,
+                                       leaves_t=leaves_t)[3]
+        grads = resid_ef.param_grads(leaves, p4, rows)
+        t = dict(
+            resid_fwd_masked=(cuda_ms(lambda: resid_ef.resid_fwd(leaves, h0, xs, zs, upd, m4)),
+                              cuda_ms(lambda: resid_ef.resid_fwd_plain(leaves, h0, xs, zs, upd,
+                                                                       m4))),
+            resid_infer=(cuda_ms(lambda: resid_ef.resid_infer(leaves, h0, xs, zs, upd, m4)),
+                         cuda_ms(lambda: resid_ef.resid_infer_plain(leaves, h0, xs, zs, upd,
+                                                                    m4))),
+            resid_bwd_rows=(cuda_ms(lambda: resid_ef.resid_bwd_rows(
+                                leaves, p4, upd, dh, zs, zs, m4, leaves_t=leaves_t)),
+                            cuda_ms(lambda: resid_ef.resid_bwd_rows_plain(
+                                leaves, p4, upd, dh, zs, zs, m4))),
+            param_grads=(cuda_ms(lambda: resid_ef.param_grads(leaves, p4, rows)),
+                         cuda_ms(lambda: resid_ef.param_grads_plain(leaves, p4, rows))),
+        )
+    print(f"QM9 TIMING per kernel (ms, kernel and plain) at B={B}, N={N}, depth {depth}: "
+          + json.dumps({k: [round(a, 3), round(b, 3)] for k, (a, b) in t.items()})
+          + f"; kernels of one step {t['resid_fwd_masked'][0] + t['resid_bwd_rows'][0] + t['param_grads'][0]:.2f} ms",
+          flush=True)
+    fma = {k: v * B * depth for k, v in layer_fma(N, F, F, 50, cfg.n_heads, 256).items()}
+    inputs_fwd = (leaves, h0, xs, zs, m4)
+    src = "sake_tpu_torch/csrc/"
+    at = "sake_tpu/kernels/resid_ef.py:"
+    return [
+        kernel_entry("resid_fwd_masked", src + "resid_fwd.cu", at + "1484",
+                     qm9_launches["resid_fwd"], abs_qm9["resid_fwd_masked"],
+                     *t["resid_fwd_masked"], fma["fwd"], nbytes(inputs_fwd, p4)),
+        kernel_entry("resid_infer", src + "resid_fwd.cu", at + "1732",
+                     qm9_launches["resid_infer"], abs_qm9["resid_infer"], *t["resid_infer"],
+                     fma["fwd"], nbytes(inputs_fwd, p4.h_fin, p4.x_fin)),
+        kernel_entry("resid_bwd_rows", src + "resid_bwd.cu", at + "1598",
+                     qm9_launches["resid_bwd_rows"], abs_qm9["resid_bwd_rows"],
+                     *t["resid_bwd_rows"], fma["bwd"],
+                     nbytes(leaves, leaves_t, p4.bh, p4.bx, p4.bv, p4.resid, m4, dh, zs, zs,
+                            dh, zs, zs, rows)),
+        kernel_entry("param_grads", src + "param_grads.cu", at + "1598",
+                     qm9_launches["param_grads"], abs_qm9["param_grads"], *t["param_grads"],
+                     fma["grads"], nbytes(leaves, p4.bh, p4.resid, rows, grads)),
+    ]
 
 
 if __name__ == "__main__":

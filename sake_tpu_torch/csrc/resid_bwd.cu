@@ -1,10 +1,21 @@
-// K2: hand-derived pullback of the layer stack, input cotangents only, f32.
+// K2: hand-derived pullback of the layer stack, f32; with kRows it also
+// writes the cotangent rows the parameter gradients contract.
 //
-// Replaces the TPU kernel sake_tpu/kernels/resid_ef.py:resid_energy_forces
-// -> bwd_kernel (the pallas_call at resid_ef.py:1272): layer_bwd_resid over
-// the layers in reverse, reading the residuals K1 (resid_fwd.cu) wrote.
+// Replaces two TPU kernels of sake_tpu/kernels/resid_ef.py, which run
+// layer_bwd_resid over the layers in reverse, reading the residuals of
+// K1 (resid_fwd.cu):
+// - resid_energy_forces -> bwd_kernel (the pallas_call at :1272), the E + F
+//   pullback: input cotangents only (forces are -dx);
+// - make_hidden_fn -> bwd_kernel (:1680, body :1598), the training pullback
+//   with parameter gradients: this kernel with kRows writes, per layer,
+//   the cotangent rows (ROWS in resid_ef.py: d_e0, d_h_e, d_sem_pre, d_xm,
+//   att2, filtered, d_rbf per edge; d_a_j, d_a_i, d_o_j, d_o_i, d_ps0,
+//   d_ps1, d_node_pre, d_uv, d_g0, d_g1, d_delta, hatt, pool_sq per atom),
+//   and param_grads.cu contracts them into every leaf's gradient.
 // Given the cotangents of the final (h, x, v) it returns those of the
-// initial (h, x, v); forces are -dx.
+// initial (h, x, v). An edge mask (B, N, N) gives the masked pullback:
+// the renormalized attention's backward with its live term, d_xm * m and
+// the count divisors.
 //
 // Design: one thread block per molecule walks the layers in reverse; the
 // cotangent state (dh, dx, dv) stays in shared memory. Per layer the node
@@ -15,14 +26,20 @@
 // accumulated in shared memory across the row loop; receiver-side ones
 // (d_o_i, d_a_i, -d_d0) are row sums. The self pair is kept: its r is the
 // regularized sqrt(relu(r^2) + 1e-5) and its logit was pushed down by
-// 1e5, exactly as in the forward.
+// 1e5, exactly as in the forward. The TPU kernel summed the weight
+// gradients over its sequential grid in resident VMEM blocks; blocks here
+// run in parallel and in no order, so the rows go to device memory (about
+// 1.6 MB per molecule and layer at QM9's N = 29) and a second kernel sums
+// them, deterministically.
 //
 // What bounds it on an H100: as K1, f32 FMA issue and per-row
 // synchronisation; the transposed x_mixing product d_xm @ w_xmix^T is the
-// widest, register-tiled like K1's. Weights
-// are read transposed from copies the wrapper makes, so every product
-// reads W row-major and coalesced. The residual reads (about 0.87 MB per
-// molecule and layer) are coalesced row blocks.
+// widest, register-tiled like K1's. Weights are read transposed from
+// copies the wrapper makes, so every product reads W row-major and
+// coalesced. The residual reads (about 0.87 MB per molecule and layer for
+// aspirin) and the row writes are coalesced row blocks. At N = 29 the
+// block needs 221 KB of the 227 KB of shared memory a block may have, so
+// N = 32 does not fit: the kernels take N as it comes, unpadded.
 
 #include "resid_common.cuh"
 
@@ -43,9 +60,9 @@ __device__ __forceinline__ void mm(int n, int kd, int m, const float* A, int lda
 // scratch region the node phase and the row loop take turns to use.
 struct BwdSmem {
   float *sdh, *sdx, *sdv, *sh, *sx, *sv, *saj, *sai, *sdaj, *sdai, *sdoj, *sdoi,
-      *sdhatt, *sdpsq, *sdvn, *sdvo, *sdxs, *sdxr;
-  float *sdp, *sd, *sr, *st, *sir, *sdr, *sdd, *she, *sdhe, *satt, *ssem, *sdat, *se0,
-      *srbf, *sdrbf, *sdpre, *scr;
+      *sdhatt, *sdpsq, *sdvn, *sdvo, *sdxs, *sdxr, *scnt;
+  float *sdp, *sd, *sr, *st, *sir, *sdr, *sdd, *smk, *she, *sdhe, *satt, *satt2, *sdsum,
+      *ssem, *sdat, *se0, *srbf, *sdrbf, *sdpre, *scr;
 };
 
 __host__ __device__ inline BwdSmem carve_bwd(Carver& cv, const Dims& d) {
@@ -69,6 +86,7 @@ __host__ __device__ inline BwdSmem carve_bwd(Carver& cv, const Dims& d) {
   s.sdvo = cv.take(3 * N);        // d_v_in
   s.sdxs = cv.take(3 * N);        // + d_d0 at sender
   s.sdxr = cv.take(3 * N);        // - d_d0 at receiver
+  s.scnt = cv.take(N);            // senders per receiver (masked)
   s.sdp = cv.take(3 * C);         // row: d_pooled
   s.sd = cv.take(3 * N);          // row: d0
   s.sr = cv.take(N);
@@ -76,9 +94,12 @@ __host__ __device__ inline BwdSmem carve_bwd(Carver& cv, const Dims& d) {
   s.sir = cv.take(N);
   s.sdr = cv.take(N);             // row: d_r
   s.sdd = cv.take(3 * N);         // row: d_d0
+  s.smk = cv.take(N);             // row: m[i, j], 1 without a mask
   s.she = cv.take(N * H);
   s.sdhe = cv.take(N * H);
-  s.satt = cv.take(N * K);
+  s.satt = cv.take(N * K);        // row: raw softmax
+  s.satt2 = cv.take(N * K);       // row: renormalized (masked) softmax
+  s.sdsum = cv.take(K);           // row: sum_j att * m per head
   s.ssem = cv.take(N * K);
   s.sdat = cv.take(N * K);        // row: d_att -> d_sem_pre
   s.se0 = cv.take(N * H);         // row: e0 -> d_e0
@@ -96,12 +117,14 @@ __host__ __device__ inline long long bwd_smem_floats(const Dims& d) {
   return cv.off;
 }
 
+template <bool kRows>
 __global__ void __launch_bounds__(512)
 resid_bwd_kernel(Dims d, const float* __restrict__ bh, const float* __restrict__ bx,
-                 const float* __restrict__ bv, const float* __restrict__ upd, Leaves L,
-                 Leaves LT, Resids RS, const float* __restrict__ dh_fin,
-                 const float* __restrict__ dx_fin, const float* __restrict__ dv_fin,
-                 float* dh_out, float* dx_out, float* dv_out) {
+                 const float* __restrict__ bv, const float* __restrict__ upd,
+                 const float* __restrict__ mask, Leaves L, Leaves LT, Resids RS,
+                 const float* __restrict__ dh_fin, const float* __restrict__ dx_fin,
+                 const float* __restrict__ dv_fin, float* dh_out, float* dx_out,
+                 float* dv_out, Rows RW) {
   extern __shared__ float4 smem4[];
   const int b = blockIdx.x;
   const int B = d.B, N = d.N, F = d.F, H = d.H, R = d.R, K = d.K, C = d.C;
@@ -109,16 +132,19 @@ resid_bwd_kernel(Dims d, const float* __restrict__ bh, const float* __restrict__
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarp = nt >> 5;
   const float n_eff = (float)N;
+  const bool masked = mask != nullptr;
+  const float* mb = masked ? mask + (size_t)b * NN : nullptr;  // this molecule's (N, N)
 
   Carver cv{reinterpret_cast<float*>(smem4)};
   const BwdSmem S = carve_bwd(cv, d);
   float *sdh = S.sdh, *sdx = S.sdx, *sdv = S.sdv, *sh = S.sh, *sx = S.sx, *sv = S.sv,
         *saj = S.saj, *sai = S.sai, *sdaj = S.sdaj, *sdai = S.sdai, *sdoj = S.sdoj,
         *sdoi = S.sdoi, *sdhatt = S.sdhatt, *sdpsq = S.sdpsq, *sdvn = S.sdvn,
-        *sdvo = S.sdvo, *sdxs = S.sdxs, *sdxr = S.sdxr, *sdp = S.sdp, *sd = S.sd,
-        *sr = S.sr, *st = S.st, *sir = S.sir, *sdr = S.sdr, *sdd = S.sdd, *she = S.she,
-        *sdhe = S.sdhe, *satt = S.satt, *ssem = S.ssem, *sdat = S.sdat, *se0 = S.se0,
-        *srbf = S.srbf, *sdrbf = S.sdrbf, *sdpre = S.sdpre, *scr = S.scr;
+        *sdvo = S.sdvo, *sdxs = S.sdxs, *sdxr = S.sdxr, *scnt = S.scnt, *sdp = S.sdp,
+        *sd = S.sd, *sr = S.sr, *st = S.st, *sir = S.sir, *sdr = S.sdr, *sdd = S.sdd,
+        *smk = S.smk, *she = S.she, *sdhe = S.sdhe, *satt = S.satt, *satt2 = S.satt2,
+        *sdsum = S.sdsum, *ssem = S.ssem, *sdat = S.sdat, *se0 = S.se0, *srbf = S.srbf,
+        *sdrbf = S.sdrbf, *sdpre = S.sdpre, *scr = S.scr;
   float* scf = scr;               // row: (N, C) coeff -> d_xm
   float* sdha = scr + N * C;      // row: (N, HK) d_he_att
   float* sdg0 = scr;              // node: (N, H)
@@ -134,6 +160,7 @@ resid_bwd_kernel(Dims d, const float* __restrict__ bh, const float* __restrict__
     sdx[e] = dx_fin[((size_t)k * B + b) * N + i];
     sdv[e] = dv_fin[((size_t)k * B + b) * N + i];
   }
+  sender_counts(mb, N, scnt);
   __syncthreads();
 
   for (int l = d.depth - 1; l >= 0; --l) {
@@ -141,6 +168,8 @@ resid_bwd_kernel(Dims d, const float* __restrict__ bh, const float* __restrict__
     const size_t lb = (size_t)l * B + b;
     auto W = [&](int leaf) { return L.at(leaf, l); };
     auto WT = [&](int leaf) { return LT.at(leaf, l); };
+    // node row (atom i of this molecule and layer) of a node stream of width ch
+    auto node_row = [&](int row, int i, int ch) { return RW.p[row] + (lb * N + i) * ch; };
 
     // layer inputs
     for (int e = tid; e < N * F; e += nt) sh[e] = bh[lb * N * F + e];
@@ -224,7 +253,6 @@ resid_bwd_kernel(Dims d, const float* __restrict__ bh, const float* __restrict__
     __syncthreads();
     mm(N, H, C, sdps0, H, WT(W_POST0),
             [&](int r, int c, float a) { sdpsq[r * C + c] = a; });
-    __syncthreads();
 
     const float* wvmix = W(W_VMIX);
     const float* w_o_r = W(W_O_R);
@@ -233,21 +261,50 @@ resid_bwd_kernel(Dims d, const float* __restrict__ bh, const float* __restrict__
     const float* pool[3] = {RS.p[RS_POOL0] + lb * N * C, RS.p[RS_POOL1] + lb * N * C,
                             RS.p[RS_POOL2] + lb * N * C};
 
+    // the node rows, before the row loop reuses their scratch
+    if constexpr (kRows) {
+      for (int e = tid; e < N * H; e += nt) {
+        const int i = e / H, h = e % H;
+        node_row(RW_DG0, i, H)[h] = sdg0[e];
+        node_row(RW_DNP, i, H)[h] = sdnp[e];
+        node_row(RW_DPS1, i, H)[h] = sdps1[e];
+        node_row(RW_DPS0, i, H)[h] = sdps0[e];
+      }
+      for (int e = tid; e < N * F; e += nt) node_row(RW_DUV, e / F, F)[e % F] = sduv[e];
+      for (int i = tid; i < N; i += nt) {
+        node_row(RW_DG1, i, 1)[0] = sdg1[i];
+        const float dvd = dv_denom(masked, scnt[i], n_eff);
+#pragma unroll
+        for (int k = 0; k < 3; ++k) node_row(RW_DDEL, i, 3)[k] = sdvn[k * N + i] / dvd;
+      }
+      for (int e = tid; e < N * C; e += nt) {
+        const float pd = pool_denom(masked, scnt[e / C], n_eff);
+        const float n0 = pool[0][e] / pd, n1 = pool[1][e] / pd, n2 = pool[2][e] / pd;
+        node_row(RW_PSQ, e / C, C)[e % C] = n0 * n0 + n1 * n1 + n2 * n2;
+      }
+    }
+    __syncthreads();
+
     for (int i = 0; i < N; ++i) {
       const size_t erow = lb * NN + (size_t)i * N;
+      // edge row (i, j) of an edge stream of width ch
+      auto edge_row = [&](int row, int ch) { return RW.p[row] + erow * ch; };
+      const float pd = pool_denom(masked, scnt[i], n_eff);
+      const float dvd = dv_denom(masked, scnt[i], n_eff);
 
       // d_pooled for row i; stage the row's residuals
       for (int c = tid; c < C; c += nt) {
 #pragma unroll
         for (int k = 0; k < 3; ++k)
-          sdp[k * C + c] = sdvn[k * N + i] * wvmix[c] / n_eff +
-                           2.f * pool[k][i * C + c] * sdpsq[i * C + c] / (n_eff * n_eff);
+          sdp[k * C + c] = sdvn[k * N + i] * wvmix[c] / dvd +
+                           2.f * pool[k][i * C + c] * sdpsq[i * C + c] / (pd * pd);
       }
       for (int j = tid; j < N; j += nt) {
         const float r = RS.p[RS_R][erow + j];
         sr[j] = r;
         st[j] = RS.p[RS_T][erow + j];
         sir[j] = 1.f / (r + 1e-5f);
+        smk[j] = masked ? mb[i * N + j] : 1.f;
 #pragma unroll
         for (int k = 0; k < 3; ++k) sd[k * N + j] = sx[k * N + j] - sx[k * N + i];
       }
@@ -280,16 +337,40 @@ resid_bwd_kernel(Dims d, const float* __restrict__ bh, const float* __restrict__
           sdr[j] = -(ir * ir) * d_ir;
         }
       }
+      // the attention the products saw: att2 = att * m / sum_j att * m
+      // (a zero sum read as 1), the raw softmax without a mask
+      for (int k = warp; k < K; k += nwarp) {
+        float s = 0.f;
+        if (masked) {
+          for (int j = lane; j < N; j += 32) s += satt[j * K + k] * smk[j];
+          s = warp_sum(s);
+        }
+        const float dg = s == 0.f ? 1.f : s;
+        for (int j = lane; j < N; j += 32)
+          satt2[j * K + k] = masked ? satt[j * K + k] * smk[j] / dg : satt[j * K + k];
+        if (lane == 0) sdsum[k] = s;
+      }
       __syncthreads();
 
-      // coeff = tanh(xm): d_xm = d_coeff * (1 - coeff^2), in place
+      // coeff = tanh(xm) * m: d_xm = d_coeff * (1 - coeff^2) * m, in place
       for (int e = tid; e < N * C; e += nt) {
         const int j = e / C, c = e % C;
         const float ir = sir[j];
         const float dc = sdp[c] * (sd[j] * ir) + sdp[C + c] * (sd[N + j] * ir) +
                          sdp[2 * C + c] * (sd[2 * N + j] * ir);
         const float cf = scf[e];
-        scf[e] = dc * (1.f - cf * cf);
+        const float v = dc * (1.f - cf * cf) * smk[j];
+        scf[e] = v;
+        if constexpr (kRows) edge_row(RW_DXM, C)[e] = v;
+      }
+      if constexpr (kRows) {
+        // hatt[i] = sum_j h_e[j] (x) att2[j]; the row's att2
+        for (int q = tid; q < HK; q += nt) {
+          float s = 0.f;
+          for (int j = 0; j < N; ++j) s += she[j * H + q / K] * satt2[j * K + q % K];
+          node_row(RW_HATT, i, HK)[q] = s;
+        }
+        for (int e = tid; e < N * K; e += nt) edge_row(RW_ATT2, K)[e] = satt2[e];
       }
       __syncthreads();
 
@@ -298,11 +379,11 @@ resid_bwd_kernel(Dims d, const float* __restrict__ bh, const float* __restrict__
               [&](int r, int c, float a) { sdha[r * HK + c] = a + sdhatt[i * HK + c]; });
       __syncthreads();
 
-      // he_att[j, h*K + k] = h_e[j, h] * att[j, k]
+      // he_att[j, h*K + k] = h_e[j, h] * att2[j, k]
       for (int e = tid; e < N * H; e += nt) {
         const int j = e / H, h = e % H;
         float s = 0.f;
-        for (int k = 0; k < K; ++k) s += sdha[j * HK + h * K + k] * satt[j * K + k];
+        for (int k = 0; k < K; ++k) s += sdha[j * HK + h * K + k] * satt2[j * K + k];
         sdhe[e] = s;
       }
       for (int e = tid; e < N * K; e += nt) {
@@ -313,8 +394,19 @@ resid_bwd_kernel(Dims d, const float* __restrict__ bh, const float* __restrict__
       }
       __syncthreads();
 
-      // softmax over senders, then celu2: one warp per head
+      // masked renormalization, softmax over senders, then celu2: one warp
+      // per head
       for (int k = warp; k < K; k += nwarp) {
+        if (masked) {
+          const float den = sdsum[k];
+          const float dg = den == 0.f ? 1.f : den;
+          const float live = den != 0.f ? 1.f : 0.f;
+          float s2 = 0.f;
+          for (int j = lane; j < N; j += 32) s2 += sdat[j * K + k] * (satt[j * K + k] * smk[j]);
+          s2 = warp_sum(s2);
+          for (int j = lane; j < N; j += 32)
+            sdat[j * K + k] = (sdat[j * K + k] / dg - live * s2 / (dg * dg)) * smk[j];
+        }
         float s = 0.f;
         for (int j = lane; j < N; j += 32) s += sdat[j * K + k] * satt[j * K + k];
         s = warp_sum(s);
@@ -322,7 +414,9 @@ resid_bwd_kernel(Dims d, const float* __restrict__ bh, const float* __restrict__
           const float a = satt[j * K + k];
           const float dl = a * (sdat[j * K + k] - s);
           const float sp = ssem[j * K + k];
-          sdat[j * K + k] = dl * (sp > 0.f ? 1.f : expf(sp / 2.f));
+          const float v = dl * (sp > 0.f ? 1.f : expf(sp / 2.f));
+          sdat[j * K + k] = v;
+          if constexpr (kRows) edge_row(RW_DSEM, K)[j * K + k] = v;
         }
       }
       __syncthreads();
@@ -333,10 +427,15 @@ resid_bwd_kernel(Dims d, const float* __restrict__ bh, const float* __restrict__
       // h_e = silu(e0) @ w_o1 + b_o1: d_e0 in place of e0
       mm(N, H, H, sdhe, H, WT(W_O1),
               [&](int r, int c, float a) { se0[r * H + c] = a * dsiluf_(se0[r * H + c]); });
+      if constexpr (kRows)
+        for (int e = tid; e < N * H; e += nt) edge_row(RW_DHE, H)[e] = sdhe[e];
       __syncthreads();
 
       // e0 = o_j[j] + o_i[i] + o_f + r * w_o_r + b_o0
-      for (int e = tid; e < N * H; e += nt) sdoj[e] += se0[e];
+      for (int e = tid; e < N * H; e += nt) {
+        sdoj[e] += se0[e];
+        if constexpr (kRows) edge_row(RW_DE0, H)[e] = se0[e];
+      }
       for (int h = tid; h < H; h += nt) {
         float s = 0.f;
         for (int j = 0; j < N; ++j) s += se0[j * H + h];
@@ -354,6 +453,10 @@ resid_bwd_kernel(Dims d, const float* __restrict__ bh, const float* __restrict__
                 const float pre = saj[r * R + c] + sai[i * R + c];
                 sdrbf[r * R + c] = a * pre;
                 sdpre[r * R + c] = a * srbf[r * R + c];
+                if constexpr (kRows) {
+                  edge_row(RW_DRBF, R)[r * R + c] = a * pre;
+                  edge_row(RW_FILT, R)[r * R + c] = srbf[r * R + c] * pre;
+                }
               });
       __syncthreads();
 
@@ -394,6 +497,18 @@ resid_bwd_kernel(Dims d, const float* __restrict__ bh, const float* __restrict__
       __syncthreads();
     }
 
+    // the sender / receiver sums are complete: their rows
+    if constexpr (kRows) {
+      for (int e = tid; e < N * R; e += nt) {
+        node_row(RW_DAJ, e / R, R)[e % R] = sdaj[e];
+        node_row(RW_DAI, e / R, R)[e % R] = sdai[e];
+      }
+      for (int e = tid; e < N * H; e += nt) {
+        node_row(RW_DOJ, e / H, H)[e % H] = sdoj[e];
+        node_row(RW_DOI, e / H, H)[e % H] = sdoi[e];
+      }
+    }
+
     // node projections: d_h += d_a_j w_in_j^T + d_a_i w_in_i^T + d_o_j w_o_j^T + d_o_i w_o_i^T
     mm(N, R, F, sdaj, R, WT(W_IN_J),
             [&](int r, int c, float a) { sdh[r * F + c] += a; });
@@ -421,6 +536,31 @@ resid_bwd_kernel(Dims d, const float* __restrict__ bh, const float* __restrict__
   }
 }
 
+template <bool kRows>
+int launch_bwd(const Dims& d, const float* bh, const float* bx, const float* bv,
+               const float* upd, const float* mask, const void* const* leaf_ptrs,
+               const void* const* leaf_t_ptrs, const long long* leaf_strides,
+               void* const* resid_ptrs, const float* dh_fin, const float* dx_fin,
+               const float* dv_fin, float* dh_out, float* dx_out, float* dv_out,
+               const Rows& RW, void* stream) {
+  Leaves L, LT;
+  for (int i = 0; i < kLeaves; ++i) {
+    L.p[i] = static_cast<const float*>(leaf_ptrs[i]);
+    LT.p[i] = static_cast<const float*>(leaf_t_ptrs[i]);
+    L.stride[i] = LT.stride[i] = leaf_strides[i];
+  }
+  Resids RS;
+  for (int i = 0; i < kResids; ++i) RS.p[i] = static_cast<float*>(resid_ptrs[i]);
+  const size_t smem = bwd_smem_floats(d) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      resid_bwd_kernel<kRows>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  resid_bwd_kernel<kRows><<<d.B, 512, smem, static_cast<cudaStream_t>(stream)>>>(
+      d, bh, bx, bv, upd, mask, L, LT, RS, dh_fin, dx_fin, dv_fin, dh_out, dx_out, dv_out,
+      RW);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace sake
 
 extern "C" long long sake_resid_bwd_smem_bytes(int B, int N, int F, int H, int R, int K,
@@ -429,27 +569,33 @@ extern "C" long long sake_resid_bwd_smem_bytes(int B, int N, int F, int H, int R
   return sake::bwd_smem_floats(d) * (long long)sizeof(float);
 }
 
+// mask: (B, N, N) f32 or null.
 extern "C" int sake_resid_bwd(const float* bh, const float* bx, const float* bv,
-                              const float* upd, const void* const* leaf_ptrs,
-                              const void* const* leaf_t_ptrs, const long long* leaf_strides,
-                              void* const* resid_ptrs, const float* dh_fin,
-                              const float* dx_fin, const float* dv_fin, float* dh_out,
-                              float* dx_out, float* dv_out, int B, int N, int F, int H,
-                              int R, int K, int C, int depth, void* stream) {
-  sake::Dims d{B, N, F, H, R, K, C, depth};
-  sake::Leaves L, LT;
-  for (int i = 0; i < sake::kLeaves; ++i) {
-    L.p[i] = static_cast<const float*>(leaf_ptrs[i]);
-    LT.p[i] = static_cast<const float*>(leaf_t_ptrs[i]);
-    L.stride[i] = LT.stride[i] = leaf_strides[i];
-  }
-  sake::Resids RS;
-  for (int i = 0; i < sake::kResids; ++i) RS.p[i] = static_cast<float*>(resid_ptrs[i]);
-  const size_t smem = sake::bwd_smem_floats(d) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      sake::resid_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  sake::resid_bwd_kernel<<<B, 512, smem, static_cast<cudaStream_t>(stream)>>>(
-      d, bh, bx, bv, upd, L, LT, RS, dh_fin, dx_fin, dv_fin, dh_out, dx_out, dv_out);
-  return (int)cudaGetLastError();
+                              const float* upd, const float* mask,
+                              const void* const* leaf_ptrs, const void* const* leaf_t_ptrs,
+                              const long long* leaf_strides, void* const* resid_ptrs,
+                              const float* dh_fin, const float* dx_fin, const float* dv_fin,
+                              float* dh_out, float* dx_out, float* dv_out, int B, int N,
+                              int F, int H, int R, int K, int C, int depth, void* stream) {
+  return sake::launch_bwd<false>(sake::Dims{B, N, F, H, R, K, C, depth}, bh, bx, bv, upd,
+                                 mask, leaf_ptrs, leaf_t_ptrs, leaf_strides, resid_ptrs,
+                                 dh_fin, dx_fin, dv_fin, dh_out, dx_out, dv_out,
+                                 sake::Rows{}, stream);
+}
+
+// As sake_resid_bwd, also writing the cotangent rows (row_ptrs in ROWS order).
+extern "C" int sake_resid_bwd_rows(const float* bh, const float* bx, const float* bv,
+                                   const float* upd, const float* mask,
+                                   const void* const* leaf_ptrs,
+                                   const void* const* leaf_t_ptrs,
+                                   const long long* leaf_strides, void* const* resid_ptrs,
+                                   const float* dh_fin, const float* dx_fin,
+                                   const float* dv_fin, float* dh_out, float* dx_out,
+                                   float* dv_out, void* const* row_ptrs, int B, int N, int F,
+                                   int H, int R, int K, int C, int depth, void* stream) {
+  sake::Rows RW;
+  for (int i = 0; i < sake::kRows; ++i) RW.p[i] = static_cast<float*>(row_ptrs[i]);
+  return sake::launch_bwd<true>(sake::Dims{B, N, F, H, R, K, C, depth}, bh, bx, bv, upd,
+                                mask, leaf_ptrs, leaf_t_ptrs, leaf_strides, resid_ptrs,
+                                dh_fin, dx_fin, dv_fin, dh_out, dx_out, dv_out, RW, stream);
 }

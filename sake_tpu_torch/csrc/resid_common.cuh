@@ -27,6 +27,20 @@ enum Resid {
   RS_G0, RS_G1
 };
 
+// Order of ROWS (EDGE_ROWS + NODE_ROWS) in sake_tpu_torch.kernels.resid_ef:
+// the cotangent rows the training pullback writes for the parameter
+// gradients. Edge rows are (depth, B, N*N, ch), node rows (depth, B, N, ch).
+constexpr int kRows = 20;
+enum Row {
+  RW_DE0, RW_DHE, RW_DSEM, RW_DXM, RW_ATT2, RW_FILT, RW_DRBF,
+  RW_DAJ, RW_DAI, RW_DOJ, RW_DOI, RW_DPS0, RW_DPS1, RW_DNP, RW_DUV, RW_DG0,
+  RW_DG1, RW_DDEL, RW_HATT, RW_PSQ
+};
+
+struct Rows {
+  float* p[kRows];
+};
+
 struct Leaves {
   const float* p[kLeaves];
   long long stride[kLeaves];  // elements per layer
@@ -44,7 +58,27 @@ struct Dims {
 };
 
 constexpr float kEps = 1e-5f;  // inside the distance sqrt
-constexpr float kInf = 1e5f;   // subtracted from self-pair logits
+constexpr float kInf = 1e5f;   // subtracted from self-pair and masked logits
+
+// With an edge mask (B, N, N), pooled sums divide by the receiver's sender
+// count + 1e-8 and the velocity update by count + 1e-10; without, both by N.
+__device__ __forceinline__ float pool_denom(bool masked, float count, float n) {
+  return masked ? count + 1e-8f : n;
+}
+__device__ __forceinline__ float dv_denom(bool masked, float count, float n) {
+  return masked ? count + 1e-10f : n;
+}
+
+// cnt[i] = sum_j mask[i, j] for one molecule's (N, N) mask (0 without one).
+__device__ __forceinline__ void sender_counts(const float* __restrict__ mask, int N,
+                                              float* cnt) {
+  for (int i = threadIdx.x; i < N; i += blockDim.x) {
+    float c = 0.f;
+    if (mask)
+      for (int j = 0; j < N; ++j) c += mask[i * N + j];
+    cnt[i] = c;
+  }
+}
 
 __device__ __forceinline__ float sigmoidf_(float x) { return 1.f / (1.f + expf(-x)); }
 __device__ __forceinline__ float siluf_(float x) { return x * sigmoidf_(x); }

@@ -1,9 +1,24 @@
-// K1: forward of the dense SAKE layer stack with residuals, f32.
+// K1: forward of the dense SAKE layer stack with residuals, f32, and the
+// same forward without residuals.
 //
-// Replaces the TPU kernel sake_tpu/kernels/resid_ef.py:resid_energy_forces
-// -> fwd_kernel (the pallas_call at resid_ef.py:1157): per molecule and
-// layer, layer_fwd_resid, writing the boundary states (h, x, v) and the 17
-// residuals the hand-written backward (K2, resid_bwd.cu) reads.
+// Replaces three TPU kernels of sake_tpu/kernels/resid_ef.py, which all run
+// layer_fwd_resid over depth:
+// - resid_energy_forces -> fwd_kernel (the pallas_call at :1157), the E + F
+//   serving forward: this kernel with kStream, no mask;
+// - make_hidden_fn -> fwd_kernel (:1545, body :1484), the training forward
+//   on padded batches: this kernel with kStream and an edge mask (B, N, N);
+// - make_hidden_fn -> infer_kernel (:1780, body :1732), the forward no
+//   backward will read: this kernel without kStream, which writes only the
+//   final h and x.
+// With kStream it writes the boundary states (h, x, v) and the 17 residuals
+// the hand-written backward (resid_bwd.cu) reads. The TPU kernels' velocity
+// input is v0 here.
+//
+// Masked semantics (layer_fwd_resid with a mask): logits - 1e5 * (1 - m),
+// the raw softmax saved, attention renormalized over live senders
+// (att2 = att * m / sum_j att * m, a zero sum read as 1), coefficients
+// times m, pooled sums over the sender count + 1e-8 and the velocity
+// update over the count + 1e-10.
 //
 // Design: one thread block per molecule, looping over depth inside the
 // block, so the molecule's (h, x, v) state stays in shared memory between
@@ -13,7 +28,10 @@
 // over senders, coefficients), pools them into pool0-2 and hatt_sum, and
 // streams the row's edge residuals out; the node MLP, velocity gate and
 // x/v update follow once all rows are done. Weights (about 2 MB for the
-// depth-6 aspirin model) are read from device memory and stay in L2.
+// depth-6 model) are read from device memory and stay in L2. The pooled
+// vectors go to device memory even without kStream (to a (3, B, N, C)
+// scratch the wrapper reuses layer after layer): at N = 29 shared memory
+// cannot hold them beside the row buffers.
 //
 // What bounds it on an H100: f32 FMA issue, and the synchronisation of a
 // block that works on one receiver row (N edges) at a time. The widest
@@ -23,9 +41,11 @@
 // feeds 16 FMAs; with one load per FMA the shared-memory pipe was the
 // limit. Narrower products take one output per thread or one warp per row
 // (mm_smem picks by width), since 7 x 4 tiles would leave the block idle. Residual writes (about
-// 0.87 MB per molecule and layer at full width) are coalesced row blocks,
-// well below HBM bandwidth at the rates this reaches. Tensor cores (wgmma
-// on bf16) are the next step and a later change.
+// 0.87 MB per molecule and layer for aspirin) are coalesced row blocks,
+// well below HBM bandwidth at the rates this reaches. At QM9's N = 29 the
+// block needs 146 KB of shared memory, so one block fits an SM where the
+// launch bounds ask for two. Tensor cores (wgmma on bf16) are the next
+// step and a later change.
 
 #include "resid_common.cuh"
 
@@ -45,8 +65,8 @@ __device__ __forceinline__ void mm(int n, int kd, int m, const float* A, int lda
 // the row loop; row buffers are rebuilt for every receiver row i; the
 // node phase reuses the row buffers once all rows are done.
 struct FwdSmem {
-  float *sh, *sx, *sv, *saj, *sai, *soj, *soi, *shatt, *sdel;  // node level
-  float *sd, *sr, *sir, *srbf, *se0, *she, *ssem, *satt, *shea, *scf;  // row
+  float *sh, *sx, *sv, *saj, *sai, *soj, *soi, *shatt, *sdel, *scnt;  // node level
+  float *sd, *sr, *sir, *smk, *srbf, *se0, *she, *ssem, *satt, *shea, *scf;  // row
 };
 
 __host__ __device__ inline FwdSmem carve_fwd(Carver& cv, const Dims& d) {
@@ -61,9 +81,11 @@ __host__ __device__ inline FwdSmem carve_fwd(Carver& cv, const Dims& d) {
   s.soi = cv.take(N * H);
   s.shatt = cv.take(N * H * K); // sum_j h_e (x) att
   s.sdel = cv.take(3 * N);      // pooled_k @ w_vmix
+  s.scnt = cv.take(N);          // senders per receiver (masked)
   s.sd = cv.take(3 * N);        // row: d_k[j] = x_k[j] - x_k[i]
   s.sr = cv.take(N);            // row: r
   s.sir = cv.take(2 * N);       // row: 1 / (r + 1e-5), then t = exp(-r)
+  s.smk = cv.take(N);           // row: m[i, j], 1 without a mask
   s.srbf = cv.take(N * R);
   s.se0 = cv.take(N * H);       // row: e0 -> silu(e0); node: ps0
   s.she = cv.take(N * H);       // row: h_e; node: ps1 -> h_comb
@@ -82,12 +104,13 @@ __host__ __device__ inline long long fwd_smem_floats(const Dims& d) {
 }
 
 // Two blocks per SM (<= 128 registers) measured faster than one with
-// more registers.
+// more registers at aspirin's N = 21.
+template <bool kStream>
 __global__ void __launch_bounds__(256, 2)
 resid_fwd_kernel(Dims d, const float* __restrict__ h0,
                  const float* __restrict__ xs, const float* __restrict__ v0,
-                 const float* __restrict__ upd, Leaves L, float* bh,
-                 float* bx, float* bv, float* h_fin, float* x_fin,
+                 const float* __restrict__ upd, const float* __restrict__ mask, Leaves L,
+                 float* bh, float* bx, float* bv, float* h_fin, float* x_fin,
                  float* v_fin, Resids RS) {
   extern __shared__ float4 smem4[];
   const int b = blockIdx.x;
@@ -96,13 +119,15 @@ resid_fwd_kernel(Dims d, const float* __restrict__ h0,
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarp = nt >> 5;
   const float n_eff = (float)N;
+  const bool masked = mask != nullptr;
+  const float* mb = masked ? mask + (size_t)b * NN : nullptr;  // this molecule's (N, N)
 
   Carver cv{reinterpret_cast<float*>(smem4)};
   const FwdSmem S = carve_fwd(cv, d);
   float *sh = S.sh, *sx = S.sx, *sv = S.sv, *saj = S.saj, *sai = S.sai, *soj = S.soj,
-        *soi = S.soi, *shatt = S.shatt, *sdel = S.sdel, *sd = S.sd, *sr = S.sr,
-        *sir = S.sir, *srbf = S.srbf, *se0 = S.se0, *she = S.she, *ssem = S.ssem,
-        *satt = S.satt, *shea = S.shea, *scf = S.scf;
+        *soi = S.soi, *shatt = S.shatt, *sdel = S.sdel, *scnt = S.scnt, *sd = S.sd,
+        *sr = S.sr, *sir = S.sir, *smk = S.smk, *srbf = S.srbf, *se0 = S.se0,
+        *she = S.she, *ssem = S.ssem, *satt = S.satt, *shea = S.shea, *scf = S.scf;
   float* snp = scf;             // node: (N, H) node_pre -> silu
   float* suv = snp + N * H;     // node: (N, F) uv
   float* sg0 = suv + N * F;     // node: (N, H) g0 -> silu
@@ -114,11 +139,14 @@ resid_fwd_kernel(Dims d, const float* __restrict__ h0,
     sx[e] = xs[((size_t)k * B + b) * N + i];
     sv[e] = v0[((size_t)k * B + b) * N + i];
   }
+  sender_counts(mb, N, scnt);
   __syncthreads();
 
   for (int l = 0; l < d.depth; ++l) {
     const float u = upd[l];
     const size_t lb = (size_t)l * B + b;
+    // without kStream the pooled vectors go to a one-layer scratch
+    const size_t lp = kStream ? lb : (size_t)b;
     auto W = [&](int leaf) { return L.at(leaf, l); };
     const float* b_in = W(B_IN);
     const float* rbf_m = W(RBF_M);
@@ -129,11 +157,13 @@ resid_fwd_kernel(Dims d, const float* __restrict__ h0,
     const float* b_sem = W(B_SEM);
 
     // boundary state in
-    for (int e = tid; e < N * F; e += nt) bh[lb * N * F + e] = sh[e];
-    for (int e = tid; e < 3 * N; e += nt) {
-      const int k = e / N, i = e % N;
-      bx[(((size_t)l * 3 + k) * B + b) * N + i] = sx[e];
-      bv[(((size_t)l * 3 + k) * B + b) * N + i] = sv[e];
+    if constexpr (kStream) {
+      for (int e = tid; e < N * F; e += nt) bh[lb * N * F + e] = sh[e];
+      for (int e = tid; e < 3 * N; e += nt) {
+        const int k = e / N, i = e % N;
+        bx[(((size_t)l * 3 + k) * B + b) * N + i] = sx[e];
+        bv[(((size_t)l * 3 + k) * B + b) * N + i] = sv[e];
+      }
     }
 
     // node projections
@@ -164,8 +194,11 @@ resid_fwd_kernel(Dims d, const float* __restrict__ h0,
         sr[j] = r;
         sir[j] = 1.f / (r + 1e-5f);
         sir[N + j] = expf(-r);  // t
-        RS.p[RS_R][erow + j] = r;
-        RS.p[RS_T][erow + j] = sir[N + j];
+        smk[j] = masked ? mb[i * N + j] : 1.f;
+        if constexpr (kStream) {
+          RS.p[RS_R][erow + j] = r;
+          RS.p[RS_T][erow + j] = sir[N + j];
+        }
       }
       __syncthreads();
 
@@ -174,7 +207,7 @@ resid_fwd_kernel(Dims d, const float* __restrict__ h0,
         const int j = e / R, c = e % R;
         const float z = sir[N + j] - rbf_m[c];
         const float v = expf(-rbf_b[c] * (z * z));
-        RS.p[RS_RBF][erow * R + e] = v;
+        if constexpr (kStream) RS.p[RS_RBF][erow * R + e] = v;
         srbf[e] = v * (saj[e] + sai[i * R + c]);
       }
       __syncthreads();
@@ -183,7 +216,7 @@ resid_fwd_kernel(Dims d, const float* __restrict__ h0,
       mm(N, R, H, srbf, R, W(W_O_F), [&](int r, int c, float a) {
         const float v = soj[r * H + c] + soi[i * H + c] + a + sr[r] * w_o_r[c] + b_o0[c];
         se0[r * H + c] = v;
-        RS.p[RS_E0][(erow + r) * H + c] = v;
+        if constexpr (kStream) RS.p[RS_E0][(erow + r) * H + c] = v;
       });
       __syncthreads();
       for (int e = tid; e < N * H; e += nt) se0[e] = siluf_(se0[e]);
@@ -194,7 +227,7 @@ resid_fwd_kernel(Dims d, const float* __restrict__ h0,
               [&](int r, int c, float a) {
                 const float v = a + b_o1[c];
                 she[r * H + c] = v;
-                RS.p[RS_H_E][(erow + r) * H + c] = v;
+                if constexpr (kStream) RS.p[RS_H_E][(erow + r) * H + c] = v;
               });
       __syncthreads();
 
@@ -203,17 +236,19 @@ resid_fwd_kernel(Dims d, const float* __restrict__ h0,
               [&](int r, int c, float a) {
                 const float v = a + b_sem[c];
                 ssem[r * K + c] = v;
-                RS.p[RS_SEM_PRE][(erow + r) * K + c] = v;
+                if constexpr (kStream) RS.p[RS_SEM_PRE][(erow + r) * K + c] = v;
               });
       __syncthreads();
 
-      // softmax over senders j, one warp per head
+      // softmax over senders j, one warp per head; the raw softmax is the
+      // residual, the renormalized one (masked) feeds the products
       for (int k = warp; k < K; k += nwarp) {
         float mx = -3.4e38f;
         for (int j = lane; j < N; j += 32) {
           const float s = ssem[j * K + k];
           float lg = s > 0.f ? s : 2.f * (expf(s / 2.f) - 1.f);
           if (j == i) lg -= kInf;
+          lg -= kInf * (1.f - smk[j]);
           satt[j * K + k] = lg;
           mx = fmaxf(mx, lg);
         }
@@ -226,10 +261,17 @@ resid_fwd_kernel(Dims d, const float* __restrict__ h0,
           sum += ex;
         }
         sum = warp_sum(sum);
+        float live = 0.f;
         for (int j = lane; j < N; j += 32) {
           const float a = satt[j * K + k] / sum;
           satt[j * K + k] = a;
-          RS.p[RS_ATT][(erow + j) * K + k] = a;
+          live += a * smk[j];
+          if constexpr (kStream) RS.p[RS_ATT][(erow + j) * K + k] = a;
+        }
+        if (masked) {
+          live = warp_sum(live);
+          const float dg = live == 0.f ? 1.f : live;
+          for (int j = lane; j < N; j += 32) satt[j * K + k] = satt[j * K + k] * smk[j] / dg;
         }
       }
       __syncthreads();
@@ -240,16 +282,16 @@ resid_fwd_kernel(Dims d, const float* __restrict__ h0,
         shea[e] = she[j * H + q / K] * satt[j * K + q % K];
       }
       __syncthreads();
-      // hatt_sum[i] = sum_j he_att[j]; coeff = tanh(he_att @ w_xmix)
+      // hatt_sum[i] = sum_j he_att[j]; coeff = tanh(he_att @ w_xmix) * m
       for (int q = tid; q < HK; q += nt) {
         float s = 0.f;
         for (int j = 0; j < N; ++j) s += shea[j * HK + q];
         shatt[i * HK + q] = s;
       }
       mm(N, HK, C, shea, HK, W(W_XMIX), [&](int r, int c, float a) {
-        const float v = tanhf(a);
+        const float v = tanhf(a) * smk[r];
         scf[r * C + c] = v;
-        RS.p[RS_COEFF][(erow + r) * C + c] = v;
+        if constexpr (kStream) RS.p[RS_COEFF][(erow + r) * C + c] = v;
       });
       __syncthreads();
 
@@ -261,18 +303,19 @@ resid_fwd_kernel(Dims d, const float* __restrict__ h0,
 #pragma unroll
           for (int k = 0; k < 3; ++k) p[k] += cf * (sd[k * N + j] * sir[j]);
         }
-        RS.p[RS_POOL0][(lb * N + i) * C + c] = p[0];
-        RS.p[RS_POOL1][(lb * N + i) * C + c] = p[1];
-        RS.p[RS_POOL2][(lb * N + i) * C + c] = p[2];
+        RS.p[RS_POOL0][(lp * N + i) * C + c] = p[0];
+        RS.p[RS_POOL1][(lp * N + i) * C + c] = p[1];
+        RS.p[RS_POOL2][(lp * N + i) * C + c] = p[2];
       }
       __syncthreads();
     }
 
     // ---- node phase -----------------------------------------------------
-    const float* pool[3] = {RS.p[RS_POOL0] + lb * N * C, RS.p[RS_POOL1] + lb * N * C,
-                            RS.p[RS_POOL2] + lb * N * C};
+    const float* pool[3] = {RS.p[RS_POOL0] + lp * N * C, RS.p[RS_POOL1] + lp * N * C,
+                            RS.p[RS_POOL2] + lp * N * C};
     for (int e = tid; e < N * C; e += nt) {
-      const float n0 = pool[0][e] / n_eff, n1 = pool[1][e] / n_eff, n2 = pool[2][e] / n_eff;
+      const float pd = pool_denom(masked, scnt[e / C], n_eff);
+      const float n0 = pool[0][e] / pd, n1 = pool[1][e] / pd, n2 = pool[2][e] / pd;
       scf[e] = n0 * n0 + n1 * n1 + n2 * n2;  // pool_sq
     }
     {
@@ -292,7 +335,7 @@ resid_fwd_kernel(Dims d, const float* __restrict__ h0,
             [&](int r, int c, float a) {
               const float v = a + b_post0[c];
               se0[r * H + c] = v;
-              RS.p[RS_PS0][(lb * N + r) * H + c] = v;
+              if constexpr (kStream) RS.p[RS_PS0][(lb * N + r) * H + c] = v;
             });
     __syncthreads();
     for (int e = tid; e < N * H; e += nt) se0[e] = siluf_(se0[e]);
@@ -302,7 +345,7 @@ resid_fwd_kernel(Dims d, const float* __restrict__ h0,
             [&](int r, int c, float a) {
               const float v = a + b_post1[c];
               she[r * H + c] = v;
-              RS.p[RS_PS1][(lb * N + r) * H + c] = v;
+              if constexpr (kStream) RS.p[RS_PS1][(lb * N + r) * H + c] = v;
             });
     __syncthreads();
     for (int e = tid; e < N * H; e += nt) she[e] = siluf_(she[e]);  // h_comb
@@ -319,7 +362,7 @@ resid_fwd_kernel(Dims d, const float* __restrict__ h0,
             [&](int r, int c, float a) { snp[r * H + c] += a; });
     __syncthreads();
     for (int e = tid; e < N * H; e += nt) {
-      RS.p[RS_NODE_PRE][lb * N * H + e] = snp[e];
+      if constexpr (kStream) RS.p[RS_NODE_PRE][lb * N * H + e] = snp[e];
       snp[e] = siluf_(snp[e]);
     }
     __syncthreads();
@@ -328,7 +371,7 @@ resid_fwd_kernel(Dims d, const float* __restrict__ h0,
             [&](int r, int c, float a) {
               const float v = a + b_node1[c];
               suv[r * F + c] = v;
-              RS.p[RS_UV][(lb * N + r) * F + c] = v;
+              if constexpr (kStream) RS.p[RS_UV][(lb * N + r) * F + c] = v;
             });
     __syncthreads();
     for (int e = tid; e < N * F; e += nt) sh[e] = sh[e] + siluf_(suv[e]);  // h_out
@@ -338,7 +381,7 @@ resid_fwd_kernel(Dims d, const float* __restrict__ h0,
     const float* b_vel0 = W(B_VEL0);
     mm(N, F, H, sh, F, W(W_VEL0), [&](int r, int c, float a) {
       const float v = a + b_vel0[c];
-      RS.p[RS_G0][(lb * N + r) * H + c] = v;
+      if constexpr (kStream) RS.p[RS_G0][(lb * N + r) * H + c] = v;
       sg0[r * H + c] = siluf_(v);
     });
     __syncthreads();
@@ -350,17 +393,18 @@ resid_fwd_kernel(Dims d, const float* __restrict__ h0,
         s = warp_sum(s);
         if (lane == 0) {
           sg1[i] = s;
-          RS.p[RS_G1][lb * N + i] = s;
+          if constexpr (kStream) RS.p[RS_G1][lb * N + i] = s;
         }
       }
     }
     __syncthreads();
     for (int i = tid; i < N; i += nt) {
       const float gate = 2.f * sigmoidf_(sg1[i]);
+      const float dvd = dv_denom(masked, scnt[i], n_eff);
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
         const float xv = sx[k * N + i], vv = sv[k * N + i];
-        const float v_new = gate * vv + sdel[k * N + i] / n_eff;
+        const float v_new = gate * vv + sdel[k * N + i] / dvd;
         const float x_new = xv + v_new;
         sx[k * N + i] = xv + u * (x_new - xv);
         sv[k * N + i] = vv + u * (v_new - vv);
@@ -373,8 +417,27 @@ resid_fwd_kernel(Dims d, const float* __restrict__ h0,
   for (int e = tid; e < 3 * N; e += nt) {
     const int k = e / N, i = e % N;
     x_fin[((size_t)k * B + b) * N + i] = sx[e];
-    v_fin[((size_t)k * B + b) * N + i] = sv[e];
+    if constexpr (kStream) v_fin[((size_t)k * B + b) * N + i] = sv[e];
   }
+}
+
+template <bool kStream>
+int launch_fwd(const sake::Dims& d, const float* h0, const float* xs, const float* v0,
+               const float* upd, const float* mask, const void* const* leaf_ptrs,
+               const long long* leaf_strides, float* bh, float* bx, float* bv, float* h_fin,
+               float* x_fin, float* v_fin, const Resids& RS, void* stream) {
+  Leaves L;
+  for (int i = 0; i < kLeaves; ++i) {
+    L.p[i] = static_cast<const float*>(leaf_ptrs[i]);
+    L.stride[i] = leaf_strides[i];
+  }
+  const size_t smem = fwd_smem_floats(d) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      resid_fwd_kernel<kStream>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  resid_fwd_kernel<kStream><<<d.B, 256, smem, static_cast<cudaStream_t>(stream)>>>(
+      d, h0, xs, v0, upd, mask, L, bh, bx, bv, h_fin, x_fin, v_fin, RS);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace sake
@@ -385,27 +448,35 @@ extern "C" long long sake_resid_fwd_smem_bytes(int B, int N, int F, int H, int R
   return sake::fwd_smem_floats(d) * (long long)sizeof(float);
 }
 
+// mask: (B, N, N) f32 or null.
 extern "C" int sake_resid_fwd(const float* h0, const float* xs, const float* v0,
-                              const float* upd, const void* const* leaf_ptrs,
-                              const long long* leaf_strides, float* bh, float* bx,
-                              float* bv, float* h_fin, float* x_fin, float* v_fin,
-                              void* const* resid_ptrs, int B, int N, int F, int H, int R,
-                              int K, int C, int depth, void* stream) {
-  sake::Dims d{B, N, F, H, R, K, C, depth};
-  sake::Leaves L;
-  for (int i = 0; i < sake::kLeaves; ++i) {
-    L.p[i] = static_cast<const float*>(leaf_ptrs[i]);
-    L.stride[i] = leaf_strides[i];
-  }
+                              const float* upd, const float* mask,
+                              const void* const* leaf_ptrs, const long long* leaf_strides,
+                              float* bh, float* bx, float* bv, float* h_fin, float* x_fin,
+                              float* v_fin, void* const* resid_ptrs, int B, int N, int F,
+                              int H, int R, int K, int C, int depth, void* stream) {
   sake::Resids RS;
   for (int i = 0; i < sake::kResids; ++i) RS.p[i] = static_cast<float*>(resid_ptrs[i]);
-  const size_t smem = sake::fwd_smem_floats(d) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      sake::resid_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  sake::resid_fwd_kernel<<<B, 256, smem, static_cast<cudaStream_t>(stream)>>>(
-      d, h0, xs, v0, upd, L, bh, bx, bv, h_fin, x_fin, v_fin, RS);
-  return (int)cudaGetLastError();
+  return sake::launch_fwd<true>(sake::Dims{B, N, F, H, R, K, C, depth}, h0, xs, v0, upd,
+                                mask, leaf_ptrs, leaf_strides, bh, bx, bv, h_fin, x_fin,
+                                v_fin, RS, stream);
+}
+
+// The forward without residuals: pool is a (3, B, N, C) scratch for one
+// layer's pooled vectors.
+extern "C" int sake_resid_infer(const float* h0, const float* xs, const float* v0,
+                                const float* upd, const float* mask,
+                                const void* const* leaf_ptrs, const long long* leaf_strides,
+                                float* h_fin, float* x_fin, float* pool, int B, int N, int F,
+                                int H, int R, int K, int C, int depth, void* stream) {
+  sake::Resids RS{};
+  const size_t plane = (size_t)B * N * C;
+  RS.p[sake::RS_POOL0] = pool;
+  RS.p[sake::RS_POOL1] = pool + plane;
+  RS.p[sake::RS_POOL2] = pool + 2 * plane;
+  return sake::launch_fwd<false>(sake::Dims{B, N, F, H, R, K, C, depth}, h0, xs, v0, upd,
+                                 mask, leaf_ptrs, leaf_strides, nullptr, nullptr, nullptr,
+                                 h_fin, x_fin, nullptr, RS, stream);
 }
 
 extern "C" const char* sake_error_string(int err) {

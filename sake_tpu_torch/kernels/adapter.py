@@ -2,7 +2,8 @@
 
 Port of ``sake_tpu/kernels/adapter.py``. The linen tree arrives as nested
 dicts of numpy arrays (``jax.device_get`` / ``np.asarray`` on the JAX
-side); nothing here imports JAX. Layers without an update head get zero
+side) or of torch tensors (:func:`linen_tree` of a port module, whose
+parameter names mirror the linen tree); nothing here imports JAX. Layers without an update head get zero
 placeholders for ``w_vmix``/``w_vel0``/``b_vel0``/``w_vel1``, as in the
 JAX adapter. ``log_gamma`` is not carried: the dense forward never reads it.
 """
@@ -16,6 +17,9 @@ from sake_tpu_torch.kernels.functional import CFConvParams, LayerParams, ModelPa
 
 
 def _t(a, device):
+    """A fresh f32 leaf tensor with the values of ``a`` (numpy or torch)."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().to(device=device, dtype=torch.float32).clone()
     return torch.tensor(np.asarray(a, dtype=np.float32), device=device)
 
 
@@ -34,8 +38,8 @@ def layer_params_from_linen(lp, device=None) -> LayerParams:
         b_out1=t(edge["mlp_out"]["dense_1"]["bias"]),
     )
     hidden = cf.w_out1.shape[-1]
-    n_coeff = np.asarray(lp["x_mixing"]["kernel"]).shape[-1]
-    f_out = np.asarray(lp["node_mlp"]["dense_1"]["kernel"]).shape[-1]
+    n_coeff = lp["x_mixing"]["kernel"].shape[-1]
+    f_out = lp["node_mlp"]["dense_1"]["kernel"].shape[-1]
     zeros = lambda *s: torch.zeros(s, device=device)
     # velocity_mlp_* exist only on update layers that receive a velocity:
     # flax creates them at first use, and the first update layer sees v=None
@@ -84,6 +88,33 @@ def model_params_from_linen(params, device=None) -> ModelParams:
     )
 
 
+def kernel_params_from_linen(params, device=None) -> dict:
+    """A ``QM9Model`` linen tree (``backbone`` + ``head``) -> the kernel
+    backbone's training parameters ``{"kp": ModelParams, "head": {"dense_i":
+    {"kernel", "bias"}}}`` (JAX ``tasks/qm9.py:156-159``); ``"head"`` is
+    None for a head without its MLP."""
+    tree = params.get("params", params)
+    mlp = tree.get("head", {}).get("head")
+    head = None if mlp is None else {
+        name: {leaf: _t(a, device) for leaf, a in dense.items()} for name, dense in mlp.items()
+    }
+    return {"kp": model_params_from_linen(tree["backbone"], device), "head": head}
+
+
+def linen_tree(module: torch.nn.Module) -> dict:
+    """A module's parameters as the nested dict of their linen names
+    (``layer_0.edge_model.mlp_in.kernel`` -> ``tree["layer_0"]["edge_model"]
+    ["mlp_in"]["kernel"]``), sharing the module's tensors."""
+    tree = {}
+    for name, prm in module.named_parameters():
+        *path, leaf = name.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = prm
+    return tree
+
+
 def params_from_jax(mp, device=None) -> ModelParams:
     """A JAX ``ModelParams`` whose leaves are numpy arrays -> torch
     ``ModelParams`` (field names and order are the same in both packages)."""
@@ -102,9 +133,9 @@ def params_from_jax(mp, device=None) -> ModelParams:
 
 
 def load_linen_params(module: torch.nn.Module, params) -> None:
-    """Copy a linen tree of numpy arrays into a module whose parameter
-    names mirror the linen tree (``layer_0.edge_model.mlp_in.kernel`` <->
-    ``tree["layer_0"]["edge_model"]["mlp_in"]["kernel"]``). Every module
+    """Copy a linen tree of numpy arrays or tensors into a module whose
+    parameter names mirror the linen tree (``layer_0.edge_model.mlp_in.kernel``
+    <-> ``tree["layer_0"]["edge_model"]["mlp_in"]["kernel"]``). Every module
     parameter must be present in the tree, with the same shape."""
     tree = params.get("params", params)
     with torch.no_grad():
@@ -112,7 +143,7 @@ def load_linen_params(module: torch.nn.Module, params) -> None:
             node = tree
             for part in name.split("."):
                 node = node[part]
-            src = np.asarray(node, dtype=np.float32)
+            src = _t(node, prm.device)
             if tuple(src.shape) != tuple(prm.shape):
-                raise ValueError(f"{name}: linen {src.shape} vs module {tuple(prm.shape)}")
-            prm.copy_(torch.tensor(src))
+                raise ValueError(f"{name}: linen {tuple(src.shape)} vs module {tuple(prm.shape)}")
+            prm.copy_(src)

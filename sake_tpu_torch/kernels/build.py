@@ -1,10 +1,11 @@
 """Build the hand-written CUDA kernels of ``sake_tpu_torch/csrc`` at first
 use and load them with ``ctypes``.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
-C interface (no PyTorch headers, so a build takes seconds). The library
-lands in ``sake_tpu_torch/_build/<hash>/``, keyed by a hash of the sources
-and the flags, so an edit rebuilds and an unchanged tree reuses it.
+``nvcc`` compiles each ``csrc/*.cu`` to an object, all sources at once in
+parallel processes, and links the objects into one shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds). The
+library lands in ``sake_tpu_torch/_build/<hash>/``, keyed by a hash of the
+sources and the flags, so an edit rebuilds and an unchanged tree reuses it.
 """
 
 from __future__ import annotations
@@ -20,10 +21,8 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
 
@@ -58,18 +57,29 @@ def build() -> Path:
     lib_path = out_dir / "libsake_kernels.so"
     if lib_path.exists():
         return lib_path
+    nvcc = _nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
+    cus = sorted(CSRC.glob("*.cu"))
+    objs = [out_dir / f"{cu.stem}.o" for cu in cus]
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(cu)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for cu, obj in zip(cus, objs)
+    ]
+    logs = [p.communicate()[0] for p in procs]
+    (out_dir / "ptxas.txt").write_text("".join(logs))
+    failed = [(cu.name, p.returncode, log) for cu, p, log in zip(cus, procs, logs)
+              if p.returncode != 0]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{name} ({rc}):\n{log[-4000:]}" for name, rc, log in failed))
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu],
-        capture_output=True, text=True,
-    )
-    (out_dir / "ptxas.txt").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    link = subprocess.run([nvcc, *ARCH, "-shared", "-o", tmp, *map(str, objs)],
+                          capture_output=True, text=True)
+    if link.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr[-4000:]}")
     os.replace(tmp, lib_path)
     return lib_path
 
@@ -82,10 +92,19 @@ def load():
     lib = ctypes.CDLL(str(build()))
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     dims = [I] * 8
-    lib.sake_resid_fwd.argtypes = [P] * 4 + [P, P] + [P] * 6 + [P] + dims + [P]
-    lib.sake_resid_fwd.restype = I
-    lib.sake_resid_bwd.argtypes = [P] * 4 + [P, P, P] + [P] + [P] * 3 + [P] * 3 + dims + [P]
-    lib.sake_resid_bwd.restype = I
+    # h0, xs, v0, upd, mask, leaves, strides
+    fwd_in = [P] * 5 + [P, P]
+    lib.sake_resid_fwd.argtypes = fwd_in + [P] * 6 + [P] + dims + [P]
+    lib.sake_resid_infer.argtypes = fwd_in + [P] * 3 + dims + [P]
+    # bh, bx, bv, upd, mask, leaves, leaves_t, strides, resid, dh, dx, dv, 3 outs
+    bwd_in = [P] * 5 + [P, P, P] + [P] + [P] * 3 + [P] * 3
+    lib.sake_resid_bwd.argtypes = bwd_in + dims + [P]
+    lib.sake_resid_bwd_rows.argtypes = bwd_in + [P] + dims + [P]
+    # bh, leaves, strides, resid, rows, partial, out, per_chunk
+    lib.sake_param_grads.argtypes = [P] * 7 + [I] + dims + [P]
+    for fn in ("sake_resid_fwd", "sake_resid_infer", "sake_resid_bwd", "sake_resid_bwd_rows",
+               "sake_param_grads"):
+        getattr(lib, fn).restype = I
     lib.sake_resid_fwd_smem_bytes.argtypes = dims
     lib.sake_resid_fwd_smem_bytes.restype = LL
     lib.sake_resid_bwd_smem_bytes.argtypes = dims

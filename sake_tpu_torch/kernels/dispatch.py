@@ -26,6 +26,6 @@ def dispatch_energy_forces(
     n_heads: int = 4,
     update: Sequence[bool] | bool = True,
 ):
-    """Raw ``(E (B,), F (B, N, 3))`` in f32. A CUDA tensor with a mask
-    raises ``NotImplementedError``: the masked kernels are not written yet."""
+    """Raw ``(E (B,), F (B, N, 3))`` in f32; with an edge mask the energy
+    sums the readout over the mask's atoms (its diagonal)."""
     return resid_energy_forces(params, h, x, mask, n_heads=n_heads, update=update)

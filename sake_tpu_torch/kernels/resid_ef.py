@@ -1,21 +1,32 @@
-"""Residual-saving E+F: the layer forward that saves residuals, its
-hand-derived pullback, and the K1/K2 CUDA kernels that run them.
+"""Residual-saving layer stack: the layer forward that saves residuals,
+its hand-derived pullback with parameter gradients, and the CUDA kernels
+that run them.
 
 Port of ``sake_tpu/kernels/resid_ef.py``:
 
 - :func:`layer_fwd_resid` (JAX ``:147-320``) and :func:`layer_bwd_resid`
-  (JAX ``:387-676``, input cotangents only) are the plain PyTorch versions
-  of one layer. The CUDA kernels compute the same functions.
-- :func:`resid_fwd` (K1, ``csrc/resid_fwd.cu``, replacing the JAX
-  ``fwd_kernel`` at ``:1099``) runs ``layer_fwd_resid`` over depth;
-  :func:`resid_bwd` (K2, ``csrc/resid_bwd.cu``, replacing ``bwd_kernel``
-  at ``:1211``) runs ``layer_bwd_resid`` in reverse. Each takes its plain
-  stack (:func:`resid_fwd_plain` / :func:`resid_bwd_plain`) only for CPU
-  tensors; on a CUDA tensor it launches the kernel or raises.
+  (JAX ``:387-773``, with ``want_param_grads``) are the plain PyTorch
+  versions of one layer; :func:`layer_param_grads` is the row-contraction
+  half of its parameter gradients. The CUDA kernels compute the same
+  functions.
+- :func:`resid_fwd` (K1, ``csrc/resid_fwd.cu``; JAX ``fwd_kernel``
+  ``:1099`` and, with an edge mask, ``make_hidden_fn``'s ``fwd_kernel``
+  ``:1484``) runs ``layer_fwd_resid`` over depth; :func:`resid_infer`
+  (the same source without residual streams; JAX ``infer_kernel``
+  ``:1732``) keeps only the final state; :func:`resid_bwd` (K2,
+  ``csrc/resid_bwd.cu``; JAX ``bwd_kernel`` ``:1211``) runs the input
+  pullback in reverse; :func:`resid_bwd_rows` (the same source) also
+  writes the cotangent rows the parameter gradients contract, and
+  :func:`param_grads` (``csrc/param_grads.cu``) contracts them; together
+  they replace ``make_hidden_fn``'s ``bwd_kernel`` ``:1598``. Each takes
+  its plain version only for CPU tensors; on a CUDA tensor it launches
+  the kernel or raises.
 - :func:`resid_energy_forces` (JAX ``:978-1330``) orchestrates embed, K1,
   the readout and its seed (plain torch, as the JAX package ran them
   outside Pallas), K2 and ``F = -dx``, per batch chunk so residual memory
-  stays bounded.
+  stays bounded. :func:`make_hidden_fn` (JAX ``:1376-1915``) is the
+  first-order training entry: ``hidden(params, h, x, mask) -> h_fin`` as a
+  ``torch.autograd.Function``.
 
 The JAX package's TPU-only probes (``SAKE_ABLATE``/``geomfold``, the MXU
 pooling ``spat``/``mm_pool``, ``pool_dtype``) have no counterpart here.
@@ -32,6 +43,8 @@ from sake_tpu_torch.kernels import build
 from sake_tpu_torch.kernels.functional import (
     EPSILON,
     INF,
+    CFConvParams,
+    LayerParams,
     ModelParams,
     _silu,
     embed,
@@ -47,6 +60,14 @@ NODE_RESIDS = ("pool0", "pool1", "pool2", "ps0", "ps1", "node_pre", "uv",
                "g0", "g1")
 RESIDS = EDGE_RESIDS + NODE_RESIDS
 
+# Cotangent rows of the pullback that the parameter gradients contract (the
+# operands of the JAX ``mm_pairs`` that are not residuals), in kernel order.
+# Edge rows are (depth, B, N*N, ch), node rows (depth, B, N, ch).
+EDGE_ROWS = ("de0", "dhe", "dsem", "dxm", "att2", "filt", "drbf")
+NODE_ROWS = ("daj", "dai", "doj", "doi", "dps0", "dps1", "dnp", "duv", "dg0",
+             "dg1", "ddel", "hatt", "psq")
+ROWS = EDGE_ROWS + NODE_ROWS
+
 
 def edge_channels(R, H, K, C):
     return dict(r=1, t=1, rbf=R, e0=H, h_e=H, sem_pre=K, att=K, coeff=C)
@@ -57,6 +78,17 @@ def node_channels(p: dict, C: int):
     w = lambda name: p[name].shape[-1]
     return dict(pool0=C, pool1=C, pool2=C, ps0=w("w_post0"), ps1=w("w_post1"),
                 node_pre=w("w_node_h"), uv=w("w_node1"), g0=w("w_vel0"), g1=1)
+
+
+def row_channels(p: dict, C: int):
+    """Widths of the cotangent rows, read off one layer's (or the stacked)
+    leaves."""
+    w = lambda name: p[name].shape[-1]
+    H, K, R = w("w_o_j"), w("w_sem"), w("w_in_j")
+    return dict(de0=H, dhe=H, dsem=K, dxm=C, att2=K, filt=R, drbf=R,
+                daj=R, dai=R, doj=H, doi=H, dps0=w("w_post0"), dps1=w("w_post1"),
+                dnp=w("w_node_h"), duv=w("w_node1"), dg0=w("w_vel0"), dg1=1, ddel=3,
+                hatt=H * K, psq=C)
 
 
 def _dsilu(x):
@@ -152,11 +184,15 @@ def layer_fwd_resid(p: dict, h, xp, vp, upd, *, n_real=None, mask=None):
 
 
 def layer_bwd_resid(p: dict, resid: dict, h_in, xp, vp, upd, d_h_out, d_xp_out,
-                    d_vp_out, *, n_real=None, mask=None):
+                    d_vp_out, *, n_real=None, mask=None, want_param_grads=False):
     """Hand-derived pullback of :func:`layer_fwd_resid` w.r.t. its inputs
-    ``(h, xp, vp)``; the parameters are constants. Only ``a_j``/``a_i`` are
-    recomputed from ``h_in``; every nonlinearity is evaluated on the saved
-    residuals. Returns ``(d_h, d_xp, d_vp)``."""
+    ``(h, xp, vp)``. Only ``a_j``/``a_i`` are recomputed from ``h_in``;
+    every nonlinearity is evaluated on the saved residuals. Returns
+    ``(d_h, d_xp, d_vp)``; with ``want_param_grads=True`` also ``dW``, this
+    layer's gradient of every ``LEAF_NAMES`` leaf (:func:`layer_param_grads`),
+    and with ``want_param_grads="rows"`` instead the cotangent rows ``dW``
+    is contracted from (``ROWS``: edge rows ``(B, N*N, ch)``, node rows
+    ``(B, N, ch)``)."""
     B, N, F = h_in.shape
     C = p["w_xmix"].shape[-1]
     n_eff = float(n_real if n_real is not None else N)
@@ -244,7 +280,8 @@ def layer_bwd_resid(p: dict, resid: dict, h_in, xp, vp, upd, d_h_out, d_xp_out,
     # softmax over senders, celu2
     d_logits = att * (d_att - (d_att * att).sum(dim=-2, keepdim=True))
     dcelu = torch.where(sem_pre > 0, torch.ones_like(sem_pre), torch.exp(sem_pre / 2.0))
-    d_h_e = d_h_e + (d_logits * dcelu) @ p["w_sem"].T
+    d_sem_pre = d_logits * dcelu
+    d_h_e = d_h_e + d_sem_pre @ p["w_sem"].T
 
     # h_e = silu(e0) @ w_o1 + b_o1
     d_e0 = (d_h_e @ p["w_o1"].T) * _dsilu(e0)
@@ -259,7 +296,9 @@ def layer_bwd_resid(p: dict, resid: dict, h_in, xp, vp, upd, d_h_out, d_xp_out,
     pre = a_j[:, None, :, :] + a_i[:, :, None, :]
     d_rbf = d_filtered * pre
     d_pre = d_filtered * rbf
-    d_h = (d_h + d_pre.sum(dim=-3) @ p["w_in_j"].T + d_pre.sum(dim=-2) @ p["w_in_i"].T
+    d_a_j = d_pre.sum(dim=-3)
+    d_a_i = d_pre.sum(dim=-2)
+    d_h = (d_h + d_a_j @ p["w_in_j"].T + d_a_i @ p["w_in_i"].T
            + d_o_j @ p["w_o_j"].T + d_o_i @ p["w_o_i"].T)
 
     # rbf = exp(-b (t - m)^2), t = exp(-r)
@@ -271,12 +310,87 @@ def layer_bwd_resid(p: dict, resid: dict, h_in, xp, vp, upd, d_h_out, d_xp_out,
     for k in range(3):
         dd = d_d0[k] + 2.0 * d0[k] * d_s
         d_xp[k] = d_xp[k] + dd.sum(dim=-3) - dd.sum(dim=-2)
-    return d_h, d_xp, d_vp
+    if not want_param_grads:
+        return d_h, d_xp, d_vp
+
+    # the cotangent rows the parameter gradients contract (JAX :678-737)
+    e2 = lambda a: a.reshape(B, N * N, -1)
+    he_att = (h_e[..., :, None] * att2[..., None, :]).reshape(B, N, N, H * K)
+    rows = dict(
+        de0=e2(d_e0), dhe=e2(d_h_e), dsem=e2(d_sem_pre), dxm=e2(d_xm), att2=e2(att2),
+        filt=e2(rbf * pre), drbf=e2(d_rbf),
+        daj=d_a_j, dai=d_a_i, doj=d_o_j, doi=d_o_i, dps0=d_ps0, dps1=d_ps1,
+        dnp=d_node_pre, duv=d_uv, dg0=d_g0, dg1=d_g1,
+        ddel=torch.cat([dd / dv_denom for dd in d_v_new], dim=-1),
+        hatt=he_att.sum(dim=-2),
+        psq=((pooled[0] / pool_denom) ** 2 + (pooled[1] / pool_denom) ** 2
+             + (pooled[2] / pool_denom) ** 2),
+    )
+    if want_param_grads == "rows":
+        return d_h, d_xp, d_vp, rows
+    return d_h, d_xp, d_vp, layer_param_grads(p, resid, h_in, rows)
+
+
+def layer_param_grads(p: dict, resid: dict, h_in, rows: dict) -> dict:
+    """One layer's gradient of every ``LEAF_NAMES`` leaf, from its residuals,
+    its input ``h_in`` and the cotangent rows of :func:`layer_bwd_resid`:
+    row contractions ``a^T @ g`` for the weights and row sums for the
+    biases and offsets (JAX ``:678-773``). The plain version of the
+    ``param_grads`` kernel."""
+    flat = lambda a: a.reshape(-1, a.shape[-1])
+    mmt = lambda a, g: flat(a).T @ flat(g)
+    # row sums in f64: their terms cancel (a softmax's cotangents sum to zero
+    # over its senders), and an f32 sum of the b_sem rows lost 3e-5 of the
+    # result's size on an H100
+    rsum = lambda g: flat(g).double().sum(dim=0, keepdim=True).to(g.dtype)
+    r, t, rbf, e0, h_e = (resid[n] for n in ("r", "t", "rbf", "e0", "h_e"))
+    he_att = (h_e[..., :, None] * rows["att2"][..., None, :]).flatten(-2)
+    tm = t - p["rbf_m"]
+    q = rows["drbf"] * rbf
+    ddel = rows["ddel"]
+    dnp = rows["dnp"]
+    return dict(
+        w_in_j=mmt(h_in, rows["daj"]), w_in_i=mmt(h_in, rows["dai"]), b_in=rsum(rows["daj"]),
+        rbf_m=rsum(q * (2.0 * p["rbf_b"] * tm)), rbf_b=rsum(q * (-(tm * tm))),
+        w_o_j=mmt(h_in, rows["doj"]), w_o_i=mmt(h_in, rows["doi"]),
+        w_o_f=mmt(rows["filt"], rows["de0"]), w_o_r=rsum(rows["de0"] * r),
+        b_o0=rsum(rows["de0"]), w_o1=mmt(_silu(e0), rows["dhe"]), b_o1=rsum(rows["dhe"]),
+        w_sem=mmt(h_e, rows["dsem"]), b_sem=rsum(rows["dsem"]),
+        w_xmix=mmt(he_att, rows["dxm"]),
+        w_post0=mmt(rows["psq"], rows["dps0"]), b_post0=rsum(rows["dps0"]),
+        w_post1=mmt(_silu(resid["ps0"]), rows["dps1"]), b_post1=rsum(rows["dps1"]),
+        w_node_h=mmt(h_in, dnp), w_node_agg=mmt(rows["hatt"], dnp),
+        w_node_comb=mmt(_silu(resid["ps1"]), dnp), b_node0=rsum(dnp),
+        w_node1=mmt(_silu(resid["node_pre"]), rows["duv"]), b_node1=rsum(rows["duv"]),
+        w_vmix=sum(mmt(resid[f"pool{k}"], ddel[..., k : k + 1]) for k in range(3)),
+        w_vel0=mmt(h_in + _silu(resid["uv"]), rows["dg0"]), b_vel0=rsum(rows["dg0"]),
+        w_vel1=mmt(_silu(resid["g0"]), rows["dg1"]),
+    )
+
+
+def unsplit_layer_grads(g: dict) -> LayerParams:
+    """Inverse of ``leaves.split_layer`` for gradient leaves (one layer,
+    depth axis removed): reassemble a ``LayerParams`` (JAX ``:1344-1373``)."""
+    edge = CFConvParams(
+        w_in=torch.cat([g["w_in_j"], g["w_in_i"]]), b_in=g["b_in"][0],
+        rbf_means=g["rbf_m"][0], rbf_betas=g["rbf_b"][0],
+        w_out0=torch.cat([g["w_o_j"], g["w_o_i"], g["w_o_f"], g["w_o_r"]]),
+        b_out0=g["b_o0"][0], w_out1=g["w_o1"], b_out1=g["b_o1"][0],
+    )
+    return LayerParams(
+        edge=edge, w_sem=g["w_sem"], b_sem=g["b_sem"][0], w_xmix=g["w_xmix"],
+        w_post0=g["w_post0"], b_post0=g["b_post0"][0],
+        w_post1=g["w_post1"], b_post1=g["b_post1"][0],
+        w_node0=torch.cat([g["w_node_h"], g["w_node_agg"], g["w_node_comb"]]),
+        b_node0=g["b_node0"][0], w_node1=g["w_node1"], b_node1=g["b_node1"][0],
+        w_vmix=g["w_vmix"], w_vel0=g["w_vel0"], b_vel0=g["b_vel0"][0], w_vel1=g["w_vel1"],
+    )
 
 
 # --------------------------------------------------------------------------
-# Layer stacks: plain versions and the K1/K2 kernel wrappers.
-# Coordinates cross as (3, B, N) plane stacks.
+# Layer stacks: plain versions and the kernel wrappers. Coordinates cross
+# as (3, B, N) plane stacks, the edge mask as the layer functions'
+# (B, N, N, 1) plane.
 # --------------------------------------------------------------------------
 
 
@@ -298,6 +412,10 @@ def _unplanes(ps):
     return torch.stack([pk[..., 0] for pk in ps])
 
 
+def _layer(d: dict, l: int) -> dict:
+    return {n: a[l] for n, a in d.items()}
+
+
 def resid_fwd_plain(leaves: dict, h0, xs, v0, upd: Sequence[float], mask=None) -> FwdOut:
     """Plain version of K1: :func:`layer_fwd_resid` over depth."""
     h, xp, vp = h0, _planes(xs), _planes(v0)
@@ -314,21 +432,58 @@ def resid_fwd_plain(leaves: dict, h0, xs, v0, upd: Sequence[float], mask=None) -
                   {n: torch.stack(v) for n, v in res.items()})
 
 
+def resid_infer_plain(leaves: dict, h0, xs, v0, upd: Sequence[float], mask=None):
+    """Plain version of :func:`resid_infer`: the final ``h`` and ``x``."""
+    h, xp, vp = h0, _planes(xs), _planes(v0)
+    for l, u in enumerate(upd):
+        h, xp, vp, _ = layer_fwd_resid(layer_leaves(leaves, l), h, xp, vp, u, mask=mask)
+    return h, _unplanes(xp)
+
+
+def _bwd_plain(leaves, fwd, upd, dh, dx, dv, mask, want):
+    dxp, dvp = _planes(dx), _planes(dv)
+    per = [None] * len(upd)
+    for l in reversed(range(len(upd))):
+        out = layer_bwd_resid(
+            layer_leaves(leaves, l), _layer(fwd.resid, l), fwd.bh[l], _planes(fwd.bx[l]),
+            _planes(fwd.bv[l]), upd[l], dh, dxp, dvp, mask=mask, want_param_grads=want,
+        )
+        dh, dxp, dvp = out[:3]
+        per[l] = out[3:]
+    return dh, _unplanes(dxp), _unplanes(dvp), per
+
+
 def resid_bwd_plain(leaves: dict, fwd: FwdOut, upd: Sequence[float], dh, dx, dv,
                     mask=None):
     """Plain version of K2: :func:`layer_bwd_resid` in reverse depth.
     Returns the cotangents of the initial ``(h, x, v)``."""
-    dxp, dvp = _planes(dx), _planes(dv)
-    for l in reversed(range(len(upd))):
-        dh, dxp, dvp = layer_bwd_resid(
-            layer_leaves(leaves, l), {n: a[l] for n, a in fwd.resid.items()},
-            fwd.bh[l], _planes(fwd.bx[l]), _planes(fwd.bv[l]), upd[l],
-            dh, dxp, dvp, mask=mask,
-        )
-    return dh, _unplanes(dxp), _unplanes(dvp)
+    return _bwd_plain(leaves, fwd, upd, dh, dx, dv, mask, False)[:3]
+
+
+def resid_bwd_rows_plain(leaves: dict, fwd: FwdOut, upd: Sequence[float], dh, dx, dv,
+                         mask=None):
+    """Plain version of :func:`resid_bwd_rows`: K2's cotangents and the
+    depth-stacked cotangent rows ``{name: (depth, B, N*N | N, ch)}``."""
+    dh, dx, dv, per = _bwd_plain(leaves, fwd, upd, dh, dx, dv, mask, "rows")
+    return dh, dx, dv, {n: torch.stack([p[0][n] for p in per]) for n in ROWS}
+
+
+def param_grads_plain(leaves: dict, fwd: FwdOut, rows: dict) -> dict:
+    """Plain version of :func:`param_grads`: :func:`layer_param_grads` per
+    layer, ``{name: (depth, r, c)}``."""
+    per = [
+        layer_param_grads(layer_leaves(leaves, l), _layer(fwd.resid, l), fwd.bh[l],
+                          _layer(rows, l))
+        for l in range(fwd.bh.shape[0])
+    ]
+    return {n: torch.stack([p[n] for p in per]) for n in LEAF_NAMES}
 
 
 _SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
+# param_grads splits the batch into at most this many chunks of molecules;
+# each chunk's partial sums land in their own (f64) buffer, summed in chunk
+# order by a second pass (deterministic, no atomics).
+_GRAD_CHUNKS = 32
 
 
 def _dims(leaves: dict, h0):
@@ -366,6 +521,11 @@ def _check_leaves(leaves, dims, device):
         _check_cuda(name, leaves[name], (depth, *shape), device)
 
 
+def _check_all(name, tensors: dict, shapes: dict, device):
+    for n, s in shapes.items():
+        _check_cuda(f"{name}.{n}", tensors[n], s, device)
+
+
 def _ptrs(tensors):
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
@@ -386,16 +546,39 @@ def _resid_shapes(dims, leaves):
     }
 
 
-def resid_fwd(leaves: dict, h0, xs, v0, upd: Sequence[float], mask=None) -> FwdOut:
-    """K1: the layer stack's forward with residuals. ``leaves`` from
-    :func:`leaves.wide_stack`; ``h0 (B, N, F)``; ``xs``, ``v0 (3, B, N)``;
-    ``upd``: per-layer update gates. CPU tensors take the plain version."""
-    if h0.device.type == "cpu":
-        return resid_fwd_plain(leaves, h0, xs, v0, upd, mask=mask)
+def _row_shapes(dims, leaves):
+    B, N, F, H, R, K, C, depth = dims
+    ch = row_channels(leaves, C)
+    return {
+        **{n: (depth, B, N * N, ch[n]) for n in EDGE_ROWS},
+        **{n: (depth, B, N, ch[n]) for n in NODE_ROWS},
+    }
+
+
+def _edge_mask(mask, dims, device):
+    """The ``(B, N, N, 1)`` edge mask as the kernels read it: a contiguous
+    f32 ``(B, N, N)`` tensor, or None (a null pointer: no mask)."""
+    if mask is None:
+        return None
+    B, N = dims[:2]
+    m = mask.reshape(B, N, N)
+    _check_cuda("mask", m, (B, N, N), device)
+    return m
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _fwd_args(name, leaves, h0, xs, v0, upd, mask):
+    """Checks shared by K1 and the forward without residuals; returns
+    ``(lib, dims, upd, mask)`` as the kernels take them."""
     if not h0.is_cuda:
-        raise ValueError(f"resid_fwd: unsupported device {h0.device}")
-    if mask is not None:
-        raise NotImplementedError("resid_fwd: the CUDA kernel takes no edge mask yet")
+        raise ValueError(f"{name}: unsupported device {h0.device}")
     dims = _dims(leaves, h0)
     B, N, F, H, R, K, C, depth = dims
     dev = h0.device
@@ -404,24 +587,35 @@ def resid_fwd(leaves: dict, h0, xs, v0, upd: Sequence[float], mask=None) -> FwdO
     _check_cuda("v0", v0, (3, B, N), dev)
     _check_leaves(leaves, dims, dev)
     if F != H or len(upd) != depth:
-        raise ValueError("resid_fwd: needs hidden width == feature width and one gate per layer")
+        raise ValueError(f"{name}: needs hidden width == feature width and one gate per layer")
     lib = build.load()
     if lib.sake_resid_fwd_smem_bytes(*dims) > _SMEM_LIMIT:
-        raise ValueError(f"resid_fwd: N={N} at these widths exceeds one block's shared memory")
-    empty = lambda *s: torch.empty(s, device=dev, dtype=torch.float32)
+        raise ValueError(f"{name}: N={N} at these widths exceeds one block's shared memory")
+    upd_t = torch.tensor(list(upd), dtype=torch.float32, device=dev)
+    return lib, dims, upd_t, _edge_mask(mask, dims, dev)
+
+
+def resid_fwd(leaves: dict, h0, xs, v0, upd: Sequence[float], mask=None) -> FwdOut:
+    """K1: the layer stack's forward with residuals. ``leaves`` from
+    :func:`leaves.wide_stack`; ``h0 (B, N, F)``; ``xs``, ``v0 (3, B, N)``;
+    ``upd``: per-layer update gates; ``mask``: ``(B, N, N, 1)`` edge mask
+    or None. CPU tensors take the plain version."""
+    if h0.device.type == "cpu":
+        return resid_fwd_plain(leaves, h0, xs, v0, upd, mask=mask)
+    lib, dims, upd_t, m = _fwd_args("resid_fwd", leaves, h0, xs, v0, upd, mask)
+    B, N, F, H, R, K, C, depth = dims
+    empty = lambda *s: torch.empty(s, device=h0.device, dtype=torch.float32)
     out = FwdOut(
         empty(depth, B, N, F), empty(depth, 3, B, N), empty(depth, 3, B, N),
         empty(B, N, F), empty(3, B, N), empty(3, B, N),
         {n: empty(*s) for n, s in _resid_shapes(dims, leaves).items()},
     )
-    upd_t = torch.tensor(list(upd), dtype=torch.float32, device=dev)
     err = lib.sake_resid_fwd(
-        h0.data_ptr(), xs.data_ptr(), v0.data_ptr(), upd_t.data_ptr(),
+        h0.data_ptr(), xs.data_ptr(), v0.data_ptr(), upd_t.data_ptr(), _ptr(m),
         _ptrs([leaves[n] for n in LEAF_NAMES]), _strides(leaves),
         out.bh.data_ptr(), out.bx.data_ptr(), out.bv.data_ptr(),
         out.h_fin.data_ptr(), out.x_fin.data_ptr(), out.v_fin.data_ptr(),
-        _ptrs([out.resid[n] for n in RESIDS]),
-        *dims, torch.cuda.current_stream(dev).cuda_stream,
+        _ptrs([out.resid[n] for n in RESIDS]), *dims, _stream(h0.device),
     )
     build.check(lib, err, "resid_fwd")
     resid_fwd.launches += 1
@@ -429,6 +623,77 @@ def resid_fwd(leaves: dict, h0, xs, v0, upd: Sequence[float], mask=None) -> FwdO
 
 
 resid_fwd.launches = 0
+
+
+def resid_infer(leaves: dict, h0, xs, v0, upd: Sequence[float], mask=None):
+    """The layer stack's forward without residuals or boundary states (JAX
+    ``infer_kernel`` ``:1732``): K1's source built without its streams.
+    Returns the final ``h (B, N, F)`` and ``x (3, B, N)``. CPU tensors take
+    the plain version."""
+    if h0.device.type == "cpu":
+        return resid_infer_plain(leaves, h0, xs, v0, upd, mask=mask)
+    lib, dims, upd_t, m = _fwd_args("resid_infer", leaves, h0, xs, v0, upd, mask)
+    B, N, F, H, R, K, C, depth = dims
+    empty = lambda *s: torch.empty(s, device=h0.device, dtype=torch.float32)
+    h_fin, x_fin = empty(B, N, F), empty(3, B, N)
+    pool = empty(3, B, N, C)  # one layer's pooled vectors, reused layer after layer
+    err = lib.sake_resid_infer(
+        h0.data_ptr(), xs.data_ptr(), v0.data_ptr(), upd_t.data_ptr(), _ptr(m),
+        _ptrs([leaves[n] for n in LEAF_NAMES]), _strides(leaves),
+        h_fin.data_ptr(), x_fin.data_ptr(), pool.data_ptr(), *dims, _stream(h0.device),
+    )
+    build.check(lib, err, "resid_infer")
+    resid_infer.launches += 1
+    return h_fin, x_fin
+
+
+resid_infer.launches = 0
+
+
+def _bwd_launch(name, leaves, fwd, upd, dh, dx, dv, mask, leaves_t, want_rows):
+    """Checks, allocation and launch of K2 (``want_rows=False``) or of its
+    instantiation that also writes the cotangent rows."""
+    if not dh.is_cuda:
+        raise ValueError(f"{name}: unsupported device {dh.device}")
+    dims = _dims(leaves, fwd.bh[0])
+    B, N, F, H, R, K, C, depth = dims
+    dev = dh.device
+    _check_leaves(leaves, dims, dev)
+    _check_cuda("bh", fwd.bh, (depth, B, N, F), dev)
+    _check_cuda("bx", fwd.bx, (depth, 3, B, N), dev)
+    _check_cuda("bv", fwd.bv, (depth, 3, B, N), dev)
+    _check_all("resid", fwd.resid, _resid_shapes(dims, leaves), dev)
+    _check_cuda("dh", dh, (B, N, F), dev)
+    _check_cuda("dx", dx, (3, B, N), dev)
+    _check_cuda("dv", dv, (3, B, N), dev)
+    if F != H or len(upd) != depth:
+        raise ValueError(f"{name}: needs hidden width == feature width and one gate per layer")
+    lib = build.load()
+    if lib.sake_resid_bwd_smem_bytes(*dims) > _SMEM_LIMIT:
+        raise ValueError(f"{name}: N={N} at these widths exceeds one block's shared memory")
+    if leaves_t is None:
+        leaves_t = transposed(leaves)
+    for leaf, shape in _leaf_shapes(F, H, R, K, C).items():
+        _check_cuda(f"{leaf}.T", leaves_t[leaf], (depth, *shape[::-1]), dev)
+    m = _edge_mask(mask, dims, dev)
+    dh_out, dx_out, dv_out = torch.empty_like(dh), torch.empty_like(dx), torch.empty_like(dv)
+    rows = ({n: torch.empty(s, device=dev) for n, s in _row_shapes(dims, leaves).items()}
+            if want_rows else None)
+    upd_t = torch.tensor(list(upd), dtype=torch.float32, device=dev)
+    args = [
+        fwd.bh.data_ptr(), fwd.bx.data_ptr(), fwd.bv.data_ptr(), upd_t.data_ptr(), _ptr(m),
+        _ptrs([leaves[n] for n in LEAF_NAMES]), _ptrs([leaves_t[n] for n in LEAF_NAMES]),
+        _strides(leaves), _ptrs([fwd.resid[n] for n in RESIDS]),
+        dh.data_ptr(), dx.data_ptr(), dv.data_ptr(),
+        dh_out.data_ptr(), dx_out.data_ptr(), dv_out.data_ptr(),
+    ]
+    if want_rows:
+        err = lib.sake_resid_bwd_rows(*args, _ptrs([rows[n] for n in ROWS]), *dims,
+                                      _stream(dev))
+    else:
+        err = lib.sake_resid_bwd(*args, *dims, _stream(dev))
+    build.check(lib, err, name)
+    return dh_out, dx_out, dv_out, rows
 
 
 def resid_bwd(leaves: dict, fwd: FwdOut, upd: Sequence[float], dh, dx, dv, mask=None,
@@ -440,50 +705,74 @@ def resid_bwd(leaves: dict, fwd: FwdOut, upd: Sequence[float], dh, dx, dv, mask=
     pass it to build it once for several launches."""
     if dh.device.type == "cpu":
         return resid_bwd_plain(leaves, fwd, upd, dh, dx, dv, mask=mask)
-    if not dh.is_cuda:
-        raise ValueError(f"resid_bwd: unsupported device {dh.device}")
-    if mask is not None:
-        raise NotImplementedError("resid_bwd: the CUDA kernel takes no edge mask yet")
-    dims = _dims(leaves, fwd.h_fin)
-    B, N, F, H, R, K, C, depth = dims
-    dev = dh.device
-    _check_leaves(leaves, dims, dev)
-    _check_cuda("bh", fwd.bh, (depth, B, N, F), dev)
-    _check_cuda("bx", fwd.bx, (depth, 3, B, N), dev)
-    _check_cuda("bv", fwd.bv, (depth, 3, B, N), dev)
-    for n, s in _resid_shapes(dims, leaves).items():
-        _check_cuda(n, fwd.resid[n], s, dev)
-    _check_cuda("dh", dh, (B, N, F), dev)
-    _check_cuda("dx", dx, (3, B, N), dev)
-    _check_cuda("dv", dv, (3, B, N), dev)
-    if F != H or len(upd) != depth:
-        raise ValueError("resid_bwd: needs hidden width == feature width and one gate per layer")
-    lib = build.load()
-    if lib.sake_resid_bwd_smem_bytes(*dims) > _SMEM_LIMIT:
-        raise ValueError(f"resid_bwd: N={N} at these widths exceeds one block's shared memory")
-    if leaves_t is None:
-        leaves_t = transposed(leaves)
-    for name, shape in _leaf_shapes(F, H, R, K, C).items():
-        _check_cuda(f"{name}.T", leaves_t[name], (depth, *shape[::-1]), dev)
-    dh_out = torch.empty_like(dh)
-    dx_out = torch.empty_like(dx)
-    dv_out = torch.empty_like(dv)
-    upd_t = torch.tensor(list(upd), dtype=torch.float32, device=dev)
-    err = lib.sake_resid_bwd(
-        fwd.bh.data_ptr(), fwd.bx.data_ptr(), fwd.bv.data_ptr(), upd_t.data_ptr(),
-        _ptrs([leaves[n] for n in LEAF_NAMES]), _ptrs([leaves_t[n] for n in LEAF_NAMES]),
-        _strides(leaves),
-        _ptrs([fwd.resid[n] for n in RESIDS]),
-        dh.data_ptr(), dx.data_ptr(), dv.data_ptr(),
-        dh_out.data_ptr(), dx_out.data_ptr(), dv_out.data_ptr(),
-        *dims, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    build.check(lib, err, "resid_bwd")
+    out = _bwd_launch("resid_bwd", leaves, fwd, upd, dh, dx, dv, mask, leaves_t, False)
     resid_bwd.launches += 1
-    return dh_out, dx_out, dv_out
+    return out[:3]
 
 
 resid_bwd.launches = 0
+
+
+def resid_bwd_rows(leaves: dict, fwd: FwdOut, upd: Sequence[float], dh, dx, dv, mask=None,
+                   *, leaves_t: Optional[dict] = None):
+    """K2's pullback, also writing every layer's cotangent rows (``ROWS``,
+    ``{name: (depth, B, N*N | N, ch)}``) for :func:`param_grads`: the
+    pullback half of the JAX training ``bwd_kernel`` (``:1598``). Returns
+    ``(dh, dx, dv, rows)``. CPU tensors take the plain version."""
+    if dh.device.type == "cpu":
+        return resid_bwd_rows_plain(leaves, fwd, upd, dh, dx, dv, mask=mask)
+    out = _bwd_launch("resid_bwd_rows", leaves, fwd, upd, dh, dx, dv, mask, leaves_t, True)
+    resid_bwd_rows.launches += 1
+    return out
+
+
+resid_bwd_rows.launches = 0
+
+
+def param_grads(leaves: dict, fwd: FwdOut, rows: dict) -> dict:
+    """Every leaf's gradient per layer, summed over the batch
+    (``{name: (depth, r, c)}``), from K1's residuals and boundary states and
+    the rows of :func:`resid_bwd_rows`: the parameter-gradient half of the
+    JAX training ``bwd_kernel`` (``:1598``), on the CUDA cores in f32. CPU
+    tensors take the plain version."""
+    if fwd.bh.device.type == "cpu":
+        return param_grads_plain(leaves, fwd, rows)
+    if not fwd.bh.is_cuda:
+        raise ValueError(f"param_grads: unsupported device {fwd.bh.device}")
+    dims = _dims(leaves, fwd.bh[0])
+    B, N, F, H, R, K, C, depth = dims
+    dev = fwd.bh.device
+    _check_leaves(leaves, dims, dev)
+    _check_cuda("bh", fwd.bh, (depth, B, N, F), dev)
+    _check_all("resid", fwd.resid, _resid_shapes(dims, leaves), dev)
+    _check_all("rows", rows, _row_shapes(dims, leaves), dev)
+    shapes = _leaf_shapes(F, H, R, K, C)
+    sizes = [depth * shapes[n][0] * shapes[n][1] for n in LEAF_NAMES]
+    per_chunk = -(-B // min(B, _GRAD_CHUNKS))
+    n_chunks = -(-B // per_chunk)
+    partial = torch.empty(n_chunks, sum(sizes), device=dev, dtype=torch.float64)
+    out = torch.empty(sum(sizes), device=dev)
+    lib = build.load()
+    err = lib.sake_param_grads(
+        fwd.bh.data_ptr(), _ptrs([leaves[n] for n in LEAF_NAMES]), _strides(leaves),
+        _ptrs([fwd.resid[n] for n in RESIDS]), _ptrs([rows[n] for n in ROWS]),
+        partial.data_ptr(), out.data_ptr(), per_chunk, *dims, _stream(dev),
+    )
+    build.check(lib, err, "param_grads")
+    param_grads.launches += 1
+    return {n: a.view(depth, *shapes[n]) for n, a in zip(LEAF_NAMES, out.split(sizes))}
+
+
+param_grads.launches = 0
+
+
+def resid_train_bwd(leaves: dict, fwd: FwdOut, upd: Sequence[float], dh, dx, dv, mask=None,
+                    *, leaves_t: Optional[dict] = None):
+    """The training pullback (JAX ``bwd_kernel`` ``:1598``):
+    :func:`resid_bwd_rows` then :func:`param_grads`. Returns ``(dh, dx, dv,
+    {name: (depth, r, c)})``."""
+    dh, dx, dv, rows = resid_bwd_rows(leaves, fwd, upd, dh, dx, dv, mask, leaves_t=leaves_t)
+    return dh, dx, dv, param_grads(leaves, fwd, rows)
 
 
 def _readout_seed(params: ModelParams, h_fin, node_mask):
@@ -534,3 +823,106 @@ def resid_energy_forces(
         es.append(e)
         fs.append(-dx.permute(1, 2, 0))
     return torch.cat(es), torch.cat(fs)
+
+
+# --------------------------------------------------------------------------
+# First-order training: the hidden-state function with a kernel backward.
+# --------------------------------------------------------------------------
+
+
+def flat_params(p: ModelParams) -> list:
+    """The tensors of ``p`` in a fixed order: embedding, each layer's
+    ``CFConvParams`` then its other fields, readout."""
+    out = [p.w_embed, p.b_embed]
+    for lp in p.layers:
+        out += [*lp.edge, *lp[1:]]
+    return out + [p.w_out0, p.b_out0, p.w_out1, p.b_out1]
+
+
+_EDGE_TENSORS = len(CFConvParams._fields)
+_LAYER_TENSORS = _EDGE_TENSORS + len(LayerParams._fields) - 1
+
+
+def _unflat_params(flat, depth: int) -> ModelParams:
+    layers = []
+    for l in range(depth):
+        t = flat[2 + l * _LAYER_TENSORS : 2 + (l + 1) * _LAYER_TENSORS]
+        layers.append(LayerParams(CFConvParams(*t[:_EDGE_TENSORS]), *t[_EDGE_TENSORS:]))
+    return ModelParams(flat[0], flat[1], tuple(layers), *flat[2 + depth * _LAYER_TENSORS :])
+
+
+def make_hidden_fn(*, n_heads: int = 4, update: Sequence[bool] | bool = True,
+                   want_x: bool = False, batch_tile: Optional[int] = None,
+                   edge_matmul_dtype=None, resid_dtype=None):
+    """Build ``hidden(params: ModelParams, h (B, N, F_in), x (B, N, 3), mask
+    (B, N, N) or None) -> h_fin (B, N, F)``, the JAX ``make_hidden_fn``
+    (``:1376-1915``) on the port's kernels.
+
+    With autograd recording (grad enabled and some input requiring grad) it
+    is a ``torch.autograd.Function``: the forward runs K1 (:func:`resid_fwd`,
+    with the mask) and keeps its boundaries and residuals; the backward runs
+    :func:`resid_train_bwd` and the embedding pullback, so gradients reach
+    every layer leaf, the embedding, ``h`` and ``x``. The readout leaves get
+    zeros (the head that reads ``h_fin`` gives them theirs) and ``mask``
+    none. Otherwise (the JAX primal-outside-autodiff rule, ``:1819-1821``)
+    it runs :func:`resid_infer`, which writes no residuals.
+
+    Not ported yet: ``want_x`` (the forecast shape with a position output)
+    and the bf16 tier (``edge_matmul_dtype``, ``resid_dtype``); ``batch_tile``
+    has no counterpart, since the kernels take one molecule per block. Each
+    raises when asked for.
+    """
+    if want_x:
+        raise NotImplementedError("make_hidden_fn: want_x is not ported yet")
+    if edge_matmul_dtype is not None or resid_dtype not in (None, torch.float32):
+        raise NotImplementedError("make_hidden_fn: the port's kernels are f32 only")
+    if batch_tile is not None:
+        raise NotImplementedError("make_hidden_fn: the kernels take one molecule per block; "
+                                  "there is no batch tile")
+
+    def prep(params, h, x, mask):
+        upd = [1.0 if u else 0.0 for u in per_layer(update, len(params.layers))]
+        leaves = wide_stack(params, n_heads)
+        h0 = embed(params, h).contiguous()
+        xs = x.permute(2, 0, 1).contiguous()
+        m4 = mask[..., None].float().contiguous() if mask is not None else None
+        return leaves, upd, h0, xs, m4
+
+    class Hidden(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, mask, h, x, *flat):
+            params = _unflat_params(flat, (len(flat) - 6) // _LAYER_TENSORS)
+            leaves, upd, h0, xs, m4 = prep(params, h, x, mask)
+            fwd = resid_fwd(leaves, h0, xs, torch.zeros_like(xs), upd, mask=m4)
+            # h_fin is this function's output: keep the rest, not a cycle through it
+            ctx.fwd, ctx.leaves, ctx.upd, ctx.m4 = fwd._replace(h_fin=None), leaves, upd, m4
+            ctx.readout = flat[-4:]
+            ctx.save_for_backward(h, params.w_embed)
+            return fwd.h_fin
+
+        @staticmethod
+        def backward(ctx, dh_fin):
+            h, w_embed = ctx.saved_tensors
+            B, N, F = dh_fin.shape
+            zeros = torch.zeros(3, B, N, device=dh_fin.device, dtype=dh_fin.dtype)
+            dh0, dx, _, g = resid_train_bwd(ctx.leaves, ctx.fwd, ctx.upd,
+                                            dh_fin.contiguous(), zeros, zeros, ctx.m4)
+            # embedding pullback, h0 = h @ w_embed + b_embed (plain torch, as in JAX)
+            h2, dh2 = h.reshape(B * N, -1), dh0.reshape(B * N, F)
+            d_params = [h2.T @ dh2, dh2.sum(dim=0)]
+            for l in range(len(ctx.upd)):
+                lp = unsplit_layer_grads({n: g[n][l] for n in LEAF_NAMES})
+                d_params += [*lp.edge, *lp[1:]]
+            return (None, (dh2 @ w_embed.T).reshape(h.shape), dx.permute(1, 2, 0),
+                    *d_params, *[torch.zeros_like(t) for t in ctx.readout])
+
+    def hidden(params: ModelParams, h, x, mask=None):
+        flat = flat_params(params)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (h, x, *flat)):
+            return Hidden.apply(mask, h, x, *flat)
+        with torch.no_grad():
+            leaves, upd, h0, xs, m4 = prep(params, h, x, mask)
+            return resid_infer(leaves, h0, xs, torch.zeros_like(xs), upd, mask=m4)[0]
+
+    return hidden
+

@@ -1,11 +1,12 @@
-"""The SAKE model and its energy readout.
+"""The SAKE model, its energy readout and the graph property head.
 
 Port of ``sake_tpu/models.py`` (``SAKEModel``, ``energy_readout``,
-``energy_and_forces``). ``SAKEModel`` holds linen-named submodules
-(``embedding_in``, ``layer_0`` ... ``layer_{depth-1}``, ``embedding_out``);
-its ``forward`` runs ``kernels/functional.model_forward`` and its
-``energy_and_forces`` goes through ``kernels/dispatch`` (the K1 + K2 CUDA
-kernels on a GPU).
+``energy_and_forces``, ``GraphPropertyHead``). ``SAKEModel`` holds
+linen-named submodules (``embedding_in``, ``layer_0`` ...
+``layer_{depth-1}``, ``embedding_out``); its ``forward`` runs
+``kernels/functional.model_forward`` and its ``energy_and_forces`` goes
+through ``kernels/dispatch`` (the K1 + K2 CUDA kernels on a GPU). Modules
+are built on the CUDA card unless ``device`` names another.
 """
 
 from __future__ import annotations
@@ -17,23 +18,24 @@ from torch import nn
 
 from sake_tpu_torch.blocks import MLP, Dense
 from sake_tpu_torch.kernels.dispatch import dispatch_energy_forces
-from sake_tpu_torch.kernels.functional import ModelParams, model_forward, per_layer
+from sake_tpu_torch.kernels.functional import ModelParams, _silu, model_forward, per_layer
 from sake_tpu_torch.layers import DenseSAKELayer
-from sake_tpu_torch.utils import coloring
+from sake_tpu_torch.utils import coloring, resolve_device
 
 
 class SAKEModel(nn.Module):
     """Stack of dense SAKE layers with in/out embeddings.
 
     ``in_features`` is the width of the node features ``h`` (flax infers
-    it at ``init``). ``generator`` seeds the initialization.
+    it at ``init``). ``generator`` seeds the initialization; ``device=None``
+    means the CUDA card.
     """
 
     def __init__(self, hidden_features: int, out_features: int = 1, depth: int = 4,
                  n_heads: int = 4, update: Sequence[bool] | bool = True, *,
                  in_features: int, device=None, generator: torch.Generator | None = None):
         super().__init__()
-        kw = dict(device=device, generator=generator)
+        kw = dict(device=resolve_device(device), generator=generator)
         self.n_heads = n_heads
         self.depth = depth
         self.updates = per_layer(update, depth)
@@ -86,3 +88,38 @@ def energy_and_forces(model: nn.Module, h, x, mask=None, mean=0.0, std=1.0):
         e = energy_readout(h_out, mask=mask, mean=mean, std=std)
         (g,) = torch.autograd.grad(e.sum(), xg)
     return e.detach(), -g
+
+
+def graph_property_head(mlp: dict | None, h, mask=None):
+    """Masked sum over atoms of ``h (B, N, F)``, then, when ``mlp`` is
+    given, ``silu(. @ dense_0) @ dense_1`` with ``mlp`` a linen-named
+    ``{"dense_i": {"kernel", "bias"}}`` dict."""
+    if mask is not None:
+        h = h * mask[..., None]
+    pooled = h.sum(dim=-2)
+    if mlp is None:
+        return pooled
+    d0, d1 = mlp["dense_0"], mlp["dense_1"]
+    return _silu(pooled @ d0["kernel"] + d0["bias"]) @ d1["kernel"] + d1["bias"]
+
+
+class GraphPropertyHead(nn.Module):
+    """Masked sum-pool over node features followed by an optional MLP
+    (submodule ``head``, as in the linen tree): the QM9 property readout."""
+
+    def __init__(self, in_features: int, out_features: int = 1, hidden_features: int = 64,
+                 use_mlp: bool = True, *, device=None, generator: torch.Generator | None = None):
+        super().__init__()
+        self.use_mlp = use_mlp
+        if use_mlp:
+            self.head = MLP(in_features, (hidden_features, out_features),
+                            device=resolve_device(device), generator=generator)
+
+    def mlp_params(self) -> dict | None:
+        """The MLP's weights as :func:`graph_property_head` takes them."""
+        if not self.use_mlp:
+            return None
+        return {name: {"kernel": d.kernel, "bias": d.bias} for name, d in self.head.named_children()}
+
+    def forward(self, h, mask=None):
+        return graph_property_head(self.mlp_params(), h, mask)

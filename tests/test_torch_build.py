@@ -8,7 +8,7 @@ from sake_tpu_torch.kernels.leaves import LEAF_NAMES
 
 def test_source_hash_covers_every_source(tmp_path, monkeypatch):
     names = {p.name for p in build._sources()}
-    assert {"resid_fwd.cu", "resid_bwd.cu", "resid_common.cuh"} <= names
+    assert {"resid_fwd.cu", "resid_bwd.cu", "param_grads.cu", "resid_common.cuh"} <= names
     base = build.source_hash()
     for src in build._sources():
         copy = tmp_path / "csrc"
@@ -32,11 +32,14 @@ def test_build_without_nvcc_raises_clearly(tmp_path, monkeypatch):
 
 
 def test_kernel_tables_match_the_python_order():
-    """The C enums index leaves and residuals by position."""
+    """The C enums index leaves, residuals and cotangent rows by position."""
     src = (build.CSRC / "resid_common.cuh").read_text()
-    leaf_enum = src[src.index("enum Leaf {"):src.index("};", src.index("enum Leaf {"))]
-    resid_enum = src[src.index("enum Resid {"):src.index("};", src.index("enum Resid {"))]
-    leaves = [t.strip() for t in leaf_enum.split("{")[1].split(",") if t.strip()]
-    resids = [t.strip() for t in resid_enum.split("{")[1].split(",") if t.strip()]
-    assert leaves == [n.upper() for n in LEAF_NAMES]
-    assert [r.removeprefix("RS_") for r in resids] == [n.upper() for n in resid_ef.RESIDS]
+
+    def enum(name):
+        body = src[src.index(f"enum {name} {{"):src.index("};", src.index(f"enum {name} {{"))]
+        return [t.strip() for t in body.split("{")[1].split(",") if t.strip()]
+
+    assert enum("Leaf") == [n.upper() for n in LEAF_NAMES]
+    assert [r.removeprefix("RS_") for r in enum("Resid")] == [n.upper() for n in resid_ef.RESIDS]
+    assert [r.removeprefix("RW_") for r in enum("Row")] == [n.upper() for n in resid_ef.ROWS]
+    assert f"kRows = {len(resid_ef.ROWS)};" in src

@@ -159,7 +159,7 @@ def _param_shapes(tree, prefix=""):
 @pytest.mark.parametrize("update", [True, [False, True, False]])
 def test_port_init_names_shapes_and_rbf(update):
     _, params, h, x = _jax_setup(update=update)
-    model = SAKEModel(HID, 1, DEPTH, update=update, in_features=F_IN,
+    model = SAKEModel(HID, 1, DEPTH, update=update, in_features=F_IN, device="cpu",
                       generator=torch.Generator().manual_seed(0))
     got = {n: tuple(p.shape) for n, p in model.named_parameters()}
     assert got == _param_shapes(_np_tree(params)["params"])
@@ -181,7 +181,7 @@ def test_port_init_names_shapes_and_rbf(update):
 def test_module_with_linen_weights_matches_linen_apply(setup, edge_mask):
     model_j, params, h, x = setup
     _, mask = edge_mask
-    model = SAKEModel(HID, 1, DEPTH, in_features=F_IN)
+    model = SAKEModel(HID, 1, DEPTH, in_features=F_IN, device="cpu")
     load_linen_params(model, _np_tree(params))
     rh, rx, rv = model_j.apply(params, jnp.asarray(h), jnp.asarray(x), None, jnp.asarray(mask))
     with torch.no_grad():
@@ -218,7 +218,7 @@ def test_module_energy_and_forces_paths_agree(setup):
     """``models.energy_and_forces`` (autograd through ``forward``) and
     ``SAKEModel.energy_and_forces`` (the dispatch) give the same E and F."""
     _, params, h, x = setup
-    model = SAKEModel(HID, 1, DEPTH, in_features=F_IN)
+    model = SAKEModel(HID, 1, DEPTH, in_features=F_IN, device="cpu")
     load_linen_params(model, _np_tree(params))
     e_ref, f_ref = energy_and_forces(model, _t(h), _t(x), mean=0.5, std=2.0)
     e, f = model.energy_and_forces(_t(h), _t(x))

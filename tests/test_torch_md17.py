@@ -57,7 +57,8 @@ def test_slice_matches_jax_linen_path():
     e_ref, f_ref = jax_make_ef(model_j, species_j, e_mean, e_std)(params, jnp.asarray(x))
 
     species = species_onehot(data.z, int(data.z.max()))
-    model = make_model(MD17Config(hidden_features=16, depth=2), in_features=species.shape[-1])
+    model = make_model(MD17Config(hidden_features=16, depth=2), in_features=species.shape[-1],
+                       device="cpu")
     load_linen_params(model, jax.tree.map(np.asarray, params))
     e, f = make_energy_force_fn(model, species, e_mean, e_std)(torch.as_tensor(x))
     assert e.shape == (5, 1) and f.shape == (5, 21, 3)
@@ -71,8 +72,17 @@ def test_seeded_init_is_reproducible():
     cfg = MD17Config(hidden_features=8, depth=2)
     outs = []
     for _ in range(2):
-        model = make_model(cfg, species.shape[-1], generator=torch.Generator().manual_seed(11))
+        model = make_model(cfg, species.shape[-1], device="cpu",
+                           generator=torch.Generator().manual_seed(11))
         outs.append(make_energy_force_fn(model, species, 0.0, 1.0)(torch.as_tensor(data.x)))
     for a, b in zip(*outs):
         assert torch.isfinite(a).all()
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """``device=None`` means CUDA: without a card the entry points raise
+    instead of building on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_model(MD17Config(hidden_features=8, depth=1), 4)

@@ -216,18 +216,18 @@ def test_wrappers_reject_other_devices(setup):
 @pytest.mark.gpu
 def test_cuda_dispatch_contract(setup):
     """On CUDA tensors the dispatch launches K1 and K2 (no silent plain
-    path), and a mask raises until the masked kernels exist."""
+    path), with or without an edge mask."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
     tp = params_to(setup["tp"], dev)
     h_raw, x = _t(setup["h_raw"]).to(dev), _t(setup["x"]).to(dev)
-    with pytest.raises(NotImplementedError):
-        dispatch_energy_forces(tp, h_raw, x, _t(setup["mask4"][..., 0]).to(dev))
-    before = (resid_ef.resid_fwd.launches, resid_ef.resid_bwd.launches)
-    e, f = dispatch_energy_forces(tp, h_raw, x)
-    assert (resid_ef.resid_fwd.launches, resid_ef.resid_bwd.launches) == (
-        before[0] + 1, before[1] + 1)
-    e_ref, f_ref = energy_and_forces_fn(setup["tp"], _t(setup["h_raw"]), _t(setup["x"]))
-    np.testing.assert_allclose(e.cpu().numpy(), e_ref.numpy(), **BWD_TOL)
-    np.testing.assert_allclose(f.cpu().numpy(), f_ref.numpy(), **BWD_TOL)
+    for mask in (None, _t(setup["mask4"][..., 0])):
+        before = (resid_ef.resid_fwd.launches, resid_ef.resid_bwd.launches)
+        e, f = dispatch_energy_forces(tp, h_raw, x, None if mask is None else mask.to(dev))
+        assert (resid_ef.resid_fwd.launches, resid_ef.resid_bwd.launches) == (
+            before[0] + 1, before[1] + 1)
+        e_ref, f_ref = resid_ef.resid_energy_forces(setup["tp"], _t(setup["h_raw"]),
+                                                    _t(setup["x"]), mask)
+        np.testing.assert_allclose(e.cpu().numpy(), e_ref.numpy(), **BWD_TOL)
+        np.testing.assert_allclose(f.cpu().numpy(), f_ref.numpy(), **BWD_TOL)
