@@ -39,6 +39,30 @@ Phases (each prints its own lines; any failure exits non-zero):
    then the train step of both branches timed in turns (every run
    printed) and each kernel timed at the slice's shapes beside its plain
    version and its bound.
+8. MD17 second-order training kernels vs plain: aspirin at full width (N =
+   21, hidden 64, depth 6), B = 300 (three waves of one block per SM), the
+   training path's inputs (embedded species, v = 0, every layer updating)
+   and random cotangents: the shared primal's K1 (#7, boundaries and all 17
+   residuals) and K2 (#8, dx), the tangent forward (#9, every tangent
+   boundary and residual), the tangent pullback (its cotangents, Hessian
+   terms, rows and row tangents), the primal chain with the Hessian terms
+   (cotangents and rows), the augmented contraction and the whole
+   augmented pullback (#10: dh0, dx, dth and each of the 29 leaves of each
+   layer), limit 1e-4 relative per tensor.
+9. MD17 step parity: ``tasks/md17`` kernel branch (``make_ef_train2``,
+   ``aug_mode="shared"``) against the plain branch (double autograd through
+   the functional model) from one seeded init at B = 4: E and F of the
+   kernel primal against the functional path (as phase 4's limits), step
+   1's loss and every gradient (1e-4 relative per leaf), the first 5
+   losses (1e-3 relative).
+10. MD17 slice: ``tasks/md17.run`` on the kernel branch, ``MD17Config()``
+   defaults but ``aug_mode="shared"``, n_valid 200 and 2 epochs of 250
+   steps (cut from 1000 and 100): every kernel of the path must
+   launch, the loss must stay finite and fall, and the E and F MAE (kcal/mol)
+   are printed. Then the train step of both branches at B = 4 and B = 512
+   in turns (every run printed), a BREAKDOWN of the kernel branch's step,
+   and each kernel timed at both batches beside its plain version and its
+   bound.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -65,6 +89,11 @@ CHECK_CHUNK = 256  # molecules per autograd pass of the plain reference in the c
 PATH_CHUNK = 512  # resid_energy_forces' chunk; the plain path is timed at it too
 QM9_EPOCHS = 2
 PARITY_STEPS = 5
+TRAIN_TOL = 1e-4  # MD17 training kernels and step-1 gradients, relative per tensor
+TRAIN_CHECK_B = 300  # three waves of one block per SM on 132 SMs
+TRAIN_BATCHES = (4, 512)  # MD17Config's batch, and bench_md17_train.py's
+# the slice's cut: MD17Config() validates on 1000 molecules and trains 100 epochs
+MD17_RUN = dict(n_valid=200, n_epochs=2, epochs_per_block=1)
 # H100 SXM peaks (NVIDIA's data sheet): f32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 
@@ -127,7 +156,12 @@ def layer_fma(N, F, H, R, K, C):
     grads = (E * (R * H + H * H + H * K + HK * C)
              + N * (2 * F * R + 2 * F * H + C * H + H * H + F * H + HK * H + H * H
                     + H * F + 3 * C + F * H + H))
-    return dict(fwd=fwd, bwd=bwd, grads=grads)
+    # the tangent forward: the forward's products on the tangents, plus the
+    # recomputed a_j, a_i and the pooled sum's second term
+    jvp = fwd + N * 2 * F * R + E * 3 * C
+    # the tangent pullback: every product of the pullback on values and on
+    # tangents; the augmented contraction: a (g_p + t_g) and t_a g_t
+    return dict(fwd=fwd, bwd=bwd, grads=grads, jvp=jvp, tbwd=2 * bwd, grads_aug=2 * grads)
 
 
 def bound(fma: float, moved: int):
@@ -332,6 +366,7 @@ def main() -> int:
     del fwd, answers
 
     kernels += qm9_phases(dev, smi)
+    kernels += md17_train_phases(dev, smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -574,6 +609,314 @@ def qm9_phases(dev, smi) -> list:
                      fma["grads"], nbytes(leaves, p4.bh, p4.resid, rows, grads)),
     ]
 
+
+def md17_train_phases(dev, smi) -> list:
+    """Phases 8-10 (see the module docstring); returns their kernel entries."""
+    import dataclasses
+
+    import torch
+
+    from sake_tpu_torch.data.md17 import load_md17
+    from sake_tpu_torch.kernels import resid_ef
+    from sake_tpu_torch.kernels import train2_ef as t2
+    from sake_tpu_torch.kernels.adapter import model_params_from_linen
+    from sake_tpu_torch.kernels.functional import embed, flat_params
+    from sake_tpu_torch.kernels.leaves import LEAF_NAMES, transposed, wide_stack
+    from sake_tpu_torch.tasks import md17 as task
+    from sake_tpu_torch.train import (
+        TrainState,
+        make_optimizer,
+        run_epoch,
+        shuffle_batches,
+        tree_leaves,
+        warmup_cosine_schedule,
+    )
+    from sake_tpu_torch.train.metrics import MetricLogger
+
+    cfg = task.MD17Config(use_kernel_ef=True, aug_mode="shared", **MD17_RUN)
+    data = load_md17(cfg.molecule, None, n_samples=max(cfg.n_train + 2 * cfg.n_valid,
+                                                       max(TRAIN_BATCHES)))
+    species = task.species_onehot(data.z, int(data.z.max()))
+    n_tr = cfg.n_train
+    e_mean, e_std = float(data.e[:n_tr].mean()), float(data.e[:n_tr].std())
+    N, F, depth = len(data.z), cfg.hidden_features, cfg.depth
+    tdev = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
+    train = {"x": tdev(data.x), "e": tdev(data.e), "f": tdev(data.f)}
+
+    def branch(use_kernel_ef: bool):
+        c = dataclasses.replace(cfg, use_kernel_ef=use_kernel_ef)
+        model = task.make_model(c, species.shape[-1], device=dev,
+                                generator=torch.Generator().manual_seed(c.seed))
+        prm, ef_fn, _ = task.make_branch(c, model, species, e_mean, e_std)
+        total = (c.n_train // c.batch_size) * c.n_epochs
+        state = TrainState.create(params=prm, tx=make_optimizer(
+            warmup_cosine_schedule(c.learning_rate, total)))
+        return dict(params=prm, ef=ef_fn, step=task.make_step_fn(ef_fn, c.energy_loss_weight),
+                    state=state)
+
+    # -- 8. #7-#10 against their plain versions at full width -------------------
+    kp = branch(True)["params"]
+    Bc = TRAIN_CHECK_B
+    gen = torch.Generator(dev).manual_seed(5)
+    rnd = lambda *shape: torch.randn(*shape, device=dev, generator=gen)
+    upd = [1.0] * depth
+    with torch.no_grad():
+        leaves = wide_stack(kp, cfg.n_heads)
+        leaves_t = transposed(leaves)
+        h0 = embed(kp, species.to(dev).expand(Bc, N, -1)).contiguous()
+        xs = train["x"][:Bc].permute(2, 0, 1).contiguous()
+        zs = torch.zeros_like(xs)
+        tx0, dh_fin, dth_fin = rnd(3, Bc, N), rnd(Bc, N, F), rnd(Bc, N, F)
+        k7 = t2.shared_fwd(leaves, h0, xs, upd)
+        p7 = resid_ef.resid_fwd_plain(leaves, h0, xs, zs, upd)
+        k8 = t2.shared_bwd(leaves, p7, upd, dh_fin, leaves_t=leaves_t)
+        p8 = resid_ef.resid_bwd_plain(leaves, p7, upd, dh_fin, zs, zs)[1]
+        k9 = t2.resid_jvp(leaves, p7, upd, tx0)
+        p9 = t2.resid_jvp_plain(leaves, p7, upd, tx0)
+        torch.cuda.synchronize()
+        fwd_names = ("bh", "bx", "bv", "h_fin", "x_fin", "v_fin")
+        checks = {
+            "shared_fwd": [*zip(fwd_names, k7[:6], p7[:6]),
+                           *((n, k7.resid[n], p7.resid[n]) for n in resid_ef.RESIDS)],
+            "shared_bwd": [("dx", k8, p8)],
+            "resid_jvp": [*zip(fwd_names, k9[:6], p9[:6]),
+                          *((n, k9.resid[n], p9.resid[n]) for n in resid_ef.RESIDS)],
+        }
+        del k7, k9
+        kt = t2.resid_tbwd(leaves, p7, p9, upd, dth_fin, zs, zs, leaves_t=leaves_t)
+        pt = t2.resid_tbwd_plain(leaves, p7, p9, upd, dth_fin, zs, zs)
+        torch.cuda.synchronize()
+        checks["resid_tbwd"] = [*zip(("dh", "dx", "dv", "add_h", "add_x", "add_v"),
+                                     [*kt[:3], *kt[3]], [*pt[:3], *pt[3]]),
+                                *((n, kt[4][n], pt[4][n]) for n in resid_ef.ROWS),
+                                *((f"t_{n}", kt[5][n], pt[5][n]) for n in resid_ef.ROWS)]
+        del kt
+        kb = t2.resid_bwd_aug(leaves, p7, upd, dh_fin, zs, zs, pt[3], leaves_t=leaves_t)
+        pb = t2.resid_bwd_aug_plain(leaves, p7, upd, dh_fin, zs, zs, pt[3])
+        torch.cuda.synchronize()
+        checks["resid_bwd_aug"] = [*zip(("dh", "dx", "dv"), kb[:3], pb[:3]),
+                                   *((n, kb[3][n], pb[3][n]) for n in resid_ef.ROWS)]
+        del kb
+        kg = t2.param_grads_aug(leaves, p7, p9, pb[3], pt[4], pt[5])
+        pg = t2.param_grads_aug_plain(leaves, p7, p9, pb[3], pt[4], pt[5])
+        torch.cuda.synchronize()
+        checks["param_grads_aug"] = [(f"{n}[{l}]", kg[n][l], pg[n][l]) for n in LEAF_NAMES
+                                     for l in range(depth)]
+        del kg, pg, pb, pt
+        ka = t2.resid_aug_bwd(leaves, p7, p9, upd, dh_fin, dth_fin, leaves_t=leaves_t)
+        pa = t2.resid_aug_bwd_plain(leaves, p7, p9, upd, dh_fin, dth_fin)
+        torch.cuda.synchronize()
+        checks["resid_aug_bwd"] = [*zip(("dh0", "dx", "dth"), ka[:3], pa[:3]),
+                                   *((f"{n}[{l}]", ka[3][n][l], pa[3][n][l])
+                                     for n in LEAF_NAMES for l in range(depth))]
+    abs_train = {}
+    for name, pairs in checks.items():
+        errs = {n: rel_err(a, b) for n, a, b in pairs}
+        abs_train[name] = max(abs_err(a, b) for _, a, b in pairs)
+        w = max(errs, key=errs.get)
+        finite = all(bool(torch.isfinite(a).all()) for _, a, _ in pairs)
+        print(f"MD17 TRAIN {name} vs plain (B={Bc}, N={N}, depth {depth}): max rel err "
+              f"{errs[w]:.3e} ({w}), max abs err {abs_train[name]:.3e}, finite {finite} "
+              + json.dumps({k: float(f"{v:.2e}") for k, v in errs.items()}), flush=True)
+        if errs[w] > TRAIN_TOL or not finite:
+            fail(f"MD17 training kernel {name} beyond {TRAIN_TOL}")
+    del checks, ka, pa, p7, p8, p9
+
+    # -- 9. step parity: kernel branch against the plain branch -----------------
+    batches = shuffle_batches(np.random.RandomState(0), {k: v[:n_tr] for k, v in train.items()},
+                              cfg.batch_size)
+    branches = {"kernel": branch(True), "plain": branch(False)}
+
+    def loss_and_grads(br, batch):  # the loss of tasks/md17.make_step_fn
+        leaves_ = tree_leaves(br["params"])
+        with torch.enable_grad():
+            e, f = br["ef"](br["params"], batch["x"])
+            loss = ((f - batch["f"]).abs().mean()
+                    + cfg.energy_loss_weight * (e - batch["e"]).abs().mean())
+            grads = torch.autograd.grad(loss, leaves_, allow_unused=True)
+        return loss.detach(), [torch.zeros_like(p) if g is None else g
+                               for p, g in zip(leaves_, grads)]
+
+    with torch.no_grad():
+        e_k, f_k = branches["kernel"]["ef"](branches["kernel"]["params"], batches[0]["x"])
+        e_p, f_p = branches["plain"]["ef"](None, batches[0]["x"])
+    ef_err = {"f_err": rel_err(f_k, f_p), "e_err": rel_err((e_k - e_mean) / e_std,
+                                                           (e_p - e_mean) / e_std)}
+    print(f"MD17 TRAIN primal (#7 + #8) E and F vs the functional path at B={cfg.batch_size}: "
+          + json.dumps({k: float(f"{v:.3e}") for k, v in ef_err.items()}), flush=True)
+    if not (ef_err["f_err"] <= F_TOL and ef_err["e_err"] <= E_TOL):
+        fail(f"MD17 training primal beyond f_err {F_TOL} / e_err {E_TOL}")
+    lk, gk = loss_and_grads(branches["kernel"], batches[0])
+    lp, gp_ = loss_and_grads(branches["plain"], batches[0])
+    tree = {}  # the plain branch's gradients by linen name
+    for name, g in zip(sorted(branches["plain"]["params"]), gp_):  # tree_leaves order
+        *path, leaf = name.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = g
+    want = flat_params(model_params_from_linen(tree, dev))
+    grad_err = [rel_err(a, b) for a, b in zip(gk, want)]
+    loss_err = abs(float(lk - lp)) / abs(float(lp))
+    print(f"MD17 STEP 1 kernel vs plain branch: loss {float(lk):.7f} vs {float(lp):.7f} "
+          f"(rel {loss_err:.2e}); gradients of {len(gk)} leaves, max rel err "
+          f"{max(grad_err):.3e} (leaf {int(np.argmax(grad_err))})", flush=True)
+    if loss_err > TRAIN_TOL or max(grad_err) > TRAIN_TOL or len(gk) != len(want):
+        fail(f"MD17 step 1 beyond {TRAIN_TOL}")
+    traj = {}
+    for name, br in branches.items():
+        traj[name] = []
+        for b_ in batches[:PARITY_STEPS]:
+            br["state"], loss = br["step"](br["state"], b_)
+            traj[name].append(float(loss))
+    traj_err = max(abs(a - b) / abs(b) for a, b in zip(traj["kernel"], traj["plain"]))
+    print(f"MD17 STEPS 1-{PARITY_STEPS} losses kernel {json.dumps(traj['kernel'])} plain "
+          f"{json.dumps(traj['plain'])}: max rel diff {traj_err:.2e}", flush=True)
+    if traj_err > LOSS_TOL:
+        fail(f"MD17 step losses differ beyond {LOSS_TOL}")
+
+    # -- 10. the slice through tasks/md17.run, then timing ----------------------
+    counters = (t2.shared_fwd, t2.shared_bwd, t2.resid_jvp, t2.resid_tbwd, t2.resid_bwd_aug,
+                t2.param_grads_aug)
+    step_losses = []
+
+    def recording_epoch(step_fn, state, batches_):
+        state, losses = run_epoch(step_fn, state, batches_)
+        step_losses.append(losses)
+        return state, losses
+
+    task.run_epoch = recording_epoch  # keeps every step's loss of the run
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, results = task.run(cfg, MetricLogger(stream=sys.stdout), device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    task.run_epoch = run_epoch
+    launches = {c.__name__: c.launches for c in counters}
+    losses = torch.cat(step_losses).cpu()
+    print(f"MD17 SLICE launches {json.dumps(launches)}; {len(losses)} steps in {wall:.2f} s with "
+          f"the evaluation; loss first {float(losses[0]):.6f} last {float(losses[-1]):.6f} "
+          f"(means of the first and last 20 steps {float(losses[:20].mean()):.6f} "
+          f"{float(losses[-20:].mean()):.6f}); E MAE {results['e_mae_kcalmol']:.4f} kcal/mol "
+          f"(CI {[float(v) for v in results['e_mae_ci']]}), F MAE "
+          f"{results['f_mae_kcalmol']:.4f} kcal/mol (CI {[float(v) for v in results['f_mae_ci']]})",
+          flush=True)
+    if min(launches.values()) == 0:
+        fail("the MD17 training path did not launch every kernel")
+    if not (torch.isfinite(losses).all() and losses[-20:].mean() < losses[:20].mean()):
+        fail("the MD17 training loss is not finite or did not fall")
+    if not all(np.isfinite(results[k]) for k in ("e_mae_kcalmol", "f_mae_kcalmol")):
+        fail("non-finite MD17 evaluation")
+
+    entries = {}
+    for B in TRAIN_BATCHES:
+        batch = {k: v[:B] for k, v in train.items()}
+        runs = {"plain": [], "kernel": []}
+        steps = 5 if B < 64 else 2
+        for side in ("plain", "kernel", "kernel", "plain", "plain", "kernel"):
+            br = branches[side]
+            br["step"](br["state"], batch)  # warm up this side's shapes
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                br["state"], _ = br["step"](br["state"], batch)
+            torch.cuda.synchronize()
+            runs[side].append((time.perf_counter() - t0) * 1e3 / steps)
+        step_ms = {k: sum(v) / len(v) for k, v in runs.items()}
+        print(f"MD17 TIMING train step at B={B}: kernel {step_ms['kernel']:.2f} ms = "
+              f"{B * 1e3 / step_ms['kernel']:.1f} samples/s; plain {step_ms['plain']:.2f} ms = "
+              f"{B * 1e3 / step_ms['plain']:.1f} samples/s (ms per step, runs {json.dumps(runs)}; "
+              f"{smi})", flush=True)
+
+        # the kernel branch's step in parts, and each kernel beside its plain version
+        br = branches["kernel"]
+        prm = br["params"]
+        with torch.no_grad():
+            leaves = wide_stack(prm, cfg.n_heads)
+            leaves_t = transposed(leaves)
+            h0 = embed(prm, species.to(dev).expand(B, N, -1)).contiguous()
+            xs = batch["x"].permute(2, 0, 1).contiguous()
+            zs = torch.zeros_like(xs)
+            fwd = t2.shared_fwd(leaves, h0, xs, upd)
+            _, dh_fin = resid_ef._readout_seed(prm, fwd.h_fin, None)
+            tx0 = rnd(3, B, N)
+            tfwd = t2.resid_jvp(leaves, fwd, upd, tx0)
+            _, dh_s, dth_s = t2.head_grads(prm, fwd.h_fin, tfwd.h_fin, rnd(B))
+            tb = t2.resid_tbwd(leaves, fwd, tfwd, upd, dth_s, zs, zs, leaves_t=leaves_t)
+            ba = t2.resid_bwd_aug(leaves, fwd, upd, dh_s, zs, zs, tb[3], leaves_t=leaves_t)
+            grads = t2.param_grads_aug(leaves, fwd, tfwd, ba[3], tb[4], tb[5])
+            plain_reps = 3 if B < 64 else 1
+            t = dict(
+                shared_fwd=(cuda_ms(lambda: t2.shared_fwd(leaves, h0, xs, upd)),
+                            cuda_ms(lambda: resid_ef.resid_fwd_plain(leaves, h0, xs, zs, upd),
+                                    reps=plain_reps)),
+                shared_bwd=(cuda_ms(lambda: t2.shared_bwd(leaves, fwd, upd, dh_fin,
+                                                          leaves_t=leaves_t)),
+                            cuda_ms(lambda: resid_ef.resid_bwd_plain(leaves, fwd, upd, dh_fin,
+                                                                     zs, zs), reps=plain_reps)),
+                resid_jvp=(cuda_ms(lambda: t2.resid_jvp(leaves, fwd, upd, tx0)),
+                           cuda_ms(lambda: t2.resid_jvp_plain(leaves, fwd, upd, tx0),
+                                   reps=plain_reps)),
+                resid_tbwd=(cuda_ms(lambda: t2.resid_tbwd(leaves, fwd, tfwd, upd, dth_s, zs, zs,
+                                                          leaves_t=leaves_t)),
+                            cuda_ms(lambda: t2.resid_tbwd_plain(leaves, fwd, tfwd, upd, dth_s,
+                                                                zs, zs), reps=plain_reps)),
+                resid_bwd_aug=(cuda_ms(lambda: t2.resid_bwd_aug(leaves, fwd, upd, dh_s, zs, zs,
+                                                                tb[3], leaves_t=leaves_t)),
+                               cuda_ms(lambda: t2.resid_bwd_aug_plain(leaves, fwd, upd, dh_s, zs,
+                                                                      zs, tb[3]),
+                                       reps=plain_reps)),
+                param_grads_aug=(cuda_ms(lambda: t2.param_grads_aug(leaves, fwd, tfwd, ba[3],
+                                                                    tb[4], tb[5])),
+                                 cuda_ms(lambda: t2.param_grads_aug_plain(
+                                     leaves, fwd, tfwd, ba[3], tb[4], tb[5]), reps=plain_reps)),
+            )
+            t_seed = cuda_ms(lambda: resid_ef._readout_seed(prm, fwd.h_fin, None))
+            t_head = cuda_ms(lambda: t2.head_grads(prm, fwd.h_fin, tfwd.h_fin, rnd(B)))
+        zero_grads = [torch.zeros_like(p) for p in tree_leaves(prm)]
+        t_opt = cuda_ms(lambda: br["state"].apply_gradients(zero_grads))
+        primal = t["shared_fwd"][0] + t_seed + t["shared_bwd"][0]
+        parts = dict(primal=primal, tangent_forward=t["resid_jvp"][0],
+                     aug_pullback=t["resid_tbwd"][0] + t["resid_bwd_aug"][0],
+                     contraction=t["param_grads_aug"][0], head=t_head, optimizer=t_opt)
+        rest = step_ms["kernel"] - sum(parts.values())
+        print(f"MD17 BREAKDOWN kernel-branch step at B={B}, {step_ms['kernel']:.3f} ms: "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items())
+              + f", rest {rest:.3f} ms ({len(zero_grads)} parameter tensors)", flush=True)
+        print(f"MD17 TIMING per kernel (ms, kernel and plain) at B={B}, N={N}, depth {depth}: "
+              + json.dumps({k: [round(a, 3), round(b, 3)] for k, (a, b) in t.items()}),
+              flush=True)
+        fma = {k: v * B * depth for k, v in layer_fma(N, F, F, 50, cfg.n_heads, 256).items()}
+        moved = dict(
+            shared_fwd=nbytes(leaves, h0, xs, fwd),
+            shared_bwd=nbytes(leaves, leaves_t, fwd.bh, fwd.bx, fwd.bv, fwd.resid, dh_fin, xs),
+            resid_jvp=nbytes(leaves, fwd.bh, fwd.bx, fwd.bv, fwd.resid, tx0, tfwd),
+            resid_tbwd=nbytes(leaves, leaves_t, fwd.bh, fwd.bx, fwd.bv, fwd.resid, tfwd.bh,
+                              tfwd.bx, tfwd.bv, tfwd.resid, dth_s, tb),
+            resid_bwd_aug=nbytes(leaves, leaves_t, fwd.bh, fwd.bx, fwd.bv, fwd.resid, dh_s,
+                                 tb[3], ba),
+            param_grads_aug=nbytes(leaves, fwd.bh, tfwd.bh, fwd.resid, tfwd.resid, ba[3], tb[4],
+                                   tb[5], grads),
+        )
+        ops = dict(shared_fwd=fma["fwd"], shared_bwd=fma["bwd"], resid_jvp=fma["jvp"],
+                   resid_tbwd=fma["tbwd"], resid_bwd_aug=fma["bwd"],
+                   param_grads_aug=fma["grads_aug"])
+        print(f"MD17 BOUNDS at B={B} (ms, by): " + json.dumps(
+            {k: [round(bound(ops[k], moved[k])[0], 4), bound(ops[k], moved[k])[1]] for k in t}),
+            flush=True)
+        entries[B] = (t, ops, moved)
+        del fwd, tfwd, tb, ba, grads
+
+    t, ops, moved = entries[max(TRAIN_BATCHES)]  # the entries carry B = 512
+    src = "sake_tpu_torch/csrc/"
+    at = "sake_tpu/kernels/train2_ef.py:"
+    where = dict(shared_fwd=("resid_fwd.cu", "1030"), shared_bwd=("resid_bwd.cu", "1110"),
+                 resid_jvp=("resid_jvp.cu", "1397"), resid_tbwd=("resid_tbwd.cu", "1507"),
+                 resid_bwd_aug=("resid_bwd.cu", "1507"), param_grads_aug=("param_grads.cu", "1507"))
+    return [kernel_entry(name, src + where[name][0], at + where[name][1], launches[name],
+                         abs_train[name], *t[name], ops[name], moved[name]) for name in t]
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -25,6 +25,19 @@
 // double too: the row sums cancel, and in f32 the b_sem gradient lost 1e-4
 // of its size against the plain version on an H100.
 //
+// Augmented (sake_param_grads_aug): the parameter gradients of the
+// shared-mode training backward, the dW_a + dW_t sums of
+// sake_tpu/kernels/train2_ef.py -> bwd_kernel (the pallas_call at :1632,
+// body :1568-1607). Per leaf and layer it is the contraction of the primal
+// chain's rows (resid_bwd.cu with an addend) plus the tangent of the
+// contraction of the tangent chain's rows (resid_tbwd.cu) along the tangent
+// forward (resid_jvp.cu): sum a^T g_p + t_a^T g_t + a^T t_g for a weight,
+// sum s_p + t(s_t) for a row sum s. The operands are the same loaders
+// evaluated on dual numbers, so every formed operand (silu, h_e (x) att2,
+// the rbf offset terms) brings its tangent by the product rule. A weight's
+// a is the same in both chains (a function of the residuals), so a tile
+// contracts 2x the rows: a against g_p + t_g, then t_a against g_t.
+//
 // What bounds it on an H100: f32 FMA issue. The w_xmix contraction is
 // most of the work: 256 x 256 outputs over B * N^2 edge rows per layer
 // (about 3.5 G FMA at QM9's batch 64, N = 29). The rows (about 1.6 MB per
@@ -85,13 +98,41 @@ inline void leaf_shape(int leaf, const Dims& d, int* rows, int* cols) {
   *cols = c;
 }
 
+// The arrays one set of operands is read from: boundary states h, the 17
+// residuals and the 20 rows.
+enum Arr { A_BH, A_RS, A_RW };
+struct Tables {
+  const float* bh;
+  const float* rs[kResids];
+  const float* rw[kRows];
+  __device__ const float* arr(int a, int i) const {
+    return a == A_BH ? bh : (a == A_RS ? rs[i] : rw[i]);
+  }
+};
+
+// Operands as floats (one set of tables) or as dual numbers (the values'
+// tables and their tangents').
+template <class T>
+struct Src;
+template <>
+struct Src<float> {
+  const Tables* v;
+  __device__ float at(int a, int i, size_t off) const { return v->arr(a, i)[off]; }
+};
+template <>
+struct Src<Dl> {
+  const Tables *v, *t;
+  __device__ Dl at(int a, int i, size_t off) const {
+    return {v->arr(a, i)[off], t->arr(a, i)[off]};
+  }
+};
+
 struct GradArgs {
   Dims d;
   int per_chunk, n_chunks;  // molecules per chunk, chunks
-  const float* bh;          // (depth, B, N, F) h entering each layer
   Leaves L;
-  const float* rs[kResids];
-  const float* rw[kRows];
+  Tables P;                 // the rows' chain: K1's bh and residuals, its rows
+  Tables Tv, Tt;            // augmented: the tangent chain's rows, and the tangents
   double* partial;          // (n_chunks, total)
   long long total;          // floats of every leaf's gradient, all layers
   long long off[kLeaves];   // each leaf's (depth, rows, cols) offset in total
@@ -100,106 +141,113 @@ struct GradArgs {
   int first_block[kLeaves + 1];
 
   // element c of a node (atom n) or edge (e) row of layer l, width ch
-  __device__ float node(const float* p, int l, size_t n, int ch, int c) const {
-    return p[((size_t)l * d.B * d.N + n) * ch + c];
+  template <class T>
+  __device__ T node(const Src<T>& s, int a, int i, int l, size_t n, int ch, int c) const {
+    return s.at(a, i, ((size_t)l * d.B * d.N + n) * ch + c);
   }
-  __device__ float edge(const float* p, int l, size_t e, int ch, int c) const {
-    return p[((size_t)l * d.B * d.N * d.N + e) * ch + c];
+  template <class T>
+  __device__ T edge(const Src<T>& s, int a, int i, int l, size_t e, int ch, int c) const {
+    return s.at(a, i, ((size_t)l * d.B * d.N * d.N + e) * ch + c);
   }
 };
 
 __device__ __forceinline__ float silu(float x) { return siluf_(x); }
+__device__ __forceinline__ Dl silu(Dl x) { return silu_d(x); }
 
 // Operand a (column r) of a leaf's contraction at global row `row` of
 // layer l: a node index, an edge index, or k * B * N + node for w_vmix.
-template <int LEAF>
-__device__ __forceinline__ float load_a(const GradArgs& g, int l, size_t row, int r) {
+template <int LEAF, class T>
+__device__ __forceinline__ T load_a(const GradArgs& g, const Src<T>& s, int l, size_t row,
+                                    int r) {
   const int F = g.d.F, H = g.d.H, R = g.d.R, K = g.d.K, C = g.d.C, HK = g.d.H * g.d.K;
-  const float* const* rw = g.rw;
-  const float* const* rs = g.rs;
+  auto nd = [&](int a, int i, int ch, int c) { return g.node(s, a, i, l, row, ch, c); };
+  auto ed = [&](int a, int i, int ch, int c) { return g.edge(s, a, i, l, row, ch, c); };
   if constexpr (LEAF == W_IN_J || LEAF == W_IN_I || LEAF == W_O_J || LEAF == W_O_I ||
                 LEAF == W_NODE_H) {
-    return g.node(g.bh, l, row, F, r);
+    return nd(A_BH, 0, F, r);
   } else if constexpr (LEAF == B_IN) {
-    return g.node(rw[RW_DAJ], l, row, R, r);
+    return nd(A_RW, RW_DAJ, R, r);
   } else if constexpr (LEAF == RBF_M || LEAF == RBF_B) {
-    const float q = g.edge(rw[RW_DRBF], l, row, R, r) * g.edge(rs[RS_RBF], l, row, R, r);
-    const float tm = g.edge(rs[RS_T], l, row, 1, 0) - g.L.at(RBF_M, l)[r];
+    const T q = ed(A_RW, RW_DRBF, R, r) * ed(A_RS, RS_RBF, R, r);
+    const T tm = ed(A_RS, RS_T, 1, 0) - g.L.at(RBF_M, l)[r];
     if constexpr (LEAF == RBF_M) return q * ((2.f * g.L.at(RBF_B, l)[r]) * tm);
     else return q * (-(tm * tm));
   } else if constexpr (LEAF == W_O_F) {
-    return g.edge(rw[RW_FILT], l, row, R, r);
+    return ed(A_RW, RW_FILT, R, r);
   } else if constexpr (LEAF == W_O_R) {
-    return g.edge(rw[RW_DE0], l, row, H, r) * g.edge(rs[RS_R], l, row, 1, 0);
+    return ed(A_RW, RW_DE0, H, r) * ed(A_RS, RS_R, 1, 0);
   } else if constexpr (LEAF == B_O0) {
-    return g.edge(rw[RW_DE0], l, row, H, r);
+    return ed(A_RW, RW_DE0, H, r);
   } else if constexpr (LEAF == W_O1) {
-    return silu(g.edge(rs[RS_E0], l, row, H, r));
+    return silu(ed(A_RS, RS_E0, H, r));
   } else if constexpr (LEAF == B_O1) {
-    return g.edge(rw[RW_DHE], l, row, H, r);
+    return ed(A_RW, RW_DHE, H, r);
   } else if constexpr (LEAF == W_SEM) {
-    return g.edge(rs[RS_H_E], l, row, H, r);
+    return ed(A_RS, RS_H_E, H, r);
   } else if constexpr (LEAF == B_SEM) {
-    return g.edge(rw[RW_DSEM], l, row, K, r);
+    return ed(A_RW, RW_DSEM, K, r);
   } else if constexpr (LEAF == W_XMIX) {  // he_att[h*K + k] = h_e[h] * att2[k]
-    return g.edge(rs[RS_H_E], l, row, H, r / K) * g.edge(rw[RW_ATT2], l, row, K, r % K);
+    return ed(A_RS, RS_H_E, H, r / K) * ed(A_RW, RW_ATT2, K, r % K);
   } else if constexpr (LEAF == W_POST0) {
-    return g.node(rw[RW_PSQ], l, row, C, r);
+    return nd(A_RW, RW_PSQ, C, r);
   } else if constexpr (LEAF == B_POST0) {
-    return g.node(rw[RW_DPS0], l, row, H, r);
+    return nd(A_RW, RW_DPS0, H, r);
   } else if constexpr (LEAF == W_POST1) {
-    return silu(g.node(rs[RS_PS0], l, row, H, r));
+    return silu(nd(A_RS, RS_PS0, H, r));
   } else if constexpr (LEAF == B_POST1) {
-    return g.node(rw[RW_DPS1], l, row, H, r);
+    return nd(A_RW, RW_DPS1, H, r);
   } else if constexpr (LEAF == W_NODE_AGG) {
-    return g.node(rw[RW_HATT], l, row, HK, r);
+    return nd(A_RW, RW_HATT, HK, r);
   } else if constexpr (LEAF == W_NODE_COMB) {
-    return silu(g.node(rs[RS_PS1], l, row, H, r));
+    return silu(nd(A_RS, RS_PS1, H, r));
   } else if constexpr (LEAF == B_NODE0) {
-    return g.node(rw[RW_DNP], l, row, H, r);
+    return nd(A_RW, RW_DNP, H, r);
   } else if constexpr (LEAF == W_NODE1) {
-    return silu(g.node(rs[RS_NODE_PRE], l, row, H, r));
+    return silu(nd(A_RS, RS_NODE_PRE, H, r));
   } else if constexpr (LEAF == B_NODE1) {
-    return g.node(rw[RW_DUV], l, row, F, r);
+    return nd(A_RW, RW_DUV, F, r);
   } else if constexpr (LEAF == W_VMIX) {
     const size_t bn = (size_t)g.d.B * g.d.N;
-    return g.node(rs[RS_POOL0 + row / bn], l, row % bn, C, r);
+    return g.node(s, A_RS, RS_POOL0 + (int)(row / bn), l, row % bn, C, r);
   } else if constexpr (LEAF == W_VEL0) {
-    return g.node(g.bh, l, row, F, r) + silu(g.node(rs[RS_UV], l, row, F, r));
+    return nd(A_BH, 0, F, r) + silu(nd(A_RS, RS_UV, F, r));
   } else if constexpr (LEAF == B_VEL0) {
-    return g.node(rw[RW_DG0], l, row, H, r);
+    return nd(A_RW, RW_DG0, H, r);
   } else {
     static_assert(LEAF == W_VEL1, "every leaf has an operand a");
-    return silu(g.node(rs[RS_G0], l, row, H, r));
+    return silu(nd(A_RS, RS_G0, H, r));
   }
 }
 
 // Operand g (column c); a row sum contracts against ones.
-template <int LEAF>
-__device__ __forceinline__ float load_g(const GradArgs& g, int l, size_t row, int c) {
+template <int LEAF, class T>
+__device__ __forceinline__ T load_g(const GradArgs& g, const Src<T>& s, int l, size_t row,
+                                    int c) {
   const int F = g.d.F, H = g.d.H, R = g.d.R, K = g.d.K, C = g.d.C;
-  const float* const* rw = g.rw;
-  if constexpr (LEAF == W_IN_J) return g.node(rw[RW_DAJ], l, row, R, c);
-  else if constexpr (LEAF == W_IN_I) return g.node(rw[RW_DAI], l, row, R, c);
-  else if constexpr (LEAF == W_O_J) return g.node(rw[RW_DOJ], l, row, H, c);
-  else if constexpr (LEAF == W_O_I) return g.node(rw[RW_DOI], l, row, H, c);
-  else if constexpr (LEAF == W_O_F) return g.edge(rw[RW_DE0], l, row, H, c);
-  else if constexpr (LEAF == W_O1) return g.edge(rw[RW_DHE], l, row, H, c);
-  else if constexpr (LEAF == W_SEM) return g.edge(rw[RW_DSEM], l, row, K, c);
-  else if constexpr (LEAF == W_XMIX) return g.edge(rw[RW_DXM], l, row, C, c);
-  else if constexpr (LEAF == W_POST0) return g.node(rw[RW_DPS0], l, row, H, c);
-  else if constexpr (LEAF == W_POST1) return g.node(rw[RW_DPS1], l, row, H, c);
+  auto nd = [&](int i, int ch) { return g.node(s, A_RW, i, l, row, ch, c); };
+  auto ed = [&](int i, int ch) { return g.edge(s, A_RW, i, l, row, ch, c); };
+  if constexpr (LEAF == W_IN_J) return nd(RW_DAJ, R);
+  else if constexpr (LEAF == W_IN_I) return nd(RW_DAI, R);
+  else if constexpr (LEAF == W_O_J) return nd(RW_DOJ, H);
+  else if constexpr (LEAF == W_O_I) return nd(RW_DOI, H);
+  else if constexpr (LEAF == W_O_F) return ed(RW_DE0, H);
+  else if constexpr (LEAF == W_O1) return ed(RW_DHE, H);
+  else if constexpr (LEAF == W_SEM) return ed(RW_DSEM, K);
+  else if constexpr (LEAF == W_XMIX) return ed(RW_DXM, C);
+  else if constexpr (LEAF == W_POST0) return nd(RW_DPS0, H);
+  else if constexpr (LEAF == W_POST1) return nd(RW_DPS1, H);
   else if constexpr (LEAF == W_NODE_H || LEAF == W_NODE_AGG || LEAF == W_NODE_COMB)
-    return g.node(rw[RW_DNP], l, row, H, c);
-  else if constexpr (LEAF == W_NODE1) return g.node(rw[RW_DUV], l, row, F, c);
+    return nd(RW_DNP, H);
+  else if constexpr (LEAF == W_NODE1) return nd(RW_DUV, F);
   else if constexpr (LEAF == W_VMIX) {
     const size_t bn = (size_t)g.d.B * g.d.N;
-    return g.node(rw[RW_DDEL], l, row % bn, 3, (int)(row / bn));
-  } else if constexpr (LEAF == W_VEL0) return g.node(rw[RW_DG0], l, row, H, c);
-  else if constexpr (LEAF == W_VEL1) return g.node(rw[RW_DG1], l, row, 1, c);
+    return g.node(s, A_RW, RW_DDEL, l, row % bn, 3, (int)(row / bn));
+  } else if constexpr (LEAF == W_VEL0) return nd(RW_DG0, H);
+  else if constexpr (LEAF == W_VEL1) return nd(RW_DG1, 1);
   else {
     static_assert(narrow_leaf(LEAF), "only row sums contract against ones");
-    return 1.f;
+    if constexpr (sizeof(T) == sizeof(float)) return 1.f;
+    else return Dl{1.f, 0.f};
   }
 }
 
@@ -220,27 +268,41 @@ __device__ __forceinline__ size_t global_row(const Dims& d, int m0, int nm, int 
 }
 
 // out[r, c] = sum over the chunk's rows of a[row, r] * g[row, c], for one
-// 64 x 64 tile at (r0, c0).
-template <int LEAF>
+// 64 x 64 tile at (r0, c0). Augmented, over twice the rows: a against g_p +
+// t_g, then t_a against g_t.
+template <int LEAF, bool kAug>
 __device__ void contract_tile(const GradArgs& g, int l, int m0, int nm, int r0, int c0,
                               int ra, int cg, double* out, float* sm) {
   float* As = sm;
   float* Gs = sm + kStep * kTile;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int rows = chunk_rows<LEAF>(g.d, nm);
+  const Src<float> sp{&g.P}, st{&g.Tv};
+  const Src<Dl> sd{&g.Tv, &g.Tt};
   float acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < rows; k0 += kStep) {
+  for (int k0 = 0; k0 < (kAug ? 2 : 1) * rows; k0 += kStep) {
     for (int q = tid; q < kStep * kTile; q += kThreads) {
-      const int kk = q / kTile, col = q % kTile, row = k0 + kk;
+      const int kk = q / kTile, col = q % kTile, vrow = k0 + kk;
+      const bool second = kAug && vrow >= rows;
+      const int row = second ? vrow - rows : vrow;
       float a = 0.f, gv = 0.f;
-      if (row < rows) {
+      if (vrow < (kAug ? 2 : 1) * rows) {
         const size_t gr = global_row<LEAF>(g.d, m0, nm, row);
-        if (r0 + col < ra) a = load_a<LEAF>(g, l, gr, r0 + col);
-        if (c0 + col < cg) gv = load_g<LEAF>(g, l, gr, c0 + col);
+        if (r0 + col < ra) {
+          if (!kAug) a = load_a<LEAF>(g, sp, l, gr, r0 + col);
+          else if (!second) a = load_a<LEAF>(g, st, l, gr, r0 + col);
+          else a = load_a<LEAF>(g, sd, l, gr, r0 + col).t;
+        }
+        if (c0 + col < cg) {
+          if (!kAug) gv = load_g<LEAF>(g, sp, l, gr, c0 + col);
+          else if (!second)
+            gv = load_g<LEAF>(g, sp, l, gr, c0 + col) + load_g<LEAF>(g, sd, l, gr, c0 + col).t;
+          else gv = load_g<LEAF>(g, st, l, gr, c0 + col);
+        }
       }
       As[q] = a;
       Gs[q] = gv;
@@ -278,23 +340,35 @@ __host__ __device__ inline int narrow_cols(int ra) { return ra <= 8 ? 8 : kTile;
 // double; the row groups are summed in order at the end. These are the
 // row sums, whose terms cancel (a softmax's cotangents sum to zero over
 // its senders), so f32 sums lose digits the plain version keeps.
-template <int LEAF>
+template <int LEAF, bool kAug>
 __device__ void contract_narrow(const GradArgs& g, int l, int m0, int nm, int r0, int ra,
                                 int cg, double* out, double* sm) {
   const int cols = narrow_cols(ra), groups = kThreads / cols;
   const int rl = threadIdx.x % cols, rg = threadIdx.x / cols;
   const int r = r0 + rl;
   const int rows = chunk_rows<LEAF>(g.d, nm);
+  const Src<float> sp{&g.P};
+  const Src<Dl> sd{&g.Tv, &g.Tt};
   double acc[kNarrowMax];
 #pragma unroll
   for (int c = 0; c < kNarrowMax; ++c) acc[c] = 0.0;
   if (r < ra) {
     for (int row = rg; row < rows; row += groups) {
       const size_t gr = global_row<LEAF>(g.d, m0, nm, row);
-      const double a = load_a<LEAF>(g, l, gr, r);
+      const double a = load_a<LEAF>(g, sp, l, gr, r);
+      // augmented: a_p g_p + t_a g_t + a_t t_g (a row sum: s_p + t(s_t))
+      Dl at{0.f, 0.f};
+      if constexpr (kAug) at = load_a<LEAF>(g, sd, l, gr, r);
 #pragma unroll
-      for (int c = 0; c < kNarrowMax; ++c)
-        if (c < cg) acc[c] = fma(a, (double)load_g<LEAF>(g, l, gr, c), acc[c]);
+      for (int c = 0; c < kNarrowMax; ++c) {
+        if (c < cg) {
+          acc[c] = fma(a, (double)load_g<LEAF>(g, sp, l, gr, c), acc[c]);
+          if constexpr (kAug) {
+            const Dl gt = load_g<LEAF>(g, sd, l, gr, c);
+            acc[c] = fma((double)at.t, (double)gt.v, fma((double)at.v, (double)gt.t, acc[c]));
+          }
+        }
+      }
     }
   }
   double* red = sm;  // (groups, cols, kNarrowMax)
@@ -310,13 +384,16 @@ __device__ void contract_narrow(const GradArgs& g, int l, int m0, int nm, int r0
   }
 }
 
-template <int LEAF>
+template <int LEAF, bool kAug>
 __device__ void contract(const GradArgs& g, int l, int m0, int nm, int r0, int c0, int ra,
                          int cg, double* out, double* sm) {
-  if constexpr (narrow_leaf(LEAF)) contract_narrow<LEAF>(g, l, m0, nm, r0, ra, cg, out, sm);
-  else contract_tile<LEAF>(g, l, m0, nm, r0, c0, ra, cg, out, reinterpret_cast<float*>(sm));
+  if constexpr (narrow_leaf(LEAF))
+    contract_narrow<LEAF, kAug>(g, l, m0, nm, r0, ra, cg, out, sm);
+  else
+    contract_tile<LEAF, kAug>(g, l, m0, nm, r0, c0, ra, cg, out, reinterpret_cast<float*>(sm));
 }
 
+template <bool kAug>
 __global__ void __launch_bounds__(kThreads) param_grads_kernel(const GradArgs g) {
   __shared__ __align__(16) double sm[kThreads * kNarrowMax];
   static_assert(sizeof(sm) >= 2 * kStep * kTile * sizeof(float), "both routines fit");
@@ -333,7 +410,7 @@ __global__ void __launch_bounds__(kThreads) param_grads_kernel(const GradArgs g)
   const int m0 = chunk * g.per_chunk, nm = min(g.d.B, m0 + g.per_chunk) - m0;
   double* out = g.partial + chunk * g.total + g.off[leaf] + (size_t)l * ra * cg;
 #define SAKE_LEAF(X) \
-  case X: contract<X>(g, l, m0, nm, r0, c0, ra, cg, out, sm); break;
+  case X: contract<X, kAug>(g, l, m0, nm, r0, c0, ra, cg, out, sm); break;
   switch (leaf) {
     SAKE_LEAF(W_IN_J) SAKE_LEAF(W_IN_I) SAKE_LEAF(B_IN) SAKE_LEAF(RBF_M) SAKE_LEAF(RBF_B)
     SAKE_LEAF(W_O_J) SAKE_LEAF(W_O_I) SAKE_LEAF(W_O_F) SAKE_LEAF(W_O_R) SAKE_LEAF(B_O0)
@@ -359,25 +436,25 @@ __global__ void sum_chunks(const double* __restrict__ partial, float* out, long 
 
 }  // namespace sake
 
-// out: every leaf's (depth, rows, cols) gradient, in LEAF_NAMES order,
-// concatenated; partial: (ceil(B / per_chunk), len(out)) f64 scratch.
-extern "C" int sake_param_grads(const float* bh, const void* const* leaf_ptrs,
-                                const long long* leaf_strides, void* const* resid_ptrs,
-                                void* const* row_ptrs, double* partial, float* out,
-                                int per_chunk, int B, int N, int F, int H, int R, int K, int C,
-                                int depth, void* stream) {
-  using namespace sake;
-  GradArgs g;
-  g.d = Dims{B, N, F, H, R, K, C, depth};
+namespace sake {
+
+Tables tables(const float* bh, void* const* resid_ptrs, void* const* row_ptrs) {
+  Tables t;
+  t.bh = bh;
+  for (int i = 0; i < kResids; ++i) t.rs[i] = static_cast<const float*>(resid_ptrs[i]);
+  for (int i = 0; i < kRows; ++i) t.rw[i] = static_cast<const float*>(row_ptrs[i]);
+  return t;
+}
+
+template <bool kAug>
+int launch_grads(GradArgs& g, const void* const* leaf_ptrs, const long long* leaf_strides,
+                 double* partial, float* out, int per_chunk, void* stream) {
   g.per_chunk = per_chunk;
-  g.n_chunks = (B + per_chunk - 1) / per_chunk;
-  g.bh = bh;
+  g.n_chunks = (g.d.B + per_chunk - 1) / per_chunk;
   for (int i = 0; i < kLeaves; ++i) {
     g.L.p[i] = static_cast<const float*>(leaf_ptrs[i]);
     g.L.stride[i] = leaf_strides[i];
   }
-  for (int i = 0; i < kResids; ++i) g.rs[i] = static_cast<const float*>(resid_ptrs[i]);
-  for (int i = 0; i < kRows; ++i) g.rw[i] = static_cast<const float*>(row_ptrs[i]);
   g.partial = partial;
   long long off = 0;
   long long blocks = 0;
@@ -391,18 +468,54 @@ extern "C" int sake_param_grads(const float* bh, const void* const* leaf_ptrs,
     g.row_tile[leaf] = narrow_leaf(leaf) ? narrow_cols(g.ra[leaf]) : kTile;
     g.first_block[leaf] = (int)blocks;
     blocks += (long long)((g.ra[leaf] + g.row_tile[leaf] - 1) / g.row_tile[leaf]) *
-              g.tiles_c[leaf] * g.n_chunks * depth;
+              g.tiles_c[leaf] * g.n_chunks * g.d.depth;
     g.off[leaf] = off;
-    off += (long long)depth * rows * cols;
+    off += (long long)g.d.depth * rows * cols;
   }
   g.first_block[kLeaves] = (int)blocks;
   g.total = off;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  param_grads_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(g);
+  param_grads_kernel<kAug><<<(unsigned)blocks, kThreads, 0, s>>>(g);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long long grid = (off + kThreads - 1) / kThreads;
   sum_chunks<<<(unsigned)(grid < 4096 ? grid : 4096), kThreads, 0, s>>>(partial, out, off,
                                                                         g.n_chunks);
   return (int)cudaGetLastError();
+}
+
+}  // namespace sake
+
+// out: every leaf's (depth, rows, cols) gradient, in LEAF_NAMES order,
+// concatenated; partial: (ceil(B / per_chunk), len(out)) f64 scratch.
+extern "C" int sake_param_grads(const float* bh, const void* const* leaf_ptrs,
+                                const long long* leaf_strides, void* const* resid_ptrs,
+                                void* const* row_ptrs, double* partial, float* out,
+                                int per_chunk, int B, int N, int F, int H, int R, int K, int C,
+                                int depth, void* stream) {
+  using namespace sake;
+  GradArgs g;
+  g.d = Dims{B, N, F, H, R, K, C, depth};
+  g.P = tables(bh, resid_ptrs, row_ptrs);
+  return launch_grads<false>(g, leaf_ptrs, leaf_strides, partial, out, per_chunk, stream);
+}
+
+// The augmented gradients: row_ptrs the primal chain's rows, trow_ptrs the
+// tangent chain's and ttrow_ptrs their tangents (ROWS order); tbh and
+// tresid_ptrs the tangent forward's boundary h and residuals. Output and
+// scratch as sake_param_grads.
+extern "C" int sake_param_grads_aug(const float* bh, const float* tbh,
+                                    const void* const* leaf_ptrs,
+                                    const long long* leaf_strides, void* const* resid_ptrs,
+                                    void* const* tresid_ptrs, void* const* row_ptrs,
+                                    void* const* trow_ptrs, void* const* ttrow_ptrs,
+                                    double* partial, float* out, int per_chunk, int B, int N,
+                                    int F, int H, int R, int K, int C, int depth, void* stream) {
+  using namespace sake;
+  GradArgs g;
+  g.d = Dims{B, N, F, H, R, K, C, depth};
+  g.P = tables(bh, resid_ptrs, row_ptrs);
+  g.Tv = tables(bh, resid_ptrs, trow_ptrs);
+  g.Tt = tables(tbh, tresid_ptrs, ttrow_ptrs);
+  return launch_grads<true>(g, leaf_ptrs, leaf_strides, partial, out, per_chunk, stream);
 }

@@ -12,6 +12,10 @@
 //   att2, filtered, d_rbf per edge; d_a_j, d_a_i, d_o_j, d_o_i, d_ps0,
 //   d_ps1, d_node_pre, d_uv, d_g0, d_g1, d_delta, hatt, pool_sq per atom),
 //   and param_grads.cu contracts them into every leaf's gradient.
+// - train2_ef.py -> the shared-mode training backward bwd_kernel (:1632,
+//   body :1507), its primal cotangent chain: this kernel with kRows and an
+//   addend (add_h, add_x, add_v), the Hessian term resid_tbwd.cu computes
+//   per layer, added to the cotangents leaving each layer.
 // Given the cotangents of the final (h, x, v) it returns those of the
 // initial (h, x, v). An edge mask (B, N, N) gives the masked pullback:
 // the renormalized attention's backward with its live term, d_xm * m and
@@ -124,7 +128,8 @@ resid_bwd_kernel(Dims d, const float* __restrict__ bh, const float* __restrict__
                  const float* __restrict__ mask, Leaves L, Leaves LT, Resids RS,
                  const float* __restrict__ dh_fin, const float* __restrict__ dx_fin,
                  const float* __restrict__ dv_fin, float* dh_out, float* dx_out,
-                 float* dv_out, Rows RW) {
+                 float* dv_out, Rows RW, const float* __restrict__ add_h,
+                 const float* __restrict__ add_x, const float* __restrict__ add_v) {
   extern __shared__ float4 smem4[];
   const int b = blockIdx.x;
   const int B = d.B, N = d.N, F = d.F, H = d.H, R = d.R, K = d.K, C = d.C;
@@ -526,6 +531,15 @@ resid_bwd_kernel(Dims d, const float* __restrict__ bh, const float* __restrict__
       sdv[e] = sdvo[e];
     }
     __syncthreads();
+    if (add_h) {  // this layer's addend (depth-stacked like bh, bx, bv)
+      for (int e = tid; e < N * F; e += nt) sdh[e] += add_h[lb * N * F + e];
+      for (int e = tid; e < 3 * N; e += nt) {
+        const size_t at = (((size_t)l * 3 + e / N) * B + b) * N + e % N;
+        sdx[e] += add_x[at];
+        sdv[e] += add_v[at];
+      }
+      __syncthreads();
+    }
   }
 
   for (int e = tid; e < N * F; e += nt) dh_out[(size_t)b * N * F + e] = sdh[e];
@@ -542,7 +556,8 @@ int launch_bwd(const Dims& d, const float* bh, const float* bx, const float* bv,
                const void* const* leaf_t_ptrs, const long long* leaf_strides,
                void* const* resid_ptrs, const float* dh_fin, const float* dx_fin,
                const float* dv_fin, float* dh_out, float* dx_out, float* dv_out,
-               const Rows& RW, void* stream) {
+               const Rows& RW, const float* add_h, const float* add_x, const float* add_v,
+               void* stream) {
   Leaves L, LT;
   for (int i = 0; i < kLeaves; ++i) {
     L.p[i] = static_cast<const float*>(leaf_ptrs[i]);
@@ -557,7 +572,7 @@ int launch_bwd(const Dims& d, const float* bh, const float* bx, const float* bv,
   if (err != cudaSuccess) return (int)err;
   resid_bwd_kernel<kRows><<<d.B, 512, smem, static_cast<cudaStream_t>(stream)>>>(
       d, bh, bx, bv, upd, mask, L, LT, RS, dh_fin, dx_fin, dv_fin, dh_out, dx_out, dv_out,
-      RW);
+      RW, add_h, add_x, add_v);
   return (int)cudaGetLastError();
 }
 
@@ -580,10 +595,12 @@ extern "C" int sake_resid_bwd(const float* bh, const float* bx, const float* bv,
   return sake::launch_bwd<false>(sake::Dims{B, N, F, H, R, K, C, depth}, bh, bx, bv, upd,
                                  mask, leaf_ptrs, leaf_t_ptrs, leaf_strides, resid_ptrs,
                                  dh_fin, dx_fin, dv_fin, dh_out, dx_out, dv_out,
-                                 sake::Rows{}, stream);
+                                 sake::Rows{}, nullptr, nullptr, nullptr, stream);
 }
 
 // As sake_resid_bwd, also writing the cotangent rows (row_ptrs in ROWS order).
+// add_h (depth, B, N, F), add_x, add_v (depth, 3, B, N): null, or added to the
+// cotangents leaving each layer.
 extern "C" int sake_resid_bwd_rows(const float* bh, const float* bx, const float* bv,
                                    const float* upd, const float* mask,
                                    const void* const* leaf_ptrs,
@@ -591,11 +608,14 @@ extern "C" int sake_resid_bwd_rows(const float* bh, const float* bx, const float
                                    const long long* leaf_strides, void* const* resid_ptrs,
                                    const float* dh_fin, const float* dx_fin,
                                    const float* dv_fin, float* dh_out, float* dx_out,
-                                   float* dv_out, void* const* row_ptrs, int B, int N, int F,
-                                   int H, int R, int K, int C, int depth, void* stream) {
+                                   float* dv_out, void* const* row_ptrs, const float* add_h,
+                                   const float* add_x, const float* add_v, int B, int N,
+                                   int F, int H, int R, int K, int C, int depth,
+                                   void* stream) {
   sake::Rows RW;
   for (int i = 0; i < sake::kRows; ++i) RW.p[i] = static_cast<float*>(row_ptrs[i]);
   return sake::launch_bwd<true>(sake::Dims{B, N, F, H, R, K, C, depth}, bh, bx, bv, upd,
                                 mask, leaf_ptrs, leaf_t_ptrs, leaf_strides, resid_ptrs,
-                                dh_fin, dx_fin, dv_fin, dh_out, dx_out, dv_out, RW, stream);
+                                dh_fin, dx_fin, dv_fin, dh_out, dx_out, dv_out, RW, add_h,
+                                add_x, add_v, stream);
 }

@@ -87,6 +87,33 @@ __device__ __forceinline__ float dsiluf_(float x) {
   return s * (1.f + x * (1.f - s));
 }
 
+// A dual number, a value and its tangent, for the forward-mode (jvp) kernels.
+struct Dl {
+  float v, t;
+};
+__device__ __forceinline__ Dl operator+(Dl a, Dl b) { return {a.v + b.v, a.t + b.t}; }
+__device__ __forceinline__ Dl operator-(Dl a, Dl b) { return {a.v - b.v, a.t - b.t}; }
+__device__ __forceinline__ Dl operator-(Dl a) { return {-a.v, -a.t}; }
+__device__ __forceinline__ Dl operator-(Dl a, float s) { return {a.v - s, a.t}; }
+__device__ __forceinline__ Dl operator*(Dl a, Dl b) { return {a.v * b.v, a.v * b.t + a.t * b.v}; }
+__device__ __forceinline__ Dl operator*(float s, Dl a) { return {s * a.v, s * a.t}; }
+__device__ __forceinline__ Dl operator*(Dl a, float s) { return {s * a.v, s * a.t}; }
+__device__ __forceinline__ Dl& operator+=(Dl& a, Dl b) {
+  a.v += b.v;
+  a.t += b.t;
+  return a;
+}
+__device__ __forceinline__ Dl silu_d(Dl x) { return {siluf_(x.v), dsiluf_(x.v) * x.t}; }
+// silu'(x) and its tangent: silu''(x) = s (1 - s) (2 + x (1 - 2 s))
+__device__ __forceinline__ Dl dsilu_d(Dl x) {
+  const float s = sigmoidf_(x.v);
+  return {s * (1.f + x.v * (1.f - s)), s * (1.f - s) * (2.f + x.v * (1.f - 2.f * s)) * x.t};
+}
+__device__ __forceinline__ Dl sigmoid_d(Dl x) {
+  const float s = sigmoidf_(x.v);
+  return {s, s * (1.f - s) * x.t};
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

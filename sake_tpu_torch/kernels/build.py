@@ -99,16 +99,24 @@ def load():
     # bh, bx, bv, upd, mask, leaves, leaves_t, strides, resid, dh, dx, dv, 3 outs
     bwd_in = [P] * 5 + [P, P, P] + [P] + [P] * 3 + [P] * 3
     lib.sake_resid_bwd.argtypes = bwd_in + dims + [P]
-    lib.sake_resid_bwd_rows.argtypes = bwd_in + [P] + dims + [P]
+    # ... rows, add_h, add_x, add_v
+    lib.sake_resid_bwd_rows.argtypes = bwd_in + [P] * 4 + dims + [P]
     # bh, leaves, strides, resid, rows, partial, out, per_chunk
     lib.sake_param_grads.argtypes = [P] * 7 + [I] + dims + [P]
+    # bh, bx, bv, upd, leaves, strides, resid, tx0, tbh, tbx, tbv, 3 finals, tresid
+    lib.sake_resid_jvp.argtypes = [P] * 15 + dims + [P]
+    # bh, bx, bv, tbh, tbx, tbv, upd, leaves, leaves_t, strides, resid, tresid,
+    # dh, dx, dv, 3 outs, add_h, add_x, add_v, rows, t_rows, scratch
+    lib.sake_resid_tbwd.argtypes = [P] * 24 + dims + [P]
+    # bh, tbh, leaves, strides, resid, tresid, rows, rows_t, t_rows, partial, out, per_chunk
+    lib.sake_param_grads_aug.argtypes = [P] * 11 + [I] + dims + [P]
     for fn in ("sake_resid_fwd", "sake_resid_infer", "sake_resid_bwd", "sake_resid_bwd_rows",
-               "sake_param_grads"):
+               "sake_param_grads", "sake_resid_jvp", "sake_resid_tbwd", "sake_param_grads_aug"):
         getattr(lib, fn).restype = I
-    lib.sake_resid_fwd_smem_bytes.argtypes = dims
-    lib.sake_resid_fwd_smem_bytes.restype = LL
-    lib.sake_resid_bwd_smem_bytes.argtypes = dims
-    lib.sake_resid_bwd_smem_bytes.restype = LL
+    for fn in ("sake_resid_fwd_smem_bytes", "sake_resid_bwd_smem_bytes",
+               "sake_resid_jvp_smem_bytes", "sake_resid_tbwd_smem_bytes"):
+        getattr(lib, fn).argtypes = dims
+        getattr(lib, fn).restype = LL
     lib.sake_error_string.argtypes = [I]
     lib.sake_error_string.restype = ctypes.c_char_p
     _lib = lib

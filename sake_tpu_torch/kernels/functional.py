@@ -229,6 +229,15 @@ def model_forward(
     return out, torch.cat(xp, dim=-1), v_out
 
 
+def flat_params(p: ModelParams) -> list:
+    """The tensors of ``p`` in a fixed order: embedding, each layer's
+    ``CFConvParams`` then its other fields, readout."""
+    out = [p.w_embed, p.b_embed]
+    for lp in p.layers:
+        out += [*lp.edge, *lp[1:]]
+    return out + [p.w_out0, p.b_out0, p.w_out1, p.b_out1]
+
+
 def energy_and_forces_fn(
     p: ModelParams,
     h: torch.Tensor,
@@ -239,10 +248,19 @@ def energy_and_forces_fn(
     mask: Optional[torch.Tensor] = None,
 ):
     """Raw energy ``e (B,)`` (readout summed over atoms and outputs, no
-    node mask — as the JAX function) and forces ``f = -dE/dx (B, N, 3)``."""
+    node mask — as the JAX function) and forces ``f = -dE/dx (B, N, 3)``.
+
+    Differentiable in ``p``, ``h`` and ``x``, as the JAX function: when
+    autograd records (grad enabled and some input requiring grad) the force
+    keeps its graph (``create_graph``), so a loss of ``(e, f)`` has
+    second-order gradients. Otherwise both come back detached."""
+    record = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (h, x, *flat_params(p)))
     with torch.enable_grad():
-        xg = x.detach().requires_grad_(True)
+        xg = x if x.requires_grad else x.detach().requires_grad_(True)
         out, _, _ = model_forward(p, h, xg, n_heads=n_heads, update=update, mask=mask)
         e = out.sum(dim=(-2, -1))
-        (g,) = torch.autograd.grad(e.sum(), xg)
-    return e.detach(), -g
+        (g,) = torch.autograd.grad(e.sum(), xg, create_graph=record)
+    if not record:
+        return e.detach(), -g
+    return e, -g

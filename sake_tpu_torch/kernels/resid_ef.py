@@ -48,6 +48,7 @@ from sake_tpu_torch.kernels.functional import (
     ModelParams,
     _silu,
     embed,
+    flat_params,
     per_layer,
     readout,
 )
@@ -368,6 +369,140 @@ def layer_param_grads(p: dict, resid: dict, h_in, rows: dict) -> dict:
     )
 
 
+def layer_jvp_resid(p: dict, resid: dict, h, xp, vp, th, txp, tvp, upd, *, n_real=None,
+                    mask=None):
+    """Tangent-only forward of one layer (JAX ``:791-975``): pushes the
+    tangent state ``(th, txp, tvp)`` through :func:`layer_fwd_resid`'s map
+    on the saved primal residuals. Only ``a_j``/``a_i`` and the head
+    expansion ``h_e (x) att2`` are recomputed, as in the pullback. Returns
+    ``(th_out, txp_out, tvp_out, tresid)``, ``tresid`` the tangent of the
+    residual dict. The plain version of the ``resid_jvp`` kernel."""
+    B, N, F = h.shape
+    n_eff = float(n_real if n_real is not None else N)
+
+    e4 = lambda a: a.reshape(B, N, N, -1)
+    r, t, rbf, e0, h_e, sem_pre, att, coeff = (e4(resid[n]) for n in EDGE_RESIDS)
+    pooled = [resid["pool0"], resid["pool1"], resid["pool2"]]
+    ps0, ps1, node_pre, uv, g0, g1 = (
+        resid[n] for n in ("ps0", "ps1", "node_pre", "uv", "g0", "g1")
+    )
+
+    d0 = [pk[:, None, :, :] - pk[:, :, None, :] for pk in xp]
+    td0 = [tk[:, None, :, :] - tk[:, :, None, :] for tk in txp]
+
+    # r = sqrt(relu(s) + eps): t_r = 0.5 / r * relu'(s) * t_s
+    t_s = 2.0 * (d0[0] * td0[0] + d0[1] * td0[1] + d0[2] * td0[2])
+    t_r = (0.5 / r) * (r * r > EPSILON).to(r.dtype) * t_s
+
+    a_j = h @ p["w_in_j"] + p["b_in"]
+    a_i = h @ p["w_in_i"]
+    pre = a_j[:, None, :, :] + a_i[:, :, None, :]
+    t_pre = (th @ p["w_in_j"])[:, None, :, :] + (th @ p["w_in_i"])[:, :, None, :]
+    t_t = -t * t_r
+    t_rbf = rbf * (-2.0 * p["rbf_b"] * (t - p["rbf_m"])) * t_t
+    t_filtered = t_rbf * pre + rbf * t_pre
+    t_e0 = ((th @ p["w_o_j"])[:, None] + (th @ p["w_o_i"])[:, :, None]
+            + t_filtered @ p["w_o_f"] + t_r * p["w_o_r"][0])
+    t_h_e = (_dsilu(e0) * t_e0) @ p["w_o1"]
+    t_sem_pre = t_h_e @ p["w_sem"]
+    dcelu = torch.where(sem_pre > 0, torch.ones_like(sem_pre), torch.exp(sem_pre / 2.0))
+    t_logits = dcelu * t_sem_pre  # the additive -INF masks are constant
+    # softmax jvp on the saved raw softmax (over senders)
+    t_att = att * (t_logits - (att * t_logits).sum(dim=-2, keepdim=True))
+    if mask is not None:
+        att_s = att * mask
+        t_att_s = t_att * mask
+        denom = att_s.sum(dim=-2, keepdim=True)
+        dg = torch.where(denom == 0.0, torch.ones_like(denom), denom)
+        att2 = att_s / dg
+        t_dg = torch.where(denom == 0.0, torch.zeros_like(denom),
+                           t_att_s.sum(dim=-2, keepdim=True))
+        t_att2 = (t_att_s - att2 * t_dg) / dg
+    else:
+        att2, t_att2 = att, t_att
+
+    K = att.shape[-1]
+    H = h_e.shape[-1]
+    t_he_att = (t_h_e[..., :, None] * att2[..., None, :]
+                + h_e[..., :, None] * t_att2[..., None, :]).reshape(B, N, N, H * K)
+    # the saved coeff is masked; at mask = 0 the (1 - coeff^2) = 1 is zeroed
+    t_coeff = (1.0 - coeff * coeff) * (t_he_att @ p["w_xmix"])
+    if mask is not None:
+        t_coeff = t_coeff * mask
+
+    inv_r = 1.0 / (r + 1e-5)
+    t_inv_r = -(inv_r * inv_r) * t_r
+    t_pooled = [
+        (t_coeff * (d0[k] * inv_r) + coeff * (td0[k] * inv_r + d0[k] * t_inv_r)).sum(dim=-2)
+        for k in range(3)
+    ]
+    if mask is not None:
+        count = mask.sum(dim=-2)
+        pool_denom, dv_denom = count + 1e-8, count + 1e-10
+    else:
+        pool_denom = dv_denom = n_eff
+    t_pool_sq = sum(2.0 * (pooled[k] / pool_denom) * (t_pooled[k] / pool_denom)
+                    for k in range(3))
+    t_ps0 = t_pool_sq @ p["w_post0"]
+    t_ps1 = (_dsilu(ps0) * t_ps0) @ p["w_post1"]
+    t_node_pre = (th @ p["w_node_h"] + t_he_att.sum(dim=-2) @ p["w_node_agg"]
+                  + (_dsilu(ps1) * t_ps1) @ p["w_node_comb"])
+    t_uv = (_dsilu(node_pre) * t_node_pre) @ p["w_node1"]
+    t_h_out = th + _dsilu(uv) * t_uv
+
+    t_delta = [tp @ p["w_vmix"] / dv_denom for tp in t_pooled]
+    t_g0 = t_h_out @ p["w_vel0"]
+    t_g1 = (_dsilu(g0) * t_g0) @ p["w_vel1"]
+    sig_g1 = torch.sigmoid(g1)
+    gate = 2.0 * sig_g1
+    t_gate = 2.0 * sig_g1 * (1.0 - sig_g1) * t_g1
+    t_v_new = [t_gate * vk + gate * tvk + tdk for vk, tvk, tdk in zip(vp, tvp, t_delta)]
+    txp_out = [tk + upd * tvn for tk, tvn in zip(txp, t_v_new)]
+    tvp_out = [tvk + upd * (tvn - tvk) for tvk, tvn in zip(tvp, t_v_new)]
+
+    e2 = lambda a: a.reshape(B, N * N, -1)
+    tresid = dict(
+        r=e2(t_r), t=e2(t_t), rbf=e2(t_rbf), e0=e2(t_e0), h_e=e2(t_h_e),
+        sem_pre=e2(t_sem_pre), att=e2(t_att), coeff=e2(t_coeff),
+        pool0=t_pooled[0], pool1=t_pooled[1], pool2=t_pooled[2],
+        ps0=t_ps0, ps1=t_ps1, node_pre=t_node_pre, uv=t_uv, g0=t_g0, g1=t_g1,
+    )
+    return t_h_out, txp_out, tvp_out, tresid
+
+
+def layer_bwd_resid_jvp(p: dict, resid: dict, h_in, xp, vp, upd, d_h_out, d_xp_out,
+                        d_vp_out, tresid: dict, th, txp, tvp, *, n_real=None, mask=None):
+    """The tangent pullback of one layer: the jvp of :func:`layer_bwd_resid`
+    (with its cotangent rows) along ``(tresid, th, txp, tvp)``, the
+    cotangents ``(d_h_out, d_xp_out, d_vp_out)`` held fixed, as the JAX
+    training backward takes it with ``jax.jvp`` (``train2_ef.py:1585-1598``).
+
+    Returns ``((d_h, d_xp, d_vp, rows), (hc, xc, vc, t_rows))``: the pullback
+    ``J^T c`` and its rows, and their tangents, whose first three are the
+    Hessian-vector term the primal cotangent chain adds. The plain version
+    of the ``resid_tbwd`` kernel."""
+
+    def pullback(resid_, h_, xp_, vp_):
+        return layer_bwd_resid(p, resid_, h_, xp_, vp_, upd, d_h_out, d_xp_out, d_vp_out,
+                               n_real=n_real, mask=mask, want_param_grads="rows")
+
+    return torch.func.jvp(pullback, (resid, h_in, list(xp), list(vp)),
+                          (tresid, th, list(txp), list(tvp)))
+
+
+def layer_param_grads_tangent(p: dict, resid: dict, h_in, rows: dict, tresid: dict, th,
+                              t_rows: dict) -> dict:
+    """Tangent of :func:`layer_param_grads` along ``(tresid, th, t_rows)``:
+    ``t_a^T g + a^T t_g`` for every contraction and the tangents of the bias
+    and offset row sums, the JAX ``contract_param_pair_tangents`` plus the
+    tangent of its bias ``dW`` (``resid_ef.py:738-788``). With the rows of
+    :func:`layer_bwd_resid_jvp` it is the second-order half of one layer's
+    parameter gradient; the plain version of the tangent half of the
+    ``param_grads_aug`` kernel."""
+    return torch.func.jvp(lambda r_, h_, w_: layer_param_grads(p, r_, h_, w_),
+                          (resid, h_in, rows), (tresid, th, t_rows))[1]
+
+
 def unsplit_layer_grads(g: dict) -> LayerParams:
     """Inverse of ``leaves.split_layer`` for gradient leaves (one layer,
     depth axis removed): reassemble a ``LayerParams`` (JAX ``:1344-1373``)."""
@@ -574,11 +709,17 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _require_cuda(name, t):
+    """The kernels take CUDA tensors (CPU tensors go to the plain versions
+    before this); any other device raises."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: unsupported device {t.device}")
+
+
 def _fwd_args(name, leaves, h0, xs, v0, upd, mask):
     """Checks shared by K1 and the forward without residuals; returns
     ``(lib, dims, upd, mask)`` as the kernels take them."""
-    if not h0.is_cuda:
-        raise ValueError(f"{name}: unsupported device {h0.device}")
+    _require_cuda(name, h0)
     dims = _dims(leaves, h0)
     B, N, F, H, R, K, C, depth = dims
     dev = h0.device
@@ -650,11 +791,13 @@ def resid_infer(leaves: dict, h0, xs, v0, upd: Sequence[float], mask=None):
 resid_infer.launches = 0
 
 
-def _bwd_launch(name, leaves, fwd, upd, dh, dx, dv, mask, leaves_t, want_rows):
+def _bwd_launch(name, leaves, fwd, upd, dh, dx, dv, mask, leaves_t, want_rows, add=None):
     """Checks, allocation and launch of K2 (``want_rows=False``) or of its
-    instantiation that also writes the cotangent rows."""
-    if not dh.is_cuda:
-        raise ValueError(f"{name}: unsupported device {dh.device}")
+    instantiation that also writes the cotangent rows. ``add``: None, or
+    ``(add_h (depth, B, N, F), add_x (depth, 3, B, N), add_v (depth, 3, B,
+    N))`` that the rows instantiation adds to the cotangents leaving each
+    layer (the second-order backward's Hessian term)."""
+    _require_cuda(name, dh)
     dims = _dims(leaves, fwd.bh[0])
     B, N, F, H, R, K, C, depth = dims
     dev = dh.device
@@ -688,7 +831,12 @@ def _bwd_launch(name, leaves, fwd, upd, dh, dx, dv, mask, leaves_t, want_rows):
         dh_out.data_ptr(), dx_out.data_ptr(), dv_out.data_ptr(),
     ]
     if want_rows:
-        err = lib.sake_resid_bwd_rows(*args, _ptrs([rows[n] for n in ROWS]), *dims,
+        if add is not None:
+            for n, a, s in zip(("add_h", "add_x", "add_v"), add,
+                               ((depth, B, N, F), (depth, 3, B, N), (depth, 3, B, N))):
+                _check_cuda(n, a, s, dev)
+        err = lib.sake_resid_bwd_rows(*args, _ptrs([rows[n] for n in ROWS]),
+                                      *(_ptr(a) for a in (add or (None,) * 3)), *dims,
                                       _stream(dev))
     else:
         err = lib.sake_resid_bwd(*args, *dims, _stream(dev))
@@ -737,8 +885,7 @@ def param_grads(leaves: dict, fwd: FwdOut, rows: dict) -> dict:
     tensors take the plain version."""
     if fwd.bh.device.type == "cpu":
         return param_grads_plain(leaves, fwd, rows)
-    if not fwd.bh.is_cuda:
-        raise ValueError(f"param_grads: unsupported device {fwd.bh.device}")
+    _require_cuda("param_grads", fwd.bh)
     dims = _dims(leaves, fwd.bh[0])
     B, N, F, H, R, K, C, depth = dims
     dev = fwd.bh.device
@@ -828,15 +975,6 @@ def resid_energy_forces(
 # --------------------------------------------------------------------------
 # First-order training: the hidden-state function with a kernel backward.
 # --------------------------------------------------------------------------
-
-
-def flat_params(p: ModelParams) -> list:
-    """The tensors of ``p`` in a fixed order: embedding, each layer's
-    ``CFConvParams`` then its other fields, readout."""
-    out = [p.w_embed, p.b_embed]
-    for lp in p.layers:
-        out += [*lp.edge, *lp[1:]]
-    return out + [p.w_out0, p.b_out0, p.w_out1, p.b_out1]
 
 
 _EDGE_TENSORS = len(CFConvParams._fields)

@@ -1,6 +1,14 @@
-"""The port's serving slice against the JAX package: aspirin MD17 E + F,
-colored, through ``tasks/md17.make_energy_force_fn`` -> ``SAKEModel`` ->
-``kernels/dispatch`` (plain K1/K2 stacks on the CPU) vs the JAX linen path."""
+"""The port's MD17 task against the JAX package: the serving slice (aspirin
+E + F, colored, through ``tasks/md17.make_energy_force_fn`` -> ``SAKEModel``
+-> ``kernels/dispatch``, plain K1/K2 stacks on the CPU, vs the JAX linen
+path) and force-loss training (one step of each branch against the JAX
+``make_step_fn`` on its plain branch, and ``run`` end to end).
+
+Tolerances: serving ``rtol=2e-4, atol=2e-5``; a training step's loss
+``rtol=1e-4`` and its updated parameters ``rtol=1e-5, atol=1e-6`` (one adam
+step at lr 1e-3 moves each weight by about lr, whose sign is the
+gradient's, so the gradients' f32 differences appear at 1e-3 of lr).
+"""
 
 import jax
 import jax.numpy as jnp
@@ -13,16 +21,28 @@ from sake_tpu.data.md17 import synthesize_md17 as jax_synthesize
 from sake_tpu.tasks.md17 import MD17Config as JaxMD17Config
 from sake_tpu.tasks.md17 import make_energy_force_fn as jax_make_ef
 from sake_tpu.tasks.md17 import make_model as jax_make_model
+from sake_tpu.tasks.md17 import make_step_fn as jax_make_step_fn
+from sake_tpu.train import TrainState as JaxTrainState
+from sake_tpu.train import make_optimizer as jax_make_optimizer
 from sake_tpu_torch.data.md17 import ASPIRIN_Z, MD17_Z, load_md17, synthesize_md17
-from sake_tpu_torch.kernels.adapter import load_linen_params
+from sake_tpu_torch.kernels.adapter import (
+    linen_tree,
+    load_linen_params,
+    model_params_from_linen,
+)
+from sake_tpu_torch.kernels.functional import flat_params
+from sake_tpu_torch.tasks import md17 as task
 from sake_tpu_torch.tasks.md17 import (
     MD17Config,
     make_energy_force_fn,
     make_model,
     species_onehot,
 )
+from sake_tpu_torch.train import TrainState, make_optimizer, tree_leaves
 
 TOL = dict(rtol=2e-4, atol=2e-5)
+STEP_LOSS_RTOL = 1e-4
+STEP_PARAM_TOL = dict(rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("molecule", ["aspirin", "uracil"])
@@ -86,3 +106,81 @@ def test_entry_points_default_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         make_model(MD17Config(hidden_features=8, depth=1), 4)
+
+
+@pytest.mark.parametrize("use_kernel_ef", [False, True])
+def test_train_step_matches_jax_plain_branch(use_kernel_ef):
+    """One training step from the same linen init and batch: the port's
+    plain branch (double autograd through the functional model) or its
+    kernel branch (``make_ef_train2`` in shared mode, plain stacks on the
+    CPU) against the JAX plain branch's ``make_step_fn``: the loss, and every
+    parameter after the adam update."""
+    data = jax_synthesize(n_samples=12, seed=4)
+    # an odd batch: the readout bias's gradient is a sum of E-MAE signs, which
+    # cancels exactly at an even count and leaves f32 noise for adam to scale
+    x, e, f = data.x[:5], data.e[:5], data.f[:5]
+    e_mean, e_std = float(data.e.mean()), float(data.e.std())
+    species_j = jax.nn.one_hot(data.z, data.z.max())
+    model_j = jax_make_model(JaxMD17Config(hidden_features=16, depth=2))
+    params = model_j.init(jax.random.PRNGKey(3),
+                          jnp.broadcast_to(species_j, (x.shape[1], species_j.shape[-1])),
+                          jnp.asarray(x[0]))
+    step_j = jax_make_step_fn(jax_make_ef(model_j, species_j, e_mean, e_std), 1e-3)
+    state_j = JaxTrainState.create(apply_fn=model_j.apply, params=params,
+                                   tx=jax_make_optimizer(1e-3))
+    batch_j = {"x": jnp.asarray(x), "e": jnp.asarray(e), "f": jnp.asarray(f)}
+    state_j, loss_j = step_j(state_j, batch_j)
+    want = jax.tree.map(np.asarray, state_j.params)
+
+    cfg = MD17Config(hidden_features=16, depth=2, use_kernel_ef=use_kernel_ef,
+                     aug_mode="shared")
+    species = species_onehot(data.z, int(data.z.max()))
+    model = make_model(cfg, species.shape[-1], device="cpu")
+    load_linen_params(model, jax.tree.map(np.asarray, params))
+    prm, ef_fn, _ = task.make_branch(cfg, model, species, e_mean, e_std)
+    state = TrainState.create(params=prm, tx=make_optimizer(1e-3))
+    state, loss = task.make_step_fn(ef_fn, 1e-3)(state, {k: torch.as_tensor(v) for k, v in
+                                                         dict(x=x, e=e, f=f).items()})
+    np.testing.assert_allclose(float(loss), float(loss_j), rtol=STEP_LOSS_RTOL)
+    if use_kernel_ef:
+        got, ref = flat_params(state.params), flat_params(model_params_from_linen(want))
+    else:
+        tree = linen_tree(model)
+        got = tree_leaves(tree)
+        ref = tree_leaves(jax.tree.map(torch.as_tensor, _pick(want["params"], tree)))
+    assert len(got) == len(ref)
+    for i, (a, b) in enumerate(zip(got, ref)):
+        np.testing.assert_allclose(a.detach().numpy(), b.numpy(), err_msg=f"leaf {i}",
+                                   **STEP_PARAM_TOL)
+
+
+def _pick(tree, like):
+    """The entries of ``tree`` at the keys of ``like``, nested."""
+    return {k: _pick(tree[k], v) if isinstance(v, dict) else tree[k] for k, v in like.items()}
+
+
+@pytest.mark.parametrize("use_kernel_ef", [False, True])
+def test_run_trains_and_reports_kcal_mae(use_kernel_ef):
+    """``run`` end to end at a tiny size: the loss stays finite and the E and
+    F bootstrap MAE come back in kcal/mol."""
+    cfg = MD17Config(hidden_features=8, depth=1, n_heads=2, n_train=8, n_valid=4, n_epochs=2,
+                     epochs_per_block=1, use_kernel_ef=use_kernel_ef, aug_mode="shared")
+    logs = []
+
+    class Log:
+        def log(self, step, **m):
+            logs.append((step, m))
+
+    state, res = task.run(cfg, Log(), device="cpu")
+    assert state.step == 4 and [s for s, _ in logs] == [2, 4, 4]
+    assert all(np.isfinite(m["train_loss"]) for _, m in logs[:2])
+    for k in ("e_mae_kcalmol", "f_mae_kcalmol"):
+        assert np.isfinite(res[k]) and res[k] > 0
+        assert res[k.replace("kcalmol", "ci")][0] <= res[k.replace("kcalmol", "ci")][1]
+
+
+@pytest.mark.parametrize("kw", [dict(use_kernel_ef=True),  # the default aug_mode, "fused"
+                                dict(checkpoint_dir="ckpt")])
+def test_run_rejects_unported_options(kw):
+    with pytest.raises(NotImplementedError):
+        task.run(MD17Config(hidden_features=8, depth=1, **kw), device="cpu")
