@@ -11,17 +11,22 @@ Phases (each prints its own lines; any failure exits non-zero):
    and spill lines.
 3. kernels vs plain, MD17: at full width (hidden 64, C 256, R 50, 4 heads),
    aspirin's N = 21 and B = 37, K1 against ``resid_fwd_plain`` (boundary
-   states and all 17 residuals) and K2 against ``resid_bwd_plain`` (dh, dx,
-   dv), unmasked and with random edge masks; max relative error =
+   states and all 17 residuals), K2 against ``resid_bwd_plain`` (dh, dx,
+   dv) and one_ef (#3, ``csrc/fused_ef.cu``) against ``one_ef_plain`` (E, dx),
+   unmasked and with random edge masks; max relative error =
    max|kernel - plain| / max|plain| per tensor, limit 1e-4.
 4. MD17 slice: ``SAKEModel(64, depth=6, n_heads=4)`` from a seeded init
    serves aspirin E + F requests of B in {1, 37, 512, 2048} through
-   ``tasks/md17.make_energy_force_fn`` -> dispatch -> K1 + K2, checked
-   against the plain f32 autograd path (chunks of 256):
-   ``f_err = max|dF| / max|F|`` <= 1e-4 and ``e_err = max|dE| / max|E|``
-   on raw (uncolored) energies <= 1e-5. The launch counters must move. Then
-   both paths are timed at B = 2048 in chunks of 512 with CUDA events, in
-   turns, and the kernel path's time is split into K1 + K2 and the rest.
+   ``tasks/md17.make_energy_force_fn`` -> dispatch (K1 + K2 below
+   ``ONE_EF_MIN_BATCH``, #3 from it), checked against the plain f32 autograd
+   path (chunks of 256): ``f_err = max|dF| / max|F|`` <= 1e-4 and ``e_err =
+   max|dE| / max|E|`` on raw (uncolored) energies <= 1e-5. The launch
+   counters of the routed kernels must move. Then both paths are timed at B =
+   2048 in chunks of 512 with CUDA events, in turns, and the kernel path's
+   time is split into K1 + K2 and the rest. Then #3 against K1 + K2 at B in
+   {2048, 4096, 8192}, in turns, and the dispatch threshold that implies;
+   then #3's own path, a request of 2048 molecules through
+   ``one_ef.one_energy_forces``, counted and held to the same limits.
 5. kernels vs plain, QM9: a ``synthesize_qm9`` training batch at the
    ``qm9_kernel`` widths (B = 64, N = 29, hidden 64, depth 6) with its real
    masks: the masked K1 (boundaries and all 17 residuals), the forward
@@ -48,21 +53,26 @@ Phases (each prints its own lines; any failure exits non-zero):
    terms, rows and row tangents), the primal chain with the Hessian terms
    (cotangents and rows), the augmented contraction and the whole
    augmented pullback (#10: dh0, dx, dth and each of the 29 leaves of each
-   layer), limit 1e-4 relative per tensor.
-9. MD17 step parity: ``tasks/md17`` kernel branch (``make_ef_train2``,
-   ``aug_mode="shared"``) against the plain branch (double autograd through
-   the functional model) from one seeded init at B = 4: E and F of the
+   layer); the fused primal (#11: E plane, dx, boundaries, residuals; and its
+   E plane against the torch readout the loss reads) and the fused backward
+   (#12: dh0, dx0, the four readout and every leaf gradient) against their
+   plain versions and #12 against the shared backward on one FwdOut; limit
+   1e-4 relative per tensor.
+9. MD17 step parity: ``tasks/md17`` kernel branch (``make_ef_train2``) in
+   fused and in shared mode against the plain branch (double autograd through
+   the functional model) from one seeded init at B = 4: E and F of each
    kernel primal against the functional path (as phase 4's limits), step
    1's loss and every gradient (1e-4 relative per leaf), the first 5
    losses (1e-3 relative).
-10. MD17 slice: ``tasks/md17.run`` on the kernel branch, ``MD17Config()``
-   defaults but ``aug_mode="shared"``, n_valid 200 and 2 epochs of 250
-   steps (cut from 1000 and 100): every kernel of the path must
-   launch, the loss must stay finite and fall, and the E and F MAE (kcal/mol)
-   are printed. Then the train step of both branches at B = 4 and B = 512
-   in turns (every run printed), a BREAKDOWN of the kernel branch's step,
-   and each kernel timed at both batches beside its plain version and its
-   bound.
+10. MD17 slices: ``registry.get_workload("md17_kernel")`` (``MD17Config(
+   use_kernel_ef=True)``, fused mode) with n_valid 200 and 2 epochs of 250
+   steps (cut from 1000 and 100), then shared mode for 1 epoch: each run
+   must launch every kernel of its mode and none of the other's, the loss
+   must stay finite and fall, and the E and F MAE (kcal/mol) are printed.
+   Then the train step of the plain, shared and fused branches at B = 4 and
+   B = 512 in turns (every run printed), a BREAKDOWN of each kernel branch's
+   step, and each kernel timed at both batches beside its plain version and
+   its bound.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -84,6 +94,7 @@ QM9_TOL = 1e-4  # kernels and step-1 gradients, relative per tensor
 LOSS_TOL = 1e-3  # the first steps' losses, relative
 FULL = dict(hidden=64, depth=6, heads=4)
 REQUESTS = (1, 37, 512, 2048)
+ONE_EF_BATCHES = (2048, 4096, 8192)  # #3 against K1 + K2; the dispatch's candidates
 SEED = 0
 CHECK_CHUNK = 256  # molecules per autograd pass of the plain reference in the checks
 PATH_CHUNK = 512  # resid_energy_forces' chunk; the plain path is timed at it too
@@ -94,6 +105,7 @@ TRAIN_CHECK_B = 300  # three waves of one block per SM on 132 SMs
 TRAIN_BATCHES = (4, 512)  # MD17Config's batch, and bench_md17_train.py's
 # the slice's cut: MD17Config() validates on 1000 molecules and trains 100 epochs
 MD17_RUN = dict(n_valid=200, n_epochs=2, epochs_per_block=1)
+MD17_SHARED_RUN = dict(n_valid=200, n_epochs=1, epochs_per_block=1)  # shared mode: 250 steps
 # H100 SXM peaks (NVIDIA's data sheet): f32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 
@@ -188,7 +200,7 @@ def main() -> int:
     # the port itself: without it beside this script, fail before printing anything
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from sake_tpu_torch.data.md17 import synthesize_md17
-    from sake_tpu_torch.kernels import build, resid_ef
+    from sake_tpu_torch.kernels import build, dispatch, one_ef, resid_ef
     from sake_tpu_torch.kernels.functional import embed, energy_and_forces_fn
     from sake_tpu_torch.kernels.leaves import transposed, wide_stack
     from sake_tpu_torch.tasks.md17 import (
@@ -241,7 +253,8 @@ def main() -> int:
     nm37 = (np.arange(N)[None] < rng.randint(3, N + 1, size=Bk)[:, None]).astype(np.float32)
     nm37[0] = 0.0  # one fully padded molecule
     masks = {"unmasked": None, "masked": tdev((nm37[:, :, None] * nm37[:, None, :])[..., None])}
-    abs_md17 = {"resid_fwd": 0.0, "resid_bwd": 0.0}
+    abs_md17 = {"resid_fwd": 0.0, "resid_bwd": 0.0, "one_ef": 0.0}
+    leaves_t = transposed(leaves)
     for label, m4 in masks.items():
         with torch.no_grad():
             k1 = resid_ef.resid_fwd(leaves, h37, x37, v37, upd, mask=m4)
@@ -265,6 +278,18 @@ def main() -> int:
               + json.dumps({k: float(f"{v:.3e}") for k, v in k2_err.items()}), flush=True)
         if not (k1_err[worst1] <= K1_TOL and k2_err[worst2] <= K2_TOL):
             fail(f"{label} kernel vs plain beyond {K1_TOL}")
+        # #3 from (h37, x37, v = 0): the energy (node-masked readout) and dx
+        m3 = m4[..., 0].contiguous() if m4 is not None else None
+        with torch.no_grad():
+            k3 = one_ef._launch_one_ef(params, leaves, h37, x37, upd, m3, leaves_t)
+            p3 = one_ef.one_ef_plain(params, leaves, h37, x37, upd, m3)
+            torch.cuda.synchronize()
+        k3_err = {n: rel_err(a, b) for n, a, b in zip(("e", "dx"), k3, p3)}
+        abs_md17["one_ef"] = max(abs_md17["one_ef"], *(abs_err(a, b) for a, b in zip(k3, p3)))
+        print(f"#3 one_ef vs plain {label} (B={Bk}, N={N}, depth 6): "
+              + json.dumps({k: float(f"{v:.3e}") for k, v in k3_err.items()}), flush=True)
+        if max(k3_err.values()) > K1_TOL or not all(bool(torch.isfinite(a).all()) for a in k3):
+            fail(f"{label} one_ef vs plain beyond {K1_TOL}")
 
     # -- 4. the MD17 slice: serve aspirin E + F through K1 + K2 -----------------
     serve = make_energy_force_fn(model, species, e_mean, e_std)
@@ -280,14 +305,17 @@ def main() -> int:
         return torch.cat(es), torch.cat(fs)
 
     xs_all = torch.as_tensor(data.x, device=dev)
-    resid_ef.resid_fwd.launches = 0
-    resid_ef.resid_bwd.launches = 0
+    serving = (resid_ef.resid_fwd, resid_ef.resid_bwd, one_ef.one_energy_forces)
+    for c in serving:
+        c.launches = 0
     answers = {B: serve(xs_all[:B]) for B in REQUESTS}
     torch.cuda.synchronize()
-    md17_launches = {"resid_fwd": resid_ef.resid_fwd.launches,
-                     "resid_bwd": resid_ef.resid_bwd.launches}
-    print(f"SLICE launches {json.dumps(md17_launches)}", flush=True)
-    if min(md17_launches.values()) == 0:
+    md17_launches = {c.__name__: c.launches for c in serving}
+    print(f"SLICE launches {json.dumps(md17_launches)} (dispatch: one_ef from B >= "
+          f"{dispatch.ONE_EF_MIN_BATCH})", flush=True)
+    routed = [n for n, c in zip(md17_launches, serving)
+              if dispatch.ONE_EF_MIN_BATCH is not None or c is not one_ef.one_energy_forces]
+    if min(md17_launches[n] for n in routed) == 0:
         fail("the MD17 path did not launch every kernel")
     worst = {"f_err": 0.0, "e_err": 0.0}
     for B, (e, f) in answers.items():
@@ -350,6 +378,56 @@ def main() -> int:
           f"embed {t_embed:.3f} ms, readout seed {n_chunks}x{t_seed:.3f} ms", flush=True)
     print("SLICE " + json.dumps({"evals_per_s_kernel": 2048e3 / ms_kernel,
                                  "evals_per_s_plain": 2048e3 / ms_plain, **worst}), flush=True)
+
+    # #3 against K1 + K2 (chunks of 512) in turns, and the dispatch threshold
+    # it implies: the smallest measured batch where #3 is within 5% of K1 + K2
+    # (the JAX threshold 2048 first), or none
+    h_all = species.to(dev).expand(max(ONE_EF_BATCHES), N, -1)
+    x_big = torch.as_tensor(np.concatenate([data.x] * -(-max(ONE_EF_BATCHES) // len(data.x))),
+                            device=dev)
+    t_one, t_pair = {}, {}
+    with torch.no_grad():
+        for Bo in ONE_EF_BATCHES:
+            hb_, xb_ = h_all[:Bo], x_big[:Bo]
+            runs = {"one_ef": [], "resid": []}
+            for side in ("resid", "one_ef", "one_ef", "resid"):
+                fn = one_ef.one_energy_forces if side == "one_ef" else resid_ef.resid_energy_forces
+                runs[side].append(cuda_ms(lambda: fn(params, hb_, xb_, n_heads=cfg.n_heads),
+                                          reps=2))
+            t_one[Bo], t_pair[Bo] = (sum(runs[k]) / 2 for k in ("one_ef", "resid"))
+            print(f"TIMING #3 one_ef vs K1 + K2 at B={Bo}: {t_one[Bo]:.2f} ms "
+                  f"({Bo * 1e3 / t_one[Bo]:.1f} evals/s) vs {t_pair[Bo]:.2f} ms "
+                  f"({Bo * 1e3 / t_pair[Bo]:.1f} evals/s), ratio {t_one[Bo] / t_pair[Bo]:.4f} "
+                  f"(runs {json.dumps(runs)}; {smi})", flush=True)
+    wins = [Bo for Bo in ONE_EF_BATCHES if t_one[Bo] <= 1.05 * t_pair[Bo]]
+    print(f"DISPATCH measured threshold {wins[0] if wins else None}; configured "
+          f"{dispatch.ONE_EF_MIN_BATCH}", flush=True)
+    B3 = ONE_EF_BATCHES[0]  # the JAX threshold; the kernel entry's batch
+    # #3's own path, whatever the dispatch does: a request of B3 molecules
+    # through one_ef.one_energy_forces (the JAX large-batch entry point)
+    one_ef.one_energy_forces.launches = 0
+    with torch.no_grad():
+        e3, f3 = one_ef.one_energy_forces(params, h_all[:B3], x_big[:B3], n_heads=cfg.n_heads)
+        torch.cuda.synchronize()
+    md17_launches["one_energy_forces"] = one_ef.one_energy_forces.launches
+    e_ref3, f_ref3 = plain_ef(x_big[:B3])
+    one_err = {"f_err": rel_err(f3, f_ref3), "e_err": rel_err(e3, e_ref3)}
+    print(f"ONE_EF path B={B3}: launches {md17_launches['one_energy_forces']}, "
+          + json.dumps({k: float(f"{v:.3e}") for k, v in one_err.items()}), flush=True)
+    if (md17_launches["one_energy_forces"] == 0 or one_err["f_err"] > F_TOL
+            or one_err["e_err"] > E_TOL):
+        fail("the one_ef path did not launch #3 or is beyond its limits")
+    del e3, f3, e_ref3, f_ref3
+    with torch.no_grad():
+        h3, x3 = embed(params, h_all[:B3]).contiguous(), x_big[:B3].permute(2, 0, 1).contiguous()
+        t_p3 = cuda_ms(lambda: one_ef.one_ef_plain(params, leaves, h3, x3, u6), reps=1)
+    fma_one = sum(v for k, v in layer_fma(N, FULL["hidden"], FULL["hidden"], 50, FULL["heads"],
+                                          256).items() if k in ("fwd", "bwd")) * B3 * cfg.depth
+    one_entry = kernel_entry("one_ef", "sake_tpu_torch/csrc/fused_ef.cu",
+                             "sake_tpu/kernels/one_ef.py:177",
+                             md17_launches["one_energy_forces"], abs_md17["one_ef"], t_one[B3],
+                             t_p3, fma_one, nbytes(leaves, leaves_t, h3, x3) + B3 * 4 * (1 + 3 * N))
+    del h3, x3, h_all, x_big
     dims21 = (N, FULL["hidden"], FULL["hidden"], 50, FULL["heads"], 256)
     fma21 = {k: v * PATH_CHUNK * cfg.depth for k, v in layer_fma(*dims21).items()}
     kernels = [
@@ -362,6 +440,7 @@ def main() -> int:
                      abs_md17["resid_bwd"], t_k2, t_p2, fma21["bwd"],
                      nbytes(leaves, leaves_t, fwd.bh, fwd.bx, fwd.bv, fwd.resid, dh, zc, zc,
                             dh, zc, zc)),
+        one_entry,
     ]
     del fwd, answers
 
@@ -620,9 +699,10 @@ def md17_train_phases(dev, smi) -> list:
     from sake_tpu_torch.kernels import resid_ef
     from sake_tpu_torch.kernels import train2_ef as t2
     from sake_tpu_torch.kernels.adapter import model_params_from_linen
-    from sake_tpu_torch.kernels.functional import embed, flat_params
+    from sake_tpu_torch.kernels.functional import embed, flat_params, readout
     from sake_tpu_torch.kernels.leaves import LEAF_NAMES, transposed, wide_stack
     from sake_tpu_torch.tasks import md17 as task
+    from sake_tpu_torch.tasks.registry import get_workload
     from sake_tpu_torch.train import (
         TrainState,
         make_optimizer,
@@ -643,8 +723,8 @@ def md17_train_phases(dev, smi) -> list:
     tdev = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
     train = {"x": tdev(data.x), "e": tdev(data.e), "f": tdev(data.f)}
 
-    def branch(use_kernel_ef: bool):
-        c = dataclasses.replace(cfg, use_kernel_ef=use_kernel_ef)
+    def branch(use_kernel_ef: bool, aug_mode: str = "shared"):
+        c = dataclasses.replace(cfg, use_kernel_ef=use_kernel_ef, aug_mode=aug_mode)
         model = task.make_model(c, species.shape[-1], device=dev,
                                 generator=torch.Generator().manual_seed(c.seed))
         prm, ef_fn, _ = task.make_branch(c, model, species, e_mean, e_std)
@@ -720,12 +800,59 @@ def md17_train_phases(dev, smi) -> list:
               + json.dumps({k: float(f"{v:.2e}") for k, v in errs.items()}), flush=True)
         if errs[w] > TRAIN_TOL or not finite:
             fail(f"MD17 training kernel {name} beyond {TRAIN_TOL}")
-    del checks, ka, pa, p7, p8, p9
+    del checks, ka, pa, p8, p9
+
+    # #11 and #12 against their plain versions, and #12 against the shared
+    # backward (#9, head, #10) on one FwdOut
+    with torch.no_grad():
+        g_e = rnd(Bc)
+        k11 = t2.fused_primal(kp, leaves, h0, xs, upd, leaves_t=leaves_t)
+        p11 = t2.fused_primal_plain(kp, leaves, h0, xs, upd)
+        torch.cuda.synchronize()
+        checks = {"fused_primal": [*zip(fwd_names, k11[0][:6], p11[0][:6]),
+                                   *((n, k11[0].resid[n], p11[0].resid[n])
+                                     for n in resid_ef.RESIDS),
+                                   ("e", k11[1], p11[1]), ("dx", k11[2], p11[2])]}
+        # the kernel's E plane against the torch readout the loss reads
+        e_torch = readout(kp, p11[0].h_fin).sum(dim=(-2, -1))
+        checks["fused_primal_e_vs_torch_readout"] = [("e", k11[1], e_torch)]
+        del k11
+        k12 = t2.fused_bwd(kp, leaves, p7, upd, tx0, g_e, leaves_t=leaves_t)
+        torch.cuda.synchronize()
+        names12 = ("dh0", "dx0", "d_w_out0", "d_b_out0", "d_w_out1", "d_b_out1")
+        flat12 = lambda r: [r[0], r[1], *r[2]]
+        grads12 = lambda r: [(f"{n}[{l}]", r[3][n][l]) for n in LEAF_NAMES for l in range(depth)]
+        p12 = t2.fused_bwd_plain(kp, leaves, p7, upd, tx0, g_e)
+        checks["fused_bwd"] = [*zip(names12, flat12(k12), flat12(p12)),
+                               *((n, a, b) for (n, a), (_, b) in zip(grads12(k12), grads12(p12)))]
+        del p12
+        tf = t2.resid_jvp(leaves, p7, upd, tx0)
+        ro, dh_s, dth_s = t2.head_grads(kp, p7.h_fin, tf.h_fin, g_e)
+        sh = t2.resid_aug_bwd(leaves, p7, tf, upd, dh_s, dth_s, leaves_t=leaves_t)
+        sh = (sh[0], sh[1], ro, sh[3])
+        torch.cuda.synchronize()
+        checks["fused_bwd_vs_shared_bwd"] = [
+            *zip(names12, flat12(k12), flat12(sh)),
+            *((n, a, b) for (n, a), (_, b) in zip(grads12(k12), grads12(sh)))]
+        del tf, sh, k12
+    for name, pairs in checks.items():
+        errs = {n: rel_err(a, b) for n, a, b in pairs}
+        abs_train[name] = max(abs_err(a, b) for _, a, b in pairs)
+        w = max(errs, key=errs.get)
+        finite = all(bool(torch.isfinite(a).all()) for _, a, _ in pairs)
+        print(f"MD17 TRAIN {name} (B={Bc}, N={N}, depth {depth}): max rel err {errs[w]:.3e} "
+              f"({w}), max abs err {abs_train[name]:.3e}, finite {finite} "
+              + json.dumps({k: float(f"{v:.2e}") for k, v in errs.items()}), flush=True)
+        if errs[w] > TRAIN_TOL or not finite:
+            fail(f"MD17 training kernel {name} beyond {TRAIN_TOL}")
+    del checks, p7, p11
 
     # -- 9. step parity: kernel branch against the plain branch -----------------
     batches = shuffle_batches(np.random.RandomState(0), {k: v[:n_tr] for k, v in train.items()},
                               cfg.batch_size)
-    branches = {"kernel": branch(True), "plain": branch(False)}
+    branches = {"fused": branch(True, "fused"), "shared": branch(True, "shared"),
+                "plain": branch(False)}
+    kernel_sides = ("fused", "shared")
 
     def loss_and_grads(br, batch):  # the loss of tasks/md17.make_step_fn
         leaves_ = tree_leaves(br["params"])
@@ -737,16 +864,6 @@ def md17_train_phases(dev, smi) -> list:
         return loss.detach(), [torch.zeros_like(p) if g is None else g
                                for p, g in zip(leaves_, grads)]
 
-    with torch.no_grad():
-        e_k, f_k = branches["kernel"]["ef"](branches["kernel"]["params"], batches[0]["x"])
-        e_p, f_p = branches["plain"]["ef"](None, batches[0]["x"])
-    ef_err = {"f_err": rel_err(f_k, f_p), "e_err": rel_err((e_k - e_mean) / e_std,
-                                                           (e_p - e_mean) / e_std)}
-    print(f"MD17 TRAIN primal (#7 + #8) E and F vs the functional path at B={cfg.batch_size}: "
-          + json.dumps({k: float(f"{v:.3e}") for k, v in ef_err.items()}), flush=True)
-    if not (ef_err["f_err"] <= F_TOL and ef_err["e_err"] <= E_TOL):
-        fail(f"MD17 training primal beyond f_err {F_TOL} / e_err {E_TOL}")
-    lk, gk = loss_and_grads(branches["kernel"], batches[0])
     lp, gp_ = loss_and_grads(branches["plain"], batches[0])
     tree = {}  # the plain branch's gradients by linen name
     for name, g in zip(sorted(branches["plain"]["params"]), gp_):  # tree_leaves order
@@ -756,66 +873,100 @@ def md17_train_phases(dev, smi) -> list:
             node = node.setdefault(part, {})
         node[leaf] = g
     want = flat_params(model_params_from_linen(tree, dev))
-    grad_err = [rel_err(a, b) for a, b in zip(gk, want)]
-    loss_err = abs(float(lk - lp)) / abs(float(lp))
-    print(f"MD17 STEP 1 kernel vs plain branch: loss {float(lk):.7f} vs {float(lp):.7f} "
-          f"(rel {loss_err:.2e}); gradients of {len(gk)} leaves, max rel err "
-          f"{max(grad_err):.3e} (leaf {int(np.argmax(grad_err))})", flush=True)
-    if loss_err > TRAIN_TOL or max(grad_err) > TRAIN_TOL or len(gk) != len(want):
-        fail(f"MD17 step 1 beyond {TRAIN_TOL}")
+    with torch.no_grad():
+        e_p, f_p = branches["plain"]["ef"](None, batches[0]["x"])
+    for side, primal in (("fused", "#11"), ("shared", "#7 + #8")):
+        br = branches[side]
+        with torch.no_grad():
+            e_k, f_k = br["ef"](br["params"], batches[0]["x"])
+        ef_err = {"f_err": rel_err(f_k, f_p), "e_err": rel_err((e_k - e_mean) / e_std,
+                                                               (e_p - e_mean) / e_std)}
+        print(f"MD17 TRAIN primal ({primal}) E and F vs the functional path at "
+              f"B={cfg.batch_size}: " + json.dumps({k: float(f"{v:.3e}") for k, v in
+                                                     ef_err.items()}), flush=True)
+        if not (ef_err["f_err"] <= F_TOL and ef_err["e_err"] <= E_TOL):
+            fail(f"MD17 training primal ({side}) beyond f_err {F_TOL} / e_err {E_TOL}")
+        lk, gk = loss_and_grads(br, batches[0])
+        grad_err = [rel_err(a, b) for a, b in zip(gk, want)]
+        loss_err = abs(float(lk - lp)) / abs(float(lp))
+        print(f"MD17 STEP 1 {side} kernel branch vs plain branch: loss {float(lk):.7f} vs "
+              f"{float(lp):.7f} (rel {loss_err:.2e}); gradients of {len(gk)} leaves, max rel "
+              f"err {max(grad_err):.3e} (leaf {int(np.argmax(grad_err))})", flush=True)
+        if loss_err > TRAIN_TOL or max(grad_err) > TRAIN_TOL or len(gk) != len(want):
+            fail(f"MD17 step 1 ({side}) beyond {TRAIN_TOL}")
     traj = {}
     for name, br in branches.items():
         traj[name] = []
         for b_ in batches[:PARITY_STEPS]:
             br["state"], loss = br["step"](br["state"], b_)
             traj[name].append(float(loss))
-    traj_err = max(abs(a - b) / abs(b) for a, b in zip(traj["kernel"], traj["plain"]))
-    print(f"MD17 STEPS 1-{PARITY_STEPS} losses kernel {json.dumps(traj['kernel'])} plain "
-          f"{json.dumps(traj['plain'])}: max rel diff {traj_err:.2e}", flush=True)
-    if traj_err > LOSS_TOL:
-        fail(f"MD17 step losses differ beyond {LOSS_TOL}")
+    for side in kernel_sides:
+        traj_err = max(abs(a - b) / abs(b) for a, b in zip(traj[side], traj["plain"]))
+        print(f"MD17 STEPS 1-{PARITY_STEPS} losses {side} {json.dumps(traj[side])} plain "
+              f"{json.dumps(traj['plain'])}: max rel diff {traj_err:.2e}", flush=True)
+        if traj_err > LOSS_TOL:
+            fail(f"MD17 step losses ({side}) differ beyond {LOSS_TOL}")
 
-    # -- 10. the slice through tasks/md17.run, then timing ----------------------
-    counters = (t2.shared_fwd, t2.shared_bwd, t2.resid_jvp, t2.resid_tbwd, t2.resid_bwd_aug,
-                t2.param_grads_aug)
-    step_losses = []
+    # -- 10. the slices: md17_kernel (fused mode) from the registry, then
+    # shared mode; then timing -------------------------------------------------
+    fused_counters = (t2.fused_primal, t2.fused_bwd_block, t2.fused_bwd_grads)
+    shared_counters = (t2.shared_fwd, t2.shared_bwd, t2.resid_jvp, t2.resid_tbwd,
+                       t2.resid_bwd_aug, t2.param_grads_aug)
 
-    def recording_epoch(step_fn, state, batches_):
-        state, losses = run_epoch(step_fn, state, batches_)
-        step_losses.append(losses)
-        return state, losses
+    def slice_run(label, run, c, counters):
+        """Train ``c`` through ``run``; every counter of ``counters`` must
+        move and every other training counter stay at 0."""
+        step_losses = []
 
-    task.run_epoch = recording_epoch  # keeps every step's loss of the run
-    for c in counters:
-        c.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    _, results = task.run(cfg, MetricLogger(stream=sys.stdout), device=dev)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    task.run_epoch = run_epoch
-    launches = {c.__name__: c.launches for c in counters}
-    losses = torch.cat(step_losses).cpu()
-    print(f"MD17 SLICE launches {json.dumps(launches)}; {len(losses)} steps in {wall:.2f} s with "
-          f"the evaluation; loss first {float(losses[0]):.6f} last {float(losses[-1]):.6f} "
-          f"(means of the first and last 20 steps {float(losses[:20].mean()):.6f} "
-          f"{float(losses[-20:].mean()):.6f}); E MAE {results['e_mae_kcalmol']:.4f} kcal/mol "
-          f"(CI {[float(v) for v in results['e_mae_ci']]}), F MAE "
-          f"{results['f_mae_kcalmol']:.4f} kcal/mol (CI {[float(v) for v in results['f_mae_ci']]})",
-          flush=True)
-    if min(launches.values()) == 0:
-        fail("the MD17 training path did not launch every kernel")
-    if not (torch.isfinite(losses).all() and losses[-20:].mean() < losses[:20].mean()):
-        fail("the MD17 training loss is not finite or did not fall")
-    if not all(np.isfinite(results[k]) for k in ("e_mae_kcalmol", "f_mae_kcalmol")):
-        fail("non-finite MD17 evaluation")
+        def recording_epoch(step_fn, state, batches_):
+            state, losses = run_epoch(step_fn, state, batches_)
+            step_losses.append(losses)
+            return state, losses
+
+        task.run_epoch = recording_epoch  # keeps every step's loss of the run
+        for k in (*fused_counters, *shared_counters):
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, results = run(c, MetricLogger(stream=sys.stdout), device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        task.run_epoch = run_epoch
+        launches = {k.__name__: k.launches for k in (*fused_counters, *shared_counters)}
+        losses = torch.cat(step_losses).cpu()
+        print(f"MD17 SLICE {label}: launches {json.dumps(launches)}; {len(losses)} steps in "
+              f"{wall:.2f} s with the evaluation; loss first {float(losses[0]):.6f} last "
+              f"{float(losses[-1]):.6f} (means of the first and last 20 steps "
+              f"{float(losses[:20].mean()):.6f} {float(losses[-20:].mean()):.6f}); E MAE "
+              f"{results['e_mae_kcalmol']:.4f} kcal/mol (CI "
+              f"{[float(v) for v in results['e_mae_ci']]}), F MAE "
+              f"{results['f_mae_kcalmol']:.4f} kcal/mol (CI "
+              f"{[float(v) for v in results['f_mae_ci']]})", flush=True)
+        if min(k.launches for k in counters) == 0:
+            fail(f"the MD17 {label} path did not launch every kernel")
+        if any(k.launches for k in (*fused_counters, *shared_counters) if k not in counters):
+            fail(f"the MD17 {label} path launched another mode's kernels")
+        if not (torch.isfinite(losses).all() and losses[-20:].mean() < losses[:20].mean()):
+            fail(f"the MD17 {label} training loss is not finite or did not fall")
+        if not all(np.isfinite(results[k]) for k in ("e_mae_kcalmol", "f_mae_kcalmol")):
+            fail(f"non-finite MD17 {label} evaluation")
+        return launches
+
+    run_k, cfg_k = get_workload("md17_kernel", **MD17_RUN)
+    if not (cfg_k.use_kernel_ef and cfg_k.aug_mode == "fused"):
+        fail(f"md17_kernel is not the fused kernel branch: {cfg_k}")
+    launches = slice_run("md17_kernel (fused mode)", run_k, cfg_k, fused_counters)
+    launches.update({k: v for k, v in slice_run(
+        "shared mode", task.run, dataclasses.replace(cfg, **MD17_SHARED_RUN),
+        shared_counters).items() if k in {c.__name__ for c in shared_counters}})
 
     entries = {}
+    sides = ("plain", "shared", "fused", "fused", "shared", "plain")
     for B in TRAIN_BATCHES:
         batch = {k: v[:B] for k, v in train.items()}
-        runs = {"plain": [], "kernel": []}
+        runs = {"plain": [], "shared": [], "fused": []}
         steps = 5 if B < 64 else 2
-        for side in ("plain", "kernel", "kernel", "plain", "plain", "kernel"):
+        for side in sides:
             br = branches[side]
             br["step"](br["state"], batch)  # warm up this side's shapes
             torch.cuda.synchronize()
@@ -825,13 +976,16 @@ def md17_train_phases(dev, smi) -> list:
             torch.cuda.synchronize()
             runs[side].append((time.perf_counter() - t0) * 1e3 / steps)
         step_ms = {k: sum(v) / len(v) for k, v in runs.items()}
-        print(f"MD17 TIMING train step at B={B}: kernel {step_ms['kernel']:.2f} ms = "
-              f"{B * 1e3 / step_ms['kernel']:.1f} samples/s; plain {step_ms['plain']:.2f} ms = "
-              f"{B * 1e3 / step_ms['plain']:.1f} samples/s (ms per step, runs {json.dumps(runs)}; "
-              f"{smi})", flush=True)
+        print(f"MD17 TIMING train step at B={B}: "
+              + "; ".join(f"{k} {v:.2f} ms = {B * 1e3 / v:.1f} samples/s"
+                          for k, v in step_ms.items())
+              + f" (ms per step, runs {json.dumps(runs)}; {smi})", flush=True)
 
-        # the kernel branch's step in parts, and each kernel beside its plain version
-        br = branches["kernel"]
+        # each branch's step in parts, and each kernel beside its plain version
+        fma = {k: v * B * depth for k, v in layer_fma(N, F, F, 50, cfg.n_heads, 256).items()}
+        plain_reps = 3 if B < 64 else 1
+        t, ops, moved = {}, {}, {}
+        br = branches["shared"]
         prm = br["params"]
         with torch.no_grad():
             leaves = wide_stack(prm, cfg.n_heads)
@@ -839,16 +993,15 @@ def md17_train_phases(dev, smi) -> list:
             h0 = embed(prm, species.to(dev).expand(B, N, -1)).contiguous()
             xs = batch["x"].permute(2, 0, 1).contiguous()
             zs = torch.zeros_like(xs)
+            tx0, g_e = rnd(3, B, N), rnd(B)
             fwd = t2.shared_fwd(leaves, h0, xs, upd)
             _, dh_fin = resid_ef._readout_seed(prm, fwd.h_fin, None)
-            tx0 = rnd(3, B, N)
             tfwd = t2.resid_jvp(leaves, fwd, upd, tx0)
-            _, dh_s, dth_s = t2.head_grads(prm, fwd.h_fin, tfwd.h_fin, rnd(B))
+            _, dh_s, dth_s = t2.head_grads(prm, fwd.h_fin, tfwd.h_fin, g_e)
             tb = t2.resid_tbwd(leaves, fwd, tfwd, upd, dth_s, zs, zs, leaves_t=leaves_t)
             ba = t2.resid_bwd_aug(leaves, fwd, upd, dh_s, zs, zs, tb[3], leaves_t=leaves_t)
             grads = t2.param_grads_aug(leaves, fwd, tfwd, ba[3], tb[4], tb[5])
-            plain_reps = 3 if B < 64 else 1
-            t = dict(
+            t.update(
                 shared_fwd=(cuda_ms(lambda: t2.shared_fwd(leaves, h0, xs, upd)),
                             cuda_ms(lambda: resid_ef.resid_fwd_plain(leaves, h0, xs, zs, upd),
                                     reps=plain_reps)),
@@ -874,49 +1027,101 @@ def md17_train_phases(dev, smi) -> list:
                                      leaves, fwd, tfwd, ba[3], tb[4], tb[5]), reps=plain_reps)),
             )
             t_seed = cuda_ms(lambda: resid_ef._readout_seed(prm, fwd.h_fin, None))
-            t_head = cuda_ms(lambda: t2.head_grads(prm, fwd.h_fin, tfwd.h_fin, rnd(B)))
+            t_head = cuda_ms(lambda: t2.head_grads(prm, fwd.h_fin, tfwd.h_fin, g_e))
+            moved.update(
+                shared_fwd=nbytes(leaves, h0, xs, fwd),
+                shared_bwd=nbytes(leaves, leaves_t, fwd.bh, fwd.bx, fwd.bv, fwd.resid, dh_fin,
+                                  xs),
+                resid_jvp=nbytes(leaves, fwd.bh, fwd.bx, fwd.bv, fwd.resid, tx0, tfwd),
+                resid_tbwd=nbytes(leaves, leaves_t, fwd.bh, fwd.bx, fwd.bv, fwd.resid, tfwd.bh,
+                                  tfwd.bx, tfwd.bv, tfwd.resid, dth_s, tb),
+                resid_bwd_aug=nbytes(leaves, leaves_t, fwd.bh, fwd.bx, fwd.bv, fwd.resid, dh_s,
+                                     tb[3], ba),
+                param_grads_aug=nbytes(leaves, fwd.bh, tfwd.bh, fwd.resid, tfwd.resid, ba[3],
+                                       tb[4], tb[5], grads),
+            )
+            del fwd, tfwd, tb, ba, grads
         zero_grads = [torch.zeros_like(p) for p in tree_leaves(prm)]
         t_opt = cuda_ms(lambda: br["state"].apply_gradients(zero_grads))
-        primal = t["shared_fwd"][0] + t_seed + t["shared_bwd"][0]
-        parts = dict(primal=primal, tangent_forward=t["resid_jvp"][0],
+        parts = dict(primal=t["shared_fwd"][0] + t_seed + t["shared_bwd"][0],
+                     tangent_forward=t["resid_jvp"][0],
                      aug_pullback=t["resid_tbwd"][0] + t["resid_bwd_aug"][0],
                      contraction=t["param_grads_aug"][0], head=t_head, optimizer=t_opt)
-        rest = step_ms["kernel"] - sum(parts.values())
-        print(f"MD17 BREAKDOWN kernel-branch step at B={B}, {step_ms['kernel']:.3f} ms: "
+        rest = step_ms["shared"] - sum(parts.values())
+        print(f"MD17 BREAKDOWN shared-mode step at B={B}, {step_ms['shared']:.3f} ms: "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items())
+              + f", rest {rest:.3f} ms ({len(zero_grads)} parameter tensors)", flush=True)
+
+        br = branches["fused"]
+        prm = br["params"]
+        with torch.no_grad():
+            leaves = wide_stack(prm, cfg.n_heads)
+            leaves_t = transposed(leaves)
+            fwd, e_k, dx_k = t2.fused_primal(prm, leaves, h0, xs, upd, leaves_t=leaves_t)
+            blk = t2.fused_bwd_block(prm, leaves, fwd, upd, tx0, g_e, leaves_t=leaves_t)
+            grads, ro = t2.fused_bwd_grads(prm, leaves, fwd, *blk[2:])
+
+            def grads_plain():
+                t2.param_grads_aug_plain(leaves, fwd, blk[2], *blk[3:6])
+                blk[6].double().sum(dim=0)
+
+            t.update(
+                fused_primal=(cuda_ms(lambda: t2.fused_primal(prm, leaves, h0, xs, upd,
+                                                              leaves_t=leaves_t)),
+                              cuda_ms(lambda: t2.fused_primal_plain(prm, leaves, h0, xs, upd),
+                                      reps=plain_reps)),
+                fused_bwd_block=(cuda_ms(lambda: t2.fused_bwd_block(prm, leaves, fwd, upd, tx0,
+                                                                    g_e, leaves_t=leaves_t)),
+                                 cuda_ms(lambda: t2.fused_bwd_block_plain(prm, leaves, fwd, upd,
+                                                                          tx0, g_e),
+                                         reps=plain_reps)),
+                fused_bwd_grads=(cuda_ms(lambda: t2.fused_bwd_grads(prm, leaves, fwd, *blk[2:])),
+                                 cuda_ms(grads_plain, reps=plain_reps)),
+            )
+            t_e = cuda_ms(lambda: readout(prm, fwd.h_fin).sum(dim=(-2, -1)))
+            moved.update(
+                fused_primal=nbytes(leaves, leaves_t, h0, xs, fwd, e_k, dx_k),
+                fused_bwd_block=nbytes(leaves, leaves_t, fwd, tx0, g_e, blk),
+                fused_bwd_grads=nbytes(leaves, fwd.bh, blk[2].bh, fwd.resid, blk[2].resid,
+                                       blk[3:], grads, ro),
+            )
+            del fwd, blk, grads
+        zero_grads = [torch.zeros_like(p) for p in tree_leaves(prm)]
+        t_opt = cuda_ms(lambda: br["state"].apply_gradients(zero_grads))
+        parts = dict(fused_primal=t["fused_primal"][0], energy_readout=t_e,
+                     fused_bwd_block=t["fused_bwd_block"][0],
+                     contraction=t["fused_bwd_grads"][0], optimizer=t_opt)
+        rest = step_ms["fused"] - sum(parts.values())
+        print(f"MD17 BREAKDOWN fused-mode step at B={B}, {step_ms['fused']:.3f} ms: "
               + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items())
               + f", rest {rest:.3f} ms ({len(zero_grads)} parameter tensors)", flush=True)
         print(f"MD17 TIMING per kernel (ms, kernel and plain) at B={B}, N={N}, depth {depth}: "
               + json.dumps({k: [round(a, 3), round(b, 3)] for k, (a, b) in t.items()}),
               flush=True)
-        fma = {k: v * B * depth for k, v in layer_fma(N, F, F, 50, cfg.n_heads, 256).items()}
-        moved = dict(
-            shared_fwd=nbytes(leaves, h0, xs, fwd),
-            shared_bwd=nbytes(leaves, leaves_t, fwd.bh, fwd.bx, fwd.bv, fwd.resid, dh_fin, xs),
-            resid_jvp=nbytes(leaves, fwd.bh, fwd.bx, fwd.bv, fwd.resid, tx0, tfwd),
-            resid_tbwd=nbytes(leaves, leaves_t, fwd.bh, fwd.bx, fwd.bv, fwd.resid, tfwd.bh,
-                              tfwd.bx, tfwd.bv, tfwd.resid, dth_s, tb),
-            resid_bwd_aug=nbytes(leaves, leaves_t, fwd.bh, fwd.bx, fwd.bv, fwd.resid, dh_s,
-                                 tb[3], ba),
-            param_grads_aug=nbytes(leaves, fwd.bh, tfwd.bh, fwd.resid, tfwd.resid, ba[3], tb[4],
-                                   tb[5], grads),
-        )
-        ops = dict(shared_fwd=fma["fwd"], shared_bwd=fma["bwd"], resid_jvp=fma["jvp"],
+        ops.update(shared_fwd=fma["fwd"], shared_bwd=fma["bwd"], resid_jvp=fma["jvp"],
                    resid_tbwd=fma["tbwd"], resid_bwd_aug=fma["bwd"],
-                   param_grads_aug=fma["grads_aug"])
+                   param_grads_aug=fma["grads_aug"], fused_primal=fma["fwd"] + fma["bwd"],
+                   fused_bwd_block=fma["jvp"] + fma["tbwd"] + fma["bwd"],
+                   fused_bwd_grads=fma["grads_aug"])
         print(f"MD17 BOUNDS at B={B} (ms, by): " + json.dumps(
             {k: [round(bound(ops[k], moved[k])[0], 4), bound(ops[k], moved[k])[1]] for k in t}),
             flush=True)
         entries[B] = (t, ops, moved)
-        del fwd, tfwd, tb, ba, grads
+        del h0, xs, zs
 
     t, ops, moved = entries[max(TRAIN_BATCHES)]  # the entries carry B = 512
     src = "sake_tpu_torch/csrc/"
     at = "sake_tpu/kernels/train2_ef.py:"
     where = dict(shared_fwd=("resid_fwd.cu", "1030"), shared_bwd=("resid_bwd.cu", "1110"),
                  resid_jvp=("resid_jvp.cu", "1397"), resid_tbwd=("resid_tbwd.cu", "1507"),
-                 resid_bwd_aug=("resid_bwd.cu", "1507"), param_grads_aug=("param_grads.cu", "1507"))
+                 resid_bwd_aug=("resid_bwd.cu", "1507"), param_grads_aug=("param_grads.cu", "1507"),
+                 fused_primal=("fused_ef.cu", "1239"), fused_bwd_block=("fused_bwd.cu", "1750"),
+                 fused_bwd_grads=("param_grads.cu", "1750"))
+    errs = dict(abs_train, fused_bwd_block=abs_train["fused_bwd"],
+                fused_bwd_grads=abs_train["fused_bwd"])
     return [kernel_entry(name, src + where[name][0], at + where[name][1], launches[name],
-                         abs_train[name], *t[name], ops[name], moved[name]) for name in t]
+                         errs[name], *t[name], ops[name], moved[name]) for name in t]
+
 
 if __name__ == "__main__":
     sys.exit(main())

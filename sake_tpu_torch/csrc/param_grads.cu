@@ -19,7 +19,7 @@
 // adds the chunks in order. No atomics, so the result is the same from run
 // to run. Wide leaves (a and g at least 8 columns) take 64 x 64 output
 // tiles, 4 x 4 per thread, 16 rows staged in shared memory per step, summed
-// in f32; the narrow ones (the semantic weights, w_vmix, w_vel1 and every
+// in f32 over 64 rows and in double across them; the narrow ones (the semantic weights, w_vmix, w_vel1 and every
 // row sum) take 64 output rows per block (8 for the head biases), row
 // groups summed in double and then in order. The chunks' partial sums are
 // double too: the row sums cancel, and in f32 the b_sem gradient lost 1e-4
@@ -269,22 +269,31 @@ __device__ __forceinline__ size_t global_row(const Dims& d, int m0, int nm, int 
 
 // out[r, c] = sum over the chunk's rows of a[row, r] * g[row, c], for one
 // 64 x 64 tile at (r0, c0). Augmented, over twice the rows: a against g_p +
-// t_g, then t_a against g_t.
+// t_g, then t_a against g_t. The sums run in f32 over kFlush steps of kStep
+// rows and in double across them: an f32 sum over the 2 x 132,300 edge rows
+// of B = 300 aspirin molecules lost up to 9e-5 of w_o1's gradient against
+// the plain version on an H100. The doubles live in shared memory (acc: 16
+// per thread, thread-major), since 16 more double registers halved the
+// blocks per SM.
+constexpr int kFlush = 4;
 template <int LEAF, bool kAug>
 __device__ void contract_tile(const GradArgs& g, int l, int m0, int nm, int r0, int c0,
-                              int ra, int cg, double* out, float* sm) {
+                              int ra, int cg, double* out, float* sm, double* accd) {
   float* As = sm;
   float* Gs = sm + kStep * kTile;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int rows = chunk_rows<LEAF>(g.d, nm);
+  const int rows = chunk_rows<LEAF>(g.d, nm), total = (kAug ? 2 : 1) * rows;
   const Src<float> sp{&g.P}, st{&g.Tv};
   const Src<Dl> sd{&g.Tv, &g.Tt};
+#pragma unroll
+  for (int q = 0; q < 16; ++q) accd[q * kThreads + tid] = 0.0;
   float acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < (kAug ? 2 : 1) * rows; k0 += kStep) {
+  int steps = 0;
+  for (int k0 = 0; k0 < total; k0 += kStep) {
     for (int q = tid; q < kStep * kTile; q += kThreads) {
       const int kk = q / kTile, col = q % kTile, vrow = k0 + kk;
       const bool second = kAug && vrow >= rows;
@@ -318,6 +327,16 @@ __device__ void contract_tile(const GradArgs& g, int l, int m0, int nm, int r0, 
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], gw[j], acc[i][j]);
     }
+    if (++steps == kFlush || k0 + kStep >= total) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          accd[(i * 4 + j) * kThreads + tid] += (double)acc[i][j];
+          acc[i][j] = 0.f;
+        }
+      steps = 0;
+    }
     __syncthreads();
   }
 #pragma unroll
@@ -326,7 +345,7 @@ __device__ void contract_tile(const GradArgs& g, int l, int m0, int nm, int r0, 
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int c = c0 + tx * 4 + j;
-      if (r < ra && c < cg) out[(size_t)r * cg + c] = acc[i][j];
+      if (r < ra && c < cg) out[(size_t)r * cg + c] = accd[(i * 4 + j) * kThreads + tid];
     }
   }
 }
@@ -386,16 +405,18 @@ __device__ void contract_narrow(const GradArgs& g, int l, int m0, int nm, int r0
 
 template <int LEAF, bool kAug>
 __device__ void contract(const GradArgs& g, int l, int m0, int nm, int r0, int c0, int ra,
-                         int cg, double* out, double* sm) {
+                         int cg, double* out, double* sm, double* acc) {
   if constexpr (narrow_leaf(LEAF))
     contract_narrow<LEAF, kAug>(g, l, m0, nm, r0, ra, cg, out, sm);
   else
-    contract_tile<LEAF, kAug>(g, l, m0, nm, r0, c0, ra, cg, out, reinterpret_cast<float*>(sm));
+    contract_tile<LEAF, kAug>(g, l, m0, nm, r0, c0, ra, cg, out, reinterpret_cast<float*>(sm),
+                              acc);
 }
 
 template <bool kAug>
 __global__ void __launch_bounds__(kThreads) param_grads_kernel(const GradArgs g) {
   __shared__ __align__(16) double sm[kThreads * kNarrowMax];
+  __shared__ double tile_acc[kThreads * 16];  // contract_tile's double sums
   static_assert(sizeof(sm) >= 2 * kStep * kTile * sizeof(float), "both routines fit");
   int leaf = 0;
   while ((int)blockIdx.x >= g.first_block[leaf + 1]) ++leaf;
@@ -410,7 +431,7 @@ __global__ void __launch_bounds__(kThreads) param_grads_kernel(const GradArgs g)
   const int m0 = chunk * g.per_chunk, nm = min(g.d.B, m0 + g.per_chunk) - m0;
   double* out = g.partial + chunk * g.total + g.off[leaf] + (size_t)l * ra * cg;
 #define SAKE_LEAF(X) \
-  case X: contract<X, kAug>(g, l, m0, nm, r0, c0, ra, cg, out, sm); break;
+  case X: contract<X, kAug>(g, l, m0, nm, r0, c0, ra, cg, out, sm, tile_acc); break;
   switch (leaf) {
     SAKE_LEAF(W_IN_J) SAKE_LEAF(W_IN_I) SAKE_LEAF(B_IN) SAKE_LEAF(RBF_M) SAKE_LEAF(RBF_B)
     SAKE_LEAF(W_O_J) SAKE_LEAF(W_O_I) SAKE_LEAF(W_O_F) SAKE_LEAF(W_O_R) SAKE_LEAF(B_O0)
@@ -424,12 +445,13 @@ __global__ void __launch_bounds__(kThreads) param_grads_kernel(const GradArgs g)
 }
 
 // out[i] = sum over chunks, in chunk order and in double, of partial[chunk, i].
-__global__ void sum_chunks(const double* __restrict__ partial, float* out, long long total,
+template <class T>
+__global__ void sum_chunks(const T* __restrict__ partial, float* out, long long total,
                            int n_chunks) {
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
        i += (long long)gridDim.x * blockDim.x) {
     double s = 0.0;
-    for (int c = 0; c < n_chunks; ++c) s += partial[c * total + i];
+    for (int c = 0; c < n_chunks; ++c) s += (double)partial[c * total + i];
     out[i] = (float)s;
   }
 }
@@ -444,6 +466,13 @@ Tables tables(const float* bh, void* const* resid_ptrs, void* const* row_ptrs) {
   for (int i = 0; i < kResids; ++i) t.rs[i] = static_cast<const float*>(resid_ptrs[i]);
   for (int i = 0; i < kRows; ++i) t.rw[i] = static_cast<const float*>(row_ptrs[i]);
   return t;
+}
+
+template <class T>
+void sum_rows(const T* partial, float* out, long long total, int n, cudaStream_t s) {
+  const long long grid = (total + kThreads - 1) / kThreads;
+  sum_chunks<T><<<(unsigned)(grid < 4096 ? grid : 4096), kThreads, 0, s>>>(partial, out, total,
+                                                                           n);
 }
 
 template <bool kAug>
@@ -478,9 +507,7 @@ int launch_grads(GradArgs& g, const void* const* leaf_ptrs, const long long* lea
   param_grads_kernel<kAug><<<(unsigned)blocks, kThreads, 0, s>>>(g);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const long long grid = (off + kThreads - 1) / kThreads;
-  sum_chunks<<<(unsigned)(grid < 4096 ? grid : 4096), kThreads, 0, s>>>(partial, out, off,
-                                                                        g.n_chunks);
+  sum_rows(partial, out, off, g.n_chunks, s);
   return (int)cudaGetLastError();
 }
 
@@ -503,13 +530,16 @@ extern "C" int sake_param_grads(const float* bh, const void* const* leaf_ptrs,
 // The augmented gradients: row_ptrs the primal chain's rows, trow_ptrs the
 // tangent chain's and ttrow_ptrs their tangents (ROWS order); tbh and
 // tresid_ptrs the tangent forward's boundary h and residuals. Output and
-// scratch as sake_param_grads.
+// scratch as sake_param_grads. ro_part (B, ro_len) or null: per-molecule
+// partial sums (the fused training backward's readout gradients), summed
+// over the molecules in order and in double into ro_out (ro_len).
 extern "C" int sake_param_grads_aug(const float* bh, const float* tbh,
                                     const void* const* leaf_ptrs,
                                     const long long* leaf_strides, void* const* resid_ptrs,
                                     void* const* tresid_ptrs, void* const* row_ptrs,
                                     void* const* trow_ptrs, void* const* ttrow_ptrs,
-                                    double* partial, float* out, int per_chunk, int B, int N,
+                                    double* partial, float* out, const float* ro_part,
+                                    float* ro_out, long long ro_len, int per_chunk, int B, int N,
                                     int F, int H, int R, int K, int C, int depth, void* stream) {
   using namespace sake;
   GradArgs g;
@@ -517,5 +547,8 @@ extern "C" int sake_param_grads_aug(const float* bh, const float* tbh,
   g.P = tables(bh, resid_ptrs, row_ptrs);
   g.Tv = tables(bh, resid_ptrs, trow_ptrs);
   g.Tt = tables(tbh, tresid_ptrs, ttrow_ptrs);
-  return launch_grads<true>(g, leaf_ptrs, leaf_strides, partial, out, per_chunk, stream);
+  const int err = launch_grads<true>(g, leaf_ptrs, leaf_strides, partial, out, per_chunk, stream);
+  if (err != 0 || ro_part == nullptr) return err;
+  sum_rows(ro_part, ro_out, ro_len, B, static_cast<cudaStream_t>(stream));
+  return (int)cudaGetLastError();
 }

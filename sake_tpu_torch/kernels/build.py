@@ -108,14 +108,30 @@ def load():
     # bh, bx, bv, tbh, tbx, tbv, upd, leaves, leaves_t, strides, resid, tresid,
     # dh, dx, dv, 3 outs, add_h, add_x, add_v, rows, t_rows, scratch
     lib.sake_resid_tbwd.argtypes = [P] * 24 + dims + [P]
-    # bh, tbh, leaves, strides, resid, tresid, rows, rows_t, t_rows, partial, out, per_chunk
-    lib.sake_param_grads_aug.argtypes = [P] * 11 + [I] + dims + [P]
+    # bh, tbh, leaves, strides, resid, tresid, rows, rows_t, t_rows, partial, out,
+    # ro_part, ro_out, ro_len, per_chunk
+    lib.sake_param_grads_aug.argtypes = [P] * 13 + [LL, I] + dims + [P]
+    # readout of the fused kernels: w0, b0, w1, b1, w0t ... F0, O after the dims
+    # h0, xs, upd, leaves, leaves_t, strides, readout, bh, bx, bv, resid, h_fin,
+    # x_fin, v_fin, e, dx
+    lib.sake_fused_primal.argtypes = [P] * 20 + dims + [I, I, P]
+    # h0, xs, upd, mask, leaves, leaves_t, strides, readout, bh, bx, bv, resid, e,
+    # dx, grid
+    lib.sake_one_ef.argtypes = [P] * 18 + [I] + dims + [I, I, P]
+    lib.sake_one_ef_grid.argtypes = dims + [I]
+    # bh, bx, bv, upd, leaves, leaves_t, strides, resid, h_fin, tx0, g_e, readout,
+    # tbh, tbx, tbv, tresid, rows, rows_t, t_rows, scratch, dh0, dx0, ro_part
+    lib.sake_fused_bwd.argtypes = [P] * 27 + dims + [I, I, P]
     for fn in ("sake_resid_fwd", "sake_resid_infer", "sake_resid_bwd", "sake_resid_bwd_rows",
-               "sake_param_grads", "sake_resid_jvp", "sake_resid_tbwd", "sake_param_grads_aug"):
+               "sake_param_grads", "sake_resid_jvp", "sake_resid_tbwd", "sake_param_grads_aug",
+               "sake_fused_primal", "sake_one_ef", "sake_one_ef_grid", "sake_fused_bwd"):
         getattr(lib, fn).restype = I
     for fn in ("sake_resid_fwd_smem_bytes", "sake_resid_bwd_smem_bytes",
                "sake_resid_jvp_smem_bytes", "sake_resid_tbwd_smem_bytes"):
         getattr(lib, fn).argtypes = dims
+        getattr(lib, fn).restype = LL
+    for fn in ("sake_fused_ef_smem_bytes", "sake_fused_bwd_smem_bytes"):  # ..., F0
+        getattr(lib, fn).argtypes = dims + [I]
         getattr(lib, fn).restype = LL
     lib.sake_error_string.argtypes = [I]
     lib.sake_error_string.restype = ctypes.c_char_p

@@ -1,8 +1,8 @@
 """Second-order (force-loss) training: the gradient of a loss of ``(E, F)``
 with ``F = -dE/dx``, on kernels.
 
-Port of ``sake_tpu/kernels/train2_ef.py`` in its ``aug_mode="shared"``
-(``:936-2055``). The training gradient of ``(E, F)`` under cotangents
+Port of ``sake_tpu/kernels/train2_ef.py`` in its modes ``aug_mode="shared"``
+and ``"fused"`` (``:936-2055``). The training gradient of ``(E, F)`` under cotangents
 ``(g_e, g_f)`` is the gradient of ``S = sum_b g_e[b] E[b] - E_dot``, with
 ``E_dot`` the tangent of the energy along ``x_dot = g_f`` (the minus of
 ``F = -dE/dx`` lives in ``- E_dot``, so the tangent seed is ``+g_f``). So
@@ -31,6 +31,14 @@ tangent-augmented layer map, all on kernels:
   contracts both sets of rows into the 29 leaves' gradients per layer;
 - the embedding pullback runs in torch, as the JAX package left it to XLA.
 
+Fused mode runs the same math in fewer launches: the primal is #11
+(:func:`fused_primal`, ``csrc/fused_ef.cu``: K1's forward, the readout and
+its seed, K2's pullback in one kernel that still writes the streams), and
+the backward per chunk is #12 (:func:`fused_bwd`: ``csrc/fused_bwd.cu``
+runs the tangent forward, the seed head and both cotangent chains in one
+kernel, then the augmented contraction sums the leaves' and the readout's
+gradients).
+
 :func:`make_ef_train2` wraps it as a ``torch.autograd.Function``. Each
 kernel wrapper takes its plain version only for CPU tensors; on a CUDA
 tensor it launches its kernel or raises.
@@ -38,6 +46,7 @@ tensor it launches its kernel or raises.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import torch
@@ -50,6 +59,7 @@ from sake_tpu_torch.kernels.functional import (
     embed,
     flat_params,
     per_layer,
+    readout,
 )
 from sake_tpu_torch.kernels.leaves import LEAF_NAMES, layer_leaves, transposed, wide_stack
 from sake_tpu_torch.kernels.resid_ef import (
@@ -323,7 +333,11 @@ def resid_bwd_aug(leaves: dict, fwd: FwdOut, upd: Sequence[float], dh, dx, dv, a
 resid_bwd_aug.launches = 0
 
 
-def _launch_param_grads_aug(leaves, fwd, tfwd, rows, rows_t, t_rows) -> dict:
+def _launch_param_grads_aug(leaves, fwd, tfwd, rows, rows_t, t_rows, ro_part=None,
+                            ro_shapes=None):
+    """Every leaf's gradient per layer; with ``ro_part (B, len)``, per-molecule
+    partials of tensors of ``ro_shapes``, also their sums over the batch
+    (else None)."""
     lib, dims, dev, _ = _common("param_grads_aug", leaves, fwd)
     B, N, F, H, R, K, C, depth = dims
     _check_fwd("tfwd", tfwd, dims, leaves, dev)
@@ -335,15 +349,24 @@ def _launch_param_grads_aug(leaves, fwd, tfwd, rows, rows_t, t_rows) -> dict:
     n_chunks = -(-B // per_chunk)
     partial = torch.empty(n_chunks, sum(sizes), device=dev, dtype=torch.float64)
     out = torch.empty(sum(sizes), device=dev)
+    ro_sizes = [math.prod(s) for s in ro_shapes or ()]
+    ro_out = None
+    if ro_part is not None:
+        _check_cuda("ro_part", ro_part, (B, sum(ro_sizes)), dev)
+        ro_out = torch.empty(sum(ro_sizes), device=dev)
     err = lib.sake_param_grads_aug(
         fwd.bh.data_ptr(), tfwd.bh.data_ptr(), _ptrs([leaves[n] for n in LEAF_NAMES]),
         _strides(leaves), _ptrs([fwd.resid[n] for n in RESIDS]),
         _ptrs([tfwd.resid[n] for n in RESIDS]), _ptrs([rows[n] for n in ROWS]),
         _ptrs([rows_t[n] for n in ROWS]), _ptrs([t_rows[n] for n in ROWS]),
-        partial.data_ptr(), out.data_ptr(), per_chunk, *dims, resid_ef._stream(dev),
+        partial.data_ptr(), out.data_ptr(), resid_ef._ptr(ro_part), resid_ef._ptr(ro_out),
+        sum(ro_sizes), per_chunk, *dims, resid_ef._stream(dev),
     )
     build.check(lib, err, "param_grads_aug")
-    return {n: a.view(depth, *shapes[n]) for n, a in zip(LEAF_NAMES, out.split(sizes))}
+    grads = {n: a.view(depth, *shapes[n]) for n, a in zip(LEAF_NAMES, out.split(sizes))}
+    if ro_out is None:
+        return grads, None
+    return grads, tuple(a.view(s) for a, s in zip(ro_out.split(ro_sizes), ro_shapes))
 
 
 def param_grads_aug(leaves: dict, fwd: FwdOut, tfwd: FwdOut, rows: dict, rows_t: dict,
@@ -356,7 +379,7 @@ def param_grads_aug(leaves: dict, fwd: FwdOut, tfwd: FwdOut, rows: dict, rows_t:
     if fwd.bh.device.type == "cpu":
         return param_grads_aug_plain(leaves, fwd, tfwd, rows, rows_t, t_rows)
     _require_cuda("param_grads_aug", fwd.bh)
-    out = _launch_param_grads_aug(leaves, fwd, tfwd, rows, rows_t, t_rows)
+    out = _launch_param_grads_aug(leaves, fwd, tfwd, rows, rows_t, t_rows)[0]
     param_grads_aug.launches += 1
     return out
 
@@ -433,6 +456,245 @@ def head_grads(params: ModelParams, h_fin, th_fin, g_e):
     return tuple(readout), dh.contiguous(), dth.contiguous()
 
 
+# --------------------------------------------------------------------------
+# Fused mode: #11 (csrc/fused_ef.cu) and #12 (csrc/fused_bwd.cu, then the
+# augmented contraction of csrc/param_grads.cu).
+# --------------------------------------------------------------------------
+
+
+def _readout_leaves(params: ModelParams, dev):
+    """The readout as the fused kernels read it: ``(w0 (F, F0), b0, w1 (F0,
+    O), b1, w0^T)``, with ``F0`` and ``O``."""
+    w0, b0, w1, b1 = (t.detach().float().contiguous()
+                      for t in (params.w_out0, params.b_out0, params.w_out1, params.b_out1))
+    for name, t in (("w_out0", w0), ("b_out0", b0), ("w_out1", w1), ("b_out1", b1)):
+        _check_cuda(name, t, t.shape, dev)
+    return (w0, b0, w1, b1, w0.T.contiguous()), w0.shape[1], w1.shape[1]
+
+
+def _readout_shapes(F, F0, O):
+    return (F, F0), (F0,), (F0, O), (O,)
+
+
+def _fused_args(name, params, leaves, h0, upd, leaves_t, smem_fn):
+    """Checks the fused kernels make; returns ``(lib, dims, dev, upd, ro, F0,
+    O, leaves_t)``, ``ro`` the readout of :func:`_readout_leaves`."""
+    _require_cuda(name, h0)
+    dims = _dims(leaves, h0)
+    B, N, F, H, R, K, C, depth = dims
+    dev = h0.device
+    _check_leaves(leaves, dims, dev)
+    if F != H or len(upd) != depth:
+        raise ValueError(f"{name}: needs hidden width == feature width and one gate per layer")
+    ro, F0, O = _readout_leaves(params, dev)
+    lib = build.load()
+    if getattr(lib, smem_fn)(*dims, F0) > _SMEM_LIMIT:
+        raise ValueError(f"{name}: N={N} at these widths exceeds one block's shared memory")
+    if leaves_t is None:
+        leaves_t = transposed(leaves)
+    for leaf, shape in _leaf_shapes(F, H, R, K, C).items():
+        _check_cuda(f"{leaf}.T", leaves_t[leaf], (depth, *shape[::-1]), dev)
+    upd_t = torch.tensor(list(upd), dtype=torch.float32, device=dev)
+    return lib, dims, dev, upd_t, ro, F0, O, leaves_t
+
+
+def fused_primal_plain(params: ModelParams, leaves: dict, h0, xs, upd: Sequence[float],
+                       mask=None):
+    """Plain version of :func:`fused_primal` (and of one_ef's kernel): K1's
+    plain stack from ``(h0, xs, v = 0)``, the readout (summed over the
+    diagonal atoms of ``mask (B, N, N)`` when given) and its seed, K2's plain
+    stack. Returns ``(fwd, e (B,), dx (3, B, N))``."""
+    zeros = torch.zeros_like(xs)
+    m4 = mask[..., None] if mask is not None else None
+    fwd = resid_ef.resid_fwd_plain(leaves, h0, xs, zeros, upd, mask=m4)
+    node_mask = torch.diagonal(mask, dim1=-2, dim2=-1) if mask is not None else None
+    e, dh_fin = _readout_seed(params, fwd.h_fin, node_mask)
+    return fwd, e, resid_ef.resid_bwd_plain(leaves, fwd, upd, dh_fin, zeros, zeros, mask=m4)[1]
+
+
+def _launch_fused_primal(params, leaves, h0, xs, upd, leaves_t):
+    lib, dims, dev, upd_t, ro, F0, O, leaves_t = _fused_args(
+        "fused_primal", params, leaves, h0, upd, leaves_t, "sake_fused_ef_smem_bytes")
+    B, N, F, H, R, K, C, depth = dims
+    _check_cuda("h0", h0, (B, N, F), dev)
+    _check_cuda("xs", xs, (3, B, N), dev)
+    empty = lambda *s: torch.empty(s, device=dev, dtype=torch.float32)
+    fwd = FwdOut(
+        empty(depth, B, N, F), empty(depth, 3, B, N), empty(depth, 3, B, N),
+        empty(B, N, F), empty(3, B, N), empty(3, B, N),
+        {n: empty(*s) for n, s in _resid_shapes(dims, leaves).items()},
+    )
+    e, dx = empty(B), empty(3, B, N)
+    err = lib.sake_fused_primal(
+        h0.data_ptr(), xs.data_ptr(), upd_t.data_ptr(), _ptrs([leaves[n] for n in LEAF_NAMES]),
+        _ptrs([leaves_t[n] for n in LEAF_NAMES]), _strides(leaves), *(t.data_ptr() for t in ro),
+        fwd.bh.data_ptr(), fwd.bx.data_ptr(), fwd.bv.data_ptr(),
+        _ptrs([fwd.resid[n] for n in RESIDS]), fwd.h_fin.data_ptr(), fwd.x_fin.data_ptr(),
+        fwd.v_fin.data_ptr(), e.data_ptr(), dx.data_ptr(), *dims, F0, O, resid_ef._stream(dev),
+    )
+    build.check(lib, err, "fused_primal")
+    return fwd, e, dx
+
+
+def fused_primal(params: ModelParams, leaves: dict, h0, xs, upd: Sequence[float], *,
+                 leaves_t: Optional[dict] = None):
+    """#11, the fused primal (``csrc/fused_ef.cu``; JAX ``_fused_primal``'s
+    kernel ``train2_ef.py:1239``, pallas_call ``:1320``): in one launch, K1's
+    forward from ``(h0 (B, N, F), xs (3, B, N), v = 0)`` writing the boundary
+    states and residuals (``FwdOut``, as :func:`shared_fwd`), the readout's
+    energy and seed in f32, and K2's pullback. Returns ``(fwd, e (B,), dx (3,
+    B, N))``, ``F = -dx``. CPU tensors take the plain version."""
+    if h0.device.type == "cpu":
+        return fused_primal_plain(params, leaves, h0, xs, upd)
+    out = _launch_fused_primal(params, leaves, h0, xs, upd, leaves_t)
+    fused_primal.launches += 1
+    return out
+
+
+fused_primal.launches = 0
+_fused_primal = fused_primal  # make_ef_train2's argument of that name shadows it
+
+
+def _head_partials_plain(params: ModelParams, h_fin, th_fin, g_e):
+    """Per molecule, the readout gradients of :func:`head_grads` (``(B, F*F0
+    + F0 + F0*O + O)``, in the order of :func:`_readout_shapes`): with ``z =
+    h w0 + b0``, ``tz = th w0``, ``gz = w1s (g_e silu'(z) - silu''(z) tz)`` and
+    ``gtz = -w1s silu'(z)`` (``w1s`` the row sums of ``w1``), ``d_w0 = h^T gz +
+    th^T gtz``, ``d_b0 = sum gz``, ``d_w1 = sum (g_e silu(z) - silu'(z) tz)``
+    for every output and ``d_b1 = g_e N``."""
+    w0, b0, w1 = params.w_out0, params.b_out0, params.w_out1
+    B, N, _ = h_fin.shape
+    z, tz = h_fin @ w0 + b0, th_fin @ w0
+    s = torch.sigmoid(z)
+    d1 = s * (1.0 + z * (1.0 - s))
+    d2 = s * (1.0 - s) * (2.0 + z * (1.0 - 2.0 * s))
+    ge = g_e[:, None, None]
+    w1s = w1.sum(dim=-1)
+    gz, gtz = w1s * (ge * d1 - d2 * tz), -w1s * d1
+    d_w0 = h_fin.transpose(1, 2) @ gz + th_fin.transpose(1, 2) @ gtz
+    d_w1 = (ge * z * s - d1 * tz).sum(dim=1)[..., None].expand(B, *w1.shape)
+    d_b1 = (g_e * N)[:, None].expand(B, w1.shape[1])
+    return torch.cat([d_w0.reshape(B, -1), gz.sum(dim=1), d_w1.reshape(B, -1), d_b1], dim=1)
+
+
+def fused_bwd_block_plain(params: ModelParams, leaves: dict, fwd: FwdOut,
+                          upd: Sequence[float], tx0, g_e):
+    """Plain version of :func:`fused_bwd_block`: :func:`resid_jvp_plain`, the
+    seed head (:func:`head_grads`, and its per-molecule readout gradients),
+    :func:`resid_tbwd_plain` and :func:`resid_bwd_aug_plain`."""
+    tfwd = resid_jvp_plain(leaves, fwd, upd, tx0)
+    _, dh_fin, dth_fin = head_grads(params, fwd.h_fin, tfwd.h_fin, g_e)
+    zeros = torch.zeros_like(tx0)
+    _, _, _, add, rows_t, t_rows = resid_tbwd_plain(leaves, fwd, tfwd, upd, dth_fin, zeros,
+                                                    zeros)
+    dh0, dx0, _, rows = resid_bwd_aug_plain(leaves, fwd, upd, dh_fin, zeros, zeros, add)
+    return (dh0, dx0, tfwd, rows, rows_t, t_rows,
+            _head_partials_plain(params, fwd.h_fin, tfwd.h_fin, g_e))
+
+
+def _launch_fused_bwd_block(params, leaves, fwd, upd, tx0, g_e, leaves_t):
+    lib, dims, dev, upd_t, ro, F0, O, leaves_t = _fused_args(
+        "fused_bwd_block", params, leaves, fwd.bh[0], upd, leaves_t, "sake_fused_bwd_smem_bytes")
+    B, N, F, H, R, K, C, depth = dims
+    _check_fwd("fwd", fwd, dims, leaves, dev)
+    _check_cuda("h_fin", fwd.h_fin, (B, N, F), dev)
+    _check_cuda("tx0", tx0, (3, B, N), dev)
+    _check_cuda("g_e", g_e, (B,), dev)
+    empty = lambda *s: torch.empty(s, device=dev, dtype=torch.float32)
+    # the tangent forward's streams; its final state stays in the kernel
+    tfwd = FwdOut(empty(depth, B, N, F), empty(depth, 3, B, N), empty(depth, 3, B, N),
+                  None, None, None,
+                  {n: empty(*s) for n, s in _resid_shapes(dims, leaves).items()})
+    rows, rows_t, t_rows = ({n: empty(*s) for n, s in _row_shapes(dims, leaves).items()}
+                            for _ in range(3))
+    scratch = empty(B, 2 * N * (H * K + C))  # per block: d_hatt, d_pool_sq with tangents
+    dh0, dx0 = empty(B, N, F), empty(3, B, N)
+    ro_part = empty(B, sum(math.prod(s) for s in _readout_shapes(F, F0, O)))
+    err = lib.sake_fused_bwd(
+        fwd.bh.data_ptr(), fwd.bx.data_ptr(), fwd.bv.data_ptr(), upd_t.data_ptr(),
+        _ptrs([leaves[n] for n in LEAF_NAMES]), _ptrs([leaves_t[n] for n in LEAF_NAMES]),
+        _strides(leaves), _ptrs([fwd.resid[n] for n in RESIDS]), fwd.h_fin.data_ptr(),
+        tx0.data_ptr(), g_e.data_ptr(), *(t.data_ptr() for t in ro),
+        tfwd.bh.data_ptr(), tfwd.bx.data_ptr(), tfwd.bv.data_ptr(),
+        _ptrs([tfwd.resid[n] for n in RESIDS]), _ptrs([rows[n] for n in ROWS]),
+        _ptrs([rows_t[n] for n in ROWS]), _ptrs([t_rows[n] for n in ROWS]), scratch.data_ptr(),
+        dh0.data_ptr(), dx0.data_ptr(), ro_part.data_ptr(), *dims, F0, O,
+        resid_ef._stream(dev),
+    )
+    build.check(lib, err, "fused_bwd_block")
+    return dh0, dx0, tfwd, rows, rows_t, t_rows, ro_part
+
+
+def fused_bwd_block(params: ModelParams, leaves: dict, fwd: FwdOut, upd: Sequence[float], tx0,
+                    g_e, *, leaves_t: Optional[dict] = None):
+    """The block kernel of #12 (``csrc/fused_bwd.cu``; JAX
+    ``_fused_bwd_chunk``'s kernel ``train2_ef.py:1750``, pallas_call
+    ``:1908``): per molecule the tangent forward from ``(0, tx0 (3, B, N),
+    0)``, the seed head of ``S = g_e e - e_dot`` and, per layer in reverse,
+    the tangent pullback then the primal chain with the Hessian terms.
+    Returns ``(dh0, dx0, tfwd, rows, rows_t, t_rows, ro_part)``: the primal
+    chain's cotangents, the tangent forward's streams (its final state is
+    None on the card), both chains' rows and the tangent chain's row
+    tangents, and the per-molecule readout gradients ``(B, F*F0 + F0 + F0*O
+    + O)``. CPU tensors take the plain version."""
+    if tx0.device.type == "cpu":
+        return fused_bwd_block_plain(params, leaves, fwd, upd, tx0, g_e)
+    out = _launch_fused_bwd_block(params, leaves, fwd, upd, tx0, g_e, leaves_t)
+    fused_bwd_block.launches += 1
+    return out
+
+
+fused_bwd_block.launches = 0
+
+
+def fused_bwd_grads(params: ModelParams, leaves: dict, fwd: FwdOut, tfwd: FwdOut, rows: dict,
+                    rows_t: dict, t_rows: dict, ro_part):
+    """The contraction of #12 (``csrc/param_grads.cu``, augmented): every
+    leaf's gradient per layer (``{name: (depth, r, c)}``, as
+    :func:`param_grads_aug`) and the readout gradients ``(d_w_out0, d_b_out0,
+    d_w_out1, d_b_out1)``, the sums of ``ro_part`` over the molecules in
+    order. CPU tensors take the plain version."""
+    shapes = _readout_shapes(params.w_out0.shape[0], *params.w_out1.shape)
+    if fwd.bh.device.type == "cpu":
+        ro = ro_part.double().sum(dim=0).float().split([math.prod(s) for s in shapes])
+        return (param_grads_aug_plain(leaves, fwd, tfwd, rows, rows_t, t_rows),
+                tuple(a.view(s) for a, s in zip(ro, shapes)))
+    _require_cuda("fused_bwd_grads", fwd.bh)
+    out = _launch_param_grads_aug(leaves, fwd, tfwd, rows, rows_t, t_rows, ro_part, shapes)
+    fused_bwd_grads.launches += 1
+    return out
+
+
+fused_bwd_grads.launches = 0
+
+
+def fused_bwd_plain(params: ModelParams, leaves: dict, fwd: FwdOut, upd: Sequence[float], tx0,
+                    g_e):
+    """Plain version of :func:`fused_bwd`: :func:`resid_jvp_plain`,
+    :func:`head_grads`, :func:`resid_aug_bwd_plain`. Returns ``(dh0, dx0,
+    readout, grads)``: the cotangents of the initial ``h`` and ``x``, the
+    readout's four gradients and every leaf's gradient per layer."""
+    tfwd = resid_jvp_plain(leaves, fwd, upd, tx0)
+    ro, dh_fin, dth_fin = head_grads(params, fwd.h_fin, tfwd.h_fin, g_e)
+    dh0, dx0, _, grads = resid_aug_bwd_plain(leaves, fwd, tfwd, upd, dh_fin, dth_fin)
+    return dh0, dx0, ro, grads
+
+
+def fused_bwd(params: ModelParams, leaves: dict, fwd: FwdOut, upd: Sequence[float], tx0, g_e, *,
+              leaves_t: Optional[dict] = None):
+    """#12, the fused training backward of one chunk: the gradient of ``S =
+    sum_b g_e[b] e[b] - e_dot`` along ``x_dot = tx0 (3, B, N)`` from the
+    primal's streams ``fwd`` (with ``h_fin``), as :func:`fused_bwd_block`
+    then :func:`fused_bwd_grads`: two launches. Returns ``(dh0, dx0,
+    readout, grads)`` as :func:`fused_bwd_plain`, which CPU tensors take."""
+    if tx0.device.type == "cpu":
+        return fused_bwd_plain(params, leaves, fwd, upd, tx0, g_e)
+    dh0, dx0, tfwd, rows, rows_t, t_rows, ro_part = fused_bwd_block(
+        params, leaves, fwd, upd, tx0, g_e, leaves_t=leaves_t)
+    grads, ro = fused_bwd_grads(params, leaves, fwd, tfwd, rows, rows_t, t_rows, ro_part)
+    return dh0, dx0, ro, grads
+
+
 def make_ef_train2(
     *,
     n_heads: int = 4,
@@ -457,21 +719,28 @@ def make_ef_train2(
     """Build ``ef(params: ModelParams, h (B, N, F_in), x (B, N, 3)) -> (e
     (B,), f (B, N, 3))``, raw energies and forces whose first- and
     second-order gradients w.r.t. ``params``, ``h`` and ``x`` run on the
-    kernels (JAX ``make_ef_train2``, ``train2_ef.py:118-2074``, in its
-    ``aug_mode="shared"``).
+    kernels (JAX ``make_ef_train2``, ``train2_ef.py:118-2074``, in its modes
+    ``"shared"`` and ``"fused"``).
+
+    ``aug_mode="shared"``: the backward per chunk is #9 (:func:`resid_jvp`),
+    the torch head and #10 (:func:`resid_aug_bwd`); ``"fused"``: it is #12
+    (:func:`fused_bwd`). ``fused_primal`` (default ``aug_mode == "fused"``,
+    the JAX rule ``:2027-2032``): the primal is #11 (:func:`fused_primal`)
+    and not #7 + #8 (:func:`shared_fwd`, :func:`shared_bwd`); either primal
+    combines with either backward. With #11 the energy the loss sees is the
+    f32 torch readout on ``h_fin``, as JAX reads it through XLA (``:1367-1377``).
 
     ``shared_chunk`` bounds the molecules whose tangent streams and rows are
     alive at once: the primal and the backward run per chunk of that many
     molecules (a ragged last chunk is fine: the kernels take any batch).
 
     Not ported yet, and raising when asked for: ``aug_mode`` ``"retrace"``
-    and ``"resid"`` (sites #16-#19), ``"fused"`` and ``fused_primal=True``
-    (sites #11-#12), the bf16 tier (``matmul_dtype``, ``edge_matmul_dtype``,
-    ``resid_dtype`` other than f32, ``resid_lowp``) and the TPU-only MXU
-    pooling ``spatial_mode``. Accepted with no counterpart: ``batch_tile``
-    and ``aug_batch_tile`` (the kernels take one molecule per block),
-    ``pad_atoms`` (the kernels take N as it comes, unpadded), ``chunk`` and
-    ``aug_chunk`` (the other modes' chunks), ``precision`` and
+    and ``"resid"`` (sites #16-#19), the bf16 tier (``matmul_dtype``,
+    ``edge_matmul_dtype``, ``resid_dtype`` other than f32, ``resid_lowp``) and
+    the TPU-only MXU pooling ``spatial_mode``. Accepted with no counterpart:
+    ``batch_tile`` and ``aug_batch_tile`` (the kernels take one molecule per
+    block), ``pad_atoms`` (the kernels take N as it comes, unpadded),
+    ``chunk`` and ``aug_chunk`` (the other modes' chunks), ``precision`` and
     ``edge_precision`` (every product is f32 on the CUDA cores) and
     ``interpret`` (CPU tensors take the plain versions).
     """
@@ -480,16 +749,14 @@ def make_ef_train2(
     if aug_mode in ("retrace", "resid"):
         raise NotImplementedError(
             f"make_ef_train2: aug_mode={aug_mode!r} (sites #16-#19, train2_ef.py:330, :464, "
-            ":668, :837) is not ported; use aug_mode='shared'")
-    if aug_mode == "fused" or fused_primal:
-        raise NotImplementedError(
-            "make_ef_train2: the fused mode (sites #11-#12, train2_ef.py:1320, :1908) is not "
-            "ported yet; use aug_mode='shared'")
+            ":668, :837) is not ported; use aug_mode='fused' or 'shared'")
     if (matmul_dtype is not None or edge_matmul_dtype is not None or resid_lowp is not None
             or resid_dtype not in (None, torch.float32)):
         raise NotImplementedError("make_ef_train2: the port's kernels are f32 only")
     if spatial_mode is not None:
         raise NotImplementedError("make_ef_train2: spatial_mode is a TPU-only probe")
+    use_fused_primal = aug_mode == "fused" if fused_primal is None else fused_primal
+    fused_backward = aug_mode == "fused"
 
     def prep(params, h):
         upd = [1.0 if u else 0.0 for u in per_layer(update, len(params.layers))]
@@ -507,9 +774,14 @@ def make_ef_train2(
         es, fs, fwds = [], [], []
         for sl in chunks(h.shape[0]):
             xs = x[sl].permute(2, 0, 1).float().contiguous()
-            fwd = shared_fwd(leaves, h0[sl].contiguous(), xs, upd)
-            e, dh_fin = _readout_seed(params, fwd.h_fin, None)
-            dx = shared_bwd(leaves, fwd, upd, dh_fin, leaves_t=leaves_t)
+            if use_fused_primal:
+                fwd, _, dx = _fused_primal(params, leaves, h0[sl].contiguous(), xs, upd,
+                                           leaves_t=leaves_t)
+                e = readout(params, fwd.h_fin).sum(dim=(-2, -1))
+            else:
+                fwd = shared_fwd(leaves, h0[sl].contiguous(), xs, upd)
+                e, dh_fin = _readout_seed(params, fwd.h_fin, None)
+                dx = shared_bwd(leaves, fwd, upd, dh_fin, leaves_t=leaves_t)
             es.append(e)
             fs.append(-dx.permute(1, 2, 0))
             if keep:
@@ -533,17 +805,21 @@ def make_ef_train2(
             B, N, _ = h.shape
             g_e = torch.zeros(B, device=h.device) if g_e is None else g_e
             g_f = torch.zeros(B, N, 3, device=h.device) if g_f is None else g_f
-            dh0s, dxs, readout, layer = [], [], None, None
+            dh0s, dxs, ro_sum, layer = [], [], None, None
             for sl, fwd in zip(chunks(B), ctx.fwds):
                 # F = -dE/dx: the minus lives in the head's -e_dot, so the seed is +g_f
                 tx0 = g_f[sl].permute(2, 0, 1).float().contiguous()
-                tfwd = resid_jvp(leaves, fwd, upd, tx0)
-                ro, dh_fin, dth_fin = head_grads(params, fwd.h_fin, tfwd.h_fin, g_e[sl])
-                dh0, dx0, _, g = resid_aug_bwd(leaves, fwd, tfwd, upd, dh_fin, dth_fin,
-                                               leaves_t=leaves_t)
+                if fused_backward:
+                    dh0, dx0, ro, g = fused_bwd(params, leaves, fwd, upd, tx0,
+                                                g_e[sl].float().contiguous(), leaves_t=leaves_t)
+                else:
+                    tfwd = resid_jvp(leaves, fwd, upd, tx0)
+                    ro, dh_fin, dth_fin = head_grads(params, fwd.h_fin, tfwd.h_fin, g_e[sl])
+                    dh0, dx0, _, g = resid_aug_bwd(leaves, fwd, tfwd, upd, dh_fin, dth_fin,
+                                                   leaves_t=leaves_t)
                 dh0s.append(dh0)
                 dxs.append(dx0.permute(1, 2, 0))
-                readout = ro if readout is None else [a + b for a, b in zip(readout, ro)]
+                ro_sum = ro if ro_sum is None else [a + b for a, b in zip(ro_sum, ro)]
                 layer = g if layer is None else {n: layer[n] + g[n] for n in LEAF_NAMES}
             ctx.fwds = None
             # embedding pullback, h0 = h @ w_embed + b_embed (plain torch, as in JAX)
@@ -554,7 +830,7 @@ def make_ef_train2(
             for l in range(len(upd)):
                 lp = unsplit_layer_grads({n: layer[n][l] for n in LEAF_NAMES})
                 d_params += [*lp.edge, *lp[1:]]
-            d_params += list(readout)
+            d_params += list(ro_sum)
             return ((dh2 @ params.w_embed.T).reshape(h.shape), torch.cat(dxs), *d_params)
 
     def ef(params: ModelParams, h, x):

@@ -10,8 +10,9 @@ the same model from one seeded init:
   torch autograd (``kernels/functional.energy_and_forces_fn``);
 - the kernel branch (``use_kernel_ef``) trains ``ModelParams`` through
   ``kernels/train2_ef.make_ef_train2``, whose primal and backward are CUDA
-  kernels on a card. Only ``aug_mode="shared"`` is ported: ``"fused"``
-  (the JAX default) raises until sites #11-#12 are.
+  kernels on a card: in the config's default ``aug_mode="fused"`` (#11 and
+  #12, the JAX default and the ``md17_kernel`` workload) or in
+  ``aug_mode="shared"`` (#7-#10).
 
 Both branches evaluate on the f32 functional path and report bootstrap
 MAE in kcal/mol. Epochs are Python loops over batches, reshuffled with a
@@ -183,9 +184,6 @@ def run(cfg: MD17Config, logger: Optional[MetricLogger] = None, *, device=None):
     ``device=None`` means the CUDA card."""
     if cfg.checkpoint_dir:
         raise NotImplementedError("md17.run: checkpoints are not ported yet")
-    if cfg.use_kernel_ef and cfg.aug_mode == "fused":
-        raise NotImplementedError("md17.run: aug_mode='fused' (sites #11-#12) is not ported "
-                                  "yet; use aug_mode='shared'")
     device = resolve_device(device)
     logger = logger or MetricLogger()
     data = load_md17(cfg.molecule, cfg.data_dir, n_samples=cfg.n_train + 2 * cfg.n_valid)

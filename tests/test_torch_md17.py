@@ -1,8 +1,9 @@
 """The port's MD17 task against the JAX package: the serving slice (aspirin
 E + F, colored, through ``tasks/md17.make_energy_force_fn`` -> ``SAKEModel``
 -> ``kernels/dispatch``, plain K1/K2 stacks on the CPU, vs the JAX linen
-path) and force-loss training (one step of each branch against the JAX
-``make_step_fn`` on its plain branch, and ``run`` end to end).
+path), force-loss training (one step of each branch, the kernel branch in
+both modes, against the JAX ``make_step_fn`` on its plain branch, and ``run``
+end to end) and the task registry against the JAX one.
 
 Tolerances: serving ``rtol=2e-4, atol=2e-5``; a training step's loss
 ``rtol=1e-4`` and its updated parameters ``rtol=1e-5, atol=1e-6`` (one adam
@@ -108,13 +109,14 @@ def test_entry_points_default_to_the_card(monkeypatch):
         make_model(MD17Config(hidden_features=8, depth=1), 4)
 
 
-@pytest.mark.parametrize("use_kernel_ef", [False, True])
-def test_train_step_matches_jax_plain_branch(use_kernel_ef):
+@pytest.mark.parametrize("use_kernel_ef,aug_mode", [(False, "fused"), (True, "shared"),
+                                                    (True, "fused")])
+def test_train_step_matches_jax_plain_branch(use_kernel_ef, aug_mode):
     """One training step from the same linen init and batch: the port's
     plain branch (double autograd through the functional model) or its
-    kernel branch (``make_ef_train2`` in shared mode, plain stacks on the
-    CPU) against the JAX plain branch's ``make_step_fn``: the loss, and every
-    parameter after the adam update."""
+    kernel branch (``make_ef_train2`` in shared or in the default fused
+    mode, plain stacks on the CPU) against the JAX plain branch's
+    ``make_step_fn``: the loss, and every parameter after the adam update."""
     data = jax_synthesize(n_samples=12, seed=4)
     # an odd batch: the readout bias's gradient is a sum of E-MAE signs, which
     # cancels exactly at an even count and leaves f32 noise for adam to scale
@@ -133,7 +135,7 @@ def test_train_step_matches_jax_plain_branch(use_kernel_ef):
     want = jax.tree.map(np.asarray, state_j.params)
 
     cfg = MD17Config(hidden_features=16, depth=2, use_kernel_ef=use_kernel_ef,
-                     aug_mode="shared")
+                     aug_mode=aug_mode)
     species = species_onehot(data.z, int(data.z.max()))
     model = make_model(cfg, species.shape[-1], device="cpu")
     load_linen_params(model, jax.tree.map(np.asarray, params))
@@ -159,12 +161,13 @@ def _pick(tree, like):
     return {k: _pick(tree[k], v) if isinstance(v, dict) else tree[k] for k, v in like.items()}
 
 
-@pytest.mark.parametrize("use_kernel_ef", [False, True])
-def test_run_trains_and_reports_kcal_mae(use_kernel_ef):
+@pytest.mark.parametrize("use_kernel_ef,aug_mode", [(False, "fused"), (True, "shared"),
+                                                    (True, "fused")])
+def test_run_trains_and_reports_kcal_mae(use_kernel_ef, aug_mode):
     """``run`` end to end at a tiny size: the loss stays finite and the E and
     F bootstrap MAE come back in kcal/mol."""
     cfg = MD17Config(hidden_features=8, depth=1, n_heads=2, n_train=8, n_valid=4, n_epochs=2,
-                     epochs_per_block=1, use_kernel_ef=use_kernel_ef, aug_mode="shared")
+                     epochs_per_block=1, use_kernel_ef=use_kernel_ef, aug_mode=aug_mode)
     logs = []
 
     class Log:
@@ -179,8 +182,57 @@ def test_run_trains_and_reports_kcal_mae(use_kernel_ef):
         assert res[k.replace("kcalmol", "ci")][0] <= res[k.replace("kcalmol", "ci")][1]
 
 
-@pytest.mark.parametrize("kw", [dict(use_kernel_ef=True),  # the default aug_mode, "fused"
+@pytest.mark.parametrize("kw", [dict(use_kernel_ef=True, aug_mode="resid"),
                                 dict(checkpoint_dir="ckpt")])
 def test_run_rejects_unported_options(kw):
     with pytest.raises(NotImplementedError):
         task.run(MD17Config(hidden_features=8, depth=1, **kw), device="cpu")
+
+
+def test_registry_md17_kernel_is_the_fused_kernel_branch():
+    """``get_workload("md17_kernel")`` gives the port's ``run`` and the JAX
+    preset: the kernel branch in the config's default fused mode."""
+    from sake_tpu.tasks.registry import get_workload as jax_get_workload
+    from sake_tpu_torch.tasks.registry import get_workload
+
+    run, cfg = get_workload("md17_kernel")
+    assert run is task.run and isinstance(cfg, MD17Config)
+    assert cfg.use_kernel_ef and cfg.aug_mode == "fused"
+    _, cfg_j = jax_get_workload("md17_kernel")
+    assert (cfg_j.use_kernel_ef, cfg_j.aug_mode) == (cfg.use_kernel_ef, cfg.aug_mode)
+    _, cfg2 = get_workload("md17_kernel", n_epochs=2, molecule="uracil")
+    assert (cfg2.n_epochs, cfg2.molecule, cfg2.aug_mode) == (2, "uracil", "fused")
+
+
+@pytest.mark.parametrize("name", ["md17", "md17_traj", "md17_kernel", "qm9", "qm9_tpu",
+                                  "qm9_kernel", "qm9_kernel_bucketed"])
+def test_registry_builds_every_ported_entry_as_jax(name):
+    """Every entry of a ported task builds the JAX preset's values on the
+    port's config (the fields both have)."""
+    import dataclasses
+
+    from sake_tpu.tasks.registry import get_workload as jax_get_workload
+    from sake_tpu_torch.tasks.registry import get_workload
+
+    _, cfg = get_workload(name)
+    _, cfg_j = jax_get_workload(name)
+    assert type(cfg).__name__ == type(cfg_j).__name__
+    shared = {f.name for f in dataclasses.fields(cfg)} & {f.name for f in dataclasses.fields(cfg_j)}
+    assert {"seed", "depth"} <= shared
+    for f in sorted(shared):
+        assert getattr(cfg, f) == getattr(cfg_j, f), f
+
+
+def test_registry_lists_jax_and_rejects_the_rest():
+    from sake_tpu.tasks.registry import list_workloads as jax_list
+    from sake_tpu_torch.tasks import registry
+
+    assert registry.list_workloads() == jax_list()
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        registry.get_workload("sparse_md")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+        registry.get_workload("dw4")
+    with pytest.raises(KeyError):
+        registry.get_workload("md18")
+    assert registry.parse_overrides(["molecule=ethanol", "n_epochs=3"]) == dict(
+        molecule="ethanol", n_epochs=3)

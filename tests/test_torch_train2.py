@@ -1,8 +1,10 @@
 """The port's second-order (force-loss) training pieces against the JAX
 package: the differentiable ``energy_and_forces_fn``, the plain tangent
 forward ``layer_jvp_resid``, the tangent pullback and its contraction, the
-layer stacks the kernels replace, and ``make_ef_train2(aug_mode="shared")``
-against JAX double autodiff (``ef_lax`` of ``tests/test_kernels.py:871-877``).
+layer stacks the kernels replace, the fused mode's plain versions (#11, #12)
+and ``make_ef_train2`` in its modes against JAX double autodiff (``ef_lax``
+of ``tests/test_kernels.py:871-877``) and against the JAX fused mode run in
+interpret mode.
 JAX layer functions run as plain jnp, as ``tests/test_kernels.py`` calls
 them; the port's wrappers run their plain versions on CPU tensors, and the
 CUDA kernels are checked on the card by ``chip_smoke.py``.
@@ -277,11 +279,15 @@ def test_aug_bwd_stack_matches_double_autograd(setup):
 
 
 @pytest.mark.parametrize("shared_chunk", [None, 3])
-def test_make_ef_train2_matches_jax_double_autodiff(setup, shared_chunk):
+@pytest.mark.parametrize("aug_mode,fused_primal", [("shared", None), ("fused", None),
+                                                   ("fused", False), ("shared", True)])
+def test_make_ef_train2_matches_jax_double_autodiff(setup, shared_chunk, aug_mode,
+                                                    fused_primal):
     """Loss and gradients (every parameter, h and x) of the JAX test's loss
-    through ``make_ef_train2(aug_mode="shared")`` against JAX double
-    autodiff of the functional model (``ef_lax``). ``shared_chunk=3`` cuts
-    B = 4 into a chunk of 3 and a ragged chunk of 1."""
+    through ``make_ef_train2`` against JAX double autodiff of the functional
+    model (``ef_lax``), in both modes and with either primal under either
+    backward (``fused_primal`` None: the mode's own). ``shared_chunk=3``
+    cuts B = 4 into a chunk of 3 and a ragged chunk of 1."""
     s = setup
     e_t, f_t = _loss_parts(s)
 
@@ -301,8 +307,9 @@ def test_make_ef_train2_matches_jax_double_autodiff(setup, shared_chunk):
         s["kp"], jnp.asarray(s["h_raw"]), jnp.asarray(s["x"]))
     want = flat_params(_jax_params(g_ref[0]))
 
-    ef = train2_ef.make_ef_train2(n_heads=K, update=True, aug_mode="shared",
-                                  shared_chunk=shared_chunk, batch_tile=2, pad_atoms=True)
+    ef = train2_ef.make_ef_train2(n_heads=K, update=True, aug_mode=aug_mode,
+                                  fused_primal=fused_primal, shared_chunk=shared_chunk,
+                                  batch_tile=2, pad_atoms=True)
     flat = [t.detach().clone().requires_grad_(True) for t in flat_params(s["tp"])]
     tp = resid_ef._unflat_params(flat, DEPTH)
     h = _t(s["h_raw"]).requires_grad_(True)
@@ -326,8 +333,6 @@ def test_make_ef_train2_matches_jax_double_autodiff(setup, shared_chunk):
 @pytest.mark.parametrize("kw,err", [
     (dict(aug_mode="retrace"), NotImplementedError),
     (dict(aug_mode="resid"), NotImplementedError),
-    (dict(aug_mode="fused"), NotImplementedError),
-    (dict(aug_mode="shared", fused_primal=True), NotImplementedError),
     (dict(aug_mode="shared", edge_matmul_dtype=torch.bfloat16), NotImplementedError),
     (dict(aug_mode="shared", resid_dtype=torch.bfloat16), NotImplementedError),
     (dict(aug_mode="shared", spatial_mode="mxu"), NotImplementedError),
@@ -341,12 +346,130 @@ def test_make_ef_train2_rejects_unported_modes(kw, err):
 def test_kernel_wrappers_count_only_card_launches(setup):
     """On CPU tensors every wrapper of the slice takes its plain version and
     leaves its launch count alone."""
+    from sake_tpu_torch.kernels import one_ef
+
     leaves, h0, xs, upd, fwd, tx0 = _stack_inputs(setup)
+    tp, g_e = setup["tp"], torch.ones(B)
     counted = (train2_ef.shared_fwd, train2_ef.shared_bwd, train2_ef.resid_jvp,
-               train2_ef.resid_tbwd, train2_ef.resid_bwd_aug, train2_ef.param_grads_aug)
+               train2_ef.resid_tbwd, train2_ef.resid_bwd_aug, train2_ef.param_grads_aug,
+               train2_ef.fused_primal, train2_ef.fused_bwd_block, train2_ef.fused_bwd_grads,
+               one_ef.one_energy_forces)
     before = [c.launches for c in counted]
     fwd2 = train2_ef.shared_fwd(leaves, h0, xs, upd)
     train2_ef.shared_bwd(leaves, fwd2, upd, torch.ones_like(h0))
     tfwd = train2_ef.resid_jvp(leaves, fwd, upd, tx0)
     train2_ef.resid_aug_bwd(leaves, fwd, tfwd, upd, torch.ones_like(h0), torch.ones_like(h0))
+    train2_ef.fused_primal(tp, leaves, h0, xs, upd)
+    *_, tfwd2, rows, rows_t, t_rows, part = train2_ef.fused_bwd_block(tp, leaves, fwd, upd, tx0,
+                                                                      g_e)
+    train2_ef.fused_bwd_grads(tp, leaves, fwd, tfwd2, rows, rows_t, t_rows, part)
+    train2_ef.fused_bwd(tp, leaves, fwd, upd, tx0, g_e)
+    one_ef.one_energy_forces(tp, _t(setup["h_raw"]), _t(setup["x"]), n_heads=K)
     assert [c.launches for c in counted] == before
+
+
+def test_fused_primal_plain_is_the_shared_primal(setup):
+    """#11's plain version gives the shared primal's streams, energy and dx
+    (#7, the readout seed, #8)."""
+    leaves, h0, xs, upd, fwd, _ = _stack_inputs(setup)
+    tp = setup["tp"]
+    got, e, dx = train2_ef.fused_primal(tp, leaves, h0, xs, upd)
+    e_ref, dh_fin = resid_ef._readout_seed(tp, fwd.h_fin, None)
+    dx_ref = train2_ef.shared_bwd(leaves, fwd, upd, dh_fin)
+    for a, b in zip(torch.utils._pytree.tree_leaves(got), torch.utils._pytree.tree_leaves(fwd)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    torch.testing.assert_close(e, e_ref, rtol=0, atol=0)
+    torch.testing.assert_close(dx, dx_ref, rtol=0, atol=0)
+
+
+def test_fused_bwd_parts_match_the_whole(setup):
+    """#12's two launches in their plain versions (the block's tangent
+    forward, closed-form per-molecule readout gradients and both chains,
+    then the contraction and the sum over molecules) against
+    ``fused_bwd_plain`` (``head_grads`` by autograd and the shared-mode
+    stacks)."""
+    leaves, _, _, upd, fwd, tx0 = _stack_inputs(setup)
+    tp = setup["tp"]
+    g_e = _t(np.random.RandomState(3).randn(B).astype(np.float32))
+    dh0, dx0, tfwd, rows, rows_t, t_rows, part = train2_ef.fused_bwd_block(
+        tp, leaves, fwd, upd, tx0, g_e)
+    grads, ro = train2_ef.fused_bwd_grads(tp, leaves, fwd, tfwd, rows, rows_t, t_rows, part)
+    want = train2_ef.fused_bwd_plain(tp, leaves, fwd, upd, tx0, g_e)
+    torch.testing.assert_close(dh0, want[0], **STACK_TOL)
+    torch.testing.assert_close(dx0, want[1], **STACK_TOL)
+    assert [a.shape for a in ro] == [t.shape for t in (tp.w_out0, tp.b_out0, tp.w_out1,
+                                                       tp.b_out1)]
+    for a, b in zip(ro, want[2]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    for name in LEAF_NAMES:
+        torch.testing.assert_close(grads[name], want[3][name], **STACK_TOL, msg=name)
+
+
+def test_make_ef_train2_fused_matches_jax_fused_interpret():
+    """A tiny case (hidden 8, depth 1, B = 2, N = 5) against the JAX
+    package's own ``make_ef_train2(aug_mode="fused", interpret=True)``, the
+    Pallas kernels #11 and #12 run by the interpreter: loss and every
+    gradient at the double-autodiff tier."""
+    from sake_tpu.kernels.train2_ef import make_ef_train2 as jax_make_ef_train2
+
+    rng = np.random.RandomState(8)
+    h_raw = rng.randn(2, 5, F_IN).astype(np.float32)
+    x = (1.5 * rng.randn(2, 5, 3)).astype(np.float32)
+    e_t, f_t = rng.randn(2).astype(np.float32), rng.randn(2, 5, 3).astype(np.float32)
+    model = JaxSAKEModel(hidden_features=8, out_features=1, depth=1)
+    params = model.init(jax.random.PRNGKey(4), jnp.asarray(h_raw), jnp.asarray(x))
+    kp = jax_from_linen(params)
+    ef_j = jax_make_ef_train2(n_heads=K, batch_tile=2, aug_batch_tile=2, aug_mode="fused",
+                              chunk=None, shared_chunk=None, interpret=True)
+
+    def loss_j(p, h_, x_):
+        e, f = ef_j(p, h_, x_)
+        return ((e - e_t) ** 2).sum() + 0.5 * ((f - f_t) ** 2).sum()
+
+    l_ref, g_ref = jax.value_and_grad(loss_j, argnums=(0, 1, 2))(
+        kp, jnp.asarray(h_raw), jnp.asarray(x))
+    ef = train2_ef.make_ef_train2(n_heads=K, aug_mode="fused")
+    flat = [t.detach().clone().requires_grad_(True)
+            for t in flat_params(model_params_from_linen(_np_tree(params)))]
+    tp = resid_ef._unflat_params(flat, 1)
+    h, xt = _t(h_raw).requires_grad_(True), _t(x).requires_grad_(True)
+    e, f = ef(tp, h, xt)
+    loss = ((e - _t(e_t)) ** 2).sum() + 0.5 * ((f - _t(f_t)) ** 2).sum()
+    np.testing.assert_allclose(float(loss.detach()), float(l_ref), rtol=1e-5)
+    got = torch.autograd.grad(loss, [h, xt, *flat])
+    want = [np.asarray(g_ref[1]), np.asarray(g_ref[2]),
+            *(w.numpy() for w in flat_params(_jax_params(g_ref[0])))]
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(g.numpy(), w, err_msg=f"leaf {i}", **MODEL_TOL)
+
+
+@pytest.mark.gpu
+def test_tangent_pullback_kernel_fits_narrow_heads(setup):
+    """#12 (whose phase 2 runs the tangent pullback's body) against its
+    plain version on the card with 50 rbf channels at hidden 8 (R > H*K =
+    32) and hidden 16 (R < H*K = 64). The tangent pullback's shared-memory
+    carve once sized its d_pre buffer by H*K alone, which overflows when R >
+    H*K."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from sake_tpu_torch.kernels.functional import params_to
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(4)
+    for hid in (8, HID):
+        model = JaxSAKEModel(hidden_features=hid, out_features=1, depth=DEPTH)
+        params = model.init(jax.random.PRNGKey(0), jnp.asarray(setup["h_raw"]),
+                            jnp.asarray(setup["x"]))
+        tp = params_to(model_params_from_linen(_np_tree(params)), dev)
+        leaves = wide_stack(tp, K)
+        h0 = torch.as_tensor(rng.randn(B, N, hid).astype(np.float32), device=dev)
+        xs = _t(setup["x"].transpose(2, 0, 1)).contiguous().to(dev)
+        upd = [1.0, 0.4]
+        fwd = resid_ef.resid_fwd_plain(leaves, h0, xs, torch.zeros_like(xs), upd)
+        tx0 = torch.as_tensor(rng.randn(3, B, N).astype(np.float32), device=dev)
+        g_e = torch.as_tensor(rng.randn(B).astype(np.float32), device=dev)
+        got = train2_ef.fused_bwd(tp, leaves, fwd, upd, tx0, g_e)
+        want = train2_ef.fused_bwd_plain(tp, leaves, fwd, upd, tx0, g_e)
+        for a, b in zip(torch.utils._pytree.tree_leaves(got), torch.utils._pytree.tree_leaves(want)):
+            torch.testing.assert_close(a, b, **PULL_TOL)
