@@ -74,6 +74,35 @@ Phases (each prints its own lines; any failure exits non-zero):
    step, and each kernel timed at both batches beside its plain version and
    its bound.
 
+11. Sparse edge kernels vs plain, MD: ``SparseMDConfig()``'s box (4096
+   atoms, hidden 64, depth 6, 4 heads, cutoff 5 + skin 0.5, K = 64) and its
+   first neighbour list; at layer 0, #13 (``csrc/sparse_fwd.cu``) and #14
+   (``csrc/sparse_bwd.cu``, input cotangents, random output cotangents)
+   against their plain versions, limit 1e-4 relative per tensor; then the
+   kernel E + F against the plain sparse model: f_err <= 1e-4 and per-atom
+   energies within 1e-5 of max |e_atom| (a random box's total cancels).
+12. A periodic box: the cell list (capacity 48) equals the all-pairs list
+   with the minimum image on the card, and ``sparse_md_kernel`` runs 20
+   periodic steps on cell lists, finite, with no dropped neighbour.
+13. The sparse MD slice: ``registry.get_workload("sparse_md_kernel")`` at
+   its defaults (100 steps, run twice as the task does), which must launch
+   #13 and #14 only, stay finite and drop no neighbour; then one E + F
+   timed against the plain one, each kernel timed, and a BREAKDOWN of the
+   rollout step (edge kernels, neighbour build, torch glue).
+14. Sparse training kernels vs plain: ``SparseTrainConfig()``'s box (1024
+   atoms, K = 48) at layer 0: #13, #14 with the 11 edge-leaf gradients
+   (the rows instantiation and ``csrc/sparse_contract.cu``) and #15
+   (``csrc/sparse_bwd2.cu``, forward-over-reverse, and the contraction)
+   against their plain versions (``torch.func.vjp`` for #15), 1e-4
+   relative per tensor.
+15. Sparse step parity: the kernel branch against the plain double-autograd
+   branch from one seeded init: step 1's loss and every gradient per leaf
+   (1e-4), the energy loss's gradients (1e-4), the first 5 losses (1e-3).
+16. The sparse training slice: ``registry.get_workload("sparse_train_kernel")``
+   for its 100 steps, which must launch #13, #14 (both) and #15 and no
+   dense kernel, with a falling loss; then the train step of both branches
+   in turns, each kernel timed, and a BREAKDOWN.
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -106,6 +135,9 @@ TRAIN_BATCHES = (4, 512)  # MD17Config's batch, and bench_md17_train.py's
 # the slice's cut: MD17Config() validates on 1000 molecules and trains 100 epochs
 MD17_RUN = dict(n_valid=200, n_epochs=2, epochs_per_block=1)
 MD17_SHARED_RUN = dict(n_valid=200, n_epochs=1, epochs_per_block=1)  # shared mode: 250 steps
+SPARSE_TOL = 1e-4  # the sparse edge kernels and the sparse training step, relative per tensor
+SPARSE_CELL_CAPACITY = 48  # the periodic run's cell list (about 12 atoms a cell at 0.05 / A^3)
+SPARSE_PERIODIC_STEPS = 20
 # H100 SXM peaks (NVIDIA's data sheet): f32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 
@@ -188,6 +220,19 @@ def kernel_entry(name, source, replaces, launches, max_abs_err, ms, plain_ms, fm
     return dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
                 max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None)  # no one PyTorch call runs a layer stack
+    # or the sparse edge chain
+
+
+def dense_counters() -> tuple:
+    """The launch counts of every dense-layer kernel (K1, K2, #3-#12): a
+    sparse path must leave them all where they were."""
+    from sake_tpu_torch.kernels import one_ef, resid_ef
+    from sake_tpu_torch.kernels import train2_ef as t2
+
+    return (resid_ef.resid_fwd, resid_ef.resid_infer, resid_ef.resid_bwd,
+            resid_ef.resid_bwd_rows, resid_ef.param_grads, one_ef.one_energy_forces,
+            t2.resid_jvp, t2.resid_tbwd, t2.resid_bwd_aug, t2.param_grads_aug, t2.shared_fwd,
+            t2.shared_bwd, t2.fused_primal, t2.fused_bwd_block, t2.fused_bwd_grads)
 
 
 def main() -> int:
@@ -199,16 +244,7 @@ def main() -> int:
         return 1
     # the port itself: without it beside this script, fail before printing anything
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from sake_tpu_torch.data.md17 import synthesize_md17
-    from sake_tpu_torch.kernels import build, dispatch, one_ef, resid_ef
-    from sake_tpu_torch.kernels.functional import embed, energy_and_forces_fn
-    from sake_tpu_torch.kernels.leaves import transposed, wide_stack
-    from sake_tpu_torch.tasks.md17 import (
-        MD17Config,
-        make_energy_force_fn,
-        make_model,
-        species_onehot,
-    )
+    from sake_tpu_torch.kernels import build
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -229,6 +265,33 @@ def main() -> int:
     for line in (lib_path.parent / "ptxas.txt").read_text().splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print(f"PTXAS {line.strip()}", flush=True)
+
+    kernels = md17_serving_phases(dev, smi)
+    kernels += qm9_phases(dev, smi)
+    kernels += md17_train_phases(dev, smi)
+    kernels += sparse_md_phases(dev, smi)
+    kernels += sparse_train_phases(dev, smi)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def md17_serving_phases(dev, smi) -> list:
+    """Phases 3-4 (see the module docstring); returns their kernel entries."""
+    import torch
+
+    from sake_tpu_torch.data.md17 import synthesize_md17
+    from sake_tpu_torch.kernels import dispatch, one_ef, resid_ef
+    from sake_tpu_torch.kernels.functional import embed, energy_and_forces_fn
+    from sake_tpu_torch.kernels.leaves import transposed, wide_stack
+    from sake_tpu_torch.tasks.md17 import (
+        MD17Config,
+        make_energy_force_fn,
+        make_model,
+        species_onehot,
+    )
 
     data = synthesize_md17(n_samples=max(REQUESTS), seed=SEED)
     species = species_onehot(data.z, int(data.z.max()))
@@ -443,14 +506,7 @@ def main() -> int:
         one_entry,
     ]
     del fwd, answers
-
-    kernels += qm9_phases(dev, smi)
-    kernels += md17_train_phases(dev, smi)
-    print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu",
-                                             "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    return kernels
 
 
 def qm9_phases(dev, smi) -> list:
@@ -1121,6 +1177,380 @@ def md17_train_phases(dev, smi) -> list:
                 fused_bwd_grads=abs_train["fused_bwd"])
     return [kernel_entry(name, src + where[name][0], at + where[name][1], launches[name],
                          errs[name], *t[name], ops[name], moved[name]) for name in t]
+
+
+def sparse_fma(F, R, H, Kh, C):
+    """Multiply-adds per edge of the sparse edge chain's products, counted as
+    ``layer_fma`` counts them (elementwise work left out): the forward (the
+    j-projections, o_f, o1, the semantic heads, x-mixing), the pullback
+    (which recomputes the forward) and the leaf-gradient contraction. The
+    function needs f32 leaf gradients, so the contraction's multiply-adds
+    count at the f32 peak, though the kernel sums them in f64."""
+    HK = H * Kh
+    fwd = F * R + F * H + R * H + H * H + H * Kh + HK * C
+    pull = HK * C + Kh * H + H * H + H * R + R * F + H * F
+    return dict(fwd=fwd, bwd=fwd + pull, grads=fwd)
+
+
+def check_pairs(label, checks: dict, tol: float) -> dict:
+    """Print each check's worst relative error (per tensor, against the
+    tensor's largest entry) and fail beyond ``tol`` or on a non-finite
+    value; returns each check's max absolute error."""
+    import torch
+
+    out = {}
+    for name, pairs in checks.items():
+        errs = {n: rel_err(a, b) for n, a, b in pairs}
+        out[name] = max(abs_err(a, b) for _, a, b in pairs)
+        w = max(errs, key=errs.get)
+        finite = all(bool(torch.isfinite(a).all()) for _, a, _ in pairs)
+        print(f"{label} {name} vs plain: max rel err {errs[w]:.3e} ({w}), max abs err "
+              f"{out[name]:.3e}, finite {finite} "
+              + json.dumps({k: float(f"{v:.2e}") for k, v in errs.items()}), flush=True)
+        if errs[w] > tol or not finite:
+            fail(f"{label} {name} beyond {tol}")
+    return out
+
+
+def _pair_codes(idx, m, N):
+    """The live (receiver, sender) pairs of a (1, N, K) list as sorted codes."""
+    import torch
+
+    rows = torch.arange(N, device=idx.device)[None, :, None].expand_as(idx)
+    return (rows * N + idx)[m > 0].sort().values
+
+
+def _layer0_edge_inputs(kp, h, x, idx, m, n_heads, box=None):
+    """Layer 0's edge-op inputs as the kernel model builds them."""
+    from sake_tpu_torch.kernels import sparse_ef as se
+    from sake_tpu_torch.kernels.functional import embed
+    from sake_tpu_torch.kernels.leaves import split_layer
+
+    F = kp.w_embed.shape[-1]
+    L = split_layer(kp.layers[0], F, n_heads)
+    ep = {n: L[n].detach().contiguous() for n in se.EDGE_LEAVES}
+    hg, ai, oi, d0 = se.edge_inputs({k: v.detach() for k, v in L.items()},
+                                    embed(kp, h).detach(), x, idx, box)
+    NR, K = hg.shape[:2]
+    return hg, ai, oi, d0, m.reshape(NR, K).float().contiguous(), ep
+
+
+def sparse_md_phases(dev, smi) -> list:
+    """Phases 11-13 (see the module docstring); returns their kernel entries."""
+    import dataclasses
+
+    import torch
+
+    from sake_tpu_torch import sparse as sp
+    from sake_tpu_torch.kernels import sparse_ef as se
+    from sake_tpu_torch.tasks import sparse_md as task
+    from sake_tpu_torch.tasks.registry import get_workload
+    from sake_tpu_torch.train.metrics import MetricLogger
+
+    run, cfg = get_workload("sparse_md_kernel")
+    if not cfg.use_kernel:
+        fail(f"sparse_md_kernel is not the kernel force field: {cfg}")
+    h, x, _, box = task._synthesize_box(cfg, dev)
+    kp = task.make_params(cfg, cfg.n_species, cfg.seed, dev)
+    N, K, depth, heads = cfg.n_atoms, cfg.max_neighbors, cfg.depth, cfg.n_heads
+    rc = cfg.cutoff + cfg.skin
+    with torch.no_grad():
+        idx, m, ovf = sp.neighbor_list(x, rc, K, with_overflow=True)
+    live = m.sum(-1)
+    print(f"SPARSE MD box: N={N}, side {(N / cfg.density) ** (1 / 3):.3f}, first list at "
+          f"{rc}: live slots per atom mean {float(live.mean()):.2f} max {int(live.max())} of "
+          f"K={K}, overflow {int(ovf.max())}", flush=True)
+
+    # -- 11. #13 and #14 against plain on the first list (layer 0) ---------------
+    gen = torch.Generator(dev).manual_seed(11)
+    with torch.no_grad():
+        hg, ai, oi, d0, mf, ep = _layer0_edge_inputs(kp, h, x, idx, m, heads)
+        C, HK = ep["w_xmix"].shape[1], ep["w_xmix"].shape[0]
+        gp = torch.randn(3, N, C, device=dev, generator=gen)
+        gh = torch.randn(N, HK, device=dev, generator=gen)
+        k13, p13 = se._launch_fwd(hg, ai, oi, d0, mf, ep), se.sparse_fwd_plain(hg, ai, oi, d0, mf,
+                                                                               ep)
+        wt = se.edge_transposes(ep)  # made once per layer, as the model does
+        k14 = se._launch_bwd(hg, ai, oi, d0, mf, ep, gp, gh, wt)
+        p14 = se.sparse_bwd_plain(hg, ai, oi, d0, mf, ep, gp, gh)
+        torch.cuda.synchronize()
+    abs_md = check_pairs(f"SPARSE MD (N={N}, K={K}, layer 0)", {
+        "sparse_fwd": list(zip(("pooled", "hatt"), k13, p13)),
+        "sparse_bwd": list(zip(("d_h_g", "d_a_i", "d_o_i", "d_d0"), k14, p14))}, SPARSE_TOL)
+    del k13, p13, k14, p14
+
+    # the model's E + F: kernel against plain, per-atom energies (a random
+    # box's total cancels) and forces
+    ef_k = se.make_sparse_kernel_energy_forces(h, n_heads=heads, update=False)
+    ef_p = sp.make_sparse_energy_forces(h, n_heads=heads, update=False, remat=True)
+    with torch.no_grad():
+        out_k = se.sparse_kernel_model_forward(kp, h, x, idx, m, n_heads=heads, update=False)[0]
+        out_p = sp.sparse_model_forward(kp, h, x, idx, m, n_heads=heads, update=False)[0]
+        _, f_k = ef_k(kp, x, idx, m)
+        _, f_p = ef_p(kp, x, idx, m)
+        torch.cuda.synchronize()
+    ef_err = {"f_err": rel_err(f_k, f_p), "e_atom_err": rel_err(out_k, out_p)}
+    print(f"SPARSE MD E+F (N={N}, K={K}, depth {depth}) kernel vs plain: "
+          + json.dumps({k: float(f"{v:.3e}") for k, v in ef_err.items()})
+          + f"; |F|max {float(f_p.abs().max()):.4g}, |e_atom|max {float(out_p.abs().max()):.4g}",
+          flush=True)
+    if not (ef_err["f_err"] <= F_TOL and ef_err["e_atom_err"] <= E_TOL
+            and torch.isfinite(f_k).all()):
+        fail(f"sparse E+F beyond f_err {F_TOL} / per-atom e_err {E_TOL}")
+    del out_k, out_p, f_k, f_p
+
+    # -- 12. a periodic box: the cell list and the minimum image on the card -----
+    cfg_p = dataclasses.replace(cfg, periodic=True, cell_capacity=SPARSE_CELL_CAPACITY,
+                                n_steps=SPARSE_PERIODIC_STEPS)
+    _, xp, _, boxp = task._synthesize_box(cfg_p, dev)
+    with torch.no_grad():
+        i_c, m_c, o_c = sp.cell_neighbor_list(xp, rc, K, box=boxp,
+                                              cell_capacity=cfg_p.cell_capacity,
+                                              with_overflow=True)
+        i_a, m_a, o_a = sp.neighbor_list(xp, rc, K, box=boxp, with_overflow=True)
+        same = torch.equal(_pair_codes(i_c, m_c, N), _pair_codes(i_a, m_a, N))
+    print(f"SPARSE MD periodic box {boxp[0]:.4f}: cell list (capacity {cfg_p.cell_capacity}) "
+          f"== all-pairs list {same}, overflow {int(o_c.max())} / {int(o_a.max())}", flush=True)
+    if not same or int(o_c.max()) != 0:
+        fail("the periodic cell list differs from the all-pairs list or overflowed")
+    _, res_p = run(cfg_p, MetricLogger(stream=sys.stdout), device=dev)
+    print("SPARSE MD periodic run " + json.dumps(res_p), flush=True)
+    if not res_p["finite"] or res_p["max_nbr_overflow"] != 0:
+        fail("the periodic sparse MD run is not finite or overflowed")
+
+    # -- 13. the slice: sparse_md_kernel at its defaults --------------------------
+    counters = (se.sparse_fwd, se.sparse_bwd, se.sparse_bwd_grads, se.sparse_bwd2)
+    others = dense_counters()
+    before = [c.launches for c in others]
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (xs, _, es), res = run(cfg, MetricLogger(stream=sys.stdout), device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    print(f"SPARSE MD SLICE sparse_md_kernel ({N} atoms, {cfg.n_steps} steps, twice): launches "
+          f"{json.dumps(launches)}; {wall:.2f} s; results " + json.dumps(res)
+          + f"; energies {json.dumps([float(e) for e in es])} ({smi})", flush=True)
+    if not (launches["sparse_fwd"] and launches["sparse_bwd"]) or (
+            launches["sparse_bwd_grads"] or launches["sparse_bwd2"]) or (
+            [c.launches for c in others] != before):
+        fail("the sparse MD path did not launch exactly #13 and #14, and no dense kernel")
+    if not (res["finite"] and res["max_nbr_overflow"] == 0 and np.isfinite(es).all()):
+        fail("the sparse MD rollout is not finite or overflowed")
+
+    # timing: one E + F, kernel and plain in turns; each kernel; the neighbour build
+    runs = {"plain": [], "kernel": []}
+    for side in ("plain", "kernel", "kernel", "plain"):
+        fn = ef_k if side == "kernel" else ef_p
+        with torch.no_grad():
+            runs[side].append(cuda_ms(lambda: fn(kp, x, idx, m), reps=2))
+    ef_ms = {k: sum(v) / len(v) for k, v in runs.items()}
+    with torch.no_grad():
+        t13 = cuda_ms(lambda: se._launch_fwd(hg, ai, oi, d0, mf, ep))
+        t14 = cuda_ms(lambda: se._launch_bwd(hg, ai, oi, d0, mf, ep, gp, gh, wt))
+        p13t = cuda_ms(lambda: se.sparse_fwd_plain(hg, ai, oi, d0, mf, ep), reps=1)
+        p14t = cuda_ms(lambda: se.sparse_bwd_plain(hg, ai, oi, d0, mf, ep, gp, gh), reps=1)
+        t_nb = cuda_ms(lambda: sp.neighbor_list(x, rc, K, with_overflow=True))
+    print(f"SPARSE MD TIMING E+F at N={N}: kernel {ef_ms['kernel']:.3f} ms = "
+          f"{N * 1e3 / ef_ms['kernel']:.1f} atom-E+F/s, plain {ef_ms['plain']:.3f} ms = "
+          f"{N * 1e3 / ef_ms['plain']:.1f} atom-E+F/s (runs {json.dumps(runs)}); rollout "
+          f"{res['steps_per_s']} steps/s = {res['atom_steps_per_s']} atom-steps/s; per kernel "
+          f"#13 {t13:.3f} ms (plain {p13t:.3f}), #14 {t14:.3f} ms (plain {p14t:.3f}) ({smi})",
+          flush=True)
+    step_ms = 1e3 / res["steps_per_s"]
+    edge = depth * (t13 + t14)
+    nb = t_nb / cfg.rebuild_every
+    print(f"SPARSE MD BREAKDOWN rollout step {step_ms:.3f} ms: edge kernels {depth}x("
+          f"{t13:.3f}+{t14:.3f}) = {edge:.3f} ms, neighbour build {t_nb:.3f} ms / "
+          f"{cfg.rebuild_every} steps = {nb:.3f} ms, torch glue (node update, gathers and "
+          f"scatter, integrator) {step_ms - edge - nb:.3f} ms", flush=True)
+    fma = sparse_fma(hg.shape[-1], ai.shape[-1], oi.shape[-1], ep["w_sem"].shape[-1], C)
+    E = N * K
+    src = "sake_tpu_torch/csrc/"
+    at = "sake_tpu/kernels/sparse_ef.py:"
+    return [
+        kernel_entry("sparse_fwd", src + "sparse_fwd.cu", at + "353", launches["sparse_fwd"],
+                     abs_md["sparse_fwd"], t13, p13t, fma["fwd"] * E,
+                     nbytes(hg, ai, oi, d0, mf, ep) + 4 * N * (3 * C + HK)),
+        kernel_entry("sparse_bwd", src + "sparse_bwd.cu", at + "401", launches["sparse_bwd"],
+                     abs_md["sparse_bwd"], t14, p14t, fma["bwd"] * E,
+                     nbytes(hg, ai, oi, d0, mf, ep, gp, gh) + nbytes(hg, ai, oi, d0)),
+    ]
+
+
+def sparse_train_phases(dev, smi) -> list:
+    """Phases 14-16 (see the module docstring); returns their kernel entries."""
+    import dataclasses
+
+    import torch
+
+    from sake_tpu_torch import sparse as sp
+    from sake_tpu_torch.kernels import sparse_ef as se
+    from sake_tpu_torch.kernels.functional import flat_params
+    from sake_tpu_torch.tasks import sparse_train as task
+    from sake_tpu_torch.tasks.registry import get_workload
+    from sake_tpu_torch.train.metrics import MetricLogger
+
+    run, cfg = get_workload("sparse_train_kernel")
+    if not cfg.use_kernel:
+        fail(f"sparse_train_kernel is not the kernel branch: {cfg}")
+    plain_cfg = dataclasses.replace(cfg, use_kernel=False)
+    N, K, heads = cfg.n_atoms, cfg.max_neighbors, cfg.n_heads
+    h, x = task.synthesize(cfg, dev)
+    with torch.no_grad():
+        idx, m = sp.neighbor_list(x, cfg.cutoff, K)
+    kp_k, loss_k = task.setup(cfg, dev)
+    kp_p, loss_p = task.setup(plain_cfg, dev)
+
+    # -- 14. #13, #14 with the leaf gradients and #15 against plain (layer 0) ----
+    gen = torch.Generator(dev).manual_seed(14)
+    with torch.no_grad():
+        hg, ai, oi, d0, mf, ep = _layer0_edge_inputs(kp_k, h, x, idx, m, heads)
+        C, HK = ep["w_xmix"].shape[1], ep["w_xmix"].shape[0]
+        rnd = lambda *s: torch.randn(*s, device=dev, generator=gen)
+        gp, gh = rnd(3, N, C), rnd(N, HK)
+        cg = (rnd(*hg.shape), rnd(*ai.shape), rnd(*oi.shape), rnd(*d0.shape))
+        k13 = se._launch_fwd(hg, ai, oi, d0, mf, ep)
+        p13 = se.sparse_fwd_plain(hg, ai, oi, d0, mf, ep)
+        wt = se.edge_transposes(ep)
+        kg = se._launch_bwd_grads(hg, ai, oi, d0, mf, ep, gp, gh, wt)
+        pg = se.sparse_bwd_plain(hg, ai, oi, d0, mf, ep, gp, gh, True)
+        torch.cuda.synchronize()
+    grad_names = ("d_h_g", "d_a_i", "d_o_i", "d_d0")
+    checks = {"sparse_fwd_train": list(zip(("pooled", "hatt"), k13, p13)),
+              "sparse_bwd_grads": [*zip(grad_names, kg[:4], pg[:4]),
+                                   *((f"dW.{n}", kg[4][n], pg[4][n]) for n in se.EDGE_LEAVES)]}
+    del k13, p13, kg, pg
+    k15 = se._launch_bwd2(hg, ai, oi, d0, mf, ep, gp, gh, *cg, wt)
+    p15 = se.sparse_bwd2_plain(hg, ai, oi, d0, mf, ep, gp, gh, *cg)
+    torch.cuda.synchronize()
+    checks["sparse_bwd2"] = [
+        *zip(("e_hg", "e_ai", "e_oi", "e_d0", "e_gp", "e_gh"), k15[:6], p15[:6]),
+        *((f"dW2.{n}", k15[6][n], p15[6][n]) for n in se.EDGE_LEAVES)]
+    abs_tr = check_pairs(f"SPARSE TRAIN (N={N}, K={K}, layer 0)", checks, SPARSE_TOL)
+    del k15, p15, checks
+
+    # -- 15. step parity against the plain (double autograd) branch ---------------
+    def loss_and_grads(kp, loss):
+        leaves = flat_params(kp)
+        lval = loss(kp)
+        g = torch.autograd.grad(lval, leaves, allow_unused=True)
+        return lval.detach(), [torch.zeros_like(p) if a is None else a for p, a in zip(leaves, g)]
+
+    lk, gk = loss_and_grads(kp_k, loss_k)
+    lp, gp_ = loss_and_grads(kp_p, loss_p)
+    grad_err = [rel_err(a, b) for a, b in zip(gk, gp_)]
+    loss_err = abs(float(lk - lp)) / abs(float(lp))
+    print(f"SPARSE TRAIN STEP 1 kernel vs plain branch (N={N}, K={K}): loss {float(lk):.7f} vs "
+          f"{float(lp):.7f} (rel {loss_err:.2e}); gradients of {len(gk)} leaves, max rel err "
+          f"{max(grad_err):.3e} (leaf {int(np.argmax(grad_err))}) "
+          + json.dumps([float(f"{e:.2e}") for e in grad_err]), flush=True)
+    if loss_err > SPARSE_TOL or max(grad_err) > SPARSE_TOL:
+        fail(f"sparse training step 1 beyond {SPARSE_TOL}")
+    # the energy loss (#14 with the leaf gradients) per leaf
+    e_t = torch.zeros(1, device=dev)
+    le = se.make_sparse_kernel_energy_loss(h, n_heads=heads)
+
+    def plain_energy_loss(p):
+        out = sp.sparse_model_forward(p, h, x, idx, m, n_heads=heads, update=False)[0]
+        return (out.sum(dim=(-2, -1)) - e_t).abs().mean()
+
+    _, gek = loss_and_grads(kp_k, lambda p: le(p, x, idx, m, e_t))
+    _, gep = loss_and_grads(kp_p, plain_energy_loss)
+    e_grad_err = [rel_err(a, b) for a, b in zip(gek, gep)]
+    print(f"SPARSE TRAIN energy-loss gradients kernel vs plain: max rel err "
+          f"{max(e_grad_err):.3e} (leaf {int(np.argmax(e_grad_err))})", flush=True)
+    if max(e_grad_err) > SPARSE_TOL:
+        fail(f"sparse energy-loss gradients beyond {SPARSE_TOL}")
+    steps = {"kernel": task.make_step(cfg, kp_k, loss_k),
+             "plain": task.make_step(plain_cfg, kp_p, loss_p)}
+    traj = {k: [float(s()) for _ in range(PARITY_STEPS)] for k, s in steps.items()}
+    traj_err = max(abs(a - b) / abs(b) for a, b in zip(traj["kernel"], traj["plain"]))
+    print(f"SPARSE TRAIN STEPS 1-{PARITY_STEPS} losses kernel {json.dumps(traj['kernel'])} plain "
+          f"{json.dumps(traj['plain'])}: max rel diff {traj_err:.2e}", flush=True)
+    if traj_err > LOSS_TOL:
+        fail(f"sparse training losses differ beyond {LOSS_TOL}")
+
+    # -- 16. the slice: sparse_train_kernel for its 100 steps ---------------------
+    counters = (se.sparse_fwd, se.sparse_bwd, se.sparse_bwd_grads, se.sparse_bwd2)
+    others = dense_counters()
+    before = [c.launches for c in others]
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, res = run(cfg, MetricLogger(stream=sys.stdout), device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    print(f"SPARSE TRAIN SLICE sparse_train_kernel ({N} atoms, {cfg.n_steps} steps): launches "
+          f"{json.dumps(launches)}; {wall:.2f} s; result " + json.dumps(res) + f" ({smi})",
+          flush=True)
+    if min(launches.values()) == 0 or [c.launches for c in others] != before:
+        fail("the sparse training path did not launch exactly #13, #14 and #15, and no dense "
+             "kernel")
+    if not (res["finite"] and res["loss_decreased"]):
+        fail("the sparse training loss is not finite or did not fall")
+
+    # timing: the train step, kernel and plain branches in turns
+    runs = {"plain": [], "kernel": []}
+    for side in ("plain", "kernel", "kernel", "plain"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            steps[side]()
+        torch.cuda.synchronize()
+        runs[side].append((time.perf_counter() - t0) * 1e3 / 2)
+    step_ms = {k: sum(v) / len(v) for k, v in runs.items()}
+    with torch.no_grad():
+        t = dict(
+            sparse_fwd_train=(cuda_ms(lambda: se._launch_fwd(hg, ai, oi, d0, mf, ep)),
+                              cuda_ms(lambda: se.sparse_fwd_plain(hg, ai, oi, d0, mf, ep),
+                                      reps=1)),
+            sparse_bwd_train=(cuda_ms(lambda: se._launch_bwd(hg, ai, oi, d0, mf, ep, gp, gh,
+                                                             wt)),
+                              cuda_ms(lambda: se.sparse_bwd_plain(hg, ai, oi, d0, mf, ep, gp,
+                                                                  gh), reps=1)),
+            sparse_bwd_grads=(cuda_ms(lambda: se._launch_bwd_grads(hg, ai, oi, d0, mf, ep, gp,
+                                                                   gh, wt)),
+                              cuda_ms(lambda: se.sparse_bwd_plain(hg, ai, oi, d0, mf, ep, gp,
+                                                                  gh, True), reps=1)),
+            sparse_bwd2=(cuda_ms(lambda: se._launch_bwd2(hg, ai, oi, d0, mf, ep, gp, gh, *cg,
+                                                         wt)),
+                         cuda_ms(lambda: se.sparse_bwd2_plain(hg, ai, oi, d0, mf, ep, gp, gh,
+                                                              *cg), reps=1)),
+        )
+    depth = cfg.depth
+    edge = depth * (t["sparse_fwd_train"][0] + t["sparse_bwd_train"][0]
+                    + t["sparse_bwd_grads"][0] + t["sparse_bwd2"][0])
+    print(f"SPARSE TRAIN TIMING train step at N={N}: kernel {step_ms['kernel']:.2f} ms, plain "
+          f"{step_ms['plain']:.2f} ms (runs {json.dumps(runs)}); per kernel (ms, kernel and "
+          f"plain) " + json.dumps({k: [round(a, 3), round(b, 3)] for k, (a, b) in t.items()})
+          + f" ({smi})", flush=True)
+    print(f"SPARSE TRAIN BREAKDOWN kernel step {step_ms['kernel']:.3f} ms: edge kernels "
+          f"{depth}x(#13 + #14 + #14 with dW + #15) = {edge:.3f} ms, the rest (torch glue: node "
+          f"products, gathers and scatters, double autograd, adam) "
+          f"{step_ms['kernel'] - edge:.3f} ms", flush=True)
+    fma = sparse_fma(hg.shape[-1], ai.shape[-1], oi.shape[-1], ep["w_sem"].shape[-1], C)
+    E = N * K
+    ins = nbytes(hg, ai, oi, d0, mf, ep)
+    src = "sake_tpu_torch/csrc/"
+    at = "sake_tpu/kernels/sparse_ef.py:"
+    return [
+        kernel_entry("sparse_fwd_train", src + "sparse_fwd.cu", at + "353",
+                     launches["sparse_fwd"], abs_tr["sparse_fwd_train"],
+                     *t["sparse_fwd_train"], fma["fwd"] * E, ins + 4 * N * (3 * C + HK)),
+        kernel_entry("sparse_bwd_grads", src + "sparse_bwd.cu", at + "401",
+                     launches["sparse_bwd_grads"], abs_tr["sparse_bwd_grads"],
+                     *t["sparse_bwd_grads"], (fma["bwd"] + fma["grads"]) * E,
+                     ins + nbytes(gp, gh) + nbytes(hg, ai, oi, d0, ep)),
+        kernel_entry("sparse_bwd2", src + "sparse_bwd2.cu", at + "501",
+                     launches["sparse_bwd2"], abs_tr["sparse_bwd2"], *t["sparse_bwd2"],
+                     2 * (fma["bwd"] + fma["grads"]) * E,
+                     ins + nbytes(gp, gh, cg) + nbytes(hg, ai, oi, d0, gp, gh, ep)),
+    ]
 
 
 if __name__ == "__main__":

@@ -122,9 +122,21 @@ def load():
     # bh, bx, bv, upd, leaves, leaves_t, strides, resid, h_fin, tx0, g_e, readout,
     # tbh, tbx, tbv, tresid, rows, rows_t, t_rows, scratch, dh0, dx0, ro_part
     lib.sake_fused_bwd.argtypes = [P] * 27 + dims + [I, I, P]
+    # the sparse edge kernels: hg, ai, oi, d0, m, w, then ... dims (NR, K, F, R, H,
+    # Kh, C), stream
+    edims = [I] * 7
+    lib.sake_sparse_fwd.argtypes = [P] * 6 + [P, P] + edims + [P]  # pooled, hatt
+    lib.sake_sparse_bwd.argtypes = [P] * 6 + [P, P] + [P] * 4 + edims + [P]  # gp, gh, 4 outs
+    lib.sake_sparse_bwd_rows.argtypes = [P] * 6 + [P, P] + [P] * 4 + [P] + edims + [P]
+    # ... gp, gh, 4 cotangents, 6 outs, rows, t_rows
+    lib.sake_sparse_bwd2.argtypes = [P] * 6 + [P, P] + [P] * 4 + [P] * 6 + [P, P] + edims + [P]
+    # n_terms, a, na, g, ng, leaf, E, n_chunks, partial, leaf_off, n_leaves, out, stream
+    lib.sake_sparse_contract.argtypes = [I, P, P, P, P, P, LL, I, P, P, I, P, P]
     for fn in ("sake_resid_fwd", "sake_resid_infer", "sake_resid_bwd", "sake_resid_bwd_rows",
                "sake_param_grads", "sake_resid_jvp", "sake_resid_tbwd", "sake_param_grads_aug",
-               "sake_fused_primal", "sake_one_ef", "sake_one_ef_grid", "sake_fused_bwd"):
+               "sake_fused_primal", "sake_one_ef", "sake_one_ef_grid", "sake_fused_bwd",
+               "sake_sparse_fwd", "sake_sparse_bwd", "sake_sparse_bwd_rows", "sake_sparse_bwd2",
+               "sake_sparse_contract"):
         getattr(lib, fn).restype = I
     for fn in ("sake_resid_fwd_smem_bytes", "sake_resid_bwd_smem_bytes",
                "sake_resid_jvp_smem_bytes", "sake_resid_tbwd_smem_bytes"):

@@ -24,7 +24,7 @@ from typing import Any, Callable, Dict, Tuple
 # ROADMAP Queue 1 item that ports each
 _NOT_PORTED = {
     "nbody": 11, "forecast": 11, "iso17": 11, "ani": 11, "ablation": 11,
-    "oc20": 10, "sparse_md": 10, "sparse_train": 10, "flows": 12, "sweep": 16,
+    "oc20": 11, "flows": 12, "sweep": 16,
 }
 
 
@@ -67,7 +67,7 @@ _REGISTRY: Dict[str, Callable] = {
     "ani": _lazy("ani", "run", "ANIConfig"),
     "oc20": _lazy("oc20", "run", "OC20Config"),
     "oc20_sparse_kernel": _lazy("oc20", "run", "OC20Config", use_sparse_kernel=True),
-    # cutoff-sparse
+    # cutoff-sparse: the plain sparse model, or the edge kernels #13-#15
     "sparse_md": _lazy("sparse_md", "run", "SparseMDConfig"),
     "sparse_train": _lazy("sparse_train", "run", "SparseTrainConfig"),
     "sparse_train_kernel": _lazy("sparse_train", "run", "SparseTrainConfig", use_kernel=True),

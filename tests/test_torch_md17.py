@@ -228,8 +228,8 @@ def test_registry_lists_jax_and_rejects_the_rest():
     from sake_tpu_torch.tasks import registry
 
     assert registry.list_workloads() == jax_list()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        registry.get_workload("sparse_md")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        registry.get_workload("oc20_sparse_kernel")
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         registry.get_workload("dw4")
     with pytest.raises(KeyError):
