@@ -56,23 +56,32 @@ Phases (each prints its own lines; any failure exits non-zero):
    layer); the fused primal (#11: E plane, dx, boundaries, residuals; and its
    E plane against the torch readout the loss reads) and the fused backward
    (#12: dh0, dx0, the four readout and every leaf gradient) against their
-   plain versions and #12 against the shared backward on one FwdOut; limit
-   1e-4 relative per tensor.
+   plain versions and #12 against the shared backward on one FwdOut; then
+   the resid and retrace modes' kernels: #18 (``csrc/aug_fwd.cu``: every
+   primal and tangent boundary, final state and residual), #16 (its
+   instantiation without streams: boundaries and final states), #17
+   (``csrc/retrace_bwd.cu`` per layer + the augmented contraction: dh0, dx0,
+   dth0 and every leaf of every layer) and #19 (#10's launches on #18's
+   streams) against their plain versions (``torch.func`` jvp / vjp of the
+   layers for #16-#18), and #17 against #19; then #16-#18 on small models of
+   hidden 8 (50 rbf channels > H*K = 32) and 16; limit 1e-4 relative per
+   tensor.
 9. MD17 step parity: ``tasks/md17`` kernel branch (``make_ef_train2``) in
-   fused and in shared mode against the plain branch (double autograd through
-   the functional model) from one seeded init at B = 4: E and F of each
-   kernel primal against the functional path (as phase 4's limits), step
-   1's loss and every gradient (1e-4 relative per leaf), the first 5
-   losses (1e-3 relative).
+   each of its four modes (fused, shared, resid, retrace) against the plain
+   branch (double autograd through the functional model) from one seeded
+   init at B = 4: E and F of each kernel primal against the functional path
+   (as phase 4's limits), step 1's loss and every gradient (1e-4 relative
+   per leaf), the first 5 losses (1e-3 relative).
 10. MD17 slices: ``registry.get_workload("md17_kernel")`` (``MD17Config(
    use_kernel_ef=True)``, fused mode) with n_valid 200 and 2 epochs of 250
-   steps (cut from 1000 and 100), then shared mode for 1 epoch: each run
-   must launch every kernel of its mode and none of the other's, the loss
+   steps (cut from 1000 and 100), then with ``aug_mode`` shared and resid
+   for 1 epoch (250 steps) and retrace for 100 steps (n_train 400): each run
+   must launch every kernel of its mode and none of another's, the loss
    must stay finite and fall, and the E and F MAE (kcal/mol) are printed.
-   Then the train step of the plain, shared and fused branches at B = 4 and
-   B = 512 in turns (every run printed), a BREAKDOWN of each kernel branch's
-   step, and each kernel timed at both batches beside its plain version and
-   its bound.
+   Then the train step of the plain branch and the four kernel modes at B =
+   4 and B = 512 in turns (every run printed), a BREAKDOWN of each kernel
+   mode's step, and each kernel timed at both batches beside its plain
+   version and its bound.
 
 11. Sparse edge kernels vs plain, MD: ``SparseMDConfig()``'s box (4096
    atoms, hidden 64, depth 6, 4 heads, cutoff 5 + skin 0.5, K = 64) and its
@@ -134,7 +143,9 @@ TRAIN_CHECK_B = 300  # three waves of one block per SM on 132 SMs
 TRAIN_BATCHES = (4, 512)  # MD17Config's batch, and bench_md17_train.py's
 # the slice's cut: MD17Config() validates on 1000 molecules and trains 100 epochs
 MD17_RUN = dict(n_valid=200, n_epochs=2, epochs_per_block=1)
-MD17_SHARED_RUN = dict(n_valid=200, n_epochs=1, epochs_per_block=1)  # shared mode: 250 steps
+MD17_SHARED_RUN = dict(n_valid=200, n_epochs=1, epochs_per_block=1)  # shared, resid: 250 steps
+# retrace mode, cut further to fit the time budget: 100 steps on 400 molecules
+MD17_RETRACE_RUN = dict(n_train=400, n_valid=200, n_epochs=1, epochs_per_block=1)
 SPARSE_TOL = 1e-4  # the sparse edge kernels and the sparse training step, relative per tensor
 SPARSE_CELL_CAPACITY = 48  # the periodic run's cell list (about 12 atoms a cell at 0.05 / A^3)
 SPARSE_PERIODIC_STEPS = 20
@@ -223,8 +234,61 @@ def kernel_entry(name, source, replaces, launches, max_abs_err, ms, plain_ms, fm
     # or the sparse edge chain
 
 
+def report_checks(checks: dict, abs_errs: dict, label: str):
+    """Print each MD17 training check (a list of (name, kernel, reference))
+    and fail on a relative error per tensor beyond TRAIN_TOL or a
+    non-finite kernel value; record each check's max absolute error."""
+    import torch
+
+    for name, pairs in checks.items():
+        errs = {n: rel_err(a, b) for n, a, b in pairs}
+        abs_errs[name] = max(abs_err(a, b) for _, a, b in pairs)
+        w = max(errs, key=errs.get)
+        finite = all(bool(torch.isfinite(a).all()) for _, a, _ in pairs)
+        print(f"MD17 TRAIN {name} {label}: max rel err {errs[w]:.3e} ({w}), max abs err "
+              f"{abs_errs[name]:.3e}, finite {finite} "
+              + json.dumps({k: float(f"{v:.2e}") for k, v in errs.items()}), flush=True)
+        if errs[w] > TRAIN_TOL or not finite:
+            fail(f"MD17 training kernel {name} beyond {TRAIN_TOL}")
+
+
+def narrow_aug_checks(dev, hid: int) -> dict:
+    """#18, #16 and #17 against their plain versions on a small seeded model
+    of hidden width ``hid`` (depth 2, 4 heads, 50 rbf channels), B = 4, N = 7."""
+    import torch
+
+    from sake_tpu_torch.kernels import train2_ef as t2
+    from sake_tpu_torch.kernels.adapter import linen_tree, model_params_from_linen
+    from sake_tpu_torch.kernels.leaves import LEAF_NAMES, wide_stack
+    from sake_tpu_torch.models import SAKEModel
+
+    model = SAKEModel(hid, 1, 2, in_features=5, device=dev,
+                      generator=torch.Generator().manual_seed(hid))
+    leaves = wide_stack(model_params_from_linen(linen_tree(model), device=dev), 4)
+    gen = torch.Generator(dev).manual_seed(hid)
+    rnd = lambda *shape: torch.randn(*shape, device=dev, generator=gen)
+    h0, xs, tx0, dh, dth = rnd(4, 7, hid), 1.5 * rnd(3, 4, 7), rnd(3, 4, 7), rnd(4, 7, hid), \
+        rnd(4, 7, hid)
+    upd = [1.0, 0.4]
+    names = ("bh", "bx", "bv", "h_fin", "x_fin", "v_fin")
+    with torch.no_grad():
+        checks = {}
+        for name, kf, pf in (("aug_fwd", t2.aug_fwd, t2.aug_fwd_plain),
+                             ("retrace_fwd", t2.retrace_fwd, t2.retrace_fwd_plain)):
+            k, p = kf(leaves, h0, xs, upd, tx0), pf(leaves, h0, xs, upd, tx0)
+            checks[name] = [(f"{lab}.{n}", a, b) for lab, kk, pp in (("p", k[0], p[0]),
+                                                                     ("t", k[1], p[1]))
+                            for n, a, b in zip(names, kk[:6], pp[:6])]
+        k = t2.retrace_bwd(leaves, *p, upd, dh, dth)
+        q = t2.retrace_bwd_plain(leaves, *p, upd, dh, dth)
+        torch.cuda.synchronize()
+    checks["retrace_bwd"] = [*zip(("dh0", "dx0", "dth0"), k[:3], q[:3]),
+                             *((n, k[3][n], q[3][n]) for n in LEAF_NAMES)]
+    return checks
+
+
 def dense_counters() -> tuple:
-    """The launch counts of every dense-layer kernel (K1, K2, #3-#12): a
+    """The launch counts of every dense-layer kernel (K1, K2, #3-#12, #16-#19): a
     sparse path must leave them all where they were."""
     from sake_tpu_torch.kernels import one_ef, resid_ef
     from sake_tpu_torch.kernels import train2_ef as t2
@@ -232,7 +296,8 @@ def dense_counters() -> tuple:
     return (resid_ef.resid_fwd, resid_ef.resid_infer, resid_ef.resid_bwd,
             resid_ef.resid_bwd_rows, resid_ef.param_grads, one_ef.one_energy_forces,
             t2.resid_jvp, t2.resid_tbwd, t2.resid_bwd_aug, t2.param_grads_aug, t2.shared_fwd,
-            t2.shared_bwd, t2.fused_primal, t2.fused_bwd_block, t2.fused_bwd_grads)
+            t2.shared_bwd, t2.fused_primal, t2.fused_bwd_block, t2.fused_bwd_grads, t2.aug_fwd,
+            t2.aug_bwd, t2.retrace_fwd, t2.retrace_bwd)
 
 
 def main() -> int:
@@ -846,16 +911,7 @@ def md17_train_phases(dev, smi) -> list:
                                    *((f"{n}[{l}]", ka[3][n][l], pa[3][n][l])
                                      for n in LEAF_NAMES for l in range(depth))]
     abs_train = {}
-    for name, pairs in checks.items():
-        errs = {n: rel_err(a, b) for n, a, b in pairs}
-        abs_train[name] = max(abs_err(a, b) for _, a, b in pairs)
-        w = max(errs, key=errs.get)
-        finite = all(bool(torch.isfinite(a).all()) for _, a, _ in pairs)
-        print(f"MD17 TRAIN {name} vs plain (B={Bc}, N={N}, depth {depth}): max rel err "
-              f"{errs[w]:.3e} ({w}), max abs err {abs_train[name]:.3e}, finite {finite} "
-              + json.dumps({k: float(f"{v:.2e}") for k, v in errs.items()}), flush=True)
-        if errs[w] > TRAIN_TOL or not finite:
-            fail(f"MD17 training kernel {name} beyond {TRAIN_TOL}")
+    report_checks(checks, abs_train, f"vs plain (B={Bc}, N={N}, depth {depth})")
     del checks, ka, pa, p8, p9
 
     # #11 and #12 against their plain versions, and #12 against the shared
@@ -891,24 +947,56 @@ def md17_train_phases(dev, smi) -> list:
             *zip(names12, flat12(k12), flat12(sh)),
             *((n, a, b) for (n, a), (_, b) in zip(grads12(k12), grads12(sh)))]
         del tf, sh, k12
-    for name, pairs in checks.items():
-        errs = {n: rel_err(a, b) for n, a, b in pairs}
-        abs_train[name] = max(abs_err(a, b) for _, a, b in pairs)
-        w = max(errs, key=errs.get)
-        finite = all(bool(torch.isfinite(a).all()) for _, a, _ in pairs)
-        print(f"MD17 TRAIN {name} (B={Bc}, N={N}, depth {depth}): max rel err {errs[w]:.3e} "
-              f"({w}), max abs err {abs_train[name]:.3e}, finite {finite} "
-              + json.dumps({k: float(f"{v:.2e}") for k, v in errs.items()}), flush=True)
-        if errs[w] > TRAIN_TOL or not finite:
-            fail(f"MD17 training kernel {name} beyond {TRAIN_TOL}")
+    report_checks(checks, abs_train, f"(B={Bc}, N={N}, depth {depth})")
     del checks, p7, p11
+
+    # the resid and retrace modes: #18, #16, #17 and #19 against their plain
+    # versions, and #17 against #19 (two routes to the same gradients)
+    with torch.no_grad():
+        k18 = t2.aug_fwd(leaves, h0, xs, upd, tx0)
+        p18 = t2.aug_fwd_plain(leaves, h0, xs, upd, tx0)
+        torch.cuda.synchronize()
+        checks = {"aug_fwd": [
+            (f"{lab}.{n}", a, b) for lab, k, p in (("p", k18[0], p18[0]), ("t", k18[1], p18[1]))
+            for n, a, b in [*zip(fwd_names, k[:6], p[:6]),
+                            *((r, k.resid[r], p.resid[r]) for r in resid_ef.RESIDS)]]}
+        del k18
+        k16 = t2.retrace_fwd(leaves, h0, xs, upd, tx0)
+        p16 = t2.retrace_fwd_plain(leaves, h0, xs, upd, tx0)
+        torch.cuda.synchronize()
+        checks["retrace_fwd"] = [(f"{lab}.{n}", a, b) for lab, k, p in
+                                 (("p", k16[0], p16[0]), ("t", k16[1], p16[1]))
+                                 for n, a, b in zip(fwd_names, k[:6], p[:6])]
+        del k16
+        names_aug = ("dh0", "dx0", "dth0")
+        flat_aug = lambda r: [*zip(names_aug, r[:3]),
+                              *((f"{n}[{l}]", r[3][n][l]) for n in LEAF_NAMES for l in range(depth))]
+        k17 = t2.retrace_bwd(leaves, *p16, upd, dh_fin, dth_fin, leaves_t=leaves_t)
+        p17 = t2.retrace_bwd_plain(leaves, *p16, upd, dh_fin, dth_fin)
+        torch.cuda.synchronize()
+        checks["retrace_bwd"] = [(n, a, b) for (n, a), (_, b) in zip(flat_aug(k17), flat_aug(p17))]
+        del p17
+        k19 = t2.aug_bwd(leaves, *p18, upd, dh_fin, dth_fin, leaves_t=leaves_t)
+        p19 = t2.resid_aug_bwd_plain(leaves, *p18, upd, dh_fin, dth_fin)
+        torch.cuda.synchronize()
+        checks["aug_bwd"] = [(n, a, b) for (n, a), (_, b) in zip(flat_aug(k19), flat_aug(p19))]
+        checks["retrace_bwd_vs_aug_bwd"] = [(n, a, b) for (n, a), (_, b) in
+                                            zip(flat_aug(k17), flat_aug(k19))]
+        del k17, k19, p19, p16, p18
+    report_checks(checks, abs_train, f"(B={Bc}, N={N}, depth {depth})")
+    del checks
+    # the same kernels at narrow widths: 50 rbf channels against H*K = 32 at
+    # hidden 8 (the widest buffer of a shared-memory carve changes) and 64 at
+    # hidden 16
+    for hid in (8, 16):
+        narrow = narrow_aug_checks(dev, hid)
+        report_checks(narrow, {}, f"at hidden {hid} (B=4, N=7, depth 2)")
 
     # -- 9. step parity: kernel branch against the plain branch -----------------
     batches = shuffle_batches(np.random.RandomState(0), {k: v[:n_tr] for k, v in train.items()},
                               cfg.batch_size)
-    branches = {"fused": branch(True, "fused"), "shared": branch(True, "shared"),
-                "plain": branch(False)}
-    kernel_sides = ("fused", "shared")
+    kernel_sides = ("fused", "shared", "resid", "retrace")
+    branches = {**{m: branch(True, m) for m in kernel_sides}, "plain": branch(False)}
 
     def loss_and_grads(br, batch):  # the loss of tasks/md17.make_step_fn
         leaves_ = tree_leaves(br["params"])
@@ -931,7 +1019,8 @@ def md17_train_phases(dev, smi) -> list:
     want = flat_params(model_params_from_linen(tree, dev))
     with torch.no_grad():
         e_p, f_p = branches["plain"]["ef"](None, batches[0]["x"])
-    for side, primal in (("fused", "#11"), ("shared", "#7 + #8")):
+    for side, primal in (("fused", "#11"), ("shared", "#7 + #8"), ("resid", "K1 + K2"),
+                         ("retrace", "K1 + K2")):
         br = branches[side]
         with torch.no_grad():
             e_k, f_k = br["ef"](br["params"], batches[0]["x"])
@@ -963,11 +1052,19 @@ def md17_train_phases(dev, smi) -> list:
         if traj_err > LOSS_TOL:
             fail(f"MD17 step losses ({side}) differ beyond {LOSS_TOL}")
 
-    # -- 10. the slices: md17_kernel (fused mode) from the registry, then
-    # shared mode; then timing -------------------------------------------------
-    fused_counters = (t2.fused_primal, t2.fused_bwd_block, t2.fused_bwd_grads)
-    shared_counters = (t2.shared_fwd, t2.shared_bwd, t2.resid_jvp, t2.resid_tbwd,
-                       t2.resid_bwd_aug, t2.param_grads_aug)
+    # -- 10. the slices: md17_kernel from the registry in its fused mode,
+    # then in the shared, resid and retrace modes; then timing -----------------
+    # the training counters each mode must move (K1 and K2 count the shared
+    # primal's and the resid_energy_forces primal's launches); the rest stay 0
+    k12 = (resid_ef.resid_fwd, resid_ef.resid_bwd)
+    aug10 = (t2.resid_tbwd, t2.resid_bwd_aug, t2.param_grads_aug)
+    mode_counters = {
+        "fused": (t2.fused_primal, t2.fused_bwd_block, t2.fused_bwd_grads),
+        "shared": (t2.shared_fwd, t2.shared_bwd, t2.resid_jvp, *aug10, *k12),
+        "resid": (t2.aug_fwd, t2.aug_bwd, *aug10, *k12),
+        "retrace": (t2.retrace_fwd, t2.retrace_bwd, *k12),
+    }
+    all_counters = tuple(dict.fromkeys(k for ks in mode_counters.values() for k in ks))
 
     def slice_run(label, run, c, counters):
         """Train ``c`` through ``run``; every counter of ``counters`` must
@@ -980,7 +1077,7 @@ def md17_train_phases(dev, smi) -> list:
             return state, losses
 
         task.run_epoch = recording_epoch  # keeps every step's loss of the run
-        for k in (*fused_counters, *shared_counters):
+        for k in all_counters:
             k.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -988,7 +1085,7 @@ def md17_train_phases(dev, smi) -> list:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         task.run_epoch = run_epoch
-        launches = {k.__name__: k.launches for k in (*fused_counters, *shared_counters)}
+        launches = {k.__name__: k.launches for k in all_counters}
         losses = torch.cat(step_losses).cpu()
         print(f"MD17 SLICE {label}: launches {json.dumps(launches)}; {len(losses)} steps in "
               f"{wall:.2f} s with the evaluation; loss first {float(losses[0]):.6f} last "
@@ -1000,7 +1097,7 @@ def md17_train_phases(dev, smi) -> list:
               f"{[float(v) for v in results['f_mae_ci']]})", flush=True)
         if min(k.launches for k in counters) == 0:
             fail(f"the MD17 {label} path did not launch every kernel")
-        if any(k.launches for k in (*fused_counters, *shared_counters) if k not in counters):
+        if any(k.launches for k in all_counters if k not in counters):
             fail(f"the MD17 {label} path launched another mode's kernels")
         if not (torch.isfinite(losses).all() and losses[-20:].mean() < losses[:20].mean()):
             fail(f"the MD17 {label} training loss is not finite or did not fall")
@@ -1011,16 +1108,21 @@ def md17_train_phases(dev, smi) -> list:
     run_k, cfg_k = get_workload("md17_kernel", **MD17_RUN)
     if not (cfg_k.use_kernel_ef and cfg_k.aug_mode == "fused"):
         fail(f"md17_kernel is not the fused kernel branch: {cfg_k}")
-    launches = slice_run("md17_kernel (fused mode)", run_k, cfg_k, fused_counters)
-    launches.update({k: v for k, v in slice_run(
-        "shared mode", task.run, dataclasses.replace(cfg, **MD17_SHARED_RUN),
-        shared_counters).items() if k in {c.__name__ for c in shared_counters}})
+    launches = slice_run("md17_kernel (fused mode)", run_k, cfg_k, mode_counters["fused"])
+    for mode, over in (("shared", MD17_SHARED_RUN), ("resid", MD17_SHARED_RUN),
+                       ("retrace", MD17_RETRACE_RUN)):
+        run_m, cfg_m = get_workload("md17_kernel", aug_mode=mode, **over)
+        ran = slice_run(f"md17_kernel aug_mode={mode!r}", run_m, cfg_m, mode_counters[mode])
+        # each kernel's launches on its own path: #10's from the shared run
+        own = mode_counters[mode][:6 if mode == "shared" else 2]
+        launches.update({c.__name__: ran[c.__name__] for c in own})
 
     entries = {}
-    sides = ("plain", "shared", "fused", "fused", "shared", "plain")
+    order = ("plain", *kernel_sides)
+    sides = (*order, *order[::-1])
     for B in TRAIN_BATCHES:
         batch = {k: v[:B] for k, v in train.items()}
-        runs = {"plain": [], "shared": [], "fused": []}
+        runs = {k: [] for k in order}
         steps = 5 if B < 64 else 2
         for side in sides:
             br = branches[side]
@@ -1151,6 +1253,57 @@ def md17_train_phases(dev, smi) -> list:
         print(f"MD17 BREAKDOWN fused-mode step at B={B}, {step_ms['fused']:.3f} ms: "
               + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items())
               + f", rest {rest:.3f} ms ({len(zero_grads)} parameter tensors)", flush=True)
+        # the resid and retrace modes: primal K1 + K2 (resid_energy_forces),
+        # then per chunk of aug_chunk molecules #18 or #16, the head, #19 or #17
+        aug_chunk = 128  # make_ef_train2's default, which the task uses
+        Bc_ = min(B, aug_chunk)
+        n_chunks = -(-B // aug_chunk)
+        for mode in ("resid", "retrace"):
+            br = branches[mode]
+            prm = br["params"]
+            with torch.no_grad():
+                leaves = wide_stack(prm, cfg.n_heads)
+                leaves_t = transposed(leaves)
+                h_in = species.to(dev).expand(B, N, -1)
+                fwd_fn, bwd_fn = ((t2.aug_fwd, t2.aug_bwd) if mode == "resid"
+                                  else (t2.retrace_fwd, t2.retrace_bwd))
+                fwd_plain, bwd_plain = ((t2.aug_fwd_plain, t2.resid_aug_bwd_plain)
+                                        if mode == "resid"
+                                        else (t2.retrace_fwd_plain, t2.retrace_bwd_plain))
+                fname, bname = fwd_fn.__name__, bwd_fn.__name__
+                af = fwd_fn(leaves, h0, xs, upd, tx0)
+                _, dh_a, dth_a = t2.head_grads(prm, af[0].h_fin, af[1].h_fin, g_e)
+                ab = bwd_fn(leaves, *af, upd, dh_a, dth_a, leaves_t=leaves_t)
+                t[fname] = (cuda_ms(lambda: fwd_fn(leaves, h0, xs, upd, tx0)),
+                            cuda_ms(lambda: fwd_plain(leaves, h0, xs, upd, tx0), reps=plain_reps))
+                t[bname] = (cuda_ms(lambda: bwd_fn(leaves, *af, upd, dh_a, dth_a,
+                                                   leaves_t=leaves_t)),
+                            cuda_ms(lambda: bwd_plain(leaves, *af, upd, dh_a, dth_a),
+                                    reps=plain_reps))
+                moved[fname] = nbytes(leaves, h0, xs, tx0, af)
+                moved[bname] = nbytes(leaves, leaves_t, [f[:3] for f in af], dh_a, dth_a, ab)
+                if mode == "resid":
+                    moved[bname] += nbytes([f.resid for f in af])
+                # the step's parts at its own chunk size
+                sl = slice(0, Bc_)
+                h0c, xsc, txc, gec = h0[sl], xs[:, sl].contiguous(), tx0[:, sl].contiguous(), g_e[sl]
+                afc = fwd_fn(leaves, h0c, xsc, upd, txc)
+                _, dhc, dthc = t2.head_grads(prm, afc[0].h_fin, afc[1].h_fin, gec)
+                parts = dict(
+                    primal=cuda_ms(lambda: resid_ef.resid_energy_forces(prm, h_in, batch["x"],
+                                                                        n_heads=cfg.n_heads)),
+                    aug_forward=n_chunks * cuda_ms(lambda: fwd_fn(leaves, h0c, xsc, upd, txc)),
+                    head=n_chunks * cuda_ms(lambda: t2.head_grads(prm, afc[0].h_fin,
+                                                                  afc[1].h_fin, gec)),
+                    aug_backward=n_chunks * cuda_ms(lambda: bwd_fn(leaves, *afc, upd, dhc, dthc,
+                                                                   leaves_t=leaves_t)))
+                del af, ab, afc
+            zero_grads = [torch.zeros_like(p) for p in tree_leaves(prm)]
+            parts["optimizer"] = cuda_ms(lambda: br["state"].apply_gradients(zero_grads))
+            rest = step_ms[mode] - sum(parts.values())
+            print(f"MD17 BREAKDOWN {mode}-mode step at B={B} ({n_chunks} chunk(s) of {Bc_}), "
+                  f"{step_ms[mode]:.3f} ms: " + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items())
+                  + f", rest {rest:.3f} ms ({len(zero_grads)} parameter tensors)", flush=True)
         print(f"MD17 TIMING per kernel (ms, kernel and plain) at B={B}, N={N}, depth {depth}: "
               + json.dumps({k: [round(a, 3), round(b, 3)] for k, (a, b) in t.items()}),
               flush=True)
@@ -1158,7 +1311,11 @@ def md17_train_phases(dev, smi) -> list:
                    resid_tbwd=fma["tbwd"], resid_bwd_aug=fma["bwd"],
                    param_grads_aug=fma["grads_aug"], fused_primal=fma["fwd"] + fma["bwd"],
                    fused_bwd_block=fma["jvp"] + fma["tbwd"] + fma["bwd"],
-                   fused_bwd_grads=fma["grads_aug"])
+                   fused_bwd_grads=fma["grads_aug"], aug_fwd=fma["fwd"] + fma["jvp"],
+                   retrace_fwd=fma["fwd"] + fma["jvp"],
+                   aug_bwd=fma["tbwd"] + fma["bwd"] + fma["grads_aug"],
+                   retrace_bwd=fma["fwd"] + fma["jvp"] + fma["tbwd"] + fma["bwd"]
+                   + fma["grads_aug"])
         print(f"MD17 BOUNDS at B={B} (ms, by): " + json.dumps(
             {k: [round(bound(ops[k], moved[k])[0], 4), bound(ops[k], moved[k])[1]] for k in t}),
             flush=True)
@@ -1172,7 +1329,9 @@ def md17_train_phases(dev, smi) -> list:
                  resid_jvp=("resid_jvp.cu", "1397"), resid_tbwd=("resid_tbwd.cu", "1507"),
                  resid_bwd_aug=("resid_bwd.cu", "1507"), param_grads_aug=("param_grads.cu", "1507"),
                  fused_primal=("fused_ef.cu", "1239"), fused_bwd_block=("fused_bwd.cu", "1750"),
-                 fused_bwd_grads=("param_grads.cu", "1750"))
+                 fused_bwd_grads=("param_grads.cu", "1750"), aug_fwd=("aug_fwd.cu", "584"),
+                 retrace_fwd=("aug_fwd.cu", "270"), retrace_bwd=("retrace_bwd.cu", "379"),
+                 aug_bwd=("resid_tbwd.cu", "723"))
     errs = dict(abs_train, fused_bwd_block=abs_train["fused_bwd"],
                 fused_bwd_grads=abs_train["fused_bwd"])
     return [kernel_entry(name, src + where[name][0], at + where[name][1], launches[name],

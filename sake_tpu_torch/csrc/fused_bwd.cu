@@ -38,38 +38,14 @@
 // body, compiled for 256 threads in resid_jvp.cu (216 registers), gets 128
 // registers here.
 
+#include "aug_pullback.cuh"
 #include "readout_head.cuh"
-#include "resid_bwd.cuh"
 #include "resid_jvp.cuh"
-#include "resid_tbwd.cuh"
 
 namespace sake {
 namespace {
 
 constexpr int kFusedThreads = 512;
-
-// The two chains' state and the Hessian terms: the tangent chain's dual dh
-// (values: its state; tangents: the layer's Hessian term of h), dx, dv and
-// the dual sender / receiver sums and d_v_in whose tangents are the Hessian
-// terms of x and v; the primal chain's dh, dx, dv.
-struct Carry {
-  float *ct_dh, *ct_dx, *ct_dv, *ct_dxs, *ct_dxr, *ct_dvo, *cp_dh, *cp_dx, *cp_dv;
-};
-
-__host__ __device__ inline Carry carve_carry(Carver& cv, const Dims& d) {
-  const long long N = d.N, F = d.F;
-  Carry c;
-  c.ct_dh = cv.take(2 * N * F);
-  c.ct_dx = cv.take(3 * N);
-  c.ct_dv = cv.take(3 * N);
-  c.ct_dxs = cv.take(6 * N);
-  c.ct_dxr = cv.take(6 * N);
-  c.ct_dvo = cv.take(6 * N);
-  c.cp_dh = cv.take(N * F);
-  c.cp_dx = cv.take(3 * N);
-  c.cp_dv = cv.take(3 * N);
-  return c;
-}
 
 __host__ __device__ inline long long fused_bwd_smem_floats(const Dims& d, int F0) {
   Carver cv{nullptr};
@@ -77,8 +53,7 @@ __host__ __device__ inline long long fused_bwd_smem_floats(const Dims& d, int F0
   Carver head{nullptr};
   head.take((long long)d.N * d.F);  // h_fin
   long long work = jvp_smem_floats(d) + head.off + train_head_floats(d.N, F0);
-  work = work > tb_smem_floats(d) ? work : tb_smem_floats(d);
-  work = work > bwd_smem_floats(d) ? work : bwd_smem_floats(d);
+  work = work > aug_pullback_floats(d) ? work : aug_pullback_floats(d);
   return cv.off + work;
 }
 
@@ -117,32 +92,9 @@ fused_bwd_kernel(Dims d, const float* __restrict__ bh, const float* __restrict__
                        P.cp_dh, P.ct_dh, ro_part + (size_t)m * ro_len);
 
     // phase 2: both cotangent chains, layer by layer in reverse
-    for (int l = d.depth - 1; l >= 0; --l) {
-      Carver ct{work};
-      TbSmem ST = carve_tb(ct, d);
-      ST.sdh = P.ct_dh;
-      ST.sdx = P.ct_dx;
-      ST.sdv = P.ct_dv;
-      ST.sdxs = P.ct_dxs;
-      ST.sdxr = P.ct_dxr;
-      ST.sdvo = P.ct_dvo;
-      tbwd_layer(d, ST, m, l, upd[l], L, LT, bh, bx, bv, tbh, tbx, tbv, RS, TR, TRW, TTW,
-                 gscratch, nullptr, nullptr, nullptr);
-      Carver cb{work};
-      BwdSmem SB = carve_bwd(cb, d);
-      SB.sdh = P.cp_dh;
-      SB.sdx = P.cp_dx;
-      SB.sdv = P.cp_dv;
-      bwd_layer<true>(d, SB, m, l, upd[l], nullptr, L, LT, bh, bx, bv, RS, RW, nullptr,
-                      nullptr, nullptr);
-      // the layer's Hessian terms, the tangents the tangent pullback left
-      for (int e = tid; e < N * F; e += nt) P.cp_dh[e] += P.ct_dh[N * F + e];
-      for (int e = tid; e < 3 * N; e += nt) {
-        P.cp_dx[e] += P.ct_dxs[3 * N + e] - P.ct_dxr[3 * N + e];
-        P.cp_dv[e] += P.ct_dvo[3 * N + e];
-      }
-      __syncthreads();
-    }
+    for (int l = d.depth - 1; l >= 0; --l)
+      aug_pullback_layer(d, P, work, m, l, upd[l], L, LT, bh, bx, bv, tbh, tbx, tbv, RS, TR, RW,
+                         TRW, TTW, gscratch);
 
     for (int e = tid; e < N * F; e += nt) dh0[(size_t)m * N * F + e] = P.cp_dh[e];
     for (int e = tid; e < 3 * N; e += nt)
@@ -180,23 +132,9 @@ extern "C" int sake_fused_bwd(const float* bh, const float* bx, const float* bv,
                               int depth, int F0, int O, void* stream) {
   using namespace sake;
   const Dims d{B, N, F, H, R, K, C, depth};
-  Leaves L, LT;
-  for (int i = 0; i < kLeaves; ++i) {
-    L.p[i] = static_cast<const float*>(leaf_ptrs[i]);
-    LT.p[i] = static_cast<const float*>(leaf_t_ptrs[i]);
-    L.stride[i] = LT.stride[i] = leaf_strides[i];
-  }
-  Resids RS, TR;
-  for (int i = 0; i < kResids; ++i) {
-    RS.p[i] = static_cast<float*>(resid_ptrs[i]);
-    TR.p[i] = static_cast<float*>(tresid_ptrs[i]);
-  }
-  Rows RW, TRW, TTW;
-  for (int i = 0; i < kRows; ++i) {
-    RW.p[i] = static_cast<float*>(row_ptrs[i]);
-    TRW.p[i] = static_cast<float*>(trow_ptrs[i]);
-    TTW.p[i] = static_cast<float*>(ttrow_ptrs[i]);
-  }
+  const Leaves L = leaves_of(leaf_ptrs, leaf_strides), LT = leaves_of(leaf_t_ptrs, leaf_strides);
+  const Resids RS = resids_of(resid_ptrs), TR = resids_of(tresid_ptrs);
+  const Rows RW = rows_of(row_ptrs), TRW = rows_of(trow_ptrs), TTW = rows_of(ttrow_ptrs);
   const Readout ro{w0, b0, w1, b1, w0t, F0, O};
   const size_t smem = fused_bwd_smem_floats(d, F0) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(fused_bwd_kernel,

@@ -105,12 +105,9 @@ fused_ef_kernel(Dims d, int slots, const float* __restrict__ h0, const float* __
 void tables(const void* const* leaf_ptrs, const void* const* leaf_t_ptrs,
             const long long* leaf_strides, void* const* resid_ptrs, Leaves* L, Leaves* LT,
             Resids* RS) {
-  for (int i = 0; i < kLeaves; ++i) {
-    L->p[i] = static_cast<const float*>(leaf_ptrs[i]);
-    LT->p[i] = static_cast<const float*>(leaf_t_ptrs[i]);
-    L->stride[i] = LT->stride[i] = leaf_strides[i];
-  }
-  for (int i = 0; i < kResids; ++i) RS->p[i] = static_cast<float*>(resid_ptrs[i]);
+  *L = leaves_of(leaf_ptrs, leaf_strides);
+  *LT = leaves_of(leaf_t_ptrs, leaf_strides);
+  *RS = resids_of(resid_ptrs);
 }
 
 template <bool kScratch>

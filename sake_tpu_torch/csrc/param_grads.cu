@@ -480,10 +480,7 @@ int launch_grads(GradArgs& g, const void* const* leaf_ptrs, const long long* lea
                  double* partial, float* out, int per_chunk, void* stream) {
   g.per_chunk = per_chunk;
   g.n_chunks = (g.d.B + per_chunk - 1) / per_chunk;
-  for (int i = 0; i < kLeaves; ++i) {
-    g.L.p[i] = static_cast<const float*>(leaf_ptrs[i]);
-    g.L.stride[i] = leaf_strides[i];
-  }
+  g.L = leaves_of(leaf_ptrs, leaf_strides);
   g.partial = partial;
   long long off = 0;
   long long blocks = 0;

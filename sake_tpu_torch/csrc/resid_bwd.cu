@@ -89,14 +89,8 @@ int launch_bwd(const Dims& d, const float* bh, const float* bx, const float* bv,
                const float* dv_fin, float* dh_out, float* dx_out, float* dv_out,
                const Rows& RW, const float* add_h, const float* add_x, const float* add_v,
                void* stream) {
-  Leaves L, LT;
-  for (int i = 0; i < kLeaves; ++i) {
-    L.p[i] = static_cast<const float*>(leaf_ptrs[i]);
-    LT.p[i] = static_cast<const float*>(leaf_t_ptrs[i]);
-    L.stride[i] = LT.stride[i] = leaf_strides[i];
-  }
-  Resids RS;
-  for (int i = 0; i < kResids; ++i) RS.p[i] = static_cast<float*>(resid_ptrs[i]);
+  const Leaves L = leaves_of(leaf_ptrs, leaf_strides), LT = leaves_of(leaf_t_ptrs, leaf_strides);
+  const Resids RS = resids_of(resid_ptrs);
   const size_t smem = bwd_smem_floats(d) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       resid_bwd_kernel<kRows>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -143,10 +137,8 @@ extern "C" int sake_resid_bwd_rows(const float* bh, const float* bx, const float
                                    const float* add_x, const float* add_v, int B, int N,
                                    int F, int H, int R, int K, int C, int depth,
                                    void* stream) {
-  sake::Rows RW;
-  for (int i = 0; i < sake::kRows; ++i) RW.p[i] = static_cast<float*>(row_ptrs[i]);
   return sake::launch_bwd<true>(sake::Dims{B, N, F, H, R, K, C, depth}, bh, bx, bv, upd,
                                 mask, leaf_ptrs, leaf_t_ptrs, leaf_strides, resid_ptrs,
-                                dh_fin, dx_fin, dv_fin, dh_out, dx_out, dv_out, RW, add_h,
-                                add_x, add_v, stream);
+                                dh_fin, dx_fin, dv_fin, dh_out, dx_out, dv_out,
+                                sake::rows_of(row_ptrs), add_h, add_x, add_v, stream);
 }

@@ -57,6 +57,56 @@ struct Dims {
   int B, N, F, H, R, K, C, depth;
 };
 
+// The tables as the host passes them: arrays of device pointers (and each
+// leaf's elements per layer).
+inline Leaves leaves_of(const void* const* ptrs, const long long* strides) {
+  Leaves L;
+  for (int i = 0; i < kLeaves; ++i) {
+    L.p[i] = static_cast<const float*>(ptrs[i]);
+    L.stride[i] = strides[i];
+  }
+  return L;
+}
+inline Resids resids_of(void* const* ptrs) {
+  Resids R;
+  for (int i = 0; i < kResids; ++i) R.p[i] = static_cast<float*>(ptrs[i]);
+  return R;
+}
+inline Rows rows_of(void* const* ptrs) {
+  Rows R;
+  for (int i = 0; i < kRows; ++i) R.p[i] = static_cast<float*>(ptrs[i]);
+  return R;
+}
+
+// Layer l's leaves, as the layer-0 leaves of a one-layer stack.
+__host__ __device__ inline Leaves layer_of(const Leaves& L, int l) {
+  Leaves out = L;
+  for (int i = 0; i < kLeaves; ++i) out.p[i] = L.p[i] + L.stride[i] * l;
+  return out;
+}
+
+// Width of residual stream r (node_channels / edge_channels in resid_ef.py).
+__host__ __device__ inline int resid_width(int r, const Dims& d) {
+  switch (r) {
+    case RS_RBF: return d.R;
+    case RS_E0: case RS_H_E: case RS_PS0: case RS_PS1: case RS_NODE_PRE: case RS_G0: return d.H;
+    case RS_SEM_PRE: case RS_ATT: return d.K;
+    case RS_COEFF: case RS_POOL0: case RS_POOL1: case RS_POOL2: return d.C;
+    case RS_UV: return d.F;
+    default: return 1;  // r, t, g1
+  }
+}
+
+// Layer l of (depth, B, ...) residual streams, as a one-layer stack.
+__host__ __device__ inline Resids layer_of(const Resids& R, const Dims& d, int l) {
+  Resids out;
+  for (int r = 0; r < kResids; ++r) {
+    const long long rows = (long long)d.B * d.N * (r <= RS_COEFF ? d.N : 1);
+    out.p[r] = R.p[r] + (long long)l * rows * resid_width(r, d);
+  }
+  return out;
+}
+
 constexpr float kEps = 1e-5f;  // inside the distance sqrt
 constexpr float kInf = 1e5f;   // subtracted from self-pair and masked logits
 

@@ -87,11 +87,7 @@ int launch_fwd(const sake::Dims& d, const float* h0, const float* xs, const floa
                const float* upd, const float* mask, const void* const* leaf_ptrs,
                const long long* leaf_strides, float* bh, float* bx, float* bv, float* h_fin,
                float* x_fin, float* v_fin, const Resids& RS, void* stream) {
-  Leaves L;
-  for (int i = 0; i < kLeaves; ++i) {
-    L.p[i] = static_cast<const float*>(leaf_ptrs[i]);
-    L.stride[i] = leaf_strides[i];
-  }
+  const Leaves L = leaves_of(leaf_ptrs, leaf_strides);
   const size_t smem = fwd_smem_floats(d) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       resid_fwd_kernel<kStream>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -116,11 +112,9 @@ extern "C" int sake_resid_fwd(const float* h0, const float* xs, const float* v0,
                               float* bh, float* bx, float* bv, float* h_fin, float* x_fin,
                               float* v_fin, void* const* resid_ptrs, int B, int N, int F,
                               int H, int R, int K, int C, int depth, void* stream) {
-  sake::Resids RS;
-  for (int i = 0; i < sake::kResids; ++i) RS.p[i] = static_cast<float*>(resid_ptrs[i]);
   return sake::launch_fwd<true>(sake::Dims{B, N, F, H, R, K, C, depth}, h0, xs, v0, upd,
                                 mask, leaf_ptrs, leaf_strides, bh, bx, bv, h_fin, x_fin,
-                                v_fin, RS, stream);
+                                v_fin, sake::resids_of(resid_ptrs), stream);
 }
 
 // The forward without residuals: pool is a (3, B, N, C) scratch for one

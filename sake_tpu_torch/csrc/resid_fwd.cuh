@@ -81,9 +81,9 @@ __device__ __forceinline__ void fwd_begin(const Dims& d, const FwdSmem& S, int B
 
 // Layer l of the forward on the state in S. u: the layer's update gate;
 // mb: this molecule's (N, N) edge mask or null. Streams (bh, bx, bv and the
-// residuals RS, kStream) are written at molecule slot b of d.B, layer l;
-// without kStream only the pooled vectors go to RS, at slot b of a one-layer
-// (3, d.B, N, C) scratch.
+// residuals RS, kStream) are written at molecule slot b of d.B, layer l (bh
+// null: no boundary stream); without kStream only the pooled vectors go to
+// RS, at slot b of a one-layer (3, d.B, N, C) scratch.
 template <bool kStream>
 __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b, int l,
                                           float u, const float* __restrict__ mb,
@@ -117,7 +117,7 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
   const float* b_sem = W(B_SEM);
 
   // boundary state in
-  if constexpr (kStream) {
+  if (kStream && bh) {
     for (int e = tid; e < N * F; e += nt) bh[lb * N * F + e] = sh[e];
     for (int e = tid; e < 3 * N; e += nt) {
       const int k = e / N, i = e % N;

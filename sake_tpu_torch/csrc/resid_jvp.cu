@@ -86,16 +86,8 @@ extern "C" int sake_resid_jvp(const float* bh, const float* bx, const float* bv,
                               int C, int depth, void* stream) {
   using namespace sake;
   const Dims d{B, N, F, H, R, K, C, depth};
-  Leaves L;
-  for (int i = 0; i < kLeaves; ++i) {
-    L.p[i] = static_cast<const float*>(leaf_ptrs[i]);
-    L.stride[i] = leaf_strides[i];
-  }
-  Resids RS, TR;
-  for (int i = 0; i < kResids; ++i) {
-    RS.p[i] = static_cast<float*>(resid_ptrs[i]);
-    TR.p[i] = static_cast<float*>(tresid_ptrs[i]);
-  }
+  const Leaves L = leaves_of(leaf_ptrs, leaf_strides);
+  const Resids RS = resids_of(resid_ptrs), TR = resids_of(tresid_ptrs);
   const size_t smem = jvp_smem_floats(d) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(resid_jvp_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

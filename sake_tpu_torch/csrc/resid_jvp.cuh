@@ -80,7 +80,10 @@ __device__ __forceinline__ void jvp_begin(const Dims& d, const JvpSmem& S, int B
 
 // Layer l of the tangent forward on the tangent state in S. Reads the
 // primal boundary states and residuals (bh, bx, bv, RS) and writes the
-// tangent ones (tbh, tbx, tbv, TR) at molecule slot b of d.B, layer l.
+// tangent ones (tbh, tbx, tbv, TR) at molecule slot b of d.B, layer l. With
+// bh null the primal state entering the layer is already in S.sh, S.sx,
+// S.sv (a kernel that has just computed the residuals in this launch); with
+// tbh null no tangent boundary is written.
 __device__ __forceinline__ void jvp_layer(const Dims& d, const JvpSmem& S, int b, int l,
                                           float u, const Leaves& L,
                                           const float* __restrict__ bh,
@@ -115,16 +118,20 @@ __device__ __forceinline__ void jvp_layer(const Dims& d, const JvpSmem& S, int b
 
   // tangent boundary state out, primal boundary state in
   for (int e = tid; e < N * F; e += nt) {
-    tbh[lb * N * F + e] = sth[e];
-    sh[e] = bh[lb * N * F + e];
+    if (tbh) tbh[lb * N * F + e] = sth[e];
+    if (bh) sh[e] = bh[lb * N * F + e];
   }
   for (int e = tid; e < 3 * N; e += nt) {
     const int k = e / N, i = e % N;
     const size_t at = (((size_t)l * 3 + k) * B + b) * N + i;
-    tbx[at] = stx[e];
-    tbv[at] = stv[e];
-    sx[e] = bx[at];
-    sv[e] = bv[at];
+    if (tbh) {
+      tbx[at] = stx[e];
+      tbv[at] = stv[e];
+    }
+    if (bh) {
+      sx[e] = bx[at];
+      sv[e] = bv[at];
+    }
   }
   __syncthreads();
 

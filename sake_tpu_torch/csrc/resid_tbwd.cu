@@ -104,22 +104,9 @@ extern "C" int sake_resid_tbwd(const float* bh, const float* bx, const float* bv
                                int H, int R, int K, int C, int depth, void* stream) {
   using namespace sake;
   const Dims d{B, N, F, H, R, K, C, depth};
-  Leaves L, LT;
-  for (int i = 0; i < kLeaves; ++i) {
-    L.p[i] = static_cast<const float*>(leaf_ptrs[i]);
-    LT.p[i] = static_cast<const float*>(leaf_t_ptrs[i]);
-    L.stride[i] = LT.stride[i] = leaf_strides[i];
-  }
-  Resids RS, TR;
-  for (int i = 0; i < kResids; ++i) {
-    RS.p[i] = static_cast<float*>(resid_ptrs[i]);
-    TR.p[i] = static_cast<float*>(tresid_ptrs[i]);
-  }
-  Rows RW, TW;
-  for (int i = 0; i < kRows; ++i) {
-    RW.p[i] = static_cast<float*>(row_ptrs[i]);
-    TW.p[i] = static_cast<float*>(trow_ptrs[i]);
-  }
+  const Leaves L = leaves_of(leaf_ptrs, leaf_strides), LT = leaves_of(leaf_t_ptrs, leaf_strides);
+  const Resids RS = resids_of(resid_ptrs), TR = resids_of(tresid_ptrs);
+  const Rows RW = rows_of(row_ptrs), TW = rows_of(trow_ptrs);
   const size_t smem = tb_smem_floats(d) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(resid_tbwd_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -122,6 +122,13 @@ def load():
     # bh, bx, bv, upd, leaves, leaves_t, strides, resid, h_fin, tx0, g_e, readout,
     # tbh, tbx, tbv, tresid, rows, rows_t, t_rows, scratch, dh0, dx0, ro_part
     lib.sake_fused_bwd.argtypes = [P] * 27 + dims + [I, I, P]
+    # h0, xs, tx0, upd, leaves, strides, the primal's and the tangent's bh, bx, bv,
+    # h_fin, x_fin, v_fin, resid, tresid
+    lib.sake_aug_fwd.argtypes = [P] * 20 + dims + [P]
+    lib.sake_retrace_fwd.argtypes = [P] * 20 + dims + [P]
+    # layer, bh, bx, bv, tbh, tbx, tbv, upd, leaves, leaves_t, strides, resid, tresid,
+    # rows, rows_t, t_rows, scratch, cp_dh, cp_dx, cp_dv, ct_dh, ct_dx, ct_dv
+    lib.sake_retrace_bwd.argtypes = [I] + [P] * 22 + dims + [P]
     # the sparse edge kernels: hg, ai, oi, d0, m, w, then ... dims (NR, K, F, R, H,
     # Kh, C), stream
     edims = [I] * 7
@@ -136,10 +143,11 @@ def load():
                "sake_param_grads", "sake_resid_jvp", "sake_resid_tbwd", "sake_param_grads_aug",
                "sake_fused_primal", "sake_one_ef", "sake_one_ef_grid", "sake_fused_bwd",
                "sake_sparse_fwd", "sake_sparse_bwd", "sake_sparse_bwd_rows", "sake_sparse_bwd2",
-               "sake_sparse_contract"):
+               "sake_sparse_contract", "sake_aug_fwd", "sake_retrace_fwd", "sake_retrace_bwd"):
         getattr(lib, fn).restype = I
     for fn in ("sake_resid_fwd_smem_bytes", "sake_resid_bwd_smem_bytes",
-               "sake_resid_jvp_smem_bytes", "sake_resid_tbwd_smem_bytes"):
+               "sake_resid_jvp_smem_bytes", "sake_resid_tbwd_smem_bytes",
+               "sake_aug_fwd_smem_bytes", "sake_retrace_bwd_smem_bytes"):
         getattr(lib, fn).argtypes = dims
         getattr(lib, fn).restype = LL
     for fn in ("sake_fused_ef_smem_bytes", "sake_fused_bwd_smem_bytes"):  # ..., F0

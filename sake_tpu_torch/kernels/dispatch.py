@@ -31,9 +31,15 @@ def dispatch_energy_forces(
     *,
     n_heads: int = 4,
     update: Sequence[bool] | bool = True,
+    interpret: bool = False,
+    **overrides,
 ):
     """Raw ``(E (B,), F (B, N, 3))`` in f32; with an edge mask the energy
-    sums the readout over the mask's atoms (its diagonal)."""
+    sums the readout over the mask's atoms (its diagonal). ``overrides``
+    pass through to the chosen path, as in JAX (which raises on the bf16
+    tier); ``interpret`` has no counterpart: CPU tensors take the plain
+    versions."""
+    kw = dict(n_heads=n_heads, update=update, **overrides)
     if ONE_EF_MIN_BATCH is not None and h.shape[0] >= ONE_EF_MIN_BATCH:
-        return one_energy_forces(params, h, x, mask, n_heads=n_heads, update=update)
-    return resid_energy_forces(params, h, x, mask, n_heads=n_heads, update=update)
+        return one_energy_forces(params, h, x, mask, **kw)
+    return resid_energy_forces(params, h, x, mask, **kw)

@@ -79,6 +79,13 @@ def params_to(p: ModelParams, device) -> ModelParams:
                        *map(mv, (p.w_out0, p.b_out0, p.w_out1, p.b_out1)))
 
 
+def _f32_only(name, *dtypes):
+    """Raise on the JAX package's bf16 tier: any of ``dtypes`` other than
+    None or f32 (the port computes in f32 only)."""
+    if any(d not in (None, torch.float32) for d in dtypes):
+        raise NotImplementedError(f"{name}: the port computes in f32 only")
+
+
 def _silu(x):
     return x * torch.sigmoid(x)
 
@@ -218,8 +225,11 @@ def model_forward(
     n_heads: int = 4,
     update: Sequence[bool] | bool = True,
     mask: Optional[torch.Tensor] = None,
+    matmul_dtype=None,
 ):
-    """``(out (B, N, out), x (B, N, 3), v (B, N, 3) or None)``."""
+    """``(out (B, N, out), x (B, N, 3), v (B, N, 3) or None)``. The JAX
+    ``matmul_dtype`` (a bf16 cast of the products) raises: the port is f32."""
+    _f32_only("model_forward", matmul_dtype)
     x_planes = [x[..., k : k + 1] for k in range(3)]
     v_planes = [v[..., k : k + 1] for k in range(3)] if v is not None else None
     out, xp, vp = model_forward_planes(
@@ -246,14 +256,17 @@ def energy_and_forces_fn(
     n_heads: int = 4,
     update: Sequence[bool] | bool = True,
     mask: Optional[torch.Tensor] = None,
+    matmul_dtype=None,
 ):
     """Raw energy ``e (B,)`` (readout summed over atoms and outputs, no
     node mask — as the JAX function) and forces ``f = -dE/dx (B, N, 3)``.
+    ``matmul_dtype`` raises unless None, as in :func:`model_forward`.
 
     Differentiable in ``p``, ``h`` and ``x``, as the JAX function: when
     autograd records (grad enabled and some input requiring grad) the force
     keeps its graph (``create_graph``), so a loss of ``(e, f)`` has
     second-order gradients. Otherwise both come back detached."""
+    _f32_only("energy_and_forces_fn", matmul_dtype)
     record = torch.is_grad_enabled() and any(
         t.requires_grad for t in (h, x, *flat_params(p)))
     with torch.enable_grad():

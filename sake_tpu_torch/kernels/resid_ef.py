@@ -46,6 +46,7 @@ from sake_tpu_torch.kernels.functional import (
     CFConvParams,
     LayerParams,
     ModelParams,
+    _f32_only,
     _silu,
     embed,
     flat_params,
@@ -943,11 +944,37 @@ def resid_energy_forces(
     *,
     n_heads: int = 4,
     update: Sequence[bool] | bool = True,
+    batch_tile: int = 8,
+    matmul_dtype=None,
+    precision=None,
+    edge_matmul_dtype=None,
+    edge_precision=None,
+    resid_dtype=torch.float32,
+    pad_atoms: bool = False,
     chunk: Optional[int] = 512,
+    resid_lowp=None,
+    pool_dtype=None,
+    spatial_mode: Optional[str] = None,
+    pool_matmul_dtype=None,
+    pool_precision=None,
+    batch_parallel: bool = False,
+    interpret: bool = False,
 ):
     """Raw (uncolored) ``E (B,)`` and ``F = -dE/dx (B, N, 3)`` through K1,
     the readout seed and K2. ``chunk`` bounds how many molecules' residuals
-    are alive at once (f32: about 5.3 MB per aspirin molecule at depth 6)."""
+    are alive at once (f32: about 5.3 MB per aspirin molecule at depth 6).
+
+    The JAX keywords, under the policy of ``make_ef_train2``: the bf16 tier
+    (``matmul_dtype``, ``edge_matmul_dtype``, ``pool_dtype``,
+    ``pool_matmul_dtype``, ``resid_dtype`` other than f32, ``resid_lowp``)
+    and the TPU-only ``spatial_mode`` raise; accepted with no counterpart are
+    ``batch_tile``, ``pad_atoms`` and ``batch_parallel`` (one molecule per
+    block, N as it comes), the precisions (every product is f32) and
+    ``interpret`` (CPU tensors take the plain versions)."""
+    _f32_only("resid_energy_forces", matmul_dtype, edge_matmul_dtype, resid_dtype, resid_lowp,
+              pool_dtype, pool_matmul_dtype)
+    if spatial_mode is not None:
+        raise NotImplementedError("resid_energy_forces: spatial_mode is a TPU-only probe")
     B = h.shape[0]
     upd = [1.0 if u else 0.0 for u in per_layer(update, len(params.layers))]
     leaves = wide_stack(params, n_heads)
@@ -990,8 +1017,10 @@ def _unflat_params(flat, depth: int) -> ModelParams:
 
 
 def make_hidden_fn(*, n_heads: int = 4, update: Sequence[bool] | bool = True,
-                   want_x: bool = False, batch_tile: Optional[int] = None,
-                   edge_matmul_dtype=None, resid_dtype=None):
+                   batch_tile: int = 8, matmul_dtype=None, precision=None,
+                   edge_matmul_dtype=None, edge_precision=None, resid_dtype=torch.float32,
+                   resid_lowp=None, pad_atoms: bool = False, want_x: bool = False,
+                   interpret: bool = False):
     """Build ``hidden(params: ModelParams, h (B, N, F_in), x (B, N, 3), mask
     (B, N, N) or None) -> h_fin (B, N, F)``, the JAX ``make_hidden_fn``
     (``:1376-1915``) on the port's kernels.
@@ -1005,18 +1034,16 @@ def make_hidden_fn(*, n_heads: int = 4, update: Sequence[bool] | bool = True,
     none. Otherwise (the JAX primal-outside-autodiff rule, ``:1819-1821``)
     it runs :func:`resid_infer`, which writes no residuals.
 
-    Not ported yet: ``want_x`` (the forecast shape with a position output)
-    and the bf16 tier (``edge_matmul_dtype``, ``resid_dtype``); ``batch_tile``
-    has no counterpart, since the kernels take one molecule per block. Each
-    raises when asked for.
+    Not ported yet, and raising when asked for: ``want_x`` (the forecast
+    shape with a position output) and the bf16 tier (``matmul_dtype``,
+    ``edge_matmul_dtype``, ``resid_dtype`` other than f32, ``resid_lowp``).
+    Accepted with no counterpart: ``batch_tile`` and ``pad_atoms`` (one
+    molecule per block, N as it comes), the precisions (every product is
+    f32) and ``interpret`` (CPU tensors take the plain versions).
     """
     if want_x:
         raise NotImplementedError("make_hidden_fn: want_x is not ported yet")
-    if edge_matmul_dtype is not None or resid_dtype not in (None, torch.float32):
-        raise NotImplementedError("make_hidden_fn: the port's kernels are f32 only")
-    if batch_tile is not None:
-        raise NotImplementedError("make_hidden_fn: the kernels take one molecule per block; "
-                                  "there is no batch tile")
+    _f32_only("make_hidden_fn", matmul_dtype, edge_matmul_dtype, resid_dtype, resid_lowp)
 
     def prep(params, h, x, mask):
         upd = [1.0 if u else 0.0 for u in per_layer(update, len(params.layers))]

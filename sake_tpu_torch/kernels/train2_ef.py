@@ -1,8 +1,8 @@
 """Second-order (force-loss) training: the gradient of a loss of ``(E, F)``
 with ``F = -dE/dx``, on kernels.
 
-Port of ``sake_tpu/kernels/train2_ef.py`` in its modes ``aug_mode="shared"``
-and ``"fused"`` (``:936-2055``). The training gradient of ``(E, F)`` under cotangents
+Port of ``sake_tpu/kernels/train2_ef.py`` in its four modes. The training
+gradient of ``(E, F)`` under cotangents
 ``(g_e, g_f)`` is the gradient of ``S = sum_b g_e[b] E[b] - E_dot``, with
 ``E_dot`` the tangent of the energy along ``x_dot = g_f`` (the minus of
 ``F = -dE/dx`` lives in ``- E_dot``, so the tangent seed is ``+g_f``). So
@@ -31,6 +31,18 @@ tangent-augmented layer map, all on kernels:
   contracts both sets of rows into the 29 leaves' gradients per layer;
 - the embedding pullback runs in torch, as the JAX package left it to XLA.
 
+The resid mode (``make_ef_train2``'s default) and the retrace mode keep no
+streams from the primal (K1 + K2 through ``resid_ef.resid_energy_forces``)
+and recompute per chunk of the backward: resid mode runs #18
+(:func:`aug_fwd`, ``csrc/aug_fwd.cu``: K1's and #9's bodies per layer in one
+launch, writing both residual sets) and then #19 (:func:`aug_bwd`, the
+three launches of #10 above); retrace mode runs #16 (:func:`retrace_fwd`, the
+same source writing only the augmented boundary states) and then #17
+(:func:`retrace_bwd`, ``csrc/retrace_bwd.cu``: per layer in reverse, one
+launch re-forwards the layer for primal and tangent and runs #10's two
+pullback bodies, then the augmented contraction sums that layer's leaf
+gradients), so only one layer's residuals are ever alive.
+
 Fused mode runs the same math in fewer launches: the primal is #11
 (:func:`fused_primal`, ``csrc/fused_ef.cu``: K1's forward, the readout and
 its seed, K2's pullback in one kernel that still writes the streams), and
@@ -53,8 +65,10 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from sake_tpu_torch.kernels import build, resid_ef
+from sake_tpu_torch.kernels.depthgrid_ef import layer_forward_wide
 from sake_tpu_torch.kernels.functional import (
     ModelParams,
+    _f32_only,
     _silu,
     embed,
     flat_params,
@@ -193,6 +207,81 @@ def resid_aug_bwd_plain(leaves: dict, fwd: FwdOut, tfwd: FwdOut, upd: Sequence[f
     return dh0, dx0, dth0, param_grads_aug_plain(leaves, fwd, tfwd, rows, rows_t, t_rows)
 
 
+def _jvp_stack(layer_fn, leaves: dict, h0, xs, upd: Sequence[float], tx0):
+    """``torch.func.jvp`` of ``layer_fn(p, h, xp, vp, u)`` over depth from
+    the primal ``(h0, xs, v = 0)`` and the tangent seed ``(0, tx0, 0)``.
+    Returns the primal and tangent ``FwdOut``s; with a ``layer_fn`` that
+    also returns residuals (:func:`resid_ef.layer_fwd_resid`) they carry the
+    residuals and their tangents, else ``resid`` is None."""
+    zeros = torch.zeros_like(xs)
+    state = (h0, _planes(xs), _planes(zeros))
+    tstate = (torch.zeros_like(h0), _planes(tx0), _planes(zeros))
+    bnd, tbnd = ([], [], []), ([], [], [])
+    res, tres = [], []
+    for l, u in enumerate(upd):
+        p = layer_leaves(leaves, l)
+        for out, st in ((bnd, state), (tbnd, tstate)):
+            out[0].append(st[0])
+            out[1].append(_unplanes(st[1]))
+            out[2].append(_unplanes(st[2]))
+        o, to = torch.func.jvp(lambda h, xp, vp: layer_fn(p, h, xp, vp, u), state, tstate)
+        state, tstate = o[:3], to[:3]
+        if len(o) > 3:
+            res.append(o[3])
+            tres.append(to[3])
+
+    def out(b, st, rs):
+        resid = {n: torch.stack([r[n] for r in rs]) for n in RESIDS} if rs else None
+        return FwdOut(*(torch.stack(s) for s in b), st[0], _unplanes(st[1]), _unplanes(st[2]),
+                      resid)
+
+    return out(bnd, state, res), out(tbnd, tstate, tres)
+
+
+def aug_fwd_plain(leaves: dict, h0, xs, upd: Sequence[float], tx0):
+    """Plain version of :func:`aug_fwd`: ``torch.func.jvp`` of
+    :func:`resid_ef.layer_fwd_resid` over depth. Returns ``(fwd, tfwd)``, the
+    primal and tangent boundaries, final states and residuals."""
+    return _jvp_stack(lambda p, h, xp, vp, u: resid_ef.layer_fwd_resid(p, h, xp, vp, u),
+                      leaves, h0, xs, upd, tx0)
+
+
+def retrace_fwd_plain(leaves: dict, h0, xs, upd: Sequence[float], tx0):
+    """Plain version of :func:`retrace_fwd`: ``torch.func.jvp`` of
+    :func:`depthgrid_ef.layer_forward_wide` over depth. Returns ``(fwd,
+    tfwd)`` as :func:`aug_fwd_plain`, without residuals."""
+    return _jvp_stack(layer_forward_wide, leaves, h0, xs, upd, tx0)
+
+
+def retrace_bwd_plain(leaves: dict, fwd: FwdOut, tfwd: FwdOut, upd: Sequence[float], dh_fin,
+                      dth_fin):
+    """Plain version of :func:`retrace_bwd` (JAX ``bwd_kernel``
+    ``train2_ef.py:379-456``): per layer in reverse, ``torch.func.vjp`` of
+    ``torch.func.jvp`` of :func:`depthgrid_ef.layer_forward_wide` from the
+    layer's primal and tangent boundaries, the leaves among its inputs, pulls
+    the cotangents of the augmented state ``(h, x, v, th, tx, tv)`` back and
+    gives the layer's leaf gradients. Returns ``(dh0, dx0, dth0, grads)`` as
+    :func:`resid_aug_bwd_plain`."""
+    zeros = _planes(torch.zeros_like(fwd.bx[0]))
+    cot = (dh_fin, zeros, zeros, dth_fin, zeros, zeros)
+    grads = [None] * len(upd)
+    for l in reversed(range(len(upd))):
+        u = upd[l]
+
+        def aug(p, h, xp, vp, th, txp, tvp):
+            o, to = torch.func.jvp(lambda a, b, c: layer_forward_wide(p, a, b, c, u),
+                                   (h, xp, vp), (th, txp, tvp))
+            return (*o, *to)
+
+        _, vjp = torch.func.vjp(aug, layer_leaves(leaves, l), fwd.bh[l], _planes(fwd.bx[l]),
+                                _planes(fwd.bv[l]), tfwd.bh[l], _planes(tfwd.bx[l]),
+                                _planes(tfwd.bv[l]))
+        grads[l], *cot = vjp(cot)
+        cot = tuple(cot)
+    return (cot[0], _unplanes(cot[1]), cot[3],
+            {n: torch.stack([g[n] for g in grads]) for n in LEAF_NAMES})
+
+
 # --------------------------------------------------------------------------
 # Kernel wrappers. Each ``_launch_*`` checks, allocates and launches; the
 # public function picks the plain version for CPU tensors and counts its
@@ -200,11 +289,15 @@ def resid_aug_bwd_plain(leaves: dict, fwd: FwdOut, tfwd: FwdOut, upd: Sequence[f
 # --------------------------------------------------------------------------
 
 
-def _check_fwd(name, fwd: FwdOut, dims, leaves, dev):
+def _check_bnd(name, fwd: FwdOut, dims, dev):
     B, N, F, H, R, K, C, depth = dims
     _check_cuda(f"{name}.bh", fwd.bh, (depth, B, N, F), dev)
     _check_cuda(f"{name}.bx", fwd.bx, (depth, 3, B, N), dev)
     _check_cuda(f"{name}.bv", fwd.bv, (depth, 3, B, N), dev)
+
+
+def _check_fwd(name, fwd: FwdOut, dims, leaves, dev):
+    _check_bnd(name, fwd, dims, dev)
     _check_all(f"{name}.resid", fwd.resid, _resid_shapes(dims, leaves), dev)
 
 
@@ -400,6 +493,175 @@ def resid_aug_bwd(leaves: dict, fwd: FwdOut, tfwd: FwdOut, upd: Sequence[float],
     dh0, dx0, _, rows = resid_bwd_aug(leaves, fwd, upd, dh_fin, zeros, zeros, add,
                                       leaves_t=leaves_t)
     return dh0, dx0, dth0, param_grads_aug(leaves, fwd, tfwd, rows, rows_t, t_rows)
+
+
+# --------------------------------------------------------------------------
+# Resid and retrace modes: #18 and #16 (csrc/aug_fwd.cu), #19 (#10's
+# launches) and #17 (csrc/retrace_bwd.cu).
+# --------------------------------------------------------------------------
+
+
+def _layer_resids(dims, leaves) -> dict:
+    """One layer's residual shapes ``{name: (B, N*N | N, ch)}``: the per-molecule
+    scratch of the kernels that keep only the running layer's residuals."""
+    return {n: s[1:] for n, s in _resid_shapes(dims, leaves).items()}
+
+
+def _launch_aug_fwd(leaves, h0, xs, upd, tx0, stream: bool):
+    name = "aug_fwd" if stream else "retrace_fwd"
+    _require_cuda(name, h0)
+    dims = _dims(leaves, h0)
+    B, N, F, H, R, K, C, depth = dims
+    dev = h0.device
+    _check_leaves(leaves, dims, dev)
+    _check_cuda("h0", h0, (B, N, F), dev)
+    _check_cuda("xs", xs, (3, B, N), dev)
+    _check_cuda("tx0", tx0, (3, B, N), dev)
+    if F != H or len(upd) != depth:
+        raise ValueError(f"{name}: needs hidden width == feature width and one gate per layer")
+    lib = build.load()
+    if lib.sake_aug_fwd_smem_bytes(*dims) > _SMEM_LIMIT:
+        raise ValueError(f"{name}: N={N} at these widths exceeds one block's shared memory")
+    upd_t = torch.tensor(list(upd), dtype=torch.float32, device=dev)
+    empty = lambda *s: torch.empty(s, device=dev, dtype=torch.float32)
+    shapes = _resid_shapes(dims, leaves) if stream else _layer_resids(dims, leaves)
+    res, tres = ({n: empty(*s) for n, s in shapes.items()} for _ in range(2))
+    fwd, tfwd = (FwdOut(empty(depth, B, N, F), empty(depth, 3, B, N), empty(depth, 3, B, N),
+                        empty(B, N, F), empty(3, B, N), empty(3, B, N), r)
+                 for r in (res, tres))
+    err = (lib.sake_aug_fwd if stream else lib.sake_retrace_fwd)(
+        h0.data_ptr(), xs.data_ptr(), tx0.data_ptr(), upd_t.data_ptr(),
+        _ptrs([leaves[n] for n in LEAF_NAMES]), _strides(leaves),
+        *(t.data_ptr() for f in (fwd, tfwd) for t in f[:6]),
+        _ptrs([res[n] for n in RESIDS]), _ptrs([tres[n] for n in RESIDS]), *dims,
+        resid_ef._stream(dev),
+    )
+    build.check(lib, err, name)
+    if not stream:  # the residuals of the last layer were scratch
+        fwd, tfwd = fwd._replace(resid=None), tfwd._replace(resid=None)
+    return fwd, tfwd
+
+
+def aug_fwd(leaves: dict, h0, xs, upd: Sequence[float], tx0):
+    """#18, the resid-mode augmented forward (``csrc/aug_fwd.cu``; JAX
+    ``_aug_grad_resid._pipe``'s ``fwd_kernel`` ``train2_ef.py:584``,
+    pallas_call ``:668``): ``jax.jvp`` of ``layer_fwd_resid`` over depth
+    from ``(h0 (B, N, F), xs (3, B, N), v = 0)`` along ``(0, tx0, 0)``, in one
+    launch. Returns ``(fwd, tfwd)``: the primal and tangent boundaries, final
+    states and all 17 residuals of each, as :func:`aug_fwd_plain`, which CPU
+    tensors take."""
+    if h0.device.type == "cpu":
+        return aug_fwd_plain(leaves, h0, xs, upd, tx0)
+    out = _launch_aug_fwd(leaves, h0, xs, upd, tx0, True)
+    aug_fwd.launches += 1
+    return out
+
+
+aug_fwd.launches = 0
+
+
+def retrace_fwd(leaves: dict, h0, xs, upd: Sequence[float], tx0):
+    """#16, the retrace-mode augmented forward (``csrc/aug_fwd.cu`` without
+    residual streams; JAX ``_aug_grad``'s ``fwd_kernel`` ``train2_ef.py:270``,
+    pallas_call ``:330``): #18's layers, each layer's residuals kept only in a
+    per-molecule scratch for its tangent. Returns ``(fwd, tfwd)``: the 14
+    boundary planes per layer and the final states (``resid`` None), as
+    :func:`retrace_fwd_plain`, which CPU tensors take."""
+    if h0.device.type == "cpu":
+        return retrace_fwd_plain(leaves, h0, xs, upd, tx0)
+    out = _launch_aug_fwd(leaves, h0, xs, upd, tx0, False)
+    retrace_fwd.launches += 1
+    return out
+
+
+retrace_fwd.launches = 0
+
+
+def aug_bwd(leaves: dict, fwd: FwdOut, tfwd: FwdOut, upd: Sequence[float], dh_fin, dth_fin, *,
+            leaves_t: Optional[dict] = None):
+    """#19, the resid-mode augmented backward (JAX ``_pipe``'s ``bwd_kernel``
+    ``train2_ef.py:723``, pallas_call ``:837``): #10's mathematics (JAX
+    ``:1506`` says so), so #10's launches (:func:`resid_aug_bwd`) on #18's
+    streams. Counted apart from #10's other callers. Returns ``(dh0, dx0,
+    dth0, grads)`` as :func:`resid_aug_bwd_plain`, which CPU tensors take."""
+    out = resid_aug_bwd(leaves, fwd, tfwd, upd, dh_fin, dth_fin, leaves_t=leaves_t)
+    if dh_fin.is_cuda:
+        aug_bwd.launches += 1
+    return out
+
+
+aug_bwd.launches = 0
+
+
+def _launch_retrace_bwd(leaves, fwd, tfwd, upd, dh_fin, dth_fin, leaves_t):
+    _require_cuda("retrace_bwd", dh_fin)
+    dims = _dims(leaves, fwd.bh[0])
+    B, N, F, H, R, K, C, depth = dims
+    dev = dh_fin.device
+    _check_leaves(leaves, dims, dev)
+    _check_bnd("fwd", fwd, dims, dev)
+    _check_bnd("tfwd", tfwd, dims, dev)
+    _check_cuda("dh_fin", dh_fin, (B, N, F), dev)
+    _check_cuda("dth_fin", dth_fin, (B, N, F), dev)
+    if F != H or len(upd) != depth:
+        raise ValueError("retrace_bwd: needs hidden width == feature width and one gate per layer")
+    lib = build.load()
+    if lib.sake_retrace_bwd_smem_bytes(*dims) > _SMEM_LIMIT:
+        raise ValueError(f"retrace_bwd: N={N} at these widths exceeds one block's shared memory")
+    if leaves_t is None:
+        leaves_t = transposed(leaves)
+    for leaf, shape in _leaf_shapes(F, H, R, K, C).items():
+        _check_cuda(f"{leaf}.T", leaves_t[leaf], (depth, *shape[::-1]), dev)
+    upd_t = torch.tensor(list(upd), dtype=torch.float32, device=dev)
+    empty = lambda *s: torch.empty(s, device=dev, dtype=torch.float32)
+    # one layer's residuals and rows: only the running layer's are alive
+    res, tres = ({n: empty(*s) for n, s in _layer_resids(dims, leaves).items()}
+                 for _ in range(2))
+    rows, rows_t, t_rows = ({n: empty(*s[1:]) for n, s in _row_shapes(dims, leaves).items()}
+                            for _ in range(3))
+    scratch = empty(B, 2 * N * (H * K + C))  # per block: d_hatt, d_pool_sq with tangents
+    # the chains' cotangents, carried from layer to layer in place
+    zeros = lambda: torch.zeros(3, B, N, device=dev)
+    cp = (dh_fin.clone(), zeros(), zeros())
+    ct = (dth_fin.clone(), zeros(), zeros())
+    one = lambda d: {n: a[None] for n, a in d.items()}
+    per = [None] * depth
+    for l in reversed(range(depth)):
+        err = lib.sake_retrace_bwd(
+            l, *(t.data_ptr() for t in (fwd.bh, fwd.bx, fwd.bv, tfwd.bh, tfwd.bx, tfwd.bv)),
+            upd_t.data_ptr(), _ptrs([leaves[n] for n in LEAF_NAMES]),
+            _ptrs([leaves_t[n] for n in LEAF_NAMES]), _strides(leaves),
+            _ptrs([res[n] for n in RESIDS]), _ptrs([tres[n] for n in RESIDS]),
+            *(_ptrs([r[n] for n in ROWS]) for r in (rows, rows_t, t_rows)), scratch.data_ptr(),
+            *(t.data_ptr() for t in (*cp, *ct)), *dims, resid_ef._stream(dev),
+        )
+        build.check(lib, err, "retrace_bwd")
+        retrace_bwd.launches += 1
+        # layer l's leaf gradients, while its residuals and rows are alive
+        sl = slice(l, l + 1)
+        f1, t1 = (FwdOut(f.bh[sl], f.bx[sl], f.bv[sl], None, None, None, one(r))
+                  for f, r in ((fwd, res), (tfwd, tres)))
+        per[l] = _launch_param_grads_aug({n: a[sl] for n, a in leaves.items()}, f1, t1,
+                                         one(rows), one(rows_t), one(t_rows))[0]
+    return cp[0], cp[1], ct[0], {n: torch.cat([g[n] for g in per]) for n in LEAF_NAMES}
+
+
+def retrace_bwd(leaves: dict, fwd: FwdOut, tfwd: FwdOut, upd: Sequence[float], dh_fin, dth_fin,
+                *, leaves_t: Optional[dict] = None):
+    """#17, the retrace-mode augmented backward (``csrc/retrace_bwd.cu``; JAX
+    ``_aug_grad``'s ``bwd_kernel`` ``train2_ef.py:379``, pallas_call
+    ``:464``): per layer in reverse, one launch re-forwards the layer for the
+    primal and the tangent from #16's boundaries ``fwd``, ``tfwd`` into a
+    one-layer scratch and runs #10's two pullback bodies on it; then the
+    augmented contraction (``csrc/param_grads.cu``) of that layer's rows.
+    Returns ``(dh0, dx0, dth0, grads)`` as :func:`retrace_bwd_plain`, which
+    CPU tensors take."""
+    if dh_fin.device.type == "cpu":
+        return retrace_bwd_plain(leaves, fwd, tfwd, upd, dh_fin, dth_fin)
+    return _launch_retrace_bwd(leaves, fwd, tfwd, upd, dh_fin, dth_fin, leaves_t)
+
+
+retrace_bwd.launches = 0
 
 
 def shared_fwd(leaves: dict, h0, xs, upd: Sequence[float]) -> FwdOut:
@@ -719,44 +981,51 @@ def make_ef_train2(
     """Build ``ef(params: ModelParams, h (B, N, F_in), x (B, N, 3)) -> (e
     (B,), f (B, N, 3))``, raw energies and forces whose first- and
     second-order gradients w.r.t. ``params``, ``h`` and ``x`` run on the
-    kernels (JAX ``make_ef_train2``, ``train2_ef.py:118-2074``, in its modes
-    ``"shared"`` and ``"fused"``).
+    kernels (JAX ``make_ef_train2``, ``train2_ef.py:118-2074``), in its four
+    modes.
 
-    ``aug_mode="shared"``: the backward per chunk is #9 (:func:`resid_jvp`),
-    the torch head and #10 (:func:`resid_aug_bwd`); ``"fused"``: it is #12
-    (:func:`fused_bwd`). ``fused_primal`` (default ``aug_mode == "fused"``,
-    the JAX rule ``:2027-2032``): the primal is #11 (:func:`fused_primal`)
-    and not #7 + #8 (:func:`shared_fwd`, :func:`shared_bwd`); either primal
-    combines with either backward. With #11 the energy the loss sees is the
-    f32 torch readout on ``h_fin``, as JAX reads it through XLA (``:1367-1377``).
+    ``aug_mode="resid"`` (the default) and ``"retrace"``: the primal is
+    :func:`resid_ef.resid_energy_forces` (K1, the readout seed and K2 per
+    ``chunk``), which keeps no streams; the ``torch.autograd.Function`` saves
+    ``h``, ``x`` and the parameters (JAX ``:2057-2062``). The backward runs
+    per chunk of ``aug_chunk`` molecules (a ragged last chunk is fine):
+    ``"resid"`` #18 (:func:`aug_fwd`, the jvp of the residual-saving forward,
+    streaming both residual sets), the torch head and #19 (:func:`aug_bwd`,
+    #10's launches); ``"retrace"`` #16 (:func:`retrace_fwd`, boundaries
+    only), the head and #17 (:func:`retrace_bwd`, which re-forwards each
+    layer and keeps one layer's residuals alive).
 
+    ``"shared"`` and ``"fused"``: the primal keeps its boundaries and
+    residuals across the autograd boundary. ``"shared"``: the backward per
+    chunk is #9 (:func:`resid_jvp`), the torch head and #10
+    (:func:`resid_aug_bwd`); ``"fused"``: it is #12 (:func:`fused_bwd`).
+    ``fused_primal`` (default ``aug_mode == "fused"``, the JAX rule
+    ``:2027-2032``): the primal is #11 (:func:`fused_primal`) and not #7 + #8
+    (:func:`shared_fwd`, :func:`shared_bwd`); either primal combines with
+    either backward. With #11 the energy the loss sees is the f32 torch
+    readout on ``h_fin``, as JAX reads it through XLA (``:1367-1377``).
     ``shared_chunk`` bounds the molecules whose tangent streams and rows are
     alive at once: the primal and the backward run per chunk of that many
-    molecules (a ragged last chunk is fine: the kernels take any batch).
+    molecules.
 
-    Not ported yet, and raising when asked for: ``aug_mode`` ``"retrace"``
-    and ``"resid"`` (sites #16-#19), the bf16 tier (``matmul_dtype``,
-    ``edge_matmul_dtype``, ``resid_dtype`` other than f32, ``resid_lowp``) and
-    the TPU-only MXU pooling ``spatial_mode``. Accepted with no counterpart:
-    ``batch_tile`` and ``aug_batch_tile`` (the kernels take one molecule per
-    block), ``pad_atoms`` (the kernels take N as it comes, unpadded),
-    ``chunk`` and ``aug_chunk`` (the other modes' chunks), ``precision`` and
-    ``edge_precision`` (every product is f32 on the CUDA cores) and
-    ``interpret`` (CPU tensors take the plain versions).
+    Not ported yet, and raising when asked for: the bf16 tier
+    (``matmul_dtype``, ``edge_matmul_dtype``, ``resid_dtype`` other than f32,
+    ``resid_lowp``) and the TPU-only MXU pooling ``spatial_mode``. Accepted
+    with no counterpart: ``batch_tile`` and ``aug_batch_tile`` (the kernels
+    take one molecule per block), ``pad_atoms`` (the kernels take N as it
+    comes, unpadded), ``precision`` and ``edge_precision`` (every product is
+    f32 on the CUDA cores) and ``interpret`` (CPU tensors take the plain
+    versions). ``fused_primal`` and ``shared_chunk`` are read only in the
+    modes that keep the primal's streams.
     """
     if aug_mode not in ("retrace", "resid", "shared", "fused"):
         raise ValueError(f"unknown aug_mode {aug_mode!r}")
-    if aug_mode in ("retrace", "resid"):
-        raise NotImplementedError(
-            f"make_ef_train2: aug_mode={aug_mode!r} (sites #16-#19, train2_ef.py:330, :464, "
-            ":668, :837) is not ported; use aug_mode='fused' or 'shared'")
-    if (matmul_dtype is not None or edge_matmul_dtype is not None or resid_lowp is not None
-            or resid_dtype not in (None, torch.float32)):
-        raise NotImplementedError("make_ef_train2: the port's kernels are f32 only")
+    _f32_only("make_ef_train2", matmul_dtype, edge_matmul_dtype, resid_dtype, resid_lowp)
     if spatial_mode is not None:
         raise NotImplementedError("make_ef_train2: spatial_mode is a TPU-only probe")
+    # shared and fused modes carry the primal's streams to the backward
+    streams = aug_mode in ("shared", "fused")
     use_fused_primal = aug_mode == "fused" if fused_primal is None else fused_primal
-    fused_backward = aug_mode == "fused"
 
     def prep(params, h):
         upd = [1.0 if u else 0.0 for u in per_layer(update, len(params.layers))]
@@ -764,15 +1033,19 @@ def make_ef_train2(
         leaves_t = transposed(leaves) if h.is_cuda else None
         return upd, leaves, leaves_t, embed(params, h.float()).contiguous()
 
-    def chunks(B):
-        step = shared_chunk or B
+    def chunks(B, step):
+        step = step or B
         return [slice(s, s + step) for s in range(0, B, step)]
 
     def primal(params, h, x, keep: bool):
         """``(e, f)`` and, with ``keep``, each chunk's ``FwdOut``."""
+        if not streams:
+            e, f = resid_ef.resid_energy_forces(params, h, x, n_heads=n_heads, update=update,
+                                                chunk=chunk)
+            return e, f, []
         upd, leaves, leaves_t, h0 = prep(params, h)
         es, fs, fwds = [], [], []
-        for sl in chunks(h.shape[0]):
+        for sl in chunks(h.shape[0], shared_chunk):
             xs = x[sl].permute(2, 0, 1).float().contiguous()
             if use_fused_primal:
                 fwd, _, dx = _fused_primal(params, leaves, h0[sl].contiguous(), xs, upd,
@@ -788,35 +1061,49 @@ def make_ef_train2(
                 fwds.append(fwd)
         return torch.cat(es), torch.cat(fs), fwds
 
+    def chunk_grads(params, leaves, leaves_t, upd, fwd, h0, xs, tx0, g_e):
+        """One chunk's ``(dh0, dx0, readout, grads)``: from the primal's
+        streams ``fwd`` (shared, fused) or from the chunk's inputs ``h0``,
+        ``xs`` (resid, retrace)."""
+        if aug_mode == "fused":
+            return fused_bwd(params, leaves, fwd, upd, tx0, g_e.float().contiguous(),
+                             leaves_t=leaves_t)
+        if aug_mode == "shared":
+            tfwd = resid_jvp(leaves, fwd, upd, tx0)
+        else:
+            fwd, tfwd = (aug_fwd if aug_mode == "resid" else retrace_fwd)(leaves, h0, xs, upd,
+                                                                          tx0)
+        ro, dh_fin, dth_fin = head_grads(params, fwd.h_fin, tfwd.h_fin, g_e)
+        bwd = retrace_bwd if aug_mode == "retrace" else (
+            aug_bwd if aug_mode == "resid" else resid_aug_bwd)
+        dh0, dx0, _, g = bwd(leaves, fwd, tfwd, upd, dh_fin, dth_fin, leaves_t=leaves_t)
+        return dh0, dx0, ro, g
+
     class EF(torch.autograd.Function):
         @staticmethod
         def forward(ctx, h, x, *flat):
             params = _unflat_params(flat, (len(flat) - 6) // resid_ef._LAYER_TENSORS)
             e, f, ctx.fwds = primal(params, h, x, keep=True)
-            ctx.save_for_backward(h, *flat)
+            ctx.save_for_backward(h, x, *flat)
             return e, f
 
         @staticmethod
         @once_differentiable
         def backward(ctx, g_e, g_f):
-            h, *flat = ctx.saved_tensors
+            h, x, *flat = ctx.saved_tensors
             params = _unflat_params(flat, (len(flat) - 6) // resid_ef._LAYER_TENSORS)
-            upd, leaves, leaves_t, _ = prep(params, h)
+            upd, leaves, leaves_t, h0 = prep(params, h)
             B, N, _ = h.shape
             g_e = torch.zeros(B, device=h.device) if g_e is None else g_e
             g_f = torch.zeros(B, N, 3, device=h.device) if g_f is None else g_f
             dh0s, dxs, ro_sum, layer = [], [], None, None
-            for sl, fwd in zip(chunks(B), ctx.fwds):
+            sls = chunks(B, shared_chunk if streams else aug_chunk)
+            for sl, fwd in zip(sls, ctx.fwds if streams else [None] * len(sls)):
                 # F = -dE/dx: the minus lives in the head's -e_dot, so the seed is +g_f
                 tx0 = g_f[sl].permute(2, 0, 1).float().contiguous()
-                if fused_backward:
-                    dh0, dx0, ro, g = fused_bwd(params, leaves, fwd, upd, tx0,
-                                                g_e[sl].float().contiguous(), leaves_t=leaves_t)
-                else:
-                    tfwd = resid_jvp(leaves, fwd, upd, tx0)
-                    ro, dh_fin, dth_fin = head_grads(params, fwd.h_fin, tfwd.h_fin, g_e[sl])
-                    dh0, dx0, _, g = resid_aug_bwd(leaves, fwd, tfwd, upd, dh_fin, dth_fin,
-                                                   leaves_t=leaves_t)
+                xs = x[sl].permute(2, 0, 1).float().contiguous()
+                dh0, dx0, ro, g = chunk_grads(params, leaves, leaves_t, upd, fwd,
+                                              h0[sl].contiguous(), xs, tx0, g_e[sl])
                 dh0s.append(dh0)
                 dxs.append(dx0.permute(1, 2, 0))
                 ro_sum = ro if ro_sum is None else [a + b for a, b in zip(ro_sum, ro)]

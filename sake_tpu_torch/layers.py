@@ -70,10 +70,26 @@ class DenseSAKELayer(nn.Module):
         )
 
     def forward(self, h, x, v=None, mask=None):
-        """``h (B, N, F)``, ``x``/``v (B, N, 3)``, edge ``mask (B, N, N)``."""
-        xp = [x[..., k : k + 1] for k in range(3)]
-        vp = [v[..., k : k + 1] for k in range(3)] if v is not None else None
-        h, xp, vp = layer_forward_planes(
-            self.params(), h, xp, vp, n_heads=self.n_heads, update=self.update, mask=mask
-        )
-        return h, torch.cat(xp, dim=-1), (torch.cat(vp, dim=-1) if vp is not None else None)
+        """``h (B, N, F)``, ``x``/``v (B, N, 3)``, edge ``mask (B, N, N)``, or
+        the same without the batch axis (``h (N, F)``), as the linen layer."""
+
+        def batched(h_, x_, v_, m_):
+            xp = [x_[..., k : k + 1] for k in range(3)]
+            vp = [v_[..., k : k + 1] for k in range(3)] if v_ is not None else None
+            h_, xp, vp = layer_forward_planes(self.params(), h_, xp, vp, n_heads=self.n_heads,
+                                              update=self.update, mask=m_)
+            return h_, torch.cat(xp, dim=-1), (torch.cat(vp, dim=-1) if vp is not None else None)
+
+        return unbatched(batched, h, x, v, mask)
+
+
+def unbatched(fn, h, x, v, mask):
+    """``fn(h, x, v, mask) -> (h, x, v)`` on batched inputs, applied to an
+    unbatched ``h (N, F)`` (with ``x (N, 3)``, ``v``, ``mask (N, N)``) by
+    adding a batch axis and stripping it from the outputs; batched inputs
+    pass through."""
+    if h.dim() != 2:
+        return fn(h, x, v, mask)
+    add = lambda t: None if t is None else t[None]
+    out = fn(h[None], x[None], add(v), add(mask))
+    return tuple(None if t is None else t[0] for t in out)

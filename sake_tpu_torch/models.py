@@ -19,7 +19,7 @@ from torch import nn
 from sake_tpu_torch.blocks import MLP, Dense
 from sake_tpu_torch.kernels.dispatch import dispatch_energy_forces
 from sake_tpu_torch.kernels.functional import ModelParams, _silu, model_forward, per_layer
-from sake_tpu_torch.layers import DenseSAKELayer
+from sake_tpu_torch.layers import DenseSAKELayer, unbatched
 from sake_tpu_torch.utils import coloring, resolve_device
 
 
@@ -61,9 +61,14 @@ class SAKEModel(nn.Module):
         )
 
     def forward(self, h, x, v=None, mask=None):
-        """``(out (B, N, out), x (B, N, 3), v)``."""
-        return model_forward(self.functional_params(), h, x, v, n_heads=self.n_heads,
-                             update=self.updates, mask=mask)
+        """``(out (B, N, out), x (B, N, 3), v)``; an unbatched ``h (N, F)``,
+        ``x (N, 3)`` (and ``v``, ``mask (N, N)``) gives unbatched outputs, as
+        the linen module does."""
+        return unbatched(
+            lambda h_, x_, v_, m_: model_forward(self.functional_params(), h_, x_, v_,
+                                                 n_heads=self.n_heads, update=self.updates,
+                                                 mask=m_),
+            h, x, v, mask)
 
     def energy_and_forces(self, h, x, mask=None):
         """Raw (uncolored) ``E (B,)`` and ``F = -dE/dx (B, N, 3)``, summed over
@@ -80,14 +85,23 @@ def energy_readout(h_out, mask=None, mean=0.0, std=1.0):
 
 
 def energy_and_forces(model: nn.Module, h, x, mask=None, mean=0.0, std=1.0):
-    """Energy and ``F = -dE/dx`` by autograd through ``model.forward``
-    (the plain path; ``SAKEModel.energy_and_forces`` is the kernel path)."""
+    """Energy and ``F = -dE/dx`` by autograd through ``model.forward`` (the
+    plain path; ``SAKEModel.energy_and_forces`` is the kernel path), as the
+    JAX function: ``E`` is the readout summed over the batch (shape ``()``),
+    and when autograd records (grad enabled and the model's parameters,
+    ``h`` or ``x`` requiring grad) both stay differentiable w.r.t. them
+    (``create_graph``), so a loss of ``F`` has second-order gradients.
+    Otherwise both come back detached."""
+    record = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (h, x, *model.parameters()))
     with torch.enable_grad():
-        xg = x.detach().requires_grad_(True)
+        xg = x if x.requires_grad else x.detach().requires_grad_(True)
         h_out, _, _ = model(h, xg, mask=mask)
-        e = energy_readout(h_out, mask=mask, mean=mean, std=std)
-        (g,) = torch.autograd.grad(e.sum(), xg)
-    return e.detach(), -g
+        e = energy_readout(h_out, mask=mask, mean=mean, std=std).sum()
+        (g,) = torch.autograd.grad(e, xg, create_graph=record)
+    if not record:
+        return e.detach(), -g
+    return e, -g
 
 
 def graph_property_head(mlp: dict | None, h, mask=None):

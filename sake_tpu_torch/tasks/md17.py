@@ -11,8 +11,9 @@ the same model from one seeded init:
 - the kernel branch (``use_kernel_ef``) trains ``ModelParams`` through
   ``kernels/train2_ef.make_ef_train2``, whose primal and backward are CUDA
   kernels on a card: in the config's default ``aug_mode="fused"`` (#11 and
-  #12, the JAX default and the ``md17_kernel`` workload) or in
-  ``aug_mode="shared"`` (#7-#10).
+  #12, the JAX config's default and the ``md17_kernel`` workload), in
+  ``"shared"`` (#7-#10), ``"resid"`` (K1 + K2, #18, #19; ``make_ef_train2``'s
+  own default) or ``"retrace"`` (K1 + K2, #16, #17).
 
 Both branches evaluate on the f32 functional path and report bootstrap
 MAE in kcal/mol. Epochs are Python loops over batches, reshuffled with a

@@ -215,12 +215,117 @@ def test_layer_module_matches_linen_layer(edge_mask, update, with_v):
 
 
 def test_module_energy_and_forces_paths_agree(setup):
-    """``models.energy_and_forces`` (autograd through ``forward``) and
-    ``SAKEModel.energy_and_forces`` (the dispatch) give the same E and F."""
+    """``models.energy_and_forces`` (autograd through ``forward``; E is the
+    batch total, as in JAX) and ``SAKEModel.energy_and_forces`` (the
+    dispatch; raw E per molecule) give the same E and F."""
     _, params, h, x = setup
     model = SAKEModel(HID, 1, DEPTH, in_features=F_IN, device="cpu")
     load_linen_params(model, _np_tree(params))
-    e_ref, f_ref = energy_and_forces(model, _t(h), _t(x), mean=0.5, std=2.0)
+    with torch.no_grad():
+        e_ref, f_ref = energy_and_forces(model, _t(h), _t(x), mean=0.5, std=2.0)
     e, f = model.energy_and_forces(_t(h), _t(x))
-    np.testing.assert_allclose(e.numpy() * 2.0 + 0.5, e_ref.numpy(), **TOL)
+    assert e_ref.shape == () and e.shape == (B,)
+    np.testing.assert_allclose((e.numpy() * 2.0 + 0.5).sum(), e_ref.numpy(), **TOL)
     np.testing.assert_allclose(f.numpy() * 2.0, f_ref.numpy(), **TOL)
+
+
+def test_energy_and_forces_force_loss_gradients_match_jax(setup):
+    """A force loss ``sum F^2`` through ``models.energy_and_forces`` on the
+    module, by torch autograd, against ``jax.grad`` of the same loss through
+    the JAX ``energy_and_forces`` on the linen model: E (the batch total), F
+    and every parameter's gradient (those the loss does not reach are zero
+    in JAX and unused in torch). Before the repair E was per molecule and
+    F carried no graph, so the loss had no gradient."""
+    from sake_tpu.models import energy_and_forces as jax_energy_and_forces
+
+    model_j, params, h, x = setup
+
+    def loss_j(p):
+        e, f = jax_energy_and_forces(model_j.apply, p, jnp.asarray(h), jnp.asarray(x),
+                                     mean=0.5, std=2.0)
+        return (f ** 2).sum(), (e, f)
+
+    (l_ref, (e_ref, f_ref)), g_ref = jax.value_and_grad(loss_j, has_aux=True)(params)
+    model = SAKEModel(HID, 1, DEPTH, in_features=F_IN, device="cpu")
+    load_linen_params(model, _np_tree(params))
+    e, f = energy_and_forces(model, _t(h), _t(x), mean=0.5, std=2.0)
+    assert e.shape == () and e.requires_grad and f.requires_grad
+    np.testing.assert_allclose(float(e.detach()), float(e_ref), **TOL)
+    np.testing.assert_allclose(f.detach().numpy(), np.asarray(f_ref), rtol=2e-4, atol=2e-4)
+    loss = (f ** 2).sum()
+    np.testing.assert_allclose(float(loss.detach()), float(l_ref), rtol=2e-4)
+    names, prms = zip(*model.named_parameters())
+    got = torch.autograd.grad(loss, prms, allow_unused=True)
+    want = _np_tree(g_ref)["params"]
+    reached = 0
+    for name, prm, g in zip(names, prms, got):
+        node = want
+        for part in name.split("."):
+            node = node[part]
+        g = torch.zeros_like(prm) if g is None else g
+        reached += bool(np.abs(node).max() > 0)
+        np.testing.assert_allclose(g.numpy(), node, rtol=2e-3, atol=1e-5, err_msg=name)
+    assert reached > len(names) // 2
+
+
+def test_unbatched_module_call_matches_linen():
+    """README's quick start: ``SAKEModel(...)(h (N, F), x (N, 3))`` without
+    a batch axis returns ``(N, out)``, as the linen module does (before the
+    repair the port raised); the layer module takes it too."""
+    rng = np.random.RandomState(6)
+    h = rng.randn(5, F_IN).astype(np.float32)
+    x = rng.randn(5, 3).astype(np.float32)
+    model_j = JaxSAKEModel(hidden_features=HID, out_features=1, depth=2)
+    params = model_j.init(jax.random.PRNGKey(1), jnp.asarray(h), jnp.asarray(x))
+    rh, rx, _ = model_j.apply(params, jnp.asarray(h), jnp.asarray(x))
+    model = SAKEModel(HID, 1, 2, in_features=F_IN, device="cpu")
+    load_linen_params(model, _np_tree(params))
+    with torch.no_grad():
+        oh, ox, ov = model(_t(h), _t(x))
+        lh, lx, lv = model.layer_0(_t(rng.randn(5, HID).astype(np.float32)), _t(x))
+    assert oh.shape == (5, 1) and ox.shape == (5, 3) and ov.shape == (5, 3)
+    assert lh.shape == (5, HID) and lx.shape == (5, 3) and lv.shape == (5, 3)
+    np.testing.assert_allclose(oh.numpy(), np.asarray(rh), **TOL)
+    np.testing.assert_allclose(ox.numpy(), np.asarray(rx), **TOL)
+
+
+def _jax_port_pairs():
+    from sake_tpu.kernels import dispatch as jd
+    from sake_tpu.kernels import functional as jf
+    from sake_tpu.kernels import one_ef as jo
+    from sake_tpu.kernels import resid_ef as jr
+    from sake_tpu.kernels import train2_ef as jt
+    from sake_tpu_torch.kernels import dispatch, functional, one_ef, resid_ef, train2_ef
+
+    return {
+        "resid_energy_forces": (jr.resid_energy_forces, resid_ef.resid_energy_forces),
+        "make_hidden_fn": (jr.make_hidden_fn, resid_ef.make_hidden_fn),
+        "dispatch_energy_forces": (jd.dispatch_energy_forces, dispatch.dispatch_energy_forces),
+        "model_forward": (jf.model_forward, functional.model_forward),
+        "energy_and_forces_fn": (jf.energy_and_forces_fn, functional.energy_and_forces_fn),
+        "one_energy_forces": (jo.one_energy_forces, one_ef.one_energy_forces),
+        "make_ef_train2": (jt.make_ef_train2, train2_ef.make_ef_train2),
+    }
+
+
+@pytest.mark.parametrize("name", ["resid_energy_forces", "make_hidden_fn",
+                                  "dispatch_energy_forces", "model_forward",
+                                  "energy_and_forces_fn", "one_energy_forces",
+                                  "make_ef_train2"])
+def test_dense_entry_points_take_every_jax_keyword(name):
+    """Every parameter name of the JAX entry point is a parameter of the
+    port's (which may have more, such as ``device``); the call the JAX tasks
+    make with their tiling keywords builds. Before the repair
+    ``resid_energy_forces`` lacked 14, ``make_hidden_fn`` raised on
+    ``batch_tile`` and the functional entries lacked ``matmul_dtype``."""
+    import inspect
+
+    jax_fn, port_fn = _jax_port_pairs()[name]
+    want = set(inspect.signature(jax_fn).parameters)
+    got = set(inspect.signature(port_fn).parameters)
+    assert want <= got, sorted(want - got)
+    if name == "make_hidden_fn":  # tasks/qm9.py:142-150's call
+        from sake_tpu_torch.kernels import resid_ef
+
+        resid_ef.make_hidden_fn(n_heads=4, update=False, batch_tile=4, pad_atoms=True,
+                                interpret=False, precision=None, edge_precision=None)

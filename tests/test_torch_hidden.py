@@ -238,7 +238,7 @@ def test_hidden_no_grad_takes_infer_path(setup, masked):
     np.testing.assert_allclose(readout(tp, h_fin).numpy(), np.asarray(out_l), **FWD_TOL)
 
 
-@pytest.mark.parametrize("kw", [dict(want_x=True), dict(batch_tile=4),
+@pytest.mark.parametrize("kw", [dict(want_x=True), dict(matmul_dtype=torch.bfloat16),
                                 dict(edge_matmul_dtype=torch.bfloat16),
                                 dict(resid_dtype=torch.bfloat16)])
 def test_make_hidden_fn_rejects_unported_options(kw):

@@ -2,7 +2,7 @@
 E + F, colored, through ``tasks/md17.make_energy_force_fn`` -> ``SAKEModel``
 -> ``kernels/dispatch``, plain K1/K2 stacks on the CPU, vs the JAX linen
 path), force-loss training (one step of each branch, the kernel branch in
-both modes, against the JAX ``make_step_fn`` on its plain branch, and ``run``
+all four modes, against the JAX ``make_step_fn`` on its plain branch, and ``run``
 end to end) and the task registry against the JAX one.
 
 Tolerances: serving ``rtol=2e-4, atol=2e-5``; a training step's loss
@@ -110,12 +110,13 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 
 @pytest.mark.parametrize("use_kernel_ef,aug_mode", [(False, "fused"), (True, "shared"),
-                                                    (True, "fused")])
+                                                    (True, "fused"), (True, "resid"),
+                                                    (True, "retrace")])
 def test_train_step_matches_jax_plain_branch(use_kernel_ef, aug_mode):
     """One training step from the same linen init and batch: the port's
     plain branch (double autograd through the functional model) or its
-    kernel branch (``make_ef_train2`` in shared or in the default fused
-    mode, plain stacks on the CPU) against the JAX plain branch's
+    kernel branch (``make_ef_train2`` in each mode, the config's default
+    fused mode among them, plain stacks on the CPU) against the JAX plain branch's
     ``make_step_fn``: the loss, and every parameter after the adam update."""
     data = jax_synthesize(n_samples=12, seed=4)
     # an odd batch: the readout bias's gradient is a sum of E-MAE signs, which
@@ -162,7 +163,8 @@ def _pick(tree, like):
 
 
 @pytest.mark.parametrize("use_kernel_ef,aug_mode", [(False, "fused"), (True, "shared"),
-                                                    (True, "fused")])
+                                                    (True, "fused"), (True, "resid"),
+                                                    (True, "retrace")])
 def test_run_trains_and_reports_kcal_mae(use_kernel_ef, aug_mode):
     """``run`` end to end at a tiny size: the loss stays finite and the E and
     F bootstrap MAE come back in kcal/mol."""
@@ -182,7 +184,7 @@ def test_run_trains_and_reports_kcal_mae(use_kernel_ef, aug_mode):
         assert res[k.replace("kcalmol", "ci")][0] <= res[k.replace("kcalmol", "ci")][1]
 
 
-@pytest.mark.parametrize("kw", [dict(use_kernel_ef=True, aug_mode="resid"),
+@pytest.mark.parametrize("kw", [dict(use_kernel_ef=True, checkpoint_dir="ckpt"),
                                 dict(checkpoint_dir="ckpt")])
 def test_run_rejects_unported_options(kw):
     with pytest.raises(NotImplementedError):

@@ -331,8 +331,8 @@ def test_make_ef_train2_matches_jax_double_autodiff(setup, shared_chunk, aug_mod
 
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(aug_mode="retrace"), NotImplementedError),
-    (dict(aug_mode="resid"), NotImplementedError),
+    (dict(aug_mode="resid", matmul_dtype=torch.bfloat16), NotImplementedError),
+    (dict(aug_mode="retrace", resid_dtype=torch.bfloat16), NotImplementedError),
     (dict(aug_mode="shared", edge_matmul_dtype=torch.bfloat16), NotImplementedError),
     (dict(aug_mode="shared", resid_dtype=torch.bfloat16), NotImplementedError),
     (dict(aug_mode="shared", spatial_mode="mxu"), NotImplementedError),
