@@ -112,6 +112,37 @@ Phases (each prints its own lines; any failure exits non-zero):
    dense kernel, with a falling loss; then the train step of both branches
    in turns, each kernel timed, and a BREAKDOWN.
 
+17. Remat kernels vs plain: at aspirin's full width, B = 300 (the serving
+   path's inputs: embedded species, v = 0, every layer updating, a random
+   cotangent of the final h), #21 and #23 (``csrc/remat_ef.cu``: the
+   boundaries and the final h) against ``fori_fwd_plain`` and
+   ``depthgrid_fwd_plain``, #22 and #24 (dh0, dx, dv) against
+   ``fori_bwd_plain`` and ``depthgrid_bwd_plain`` (``torch.func.vjp`` of the
+   wide layer), #23 against #21 and #24 against #22; then the four on seeded
+   models of hidden 8 (50 rbf channels > H*K = 32) and 16, depth 2, gates
+   [1, 0.4]; limit 1e-4 relative per tensor.
+18. The E + F slice of the kernel API: aspirin requests of B in {37, 512,
+   2048} through ``fori_energy_forces`` and ``depthgrid_energy_forces``
+   against the plain f32 autograd path with phase 4's limits; #21-#24 must
+   launch and K1 and K2 must not. Then at B = 2048 fori, depthgrid, K1 + K2
+   (``resid_energy_forces``) and plain in turns, each path's peak device
+   memory, each kernel at the path's shapes (chunks of 512) beside its plain
+   version and its bound, and a BREAKDOWN of both paths.
+19. Force-loss training through ``make_trainable_energy_forces`` on
+   ``synthesize_md17`` aspirin at B = 512: step 1's loss and every gradient
+   of the primals fori, resid and depthgrid against plain double autograd
+   (1e-4 relative per leaf), the first 5 losses (1e-3), 50 adam steps of the
+   fori primal (lr 1e-3) with a finite, falling loss and #21 and #22
+   launched; then the train step of the three primals and plain in turns and
+   a BREAKDOWN of each (primal kernels, readout seed, the rest of the primal,
+   the torch pullback, adam).
+20. Dense MD: ``md.velocity_verlet_rollout`` (B = 512 aspirin, atomic
+   masses, dt 1e-3, 20 steps) on ``fori_energy_forces`` forces against the
+   same rollout on plain forces, positions within rtol 1e-4 / atol 1e-5 and
+   velocities within rtol 1e-3 / atol 1e-4 (``tests/test_md.py:89-90``); the
+   fori rollout launches #21 and #22 only; molecule-steps/s of fori, the
+   dispatch (K1 + K2) and plain, in turns.
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -149,6 +180,12 @@ MD17_RETRACE_RUN = dict(n_train=400, n_valid=200, n_epochs=1, epochs_per_block=1
 SPARSE_TOL = 1e-4  # the sparse edge kernels and the sparse training step, relative per tensor
 SPARSE_CELL_CAPACITY = 48  # the periodic run's cell list (about 12 atoms a cell at 0.05 / A^3)
 SPARSE_PERIODIC_STEPS = 20
+REMAT_REQUESTS = (37, 512, 2048)  # phase 18's E + F requests through #21-#24
+REMAT_TRAIN_B = 512  # phase 19's batch (bench_md17_train.py's)
+REMAT_TRAIN_STEPS = 50
+REMAT_TRAIN_LR = 1e-3  # the 50-step run's constant adam rate
+MD_B, MD_STEPS, MD_DT = 512, 20, 1e-3  # phase 20's rollout
+ATOM_MASS = {1: 1.008, 6: 12.011, 8: 15.999}  # u, by atomic number (aspirin: H, C, O)
 # H100 SXM peaks (NVIDIA's data sheet): f32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 
@@ -234,10 +271,10 @@ def kernel_entry(name, source, replaces, launches, max_abs_err, ms, plain_ms, fm
     # or the sparse edge chain
 
 
-def report_checks(checks: dict, abs_errs: dict, label: str):
-    """Print each MD17 training check (a list of (name, kernel, reference))
-    and fail on a relative error per tensor beyond TRAIN_TOL or a
-    non-finite kernel value; record each check's max absolute error."""
+def report_checks(checks: dict, abs_errs: dict, label: str, prefix: str = "MD17 TRAIN"):
+    """Print each kernel check (a list of (name, kernel, reference)) and
+    fail on a relative error per tensor beyond TRAIN_TOL or a non-finite
+    kernel value; record each check's max absolute error."""
     import torch
 
     for name, pairs in checks.items():
@@ -245,11 +282,11 @@ def report_checks(checks: dict, abs_errs: dict, label: str):
         abs_errs[name] = max(abs_err(a, b) for _, a, b in pairs)
         w = max(errs, key=errs.get)
         finite = all(bool(torch.isfinite(a).all()) for _, a, _ in pairs)
-        print(f"MD17 TRAIN {name} {label}: max rel err {errs[w]:.3e} ({w}), max abs err "
+        print(f"{prefix} {name} {label}: max rel err {errs[w]:.3e} ({w}), max abs err "
               f"{abs_errs[name]:.3e}, finite {finite} "
               + json.dumps({k: float(f"{v:.2e}") for k, v in errs.items()}), flush=True)
         if errs[w] > TRAIN_TOL or not finite:
-            fail(f"MD17 training kernel {name} beyond {TRAIN_TOL}")
+            fail(f"{prefix} kernel {name} beyond {TRAIN_TOL}")
 
 
 def narrow_aug_checks(dev, hid: int) -> dict:
@@ -287,17 +324,77 @@ def narrow_aug_checks(dev, hid: int) -> dict:
     return checks
 
 
+def chunked_plain_ef(params, species, x, n_heads: int, chunk: int):
+    """The plain f32 autograd E + F of requests ``x (B, N, 3)`` of one molecule
+    with one-hot ``species (N, S)``, in chunks of ``chunk`` molecules."""
+    import torch
+
+    from sake_tpu_torch.kernels.functional import energy_and_forces_fn
+
+    es, fs = [], []
+    for s in range(0, x.shape[0], chunk):
+        xc = x[s : s + chunk]
+        h = species.to(x.device).expand(xc.shape[0], *species.shape)
+        e, f = energy_and_forces_fn(params, h, xc, n_heads=n_heads)
+        es.append(e)
+        fs.append(f)
+    return torch.cat(es), torch.cat(fs)
+
+
+def md17_loss_and_grads(br: dict, batch: dict, energy_loss_weight: float):
+    """The loss of ``tasks/md17.make_step_fn`` on ``batch`` through the branch
+    ``br`` (its ``params`` and ``ef``) and the gradient of every parameter
+    (zeros for one the branch does not use)."""
+    import torch
+
+    from sake_tpu_torch.train import tree_leaves
+
+    leaves_ = tree_leaves(br["params"])
+    with torch.enable_grad():
+        e, f = br["ef"](br["params"], batch["x"])
+        loss = ((f - batch["f"]).abs().mean()
+                + energy_loss_weight * (e - batch["e"]).abs().mean())
+        grads = torch.autograd.grad(loss, leaves_, allow_unused=True)
+    return loss.detach(), [torch.zeros_like(p) if g is None else g
+                           for p, g in zip(leaves_, grads)]
+
+
 def dense_counters() -> tuple:
-    """The launch counts of every dense-layer kernel (K1, K2, #3-#12, #16-#19): a
-    sparse path must leave them all where they were."""
-    from sake_tpu_torch.kernels import one_ef, resid_ef
+    """The launch counts of every dense-layer kernel (K1, K2, #3-#12, #16-#19,
+    #21-#24): a sparse path must leave them all where they were."""
+    from sake_tpu_torch.kernels import depthgrid_ef, fori_ef, one_ef, resid_ef
     from sake_tpu_torch.kernels import train2_ef as t2
 
     return (resid_ef.resid_fwd, resid_ef.resid_infer, resid_ef.resid_bwd,
             resid_ef.resid_bwd_rows, resid_ef.param_grads, one_ef.one_energy_forces,
             t2.resid_jvp, t2.resid_tbwd, t2.resid_bwd_aug, t2.param_grads_aug, t2.shared_fwd,
             t2.shared_bwd, t2.fused_primal, t2.fused_bwd_block, t2.fused_bwd_grads, t2.aug_fwd,
-            t2.aug_bwd, t2.retrace_fwd, t2.retrace_bwd)
+            t2.aug_bwd, t2.retrace_fwd, t2.retrace_bwd, fori_ef.fori_fwd, fori_ef.fori_bwd,
+            depthgrid_ef.depthgrid_fwd, depthgrid_ef.depthgrid_bwd)
+
+
+def remat_checks(leaves: dict, h0, xs, upd, dh) -> dict:
+    """#21-#24 against their plain versions on one input (``h0 (B, N, F)``,
+    ``xs (3, B, N)``, v = 0, the gates ``upd``, ``dh`` the cotangent of the
+    final h), and #23 against #21, #24 against #22; the pullbacks run on
+    the plain forward's boundaries. Checks as :func:`report_checks` takes
+    them."""
+    import torch
+
+    from sake_tpu_torch.kernels import depthgrid_ef as dg
+    from sake_tpu_torch.kernels import fori_ef as fe
+
+    with torch.no_grad():
+        pf, pg = fe.fori_fwd_plain(leaves, h0, xs, upd), dg.depthgrid_fwd_plain(leaves, h0, xs, upd)
+        pb, pd = fe.fori_bwd_plain(leaves, pf, upd, dh), dg.depthgrid_bwd_plain(leaves, pf, upd, dh)
+        k21, k23 = fe.fori_fwd(leaves, h0, xs, upd), dg.depthgrid_fwd(leaves, h0, xs, upd)
+        k22, k24 = fe.fori_bwd(leaves, pf, upd, dh), dg.depthgrid_bwd(leaves, pf, upd, dh)
+        torch.cuda.synchronize()
+    fn, bn = ("bh", "bx", "bv", "h_fin"), ("dh0", "dx", "dv")
+    return {"fori_fwd": [*zip(fn, k21, pf)], "fori_bwd": [*zip(bn, k22, pb)],
+            "depthgrid_fwd": [*zip(fn, k23, pg)], "depthgrid_bwd": [*zip(bn, k24, pd)],
+            "depthgrid_fwd_vs_fori_fwd": [*zip(fn, k23, k21)],
+            "depthgrid_bwd_vs_fori_bwd": [*zip(bn, k24, k22)]}
 
 
 def main() -> int:
@@ -336,6 +433,7 @@ def main() -> int:
     kernels += md17_train_phases(dev, smi)
     kernels += sparse_md_phases(dev, smi)
     kernels += sparse_train_phases(dev, smi)
+    kernels += remat_phases(dev, smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -349,7 +447,7 @@ def md17_serving_phases(dev, smi) -> list:
 
     from sake_tpu_torch.data.md17 import synthesize_md17
     from sake_tpu_torch.kernels import dispatch, one_ef, resid_ef
-    from sake_tpu_torch.kernels.functional import embed, energy_and_forces_fn
+    from sake_tpu_torch.kernels.functional import embed
     from sake_tpu_torch.kernels.leaves import transposed, wide_stack
     from sake_tpu_torch.tasks.md17 import (
         MD17Config,
@@ -423,14 +521,7 @@ def md17_serving_phases(dev, smi) -> list:
     serve = make_energy_force_fn(model, species, e_mean, e_std)
 
     def plain_ef(x, chunk=CHECK_CHUNK):
-        es, fs = [], []
-        for s in range(0, x.shape[0], chunk):
-            xc = x[s : s + chunk]
-            h = species.to(dev).expand(xc.shape[0], N, -1)
-            e, f = energy_and_forces_fn(params, h, xc, n_heads=cfg.n_heads)
-            es.append(e)
-            fs.append(f)
-        return torch.cat(es), torch.cat(fs)
+        return chunked_plain_ef(params, species, x, cfg.n_heads, chunk)
 
     xs_all = torch.as_tensor(data.x, device=dev)
     serving = (resid_ef.resid_fwd, resid_ef.resid_bwd, one_ef.one_energy_forces)
@@ -998,15 +1089,8 @@ def md17_train_phases(dev, smi) -> list:
     kernel_sides = ("fused", "shared", "resid", "retrace")
     branches = {**{m: branch(True, m) for m in kernel_sides}, "plain": branch(False)}
 
-    def loss_and_grads(br, batch):  # the loss of tasks/md17.make_step_fn
-        leaves_ = tree_leaves(br["params"])
-        with torch.enable_grad():
-            e, f = br["ef"](br["params"], batch["x"])
-            loss = ((f - batch["f"]).abs().mean()
-                    + cfg.energy_loss_weight * (e - batch["e"]).abs().mean())
-            grads = torch.autograd.grad(loss, leaves_, allow_unused=True)
-        return loss.detach(), [torch.zeros_like(p) if g is None else g
-                               for p, g in zip(leaves_, grads)]
+    def loss_and_grads(br, batch):
+        return md17_loss_and_grads(br, batch, cfg.energy_loss_weight)
 
     lp, gp_ = loss_and_grads(branches["plain"], batches[0])
     tree = {}  # the plain branch's gradients by linen name
@@ -1710,6 +1794,336 @@ def sparse_train_phases(dev, smi) -> list:
                      2 * (fma["bwd"] + fma["grads"]) * E,
                      ins + nbytes(gp, gh, cg) + nbytes(hg, ai, oi, d0, gp, gh, ep)),
     ]
+
+
+def remat_phases(dev, smi) -> list:
+    """Phases 17-20 (see the module docstring); returns their kernel entries."""
+    import math
+
+    import torch
+
+    from sake_tpu_torch import md
+    from sake_tpu_torch.data.md17 import synthesize_md17
+    from sake_tpu_torch.kernels import depthgrid_ef, dispatch, fori_ef, resid_ef
+    from sake_tpu_torch.kernels.adapter import linen_tree, model_params_from_linen
+    from sake_tpu_torch.kernels.functional import embed, energy_and_forces_fn, flat_params
+    from sake_tpu_torch.kernels.leaves import transposed, wide_stack
+    from sake_tpu_torch.kernels.train_ef import make_trainable_energy_forces
+    from sake_tpu_torch.models import SAKEModel
+    from sake_tpu_torch.tasks.md17 import MD17Config, make_model, make_step_fn, species_onehot
+    from sake_tpu_torch.train import TrainState, make_optimizer, tree_leaves
+    from sake_tpu_torch.utils import coloring
+
+    data = synthesize_md17(n_samples=max(REMAT_REQUESTS), seed=SEED)
+    species = species_onehot(data.z, int(data.z.max())).to(dev)
+    cfg = MD17Config(hidden_features=FULL["hidden"], depth=FULL["depth"], n_heads=FULL["heads"])
+    model = make_model(cfg, species.shape[-1], device=dev,
+                       generator=torch.Generator().manual_seed(SEED))
+    model.requires_grad_(False)
+    params = model.functional_params()
+    leaves = wide_stack(params, cfg.n_heads)
+    leaves_t = transposed(leaves)
+    N, F, depth = len(data.z), cfg.hidden_features, cfg.depth
+    xs_all = torch.as_tensor(data.x, device=dev)
+    h_of = lambda B: species.expand(B, N, -1)
+    u6 = [1.0] * depth
+    counters = (fori_ef.fori_fwd, fori_ef.fori_bwd, depthgrid_ef.depthgrid_fwd,
+                depthgrid_ef.depthgrid_bwd)
+    k12 = (resid_ef.resid_fwd, resid_ef.resid_bwd)
+
+    # -- 17. #21-#24 against their plain versions at full width, then narrow ------
+    Bc = TRAIN_CHECK_B
+    with torch.no_grad():
+        h0 = embed(params, h_of(Bc)).contiguous()
+        xs = xs_all[:Bc].permute(2, 0, 1).contiguous()
+        dh = torch.randn(Bc, N, F, device=dev, generator=torch.Generator(dev).manual_seed(7))
+    abs_remat = {}
+    report_checks(remat_checks(leaves, h0, xs, u6, dh), abs_remat,
+                  f"vs plain (B={Bc}, N={N}, depth {depth})", prefix="REMAT")
+    del h0, xs, dh
+    for hid in (8, 16):  # 50 rbf channels against H*K = 32 and 64
+        m = SAKEModel(hid, 1, 2, in_features=5, device=dev,
+                      generator=torch.Generator().manual_seed(hid))
+        lv = wide_stack(model_params_from_linen(linen_tree(m), device=dev), 4)
+        gen = torch.Generator(dev).manual_seed(hid)
+        rnd = lambda *shape: torch.randn(*shape, device=dev, generator=gen)
+        report_checks(remat_checks(lv, rnd(4, 7, hid), 1.5 * rnd(3, 4, 7), [1.0, 0.4],
+                                   rnd(4, 7, hid)), {}, f"at hidden {hid} (B=4, N=7, depth 2)",
+                      prefix="REMAT")
+
+    # -- 18. the E + F slice through fori_energy_forces and depthgrid_energy_forces
+    paths = {"fori": fori_ef.fori_energy_forces,
+             "depthgrid": depthgrid_ef.depthgrid_energy_forces}
+
+    def plain_ef(x, chunk=CHECK_CHUNK):
+        return chunked_plain_ef(params, species, x, cfg.n_heads, chunk)
+
+    for c in (*counters, *k12):
+        c.launches = 0
+    answers = {(name, B): fn(params, h_of(B), xs_all[:B], n_heads=cfg.n_heads)
+               for name, fn in paths.items() for B in REMAT_REQUESTS}
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in (*counters, *k12)}
+    print(f"REMAT SLICE launches {json.dumps(launches)}", flush=True)
+    if min(c.launches for c in counters) == 0 or any(c.launches for c in k12):
+        fail("the fori / depthgrid path did not launch #21-#24, or launched K1 or K2")
+    refs = {B: plain_ef(xs_all[:B]) for B in REMAT_REQUESTS}
+    worst = {"f_err": 0.0, "e_err": 0.0}
+    for (name, B), (e, f) in answers.items():
+        if e.shape != (B,) or f.shape != (B, N, 3):
+            fail(f"{name} B={B}: shapes {tuple(e.shape)} {tuple(f.shape)}")
+        if not (torch.isfinite(e).all() and torch.isfinite(f).all()):
+            fail(f"{name} B={B}: non-finite output")
+        err = {"f_err": rel_err(f, refs[B][1]), "e_err": rel_err(e, refs[B][0])}
+        worst = {k: max(worst[k], v) for k, v in err.items()}
+        print(f"REMAT SLICE {name} B={B}: f_err {err['f_err']:.3e} e_err {err['e_err']:.3e}",
+              flush=True)
+    if not (worst["f_err"] <= F_TOL and worst["e_err"] <= E_TOL):
+        fail(f"fori / depthgrid slice beyond f_err {F_TOL} / e_err {E_TOL}: {worst}")
+    del answers, refs
+
+    # timing at B = 2048 in turns: fori, depthgrid, K1 + K2 and the plain path
+    # (chunks of 512), and each path's peak device memory
+    Bt = max(REMAT_REQUESTS)
+    hb, xb = h_of(Bt), xs_all[:Bt]
+    timed = {**paths, "resid": resid_ef.resid_energy_forces,
+             "plain": lambda p, h, x, n_heads: plain_ef(x, PATH_CHUNK)}
+    runs, peak = {k: [] for k in timed}, {}
+    for side in ("plain", "fori", "depthgrid", "resid", "resid", "depthgrid", "fori", "plain"):
+        runs[side].append(cuda_ms(lambda: timed[side](params, hb, xb, n_heads=cfg.n_heads)))
+    for side, fn in timed.items():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():  # the plain path enables autograd for its forces itself
+            out = fn(params, hb, xb, n_heads=cfg.n_heads)
+        torch.cuda.synchronize()
+        peak[side] = torch.cuda.max_memory_allocated() - base
+        del out
+    ms = {k: sum(v) / len(v) for k, v in runs.items()}
+    print(f"REMAT TIMING B={Bt}: " + "; ".join(
+        f"{k} {v:.2f} ms = {Bt * 1e3 / v:.1f} evals/s, peak memory {peak[k] / 2**20:.1f} MiB"
+        for k, v in ms.items()) + f" (runs {json.dumps(runs)}; {smi})", flush=True)
+
+    # each kernel at the path's shapes (chunk 512)
+    Bk = PATH_CHUNK
+    with torch.no_grad():
+        hc = embed(params, h_of(Bk)).contiguous()
+        xc = xs_all[:Bk].permute(2, 0, 1).contiguous()
+        bnd = fori_ef.fori_fwd(leaves, hc, xc, u6)
+        _, dhc = resid_ef._readout_seed(params, bnd.h_fin, None)
+        t = dict(
+            fori_fwd=(cuda_ms(lambda: fori_ef.fori_fwd(leaves, hc, xc, u6)),
+                      cuda_ms(lambda: fori_ef.fori_fwd_plain(leaves, hc, xc, u6), reps=1)),
+            fori_bwd=(cuda_ms(lambda: fori_ef.fori_bwd(leaves, bnd, u6, dhc, leaves_t=leaves_t)),
+                      cuda_ms(lambda: fori_ef.fori_bwd_plain(leaves, bnd, u6, dhc), reps=1)),
+            depthgrid_fwd=(cuda_ms(lambda: depthgrid_ef.depthgrid_fwd(leaves, hc, xc, u6)),
+                           cuda_ms(lambda: depthgrid_ef.depthgrid_fwd_plain(leaves, hc, xc, u6),
+                                   reps=1)),
+            depthgrid_bwd=(cuda_ms(lambda: depthgrid_ef.depthgrid_bwd(leaves, bnd, u6, dhc,
+                                                                      leaves_t=leaves_t)),
+                           cuda_ms(lambda: depthgrid_ef.depthgrid_bwd_plain(leaves, bnd, u6, dhc),
+                                   reps=1)),
+        )
+        t_seed = cuda_ms(lambda: resid_ef._readout_seed(params, bnd.h_fin, None))
+    print(f"REMAT TIMING per kernel (ms, kernel and plain) at B={Bk}, N={N}, depth {depth}: "
+          + json.dumps({k: [round(a, 3), round(b, 3)] for k, (a, b) in t.items()})
+          + f" ({smi})", flush=True)
+    n_chunks = -(-Bt // Bk)
+    for name, (fk, bk) in (("fori", ("fori_fwd", "fori_bwd")),
+                           ("depthgrid", ("depthgrid_fwd", "depthgrid_bwd"))):
+        inside = n_chunks * (t[fk][0] + t[bk][0])
+        print(f"REMAT BREAKDOWN {name} B={Bt}, {ms[name]:.3f} ms: kernels {n_chunks}x("
+              f"{t[fk][0]:.3f}+{t[bk][0]:.3f}) = {inside:.3f} ms, readout seed "
+              f"{n_chunks}x{t_seed:.3f} ms, the rest (embed, leaf restaging, layout copies, "
+              f"host gaps) {ms[name] - inside - n_chunks * t_seed:.3f} ms", flush=True)
+    fma = {k: v * Bk * depth for k, v in layer_fma(N, F, F, 50, cfg.n_heads, 256).items()}
+    dims = (Bk, N, F, F, 50, cfg.n_heads, 256, depth)
+    scratch = 4 * sum(math.prod(s[1:]) for s in resid_ef._resid_shapes(dims, leaves).values())
+    dx_out = (dhc, xc, xc)  # the shapes of (dh0, dx, dv)
+    fwd_bytes = nbytes(leaves, hc, xc, bnd)
+    bwd_bytes = nbytes(leaves, leaves_t, bnd[:3], dhc, dx_out) + 2 * depth * scratch
+    entries = {"fori_fwd": (fma["fwd"], fwd_bytes, "fori_ef.py:133"),
+               "fori_bwd": (fma["fwd"] + fma["bwd"], bwd_bytes, "fori_ef.py:200"),
+               "depthgrid_fwd": (fma["fwd"], fwd_bytes, "depthgrid_ef.py:360"),
+               "depthgrid_bwd": (fma["fwd"] + fma["bwd"], bwd_bytes, "depthgrid_ef.py:438")}
+    print("REMAT BOUNDS (ms, by): " + json.dumps(
+        {k: [round(bound(o, b)[0], 4), bound(o, b)[1]] for k, (o, b, _) in entries.items()}),
+        flush=True)
+    kernels = [kernel_entry(name, "sake_tpu_torch/csrc/remat_ef.cu", "sake_tpu/kernels/" + at,
+                            launches[name], abs_remat[name], *t[name], o, b)
+               for name, (o, b, at) in entries.items()]
+    del bnd, hc, xc, dhc
+
+    # -- 19. force-loss training through make_trainable_energy_forces -------------
+    Bs = REMAT_TRAIN_B
+    e_mean, e_std = float(data.e.mean()), float(data.e.std())
+    tdev = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
+    batches = [{"x": tdev(data.x[s : s + Bs]), "e": tdev(data.e[s : s + Bs]),
+                "f": tdev(data.f[s : s + Bs])} for s in range(0, len(data.x), Bs)]
+    primals = ("fori", "resid", "depthgrid")
+
+    def branch(side, lr):
+        prm = resid_ef._unflat_params([a.detach().clone().requires_grad_(True)
+                                       for a in flat_params(params)], depth)
+        ef_raw = (make_trainable_energy_forces(n_heads=cfg.n_heads, primal=side)
+                  if side != "plain" else
+                  lambda p, h, x: energy_and_forces_fn(p, h, x, n_heads=cfg.n_heads))
+
+        def ef_fn(p, x):
+            e, f = ef_raw(p, h_of(x.shape[0]), x)
+            return coloring(e, e_mean, e_std)[:, None], f * e_std
+
+        return dict(params=prm, ef=ef_fn, step=make_step_fn(ef_fn, cfg.energy_loss_weight),
+                    state=TrainState.create(params=prm, tx=make_optimizer(lr)))
+
+    def loss_and_grads(br, batch):
+        return md17_loss_and_grads(br, batch, cfg.energy_loss_weight)
+
+    branches = {side: branch(side, cfg.learning_rate) for side in ("plain", *primals)}
+    lp, gp = loss_and_grads(branches["plain"], batches[0])
+    for side in primals:
+        lk, gk = loss_and_grads(branches[side], batches[0])
+        grad_err = [rel_err(a, b) for a, b in zip(gk, gp)]
+        loss_err = abs(float(lk - lp)) / abs(float(lp))
+        print(f"REMAT TRAIN STEP 1 primal {side} vs plain double autograd at B={Bs}: loss "
+              f"{float(lk):.7f} vs {float(lp):.7f} (rel {loss_err:.2e}); gradients of {len(gk)} "
+              f"leaves, max rel err {max(grad_err):.3e} (leaf {int(np.argmax(grad_err))})",
+              flush=True)
+        if loss_err > TRAIN_TOL or max(grad_err) > TRAIN_TOL:
+            fail(f"make_trainable_energy_forces ({side}) step 1 beyond {TRAIN_TOL}")
+    traj = {}
+    for side, br in branches.items():
+        traj[side] = []
+        for i in range(PARITY_STEPS):
+            br["state"], loss = br["step"](br["state"], batches[i % len(batches)])
+            traj[side].append(float(loss))
+    for side in primals:
+        traj_err = max(abs(a - b) / abs(b) for a, b in zip(traj[side], traj["plain"]))
+        print(f"REMAT TRAIN STEPS 1-{PARITY_STEPS} losses {side} {json.dumps(traj[side])} plain "
+              f"{json.dumps(traj['plain'])}: max rel diff {traj_err:.2e}", flush=True)
+        if traj_err > LOSS_TOL:
+            fail(f"make_trainable_energy_forces ({side}) losses differ beyond {LOSS_TOL}")
+    run = branch("fori", REMAT_TRAIN_LR)
+    for c in (*counters, *k12):
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = []
+    for i in range(REMAT_TRAIN_STEPS):
+        run["state"], loss = run["step"](run["state"], batches[i % len(batches)])
+        losses.append(float(loss))
+    wall = time.perf_counter() - t0
+    run_launches = {c.__name__: c.launches for c in (*counters, *k12)}
+    print(f"REMAT TRAIN {REMAT_TRAIN_STEPS} adam steps (lr {REMAT_TRAIN_LR}) primal fori at "
+          f"B={Bs}: {wall:.2f} s, launches {json.dumps(run_launches)}; losses "
+          + json.dumps([float(f"{v:.6f}") for v in losses]), flush=True)
+    if not (all(np.isfinite(losses)) and np.mean(losses[-10:]) < np.mean(losses[:10])):
+        fail("the fori training loss is not finite or did not fall")
+    if min(c.launches for c in counters[:2]) == 0 or any(c.launches for c in k12):
+        fail("the fori training run did not launch #21 and #22, or launched K1 or K2")
+    del run
+
+    # the train step of the three primals and the plain branch, in turns
+    order = ("plain", *primals)
+    runs = {k: [] for k in order}
+    batch = batches[0]
+    for side in (*order, *order[::-1]):
+        br = branches[side]
+        br["step"](br["state"], batch)  # warm up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            br["state"], _ = br["step"](br["state"], batch)
+        torch.cuda.synchronize()
+        runs[side].append((time.perf_counter() - t0) * 1e3 / 2)
+    step_ms = {k: sum(v) / len(v) for k, v in runs.items()}
+    print(f"REMAT TRAIN TIMING train step at B={Bs}: " + "; ".join(
+        f"{k} {v:.2f} ms = {Bs * 1e3 / v:.1f} samples/s" for k, v in step_ms.items())
+        + f" (ms per step, runs {json.dumps(runs)}; {smi})", flush=True)
+    with torch.no_grad():
+        hk = embed(params, h_of(Bs)).contiguous()
+        xk = batch["x"].permute(2, 0, 1).contiguous()
+        zk = torch.zeros_like(xk)
+        fwk = resid_ef.resid_fwd(leaves, hk, xk, zk, u6)
+        dhk = torch.randn_like(hk)
+        t_k12 = (cuda_ms(lambda: resid_ef.resid_fwd(leaves, hk, xk, zk, u6))
+                 + cuda_ms(lambda: resid_ef.resid_bwd(leaves, fwk, u6, dhk, zk, zk,
+                                                      leaves_t=leaves_t)))
+        del fwk
+    kernel_ms = {"fori": t["fori_fwd"][0] + t["fori_bwd"][0], "resid": t_k12,
+                 "depthgrid": t["depthgrid_fwd"][0] + t["depthgrid_bwd"][0]}
+    for side in primals:
+        br = branches[side]
+        prm, leaves_ = br["params"], tree_leaves(br["params"])
+        call = {"fori": fori_ef.fori_energy_forces, "resid": resid_ef.resid_energy_forces,
+                "depthgrid": depthgrid_ef.depthgrid_energy_forces}[side]
+        with torch.no_grad():
+            t_primal = cuda_ms(lambda: call(prm, h_of(Bs), batch["x"], n_heads=cfg.n_heads))
+        with torch.enable_grad():
+            e, f = br["ef"](prm, batch["x"])
+            loss = ((f - batch["f"]).abs().mean()
+                    + cfg.energy_loss_weight * (e - batch["e"]).abs().mean())
+            t_pull = cuda_ms(lambda: torch.autograd.grad(loss, leaves_, retain_graph=True))
+        del e, f, loss
+        zero_grads = [torch.zeros_like(a) for a in leaves_]
+        t_opt = cuda_ms(lambda: br["state"].apply_gradients(zero_grads))
+        parts = dict(primal_kernels=kernel_ms[side], readout_seed=t_seed,
+                     primal_glue=t_primal - kernel_ms[side] - t_seed, torch_pullback=t_pull,
+                     adam=t_opt)
+        print(f"REMAT TRAIN BREAKDOWN primal {side} step at B={Bs}, {step_ms[side]:.3f} ms: "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items())
+              + f", rest {step_ms[side] - sum(parts.values()):.3f} ms", flush=True)
+    del branches
+
+    # -- 20. dense MD on fori forces against plain forces ---------------------------
+    Bm = MD_B
+    masses = torch.tensor([ATOM_MASS[int(z)] for z in data.z], device=dev)
+    x0 = xs_all[:Bm].float()
+    v0 = tdev(0.05 * np.random.RandomState(SEED + 20).randn(Bm, N, 3))
+    hm = h_of(Bm)
+
+    def plain_md(p, x):
+        return energy_and_forces_fn(p, hm, x, n_heads=cfg.n_heads)
+
+    with torch.no_grad():
+        force_fields = {
+            "fori": lambda p, x: fori_ef.fori_energy_forces(p, hm, x, n_heads=cfg.n_heads),
+            "dispatch": lambda p, x: dispatch.dispatch_energy_forces(p, hm, x,
+                                                                     n_heads=cfg.n_heads),
+            "plain": plain_md,
+        }
+        traj, md_ms = {}, {k: [] for k in force_fields}
+        for side in ("fori", "dispatch", "plain", "plain", "dispatch", "fori"):
+            if side == "fori" and not md_ms[side]:
+                for c in (*counters, *k12):
+                    c.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = md.velocity_verlet_rollout(force_fields[side], params, x0, v0, masses, MD_DT,
+                                             MD_STEPS)
+            torch.cuda.synchronize()
+            md_ms[side].append((time.perf_counter() - t0) * 1e3)
+            if side == "fori" and len(md_ms[side]) == 1:
+                md_launches = {c.__name__: c.launches for c in (*counters, *k12)}
+            traj.setdefault(side, out)
+    xs_k, vs_k, es_k = traj["fori"]
+    xs_p, vs_p, _ = traj["plain"]
+    viol = lambda a, b, rtol, atol: float(((a - b).abs() / (atol + rtol * b.abs())).max())
+    x_viol, v_viol = viol(xs_k, xs_p, 1e-4, 1e-5), viol(vs_k, vs_p, 1e-3, 1e-4)
+    rate = {k: Bm * MD_STEPS * 1e3 / (sum(v) / len(v)) for k, v in md_ms.items()}
+    print(f"REMAT MD velocity Verlet B={Bm}, {MD_STEPS} steps of dt {MD_DT}: fori against plain "
+          f"forces, positions at {x_viol:.3e} and velocities at {v_viol:.3e} of the JAX test's "
+          f"tolerances (rtol 1e-4 / atol 1e-5, rtol 1e-3 / atol 1e-4); fori launches "
+          f"{json.dumps(md_launches)}; molecule-steps/s "
+          + json.dumps({k: round(v, 1) for k, v in rate.items()})
+          + f" (ms per rollout {json.dumps(md_ms)}; {smi})", flush=True)
+    if not (x_viol <= 1.0 and v_viol <= 1.0 and torch.isfinite(es_k).all()):
+        fail("the fori MD rollout is beyond the JAX test's tolerances of the plain one")
+    if min(md_launches[c.__name__] for c in counters[:2]) == 0 or any(
+            md_launches[c.__name__] for c in k12):
+        fail("the fori MD rollout did not launch #21 and #22, or launched K1 or K2")
+    return kernels
 
 
 if __name__ == "__main__":

@@ -123,7 +123,7 @@ aug_fwd_kernel(Dims d, const float* __restrict__ h0, const float* __restrict__ x
     SF.sx = A.x;
     SF.sv = A.v;
     SF.scnt = A.cnt;
-    fwd_layer<true>(d, SF, b, 0, upd[l], nullptr, Ll, bh + bo, bx + xo, bv + xo, RSl);
+    fwd_layer<true, true>(d, SF, b, 0, upd[l], nullptr, Ll, bh + bo, bx + xo, bv + xo, RSl);
 
     Carver cj{work};
     JvpSmem SJ = carve_jvp(cj, d);

@@ -73,7 +73,7 @@ fused_ef_kernel(Dims d, int slots, const float* __restrict__ h0, const float* __
     const FwdSmem SF = carve_fwd(cf, d);
     fwd_begin(d, SF, B, m, h0, xs, nullptr, mb);
     for (int l = 0; l < d.depth; ++l)
-      fwd_layer<true>(ds, SF, slot, l, upd[l], mb, L, bh, bx, bv, RS);
+      fwd_layer<true, true>(ds, SF, slot, l, upd[l], mb, L, bh, bx, bv, RS);
     if constexpr (!kScratch) {
       for (int e = tid; e < N * F; e += nt) h_fin[(size_t)m * N * F + e] = SF.sh[e];
       for (int e = tid; e < 3 * N; e += nt) {

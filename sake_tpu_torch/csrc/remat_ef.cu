@@ -1,0 +1,202 @@
+// #21-#24: the E + F kernels of the kernel API that keep only the boundary
+// states, f32: the layer stack's forward writing each layer's input state
+// (h, x, v), and its pullback re-running each layer from its boundary.
+//
+// Replaces four TPU kernels that compute the same function in two
+// orchestrations:
+// - sake_tpu/kernels/fori_ef.py -> fori_energy_forces: fwd_kernel (#21, the
+//   pallas_call at :161, body :133), all layers in a fori_loop writing the
+//   boundaries and the final h; bwd_kernel (#22, :237, body :200), the layers
+//   in reverse, each re-traced under jax.vjp from its boundary, input
+//   cotangents only, dx after layer 0. Here: one launch each, every block
+//   looping over depth for its molecule.
+// - sake_tpu/kernels/depthgrid_ef.py -> depthgrid_energy_forces: fwd_kernel
+//   (#23, :400, body :360) and bwd_kernel (#24, :487, body :438), the same
+//   bodies with depth as the inner grid axis and the carried state in VMEM
+//   scratch between grid steps. CUDA blocks of one grid run in no order, so
+//   here depth is the launch: one launch per layer (in reverse for #24), the
+//   carried state (h, x, v) or cotangent (dh, dx, dv) in device memory between
+//   launches, read and overwritten in place (each block reads and writes only
+//   its molecule's slot).
+// Both JAX kernels differentiate depthgrid_ef.layer_forward_wide, the same
+// layer as layer_fwd_resid (the wide head expansion is the hidden-major /
+// head-minor product both index as h*K + k), so the bodies here are K1's and
+// K2's: fwd_layer (resid_fwd.cuh) writing only the boundary, and, per layer
+// of the pullback, fwd_layer writing that layer's 17 residuals into a
+// one-layer, per-molecule scratch in device memory followed by bwd_layer
+// (resid_bwd.cuh) reading them. Only one layer's residuals are ever alive
+// (about 0.87 MB per aspirin molecule) against K1's whole stack (about 5.3 MB
+// at depth 6): the memory of E + F is the boundaries, about 35 KB per
+// molecule, and the scratch of the molecules in flight.
+//
+// Design: the forward runs K1's 256-thread block (two per SM); the pullback
+// one 512-thread block per molecule (K2's size; the forward body loops over
+// the block), its cotangent state in shared memory beside one work region
+// that the re-forward and the pullback take in turn. The residuals pass from
+// the one body to the other through device memory (L2), read through plain
+// (not const __restrict__) pointers after a __syncthreads, so no read is
+// served from the non-coherent cache.
+//
+// What bounds it on an H100: f32 FMA issue and per-row synchronisation, as
+// K1 and K2. #21 and #23 do K1's work without its residual writes; #22 and
+// #24 do K1's and K2's, so E + F costs about one forward more than K1 + K2.
+// The per-layer launches of #23 and #24 add depth launches and a read and
+// write of the carried state per layer (about 6 KB per aspirin molecule).
+
+#include "resid_bwd.cuh"
+#include "resid_fwd.cuh"
+
+namespace sake {
+namespace {
+
+constexpr int kRematFwdThreads = 256;
+constexpr int kRematBwdThreads = 512;
+
+__host__ __device__ inline long long remat_bwd_smem_floats(const Dims& d) {
+  const long long b = bwd_smem_floats(d), f = bwd_state_floats(d) + fwd_smem_floats(d);
+  return b > f ? b : f;
+}
+
+// Layers [l0, l1) of molecule b from the state (h_in (B, N, F), x_in, v_in
+// (3, B, N); v_in null: zeros), writing the state entering each layer to the
+// boundary streams bh (depth, B, N, F), bx, bv (depth, 3, B, N) and the state
+// after layer l1 - 1 to h_out, x_out, v_out (x_out null: h only). pool is the
+// (3, B, N, C) scratch of one layer's pooled vectors. The outputs may be the
+// inputs: each block reads its slot before it writes it.
+__global__ void __launch_bounds__(kRematFwdThreads, 2)
+remat_fwd_kernel(Dims d, int l0, int l1, const float* h_in, const float* x_in,
+                 const float* v_in, const float* __restrict__ upd, Leaves L, float* bh,
+                 float* bx, float* bv, Resids pool, float* h_out, float* x_out, float* v_out) {
+  extern __shared__ float4 smem4[];
+  const int b = blockIdx.x;
+  const int B = d.B, N = d.N, F = d.F;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  Carver cv{reinterpret_cast<float*>(smem4)};
+  const FwdSmem S = carve_fwd(cv, d);
+  fwd_begin(d, S, B, b, h_in, x_in, v_in, nullptr);
+  for (int l = l0; l < l1; ++l)
+    fwd_layer<false, true>(d, S, b, l, upd[l], nullptr, L, bh, bx, bv, pool);
+
+  for (int e = tid; e < N * F; e += nt) h_out[(size_t)b * N * F + e] = S.sh[e];
+  if (x_out) {
+    for (int e = tid; e < 3 * N; e += nt) {
+      const size_t at = ((size_t)(e / N) * B + b) * N + e % N;
+      x_out[at] = S.sx[e];
+      v_out[at] = S.sv[e];
+    }
+  }
+}
+
+// Layers l_hi down to l_lo of the pullback of molecule b: the cotangents of
+// the state leaving layer l_hi (dh_in (B, N, F), dx_in, dv_in (3, B, N); dx_in
+// null: zeros, and dv_in with it) to those of the state entering layer l_lo
+// (dh_out, dx_out, dv_out, which may be the inputs). bh, bx, bv: the boundary
+// streams of the forward; RS: the one-layer residual scratch (B, ...).
+__global__ void __launch_bounds__(kRematBwdThreads, 1)
+remat_bwd_kernel(Dims d, int l_hi, int l_lo, const float* __restrict__ bh,
+                 const float* __restrict__ bx, const float* __restrict__ bv,
+                 const float* __restrict__ upd, Leaves L, Leaves LT, Resids RS,
+                 const float* dh_in, const float* dx_in, const float* dv_in, float* dh_out,
+                 float* dx_out, float* dv_out) {
+  extern __shared__ float4 smem4[];
+  float* base = reinterpret_cast<float*>(smem4);
+  const int b = blockIdx.x;
+  const int B = d.B, N = d.N, F = d.F;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  Carver cb{base};
+  const BwdSmem SB = carve_bwd(cb, d);  // its cotangent state is the carry
+  Carver cf{base + bwd_state_floats(d)};
+  const FwdSmem SF = carve_fwd(cf, d);  // the re-forward's buffers, after the carry
+
+  for (int e = tid; e < N * F; e += nt) SB.sdh[e] = dh_in[(size_t)b * N * F + e];
+  for (int e = tid; e < 3 * N; e += nt) {
+    const size_t at = ((size_t)(e / N) * B + b) * N + e % N;
+    SB.sdx[e] = dx_in ? dx_in[at] : 0.f;
+    SB.sdv[e] = dx_in ? dv_in[at] : 0.f;
+  }
+  for (int l = l_hi; l >= l_lo; --l) {
+    const Leaves Ll = layer_of(L, l), LTl = layer_of(LT, l);
+    const size_t bo = (size_t)l * B * N * F, xo = (size_t)l * 3 * B * N;
+    // re-forward layer l from its boundary: its residuals (fwd_begin's and
+    // fwd_layer's closing __syncthreads order them before the pullback)
+    fwd_begin(d, SF, B, b, bh + bo, bx + xo, bv + xo, nullptr);
+    fwd_layer<true, false>(d, SF, b, 0, upd[l], nullptr, Ll, nullptr, nullptr, nullptr, RS);
+    // the pullback through it, on those residuals
+    bwd_layer<false>(d, SB, b, 0, upd[l], nullptr, Ll, LTl, bh + bo, bx + xo, bv + xo, RS,
+                     Rows{}, nullptr, nullptr, nullptr);
+  }
+
+  for (int e = tid; e < N * F; e += nt) dh_out[(size_t)b * N * F + e] = SB.sdh[e];
+  for (int e = tid; e < 3 * N; e += nt) {
+    const size_t at = ((size_t)(e / N) * B + b) * N + e % N;
+    dx_out[at] = SB.sdx[e];
+    dv_out[at] = SB.sdv[e];
+  }
+}
+
+}  // namespace
+}  // namespace sake
+
+extern "C" long long sake_remat_fwd_smem_bytes(int B, int N, int F, int H, int R, int K, int C,
+                                               int depth) {
+  return sake::fwd_smem_floats(sake::Dims{B, N, F, H, R, K, C, depth}) *
+         (long long)sizeof(float);
+}
+
+extern "C" long long sake_remat_bwd_smem_bytes(int B, int N, int F, int H, int R, int K, int C,
+                                               int depth) {
+  return sake::remat_bwd_smem_floats(sake::Dims{B, N, F, H, R, K, C, depth}) *
+         (long long)sizeof(float);
+}
+
+// Layers [l0, l1) of the forward (#21: 0, depth; #23: l, l + 1). h_in (B, N,
+// F), x_in, v_in (3, B, N; v_in null: zeros); bh (depth, B, N, F), bx, bv
+// (depth, 3, B, N): the boundary streams, written at layers l0 ... l1 - 1;
+// pool: a (3, B, N, C) scratch; h_out (B, N, F), x_out, v_out (3, B, N; x_out
+// null: not written) the state after layer l1 - 1.
+extern "C" int sake_remat_fwd(int l0, int l1, const float* h_in, const float* x_in,
+                              const float* v_in, const float* upd, const void* const* leaf_ptrs,
+                              const long long* leaf_strides, float* bh, float* bx, float* bv,
+                              float* pool, float* h_out, float* x_out, float* v_out, int B,
+                              int N, int F, int H, int R, int K, int C, int depth, void* stream) {
+  using namespace sake;
+  const Dims d{B, N, F, H, R, K, C, depth};
+  Resids RS{};
+  const size_t plane = (size_t)B * N * C;
+  RS.p[RS_POOL0] = pool;
+  RS.p[RS_POOL1] = pool + plane;
+  RS.p[RS_POOL2] = pool + 2 * plane;
+  const size_t smem = fwd_smem_floats(d) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(remat_fwd_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  remat_fwd_kernel<<<B, kRematFwdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      d, l0, l1, h_in, x_in, v_in, upd, leaves_of(leaf_ptrs, leaf_strides), bh, bx, bv, RS,
+      h_out, x_out, v_out);
+  return (int)cudaGetLastError();
+}
+
+// Layers l_hi down to l_lo of the pullback (#22: depth - 1, 0; #24: l, l).
+// bh, bx, bv: the boundary streams; resid_ptrs: one layer's residual scratch
+// (B, ...), RESIDS order; dh_in (B, N, F), dx_in, dv_in (3, B, N; dx_in null:
+// both zero) the cotangents of the state leaving layer l_hi; dh_out, dx_out,
+// dv_out those of the state entering layer l_lo.
+extern "C" int sake_remat_bwd(int l_hi, int l_lo, const float* bh, const float* bx,
+                              const float* bv, const float* upd, const void* const* leaf_ptrs,
+                              const void* const* leaf_t_ptrs, const long long* leaf_strides,
+                              void* const* resid_ptrs, const float* dh_in, const float* dx_in,
+                              const float* dv_in, float* dh_out, float* dx_out, float* dv_out,
+                              int B, int N, int F, int H, int R, int K, int C, int depth,
+                              void* stream) {
+  using namespace sake;
+  const Dims d{B, N, F, H, R, K, C, depth};
+  const size_t smem = remat_bwd_smem_floats(d) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(remat_bwd_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  remat_bwd_kernel<<<B, kRematBwdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      d, l_hi, l_lo, bh, bx, bv, upd, leaves_of(leaf_ptrs, leaf_strides),
+      leaves_of(leaf_t_ptrs, leaf_strides), resids_of(resid_ptrs), dh_in, dx_in, dv_in, dh_out,
+      dx_out, dv_out);
+  return (int)cudaGetLastError();
+}

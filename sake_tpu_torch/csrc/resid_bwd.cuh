@@ -82,6 +82,17 @@ __host__ __device__ inline long long bwd_smem_floats(const Dims& d) {
   return cv.off;
 }
 
+// Floats of the cotangent state (sdh, sdx, sdv) that carve_bwd takes first: a
+// kernel that runs another body between layers carves that body's buffers
+// after them, so the state outlives it.
+__host__ __device__ inline long long bwd_state_floats(const Dims& d) {
+  Carver cv{nullptr};
+  cv.take((long long)d.N * d.F);
+  cv.take(3LL * d.N);
+  cv.take(3LL * d.N);
+  return cv.off;
+}
+
 // The cotangent state (dh, dx, dv) of molecule m of a batch of B in (B, N,
 // F) and (3, B, N) layouts into S.sdh, S.sdx, S.sdv, and the sender counts of
 // its mask rows mb (null: no mask).

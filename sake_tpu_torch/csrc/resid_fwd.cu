@@ -72,7 +72,8 @@ resid_fwd_kernel(Dims d, const float* __restrict__ h0,
   Carver cv{reinterpret_cast<float*>(smem4)};
   const FwdSmem S = carve_fwd(cv, d);
   fwd_begin(d, S, B, b, h0, xs, v0, mb);
-  for (int l = 0; l < d.depth; ++l) fwd_layer<kStream>(d, S, b, l, upd[l], mb, L, bh, bx, bv, RS);
+  for (int l = 0; l < d.depth; ++l)
+    fwd_layer<kStream, kStream>(d, S, b, l, upd[l], mb, L, bh, bx, bv, RS);
 
   for (int e = tid; e < N * F; e += nt) h_fin[(size_t)b * N * F + e] = S.sh[e];
   for (int e = tid; e < 3 * N; e += nt) {

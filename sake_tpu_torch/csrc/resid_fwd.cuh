@@ -80,11 +80,12 @@ __device__ __forceinline__ void fwd_begin(const Dims& d, const FwdSmem& S, int B
 }
 
 // Layer l of the forward on the state in S. u: the layer's update gate;
-// mb: this molecule's (N, N) edge mask or null. Streams (bh, bx, bv and the
-// residuals RS, kStream) are written at molecule slot b of d.B, layer l (bh
-// null: no boundary stream); without kStream only the pooled vectors go to
-// RS, at slot b of a one-layer (3, d.B, N, C) scratch.
-template <bool kStream>
+// mb: this molecule's (N, N) edge mask or null. Two switches pick the
+// streams, written at molecule slot b of d.B, layer l: kBound the boundary
+// state entering the layer (bh, bx, bv), kResid the 17 residuals (RS).
+// Without kResid only the pooled vectors go to RS, at slot b of a one-layer
+// (3, d.B, N, C) scratch.
+template <bool kResid, bool kBound>
 __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b, int l,
                                           float u, const float* __restrict__ mb,
                                           const Leaves& L, float* bh, float* bx, float* bv,
@@ -105,8 +106,8 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
   float* sg1 = sg0 + N * H;     // node: (N) g1
 
   const size_t lb = (size_t)l * B + b;
-  // without kStream the pooled vectors go to a one-layer scratch
-  const size_t lp = kStream ? lb : (size_t)b;
+  // without kResid the pooled vectors go to a one-layer scratch
+  const size_t lp = kResid ? lb : (size_t)b;
   auto W = [&](int leaf) { return L.at(leaf, l); };
   const float* b_in = W(B_IN);
   const float* rbf_m = W(RBF_M);
@@ -117,7 +118,7 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
   const float* b_sem = W(B_SEM);
 
   // boundary state in
-  if (kStream && bh) {
+  if constexpr (kBound) {
     for (int e = tid; e < N * F; e += nt) bh[lb * N * F + e] = sh[e];
     for (int e = tid; e < 3 * N; e += nt) {
       const int k = e / N, i = e % N;
@@ -155,7 +156,7 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
       sir[j] = 1.f / (r + 1e-5f);
       sir[N + j] = expf(-r);  // t
       smk[j] = masked ? mb[i * N + j] : 1.f;
-      if constexpr (kStream) {
+      if constexpr (kResid) {
         RS.p[RS_R][erow + j] = r;
         RS.p[RS_T][erow + j] = sir[N + j];
       }
@@ -167,7 +168,7 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
       const int j = e / R, c = e % R;
       const float z = sir[N + j] - rbf_m[c];
       const float v = expf(-rbf_b[c] * (z * z));
-      if constexpr (kStream) RS.p[RS_RBF][erow * R + e] = v;
+      if constexpr (kResid) RS.p[RS_RBF][erow * R + e] = v;
       srbf[e] = v * (saj[e] + sai[i * R + c]);
     }
     __syncthreads();
@@ -176,7 +177,7 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
     mm_fwd(N, R, H, srbf, R, W(W_O_F), [&](int r, int c, float a) {
       const float v = soj[r * H + c] + soi[i * H + c] + a + sr[r] * w_o_r[c] + b_o0[c];
       se0[r * H + c] = v;
-      if constexpr (kStream) RS.p[RS_E0][(erow + r) * H + c] = v;
+      if constexpr (kResid) RS.p[RS_E0][(erow + r) * H + c] = v;
     });
     __syncthreads();
     for (int e = tid; e < N * H; e += nt) se0[e] = siluf_(se0[e]);
@@ -187,7 +188,7 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
            [&](int r, int c, float a) {
              const float v = a + b_o1[c];
              she[r * H + c] = v;
-             if constexpr (kStream) RS.p[RS_H_E][(erow + r) * H + c] = v;
+             if constexpr (kResid) RS.p[RS_H_E][(erow + r) * H + c] = v;
            });
     __syncthreads();
 
@@ -196,7 +197,7 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
            [&](int r, int c, float a) {
              const float v = a + b_sem[c];
              ssem[r * K + c] = v;
-             if constexpr (kStream) RS.p[RS_SEM_PRE][(erow + r) * K + c] = v;
+             if constexpr (kResid) RS.p[RS_SEM_PRE][(erow + r) * K + c] = v;
            });
     __syncthreads();
 
@@ -226,7 +227,7 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
         const float a = satt[j * K + k] / sum;
         satt[j * K + k] = a;
         live += a * smk[j];
-        if constexpr (kStream) RS.p[RS_ATT][(erow + j) * K + k] = a;
+        if constexpr (kResid) RS.p[RS_ATT][(erow + j) * K + k] = a;
       }
       if (masked) {
         live = warp_sum(live);
@@ -251,7 +252,7 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
     mm_fwd(N, HK, C, shea, HK, W(W_XMIX), [&](int r, int c, float a) {
       const float v = tanhf(a) * smk[r];
       scf[r * C + c] = v;
-      if constexpr (kStream) RS.p[RS_COEFF][(erow + r) * C + c] = v;
+      if constexpr (kResid) RS.p[RS_COEFF][(erow + r) * C + c] = v;
     });
     __syncthreads();
 
@@ -295,7 +296,7 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
          [&](int r, int c, float a) {
            const float v = a + b_post0[c];
            se0[r * H + c] = v;
-           if constexpr (kStream) RS.p[RS_PS0][(lb * N + r) * H + c] = v;
+           if constexpr (kResid) RS.p[RS_PS0][(lb * N + r) * H + c] = v;
          });
   __syncthreads();
   for (int e = tid; e < N * H; e += nt) se0[e] = siluf_(se0[e]);
@@ -305,7 +306,7 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
          [&](int r, int c, float a) {
            const float v = a + b_post1[c];
            she[r * H + c] = v;
-           if constexpr (kStream) RS.p[RS_PS1][(lb * N + r) * H + c] = v;
+           if constexpr (kResid) RS.p[RS_PS1][(lb * N + r) * H + c] = v;
          });
   __syncthreads();
   for (int e = tid; e < N * H; e += nt) she[e] = siluf_(she[e]);  // h_comb
@@ -322,7 +323,7 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
          [&](int r, int c, float a) { snp[r * H + c] += a; });
   __syncthreads();
   for (int e = tid; e < N * H; e += nt) {
-    if constexpr (kStream) RS.p[RS_NODE_PRE][lb * N * H + e] = snp[e];
+    if constexpr (kResid) RS.p[RS_NODE_PRE][lb * N * H + e] = snp[e];
     snp[e] = siluf_(snp[e]);
   }
   __syncthreads();
@@ -331,7 +332,7 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
          [&](int r, int c, float a) {
            const float v = a + b_node1[c];
            suv[r * F + c] = v;
-           if constexpr (kStream) RS.p[RS_UV][(lb * N + r) * F + c] = v;
+           if constexpr (kResid) RS.p[RS_UV][(lb * N + r) * F + c] = v;
          });
   __syncthreads();
   for (int e = tid; e < N * F; e += nt) sh[e] = sh[e] + siluf_(suv[e]);  // h_out
@@ -341,7 +342,7 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
   const float* b_vel0 = W(B_VEL0);
   mm_fwd(N, F, H, sh, F, W(W_VEL0), [&](int r, int c, float a) {
     const float v = a + b_vel0[c];
-    if constexpr (kStream) RS.p[RS_G0][(lb * N + r) * H + c] = v;
+    if constexpr (kResid) RS.p[RS_G0][(lb * N + r) * H + c] = v;
     sg0[r * H + c] = siluf_(v);
   });
   __syncthreads();
@@ -353,7 +354,7 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
       s = warp_sum(s);
       if (lane == 0) {
         sg1[i] = s;
-        if constexpr (kStream) RS.p[RS_G1][lb * N + i] = s;
+        if constexpr (kResid) RS.p[RS_G1][lb * N + i] = s;
       }
     }
   }

@@ -91,7 +91,7 @@ retrace_bwd_kernel(Dims d, const float* __restrict__ bh, const float* __restrict
   Carver cf{work};
   const FwdSmem SF = carve_fwd(cf, d);
   fwd_begin(d, SF, B, b, bh, bx, bv, nullptr);
-  fwd_layer<true>(d, SF, b, 0, u, nullptr, L, nullptr, nullptr, nullptr, RS);
+  fwd_layer<true, false>(d, SF, b, 0, u, nullptr, L, nullptr, nullptr, nullptr, RS);
 
   // its tangent forward from the tangent boundary: their tangents
   Carver cj{work};

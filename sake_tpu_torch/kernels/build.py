@@ -129,6 +129,12 @@ def load():
     # layer, bh, bx, bv, tbh, tbx, tbv, upd, leaves, leaves_t, strides, resid, tresid,
     # rows, rows_t, t_rows, scratch, cp_dh, cp_dx, cp_dv, ct_dh, ct_dx, ct_dv
     lib.sake_retrace_bwd.argtypes = [I] + [P] * 22 + dims + [P]
+    # layers l0, l1; h_in, x_in, v_in, upd, leaves, strides, bh, bx, bv, pool, h_out,
+    # x_out, v_out
+    lib.sake_remat_fwd.argtypes = [I, I] + [P] * 13 + dims + [P]
+    # layers l_hi, l_lo; bh, bx, bv, upd, leaves, leaves_t, strides, resid, dh_in,
+    # dx_in, dv_in, dh_out, dx_out, dv_out
+    lib.sake_remat_bwd.argtypes = [I, I] + [P] * 14 + dims + [P]
     # the sparse edge kernels: hg, ai, oi, d0, m, w, then ... dims (NR, K, F, R, H,
     # Kh, C), stream
     edims = [I] * 7
@@ -143,11 +149,13 @@ def load():
                "sake_param_grads", "sake_resid_jvp", "sake_resid_tbwd", "sake_param_grads_aug",
                "sake_fused_primal", "sake_one_ef", "sake_one_ef_grid", "sake_fused_bwd",
                "sake_sparse_fwd", "sake_sparse_bwd", "sake_sparse_bwd_rows", "sake_sparse_bwd2",
-               "sake_sparse_contract", "sake_aug_fwd", "sake_retrace_fwd", "sake_retrace_bwd"):
+               "sake_sparse_contract", "sake_aug_fwd", "sake_retrace_fwd", "sake_retrace_bwd",
+               "sake_remat_fwd", "sake_remat_bwd"):
         getattr(lib, fn).restype = I
     for fn in ("sake_resid_fwd_smem_bytes", "sake_resid_bwd_smem_bytes",
                "sake_resid_jvp_smem_bytes", "sake_resid_tbwd_smem_bytes",
-               "sake_aug_fwd_smem_bytes", "sake_retrace_bwd_smem_bytes"):
+               "sake_aug_fwd_smem_bytes", "sake_retrace_bwd_smem_bytes",
+               "sake_remat_fwd_smem_bytes", "sake_remat_bwd_smem_bytes"):
         getattr(lib, fn).argtypes = dims
         getattr(lib, fn).restype = LL
     for fn in ("sake_fused_ef_smem_bytes", "sake_fused_bwd_smem_bytes"):  # ..., F0
