@@ -143,6 +143,29 @@ Phases (each prints its own lines; any failure exits non-zero):
    fori rollout launches #21 and #22 only; molecule-steps/s of fori, the
    dispatch (K1 + K2) and plain, in turns.
 
+21. Split kernels vs plain: at aspirin's full width, B = 300, on the layer-0
+   inputs of the serving path (embedded species, the node projections in
+   torch) and random cotangents: #25's edge_att body (h_e, att) and
+   coeff_pool body (pooled x 3, hatt_sum), #26's two pullbacks with and
+   without the weight cotangents (every batched and every weight cotangent;
+   the rows and ``csrc/sparse_contract.cu``), #27 against #25's two kernels
+   composed and against ``merged_body``, and #28 against its plain version
+   (``torch.func.vjp`` of the bodies); then the same on seeded models of
+   hidden 8 (50 rbf channels > H*K = 32) and 16, depth 2; limit 1e-4
+   relative per tensor.
+22. The split E + F slice: aspirin requests of B in {37, 512, 2048} through
+   ``split_energy_forces`` (which must launch #25 and #26 only) and
+   ``merged_energy_forces`` (#27 and #28 only), neither launching a dense
+   kernel, against the plain f32 autograd path with phase 4's limits. Then
+   at B = 2048 split, merged, K1 + K2 and plain in turns with each path's
+   peak device memory, each new kernel at the path's shapes beside its plain
+   version and its bound, and a BREAKDOWN of both paths.
+23. The weight cotangents on the card: at B = 512 the gradient of the summed
+   energy with respect to every edge weight of every layer (the CFConv
+   tensors, w_sem, b_sem, w_xmix) and x through ``split_ef.model_energy``
+   (split ops and merged op) against plain autograd of the same model, 1e-4
+   relative per leaf.
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -185,6 +208,9 @@ REMAT_TRAIN_B = 512  # phase 19's batch (bench_md17_train.py's)
 REMAT_TRAIN_STEPS = 50
 REMAT_TRAIN_LR = 1e-3  # the 50-step run's constant adam rate
 MD_B, MD_STEPS, MD_DT = 512, 20, 1e-3  # phase 20's rollout
+SPLIT_TOL = 1e-4  # the split kernels and the weight cotangents, relative per tensor
+SPLIT_REQUESTS = (37, 512, 2048)  # phase 22's E + F requests through #25-#28
+SPLIT_GRAD_B = 512  # phase 23's batch
 ATOM_MASS = {1: 1.008, 6: 12.011, 8: 15.999}  # u, by atomic number (aspirin: H, C, O)
 # H100 SXM peaks (NVIDIA's data sheet): f32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
@@ -434,6 +460,7 @@ def main() -> int:
     kernels += sparse_md_phases(dev, smi)
     kernels += sparse_train_phases(dev, smi)
     kernels += remat_phases(dev, smi)
+    kernels += split_phases(dev, smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -2123,6 +2150,267 @@ def remat_phases(dev, smi) -> list:
     if min(md_launches[c.__name__] for c in counters[:2]) == 0 or any(
             md_launches[c.__name__] for c in k12):
         fail("the fori MD rollout did not launch #21 and #22, or launched K1 or K2")
+    return kernels
+
+
+SPLIT_BATCHED = {"edge_att": ("x0", "x1", "x2", "a_j", "a_i", "o_j", "o_i"),
+                 "coeff_pool": ("x0", "x1", "x2", "h_e", "att"),
+                 "merged": ("x0", "x1", "x2", "a_j", "a_i", "o_j", "o_i")}
+SPLIT_OUTS = {"edge_att": ("h_e", "att"),
+              "coeff_pool": ("pooled0", "pooled1", "pooled2", "hatt_sum"),
+              "merged": ("pooled0", "pooled1", "pooled2", "hatt_sum")}
+
+
+def split_fma(R, H, K, C):
+    """Multiply-adds per edge of the split ops' products, counted as
+    ``layer_fma`` counts them: each body's forward, and its pullback, which
+    recomputes the forward (the edge_att pullback: d_sem @ w_sem^T, d_h_e @
+    w1^T, d_e0 @ w_r^T; the coeff_pool one: the x-mixing product transposed,
+    the pooled planes' cotangents and the head expansion's)."""
+    HK = H * K
+    ea, cp = R * H + H * H + H * K, HK * C + 3 * C
+    ea_pull, cp_pull = K * H + H * H + H * R, C * HK + 6 * C + 2 * HK
+    return dict(edge_att_fwd=ea, coeff_pool_fwd=cp, edge_att_bwd=ea + ea_pull,
+                coeff_pool_bwd=cp + cp_pull, merged_fwd=ea + cp,
+                merged_bwd=ea + cp + ea_pull + cp_pull)
+
+
+def split_layer0_args(params, h, x, n_heads: int) -> dict:
+    """Layer 0's arguments of the three split ops, as the entry points build
+    them (embedded species, the node projections in torch)."""
+    import torch
+
+    from sake_tpu_torch.kernels import split_ef as se
+    from sake_tpu_torch.kernels.functional import embed
+
+    F = params.w_embed.shape[-1]
+    lp = params.layers[0]
+    e = lp.edge
+    R = e.w_in.shape[-1]
+    with torch.no_grad():
+        hc = embed(params, h)
+        xp = [x[..., k : k + 1].contiguous() for k in range(3)]
+        halves = [(hc @ e.w_in[:F]).contiguous(), (hc @ e.w_in[F:] + e.b_in).contiguous(),
+                  (hc @ e.w_out0[:F]).contiguous(), (hc @ e.w_out0[F : 2 * F]).contiguous()]
+        w = [t.detach().contiguous() for t in se.edge_weights(lp, F, R)]
+        he, att = se.edge_att_body(*xp, *halves, *w)
+    wx = lp.w_xmix.detach().contiguous()
+    return {"edge_att": (*xp, *halves, *w), "coeff_pool": (*xp, he, att, wx),
+            "merged": (*xp, *halves, *w, wx)}
+
+
+def split_checks(args: dict, seed: int) -> dict:
+    """#25-#28 against their plain versions on the ops' arguments ``args``
+    (:func:`split_layer0_args`) and seeded cotangents; #27 also against #25's
+    two kernels composed. Checks as :func:`report_checks` takes them."""
+    import torch
+
+    from sake_tpu_torch.kernels import split_ef as se
+
+    gen = torch.Generator(args["merged"][0].device).manual_seed(seed)
+    checks = {}
+    for kind in ("edge_att", "coeff_pool", "merged"):
+        a = args[kind]
+        with torch.no_grad():
+            k_out, p_out = se.FWD[kind](*a), se.BODIES[kind](*a)
+        checks[f"{kind}_fwd"] = [*zip(SPLIT_OUTS[kind], k_out, p_out)]
+        cots = [torch.randn(o.shape, device=o.device, generator=gen) for o in p_out]
+        kb, kw = se.BWD[kind](a, cots, True)
+        kb0, _ = se.BWD[kind](a, cots, False)
+        pb, pw = se.vjp_plain(kind, a, cots, True)
+        torch.cuda.synchronize()
+        names = [f"d_{n}" for n in SPLIT_BATCHED[kind]]
+        checks[f"{kind}_bwd"] = [*zip(names, kb, pb),
+                                 *zip((f"d_{n}" for n in se.WEIGHTS[kind]), kw, pw),
+                                 *zip((f"no_w.{n}" for n in names), kb0, pb)]
+    with torch.no_grad():
+        a = args["merged"]
+        he, att = se.edge_att_fwd(*a[:16])
+        composed = se.coeff_pool_fwd(*a[:3], he, att, a[16])
+        merged = se.merged_fwd(*a)
+        torch.cuda.synchronize()
+    checks["merged_fwd_vs_split"] = [*zip(SPLIT_OUTS["merged"], merged, composed)]
+    return checks
+
+
+def split_phases(dev, smi) -> list:
+    """Phases 21-23 (see the module docstring); returns their kernel entries."""
+    import torch
+
+    from sake_tpu_torch.data.md17 import synthesize_md17
+    from sake_tpu_torch.kernels import resid_ef
+    from sake_tpu_torch.kernels import split_ef as se
+    from sake_tpu_torch.kernels.adapter import linen_tree, model_params_from_linen
+    from sake_tpu_torch.kernels.functional import CFConvParams, flat_params, model_forward
+    from sake_tpu_torch.models import SAKEModel
+    from sake_tpu_torch.tasks.md17 import MD17Config, make_model, species_onehot
+
+    data = synthesize_md17(n_samples=max(SPLIT_REQUESTS), seed=SEED)
+    species = species_onehot(data.z, int(data.z.max())).to(dev)
+    cfg = MD17Config(hidden_features=FULL["hidden"], depth=FULL["depth"], n_heads=FULL["heads"])
+    model = make_model(cfg, species.shape[-1], device=dev,
+                       generator=torch.Generator().manual_seed(SEED))
+    model.requires_grad_(False)
+    params = model.functional_params()
+    N, F, depth, heads = len(data.z), cfg.hidden_features, cfg.depth, cfg.n_heads
+    xs_all = torch.as_tensor(data.x, device=dev)
+    h_of = lambda B: species.expand(B, N, -1)
+    own = {"split": (se.edge_att_fwd, se.coeff_pool_fwd, se.edge_att_bwd, se.coeff_pool_bwd),
+           "merged": (se.merged_fwd, se.merged_bwd)}
+    dense = dense_counters()
+
+    # -- 21. #25-#28 against their plain versions at full width, then narrow -------
+    Bc = TRAIN_CHECK_B
+    abs_split = {}
+    report_checks(split_checks(split_layer0_args(params, h_of(Bc), xs_all[:Bc], heads), 21),
+                  abs_split, f"vs plain (B={Bc}, N={N}, layer 0)", prefix="SPLIT")
+    for hid in (8, 16):  # 50 rbf channels against H*K = 32 and 64
+        m = SAKEModel(hid, 1, 2, in_features=5, device=dev,
+                      generator=torch.Generator().manual_seed(hid))
+        pm = model_params_from_linen(linen_tree(m), device=dev)
+        gen = torch.Generator(dev).manual_seed(hid)
+        hm = torch.randn(4, 7, 5, device=dev, generator=gen)
+        xm = 1.5 * torch.randn(4, 7, 3, device=dev, generator=gen)
+        report_checks(split_checks(split_layer0_args(pm, hm, xm, 4), hid), {},
+                      f"at hidden {hid} (B=4, N=7, depth 2)", prefix="SPLIT")
+
+    # -- 22. the E + F slice through split_energy_forces and merged_energy_forces --
+    paths = {"split": se.split_energy_forces, "merged": se.merged_energy_forces}
+    answers, launches = {}, {}
+    for name, fn in paths.items():
+        for c in (*own["split"], *own["merged"], *dense):
+            c.launches = 0
+        for B in SPLIT_REQUESTS:
+            answers[(name, B)] = fn(params, h_of(B), xs_all[:B], n_heads=heads)
+        torch.cuda.synchronize()
+        launches[name] = {c.__name__: c.launches for c in (*own["split"], *own["merged"])}
+        others = [c for c in (*own["split"], *own["merged"]) if c not in own[name]]
+        print(f"SPLIT SLICE {name} launches {json.dumps(launches[name])}, dense kernels "
+              f"{sum(c.launches for c in dense)}", flush=True)
+        if (min(c.launches for c in own[name]) == 0 or any(c.launches for c in others)
+                or any(c.launches for c in dense)):
+            fail(f"the {name} path did not launch only its own kernels")
+
+    def plain_ef(x, chunk=CHECK_CHUNK):
+        return chunked_plain_ef(params, species, x, heads, chunk)
+
+    refs = {B: plain_ef(xs_all[:B]) for B in SPLIT_REQUESTS}
+    worst = {"f_err": 0.0, "e_err": 0.0}
+    for (name, B), (e, f) in answers.items():
+        if e.shape != (B,) or f.shape != (B, N, 3):
+            fail(f"{name} B={B}: shapes {tuple(e.shape)} {tuple(f.shape)}")
+        if not (torch.isfinite(e).all() and torch.isfinite(f).all()):
+            fail(f"{name} B={B}: non-finite output")
+        err = {"f_err": rel_err(f, refs[B][1]), "e_err": rel_err(e, refs[B][0])}
+        worst = {k: max(worst[k], v) for k, v in err.items()}
+        print(f"SPLIT SLICE {name} B={B}: f_err {err['f_err']:.3e} e_err {err['e_err']:.3e}",
+              flush=True)
+    if not (worst["f_err"] <= F_TOL and worst["e_err"] <= E_TOL):
+        fail(f"split / merged slice beyond f_err {F_TOL} / e_err {E_TOL}: {worst}")
+    del answers, refs
+
+    # timing at B = 2048 in turns: split, merged, K1 + K2 and the plain path
+    # (chunks of 512), and each path's peak device memory
+    Bt = max(SPLIT_REQUESTS)
+    hb, xb = h_of(Bt), xs_all[:Bt]
+    timed = {**paths, "resid": resid_ef.resid_energy_forces,
+             "plain": lambda p, h, x, n_heads: plain_ef(x, PATH_CHUNK)}
+    runs, peak = {k: [] for k in timed}, {}
+    for side in ("plain", "split", "merged", "resid", "resid", "merged", "split", "plain"):
+        runs[side].append(cuda_ms(lambda: timed[side](params, hb, xb, n_heads=heads)))
+    for side, fn in timed.items():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():  # the paths enable autograd for their forces themselves
+            out = fn(params, hb, xb, n_heads=heads)
+        torch.cuda.synchronize()
+        peak[side] = torch.cuda.max_memory_allocated() - base
+        del out
+    ms = {k: sum(v) / len(v) for k, v in runs.items()}
+    print(f"SPLIT TIMING B={Bt}: " + "; ".join(
+        f"{k} {v:.2f} ms = {Bt * 1e3 / v:.1f} evals/s, peak memory {peak[k] / 2**20:.1f} MiB"
+        for k, v in ms.items()) + f" (runs {json.dumps(runs)}; {smi})", flush=True)
+
+    # each kernel at the path's shapes: one layer of the 2048-molecule request
+    args = split_layer0_args(params, hb, xb, heads)
+    with torch.no_grad():
+        args["coeff_pool"] = (*args["coeff_pool"][:3], *se.edge_att_fwd(*args["edge_att"]),
+                              args["coeff_pool"][5])
+        outs = {k: se.BODIES[k](*a) for k, a in args.items()}
+    gen = torch.Generator(dev).manual_seed(22)
+    cots = {k: [torch.randn(o.shape, device=dev, generator=gen) for o in v]
+            for k, v in outs.items()}
+    del outs
+    t, moved = {}, {}
+    for kind, a in args.items():
+        t[f"{kind}_fwd"] = (cuda_ms(lambda: se.FWD[kind](*a)),
+                            cuda_ms(lambda: se.BODIES[kind](*a), reps=1))
+        t[f"{kind}_bwd"] = (cuda_ms(lambda: se.BWD[kind](a, cots[kind])),
+                            cuda_ms(lambda: se.vjp_plain(kind, a, cots[kind]), reps=1))
+        with torch.no_grad():
+            fo = se.FWD[kind](*a)
+            bo = se.BWD[kind](a, cots[kind])[0]
+        moved[f"{kind}_fwd"] = nbytes(a, fo)
+        moved[f"{kind}_bwd"] = nbytes(a, cots[kind], bo)
+        del fo, bo
+    print(f"SPLIT TIMING per kernel (ms, kernel and plain) at B={Bt}, N={N}, one layer: "
+          + json.dumps({k: [round(a, 3), round(b, 3)] for k, (a, b) in t.items()})
+          + f" ({smi})", flush=True)
+    for name, kinds in (("split", ("edge_att", "coeff_pool")), ("merged", ("merged",))):
+        inside = depth * sum(t[f"{k}_{d}"][0] for k in kinds for d in ("fwd", "bwd"))
+        print(f"SPLIT BREAKDOWN {name} B={Bt}, {ms[name]:.3f} ms: kernels {depth} layers x ("
+              + " + ".join(f"{t[f'{k}_{d}'][0]:.3f}" for k in kinds for d in ("fwd", "bwd"))
+              + f") = {inside:.3f} ms, the rest (embedding, node-level math, its autograd, "
+              f"readout, host gaps) {ms[name] - inside:.3f} ms", flush=True)
+    fma = {k: v * Bt * N * N for k, v in split_fma(50, F, heads, 256).items()}
+    print("SPLIT BOUNDS (ms, by): " + json.dumps(
+        {k: [round(bound(fma[k], moved[k])[0], 4), bound(fma[k], moved[k])[1]] for k in t}),
+        flush=True)
+    sites = {"edge_att_fwd": ("split_fwd.cu", "split_ef.py:158", "split"),
+             "coeff_pool_fwd": ("split_fwd.cu", "split_ef.py:158", "split"),
+             "edge_att_bwd": ("split_bwd.cu", "split_ef.py:212", "split"),
+             "coeff_pool_bwd": ("split_bwd.cu", "split_ef.py:212", "split"),
+             "merged_fwd": ("split_fwd.cu", "split_ef.py:448", "merged"),
+             "merged_bwd": ("split_bwd.cu", "split_ef.py:513", "merged")}
+    kernels = [kernel_entry(k, "sake_tpu_torch/csrc/" + src, "sake_tpu/kernels/" + at,
+                            launches[path][k], abs_split[k], *t[k], fma[k], moved[k])
+               for k, (src, at, path) in sites.items()]
+    del args, cots
+
+    # -- 23. the weight cotangents through the split ops and the merged op --------
+    Bg = SPLIT_GRAD_B
+    xg, hg = xs_all[:Bg], h_of(Bg)
+    prm = resid_ef._unflat_params([p.detach().clone() for p in flat_params(params)], depth)
+    leaves = [t for lp in prm.layers for t in (*lp.edge, lp.w_sem, lp.b_sem, lp.w_xmix)]
+    names = [f"layer{l}.{n}" for l in range(depth)
+             for n in (*CFConvParams._fields, "w_sem", "b_sem", "w_xmix")]
+    for t_ in leaves:
+        t_.requires_grad_(True)
+    want = [torch.zeros_like(t_) for t_ in leaves]
+    for s in range(0, Bg, CHECK_CHUNK):
+        with torch.enable_grad():
+            out, _, _ = model_forward(prm, hg[s : s + CHECK_CHUNK], xg[s : s + CHECK_CHUNK],
+                                      n_heads=heads)
+            g = torch.autograd.grad(out.sum(), leaves)
+        want = [a + b for a, b in zip(want, g)]
+    for merged in (False, True):
+        name = "merged" if merged else "split"
+        for c in (*own["split"], *own["merged"]):
+            c.launches = 0
+        with torch.enable_grad():
+            e = se.model_energy(prm, hg, xg, n_heads=heads, merged=merged)
+            got = torch.autograd.grad(e.sum(), leaves)
+        torch.cuda.synchronize()
+        errs = [rel_err(a, b) for a, b in zip(got, want)]
+        w = int(np.argmax(errs))
+        print(f"SPLIT GRADS {name} B={Bg}: {len(errs)} edge leaves, max rel err {errs[w]:.3e} "
+              f"({names[w]}), launches "
+              + json.dumps({c.__name__: c.launches for c in own[name]}), flush=True)
+        if errs[w] > SPLIT_TOL or not all(bool(torch.isfinite(a).all()) for a in got):
+            fail(f"the {name} weight cotangents beyond {SPLIT_TOL}")
+        if min(c.launches for c in own[name]) == 0:
+            fail(f"the {name} weight cotangents did not run through its kernels")
     return kernels
 
 

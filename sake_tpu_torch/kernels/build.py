@@ -145,12 +145,18 @@ def load():
     lib.sake_sparse_bwd2.argtypes = [P] * 6 + [P, P] + [P] * 4 + [P] * 6 + [P, P] + edims + [P]
     # n_terms, a, na, g, ng, leaf, E, n_chunks, partial, leaf_off, n_leaves, out, stream
     lib.sake_sparse_contract.argtypes = [I, P, P, P, P, P, LL, I, P, P, I, P, P]
+    # the split ops: op, in, w, (g,) out, (rows,) dims (B, N, R, H, Kh, C), stream
+    sdims = [I] * 6
+    lib.sake_split_fwd.argtypes = [I, P, P, P] + sdims + [P]
+    lib.sake_split_bwd.argtypes = [I, P, P, P, P, P] + sdims + [P]
+    lib.sake_split_smem_bytes.argtypes = [I, I] + sdims
+    lib.sake_split_smem_bytes.restype = LL
     for fn in ("sake_resid_fwd", "sake_resid_infer", "sake_resid_bwd", "sake_resid_bwd_rows",
                "sake_param_grads", "sake_resid_jvp", "sake_resid_tbwd", "sake_param_grads_aug",
                "sake_fused_primal", "sake_one_ef", "sake_one_ef_grid", "sake_fused_bwd",
                "sake_sparse_fwd", "sake_sparse_bwd", "sake_sparse_bwd_rows", "sake_sparse_bwd2",
                "sake_sparse_contract", "sake_aug_fwd", "sake_retrace_fwd", "sake_retrace_bwd",
-               "sake_remat_fwd", "sake_remat_bwd"):
+               "sake_remat_fwd", "sake_remat_bwd", "sake_split_fwd", "sake_split_bwd"):
         getattr(lib, fn).restype = I
     for fn in ("sake_resid_fwd_smem_bytes", "sake_resid_bwd_smem_bytes",
                "sake_resid_jvp_smem_bytes", "sake_resid_tbwd_smem_bytes",
