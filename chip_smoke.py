@@ -166,6 +166,26 @@ Phases (each prints its own lines; any failure exits non-zero):
    (split ops and merged op) against plain autograd of the same model, 1e-4
    relative per leaf.
 
+24. #20 (``csrc/fused_remat_ef.cu``, ``kernels.fused_energy_forces``) in f32
+   and in its bf16 default: against its plain version (``fused_ef_plain``) at
+   aspirin's full width, B = 37, and on seeded models of hidden 8 and 16
+   (depth 2, gates [1, 0.4]): f32 within phase 4's limits, bf16 no farther
+   from plain bf16 than plain bf16 is from plain f32 and, on the narrow
+   models, within 1e-3 relative of plain bf16 in E and F (a kernel that skips
+   a rounding lies about 2e-3 to 1e-2 away there); and, at B = 37, the plain
+   version on the host CPU against the same on the card (the same function,
+   its sums in another order: the spread a bf16 comparison has to allow for).
+   Then aspirin requests
+   of B in {37, 512, 2048} through ``kernels.fused_energy_forces`` in each
+   mode, each one launch of #20 and no other dense kernel, against the plain
+   f32 autograd path: f32 with phase 4's limits; bf16 with f_err <= max(2e-3,
+   2 x the plain bf16 version's f_err) (``bench.py:164``'s rule) and no
+   farther from plain bf16 than plain bf16's f_err. Then at B = 2048 #20 f32,
+   #20 bf16, fori, K1 + K2 and plain in turns with each path's peak device
+   memory, and the kernel alone beside its plain version and its bound (one
+   forward and one pullback over depth, not the kernel's re-forward; f32:
+   67 TFLOP/s; bf16: the 989 TFLOP/s dense bf16 tensor-core peak).
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -211,9 +231,14 @@ MD_B, MD_STEPS, MD_DT = 512, 20, 1e-3  # phase 20's rollout
 SPLIT_TOL = 1e-4  # the split kernels and the weight cotangents, relative per tensor
 SPLIT_REQUESTS = (37, 512, 2048)  # phase 22's E + F requests through #25-#28
 SPLIT_GRAD_B = 512  # phase 23's batch
+FUSED_REQUESTS = (37, 512, 2048)  # phase 24's E + F requests through #20
+# #20 bf16 against plain bf16 on the narrow models, relative per output (the CPU
+# test's limit; plain bf16 lies about 2e-3 to 1e-2 from plain f32 there)
+FUSED_NARROW_BF16_TOL = 1e-3
 ATOM_MASS = {1: 1.008, 6: 12.011, 8: 15.999}  # u, by atomic number (aspirin: H, C, O)
-# H100 SXM peaks (NVIDIA's data sheet): f32 outside the tensor cores, HBM3
-PEAK_F32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+# H100 SXM peaks (NVIDIA's data sheet): f32 outside the tensor cores, HBM3, and
+# the dense bf16 tensor-core rate (#20's bf16 products are bf16 operations)
+PEAK_F32_FLOPS, PEAK_BYTES, PEAK_BF16_FLOPS = 67e12, 3.35e12, 989e12
 
 
 def fail(msg: str):
@@ -282,15 +307,17 @@ def layer_fma(N, F, H, R, K, C):
     return dict(fwd=fwd, bwd=bwd, grads=grads, jvp=jvp, tbwd=2 * bwd, grads_aug=2 * grads)
 
 
-def bound(fma: float, moved: int):
-    """``(bound_ms, bound_by)``: the larger of the f32 operations (2 per
-    multiply-add) over the card's peak and the bytes over its memory rate."""
-    t_ops, t_bytes = 2 * fma / PEAK_F32_FLOPS * 1e3, moved / PEAK_BYTES * 1e3
+def bound(fma: float, moved: int, peak: float = PEAK_F32_FLOPS):
+    """``(bound_ms, bound_by)``: the larger of the operations (2 per
+    multiply-add) over the card's peak for their type (f32 unless given) and
+    the bytes over its memory rate."""
+    t_ops, t_bytes = 2 * fma / peak * 1e3, moved / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def kernel_entry(name, source, replaces, launches, max_abs_err, ms, plain_ms, fma, moved):
-    bound_ms, bound_by = bound(fma, moved)
+def kernel_entry(name, source, replaces, launches, max_abs_err, ms, plain_ms, fma, moved,
+                 peak: float = PEAK_F32_FLOPS):
+    bound_ms, bound_by = bound(fma, moved, peak)
     return dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
                 max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None)  # no one PyTorch call runs a layer stack
@@ -387,7 +414,7 @@ def md17_loss_and_grads(br: dict, batch: dict, energy_loss_weight: float):
 
 def dense_counters() -> tuple:
     """The launch counts of every dense-layer kernel (K1, K2, #3-#12, #16-#19,
-    #21-#24): a sparse path must leave them all where they were."""
+    #21-#24) but #20: a sparse path must leave them all where they were."""
     from sake_tpu_torch.kernels import depthgrid_ef, fori_ef, one_ef, resid_ef
     from sake_tpu_torch.kernels import train2_ef as t2
 
@@ -461,6 +488,7 @@ def main() -> int:
     kernels += sparse_train_phases(dev, smi)
     kernels += remat_phases(dev, smi)
     kernels += split_phases(dev, smi)
+    kernels += fused_phases(dev, smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -2412,6 +2440,195 @@ def split_phases(dev, smi) -> list:
         if min(c.launches for c in own[name]) == 0:
             fail(f"the {name} weight cotangents did not run through its kernels")
     return kernels
+
+
+def fused_fma(N, F_in, F, H, R, K, C, F0, O, depth):
+    """Multiply-adds that #20's function needs for one molecule: the
+    embedding, one forward and one pullback over depth, the readout and its
+    seed (``layer_fma``'s counting, as #3's bound). The kernel's re-forward in
+    the pullback trades operations for memory and is not counted."""
+    lf = layer_fma(N, F, H, R, K, C)
+    return N * F_in * F + depth * (lf["fwd"] + lf["bwd"]) + N * (2 * F * F0 + F0 * O)
+
+
+def fused_phases(dev, smi) -> list:
+    """Phase 24 (see the module docstring); returns its kernel entries."""
+    import torch
+
+    from sake_tpu_torch.data.md17 import synthesize_md17
+    from sake_tpu_torch import kernels
+    from sake_tpu_torch.kernels import fori_ef, fused_ef, resid_ef
+    from sake_tpu_torch.kernels.adapter import linen_tree, model_params_from_linen
+    from sake_tpu_torch.kernels.functional import params_to
+    from sake_tpu_torch.models import SAKEModel
+    from sake_tpu_torch.tasks.md17 import MD17Config, make_model, species_onehot
+
+    data = synthesize_md17(n_samples=max(FUSED_REQUESTS), seed=SEED)
+    species = species_onehot(data.z, int(data.z.max())).to(dev)
+    cfg = MD17Config(hidden_features=FULL["hidden"], depth=FULL["depth"], n_heads=FULL["heads"])
+    model = make_model(cfg, species.shape[-1], device=dev,
+                       generator=torch.Generator().manual_seed(SEED))
+    model.requires_grad_(False)
+    params = model.functional_params()
+    N, F, depth, heads = len(data.z), cfg.hidden_features, cfg.depth, cfg.n_heads
+    F_in = species.shape[-1]
+    xs_all = torch.as_tensor(data.x, device=dev)
+    h_of = lambda B: species.expand(B, N, -1)
+    u6 = [1.0] * depth
+    modes = {"f32": None, "bf16": torch.bfloat16}
+    others = dense_counters()
+
+    def plain(p, h, x, upd, dtype, chunk=CHECK_CHUNK):
+        outs = [fused_ef.fused_ef_plain(p, h[s : s + chunk], x[s : s + chunk], upd,
+                                        n_heads=heads, matmul_dtype=dtype)
+                for s in range(0, x.shape[0], chunk)]
+        return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+
+    # -- 24. #20 against its plain version: aspirin B = 37, then narrow models -----
+    abs_fused = {}
+    cases = [("aspirin B=37", params, h_of(37), xs_all[:37], u6)]
+    for hid in (8, 16):  # 50 rbf channels against H*K = 32 and 64
+        m = SAKEModel(hid, 1, 2, in_features=5, device=dev,
+                      generator=torch.Generator().manual_seed(hid))
+        gen = torch.Generator(dev).manual_seed(hid)
+        cases.append((f"hidden {hid} (B=4, N=7, depth 2, gates [1, 0.4])",
+                      params_to(model_params_from_linen(linen_tree(m), device=dev), dev),
+                      torch.randn(4, 7, 5, device=dev, generator=gen),
+                      1.5 * torch.randn(4, 7, 3, device=dev, generator=gen), [1.0, 0.4]))
+    for label, p, h, x, upd in cases:
+        ref32 = plain(p, h, x, upd, None)
+        for mode, dtype in modes.items():
+            with torch.no_grad():
+                k = fused_ef.launch(fused_ef.kernel_weights(p, heads, dtype is not None),
+                                    h.float().contiguous(), x.float().contiguous(), upd)
+                torch.cuda.synchronize()
+            q = ref32 if dtype is None else plain(p, h, x, upd, dtype)
+            err = {"e": rel_err(k[0], q[0]), "f": rel_err(k[1], q[1])}
+            gap = {"e": rel_err(q[0], ref32[0]), "f": rel_err(q[1], ref32[1])}
+            finite = bool(torch.isfinite(k[0]).all() and torch.isfinite(k[1]).all())
+            key = f"fused_ef_{mode}"
+            abs_fused[key] = max(abs_fused.get(key, 0.0), abs_err(k[0], q[0]),
+                                 abs_err(k[1], q[1]))
+            print(f"FUSED {key} vs plain {mode} at {label}: e rel err {err['e']:.3e}, f rel err "
+                  f"{err['f']:.3e}; plain {mode} vs plain f32: e {gap['e']:.3e}, f "
+                  f"{gap['f']:.3e}; finite {finite}", flush=True)
+            if dtype is None:
+                ok = err["f"] <= F_TOL and err["e"] <= E_TOL
+            else:  # aspirin's depth spreads a flipped rounding; the narrow models hold it
+                ok = err["f"] <= gap["f"] and (label.startswith("aspirin") or max(
+                    err.values()) <= FUSED_NARROW_BF16_TOL)
+            if not (ok and finite):
+                fail(f"#20 ({mode}) against its plain version at {label}")
+            if label.startswith("aspirin"):  # the same plain sums in the host's order
+                c = fused_ef.fused_ef_plain(params_to(p, torch.device("cpu")), h.cpu(), x.cpu(),
+                                            upd, n_heads=heads, matmul_dtype=dtype)
+                print(f"FUSED plain {mode} on the host CPU vs on the card at {label}: e rel "
+                      f"{rel_err(c[0], q[0].cpu()):.3e}, f rel {rel_err(c[1], q[1].cpu()):.3e}",
+                      flush=True)
+
+    # -- requests through kernels.fused_energy_forces, one launch each ------------
+    refs = {B: chunked_plain_ef(params, species, xs_all[:B], heads, CHECK_CHUNK)
+            for B in FUSED_REQUESTS}
+    launches, worst = {}, {}
+    for mode, dtype in modes.items():
+        for c in (fused_ef.fused_ef, *others):
+            c.launches = 0
+        for B in FUSED_REQUESTS:
+            before = fused_ef.fused_ef.launches
+            e, f = kernels.fused_energy_forces(params, h_of(B), xs_all[:B], n_heads=heads,
+                                               batch_tile=1, matmul_dtype=dtype)
+            torch.cuda.synchronize()
+            if fused_ef.fused_ef.launches != before + 1:
+                fail(f"fused_energy_forces ({mode}) B={B} did not launch #20 once")
+            if e.shape != (B,) or f.shape != (B, N, 3):
+                fail(f"fused_energy_forces ({mode}) B={B}: shapes {tuple(e.shape)} "
+                     f"{tuple(f.shape)}")
+            if not (torch.isfinite(e).all() and torch.isfinite(f).all()):
+                fail(f"fused_energy_forces ({mode}) B={B}: non-finite output")
+            err = {"f_err": rel_err(f, refs[B][1]), "e_err": rel_err(e, refs[B][0])}
+            if dtype is None:
+                ok = err["f_err"] <= F_TOL and err["e_err"] <= E_TOL
+                rule = f"f_err <= {F_TOL}, e_err <= {E_TOL}"
+            else:
+                pe, pf = plain(params, h_of(B), xs_all[:B], u6, dtype)
+                p_err = rel_err(pf, refs[B][1])
+                gate = max(2e-3, 2 * p_err)
+                err |= {"plain_bf16_f_err": p_err, "vs_plain_bf16": rel_err(f, pf),
+                        "plain_bf16_e_err": rel_err(pe, refs[B][0])}
+                ok = err["f_err"] <= gate and err["vs_plain_bf16"] <= p_err
+                rule = (f"f_err <= max(2e-3, 2 x plain bf16's {p_err:.3e}) = {gate:.3e} and "
+                        f"|kernel - plain bf16| <= plain bf16's f_err")
+            worst[mode] = {k: max(worst.get(mode, {}).get(k, 0.0), v) for k, v in err.items()}
+            print(f"FUSED SLICE {mode} B={B} against the plain f32 oracle: "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in err.items()) + f" ({rule})",
+                  flush=True)
+            if not ok:
+                fail(f"fused_energy_forces ({mode}) B={B} beyond its gate")
+        launches[mode] = fused_ef.fused_ef.launches
+        stray = {c.__name__: c.launches for c in others if c.launches}
+        print(f"FUSED SLICE {mode} launches: #20 {launches[mode]}, other dense kernels "
+              f"{json.dumps(stray)}", flush=True)
+        if launches[mode] != len(FUSED_REQUESTS) or stray:
+            fail(f"the fused slice ({mode}) launched another kernel or not #20 once a request")
+    del refs
+
+    # -- timing at B = 2048 in turns, and each path's peak device memory ---------
+    Bt = max(FUSED_REQUESTS)
+    hb, xb = h_of(Bt), xs_all[:Bt]
+    timed = {
+        "fused_f32": lambda: kernels.fused_energy_forces(params, hb, xb, n_heads=heads,
+                                                         matmul_dtype=None),
+        "fused_bf16": lambda: kernels.fused_energy_forces(params, hb, xb, n_heads=heads),
+        "fori": lambda: fori_ef.fori_energy_forces(params, hb, xb, n_heads=heads),
+        "resid": lambda: resid_ef.resid_energy_forces(params, hb, xb, n_heads=heads),
+        "plain": lambda: chunked_plain_ef(params, species, xb, heads, PATH_CHUNK),
+    }
+    runs, peak = {k: [] for k in timed}, {}
+    for side in (*timed, *reversed(timed)):
+        runs[side].append(cuda_ms(timed[side]))
+    for side, fn in timed.items():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            out = fn()
+        torch.cuda.synchronize()
+        peak[side] = torch.cuda.max_memory_allocated() - base
+        del out
+    ms = {k: sum(v) / len(v) for k, v in runs.items()}
+    print(f"FUSED TIMING B={Bt}: " + "; ".join(
+        f"{k} {v:.2f} ms = {Bt * 1e3 / v:.1f} evals/s, peak memory {peak[k] / 2**20:.1f} MiB"
+        for k, v in ms.items()) + f" (runs {json.dumps(runs)}; {smi})", flush=True)
+
+    # the kernel alone (weights staged once) beside its plain version, per mode
+    hc, xc = hb.float().contiguous(), xb.float().contiguous()
+    kernel_t = {}
+    for mode, dtype in modes.items():
+        w = fused_ef.kernel_weights(params, heads, dtype is not None)
+        with torch.no_grad():
+            k_ms = cuda_ms(lambda: fused_ef.launch(w, hc, xc, u6))
+        p_ms = cuda_ms(lambda: plain(params, hc, xc, u6, dtype, chunk=Bt), reps=1)
+        kernel_t[mode] = (k_ms, p_ms, nbytes(w.leaves, w.leaves_t, w.head, hc, xc)
+                          + 4 * Bt * (1 + 3 * N))
+    print(f"FUSED TIMING per kernel (ms, kernel and plain) at B={Bt}, N={N}, depth {depth}: "
+          + json.dumps({k: [round(a, 3), round(b, 3)] for k, (a, b, _) in kernel_t.items()})
+          + f"; request overhead (weights staging, host) f32 "
+          f"{ms['fused_f32'] - kernel_t['f32'][0]:.3f} ms, bf16 "
+          f"{ms['fused_bf16'] - kernel_t['bf16'][0]:.3f} ms ({smi})", flush=True)
+    fma = Bt * fused_fma(N, F_in, F, F, 50, heads, 256, F, 1, depth)
+    peaks = {"f32": PEAK_F32_FLOPS, "bf16": PEAK_BF16_FLOPS}
+    entries = []
+    for mode in modes:
+        k_ms, p_ms, moved = kernel_t[mode]
+        b_ms, b_by = bound(fma, moved, peaks[mode])
+        print(f"FUSED BOUND {mode}: {b_ms:.4f} ms ({b_by}; {2 * fma / 1e9:.2f} GFLOP over "
+              f"{peaks[mode] / 1e12:.0f} TFLOP/s{', the dense bf16 tensor-core peak' if mode == 'bf16' else ''}"
+              f"; {moved} bytes over {PEAK_BYTES / 1e12:.2f} TB/s)", flush=True)
+        entries.append(kernel_entry(f"fused_ef_{mode}", "sake_tpu_torch/csrc/fused_remat_ef.cu",
+                                    "sake_tpu/kernels/fused_ef.py:94", launches[mode],
+                                    abs_fused[f"fused_ef_{mode}"], k_ms, p_ms, fma, moved,
+                                    peak=peaks[mode]))
+    return entries
 
 
 if __name__ == "__main__":

@@ -2,10 +2,12 @@
 // out = silu(h @ w0 + b0) @ w1 + b1 per atom, the energy e = sum over atoms
 // (times the node mask, when there is one) and outputs. The JAX fused
 // kernels run this head at HIGHEST precision (train2_ef.py:205-213); here
-// every product is f32.
+// every product is f32 but in #20's bf16 instantiation.
 //
-// - readout_seed_head (#11, #3): e and its seed dh = de/dh, the cotangent
-//   that starts the force pullback (torch: resid_ef._readout_seed);
+// - readout_seed_head (#11, #3, #20): e and its seed dh = de/dh, the
+//   cotangent that starts the force pullback (torch: resid_ef._readout_seed);
+//   its kBf16 instantiation is #20's bf16 head, whose products round as the
+//   layers' do (sake_tpu/kernels/fused_ef.py:124, :141-147);
 // - readout_train_head (#12): the seed head of the training backward, the
 //   gradient of S = g_e e - e_dot, e_dot the tangent of e along th, w.r.t.
 //   h, th and the four readout leaves (torch: train2_ef.head_grads).
@@ -32,10 +34,10 @@ struct Readout {
   }
 };
 
-template <class ST>
+template <bool kRoundA = false, class ST>
 __device__ __forceinline__ void mm_head(int n, int kd, int m, const float* A, int lda,
                                         const float* __restrict__ W, ST st) {
-  mm_smem<4, 16>(n, kd, m, A, lda, W, st);
+  mm_smem<4, 16, kRoundA>(n, kd, m, A, lda, W, st);
 }
 
 // Floats of shared memory readout_seed_head takes: the (N, F0) buffer and
@@ -50,7 +52,10 @@ __host__ __device__ inline long long seed_head_floats(int N, int F0) {
 // e (into *e_out, by thread 0) and dh = de/dh (into dh, (N, F), which may
 // alias h) for one molecule whose final h (N, F) is in shared memory. mb:
 // its (N, N) edge mask (the node mask is its diagonal) or null. buf: the
-// seed_head_floats of shared memory. Ends with a barrier.
+// seed_head_floats of shared memory. Ends with a barrier. kBf16: ro holds
+// w0, w1 and w0t rounded to bf16; the products' activation operands round
+// (h, silu(z)) and so does each product's pullback (bf16(w1s), dh).
+template <bool kBf16 = false>
 __device__ __forceinline__ void readout_seed_head(int N, int F, const Readout& ro,
                                                   const float* h, const float* mb, float* buf,
                                                   float* dh, float* e_out) {
@@ -58,7 +63,8 @@ __device__ __forceinline__ void readout_seed_head(int N, int F, const Readout& r
   const int lane = tid & 31, warp = tid >> 5, nwarp = nt >> 5;
   float* Z = buf;
   double* red = reinterpret_cast<double*>(buf + (((long long)N * F0 + 3) & ~3LL));
-  mm_head(N, F, F0, h, F, ro.w0, [&](int r, int c, float a) { Z[r * F0 + c] = a + ro.b0[c]; });
+  mm_head<kBf16>(N, F, F0, h, F, ro.w0,
+                 [&](int r, int c, float a) { Z[r * F0 + c] = a + ro.b0[c]; });
   __syncthreads();
   // e = sum_i m_i (sum_c silu(z_ic) w1s_c + b1s); dz = m_i dsilu(z_ic) w1s_c (in place)
   double acc = 0.0;
@@ -66,8 +72,8 @@ __device__ __forceinline__ void readout_seed_head(int N, int F, const Readout& r
     const int i = e / F0, c = e % F0;
     const float nm = mb ? mb[i * N + i] : 1.f;
     const float z = Z[e], w = ro.w1s(c);
-    acc += (double)(nm * siluf_(z) * w);
-    Z[e] = nm * dsiluf_(z) * w;
+    acc += (double)(nm * rd<kBf16>(siluf_(z)) * w);
+    Z[e] = nm * dsiluf_(z) * rd<kBf16>(w);
   }
   if (tid < N) acc += (double)((mb ? mb[tid * N + tid] : 1.f) * ro.b1s());
 #pragma unroll
@@ -79,7 +85,7 @@ __device__ __forceinline__ void readout_seed_head(int N, int F, const Readout& r
     for (int w = 0; w < nwarp; ++w) s += red[w];
     *e_out = (float)s;
   }
-  mm_head(N, F0, F, Z, F0, ro.w0t, [&](int r, int c, float a) { dh[r * F + c] = a; });
+  mm_head(N, F0, F, Z, F0, ro.w0t, [&](int r, int c, float a) { dh[r * F + c] = rd<kBf16>(a); });
   __syncthreads();
 }
 

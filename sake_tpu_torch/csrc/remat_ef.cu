@@ -43,19 +43,13 @@
 // The per-layer launches of #23 and #24 add depth launches and a read and
 // write of the carried state per layer (about 6 KB per aspirin molecule).
 
-#include "resid_bwd.cuh"
-#include "resid_fwd.cuh"
+#include "remat_step.cuh"
 
 namespace sake {
 namespace {
 
 constexpr int kRematFwdThreads = 256;
 constexpr int kRematBwdThreads = 512;
-
-__host__ __device__ inline long long remat_bwd_smem_floats(const Dims& d) {
-  const long long b = bwd_smem_floats(d), f = bwd_state_floats(d) + fwd_smem_floats(d);
-  return b > f ? b : f;
-}
 
 // Layers [l0, l1) of molecule b from the state (h_in (B, N, F), x_in, v_in
 // (3, B, N); v_in null: zeros), writing the state entering each layer to the
@@ -99,14 +93,12 @@ remat_bwd_kernel(Dims d, int l_hi, int l_lo, const float* __restrict__ bh,
                  const float* dh_in, const float* dx_in, const float* dv_in, float* dh_out,
                  float* dx_out, float* dv_out) {
   extern __shared__ float4 smem4[];
-  float* base = reinterpret_cast<float*>(smem4);
   const int b = blockIdx.x;
   const int B = d.B, N = d.N, F = d.F;
   const int tid = threadIdx.x, nt = blockDim.x;
-  Carver cb{base};
-  const BwdSmem SB = carve_bwd(cb, d);  // its cotangent state is the carry
-  Carver cf{base + bwd_state_floats(d)};
-  const FwdSmem SF = carve_fwd(cf, d);  // the re-forward's buffers, after the carry
+  BwdSmem SB;
+  FwdSmem SF;
+  remat_carves(reinterpret_cast<float*>(smem4), d, &SB, &SF);
 
   for (int e = tid; e < N * F; e += nt) SB.sdh[e] = dh_in[(size_t)b * N * F + e];
   for (int e = tid; e < 3 * N; e += nt) {
@@ -114,17 +106,8 @@ remat_bwd_kernel(Dims d, int l_hi, int l_lo, const float* __restrict__ bh,
     SB.sdx[e] = dx_in ? dx_in[at] : 0.f;
     SB.sdv[e] = dx_in ? dv_in[at] : 0.f;
   }
-  for (int l = l_hi; l >= l_lo; --l) {
-    const Leaves Ll = layer_of(L, l), LTl = layer_of(LT, l);
-    const size_t bo = (size_t)l * B * N * F, xo = (size_t)l * 3 * B * N;
-    // re-forward layer l from its boundary: its residuals (fwd_begin's and
-    // fwd_layer's closing __syncthreads order them before the pullback)
-    fwd_begin(d, SF, B, b, bh + bo, bx + xo, bv + xo, nullptr);
-    fwd_layer<true, false>(d, SF, b, 0, upd[l], nullptr, Ll, nullptr, nullptr, nullptr, RS);
-    // the pullback through it, on those residuals
-    bwd_layer<false>(d, SB, b, 0, upd[l], nullptr, Ll, LTl, bh + bo, bx + xo, bv + xo, RS,
-                     Rows{}, nullptr, nullptr, nullptr);
-  }
+  for (int l = l_hi; l >= l_lo; --l)
+    remat_layer<false>(d, SF, SB, b, l, upd[l], L, LT, bh, bx, bv, RS);
 
   for (int e = tid; e < N * F; e += nt) dh_out[(size_t)b * N * F + e] = SB.sdh[e];
   for (int e = tid; e < 3 * N; e += nt) {

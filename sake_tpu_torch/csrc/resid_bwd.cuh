@@ -3,7 +3,8 @@
 // runs it over depth in reverse; fused_ef.cu runs it as the backward phase of
 // the fused primal (#11) and of one_ef (#3), fused_bwd.cu as the primal
 // cotangent chain of the fused training backward (#12). See resid_bwd.cu for
-// the design and what bounds it.
+// the design and what bounds it. Its kBf16 instantiation (fused_remat_ef.cu,
+// #20) pulls back through the bf16 products.
 #pragma once
 
 #include "resid_common.cuh"
@@ -14,10 +15,10 @@ constexpr int kBwdTileCols = 2;  // columns per tile in mm_tiled
 constexpr int kBwdTiledMinCols = 128;  // narrowest tiled product
 
 // This body's block products (see mm_smem).
-template <class ST>
+template <bool kRoundA = false, class ST>
 __device__ __forceinline__ void mm_bwd(int n, int kd, int m, const float* A, int lda,
                                    const float* __restrict__ W, ST st) {
-  mm_smem<kBwdTileCols, kBwdTiledMinCols>(n, kd, m, A, lda, W, st);
+  mm_smem<kBwdTileCols, kBwdTiledMinCols, kRoundA>(n, kd, m, A, lda, W, st);
 }
 
 // Shared-memory buffers of K2, in floats: the cotangent state, the
@@ -117,8 +118,14 @@ __device__ __forceinline__ void bwd_begin(const Dims& d, const BwdSmem& S, int B
 // this molecule's (N, N) edge mask or null. Reads the boundary states and
 // residuals at molecule slot b of d.B, layer l, and with kRows writes the
 // layer's rows (RW) there. add_h (depth, d.B, N, F), add_x, add_v (depth, 3,
-// d.B, N): null, or added to the cotangents leaving the layer.
-template <bool kRows>
+// d.B, N): null, or added to the cotangents leaving the layer. kBf16: the
+// pullback of fwd_layer's kBf16 instantiation (L, LT hold the rounded
+// weights), as JAX differentiates a bf16 product mm(a, w): d_a = bf16(g @
+// w^T), g not rounded, each product's term rounded before it joins a sum.
+// Its x-mixing pullback is the per-head form's: with P = d_xm @ w_xmix^T,
+// d_h_e = sum_k bf16(att_k P_k), d_att_k = P_k . bf16(h_e) (plus the
+// attended sum's terms, f32).
+template <bool kRows, bool kBf16 = false>
 __device__ __forceinline__ void bwd_layer(const Dims& d, const BwdSmem& S, int b, int l,
                                           float u, const float* __restrict__ mb,
                                           const Leaves& L, const Leaves& LT,
@@ -172,9 +179,9 @@ __device__ __forceinline__ void bwd_layer(const Dims& d, const BwdSmem& S, int b
 
   // a_j, a_i recomputed from h_in (pre = a_j[j] + a_i[i])
   const float* b_in = W(B_IN);
-  mm_bwd(N, F, R, sh, F, W(W_IN_J),
+  mm_bwd<kBf16>(N, F, R, sh, F, W(W_IN_J),
           [&](int r, int c, float a) { saj[r * R + c] = a + b_in[c]; });
-  mm_bwd(N, F, R, sh, F, W(W_IN_I),
+  mm_bwd<kBf16>(N, F, R, sh, F, W(W_IN_I),
           [&](int r, int c, float a) { sai[r * R + c] = a; });
 
   // position/velocity gates: x_out = x + u*v_new, v_out = v + u*(v_new - v)
@@ -200,12 +207,12 @@ __device__ __forceinline__ void bwd_layer(const Dims& d, const BwdSmem& S, int b
     const float* g0 = RS.p[RS_G0] + lb * N * H;
     for (int e = tid; e < N * H; e += nt) {
       const int i = e / H, h = e % H;
-      sdg0[e] = (sdg1[i] * wv1[h]) * dsiluf_(g0[e]);
+      sdg0[e] = rd<kBf16>(sdg1[i] * wv1[h]) * dsiluf_(g0[e]);
     }
   }
   __syncthreads();
   mm_bwd(N, H, F, sdg0, H, WT(W_VEL0),
-          [&](int r, int c, float a) { sdh[r * F + c] += a; });  // dho
+          [&](int r, int c, float a) { sdh[r * F + c] += rd<kBf16>(a); });  // dho
   __syncthreads();
 
   // h_out = h_in + silu(uv), uv = silu(node_pre) @ w_node1 + b_node1
@@ -217,28 +224,35 @@ __device__ __forceinline__ void bwd_layer(const Dims& d, const BwdSmem& S, int b
   {
     const float* np = RS.p[RS_NODE_PRE] + lb * N * H;
     mm_bwd(N, F, H, sduv, F, WT(W_NODE1),
-            [&](int r, int c, float a) { sdnp[r * H + c] = a * dsiluf_(np[r * H + c]); });
+            [&](int r, int c, float a) {
+              sdnp[r * H + c] = rd<kBf16>(a) * dsiluf_(np[r * H + c]);
+            });
   }
   __syncthreads();
 
   // node_pre = h @ w_node_h + hatt @ w_node_agg + h_comb @ w_node_comb + b
-  mm_bwd(N, H, F, sdnp, H, WT(W_NODE_H), [&](int r, int c, float a) { sdh[r * F + c] += a; });
+  mm_bwd(N, H, F, sdnp, H, WT(W_NODE_H),
+         [&](int r, int c, float a) { sdh[r * F + c] += rd<kBf16>(a); });
   mm_bwd(N, H, HK, sdnp, H, WT(W_NODE_AGG),
-          [&](int r, int c, float a) { sdhatt[r * HK + c] = a; });
+          [&](int r, int c, float a) { sdhatt[r * HK + c] = rd<kBf16>(a); });
   {
     const float* ps1 = RS.p[RS_PS1] + lb * N * H;
     mm_bwd(N, H, H, sdnp, H, WT(W_NODE_COMB),
-            [&](int r, int c, float a) { sdps1[r * H + c] = a * dsiluf_(ps1[r * H + c]); });
+            [&](int r, int c, float a) {
+              sdps1[r * H + c] = rd<kBf16>(a) * dsiluf_(ps1[r * H + c]);
+            });
   }
   __syncthreads();
   {
     const float* ps0 = RS.p[RS_PS0] + lb * N * H;
     mm_bwd(N, H, H, sdps1, H, WT(W_POST1),
-            [&](int r, int c, float a) { sdps0[r * H + c] = a * dsiluf_(ps0[r * H + c]); });
+            [&](int r, int c, float a) {
+              sdps0[r * H + c] = rd<kBf16>(a) * dsiluf_(ps0[r * H + c]);
+            });
   }
   __syncthreads();
   mm_bwd(N, H, C, sdps0, H, WT(W_POST0),
-          [&](int r, int c, float a) { sdpsq[r * C + c] = a; });
+          [&](int r, int c, float a) { sdpsq[r * C + c] = rd<kBf16>(a); });
 
   const float* wvmix = W(W_VMIX);
   const float* w_o_r = W(W_O_R);
@@ -281,9 +295,14 @@ __device__ __forceinline__ void bwd_layer(const Dims& d, const BwdSmem& S, int b
     // d_pooled for row i; stage the row's residuals
     for (int c = tid; c < C; c += nt) {
 #pragma unroll
-      for (int k = 0; k < 3; ++k)
-        sdp[k * C + c] = sdvn[k * N + i] * wvmix[c] / dvd +
-                         2.f * pool[k][i * C + c] * sdpsq[i * C + c] / (pd * pd);
+      for (int k = 0; k < 3; ++k) {
+        if constexpr (kBf16)
+          sdp[k * C + c] = bf16r(sdvn[k * N + i] / dvd * wvmix[c]) +
+                           2.f * pool[k][i * C + c] * sdpsq[i * C + c] / (pd * pd);
+        else
+          sdp[k * C + c] = sdvn[k * N + i] * wvmix[c] / dvd +
+                           2.f * pool[k][i * C + c] * sdpsq[i * C + c] / (pd * pd);
+      }
     }
     for (int j = tid; j < N; j += nt) {
       const float r = RS.p[RS_R][erow + j];
@@ -360,22 +379,39 @@ __device__ __forceinline__ void bwd_layer(const Dims& d, const BwdSmem& S, int b
     }
     __syncthreads();
 
-    // d_he_att = d_xm @ w_xmix^T + d_hatt[i] (hatt sums he_att over senders)
-    mm_bwd(N, C, HK, scf, C, WT(W_XMIX),
-            [&](int r, int c, float a) { sdha[r * HK + c] = a + sdhatt[i * HK + c]; });
+    // d_he_att = d_xm @ w_xmix^T + d_hatt[i] (hatt sums he_att over senders);
+    // kBf16 keeps the product P alone (see above)
+    mm_bwd(N, C, HK, scf, C, WT(W_XMIX), [&](int r, int c, float a) {
+      if constexpr (kBf16) sdha[r * HK + c] = a;
+      else sdha[r * HK + c] = a + sdhatt[i * HK + c];
+    });
     __syncthreads();
 
     // he_att[j, h*K + k] = h_e[j, h] * att2[j, k]
     for (int e = tid; e < N * H; e += nt) {
       const int j = e / H, h = e % H;
       float s = 0.f;
-      for (int k = 0; k < K; ++k) s += sdha[j * HK + h * K + k] * satt2[j * K + k];
+      for (int k = 0; k < K; ++k) {
+        if constexpr (kBf16) {
+          const float a2 = satt2[j * K + k];
+          s += bf16r(a2 * sdha[j * HK + h * K + k]) + sdhatt[i * HK + h * K + k] * a2;
+        } else {
+          s += sdha[j * HK + h * K + k] * satt2[j * K + k];
+        }
+      }
       sdhe[e] = s;
     }
     for (int e = tid; e < N * K; e += nt) {
       const int j = e / K, k = e % K;
       float s = 0.f;
-      for (int h = 0; h < H; ++h) s += sdha[j * HK + h * K + k] * she[j * H + h];
+      for (int h = 0; h < H; ++h) {
+        if constexpr (kBf16) {
+          const float he = she[j * H + h];
+          s += sdha[j * HK + h * K + k] * bf16r(he) + sdhatt[i * HK + h * K + k] * he;
+        } else {
+          s += sdha[j * HK + h * K + k] * she[j * H + h];
+        }
+      }
       sdat[e] = s;
     }
     __syncthreads();
@@ -407,12 +443,14 @@ __device__ __forceinline__ void bwd_layer(const Dims& d, const BwdSmem& S, int b
     }
     __syncthreads();
     mm_bwd(N, K, H, sdat, K, WT(W_SEM),
-            [&](int r, int c, float a) { sdhe[r * H + c] += a; });
+            [&](int r, int c, float a) { sdhe[r * H + c] += rd<kBf16>(a); });
     __syncthreads();
 
     // h_e = silu(e0) @ w_o1 + b_o1: d_e0 in place of e0
     mm_bwd(N, H, H, sdhe, H, WT(W_O1),
-            [&](int r, int c, float a) { se0[r * H + c] = a * dsiluf_(se0[r * H + c]); });
+            [&](int r, int c, float a) {
+              se0[r * H + c] = rd<kBf16>(a) * dsiluf_(se0[r * H + c]);
+            });
     if constexpr (kRows)
       for (int e = tid; e < N * H; e += nt) edge_row(RW_DHE, H)[e] = sdhe[e];
     __syncthreads();
@@ -435,7 +473,8 @@ __device__ __forceinline__ void bwd_layer(const Dims& d, const BwdSmem& S, int b
     }
     // o_f = (rbf * pre) @ w_o_f
     mm_bwd(N, H, R, se0, H, WT(W_O_F),
-            [&](int r, int c, float a) {
+            [&](int r, int c, float g) {
+              const float a = rd<kBf16>(g);
               const float pre = saj[r * R + c] + sai[i * R + c];
               sdrbf[r * R + c] = a * pre;
               sdpre[r * R + c] = a * srbf[r * R + c];
@@ -497,16 +536,16 @@ __device__ __forceinline__ void bwd_layer(const Dims& d, const BwdSmem& S, int b
 
   // node projections: d_h += d_a_j w_in_j^T + d_a_i w_in_i^T + d_o_j w_o_j^T + d_o_i w_o_i^T
   mm_bwd(N, R, F, sdaj, R, WT(W_IN_J),
-          [&](int r, int c, float a) { sdh[r * F + c] += a; });
+          [&](int r, int c, float a) { sdh[r * F + c] += rd<kBf16>(a); });
   __syncthreads();
   mm_bwd(N, R, F, sdai, R, WT(W_IN_I),
-          [&](int r, int c, float a) { sdh[r * F + c] += a; });
+          [&](int r, int c, float a) { sdh[r * F + c] += rd<kBf16>(a); });
   __syncthreads();
   mm_bwd(N, H, F, sdoj, H, WT(W_O_J),
-          [&](int r, int c, float a) { sdh[r * F + c] += a; });
+          [&](int r, int c, float a) { sdh[r * F + c] += rd<kBf16>(a); });
   __syncthreads();
   mm_bwd(N, H, F, sdoi, H, WT(W_O_I),
-          [&](int r, int c, float a) { sdh[r * F + c] += a; });
+          [&](int r, int c, float a) { sdh[r * F + c] += rd<kBf16>(a); });
   for (int e = tid; e < 3 * N; e += nt) {
     sdx[e] = sdx[e] + sdxs[e] - sdxr[e];
     sdv[e] = sdvo[e];

@@ -164,6 +164,22 @@ __device__ __forceinline__ Dl sigmoid_d(Dl x) {
   return {s, s * (1.f - s) * x.t};
 }
 
+// x rounded to the nearest bf16 value (ties to even), kept as a float: the
+// operand rounding of the bf16 products (torch's and JAX's rounding, for
+// finite x). A product of two such values is exact in f32.
+__device__ __forceinline__ float bf16r(float x) {
+  unsigned u = __float_as_uint(x);
+  u += 0x7fffu + ((u >> 16) & 1u);
+  return __uint_as_float(u & 0xffff0000u);
+}
+
+// bf16r(x) in a body's bf16 instantiation, x itself in its f32 one.
+template <bool kBf16>
+__device__ __forceinline__ float rd(float x) {
+  if constexpr (kBf16) return bf16r(x);
+  else return x;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -175,13 +191,14 @@ constexpr int kTileRows = 7;  // divides aspirin's N = 21: no idle rows
 // Block-level products out(r, c) = sum_k A(r, k) * W[k * m + c] for r < n,
 // c < m, each output handed to st(r, c, value). W is row-major (kd, m) in
 // device memory (L2-resident), A lives in shared memory. Every variant
-// sums over k in order.
+// sums over k in order. With kRoundA each A(r, k) is rounded to bf16 as it
+// is read (the bf16 products; W is passed already rounded).
 //
 // Register-tiled: each thread owns kTileRows rows and CT (2 or 4)
 // adjacent columns and reads A (row stride lda) as float4, so one shared
 // load feeds 4 * CT FMAs. Needs kd, m and lda to be multiples of 4 and
 // 16-byte aligned A and W.
-template <int CT, class ST>
+template <int CT, bool kRoundA = false, class ST>
 __device__ __forceinline__ void mm_tiled(int n, int kd, int m, const float* A, int lda,
                                          const float* __restrict__ W, ST st) {
   static_assert(CT == 2 || CT == 4, "column tile is a float2 or a float4");
@@ -210,8 +227,10 @@ __device__ __forceinline__ void mm_tiled(int n, int kd, int m, const float* A, i
       }
 #pragma unroll
       for (int q = 0; q < kTileRows; ++q) {
-        const float4 a =
-            *reinterpret_cast<const float4*>(A + (size_t)min(r0 + q, n - 1) * lda + k);
+        float4 a = *reinterpret_cast<const float4*>(A + (size_t)min(r0 + q, n - 1) * lda + k);
+        if constexpr (kRoundA) {
+          a.x = bf16r(a.x); a.y = bf16r(a.y); a.z = bf16r(a.z); a.w = bf16r(a.w);
+        }
 #pragma unroll
         for (int t = 0; t < CT; ++t) {
           acc[q][t] = fmaf(a.x, w[0][t], acc[q][t]);
@@ -250,7 +269,7 @@ __device__ __forceinline__ void mm_cols(int n, int kd, int m, AF A,
 
 // One warp per row for very narrow products (m <= 8, e.g. the 4 semantic
 // heads): lanes split k, a shuffle tree sums the partials.
-template <class ST>
+template <bool kRoundA = false, class ST>
 __device__ __forceinline__ void mm_warp(int n, int kd, int m, const float* A, int lda,
                                         const float* __restrict__ W, ST st) {
   const int lane = threadIdx.x & 31;
@@ -259,7 +278,7 @@ __device__ __forceinline__ void mm_warp(int n, int kd, int m, const float* A, in
 #pragma unroll
     for (int c = 0; c < 8; ++c) acc[c] = 0.f;
     for (int k = lane; k < kd; k += 32) {
-      const float a = A[r * lda + k];
+      const float a = rd<kRoundA>(A[r * lda + k]);
 #pragma unroll
       for (int c = 0; c < 8; ++c)
         if (c < m) acc[c] = fmaf(a, __ldg(W + (size_t)k * m + c), acc[c]);
@@ -281,17 +300,17 @@ __device__ __forceinline__ void mm_warp(int n, int kd, int m, const float* A, in
 // on an H100 at aspirin's widths: K1 (256 threads) is fastest with 4-column
 // tiles for every product from 16 columns up, K2 (512 threads) with
 // 2-column tiles for the products of 128 columns and more only.
-template <int CT, int MinCols, class ST>
+template <int CT, int MinCols, bool kRoundA = false, class ST>
 __device__ __forceinline__ void mm_smem(int n, int kd, int m, const float* A, int lda,
                                         const float* __restrict__ W, ST st) {
   const uintptr_t addr = reinterpret_cast<uintptr_t>(A) | reinterpret_cast<uintptr_t>(W);
   const bool aligned = (addr & 15) == 0;
   if (m >= MinCols && aligned && ((kd | m | lda) & 3) == 0) {
-    mm_tiled<CT>(n, kd, m, A, lda, W, st);
+    mm_tiled<CT, kRoundA>(n, kd, m, A, lda, W, st);
   } else if (m <= 8) {
-    mm_warp(n, kd, m, A, lda, W, st);
+    mm_warp<kRoundA>(n, kd, m, A, lda, W, st);
   } else {
-    mm_cols(n, kd, m, [&](int r, int k) { return A[r * lda + k]; }, W, st);
+    mm_cols(n, kd, m, [&](int r, int k) { return rd<kRoundA>(A[r * lda + k]); }, W, st);
   }
 }
 

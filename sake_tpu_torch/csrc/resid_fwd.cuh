@@ -1,7 +1,8 @@
 // K1's per-layer body: layer_fwd_resid of one molecule and one layer, for a
 // whole thread block. resid_fwd.cu runs it over depth; fused_ef.cu runs it
 // as the forward phase of the fused primal (#11) and of one_ef (#3). See
-// resid_fwd.cu for the design and what bounds it.
+// resid_fwd.cu for the design and what bounds it. Its kBf16 instantiation
+// (fused_remat_ef.cu, #20) rounds each product's activation operand to bf16.
 #pragma once
 
 #include "resid_common.cuh"
@@ -12,10 +13,10 @@ constexpr int kFwdTileCols = 4;  // columns per tile in mm_tiled
 constexpr int kFwdTiledMinCols = 16;  // narrowest tiled product
 
 // This body's block products (see mm_smem).
-template <class ST>
+template <bool kRoundA = false, class ST>
 __device__ __forceinline__ void mm_fwd(int n, int kd, int m, const float* A, int lda,
                                        const float* __restrict__ W, ST st) {
-  mm_smem<kFwdTileCols, kFwdTiledMinCols>(n, kd, m, A, lda, W, st);
+  mm_smem<kFwdTileCols, kFwdTiledMinCols, kRoundA>(n, kd, m, A, lda, W, st);
 }
 
 // Shared-memory buffers of K1, in floats. Node-level state lives across
@@ -84,8 +85,12 @@ __device__ __forceinline__ void fwd_begin(const Dims& d, const FwdSmem& S, int B
 // streams, written at molecule slot b of d.B, layer l: kBound the boundary
 // state entering the layer (bh, bx, bv), kResid the 17 residuals (RS).
 // Without kResid only the pooled vectors go to RS, at slot b of a one-layer
-// (3, d.B, N, C) scratch.
-template <bool kResid, bool kBound>
+// (3, d.B, N, C) scratch. kBf16: the JAX bf16 products (functional.py's
+// _make_mm): every product's activation operand rounded to bf16 (L holds
+// the weights already rounded), f32 sums; the x-mixing product takes
+// bf16(h_e) (x) att, the per-head form's sum over heads, and the attended
+// sum hatt stays f32 until its own product rounds it.
+template <bool kResid, bool kBound, bool kBf16 = false>
 __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b, int l,
                                           float u, const float* __restrict__ mb,
                                           const Leaves& L, float* bh, float* bx, float* bv,
@@ -128,13 +133,13 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
   }
 
   // node projections
-  mm_fwd(N, F, R, sh, F, W(W_IN_J),
+  mm_fwd<kBf16>(N, F, R, sh, F, W(W_IN_J),
          [&](int r, int c, float a) { saj[r * R + c] = a + b_in[c]; });
-  mm_fwd(N, F, R, sh, F, W(W_IN_I),
+  mm_fwd<kBf16>(N, F, R, sh, F, W(W_IN_I),
          [&](int r, int c, float a) { sai[r * R + c] = a; });
-  mm_fwd(N, F, H, sh, F, W(W_O_J),
+  mm_fwd<kBf16>(N, F, H, sh, F, W(W_O_J),
          [&](int r, int c, float a) { soj[r * H + c] = a; });
-  mm_fwd(N, F, H, sh, F, W(W_O_I),
+  mm_fwd<kBf16>(N, F, H, sh, F, W(W_O_I),
          [&](int r, int c, float a) { soi[r * H + c] = a; });
   __syncthreads();
 
@@ -174,7 +179,7 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
     __syncthreads();
 
     // e0 = o_j[j] + o_i[i] + filtered @ w_o_f + r * w_o_r + b_o0
-    mm_fwd(N, R, H, srbf, R, W(W_O_F), [&](int r, int c, float a) {
+    mm_fwd<kBf16>(N, R, H, srbf, R, W(W_O_F), [&](int r, int c, float a) {
       const float v = soj[r * H + c] + soi[i * H + c] + a + sr[r] * w_o_r[c] + b_o0[c];
       se0[r * H + c] = v;
       if constexpr (kResid) RS.p[RS_E0][(erow + r) * H + c] = v;
@@ -184,7 +189,7 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
     __syncthreads();
 
     // h_e = silu(e0) @ w_o1 + b_o1
-    mm_fwd(N, H, H, se0, H, W(W_O1),
+    mm_fwd<kBf16>(N, H, H, se0, H, W(W_O1),
            [&](int r, int c, float a) {
              const float v = a + b_o1[c];
              she[r * H + c] = v;
@@ -193,7 +198,7 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
     __syncthreads();
 
     // semantic logits
-    mm_fwd(N, H, K, she, H, W(W_SEM),
+    mm_fwd<kBf16>(N, H, K, she, H, W(W_SEM),
            [&](int r, int c, float a) {
              const float v = a + b_sem[c];
              ssem[r * K + c] = v;
@@ -240,13 +245,16 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
     // attended edges h_e (x) att, hidden-major / head-minor: column h*K + k
     for (int e = tid; e < N * HK; e += nt) {
       const int j = e / HK, q = e % HK;
-      shea[e] = she[j * H + q / K] * satt[j * K + q % K];
+      shea[e] = rd<kBf16>(she[j * H + q / K]) * satt[j * K + q % K];
     }
     __syncthreads();
     // hatt_sum[i] = sum_j he_att[j]; coeff = tanh(he_att @ w_xmix) * m
     for (int q = tid; q < HK; q += nt) {
       float s = 0.f;
-      for (int j = 0; j < N; ++j) s += shea[j * HK + q];
+      for (int j = 0; j < N; ++j) {
+        if constexpr (kBf16) s += she[j * H + q / K] * satt[j * K + q % K];
+        else s += shea[j * HK + q];
+      }
       shatt[i * HK + q] = s;
     }
     mm_fwd(N, HK, C, shea, HK, W(W_XMIX), [&](int r, int c, float a) {
@@ -284,7 +292,7 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
     for (int q = warp; q < 3 * N; q += nwarp) {
       const int k = q / N, i = q % N;
       float s = 0.f;
-      for (int c = lane; c < C; c += 32) s += pool[k][i * C + c] * wv[c];
+      for (int c = lane; c < C; c += 32) s += rd<kBf16>(pool[k][i * C + c]) * wv[c];
       s = warp_sum(s);
       if (lane == 0) sdel[q] = s;
     }
@@ -292,7 +300,7 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
   __syncthreads();
 
   const float* b_post0 = W(B_POST0);
-  mm_fwd(N, C, H, scf, C, W(W_POST0),
+  mm_fwd<kBf16>(N, C, H, scf, C, W(W_POST0),
          [&](int r, int c, float a) {
            const float v = a + b_post0[c];
            se0[r * H + c] = v;
@@ -302,7 +310,7 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
   for (int e = tid; e < N * H; e += nt) se0[e] = siluf_(se0[e]);
   __syncthreads();
   const float* b_post1 = W(B_POST1);
-  mm_fwd(N, H, H, se0, H, W(W_POST1),
+  mm_fwd<kBf16>(N, H, H, se0, H, W(W_POST1),
          [&](int r, int c, float a) {
            const float v = a + b_post1[c];
            she[r * H + c] = v;
@@ -313,13 +321,13 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
 
   // node_pre = h @ w_node_h + hatt @ w_node_agg + h_comb @ w_node_comb + b
   const float* b_node0 = W(B_NODE0);
-  mm_fwd(N, F, H, sh, F, W(W_NODE_H),
+  mm_fwd<kBf16>(N, F, H, sh, F, W(W_NODE_H),
          [&](int r, int c, float a) { snp[r * H + c] = a + b_node0[c]; });
   __syncthreads();
-  mm_fwd(N, HK, H, shatt, HK, W(W_NODE_AGG),
+  mm_fwd<kBf16>(N, HK, H, shatt, HK, W(W_NODE_AGG),
          [&](int r, int c, float a) { snp[r * H + c] += a; });
   __syncthreads();
-  mm_fwd(N, H, H, she, H, W(W_NODE_COMB),
+  mm_fwd<kBf16>(N, H, H, she, H, W(W_NODE_COMB),
          [&](int r, int c, float a) { snp[r * H + c] += a; });
   __syncthreads();
   for (int e = tid; e < N * H; e += nt) {
@@ -328,7 +336,7 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
   }
   __syncthreads();
   const float* b_node1 = W(B_NODE1);
-  mm_fwd(N, H, F, snp, H, W(W_NODE1),
+  mm_fwd<kBf16>(N, H, F, snp, H, W(W_NODE1),
          [&](int r, int c, float a) {
            const float v = a + b_node1[c];
            suv[r * F + c] = v;
@@ -340,7 +348,7 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
 
   // velocity gate and x/v update
   const float* b_vel0 = W(B_VEL0);
-  mm_fwd(N, F, H, sh, F, W(W_VEL0), [&](int r, int c, float a) {
+  mm_fwd<kBf16>(N, F, H, sh, F, W(W_VEL0), [&](int r, int c, float a) {
     const float v = a + b_vel0[c];
     if constexpr (kResid) RS.p[RS_G0][(lb * N + r) * H + c] = v;
     sg0[r * H + c] = siluf_(v);
@@ -350,7 +358,7 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
     const float* wv1 = W(W_VEL1);
     for (int i = warp; i < N; i += nwarp) {
       float s = 0.f;
-      for (int h = lane; h < H; h += 32) s += sg0[i * H + h] * wv1[h];
+      for (int h = lane; h < H; h += 32) s += rd<kBf16>(sg0[i * H + h]) * wv1[h];
       s = warp_sum(s);
       if (lane == 0) {
         sg1[i] = s;

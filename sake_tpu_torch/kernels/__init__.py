@@ -1,9 +1,6 @@
 """The port's hand-written CUDA kernels and their functional reference forms.
 
-The names of the JAX package's ``sake_tpu.kernels.__all__`` that the port
-has. ``fused_energy_forces`` is not among them yet: its kernel (the
-whole-model E + F in one program, #20) runs in bf16 by default and waits for
-the port's bf16 tier.
+The names of the JAX package's ``sake_tpu.kernels.__all__``, every one.
 """
 
 from sake_tpu_torch.kernels.functional import (
@@ -19,6 +16,7 @@ from sake_tpu_torch.kernels.adapter import (
 )
 from sake_tpu_torch.kernels.dispatch import dispatch_energy_forces
 from sake_tpu_torch.kernels.fori_ef import fori_energy_forces
+from sake_tpu_torch.kernels.fused_ef import fused_energy_forces
 from sake_tpu_torch.kernels.one_ef import one_energy_forces
 from sake_tpu_torch.kernels.resid_ef import make_hidden_fn, resid_energy_forces
 from sake_tpu_torch.kernels.train_ef import make_trainable_energy_forces
@@ -32,6 +30,7 @@ __all__ = [
     "model_params_from_linen",
     "layer_params_from_linen",
     "dispatch_energy_forces",
+    "fused_energy_forces",
     "fori_energy_forces",
     "one_energy_forces",
     "resid_energy_forces",

@@ -84,93 +84,103 @@ def build() -> Path:
     return lib_path
 
 
-def load():
-    """The loaded library, with argument types declared for every entry."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    lib = ctypes.CDLL(str(build()))
+def signatures() -> dict:
+    """Every entry's ``(argtypes, restype)``, by symbol name."""
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     dims = [I] * 8
     # h0, xs, v0, upd, mask, leaves, strides
     fwd_in = [P] * 5 + [P, P]
-    lib.sake_resid_fwd.argtypes = fwd_in + [P] * 6 + [P] + dims + [P]
-    lib.sake_resid_infer.argtypes = fwd_in + [P] * 3 + dims + [P]
     # bh, bx, bv, upd, mask, leaves, leaves_t, strides, resid, dh, dx, dv, 3 outs
     bwd_in = [P] * 5 + [P, P, P] + [P] + [P] * 3 + [P] * 3
-    lib.sake_resid_bwd.argtypes = bwd_in + dims + [P]
-    # ... rows, add_h, add_x, add_v
-    lib.sake_resid_bwd_rows.argtypes = bwd_in + [P] * 4 + dims + [P]
-    # bh, leaves, strides, resid, rows, partial, out, per_chunk
-    lib.sake_param_grads.argtypes = [P] * 7 + [I] + dims + [P]
-    # bh, bx, bv, upd, leaves, strides, resid, tx0, tbh, tbx, tbv, 3 finals, tresid
-    lib.sake_resid_jvp.argtypes = [P] * 15 + dims + [P]
-    # bh, bx, bv, tbh, tbx, tbv, upd, leaves, leaves_t, strides, resid, tresid,
-    # dh, dx, dv, 3 outs, add_h, add_x, add_v, rows, t_rows, scratch
-    lib.sake_resid_tbwd.argtypes = [P] * 24 + dims + [P]
-    # bh, tbh, leaves, strides, resid, tresid, rows, rows_t, t_rows, partial, out,
-    # ro_part, ro_out, ro_len, per_chunk
-    lib.sake_param_grads_aug.argtypes = [P] * 13 + [LL, I] + dims + [P]
-    # readout of the fused kernels: w0, b0, w1, b1, w0t ... F0, O after the dims
-    # h0, xs, upd, leaves, leaves_t, strides, readout, bh, bx, bv, resid, h_fin,
-    # x_fin, v_fin, e, dx
-    lib.sake_fused_primal.argtypes = [P] * 20 + dims + [I, I, P]
-    # h0, xs, upd, mask, leaves, leaves_t, strides, readout, bh, bx, bv, resid, e,
-    # dx, grid
-    lib.sake_one_ef.argtypes = [P] * 18 + [I] + dims + [I, I, P]
-    lib.sake_one_ef_grid.argtypes = dims + [I]
-    # bh, bx, bv, upd, leaves, leaves_t, strides, resid, h_fin, tx0, g_e, readout,
-    # tbh, tbx, tbv, tresid, rows, rows_t, t_rows, scratch, dh0, dx0, ro_part
-    lib.sake_fused_bwd.argtypes = [P] * 27 + dims + [I, I, P]
-    # h0, xs, tx0, upd, leaves, strides, the primal's and the tangent's bh, bx, bv,
-    # h_fin, x_fin, v_fin, resid, tresid
-    lib.sake_aug_fwd.argtypes = [P] * 20 + dims + [P]
-    lib.sake_retrace_fwd.argtypes = [P] * 20 + dims + [P]
-    # layer, bh, bx, bv, tbh, tbx, tbv, upd, leaves, leaves_t, strides, resid, tresid,
-    # rows, rows_t, t_rows, scratch, cp_dh, cp_dx, cp_dv, ct_dh, ct_dx, ct_dv
-    lib.sake_retrace_bwd.argtypes = [I] + [P] * 22 + dims + [P]
-    # layers l0, l1; h_in, x_in, v_in, upd, leaves, strides, bh, bx, bv, pool, h_out,
-    # x_out, v_out
-    lib.sake_remat_fwd.argtypes = [I, I] + [P] * 13 + dims + [P]
-    # layers l_hi, l_lo; bh, bx, bv, upd, leaves, leaves_t, strides, resid, dh_in,
-    # dx_in, dv_in, dh_out, dx_out, dv_out
-    lib.sake_remat_bwd.argtypes = [I, I] + [P] * 14 + dims + [P]
     # the sparse edge kernels: hg, ai, oi, d0, m, w, then ... dims (NR, K, F, R, H,
     # Kh, C), stream
     edims = [I] * 7
-    lib.sake_sparse_fwd.argtypes = [P] * 6 + [P, P] + edims + [P]  # pooled, hatt
-    lib.sake_sparse_bwd.argtypes = [P] * 6 + [P, P] + [P] * 4 + edims + [P]  # gp, gh, 4 outs
-    lib.sake_sparse_bwd_rows.argtypes = [P] * 6 + [P, P] + [P] * 4 + [P] + edims + [P]
-    # ... gp, gh, 4 cotangents, 6 outs, rows, t_rows
-    lib.sake_sparse_bwd2.argtypes = [P] * 6 + [P, P] + [P] * 4 + [P] * 6 + [P, P] + edims + [P]
-    # n_terms, a, na, g, ng, leaf, E, n_chunks, partial, leaf_off, n_leaves, out, stream
-    lib.sake_sparse_contract.argtypes = [I, P, P, P, P, P, LL, I, P, P, I, P, P]
     # the split ops: op, in, w, (g,) out, (rows,) dims (B, N, R, H, Kh, C), stream
     sdims = [I] * 6
-    lib.sake_split_fwd.argtypes = [I, P, P, P] + sdims + [P]
-    lib.sake_split_bwd.argtypes = [I, P, P, P, P, P] + sdims + [P]
-    lib.sake_split_smem_bytes.argtypes = [I, I] + sdims
-    lib.sake_split_smem_bytes.restype = LL
-    for fn in ("sake_resid_fwd", "sake_resid_infer", "sake_resid_bwd", "sake_resid_bwd_rows",
-               "sake_param_grads", "sake_resid_jvp", "sake_resid_tbwd", "sake_param_grads_aug",
-               "sake_fused_primal", "sake_one_ef", "sake_one_ef_grid", "sake_fused_bwd",
-               "sake_sparse_fwd", "sake_sparse_bwd", "sake_sparse_bwd_rows", "sake_sparse_bwd2",
-               "sake_sparse_contract", "sake_aug_fwd", "sake_retrace_fwd", "sake_retrace_bwd",
-               "sake_remat_fwd", "sake_remat_bwd", "sake_split_fwd", "sake_split_bwd"):
-        getattr(lib, fn).restype = I
+    sig = {
+        "sake_resid_fwd": fwd_in + [P] * 6 + [P] + dims + [P],
+        "sake_resid_infer": fwd_in + [P] * 3 + dims + [P],
+        "sake_resid_bwd": bwd_in + dims + [P],
+        # ... rows, add_h, add_x, add_v
+        "sake_resid_bwd_rows": bwd_in + [P] * 4 + dims + [P],
+        # bh, leaves, strides, resid, rows, partial, out, per_chunk
+        "sake_param_grads": [P] * 7 + [I] + dims + [P],
+        # bh, bx, bv, upd, leaves, strides, resid, tx0, tbh, tbx, tbv, 3 finals, tresid
+        "sake_resid_jvp": [P] * 15 + dims + [P],
+        # bh, bx, bv, tbh, tbx, tbv, upd, leaves, leaves_t, strides, resid, tresid,
+        # dh, dx, dv, 3 outs, add_h, add_x, add_v, rows, t_rows, scratch
+        "sake_resid_tbwd": [P] * 24 + dims + [P],
+        # bh, tbh, leaves, strides, resid, tresid, rows, rows_t, t_rows, partial, out,
+        # ro_part, ro_out, ro_len, per_chunk
+        "sake_param_grads_aug": [P] * 13 + [LL, I] + dims + [P],
+        # readout of the fused kernels: w0, b0, w1, b1, w0t ... F0, O after the dims
+        # h0, xs, upd, leaves, leaves_t, strides, readout, bh, bx, bv, resid, h_fin,
+        # x_fin, v_fin, e, dx
+        "sake_fused_primal": [P] * 20 + dims + [I, I, P],
+        # h0, xs, upd, mask, leaves, leaves_t, strides, readout, bh, bx, bv, resid, e,
+        # dx, grid
+        "sake_one_ef": [P] * 18 + [I] + dims + [I, I, P],
+        "sake_one_ef_grid": dims + [I],
+        # bh, bx, bv, upd, leaves, leaves_t, strides, resid, h_fin, tx0, g_e, readout,
+        # tbh, tbx, tbv, tresid, rows, rows_t, t_rows, scratch, dh0, dx0, ro_part
+        "sake_fused_bwd": [P] * 27 + dims + [I, I, P],
+        # h0, xs, tx0, upd, leaves, strides, the primal's and the tangent's bh, bx, bv,
+        # h_fin, x_fin, v_fin, resid, tresid
+        "sake_aug_fwd": [P] * 20 + dims + [P],
+        "sake_retrace_fwd": [P] * 20 + dims + [P],
+        # layer, bh, bx, bv, tbh, tbx, tbv, upd, leaves, leaves_t, strides, resid, tresid,
+        # rows, rows_t, t_rows, scratch, cp_dh, cp_dx, cp_dv, ct_dh, ct_dx, ct_dv
+        "sake_retrace_bwd": [I] + [P] * 22 + dims + [P],
+        # layers l0, l1; h_in, x_in, v_in, upd, leaves, strides, bh, bx, bv, pool, h_out,
+        # x_out, v_out
+        "sake_remat_fwd": [I, I] + [P] * 13 + dims + [P],
+        # layers l_hi, l_lo; bh, bx, bv, upd, leaves, leaves_t, strides, resid, dh_in,
+        # dx_in, dv_in, dh_out, dx_out, dv_out
+        "sake_remat_bwd": [I, I] + [P] * 14 + dims + [P],
+        # #20: bf16; h, x, upd, leaves, leaves_t, strides, w_emb, b_emb, readout (w0, b0,
+        # w1, b1, w0t), bh, bx, bv, resid, e, f; grid; dims; F_in, F0, O
+        "sake_fused_remat_ef": [I] + [P] * 19 + [I] + dims + [I, I, I, P],
+        "sake_fused_remat_ef_grid": [I] + dims + [I, I],  # ..., F_in, F0
+        "sake_sparse_fwd": [P] * 6 + [P, P] + edims + [P],  # pooled, hatt
+        "sake_sparse_bwd": [P] * 6 + [P, P] + [P] * 4 + edims + [P],  # gp, gh, 4 outs
+        "sake_sparse_bwd_rows": [P] * 6 + [P, P] + [P] * 4 + [P] + edims + [P],
+        # ... gp, gh, 4 cotangents, 6 outs, rows, t_rows
+        "sake_sparse_bwd2": [P] * 6 + [P, P] + [P] * 4 + [P] * 6 + [P, P] + edims + [P],
+        # n_terms, a, na, g, ng, leaf, E, n_chunks, partial, leaf_off, n_leaves, out, stream
+        "sake_sparse_contract": [I, P, P, P, P, P, LL, I, P, P, I, P, P],
+        "sake_split_fwd": [I, P, P, P] + sdims + [P],
+        "sake_split_bwd": [I, P, P, P, P, P] + sdims + [P],
+    }
+    out = {name: (args, I) for name, args in sig.items()}
     for fn in ("sake_resid_fwd_smem_bytes", "sake_resid_bwd_smem_bytes",
                "sake_resid_jvp_smem_bytes", "sake_resid_tbwd_smem_bytes",
                "sake_aug_fwd_smem_bytes", "sake_retrace_bwd_smem_bytes",
                "sake_remat_fwd_smem_bytes", "sake_remat_bwd_smem_bytes"):
-        getattr(lib, fn).argtypes = dims
-        getattr(lib, fn).restype = LL
+        out[fn] = (dims, LL)
     for fn in ("sake_fused_ef_smem_bytes", "sake_fused_bwd_smem_bytes"):  # ..., F0
-        getattr(lib, fn).argtypes = dims + [I]
-        getattr(lib, fn).restype = LL
-    lib.sake_error_string.argtypes = [I]
-    lib.sake_error_string.restype = ctypes.c_char_p
-    _lib = lib
+        out[fn] = (dims + [I], LL)
+    out["sake_fused_remat_ef_smem_bytes"] = (dims + [I, I], LL)
+    out["sake_split_smem_bytes"] = ([I, I] + sdims, LL)
+    out["sake_error_string"] = ([I], ctypes.c_char_p)
+    return out
+
+
+def declare(lib, names=None):
+    """Declare the argument and result types of ``names`` (every entry when
+    None) on a loaded library; returns it."""
+    for name, (args, res) in signatures().items():
+        if names is None or name in names:
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = args, res
     return lib
+
+
+def load():
+    """The loaded library, with argument types declared for every entry."""
+    global _lib
+    if _lib is None:
+        _lib = declare(ctypes.CDLL(str(build())))
+    return _lib
 
 
 def check(lib, err: int, what: str) -> None:

@@ -4,7 +4,8 @@ task and a config preset.
 Port of ``sake_tpu/tasks/registry.py``: ``get_workload``, ``list_workloads``,
 ``parse_overrides`` and ``main``, with the same entries. An entry whose task
 module is not ported yet raises ``NotImplementedError`` when it is built,
-naming the ROADMAP item that ports it; an unknown name raises ``KeyError``.
+naming the ROADMAP item that ports it by its title; an unknown name raises
+``KeyError``.
 
 Usage::
 
@@ -20,11 +21,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Dict, Tuple
 
-# task modules of the JAX package the port does not have yet, and the
-# ROADMAP Queue 1 item that ports each
+# task modules of the JAX package the port does not have yet, and the title
+# of the ROADMAP Queue 1 item that ports each
+_TASKS_ITEM = "The remaining first-order and dynamics tasks"
 _NOT_PORTED = {
-    "nbody": 11, "forecast": 11, "iso17": 11, "ani": 11, "ablation": 11,
-    "oc20": 11, "flows": 12, "sweep": 16,
+    "nbody": _TASKS_ITEM, "forecast": _TASKS_ITEM, "iso17": _TASKS_ITEM, "ani": _TASKS_ITEM,
+    "oc20": _TASKS_ITEM, "ablation": "EGNN, then tasks/ablation.py",
+    "flows": "flows.py and tasks/flows.py", "sweep": "The tooling",
 }
 
 
@@ -34,8 +37,8 @@ def _lazy(module: str, fn: str, cfg_cls: str, **overrides):
 
         if module in _NOT_PORTED:
             raise NotImplementedError(
-                f"sake_tpu_torch.tasks.{module} is not ported yet (ROADMAP Queue 1 item "
-                f"{_NOT_PORTED[module]})")
+                f"sake_tpu_torch.tasks.{module} is not ported yet (ROADMAP Queue 1, "
+                f"\"{_NOT_PORTED[module]}\")")
         mod = importlib.import_module(f"sake_tpu_torch.tasks.{module}")
         cfg = getattr(mod, cfg_cls)(**overrides)
         return getattr(mod, fn), cfg
@@ -123,7 +126,7 @@ def parse_overrides(tokens):
 def main(argv=None):
     """``python -m sake_tpu_torch.tasks.registry <workload> [key=value ...]``;
     no workload prints the registry. The JAX package's ``sweep`` subcommand
-    is not ported yet (ROADMAP Queue 1 item 16)."""
+    is not ported yet (ROADMAP Queue 1, "The tooling")."""
     import sys
 
     argv = sys.argv[1:] if argv is None else argv
@@ -134,8 +137,8 @@ def main(argv=None):
             print(f"  {n}")
         return
     if argv[0] == "sweep":
-        raise NotImplementedError("the sweep subcommand is not ported yet (ROADMAP Queue 1 "
-                                  "item 16)")
+        raise NotImplementedError("the sweep subcommand is not ported yet (ROADMAP Queue 1, "
+                                  f"\"{_NOT_PORTED['sweep']}\")")
     run, cfg = get_workload(argv[0], **parse_overrides(argv[1:]))
     print(f"running {argv[0]} with {cfg}")
     run(cfg)

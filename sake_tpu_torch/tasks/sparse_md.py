@@ -17,8 +17,8 @@ not depend on them. Differences from the JAX task:
   chip, ``:110-112``; the bf16 tier is queued in ROADMAP);
 - ``compile_s`` is the time of the first rollout, which builds the kernels
   on first use; the reported rate is the second rollout's, as in JAX;
-- ``checkpoint_dir`` raises: checkpoints are not ported (ROADMAP Queue 1
-  item 6); ``kernel_block_rows`` and ``kernel_interpret`` only shape the
+- ``checkpoint_dir`` raises: checkpoints are not ported (ROADMAP Queue 1,
+  "Checkpoints"); ``kernel_block_rows`` and ``kernel_interpret`` only shape the
   TPU kernels and are ignored.
 """
 
@@ -110,7 +110,7 @@ def run(cfg: SparseMDConfig, logger: Optional[MetricLogger] = None, *, device=No
     the CUDA card."""
     if cfg.checkpoint_dir is not None:
         raise NotImplementedError("sparse_md.run: checkpoints are not ported yet (ROADMAP "
-                                  "Queue 1 item 6)")
+                                  "Queue 1, \"Checkpoints\")")
     device = resolve_device(device)
     logger = logger or MetricLogger()
     h, x, v0, box = _synthesize_box(cfg, device)

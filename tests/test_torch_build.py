@@ -1,5 +1,7 @@
 """The CUDA build of the port: what can be checked without ``nvcc``."""
 
+import re
+
 import pytest
 
 from sake_tpu_torch.kernels import build, resid_ef
@@ -43,3 +45,16 @@ def test_kernel_tables_match_the_python_order():
     assert [r.removeprefix("RS_") for r in enum("Resid")] == [n.upper() for n in resid_ef.RESIDS]
     assert [r.removeprefix("RW_") for r in enum("Row")] == [n.upper() for n in resid_ef.ROWS]
     assert f"kRows = {len(resid_ef.ROWS)};" in src
+
+
+def test_declared_signatures_match_the_c_entries():
+    """``build.signatures`` (the ctypes table ``load`` and the CPU emulator
+    share) names every ``extern "C"`` entry of the sources, with its arity."""
+    entries = {}
+    for p in build._sources():
+        for m in re.finditer(r'extern "C"\s+[\w\s*]+?\b(sake_\w+)\s*\(([^)]*)\)\s*\{',
+                             p.read_text()):
+            entries[m.group(1)] = len([a for a in m.group(2).split(",") if a.strip()])
+    sig = build.signatures()
+    assert "sake_fused_remat_ef" in entries and set(entries) == set(sig)
+    assert {n: len(sig[n][0]) for n in sig} == entries

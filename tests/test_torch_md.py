@@ -218,7 +218,7 @@ def test_sparse_md_kernel_matches_plain_and_rejects_checkpoints():
     (xp, _, ep), _ = run(SparseMDConfig(**TINY_MD), _Log(), device="cpu")
     np.testing.assert_allclose(xk.numpy(), xp.numpy(), **X_TOL)
     np.testing.assert_allclose(ek, ep, **E_TOL)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match='Queue 1, "Checkpoints"'):
         run(SparseMDConfig(**TINY_MD, checkpoint_dir="/nonexistent"), _Log(), device="cpu")
 
 

@@ -230,9 +230,10 @@ def test_registry_lists_jax_and_rejects_the_rest():
     from sake_tpu_torch.tasks import registry
 
     assert registry.list_workloads() == jax_list()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(NotImplementedError,
+                       match='Queue 1, "The remaining first-order and dynamics tasks"'):
         registry.get_workload("oc20_sparse_kernel")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    with pytest.raises(NotImplementedError, match='Queue 1, "flows.py and tasks/flows.py"'):
         registry.get_workload("dw4")
     with pytest.raises(KeyError):
         registry.get_workload("md18")

@@ -141,13 +141,12 @@ def test_unknown_primal_raises():
 
 
 def test_kernel_exports_match_jax():
-    """``sake_tpu_torch.kernels`` exports every name of the JAX
-    ``sake_tpu.kernels.__all__`` but ``fused_energy_forces`` (its kernel, #20,
-    waits for the bf16 tier)."""
+    """``sake_tpu_torch.kernels`` exports the JAX ``sake_tpu.kernels.__all__``,
+    every name in its order."""
     import sake_tpu.kernels as jax_kernels
     import sake_tpu_torch.kernels as kernels
 
-    assert set(kernels.__all__) == set(jax_kernels.__all__) - {"fused_energy_forces"}
+    assert kernels.__all__ == jax_kernels.__all__
     for name in kernels.__all__:
         assert callable(getattr(kernels, name)), name
 
