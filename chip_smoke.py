@@ -7,8 +7,8 @@ Phases (each prints its own lines; any failure exits non-zero):
 1. device: requires CUDA (no CPU fallback); prints the card's name and
    power limit as nvidia-smi reports them. TF32 is off for matmuls and cuDNN.
 2. build: compiles ``sake_tpu_torch/csrc/*.cu`` with nvcc (one process per
-   source, in parallel) and prints the build time and ptxas's register
-   and spill lines.
+   source, in parallel; #11's and #12's sources a second time with the clock
+   probe) and prints the build time and ptxas's register and spill lines.
 3. kernels vs plain, MD17: at full width (hidden 64, C 256, R 50, 4 heads),
    aspirin's N = 21 and B = 37, K1 against ``resid_fwd_plain`` (boundary
    states and all 17 residuals), K2 against ``resid_bwd_plain`` (dh, dx,
@@ -81,7 +81,12 @@ Phases (each prints its own lines; any failure exits non-zero):
    Then the train step of the plain branch and the four kernel modes at B =
    4 and B = 512 in turns (every run printed), a BREAKDOWN of each kernel
    mode's step, and each kernel timed at both batches beside its plain
-   version and its bound.
+   version and its bound (#11's and #12's block's 3xTF32 products at 3 passes over
+   the 495 TFLOP/s TF32 tensor-core peak, their other products at the f32
+   peak). Then one launch each of #11 and #12's block at both batches on a
+   build with the clock probe (``tools/probe_fused.py``, ``-DSAKE_PROBE``,
+   built beside the library in phase 2): each phase's share of the block's
+   cycles (PROBE lines).
 
 11. Sparse edge kernels vs plain, MD: ``SparseMDConfig()``'s box (4096
    atoms, hidden 64, depth 6, 4 heads, cutoff 5 + skin 0.5, K = 64) and its
@@ -192,10 +197,12 @@ last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -239,6 +246,19 @@ ATOM_MASS = {1: 1.008, 6: 12.011, 8: 15.999}  # u, by atomic number (aspirin: H,
 # H100 SXM peaks (NVIDIA's data sheet): f32 outside the tensor cores, HBM3, and
 # the dense bf16 tensor-core rate (#20's bf16 products are bf16 operations)
 PEAK_F32_FLOPS, PEAK_BYTES, PEAK_BF16_FLOPS = 67e12, 3.35e12, 989e12
+# the dense TF32 tensor-core rate: #11's and #12's 3xTF32 products take 3 passes
+PEAK_TF32_FLOPS, TF32_PASSES = 495e12, 3
+PROBE_LIB = None  # the clock-probe build of #11 and #12 (tools/probe_fused.py), set by main
+
+
+def probe_module():
+    """``tools/probe_fused.py`` (the clock probe of #11 and #12)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "probe_fused", os.path.join(here, "tools", "probe_fused.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def fail(msg: str):
@@ -307,17 +327,28 @@ def layer_fma(N, F, H, R, K, C):
     return dict(fwd=fwd, bwd=bwd, grads=grads, jvp=jvp, tbwd=2 * bwd, grads_aug=2 * grads)
 
 
-def bound(fma: float, moved: int, peak: float = PEAK_F32_FLOPS):
+def tc_fma(N, H, R, K, C):
+    """Of ``layer_fma``'s multiply-adds, those #11 and #12's block run on the
+    tensor cores in 3xTF32 (``csrc/mma_tf32x3.cuh``): the x-mixing product and
+    the edge products o_f and o1 in every body."""
+    E, HK = N * N, H * K
+    fwd = E * (HK * C + R * H + H * H)
+    return dict(fwd=fwd, bwd=fwd, jvp=fwd, tbwd=2 * fwd)
+
+
+def bound(fma: float, moved: int, peak: float = PEAK_F32_FLOPS, tc: float = 0.0):
     """``(bound_ms, bound_by)``: the larger of the operations (2 per
-    multiply-add) over the card's peak for their type (f32 unless given) and
-    the bytes over its memory rate."""
-    t_ops, t_bytes = 2 * fma / peak * 1e3, moved / PEAK_BYTES * 1e3
+    multiply-add) over the card's peak for their type (f32 unless given; the
+    ``tc`` of them that run in 3xTF32 at TF32_PASSES passes over the TF32
+    tensor-core peak) and the bytes over its memory rate."""
+    t_ops = (2 * (fma - tc) / peak + 2 * TF32_PASSES * tc / PEAK_TF32_FLOPS) * 1e3
+    t_bytes = moved / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def kernel_entry(name, source, replaces, launches, max_abs_err, ms, plain_ms, fma, moved,
-                 peak: float = PEAK_F32_FLOPS):
-    bound_ms, bound_by = bound(fma, moved, peak)
+                 peak: float = PEAK_F32_FLOPS, tc: float = 0.0):
+    bound_ms, bound_by = bound(fma, moved, peak, tc)
     return dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
                 max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None)  # no one PyTorch call runs a layer stack
@@ -473,8 +504,24 @@ def main() -> int:
           f"torch={torch.__version__} cuda={torch.version.cuda}", flush=True)
 
     # -- 2. build ---------------------------------------------------------------
+    # beside the library, #11 and #12 with the clock probe compiled in
+    global PROBE_LIB
     t0 = time.perf_counter()
+    probe_box = {}
+
+    def build_probe():
+        try:
+            probe_box["path"] = probe_module().build_probe()
+        except Exception as e:  # re-raised below, in this thread
+            probe_box["error"] = e
+
+    worker = threading.Thread(target=build_probe)
+    worker.start()
     lib_path = build.build()
+    worker.join()
+    if "error" in probe_box:
+        raise probe_box["error"]
+    PROBE_LIB = probe_box["path"]
     build.load()
     print(f"BUILD ok {time.perf_counter() - t0:.2f} s -> {lib_path.parent.name}", flush=True)
     for line in (lib_path.parent / "ptxas.txt").read_text().splitlines():
@@ -1455,13 +1502,23 @@ def md17_train_phases(dev, smi) -> list:
                    aug_bwd=fma["tbwd"] + fma["bwd"] + fma["grads_aug"],
                    retrace_bwd=fma["fwd"] + fma["jvp"] + fma["tbwd"] + fma["bwd"]
                    + fma["grads_aug"])
-        print(f"MD17 BOUNDS at B={B} (ms, by): " + json.dumps(
-            {k: [round(bound(ops[k], moved[k])[0], 4), bound(ops[k], moved[k])[1]] for k in t}),
-            flush=True)
-        entries[B] = (t, ops, moved)
+        tcf = {k: v * B * depth for k, v in tc_fma(N, F, 50, cfg.n_heads, 256).items()}
+        tc = dict(fused_primal=tcf["fwd"] + tcf["bwd"],
+                  fused_bwd_block=tcf["jvp"] + tcf["tbwd"] + tcf["bwd"])
+        print(f"MD17 BOUNDS at B={B} (ms, by; #11 and #12 with their 3xTF32 products at "
+              f"{TF32_PASSES} passes over {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s): " + json.dumps(
+                  {k: [round(bound(ops[k], moved[k], tc=tc.get(k, 0))[0], 4),
+                       bound(ops[k], moved[k], tc=tc.get(k, 0))[1]] for k in t}), flush=True)
+        entries[B] = (t, ops, moved, tc)
         del h0, xs, zs
 
-    t, ops, moved = entries[max(TRAIN_BATCHES)]  # the entries carry B = 512
+    # where the block time of #11 and #12 goes, at both batches (the probe build)
+    mod = probe_module()
+    plib = mod.load(PROBE_LIB)
+    for B in TRAIN_BATCHES:
+        mod.probe(branches["fused"]["params"], cfg, data, species, dev, B, plib, smi)
+
+    t, ops, moved, tc = entries[max(TRAIN_BATCHES)]  # the entries carry B = 512
     src = "sake_tpu_torch/csrc/"
     at = "sake_tpu/kernels/train2_ef.py:"
     where = dict(shared_fwd=("resid_fwd.cu", "1030"), shared_bwd=("resid_bwd.cu", "1110"),
@@ -1474,7 +1531,8 @@ def md17_train_phases(dev, smi) -> list:
     errs = dict(abs_train, fused_bwd_block=abs_train["fused_bwd"],
                 fused_bwd_grads=abs_train["fused_bwd"])
     return [kernel_entry(name, src + where[name][0], at + where[name][1], launches[name],
-                         errs[name], *t[name], ops[name], moved[name]) for name in t]
+                         errs[name], *t[name], ops[name], moved[name], tc=tc.get(name, 0))
+            for name in t]
 
 
 def sparse_fma(F, R, H, Kh, C):

@@ -42,9 +42,10 @@ __host__ __device__ inline long long carry_floats(const Dims& d) {
   return cv.off;
 }
 
-// Floats of the work region the two bodies share.
+// Floats of the work region the two bodies share (kTc: their kTc carves).
+template <bool kTc = false>
 __host__ __device__ inline long long aug_pullback_floats(const Dims& d) {
-  const long long tb = tb_smem_floats(d), bw = bwd_smem_floats(d);
+  const long long tb = tb_smem_floats<kTc>(d), bw = bwd_smem_floats<kTc>(d);
   return tb > bw ? tb : bw;
 }
 
@@ -52,30 +53,34 @@ __host__ __device__ inline long long aug_pullback_floats(const Dims& d) {
 // reads the primal and tangent boundary states and residuals (bh ... tbv,
 // RS, TR) at slot b, layer l; writes the primal chain's rows (RW), the
 // tangent chain's rows (TRW) and their tangents (TTW) there. gscratch: this
-// molecule's 2N * (H*K + C) floats of device memory.
+// molecule's 2N * (H*K + C) floats of device memory. kTc: both bodies' x-mixing
+// and edge products on the tensor cores (mma_tf32x3.cuh; ring: tc_ring_floats
+// of shared memory outside work).
+template <bool kTc = false>
 __device__ __forceinline__ void aug_pullback_layer(
     const Dims& d, const Carry& P, float* work, int b, int l, float u, const Leaves& L,
     const Leaves& LT, const float* __restrict__ bh, const float* __restrict__ bx,
     const float* __restrict__ bv, const float* __restrict__ tbh, const float* __restrict__ tbx,
     const float* __restrict__ tbv, const Resids& RS, const Resids& TR, const Rows& RW,
-    const Rows& TRW, const Rows& TTW, float* gscratch) {
+    const Rows& TRW, const Rows& TTW, float* gscratch, float* ring = nullptr) {
   const int N = d.N, F = d.F, tid = threadIdx.x, nt = blockDim.x;
   Carver ct{work};
-  TbSmem ST = carve_tb(ct, d);
+  TbSmem ST = carve_tb<kTc>(ct, d);
   ST.sdh = P.ct_dh;
   ST.sdx = P.ct_dx;
   ST.sdv = P.ct_dv;
   ST.sdxs = P.ct_dxs;
   ST.sdxr = P.ct_dxr;
   ST.sdvo = P.ct_dvo;
-  tbwd_layer(d, ST, b, l, u, L, LT, bh, bx, bv, tbh, tbx, tbv, RS, TR, TRW, TTW, gscratch,
-             nullptr, nullptr, nullptr);
+  tbwd_layer<kTc>(d, ST, b, l, u, L, LT, bh, bx, bv, tbh, tbx, tbv, RS, TR, TRW, TTW, gscratch,
+                  nullptr, nullptr, nullptr, ring);
   Carver cb{work};
-  BwdSmem SB = carve_bwd(cb, d);
+  BwdSmem SB = carve_bwd<kTc>(cb, d);
   SB.sdh = P.cp_dh;
   SB.sdx = P.cp_dx;
   SB.sdv = P.cp_dv;
-  bwd_layer<true>(d, SB, b, l, u, nullptr, L, LT, bh, bx, bv, RS, RW, nullptr, nullptr, nullptr);
+  bwd_layer<true, false, kTc>(d, SB, b, l, u, nullptr, L, LT, bh, bx, bv, RS, RW, nullptr,
+                              nullptr, nullptr, ring);
   // the layer's Hessian terms, the tangents the tangent pullback left
   for (int e = tid; e < N * F; e += nt) P.cp_dh[e] += P.ct_dh[N * F + e];
   for (int e = tid; e < 3 * N; e += nt) {
@@ -83,6 +88,7 @@ __device__ __forceinline__ void aug_pullback_layer(
     P.cp_dv[e] += P.ct_dvo[3 * N + e];
   }
   __syncthreads();
+  SAKE_PROBE(PR_OTHER);
 }
 
 }  // namespace sake

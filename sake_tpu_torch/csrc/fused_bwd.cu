@@ -33,10 +33,21 @@
 // terms' round trip through device memory, and the tangent chain's rows
 // reaching the primal chain through a second pass.
 //
-// What bounds it on an H100: as the three bodies, f32 FMA issue and per-row
-// synchronisation, one block of 512 threads per SM. The tangent forward's
-// body, compiled for 256 threads in resid_jvp.cu (216 registers), gets 128
-// registers here.
+// What bounds it on an H100, and the redesign of #12: the clock probe
+// (tools/probe_fused.py) put the four x-mixing sites at 36% of the block's
+// cycles and the edge products at 27%. All three bodies run here in their
+// kTc instantiation: the x-mixing products (the tangent forward's, the
+// tangent pullback's 2N rows as two products of N, the primal chain's) and
+// the edge products o_f and o1 on the tensor cores in 3xTF32
+// (mma_tf32x3.cuh), w_xmix through a per-warp cp.async ring. What bounds it
+// now: the mma.sync TF32 rate, the tangent pullback's row work on dual
+// numbers, and 128 registers with spills (one block of 512 threads per SM;
+// the tangent forward's body, compiled for 256 threads in resid_jvp.cu with
+// 216 registers, gets 128 here). The shared memory is nearly full (the ring
+// takes two k-steps, 16 KB: 222,480 of 232,448 bytes at aspirin's widths).
+// The contraction keeps param_grads.cu's CUDA-core tiles: a 3xTF32 w_xmix
+// tile there did not shorten it, since what bounds that launch is forming
+// its operands from the rows, element by element, for every output tile.
 
 #include "aug_pullback.cuh"
 #include "readout_head.cuh"
@@ -47,13 +58,17 @@ namespace {
 
 constexpr int kFusedThreads = 512;
 
+// The x-mixing and edge products of all three bodies run on the tensor cores
+// (mma_tf32x3.cuh): their W ring first, then the carry and the bodies' kTc
+// carves.
 __host__ __device__ inline long long fused_bwd_smem_floats(const Dims& d, int F0) {
   Carver cv{nullptr};
+  cv.take(tc_ring_floats(d));
   carve_carry(cv, d);
   Carver head{nullptr};
   head.take((long long)d.N * d.F);  // h_fin
-  long long work = jvp_smem_floats(d) + head.off + train_head_floats(d.N, F0);
-  work = work > aug_pullback_floats(d) ? work : aug_pullback_floats(d);
+  long long work = jvp_smem_floats<true>(d) + head.off + train_head_floats(d.N, F0);
+  work = work > aug_pullback_floats<true>(d) ? work : aug_pullback_floats<true>(d);
   return cv.off + work;
 }
 
@@ -69,37 +84,43 @@ fused_bwd_kernel(Dims d, const float* __restrict__ bh, const float* __restrict__
   const int B = d.B, N = d.N, F = d.F, HK = d.H * d.K, C = d.C;
   const int tid = threadIdx.x, nt = blockDim.x;
   Carver cc{base};
+  float* ring = cc.take(tc_ring_floats(d));
   const Carry P = carve_carry(cc, d);
   float* work = base + cc.off;
   // the tangent pullback's device scratch: this block's d_hatt, d_pool_sq
   float* gscratch = scratch + (size_t)blockIdx.x * 2 * N * (HK + C);
   const long long ro_len = readout_grad_floats(F, ro.F0, ro.O);
+  SAKE_PROBE_START();
 
   for (int m = blockIdx.x; m < B; m += gridDim.x) {
     // phase 1: the tangent forward
     Carver cj{work};
-    const JvpSmem SJ = carve_jvp(cj, d);
+    const JvpSmem SJ = carve_jvp<true>(cj, d);
     jvp_begin(d, SJ, B, m, tx0);
+    SAKE_PROBE(PR_OTHER);
     for (int l = 0; l < d.depth; ++l)
-      jvp_layer(d, SJ, m, l, upd[l], L, bh, bx, bv, RS, tbh, tbx, tbv, TR);
+      jvp_layer<true>(d, SJ, m, l, upd[l], L, bh, bx, bv, RS, tbh, tbx, tbv, TR, ring);
 
     // the seed head: the chains' seeds and this molecule's readout partials
     float* hs = work + cj.off;
     for (int e = tid; e < N * F; e += nt) hs[e] = h_fin[(size_t)m * N * F + e];
     for (int e = tid; e < 3 * N; e += nt) P.ct_dx[e] = P.ct_dv[e] = P.cp_dx[e] = P.cp_dv[e] = 0.f;
     __syncthreads();
+    SAKE_PROBE(PR_OTHER);
     readout_train_head(N, F, ro, g_e[m], hs, SJ.sth, hs + (((long long)N * F + 3) & ~3LL),
                        P.cp_dh, P.ct_dh, ro_part + (size_t)m * ro_len);
+    SAKE_PROBE(PR_HEAD);
 
     // phase 2: both cotangent chains, layer by layer in reverse
     for (int l = d.depth - 1; l >= 0; --l)
-      aug_pullback_layer(d, P, work, m, l, upd[l], L, LT, bh, bx, bv, tbh, tbx, tbv, RS, TR, RW,
-                         TRW, TTW, gscratch);
+      aug_pullback_layer<true>(d, P, work, m, l, upd[l], L, LT, bh, bx, bv, tbh, tbx, tbv, RS,
+                               TR, RW, TRW, TTW, gscratch, ring);
 
     for (int e = tid; e < N * F; e += nt) dh0[(size_t)m * N * F + e] = P.cp_dh[e];
     for (int e = tid; e < 3 * N; e += nt)
       dx0[((size_t)(e / N) * B + m) * N + e % N] = P.cp_dx[e];
     __syncthreads();  // the next molecule reuses the shared memory
+    SAKE_PROBE(PR_OTHER);
   }
 }
 
@@ -144,4 +165,9 @@ extern "C" int sake_fused_bwd(const float* bh, const float* bx, const float* bv,
       d, bh, bx, bv, upd, L, LT, RS, h_fin, tx0, g_e, ro, tbh, tbx, tbv, TR, RW, TRW, TTW,
       scratch, dh0, dx0, ro_part);
   return (int)cudaGetLastError();
+}
+
+// The clock probe's slots, as sake_fused_ef_probe.
+extern "C" int sake_fused_bwd_probe(unsigned long long* out, int reset) {
+  return sake::probe_read(out, reset);
 }

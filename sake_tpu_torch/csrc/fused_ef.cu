@@ -31,9 +31,20 @@
 // fusion saves is the launches, the torch readout between them, and, for
 // #3, the stream memory of the batch.
 //
-// What bounds it on an H100: as K1 and K2, f32 FMA issue and the per-row
-// synchronisation of one block per molecule; the forward phase runs at one
-// block per SM instead of K1's two.
+// What bounds it on an H100, and the redesign of #11: a clock probe of the
+// block (tools/probe_fused.py, probe.cuh) put the x-mixing product (he_att @
+// w_xmix and its pullback, one receiver row of 21 senders at a time) at 39%
+// of the block's cycles and the edge products o_f, o1 and sem at 27%; the
+// CUDA-core tiling ran the x-mixing on 192 or 384 of the 512 threads and
+// K1's products of 64 columns on 48. In #11 (kTc) both run on the tensor
+// cores in 3xTF32 (mma_tf32x3.cuh): the x-mixing as W^T A^T, so the 21 rows
+// pad to three n8 tiles, with w_xmix streamed through a per-warp cp.async
+// ring, and the edge products one (m16, n8) tile per warp. What bounds it now:
+// the mma.sync TF32 rate (about 18 cycles per m16n8k8 per SM sub-partition
+// on an H100, so three passes cost as much as the CUDA cores' FMAs did for
+// the padded tile) and the row loop's other work (the staging of the saved
+// row, the softmax, the elementwise passes between 20-odd block barriers a
+// row). #3 (kScratch) keeps the CUDA-core products.
 
 #include "readout_head.cuh"
 #include "resid_bwd.cuh"
@@ -44,36 +55,48 @@ namespace {
 
 constexpr int kFusedThreads = 512;
 
+// kTc: #11's, the W ring of the tensor-core products ahead of the bodies'
+// kTc carves.
+template <bool kTc>
 __host__ __device__ inline long long fused_ef_smem_floats(const Dims& d, int F0) {
-  const long long f = fwd_smem_floats(d) + seed_head_floats(d.N, F0);
-  const long long b = bwd_smem_floats(d);
-  return f > b ? f : b;
+  const long long f = fwd_smem_floats<kTc>(d) + seed_head_floats(d.N, F0);
+  const long long b = bwd_smem_floats<kTc>(d);
+  return (f > b ? f : b) + (kTc ? tc_ring_floats(d) : 0);
 }
 
 // d.B: the batch; slots: the molecules the streams hold (d.B for the fused
-// primal, the grid for one_ef's per-block scratch).
+// primal, the grid for one_ef's per-block scratch). The fused primal (#11)
+// runs its x-mixing products on the tensor cores (kTc); one_ef (#3) does not.
 template <bool kScratch>
 __global__ void __launch_bounds__(kFusedThreads, 1)
 fused_ef_kernel(Dims d, int slots, const float* __restrict__ h0, const float* __restrict__ xs,
                 const float* __restrict__ upd, const float* __restrict__ mask, Leaves L,
                 Leaves LT, Readout ro, float* bh, float* bx, float* bv, Resids RS,
                 float* h_fin, float* x_fin, float* v_fin, float* e_out, float* dx_out) {
+  constexpr bool kTc = !kScratch;
   extern __shared__ float4 smem4[];
   float* base = reinterpret_cast<float*>(smem4);
+  float* ring = nullptr;  // kTc: the W ring of the tensor-core products
+  if constexpr (kTc) {
+    ring = base;
+    base += tc_ring_floats(d);
+  }
   const int B = d.B, N = d.N, F = d.F;
   const int tid = threadIdx.x, nt = blockDim.x;
   Dims ds = d;  // the streams' layout
   ds.B = slots;
+  SAKE_PROBE_START();
   for (int m = blockIdx.x; m < B; m += gridDim.x) {
     const int slot = kScratch ? (int)blockIdx.x : m;
     const float* mb = mask ? mask + (size_t)m * N * N : nullptr;  // this molecule's (N, N)
 
     // forward over depth
     Carver cf{base};
-    const FwdSmem SF = carve_fwd(cf, d);
+    const FwdSmem SF = carve_fwd<kTc>(cf, d);
     fwd_begin(d, SF, B, m, h0, xs, nullptr, mb);
+    SAKE_PROBE(PR_OTHER);
     for (int l = 0; l < d.depth; ++l)
-      fwd_layer<true, true>(ds, SF, slot, l, upd[l], mb, L, bh, bx, bv, RS);
+      fwd_layer<true, true, false, kTc>(ds, SF, slot, l, upd[l], mb, L, bh, bx, bv, RS, ring);
     if constexpr (!kScratch) {
       for (int e = tid; e < N * F; e += nt) h_fin[(size_t)m * N * F + e] = SF.sh[e];
       for (int e = tid; e < 3 * N; e += nt) {
@@ -86,19 +109,21 @@ fused_ef_kernel(Dims d, int slots, const float* __restrict__ h0, const float* __
     // the readout head: e, and the seed dh_fin into the pullback's dh
     // (which aliases the forward's h: the head reads h before it writes dh)
     Carver cb{base};
-    const BwdSmem SB = carve_bwd(cb, d);
+    const BwdSmem SB = carve_bwd<kTc>(cb, d);
     readout_seed_head(N, F, ro, SF.sh, mb, base + cf.off, SB.sdh, e_out + m);
     for (int e = tid; e < 3 * N; e += nt) SB.sdx[e] = SB.sdv[e] = 0.f;
     sender_counts(mb, N, SB.scnt);
     __syncthreads();
+    SAKE_PROBE(PR_HEAD);
 
     // pullback over depth: dx
     for (int l = d.depth - 1; l >= 0; --l)
-      bwd_layer<false>(ds, SB, slot, l, upd[l], mb, L, LT, bh, bx, bv, RS, Rows{}, nullptr,
-                       nullptr, nullptr);
+      bwd_layer<false, false, kTc>(ds, SB, slot, l, upd[l], mb, L, LT, bh, bx, bv, RS, Rows{},
+                                   nullptr, nullptr, nullptr, ring);
     for (int e = tid; e < 3 * N; e += nt)
       dx_out[((size_t)(e / N) * B + m) * N + e % N] = SB.sdx[e];
     __syncthreads();  // the next molecule reuses the shared memory
+    SAKE_PROBE(PR_OTHER);
   }
 }
 
@@ -112,7 +137,7 @@ void tables(const void* const* leaf_ptrs, const void* const* leaf_t_ptrs,
 
 template <bool kScratch>
 cudaError_t set_smem(const Dims& d, int F0, size_t* smem) {
-  *smem = fused_ef_smem_floats(d, F0) * sizeof(float);
+  *smem = fused_ef_smem_floats<!kScratch>(d, F0) * sizeof(float);
   return cudaFuncSetAttribute(fused_ef_kernel<kScratch>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
 }
@@ -139,7 +164,8 @@ int launch(const Dims& d, int grid, const float* h0, const float* xs, const floa
 
 extern "C" long long sake_fused_ef_smem_bytes(int B, int N, int F, int H, int R, int K, int C,
                                               int depth, int F0) {
-  return sake::fused_ef_smem_floats(sake::Dims{B, N, F, H, R, K, C, depth}, F0) *
+  // #11's (tc): at least #3's
+  return sake::fused_ef_smem_floats<true>(sake::Dims{B, N, F, H, R, K, C, depth}, F0) *
          (long long)sizeof(float);
 }
 
@@ -161,6 +187,12 @@ extern "C" int sake_fused_primal(const float* h0, const float* xs, const float* 
   return launch<false>(Dims{B, N, F, H, R, K, C, depth}, B, h0, xs, upd, nullptr, leaf_ptrs,
                        leaf_t_ptrs, leaf_strides, Readout{w0, b0, w1, b1, w0t, F0, O}, bh, bx,
                        bv, resid_ptrs, h_fin, x_fin, v_fin, e_out, dx_out, stream);
+}
+
+// The clock probe's slots (probe.cuh), block cycles summed over this source's
+// launches since the last reset; an error unless built with -DSAKE_PROBE.
+extern "C" int sake_fused_ef_probe(unsigned long long* out, int reset) {
+  return sake::probe_read(out, reset);
 }
 
 // #3's grid: as many blocks as the card holds at once, at most B.

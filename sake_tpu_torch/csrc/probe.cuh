@@ -1,0 +1,66 @@
+// A clock64() probe of where a block's time goes, per phase and per product
+// site of the layer bodies. Compiled in only with -DSAKE_PROBE (tools/
+// probe_fused.py builds #11 and #12 so); otherwise every mark is empty and
+// the bodies compile without it. Thread 0 reads the SM's clock right after a
+// block barrier and charges the cycles since its previous mark to a slot, so
+// a slot holds block cycles summed over every block of a launch.
+#pragma once
+
+namespace sake {
+
+// Per body: before the row loop (PRE), the row loop's x-mixing product (XMIX),
+// its edge products e0 / o_f, o1 and sem (MM), its staging of the saved row
+// (LOAD), the rest of the row (ROW), and the node phase after it (NODE).
+enum ProbeSlot {
+  PR_FWD_PRE, PR_FWD_ROW, PR_FWD_XMIX, PR_FWD_NODE,  // the forward (K1's body)
+  PR_BWD_PRE, PR_BWD_ROW, PR_BWD_XMIX, PR_BWD_NODE,  // the pullback (K2's body)
+  PR_JVP_PRE, PR_JVP_ROW, PR_JVP_XMIX, PR_JVP_NODE,  // the tangent forward
+  PR_TB_PRE, PR_TB_ROW, PR_TB_XMIX, PR_TB_NODE,      // the tangent pullback
+  PR_HEAD,   // the readout head
+  PR_OTHER,  // the kernels' own loads, stores and Hessian terms
+  PR_FWD_MM, PR_BWD_MM, PR_JVP_MM, PR_TB_MM, PR_BWD_LOAD, PR_TB_LOAD,
+  kProbeSlots
+};
+
+}  // namespace sake
+
+#ifdef SAKE_PROBE
+namespace sake {
+static __device__ unsigned long long g_probe[kProbeSlots];
+__device__ __forceinline__ long long& probe_last() {
+  __shared__ long long t;
+  return t;
+}
+}  // namespace sake
+#define SAKE_PROBE_START()                                  \
+  do {                                                      \
+    if (threadIdx.x == 0) ::sake::probe_last() = clock64(); \
+  } while (0)
+#define SAKE_PROBE(slot)                                                      \
+  do {                                                                        \
+    if (threadIdx.x == 0) {                                                   \
+      const long long t_ = clock64();                                         \
+      atomicAdd(&::sake::g_probe[slot],                                       \
+                (unsigned long long)(t_ - ::sake::probe_last()));             \
+      ::sake::probe_last() = t_;                                              \
+    }                                                                         \
+  } while (0)
+namespace sake {
+// Copies this source's slots to the host, and zeroes them when reset.
+static inline int probe_read(unsigned long long* out, int reset) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_probe, sizeof(g_probe));
+  if (err == cudaSuccess && reset) {
+    static const unsigned long long zero[kProbeSlots] = {};
+    err = cudaMemcpyToSymbol(g_probe, zero, sizeof(zero));
+  }
+  return (int)err;
+}
+}  // namespace sake
+#else
+#define SAKE_PROBE_START() ((void)0)
+#define SAKE_PROBE(slot) ((void)0)
+namespace sake {
+// Without the probe there is nothing to read.
+static inline int probe_read(unsigned long long*, int) { return (int)cudaErrorNotSupported; }
+}  // namespace sake
+#endif

@@ -4,9 +4,11 @@
 // the fused primal (#11) and of one_ef (#3), fused_bwd.cu as the primal
 // cotangent chain of the fused training backward (#12). See resid_bwd.cu for
 // the design and what bounds it. Its kBf16 instantiation (fused_remat_ef.cu,
-// #20) pulls back through the bf16 products.
+// #20) pulls back through the bf16 products; its kTc instantiation (#11,
+// #12) runs the x-mixing pullback on the tensor cores (mma_tf32x3.cuh).
 #pragma once
 
+#include "mma_tf32x3.cuh"
 #include "resid_common.cuh"
 
 namespace sake {
@@ -31,6 +33,8 @@ struct BwdSmem {
       *ssem, *sdat, *se0, *srbf, *sdrbf, *sdpre, *scr;
 };
 
+// kTc: the carve of the kTc body (d_xm's rows padded, tc_ld).
+template <bool kTc = false>
 __host__ __device__ inline BwdSmem carve_bwd(Carver& cv, const Dims& d) {
   const long long N = d.N, F = d.F, H = d.H, R = d.R, K = d.K, C = d.C;
   BwdSmem s;
@@ -72,14 +76,20 @@ __host__ __device__ inline BwdSmem carve_bwd(Carver& cv, const Dims& d) {
   s.srbf = cv.take(N * R);
   s.sdrbf = cv.take(N * R);
   s.sdpre = cv.take(N * R);
-  const long long rows = N * C + N * H * K, node = N * (4 * H + F + 1);
-  s.scr = cv.take(rows > node ? rows : node);
+  if constexpr (kTc) {
+    const long long rows = N * tc_ld(d, C) + N * H * K, node = N * (4 * H + F + 1);
+    s.scr = cv.take(rows > node ? rows : node);
+  } else {
+    const long long rows = N * C + N * H * K, node = N * (4 * H + F + 1);
+    s.scr = cv.take(rows > node ? rows : node);
+  }
   return s;
 }
 
+template <bool kTc = false>
 __host__ __device__ inline long long bwd_smem_floats(const Dims& d) {
   Carver cv{nullptr};
-  carve_bwd(cv, d);
+  carve_bwd<kTc>(cv, d);
   return cv.off;
 }
 
@@ -124,8 +134,11 @@ __device__ __forceinline__ void bwd_begin(const Dims& d, const BwdSmem& S, int B
 // w^T), g not rounded, each product's term rounded before it joins a sum.
 // Its x-mixing pullback is the per-head form's: with P = d_xm @ w_xmix^T,
 // d_h_e = sum_k bf16(att_k P_k), d_att_k = P_k . bf16(h_e) (plus the
-// attended sum's terms, f32).
-template <bool kRows, bool kBf16 = false>
+// attended sum's terms, f32). kTc: the x-mixing pullback d_xm @ w_xmix^T and
+// the edge products on the tensor cores in 3xTF32 (S from carve_bwd<true>,
+// ring: tc_ring_floats) where tc_dims allows, the CUDA-core products
+// elsewhere; f32 only. Without kTc every product runs on the CUDA cores.
+template <bool kRows, bool kBf16 = false, bool kTc = false>
 __device__ __forceinline__ void bwd_layer(const Dims& d, const BwdSmem& S, int b, int l,
                                           float u, const float* __restrict__ mb,
                                           const Leaves& L, const Leaves& LT,
@@ -134,13 +147,15 @@ __device__ __forceinline__ void bwd_layer(const Dims& d, const BwdSmem& S, int b
                                           const float* __restrict__ bv, const Resids& RS,
                                           const Rows& RW, const float* __restrict__ add_h,
                                           const float* __restrict__ add_x,
-                                          const float* __restrict__ add_v) {
+                                          const float* __restrict__ add_v, float* ring = nullptr) {
   const int B = d.B, N = d.N, F = d.F, H = d.H, R = d.R, K = d.K, C = d.C;
   const int HK = H * K, NN = N * N;
+  [[maybe_unused]] const int ldc = kTc ? tc_ld(d, C) : C;  // kTc: coeff's, d_xm's row stride
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarp = nt >> 5;
   const float n_eff = (float)N;
   const bool masked = mb != nullptr;
+  static_assert(!(kTc && kBf16), "the tensor-core products are f32's (3xTF32)");
   float *sdh = S.sdh, *sdx = S.sdx, *sdv = S.sdv, *sh = S.sh, *sx = S.sx, *sv = S.sv,
         *saj = S.saj, *sai = S.sai, *sdaj = S.sdaj, *sdai = S.sdai, *sdoj = S.sdoj,
         *sdoi = S.sdoi, *sdhatt = S.sdhatt, *sdpsq = S.sdpsq, *sdvn = S.sdvn,
@@ -149,8 +164,8 @@ __device__ __forceinline__ void bwd_layer(const Dims& d, const BwdSmem& S, int b
         *smk = S.smk, *she = S.she, *sdhe = S.sdhe, *satt = S.satt, *satt2 = S.satt2,
         *sdsum = S.sdsum, *ssem = S.ssem, *sdat = S.sdat, *se0 = S.se0, *srbf = S.srbf,
         *sdrbf = S.sdrbf, *sdpre = S.sdpre, *scr = S.scr;
-  float* scf = scr;               // row: (N, C) coeff -> d_xm
-  float* sdha = scr + N * C;      // row: (N, HK) d_he_att
+  float* scf = scr;               // row: (N, C) coeff -> d_xm (row stride ldc)
+  float* sdha = scr + N * (kTc ? ldc : C);  // row: (N, HK) d_he_att
   float* sdg0 = scr;              // node: (N, H)
   float* sduv = sdg0 + N * H;     // node: (N, F)
   float* sdnp = sduv + N * F;     // node: (N, H)
@@ -284,6 +299,7 @@ __device__ __forceinline__ void bwd_layer(const Dims& d, const BwdSmem& S, int b
     }
   }
   __syncthreads();
+  SAKE_PROBE(PR_BWD_PRE);
 
   for (int i = 0; i < N; ++i) {
     const size_t erow = lb * NN + (size_t)i * N;
@@ -313,19 +329,30 @@ __device__ __forceinline__ void bwd_layer(const Dims& d, const BwdSmem& S, int b
 #pragma unroll
       for (int k = 0; k < 3; ++k) sd[k * N + j] = sx[k * N + j] - sx[k * N + i];
     }
-    load_smem(scf, RS.p[RS_COEFF] + erow * C, N * C);
+    if constexpr (kTc) {
+      if (ldc == C) {
+        load_smem(scf, RS.p[RS_COEFF] + erow * C, N * C);
+      } else {  // row by row into the padded rows, in float4 (C is 256 here)
+        const float4* cf = reinterpret_cast<const float4*>(RS.p[RS_COEFF] + erow * C);
+        for (int e = tid; e < N * C / 4; e += nt)
+          reinterpret_cast<float4*>(scf + (e / (C / 4)) * ldc)[e % (C / 4)] = cf[e];
+      }
+    } else {
+      load_smem(scf, RS.p[RS_COEFF] + erow * C, N * C);
+    }
     load_smem(she, RS.p[RS_H_E] + erow * H, N * H);
     load_smem(se0, RS.p[RS_E0] + erow * H, N * H);
     load_smem(satt, RS.p[RS_ATT] + erow * K, N * K);
     load_smem(ssem, RS.p[RS_SEM_PRE] + erow * K, N * K);
     load_smem(srbf, RS.p[RS_RBF] + erow * R, N * R);
     __syncthreads();
+    SAKE_PROBE(PR_BWD_LOAD);
 
     // pooled_k = sum_j coeff * u_k: d_u_k[j] = coeff[j] . d_pooled_k
     for (int j = warp; j < N; j += nwarp) {
       float du[3] = {0.f, 0.f, 0.f};
       for (int c = lane; c < C; c += 32) {
-        const float cf = scf[j * C + c];
+        const float cf = kTc ? scf[j * ldc + c] : scf[j * C + c];
 #pragma unroll
         for (int k = 0; k < 3; ++k) du[k] += cf * sdp[k * C + c];
       }
@@ -363,9 +390,11 @@ __device__ __forceinline__ void bwd_layer(const Dims& d, const BwdSmem& S, int b
       const float ir = sir[j];
       const float dc = sdp[c] * (sd[j] * ir) + sdp[C + c] * (sd[N + j] * ir) +
                        sdp[2 * C + c] * (sd[2 * N + j] * ir);
-      const float cf = scf[e];
+      float* x = scf + e;
+      if constexpr (kTc) x = scf + j * ldc + c;
+      const float cf = *x;
       const float v = dc * (1.f - cf * cf) * smk[j];
-      scf[e] = v;
+      *x = v;
       if constexpr (kRows) edge_row(RW_DXM, C)[e] = v;
     }
     if constexpr (kRows) {
@@ -378,14 +407,22 @@ __device__ __forceinline__ void bwd_layer(const Dims& d, const BwdSmem& S, int b
       for (int e = tid; e < N * K; e += nt) edge_row(RW_ATT2, K)[e] = satt2[e];
     }
     __syncthreads();
+    SAKE_PROBE(PR_BWD_ROW);
 
     // d_he_att = d_xm @ w_xmix^T + d_hatt[i] (hatt sums he_att over senders);
     // kBf16 keeps the product P alone (see above)
-    mm_bwd(N, C, HK, scf, C, WT(W_XMIX), [&](int r, int c, float a) {
+    auto st_dha = [&](int r, int c, float a) {
       if constexpr (kBf16) sdha[r * HK + c] = a;
       else sdha[r * HK + c] = a + sdhatt[i * HK + c];
-    });
+    };
+    if constexpr (kTc) {
+      if (tc_dims(d)) mm_tc<3>(N, scf, ldc, WT(W_XMIX), ring, st_dha);
+      else mm_bwd(N, C, HK, scf, ldc, WT(W_XMIX), st_dha);
+    } else {
+      mm_bwd(N, C, HK, scf, C, WT(W_XMIX), st_dha);
+    }
     __syncthreads();
+    SAKE_PROBE(PR_BWD_XMIX);
 
     // he_att[j, h*K + k] = h_e[j, h] * att2[j, k]
     for (int e = tid; e < N * H; e += nt) {
@@ -442,18 +479,26 @@ __device__ __forceinline__ void bwd_layer(const Dims& d, const BwdSmem& S, int b
       }
     }
     __syncthreads();
+    SAKE_PROBE(PR_BWD_ROW);
     mm_bwd(N, K, H, sdat, K, WT(W_SEM),
             [&](int r, int c, float a) { sdhe[r * H + c] += rd<kBf16>(a); });
     __syncthreads();
+    SAKE_PROBE(PR_BWD_MM);
 
     // h_e = silu(e0) @ w_o1 + b_o1: d_e0 in place of e0
-    mm_bwd(N, H, H, sdhe, H, WT(W_O1),
-            [&](int r, int c, float a) {
-              se0[r * H + c] = rd<kBf16>(a) * dsiluf_(se0[r * H + c]);
-            });
+    auto st_de0 = [&](int r, int c, float a) {
+      se0[r * H + c] = rd<kBf16>(a) * dsiluf_(se0[r * H + c]);
+    };
+    if constexpr (kTc) {
+      if (tc_dims(d)) mm_tc_small(N, H, H, sdhe, H, WT(W_O1), st_de0);
+      else mm_bwd(N, H, H, sdhe, H, WT(W_O1), st_de0);
+    } else {
+      mm_bwd(N, H, H, sdhe, H, WT(W_O1), st_de0);
+    }
     if constexpr (kRows)
       for (int e = tid; e < N * H; e += nt) edge_row(RW_DHE, H)[e] = sdhe[e];
     __syncthreads();
+    SAKE_PROBE(PR_BWD_MM);
 
     // e0 = o_j[j] + o_i[i] + o_f + r * w_o_r + b_o0
     for (int e = tid; e < N * H; e += nt) {
@@ -472,18 +517,24 @@ __device__ __forceinline__ void bwd_layer(const Dims& d, const BwdSmem& S, int b
       if (lane == 0) sdr[j] += s;
     }
     // o_f = (rbf * pre) @ w_o_f
-    mm_bwd(N, H, R, se0, H, WT(W_O_F),
-            [&](int r, int c, float g) {
-              const float a = rd<kBf16>(g);
-              const float pre = saj[r * R + c] + sai[i * R + c];
-              sdrbf[r * R + c] = a * pre;
-              sdpre[r * R + c] = a * srbf[r * R + c];
-              if constexpr (kRows) {
-                edge_row(RW_DRBF, R)[r * R + c] = a * pre;
-                edge_row(RW_FILT, R)[r * R + c] = srbf[r * R + c] * pre;
-              }
-            });
+    auto st_dfilt = [&](int r, int c, float g) {
+      const float a = rd<kBf16>(g);
+      const float pre = saj[r * R + c] + sai[i * R + c];
+      sdrbf[r * R + c] = a * pre;
+      sdpre[r * R + c] = a * srbf[r * R + c];
+      if constexpr (kRows) {
+        edge_row(RW_DRBF, R)[r * R + c] = a * pre;
+        edge_row(RW_FILT, R)[r * R + c] = srbf[r * R + c] * pre;
+      }
+    };
+    if constexpr (kTc) {
+      if (tc_dims(d)) mm_tc_small(N, H, R, se0, H, WT(W_O_F), st_dfilt);
+      else mm_bwd(N, H, R, se0, H, WT(W_O_F), st_dfilt);
+    } else {
+      mm_bwd(N, H, R, se0, H, WT(W_O_F), st_dfilt);
+    }
     __syncthreads();
+    SAKE_PROBE(PR_BWD_MM);
 
     for (int e = tid; e < N * R; e += nt) sdaj[e] += sdpre[e];
     for (int c = tid; c < R; c += nt) {
@@ -520,6 +571,7 @@ __device__ __forceinline__ void bwd_layer(const Dims& d, const BwdSmem& S, int b
       sdxr[tid * N + i] += s;
     }
     __syncthreads();
+    SAKE_PROBE(PR_BWD_ROW);
   }
 
   // the sender / receiver sums are complete: their rows
@@ -560,6 +612,7 @@ __device__ __forceinline__ void bwd_layer(const Dims& d, const BwdSmem& S, int b
     }
     __syncthreads();
   }
+  SAKE_PROBE(PR_BWD_NODE);
 }
 
 }  // namespace sake

@@ -5,6 +5,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "probe.cuh"
+
 namespace sake {
 
 constexpr int kLeaves = 29;

@@ -2,9 +2,12 @@
 // whole thread block. resid_fwd.cu runs it over depth; fused_ef.cu runs it
 // as the forward phase of the fused primal (#11) and of one_ef (#3). See
 // resid_fwd.cu for the design and what bounds it. Its kBf16 instantiation
-// (fused_remat_ef.cu, #20) rounds each product's activation operand to bf16.
+// (fused_remat_ef.cu, #20) rounds each product's activation operand to bf16;
+// its kTc instantiation (#11) runs the x-mixing product on the tensor cores
+// (mma_tf32x3.cuh).
 #pragma once
 
+#include "mma_tf32x3.cuh"
 #include "resid_common.cuh"
 
 namespace sake {
@@ -27,6 +30,8 @@ struct FwdSmem {
   float *sd, *sr, *sir, *smk, *srbf, *se0, *she, *ssem, *satt, *shea, *scf;  // row
 };
 
+// kTc: the carve of the kTc body (shea's rows padded, tc_ld).
+template <bool kTc = false>
 __host__ __device__ inline FwdSmem carve_fwd(Carver& cv, const Dims& d) {
   const long long N = d.N, F = d.F, H = d.H, R = d.R, K = d.K, C = d.C;
   FwdSmem s;
@@ -49,15 +54,17 @@ __host__ __device__ inline FwdSmem carve_fwd(Carver& cv, const Dims& d) {
   s.she = cv.take(N * H);       // row: h_e; node: ps1 -> h_comb
   s.ssem = cv.take(N * K);
   s.satt = cv.take(N * K);
-  s.shea = cv.take(N * H * K);  // row: h_e (x) att, column h*K + k
+  if constexpr (kTc) s.shea = cv.take(N * tc_ld(d, H * K));
+  else s.shea = cv.take(N * H * K);  // row: h_e (x) att, column h*K + k
   // row: coeff; node: pool_sq, then node_pre, uv, g0, g1 (below)
   s.scf = cv.take((C > 2 * H + F + 1 ? C : 2 * H + F + 1) * N);
   return s;
 }
 
+template <bool kTc = false>
 __host__ __device__ inline long long fwd_smem_floats(const Dims& d) {
   Carver cv{nullptr};
-  carve_fwd(cv, d);
+  carve_fwd<kTc>(cv, d);
   return cv.off;
 }
 
@@ -89,18 +96,24 @@ __device__ __forceinline__ void fwd_begin(const Dims& d, const FwdSmem& S, int B
 // _make_mm): every product's activation operand rounded to bf16 (L holds
 // the weights already rounded), f32 sums; the x-mixing product takes
 // bf16(h_e) (x) att, the per-head form's sum over heads, and the attended
-// sum hatt stays f32 until its own product rounds it.
-template <bool kResid, bool kBound, bool kBf16 = false>
+// sum hatt stays f32 until its own product rounds it. kTc: the x-mixing
+// product he_att @ w_xmix and the edge products o_f, o1 on the tensor cores in
+// 3xTF32 (S from carve_fwd<true>, ring: tc_ring_floats) where tc_dims allows,
+// the CUDA-core products elsewhere; f32 only. Without kTc the body is the
+// CUDA-core one.
+template <bool kResid, bool kBound, bool kBf16 = false, bool kTc = false>
 __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b, int l,
                                           float u, const float* __restrict__ mb,
                                           const Leaves& L, float* bh, float* bx, float* bv,
-                                          const Resids& RS) {
+                                          const Resids& RS, float* ring = nullptr) {
   const int B = d.B, N = d.N, F = d.F, H = d.H, R = d.R, K = d.K, C = d.C;
   const int HK = H * K, NN = N * N;
+  [[maybe_unused]] const int ldx = kTc ? tc_ld(d, HK) : HK;  // kTc: shea's row stride
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarp = nt >> 5;
   const float n_eff = (float)N;
   const bool masked = mb != nullptr;
+  static_assert(!(kTc && kBf16), "the tensor-core products are f32's (3xTF32)");
   float *sh = S.sh, *sx = S.sx, *sv = S.sv, *saj = S.saj, *sai = S.sai, *soj = S.soj,
         *soi = S.soi, *shatt = S.shatt, *sdel = S.sdel, *scnt = S.scnt, *sd = S.sd,
         *sr = S.sr, *sir = S.sir, *smk = S.smk, *srbf = S.srbf, *se0 = S.se0,
@@ -142,6 +155,7 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
   mm_fwd<kBf16>(N, F, H, sh, F, W(W_O_I),
          [&](int r, int c, float a) { soi[r * H + c] = a; });
   __syncthreads();
+  SAKE_PROBE(PR_FWD_PRE);
 
   for (int i = 0; i < N; ++i) {
     const size_t erow = lb * NN + (size_t)i * N;  // edge (i, 0)
@@ -177,25 +191,40 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
       srbf[e] = v * (saj[e] + sai[i * R + c]);
     }
     __syncthreads();
+    SAKE_PROBE(PR_FWD_ROW);
 
     // e0 = o_j[j] + o_i[i] + filtered @ w_o_f + r * w_o_r + b_o0
-    mm_fwd<kBf16>(N, R, H, srbf, R, W(W_O_F), [&](int r, int c, float a) {
+    auto st_e0 = [&](int r, int c, float a) {
       const float v = soj[r * H + c] + soi[i * H + c] + a + sr[r] * w_o_r[c] + b_o0[c];
       se0[r * H + c] = v;
       if constexpr (kResid) RS.p[RS_E0][(erow + r) * H + c] = v;
-    });
+    };
+    if constexpr (kTc) {
+      if (tc_dims(d)) mm_tc_small(N, R, H, srbf, R, W(W_O_F), st_e0);
+      else mm_fwd(N, R, H, srbf, R, W(W_O_F), st_e0);
+    } else {
+      mm_fwd<kBf16>(N, R, H, srbf, R, W(W_O_F), st_e0);
+    }
     __syncthreads();
+    SAKE_PROBE(PR_FWD_MM);
     for (int e = tid; e < N * H; e += nt) se0[e] = siluf_(se0[e]);
     __syncthreads();
+    SAKE_PROBE(PR_FWD_ROW);
 
     // h_e = silu(e0) @ w_o1 + b_o1
-    mm_fwd<kBf16>(N, H, H, se0, H, W(W_O1),
-           [&](int r, int c, float a) {
-             const float v = a + b_o1[c];
-             she[r * H + c] = v;
-             if constexpr (kResid) RS.p[RS_H_E][(erow + r) * H + c] = v;
-           });
+    auto st_he = [&](int r, int c, float a) {
+      const float v = a + b_o1[c];
+      she[r * H + c] = v;
+      if constexpr (kResid) RS.p[RS_H_E][(erow + r) * H + c] = v;
+    };
+    if constexpr (kTc) {
+      if (tc_dims(d)) mm_tc_small(N, H, H, se0, H, W(W_O1), st_he);
+      else mm_fwd(N, H, H, se0, H, W(W_O1), st_he);
+    } else {
+      mm_fwd<kBf16>(N, H, H, se0, H, W(W_O1), st_he);
+    }
     __syncthreads();
+    SAKE_PROBE(PR_FWD_MM);
 
     // semantic logits
     mm_fwd<kBf16>(N, H, K, she, H, W(W_SEM),
@@ -205,6 +234,7 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
              if constexpr (kResid) RS.p[RS_SEM_PRE][(erow + r) * K + c] = v;
            });
     __syncthreads();
+    SAKE_PROBE(PR_FWD_MM);
 
     // softmax over senders j, one warp per head; the raw softmax is the
     // residual, the renormalized one (masked) feeds the products
@@ -245,24 +275,34 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
     // attended edges h_e (x) att, hidden-major / head-minor: column h*K + k
     for (int e = tid; e < N * HK; e += nt) {
       const int j = e / HK, q = e % HK;
-      shea[e] = rd<kBf16>(she[j * H + q / K]) * satt[j * K + q % K];
+      if constexpr (kTc) shea[j * ldx + q] = she[j * H + q / K] * satt[j * K + q % K];
+      else shea[e] = rd<kBf16>(she[j * H + q / K]) * satt[j * K + q % K];
     }
     __syncthreads();
+    SAKE_PROBE(PR_FWD_ROW);
     // hatt_sum[i] = sum_j he_att[j]; coeff = tanh(he_att @ w_xmix) * m
     for (int q = tid; q < HK; q += nt) {
       float s = 0.f;
       for (int j = 0; j < N; ++j) {
         if constexpr (kBf16) s += she[j * H + q / K] * satt[j * K + q % K];
+        else if constexpr (kTc) s += shea[j * ldx + q];
         else s += shea[j * HK + q];
       }
       shatt[i * HK + q] = s;
     }
-    mm_fwd(N, HK, C, shea, HK, W(W_XMIX), [&](int r, int c, float a) {
+    auto st_coeff = [&](int r, int c, float a) {
       const float v = tanhf(a) * smk[r];
       scf[r * C + c] = v;
       if constexpr (kResid) RS.p[RS_COEFF][(erow + r) * C + c] = v;
-    });
+    };
+    if constexpr (kTc) {
+      if (tc_dims(d)) mm_tc<3>(N, shea, ldx, W(W_XMIX), ring, st_coeff);
+      else mm_fwd(N, HK, C, shea, ldx, W(W_XMIX), st_coeff);
+    } else {
+      mm_fwd(N, HK, C, shea, HK, W(W_XMIX), st_coeff);
+    }
     __syncthreads();
+    SAKE_PROBE(PR_FWD_XMIX);
 
     // pooled_k[i] = sum_j coeff[j] * d_k[j] / (r_j + 1e-5)
     for (int c = tid; c < C; c += nt) {
@@ -277,6 +317,7 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
       RS.p[RS_POOL2][(lp * N + i) * C + c] = p[2];
     }
     __syncthreads();
+    SAKE_PROBE(PR_FWD_ROW);
   }
 
   // ---- node phase -----------------------------------------------------
@@ -380,6 +421,7 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
     }
   }
   __syncthreads();
+  SAKE_PROBE(PR_FWD_NODE);
 }
 
 }  // namespace sake

@@ -1,9 +1,12 @@
 // The tangent forward's per-layer body: layer_jvp_resid of one molecule and
 // one layer on saved residuals, for a whole thread block. resid_jvp.cu runs
 // it over depth (#9); fused_bwd.cu runs it as phase 1 of the fused training
-// backward (#12). See resid_jvp.cu for the design and what bounds it.
+// backward (#12). See resid_jvp.cu for the design and what bounds it. Its
+// kTc instantiation (#12) runs the x-mixing product on the tensor cores
+// (mma_tf32x3.cuh).
 #pragma once
 
+#include "mma_tf32x3.cuh"
 #include "resid_common.cuh"
 
 namespace sake {
@@ -26,6 +29,8 @@ struct JvpSmem {
   float *sd, *std_, *sgeo, *sfilt, *se, *she, *stl, *satt, *stat, *shea, *scf;
 };
 
+// kTc: the carve of the kTc body (t_he_att's rows padded, tc_ld).
+template <bool kTc = false>
 __host__ __device__ inline JvpSmem carve_jvp(Carver& cv, const Dims& d) {
   const long long N = d.N, F = d.F, H = d.H, R = d.R, K = d.K, C = d.C;
   JvpSmem s;
@@ -53,14 +58,20 @@ __host__ __device__ inline JvpSmem carve_jvp(Carver& cv, const Dims& d) {
   s.satt = cv.take(N * K);        // row: att
   s.stat = cv.take(N * K);        // row: t_att
   // row: t_he_att; node: t_node_pre, t_uv, t_g0, t_g1
-  s.shea = cv.take((H * K > 2 * H + F + 1 ? H * K : 2 * H + F + 1) * N);
+  if constexpr (kTc) {
+    const long long hk = tc_ld(d, H * K);
+    s.shea = cv.take((hk > 2 * H + F + 1 ? hk : 2 * H + F + 1) * N);
+  } else {
+    s.shea = cv.take((H * K > 2 * H + F + 1 ? H * K : 2 * H + F + 1) * N);
+  }
   s.scf = cv.take(N * C);         // row: t_coeff; node: t_pool_sq
   return s;
 }
 
+template <bool kTc = false>
 __host__ __device__ inline long long jvp_smem_floats(const Dims& d) {
   Carver cv{nullptr};
-  carve_jvp(cv, d);
+  carve_jvp<kTc>(cv, d);
   return cv.off;
 }
 
@@ -83,16 +94,20 @@ __device__ __forceinline__ void jvp_begin(const Dims& d, const JvpSmem& S, int B
 // tangent ones (tbh, tbx, tbv, TR) at molecule slot b of d.B, layer l. With
 // bh null the primal state entering the layer is already in S.sh, S.sx,
 // S.sv (a kernel that has just computed the residuals in this launch); with
-// tbh null no tangent boundary is written.
+// tbh null no tangent boundary is written. kTc: the x-mixing and edge products
+// on the tensor cores in 3xTF32 (S from carve_jvp<true>, ring: tc_ring_floats)
+// where tc_dims allows; without it every product runs on the CUDA cores.
+template <bool kTc = false>
 __device__ __forceinline__ void jvp_layer(const Dims& d, const JvpSmem& S, int b, int l,
                                           float u, const Leaves& L,
                                           const float* __restrict__ bh,
                                           const float* __restrict__ bx,
                                           const float* __restrict__ bv, const Resids& RS,
                                           float* tbh, float* tbx, float* tbv,
-                                          const Resids& TR) {
+                                          const Resids& TR, float* ring = nullptr) {
   const int B = d.B, N = d.N, F = d.F, H = d.H, R = d.R, K = d.K, C = d.C;
   const int HK = H * K, NN = N * N;
+  [[maybe_unused]] const int ldx = kTc ? tc_ld(d, HK) : HK;  // kTc: shea's row stride
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarp = nt >> 5;
   const float n_eff = (float)N;
@@ -143,6 +158,7 @@ __device__ __forceinline__ void jvp_layer(const Dims& d, const JvpSmem& S, int b
   mm_jvp(N, F, H, sth, F, W(W_O_J), [&](int r, int c, float a) { stoj[r * H + c] = a; });
   mm_jvp(N, F, H, sth, F, W(W_O_I), [&](int r, int c, float a) { stoi[r * H + c] = a; });
   __syncthreads();
+  SAKE_PROBE(PR_JVP_PRE);
 
   for (int i = 0; i < N; ++i) {
     // edge stream r (width ch) of this molecule and layer at edge (i, 0)
@@ -188,28 +204,43 @@ __device__ __forceinline__ void jvp_layer(const Dims& d, const JvpSmem& S, int b
       }
     }
     __syncthreads();
+    SAKE_PROBE(PR_JVP_ROW);
 
     // t_e0 = t_o_j[j] + t_o_i[i] + t_filtered @ w_o_f + t_r * w_o_r; se = dsilu(e0) * t_e0
     {
       const float* e0 = edge(RS, RS_E0, H);
       float* te0 = edge(TR, RS_E0, H);
-      mm_jvp(N, R, H, sfilt, R, W(W_O_F), [&](int r, int c, float a) {
+      auto st_te0 = [&](int r, int c, float a) {
         const float v = stoj[r * H + c] + stoi[i * H + c] + a + str[r] * w_o_r[c];
         te0[r * H + c] = v;
         se[r * H + c] = dsiluf_(e0[r * H + c]) * v;
-      });
+      };
+      if constexpr (kTc) {
+        if (tc_dims(d)) mm_tc_small(N, R, H, sfilt, R, W(W_O_F), st_te0);
+        else mm_jvp(N, R, H, sfilt, R, W(W_O_F), st_te0);
+      } else {
+        mm_jvp(N, R, H, sfilt, R, W(W_O_F), st_te0);
+      }
     }
     __syncthreads();
+    SAKE_PROBE(PR_JVP_MM);
 
     // t_h_e = (dsilu(e0) * t_e0) @ w_o1
     {
       float* the = edge(TR, RS_H_E, H);
-      mm_jvp(N, H, H, se, H, W(W_O1), [&](int r, int c, float a) {
+      auto st_the = [&](int r, int c, float a) {
         she[r * H + c] = a;
         the[r * H + c] = a;
-      });
+      };
+      if constexpr (kTc) {
+        if (tc_dims(d)) mm_tc_small(N, H, H, se, H, W(W_O1), st_the);
+        else mm_jvp(N, H, H, se, H, W(W_O1), st_the);
+      } else {
+        mm_jvp(N, H, H, se, H, W(W_O1), st_the);
+      }
     }
     __syncthreads();
+    SAKE_PROBE(PR_JVP_MM);
 
     // t_sem_pre = t_h_e @ w_sem
     {
@@ -220,6 +251,7 @@ __device__ __forceinline__ void jvp_layer(const Dims& d, const JvpSmem& S, int b
       });
     }
     __syncthreads();
+    SAKE_PROBE(PR_JVP_MM);
 
     // softmax over senders, jvp on the saved raw softmax: t_logits =
     // dcelu(sem_pre) * t_sem_pre (the additive masks are constant),
@@ -253,28 +285,42 @@ __device__ __forceinline__ void jvp_layer(const Dims& d, const JvpSmem& S, int b
       const float* h_e = edge(RS, RS_H_E, H);
       for (int e = tid; e < N * HK; e += nt) {
         const int j = e / HK, q = e % HK, h = q / K, k = q % K;
-        shea[e] = she[j * H + h] * satt[j * K + k] + h_e[j * H + h] * stat[j * K + k];
+        if constexpr (kTc)
+          shea[j * ldx + q] = she[j * H + h] * satt[j * K + k] + h_e[j * H + h] * stat[j * K + k];
+        else
+          shea[e] = she[j * H + h] * satt[j * K + k] + h_e[j * H + h] * stat[j * K + k];
       }
     }
     __syncthreads();
+    SAKE_PROBE(PR_JVP_ROW);
 
     // t_hatt_sum[i] = sum_j t_he_att[j]; t_coeff = (1 - coeff^2) * (t_he_att @ w_xmix)
     for (int q = tid; q < HK; q += nt) {
       float s = 0.f;
-      for (int j = 0; j < N; ++j) s += shea[j * HK + q];
+      if constexpr (kTc)
+        for (int j = 0; j < N; ++j) s += shea[j * ldx + q];
+      else
+        for (int j = 0; j < N; ++j) s += shea[j * HK + q];
       sthatt[i * HK + q] = s;
     }
     {
       const float* cf = edge(RS, RS_COEFF, C);
       float* tcf = edge(TR, RS_COEFF, C);
-      mm_jvp(N, HK, C, shea, HK, W(W_XMIX), [&](int r, int c, float a) {
+      auto st_tcoeff = [&](int r, int c, float a) {
         const float f = cf[r * C + c];
         const float v = (1.f - f * f) * a;
         scf[r * C + c] = v;
         tcf[r * C + c] = v;
-      });
+      };
+      if constexpr (kTc) {
+        if (tc_dims(d)) mm_tc<3>(N, shea, ldx, W(W_XMIX), ring, st_tcoeff);
+        else mm_jvp(N, HK, C, shea, ldx, W(W_XMIX), st_tcoeff);
+      } else {
+        mm_jvp(N, HK, C, shea, HK, W(W_XMIX), st_tcoeff);
+      }
     }
     __syncthreads();
+    SAKE_PROBE(PR_JVP_XMIX);
 
     // t_pooled_k[i] = sum_j t_coeff * u_k + coeff * t_u_k, u_k = d_k / (r + 1e-5)
     {
@@ -294,6 +340,7 @@ __device__ __forceinline__ void jvp_layer(const Dims& d, const JvpSmem& S, int b
       }
     }
     __syncthreads();
+    SAKE_PROBE(PR_JVP_ROW);
   }
 
   // ---- node phase ------------------------------------------------------
@@ -405,6 +452,7 @@ __device__ __forceinline__ void jvp_layer(const Dims& d, const JvpSmem& S, int b
     }
   }
   __syncthreads();
+  SAKE_PROBE(PR_JVP_NODE);
 }
 
 }  // namespace sake

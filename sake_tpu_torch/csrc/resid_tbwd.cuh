@@ -2,9 +2,11 @@
 // its cotangent rows) of one molecule and one layer, for a whole thread
 // block. resid_tbwd.cu runs it over depth in reverse (#10's tangent chain);
 // fused_bwd.cu runs it in phase 2 of the fused training backward (#12). See
-// resid_tbwd.cu for the design and what bounds it.
+// resid_tbwd.cu for the design and what bounds it. Its kTc instantiation
+// (#12) runs the x-mixing pullback on the tensor cores (mma_tf32x3.cuh).
 #pragma once
 
+#include "mma_tf32x3.cuh"
 #include "resid_common.cuh"
 
 namespace sake {
@@ -32,6 +34,8 @@ struct TbSmem {
   float *sdp, *sgeo, *sdd, *satt, *sdat, *sX, *sY;
 };
 
+// kTc: the carve of the kTc body (d_xm's rows padded, tc_ld).
+template <bool kTc = false>
 __host__ __device__ inline TbSmem carve_tb(Carver& cv, const Dims& d) {
   const long long N = d.N, F = d.F, H = d.H, R = d.R, K = d.K, C = d.C;
   TbSmem s;
@@ -57,8 +61,14 @@ __host__ __device__ inline TbSmem carve_tb(Carver& cv, const Dims& d) {
   s.satt = cv.take(2 * N * K);  // row, dual: att
   s.sdat = cv.take(2 * N * K);  // row, dual: d_att -> d_sem_pre
   // row: d_xm, then d_h_e, then d_filtered -> d_rbf (dual)
-  s.sX = cv.take(2 * N * C > 2 * N * H && 2 * N * C > 2 * N * R ? 2 * N * C
-                 : (2 * N * H > 2 * N * R ? 2 * N * H : 2 * N * R));
+  if constexpr (kTc) {
+    const long long xm = 2 * N * tc_ld(d, C);
+    s.sX = cv.take(xm > 2 * N * H && xm > 2 * N * R ? xm
+                   : (2 * N * H > 2 * N * R ? 2 * N * H : 2 * N * R));
+  } else {
+    s.sX = cv.take(2 * N * C > 2 * N * H && 2 * N * C > 2 * N * R ? 2 * N * C
+                   : (2 * N * H > 2 * N * R ? 2 * N * H : 2 * N * R));
+  }
   // row: d_he_att, then d_e0, then d_pre (dual); the node phase uses sX and sY
   // as one region (they are carved back to back). d_pre takes 2N x R: wider
   // than d_he_att when R > H*K
@@ -67,9 +77,10 @@ __host__ __device__ inline TbSmem carve_tb(Carver& cv, const Dims& d) {
   return s;
 }
 
+template <bool kTc = false>
 __host__ __device__ inline long long tb_smem_floats(const Dims& d) {
   Carver cv{nullptr};
-  carve_tb(cv, d);
+  carve_tb<kTc>(cv, d);
   return cv.off;
 }
 
@@ -97,6 +108,10 @@ __device__ __forceinline__ void tbwd_begin(const Dims& d, const TbSmem& S, int B
 // tangent halves of S.sdh, S.sdxs - S.sdxr and S.sdvo, and also writes them
 // to add_h (depth, d.B, N, F), add_x, add_v (depth, 3, d.B, N) unless add_h is
 // null. gscratch: this molecule's 2N * (H*K + C) floats of device memory.
+// kTc: the x-mixing pullback (2N rows) and the edge products on the tensor
+// cores in 3xTF32 (S from carve_tb<true>, ring: tc_ring_floats) where tc_dims
+// allows; without it every product runs on the CUDA cores.
+template <bool kTc = false>
 __device__ __forceinline__ void tbwd_layer(const Dims& d, const TbSmem& S, int b, int l,
                                            float u, const Leaves& L, const Leaves& LT,
                                            const float* __restrict__ bh,
@@ -107,9 +122,10 @@ __device__ __forceinline__ void tbwd_layer(const Dims& d, const TbSmem& S, int b
                                            const float* __restrict__ tbv, const Resids& RS,
                                            const Resids& TR, const Rows& RW, const Rows& TW,
                                            float* gscratch, float* add_h, float* add_x,
-                                           float* add_v) {
+                                           float* add_v, float* ring = nullptr) {
   const int B = d.B, N = d.N, F = d.F, H = d.H, R = d.R, K = d.K, C = d.C;
   const int HK = H * K, NN = N * N;
+  [[maybe_unused]] const int ldc = kTc ? tc_ld(d, C) : C;  // kTc: d_xm's row stride
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarp = nt >> 5;
   const float n_eff = (float)N;
@@ -267,6 +283,7 @@ __device__ __forceinline__ void tbwd_layer(const Dims& d, const TbSmem& S, int b
     node_trow(RW_PSQ, e / C, C)[e % C] = s.t;
   }
   __syncthreads();
+  SAKE_PROBE(PR_TB_PRE);
 
   for (int i = 0; i < N; ++i) {
     const size_t erow = lb * NN + (size_t)i * N;
@@ -299,6 +316,7 @@ __device__ __forceinline__ void tbwd_layer(const Dims& d, const TbSmem& S, int b
     }
     for (int e = tid; e < N * K; e += nt) st2(satt, NK, e, eres(RS_ATT, K, e));
     __syncthreads();
+    SAKE_PROBE(PR_TB_LOAD);
 
     // pooled_k = sum_j coeff * u_k: d_u_k[j] = coeff[j] . d_pooled_k
     for (int j = warp; j < N; j += nwarp) {
@@ -332,7 +350,8 @@ __device__ __forceinline__ void tbwd_layer(const Dims& d, const TbSmem& S, int b
       for (int k = 0; k < 3; ++k) dc += ld(sdp, 3 * C, k * C + c) * (ld(sd, 3 * N, k * N + j) * ir);
       const Dl cf = eres(RS_COEFF, C, e);
       const Dl v = dc * Dl{1.f - cf.v * cf.v, -2.f * cf.v * cf.t};
-      st2(sX, (size_t)N * C, e, v);
+      if constexpr (kTc) st2(sX, (size_t)N * ldc, (size_t)j * ldc + c, v);
+      else st2(sX, (size_t)N * C, e, v);
       edge_row(RW_DXM, C)[e] = v.v;
       edge_trow(RW_DXM, C)[e] = v.t;
     }
@@ -348,12 +367,25 @@ __device__ __forceinline__ void tbwd_layer(const Dims& d, const TbSmem& S, int b
       edge_trow(RW_ATT2, K)[e] = satt[NK + e];
     }
     __syncthreads();
+    SAKE_PROBE(PR_TB_ROW);
 
     // d_he_att = d_xm @ w_xmix^T + d_hatt[i] (2N rows)
-    mm_tb(2 * N, C, HK, sX, C, WT(W_XMIX), [&](int r, int c, float a) {
+    auto st_dha = [&](int r, int c, float a) {
       sY[r * HK + c] = a + ghatt[(size_t)(r < N ? i : N + i) * HK + c];
-    });
+    };
+    if constexpr (kTc) {
+      if (tc_dims(d)) {  // the values' rows, then the tangents' (three n8 tiles each)
+        mm_tc<3>(N, sX, ldc, WT(W_XMIX), ring, st_dha);
+        mm_tc<3>(N, sX + (size_t)N * ldc, ldc, WT(W_XMIX), ring,
+                 [&](int r, int c, float a) { st_dha(N + r, c, a); });
+      } else {
+        mm_tb(2 * N, C, HK, sX, ldc, WT(W_XMIX), st_dha);
+      }
+    } else {
+      mm_tb(2 * N, C, HK, sX, C, WT(W_XMIX), st_dha);
+    }
     __syncthreads();
+    SAKE_PROBE(PR_TB_XMIX);
 
     // he_att[j, h*K + k] = h_e[j, h] * att[j, k]: d_h_e (into sX) and d_att
     const size_t NHK = (size_t)N * HK;
@@ -389,16 +421,25 @@ __device__ __forceinline__ void tbwd_layer(const Dims& d, const TbSmem& S, int b
       }
     }
     __syncthreads();
+    SAKE_PROBE(PR_TB_ROW);
     mm_tb(2 * N, K, H, sdat, K, WT(W_SEM), [&](int r, int c, float a) { sX[r * H + c] += a; });
     __syncthreads();
+    SAKE_PROBE(PR_TB_MM);
 
     // h_e = silu(e0) @ w_o1 + b_o1: d_e0 (into sY)
     for (int e = tid; e < N * H; e += nt) {
       edge_row(RW_DHE, H)[e] = sX[e];
       edge_trow(RW_DHE, H)[e] = sX[NH + e];
     }
-    mm_tb(2 * N, H, H, sX, H, WT(W_O1), [&](int r, int c, float a) { sY[r * H + c] = a; });
+    auto st_de0 = [&](int r, int c, float a) { sY[r * H + c] = a; };
+    if constexpr (kTc) {
+      if (tc_dims(d)) mm_tc_small(2 * N, H, H, sX, H, WT(W_O1), st_de0);
+      else mm_tb(2 * N, H, H, sX, H, WT(W_O1), st_de0);
+    } else {
+      mm_tb(2 * N, H, H, sX, H, WT(W_O1), st_de0);
+    }
     __syncthreads();
+    SAKE_PROBE(PR_TB_MM);
     for (int e = tid; e < N * H; e += nt) {
       const Dl v = ld(sY, NH, e) * dsilu_d(eres(RS_E0, H, e));
       st2(sY, NH, e, v);
@@ -406,6 +447,7 @@ __device__ __forceinline__ void tbwd_layer(const Dims& d, const TbSmem& S, int b
       edge_trow(RW_DE0, H)[e] = v.t;
     }
     __syncthreads();
+    SAKE_PROBE(PR_TB_ROW);
 
     // e0 = o_j[j] + o_i[i] + o_f + r * w_o_r + b_o0 (sums are linear: both halves)
     for (int e = tid; e < 2 * N * H; e += nt) sdoj[e] += sY[e];
@@ -422,8 +464,15 @@ __device__ __forceinline__ void tbwd_layer(const Dims& d, const TbSmem& S, int b
       if (lane == 0) sdr[j] += s;
     }
     // o_f = (rbf * pre) @ w_o_f: d_filtered (into sX)
-    mm_tb(2 * N, H, R, sY, H, WT(W_O_F), [&](int r, int c, float a) { sX[r * R + c] = a; });
+    auto st_dfilt = [&](int r, int c, float a) { sX[r * R + c] = a; };
+    if constexpr (kTc) {
+      if (tc_dims(d)) mm_tc_small(2 * N, H, R, sY, H, WT(W_O_F), st_dfilt);
+      else mm_tb(2 * N, H, R, sY, H, WT(W_O_F), st_dfilt);
+    } else {
+      mm_tb(2 * N, H, R, sY, H, WT(W_O_F), st_dfilt);
+    }
     __syncthreads();
+    SAKE_PROBE(PR_TB_MM);
 
     // d_rbf = d_filt * pre (in sX), d_pre = d_filt * rbf (into sY)
     for (int e = tid; e < N * R; e += nt) {
@@ -480,6 +529,7 @@ __device__ __forceinline__ void tbwd_layer(const Dims& d, const TbSmem& S, int b
       sdxr[tid * N + i] += s;
     }
     __syncthreads();
+    SAKE_PROBE(PR_TB_ROW);
   }
 
   // the sender / receiver sums are complete: their rows
@@ -520,6 +570,7 @@ __device__ __forceinline__ void tbwd_layer(const Dims& d, const TbSmem& S, int b
     sdv[e] = sdvo[e];
   }
   __syncthreads();
+  SAKE_PROBE(PR_TB_NODE);
 }
 
 }  // namespace sake

@@ -42,27 +42,31 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def source_hash(extra: tuple = ()) -> str:
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *extra)).encode())
     for p in _sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
 
 
-def build() -> Path:
+def build(only: tuple = (), defines: tuple = ()) -> Path:
     """Compile (if needed) and return the library path. The ptxas report
-    (registers, shared memory, spills) is kept beside it as ``ptxas.txt``."""
-    out_dir = BUILD_DIR / source_hash()
+    (registers, shared memory, spills) is kept beside it as ``ptxas.txt``.
+    ``only``: the ``.cu`` names to build (every source when empty);
+    ``defines``: ``-D`` macros (``SAKE_PROBE`` for the clock probe)."""
+    extra = (*only, *(f"-D{m}" for m in defines))
+    out_dir = BUILD_DIR / source_hash(extra)
     lib_path = out_dir / "libsake_kernels.so"
     if lib_path.exists():
         return lib_path
     nvcc = _nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    cus = sorted(CSRC.glob("*.cu"))
+    cus = [cu for cu in sorted(CSRC.glob("*.cu")) if not only or cu.name in only]
     objs = [out_dir / f"{cu.stem}.o" for cu in cus]
+    flags = (*NVCC_FLAGS, *(f"-D{m}" for m in defines))
     procs = [
-        subprocess.Popen([nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(cu)],
+        subprocess.Popen([nvcc, *flags, "-I", str(CSRC), "-c", "-o", str(obj), str(cu)],
                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for cu, obj in zip(cus, objs)
     ]
@@ -124,6 +128,9 @@ def signatures() -> dict:
         # bh, bx, bv, upd, leaves, leaves_t, strides, resid, h_fin, tx0, g_e, readout,
         # tbh, tbx, tbv, tresid, rows, rows_t, t_rows, scratch, dh0, dx0, ro_part
         "sake_fused_bwd": [P] * 27 + dims + [I, I, P],
+        # #11's and #12's clock probes (probe.cuh): out (slots,) u64, reset
+        "sake_fused_ef_probe": [P, I],
+        "sake_fused_bwd_probe": [P, I],
         # h0, xs, tx0, upd, leaves, strides, the primal's and the tangent's bh, bx, bv,
         # h_fin, x_fin, v_fin, resid, tresid
         "sake_aug_fwd": [P] * 20 + dims + [P],

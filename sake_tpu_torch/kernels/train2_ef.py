@@ -760,6 +760,14 @@ def _fused_args(name, params, leaves, h0, upd, leaves_t, smem_fn):
     return lib, dims, dev, upd_t, ro, F0, O, leaves_t
 
 
+def _check_tc_leaves(name, leaves, leaves_t):
+    """#11 and #12 copy w_xmix and its transpose into shared memory 16 bytes
+    at a time (``csrc/mma_tf32x3.cuh``): both must start 16-byte aligned."""
+    for label, t in (("w_xmix", leaves["w_xmix"]), ("w_xmix.T", leaves_t["w_xmix"])):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {label} must start at a 16-byte aligned address")
+
+
 def fused_primal_plain(params: ModelParams, leaves: dict, h0, xs, upd: Sequence[float],
                        mask=None):
     """Plain version of :func:`fused_primal` (and of one_ef's kernel): K1's
@@ -777,6 +785,7 @@ def fused_primal_plain(params: ModelParams, leaves: dict, h0, xs, upd: Sequence[
 def _launch_fused_primal(params, leaves, h0, xs, upd, leaves_t):
     lib, dims, dev, upd_t, ro, F0, O, leaves_t = _fused_args(
         "fused_primal", params, leaves, h0, upd, leaves_t, "sake_fused_ef_smem_bytes")
+    _check_tc_leaves("fused_primal", leaves, leaves_t)
     B, N, F, H, R, K, C, depth = dims
     _check_cuda("h0", h0, (B, N, F), dev)
     _check_cuda("xs", xs, (3, B, N), dev)
@@ -857,6 +866,7 @@ def fused_bwd_block_plain(params: ModelParams, leaves: dict, fwd: FwdOut,
 def _launch_fused_bwd_block(params, leaves, fwd, upd, tx0, g_e, leaves_t):
     lib, dims, dev, upd_t, ro, F0, O, leaves_t = _fused_args(
         "fused_bwd_block", params, leaves, fwd.bh[0], upd, leaves_t, "sake_fused_bwd_smem_bytes")
+    _check_tc_leaves("fused_bwd_block", leaves, leaves_t)
     B, N, F, H, R, K, C, depth = dims
     _check_fwd("fwd", fwd, dims, leaves, dev)
     _check_cuda("h_fin", fwd.h_fin, (B, N, F), dev)

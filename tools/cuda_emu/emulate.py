@@ -1,16 +1,24 @@
-"""Run #20 (``csrc/fused_remat_ef.cu``) on the CPU against its plain version.
+"""Run a kernel source on the CPU against its plain version: #20
+(``csrc/fused_remat_ef.cu``), or with ``--train`` #11 (``csrc/fused_ef.cu``) and
+#12's block (``csrc/fused_bwd.cu``).
 
     EMU_THREADS=128 python tools/cuda_emu/emulate.py                  # hidden 8 and 16
     EMU_THREADS=128 python tools/cuda_emu/emulate.py --hidden 64 --depth 3 --atoms 21
     EMU_THREADS=128 python tools/cuda_emu/emulate.py --asan          # AddressSanitizer
+    EMU_THREADS=128 python tools/cuda_emu/emulate.py --train --hidden 8 16 64 --atoms 21
+    EMU_THREADS=128 python tools/cuda_emu/emulate.py --helper        # mma_tf32x3.cuh alone
 
 Compiles the kernel source with g++ against ``cuda_runtime.h`` beside this file
 (one std::thread per CUDA thread; see there), loads it with ctypes in place of
 ``build.load()``, and calls ``fused_ef.launch`` with CPU tensors, in f32 and in
 bf16, printing each mode's max relative error against ``fused_ef_plain`` and the
-plain bf16 version's distance from plain f32. A check before a kernel's first
-call on the card, not a measurement of it. ``--asan`` needs the script started
-with g++'s libasan and libstdc++ preloaded (it prints the ``LD_PRELOAD`` line).
+plain bf16 version's distance from plain f32. With ``--train`` it calls
+``train2_ef``'s ``_launch_fused_primal`` and ``_launch_fused_bwd_block`` and prints
+each output's max relative error against ``fused_primal_plain`` and
+``fused_bwd_block_plain``; at aspirin's widths (hidden 64, 4 heads) their x-mixing
+and edge products take the emulated tensor cores. A check before a kernel's first call on
+the card, not a measurement of it. ``--asan`` needs the script started with g++'s
+libasan and libstdc++ preloaded (it prints the ``LD_PRELOAD`` line).
 """
 
 from __future__ import annotations
@@ -35,11 +43,13 @@ from sake_tpu_torch.kernels.adapter import linen_tree, model_params_from_linen  
 from sake_tpu_torch.models import SAKEModel  # noqa: E402
 
 
-def compile_source(source: str, out_dir: Path, asan: bool) -> Path:
-    """``csrc/<source>`` and its headers, launches rewritten, into a shared library."""
+def compile_source(source: str, out_dir: Path, asan: bool, extra_src: Path = None) -> Path:
+    """``csrc/<source>`` (or ``extra_src/<source>``) and its headers, launches
+    rewritten, into a shared library."""
     src = out_dir / "src"
     src.mkdir(parents=True, exist_ok=True)
-    for p in list(build.CSRC.glob("*.cu")) + list(build.CSRC.glob("*.cuh")):
+    extra = list(extra_src.glob("*.cu")) if extra_src else []
+    for p in list(build.CSRC.glob("*.cu")) + list(build.CSRC.glob("*.cuh")) + extra:
         s = p.read_text().replace("extern __shared__ float4 smem4[];",
                                   "float4* smem4 = emu_smem();")
         s = re.sub(r"([\w:]+(?:<[^<>;]*>)?)\s*<<<(.*?)>>>\s*\(", r"emu_launch(\1, \2, ", s,
@@ -53,12 +63,101 @@ def compile_source(source: str, out_dir: Path, asan: bool) -> Path:
     return lib
 
 
-def load(lib_path: Path):
-    """The emulated library, its entries declared by ``build.declare``."""
-    lib = build.declare(ctypes.CDLL(str(lib_path)),
-                        [n for n in build.signatures() if n.startswith("sake_fused_remat_ef")])
+def load(lib_path: Path, names=None):
+    """The emulated library, its entries (``names``; #20's when None) declared
+    by ``build.declare``."""
+    names = names or [n for n in build.signatures() if n.startswith("sake_fused_remat_ef")]
+    lib = build.declare(ctypes.CDLL(str(lib_path)), names)
     lib.sake_error_string = lambda err: b"emulated"
     return lib
+
+
+class Libs:
+    """Several emulated libraries as one: an entry is looked up in turn."""
+
+    def __init__(self, *libs):
+        self.libs = libs
+
+    def __getattr__(self, name):
+        for lib in self.libs:
+            if hasattr(lib, name):
+                return getattr(lib, name)
+        raise AttributeError(name)
+
+
+def check_helper(tmp: Path, asan: bool):
+    """mm_tc and mm_tc_small against a float64 product and ``mm_tf32x3_plain``
+    at the shapes of the kTc sites (max |diff| / max |ref|)."""
+    import numpy as np
+
+    from sake_tpu_torch.kernels.tf32 import mm_tf32x3_plain
+
+    src = tmp / "src"
+    src.mkdir(parents=True, exist_ok=True)
+    (src / "mma_check.cu").write_text((Path(__file__).parent / "mma_check.cu").read_text())
+    lib_path = compile_source("mma_check.cu", tmp, asan, extra_src=src)
+    lib = ctypes.CDLL(str(lib_path))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.sake_mma_check.argtypes = [I, I, I, I, P, I, P, P]
+    rng = np.random.default_rng(0)
+    for which, n, kd, m in ((3, 21, 256, 256), (6, 42, 256, 256), (3, 12, 256, 256),
+                            (0, 21, 50, 64), (0, 21, 64, 50), (0, 42, 64, 64)):
+        lda = kd + (8 if which else 0)
+        a = torch.from_numpy(rng.standard_normal((n, kd)).astype(np.float32))
+        w = torch.from_numpy((rng.standard_normal((kd, m)) / np.sqrt(kd)).astype(np.float32))
+        a_pad = torch.zeros(n, lda)
+        a_pad[:, :kd] = a
+        out = torch.full((n, m), float("nan"))
+        lib.sake_mma_check(which, n, kd, m, a_pad.data_ptr(), lda, w.data_ptr(), out.data_ptr())
+        ref = a.double() @ w.double()
+        rel = lambda x: float((x.double() - ref).abs().max() / ref.abs().max())
+        print(f"{'mm_tc' if which else 'mm_tc_small'} {n} x {kd} @ {kd} x {m}: vs float64 "
+              f"{rel(out):.3e}, plain 3xTF32 vs float64 {rel(mm_tf32x3_plain(a, w)):.3e}, "
+              f"finite {bool(torch.isfinite(out).all())}", flush=True)
+
+
+def check_train(hid: int, depth: int, B: int, N: int, seed: int = 0):
+    """#11 and #12's block against their plain versions."""
+    from sake_tpu_torch.kernels import train2_ef as t2
+    from sake_tpu_torch.kernels.functional import embed
+    from sake_tpu_torch.kernels.leaves import transposed, wide_stack
+
+    F_in = 9 if hid == 64 else 5
+    model = SAKEModel(hid, 1, depth, in_features=F_in, device="cpu",
+                      generator=torch.Generator().manual_seed(seed))
+    p = model_params_from_linen(linen_tree(model), device="cpu")
+    g = torch.Generator().manual_seed(seed + 1)
+    h = torch.randn(B, N, F_in, generator=g)
+    xs = 1.5 * torch.randn(3, B, N, generator=g)
+    tx0, g_e = torch.randn(3, B, N, generator=g), torch.randn(B, generator=g)
+    upd = [1.0] * depth
+    leaves = wide_stack(p, 4)
+    leaves_t = transposed(leaves)
+    h0 = embed(p, h).contiguous()
+    rel = lambda a, b: float((a - b).abs().max() / (b.abs().max() + 1e-30))
+    worst = lambda pairs: max(((rel(a, b), n) for n, a, b in pairs), key=lambda t: t[0])
+    names = ("bh", "bx", "bv", "h_fin", "x_fin", "v_fin")
+    t0 = time.perf_counter()
+    kf, ke, kdx = t2._launch_fused_primal(p, leaves, h0, xs, upd, leaves_t)
+    pf, pe, pdx = t2.fused_primal_plain(p, leaves, h0, xs, upd)
+    pairs = [("e", ke, pe), ("dx", kdx, pdx), *zip(names, kf[:6], pf[:6]),
+             *((n, kf.resid[n], pf.resid[n]) for n in pf.resid)]
+    print(f"#11 fused_primal hidden {hid} depth {depth} B {B} N {N}: max rel err "
+          f"{worst(pairs)[0]:.3e} ({worst(pairs)[1]}), e {rel(ke, pe):.3e}, dx "
+          f"{rel(kdx, pdx):.3e}, finite {bool(torch.isfinite(kdx).all())} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    kb = t2._launch_fused_bwd_block(p, leaves, pf, upd, tx0, g_e, leaves_t)
+    pb = t2.fused_bwd_block_plain(p, leaves, pf, upd, tx0, g_e)
+    rows = lambda i: [(f"{i}.{n}", kb[i][n], pb[i][n]) for n in pb[i]]
+    pairs = [("dh0", kb[0], pb[0]), ("dx0", kb[1], pb[1]), ("ro_part", kb[6], pb[6]),
+             *zip(("tbh", "tbx", "tbv"), kb[2][:3], pb[2][:3]),
+             *((f"t.{n}", kb[2].resid[n], pb[2].resid[n]) for n in pb[2].resid),
+             *rows(3), *rows(4), *rows(5)]
+    print(f"#12 fused_bwd_block hidden {hid} depth {depth} B {B} N {N}: max rel err "
+          f"{worst(pairs)[0]:.3e} ({worst(pairs)[1]}), dh0 {rel(kb[0], pb[0]):.3e}, dx0 "
+          f"{rel(kb[1], pb[1]):.3e}, finite {bool(torch.isfinite(kb[1]).all())} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
 def check(hid: int, depth: int, B: int, N: int, F_in: int, upd, seed: int = 0):
@@ -88,6 +187,9 @@ def main():
     ap.add_argument("--batch", type=int, default=3)
     ap.add_argument("--atoms", type=int, default=7)
     ap.add_argument("--asan", action="store_true")
+    ap.add_argument("--train", action="store_true", help="#11 and #12 in place of #20")
+    ap.add_argument("--helper", action="store_true",
+                    help="mma_tf32x3.cuh's products alone (mma_check.cu)")
     args = ap.parse_args()
     if args.asan and "libasan" not in os.environ.get("LD_PRELOAD", ""):
         asan = subprocess.run(["g++", "-print-file-name=libasan.so"], capture_output=True,
@@ -95,6 +197,25 @@ def main():
         cxx = subprocess.run(["g++", "-print-file-name=libstdc++.so.6"], capture_output=True,
                              text=True).stdout.strip()
         sys.exit(f'start with LD_PRELOAD="{asan} {cxx}" ASAN_OPTIONS=detect_leaks=0')
+    if args.helper:
+        with tempfile.TemporaryDirectory() as tmp:
+            check_helper(Path(tmp), args.asan)
+        return
+    if args.train:
+        from sake_tpu_torch.kernels import resid_ef
+        from sake_tpu_torch.kernels import train2_ef as t2
+
+        with tempfile.TemporaryDirectory() as tmp:
+            libs = Libs(*(load(compile_source(src, Path(tmp) / Path(src).stem, args.asan), names)
+                          for src, names in (
+                              ("fused_ef.cu", ["sake_fused_primal", "sake_fused_ef_smem_bytes"]),
+                              ("fused_bwd.cu", ["sake_fused_bwd", "sake_fused_bwd_smem_bytes"]))))
+            build.load = lambda: libs
+            t2._require_cuda = lambda name, t: None
+            resid_ef._stream = lambda dev: None
+            for hid in args.hidden:
+                check_train(hid, args.depth, args.batch, args.atoms)
+        return
     with tempfile.TemporaryDirectory() as tmp:
         lib = load(compile_source("fused_remat_ef.cu", Path(tmp), args.asan))
         build.load = lambda: lib

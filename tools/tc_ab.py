@@ -1,0 +1,361 @@
+"""Hold the tensor-core #11 and #12 against the parent commit's kernels on one
+NVIDIA GPU, in one process tree:
+
+    python3 tools/tc_ab.py --parent <checkout of the parent commit>
+
+1. ``SASS``: builds both trees' kernels at once (``build.build``) and compares
+   every object's SASS function by function (``cuobjdump -sass``). Every kernel
+   but #11 (``fused_ef_kernel<false>``) and #12's block (``fused_bwd_kernel``)
+   must compile to the parent's instructions; the ptxas lines of the kernels
+   that differ are printed beside the parent's.
+2. ``TIME``: the dense kernels timed in worker processes that alternate the
+   trees (parent, change, change, parent, parent, change), CUDA events, 3
+   launches after one warm-up: K1, K2, #3 and #20 (f32, bf16) at aspirin B =
+   2048 (#3, #20) or 512, #9, #10, #21-#24 at 512, and #11, #12's block and its
+   contraction at 512 and 4; each kernel's runs per tree and their spread.
+3. ``GRADS``: step 1 of ``md17_kernel``'s fused branch against its plain
+   branch (double autograd), per-leaf gradients as max |diff| / max |plain|, at
+   batch 4 (``MD17Config``'s) and 512, on four (model init, batch order) seeds,
+   the first chip_smoke.py's, in both trees.
+4. ``ALIGN``: #11 and #12 refuse a w_xmix leaf (or its transpose) that does not
+   start 16-byte aligned (``tests/test_torch_tf32x3.py``'s gpu-marked test, run
+   without pytest, whose conftest needs JAX).
+
+Full width: hidden 64, depth 6, 4 heads, C 256, R 50, aspirin's 21 atoms, the
+weights and inputs random from fixed seeds.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[1]
+TC_KERNELS = ("fused_ef_kernel", "fused_bwd_kernel")  # #11's and #12's block
+# (model seed, batch seed): chip_smoke.py's step 1 (MD17Config's seed, batch
+# order RandomState(0)), then three more
+SEEDS = ((2666, 0), (0, 1), (1, 2), (2, 3))
+GRAD_BATCHES = (4, 512)
+
+
+def cuda_ms(fn, reps: int = 3, warmup: int = 1) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def build_tree(root: Path) -> subprocess.Popen:
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "from sake_tpu_torch.kernels import build; print(build.build())")
+    return subprocess.Popen([sys.executable, "-c", code, str(root)], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def sass_functions(obj: Path) -> dict:
+    """``{function: [instruction lines]}`` of one object's SASS. The hash nvcc
+    gives an anonymous namespace differs from tree to tree: it is dropped."""
+    cuobjdump = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump"
+    text = subprocess.run([str(cuobjdump), "-sass", str(obj)], capture_output=True, text=True,
+                          check=True).stdout
+    text = re.sub(r"_GLOBAL__N__[0-9a-f]{8}_", "_GLOBAL__N__", text)
+    funcs, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+        elif name is not None and "/*" in line:
+            funcs[name].append(line.strip())
+    return funcs
+
+
+def ptxas_props(ptxas: str) -> dict:
+    """``{function: "registers ..., spills ..."}`` from a ptxas -v log."""
+    props, name = {}, None
+    for line in re.sub(r"_GLOBAL__N__[0-9a-f]{8}_", "_GLOBAL__N__", ptxas).splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)'?", line)
+        if m:
+            name = m.group(1)
+        elif name and ("spill" in line or "Used" in line):
+            props[name] = (props.get(name, "") + " " + line.split(":", 1)[-1].strip()).strip()
+    return props
+
+
+def sass_phase(parent: Path) -> bool:
+    t0 = time.perf_counter()
+    procs = {"parent": build_tree(parent), "change": build_tree(HERE)}
+    libs = {}
+    for k, p in procs.items():
+        out = p.communicate()[0]
+        if p.returncode != 0:
+            print(f"SASS build of the {k} tree failed:\n{out[-4000:]}", flush=True)
+            return False
+        libs[k] = Path(out.strip().splitlines()[-1])
+    print(f"SASS both trees built in {time.perf_counter() - t0:.1f} s", flush=True)
+    ok = True
+    props = {k: ptxas_props((v.parent / "ptxas.txt").read_text()) for k, v in libs.items()}
+    for obj in sorted(libs["change"].parent.glob("*.o")):
+        old = libs["parent"].parent / obj.name
+        a, b = sass_functions(old), sass_functions(obj)
+        same = [f for f in b if a.get(f) == b[f]]
+        differ = [f for f in b if f in a and a[f] != b[f]]
+        new = [f for f in b if f not in a]
+        gone = [f for f in a if f not in b]
+        print(f"SASS {obj.stem}.cu: {len(same)} of {len(b)} functions identical to the parent's"
+              + (f"; differing {differ}" if differ else "") + (f"; new {new}" if new else "")
+              + (f"; gone {gone}" if gone else ""), flush=True)
+        for f in differ + new:
+            print(f"SASS   {f}: change [{props['change'].get(f, '?')}] parent "
+                  f"[{props['parent'].get(f, '-')}]", flush=True)
+        if gone or any(not any(k in f for k in TC_KERNELS) for f in differ + new):
+            ok = False
+    print(f"SASS every kernel but #11's and #12's block unchanged: {ok}", flush=True)
+    return ok
+
+
+def time_worker(label: str) -> dict:
+    import numpy as np
+    import torch
+
+    from sake_tpu_torch.data.md17 import load_md17
+    from sake_tpu_torch.kernels import build, depthgrid_ef, fori_ef, fused_ef, one_ef, resid_ef
+    from sake_tpu_torch.kernels import train2_ef as t2
+    from sake_tpu_torch.kernels.adapter import linen_tree, model_params_from_linen
+    from sake_tpu_torch.kernels.functional import embed
+    from sake_tpu_torch.kernels.leaves import transposed, wide_stack
+    from sake_tpu_torch.models import SAKEModel
+
+    build.load()
+    dev = torch.device("cuda", 0)
+    data = load_md17("aspirin", None, n_samples=2048)
+    N, F_in, depth, heads = len(data.z), 8, 6, 4
+    model = SAKEModel(64, 1, depth, n_heads=heads, in_features=F_in, device=dev,
+                      generator=torch.Generator().manual_seed(0))
+    p = model_params_from_linen(linen_tree(model), device=dev)
+    g = torch.Generator(dev).manual_seed(1)
+    upd = [1.0] * depth
+    t = {}
+    with torch.no_grad():
+        leaves = wide_stack(p, heads)
+        leaves_t = transposed(leaves)
+        x_all = torch.as_tensor(data.x, device=dev)
+        h_all = torch.nn.functional.one_hot(torch.as_tensor(data.z % F_in, device=dev).long(),
+                                            F_in).float().expand(2048, N, F_in).contiguous()
+        hb, xb = h_all, x_all.contiguous()
+        t["#3 one_ef B=2048"] = cuda_ms(lambda: one_ef.one_energy_forces(p, hb, xb,
+                                                                          n_heads=heads))
+        for bf16 in (False, True):
+            w = fused_ef.kernel_weights(p, heads, bf16)
+            t[f"#20 {'bf16' if bf16 else 'f32'} B=2048"] = cuda_ms(
+                lambda: fused_ef.launch(w, hb, xb, upd))
+        for B in (512, 4):
+            h0 = embed(p, h_all[:B]).contiguous()
+            xs = x_all[:B].permute(2, 0, 1).contiguous()
+            zs = torch.zeros_like(xs)
+            tx0 = torch.randn(3, B, N, device=dev, generator=g)
+            g_e = torch.randn(B, device=dev, generator=g)
+            if B == 512:
+                fwd = resid_ef.resid_fwd(leaves, h0, xs, zs, upd)
+                _, dh = resid_ef._readout_seed(p, fwd.h_fin, None)
+                t["K1 B=512"] = cuda_ms(lambda: resid_ef.resid_fwd(leaves, h0, xs, zs, upd))
+                t["K2 B=512"] = cuda_ms(lambda: resid_ef.resid_bwd(leaves, fwd, upd, dh, zs, zs,
+                                                                   leaves_t=leaves_t))
+                tfwd = t2.resid_jvp(leaves, fwd, upd, tx0)
+                t["#9 resid_jvp B=512"] = cuda_ms(lambda: t2.resid_jvp(leaves, fwd, upd, tx0))
+                t["#10 resid_tbwd B=512"] = cuda_ms(lambda: t2.resid_tbwd(
+                    leaves, fwd, tfwd, upd, dh, zs, zs, leaves_t=leaves_t))
+                del tfwd
+                for name, mod, fw, bw in (("#21/#22", fori_ef, "fori_fwd", "fori_bwd"),
+                                          ("#23/#24", depthgrid_ef, "depthgrid_fwd",
+                                           "depthgrid_bwd")):
+                    f_fn, b_fn = getattr(mod, fw), getattr(mod, bw)
+                    bnd = f_fn(leaves, h0, xs, upd)
+                    _, dhc = resid_ef._readout_seed(p, bnd.h_fin, None)
+                    t[f"{name.split('/')[0]} {fw} B=512"] = cuda_ms(lambda: f_fn(leaves, h0, xs,
+                                                                                  upd))
+                    t[f"{name.split('/')[1]} {bw} B=512"] = cuda_ms(
+                        lambda: b_fn(leaves, bnd, upd, dhc, leaves_t=leaves_t))
+                    del bnd
+                del fwd
+            fwd, _, _ = t2.fused_primal(p, leaves, h0, xs, upd, leaves_t=leaves_t)
+            blk = t2.fused_bwd_block(p, leaves, fwd, upd, tx0, g_e, leaves_t=leaves_t)
+            t[f"#11 fused_primal B={B}"] = cuda_ms(
+                lambda: t2.fused_primal(p, leaves, h0, xs, upd, leaves_t=leaves_t))
+            t[f"#12 fused_bwd_block B={B}"] = cuda_ms(
+                lambda: t2.fused_bwd_block(p, leaves, fwd, upd, tx0, g_e, leaves_t=leaves_t))
+            t[f"#12 fused_bwd_grads B={B}"] = cuda_ms(
+                lambda: t2.fused_bwd_grads(p, leaves, fwd, *blk[2:]))
+            del fwd, blk
+    assert all(np.isfinite(v) for v in t.values())
+    print("TC_AB_TIME " + json.dumps({"tree": label, "ms": t}), flush=True)
+    return t
+
+
+def loss_and_grads(br: dict, batch: dict, energy_loss_weight: float):
+    """``tasks/md17.make_step_fn``'s loss on ``batch`` and the gradient of
+    every parameter (zeros for one the branch does not use)."""
+    import torch
+
+    from sake_tpu_torch.train import tree_leaves
+
+    leaves_ = tree_leaves(br["params"])
+    with torch.enable_grad():
+        e, f = br["ef"](br["params"], batch["x"])
+        loss = ((f - batch["f"]).abs().mean()
+                + energy_loss_weight * (e - batch["e"]).abs().mean())
+        grads = torch.autograd.grad(loss, leaves_, allow_unused=True)
+    return loss.detach(), [torch.zeros_like(q) if g is None else g
+                           for q, g in zip(leaves_, grads)]
+
+
+def grads_worker(label: str):
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from sake_tpu_torch.data.md17 import load_md17
+    from sake_tpu_torch.kernels.adapter import model_params_from_linen
+    from sake_tpu_torch.kernels.functional import flat_params
+    from sake_tpu_torch.tasks import md17 as task
+    from sake_tpu_torch.train import shuffle_batches
+
+    dev = torch.device("cuda", 0)
+    base = task.MD17Config(use_kernel_ef=True, aug_mode="fused", n_valid=200)
+    data = load_md17(base.molecule, None, n_samples=base.n_train + 2 * base.n_valid)
+    species = task.species_onehot(data.z, int(data.z.max()))
+    n_tr = base.n_train
+    e_mean, e_std = float(data.e[:n_tr].mean()), float(data.e[:n_tr].std())
+    tdev = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
+    train = {"x": tdev(data.x[:n_tr]), "e": tdev(data.e[:n_tr]), "f": tdev(data.f[:n_tr])}
+    rel = lambda a, b: float((a - b).abs().max() / (b.abs().max() + 1e-30))
+    for B in GRAD_BATCHES:
+        for seed, batch_seed in SEEDS:
+            def branch(kernel: bool):
+                c = dataclasses.replace(base, use_kernel_ef=kernel, batch_size=B, seed=seed)
+                model = task.make_model(c, species.shape[-1], device=dev,
+                                        generator=torch.Generator().manual_seed(c.seed))
+                prm, ef_fn, _ = task.make_branch(c, model, species, e_mean, e_std)
+                return dict(params=prm, ef=ef_fn)
+
+            batch = shuffle_batches(np.random.RandomState(batch_seed), train, B)[0]
+            plain, fused = branch(False), branch(True)
+            lp, gp = loss_and_grads(plain, batch, base.energy_loss_weight)
+            tree = {}
+            for name, g in zip(sorted(plain["params"]), gp):  # tree_leaves order
+                *path, leaf = name.split(".")
+                node = tree
+                for part in path:
+                    node = node.setdefault(part, {})
+                node[leaf] = g
+            want = flat_params(model_params_from_linen(tree, dev))
+            lk, gk = loss_and_grads(fused, batch, base.energy_loss_weight)
+            errs = [rel(a, b) for a, b in zip(gk, want)]
+            worst = sorted(range(len(errs)), key=lambda i: -errs[i])[:3]
+            print("TC_AB_GRADS " + json.dumps({
+                "tree": label, "B": B, "seed": seed, "batch_seed": batch_seed, "leaves": len(errs),
+                "loss_rel": abs(float(lk - lp)) / abs(float(lp)), "max": max(errs),
+                "worst": [[i, errs[i]] for i in worst],
+                "median": float(np.median(errs))}), flush=True)
+            del plain, fused, gp, gk, want, tree
+
+
+def align_phase() -> bool:
+    spec = importlib.util.spec_from_file_location(
+        "test_torch_tf32x3", HERE / "tests" / "test_torch_tf32x3.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    ok = True
+    for kernel in ("fused_primal", "fused_bwd_block"):
+        for leaf in ("w_xmix", "w_xmix.T"):
+            try:
+                mod.test_tensor_core_kernels_refuse_misaligned_w_xmix(kernel, leaf)
+                print(f"ALIGN {kernel} with a misaligned {leaf}: ValueError raised", flush=True)
+            except BaseException as e:  # pytest.fail is a BaseException
+                ok = False
+                print(f"ALIGN {kernel} with a misaligned {leaf}: FAILED {e!r}", flush=True)
+    return ok
+
+
+def run_worker(kind: str, root: Path, label: str, times: list) -> int:
+    """One worker process on ``root``'s package; its output is passed on and
+    its TC_AB_TIME lines are appended to ``times``."""
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--worker", kind,
+                           "--root", str(root), "--label", label], capture_output=True,
+                          text=True)
+    print(proc.stdout + proc.stderr[-4000:], end="", flush=True)
+    times += [json.loads(line.split(" ", 1)[1]) for line in proc.stdout.splitlines()
+              if line.startswith("TC_AB_TIME ")]
+    return proc.returncode
+
+
+def time_summary(times: list):
+    """Per kernel: each tree's runs, their spread (max / min) and the ratio
+    of the means, change over parent."""
+    for k in times[0]["ms"]:
+        runs = {tree: [t["ms"][k] for t in times if t["tree"] == tree and k in t["ms"]]
+                for tree in ("parent", "change")}
+        if not all(runs.values()):
+            continue
+        mean = {tree: sum(v) / len(v) for tree, v in runs.items()}
+        spread = {tree: max(v) / min(v) for tree, v in runs.items()}
+        print(f"TC_AB_TIME_SUMMARY {k}: parent {json.dumps(runs['parent'])} (spread "
+              f"{spread['parent']:.4f}), change {json.dumps(runs['change'])} (spread "
+              f"{spread['change']:.4f}); change / parent {mean['change'] / mean['parent']:.4f}",
+              flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", type=Path)
+    ap.add_argument("--worker", choices=("time", "grads"))
+    ap.add_argument("--root", type=Path)
+    ap.add_argument("--label")
+    args = ap.parse_args()
+    if args.worker:
+        sys.path.insert(0, str(args.root.resolve()))
+        (time_worker if args.worker == "time" else grads_worker)(args.label)
+        return 0
+    import torch
+
+    if not torch.cuda.is_available():
+        print("tc_ab.py needs a CUDA device", flush=True)
+        return 1
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip(), flush=True)
+    parent = args.parent.resolve()
+    ok = True
+    ok &= sass_phase(parent)
+    trees = {"parent": parent, "change": HERE}
+    times = []
+    for label in ("parent", "change", "change", "parent", "parent", "change"):
+        ok &= run_worker("time", trees[label], label, times) == 0
+    if times:
+        time_summary(times)
+    for label in ("parent", "change"):
+        ok &= run_worker("grads", trees[label], label, []) == 0
+    sys.path.insert(0, str(HERE))
+    ok &= align_phase()
+    print(f"TC_AB ok {ok}", flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
