@@ -91,8 +91,17 @@ Phases (each prints its own lines; any failure exits non-zero):
 11. Sparse edge kernels vs plain, MD: ``SparseMDConfig()``'s box (4096
    atoms, hidden 64, depth 6, 4 heads, cutoff 5 + skin 0.5, K = 64) and its
    first neighbour list; at layer 0, #13 (``csrc/sparse_fwd.cu``) and #14
-   (``csrc/sparse_bwd.cu``, input cotangents, random output cotangents)
-   against their plain versions, limit 1e-4 relative per tensor; then the
+   (``csrc/sparse_bwd.cu``, input cotangents, random output cotangents), whose
+   x-mixing product and its transpose run on ``wgmma`` in 3xTF32
+   (``csrc/wgmma_tf32.cuh``), against their plain versions, limit 1e-4
+   relative per tensor, and a second launch of each bitwise equal to the
+   first; #13, #14 and #14 with the leaf gradients on seeded inputs at K = 80,
+   96, 128 (two and three 64-slot tiles) and K = 37 (not a multiple of 8)
+   (``tools/probe_sparse.check_on_card``: the same limit, two launches bitwise
+   equal), and at the most slots the route takes, one more raising
+   (``check_slot_limit``); the clock probe of #13, #14 and #14's rows
+   instantiation (``tools/probe_sparse.py``, built beside the library in phase
+   2): each phase's share of the block's cycles (PROBE lines); then the
    kernel E + F against the plain sparse model: f_err <= 1e-4 and per-atom
    energies within 1e-5 of max |e_atom| (a random box's total cancels).
 12. A periodic box: the cell list (capacity 48) equals the all-pairs list
@@ -108,14 +117,20 @@ Phases (each prints its own lines; any failure exits non-zero):
    (the rows instantiation and ``csrc/sparse_contract.cu``) and #15
    (``csrc/sparse_bwd2.cu``, forward-over-reverse, and the contraction)
    against their plain versions (``torch.func.vjp`` for #15), 1e-4
-   relative per tensor.
+   relative per tensor; the clock probe at this box.
 15. Sparse step parity: the kernel branch against the plain double-autograd
    branch from one seeded init: step 1's loss and every gradient per leaf
    (1e-4), the energy loss's gradients (1e-4), the first 5 losses (1e-3).
 16. The sparse training slice: ``registry.get_workload("sparse_train_kernel")``
    for its 100 steps, which must launch #13, #14 (both) and #15 and no
    dense kernel, with a falling loss; then the train step of both branches
-   in turns, each kernel timed, and a BREAKDOWN.
+   in turns, each kernel timed, and a BREAKDOWN. Then the yardsticks of the
+   two contraction kernels (LIBRARY lines): ``torch.matmul`` in f64 and in f32
+   (TF32 off) of the w_xmix term that ``csrc/sparse_contract.cu`` sums, over
+   materialised rows (#14 with dW; #15's augmented term as one product of
+   stacked rows) beside the contraction kernel alone on the same rows, and of
+   ``csrc/param_grads.cu``'s w_xmix leaf over all six layers (QM9's B = 64, N =
+   29 for #5; MD17's B = 4 and 512, N = 21, augmented, for #12).
 
 17. Remat kernels vs plain: at aspirin's full width, B = 300 (the serving
    path's inputs: embedded species, v = 0, every layer updating, a random
@@ -197,6 +212,7 @@ last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import functools
 import importlib.util
 import json
 import os
@@ -249,16 +265,36 @@ PEAK_F32_FLOPS, PEAK_BYTES, PEAK_BF16_FLOPS = 67e12, 3.35e12, 989e12
 # the dense TF32 tensor-core rate: #11's and #12's 3xTF32 products take 3 passes
 PEAK_TF32_FLOPS, TF32_PASSES = 495e12, 3
 PROBE_LIB = None  # the clock-probe build of #11 and #12 (tools/probe_fused.py), set by main
+SPARSE_PROBE_LIB = None  # and of #13 and #14 (tools/probe_sparse.py)
+# the K of the extra checks of #13 and #14: two and three 64-slot tiles, not a
+# multiple of 8 (and the route's limit, tools/probe_sparse.check_slot_limit)
+SPARSE_EXTRA_K = ((80, 128), (96, 128), (128, 128), (37, 128))  # (K, receiver rows)
+# the w_xmix leaf of param_grads.cu whose torch.matmul yardstick is timed: (the
+# kernel, B, N, augmented)
+LIBRARY_DENSE = (("#5 (param_grads.cu, QM9)", 64, 29, False),
+                 ("#12 (param_grads.cu augmented, MD17)", 4, 21, True),
+                 ("#12 (param_grads.cu augmented, MD17)", 512, 21, True))
 
 
-def probe_module():
-    """``tools/probe_fused.py`` (the clock probe of #11 and #12)."""
+def _load(name: str, *path):
     here = os.path.dirname(os.path.abspath(__file__))
-    spec = importlib.util.spec_from_file_location(
-        "probe_fused", os.path.join(here, "tools", "probe_fused.py"))
+    spec = importlib.util.spec_from_file_location(name, os.path.join(here, *path))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+@functools.lru_cache(maxsize=None)
+def probe_module():
+    """``tools/probe_fused.py`` (the clock probe of #11 and #12)."""
+    return _load("probe_fused", "tools", "probe_fused.py")
+
+
+@functools.lru_cache(maxsize=None)
+def sparse_probe_module():
+    """``tools/probe_sparse.py`` (the clock probe of #13 and #14, and their
+    checks against plain on seeded inputs)."""
+    return _load("probe_sparse", "tools", "probe_sparse.py")
 
 
 def fail(msg: str):
@@ -504,24 +540,28 @@ def main() -> int:
           f"torch={torch.__version__} cuda={torch.version.cuda}", flush=True)
 
     # -- 2. build ---------------------------------------------------------------
-    # beside the library, #11 and #12 with the clock probe compiled in
-    global PROBE_LIB
+    # beside the library, #11 and #12, and #13 and #14, with the clock probe
+    # compiled in
+    global PROBE_LIB, SPARSE_PROBE_LIB
     t0 = time.perf_counter()
     probe_box = {}
 
-    def build_probe():
+    def build_probe(key, module):
         try:
-            probe_box["path"] = probe_module().build_probe()
+            probe_box[key] = module().build_probe()
         except Exception as e:  # re-raised below, in this thread
             probe_box["error"] = e
 
-    worker = threading.Thread(target=build_probe)
-    worker.start()
+    workers = [threading.Thread(target=build_probe, args=a)
+               for a in (("dense", probe_module), ("sparse", sparse_probe_module))]
+    for w in workers:
+        w.start()
     lib_path = build.build()
-    worker.join()
+    for w in workers:
+        w.join()
     if "error" in probe_box:
         raise probe_box["error"]
-    PROBE_LIB = probe_box["path"]
+    PROBE_LIB, SPARSE_PROBE_LIB = probe_box["dense"], probe_box["sparse"]
     build.load()
     print(f"BUILD ok {time.perf_counter() - t0:.2f} s -> {lib_path.parent.name}", flush=True)
     for line in (lib_path.parent / "ptxas.txt").read_text().splitlines():
@@ -1541,11 +1581,14 @@ def sparse_fma(F, R, H, Kh, C):
     j-projections, o_f, o1, the semantic heads, x-mixing), the pullback
     (which recomputes the forward) and the leaf-gradient contraction. The
     function needs f32 leaf gradients, so the contraction's multiply-adds
-    count at the f32 peak, though the kernel sums them in f64."""
+    count at the f32 peak, though the kernel sums them in f64. ``tc_fwd`` and
+    ``tc_bwd``: of ``fwd`` and ``bwd``, those #13 and #14 run on the tensor
+    cores in 3xTF32 (the x-mixing product, and in the pullback its transpose
+    too), which their bounds count at TF32_PASSES passes over the TF32 peak."""
     HK = H * Kh
     fwd = F * R + F * H + R * H + H * H + H * Kh + HK * C
     pull = HK * C + Kh * H + H * H + H * R + R * F + H * F
-    return dict(fwd=fwd, bwd=fwd + pull, grads=fwd)
+    return dict(fwd=fwd, bwd=fwd + pull, grads=fwd, tc_fwd=HK * C, tc_bwd=2 * HK * C)
 
 
 def check_pairs(label, checks: dict, tol: float) -> dict:
@@ -1629,11 +1672,38 @@ def sparse_md_phases(dev, smi) -> list:
         wt = se.edge_transposes(ep)  # made once per layer, as the model does
         k14 = se._launch_bwd(hg, ai, oi, d0, mf, ep, gp, gh, wt)
         p14 = se.sparse_bwd_plain(hg, ai, oi, d0, mf, ep, gp, gh)
+        r13 = se._launch_fwd(hg, ai, oi, d0, mf, ep, wt)
+        r14 = se._launch_bwd(hg, ai, oi, d0, mf, ep, gp, gh, wt)
         torch.cuda.synchronize()
     abs_md = check_pairs(f"SPARSE MD (N={N}, K={K}, layer 0)", {
         "sparse_fwd": list(zip(("pooled", "hatt"), k13, p13)),
         "sparse_bwd": list(zip(("d_h_g", "d_a_i", "d_o_i", "d_d0"), k14, p14))}, SPARSE_TOL)
-    del k13, p13, k14, p14
+    same = all(torch.equal(a, b) for a, b in [*zip(k13, r13), *zip(k14, r14)])
+    print(f"SPARSE MD (N={N}, K={K}) #13 and #14 launched twice: outputs bitwise equal {same}",
+          flush=True)
+    if not same:
+        fail("#13 or #14 differ from run to run")
+    del k13, p13, k14, p14, r13, r14
+    ps = sparse_probe_module()
+    for K_x, NR_x in SPARSE_EXTRA_K:
+        try:
+            err = ps.check_on_card(K_x, NR_x, dev)
+        except AssertionError as e:
+            fail(f"#13 / #14 at K={K_x}: {e}")
+        print(f"SPARSE EXTRA K={K_x} (NR={NR_x}, seeded inputs) #13, #14, #14 with dW vs plain: "
+              + json.dumps({k: float(f"{v:.3e}") for k, v in err.items()})
+              + f", two launches bitwise equal (limit {SPARSE_TOL})", flush=True)
+    try:
+        most, err = ps.check_slot_limit(dev)
+    except AssertionError as e:
+        fail(f"#13 / #14 at the route's limit of slots: {e}")
+    print(f"SPARSE LIMIT K={most} (the most the route takes at these widths; seeded inputs) "
+          "#13, #14, #14 with dW vs plain: "
+          + json.dumps({k: float(f"{v:.3e}") for k, v in err.items()})
+          + f", two launches bitwise equal (limit {SPARSE_TOL}); K={most + 1} raises",
+          flush=True)
+    ps.probe((hg, ai, oi, d0, mf, ep, gp, gh), ps.load(SPARSE_PROBE_LIB),
+             f"N={N} K={K} (sparse_md_kernel, layer 0)", smi)
 
     # the model's E + F: kernel against plain, per-atom energies (a random
     # box's total cancels) and forces
@@ -1704,7 +1774,7 @@ def sparse_md_phases(dev, smi) -> list:
             runs[side].append(cuda_ms(lambda: fn(kp, x, idx, m), reps=2))
     ef_ms = {k: sum(v) / len(v) for k, v in runs.items()}
     with torch.no_grad():
-        t13 = cuda_ms(lambda: se._launch_fwd(hg, ai, oi, d0, mf, ep))
+        t13 = cuda_ms(lambda: se._launch_fwd(hg, ai, oi, d0, mf, ep, wt))
         t14 = cuda_ms(lambda: se._launch_bwd(hg, ai, oi, d0, mf, ep, gp, gh, wt))
         p13t = cuda_ms(lambda: se.sparse_fwd_plain(hg, ai, oi, d0, mf, ep), reps=1)
         p14t = cuda_ms(lambda: se.sparse_bwd_plain(hg, ai, oi, d0, mf, ep, gp, gh), reps=1)
@@ -1726,14 +1796,20 @@ def sparse_md_phases(dev, smi) -> list:
     E = N * K
     src = "sake_tpu_torch/csrc/"
     at = "sake_tpu/kernels/sparse_ef.py:"
-    return [
+    entries = [
         kernel_entry("sparse_fwd", src + "sparse_fwd.cu", at + "353", launches["sparse_fwd"],
                      abs_md["sparse_fwd"], t13, p13t, fma["fwd"] * E,
-                     nbytes(hg, ai, oi, d0, mf, ep) + 4 * N * (3 * C + HK)),
+                     nbytes(hg, ai, oi, d0, mf, ep) + 4 * N * (3 * C + HK), tc=fma["tc_fwd"] * E),
         kernel_entry("sparse_bwd", src + "sparse_bwd.cu", at + "401", launches["sparse_bwd"],
                      abs_md["sparse_bwd"], t14, p14t, fma["bwd"] * E,
-                     nbytes(hg, ai, oi, d0, mf, ep, gp, gh) + nbytes(hg, ai, oi, d0)),
+                     nbytes(hg, ai, oi, d0, mf, ep, gp, gh) + nbytes(hg, ai, oi, d0),
+                     tc=fma["tc_bwd"] * E),
     ]
+    print(f"SPARSE MD BOUNDS (N={N}, K={K}; the x-mixing products at {TF32_PASSES} passes over "
+          f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s, the rest at {PEAK_F32_FLOPS / 1e12:.0f}): "
+          + json.dumps({e["name"]: [round(e["bound_ms"], 4), e["bound_by"]] for e in entries}),
+          flush=True)
+    return entries
 
 
 def sparse_train_phases(dev, smi) -> list:
@@ -1787,6 +1863,9 @@ def sparse_train_phases(dev, smi) -> list:
         *((f"dW2.{n}", k15[6][n], p15[6][n]) for n in se.EDGE_LEAVES)]
     abs_tr = check_pairs(f"SPARSE TRAIN (N={N}, K={K}, layer 0)", checks, SPARSE_TOL)
     del k15, p15, checks
+    ps = sparse_probe_module()
+    ps.probe((hg, ai, oi, d0, mf, ep, gp, gh), ps.load(SPARSE_PROBE_LIB),
+             f"N={N} K={K} (sparse_train_kernel, layer 0)", smi)
 
     # -- 15. step parity against the plain (double autograd) branch ---------------
     def loss_and_grads(kp, loss):
@@ -1862,7 +1941,7 @@ def sparse_train_phases(dev, smi) -> list:
     step_ms = {k: sum(v) / len(v) for k, v in runs.items()}
     with torch.no_grad():
         t = dict(
-            sparse_fwd_train=(cuda_ms(lambda: se._launch_fwd(hg, ai, oi, d0, mf, ep)),
+            sparse_fwd_train=(cuda_ms(lambda: se._launch_fwd(hg, ai, oi, d0, mf, ep, wt)),
                               cuda_ms(lambda: se.sparse_fwd_plain(hg, ai, oi, d0, mf, ep),
                                       reps=1)),
             sparse_bwd_train=(cuda_ms(lambda: se._launch_bwd(hg, ai, oi, d0, mf, ep, gp, gh,
@@ -1894,19 +1973,71 @@ def sparse_train_phases(dev, smi) -> list:
     ins = nbytes(hg, ai, oi, d0, mf, ep)
     src = "sake_tpu_torch/csrc/"
     at = "sake_tpu/kernels/sparse_ef.py:"
+    contraction_library(dev, smi, hg, ai, oi, d0, mf, ep, gp, gh)
     return [
         kernel_entry("sparse_fwd_train", src + "sparse_fwd.cu", at + "353",
                      launches["sparse_fwd"], abs_tr["sparse_fwd_train"],
-                     *t["sparse_fwd_train"], fma["fwd"] * E, ins + 4 * N * (3 * C + HK)),
+                     *t["sparse_fwd_train"], fma["fwd"] * E, ins + 4 * N * (3 * C + HK),
+                     tc=fma["tc_fwd"] * E),
         kernel_entry("sparse_bwd_grads", src + "sparse_bwd.cu", at + "401",
                      launches["sparse_bwd_grads"], abs_tr["sparse_bwd_grads"],
                      *t["sparse_bwd_grads"], (fma["bwd"] + fma["grads"]) * E,
-                     ins + nbytes(gp, gh) + nbytes(hg, ai, oi, d0, ep)),
+                     ins + nbytes(gp, gh) + nbytes(hg, ai, oi, d0, ep), tc=fma["tc_bwd"] * E),
         kernel_entry("sparse_bwd2", src + "sparse_bwd2.cu", at + "501",
                      launches["sparse_bwd2"], abs_tr["sparse_bwd2"], *t["sparse_bwd2"],
                      2 * (fma["bwd"] + fma["grads"]) * E,
                      ins + nbytes(gp, gh, cg) + nbytes(hg, ai, oi, d0, gp, gh, ep)),
     ]
+
+
+def contraction_library(dev, smi, hg, ai, oi, d0, mf, ep, gp, gh):
+    """The yardsticks of the two contraction kernels (LIBRARY lines): one
+    ``torch.matmul`` in f64 and in f32 of the w_xmix term over materialised
+    operands, beside the contraction kernel alone where this phase has its
+    rows: ``csrc/sparse_contract.cu`` for #14 with dW (``he_att^T d_xm``) and
+    for #15 (``he_att^T t_d_xm + t_he_att^T d_xm``, one product of the rows
+    stacked), on layer 0's rows of the sparse training box; and
+    ``csrc/param_grads.cu``'s w_xmix leaf over six layers (one batched
+    product; #5 at QM9's B = 64, N = 29; #12's augmented one at MD17's B = 4
+    and 512, N = 21) on random rows of those shapes."""
+    import torch
+
+    from sake_tpu_torch.kernels import build
+    from sake_tpu_torch.kernels import sparse_ef as se
+
+    with torch.no_grad():
+        rows = se.edge_rows_plain(hg, ai, oi, d0, mf, ep, gp, gh)
+        rows["h_g"] = hg.reshape(-1, hg.shape[-1])
+        E = rows["h_g"].shape[0]
+        shapes = {n: tuple(ep[n].shape) for n in se.EDGE_LEAVES}
+        lib = build.load()
+        k_ms = cuda_ms(lambda: se._contract(lib, rows, se.GRAD_TERMS, shapes, E, dev))
+        a, g = rows["he_att"], rows["d_xm"]
+        gen = torch.Generator(dev).manual_seed(25)
+        ta, tg = torch.randn(a.shape, device=dev, generator=gen), torch.randn(
+            g.shape, device=dev, generator=gen)
+        a2, g2 = torch.cat([a, ta]), torch.cat([tg, g])
+        out = {}
+        for name, (x, y) in (("#14 with dW (sparse_contract.cu)", (a, g)),
+                             ("#15 (sparse_contract.cu, augmented)", (a2, g2))):
+            out[name] = {str(dt).split(".")[1]: round(cuda_ms(
+                lambda xd=x.to(dt), yd=y.to(dt): torch.matmul(xd.T, yd)), 4)
+                for dt in (torch.float64, torch.float32)}
+        print(f"LIBRARY sparse contraction at E={E} edges (N={hg.shape[0]}, K={hg.shape[1]}): "
+              f"the contraction kernel alone on #14's rows {k_ms:.4f} ms; torch.matmul of the "
+              f"w_xmix term (ms by dtype) " + json.dumps(out) + f" ({smi})", flush=True)
+        dense = {}
+        for name, B, N, aug in LIBRARY_DENSE:
+            Ed = B * N * N * (2 if aug else 1)
+            x = torch.randn(6, Ed, 256, device=dev, generator=gen)
+            y = torch.randn(6, Ed, 256, device=dev, generator=gen)
+            dense[f"{name} B={B}"] = {
+                str(dt).split(".")[1]: round(cuda_ms(
+                    lambda xd=x.to(dt), yd=y.to(dt): torch.matmul(xd.transpose(1, 2), yd)), 4)
+                for dt in (torch.float64, torch.float32)}
+            del x, y
+        print("LIBRARY param_grads.cu's w_xmix leaf over 6 layers, torch.matmul (ms by dtype) "
+              + json.dumps(dense) + f" ({smi})", flush=True)
 
 
 def remat_phases(dev, smi) -> list:

@@ -19,6 +19,12 @@ enum ProbeSlot {
   PR_HEAD,   // the readout head
   PR_OTHER,  // the kernels' own loads, stores and Hessian terms
   PR_FWD_MM, PR_BWD_MM, PR_JVP_MM, PR_TB_MM, PR_BWD_LOAD, PR_TB_LOAD,
+  // the sparse edge row (sparse_edge.cuh): geometry and loads, the narrow
+  // products, the softmax, forming he_att, the x-mixing product and its
+  // transpose, their epilogues (pooling, d_u, d_xm, d_h_e, d_att2), the
+  // pullback's narrow tail, and the rows instantiation's row stores
+  PR_SP_LOAD, PR_SP_NARROW, PR_SP_SOFTMAX, PR_SP_HEATT, PR_SP_XMIX_F, PR_SP_XMIX_B, PR_SP_EPI,
+  PR_SP_TAIL, PR_SP_STORE,
   kProbeSlots
 };
 
@@ -45,6 +51,13 @@ __device__ __forceinline__ long long& probe_last() {
       ::sake::probe_last() = t_;                                              \
     }                                                                         \
   } while (0)
+// A block barrier that only the probe build has, so that work interleaved
+// with other work between the body's own barriers gets a slot of its own.
+#define SAKE_PROBE_BARRIER(slot) \
+  do {                           \
+    __syncthreads();             \
+    SAKE_PROBE(slot);            \
+  } while (0)
 namespace sake {
 // Copies this source's slots to the host, and zeroes them when reset.
 static inline int probe_read(unsigned long long* out, int reset) {
@@ -59,6 +72,7 @@ static inline int probe_read(unsigned long long* out, int reset) {
 #else
 #define SAKE_PROBE_START() ((void)0)
 #define SAKE_PROBE(slot) ((void)0)
+#define SAKE_PROBE_BARRIER(slot) ((void)0)
 namespace sake {
 // Without the probe there is nothing to read.
 static inline int probe_read(unsigned long long*, int) { return (int)cudaErrorNotSupported; }

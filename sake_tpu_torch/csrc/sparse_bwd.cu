@@ -12,11 +12,13 @@
 //   want_param_grads=True accumulates them across its sequential grid,
 //   which blocks running in parallel cannot do without float atomics.
 //
-// What bounds it on an H100: f32 multiply-adds, about 2.0 times the
-// forward's (the x-mixing product runs forward and transposed); the design
-// is #13's (sparse_edge.cuh), at 153 KB of shared memory per block at K =
-// 64: 8.1 ms at N = 4096, K = 64 on an H100 (700 W) against a 1.26 ms bound
-// (chip_smoke.py).
+// What bounds it on an H100: multiply-adds, about 2.0 times the forward's
+// (the x-mixing product runs forward and transposed). Both x-mixing products
+// run on the tensor cores as #13's (wgmma_tf32.cuh; the transpose reads the
+// packed planes of w_xmix itself, TF32 wgmma taking only K-major operands),
+// which puts the bound at 0.649 ms at N = 4096, K = 64 (1.258 at the f32
+// rate); the narrow products and the pullback's tail stay on the CUDA cores:
+// 4.73 ms there on an H100 (700 W; tools/sparse_ab.py), 7.95 before.
 
 #include "sparse_edge.cuh"
 
@@ -53,7 +55,7 @@ extern "C" int sake_sparse_bwd(const float* hg, const float* ai, const float* oi
                                int Kh, int C, void* stream) {
   const sake::EdgeArgs A =
       bwd_args(hg, ai, oi, d0, m, w, gp, gh, d_hg, d_ai, d_oi, d_d0, NR, K, F, R, H, Kh, C);
-  return sake::launch_edge<float, false, true, false>(A, stream);
+  return sake::launch_edge_wg<false, true, false>(A, sake::edge_planes(w), stream);
 }
 
 // rows: the 12 EDGE_ROWS buffers.
@@ -65,5 +67,18 @@ extern "C" int sake_sparse_bwd_rows(const float* hg, const float* ai, const floa
   sake::EdgeArgs A =
       bwd_args(hg, ai, oi, d0, m, w, gp, gh, d_hg, d_ai, d_oi, d_d0, NR, K, F, R, H, Kh, C);
   for (int i = 0; i < sake::kEdgeRows; ++i) A.rows[i] = static_cast<float*>(rows[i]);
-  return sake::launch_edge<float, false, true, true>(A, stream);
+  return sake::launch_edge_wg<false, true, true>(A, sake::edge_planes(w), stream);
+}
+
+// The most neighbour slots a row may have at these widths, for both
+// instantiations (sparse_edge.cuh's wg_max_slots).
+extern "C" int sake_sparse_bwd_max_slots(int F, int R, int H, int Kh, int C) {
+  return sake::wg_max_slots<false, true>(sake::EDims{1, 1, F, R, H, Kh, C});
+}
+
+// The clock probe's slots (probe.cuh) of both instantiations, block cycles
+// summed over this source's launches since the last reset; an error unless
+// built with -DSAKE_PROBE.
+extern "C" int sake_sparse_bwd_probe(unsigned long long* out, int reset) {
+  return sake::probe_read(out, reset);
 }

@@ -21,9 +21,18 @@
 // from L2, and each thread keeps a small tile of outputs in registers. Every
 // sum runs in a fixed order (one thread per output, no atomics), so results
 // do not vary from run to run. Only __syncthreads synchronises the block.
+//
+// #13 and #14 (the float instantiations, kWg) run the x-mixing product and its
+// transpose on the tensor cores instead (wgmma_tf32.cuh): the whole row, up to
+// 64 slots at a time, is the M tile of one product, so the weight streams from
+// L2 once per row and product; their mbarriers add to the block's barriers.
+// #15 (Dl) keeps the chunked CUDA-core products above. To fit rows of up to
+// 145 slots beside the 66.5 KB product tile, the route lays the buffers that
+// its wide part never touches over that tile and its ring (carve_wg).
 #pragma once
 
 #include "resid_common.cuh"
+#include "wgmma_tf32.cuh"
 
 namespace sake {
 
@@ -48,6 +57,19 @@ struct EdgeW {
   const float *t_in_j, *t_o_j, *t_o_f, *t_o1, *t_sem, *t_xmix;
 };
 constexpr int kEdgeWPtrs = 17;
+
+// Whether #13 and #14 take these widths on the tensor cores: the x-mixing
+// product's H * heads = C = 256 (wgmma_tf32.cuh).
+__host__ __device__ inline bool wg_dims(const EDims& d) {
+  return d.H * d.Kh == kWgDepth && d.C == kWgCols;
+}
+
+// The packed hi and lo TF32 planes of the x-mixing weight that #13 and #14
+// read on the tensor cores (sparse_ef.xmix_planes): the forward's (t_xmix
+// rows) and the pullback's (w_xmix rows). They follow the 17 weight pointers.
+struct WgPlanes {
+  const float *fwd, *bwd;
+};
 
 struct EdgeArgs {
   EDims d;
@@ -260,7 +282,9 @@ __host__ __device__ inline T* take_t(Carver& cv, long long n) {
   return reinterpret_cast<T*>(cv.take(n * (long long)(sizeof(T) / sizeof(float))));
 }
 
-template <class T, bool kPull>
+// kWg (the tensor-core route): carve_wg places the buffers that its wide part
+// leaves alone (pre, rbf, df, dr, ws); the chain's outputs only with kFwdOut.
+template <class T, bool kPull, bool kWg = false, bool kFwdOut = true>
 __host__ __device__ inline ESmem<T> carve_edge(Carver& cv, const EDims& d, int kc) {
   const long long K = d.K, HK = (long long)d.H * d.Kh;
   ESmem<T> S;
@@ -271,17 +295,17 @@ __host__ __device__ inline ESmem<T> carve_edge(Carver& cv, const EDims& d, int k
   S.ir = take_t<T>(cv, K);
   S.u = take_t<T>(cv, 3 * K);
   S.du = kPull ? take_t<T>(cv, 3 * K) : nullptr;
-  S.dr = kPull ? take_t<T>(cv, K) : nullptr;
+  S.dr = kPull && !kWg ? take_t<T>(cv, K) : nullptr;
   S.ai = take_t<T>(cv, d.R);
   S.oi = take_t<T>(cv, d.H);
   S.gp = kPull ? take_t<T>(cv, 3LL * d.C) : nullptr;
   S.gh = kPull ? take_t<T>(cv, HK) : nullptr;
   S.hg = take_t<T>(cv, K * (d.F > d.H ? d.F : d.H));
-  S.pre = take_t<T>(cv, K * d.R);
-  S.rbf = take_t<T>(cv, K * d.R);
+  S.pre = kWg ? nullptr : take_t<T>(cv, K * d.R);
+  S.rbf = kWg ? nullptr : take_t<T>(cv, K * d.R);
   S.e0 = take_t<T>(cv, K * d.H);
   S.dhe = take_t<T>(cv, K * d.H);
-  S.df = kPull ? take_t<T>(cv, K * d.R) : nullptr;
+  S.df = kPull && !kWg ? take_t<T>(cv, K * d.R) : nullptr;
   S.sem = take_t<T>(cv, K * d.Kh);
   S.att = take_t<T>(cv, K * d.Kh);
   S.att2 = take_t<T>(cv, K * d.Kh);
@@ -290,9 +314,9 @@ __host__ __device__ inline ESmem<T> carve_edge(Carver& cv, const EDims& d, int k
   S.dg = take_t<T>(cv, d.Kh);
   S.wa = take_t<T>(cv, (long long)kc * HK);
   S.wb = take_t<T>(cv, (long long)kc * d.C);
-  S.pool = take_t<T>(cv, 3LL * d.C);
-  S.hatt = take_t<T>(cv, HK);
-  S.ws = cv.take((long long)kWTile * (d.C > HK ? d.C : HK));
+  S.pool = kFwdOut ? take_t<T>(cv, 3LL * d.C) : nullptr;
+  S.hatt = kFwdOut ? take_t<T>(cv, HK) : nullptr;
+  S.ws = kWg ? nullptr : cv.take((long long)kWTile * (d.C > HK ? d.C : HK));
   return S;
 }
 
@@ -303,11 +327,206 @@ inline long long edge_smem_bytes(const EDims& d, int kc) {
   return cv.off * (long long)sizeof(float);
 }
 
+// The tensor-core route's buffers beside the row's: the products' 64-slot
+// output tile X (row stride kWgCols + kWgXPad, so that a warp's A fragment
+// reads hit 32 banks), the ring of B stages and its barriers, and the planes;
+// recompute: #14's tail remakes pre and rbf (carve_wg).
+struct WgCtx {
+  float* x;
+  WgRing rg;
+  WgPlanes P;
+  bool recompute;
+};
+
+// The row's buffers and the ring's barriers, then X and the ring, with the
+// buffers that the wide part never touches laid over them: d_filt, d_r and
+// mm_wide's W tile, which the pullback's tail writes afresh, and pre and rbf,
+// which #13 is done with by then. #14's tail reads pre and rbf again, so they
+// sit beside X and the ring unless recompute, where the tail remakes them
+// (edge_row): the space a K over 100 needs at the sparse widths, where a slot
+// costs 1,284 B without it and 884 with it.
+template <bool kFwdOut, bool kPull>
+__host__ __device__ inline WgCtx carve_wg(Carver& cv, const EDims& d, int stages,
+                                          bool recompute, ESmem<float>* S) {
+  ESmem<float> s = carve_edge<float, kPull, true, kFwdOut>(cv, d, 0);
+  const long long K = d.K;
+  WgCtx wg{};
+  wg.rg.full = reinterpret_cast<unsigned long long*>(cv.take(4LL * stages));
+  wg.rg.empty = wg.rg.full ? wg.rg.full + stages : nullptr;
+  wg.rg.stages = stages;
+  wg.recompute = kPull && recompute;
+  const bool over = !kPull || recompute;  // pre and rbf under X and the ring
+  if (!over) {
+    s.pre = cv.take(K * d.R);
+    s.rbf = cv.take(K * d.R);
+  }
+  float* at = cv.base ? cv.base + cv.off : nullptr;
+  Carver wide{at}, rest{at};
+  wg.x = wide.take((long long)kWgRows * (kWgCols + kWgXPad));
+  wg.rg.ring = wide.take((long long)stages * kWgStage);
+  if (over) {
+    s.pre = rest.take(K * d.R);
+    s.rbf = rest.take(K * d.R);
+  }
+  s.df = kPull ? rest.take(K * d.R) : nullptr;
+  s.dr = kPull ? rest.take(K) : nullptr;
+  s.ws = rest.take((long long)kWTile * (d.F > d.H ? d.F : d.H));  // the H- and F-wide weights
+  cv.off += wide.off > rest.off ? wide.off : rest.off;
+  if (S) *S = s;
+  return wg;
+}
+
+template <bool kFwdOut, bool kPull>
+inline long long edge_wg_smem_bytes(const EDims& d, int stages, bool recompute) {
+  Carver cv{nullptr};
+  carve_wg<kFwdOut, kPull>(cv, d, stages, recompute, nullptr);
+  return cv.off * (long long)sizeof(float);
+}
+
+// The most neighbour slots a row may have on the tensor-core route at these
+// widths: its shared memory, with the shallowest ring and #14's tail
+// recomputing pre and rbf, fits one block.
+template <bool kFwdOut, bool kPull>
+inline int wg_max_slots(EDims d) {
+  for (d.K = 1; d.K < (1 << 16); ++d.K)
+    if (edge_wg_smem_bytes<kFwdOut, kPull>(d, kWgMinStages, true) > 232448) break;
+  return d.K - 1;
+}
+
+// #14 with pre and rbf under X and the ring (carve_wg's recompute): remake them
+// in the tail as the narrow phase made them, bit for bit, from h_g reloaded
+// over h_e (read for the last time before this) and t.
+__device__ __forceinline__ void wg_recompute_pre_rbf(const EdgeArgs& A, const ESmem<float>& S,
+                                                     int row) {
+  const int K = A.d.K, F = A.d.F, R = A.d.R;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const size_t eb = (size_t)row * K;
+  for (int j = tid; j < K * F; j += nt) S.hg[j] = A.hg[eb * F + j];
+  __syncthreads();
+  mmT<float>(K, F, R, [&](int r, int k) { return S.hg[r * F + k]; }, A.W.w_in_j,
+             [&](int r, int c, float v) { S.pre[r * R + c] = v + S.ai[c]; });
+  for (int j = tid; j < K * R; j += nt) {
+    const int e = j / R, c = j % R;
+    const float tm = S.t[e] - A.W.rbf_m[c];
+    S.rbf[j] = exp_(-A.W.rbf_b[c] * (tm * tm));
+  }
+}
+
+// The wide part of a row on the tensor cores (#13, #14): up to kWgRows slots
+// at a time, he_att formed in X (which the product's output then overwrites:
+// no buffer of its own), the x-mixing product and with kPull its transpose by
+// wg_xmix, reading their A fragments from X. The epilogues are the CUDA-core
+// route's (edge_row's chunked loop, #15's), over X in place of wa and wb and
+// with hatt and the ER_HE_ATT rows taken as he_att is formed: a fix to one
+// belongs in the other. One body for both, through views of X or of wa and
+// wb, cost #13 14% on the card and changed #15's SASS (PERF.md).
+template <bool kFwdOut, bool kPull, bool kRows>
+__device__ void edge_wide_wg(const EdgeArgs& A, const ESmem<float>& S, int row, WgCtx& wg) {
+  const EDims d = A.d;
+  const int K = d.K, H = d.H, Kh = d.Kh, C = d.C, HK = H * Kh;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const size_t eb = (size_t)row * K;
+  const float* he = S.hg;
+  float* X = wg.x;
+  constexpr int ldx = kWgCols + kWgXPad;
+  // this thread's accesses to the space that the ring shares (carve_wg) come
+  // before the ring's bulk copies
+  wg_fence_proxy();
+  for (int t0 = 0; t0 < K; t0 += kWgRows) {
+    const int n = min(kWgRows, K - t0);
+    // he_att[e, h*Kh + hd] = h_e[e, h] * att2[e, hd], a column per thread;
+    // hatt = sum_K he_att
+    for (int q = tid; q < HK; q += nt) {
+      const int h = q / Kh, hd = q % Kh;
+      float sum = 0.f;
+      for (int e = 0; e < n; ++e) {
+        const float a = he[(t0 + e) * H + h] * S.att2[(t0 + e) * Kh + hd];
+        X[e * ldx + q] = a;
+        sum += a;
+        if constexpr (kRows) put_row(A, ER_HE_ATT, (eb + t0 + e) * HK + q, a);
+      }
+      if constexpr (kFwdOut) S.hatt[q] = S.hatt[q] + sum;
+    }
+    __syncthreads();
+    SAKE_PROBE(PR_SP_HEATT);
+    // tanh(he_att @ w_xmix)
+    wg_xmix(n, [&](int r, int k) { return X[r * ldx + k]; }, wg.P.fwd, wg.rg,
+            [&](int r, int c, float v) { X[r * ldx + c] = tanh_(v); });
+    __syncthreads();
+    SAKE_PROBE(PR_SP_XMIX_F);
+    if constexpr (kFwdOut) {
+      // pooled_k = sum_K coeff * u_k, coeff = tanh * m
+      for (int c = tid; c < C; c += nt) {
+        float p0 = S.pool[c], p1 = S.pool[C + c], p2 = S.pool[2 * C + c];
+        for (int e = 0; e < n; ++e) {
+          const float co = X[e * ldx + c] * S.m[t0 + e];
+          p0 += co * S.u[t0 + e];
+          p1 += co * S.u[K + t0 + e];
+          p2 += co * S.u[2 * K + t0 + e];
+        }
+        S.pool[c] = p0;
+        S.pool[C + c] = p1;
+        S.pool[2 * C + c] = p2;
+      }
+    }
+    if constexpr (kPull) {
+      // d_u_k = sum_C coeff * g_pooled_k
+      for (int q = tid; q < 3 * n; q += nt) {
+        const int k = q / n, e = q % n;
+        float acc = 0.f;
+        for (int c = 0; c < C; ++c) acc += X[e * ldx + c] * S.gp[k * C + c];
+        S.du[k * K + t0 + e] = acc * S.m[t0 + e];
+      }
+      __syncthreads();
+      SAKE_PROBE(PR_SP_EPI);
+      // d_xm = d_coeff * m * (1 - tanh^2), d_coeff = sum_k g_pooled_k * u_k
+      for (int j = tid; j < n * C; j += nt) {
+        const int e = j / C, c = j % C;
+        const float dco = S.gp[c] * S.u[t0 + e] + S.gp[C + c] * S.u[K + t0 + e] +
+                          S.gp[2 * C + c] * S.u[2 * K + t0 + e];
+        const float th = X[e * ldx + c];
+        X[e * ldx + c] = dco * S.m[t0 + e] * (1.f - th * th);
+      }
+      __syncthreads();
+      SAKE_PROBE(PR_SP_EPI);
+      if constexpr (kRows) {
+        for (int j = tid; j < n * C; j += nt)
+          put_row(A, ER_D_XM, (eb + t0) * C + j, X[(j / C) * ldx + j % C]);
+        SAKE_PROBE_BARRIER(PR_SP_STORE);
+      }
+      // d_he_att = d_xm @ w_xmix^T + g_hatt, into X (wg_xmix's barrier puts
+      // the stores after every read of d_xm)
+      wg_xmix(n, [&](int r, int k) { return X[r * ldx + k]; }, wg.P.bwd, wg.rg,
+              [&](int r, int c, float v) { X[r * ldx + c] = v + S.gh[c]; });
+      __syncthreads();
+      SAKE_PROBE(PR_SP_XMIX_B);
+      // d_h_e = sum_hd d_he_att * att2; d_att2 = sum_h d_he_att * h_e
+      for (int j = tid; j < n * H; j += nt) {
+        const int e = j / H, h = j % H;
+        float acc = 0.f;
+        for (int hd = 0; hd < Kh; ++hd)
+          acc += X[e * ldx + h * Kh + hd] * S.att2[(t0 + e) * Kh + hd];
+        S.dhe[(t0 + e) * H + h] = acc;
+      }
+      for (int j = tid; j < n * Kh; j += nt) {
+        const int e = j / Kh, hd = j % Kh;
+        float acc = 0.f;
+        for (int h = 0; h < H; ++h) acc += X[e * ldx + h * Kh + hd] * he[(t0 + e) * H + h];
+        S.datt2[(t0 + e) * Kh + hd] = acc;
+      }
+    }
+    __syncthreads();
+    SAKE_PROBE(PR_SP_EPI);
+  }
+}
+
 // One receiver row: the chain (kFwdOut: write pooled and hatt), and with
 // kPull its pullback (input cotangents), with kRows also the cotangent
-// rows of the 11 edge-leaf gradients.
-template <class T, bool kFwdOut, bool kPull, bool kRows>
-__device__ void edge_row(const EdgeArgs& A, const ESmem<T>& S, int row, int kc) {
+// rows of the 11 edge-leaf gradients. kWg (float only): the wide part on the
+// tensor cores (edge_wide_wg, with wg), else in chunks of kc slots.
+template <class T, bool kFwdOut, bool kPull, bool kRows, bool kWg = false>
+__device__ void edge_row(const EdgeArgs& A, const ESmem<T>& S, int row, int kc,
+                         WgCtx* wg = nullptr) {
   const EDims d = A.d;
   const int K = d.K, F = d.F, R = d.R, H = d.H, Kh = d.Kh, C = d.C, HK = H * Kh;
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -346,6 +565,7 @@ __device__ void edge_row(const EdgeArgs& A, const ESmem<T>& S, int row, int kc) 
     for (int j = tid; j < HK; j += nt) S.hatt[j] = zero;
   }
   __syncthreads();
+  SAKE_PROBE(PR_SP_LOAD);
 
   // -- pre = h_g @ w_in_j + a_i; oji = h_g @ w_o_j + o_i; rbf
   mmT<T>(K, F, R, [&](int r, int k) { return S.hg[r * F + k]; }, W.w_in_j,
@@ -374,6 +594,7 @@ __device__ void edge_row(const EdgeArgs& A, const ESmem<T>& S, int row, int kc) 
   mmT<T, 1>(K, H, Kh, [&](int r, int k) { return he[r * H + k]; }, W.w_sem,
             [&](int r, int c, T v) { S.sem[r * Kh + c] = v + W.b_sem[c]; });
   __syncthreads();
+  SAKE_PROBE(PR_SP_NARROW);
   // -- softmax over the K slots per head, then the mask renormalisation: the
   //    elementwise steps by all threads, each sum over K in order by one
   //    thread a head (the max parks in dg and the sum in den)
@@ -406,83 +627,99 @@ __device__ void edge_row(const EdgeArgs& A, const ESmem<T>& S, int row, int kc) 
   for (int j = tid; j < K * Kh; j += nt)
     S.att2[j] = (S.att[j] * val(S.m[j / Kh])) / S.dg[j % Kh];
   __syncthreads();
+  SAKE_PROBE(PR_SP_SOFTMAX);
 
-  // -- the wide part, kc slots at a time
-  for (int c0 = 0; c0 < K; c0 += kc) {
-    const int n = min(kc, K - c0);
-    // he_att[e, h*Kh + hd] = h_e[e, h] * att2[e, hd]
-    for (int j = tid; j < n * HK; j += nt) {
-      const int e = j / HK, q = j % HK;
-      S.wa[j] = he[(c0 + e) * H + q / Kh] * S.att2[(c0 + e) * Kh + q % Kh];
-    }
-    __syncthreads();
-    // tanh(he_att @ w_xmix)
-    mm_wide<T>(n, HK, C, S.wa, HK, W.w_xmix, S.ws,
-               [&](int r, int c, T v) { S.wb[r * C + c] = tanh_(v); });
-    __syncthreads();
-    if constexpr (kFwdOut) {
-      // pooled_k = sum_K coeff * u_k, coeff = tanh * m; hatt = sum_K he_att
-      for (int c = tid; c < C; c += nt) {
-        T p0 = S.pool[c], p1 = S.pool[C + c], p2 = S.pool[2 * C + c];
-        for (int e = 0; e < n; ++e) {
-          const T co = S.wb[e * C + c] * val(S.m[c0 + e]);
-          p0 += co * S.u[c0 + e];
-          p1 += co * S.u[K + c0 + e];
-          p2 += co * S.u[2 * K + c0 + e];
+  if constexpr (kWg) {
+    edge_wide_wg<kFwdOut, kPull, kRows>(A, S, row, *wg);
+  } else {
+    // -- the wide part, kc slots at a time (edge_wide_wg runs the same
+    //    epilogues on the tensor-core route)
+    for (int c0 = 0; c0 < K; c0 += kc) {
+      const int n = min(kc, K - c0);
+      // he_att[e, h*Kh + hd] = h_e[e, h] * att2[e, hd]
+      for (int j = tid; j < n * HK; j += nt) {
+        const int e = j / HK, q = j % HK;
+        S.wa[j] = he[(c0 + e) * H + q / Kh] * S.att2[(c0 + e) * Kh + q % Kh];
+      }
+      __syncthreads();
+      SAKE_PROBE(PR_SP_HEATT);
+      // tanh(he_att @ w_xmix)
+      mm_wide<T>(n, HK, C, S.wa, HK, W.w_xmix, S.ws,
+         [&](int r, int c, T v) { S.wb[r * C + c] = tanh_(v); });
+      __syncthreads();
+      SAKE_PROBE(PR_SP_XMIX_F);
+      if constexpr (kFwdOut) {
+        // pooled_k = sum_K coeff * u_k, coeff = tanh * m; hatt = sum_K he_att
+        for (int c = tid; c < C; c += nt) {
+          T p0 = S.pool[c], p1 = S.pool[C + c], p2 = S.pool[2 * C + c];
+          for (int e = 0; e < n; ++e) {
+            const T co = S.wb[e * C + c] * val(S.m[c0 + e]);
+            p0 += co * S.u[c0 + e];
+            p1 += co * S.u[K + c0 + e];
+            p2 += co * S.u[2 * K + c0 + e];
+          }
+          S.pool[c] = p0;
+          S.pool[C + c] = p1;
+          S.pool[2 * C + c] = p2;
         }
-        S.pool[c] = p0;
-        S.pool[C + c] = p1;
-        S.pool[2 * C + c] = p2;
+        for (int j = tid; j < HK; j += nt) {
+          T a = S.hatt[j];
+          for (int e = 0; e < n; ++e) a += S.wa[e * HK + j];
+          S.hatt[j] = a;
+        }
       }
-      for (int j = tid; j < HK; j += nt) {
-        T a = S.hatt[j];
-        for (int e = 0; e < n; ++e) a += S.wa[e * HK + j];
-        S.hatt[j] = a;
+      if constexpr (kPull) {
+        // d_u_k = sum_C coeff * g_pooled_k
+        for (int q = tid; q < 3 * n; q += nt) {
+          const int k = q / n, e = q % n;
+          T acc = zero;
+          for (int c = 0; c < C; ++c) acc += S.wb[e * C + c] * S.gp[k * C + c];
+          S.du[k * K + c0 + e] = acc * val(S.m[c0 + e]);
+        }
+        __syncthreads();
+        SAKE_PROBE(PR_SP_EPI);
+        // d_xm = d_coeff * m * (1 - tanh^2), d_coeff = sum_k g_pooled_k * u_k
+        for (int j = tid; j < n * C; j += nt) {
+          const int e = j / C, c = j % C;
+          const T dco = S.gp[c] * S.u[c0 + e] + S.gp[C + c] * S.u[K + c0 + e] +
+                        S.gp[2 * C + c] * S.u[2 * K + c0 + e];
+          const T th = S.wb[j];
+          S.wb[j] = dco * val(S.m[c0 + e]) * (1.f - th * th);
+        }
+        if constexpr (kRows) {
+          SAKE_PROBE_BARRIER(PR_SP_EPI);
+          for (int j = tid; j < n * HK; j += nt)
+            put_row(A, ER_HE_ATT, (eb + c0) * HK + j, S.wa[j]);
+        }
+        __syncthreads();
+        SAKE_PROBE(kRows ? PR_SP_STORE : PR_SP_EPI);
+        if constexpr (kRows) {
+          for (int j = tid; j < n * C; j += nt) put_row(A, ER_D_XM, (eb + c0) * C + j, S.wb[j]);
+          SAKE_PROBE_BARRIER(PR_SP_STORE);
+        }
+        // d_he_att = d_xm @ w_xmix^T + g_hatt
+        mm_wide<T>(n, C, HK, S.wb, C, W.t_xmix, S.ws,
+                   [&](int r, int c, T v) { S.wa[r * HK + c] = v + S.gh[c]; });
+        __syncthreads();
+        SAKE_PROBE(PR_SP_XMIX_B);
+        // d_h_e = sum_hd d_he_att * att2; d_att2 = sum_h d_he_att * h_e
+        for (int j = tid; j < n * H; j += nt) {
+          const int e = j / H, h = j % H;
+          T acc = zero;
+          for (int hd = 0; hd < Kh; ++hd)
+            acc += S.wa[e * HK + h * Kh + hd] * S.att2[(c0 + e) * Kh + hd];
+          S.dhe[(c0 + e) * H + h] = acc;
+        }
+        for (int j = tid; j < n * Kh; j += nt) {
+          const int e = j / Kh, hd = j % Kh;
+          T acc = zero;
+          for (int h = 0; h < H; ++h) acc += S.wa[e * HK + h * Kh + hd] * he[(c0 + e) * H + h];
+          S.datt2[(c0 + e) * Kh + hd] = acc;
+        }
       }
+      __syncthreads();
+      SAKE_PROBE(PR_SP_EPI);
     }
-    if constexpr (kPull) {
-      // d_u_k = sum_C coeff * g_pooled_k
-      for (int q = tid; q < 3 * n; q += nt) {
-        const int k = q / n, e = q % n;
-        T acc = zero;
-        for (int c = 0; c < C; ++c) acc += S.wb[e * C + c] * S.gp[k * C + c];
-        S.du[k * K + c0 + e] = acc * val(S.m[c0 + e]);
-      }
-      __syncthreads();
-      // d_xm = d_coeff * m * (1 - tanh^2), d_coeff = sum_k g_pooled_k * u_k
-      for (int j = tid; j < n * C; j += nt) {
-        const int e = j / C, c = j % C;
-        const T dco = S.gp[c] * S.u[c0 + e] + S.gp[C + c] * S.u[K + c0 + e] +
-                      S.gp[2 * C + c] * S.u[2 * K + c0 + e];
-        const T th = S.wb[j];
-        S.wb[j] = dco * val(S.m[c0 + e]) * (1.f - th * th);
-      }
-      if constexpr (kRows)
-        for (int j = tid; j < n * HK; j += nt)
-          put_row(A, ER_HE_ATT, (eb + c0) * HK + j, S.wa[j]);
-      __syncthreads();
-      if constexpr (kRows)
-        for (int j = tid; j < n * C; j += nt) put_row(A, ER_D_XM, (eb + c0) * C + j, S.wb[j]);
-      // d_he_att = d_xm @ w_xmix^T + g_hatt
-      mm_wide<T>(n, C, HK, S.wb, C, W.t_xmix, S.ws,
-                 [&](int r, int c, T v) { S.wa[r * HK + c] = v + S.gh[c]; });
-      __syncthreads();
-      // d_h_e = sum_hd d_he_att * att2; d_att2 = sum_h d_he_att * h_e
-      for (int j = tid; j < n * H; j += nt) {
-        const int e = j / H, h = j % H;
-        T acc = zero;
-        for (int hd = 0; hd < Kh; ++hd)
-          acc += S.wa[e * HK + h * Kh + hd] * S.att2[(c0 + e) * Kh + hd];
-        S.dhe[(c0 + e) * H + h] = acc;
-      }
-      for (int j = tid; j < n * Kh; j += nt) {
-        const int e = j / Kh, hd = j % Kh;
-        T acc = zero;
-        for (int h = 0; h < H; ++h) acc += S.wa[e * HK + h * Kh + hd] * he[(c0 + e) * H + h];
-        S.datt2[(c0 + e) * Kh + hd] = acc;
-      }
-    }
-    __syncthreads();
   }
   if constexpr (kFwdOut) {
     for (int j = tid; j < 3 * C; j += nt)
@@ -490,6 +727,7 @@ __device__ void edge_row(const EdgeArgs& A, const ESmem<T>& S, int row, int kc) 
     for (int j = tid; j < HK; j += nt) put(A.hatt, (size_t)row * HK + j, S.hatt[j]);
   }
   if constexpr (!kPull) return;
+  SAKE_PROBE_BARRIER(PR_SP_EPI);
 
   // -- renormalisation (with its live factor), softmax and celu2 pullbacks
   for (int hd = tid; hd < Kh; hd += nt) {
@@ -514,6 +752,7 @@ __device__ void edge_row(const EdgeArgs& A, const ESmem<T>& S, int row, int kc) 
   mmT<T>(K, Kh, H, [&](int r, int k) { return S.datt2[r * Kh + k]; }, W.t_sem,
          [&](int r, int c, T v) { S.dhe[r * H + c] = S.dhe[r * H + c] + v; });
   if constexpr (kRows) {
+    SAKE_PROBE_BARRIER(PR_SP_TAIL);
     for (int j = tid; j < K * H; j += nt) {
       put_row(A, ER_H_E, eb * H + j, he[j]);
       put_row(A, ER_SE, eb * H + j, silu_(S.e0[j]));
@@ -521,8 +760,13 @@ __device__ void edge_row(const EdgeArgs& A, const ESmem<T>& S, int row, int kc) 
     for (int j = tid; j < K * Kh; j += nt) put_row(A, ER_D_SEM, eb * Kh + j, S.datt2[j]);
   }
   __syncthreads();
-  if constexpr (kRows)
+  SAKE_PROBE(kRows ? PR_SP_STORE : PR_SP_TAIL);
+  if constexpr (kRows) {
     for (int j = tid; j < K * H; j += nt) put_row(A, ER_D_H_E, eb * H + j, S.dhe[j]);
+    SAKE_PROBE_BARRIER(PR_SP_STORE);
+  }
+  if constexpr (kWg)
+    if (wg->recompute) wg_recompute_pre_rbf(A, S, row);
   // -- d_e0 = (d_h_e @ w_o1^T) * silu'(e0), in place of e0
   mm_wide<T>(K, H, H, S.dhe, H, W.t_o1, S.ws,
              [&](int r, int c, T v) { S.e0[r * H + c] = v * dsilu_(S.e0[r * H + c]); });
@@ -541,10 +785,12 @@ __device__ void edge_row(const EdgeArgs& A, const ESmem<T>& S, int row, int kc) 
     put(A.d_oi, (size_t)row * H + h, acc);
   }
   if constexpr (kRows) {
+    SAKE_PROBE_BARRIER(PR_SP_TAIL);
     for (int j = tid; j < K * H; j += nt) put_row(A, ER_D_E0, eb * H + j, S.e0[j]);
     for (int e = tid; e < K; e += nt) put_row(A, ER_R, eb + e, S.r[e]);
   }
   __syncthreads();
+  SAKE_PROBE(kRows ? PR_SP_STORE : PR_SP_TAIL);
   // -- d_rbf = d_filt * pre; d_t = sum_R d_rbf * rbf * (-2 b (t - m)); d_r -= t d_t
   for (int e = tid; e < K; e += nt) {
     T acc = zero;
@@ -555,6 +801,7 @@ __device__ void edge_row(const EdgeArgs& A, const ESmem<T>& S, int row, int kc) 
     S.dr[e] = S.dr[e] + (-S.t[e]) * acc;
   }
   if constexpr (kRows) {
+    SAKE_PROBE_BARRIER(PR_SP_TAIL);
     for (int j = tid; j < K * R; j += nt) {
       const int e = j / R, c = j % R;
       const T tm = S.t[e] - W.rbf_m[c];
@@ -565,11 +812,15 @@ __device__ void edge_row(const EdgeArgs& A, const ESmem<T>& S, int row, int kc) 
     }
   }
   __syncthreads();
+  SAKE_PROBE(kRows ? PR_SP_STORE : PR_SP_TAIL);
   // -- d_pre = d_filt * rbf, in place
   for (int j = tid; j < K * R; j += nt) S.df[j] = S.df[j] * S.rbf[j];
   __syncthreads();
-  if constexpr (kRows)
+  SAKE_PROBE(PR_SP_TAIL);
+  if constexpr (kRows) {
     for (int j = tid; j < K * R; j += nt) put_row(A, ER_D_PRE, eb * R + j, S.df[j]);
+    SAKE_PROBE_BARRIER(PR_SP_STORE);
+  }
   // -- d_a_i = sum_K d_pre; d_h_g = d_pre @ w_in_j^T + d_e0 @ w_o_j^T
   for (int c = tid; c < R; c += nt) {
     T acc = zero;
@@ -594,6 +845,7 @@ __device__ void edge_row(const EdgeArgs& A, const ESmem<T>& S, int row, int kc) 
   mm_wide<T>(K, H, F, S.e0, H, W.t_o_j, S.ws,
              [&](int r, int c, T v) { put(A.d_hg, (eb + r) * F + c, S.hg[r * F + c] + v); });
   __syncthreads();  // the next row reuses the buffers
+  SAKE_PROBE(PR_SP_TAIL);
 }
 
 // The kernel: one block per receiver row, rows strided over the grid.
@@ -602,8 +854,50 @@ __global__ void __launch_bounds__(kEdgeThreads, 1) edge_kernel(EdgeArgs A, int k
   extern __shared__ float4 smem4[];
   Carver cv{reinterpret_cast<float*>(smem4)};
   const ESmem<T> S = carve_edge<T, kPull>(cv, A.d, kc);
+  SAKE_PROBE_START();
   for (int row = blockIdx.x; row < A.d.NR; row += gridDim.x)
     edge_row<T, kFwdOut, kPull, kRows>(A, S, row, kc);
+}
+
+// #13 and #14: the float instantiations on the tensor cores, the route's
+// buffers carved after the row's.
+template <bool kFwdOut, bool kPull, bool kRows>
+__global__ void __launch_bounds__(kEdgeThreads, 1)
+    edge_wg_kernel(EdgeArgs A, WgPlanes P, int stages, int recompute) {
+  extern __shared__ float4 smem4[];
+  Carver cv{reinterpret_cast<float*>(smem4)};
+  ESmem<float> S;
+  WgCtx wg = carve_wg<kFwdOut, kPull>(cv, A.d, stages, recompute != 0, &S);
+  wg.P = P;
+  wg_init(wg.rg);
+  __syncthreads();
+  SAKE_PROBE_START();
+  for (int row = blockIdx.x; row < A.d.NR; row += gridDim.x)
+    edge_row<float, kFwdOut, kPull, kRows, true>(A, S, row, 0, &wg);
+}
+
+// Launch with the deepest ring (kWgMaxStages ... kWgMinStages) whose shared
+// memory fits one block, first with pre and rbf kept through the wide part, then
+// (#14) with its tail recomputing them; an invalid value where the widths are
+// not the route's (wg_dims) or nothing fits (K over wg_max_slots).
+template <bool kFwdOut, bool kPull, bool kRows>
+int launch_edge_wg(const EdgeArgs& A, const WgPlanes& P, void* stream) {
+  if (!wg_dims(A.d) || !P.fwd || (kPull && !P.bwd))
+    return (int)cudaErrorInvalidValue;
+  for (int recompute = 0; recompute <= (kPull ? 1 : 0); ++recompute)
+    for (int stages = kWgMaxStages; stages >= kWgMinStages; --stages) {
+      const long long smem = edge_wg_smem_bytes<kFwdOut, kPull>(A.d, stages, recompute);
+      if (smem > 232448) continue;
+      auto kern = edge_wg_kernel<kFwdOut, kPull, kRows>;
+      cudaError_t err =
+          cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+      if (A.d.NR > 0)
+        kern<<<A.d.NR, kEdgeThreads, smem, static_cast<cudaStream_t>(stream)>>>(A, P, stages,
+                                                                                 recompute);
+      return (int)cudaGetLastError();
+    }
+  return (int)cudaErrorInvalidValue;
 }
 
 // Launch with the widest chunk of slots (16, 8, ... 1) whose shared memory
@@ -621,6 +915,11 @@ int launch_edge(const EdgeArgs& A, void* stream) {
   if (A.d.NR > 0)
     kern<<<A.d.NR, kEdgeThreads, smem, static_cast<cudaStream_t>(stream)>>>(A, kc);
   return (int)cudaGetLastError();
+}
+
+inline WgPlanes edge_planes(const void* const* w) {
+  return WgPlanes{static_cast<const float*>(w[kEdgeWPtrs]),
+                  static_cast<const float*>(w[kEdgeWPtrs + 1])};
 }
 
 inline EdgeW edge_weights(const void* const* w) {

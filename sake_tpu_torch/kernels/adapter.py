@@ -136,8 +136,22 @@ def load_linen_params(module: torch.nn.Module, params) -> None:
     """Copy a linen tree of numpy arrays or tensors into a module whose
     parameter names mirror the linen tree (``layer_0.edge_model.mlp_in.kernel``
     <-> ``tree["layer_0"]["edge_model"]["mlp_in"]["kernel"]``). Every module
-    parameter must be present in the tree, with the same shape."""
+    parameter must be present in the tree, with the same shape, and every
+    leaf of the tree must be a module parameter (a leaf the module lacks,
+    such as a velocity gate of a model initialised with a ``v``, raises)."""
     tree = params.get("params", params)
+    names = {name for name, _ in module.named_parameters()}
+
+    def leaves(node, path):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                yield from leaves(v, path + (k,))
+            else:
+                yield ".".join(path + (k,))
+
+    extra = sorted(set(leaves(tree, ())) - names)
+    if extra:
+        raise ValueError(f"linen leaves the module lacks: {', '.join(extra)}")
     with torch.no_grad():
         for name, prm in module.named_parameters():
             node = tree

@@ -131,6 +131,9 @@ def signatures() -> dict:
         # #11's and #12's clock probes (probe.cuh): out (slots,) u64, reset
         "sake_fused_ef_probe": [P, I],
         "sake_fused_bwd_probe": [P, I],
+        # #13's and #14's clock probes
+        "sake_sparse_fwd_probe": [P, I],
+        "sake_sparse_bwd_probe": [P, I],
         # h0, xs, tx0, upd, leaves, strides, the primal's and the tangent's bh, bx, bv,
         # h_fin, x_fin, v_fin, resid, tresid
         "sake_aug_fwd": [P] * 20 + dims + [P],
@@ -153,6 +156,9 @@ def signatures() -> dict:
         "sake_sparse_bwd_rows": [P] * 6 + [P, P] + [P] * 4 + [P] + edims + [P],
         # ... gp, gh, 4 cotangents, 6 outs, rows, t_rows
         "sake_sparse_bwd2": [P] * 6 + [P, P] + [P] * 4 + [P] * 6 + [P, P] + edims + [P],
+        # the most slots a row may have on #13's and #14's route at (F, R, H, Kh, C)
+        "sake_sparse_fwd_max_slots": [I] * 5,
+        "sake_sparse_bwd_max_slots": [I] * 5,
         # n_terms, a, na, g, ng, leaf, E, n_chunks, partial, leaf_off, n_leaves, out, stream
         "sake_sparse_contract": [I, P, P, P, P, P, LL, I, P, P, I, P, P],
         "sake_split_fwd": [I, P, P, P] + sdims + [P],

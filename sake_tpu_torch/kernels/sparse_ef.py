@@ -20,6 +20,12 @@ the scatter of ``d_h_g`` stay torch ops, which autograd differentiates
   the contraction ``csrc/sparse_contract.cu``) and :func:`sparse_bwd2` (#15,
   ``csrc/sparse_bwd2.cu`` and the contraction) take their plain versions
   only for CPU tensors; on a CUDA tensor they launch the kernels or raise.
+  #13 and #14 run the x-mixing product and its transpose on the tensor cores
+  (``csrc/wgmma_tf32.cuh``, 3xTF32 with chunked sums), which take ``H *
+  heads = C = 256`` (the sparse tasks' widths) and raise on other widths
+  and on rows with more neighbour slots than their shared memory holds (145
+  there); :func:`xmix_planes` splits and packs the weight for them once per
+  layer.
 - :func:`sparse_kernel_model_forward` (``:725``),
   :func:`make_sparse_kernel_energy_forces` (``:863``),
   :func:`make_sparse_kernel_energy_loss` (``:905``) and
@@ -60,6 +66,7 @@ from sake_tpu_torch.kernels.functional import (
 )
 from sake_tpu_torch.kernels.leaves import split_layer
 from sake_tpu_torch.kernels.resid_ef import _check_cuda, _require_cuda, _stream
+from sake_tpu_torch.kernels.tf32 import tf32_split, wgmma_planes
 from sake_tpu_torch.sparse import _f32_only, _gather, _min_image
 
 # the leaves the edge kernels read, in the JAX ``_EDGE_LEAVES`` order
@@ -310,22 +317,47 @@ def _edge_dims(h_g, a_i, o_i, ep):
     return NR, K, F, R, H, Kh, C
 
 
+# the widths the tensor-core x-mixing of #13 and #14 takes (csrc/wgmma_tf32.cuh):
+# H * heads = C = 256
+XMIX_TC_WIDTH = 256
+
+
+def xmix_planes(w_xmix) -> list:
+    """The packed hi and lo TF32 planes of ``w_xmix (HK, C)`` that #13 and #14
+    read on the tensor cores (:func:`~sake_tpu_torch.kernels.tf32.wgmma_planes`
+    of its K-major forms): the forward's (rows of ``w_xmix^T``) and the
+    pullback's (rows of ``w_xmix``)."""
+    hi, lo = tf32_split(w_xmix.detach())  # once for both forms
+    return [wgmma_planes(hi.T, (hi.T, lo.T)), wgmma_planes(hi, (hi, lo))]
+
+
 def edge_transposes(ep) -> list:
     """The transposed products the pullbacks read (``_TRANSPOSED`` order),
-    made once per layer and shared by its pullback launches."""
-    return [ep[n].detach().T.contiguous() for n in _TRANSPOSED]
+    then :func:`xmix_planes` (None where the widths are not the tensor-core
+    route's): made once per layer and shared by its launches."""
+    w = ep["w_xmix"]
+    planes = (xmix_planes(w) if tuple(w.shape) == (XMIX_TC_WIDTH, XMIX_TC_WIDTH)
+              else [None, None])
+    return [ep[n].detach().T.contiguous() for n in _TRANSPOSED] + planes
 
 
-def _check_edge(name, h_g, a_i, o_i, d0, m, ep, wt=None):
+def _check_edge(name, h_g, a_i, o_i, d0, m, ep, wt=None, tc=True):
     """Checks shared by the edge kernels; returns ``(dims, weight pointer
-    array)``. ``wt`` is :func:`edge_transposes` for a pullback, None for the
-    forward, which reads no transpose (their pointers are null)."""
+    array, wt)``: the pointers of the 11 leaves, the 6 transposes and the 2
+    planes of :func:`edge_transposes` (``wt``; for the forward, which reads no
+    transpose, None: the planes are made here, returned so that they outlive
+    the launch, and the transposes' pointers are null). ``tc``: the kernel runs
+    the x-mixing on the tensor cores (#13, #14), which take only ``H * heads =
+    C = XMIX_TC_WIDTH``."""
     _require_cuda(name, h_g)
     dims = _edge_dims(h_g, a_i, o_i, ep)
     NR, K, F, R, H, Kh, C = dims
     dev = h_g.device
     if ep["w_xmix"].shape[0] != H * Kh:
         raise ValueError(f"{name}: w_xmix has {ep['w_xmix'].shape[0]} rows, needs H * heads")
+    if tc and not H * Kh == C == XMIX_TC_WIDTH:
+        raise ValueError(f"{name}: the tensor-core x-mixing takes H * heads = C = "
+                         f"{XMIX_TC_WIDTH}, not {H} * {Kh} and {C}")
     _check_cuda("h_g", h_g, (NR, K, F), dev)
     _check_cuda("a_i", a_i, (NR, R), dev)
     _check_cuda("o_i", o_i, (NR, H), dev)
@@ -336,14 +368,32 @@ def _check_edge(name, h_g, a_i, o_i, d0, m, ep, wt=None):
                   w_xmix=(H * Kh, C))
     for n in EDGE_LEAVES:
         _check_cuda(n, ep[n], shapes[n], dev)
-    ptrs = [ep[n].data_ptr() for n in EDGE_LEAVES]
     if wt is None:
-        ptrs += [None] * len(_TRANSPOSED)
+        wt = [None] * len(_TRANSPOSED) + (xmix_planes(ep["w_xmix"]) if tc else [None, None])
     else:
         for n, a in zip(_TRANSPOSED, wt):
             _check_cuda(n + "^T", a, shapes[n][::-1], dev)
-        ptrs += [a.data_ptr() for a in wt]
-    return dims, (ctypes.c_void_p * len(ptrs))(*ptrs)
+    if tc:
+        HK = H * Kh
+        for n, a, shape in (("forward", wt[-2], (HK // 8, 2, C // 8, 2, 8, 4)),
+                            ("pullback", wt[-1], (C // 8, 2, HK // 8, 2, 8, 4))):
+            _check_cuda(f"the {n} x-mixing planes", a, shape, dev)
+            if a.data_ptr() % 16:  # the ring's bulk copies need 16-byte addresses
+                raise ValueError(f"{name}: the {n} x-mixing planes must start 16-byte aligned")
+    ptrs = [ep[n].data_ptr() for n in EDGE_LEAVES] + [
+        None if a is None else a.data_ptr() for a in wt]
+    return dims, (ctypes.c_void_p * len(ptrs))(*ptrs), wt
+
+
+def _check_slots(name, dims, entry):
+    """The tensor-core route holds a row's edge values in shared memory: raise,
+    naming the largest, where a row has more neighbour slots than it takes at
+    these widths (``entry``: the source's ``..._max_slots``)."""
+    NR, K, F, R, H, Kh, C = dims
+    most = entry(F, R, H, Kh, C)
+    if K > most:
+        raise ValueError(f"{name}: the tensor-core route takes at most {most} neighbour slots "
+                         f"a row at F={F}, R={R}, H={H}, heads={Kh}, C={C}, not {K}")
 
 
 def _row_widths(dims):
@@ -360,24 +410,27 @@ def _outs_like_inputs(h_g, a_i, o_i, d0):
     return torch.empty_like(h_g), torch.empty_like(a_i), torch.empty_like(o_i), torch.empty_like(d0)
 
 
-def sparse_fwd(h_g, a_i, o_i, d0, m, ep):
+def sparse_fwd(h_g, a_i, o_i, d0, m, ep, wt=None):
     """#13: the edge chain on ``NR`` receiver rows. ``h_g (NR, K, F)``,
     ``a_i (NR, R)``, ``o_i (NR, H)`` (biases folded in), ``d0 (3, NR, K)``,
     ``m (NR, K)``, ``ep`` the 11 edge leaves. Returns ``(pooled (3, NR, C),
-    hatt (NR, HK))``. CPU tensors take the plain version."""
+    hatt (NR, HK))``. ``wt``: the layer's :func:`edge_transposes` (the kernel
+    reads their x-mixing planes), made here when None. CPU tensors take the
+    plain version."""
     if h_g.device.type == "cpu":
         return sparse_fwd_plain(h_g, a_i, o_i, d0, m, ep)
-    out = _launch_fwd(h_g, a_i, o_i, d0, m, ep)
+    out = _launch_fwd(h_g, a_i, o_i, d0, m, ep, wt)
     sparse_fwd.launches += 1
     return out
 
 
-def _launch_fwd(h_g, a_i, o_i, d0, m, ep):
-    dims, w = _check_edge("sparse_fwd", h_g, a_i, o_i, d0, m, ep)
+def _launch_fwd(h_g, a_i, o_i, d0, m, ep, wt=None):
+    dims, w, wt = _check_edge("sparse_fwd", h_g, a_i, o_i, d0, m, ep, wt)
     NR, K, F, R, H, Kh, C = dims
     pooled = torch.empty(3, NR, C, device=h_g.device)
     hatt = torch.empty(NR, H * Kh, device=h_g.device)
     lib = build.load()
+    _check_slots("sparse_fwd", dims, lib.sake_sparse_fwd_max_slots)
     err = lib.sake_sparse_fwd(h_g.data_ptr(), a_i.data_ptr(), o_i.data_ptr(), d0.data_ptr(),
                               m.data_ptr(), w, pooled.data_ptr(), hatt.data_ptr(),
                               *dims, _stream(h_g.device))
@@ -409,10 +462,11 @@ def sparse_bwd(h_g, a_i, o_i, d0, m, ep, g_pooled, g_hatt, wt=None):
 
 def _launch_bwd(h_g, a_i, o_i, d0, m, ep, g_pooled, g_hatt, wt=None):
     wt = edge_transposes(ep) if wt is None else wt
-    dims, w = _check_edge("sparse_bwd", h_g, a_i, o_i, d0, m, ep, wt)
+    dims, w, wt = _check_edge("sparse_bwd", h_g, a_i, o_i, d0, m, ep, wt)
     _check_g(dims, g_pooled, g_hatt, h_g.device)
     outs = _outs_like_inputs(h_g, a_i, o_i, d0)
     lib = build.load()
+    _check_slots("sparse_bwd", dims, lib.sake_sparse_bwd_max_slots)
     err = lib.sake_sparse_bwd(h_g.data_ptr(), a_i.data_ptr(), o_i.data_ptr(), d0.data_ptr(),
                               m.data_ptr(), w, g_pooled.data_ptr(), g_hatt.data_ptr(),
                               *(t.data_ptr() for t in outs), *dims,
@@ -471,13 +525,14 @@ def sparse_bwd_grads(h_g, a_i, o_i, d0, m, ep, g_pooled, g_hatt, wt=None):
 
 def _launch_bwd_grads(h_g, a_i, o_i, d0, m, ep, g_pooled, g_hatt, wt=None):
     wt = edge_transposes(ep) if wt is None else wt
-    dims, w = _check_edge("sparse_bwd_grads", h_g, a_i, o_i, d0, m, ep, wt)
+    dims, w, wt = _check_edge("sparse_bwd_grads", h_g, a_i, o_i, d0, m, ep, wt)
     _check_g(dims, g_pooled, g_hatt, h_g.device)
     NR, K = dims[:2]
     dev = h_g.device
     outs = _outs_like_inputs(h_g, a_i, o_i, d0)
     rows = {n: torch.empty(NR * K, wd, device=dev) for n, wd in _row_widths(dims).items()}
     lib = build.load()
+    _check_slots("sparse_bwd_grads", dims, lib.sake_sparse_bwd_max_slots)
     err = lib.sake_sparse_bwd_rows(h_g.data_ptr(), a_i.data_ptr(), o_i.data_ptr(),
                                    d0.data_ptr(), m.data_ptr(), w, g_pooled.data_ptr(),
                                    g_hatt.data_ptr(), *(t.data_ptr() for t in outs),
@@ -513,7 +568,7 @@ def sparse_bwd2(h_g, a_i, o_i, d0, m, ep, g_pooled, g_hatt, c_hg, c_ai, c_oi, c_
 def _launch_bwd2(h_g, a_i, o_i, d0, m, ep, g_pooled, g_hatt, c_hg, c_ai, c_oi, c_d0,
                  wt=None):
     wt = edge_transposes(ep) if wt is None else wt
-    dims, w = _check_edge("sparse_bwd2", h_g, a_i, o_i, d0, m, ep, wt)
+    dims, w, wt = _check_edge("sparse_bwd2", h_g, a_i, o_i, d0, m, ep, wt, tc=False)
     _check_g(dims, g_pooled, g_hatt, h_g.device)
     NR, K, F, R, H, Kh, C = dims
     dev = h_g.device
@@ -585,17 +640,18 @@ class _EdgeOp(torch.autograd.Function):
       backward is #15; in the outer pass (grad mode off) #14 with the leaf
       gradients, the JAX ``fwd_l2`` rule.
 
-    On the card the layer's :func:`edge_transposes` are made at the first
-    pullback and kept on ``ctx`` for the others (#14 in both passes, #15).
+    On the card the layer's :func:`edge_transposes` are made in the forward
+    and kept on ``ctx`` for the pullbacks (#14 in both passes, #15).
     """
 
     @staticmethod
     def forward(ctx, mode, h_g, a_i, o_i, d0, m, *leaves):
         ctx.mode = mode
         ctx.leaf_nodes = [t.grad_fn for t in leaves]
-        ctx.wt = None
+        ep = dict(zip(EDGE_LEAVES, leaves))
+        ctx.wt = edge_transposes(ep) if h_g.is_cuda else None
         ctx.save_for_backward(h_g, a_i, o_i, d0, m, *leaves)
-        return sparse_fwd(h_g, a_i, o_i, d0, m, dict(zip(EDGE_LEAVES, leaves)))
+        return sparse_fwd(h_g, a_i, o_i, d0, m, ep, ctx.wt)
 
     @staticmethod
     def backward(ctx, g_pooled, g_hatt):
@@ -603,8 +659,6 @@ class _EdgeOp(torch.autograd.Function):
         ep = dict(zip(EDGE_LEAVES, leaves))
         g_pooled, g_hatt = g_pooled.contiguous(), g_hatt.contiguous()
         want_leaves = _engine_will_use(ctx.leaf_nodes)
-        if ctx.wt is None and h_g.is_cuda:
-            ctx.wt = edge_transposes(ep)
         none_leaves = (None,) * len(EDGE_LEAVES)
         if torch.is_grad_enabled():  # a create_graph pass: the force pass of a force loss
             if ctx.mode != "order2":

@@ -27,13 +27,17 @@ class SAKEModel(nn.Module):
     """Stack of dense SAKE layers with in/out embeddings.
 
     ``in_features`` is the width of the node features ``h`` (flax infers
-    it at ``init``). ``generator`` seeds the initialization; ``device=None``
-    means the CUDA card.
+    it at ``init``). ``velocity_input``: the model is called with a velocity
+    ``v`` (flax learns it at ``init``, where a ``v`` makes every update layer,
+    layer 0 included, create its velocity gate); without it only the layers
+    after the first update receive one. ``generator`` seeds the
+    initialization; ``device=None`` means the CUDA card.
     """
 
     def __init__(self, hidden_features: int, out_features: int = 1, depth: int = 4,
                  n_heads: int = 4, update: Sequence[bool] | bool = True, *,
-                 in_features: int, device=None, generator: torch.Generator | None = None):
+                 in_features: int, velocity_input: bool = False, device=None,
+                 generator: torch.Generator | None = None):
         super().__init__()
         kw = dict(device=resolve_device(device), generator=generator)
         self.n_heads = n_heads
@@ -45,7 +49,7 @@ class SAKEModel(nn.Module):
                 f"layer_{i}",
                 DenseSAKELayer(hidden_features, hidden_features, hidden_features,
                                n_heads=n_heads, update=upd,
-                               velocity=any(self.updates[:i]), **kw),
+                               velocity=velocity_input or any(self.updates[:i]), **kw),
             )
         self.embedding_out = MLP(hidden_features, (hidden_features, out_features), **kw)
 

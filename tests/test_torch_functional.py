@@ -329,3 +329,42 @@ def test_dense_entry_points_take_every_jax_keyword(name):
 
         resid_ef.make_hidden_fn(n_heads=4, update=False, batch_tile=4, pad_atoms=True,
                                 interpret=False, precision=None, edge_precision=None)
+
+
+def _velocity_setup(seed=7):
+    """A JAX ``SAKEModel(8, 1, depth=2, n_heads=2)`` initialised with a
+    velocity, as ``tasks/nbody.py`` and ``tasks/forecast.py`` initialise it,
+    and seeded inputs."""
+    rng = np.random.RandomState(seed)
+    h = rng.randn(B, N, F_IN).astype(np.float32)
+    x = rng.randn(B, N, 3).astype(np.float32)
+    v = rng.randn(B, N, 3).astype(np.float32)
+    model_j = JaxSAKEModel(hidden_features=8, out_features=1, depth=2, n_heads=2)
+    params = model_j.init(jax.random.PRNGKey(seed), jnp.asarray(h), jnp.asarray(x),
+                          jnp.asarray(v))
+    return model_j, params, h, x, v
+
+
+def test_velocity_input_model_matches_linen_apply():
+    """A model that takes a velocity: with ``velocity_input=True`` layer 0
+    has its velocity gate, as flax creates it at ``init`` with a ``v``, and
+    ``forward(h, x, v)`` matches linen's ``apply`` in f32."""
+    model_j, params, h, x, v = _velocity_setup()
+    assert "velocity_mlp_hidden" in params["params"]["layer_0"]
+    model = SAKEModel(8, 1, 2, n_heads=2, in_features=F_IN, velocity_input=True, device="cpu")
+    load_linen_params(model, _np_tree(params))
+    rh, rx, rv = model_j.apply(params, jnp.asarray(h), jnp.asarray(x), jnp.asarray(v))
+    with torch.no_grad():
+        oh, ox, ov = model(_t(h), _t(x), _t(v))
+    for got, want in ((oh, rh), (ox, rx), (ov, rv)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_load_linen_params_raises_on_a_leaf_the_module_lacks():
+    """Loading the velocity model's tree into a module built without
+    ``velocity_input`` names the gate leaves it lacks, where it used to skip
+    them and gate layer 0's velocity at 2 sigmoid(0) = 1."""
+    _, params, *_ = _velocity_setup()
+    model = SAKEModel(8, 1, 2, n_heads=2, in_features=F_IN, device="cpu")
+    with pytest.raises(ValueError, match="layer_0.velocity_mlp_hidden.kernel"):
+        load_linen_params(model, _np_tree(params))

@@ -2,8 +2,12 @@
 // that a kernel source runs (slowly) without a card: one std::thread per CUDA
 // thread, std::barrier for __syncthreads, a barrier per warp and a slot array
 // for __shfl_xor_sync, __syncwarp and the tensor-core product (mma_tf32x3.cuh's
-// mma_tf32, fragment for fragment; cvt.rna.tf32 and cp.async beside it),
-// NaN-filled dynamic shared memory, the blocks of a launch one after another.
+// mma_tf32, fragment for fragment; cvt.rna.tf32 and cp.async beside it), the
+// warpgroup product of wgmma_tf32.cuh (wgmma.mma_async on TF32 with A in
+// registers and B by its shared-memory descriptor, run when wgmma.wait_group
+// retires its group, as the PTX ISA allows; the fence, commit and wait), the
+// mbarriers and the TMA's bulk copy that feed it, NaN-filled dynamic shared
+// memory, the blocks of a launch one after another.
 // emulate.py rewrites `kern<<<g, b, smem, stream>>>(args)` into
 // emu_launch(kern, g, b, smem, stream, args) and `extern __shared__ float4
 // smem4[]` into a pointer before compiling with g++ -std=c++20.
@@ -14,9 +18,12 @@
 #include <barrier>
 #include <cstdint>
 #include <cstdlib>
+#include <cstdio>
 #include <cstring>
 #include <limits>
+#include <map>
 #include <memory>
+#include <mutex>
 #include <thread>
 #include <vector>
 
@@ -31,6 +38,7 @@
 
 struct dim3 {
   unsigned x = 1, y = 1, z = 1;
+  dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
 };
 struct alignas(16) float4 {
   float x, y, z, w;
@@ -67,12 +75,23 @@ inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t)
 }
 inline const char* cudaGetErrorString(int) { return "emulated"; }
 
+// An mbarrier: arrivals still expected in the current phase, the bytes of
+// transactions still expected, and the number of completed phases.
+struct EmuMbar {
+  int count = 0, pending = 0;
+  long long tx = 0;
+  unsigned phase = 0;
+};
+
 struct EmuBlock {
   std::barrier<>* block;
   std::vector<std::unique_ptr<std::barrier<>>> warps;
+  std::vector<std::unique_ptr<std::barrier<>>> wgroups;  // one per 128 threads, for wgmma
   std::vector<double> slots;  // one per thread, for the shuffles
-  std::vector<uint32_t> frags;  // six per thread, for the mma
+  std::vector<uint32_t> frags;  // six per thread, for the mma (four for wgmma)
   float4* smem;
+  std::mutex mu;  // guards the mbarriers
+  std::map<const void*, EmuMbar> mbars;
 };
 inline thread_local EmuBlock* emu_blk;
 
@@ -150,6 +169,143 @@ inline void cp_async_wait() {}
 
 inline float4* emu_smem() { return emu_blk->smem; }
 
+// ---- the Hopper subset of wgmma_tf32.cuh --------------------------------------
+// A shared-memory address: the byte offset into the block's dynamic shared
+// memory (the only shared memory the descriptors and barriers point into).
+inline unsigned smem_u32(const void* p) {
+  const long long off = (const char*)p - (const char*)emu_blk->smem;
+  if (off < 0 || off >= (1 << 18)) {
+    std::fprintf(stderr, "emu: shared address outside the dynamic shared memory\n");
+    std::abort();
+  }
+  return (unsigned)off;
+}
+inline void emu_mbar_complete(EmuMbar& b) {
+  if (b.pending == 0 && b.tx == 0) {
+    ++b.phase;
+    b.pending = b.count;
+  }
+}
+inline void mbar_init(unsigned long long* b, int count) {
+  std::lock_guard<std::mutex> lk(emu_blk->mu);
+  EmuMbar& m = emu_blk->mbars[b];
+  m.count = m.pending = count;
+  m.tx = 0;
+  m.phase = 0;
+}
+inline void mbar_fence_init() {}
+inline EmuMbar& emu_mbar(unsigned long long* b) {
+  auto it = emu_blk->mbars.find(b);
+  if (it == emu_blk->mbars.end()) {
+    std::fprintf(stderr, "emu: mbarrier used before mbarrier.init\n");
+    std::abort();
+  }
+  return it->second;
+}
+inline void mbar_arrive(unsigned long long* b) {
+  std::lock_guard<std::mutex> lk(emu_blk->mu);
+  EmuMbar& m = emu_mbar(b);
+  --m.pending;
+  emu_mbar_complete(m);
+}
+inline void mbar_expect_tx(unsigned long long* b, unsigned bytes) {
+  std::lock_guard<std::mutex> lk(emu_blk->mu);
+  EmuMbar& m = emu_mbar(b);
+  m.tx += bytes;
+  --m.pending;
+  emu_mbar_complete(m);
+}
+// try_wait.parity in a loop: returns once the phase of that parity has completed.
+inline void mbar_wait(unsigned long long* b, unsigned parity) {
+  for (;;) {
+    {
+      std::lock_guard<std::mutex> lk(emu_blk->mu);
+      if ((emu_mbar(b).phase & 1) != (parity & 1)) return;
+    }
+    std::this_thread::yield();
+  }
+}
+// cp.async.bulk: the bytes land at once, then complete their transaction.
+inline void bulk_g2s(float* dst, const float* src, unsigned bytes, unsigned long long* b) {
+  if ((bytes & 15) || ((uintptr_t)dst & 15) || ((uintptr_t)src & 15)) {
+    std::fprintf(stderr, "emu: cp.async.bulk needs 16-byte sizes and addresses\n");
+    std::abort();
+  }
+  smem_u32(dst);
+  smem_u32(dst + bytes / 4 - 1);
+  std::memcpy(dst, src, bytes);
+  std::lock_guard<std::mutex> lk(emu_blk->mu);
+  EmuMbar& m = emu_mbar(b);
+  m.tx -= bytes;
+  emu_mbar_complete(m);
+}
+// A wgmma.mma_async waiting for its group to retire: its accumulator and A
+// registers by address (read and written when it runs, so that a kernel that
+// touches them before wgmma.wait_group reads wrong values here), its B
+// descriptor and scale-d.
+struct EmuWgmma {
+  float* d;
+  const uint32_t* a;
+  uint64_t desc;
+  int scale_d, group;
+};
+inline thread_local std::vector<EmuWgmma> emu_wg_pending;
+inline thread_local int emu_wg_committed = 0;
+inline void wg_fence() {}
+inline void wg_fence_proxy() {}
+inline void wg_fence_operand(float&) {}
+inline void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+  emu_wg_pending.push_back({d, a, desc_b, scale_d, emu_wg_committed});
+}
+inline void wg_commit() { ++emu_wg_committed; }
+// Runs one product for the warpgroup: each thread posts its A fragment, then
+// forms its 64 outputs (the PTX ISA's m64nNk8 layouts: A rows 16w + g (+ 8),
+// columns t (+ 4); D row 16w + g + 8 ((i / 2) % 2), column 8 (i / 4) + 2t + i
+// % 2), B read through the descriptor (no swizzle: 8 x 16-byte core matrices,
+// LBO between the k halves, SBO between 8-column groups). Operands keep their
+// upper 19 bits, as the tensor cores read a tf32; products are added in k order.
+inline void emu_wgmma_run(const EmuWgmma& op) {
+  const int t = threadIdx.x, wg = t >> 7, lt = t & 127;
+  auto& bar = *emu_blk->wgroups[wg];
+  uint32_t* f = emu_blk->frags.data() + (size_t)wg * 128 * 6;
+  for (int i = 0; i < 4; ++i) f[lt * 6 + i] = op.a[i] & 0xffffe000u;
+  bar.arrive_and_wait();
+  if ((op.desc >> 62) != 0) {
+    std::fprintf(stderr, "emu: wgmma descriptor with a swizzle mode\n");
+    std::abort();
+  }
+  const char* base = (const char*)emu_blk->smem + (size_t)(op.desc & 0x3FFF) * 16;
+  const size_t lbo = (size_t)((op.desc >> 16) & 0x3FFF) * 16;
+  const size_t sbo = (size_t)((op.desc >> 32) & 0x3FFF) * 16;
+  auto A = [&](int r, int k) {
+    const int w = r >> 4, rr = r & 15;
+    return __uint_as_float(f[(w * 32 + (rr & 7) * 4 + (k & 3)) * 6 + (rr >> 3) + 2 * (k >> 2)]);
+  };
+  auto B = [&](int k, int c) {
+    uint32_t u;
+    std::memcpy(&u, base + (c >> 3) * sbo + (c & 7) * 16 + (k >> 2) * lbo + (k & 3) * 4, 4);
+    return __uint_as_float(u & 0xffffe000u);
+  };
+  const int w = lt >> 5, lane = lt & 31, g = lane >> 2, tt = lane & 3;
+  for (int i = 0; i < 64; ++i) {
+    const int r = 16 * w + g + 8 * ((i >> 1) & 1), c = 8 * (i >> 2) + 2 * tt + (i & 1);
+    float acc = op.scale_d ? op.d[i] : 0.f;
+    for (int k = 0; k < 8; ++k) acc += A(r, k) * B(k, c);
+    op.d[i] = acc;
+  }
+  bar.arrive_and_wait();
+}
+// wgmma.wait_group N: runs every pending product of the groups but the newest N.
+template <int kPending>
+inline void wg_wait() {
+  std::vector<EmuWgmma> keep;
+  for (const EmuWgmma& op : emu_wg_pending) {
+    if (op.group < emu_wg_committed - kPending) emu_wgmma_run(op);
+    else keep.push_back(op);
+  }
+  emu_wg_pending.swap(keep);
+}
+
 // The block size of a 512-thread launch, EMU_THREADS when set: the layer
 // bodies loop over blockDim.x, so such a kernel runs at 128 threads, and
 // faster. Other blocks keep their size (param_grads.cu's tiles assume theirs).
@@ -159,13 +315,14 @@ inline int emu_threads(int b) {
 }
 
 template <class K, class... A>
-void emu_launch(K kern, int grid, int block, size_t smem, void*, A... args) {
+void emu_launch(K kern, dim3 grid, int block, size_t smem, void*, A... args) {
   block = emu_threads(block);
-  for (int g = 0; g < grid; ++g) {
+  for (unsigned g = 0; g < grid.x * grid.y; ++g) {
     std::barrier<> bar(block);
     EmuBlock eb;
     eb.block = &bar;
     for (int w = 0; w < block / 32; ++w) eb.warps.emplace_back(new std::barrier<>(32));
+    for (int w = 0; w < block / 128; ++w) eb.wgroups.emplace_back(new std::barrier<>(128));
     eb.slots.assign(block, 0.0);
     eb.frags.assign((size_t)block * 6, 0u);
     std::vector<float4> mem(smem / 16 + 1);
@@ -176,10 +333,12 @@ void emu_launch(K kern, int grid, int block, size_t smem, void*, A... args) {
     for (int t = 0; t < block; ++t)
       ts.emplace_back([&, t] {
         emu_blk = &eb;
+        emu_wg_pending.clear();
+        emu_wg_committed = 0;
         threadIdx.x = t;
-        blockIdx.x = g;
+        blockIdx = dim3(g % grid.x, g / grid.x);
         blockDim.x = block;
-        gridDim.x = grid;
+        gridDim = grid;
         kern(args...);
       });
     for (auto& t : ts) t.join();

@@ -1,12 +1,15 @@
 """Run a kernel source on the CPU against its plain version: #20
 (``csrc/fused_remat_ef.cu``), or with ``--train`` #11 (``csrc/fused_ef.cu``) and
-#12's block (``csrc/fused_bwd.cu``).
+#12's block (``csrc/fused_bwd.cu``), or with ``--sparse`` #13 (``csrc/sparse_fwd.cu``)
+and #14 in both instantiations (``csrc/sparse_bwd.cu``, with the contraction).
 
     EMU_THREADS=128 python tools/cuda_emu/emulate.py                  # hidden 8 and 16
     EMU_THREADS=128 python tools/cuda_emu/emulate.py --hidden 64 --depth 3 --atoms 21
     EMU_THREADS=128 python tools/cuda_emu/emulate.py --asan          # AddressSanitizer
     EMU_THREADS=128 python tools/cuda_emu/emulate.py --train --hidden 8 16 64 --atoms 21
     EMU_THREADS=128 python tools/cuda_emu/emulate.py --helper        # mma_tf32x3.cuh alone
+    python tools/cuda_emu/emulate.py --wgmma                          # wgmma_tf32.cuh alone
+    python tools/cuda_emu/emulate.py --sparse --slots 64 48 80 37      # #13, #14 (both)
 
 Compiles the kernel source with g++ against ``cuda_runtime.h`` beside this file
 (one std::thread per CUDA thread; see there), loads it with ctypes in place of
@@ -17,7 +20,11 @@ plain bf16 version's distance from plain f32. With ``--train`` it calls
 each output's max relative error against ``fused_primal_plain`` and
 ``fused_bwd_block_plain``; at aspirin's widths (hidden 64, 4 heads) their x-mixing
 and edge products take the emulated tensor cores. A check before a kernel's first call on
-the card, not a measurement of it. ``--asan`` needs the script started with g++'s
+the card, not a measurement of it. With ``--sparse`` it calls ``sparse_ef``'s
+``_launch_fwd``, ``_launch_bwd`` and ``_launch_bwd_grads`` on the seeded inputs of
+``tools/probe_sparse.py`` at the sparse widths and ``--slots`` K, whose
+x-mixing takes the emulated ``wgmma``; ``--wgmma`` holds ``wgmma_tf32.cuh``'s
+product alone against float64. ``--asan`` needs the script started with g++'s
 libasan and libstdc++ preloaded (it prints the ``LD_PRELOAD`` line).
 """
 
@@ -116,6 +123,74 @@ def check_helper(tmp: Path, asan: bool):
               f"finite {bool(torch.isfinite(out).all())}", flush=True)
 
 
+def check_wgmma(tmp: Path, asan: bool):
+    """wg_xmix (``wgmma_tf32.cuh``) against a float64 product and
+    ``mm_tf32x3_chunked_plain`` (max |diff| / max |ref|) at the sparse shapes:
+    64, 48 and 37 rows of 256 against 256 x 256, rings of 2 and 3 stages, the
+    product run twice in a row (the ring's phases wrap)."""
+    import numpy as np
+
+    from sake_tpu_torch.kernels.tf32 import mm_tf32x3_chunked_plain, wgmma_planes
+
+    src = tmp / "src"
+    src.mkdir(parents=True, exist_ok=True)
+    (src / "wgmma_check.cu").write_text((Path(__file__).parent / "wgmma_check.cu").read_text())
+    lib = ctypes.CDLL(str(compile_source("wgmma_check.cu", tmp, asan, extra_src=src)))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.sake_wgmma_check.argtypes = [I, P, P, P, I, I]
+    rng = np.random.default_rng(0)
+    worst = 0.0
+    for n, stages in ((64, 3), (48, 2), (37, 3)):
+        a = torch.from_numpy(rng.standard_normal((n, 256)).astype(np.float32))
+        w = torch.from_numpy((rng.standard_normal((256, 256)) / 16).astype(np.float32))
+        out = torch.full((n, 256), float("nan"))
+        bpk = wgmma_planes(w.T.contiguous())  # B K-major: row c holds w[:, c]
+        lib.sake_wgmma_check(n, a.data_ptr(), bpk.data_ptr(), out.data_ptr(), stages, 2)
+        ref = a.double() @ w.double()
+        rel = lambda x: float((x.double() - ref).abs().max() / ref.abs().max())
+        worst = max(worst, rel(out))
+        print(f"wg_xmix {n} x 256 @ 256 x 256, {stages} stages: vs float64 {rel(out):.3e}, "
+              f"plain chunked 3xTF32 vs float64 {rel(mm_tf32x3_chunked_plain(a, w)):.3e}, "
+              f"f32 vs float64 {rel(a @ w):.3e}, finite {bool(torch.isfinite(out).all())}",
+              flush=True)
+    return worst
+
+
+def check_sparse(K: int, NR: int):
+    """#13, #14 and #14's rows instantiation (and its contraction) against
+    their plain versions at K slots, NR receiver rows; returns the worst
+    relative error."""
+    import importlib.util
+
+    from sake_tpu_torch.kernels import sparse_ef as se
+
+    spec = importlib.util.spec_from_file_location(  # its seeded inputs at the sparse widths
+        "probe_sparse", ROOT / "tools" / "probe_sparse.py")
+    probe_sparse = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe_sparse)
+    hg, ai, oi, d0, m, ep, gp, gh = probe_sparse.sparse_inputs(NR, K, seed=K)
+    rel = lambda a, b: float((a - b).abs().max() / (b.abs().max() + 1e-30))
+    worst = 0.0
+    t0 = time.perf_counter()
+    k13, p13 = se._launch_fwd(hg, ai, oi, d0, m, ep), se.sparse_fwd_plain(hg, ai, oi, d0, m, ep)
+    wt = se.edge_transposes(ep)
+    k14 = se._launch_bwd(hg, ai, oi, d0, m, ep, gp, gh, wt)
+    p14 = se.sparse_bwd_plain(hg, ai, oi, d0, m, ep, gp, gh)
+    kg = se._launch_bwd_grads(hg, ai, oi, d0, m, ep, gp, gh, wt)
+    pg = se.sparse_bwd_plain(hg, ai, oi, d0, m, ep, gp, gh, True)
+    for name, pairs in (
+            ("#13 sparse_fwd", zip(("pooled", "hatt"), k13, p13)),
+            ("#14 sparse_bwd", zip(("d_h_g", "d_a_i", "d_o_i", "d_d0"), k14, p14)),
+            ("#14 sparse_bwd_grads", [*zip(("d_h_g", "d_a_i", "d_o_i", "d_d0"), kg[:4], pg[:4]),
+                                      *((f"dW.{n}", kg[4][n], pg[4][n]) for n in se.EDGE_LEAVES)])):
+        errs = {n: rel(a, b) for n, a, b in pairs}
+        w = max(errs, key=errs.get)
+        worst = max(worst, errs[w])
+        print(f"{name} K {K} NR {NR}: max rel err {errs[w]:.3e} ({w})", flush=True)
+    print(f"  ({time.perf_counter() - t0:.1f} s)", flush=True)
+    return worst
+
+
 def check_train(hid: int, depth: int, B: int, N: int, seed: int = 0):
     """#11 and #12's block against their plain versions."""
     from sake_tpu_torch.kernels import train2_ef as t2
@@ -190,6 +265,13 @@ def main():
     ap.add_argument("--train", action="store_true", help="#11 and #12 in place of #20")
     ap.add_argument("--helper", action="store_true",
                     help="mma_tf32x3.cuh's products alone (mma_check.cu)")
+    ap.add_argument("--wgmma", action="store_true",
+                    help="wgmma_tf32.cuh's product alone (wgmma_check.cu)")
+    ap.add_argument("--sparse", action="store_true",
+                    help="#13 and #14 (csrc/sparse_fwd.cu, csrc/sparse_bwd.cu) in place of #20")
+    ap.add_argument("--slots", type=int, nargs="*", default=[64, 48],
+                    help="--sparse: the K of each case")
+    ap.add_argument("--rows", type=int, default=3, help="--sparse: receiver rows")
     args = ap.parse_args()
     if args.asan and "libasan" not in os.environ.get("LD_PRELOAD", ""):
         asan = subprocess.run(["g++", "-print-file-name=libasan.so"], capture_output=True,
@@ -200,6 +282,26 @@ def main():
     if args.helper:
         with tempfile.TemporaryDirectory() as tmp:
             check_helper(Path(tmp), args.asan)
+        return
+    if args.wgmma:
+        with tempfile.TemporaryDirectory() as tmp:
+            check_wgmma(Path(tmp), args.asan)
+        return
+    if args.sparse:
+        from sake_tpu_torch.kernels import sparse_ef as se
+
+        with tempfile.TemporaryDirectory() as tmp:
+            libs = Libs(*(load(compile_source(src, Path(tmp) / Path(src).stem, args.asan), names)
+                          for src, names in (
+                              ("sparse_fwd.cu", ["sake_sparse_fwd", "sake_sparse_fwd_max_slots"]),
+                              ("sparse_bwd.cu", ["sake_sparse_bwd", "sake_sparse_bwd_rows",
+                                                 "sake_sparse_bwd_max_slots"]),
+                              ("sparse_contract.cu", ["sake_sparse_contract"]))))
+            build.load = lambda: libs
+            se._require_cuda = lambda name, t: None
+            se._stream = lambda dev: None
+            worst = max(check_sparse(K, args.rows) for K in args.slots)
+        print(f"worst {worst:.3e}", flush=True)
         return
     if args.train:
         from sake_tpu_torch.kernels import resid_ef

@@ -5,14 +5,19 @@
 // mm_smem), the 3xTF32 tensor-core products (mm_tc, mm_tc_small), and one TF32
 // pass over every row's tile, padding included (what the split costs). Prints cycles per product
 // (block 0, clock64) and ms per launch (CUDA events), then the x-mixing product's error
-// against float64 on the CUDA cores and in 3xTF32 with and without chunk sums. Run by
-// mma_bench.py.
+// against float64 on the CUDA cores and in 3xTF32 with and without chunk sums. Then the
+// sparse shape (one receiver row of #13 and #14: 64 slots by 256 against 256 x 256), 31
+// times in a row per block (a row per SM at N = 4096) on 132 blocks of 256 threads:
+// mm_wide in chunks of 16 slots (the CUDA cores, the route #13 and #14 had before),
+// #11's and #12's mma.sync 3xTF32 (mm_tc, eight n8 tiles), and the wgmma 3xTF32 of #13
+// and #14 (wg_xmix), and wg_xmix against float64. Run by mma_bench.py.
 #include <algorithm>
 #include <cmath>
 #include <cstdio>
+#include <cstring>
 #include <vector>
 
-#include "mma_tf32x3.cuh"
+#include "sparse_edge.cuh"
 
 using namespace sake;
 
@@ -153,6 +158,125 @@ __global__ void __launch_bounds__(512, 1) kern(const float* W, float* out, int r
   out[blockIdx.x * 512 + threadIdx.x] = sink;
 }
 
+// The sparse shape: one row's 64 x 256 product kRepeat times per block, by
+// variant: 0 mm_wide in chunks of 16 slots, 1 mm_tc<8>, 2 wg_xmix; out: the
+// last product of block 0 (the accuracy check reads it after one repeat).
+template <int kV>
+__global__ void __launch_bounds__(256, 1) sparse_kern(const float* Ag, const float* W,
+                                                      const float* bpk, float* out, int reps,
+                                                      long long* cyc) {
+  extern __shared__ float4 smem4[];
+  constexpr int lda = kWgCols + kWgXPad, n = kWgRows;
+  float* A = reinterpret_cast<float*>(smem4);
+  float* O = A + n * lda;
+  float* scratch = O + n * kWgCols;  // mm_wide's W tile, mm_tc's ring or wg_xmix's ring
+  for (int e = threadIdx.x; e < n * kWgDepth; e += blockDim.x)
+    A[(e / kWgDepth) * lda + e % kWgDepth] = Ag[e];
+  WgRing rg{scratch, reinterpret_cast<unsigned long long*>(scratch + 4 * kWgStage), nullptr, 4,
+            0};
+  rg.empty = rg.full + 4;
+  if constexpr (kV == 2) wg_init(rg);
+  __syncthreads();
+  auto st = [&](int r, int c, float a) { O[r * kWgCols + c] = a; };
+  const long long t0 = clock64();
+  for (int i = 0; i < reps; ++i) {
+    if constexpr (kV == 0)
+      for (int c0 = 0; c0 < n; c0 += kWTile)
+        mm_wide<float>(kWTile, kWgDepth, kWgCols, A + c0 * lda, lda, W, scratch,
+                       [&](int r, int c, float a) { st(c0 + r, c, a); });
+    if constexpr (kV == 1) mm_tc<8>(n, A, lda, W, scratch, st);
+    if constexpr (kV == 2) wg_xmix(n, [&](int r, int k) { return A[r * lda + k]; }, bpk, rg, st);
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) cyc[blockIdx.x] = clock64() - t0;
+  if (blockIdx.x == 0)
+    for (int e = threadIdx.x; e < n * kWgCols; e += blockDim.x) out[e] = O[e];
+}
+
+// tf32(x) with cvt.rna's rounding, on the host
+static float tf32_host(float x) {
+  uint32_t u;
+  std::memcpy(&u, &x, 4);
+  if ((u & 0x7f800000u) != 0x7f800000u) u += 0x1000u;
+  u &= 0xffffe000u;
+  std::memcpy(&x, &u, 4);
+  return x;
+}
+
+// sparse_ef.xmix_planes' forward packing of W (256 x 256, row-major): B = W^T,
+// [k-step][hi, lo][column group][k half][column in group][k in half]
+static std::vector<float> pack_planes(const std::vector<float>& w) {
+  std::vector<float> p((size_t)kWgSteps * kWgStage);
+  for (int ks = 0; ks < kWgSteps; ++ks)
+    for (int pl = 0; pl < 2; ++pl)
+      for (int c = 0; c < kWgCols; ++c)
+        for (int kk = 0; kk < 8; ++kk) {
+          const float x = w[(size_t)(8 * ks + kk) * kWgCols + c], hi = tf32_host(x);
+          p[(size_t)ks * kWgStage + pl * kWgPlane + (c / 8) * 64 + (kk / 4) * 32 + (c % 8) * 4 +
+            kk % 4] = pl ? tf32_host(x - hi) : hi;
+        }
+  return p;
+}
+
+static void sparse_bench(float* W, float* out, long long* cyc) {
+  const int blocks = 132, reps = 31;
+  const size_t smem = ((size_t)kWgRows * (kWgCols + kWgXPad) + (size_t)kWgRows * kWgCols +
+                       4 * kWgStage + 16) * 4;
+  std::vector<float> ha(kWgRows * kWgDepth), hw(65536);
+  unsigned long long x = 0x2545F4914F6CDD1Dull;
+  auto uni = [&]() {
+    x = x * 6364136223846793005ull + 1442695040888963407ull;
+    return (double)(x >> 11) / 9007199254740992.0;
+  };
+  for (auto& v : ha) v = (float)(2 * uni() - 1);
+  for (auto& v : hw) v = (float)((2 * uni() - 1) / 16);
+  std::vector<float> hp = pack_planes(hw);
+  float *Ad, *Pd;
+  cudaMalloc(&Ad, ha.size() * 4);
+  cudaMalloc(&Pd, hp.size() * 4);
+  cudaMemcpy(Ad, ha.data(), ha.size() * 4, cudaMemcpyHostToDevice);
+  cudaMemcpy(W, hw.data(), hw.size() * 4, cudaMemcpyHostToDevice);
+  cudaMemcpy(Pd, hp.data(), hp.size() * 4, cudaMemcpyHostToDevice);
+  auto run = [&](auto k, const char* name) {
+    cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaEvent_t a, b;
+    cudaEventCreate(&a);
+    cudaEventCreate(&b);
+    k<<<blocks, 256, smem>>>(Ad, W, Pd, out, reps, cyc);
+    cudaEventRecord(a);
+    k<<<blocks, 256, smem>>>(Ad, W, Pd, out, reps, cyc);
+    cudaEventRecord(b);
+    cudaEventSynchronize(b);
+    float ms;
+    cudaEventElapsedTime(&ms, a, b);
+    std::vector<long long> c(blocks);
+    cudaMemcpy(c.data(), cyc, blocks * 8, cudaMemcpyDeviceToHost);
+    printf("MMA_BENCH sparse n=64 %s: %.4f ms per launch (%d products a block on %d blocks), "
+           "%lld cycles per product (%s)\n", name, ms, reps, blocks, c[0] / reps,
+           cudaGetErrorString(cudaGetLastError()));
+    // one product against float64
+    k<<<1, 256, smem>>>(Ad, W, Pd, out, 1, cyc);
+    std::vector<float> o(kWgRows * kWgCols);
+    cudaMemcpy(o.data(), out, o.size() * 4, cudaMemcpyDeviceToHost);
+    double e = 0, rmax = 0;
+    for (int r = 0; r < kWgRows; ++r)
+      for (int cc = 0; cc < kWgCols; ++cc) {
+        double acc = 0;
+        for (int kk = 0; kk < kWgDepth; ++kk)
+          acc += (double)ha[r * kWgDepth + kk] * hw[kk * kWgCols + cc];
+        e = std::max(e, std::fabs(o[r * kWgCols + cc] - acc));
+        rmax = std::max(rmax, std::fabs(acc));
+      }
+    printf("MMA_ACCURACY sparse n=64 %s: max |diff| / max |ref| %.3e against float64\n", name,
+           e / rmax);
+  };
+  run(sparse_kern<0>, "x-mixing, CUDA cores (mm_wide, chunks of 16 slots)");
+  run(sparse_kern<1>, "x-mixing, mma.sync 3xTF32 (mm_tc<8>)");
+  run(sparse_kern<2>, "x-mixing, wgmma 3xTF32 (wg_xmix)");
+  cudaFree(Ad);
+  cudaFree(Pd);
+}
+
 int main() {
   const int rows = 126, blocks = 132;
   float *W, *out;
@@ -243,5 +367,6 @@ int main() {
              "over 8 seeds (%s)\n", n, sign ? "non-negative" : "signed", names[v], worst[v],
              mean[v], cudaGetErrorString(cudaGetLastError()));
   }
+  sparse_bench(W, out, cyc);
   return 0;
 }

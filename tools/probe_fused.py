@@ -33,7 +33,8 @@ SOURCES = ("fused_ef.cu", "fused_bwd.cu")
 SLOTS = ("fwd_pre", "fwd_row", "fwd_xmix", "fwd_node", "bwd_pre", "bwd_row", "bwd_xmix",
          "bwd_node", "jvp_pre", "jvp_row", "jvp_xmix", "jvp_node", "tb_pre", "tb_row",
          "tb_xmix", "tb_node", "head", "other", "fwd_mm", "bwd_mm", "jvp_mm", "tb_mm",
-         "bwd_load", "tb_load")  # probe.cuh's ProbeSlot order
+         "bwd_load", "tb_load", "sp_load", "sp_narrow", "sp_softmax", "sp_heatt", "sp_xmix_f",
+         "sp_xmix_b", "sp_epi", "sp_tail", "sp_store")  # probe.cuh's ProbeSlot order
 KERNELS = ("fused_ef_kernelILb0E", "fused_bwd_kernel", "param_grads_kernelILb1E")
 ENTRIES = ("sake_fused_primal", "sake_fused_ef_smem_bytes", "sake_fused_bwd",
            "sake_fused_bwd_smem_bytes", "sake_fused_ef_probe", "sake_fused_bwd_probe")
