@@ -124,13 +124,20 @@ Phases (each prints its own lines; any failure exits non-zero):
 16. The sparse training slice: ``registry.get_workload("sparse_train_kernel")``
    for its 100 steps, which must launch #13, #14 (both) and #15 and no
    dense kernel, with a falling loss; then the train step of both branches
-   in turns, each kernel timed, and a BREAKDOWN. Then the yardsticks of the
-   two contraction kernels (LIBRARY lines): ``torch.matmul`` in f64 and in f32
-   (TF32 off) of the w_xmix term that ``csrc/sparse_contract.cu`` sums, over
-   materialised rows (#14 with dW; #15's augmented term as one product of
-   stacked rows) beside the contraction kernel alone on the same rows, and of
-   ``csrc/param_grads.cu``'s w_xmix leaf over all six layers (QM9's B = 64, N =
-   29 for #5; MD17's B = 4 and 512, N = 21, augmented, for #12).
+   in turns, each kernel timed, and a BREAKDOWN that splits #14 with dW and
+   #15 into their edge kernel and their contraction. The two contraction
+   kernels, on the f64 tensor cores (``csrc/dmma_f64.cuh``), against their
+   plain versions (``tools/probe_contract.check_contractions``: each leaf of
+   ``csrc/sparse_contract.cu`` within 1e-6 of the largest value of the f64
+   ``contract_plain`` on #14's and #15's rows of this box, each leaf of
+   ``csrc/param_grads.cu`` within 1e-4 of its plain version at full width,
+   and two launches of each bitwise equal; CONTRACT line), then each alone
+   beside its yardsticks (LIBRARY lines): ``torch.matmul`` over materialised
+   operands, the whole function (one product per term in f64, their times
+   summed) and its w_xmix term in f64 and in f32 (TF32 off): the sparse
+   kernel on layer 0's rows of this box under #14's and #15's terms,
+   ``csrc/param_grads.cu`` over all six layers (QM9's B = 64, N = 29 for #5;
+   MD17's B = 4 and 512, N = 21, augmented, for #12).
 
 17. Remat kernels vs plain: at aspirin's full width, B = 300 (the serving
    path's inputs: embedded species, v = 0, every layer updating, a random
@@ -269,12 +276,12 @@ SPARSE_PROBE_LIB = None  # and of #13 and #14 (tools/probe_sparse.py)
 # the K of the extra checks of #13 and #14: two and three 64-slot tiles, not a
 # multiple of 8 (and the route's limit, tools/probe_sparse.check_slot_limit)
 SPARSE_EXTRA_K = ((80, 128), (96, 128), (128, 128), (37, 128))  # (K, receiver rows)
-# the w_xmix leaf of param_grads.cu whose torch.matmul yardstick is timed: (the
-# kernel, B, N, augmented)
-LIBRARY_DENSE = (("#5 (param_grads.cu, QM9)", 64, 29, False),
-                 ("#12 (param_grads.cu augmented, MD17)", 4, 21, True),
-                 ("#12 (param_grads.cu augmented, MD17)", 512, 21, True))
-
+# the cases of param_grads.cu whose yardsticks are timed: (the kernel, B, N,
+# augmented)
+# the cases of tools/probe_contract.py (by the start of their labels) whose kernel
+# and yardsticks phase 16 times
+LIBRARY_CASES = ("sparse #14 with dW", "sparse #15", "#5 (qm9_kernel)",
+                 "#12 augmented (md17_kernel) B=4 ", "#12 augmented (md17_kernel) B=512 ")
 
 def _load(name: str, *path):
     here = os.path.dirname(os.path.abspath(__file__))
@@ -288,6 +295,13 @@ def _load(name: str, *path):
 def probe_module():
     """``tools/probe_fused.py`` (the clock probe of #11 and #12)."""
     return _load("probe_fused", "tools", "probe_fused.py")
+
+
+@functools.lru_cache(maxsize=None)
+def contract_probe_module():
+    """``tools/probe_contract.py`` (the contractions' probe, their seeded
+    inputs and their checks against plain on the card)."""
+    return _load("probe_contract", "tools", "probe_contract.py")
 
 
 @functools.lru_cache(maxsize=None)
@@ -1964,16 +1978,21 @@ def sparse_train_phases(dev, smi) -> list:
           f"{step_ms['plain']:.2f} ms (runs {json.dumps(runs)}); per kernel (ms, kernel and "
           f"plain) " + json.dumps({k: [round(a, 3), round(b, 3)] for k, (a, b) in t.items()})
           + f" ({smi})", flush=True)
+    k_c = contraction_library(dev, smi)
+    c14, c15 = k_c["#14 with dW"], k_c["#15"]
     print(f"SPARSE TRAIN BREAKDOWN kernel step {step_ms['kernel']:.3f} ms: edge kernels "
-          f"{depth}x(#13 + #14 + #14 with dW + #15) = {edge:.3f} ms, the rest (torch glue: node "
-          f"products, gathers and scatters, double autograd, adam) "
-          f"{step_ms['kernel'] - edge:.3f} ms", flush=True)
+          f"{depth}x(#13 {t['sparse_fwd_train'][0]:.3f} + #14 {t['sparse_bwd_train'][0]:.3f} + #14 "
+          f"with dW {t['sparse_bwd_grads'][0]:.3f} (rows kernel "
+          f"{t['sparse_bwd_grads'][0] - c14:.3f} + contraction {c14:.3f}) + #15 "
+          f"{t['sparse_bwd2'][0]:.3f} (edge kernel {t['sparse_bwd2'][0] - c15:.3f} + contraction "
+          f"{c15:.3f})) = {edge:.3f} ms, the rest (torch glue: node products, gathers and "
+          f"scatters, double autograd, adam) {step_ms['kernel'] - edge:.3f} ms; the contractions "
+          f"alone timed on rows of the same shapes", flush=True)
     fma = sparse_fma(hg.shape[-1], ai.shape[-1], oi.shape[-1], ep["w_sem"].shape[-1], C)
     E = N * K
     ins = nbytes(hg, ai, oi, d0, mf, ep)
     src = "sake_tpu_torch/csrc/"
     at = "sake_tpu/kernels/sparse_ef.py:"
-    contraction_library(dev, smi, hg, ai, oi, d0, mf, ep, gp, gh)
     return [
         kernel_entry("sparse_fwd_train", src + "sparse_fwd.cu", at + "353",
                      launches["sparse_fwd"], abs_tr["sparse_fwd_train"],
@@ -1990,54 +2009,31 @@ def sparse_train_phases(dev, smi) -> list:
     ]
 
 
-def contraction_library(dev, smi, hg, ai, oi, d0, mf, ep, gp, gh):
-    """The yardsticks of the two contraction kernels (LIBRARY lines): one
-    ``torch.matmul`` in f64 and in f32 of the w_xmix term over materialised
-    operands, beside the contraction kernel alone where this phase has its
-    rows: ``csrc/sparse_contract.cu`` for #14 with dW (``he_att^T d_xm``) and
-    for #15 (``he_att^T t_d_xm + t_he_att^T d_xm``, one product of the rows
-    stacked), on layer 0's rows of the sparse training box; and
-    ``csrc/param_grads.cu``'s w_xmix leaf over six layers (one batched
-    product; #5 at QM9's B = 64, N = 29; #12's augmented one at MD17's B = 4
-    and 512, N = 21) on random rows of those shapes."""
-    import torch
-
-    from sake_tpu_torch.kernels import build
-    from sake_tpu_torch.kernels import sparse_ef as se
-
-    with torch.no_grad():
-        rows = se.edge_rows_plain(hg, ai, oi, d0, mf, ep, gp, gh)
-        rows["h_g"] = hg.reshape(-1, hg.shape[-1])
-        E = rows["h_g"].shape[0]
-        shapes = {n: tuple(ep[n].shape) for n in se.EDGE_LEAVES}
-        lib = build.load()
-        k_ms = cuda_ms(lambda: se._contract(lib, rows, se.GRAD_TERMS, shapes, E, dev))
-        a, g = rows["he_att"], rows["d_xm"]
-        gen = torch.Generator(dev).manual_seed(25)
-        ta, tg = torch.randn(a.shape, device=dev, generator=gen), torch.randn(
-            g.shape, device=dev, generator=gen)
-        a2, g2 = torch.cat([a, ta]), torch.cat([tg, g])
-        out = {}
-        for name, (x, y) in (("#14 with dW (sparse_contract.cu)", (a, g)),
-                             ("#15 (sparse_contract.cu, augmented)", (a2, g2))):
-            out[name] = {str(dt).split(".")[1]: round(cuda_ms(
-                lambda xd=x.to(dt), yd=y.to(dt): torch.matmul(xd.T, yd)), 4)
-                for dt in (torch.float64, torch.float32)}
-        print(f"LIBRARY sparse contraction at E={E} edges (N={hg.shape[0]}, K={hg.shape[1]}): "
-              f"the contraction kernel alone on #14's rows {k_ms:.4f} ms; torch.matmul of the "
-              f"w_xmix term (ms by dtype) " + json.dumps(out) + f" ({smi})", flush=True)
-        dense = {}
-        for name, B, N, aug in LIBRARY_DENSE:
-            Ed = B * N * N * (2 if aug else 1)
-            x = torch.randn(6, Ed, 256, device=dev, generator=gen)
-            y = torch.randn(6, Ed, 256, device=dev, generator=gen)
-            dense[f"{name} B={B}"] = {
-                str(dt).split(".")[1]: round(cuda_ms(
-                    lambda xd=x.to(dt), yd=y.to(dt): torch.matmul(xd.transpose(1, 2), yd)), 4)
-                for dt in (torch.float64, torch.float32)}
-            del x, y
-        print("LIBRARY param_grads.cu's w_xmix leaf over 6 layers, torch.matmul (ms by dtype) "
-              + json.dumps(dense) + f" ({smi})", flush=True)
+def contraction_library(dev, smi) -> dict:
+    """The contraction kernels on the f64 tensor cores (CONTRACT and LIBRARY
+    lines): first ``tools/probe_contract.check_contractions`` (both against
+    their plain versions, each sparse leaf within 1e-6 of the f64
+    ``contract_plain``, two launches of each bitwise equal); then each kernel
+    alone beside its yardsticks (``probe_contract.library``: ``torch.matmul``
+    over materialised operands, the whole function as one product per term in
+    f64, their times summed, and its w_xmix term in f64 and f32, TF32 off):
+    ``csrc/sparse_contract.cu`` on layer 0's rows of the sparse training box
+    under #14's and #15's terms, ``csrc/param_grads.cu`` over six layers at
+    QM9's B = 64, N = 29 (#5) and, augmented, MD17's B = 4 and 512, N = 21
+    (#12). Returns the sparse kernel's ms under #14's and #15's terms."""
+    pc = contract_probe_module()
+    try:
+        err = pc.check_contractions(dev)
+    except AssertionError as e:
+        fail(f"contraction check: {e}")
+    print("CONTRACT both contractions against plain (sparse: per leaf against the f64 plain "
+          "version, limit 1e-6; dense: per leaf, 1e-4), two launches bitwise equal: max rel err "
+          + json.dumps({k: float(f"{v:.3e}") for k, v in err.items()}) + f" ({smi})", flush=True)
+    lib = {}
+    for label in LIBRARY_CASES:  # one case's inputs at a time
+        lib.update(pc.library(pc.cases(dev, (label,)), smi))
+    kernel = lambda prefix: next(v["kernel"] for k, v in lib.items() if k.startswith(prefix))
+    return {"#14 with dW": kernel(LIBRARY_CASES[0]), "#15": kernel(LIBRARY_CASES[1])}
 
 
 def remat_phases(dev, smi) -> list:

@@ -9,21 +9,29 @@
 // row sums. layer_param_grads in resid_ef.py is its plain version, leaf
 // for leaf. Operands that are products of residuals (h_e (x) att2 for
 // w_xmix, silu of a pre-activation, h_in + silu(uv), the rbf offset
-// terms) are formed as they are loaded, not stored.
+// terms) are formed as they are staged, not stored.
 //
 // Design: the TPU kernel carried dW in resident VMEM output blocks across
 // its sequential (batch tile, depth) grid. Here blocks run in parallel and
-// in no order, so the batch is cut into chunks of molecules: one block
-// computes one output tile of one leaf, for one layer, over one chunk's
-// rows, and writes it to that chunk's own partial sums; a second kernel
-// adds the chunks in order. No atomics, so the result is the same from run
-// to run. Wide leaves (a and g at least 8 columns) take 64 x 64 output
-// tiles, 4 x 4 per thread, 16 rows staged in shared memory per step, summed
-// in f32 over 64 rows and in double across them; the narrow ones (the semantic weights, w_vmix, w_vel1 and every
-// row sum) take 64 output rows per block (8 for the head biases), row
-// groups summed in double and then in order. The chunks' partial sums are
-// double too: the row sums cancel, and in f32 the b_sem gradient lost 1e-4
-// of its size against the plain version on an H100.
+// in no order, so each layer's rows (edges, atoms, or w_vmix's three pooled
+// planes) are cut into n_chunks ranges: one block computes one output tile
+// of one leaf, for one layer, over one chunk's rows, and writes it to that
+// chunk's own partial sums; a second kernel adds the chunks in order. No
+// atomics, so the result is the same from run to run. The wide leaves (g at
+// least 8 columns) run on the f64 tensor cores (dmma_f64.cuh): a block owns
+// 64 output rows against all of g's columns up to 256 (w_xmix) or 64 (the
+// others, in a kernel of their own), so each operand row is formed once per
+// block; w_xmix's block is one head's 64 rows of he_att = h_e * att2[head]
+// against all 256 columns of d_xm. Their raw rows (augmented, also the
+// tangents and the tangent chain's g) stream through a cp.async ring and are
+// formed there (StreamFill); w_vel0 (a = h_in + silu(uv)), and a leaf whose
+// tables the ring cannot stream, form theirs through the loaders below
+// (LoaderFill). Every product and sum is f64 from the first product. The
+// narrow leaves (the semantic weights, w_vmix, w_vel1 and every row sum)
+// take 64 output rows per block (8 for the head biases) on the CUDA cores,
+// row groups summed in double and then in order: the row sums cancel, and in
+// f32 the b_sem gradient lost 1e-4 of its size against the plain version on
+// an H100.
 //
 // Augmented (sake_param_grads_aug): the parameter gradients of the
 // shared-mode training backward, the dW_a + dW_t sums of
@@ -35,22 +43,23 @@
 // sum s_p + t(s_t) for a row sum s. The operands are the same loaders
 // evaluated on dual numbers, so every formed operand (silu, h_e (x) att2,
 // the rbf offset terms) brings its tangent by the product rule. A weight's
-// a is the same in both chains (a function of the residuals), so a tile
-// contracts 2x the rows: a against g_p + t_g, then t_a against g_t.
+// a is the same in both chains (a function of the residuals), so a stage
+// holds each row twice: a against g_p + t_g, then t_a against g_t, into the
+// same sums.
 //
-// What bounds it on an H100: f32 FMA issue. The w_xmix contraction is
-// most of the work: 256 x 256 outputs over B * N^2 edge rows per layer
-// (about 3.5 G FMA at QM9's batch 64, N = 29). The rows (about 1.6 MB per
-// molecule and layer) are read once per output tile column, from L2 or
-// device memory. Tensor cores (wgmma on bf16 or tf32) are a later change.
+// What bounds it on an H100: f64 multiply-adds on DMMA at 67 TFLOP/s. The
+// w_xmix contraction is most of the work: 256 x 256 outputs over B * N^2
+// edge rows per layer (about 3.5 G multiply-adds at QM9's batch 64, N = 29;
+// twice the rows augmented). The narrow leaves are bound by their loads (the
+// dual numbers' tables, about nine loads an element for the rbf sums).
 
+#include "dmma_f64.cuh"
 #include "resid_common.cuh"
 
 namespace sake {
 
-constexpr int kTile = 64;      // output tile edge, and columns of a narrow block
-constexpr int kStep = 16;      // rows staged per step of a tile
-constexpr int kThreads = 256;
+constexpr int kTile = 64;      // columns of a narrow block
+constexpr int kThreads = kDmThreads;
 constexpr int kNarrowMax = 8;  // widest g of a narrow contraction
 
 enum RowKind { EDGE_ROW, NODE_ROW, VMIX_ROW };
@@ -129,7 +138,7 @@ struct Src<Dl> {
 
 struct GradArgs {
   Dims d;
-  int per_chunk, n_chunks;  // molecules per chunk, chunks
+  int n_chunks;             // row ranges each layer's rows are cut into
   Leaves L;
   Tables P;                 // the rows' chain: K1's bh and residuals, its rows
   Tables Tv, Tt;            // augmented: the tangent chain's rows, and the tangents
@@ -138,7 +147,11 @@ struct GradArgs {
   long long off[kLeaves];   // each leaf's (depth, rows, cols) offset in total
   int ra[kLeaves], cg[kLeaves];  // contraction output (ra, cg): (cols, 1) for a row sum
   int tiles_c[kLeaves], row_tile[kLeaves];  // tiles across cg; output rows per tile
-  int first_block[kLeaves + 1];
+  int tiles[kLeaves];       // a leaf's tiles per layer and chunk
+  // each kernel's blocks by leaf: the narrow leaves', the wide leaves' whose
+  // tiles are 64 wide (NT = 2), w_xmix's (NT = 8)
+  int first[3][kLeaves + 1];
+  bool ring_ok[kLeaves];    // a wide leaf's raw rows stream through the ring (else the loaders)
 
   // element c of a node (atom n) or edge (e) row of layer l, width ch
   template <class T>
@@ -251,103 +264,324 @@ __device__ __forceinline__ T load_g(const GradArgs& g, const Src<T>& s, int l, s
   }
 }
 
-// Rows of a chunk of nm molecules, and the global row of chunk row `row`.
+// A layer's rows of a leaf: its edges, atoms, or (w_vmix) the three pooled
+// planes' atoms in turn; row r is the loaders' global row r.
 template <int LEAF>
-__device__ __forceinline__ int chunk_rows(const Dims& d, int nm) {
+__device__ __forceinline__ long long leaf_rows(const Dims& d) {
   constexpr RowKind kind = row_kind(LEAF);
-  return kind == EDGE_ROW ? nm * d.N * d.N : (kind == NODE_ROW ? nm * d.N : 3 * nm * d.N);
+  const long long bn = (long long)d.B * d.N;
+  return kind == EDGE_ROW ? bn * d.N : (kind == NODE_ROW ? bn : 3 * bn);
 }
 
-template <int LEAF>
-__device__ __forceinline__ size_t global_row(const Dims& d, int m0, int nm, int row) {
-  constexpr RowKind kind = row_kind(LEAF);
-  if constexpr (kind == EDGE_ROW) return (size_t)m0 * d.N * d.N + row;
-  if constexpr (kind == NODE_ROW) return (size_t)m0 * d.N + row;
-  const int per_k = nm * d.N;  // w_vmix: the three pooled planes in turn
-  return (size_t)(row / per_k) * d.B * d.N + (size_t)m0 * d.N + row % per_k;
+// Rows of a chunk: ceil(rows / n_chunks), whole f64 stages (so that every
+// stage of the ring starts 16-byte aligned); the last chunks may be short or
+// empty. sake_tpu_torch.kernels.resid_ef.grad_chunk_rows is the same rule.
+__host__ __device__ inline long long chunk_span(long long rows, int n_chunks) {
+  return ((rows + n_chunks - 1) / n_chunks + kDmK - 1) / kDmK * kDmK;
 }
 
-// out[r, c] = sum over the chunk's rows of a[row, r] * g[row, c], for one
-// 64 x 64 tile at (r0, c0). Augmented, over twice the rows: a against g_p +
-// t_g, then t_a against g_t. The sums run in f32 over kFlush steps of kStep
-// rows and in double across them: an f32 sum over the 2 x 132,300 edge rows
-// of B = 300 aspirin molecules lost up to 9e-5 of w_o1's gradient against
-// the plain version on an H100. The doubles live in shared memory (acc: 16
-// per thread, thread-major), since 16 more double registers halved the
-// blocks per SM.
-constexpr int kFlush = 4;
-template <int LEAF, bool kAug>
-__device__ void contract_tile(const GradArgs& g, int l, int m0, int nm, int r0, int c0,
-                              int ra, int cg, double* out, float* sm, double* accd) {
-  float* As = sm;
-  float* Gs = sm + kStep * kTile;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int rows = chunk_rows<LEAF>(g.d, nm), total = (kAug ? 2 : 1) * rows;
-  const Src<float> sp{&g.P}, st{&g.Tv};
-  const Src<Dl> sd{&g.Tv, &g.Tt};
+// g's columns of a wide block tile: all 256 of w_xmix's d_xm, else 64.
+__host__ __device__ constexpr int tile_nt(int leaf) { return leaf == W_XMIX ? 8 : 2; }
+// A wide leaf's tiles across a: 64 columns each; w_xmix's are one head's 64
+// rows of h_e each (a column r = h * K + head).
+__host__ __device__ inline int tiles_r(int leaf, const Dims& d, int ra) {
+  return leaf == W_XMIX ? d.K * ((d.H + kDmM - 1) / kDmM) : (ra + kDmM - 1) / kDmM;
+}
+
+// Real rows of an f64 stage: each row fills two stage rows augmented.
+template <bool kAug>
+__host__ __device__ constexpr int stage_rows() { return kAug ? kDmK / 2 : kDmK; }
+
+// One wide block: the tile's place in the leaf and its chunk's rows.
+struct WideTile {
+  int l, rt, ct;              // layer, tile along a, tile along g
+  long long r_begin, r_end;   // the chunk's rows
+  int m_live, n_live, c0;     // live output rows and columns; g's first column
+  int head, h0, r0;           // w_xmix: the head and its first h; else a's first column
+  __device__ int col_a(int m, int K) const { return head >= 0 ? (h0 + m) * K + head : r0 + m; }
+};
+
+// The ring of one tile 32 NT wide whose operands are formed by the loaders
+// (w_vel0, and a wide leaf whose tables the ring cannot stream), read as f64.
+// A 64-wide tile's
+// (NT = 2) elements are loaded and formed into registers by prefetch, before
+// the previous stage's products, and stored by stage; a wider one's are formed
+// and stored four at a time.
+template <int LEAF, bool kAug, int NT>
+struct LoaderFill {
+  static constexpr int TN = 32 * NT, qa = kDmK * kDmM / kDmThreads;
+  static constexpr int qb = kDmK * TN / kDmThreads;
+  static constexpr int lda = dm_ldr(kDmM), ldb = dm_ldr(TN);
+  static constexpr int kSlot = kDmK * (lda + ldb);  // floats
+  static constexpr bool kPre = NT == 2;
+  const GradArgs* g;
+  WideTile w;
+  float* ring;
+  float va[kPre ? qa : 1], vb[kPre ? qb : 1];
+
+  // element (v, j) of stage s: row v (augmented: v >= per is row v - per's
+  // second half) of the chunk's stage; a's (kA) or g's column j
+  template <bool kA>
+  __device__ __forceinline__ float form(int s, int v, int j) const {
+    constexpr int per = stage_rows<kAug>();
+    const Src<float> sp{&g->P}, st{&g->Tv};
+    const Src<Dl> sd{&g->Tv, &g->Tt};
+    const bool second = kAug && v >= per;
+    const long long row = w.r_begin + (long long)s * per + (second ? v - per : v);
+    if (row >= w.r_end || j >= (kA ? w.m_live : w.n_live)) return 0.f;
+    if constexpr (kA) {
+      const int r = w.col_a(j, g->d.K);
+      if (!kAug) return load_a<LEAF>(*g, sp, w.l, row, r);
+      if (!second) return load_a<LEAF>(*g, st, w.l, row, r);
+      return load_a<LEAF>(*g, sd, w.l, row, r).t;
+    } else {
+      const int c = w.c0 + j;
+      if (!kAug) return load_g<LEAF>(*g, sp, w.l, row, c);
+      if (!second) return load_g<LEAF>(*g, sp, w.l, row, c) + load_g<LEAF>(*g, sd, w.l, row, c).t;
+      return load_g<LEAF>(*g, st, w.l, row, c);
+    }
+  }
+
+  __device__ float* slot(int s) const { return ring + (s % kDmRing) * kSlot; }
+  __device__ void start() const {}
+  __device__ void prefetch(int s) {
+    if constexpr (kPre) {
 #pragma unroll
-  for (int q = 0; q < 16; ++q) accd[q * kThreads + tid] = 0.0;
-  float acc[4][4];
+      for (int i = 0; i < qa; ++i) {
+        const int q = threadIdx.x + i * kDmThreads;
+        va[i] = form<true>(s, q / kDmM, q % kDmM);
+      }
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < qb; ++i) {
+        const int q = threadIdx.x + i * kDmThreads;
+        vb[i] = form<false>(s, q / TN, q % TN);
+      }
+    }
+  }
+  __device__ void stage(int s) const {
+    float* A = slot(s);
+    float* B = A + kDmK * lda;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  int steps = 0;
-  for (int k0 = 0; k0 < total; k0 += kStep) {
-    for (int q = tid; q < kStep * kTile; q += kThreads) {
-      const int kk = q / kTile, col = q % kTile, vrow = k0 + kk;
-      const bool second = kAug && vrow >= rows;
-      const int row = second ? vrow - rows : vrow;
-      float a = 0.f, gv = 0.f;
-      if (vrow < (kAug ? 2 : 1) * rows) {
-        const size_t gr = global_row<LEAF>(g.d, m0, nm, row);
-        if (r0 + col < ra) {
-          if (!kAug) a = load_a<LEAF>(g, sp, l, gr, r0 + col);
-          else if (!second) a = load_a<LEAF>(g, st, l, gr, r0 + col);
-          else a = load_a<LEAF>(g, sd, l, gr, r0 + col).t;
+    for (int i = 0; i < qa; ++i) {
+      const int q = threadIdx.x + i * kDmThreads;
+      A[(q / kDmM) * lda + q % kDmM] = kPre ? va[i] : form<true>(s, q / kDmM, q % kDmM);
+    }
+    if constexpr (kPre) {
+#pragma unroll
+      for (int i = 0; i < qb; ++i) {
+        const int q = threadIdx.x + i * kDmThreads;
+        B[(q / TN) * ldb + q % TN] = vb[i];
+      }
+    } else {
+      for (int i0 = 0; i0 < qb; i0 += 4) {
+        float v[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int q = threadIdx.x + (i0 + i) * kDmThreads;
+          v[i] = form<false>(s, q / TN, q % TN);
         }
-        if (c0 + col < cg) {
-          if (!kAug) gv = load_g<LEAF>(g, sp, l, gr, c0 + col);
-          else if (!second)
-            gv = load_g<LEAF>(g, sp, l, gr, c0 + col) + load_g<LEAF>(g, sd, l, gr, c0 + col).t;
-          else gv = load_g<LEAF>(g, st, l, gr, c0 + col);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int q = threadIdx.x + (i0 + i) * kDmThreads;
+          B[(q / TN) * ldb + q % TN] = v[i];
         }
       }
-      As[q] = a;
-      Gs[q] = gv;
     }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kStep; ++kk) {
-      const float4 a4 = *reinterpret_cast<const float4*>(As + kk * kTile + ty * 4);
-      const float4 g4 = *reinterpret_cast<const float4*>(Gs + kk * kTile + tx * 4);
-      const float av[4] = {a4.x, a4.y, a4.z, a4.w}, gw[4] = {g4.x, g4.y, g4.z, g4.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], gw[j], acc[i][j]);
+  }
+
+  struct Op {
+    const float *A, *B;
+    template <int K8>
+    __device__ __forceinline__ double a(int k, int m) const {
+      return (double)A[(8 * K8 + k) * lda + m];
     }
-    if (++steps == kFlush || k0 + kStep >= total) {
+    template <int K8>
+    __device__ __forceinline__ double b(int k, int n) const {
+      return (double)B[(8 * K8 + k) * ldb + n];
+    }
+  };
+  __device__ Op op(int s) const { return {slot(s), slot(s) + kDmK * lda}; }
+};
+
+// How a wide leaf's operands reach the ring: a = form(one residual, boundary
+// or row stream) against one row stream g. FORM_LOADER: through the loaders
+// (w_vel0's a = h_in + silu(uv) reads two streams).
+enum Form { FORM_ID, FORM_SILU, FORM_XMIX, FORM_LOADER };
+struct StreamSpec {
+  int a_arr, a_idx, g_idx, form;
+};
+__host__ __device__ constexpr StreamSpec stream_spec(int leaf) {
+  switch (leaf) {
+    case W_IN_J: return {A_BH, 0, RW_DAJ, FORM_ID};
+    case W_IN_I: return {A_BH, 0, RW_DAI, FORM_ID};
+    case W_O_J: return {A_BH, 0, RW_DOJ, FORM_ID};
+    case W_O_I: return {A_BH, 0, RW_DOI, FORM_ID};
+    case W_NODE_H: return {A_BH, 0, RW_DNP, FORM_ID};
+    case W_O_F: return {A_RW, RW_FILT, RW_DE0, FORM_ID};
+    case W_O1: return {A_RS, RS_E0, RW_DHE, FORM_SILU};
+    case W_XMIX: return {A_RS, RS_H_E, RW_DXM, FORM_XMIX};  // a = h_e * att2[head]
+    case W_POST0: return {A_RW, RW_PSQ, RW_DPS0, FORM_ID};
+    case W_POST1: return {A_RS, RS_PS0, RW_DPS1, FORM_SILU};
+    case W_NODE_AGG: return {A_RW, RW_HATT, RW_DNP, FORM_ID};
+    case W_NODE_COMB: return {A_RS, RS_PS1, RW_DNP, FORM_SILU};
+    case W_NODE1: return {A_RS, RS_NODE_PRE, RW_DUV, FORM_SILU};
+    default: return {0, 0, 0, FORM_LOADER};
+  }
+}
+__host__ __device__ inline const float* table(const Tables& t, int arr, int i) {
+  return arr == A_BH ? t.bh : (arr == A_RS ? t.rs[i] : t.rw[i]);
+}
+
+// Floats of a ring slot of a streamed leaf's tile 32 NT wide: a's slab (and
+// its tangent), w_xmix's att2 (and its tangent), g (augmented: the primal
+// chain's, its tangent, the tangent chain's), each per x its padded stride.
+template <bool kAug>
+__host__ __device__ constexpr int stream_slot(int nt, bool xmix, int K) {
+  return stage_rows<kAug>() * ((kAug ? 2 : 1) * (dm_ldr(kDmM) + (xmix ? K + 8 : 0)) +
+                               (kAug ? 3 : 1) * dm_ldr(32 * nt));
+}
+
+// A streamed leaf's ring: the raw rows of a's stream and g's (augmented: the
+// tangent chain's a and its tangent, the primal chain's g, its tangent and the
+// tangent chain's g; w_xmix also att2 and its tangent). silu's operands are
+// formed in place by the thread that copied them, once it has them; w_xmix's
+// he_att = h_e * att2[head] (and its tangent by the product rule) and every
+// augmented g (g_p + t(g), then the tangent chain's g) are formed as the
+// products read their fragments.
+template <int LEAF, bool kAug>
+struct StreamFill {
+  static constexpr int per = stage_rows<kAug>(), nA = kAug ? 2 : 1, nB = kAug ? 3 : 1;
+  static constexpr int NT = tile_nt(LEAF), TN = 32 * NT, form = stream_spec(LEAF).form;
+  static constexpr bool kX = form == FORM_XMIX;
+  DmStream<1> a[nA];                             // a's slab (per x 64: a piece a thread at most)
+  DmStream<1> t2[kX ? nA : 1];                   // w_xmix: att2's rows (per x K floats)
+  DmStream<(per * TN / 4 + kDmThreads - 1) / kDmThreads> b[nB];  // g (per x TN floats)
+  float* ring;
+  int slot_floats, off_t2, off_b;  // a slot's floats; where att2's and g's parts start
+  int head, n_stages;
+  long long r_begin;
+
+  __device__ float* slot(int s) const { return ring + (s % kDmRing) * slot_floats; }
+  __device__ void issue(int s) const {
+    if (s < n_stages) {
+      const long long r0 = r_begin + (long long)s * per;
+      float* p = slot(s);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < nA; ++i) {
+        a[i].issue(p + i * per * dm_ldr(kDmM), r0);
+        if constexpr (kX) t2[i].issue(p + off_t2 + i * per * t2[0].ld, r0);
+      }
+#pragma unroll
+      for (int i = 0; i < nB; ++i) b[i].issue(p + off_b + i * per * dm_ldr(TN), r0);
+    }
+    dm_commit();  // one group a stage, empty past the last
+  }
+  __device__ void start() const {
+    for (int s = 0; s < kDmRing - 2; ++s) issue(s);
+  }
+  __device__ void prefetch(int) const {}  // every load goes through the ring
+  __device__ void stage(int s) const {
+    dm_wait<kDmRing - 3>();  // this thread's copies of stage s have landed
+    if constexpr (form == FORM_SILU) {  // this thread's own pieces, in place
+      float* av = slot(s);
+      float* at = av + per * dm_ldr(kDmM);
+      if (a[0].dst[0] >= 0) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          accd[(i * 4 + j) * kThreads + tid] += (double)acc[i][j];
-          acc[i][j] = 0.f;
+          float* v = av + a[0].dst[0] + j;
+          if constexpr (kAug) at[a[0].dst[0] + j] *= dsiluf_(*v);
+          *v = siluf_(*v);
         }
-      steps = 0;
+      }
     }
-    __syncthreads();
+    issue(s + kDmRing - 2);
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + ty * 4 + i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + tx * 4 + j;
-      if (r < ra && c < cg) out[(size_t)r * cg + c] = accd[(i * 4 + j) * kThreads + tid];
+
+  struct Op {
+    const float *av, *at, *kv, *kt, *g0, *g1, *g2;
+    int lda, ldk, ldb, head;
+    template <int K8>
+    __device__ __forceinline__ double a(int k, int m) const {
+      const int r = kAug ? k : 8 * K8 + k;
+      if constexpr (kX) {
+        if constexpr (!kAug || K8 == 0) return (double)(av[r * lda + m] * kv[r * ldk + head]);
+        const Dl he{av[r * lda + m], at[r * lda + m]}, a2{kv[r * ldk + head], kt[r * ldk + head]};
+        return (double)(he * a2).t;
+      } else {
+        return (double)(kAug && K8 == 1 ? at : av)[r * lda + m];
+      }
+    }
+    template <int K8>
+    __device__ __forceinline__ double b(int k, int n) const {
+      if constexpr (!kAug) return (double)g0[(8 * K8 + k) * ldb + n];
+      else if constexpr (K8 == 0) return (double)(g0[k * ldb + n] + g1[k * ldb + n]);
+      else return (double)g2[k * ldb + n];
+    }
+  };
+  __device__ Op op(int s) const {
+    const float* p = slot(s);
+    const int la = dm_ldr(kDmM), lk = kX ? t2[0].ld : 0, lb = dm_ldr(TN);
+    const float* tb = p + off_t2;
+    const float* gb = p + off_b;
+    return {p, p + (kAug ? per * la : 0), tb, tb + (kAug ? per * lk : 0), gb,
+            gb + (kAug ? per * lb : 0), gb + (kAug ? 2 * per * lb : 0), a[0].ld, lk, b[0].ld,
+            head};
+  }
+};
+
+// out[r, c] = sum over the chunk's rows of a[row, r] * g[row, c] for one
+// wide tile (augmented: a against g_p + t_g, then t_a against g_t), on DMMA.
+template <int LEAF, bool kAug>
+__device__ void contract_wide(const GradArgs& g, const WideTile& w, double* out, float* ring) {
+  constexpr int NT = tile_nt(LEAF);
+  constexpr int per = stage_rows<kAug>();
+  constexpr int stage_slot = LEAF == W_XMIX ? PR_PG_XMIX_STAGE : PR_PG_WIDE_STAGE;
+  constexpr int mma_slot = LEAF == W_XMIX ? PR_PG_XMIX_MMA : PR_PG_WIDE_MMA;
+  const int n_stages = (int)((w.r_end - w.r_begin + per - 1) / per);
+  DmTile<NT> acc;
+  if constexpr (stream_spec(LEAF).form != FORM_LOADER) {
+    if (g.ring_ok[LEAF]) {
+      constexpr StreamSpec sp = stream_spec(LEAF);
+      constexpr bool kX = sp.form == FORM_XMIX;
+      const Dims& d = g.d;
+      const long long rows = leaf_rows<LEAF>(d);
+      const Tables& tv = kAug ? g.Tv : g.P;
+      const int wa = kX ? d.H : g.ra[LEAF], wg = g.cg[LEAF];
+      const int a0 = kX ? w.h0 : w.r0;
+      const auto at = [&](const float* t, int width) { return t + (size_t)w.l * rows * width; };
+      StreamFill<LEAF, kAug> fill;
+      fill.a[0].init(at(table(tv, sp.a_arr, sp.a_idx), wa), w.r_end, wa, a0, w.m_live, per);
+      fill.b[0].init(at(g.P.rw[sp.g_idx], wg), w.r_end, wg, w.c0, w.n_live, per);
+      if constexpr (kX) fill.t2[0].init(at(tv.rw[RW_ATT2], d.K), w.r_end, d.K, 0, d.K, per);
+      if constexpr (kAug) {
+        fill.a[1].init(at(table(g.Tt, sp.a_arr, sp.a_idx), wa), w.r_end, wa, a0, w.m_live, per);
+        fill.b[1].init(at(g.Tt.rw[sp.g_idx], wg), w.r_end, wg, w.c0, w.n_live, per);
+        fill.b[2].init(at(g.Tv.rw[sp.g_idx], wg), w.r_end, wg, w.c0, w.n_live, per);
+        if constexpr (kX) fill.t2[1].init(at(g.Tt.rw[RW_ATT2], d.K), w.r_end, d.K, 0, d.K, per);
+      }
+      fill.ring = ring;
+      fill.slot_floats = stream_slot<kAug>(NT, kX, d.K);
+      fill.off_t2 = (kAug ? 2 : 1) * per * dm_ldr(kDmM);
+      fill.off_b = fill.off_t2 + (kX ? (kAug ? 2 : 1) * per * (d.K + 8) : 0);
+      fill.head = w.head;
+      fill.n_stages = n_stages;
+      fill.r_begin = w.r_begin;
+      dm_run(acc, n_stages, w.m_live, w.n_live, fill, stage_slot, mma_slot);
+      dm_wait<0>();
     }
   }
+  if (stream_spec(LEAF).form == FORM_LOADER || !g.ring_ok[LEAF]) {
+    LoaderFill<LEAF, kAug, NT> fill;
+    fill.g = &g;
+    fill.w = w;
+    fill.ring = ring;
+    dm_run(acc, n_stages, w.m_live, w.n_live, fill, stage_slot, mma_slot);
+  }
+  const int cg = g.cg[LEAF], K = g.d.K;
+  acc.store(w.m_live, w.n_live, [&](int m, int n, double v) {
+    out[(size_t)w.col_a(m, K) * cg + w.c0 + n] = v;
+  });
+  SAKE_PROBE_BARRIER(LEAF == W_XMIX ? PR_PG_XMIX_FLUSH : PR_PG_WIDE_FLUSH);
 }
 
 // Output rows a narrow block covers: 8 for the narrowest sums (the
@@ -360,30 +594,28 @@ __host__ __device__ inline int narrow_cols(int ra) { return ra <= 8 ? 8 : kTile;
 // row sums, whose terms cancel (a softmax's cotangents sum to zero over
 // its senders), so f32 sums lose digits the plain version keeps.
 template <int LEAF, bool kAug>
-__device__ void contract_narrow(const GradArgs& g, int l, int m0, int nm, int r0, int ra,
-                                int cg, double* out, double* sm) {
+__device__ void contract_narrow(const GradArgs& g, int l, long long r_begin, long long r_end,
+                                int r0, int ra, int cg, double* out, double* sm) {
   const int cols = narrow_cols(ra), groups = kThreads / cols;
   const int rl = threadIdx.x % cols, rg = threadIdx.x / cols;
   const int r = r0 + rl;
-  const int rows = chunk_rows<LEAF>(g.d, nm);
   const Src<float> sp{&g.P};
   const Src<Dl> sd{&g.Tv, &g.Tt};
   double acc[kNarrowMax];
 #pragma unroll
   for (int c = 0; c < kNarrowMax; ++c) acc[c] = 0.0;
   if (r < ra) {
-    for (int row = rg; row < rows; row += groups) {
-      const size_t gr = global_row<LEAF>(g.d, m0, nm, row);
-      const double a = load_a<LEAF>(g, sp, l, gr, r);
+    for (long long row = r_begin + rg; row < r_end; row += groups) {
+      const double a = load_a<LEAF>(g, sp, l, row, r);
       // augmented: a_p g_p + t_a g_t + a_t t_g (a row sum: s_p + t(s_t))
       Dl at{0.f, 0.f};
-      if constexpr (kAug) at = load_a<LEAF>(g, sd, l, gr, r);
+      if constexpr (kAug) at = load_a<LEAF>(g, sd, l, row, r);
 #pragma unroll
       for (int c = 0; c < kNarrowMax; ++c) {
         if (c < cg) {
-          acc[c] = fma(a, (double)load_g<LEAF>(g, sp, l, gr, c), acc[c]);
+          acc[c] = fma(a, (double)load_g<LEAF>(g, sp, l, row, c), acc[c]);
           if constexpr (kAug) {
-            const Dl gt = load_g<LEAF>(g, sd, l, gr, c);
+            const Dl gt = load_g<LEAF>(g, sd, l, row, c);
             acc[c] = fma((double)at.t, (double)gt.v, fma((double)at.v, (double)gt.t, acc[c]));
           }
         }
@@ -401,45 +633,98 @@ __device__ void contract_narrow(const GradArgs& g, int l, int m0, int nm, int r0
       out[(size_t)r * cg + c] = s;
     }
   }
+  SAKE_PROBE_BARRIER(PR_PG_NARROW);
+}
+
+// A block's leaf, and its layer, chunk and tile, from its kernel's first
+// blocks; out points at its (layer, chunk) block of the partial sums.
+struct BlockPlace {
+  int leaf, l, chunk, tile;
+  __device__ BlockPlace(const GradArgs& g, const int* first) {
+    leaf = 0;
+    while ((int)blockIdx.x >= first[leaf + 1]) ++leaf;
+    int rel = blockIdx.x - first[leaf];
+    tile = rel % g.tiles[leaf];
+    rel /= g.tiles[leaf];
+    chunk = rel % g.n_chunks;
+    l = rel / g.n_chunks;
+  }
+  __device__ double* out(const GradArgs& g) const {
+    return g.partial + chunk * g.total + g.off[leaf] + (size_t)l * g.ra[leaf] * g.cg[leaf];
+  }
+};
+
+template <int LEAF>
+__device__ void chunk_of(const GradArgs& g, int chunk, long long* r_begin, long long* r_end) {
+  const long long rows = leaf_rows<LEAF>(g.d), span = chunk_span(rows, g.n_chunks);
+  *r_begin = min(rows, chunk * span);
+  *r_end = min(rows, *r_begin + span);
 }
 
 template <int LEAF, bool kAug>
-__device__ void contract(const GradArgs& g, int l, int m0, int nm, int r0, int c0, int ra,
-                         int cg, double* out, double* sm, double* acc) {
-  if constexpr (narrow_leaf(LEAF))
-    contract_narrow<LEAF, kAug>(g, l, m0, nm, r0, ra, cg, out, sm);
-  else
-    contract_tile<LEAF, kAug>(g, l, m0, nm, r0, c0, ra, cg, out, reinterpret_cast<float*>(sm),
-                              acc);
+__device__ void wide_block(const GradArgs& g, const BlockPlace& p, float* ring) {
+  WideTile w;
+  w.l = p.l;
+  w.rt = p.tile / g.tiles_c[LEAF];
+  w.ct = p.tile % g.tiles_c[LEAF];
+  chunk_of<LEAF>(g, p.chunk, &w.r_begin, &w.r_end);
+  w.c0 = w.ct * 32 * tile_nt(LEAF);
+  w.n_live = min(32 * tile_nt(LEAF), g.cg[LEAF] - w.c0);
+  if (LEAF == W_XMIX) {
+    w.head = w.rt % g.d.K;
+    w.h0 = (w.rt / g.d.K) * kDmM;
+    w.r0 = 0;
+    w.m_live = min(kDmM, g.d.H - w.h0);
+  } else {
+    w.head = -1;
+    w.h0 = 0;
+    w.r0 = w.rt * kDmM;
+    w.m_live = min(kDmM, g.ra[LEAF] - w.r0);
+  }
+  contract_wide<LEAF, kAug>(g, w, p.out(g), ring);
+}
+
+// The wide leaves' tiles 32 NT wide, one per block: w_xmix's (NT = 8) and the
+// others' (NT = 2) are separate kernels, so that the narrower tiles run with
+// the registers and shared memory of their own, several blocks to an SM.
+template <bool kAug, int NT>
+__global__ void __launch_bounds__(kThreads) param_grads_wide(const GradArgs g) {
+  extern __shared__ float4 smem4[];
+  SAKE_PROBE_START();
+  const BlockPlace p(g, g.first[NT == 8 ? 2 : 1]);
+  float* ring = reinterpret_cast<float*>(smem4);
+#define SAKE_LEAF(X) \
+  case X:            \
+    if constexpr (tile_nt(X) == NT) wide_block<X, kAug>(g, p, ring); \
+    break;
+  switch (p.leaf) {
+    SAKE_LEAF(W_IN_J) SAKE_LEAF(W_IN_I) SAKE_LEAF(W_O_J) SAKE_LEAF(W_O_I) SAKE_LEAF(W_O_F)
+    SAKE_LEAF(W_O1) SAKE_LEAF(W_XMIX) SAKE_LEAF(W_POST0) SAKE_LEAF(W_POST1)
+    SAKE_LEAF(W_NODE_H) SAKE_LEAF(W_NODE_AGG) SAKE_LEAF(W_NODE_COMB) SAKE_LEAF(W_NODE1)
+    SAKE_LEAF(W_VEL0)
+  }
+#undef SAKE_LEAF
 }
 
 template <bool kAug>
-__global__ void __launch_bounds__(kThreads) param_grads_kernel(const GradArgs g) {
-  __shared__ __align__(16) double sm[kThreads * kNarrowMax];
-  __shared__ double tile_acc[kThreads * 16];  // contract_tile's double sums
-  static_assert(sizeof(sm) >= 2 * kStep * kTile * sizeof(float), "both routines fit");
-  int leaf = 0;
-  while ((int)blockIdx.x >= g.first_block[leaf + 1]) ++leaf;
-  int rel = blockIdx.x - g.first_block[leaf];
-  const int ra = g.ra[leaf], cg = g.cg[leaf], tc = g.tiles_c[leaf];
-  const int rows_per_tile = g.row_tile[leaf];
-  const int tiles = ((ra + rows_per_tile - 1) / rows_per_tile) * tc;
-  const int tile = rel % tiles;
-  rel /= tiles;
-  const int chunk = rel % g.n_chunks, l = rel / g.n_chunks;
-  const int r0 = (tile / tc) * rows_per_tile, c0 = (tile % tc) * kTile;
-  const int m0 = chunk * g.per_chunk, nm = min(g.d.B, m0 + g.per_chunk) - m0;
-  double* out = g.partial + chunk * g.total + g.off[leaf] + (size_t)l * ra * cg;
-#define SAKE_LEAF(X) \
-  case X: contract<X, kAug>(g, l, m0, nm, r0, c0, ra, cg, out, sm, tile_acc); break;
-  switch (leaf) {
-    SAKE_LEAF(W_IN_J) SAKE_LEAF(W_IN_I) SAKE_LEAF(B_IN) SAKE_LEAF(RBF_M) SAKE_LEAF(RBF_B)
-    SAKE_LEAF(W_O_J) SAKE_LEAF(W_O_I) SAKE_LEAF(W_O_F) SAKE_LEAF(W_O_R) SAKE_LEAF(B_O0)
-    SAKE_LEAF(W_O1) SAKE_LEAF(B_O1) SAKE_LEAF(W_SEM) SAKE_LEAF(B_SEM) SAKE_LEAF(W_XMIX)
-    SAKE_LEAF(W_POST0) SAKE_LEAF(B_POST0) SAKE_LEAF(W_POST1) SAKE_LEAF(B_POST1)
-    SAKE_LEAF(W_NODE_H) SAKE_LEAF(W_NODE_AGG) SAKE_LEAF(W_NODE_COMB) SAKE_LEAF(B_NODE0)
-    SAKE_LEAF(W_NODE1) SAKE_LEAF(B_NODE1) SAKE_LEAF(W_VMIX) SAKE_LEAF(W_VEL0)
-    SAKE_LEAF(B_VEL0) SAKE_LEAF(W_VEL1)
+__global__ void __launch_bounds__(kThreads) param_grads_narrow(const GradArgs g) {
+  __shared__ double sm[kThreads * kNarrowMax];
+  SAKE_PROBE_START();
+  const BlockPlace p(g, g.first[0]);
+  const int ra = g.ra[p.leaf], cg = g.cg[p.leaf];
+  const int r0 = p.tile * g.row_tile[p.leaf];
+  double* out = p.out(g);
+  long long r_begin, r_end;
+#define SAKE_LEAF(X)                                                        \
+  case X:                                                                   \
+    chunk_of<X>(g, p.chunk, &r_begin, &r_end);                              \
+    contract_narrow<X, kAug>(g, p.l, r_begin, r_end, r0, ra, cg, out, sm); \
+    break;
+  switch (p.leaf) {
+    SAKE_LEAF(B_IN) SAKE_LEAF(RBF_M) SAKE_LEAF(RBF_B) SAKE_LEAF(W_O_R) SAKE_LEAF(B_O0)
+    SAKE_LEAF(B_O1) SAKE_LEAF(W_SEM) SAKE_LEAF(B_SEM) SAKE_LEAF(B_POST0) SAKE_LEAF(B_POST1)
+    SAKE_LEAF(B_NODE0) SAKE_LEAF(B_NODE1) SAKE_LEAF(W_VMIX) SAKE_LEAF(B_VEL0)
+    SAKE_LEAF(W_VEL1)
   }
 #undef SAKE_LEAF
 }
@@ -448,12 +733,14 @@ __global__ void __launch_bounds__(kThreads) param_grads_kernel(const GradArgs g)
 template <class T>
 __global__ void sum_chunks(const T* __restrict__ partial, float* out, long long total,
                            int n_chunks) {
+  SAKE_PROBE_START();
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
        i += (long long)gridDim.x * blockDim.x) {
     double s = 0.0;
     for (int c = 0; c < n_chunks; ++c) s += (double)partial[c * total + i];
     out[i] = (float)s;
   }
+  SAKE_PROBE_BARRIER(PR_PG_SUM);
 }
 
 }  // namespace sake
@@ -475,34 +762,85 @@ void sum_rows(const T* partial, float* out, long long total, int n, cudaStream_t
                                                                            n);
 }
 
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// Launches the wide tiles 32 NT wide (blocks of them), each with kDmRing ring
+// slots of `slot` floats.
+template <bool kAug, int NT>
+cudaError_t launch_wide(const GradArgs& g, long long blocks, int slot, cudaStream_t s) {
+  if (blocks == 0) return cudaSuccess;
+  const int smem = kDmRing * slot * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(param_grads_wide<kAug, NT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  param_grads_wide<kAug, NT><<<(unsigned)blocks, kThreads, smem, s>>>(g);
+  return cudaGetLastError();
+}
+
 template <bool kAug>
 int launch_grads(GradArgs& g, const void* const* leaf_ptrs, const long long* leaf_strides,
-                 double* partial, float* out, int per_chunk, void* stream) {
-  g.per_chunk = per_chunk;
-  g.n_chunks = (g.d.B + per_chunk - 1) / per_chunk;
+                 double* partial, float* out, int n_chunks, void* stream) {
+  if (n_chunks < 1) return (int)cudaErrorInvalidValue;
+  g.n_chunks = n_chunks;
   g.L = leaves_of(leaf_ptrs, leaf_strides);
   g.partial = partial;
-  long long off = 0;
-  long long blocks = 0;
+  long long off = 0, blocks[3] = {0, 0, 0};  // by kernel (BlockPlace)
   for (int leaf = 0; leaf < kLeaves; ++leaf) {
     int rows, cols;
     leaf_shape(leaf, g.d, &rows, &cols);
     g.ra[leaf] = rows == 1 ? cols : rows;
     g.cg[leaf] = rows == 1 ? 1 : cols;
-    if (narrow_leaf(leaf) && g.cg[leaf] > kNarrowMax) return (int)cudaErrorInvalidValue;
-    g.tiles_c[leaf] = narrow_leaf(leaf) ? 1 : (g.cg[leaf] + kTile - 1) / kTile;
-    g.row_tile[leaf] = narrow_leaf(leaf) ? narrow_cols(g.ra[leaf]) : kTile;
-    g.first_block[leaf] = (int)blocks;
-    blocks += (long long)((g.ra[leaf] + g.row_tile[leaf] - 1) / g.row_tile[leaf]) *
-              g.tiles_c[leaf] * g.n_chunks * g.d.depth;
+    const bool nar = narrow_leaf(leaf);
+    if (nar && g.cg[leaf] > kNarrowMax) return (int)cudaErrorInvalidValue;
+    const int tn = 32 * tile_nt(leaf);
+    g.tiles_c[leaf] = nar ? 1 : (g.cg[leaf] + tn - 1) / tn;
+    g.row_tile[leaf] = nar ? narrow_cols(g.ra[leaf]) : kDmM;
+    g.tiles[leaf] = nar ? (g.ra[leaf] + g.row_tile[leaf] - 1) / g.row_tile[leaf]
+                        : tiles_r(leaf, g.d, g.ra[leaf]) * g.tiles_c[leaf];
+    for (int k = 0; k < 3; ++k) g.first[k][leaf] = (int)blocks[k];
+    blocks[nar ? 0 : (tile_nt(leaf) == 8 ? 2 : 1)] += (long long)g.tiles[leaf] * n_chunks * g.d.depth;
     g.off[leaf] = off;
     off += (long long)g.d.depth * rows * cols;
   }
-  g.first_block[kLeaves] = (int)blocks;
+  for (int k = 0; k < 3; ++k) g.first[k][kLeaves] = (int)blocks[k];
   g.total = off;
+  // A wide leaf's ring streams 16-byte pieces: its tables aligned, every
+  // layer's rows starting on a piece, and a slab's width a multiple of 4
+  const Tables& tv = kAug ? g.Tv : g.P;
+  const long long node_rows = (long long)g.d.B * g.d.N, edge_rows = node_rows * g.d.N;
+  int slot[2] = {0, 0};  // ring slot floats of the NT = 2 and the NT = 8 kernel
+  for (int leaf = 0; leaf < kLeaves; ++leaf) {
+    const StreamSpec sp = stream_spec(leaf);
+    const bool xmix = sp.form == FORM_XMIX;
+    const long long rows = row_kind(leaf) == EDGE_ROW ? edge_rows : node_rows;
+    const int wa = xmix ? g.d.H : g.ra[leaf], wg = g.cg[leaf];
+    auto ok = [&](const float* p, int w, int tile_w) {
+      return aligned16(p) && (rows * w) % 4 == 0 && (w <= tile_w || w % 4 == 0);
+    };
+    bool on = !narrow_leaf(leaf) && sp.form != FORM_LOADER &&
+              ok(table(tv, sp.a_arr, sp.a_idx), wa, kDmM) &&
+              ok(g.P.rw[sp.g_idx], wg, 32 * tile_nt(leaf)) &&
+              (!xmix || (g.d.K <= kDmM && ok(tv.rw[RW_ATT2], g.d.K, kDmM)));
+    if (kAug)
+      on = on && ok(table(g.Tt, sp.a_arr, sp.a_idx), wa, kDmM) &&
+           ok(g.Tt.rw[sp.g_idx], wg, 32 * tile_nt(leaf)) &&
+           ok(g.Tv.rw[sp.g_idx], wg, 32 * tile_nt(leaf)) &&
+           (!xmix || ok(g.Tt.rw[RW_ATT2], g.d.K, kDmM));
+    g.ring_ok[leaf] = on;
+    if (!narrow_leaf(leaf)) {
+      const int nt = tile_nt(leaf);
+      const int need = on ? stream_slot<kAug>(nt, xmix, g.d.K)
+                          : kDmK * (dm_ldr(kDmM) + dm_ldr(32 * nt));
+      int& at = slot[nt == 8];
+      at = need > at ? need : at;
+    }
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  param_grads_kernel<kAug><<<(unsigned)blocks, kThreads, 0, s>>>(g);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_wide<kAug, 8>(g, blocks[2], slot[1], s);
+  if (err == cudaSuccess) err = launch_wide<kAug, 2>(g, blocks[1], slot[0], s);
+  if (err != cudaSuccess) return (int)err;
+  param_grads_narrow<kAug><<<(unsigned)blocks[0], kThreads, 0, s>>>(g);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   sum_rows(partial, out, off, g.n_chunks, s);
   return (int)cudaGetLastError();
@@ -511,17 +849,18 @@ int launch_grads(GradArgs& g, const void* const* leaf_ptrs, const long long* lea
 }  // namespace sake
 
 // out: every leaf's (depth, rows, cols) gradient, in LEAF_NAMES order,
-// concatenated; partial: (ceil(B / per_chunk), len(out)) f64 scratch.
+// concatenated; partial: (n_chunks, len(out)) f64 scratch. Each layer's rows
+// are cut into n_chunks ranges (chunk_span).
 extern "C" int sake_param_grads(const float* bh, const void* const* leaf_ptrs,
                                 const long long* leaf_strides, void* const* resid_ptrs,
                                 void* const* row_ptrs, double* partial, float* out,
-                                int per_chunk, int B, int N, int F, int H, int R, int K, int C,
+                                int n_chunks, int B, int N, int F, int H, int R, int K, int C,
                                 int depth, void* stream) {
   using namespace sake;
   GradArgs g;
   g.d = Dims{B, N, F, H, R, K, C, depth};
   g.P = tables(bh, resid_ptrs, row_ptrs);
-  return launch_grads<false>(g, leaf_ptrs, leaf_strides, partial, out, per_chunk, stream);
+  return launch_grads<false>(g, leaf_ptrs, leaf_strides, partial, out, n_chunks, stream);
 }
 
 // The augmented gradients: row_ptrs the primal chain's rows, trow_ptrs the
@@ -536,7 +875,7 @@ extern "C" int sake_param_grads_aug(const float* bh, const float* tbh,
                                     void* const* tresid_ptrs, void* const* row_ptrs,
                                     void* const* trow_ptrs, void* const* ttrow_ptrs,
                                     double* partial, float* out, const float* ro_part,
-                                    float* ro_out, long long ro_len, int per_chunk, int B, int N,
+                                    float* ro_out, long long ro_len, int n_chunks, int B, int N,
                                     int F, int H, int R, int K, int C, int depth, void* stream) {
   using namespace sake;
   GradArgs g;
@@ -544,8 +883,13 @@ extern "C" int sake_param_grads_aug(const float* bh, const float* tbh,
   g.P = tables(bh, resid_ptrs, row_ptrs);
   g.Tv = tables(bh, resid_ptrs, trow_ptrs);
   g.Tt = tables(tbh, tresid_ptrs, ttrow_ptrs);
-  const int err = launch_grads<true>(g, leaf_ptrs, leaf_strides, partial, out, per_chunk, stream);
+  const int err = launch_grads<true>(g, leaf_ptrs, leaf_strides, partial, out, n_chunks, stream);
   if (err != 0 || ro_part == nullptr) return err;
   sum_rows(ro_part, ro_out, ro_len, B, static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
+}
+
+// The clock probe's slots (probe.cuh): out (kProbeSlots,), zeroed when reset.
+extern "C" int sake_param_grads_probe(unsigned long long* out, int reset) {
+  return sake::probe_read(out, reset);
 }

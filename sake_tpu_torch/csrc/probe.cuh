@@ -25,6 +25,14 @@ enum ProbeSlot {
   // pullback's narrow tail, and the rows instantiation's row stores
   PR_SP_LOAD, PR_SP_NARROW, PR_SP_SOFTMAX, PR_SP_HEATT, PR_SP_XMIX_F, PR_SP_XMIX_B, PR_SP_EPI,
   PR_SP_TAIL, PR_SP_STORE,
+  // the contractions: sparse_contract.cu's staging (loads, conversion), its
+  // products, its stores of the partial sums and the second pass; then
+  // param_grads.cu's w_xmix leaf and its other wide leaves (staging and
+  // operand formation, products, the f64 flushes and stores), its narrow
+  // leaves and its second pass
+  PR_SC_STAGE, PR_SC_MMA, PR_SC_STORE, PR_SC_SUM,
+  PR_PG_XMIX_STAGE, PR_PG_XMIX_MMA, PR_PG_XMIX_FLUSH, PR_PG_WIDE_STAGE, PR_PG_WIDE_MMA,
+  PR_PG_WIDE_FLUSH, PR_PG_NARROW, PR_PG_SUM,
   kProbeSlots
 };
 

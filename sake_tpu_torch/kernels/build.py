@@ -107,7 +107,7 @@ def signatures() -> dict:
         "sake_resid_bwd": bwd_in + dims + [P],
         # ... rows, add_h, add_x, add_v
         "sake_resid_bwd_rows": bwd_in + [P] * 4 + dims + [P],
-        # bh, leaves, strides, resid, rows, partial, out, per_chunk
+        # bh, leaves, strides, resid, rows, partial, out, n_chunks
         "sake_param_grads": [P] * 7 + [I] + dims + [P],
         # bh, bx, bv, upd, leaves, strides, resid, tx0, tbh, tbx, tbv, 3 finals, tresid
         "sake_resid_jvp": [P] * 15 + dims + [P],
@@ -115,7 +115,7 @@ def signatures() -> dict:
         # dh, dx, dv, 3 outs, add_h, add_x, add_v, rows, t_rows, scratch
         "sake_resid_tbwd": [P] * 24 + dims + [P],
         # bh, tbh, leaves, strides, resid, tresid, rows, rows_t, t_rows, partial, out,
-        # ro_part, ro_out, ro_len, per_chunk
+        # ro_part, ro_out, ro_len, n_chunks
         "sake_param_grads_aug": [P] * 13 + [LL, I] + dims + [P],
         # readout of the fused kernels: w0, b0, w1, b1, w0t ... F0, O after the dims
         # h0, xs, upd, leaves, leaves_t, strides, readout, bh, bx, bv, resid, h_fin,
@@ -134,6 +134,9 @@ def signatures() -> dict:
         # #13's and #14's clock probes
         "sake_sparse_fwd_probe": [P, I],
         "sake_sparse_bwd_probe": [P, I],
+        # the contractions' clock probes
+        "sake_sparse_contract_probe": [P, I],
+        "sake_param_grads_probe": [P, I],
         # h0, xs, tx0, upd, leaves, strides, the primal's and the tangent's bh, bx, bv,
         # h_fin, x_fin, v_fin, resid, tresid
         "sake_aug_fwd": [P] * 20 + dims + [P],

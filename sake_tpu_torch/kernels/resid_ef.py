@@ -616,10 +616,47 @@ def param_grads_plain(leaves: dict, fwd: FwdOut, rows: dict) -> dict:
 
 
 _SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
-# param_grads splits the batch into at most this many chunks of molecules;
-# each chunk's partial sums land in their own (f64) buffer, summed in chunk
-# order by a second pass (deterministic, no atomics).
-_GRAD_CHUNKS = 32
+# param_grads cuts each layer's rows into chunks; each chunk's partial sums
+# land in their own (f64) buffer, summed in chunk order by a second pass
+# (deterministic, no atomics). The chunk count: enough that w_xmix's blocks
+# (depth x heads a chunk) cover the card's SMs twice, one chunk per
+# _GRAD_CHUNK_ROWS edge rows of a layer beyond that, never under
+# _GRAD_MIN_ROWS edge rows a chunk nor over _GRAD_MAX_CHUNKS chunks.
+_GRAD_SMS = 132  # an H100's
+_GRAD_CHUNK_ROWS = 8192
+_GRAD_MIN_ROWS = 64
+_GRAD_MAX_CHUNKS = 64
+_GRAD_STAGE = 16  # rows of one f64 stage (csrc/dmma_f64.cuh's kDmK)
+
+
+def grad_chunks(B: int, N: int, K: int, depth: int) -> int:
+    """Row chunks of :func:`param_grads` (and the augmented contraction) at
+    batch ``B``, ``N`` atoms, ``K`` heads and ``depth`` layers."""
+    edges = B * N * N
+    fill = -(-2 * _GRAD_SMS // (depth * K))
+    n = max(fill, -(-edges // _GRAD_CHUNK_ROWS))
+    return max(1, min(_GRAD_MAX_CHUNKS, n, -(-edges // _GRAD_MIN_ROWS)))
+
+
+def grad_chunk_rows(rows: int, n_chunks: int) -> list:
+    """``[(begin, end)]`` of each chunk of a layer's ``rows`` (edges, atoms or
+    w_vmix's pooled rows): ``ceil(rows / n_chunks)`` rounded up to whole f64
+    stages, the last chunks short or empty (``csrc/param_grads.cu``'s
+    ``chunk_span``)."""
+    span = -(-(-(-rows // n_chunks)) // _GRAD_STAGE) * _GRAD_STAGE
+    return [(min(rows, c * span), min(rows, c * span + span)) for c in range(n_chunks)]
+
+
+def _grad_scratch(dims, dev):
+    """``(n_chunks, partial, out, sizes)``: the chunk count, the f64 partial
+    sums ``(n_chunks, len(out))`` and the output of every leaf's gradient,
+    and each leaf's size, in ``LEAF_NAMES`` order."""
+    B, N, F, H, R, K, C, depth = dims
+    shapes = _leaf_shapes(F, H, R, K, C)
+    sizes = [depth * shapes[n][0] * shapes[n][1] for n in LEAF_NAMES]
+    n_chunks = grad_chunks(B, N, K, depth)
+    partial = torch.empty(n_chunks, sum(sizes), device=dev, dtype=torch.float64)
+    return n_chunks, partial, torch.empty(sum(sizes), device=dev), sizes
 
 
 def _dims(leaves: dict, h0):
@@ -646,9 +683,11 @@ def _leaf_shapes(F, H, R, K, C):
 
 def _check_cuda(name, t, shape, device):
     if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
-        raise ValueError(f"{name}: needs a contiguous float32 tensor on {device}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, kernel expects {tuple(shape)}")
+        raise ValueError(f"{name() if callable(name) else name}: needs a contiguous float32 "
+                         f"tensor on {device}")
+    if t.shape != tuple(shape):
+        raise ValueError(f"{name() if callable(name) else name}: shape {tuple(t.shape)}, kernel "
+                         f"expects {tuple(shape)}")
 
 
 def _check_leaves(leaves, dims, device):
@@ -658,8 +697,8 @@ def _check_leaves(leaves, dims, device):
 
 
 def _check_all(name, tensors: dict, shapes: dict, device):
-    for n, s in shapes.items():
-        _check_cuda(f"{name}.{n}", tensors[n], s, device)
+    for n, s in shapes.items():  # the name is formatted only for an error
+        _check_cuda(lambda n=n: f"{name}.{n}", tensors[n], s, device)
 
 
 def _ptrs(tensors):
@@ -882,10 +921,17 @@ def param_grads(leaves: dict, fwd: FwdOut, rows: dict) -> dict:
     """Every leaf's gradient per layer, summed over the batch
     (``{name: (depth, r, c)}``), from K1's residuals and boundary states and
     the rows of :func:`resid_bwd_rows`: the parameter-gradient half of the
-    JAX training ``bwd_kernel`` (``:1598``), on the CUDA cores in f32. CPU
-    tensors take the plain version."""
+    JAX training ``bwd_kernel`` (``:1598``), its wide leaves on the f64
+    tensor cores and its narrow ones in f64 on the CUDA cores
+    (``csrc/param_grads.cu``). CPU tensors take the plain version."""
     if fwd.bh.device.type == "cpu":
         return param_grads_plain(leaves, fwd, rows)
+    out = _launch_param_grads(leaves, fwd, rows)
+    param_grads.launches += 1
+    return out
+
+
+def _launch_param_grads(leaves: dict, fwd: FwdOut, rows: dict) -> dict:
     _require_cuda("param_grads", fwd.bh)
     dims = _dims(leaves, fwd.bh[0])
     B, N, F, H, R, K, C, depth = dims
@@ -895,19 +941,14 @@ def param_grads(leaves: dict, fwd: FwdOut, rows: dict) -> dict:
     _check_all("resid", fwd.resid, _resid_shapes(dims, leaves), dev)
     _check_all("rows", rows, _row_shapes(dims, leaves), dev)
     shapes = _leaf_shapes(F, H, R, K, C)
-    sizes = [depth * shapes[n][0] * shapes[n][1] for n in LEAF_NAMES]
-    per_chunk = -(-B // min(B, _GRAD_CHUNKS))
-    n_chunks = -(-B // per_chunk)
-    partial = torch.empty(n_chunks, sum(sizes), device=dev, dtype=torch.float64)
-    out = torch.empty(sum(sizes), device=dev)
+    n_chunks, partial, out, sizes = _grad_scratch(dims, dev)
     lib = build.load()
     err = lib.sake_param_grads(
         fwd.bh.data_ptr(), _ptrs([leaves[n] for n in LEAF_NAMES]), _strides(leaves),
         _ptrs([fwd.resid[n] for n in RESIDS]), _ptrs([rows[n] for n in ROWS]),
-        partial.data_ptr(), out.data_ptr(), per_chunk, *dims, _stream(dev),
+        partial.data_ptr(), out.data_ptr(), n_chunks, *dims, _stream(dev),
     )
     build.check(lib, err, "param_grads")
-    param_grads.launches += 1
     return {n: a.view(depth, *shapes[n]) for n, a in zip(LEAF_NAMES, out.split(sizes))}
 
 

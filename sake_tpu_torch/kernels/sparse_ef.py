@@ -477,7 +477,21 @@ def _launch_bwd(h_g, a_i, o_i, d0, m, ep, g_pooled, g_hatt, wt=None):
 
 sparse_bwd.launches = 0
 
-_CONTRACT_EDGES = 1024  # edges per chunk of the contraction's first pass
+_CONTRACT_EDGES = 768  # edges per chunk of the contraction's first pass
+_CONTRACT_MAX_CHUNKS = 64
+
+
+def contract_chunks(E: int) -> int:
+    """Chunks of edges the contraction's first pass cuts ``E`` edges into: one
+    per ``_CONTRACT_EDGES``, at most ``_CONTRACT_MAX_CHUNKS`` (the partial sums
+    take ``chunks x`` the gradients' size in f64)."""
+    return max(1, min(_CONTRACT_MAX_CHUNKS, -(-E // _CONTRACT_EDGES)))
+
+
+def _aligned(t):
+    """``t``, or a copy where it does not start 16-byte aligned (the
+    contraction streams rows in 16-byte pieces)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _contract(lib, rows: dict, terms: dict, shapes: dict, E: int, dev):
@@ -486,8 +500,8 @@ def _contract(lib, rows: dict, terms: dict, shapes: dict, E: int, dev):
     a_t, g_t, na, ng, leaf_of = [], [], [], [], []
     for li, leaf in enumerate(leaves):
         for a, g in terms[leaf]:
-            a_t.append(None if a is None else rows[a])
-            g_t.append(rows[g])
+            a_t.append(None if a is None else _aligned(rows[a]))
+            g_t.append(_aligned(rows[g]))
             na.append(1 if a is None else rows[a].shape[-1])
             ng.append(rows[g].shape[-1])
             leaf_of.append(li)
@@ -495,17 +509,17 @@ def _contract(lib, rows: dict, terms: dict, shapes: dict, E: int, dev):
     offs = [0]
     for s in sizes:
         offs.append(offs[-1] + s)
-    n_chunks = max(1, min(64, -(-E // _CONTRACT_EDGES)))
+    n_chunks = contract_chunks(E)
     partial = torch.empty(n_chunks, sum(a * g for a, g in zip(na, ng)), device=dev,
                           dtype=torch.float64)
-    leaf_off = torch.tensor(offs, device=dev, dtype=torch.int64)
+    leaf_off = (ctypes.c_longlong * len(offs))(*offs)
     out = torch.empty(offs[-1], device=dev)
     I = ctypes.c_int
     n = len(g_t)
     err = lib.sake_sparse_contract(
         n, (ctypes.c_void_p * n)(*[None if t is None else t.data_ptr() for t in a_t]),
         (I * n)(*na), _ptrs(g_t), (I * n)(*ng), (I * n)(*leaf_of), E, n_chunks,
-        partial.data_ptr(), leaf_off.data_ptr(), len(leaves), out.data_ptr(), _stream(dev))
+        partial.data_ptr(), leaf_off, len(leaves), out.data_ptr(), _stream(dev))
     build.check(lib, err, "sparse_contract")
     return {leaf: a.view(*shapes[leaf]) for leaf, a in zip(leaves, out.split(sizes))}
 

@@ -77,7 +77,6 @@ from sake_tpu_torch.kernels.functional import (
 )
 from sake_tpu_torch.kernels.leaves import LEAF_NAMES, layer_leaves, transposed, wide_stack
 from sake_tpu_torch.kernels.resid_ef import (
-    _GRAD_CHUNKS,
     _SMEM_LIMIT,
     RESIDS,
     ROWS,
@@ -437,11 +436,7 @@ def _launch_param_grads_aug(leaves, fwd, tfwd, rows, rows_t, t_rows, ro_part=Non
     for name, rw in (("rows", rows), ("rows_t", rows_t), ("t_rows", t_rows)):
         _check_all(name, rw, _row_shapes(dims, leaves), dev)
     shapes = _leaf_shapes(F, H, R, K, C)
-    sizes = [depth * shapes[n][0] * shapes[n][1] for n in LEAF_NAMES]
-    per_chunk = -(-B // min(B, _GRAD_CHUNKS))
-    n_chunks = -(-B // per_chunk)
-    partial = torch.empty(n_chunks, sum(sizes), device=dev, dtype=torch.float64)
-    out = torch.empty(sum(sizes), device=dev)
+    n_chunks, partial, out, sizes = resid_ef._grad_scratch(dims, dev)
     ro_sizes = [math.prod(s) for s in ro_shapes or ()]
     ro_out = None
     if ro_part is not None:
@@ -453,7 +448,7 @@ def _launch_param_grads_aug(leaves, fwd, tfwd, rows, rows_t, t_rows, ro_part=Non
         _ptrs([tfwd.resid[n] for n in RESIDS]), _ptrs([rows[n] for n in ROWS]),
         _ptrs([rows_t[n] for n in ROWS]), _ptrs([t_rows[n] for n in ROWS]),
         partial.data_ptr(), out.data_ptr(), resid_ef._ptr(ro_part), resid_ef._ptr(ro_out),
-        sum(ro_sizes), per_chunk, *dims, resid_ef._stream(dev),
+        sum(ro_sizes), n_chunks, *dims, resid_ef._stream(dev),
     )
     build.check(lib, err, "param_grads_aug")
     grads = {n: a.view(depth, *shapes[n]) for n, a in zip(LEAF_NAMES, out.split(sizes))}

@@ -1,8 +1,9 @@
 // CPU emulation of the CUDA subset the kernels of sake_tpu_torch/csrc use, so
 // that a kernel source runs (slowly) without a card: one std::thread per CUDA
 // thread, std::barrier for __syncthreads, a barrier per warp and a slot array
-// for __shfl_xor_sync, __syncwarp and the tensor-core product (mma_tf32x3.cuh's
-// mma_tf32, fragment for fragment; cvt.rna.tf32 and cp.async beside it), the
+// for __shfl_xor_sync, __syncwarp and the tensor-core products (mma_tf32x3.cuh's
+// mma_tf32 and dmma_f64.cuh's f64 dmma, fragment for fragment; cvt.rna.tf32
+// and cp.async beside them), the
 // warpgroup product of wgmma_tf32.cuh (wgmma.mma_async on TF32 with A in
 // registers and B by its shared-memory descriptor, run when wgmma.wait_group
 // retires its group, as the PTX ISA allows; the fence, commit and wait), the
@@ -15,6 +16,7 @@
 #include <math.h>
 
 #include <algorithm>
+#include <cmath>
 #include <barrier>
 #include <cstdint>
 #include <cstdlib>
@@ -89,6 +91,7 @@ struct EmuBlock {
   std::vector<std::unique_ptr<std::barrier<>>> wgroups;  // one per 128 threads, for wgmma
   std::vector<double> slots;  // one per thread, for the shuffles
   std::vector<uint32_t> frags;  // six per thread, for the mma (four for wgmma)
+  std::vector<double> dfrags;   // six per thread, for the f64 mma
   float4* smem;
   std::mutex mu;  // guards the mbarriers
   std::map<const void*, EmuMbar> mbars;
@@ -161,6 +164,42 @@ inline void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_
   }
   bar.arrive_and_wait();
 }
+// mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 (dmma_f64.cuh's dmma), d
+// += a b for the warp, in the fragment layout of mma_tf32 above: each lane
+// posts its fragments, then forms its four outputs, adding the products to d
+// in k order in f64.
+inline void dmma(double (&d)[4], const double (&a)[4], const double (&b)[2]) {
+  const int t = threadIdx.x, w = t >> 5, lane = t & 31;
+  auto& bar = *emu_blk->warps[w];
+  double* f = emu_blk->dfrags.data() + (size_t)w * 32 * 6;
+  for (int i = 0; i < 4; ++i) f[lane * 6 + i] = a[i];
+  f[lane * 6 + 4] = b[0];
+  f[lane * 6 + 5] = b[1];
+  bar.arrive_and_wait();
+  auto A = [&](int r, int k) { return f[((r & 7) * 4 + (k & 3)) * 6 + (r >> 3) + 2 * (k >> 2)]; };
+  auto B = [&](int k, int n) { return f[(n * 4 + (k & 3)) * 6 + 4 + (k >> 2)]; };
+  const int g = lane >> 2, tt = lane & 3;
+  for (int q = 0; q < 4; ++q) {
+    const int r = g + 8 * (q >> 1), n = 2 * tt + (q & 1);
+    double acc = d[q];
+    for (int k = 0; k < 8; ++k) acc = std::fma(A(r, k), B(k, n), acc);
+    d[q] = acc;
+  }
+  bar.arrive_and_wait();
+}
+// dmma_f64.cuh's cp.async of 16 bytes, `bytes` of them read and the rest
+// zeros: the copy lands at once (it aborts on a misaligned address).
+inline void dm_cp_async(float* smem, const float* gmem, int bytes) {
+  if (((uintptr_t)smem & 15) || (bytes && ((uintptr_t)gmem & 15))) {
+    std::fprintf(stderr, "emu: cp.async of 16 bytes needs 16-byte addresses\n");
+    std::abort();
+  }
+  std::memset(smem, 0, 16);
+  std::memcpy(smem, gmem, bytes);
+}
+inline void dm_commit() {}
+template <int N>
+inline void dm_wait() {}
 // cp.async: the copy lands at once; the groups have nothing to wait for.
 inline void cp_async16(float* smem, const float* gmem) { std::memcpy(smem, gmem, 16); }
 inline void cp_async_commit() {}
@@ -325,6 +364,7 @@ void emu_launch(K kern, dim3 grid, int block, size_t smem, void*, A... args) {
     for (int w = 0; w < block / 128; ++w) eb.wgroups.emplace_back(new std::barrier<>(128));
     eb.slots.assign(block, 0.0);
     eb.frags.assign((size_t)block * 6, 0u);
+    eb.dfrags.assign((size_t)block * 6, 0.0);
     std::vector<float4> mem(smem / 16 + 1);
     const float nan = std::numeric_limits<float>::quiet_NaN();
     for (auto& v : mem) v = {nan, nan, nan, nan};

@@ -10,6 +10,7 @@ and #14 in both instantiations (``csrc/sparse_bwd.cu``, with the contraction).
     EMU_THREADS=128 python tools/cuda_emu/emulate.py --helper        # mma_tf32x3.cuh alone
     python tools/cuda_emu/emulate.py --wgmma                          # wgmma_tf32.cuh alone
     python tools/cuda_emu/emulate.py --sparse --slots 64 48 80 37      # #13, #14 (both)
+    python tools/cuda_emu/emulate.py --contract                        # the contractions
 
 Compiles the kernel source with g++ against ``cuda_runtime.h`` beside this file
 (one std::thread per CUDA thread; see there), loads it with ctypes in place of
@@ -24,8 +25,18 @@ the card, not a measurement of it. With ``--sparse`` it calls ``sparse_ef``'s
 ``_launch_fwd``, ``_launch_bwd`` and ``_launch_bwd_grads`` on the seeded inputs of
 ``tools/probe_sparse.py`` at the sparse widths and ``--slots`` K, whose
 x-mixing takes the emulated ``wgmma``; ``--wgmma`` holds ``wgmma_tf32.cuh``'s
-product alone against float64. ``--asan`` needs the script started with g++'s
-libasan and libstdc++ preloaded (it prints the ``LD_PRELOAD`` line).
+product alone against float64. With ``--contract`` it runs the two gradient
+contractions on the emulated f64 tensor cores (``dmma_f64.cuh``):
+``sparse_ef._contract`` (``csrc/sparse_contract.cu``) on random rows at the
+sparse widths for each ``--slots`` K (``--rows`` receiver rows; E not a multiple
+of the 1024-edge chunk) and at narrow widths (C = 12, R = 6, 3 heads), under
+``GRAD_TERMS`` and ``aug_terms`` against ``contract_plain``; and
+``resid_ef._launch_param_grads`` and ``train2_ef._launch_param_grads_aug``
+(``csrc/param_grads.cu``) on ``tools/probe_contract.py``'s random inputs at each
+``--hidden`` x ``--batch`` x ``--atoms`` (``--depth`` layers) against
+``param_grads_plain`` and ``param_grads_aug_plain``. ``--asan`` needs the script
+started with g++'s libasan and libstdc++ preloaded (it prints the ``LD_PRELOAD``
+line).
 """
 
 from __future__ import annotations
@@ -191,6 +202,68 @@ def check_sparse(K: int, NR: int):
     return worst
 
 
+def _rel(a, b) -> float:
+    return float((a.double() - b.double()).abs().max() / (b.double().abs().max() + 1e-30))
+
+
+def check_contract_sparse(K: int, NR: int, F=64, R=50, H=64, Kh=4, C=256, seed=0):
+    """The sparse contraction under #14's and #15's terms against
+    ``contract_plain`` (f64) on random rows; returns the worst leaf's relative
+    error."""
+    from sake_tpu_torch.kernels import sparse_ef as se
+
+    g = torch.Generator().manual_seed(seed)
+    rows = {n: torch.randn(NR * K, w, generator=g)
+            for n, w in se._row_widths((NR, K, F, R, H, Kh, C)).items()}
+    rows["h_g"] = torch.randn(NR * K, F, generator=g)
+    for n in list(rows):
+        rows["t_" + n] = torch.randn(rows[n].shape, generator=g)
+    shapes = dict(w_in_j=(F, R), w_o_j=(F, H), rbf_m=(1, R), rbf_b=(1, R), w_o_f=(R, H),
+                  w_o_r=(1, H), w_o1=(H, H), b_o1=(1, H), w_sem=(H, Kh), b_sem=(1, Kh),
+                  w_xmix=(H * Kh, C))
+    worst = 0.0
+    for name, terms in (("#14 with dW", se.GRAD_TERMS), ("#15", se.aug_terms(se.GRAD_TERMS))):
+        t0 = time.perf_counter()
+        got = se._contract(build.load(), rows, terms, shapes, NR * K, "cpu")
+        want = se.contract_plain(rows, terms)
+        errs = {n: _rel(got[n], want[n]) for n in want}
+        w = max(errs, key=errs.get)
+        worst = max(worst, errs[w])
+        print(f"sparse_contract {name} K {K} NR {NR} (E {NR * K}, C {C}, R {R}, heads {Kh}): "
+              f"max rel err {errs[w]:.3e} ({w}) ({time.perf_counter() - t0:.1f} s)", flush=True)
+    return worst
+
+
+def check_contract_dense(hid: int, B: int, N: int, depth: int):
+    """``param_grads.cu`` in both instantiations against its plain versions on
+    ``tools/probe_contract.py``'s random inputs; returns the worst leaf's
+    relative error."""
+    import importlib.util
+
+    from sake_tpu_torch.kernels import resid_ef
+    from sake_tpu_torch.kernels import train2_ef as t2
+
+    spec = importlib.util.spec_from_file_location("probe_contract",
+                                                  ROOT / "tools" / "probe_contract.py")
+    pc = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(pc)
+    worst = 0.0
+    for aug in (False, True):
+        t0 = time.perf_counter()
+        ins = pc.dense_inputs(B, N, aug, torch.device("cpu"), hidden=hid, depth=depth)
+        if aug:
+            got, want = t2._launch_param_grads_aug(*ins)[0], t2.param_grads_aug_plain(*ins)
+        else:
+            got, want = resid_ef._launch_param_grads(*ins), resid_ef.param_grads_plain(*ins)
+        errs = {n: _rel(got[n], want[n]) for n in want}
+        w = max(errs, key=errs.get)
+        worst = max(worst, errs[w])
+        print(f"param_grads{'_aug' if aug else ''} hidden {hid} B {B} N {N} depth {depth} "
+              f"({resid_ef.grad_chunks(B, N, 4, depth)} chunks): max rel err {errs[w]:.3e} ({w}), "
+              f"w_xmix {errs['w_xmix']:.3e} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    return worst
+
+
 def check_train(hid: int, depth: int, B: int, N: int, seed: int = 0):
     """#11 and #12's block against their plain versions."""
     from sake_tpu_torch.kernels import train2_ef as t2
@@ -259,8 +332,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--hidden", type=int, nargs="*", default=[8, 16])
     ap.add_argument("--depth", type=int, default=2)
-    ap.add_argument("--batch", type=int, default=3)
-    ap.add_argument("--atoms", type=int, default=7)
+    ap.add_argument("--batch", type=int, nargs="*", default=[3])
+    ap.add_argument("--atoms", type=int, nargs="*", default=[7])
     ap.add_argument("--asan", action="store_true")
     ap.add_argument("--train", action="store_true", help="#11 and #12 in place of #20")
     ap.add_argument("--helper", action="store_true",
@@ -272,6 +345,8 @@ def main():
     ap.add_argument("--slots", type=int, nargs="*", default=[64, 48],
                     help="--sparse: the K of each case")
     ap.add_argument("--rows", type=int, default=3, help="--sparse: receiver rows")
+    ap.add_argument("--contract", action="store_true",
+                    help="the contractions (csrc/sparse_contract.cu, csrc/param_grads.cu)")
     args = ap.parse_args()
     if args.asan and "libasan" not in os.environ.get("LD_PRELOAD", ""):
         asan = subprocess.run(["g++", "-print-file-name=libasan.so"], capture_output=True,
@@ -303,6 +378,27 @@ def main():
             worst = max(check_sparse(K, args.rows) for K in args.slots)
         print(f"worst {worst:.3e}", flush=True)
         return
+    if args.contract:
+        from sake_tpu_torch.kernels import resid_ef
+        from sake_tpu_torch.kernels import sparse_ef as se
+        from sake_tpu_torch.kernels import train2_ef as t2
+
+        with tempfile.TemporaryDirectory() as tmp:
+            libs = Libs(*(load(compile_source(src, Path(tmp) / Path(src).stem, args.asan), names)
+                          for src, names in (
+                              ("sparse_contract.cu", ["sake_sparse_contract"]),
+                              ("param_grads.cu", ["sake_param_grads", "sake_param_grads_aug"]))))
+            build.load = lambda: libs
+            se._stream = resid_ef._stream = lambda dev: None
+            resid_ef._require_cuda = t2._require_cuda = lambda name, t: None
+            worst = max(check_contract_sparse(K, args.rows) for K in args.slots)
+            worst = max(worst, check_contract_sparse(20, 2, F=10, R=6, H=4, Kh=3, C=12))
+            for hid in args.hidden:
+                for B in args.batch:
+                    for N in args.atoms:
+                        worst = max(worst, check_contract_dense(hid, B, N, args.depth))
+        print(f"worst {worst:.3e}", flush=True)
+        return
     if args.train:
         from sake_tpu_torch.kernels import resid_ef
         from sake_tpu_torch.kernels import train2_ef as t2
@@ -316,7 +412,7 @@ def main():
             t2._require_cuda = lambda name, t: None
             resid_ef._stream = lambda dev: None
             for hid in args.hidden:
-                check_train(hid, args.depth, args.batch, args.atoms)
+                check_train(hid, args.depth, args.batch[0], args.atoms[0])
         return
     with tempfile.TemporaryDirectory() as tmp:
         lib = load(compile_source("fused_remat_ef.cu", Path(tmp), args.asan))
@@ -324,7 +420,7 @@ def main():
         fused_ef._require_cuda = lambda name, t: None
         fused_ef._stream = lambda dev: None
         for hid in args.hidden:  # every layer updating, as the main path
-            check(hid, args.depth, args.batch, args.atoms, 9 if hid == 64 else 5,
+            check(hid, args.depth, args.batch[0], args.atoms[0], 9 if hid == 64 else 5,
                   [1.0] * args.depth)
 
 

@@ -34,7 +34,9 @@ SLOTS = ("fwd_pre", "fwd_row", "fwd_xmix", "fwd_node", "bwd_pre", "bwd_row", "bw
          "bwd_node", "jvp_pre", "jvp_row", "jvp_xmix", "jvp_node", "tb_pre", "tb_row",
          "tb_xmix", "tb_node", "head", "other", "fwd_mm", "bwd_mm", "jvp_mm", "tb_mm",
          "bwd_load", "tb_load", "sp_load", "sp_narrow", "sp_softmax", "sp_heatt", "sp_xmix_f",
-         "sp_xmix_b", "sp_epi", "sp_tail", "sp_store")  # probe.cuh's ProbeSlot order
+         "sp_xmix_b", "sp_epi", "sp_tail", "sp_store", "sc_stage", "sc_mma", "sc_store",
+         "sc_sum", "pg_xmix_stage", "pg_xmix_mma", "pg_xmix_flush", "pg_wide_stage",
+         "pg_wide_mma", "pg_wide_flush", "pg_narrow", "pg_sum")  # probe.cuh's ProbeSlot order
 KERNELS = ("fused_ef_kernelILb0E", "fused_bwd_kernel", "param_grads_kernelILb1E")
 ENTRIES = ("sake_fused_primal", "sake_fused_ef_smem_bytes", "sake_fused_bwd",
            "sake_fused_bwd_smem_bytes", "sake_fused_ef_probe", "sake_fused_bwd_probe")

@@ -39,7 +39,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = ("sparse_fwd.cu", "sparse_bwd.cu", "sparse_contract.cu")
 SLOTS = ("sp_load", "sp_narrow", "sp_softmax", "sp_heatt", "sp_xmix_f", "sp_xmix_b", "sp_epi",
          "sp_tail", "sp_store")  # probe.cuh's PR_SP_* slots, in order
-N_SLOTS = 33  # kProbeSlots: the sparse slots are the last nine
+N_SLOTS = 45  # kProbeSlots
+SLOT0 = 24  # the first of the sparse edge row's slots (PR_SP_LOAD)
 ENTRIES = ("sake_sparse_fwd", "sake_sparse_bwd", "sake_sparse_bwd_rows", "sake_sparse_contract",
            "sake_sparse_fwd_probe", "sake_sparse_bwd_probe", "sake_sparse_fwd_max_slots",
            "sake_sparse_bwd_max_slots")
@@ -258,7 +259,7 @@ def probe(inputs, lib, label: str, smi: str) -> dict:
                 fn()
             torch.cuda.synchronize()
             build.check(lib, entry(ticks, 1), "probe read")
-            sp = list(ticks)[N_SLOTS - len(SLOTS):]
+            sp = list(ticks)[SLOT0:SLOT0 + len(SLOTS)]
             total = sum(sp)
             shares = {s: round(t / total, 4) for s, t in zip(SLOTS, sp) if t}
             xmix = shares.get("sp_xmix_f", 0) + shares.get("sp_xmix_b", 0)
