@@ -29,21 +29,29 @@ Phases (each prints its own lines; any failure exits non-zero):
    ``one_ef.one_energy_forces``, counted and held to the same limits.
 5. kernels vs plain, QM9: a ``synthesize_qm9`` training batch at the
    ``qm9_kernel`` widths (B = 64, N = 29, hidden 64, depth 6) with its real
-   masks: the masked K1 (boundaries and all 17 residuals), the forward
-   without residuals (h_fin, x_fin), the training pullback (dh, dx, dv) and
+   masks: the masked K1 on the route ``make_hidden_fn`` takes there, #4's
+   cluster kernel (one molecule per two-CTA cluster; boundaries and all 17
+   residuals), and on the one-block route; the forward without residuals
+   (h_fin, x_fin); the training pullback's rows kernel on both routes (#5's
+   cluster kernel and the one-block kernel: dh, dx, dv and all 20 rows) and
    the parameter-gradient kernel (each of the 29 leaves of each layer),
-   limit 1e-4 relative per tensor.
+   limit 1e-4 relative per tensor; a second launch of each cluster kernel
+   bitwise equal to the first; the clusters the card holds at once
+   (OCCUPANCY line, ``cudaOccupancyMaxActiveClusters``).
 6. QM9 slice: ``tasks/qm9.run`` at the ``qm9_kernel`` settings (kernel
    backbone, one device, batch 64, 4096 synthetic molecules) for 2 epochs
    of 53 steps and the valid/test evaluation through the forward without
-   residuals. Every kernel of the path must launch, every step's loss must
-   be finite and the last below the first.
+   residuals. Every kernel of the path must launch, #4's and #5's cluster
+   kernels once a step each (106 times) and their one-block route never,
+   every step's loss must be finite and the last below the first.
 7. QM9 step parity and timing: from one seeded init, step 1's loss and
    every parameter gradient of the kernel branch against the plain branch
    (1e-4 relative per leaf), the first 5 steps' losses (1e-3 relative);
    then the train step of both branches timed in turns (every run
    printed) and each kernel timed at the slice's shapes beside its plain
-   version and its bound.
+   version and its bound (#4's and #5's cluster kernels' 3xTF32 products at
+   3 passes over the TF32 tensor-core peak), with #4 and #5 also on their
+   one-block route.
 8. MD17 second-order training kernels vs plain: aspirin at full width (N =
    21, hidden 64, depth 6), B = 300 (three waves of one block per SM), the
    training path's inputs (embedded species, v = 0, every layer updating)
@@ -826,7 +834,7 @@ def qm9_phases(dev, smi) -> list:
     import torch
 
     from sake_tpu_torch.data.qm9 import dimenet_split, load_qm9
-    from sake_tpu_torch.kernels import resid_ef
+    from sake_tpu_torch.kernels import build, resid_ef
     from sake_tpu_torch.kernels.adapter import model_params_from_linen
     from sake_tpu_torch.kernels.functional import embed
     from sake_tpu_torch.kernels.leaves import LEAF_NAMES, transposed, wide_stack
@@ -866,22 +874,54 @@ def qm9_phases(dev, smi) -> list:
         zs = torch.zeros_like(xs)
         m4 = batch["edge_mask"][..., None].contiguous()
         dh = torch.randn(B, N, F, device=dev, generator=torch.Generator(dev).manual_seed(3))
-        k4 = resid_ef.resid_fwd(leaves, h0, xs, zs, upd, mask=m4)
+        cl0 = (resid_ef.resid_fwd.cluster_launches, resid_ef.resid_bwd_rows.cluster_launches)
+        k4 = resid_ef.resid_fwd(leaves, h0, xs, zs, upd, mask=m4, cluster=True)
+        k4_again = resid_ef.resid_fwd(leaves, h0, xs, zs, upd, mask=m4, cluster=True)
+        k4_block = resid_ef.resid_fwd(leaves, h0, xs, zs, upd, mask=m4)
         p4 = resid_ef.resid_fwd_plain(leaves, h0, xs, zs, upd, mask=m4)
         k6 = resid_ef.resid_infer(leaves, h0, xs, zs, upd, mask=m4)
         p6 = resid_ef.resid_infer_plain(leaves, h0, xs, zs, upd, mask=m4)
-        k5 = resid_ef.resid_bwd_rows(leaves, p4, upd, dh, zs, zs, mask=m4, leaves_t=leaves_t)
+        k5 = resid_ef.resid_bwd_rows(leaves, p4, upd, dh, zs, zs, mask=m4, leaves_t=leaves_t,
+                                     cluster=True)
+        k5_again = resid_ef.resid_bwd_rows(leaves, p4, upd, dh, zs, zs, mask=m4,
+                                           leaves_t=leaves_t, cluster=True)
+        k5_block = resid_ef.resid_bwd_rows(leaves, p4, upd, dh, zs, zs, mask=m4,
+                                           leaves_t=leaves_t)
         p5 = resid_ef.resid_bwd_rows_plain(leaves, p4, upd, dh, zs, zs, mask=m4)
         kg = resid_ef.param_grads(leaves, p4, k5[3])
         pg = resid_ef.param_grads_plain(leaves, p4, p5[3])
         pg_same = resid_ef.param_grads_plain(leaves, p4, k5[3])
         torch.cuda.synchronize()
+    if (resid_ef.resid_fwd.cluster_launches - cl0[0],
+            resid_ef.resid_bwd_rows.cluster_launches - cl0[1]) != (2, 2):
+        fail("QM9: #4 and #5 did not take their cluster route at the slice's shapes")
+    fwd_pairs = lambda k: [*zip(("bh", "bx", "bv", "h_fin", "x_fin", "v_fin"), k[:6], p4[:6]),
+                           *((n, k.resid[n], p4.resid[n]) for n in resid_ef.RESIDS)]
+    rows_pairs = lambda k: [*zip(("dh", "dx", "dv"), k[:3], p5[:3]),
+                            *((n, k[3][n], p5[3][n]) for n in resid_ef.ROWS)]
+    bitwise = {
+        "resid_fwd_masked (cluster)": all(torch.equal(a, b) for (_, a, _), (_, b, _) in zip(
+            fwd_pairs(k4), fwd_pairs(k4_again))),
+        "resid_bwd_rows (cluster)": all(torch.equal(a, b) for (_, a, _), (_, b, _) in zip(
+            rows_pairs(k5), rows_pairs(k5_again))),
+    }
+    print(f"QM9 BITWISE second launch of each cluster kernel: {json.dumps(bitwise)}", flush=True)
+    if not all(bitwise.values()):
+        fail("QM9: a cluster kernel's second launch differs from its first")
+    occ = {name: getattr(build.load(), entry)(*resid_ef._dims(leaves, h0))
+           for name, entry in (("#4 cluster", "sake_resid_fwd_cluster_max_active"),
+                               ("#5 cluster", "sake_resid_bwd_cluster_max_active"),
+                               ("#4 one-block blocks/SM", "sake_resid_fwd_blocks_per_sm"),
+                               ("#5 one-block blocks/SM", "sake_resid_bwd_blocks_per_sm"))}
+    print(f"QM9 OCCUPANCY clusters the card holds at once (B={B}, N={N}) and the one-block "
+          f"kernels' blocks an SM: {json.dumps(occ)}; "
+          f"{torch.cuda.get_device_properties(dev).multi_processor_count} SMs", flush=True)
     checks = {
-        "resid_fwd_masked": [*zip(("bh", "bx", "bv", "h_fin", "x_fin", "v_fin"), k4[:6], p4[:6]),
-                             *((n, k4.resid[n], p4.resid[n]) for n in resid_ef.RESIDS)],
+        "resid_fwd_masked": fwd_pairs(k4),
+        "resid_fwd_masked_block": fwd_pairs(k4_block),
         "resid_infer": [("h_fin", k6[0], p6[0]), ("x_fin", k6[1], p6[1])],
-        "resid_bwd_rows": [*zip(("dh", "dx", "dv"), k5[:3], p5[:3]),
-                           *((n, k5[3][n], p5[3][n]) for n in resid_ef.ROWS)],
+        "resid_bwd_rows": rows_pairs(k5),
+        "resid_bwd_rows_block": rows_pairs(k5_block),
         "param_grads": [(f"{n}[{l}]", kg[n][l], pg[n][l]) for n in LEAF_NAMES
                         for l in range(depth)],
         "param_grads_same_rows": [(f"{n}[{l}]", kg[n][l], pg_same[n][l]) for n in LEAF_NAMES
@@ -897,7 +937,7 @@ def qm9_phases(dev, smi) -> list:
               + json.dumps({k: float(f"{v:.2e}") for k, v in errs.items()}), flush=True)
         if errs[w] > QM9_TOL:
             fail(f"QM9 {name} beyond {QM9_TOL}")
-    del k4, k6, k5, p5, kg, pg, pg_same, checks
+    del k4, k4_again, k4_block, k6, k5, k5_again, k5_block, p5, kg, pg, pg_same, checks
 
     # -- 6. the QM9 slice through tasks/qm9.run -----------------------------------
     counters = (resid_ef.resid_fwd, resid_ef.resid_infer, resid_ef.resid_bwd_rows,
@@ -912,6 +952,8 @@ def qm9_phases(dev, smi) -> list:
     task.run_epoch = recording_epoch  # keeps every step's loss of the run
     for c in counters:
         c.launches = 0
+    for c in (resid_ef.resid_fwd, resid_ef.resid_bwd_rows):
+        c.cluster_launches = 0
     logger = MetricLogger(stream=sys.stdout)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -920,6 +962,8 @@ def qm9_phases(dev, smi) -> list:
     wall = time.perf_counter() - t0
     task.run_epoch = run_epoch
     qm9_launches = {c.__name__: c.launches for c in counters}
+    qm9_launches.update({f"{c.__name__} (cluster)": c.cluster_launches
+                         for c in (resid_ef.resid_fwd, resid_ef.resid_bwd_rows)})
     losses = torch.cat(step_losses).cpu()
     print(f"QM9 SLICE launches {json.dumps(qm9_launches)}; {len(losses)} steps in "
           f"{wall:.2f} s with the evaluation; loss first {float(losses[0]):.6f} last "
@@ -927,8 +971,14 @@ def qm9_phases(dev, smi) -> list:
           f"(CI {[float(v) for v in results['valid_mae_ci']]}), test MAE "
           f"{results['test_mae']:.6f}", flush=True)
     print("QM9 SLICE losses " + json.dumps([float(f"{v:.6f}") for v in losses]), flush=True)
-    if min(v for k, v in qm9_launches.items() if k != "resid_bwd") == 0:
+    if min(qm9_launches[k] for k in ("resid_infer", "param_grads")) == 0:
         fail("the QM9 path did not launch every kernel")
+    # each step: one forward and one rows pullback, on the cluster route
+    if (qm9_launches["resid_fwd (cluster)"] != len(losses)
+            or qm9_launches["resid_bwd_rows (cluster)"] != len(losses)
+            or qm9_launches["resid_fwd"] or qm9_launches["resid_bwd_rows"]):
+        fail(f"the QM9 path did not launch #4's and #5's cluster kernels once a step "
+             f"({len(losses)} steps)")
     if not (torch.isfinite(losses).all() and losses[-1] < losses[0]
             and losses[-10:].mean() < losses[:10].mean()):
         fail("the QM9 training loss is not finite or did not fall")
@@ -1015,42 +1065,58 @@ def qm9_phases(dev, smi) -> list:
     # per kernel at the slice's shapes
     with torch.no_grad():
         rows = resid_ef.resid_bwd_rows(leaves, p4, upd, dh, zs, zs, mask=m4,
-                                       leaves_t=leaves_t)[3]
+                                       leaves_t=leaves_t, cluster=True)[3]
         grads = resid_ef.param_grads(leaves, p4, rows)
+        t_fwd_plain = cuda_ms(lambda: resid_ef.resid_fwd_plain(leaves, h0, xs, zs, upd, m4))
+        t_rows_plain = cuda_ms(lambda: resid_ef.resid_bwd_rows_plain(leaves, p4, upd, dh, zs,
+                                                                     zs, m4))
         t = dict(
-            resid_fwd_masked=(cuda_ms(lambda: resid_ef.resid_fwd(leaves, h0, xs, zs, upd, m4)),
-                              cuda_ms(lambda: resid_ef.resid_fwd_plain(leaves, h0, xs, zs, upd,
-                                                                       m4))),
+            resid_fwd_masked=(cuda_ms(lambda: resid_ef.resid_fwd(leaves, h0, xs, zs, upd, m4,
+                                                                 cluster=True)), t_fwd_plain),
+            resid_fwd_masked_block=(cuda_ms(lambda: resid_ef.resid_fwd(leaves, h0, xs, zs, upd,
+                                                                       m4)), t_fwd_plain),
             resid_infer=(cuda_ms(lambda: resid_ef.resid_infer(leaves, h0, xs, zs, upd, m4)),
                          cuda_ms(lambda: resid_ef.resid_infer_plain(leaves, h0, xs, zs, upd,
                                                                     m4))),
             resid_bwd_rows=(cuda_ms(lambda: resid_ef.resid_bwd_rows(
-                                leaves, p4, upd, dh, zs, zs, m4, leaves_t=leaves_t)),
-                            cuda_ms(lambda: resid_ef.resid_bwd_rows_plain(
-                                leaves, p4, upd, dh, zs, zs, m4))),
+                                leaves, p4, upd, dh, zs, zs, m4, leaves_t=leaves_t,
+                                cluster=True)), t_rows_plain),
+            resid_bwd_rows_block=(cuda_ms(lambda: resid_ef.resid_bwd_rows(
+                                      leaves, p4, upd, dh, zs, zs, m4, leaves_t=leaves_t)),
+                                  t_rows_plain),
             param_grads=(cuda_ms(lambda: resid_ef.param_grads(leaves, p4, rows)),
                          cuda_ms(lambda: resid_ef.param_grads_plain(leaves, p4, rows))),
         )
-    print(f"QM9 TIMING per kernel (ms, kernel and plain) at B={B}, N={N}, depth {depth}: "
+    fma = {k: v * B * depth for k, v in layer_fma(N, F, F, 50, cfg.n_heads, 256).items()}
+    # the cluster kernels run the x-mixing product and o_f, o1 in 3xTF32
+    tcf = {k: v * B * depth for k, v in tc_fma(N, F, 50, cfg.n_heads, 256).items()}
+    moved_fwd = nbytes((leaves, h0, xs, zs, m4), p4)
+    moved_rows = nbytes(leaves, leaves_t, p4.bh, p4.bx, p4.bv, p4.resid, m4, dh, zs, zs, dh, zs,
+                        zs, rows)
+    bounds = {"resid_fwd_masked": bound(fma["fwd"], moved_fwd, tc=tcf["fwd"])[0],
+              "resid_fwd_masked_block": bound(fma["fwd"], moved_fwd)[0],
+              "resid_bwd_rows": bound(fma["bwd"], moved_rows, tc=tcf["bwd"])[0],
+              "resid_bwd_rows_block": bound(fma["bwd"], moved_rows)[0]}
+    print(f"QM9 TIMING per kernel (ms, kernel and plain) at B={B}, N={N}, depth {depth} "
+          f"(resid_fwd_masked and resid_bwd_rows on their cluster route, the *_block ones on "
+          f"the one-block route; {smi}): "
           + json.dumps({k: [round(a, 3), round(b, 3)] for k, (a, b) in t.items()})
+          + "; bounds (ms) " + json.dumps({k: round(v, 4) for k, v in bounds.items()})
           + f"; kernels of one step {t['resid_fwd_masked'][0] + t['resid_bwd_rows'][0] + t['param_grads'][0]:.2f} ms",
           flush=True)
-    fma = {k: v * B * depth for k, v in layer_fma(N, F, F, 50, cfg.n_heads, 256).items()}
     inputs_fwd = (leaves, h0, xs, zs, m4)
     src = "sake_tpu_torch/csrc/"
     at = "sake_tpu/kernels/resid_ef.py:"
     return [
         kernel_entry("resid_fwd_masked", src + "resid_fwd.cu", at + "1484",
-                     qm9_launches["resid_fwd"], abs_qm9["resid_fwd_masked"],
-                     *t["resid_fwd_masked"], fma["fwd"], nbytes(inputs_fwd, p4)),
+                     qm9_launches["resid_fwd (cluster)"], abs_qm9["resid_fwd_masked"],
+                     *t["resid_fwd_masked"], fma["fwd"], moved_fwd, tc=tcf["fwd"]),
         kernel_entry("resid_infer", src + "resid_fwd.cu", at + "1732",
                      qm9_launches["resid_infer"], abs_qm9["resid_infer"], *t["resid_infer"],
                      fma["fwd"], nbytes(inputs_fwd, p4.h_fin, p4.x_fin)),
         kernel_entry("resid_bwd_rows", src + "resid_bwd.cu", at + "1598",
-                     qm9_launches["resid_bwd_rows"], abs_qm9["resid_bwd_rows"],
-                     *t["resid_bwd_rows"], fma["bwd"],
-                     nbytes(leaves, leaves_t, p4.bh, p4.bx, p4.bv, p4.resid, m4, dh, zs, zs,
-                            dh, zs, zs, rows)),
+                     qm9_launches["resid_bwd_rows (cluster)"], abs_qm9["resid_bwd_rows"],
+                     *t["resid_bwd_rows"], fma["bwd"], moved_rows, tc=tcf["bwd"]),
         kernel_entry("param_grads", src + "param_grads.cu", at + "1598",
                      qm9_launches["param_grads"], abs_qm9["param_grads"], *t["param_grads"],
                      fma["grads"], nbytes(leaves, p4.bh, p4.resid, rows, grads)),

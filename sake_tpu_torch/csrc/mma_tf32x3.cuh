@@ -62,6 +62,33 @@ __host__ __device__ inline long long tc_ring_floats(const Dims& d) {
   return tc_dims(d) ? (long long)kTcWarps * kTcStages * kTcStage : 0;
 }
 
+// The cluster instantiations (kCl: #4 and #5 with a molecule's receivers split
+// over two CTAs, cluster.cuh) take the tensor cores up to 32 receivers, four n8
+// tiles of mm_tc: their halved receiver buffers leave room for the padding and
+// the ring at QM9's N = 29. kTcMaxN and tc_dims stay #11's and #12's.
+constexpr int kTcClMaxN = 32;
+template <bool kCl>
+__host__ __device__ inline bool tc_dims_of(const Dims& d) {
+  if constexpr (kCl)
+    return d.H * d.K == kTcK && d.C == kTcK && d.N <= kTcClMaxN && d.H <= kTcSmallK &&
+           d.R <= kTcSmallK;
+  else
+    return tc_dims(d);
+}
+template <bool kCl>
+__host__ __device__ inline int tc_ld_of(const Dims& d, int w) {
+  return tc_dims_of<kCl>(d) ? w + kTcPad : w;
+}
+template <bool kCl>
+__host__ __device__ inline long long tc_ring_floats_of(const Dims& d) {
+  return tc_dims_of<kCl>(d) ? (long long)kTcWarps * kTcStages * kTcStage : 0;
+}
+// mm_tc's n8 tiles of receivers: 24 rows (#11, #12), 32 (kCl).
+template <bool kCl>
+__host__ __device__ constexpr int tc_tiles() {
+  return kCl ? kTcClMaxN / 8 : 3;
+}
+
 #ifndef SAKE_CUDA_EMU  // the CPU emulator (tools/cuda_emu) supplies these four
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
   uint32_t r;

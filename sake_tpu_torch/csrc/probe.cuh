@@ -33,6 +33,11 @@ enum ProbeSlot {
   PR_SC_STAGE, PR_SC_MMA, PR_SC_STORE, PR_SC_SUM,
   PR_PG_XMIX_STAGE, PR_PG_XMIX_MMA, PR_PG_XMIX_FLUSH, PR_PG_WIDE_STAGE, PR_PG_WIDE_MMA,
   PR_PG_WIDE_FLUSH, PR_PG_NARROW, PR_PG_SUM,
+  // the dense bodies' edge products o_f and o1 apart from sem (the *_MM slots
+  // keep sem), the cluster instantiations' exchange between their two CTAs
+  // (the barrier waits and the remote stores or reads), and the pullback's
+  // node rows
+  PR_FWD_OF_MM, PR_FWD_O1_MM, PR_BWD_OF_MM, PR_BWD_O1_MM, PR_FWD_CL, PR_BWD_CL, PR_BWD_ROWS,
   kProbeSlots
 };
 

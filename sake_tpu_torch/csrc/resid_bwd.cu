@@ -47,6 +47,8 @@
 // aspirin) and the row writes are coalesced row blocks. At N = 29 the
 // block needs 221 KB of the 227 KB of shared memory a block may have, so
 // N = 32 does not fit: the kernels take N as it comes, unpadded.
+//
+// #5's cluster kernel (one molecule per two-CTA cluster) is resid_bwd_cl.cu's.
 
 #include "resid_bwd.cuh"
 
@@ -69,6 +71,7 @@ resid_bwd_kernel(Dims d, const float* __restrict__ bh, const float* __restrict__
 
   Carver cv{reinterpret_cast<float*>(smem4)};
   const BwdSmem S = carve_bwd(cv, d);
+  SAKE_PROBE_START();
   bwd_begin(d, S, B, b, dh_fin, dx_fin, dv_fin, mb);
   for (int l = d.depth - 1; l >= 0; --l)
     bwd_layer<kRows>(d, S, b, l, upd[l], mb, L, LT, bh, bx, bv, RS, RW, add_h, add_x, add_v);
@@ -109,6 +112,21 @@ extern "C" long long sake_resid_bwd_smem_bytes(int B, int N, int F, int H, int R
   return sake::bwd_smem_floats(d) * (long long)sizeof(float);
 }
 
+// Blocks of the one-block rows kernel (resid_bwd_kernel<true>) that one SM
+// holds at these widths; negative: a CUDA error.
+extern "C" int sake_resid_bwd_blocks_per_sm(int B, int N, int F, int H, int R, int K, int C,
+                                            int depth) {
+  sake::Dims d{B, N, F, H, R, K, C, depth};
+  const int smem = (int)(sake::bwd_smem_floats(d) * sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(sake::resid_bwd_kernel<true>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int n = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, sake::resid_bwd_kernel<true>, 512,
+                                                        smem);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
 // mask: (B, N, N) f32 or null.
 extern "C" int sake_resid_bwd(const float* bh, const float* bx, const float* bv,
                               const float* upd, const float* mask,
@@ -141,4 +159,9 @@ extern "C" int sake_resid_bwd_rows(const float* bh, const float* bx, const float
                                 mask, leaf_ptrs, leaf_t_ptrs, leaf_strides, resid_ptrs,
                                 dh_fin, dx_fin, dv_fin, dh_out, dx_out, dv_out,
                                 sake::rows_of(row_ptrs), add_h, add_x, add_v, stream);
+}
+
+// The clock probe's slots (probe.cuh) of this source's kernels.
+extern "C" int sake_resid_bwd_probe(unsigned long long* out, int reset) {
+  return sake::probe_read(out, reset);
 }

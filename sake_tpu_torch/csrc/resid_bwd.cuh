@@ -5,7 +5,8 @@
 // cotangent chain of the fused training backward (#12). See resid_bwd.cu for
 // the design and what bounds it. Its kBf16 instantiation (fused_remat_ef.cu,
 // #20) pulls back through the bf16 products; its kTc instantiation (#11,
-// #12) runs the x-mixing pullback on the tensor cores (mma_tf32x3.cuh).
+// #12) runs the x-mixing pullback on the tensor cores (mma_tf32x3.cuh). #5's
+// cluster kernel runs a body of its own, bwd_layer_cl (resid_bwd_cl.cuh).
 #pragma once
 
 #include "mma_tf32x3.cuh"
@@ -277,6 +278,7 @@ __device__ __forceinline__ void bwd_layer(const Dims& d, const BwdSmem& S, int b
                           RS.p[RS_POOL2] + lb * N * C};
 
   // the node rows, before the row loop reuses their scratch
+  SAKE_PROBE_BARRIER(PR_BWD_PRE);
   if constexpr (kRows) {
     for (int e = tid; e < N * H; e += nt) {
       const int i = e / H, h = e % H;
@@ -299,7 +301,7 @@ __device__ __forceinline__ void bwd_layer(const Dims& d, const BwdSmem& S, int b
     }
   }
   __syncthreads();
-  SAKE_PROBE(PR_BWD_PRE);
+  SAKE_PROBE(PR_BWD_ROWS);
 
   for (int i = 0; i < N; ++i) {
     const size_t erow = lb * NN + (size_t)i * N;
@@ -498,7 +500,7 @@ __device__ __forceinline__ void bwd_layer(const Dims& d, const BwdSmem& S, int b
     if constexpr (kRows)
       for (int e = tid; e < N * H; e += nt) edge_row(RW_DHE, H)[e] = sdhe[e];
     __syncthreads();
-    SAKE_PROBE(PR_BWD_MM);
+    SAKE_PROBE(PR_BWD_O1_MM);
 
     // e0 = o_j[j] + o_i[i] + o_f + r * w_o_r + b_o0
     for (int e = tid; e < N * H; e += nt) {
@@ -534,7 +536,7 @@ __device__ __forceinline__ void bwd_layer(const Dims& d, const BwdSmem& S, int b
       mm_bwd(N, H, R, se0, H, WT(W_O_F), st_dfilt);
     }
     __syncthreads();
-    SAKE_PROBE(PR_BWD_MM);
+    SAKE_PROBE(PR_BWD_OF_MM);
 
     for (int e = tid; e < N * R; e += nt) sdaj[e] += sdpre[e];
     for (int c = tid; c < R; c += nt) {

@@ -47,10 +47,34 @@
 // 0.87 MB per molecule and layer for aspirin) are coalesced row blocks,
 // well below HBM bandwidth at the rates this reaches. At QM9's N = 29 the
 // block needs 146 KB of shared memory, so one block fits an SM where the
-// launch bounds ask for two. Tensor cores (wgmma on bf16) are the next
-// step and a later change.
+// launch bounds ask for two.
+//
+// The cluster kernel (resid_fwd_cl_kernel, #4 on QM9's batches): at B = 64
+// one block a molecule leaves 68 of an H100's 132 SMs idle, so a molecule
+// takes a cluster of two CTAs on two SMs. Each holds the whole state,
+// computes the node projections of every sender, and runs the row loop and
+// the node phase for half of the receivers (fwd_layer's kCl; receiver rows are
+// independent: row i writes only receiver-side state). After each layer each
+// CTA stores its nodes' new (h, x, v) into the other's shared memory
+// (distributed shared memory) and the two cross a cluster barrier. Every
+// residual, boundary and final row goes to the same place as the one-block
+// kernel's, so the pullback and the plain versions read the same tensors. Its
+// x-mixing and edge products run on the tensor cores in 3xTF32 up to N = 32
+// (mma_tf32x3.cuh, four n8 tiles). The wrapper takes this route where the
+// one-block kernel would leave SMs idle (resid_ef.cluster_route).
 
 #include "resid_fwd.cuh"
+
+// The cluster kernel's block and its tensor-core switch; a probe build may set
+// them (tools/probe_resid.py times the alternatives). 512 threads (128
+// registers, 356 B spilled) measured 2-5% faster than 256 (240 registers, no
+// spill) on an H100 at QM9's (64, 29).
+#ifndef SAKE_CL_FWD_THREADS
+#define SAKE_CL_FWD_THREADS 512
+#endif
+#ifndef SAKE_CL_TC
+#define SAKE_CL_TC 1
+#endif
 
 namespace sake {
 
@@ -71,6 +95,7 @@ resid_fwd_kernel(Dims d, const float* __restrict__ h0,
 
   Carver cv{reinterpret_cast<float*>(smem4)};
   const FwdSmem S = carve_fwd(cv, d);
+  SAKE_PROBE_START();
   fwd_begin(d, S, B, b, h0, xs, v0, mb);
   for (int l = 0; l < d.depth; ++l)
     fwd_layer<kStream, kStream>(d, S, b, l, upd[l], mb, L, bh, bx, bv, RS);
@@ -98,12 +123,90 @@ int launch_fwd(const sake::Dims& d, const float* h0, const float* xs, const floa
   return (int)cudaGetLastError();
 }
 
+constexpr int kClFwdThreads = SAKE_CL_FWD_THREADS;
+constexpr bool kClFwdTc = SAKE_CL_TC != 0;
+
+// The cluster kernel's shared memory, in floats: the W ring of the
+// tensor-core products, then the kCl carve.
+__host__ __device__ inline long long fwd_cl_smem_floats(const Dims& d) {
+  return (kClFwdTc ? tc_ring_floats_of<true>(d) : 0) + fwd_smem_floats<kClFwdTc, true>(d);
+}
+
+// #4's cluster kernel: molecule blockIdx.x / 2, receiver rows of cluster rank
+// blockIdx.x % 2 (launched with clusters of kClSize along x).
+__global__ void __launch_bounds__(kClFwdThreads, 1)
+resid_fwd_cl_kernel(Dims d, const float* __restrict__ h0, const float* __restrict__ xs,
+                    const float* __restrict__ v0, const float* __restrict__ upd,
+                    const float* __restrict__ mask, Leaves L, float* bh, float* bx, float* bv,
+                    float* h_fin, float* x_fin, float* v_fin, Resids RS) {
+  extern __shared__ float4 smem4[];
+  const int b = blockIdx.x / kClSize;
+  const int B = d.B, N = d.N, F = d.F;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const float* mb = mask ? mask + (size_t)b * N * N : nullptr;
+
+  Carver cv{reinterpret_cast<float*>(smem4)};
+  float* ring = kClFwdTc ? cv.take(tc_ring_floats_of<true>(d)) : nullptr;
+  const FwdSmem S = carve_fwd<kClFwdTc, true>(cv, d);
+  SAKE_PROBE_START();
+  fwd_begin(d, S, B, b, h0, xs, v0, mb);
+  for (int l = 0; l < d.depth; ++l)
+    fwd_layer<true, true, false, kClFwdTc, true>(d, S, b, l, upd[l], mb, L, bh, bx, bv, RS,
+                                                  ring);
+
+  int i0, i1;  // this CTA's nodes
+  cl_rows(N, cl_rank(), i0, i1);
+  const int nn = i1 - i0;
+  for (int e = tid; e < nn * F; e += nt) h_fin[((size_t)b * N + i0) * F + e] = S.sh[i0 * F + e];
+  for (int e = tid; e < 3 * nn; e += nt) {
+    const int k = e / nn, i = i0 + e % nn;
+    x_fin[((size_t)k * B + b) * N + i] = S.sx[k * N + i];
+    v_fin[((size_t)k * B + b) * N + i] = S.sv[k * N + i];
+  }
+}
+
 }  // namespace sake
 
 extern "C" long long sake_resid_fwd_smem_bytes(int B, int N, int F, int H, int R, int K,
                                                int C, int depth) {
   sake::Dims d{B, N, F, H, R, K, C, depth};
   return sake::fwd_smem_floats(d) * (long long)sizeof(float);
+}
+
+extern "C" long long sake_resid_fwd_cluster_smem_bytes(int B, int N, int F, int H, int R,
+                                                       int K, int C, int depth) {
+  sake::Dims d{B, N, F, H, R, K, C, depth};
+  return sake::fwd_cl_smem_floats(d) * (long long)sizeof(float);
+}
+
+// Blocks of the one-block kernel (resid_fwd_kernel<true>) that one SM holds at
+// these widths; negative: a CUDA error.
+extern "C" int sake_resid_fwd_blocks_per_sm(int B, int N, int F, int H, int R, int K, int C,
+                                            int depth) {
+  sake::Dims d{B, N, F, H, R, K, C, depth};
+  const int smem = (int)(sake::fwd_smem_floats(d) * sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(sake::resid_fwd_kernel<true>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int n = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, sake::resid_fwd_kernel<true>, 256,
+                                                        smem);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+// Clusters of the cluster kernel the card holds at once; negative: a CUDA error.
+extern "C" int sake_resid_fwd_cluster_max_active(int B, int N, int F, int H, int R, int K,
+                                                 int C, int depth) {
+  sake::Dims d{B, N, F, H, R, K, C, depth};
+  const size_t smem = sake::fwd_cl_smem_floats(d) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(sake::resid_fwd_cl_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = sake::cl_config(B, sake::kClFwdThreads, smem, nullptr, &attr);
+  int n = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(&n, (const void*)sake::resid_fwd_cl_kernel, &cfg);
+  return err == cudaSuccess ? n : -(int)err;
 }
 
 // mask: (B, N, N) f32 or null.
@@ -133,6 +236,35 @@ extern "C" int sake_resid_infer(const float* h0, const float* xs, const float* v
   return sake::launch_fwd<false>(sake::Dims{B, N, F, H, R, K, C, depth}, h0, xs, v0, upd,
                                  mask, leaf_ptrs, leaf_strides, nullptr, nullptr, nullptr,
                                  h_fin, x_fin, nullptr, RS, stream);
+}
+
+// #4's cluster route, the arguments of sake_resid_fwd: one molecule per cluster
+// of two CTAs. A refused launch returns its error.
+extern "C" int sake_resid_fwd_cluster(const float* h0, const float* xs, const float* v0,
+                                      const float* upd, const float* mask,
+                                      const void* const* leaf_ptrs,
+                                      const long long* leaf_strides, float* bh, float* bx,
+                                      float* bv, float* h_fin, float* x_fin, float* v_fin,
+                                      void* const* resid_ptrs, int B, int N, int F, int H,
+                                      int R, int K, int C, int depth, void* stream) {
+  const sake::Dims d{B, N, F, H, R, K, C, depth};
+  const sake::Leaves L = sake::leaves_of(leaf_ptrs, leaf_strides);
+  const sake::Resids RS = sake::resids_of(resid_ptrs);
+  const size_t smem = sake::fwd_cl_smem_floats(d) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(sake::resid_fwd_cl_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = sake::cl_config(B, sake::kClFwdThreads, smem, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, sake::resid_fwd_cl_kernel, d, h0, xs, v0, upd, mask, L, bh,
+                           bx, bv, h_fin, x_fin, v_fin, RS);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The clock probe's slots (probe.cuh) of this source's kernels.
+extern "C" int sake_resid_fwd_probe(unsigned long long* out, int reset) {
+  return sake::probe_read(out, reset);
 }
 
 extern "C" const char* sake_error_string(int err) {

@@ -4,9 +4,11 @@
 // resid_fwd.cu for the design and what bounds it. Its kBf16 instantiation
 // (fused_remat_ef.cu, #20) rounds each product's activation operand to bf16;
 // its kTc instantiation (#11) runs the x-mixing product on the tensor cores
-// (mma_tf32x3.cuh).
+// (mma_tf32x3.cuh); its kCl instantiation (#4's cluster kernel) takes half of
+// a molecule's receiver rows in each CTA of a two-CTA cluster (cluster.cuh).
 #pragma once
 
+#include "cluster.cuh"
 #include "mma_tf32x3.cuh"
 #include "resid_common.cuh"
 
@@ -30,10 +32,13 @@ struct FwdSmem {
   float *sd, *sr, *sir, *smk, *srbf, *se0, *she, *ssem, *satt, *shea, *scf;  // row
 };
 
-// kTc: the carve of the kTc body (shea's rows padded, tc_ld).
-template <bool kTc = false>
+// kTc: the carve of the kTc body (shea's rows padded, tc_ld). kCl: of the
+// cluster body, whose receiver-indexed buffers (shatt, sdel) hold the CTA's
+// own rows only, cl_span(N) of them.
+template <bool kTc = false, bool kCl = false>
 __host__ __device__ inline FwdSmem carve_fwd(Carver& cv, const Dims& d) {
   const long long N = d.N, F = d.F, H = d.H, R = d.R, K = d.K, C = d.C;
+  const long long NR = kCl ? cl_span(d.N) : N;  // receiver rows of this CTA, at most
   FwdSmem s;
   s.sh = cv.take(N * F);        // h
   s.sx = cv.take(3 * N);        // x planes
@@ -42,8 +47,8 @@ __host__ __device__ inline FwdSmem carve_fwd(Carver& cv, const Dims& d) {
   s.sai = cv.take(N * R);       // h @ w_in_i
   s.soj = cv.take(N * H);
   s.soi = cv.take(N * H);
-  s.shatt = cv.take(N * H * K); // sum_j h_e (x) att
-  s.sdel = cv.take(3 * N);      // pooled_k @ w_vmix
+  s.shatt = cv.take(NR * H * K);  // sum_j h_e (x) att
+  s.sdel = cv.take(3 * NR);     // pooled_k @ w_vmix
   s.scnt = cv.take(N);          // senders per receiver (masked)
   s.sd = cv.take(3 * N);        // row: d_k[j] = x_k[j] - x_k[i]
   s.sr = cv.take(N);            // row: r
@@ -54,17 +59,17 @@ __host__ __device__ inline FwdSmem carve_fwd(Carver& cv, const Dims& d) {
   s.she = cv.take(N * H);       // row: h_e; node: ps1 -> h_comb
   s.ssem = cv.take(N * K);
   s.satt = cv.take(N * K);
-  if constexpr (kTc) s.shea = cv.take(N * tc_ld(d, H * K));
+  if constexpr (kTc) s.shea = cv.take(N * tc_ld_of<kCl>(d, H * K));
   else s.shea = cv.take(N * H * K);  // row: h_e (x) att, column h*K + k
   // row: coeff; node: pool_sq, then node_pre, uv, g0, g1 (below)
   s.scf = cv.take((C > 2 * H + F + 1 ? C : 2 * H + F + 1) * N);
   return s;
 }
 
-template <bool kTc = false>
+template <bool kTc = false, bool kCl = false>
 __host__ __device__ inline long long fwd_smem_floats(const Dims& d) {
   Carver cv{nullptr};
-  carve_fwd<kTc>(cv, d);
+  carve_fwd<kTc, kCl>(cv, d);
   return cv.off;
 }
 
@@ -100,16 +105,26 @@ __device__ __forceinline__ void fwd_begin(const Dims& d, const FwdSmem& S, int B
 // product he_att @ w_xmix and the edge products o_f, o1 on the tensor cores in
 // 3xTF32 (S from carve_fwd<true>, ring: tc_ring_floats) where tc_dims allows,
 // the CUDA-core products elsewhere; f32 only. Without kTc the body is the
-// CUDA-core one.
-template <bool kResid, bool kBound, bool kBf16 = false, bool kTc = false>
+// CUDA-core one. kCl: this CTA of a two-CTA cluster (cluster.cuh) takes the
+// receiver rows [i0, i1) of cl_rows (S from carve_fwd<kTc, true>; its
+// receiver-indexed buffers, shatt and sdel, by row - i0), writes their
+// residuals, boundary and node rows, and, once both CTAs are past their row
+// loops, stores its nodes' new (h, x, v) into both CTAs' state, so that each
+// holds every node's state again before the next layer; with kTc its products
+// take the tensor cores up to N = 32 (tc_dims_of, four n8 tiles).
+template <bool kResid, bool kBound, bool kBf16 = false, bool kTc = false, bool kCl = false>
 __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b, int l,
                                           float u, const float* __restrict__ mb,
                                           const Leaves& L, float* bh, float* bx, float* bv,
                                           const Resids& RS, float* ring = nullptr) {
   const int B = d.B, N = d.N, F = d.F, H = d.H, R = d.R, K = d.K, C = d.C;
   const int HK = H * K, NN = N * N;
-  [[maybe_unused]] const int ldx = kTc ? tc_ld(d, HK) : HK;  // kTc: shea's row stride
+  [[maybe_unused]] const int ldx = kTc ? tc_ld_of<kCl>(d, HK) : HK;  // kTc: shea's row stride
   const int tid = threadIdx.x, nt = blockDim.x;
+  // this CTA's receiver rows [i0, i1), nn of them: all N without kCl
+  int i0 = 0, i1 = N;
+  if constexpr (kCl) cl_rows(N, cl_rank(), i0, i1);
+  const int nn = i1 - i0;
   const int lane = tid & 31, warp = tid >> 5, nwarp = nt >> 5;
   const float n_eff = (float)N;
   const bool masked = mb != nullptr;
@@ -135,13 +150,13 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
   const float* b_o1 = W(B_O1);
   const float* b_sem = W(B_SEM);
 
-  // boundary state in
+  // boundary state in (kCl: this CTA's rows)
   if constexpr (kBound) {
-    for (int e = tid; e < N * F; e += nt) bh[lb * N * F + e] = sh[e];
-    for (int e = tid; e < 3 * N; e += nt) {
-      const int k = e / N, i = e % N;
-      bx[(((size_t)l * 3 + k) * B + b) * N + i] = sx[e];
-      bv[(((size_t)l * 3 + k) * B + b) * N + i] = sv[e];
+    for (int e = tid; e < nn * F; e += nt) bh[lb * N * F + i0 * F + e] = sh[i0 * F + e];
+    for (int e = tid; e < 3 * nn; e += nt) {
+      const int k = e / nn, i = i0 + e % nn, q = kCl ? k * N + i : e;
+      bx[(((size_t)l * 3 + k) * B + b) * N + i] = sx[q];
+      bv[(((size_t)l * 3 + k) * B + b) * N + i] = sv[q];
     }
   }
 
@@ -157,7 +172,7 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
   __syncthreads();
   SAKE_PROBE(PR_FWD_PRE);
 
-  for (int i = 0; i < N; ++i) {
+  for (int i = i0; i < i1; ++i) {
     const size_t erow = lb * NN + (size_t)i * N;  // edge (i, 0)
 
     // geometry
@@ -200,13 +215,13 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
       if constexpr (kResid) RS.p[RS_E0][(erow + r) * H + c] = v;
     };
     if constexpr (kTc) {
-      if (tc_dims(d)) mm_tc_small(N, R, H, srbf, R, W(W_O_F), st_e0);
+      if (tc_dims_of<kCl>(d)) mm_tc_small(N, R, H, srbf, R, W(W_O_F), st_e0);
       else mm_fwd(N, R, H, srbf, R, W(W_O_F), st_e0);
     } else {
       mm_fwd<kBf16>(N, R, H, srbf, R, W(W_O_F), st_e0);
     }
     __syncthreads();
-    SAKE_PROBE(PR_FWD_MM);
+    SAKE_PROBE(PR_FWD_OF_MM);
     for (int e = tid; e < N * H; e += nt) se0[e] = siluf_(se0[e]);
     __syncthreads();
     SAKE_PROBE(PR_FWD_ROW);
@@ -218,13 +233,13 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
       if constexpr (kResid) RS.p[RS_H_E][(erow + r) * H + c] = v;
     };
     if constexpr (kTc) {
-      if (tc_dims(d)) mm_tc_small(N, H, H, se0, H, W(W_O1), st_he);
+      if (tc_dims_of<kCl>(d)) mm_tc_small(N, H, H, se0, H, W(W_O1), st_he);
       else mm_fwd(N, H, H, se0, H, W(W_O1), st_he);
     } else {
       mm_fwd<kBf16>(N, H, H, se0, H, W(W_O1), st_he);
     }
     __syncthreads();
-    SAKE_PROBE(PR_FWD_MM);
+    SAKE_PROBE(PR_FWD_O1_MM);
 
     // semantic logits
     mm_fwd<kBf16>(N, H, K, she, H, W(W_SEM),
@@ -288,7 +303,7 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
         else if constexpr (kTc) s += shea[j * ldx + q];
         else s += shea[j * HK + q];
       }
-      shatt[i * HK + q] = s;
+      shatt[(i - i0) * HK + q] = s;
     }
     auto st_coeff = [&](int r, int c, float a) {
       const float v = tanhf(a) * smk[r];
@@ -296,7 +311,7 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
       if constexpr (kResid) RS.p[RS_COEFF][(erow + r) * C + c] = v;
     };
     if constexpr (kTc) {
-      if (tc_dims(d)) mm_tc<3>(N, shea, ldx, W(W_XMIX), ring, st_coeff);
+      if (tc_dims_of<kCl>(d)) mm_tc<tc_tiles<kCl>()>(N, shea, ldx, W(W_XMIX), ring, st_coeff);
       else mm_fwd(N, HK, C, shea, ldx, W(W_XMIX), st_coeff);
     } else {
       mm_fwd(N, HK, C, shea, HK, W(W_XMIX), st_coeff);
@@ -320,101 +335,109 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
     SAKE_PROBE(PR_FWD_ROW);
   }
 
-  // ---- node phase -----------------------------------------------------
-  const float* pool[3] = {RS.p[RS_POOL0] + lp * N * C, RS.p[RS_POOL1] + lp * N * C,
-                          RS.p[RS_POOL2] + lp * N * C};
-  for (int e = tid; e < N * C; e += nt) {
-    const float pd = pool_denom(masked, scnt[e / C], n_eff);
+  // kCl: this CTA's copies of the other CTA's nodes are read no more this layer
+  if constexpr (kCl) cl_arrive();
+
+  // ---- node phase: this CTA's receivers, r = i - i0 < nn -------------------
+  // (scf, se0, she, snp, suv, sg0, sg1 and sdel by r, the state by i)
+  const float* pool[3] = {RS.p[RS_POOL0] + lp * N * C + i0 * C,
+                          RS.p[RS_POOL1] + lp * N * C + i0 * C,
+                          RS.p[RS_POOL2] + lp * N * C + i0 * C};
+  for (int e = tid; e < nn * C; e += nt) {
+    const float pd = pool_denom(masked, scnt[i0 + e / C], n_eff);
     const float n0 = pool[0][e] / pd, n1 = pool[1][e] / pd, n2 = pool[2][e] / pd;
     scf[e] = n0 * n0 + n1 * n1 + n2 * n2;  // pool_sq
   }
   {
     const float* wv = W(W_VMIX);
-    for (int q = warp; q < 3 * N; q += nwarp) {
-      const int k = q / N, i = q % N;
+    for (int q = warp; q < 3 * nn; q += nwarp) {
+      const int k = q / nn, r = q % nn;
       float s = 0.f;
-      for (int c = lane; c < C; c += 32) s += rd<kBf16>(pool[k][i * C + c]) * wv[c];
+      for (int c = lane; c < C; c += 32) s += rd<kBf16>(pool[k][r * C + c]) * wv[c];
       s = warp_sum(s);
       if (lane == 0) sdel[q] = s;
     }
   }
   __syncthreads();
 
+  const size_t ln = lb * N + i0;  // node rows of this layer, molecule and CTA
   const float* b_post0 = W(B_POST0);
-  mm_fwd<kBf16>(N, C, H, scf, C, W(W_POST0),
+  mm_fwd<kBf16>(nn, C, H, scf, C, W(W_POST0),
          [&](int r, int c, float a) {
            const float v = a + b_post0[c];
            se0[r * H + c] = v;
-           if constexpr (kResid) RS.p[RS_PS0][(lb * N + r) * H + c] = v;
+           if constexpr (kResid) RS.p[RS_PS0][(ln + r) * H + c] = v;
          });
   __syncthreads();
-  for (int e = tid; e < N * H; e += nt) se0[e] = siluf_(se0[e]);
+  for (int e = tid; e < nn * H; e += nt) se0[e] = siluf_(se0[e]);
   __syncthreads();
   const float* b_post1 = W(B_POST1);
-  mm_fwd<kBf16>(N, H, H, se0, H, W(W_POST1),
+  mm_fwd<kBf16>(nn, H, H, se0, H, W(W_POST1),
          [&](int r, int c, float a) {
            const float v = a + b_post1[c];
            she[r * H + c] = v;
-           if constexpr (kResid) RS.p[RS_PS1][(lb * N + r) * H + c] = v;
+           if constexpr (kResid) RS.p[RS_PS1][(ln + r) * H + c] = v;
          });
   __syncthreads();
-  for (int e = tid; e < N * H; e += nt) she[e] = siluf_(she[e]);  // h_comb
+  for (int e = tid; e < nn * H; e += nt) she[e] = siluf_(she[e]);  // h_comb
 
   // node_pre = h @ w_node_h + hatt @ w_node_agg + h_comb @ w_node_comb + b
+  float* shi = sh + i0 * F;  // this CTA's rows of h
   const float* b_node0 = W(B_NODE0);
-  mm_fwd<kBf16>(N, F, H, sh, F, W(W_NODE_H),
+  mm_fwd<kBf16>(nn, F, H, shi, F, W(W_NODE_H),
          [&](int r, int c, float a) { snp[r * H + c] = a + b_node0[c]; });
   __syncthreads();
-  mm_fwd<kBf16>(N, HK, H, shatt, HK, W(W_NODE_AGG),
+  mm_fwd<kBf16>(nn, HK, H, shatt, HK, W(W_NODE_AGG),
          [&](int r, int c, float a) { snp[r * H + c] += a; });
   __syncthreads();
-  mm_fwd<kBf16>(N, H, H, she, H, W(W_NODE_COMB),
+  mm_fwd<kBf16>(nn, H, H, she, H, W(W_NODE_COMB),
          [&](int r, int c, float a) { snp[r * H + c] += a; });
   __syncthreads();
-  for (int e = tid; e < N * H; e += nt) {
-    if constexpr (kResid) RS.p[RS_NODE_PRE][lb * N * H + e] = snp[e];
+  for (int e = tid; e < nn * H; e += nt) {
+    if constexpr (kResid) RS.p[RS_NODE_PRE][ln * H + e] = snp[e];
     snp[e] = siluf_(snp[e]);
   }
   __syncthreads();
   const float* b_node1 = W(B_NODE1);
-  mm_fwd<kBf16>(N, H, F, snp, H, W(W_NODE1),
+  mm_fwd<kBf16>(nn, H, F, snp, H, W(W_NODE1),
          [&](int r, int c, float a) {
            const float v = a + b_node1[c];
            suv[r * F + c] = v;
-           if constexpr (kResid) RS.p[RS_UV][(lb * N + r) * F + c] = v;
+           if constexpr (kResid) RS.p[RS_UV][(ln + r) * F + c] = v;
          });
   __syncthreads();
-  for (int e = tid; e < N * F; e += nt) sh[e] = sh[e] + siluf_(suv[e]);  // h_out
+  for (int e = tid; e < nn * F; e += nt) shi[e] = shi[e] + siluf_(suv[e]);  // h_out
   __syncthreads();
 
   // velocity gate and x/v update
   const float* b_vel0 = W(B_VEL0);
-  mm_fwd<kBf16>(N, F, H, sh, F, W(W_VEL0), [&](int r, int c, float a) {
+  mm_fwd<kBf16>(nn, F, H, shi, F, W(W_VEL0), [&](int r, int c, float a) {
     const float v = a + b_vel0[c];
-    if constexpr (kResid) RS.p[RS_G0][(lb * N + r) * H + c] = v;
+    if constexpr (kResid) RS.p[RS_G0][(ln + r) * H + c] = v;
     sg0[r * H + c] = siluf_(v);
   });
   __syncthreads();
   {
     const float* wv1 = W(W_VEL1);
-    for (int i = warp; i < N; i += nwarp) {
+    for (int r = warp; r < nn; r += nwarp) {
       float s = 0.f;
-      for (int h = lane; h < H; h += 32) s += rd<kBf16>(sg0[i * H + h]) * wv1[h];
+      for (int h = lane; h < H; h += 32) s += rd<kBf16>(sg0[r * H + h]) * wv1[h];
       s = warp_sum(s);
       if (lane == 0) {
-        sg1[i] = s;
-        if constexpr (kResid) RS.p[RS_G1][lb * N + i] = s;
+        sg1[r] = s;
+        if constexpr (kResid) RS.p[RS_G1][ln + r] = s;
       }
     }
   }
   __syncthreads();
-  for (int i = tid; i < N; i += nt) {
-    const float gate = 2.f * sigmoidf_(sg1[i]);
+  for (int r = tid; r < nn; r += nt) {
+    const int i = i0 + r;
+    const float gate = 2.f * sigmoidf_(sg1[r]);
     const float dvd = dv_denom(masked, scnt[i], n_eff);
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
       const float xv = sx[k * N + i], vv = sv[k * N + i];
-      const float v_new = gate * vv + sdel[k * N + i] / dvd;
+      const float v_new = gate * vv + sdel[k * nn + r] / dvd;
       const float x_new = xv + v_new;
       sx[k * N + i] = xv + u * (x_new - xv);
       sv[k * N + i] = vv + u * (v_new - vv);
@@ -422,6 +445,21 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
   }
   __syncthreads();
   SAKE_PROBE(PR_FWD_NODE);
+  if constexpr (kCl) {
+    // the other CTA is past its row loop: our nodes' new state into its copy,
+    // then a barrier, after which both CTAs hold every node's state
+    cl_wait();
+    const int peer = cl_rank() ^ 1;
+    float *ph = cl_map(sh, peer), *px = cl_map(sx, peer), *pv = cl_map(sv, peer);
+    for (int e = tid; e < nn * F; e += nt) ph[i0 * F + e] = shi[e];
+    for (int e = tid; e < 3 * nn; e += nt) {
+      const int q = (e / nn) * N + i0 + e % nn;
+      px[q] = sx[q];
+      pv[q] = sv[q];
+    }
+    cl_sync();
+    SAKE_PROBE(PR_FWD_CL);
+  }
 }
 
 }  // namespace sake

@@ -103,10 +103,13 @@ def signatures() -> dict:
     sdims = [I] * 6
     sig = {
         "sake_resid_fwd": fwd_in + [P] * 6 + [P] + dims + [P],
+        "sake_resid_fwd_cluster": fwd_in + [P] * 6 + [P] + dims + [P],
         "sake_resid_infer": fwd_in + [P] * 3 + dims + [P],
         "sake_resid_bwd": bwd_in + dims + [P],
         # ... rows, add_h, add_x, add_v
         "sake_resid_bwd_rows": bwd_in + [P] * 4 + dims + [P],
+        # the cluster route: ... rows (no addend)
+        "sake_resid_bwd_rows_cluster": bwd_in + [P] + dims + [P],
         # bh, leaves, strides, resid, rows, partial, out, n_chunks
         "sake_param_grads": [P] * 7 + [I] + dims + [P],
         # bh, bx, bv, upd, leaves, strides, resid, tx0, tbh, tbx, tbv, 3 finals, tresid
@@ -128,8 +131,12 @@ def signatures() -> dict:
         # bh, bx, bv, upd, leaves, leaves_t, strides, resid, h_fin, tx0, g_e, readout,
         # tbh, tbx, tbv, tresid, rows, rows_t, t_rows, scratch, dh0, dx0, ro_part
         "sake_fused_bwd": [P] * 27 + dims + [I, I, P],
-        # #11's and #12's clock probes (probe.cuh): out (slots,) u64, reset
+        # the clock probes (probe.cuh) of #11 and #12, of K1's and K2's sources:
+        # out (slots,) u64, reset
         "sake_fused_ef_probe": [P, I],
+        "sake_resid_fwd_probe": [P, I],
+        "sake_resid_bwd_probe": [P, I],
+        "sake_resid_bwd_cl_probe": [P, I],
         "sake_fused_bwd_probe": [P, I],
         # #13's and #14's clock probes
         "sake_sparse_fwd_probe": [P, I],
@@ -168,7 +175,11 @@ def signatures() -> dict:
         "sake_split_bwd": [I, P, P, P, P, P] + sdims + [P],
     }
     out = {name: (args, I) for name, args in sig.items()}
+    for fn in ("sake_resid_fwd_blocks_per_sm", "sake_resid_bwd_blocks_per_sm",
+               "sake_resid_fwd_cluster_max_active", "sake_resid_bwd_cluster_max_active"):
+        out[fn] = (dims, I)
     for fn in ("sake_resid_fwd_smem_bytes", "sake_resid_bwd_smem_bytes",
+               "sake_resid_fwd_cluster_smem_bytes", "sake_resid_bwd_cluster_smem_bytes",
                "sake_resid_jvp_smem_bytes", "sake_resid_tbwd_smem_bytes",
                "sake_aug_fwd_smem_bytes", "sake_retrace_bwd_smem_bytes",
                "sake_remat_fwd_smem_bytes", "sake_remat_bwd_smem_bytes"):

@@ -20,7 +20,11 @@ Port of ``sake_tpu/kernels/resid_ef.py``:
   :func:`param_grads` (``csrc/param_grads.cu``) contracts them; together
   they replace ``make_hidden_fn``'s ``bwd_kernel`` ``:1598``. Each takes
   its plain version only for CPU tensors; on a CUDA tensor it launches
-  the kernel or raises.
+  the kernel or raises. With ``cluster=True`` (``make_hidden_fn``'s calls),
+  :func:`resid_fwd` and :func:`resid_bwd_rows` launch their cluster kernels
+  (one molecule per cluster of two CTAs, its receiver rows split between
+  them) where the one-block kernel would leave SMs idle
+  (:func:`cluster_route`); each route counts its own launches.
 - :func:`resid_energy_forces` (JAX ``:978-1330``) orchestrates embed, K1,
   the readout and its seed (plain torch, as the JAX package ran them
   outside Pallas), K2 and ``F = -dx``, per batch chunk so residual memory
@@ -756,6 +760,41 @@ def _require_cuda(name, t):
         raise ValueError(f"{name}: unsupported device {t.device}")
 
 
+CLUSTER_SIZE = 2  # CTAs of a cluster (csrc/cluster.cuh's kClSize)
+
+
+def cluster_rows(N: int, rank: int) -> tuple:
+    """``(i0, i1)``: the receiver rows of cluster rank ``rank`` in the cluster
+    kernels, consecutive spans of ``ceil(N / 2)`` (``csrc/cluster.cuh``'s
+    ``cl_rows``)."""
+    span = -(-N // CLUSTER_SIZE)
+    i0 = min(N, rank * span)
+    return i0, min(N, i0 + span)
+
+
+def cluster_route(B: int, blocks_per_sm: int, sms: int) -> bool:
+    """Whether a batch of ``B`` molecules takes the cluster kernel: when the
+    one-block kernel, ``blocks_per_sm`` of whose blocks an SM holds, would
+    leave some of the card's ``sms`` SMs idle."""
+    return B * blocks_per_sm < sms
+
+
+def _takes_cluster(lib, kind: str, dims, dev) -> bool:
+    """:func:`cluster_route` for the one-block kernel of ``kind`` ("fwd": K1,
+    "bwd": K2 with rows) at ``dims`` on ``dev``, its occupancy from
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``."""
+    n = getattr(lib, f"sake_resid_{kind}_blocks_per_sm")(*dims)
+    build.check(lib, 0 if n >= 0 else -n, f"sake_resid_{kind}_blocks_per_sm")
+    return cluster_route(dims[0], n, torch.cuda.get_device_properties(dev).multi_processor_count)
+
+
+def _check_smem(lib, entry: str, dims, name: str):
+    """Raises when the kernel whose carve ``entry`` sizes exceeds one block's
+    shared memory at ``dims``."""
+    if getattr(lib, entry)(*dims) > _SMEM_LIMIT:
+        raise ValueError(f"{name}: N={dims[1]} at these widths exceeds one block's shared memory")
+
+
 def _fwd_args(name, leaves, h0, xs, v0, upd, mask):
     """Checks shared by K1 and the forward without residuals; returns
     ``(lib, dims, upd, mask)`` as the kernels take them."""
@@ -770,40 +809,61 @@ def _fwd_args(name, leaves, h0, xs, v0, upd, mask):
     if F != H or len(upd) != depth:
         raise ValueError(f"{name}: needs hidden width == feature width and one gate per layer")
     lib = build.load()
-    if lib.sake_resid_fwd_smem_bytes(*dims) > _SMEM_LIMIT:
-        raise ValueError(f"{name}: N={N} at these widths exceeds one block's shared memory")
     upd_t = torch.tensor(list(upd), dtype=torch.float32, device=dev)
     return lib, dims, upd_t, _edge_mask(mask, dims, dev)
 
 
-def resid_fwd(leaves: dict, h0, xs, v0, upd: Sequence[float], mask=None) -> FwdOut:
+def resid_fwd(leaves: dict, h0, xs, v0, upd: Sequence[float], mask=None, *,
+              cluster: bool = False) -> FwdOut:
     """K1: the layer stack's forward with residuals. ``leaves`` from
     :func:`leaves.wide_stack`; ``h0 (B, N, F)``; ``xs``, ``v0 (3, B, N)``;
     ``upd``: per-layer update gates; ``mask``: ``(B, N, N, 1)`` edge mask
-    or None. CPU tensors take the plain version."""
+    or None. ``cluster``: take the cluster kernel (#4's, one molecule per
+    cluster of two CTAs) where :func:`cluster_route` says the one-block
+    kernel would leave SMs idle; it counts its launches in
+    ``resid_fwd.cluster_launches``. CPU tensors take the plain version."""
     if h0.device.type == "cpu":
         return resid_fwd_plain(leaves, h0, xs, v0, upd, mask=mask)
+    route = "block"
+    if cluster:
+        _require_cuda("resid_fwd", h0)
+        if _takes_cluster(build.load(), "fwd", _dims(leaves, h0), h0.device):
+            route = "cluster"
+    out = _launch_fwd(leaves, h0, xs, v0, upd, mask, route)
+    if route == "cluster":
+        resid_fwd.cluster_launches += 1
+    else:
+        resid_fwd.launches += 1
+    return out
+
+
+def _launch_fwd(leaves, h0, xs, v0, upd, mask, route="block"):
+    """Checks, allocation and launch of K1 on ``route``: "block" (one block
+    a molecule) or "cluster" (its cluster kernel)."""
     lib, dims, upd_t, m = _fwd_args("resid_fwd", leaves, h0, xs, v0, upd, mask)
     B, N, F, H, R, K, C, depth = dims
+    entry = lib.sake_resid_fwd if route == "block" else lib.sake_resid_fwd_cluster
+    _check_smem(lib, "sake_resid_fwd_smem_bytes" if route == "block"
+                else "sake_resid_fwd_cluster_smem_bytes", dims, "resid_fwd")
     empty = lambda *s: torch.empty(s, device=h0.device, dtype=torch.float32)
     out = FwdOut(
         empty(depth, B, N, F), empty(depth, 3, B, N), empty(depth, 3, B, N),
         empty(B, N, F), empty(3, B, N), empty(3, B, N),
         {n: empty(*s) for n, s in _resid_shapes(dims, leaves).items()},
     )
-    err = lib.sake_resid_fwd(
+    err = entry(
         h0.data_ptr(), xs.data_ptr(), v0.data_ptr(), upd_t.data_ptr(), _ptr(m),
         _ptrs([leaves[n] for n in LEAF_NAMES]), _strides(leaves),
         out.bh.data_ptr(), out.bx.data_ptr(), out.bv.data_ptr(),
         out.h_fin.data_ptr(), out.x_fin.data_ptr(), out.v_fin.data_ptr(),
         _ptrs([out.resid[n] for n in RESIDS]), *dims, _stream(h0.device),
     )
-    build.check(lib, err, "resid_fwd")
-    resid_fwd.launches += 1
+    build.check(lib, err, "resid_fwd" if route == "block" else "resid_fwd (cluster)")
     return out
 
 
 resid_fwd.launches = 0
+resid_fwd.cluster_launches = 0
 
 
 def resid_infer(leaves: dict, h0, xs, v0, upd: Sequence[float], mask=None):
@@ -814,6 +874,7 @@ def resid_infer(leaves: dict, h0, xs, v0, upd: Sequence[float], mask=None):
     if h0.device.type == "cpu":
         return resid_infer_plain(leaves, h0, xs, v0, upd, mask=mask)
     lib, dims, upd_t, m = _fwd_args("resid_infer", leaves, h0, xs, v0, upd, mask)
+    _check_smem(lib, "sake_resid_fwd_smem_bytes", dims, "resid_infer")
     B, N, F, H, R, K, C, depth = dims
     empty = lambda *s: torch.empty(s, device=h0.device, dtype=torch.float32)
     h_fin, x_fin = empty(B, N, F), empty(3, B, N)
@@ -831,12 +892,14 @@ def resid_infer(leaves: dict, h0, xs, v0, upd: Sequence[float], mask=None):
 resid_infer.launches = 0
 
 
-def _bwd_launch(name, leaves, fwd, upd, dh, dx, dv, mask, leaves_t, want_rows, add=None):
+def _bwd_launch(name, leaves, fwd, upd, dh, dx, dv, mask, leaves_t, want_rows, add=None,
+                route="block"):
     """Checks, allocation and launch of K2 (``want_rows=False``) or of its
     instantiation that also writes the cotangent rows. ``add``: None, or
     ``(add_h (depth, B, N, F), add_x (depth, 3, B, N), add_v (depth, 3, B,
     N))`` that the rows instantiation adds to the cotangents leaving each
-    layer (the second-order backward's Hessian term)."""
+    layer (the second-order backward's Hessian term). ``route``: "block",
+    or "cluster" for the rows kernel's cluster route (no addend)."""
     _require_cuda(name, dh)
     dims = _dims(leaves, fwd.bh[0])
     B, N, F, H, R, K, C, depth = dims
@@ -852,8 +915,12 @@ def _bwd_launch(name, leaves, fwd, upd, dh, dx, dv, mask, leaves_t, want_rows, a
     if F != H or len(upd) != depth:
         raise ValueError(f"{name}: needs hidden width == feature width and one gate per layer")
     lib = build.load()
-    if lib.sake_resid_bwd_smem_bytes(*dims) > _SMEM_LIMIT:
-        raise ValueError(f"{name}: N={N} at these widths exceeds one block's shared memory")
+    if route == "cluster":
+        if not want_rows or add is not None:
+            raise ValueError(f"{name}: the cluster route writes the rows and takes no addend")
+        _check_smem(lib, "sake_resid_bwd_cluster_smem_bytes", dims, name)
+    else:
+        _check_smem(lib, "sake_resid_bwd_smem_bytes", dims, name)
     if leaves_t is None:
         leaves_t = transposed(leaves)
     for leaf, shape in _leaf_shapes(F, H, R, K, C).items():
@@ -870,7 +937,10 @@ def _bwd_launch(name, leaves, fwd, upd, dh, dx, dv, mask, leaves_t, want_rows, a
         dh.data_ptr(), dx.data_ptr(), dv.data_ptr(),
         dh_out.data_ptr(), dx_out.data_ptr(), dv_out.data_ptr(),
     ]
-    if want_rows:
+    if route == "cluster":
+        err = lib.sake_resid_bwd_rows_cluster(*args, _ptrs([rows[n] for n in ROWS]), *dims,
+                                              _stream(dev))
+    elif want_rows:
         if add is not None:
             for n, a, s in zip(("add_h", "add_x", "add_v"), add,
                                ((depth, B, N, F), (depth, 3, B, N), (depth, 3, B, N))):
@@ -880,7 +950,7 @@ def _bwd_launch(name, leaves, fwd, upd, dh, dx, dv, mask, leaves_t, want_rows, a
                                       _stream(dev))
     else:
         err = lib.sake_resid_bwd(*args, *dims, _stream(dev))
-    build.check(lib, err, name)
+    build.check(lib, err, name if route == "block" else f"{name} (cluster)")
     return dh_out, dx_out, dv_out, rows
 
 
@@ -902,19 +972,32 @@ resid_bwd.launches = 0
 
 
 def resid_bwd_rows(leaves: dict, fwd: FwdOut, upd: Sequence[float], dh, dx, dv, mask=None,
-                   *, leaves_t: Optional[dict] = None):
+                   *, leaves_t: Optional[dict] = None, cluster: bool = False):
     """K2's pullback, also writing every layer's cotangent rows (``ROWS``,
     ``{name: (depth, B, N*N | N, ch)}``) for :func:`param_grads`: the
     pullback half of the JAX training ``bwd_kernel`` (``:1598``). Returns
-    ``(dh, dx, dv, rows)``. CPU tensors take the plain version."""
+    ``(dh, dx, dv, rows)``. ``cluster``: take the cluster kernel (#5's rows
+    kernel, one molecule per cluster of two CTAs) where :func:`cluster_route`
+    says the one-block kernel would leave SMs idle; it counts its launches in
+    ``resid_bwd_rows.cluster_launches``. CPU tensors take the plain version."""
     if dh.device.type == "cpu":
         return resid_bwd_rows_plain(leaves, fwd, upd, dh, dx, dv, mask=mask)
-    out = _bwd_launch("resid_bwd_rows", leaves, fwd, upd, dh, dx, dv, mask, leaves_t, True)
-    resid_bwd_rows.launches += 1
+    route = "block"
+    if cluster:
+        _require_cuda("resid_bwd_rows", dh)
+        if _takes_cluster(build.load(), "bwd", _dims(leaves, fwd.bh[0]), dh.device):
+            route = "cluster"
+    out = _bwd_launch("resid_bwd_rows", leaves, fwd, upd, dh, dx, dv, mask, leaves_t, True,
+                      route=route)
+    if route == "cluster":
+        resid_bwd_rows.cluster_launches += 1
+    else:
+        resid_bwd_rows.launches += 1
     return out
 
 
 resid_bwd_rows.launches = 0
+resid_bwd_rows.cluster_launches = 0
 
 
 def param_grads(leaves: dict, fwd: FwdOut, rows: dict) -> dict:
@@ -956,11 +1039,12 @@ param_grads.launches = 0
 
 
 def resid_train_bwd(leaves: dict, fwd: FwdOut, upd: Sequence[float], dh, dx, dv, mask=None,
-                    *, leaves_t: Optional[dict] = None):
+                    *, leaves_t: Optional[dict] = None, cluster: bool = False):
     """The training pullback (JAX ``bwd_kernel`` ``:1598``):
-    :func:`resid_bwd_rows` then :func:`param_grads`. Returns ``(dh, dx, dv,
-    {name: (depth, r, c)})``."""
-    dh, dx, dv, rows = resid_bwd_rows(leaves, fwd, upd, dh, dx, dv, mask, leaves_t=leaves_t)
+    :func:`resid_bwd_rows` (``cluster`` as there) then :func:`param_grads`.
+    Returns ``(dh, dx, dv, {name: (depth, r, c)})``."""
+    dh, dx, dv, rows = resid_bwd_rows(leaves, fwd, upd, dh, dx, dv, mask, leaves_t=leaves_t,
+                                      cluster=cluster)
     return dh, dx, dv, param_grads(leaves, fwd, rows)
 
 
@@ -1069,7 +1153,8 @@ def make_hidden_fn(*, n_heads: int = 4, update: Sequence[bool] | bool = True,
     With autograd recording (grad enabled and some input requiring grad) it
     is a ``torch.autograd.Function``: the forward runs K1 (:func:`resid_fwd`,
     with the mask) and keeps its boundaries and residuals; the backward runs
-    :func:`resid_train_bwd` and the embedding pullback, so gradients reach
+    :func:`resid_train_bwd` and the embedding pullback (both with
+    ``cluster=True``: small batches take the cluster kernels), so gradients reach
     every layer leaf, the embedding, ``h`` and ``x``. The readout leaves get
     zeros (the head that reads ``h_fin`` gives them theirs) and ``mask``
     none. Otherwise (the JAX primal-outside-autodiff rule, ``:1819-1821``)
@@ -1099,7 +1184,7 @@ def make_hidden_fn(*, n_heads: int = 4, update: Sequence[bool] | bool = True,
         def forward(ctx, mask, h, x, *flat):
             params = _unflat_params(flat, (len(flat) - 6) // _LAYER_TENSORS)
             leaves, upd, h0, xs, m4 = prep(params, h, x, mask)
-            fwd = resid_fwd(leaves, h0, xs, torch.zeros_like(xs), upd, mask=m4)
+            fwd = resid_fwd(leaves, h0, xs, torch.zeros_like(xs), upd, mask=m4, cluster=True)
             # h_fin is this function's output: keep the rest, not a cycle through it
             ctx.fwd, ctx.leaves, ctx.upd, ctx.m4 = fwd._replace(h_fin=None), leaves, upd, m4
             ctx.readout = flat[-4:]
@@ -1112,7 +1197,8 @@ def make_hidden_fn(*, n_heads: int = 4, update: Sequence[bool] | bool = True,
             B, N, F = dh_fin.shape
             zeros = torch.zeros(3, B, N, device=dh_fin.device, dtype=dh_fin.dtype)
             dh0, dx, _, g = resid_train_bwd(ctx.leaves, ctx.fwd, ctx.upd,
-                                            dh_fin.contiguous(), zeros, zeros, ctx.m4)
+                                            dh_fin.contiguous(), zeros, zeros, ctx.m4,
+                                            cluster=True)
             # embedding pullback, h0 = h @ w_embed + b_embed (plain torch, as in JAX)
             h2, dh2 = h.reshape(B * N, -1), dh0.reshape(B * N, F)
             d_params = [h2.T @ dh2, dh2.sum(dim=0)]

@@ -8,7 +8,11 @@
 // registers and B by its shared-memory descriptor, run when wgmma.wait_group
 // retires its group, as the PTX ISA allows; the fence, commit and wait), the
 // mbarriers and the TMA's bulk copy that feed it, NaN-filled dynamic shared
-// memory, the blocks of a launch one after another.
+// memory, the blocks of a launch one after another; thread-block clusters
+// (cluster.cuh: cudaLaunchKernelEx with a cluster dimension runs the CTAs of
+// a cluster at once, each with its own shared memory, which cl_map reaches by
+// the cluster rank, and a barrier over all their threads whose arrive and wait
+// each thread must alternate).
 // emulate.py rewrites `kern<<<g, b, smem, stream>>>(args)` into
 // emu_launch(kern, g, b, smem, stream, args) and `extern __shared__ float4
 // smem4[]` into a pointer before compiling with g++ -std=c++20.
@@ -26,6 +30,7 @@
 #include <map>
 #include <memory>
 #include <mutex>
+#include <optional>
 #include <thread>
 #include <vector>
 
@@ -77,6 +82,29 @@ inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t)
 }
 inline const char* cudaGetErrorString(int) { return "emulated"; }
 
+// cudaLaunchKernelEx's configuration, with the cluster dimension its only attribute.
+struct cudaLaunchAttributeValue {
+  struct {
+    unsigned x, y, z;
+  } clusterDim;
+};
+struct cudaLaunchAttribute {
+  int id;
+  cudaLaunchAttributeValue val;
+};
+constexpr int cudaLaunchAttributeClusterDimension = 4;
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
+inline int cudaOccupancyMaxActiveClusters(int* n, const void*, const cudaLaunchConfig_t*) {
+  *n = 1;
+  return 0;
+}
+
 // An mbarrier: arrivals still expected in the current phase, the bytes of
 // transactions still expected, and the number of completed phases.
 struct EmuMbar {
@@ -93,8 +121,14 @@ struct EmuBlock {
   std::vector<uint32_t> frags;  // six per thread, for the mma (four for wgmma)
   std::vector<double> dfrags;   // six per thread, for the f64 mma
   float4* smem;
+  size_t smem_bytes = 0;
   std::mutex mu;  // guards the mbarriers
   std::map<const void*, EmuMbar> mbars;
+  // a cluster's CTA: its rank, the shared memory of every CTA of the cluster
+  // (null outside a cluster launch) and the cluster barrier
+  int cl_rank = 0;
+  const std::vector<float4*>* cl_smem = nullptr;
+  std::barrier<>* cl_bar = nullptr;
 };
 inline thread_local EmuBlock* emu_blk;
 
@@ -353,22 +387,31 @@ inline int emu_threads(int b) {
   return e && b == 512 ? std::atoi(e) : b;
 }
 
+// A block's barriers, shuffle and fragment slots, and its shared memory
+// (NaN-filled) in mem.
+inline void emu_block_init(EmuBlock& eb, std::barrier<>* bar, int block, size_t smem,
+                           std::vector<float4>& mem) {
+  eb.block = bar;
+  for (int w = 0; w < block / 32; ++w) eb.warps.emplace_back(new std::barrier<>(32));
+  for (int w = 0; w < block / 128; ++w) eb.wgroups.emplace_back(new std::barrier<>(128));
+  eb.slots.assign(block, 0.0);
+  eb.frags.assign((size_t)block * 6, 0u);
+  eb.dfrags.assign((size_t)block * 6, 0.0);
+  mem.assign(smem / 16 + 1, float4{});
+  const float nan = std::numeric_limits<float>::quiet_NaN();
+  for (auto& v : mem) v = {nan, nan, nan, nan};
+  eb.smem = mem.data();
+  eb.smem_bytes = smem;
+}
+
 template <class K, class... A>
 void emu_launch(K kern, dim3 grid, int block, size_t smem, void*, A... args) {
   block = emu_threads(block);
   for (unsigned g = 0; g < grid.x * grid.y; ++g) {
     std::barrier<> bar(block);
     EmuBlock eb;
-    eb.block = &bar;
-    for (int w = 0; w < block / 32; ++w) eb.warps.emplace_back(new std::barrier<>(32));
-    for (int w = 0; w < block / 128; ++w) eb.wgroups.emplace_back(new std::barrier<>(128));
-    eb.slots.assign(block, 0.0);
-    eb.frags.assign((size_t)block * 6, 0u);
-    eb.dfrags.assign((size_t)block * 6, 0.0);
-    std::vector<float4> mem(smem / 16 + 1);
-    const float nan = std::numeric_limits<float>::quiet_NaN();
-    for (auto& v : mem) v = {nan, nan, nan, nan};
-    eb.smem = mem.data();
+    std::vector<float4> mem;
+    emu_block_init(eb, &bar, block, smem, mem);
     std::vector<std::thread> ts;
     for (int t = 0; t < block; ++t)
       ts.emplace_back([&, t] {
@@ -383,4 +426,93 @@ void emu_launch(K kern, dim3 grid, int block, size_t smem, void*, A... args) {
       });
     for (auto& t : ts) t.join();
   }
+}
+
+// ---- thread-block clusters (cluster.cuh) ------------------------------------
+inline thread_local std::optional<std::barrier<>::arrival_token> emu_cl_token;
+inline int cl_rank() { return emu_blk->cl_rank; }
+// The address of *p (this CTA's dynamic shared memory) in the shared memory of
+// the cluster's CTA `rank`; it aborts on any other address or rank.
+template <class T>
+inline T* cl_map(T* p, int rank) {
+  const long long off = (const char*)p - (const char*)emu_blk->smem;
+  if (!emu_blk->cl_smem || rank < 0 || rank >= (int)emu_blk->cl_smem->size() || off < 0 ||
+      off >= (long long)emu_blk->smem_bytes) {
+    std::fprintf(stderr, "emu: cl_map outside a cluster's dynamic shared memory\n");
+    std::abort();
+  }
+  return (T*)((char*)(*emu_blk->cl_smem)[rank] + off);
+}
+inline void cl_arrive() {
+  if (!emu_blk->cl_bar || emu_cl_token) {
+    std::fprintf(stderr, "emu: cluster arrive outside a cluster or twice without a wait\n");
+    std::abort();
+  }
+  emu_cl_token.emplace(emu_blk->cl_bar->arrive());
+}
+inline void cl_wait() {
+  if (!emu_cl_token) {
+    std::fprintf(stderr, "emu: cluster wait without an arrive\n");
+    std::abort();
+  }
+  emu_blk->cl_bar->wait(std::move(*emu_cl_token));
+  emu_cl_token.reset();
+}
+
+// A cluster launch: clusters of `cl` consecutive CTAs along x, one cluster
+// after another, the CTAs of a cluster at once. The 256- and 512-thread
+// blocks (the cluster bodies loop over blockDim.x) take EMU_THREADS when set.
+template <class K, class... A>
+void emu_launch_cluster(K kern, dim3 grid, int block, size_t smem, unsigned cl, A... args) {
+  const char* e = std::getenv("EMU_THREADS");
+  if (e && (block == 256 || block == 512)) block = std::atoi(e);
+  if (cl == 0 || grid.x % cl) {
+    std::fprintf(stderr, "emu: a grid of %u is no multiple of the cluster %u\n", grid.x, cl);
+    std::abort();
+  }
+  for (unsigned c0 = 0; c0 < grid.x * grid.y; c0 += cl) {
+    std::barrier<> cbar((std::ptrdiff_t)cl * block);
+    std::vector<std::unique_ptr<std::barrier<>>> bars;
+    std::vector<std::unique_ptr<EmuBlock>> ebs;
+    std::vector<std::vector<float4>> mems(cl);
+    std::vector<float4*> bases(cl);
+    for (unsigned r = 0; r < cl; ++r) {
+      bars.emplace_back(new std::barrier<>(block));
+      ebs.emplace_back(new EmuBlock);
+      emu_block_init(*ebs[r], bars[r].get(), block, smem, mems[r]);
+      bases[r] = ebs[r]->smem;
+      ebs[r]->cl_rank = (int)r;
+      ebs[r]->cl_smem = &bases;
+      ebs[r]->cl_bar = &cbar;
+    }
+    std::vector<std::thread> ts;
+    for (unsigned r = 0; r < cl; ++r)
+      for (int t = 0; t < block; ++t)
+        ts.emplace_back([&, r, t] {
+          emu_blk = ebs[r].get();
+          emu_wg_pending.clear();
+          emu_wg_committed = 0;
+          threadIdx.x = t;
+          blockIdx = dim3((c0 + r) % grid.x, (c0 + r) / grid.x);
+          blockDim.x = block;
+          gridDim = grid;
+          kern(args...);
+          if (emu_cl_token) {
+            std::fprintf(stderr, "emu: a thread ended with a cluster arrive not waited\n");
+            std::abort();
+          }
+        });
+    for (auto& t : ts) t.join();
+  }
+}
+
+template <class... P, class... A>
+int cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kern)(P...), A&&... args) {
+  unsigned cl = 1;
+  for (unsigned i = 0; i < cfg->numAttrs; ++i)
+    if (cfg->attrs[i].id == cudaLaunchAttributeClusterDimension)
+      cl = cfg->attrs[i].val.clusterDim.x;
+  emu_launch_cluster(kern, cfg->gridDim, (int)cfg->blockDim.x, cfg->dynamicSmemBytes, cl,
+                     P(args)...);
+  return 0;
 }

@@ -11,6 +11,7 @@ and #14 in both instantiations (``csrc/sparse_bwd.cu``, with the contraction).
     python tools/cuda_emu/emulate.py --wgmma                          # wgmma_tf32.cuh alone
     python tools/cuda_emu/emulate.py --sparse --slots 64 48 80 37      # #13, #14 (both)
     python tools/cuda_emu/emulate.py --contract                        # the contractions
+    EMU_THREADS=128 python tools/cuda_emu/emulate.py --qm9 --hidden 8 16 64 --atoms 29 21 16 7
 
 Compiles the kernel source with g++ against ``cuda_runtime.h`` beside this file
 (one std::thread per CUDA thread; see there), loads it with ctypes in place of
@@ -34,9 +35,17 @@ of the 1024-edge chunk) and at narrow widths (C = 12, R = 6, 3 heads), under
 ``resid_ef._launch_param_grads`` and ``train2_ef._launch_param_grads_aug``
 (``csrc/param_grads.cu``) on ``tools/probe_contract.py``'s random inputs at each
 ``--hidden`` x ``--batch`` x ``--atoms`` (``--depth`` layers) against
-``param_grads_plain`` and ``param_grads_aug_plain``. ``--asan`` needs the script
-started with g++'s libasan and libstdc++ preloaded (it prints the ``LD_PRELOAD``
-line).
+``param_grads_plain`` and ``param_grads_aug_plain``. With ``--qm9`` it runs the
+cluster kernels of #4 and #5's rows kernel (``csrc/resid_fwd.cu``,
+``csrc/resid_bwd_cl.cu``: one molecule per two-CTA cluster, the emulated CTAs of a
+cluster at once, with distributed shared memory and the cluster barrier) through
+``resid_ef._launch_fwd`` and ``_bwd_launch`` on the cluster route, at each
+``--hidden`` x ``--atoms`` N, masked (padded molecules, one of them a single
+atom) and unmasked, against ``resid_fwd_plain`` (boundaries, final state, all 17
+residuals) and ``resid_bwd_rows_plain`` (dh, dx, dv, all 20 rows); at hidden 64
+(H * K = C = 256) and N <= 32 their products take the emulated tensor cores.
+``--asan`` needs the script started with g++'s libasan and libstdc++ preloaded
+(it prints the ``LD_PRELOAD`` line).
 """
 
 from __future__ import annotations
@@ -308,6 +317,60 @@ def check_train(hid: int, depth: int, B: int, N: int, seed: int = 0):
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
+def check_qm9(hid: int, depth: int, B: int, N: int, masked: bool, seed: int = 0):
+    """#4's and #5's cluster kernels against their plain versions; returns the
+    worst relative error."""
+    from sake_tpu_torch.kernels import resid_ef
+    from sake_tpu_torch.kernels.functional import embed
+    from sake_tpu_torch.kernels.leaves import wide_stack
+
+    F_in = 5
+    model = SAKEModel(hid, 1, depth, in_features=F_in, device="cpu",
+                      generator=torch.Generator().manual_seed(seed))
+    p = model_params_from_linen(linen_tree(model), device="cpu")
+    g = torch.Generator().manual_seed(seed + 1)
+    h = torch.randn(B, N, F_in, generator=g)
+    xs = 1.5 * torch.randn(3, B, N, generator=g)
+    dh, dx, dv = torch.randn(B, N, hid, generator=g), torch.randn(3, B, N, generator=g), \
+        torch.randn(3, B, N, generator=g)
+    upd = [1.0, 0.4, 1.0][:depth] + [1.0] * max(0, depth - 3)
+    m4 = None
+    if masked:  # the first molecule whole, then one that leaves rank 1 only padding, one atom
+        sizes = ([N, max(1, N // 3), 1, N - 1] * B)[:B]
+        nm = (torch.arange(N)[None, :] < torch.tensor(sizes)[:, None]).float()
+        m4 = (nm[:, :, None] * nm[:, None, :])[..., None].contiguous()
+    leaves = wide_stack(p, 4)
+    h0 = embed(p, h).contiguous()
+    zs = torch.zeros_like(xs)
+    worst = 0.0
+    t0 = time.perf_counter()
+    kf = resid_ef._launch_fwd(leaves, h0, xs, zs, upd, m4, "cluster")
+    pf = resid_ef.resid_fwd_plain(leaves, h0, xs, zs, upd, mask=m4)
+    names = ("bh", "bx", "bv", "h_fin", "x_fin", "v_fin")
+    errs = {**{n: _rel(a, b) for n, a, b in zip(names, kf[:6], pf[:6])},
+            **{n: _rel(kf.resid[n], pf.resid[n]) for n in resid_ef.RESIDS}}
+    w = max(errs, key=errs.get)
+    worst = max(worst, errs[w])
+    ranges = [resid_ef.cluster_rows(N, r) for r in range(resid_ef.CLUSTER_SIZE)]
+    print(f"#4 resid_fwd cluster hidden {hid} depth {depth} B {B} N {N} rows {ranges} "
+          f"{'masked' if masked else 'unmasked'}: max rel err {errs[w]:.3e} ({w}), finite "
+          f"{all(bool(torch.isfinite(t).all()) for t in kf[:6])} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    kb = resid_ef._bwd_launch("resid_bwd_rows", leaves, pf, upd, dh, dx, dv, m4, None, True,
+                              route="cluster")
+    pb = resid_ef.resid_bwd_rows_plain(leaves, pf, upd, dh, dx, dv, mask=m4)
+    errs = {**{n: _rel(a, b) for n, a, b in zip(("dh", "dx", "dv"), kb[:3], pb[:3])},
+            **{n: _rel(kb[3][n], pb[3][n]) for n in resid_ef.ROWS}}
+    w = max(errs, key=errs.get)
+    worst = max(worst, errs[w])
+    print(f"#5 resid_bwd_rows cluster hidden {hid} depth {depth} B {B} N {N} "
+          f"{'masked' if masked else 'unmasked'}: max rel err {errs[w]:.3e} ({w}), finite "
+          f"{all(bool(torch.isfinite(t).all()) for t in kb[:3])} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    return worst
+
+
 def check(hid: int, depth: int, B: int, N: int, F_in: int, upd, seed: int = 0):
     model = SAKEModel(hid, 1, depth, in_features=F_in, device="cpu",
                       generator=torch.Generator().manual_seed(seed))
@@ -347,6 +410,8 @@ def main():
     ap.add_argument("--rows", type=int, default=3, help="--sparse: receiver rows")
     ap.add_argument("--contract", action="store_true",
                     help="the contractions (csrc/sparse_contract.cu, csrc/param_grads.cu)")
+    ap.add_argument("--qm9", action="store_true",
+                    help="#4's and #5's cluster kernels (csrc/resid_fwd.cu, csrc/resid_bwd_cl.cu)")
     args = ap.parse_args()
     if args.asan and "libasan" not in os.environ.get("LD_PRELOAD", ""):
         asan = subprocess.run(["g++", "-print-file-name=libasan.so"], capture_output=True,
@@ -397,6 +462,26 @@ def main():
                 for B in args.batch:
                     for N in args.atoms:
                         worst = max(worst, check_contract_dense(hid, B, N, args.depth))
+        print(f"worst {worst:.3e}", flush=True)
+        return
+    if args.qm9:
+        from sake_tpu_torch.kernels import resid_ef
+
+        with tempfile.TemporaryDirectory() as tmp:
+            libs = Libs(*(load(compile_source(src, Path(tmp) / Path(src).stem, args.asan), names)
+                          for src, names in (
+                              ("resid_fwd.cu", ["sake_resid_fwd_cluster",
+                                                "sake_resid_fwd_cluster_smem_bytes"]),
+                              ("resid_bwd_cl.cu", ["sake_resid_bwd_rows_cluster",
+                                                   "sake_resid_bwd_cluster_smem_bytes"]))))
+            build.load = lambda: libs
+            resid_ef._require_cuda = lambda name, t: None
+            resid_ef._stream = lambda dev: None
+            worst = 0.0
+            for hid in args.hidden:
+                for N in args.atoms:
+                    for masked in (True, False):
+                        worst = max(worst, check_qm9(hid, args.depth, args.batch[0], N, masked))
         print(f"worst {worst:.3e}", flush=True)
         return
     if args.train:

@@ -36,7 +36,8 @@ SLOTS = ("fwd_pre", "fwd_row", "fwd_xmix", "fwd_node", "bwd_pre", "bwd_row", "bw
          "bwd_load", "tb_load", "sp_load", "sp_narrow", "sp_softmax", "sp_heatt", "sp_xmix_f",
          "sp_xmix_b", "sp_epi", "sp_tail", "sp_store", "sc_stage", "sc_mma", "sc_store",
          "sc_sum", "pg_xmix_stage", "pg_xmix_mma", "pg_xmix_flush", "pg_wide_stage",
-         "pg_wide_mma", "pg_wide_flush", "pg_narrow", "pg_sum")  # probe.cuh's ProbeSlot order
+         "pg_wide_mma", "pg_wide_flush", "pg_narrow", "pg_sum", "fwd_of_mm", "fwd_o1_mm",
+         "bwd_of_mm", "bwd_o1_mm", "fwd_cl", "bwd_cl", "bwd_rows")  # probe.cuh's ProbeSlot order
 KERNELS = ("fused_ef_kernelILb0E", "fused_bwd_kernel", "param_grads_kernelILb1E")
 ENTRIES = ("sake_fused_primal", "sake_fused_ef_smem_bytes", "sake_fused_bwd",
            "sake_fused_bwd_smem_bytes", "sake_fused_ef_probe", "sake_fused_bwd_probe")

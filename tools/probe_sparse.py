@@ -39,7 +39,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = ("sparse_fwd.cu", "sparse_bwd.cu", "sparse_contract.cu")
 SLOTS = ("sp_load", "sp_narrow", "sp_softmax", "sp_heatt", "sp_xmix_f", "sp_xmix_b", "sp_epi",
          "sp_tail", "sp_store")  # probe.cuh's PR_SP_* slots, in order
-N_SLOTS = 45  # kProbeSlots
+N_SLOTS = 52  # kProbeSlots
 SLOT0 = 24  # the first of the sparse edge row's slots (PR_SP_LOAD)
 ENTRIES = ("sake_sparse_fwd", "sake_sparse_bwd", "sake_sparse_bwd_rows", "sake_sparse_contract",
            "sake_sparse_fwd_probe", "sake_sparse_bwd_probe", "sake_sparse_fwd_max_slots",

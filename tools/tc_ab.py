@@ -1,18 +1,26 @@
-"""Hold the tensor-core #11 and #12 against the parent commit's kernels on one
-NVIDIA GPU, in one process tree:
+"""Hold a change to the dense kernels against the parent commit's on one NVIDIA
+GPU, in one process tree:
 
     python3 tools/tc_ab.py --parent <checkout of the parent commit>
+    python3 tools/tc_ab.py --parent <checkout> --phases sass time --time-sets qm9
 
 1. ``SASS``: builds both trees' kernels at once (``build.build``) and compares
    every object's SASS function by function (``cuobjdump -sass``). Every kernel
-   but #11 (``fused_ef_kernel<false>``) and #12's block (``fused_bwd_kernel``)
-   must compile to the parent's instructions; the ptxas lines of the kernels
-   that differ are printed beside the parent's.
-2. ``TIME``: the dense kernels timed in worker processes that alternate the
-   trees (parent, change, change, parent, parent, change), CUDA events, 3
-   launches after one warm-up: K1, K2, #3 and #20 (f32, bf16) at aspirin B =
-   2048 (#3, #20) or 512, #9, #10, #21-#24 at 512, and #11, #12's block and its
-   contraction at 512 and 4; each kernel's runs per tree and their spread.
+   but those ``--kernels`` names (by default the cluster kernels of #4 and #5,
+   ``resid_fwd_cl_kernel`` and ``resid_bwd_cl_kernel``; ``fused_ef_kernel`` and
+   ``fused_bwd_kernel`` for a change to #11 and #12's block) must compile to the
+   parent's instructions; the ptxas lines of the kernels that differ or
+   are new are printed beside the parent's.
+2. ``TIME``: kernels timed in worker processes that alternate the trees
+   (parent, change, change, parent, parent, change), CUDA events, 3 launches
+   after one warm-up. Set ``md17``: K1, K2, #3 and #20 (f32, bf16) at aspirin
+   B = 2048 (#3, #20) or 512, #9, #10, #21-#24 at 512, and #11, #12's block
+   and its contraction at 512 and 4. Set ``qm9``: at chip_smoke.py phase 5's
+   input (the first ``qm9_kernel`` batch, B = 64, N = 29, masked) #4 and #5's
+   rows kernel on the route ``make_hidden_fn`` takes in that tree (the cluster
+   kernels where the tree has them) and on the one-block route, and the
+   ``qm9_kernel`` train step (5 steps a run, after one); each kernel's runs per
+   tree and their spread.
 3. ``GRADS``: step 1 of ``md17_kernel``'s fused branch against its plain
    branch (double autograd), per-leaf gradients as max |diff| / max |plain|, at
    batch 4 (``MD17Config``'s) and 512, on four (model init, batch order) seeds,
@@ -38,7 +46,8 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
-TC_KERNELS = ("fused_ef_kernel", "fused_bwd_kernel")  # #11's and #12's block
+# the kernels this change may add or alter: #4's and #5's cluster kernels
+NEW_KERNELS = ("resid_fwd_cl_kernel", "resid_bwd_cl_kernel")
 # (model seed, batch seed): chip_smoke.py's step 1 (MD17Config's seed, batch
 # order RandomState(0)), then three more
 SEEDS = ((2666, 0), (0, 1), (1, 2), (2, 3))
@@ -97,7 +106,7 @@ def ptxas_props(ptxas: str) -> dict:
     return props
 
 
-def sass_phase(parent: Path) -> bool:
+def sass_phase(parent: Path, kernels=NEW_KERNELS) -> bool:
     t0 = time.perf_counter()
     procs = {"parent": build_tree(parent), "change": build_tree(HERE)}
     libs = {}
@@ -112,7 +121,7 @@ def sass_phase(parent: Path) -> bool:
     props = {k: ptxas_props((v.parent / "ptxas.txt").read_text()) for k, v in libs.items()}
     for obj in sorted(libs["change"].parent.glob("*.o")):
         old = libs["parent"].parent / obj.name
-        a, b = sass_functions(old), sass_functions(obj)
+        a, b = (sass_functions(old) if old.exists() else {}), sass_functions(obj)
         same = [f for f in b if a.get(f) == b[f]]
         differ = [f for f in b if f in a and a[f] != b[f]]
         new = [f for f in b if f not in a]
@@ -123,13 +132,70 @@ def sass_phase(parent: Path) -> bool:
         for f in differ + new:
             print(f"SASS   {f}: change [{props['change'].get(f, '?')}] parent "
                   f"[{props['parent'].get(f, '-')}]", flush=True)
-        if gone or any(not any(k in f for k in TC_KERNELS) for f in differ + new):
+        for f in differ:  # where the instructions first part
+            at = next(i for i, (x, y) in enumerate(zip(a[f] + [""], b[f] + [""])) if x != y)
+            print(f"SASS   {f} first differs at instruction {at} of {len(a[f])} / {len(b[f])}: "
+                  f"parent {a[f][at:at + 3]} change {b[f][at:at + 3]}", flush=True)
+        if gone or any(not any(k in f for k in kernels) for f in differ + new):
             ok = False
-    print(f"SASS every kernel but #11's and #12's block unchanged: {ok}", flush=True)
+    print(f"SASS every kernel but {list(kernels)} unchanged: {ok}", flush=True)
     return ok
 
 
-def time_worker(label: str) -> dict:
+def qm9_times(dev) -> dict:
+    """The ``qm9`` set: #4 and #5's rows kernel on both routes and the train
+    step at chip_smoke.py phase 5's input, in the tree on ``sys.path``."""
+    import inspect
+
+    import numpy as np
+    import torch
+
+    from sake_tpu_torch.data.qm9 import dimenet_split, load_qm9
+    from sake_tpu_torch.kernels import resid_ef
+    from sake_tpu_torch.tasks import qm9 as task
+    from sake_tpu_torch.train import TrainState, make_optimizer, shuffle_batches
+
+    spec = importlib.util.spec_from_file_location("probe_resid", HERE / "tools" / "probe_resid.py")
+    pr = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(pr)
+    leaves, leaves_t, h0, xs, zs, m4, dh, upd = pr.qm9_inputs(dev)
+    B, N = h0.shape[:2]
+    kw = ({"cluster": True} if "cluster" in inspect.signature(resid_ef.resid_fwd).parameters
+          else {})
+    t = {}
+    with torch.no_grad():
+        fwd = resid_ef.resid_fwd_plain(leaves, h0, xs, zs, upd, mask=m4)
+        for route, k in (("make_hidden_fn's route", kw), ("one-block", {})):
+            t[f"#4 resid_fwd masked B={B} N={N} {route}"] = cuda_ms(
+                lambda: resid_ef.resid_fwd(leaves, h0, xs, zs, upd, m4, **k))
+            t[f"#5 resid_bwd_rows masked B={B} N={N} {route}"] = cuda_ms(
+                lambda: resid_ef.resid_bwd_rows(leaves, fwd, upd, dh, zs, zs, m4,
+                                                leaves_t=leaves_t, **k))
+        del fwd
+    cfg = task.QM9Config(use_kernel_backbone=True, data_parallel=False)
+    data = load_qm9(None, cfg.n_samples, seed=cfg.seed)
+    tr_idx, _, _ = dimenet_split(len(data.x))
+    n_classes = int(data.charges.max()) + 1
+    y_mean, y_std = float(data.y[tr_idx].mean()), float(data.y[tr_idx].std())
+    train = task.prepare_split(data, tr_idx, n_classes, y_mean, y_std, dev)
+    batches = shuffle_batches(np.random.RandomState(cfg.seed), train, cfg.batch_size)[:6]
+    model = task.QM9Model(cfg, n_classes, device=dev,
+                          generator=torch.Generator().manual_seed(cfg.seed))
+    prm, fwd_fn = task.make_forward(cfg, model)
+    step = task.make_train_step(fwd_fn)
+    state = TrainState.create(params=prm, tx=make_optimizer(cfg.learning_rate,
+                                                            weight_decay=cfg.weight_decay))
+    state, _ = step(state, batches[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b_ in batches[1:]:
+        state, _ = step(state, b_)
+    torch.cuda.synchronize()
+    t[f"qm9_kernel train step B={B}"] = (time.perf_counter() - t0) * 1e3 / (len(batches) - 1)
+    return t
+
+
+def time_worker(label: str, sets=("md17",)) -> dict:
     import numpy as np
     import torch
 
@@ -143,6 +209,10 @@ def time_worker(label: str) -> dict:
 
     build.load()
     dev = torch.device("cuda", 0)
+    t = qm9_times(dev) if "qm9" in sets else {}
+    if "md17" not in sets:
+        print("TC_AB_TIME " + json.dumps({"tree": label, "ms": t}), flush=True)
+        return t
     data = load_md17("aspirin", None, n_samples=2048)
     N, F_in, depth, heads = len(data.z), 8, 6, 4
     model = SAKEModel(64, 1, depth, n_heads=heads, in_features=F_in, device=dev,
@@ -150,7 +220,6 @@ def time_worker(label: str) -> dict:
     p = model_params_from_linen(linen_tree(model), device=dev)
     g = torch.Generator(dev).manual_seed(1)
     upd = [1.0] * depth
-    t = {}
     with torch.no_grad():
         leaves = wide_stack(p, heads)
         leaves_t = transposed(leaves)
@@ -293,12 +362,12 @@ def align_phase() -> bool:
     return ok
 
 
-def run_worker(kind: str, root: Path, label: str, times: list) -> int:
+def run_worker(kind: str, root: Path, label: str, times: list, sets=("md17",)) -> int:
     """One worker process on ``root``'s package; its output is passed on and
     its TC_AB_TIME lines are appended to ``times``."""
     proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--worker", kind,
-                           "--root", str(root), "--label", label], capture_output=True,
-                          text=True)
+                           "--root", str(root), "--label", label, "--time-sets", *sets],
+                          capture_output=True, text=True)
     print(proc.stdout + proc.stderr[-4000:], end="", flush=True)
     times += [json.loads(line.split(" ", 1)[1]) for line in proc.stdout.splitlines()
               if line.startswith("TC_AB_TIME ")]
@@ -327,10 +396,18 @@ def main() -> int:
     ap.add_argument("--worker", choices=("time", "grads"))
     ap.add_argument("--root", type=Path)
     ap.add_argument("--label")
+    ap.add_argument("--phases", nargs="*", default=["sass", "time", "grads", "align"],
+                    choices=["sass", "time", "grads", "align"])
+    ap.add_argument("--time-sets", nargs="*", default=["md17", "qm9"], choices=["md17", "qm9"])
+    ap.add_argument("--kernels", nargs="*", default=list(NEW_KERNELS),
+                    help="SASS: the functions (by a part of their names) that may differ")
     args = ap.parse_args()
     if args.worker:
         sys.path.insert(0, str(args.root.resolve()))
-        (time_worker if args.worker == "time" else grads_worker)(args.label)
+        if args.worker == "time":
+            time_worker(args.label, args.time_sets)
+        else:
+            grads_worker(args.label)
         return 0
     import torch
 
@@ -342,17 +419,21 @@ def main() -> int:
                          check=True).stdout.strip(), flush=True)
     parent = args.parent.resolve()
     ok = True
-    ok &= sass_phase(parent)
+    if "sass" in args.phases:
+        ok &= sass_phase(parent, tuple(args.kernels))
     trees = {"parent": parent, "change": HERE}
     times = []
-    for label in ("parent", "change", "change", "parent", "parent", "change"):
-        ok &= run_worker("time", trees[label], label, times) == 0
+    if "time" in args.phases:
+        for label in ("parent", "change", "change", "parent", "parent", "change"):
+            ok &= run_worker("time", trees[label], label, times, args.time_sets) == 0
     if times:
         time_summary(times)
-    for label in ("parent", "change"):
-        ok &= run_worker("grads", trees[label], label, []) == 0
+    if "grads" in args.phases:
+        for label in ("parent", "change"):
+            ok &= run_worker("grads", trees[label], label, []) == 0
     sys.path.insert(0, str(HERE))
-    ok &= align_phase()
+    if "align" in args.phases:
+        ok &= align_phase()
     print(f"TC_AB ok {ok}", flush=True)
     return 0 if ok else 1
 
