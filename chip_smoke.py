@@ -48,7 +48,10 @@ Phases (each prints its own lines; any failure exits non-zero):
    every parameter gradient of the kernel branch against the plain branch
    (1e-4 relative per leaf), the first 5 steps' losses (1e-3 relative);
    then the train step of both branches timed in turns (every run
-   printed) and each kernel timed at the slice's shapes beside its plain
+   printed), a BREAKDOWN of the kernel branch's step inside 5 more steps
+   (CUDA events before each step, before its optimizer update and after
+   it, so the forward + backward and the update add up to the step), and
+   each kernel timed at the slice's shapes beside its plain
    version and its bound (#4's and #5's cluster kernels' 3xTF32 products at
    3 passes over the TF32 tensor-core peak), with #4 and #5 also on their
    one-block route.
@@ -910,11 +913,8 @@ def qm9_phases(dev, smi) -> list:
         fail("QM9: a cluster kernel's second launch differs from its first")
     occ = {name: getattr(build.load(), entry)(*resid_ef._dims(leaves, h0))
            for name, entry in (("#4 cluster", "sake_resid_fwd_cluster_max_active"),
-                               ("#5 cluster", "sake_resid_bwd_cluster_max_active"),
-                               ("#4 one-block blocks/SM", "sake_resid_fwd_blocks_per_sm"),
-                               ("#5 one-block blocks/SM", "sake_resid_bwd_blocks_per_sm"))}
-    print(f"QM9 OCCUPANCY clusters the card holds at once (B={B}, N={N}) and the one-block "
-          f"kernels' blocks an SM: {json.dumps(occ)}; "
+                               ("#5 cluster", "sake_resid_bwd_cluster_max_active"))}
+    print(f"QM9 OCCUPANCY clusters the card holds at once (B={B}, N={N}): {json.dumps(occ)}; "
           f"{torch.cuda.get_device_properties(dev).multi_processor_count} SMs", flush=True)
     checks = {
         "resid_fwd_masked": fwd_pairs(k4),
@@ -1048,19 +1048,43 @@ def qm9_phases(dev, smi) -> list:
         torch.cuda.synchronize()
         runs[side].append((time.perf_counter() - t0) * 1e3 / len(timed))
     step_ms = {k: sum(v) / len(v) for k, v in runs.items()}
-    # where the kernel branch's step goes: the optimizer update alone, and
-    # the forward + backward without it
+    # where the kernel branch's step goes, inside 5 more steps: CUDA events
+    # before each step, before its optimizer update and after the step, so the
+    # two parts are spans of the stream's timeline that add up to the step
     br = branches["kernel"]
-    zero_grads = [torch.zeros_like(p) for p in tree_leaves(br["params"])]
-    t_opt = cuda_ms(lambda: br["state"].apply_gradients(zero_grads))
-    t_fb = cuda_ms(lambda: loss_and_grads(br))
+    marks = []
+
+    def mark():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        marks.append(e)
+
+    apply = TrainState.apply_gradients
+
+    def marked_apply(self, grads):
+        mark()
+        return apply(self, grads)
+
+    TrainState.apply_gradients = marked_apply
+    try:
+        for b_ in timed:
+            mark()
+            br["state"], _ = br["step"](br["state"], b_)
+            mark()
+    finally:
+        TrainState.apply_gradients = apply
+    torch.cuda.synchronize()
+    span = lambda k: sum(a.elapsed_time(b) for a, b in zip(marks[k::3], marks[k + 1::3]))
+    t_fb, t_opt = span(0) / len(timed), span(1) / len(timed)
+    n_tensors = len(tree_leaves(br["params"]))
     print(f"QM9 TIMING train step at B={B}: kernel {step_ms['kernel']:.2f} ms = "
           f"{B * 1e3 / step_ms['kernel']:.1f} samples/s; plain {step_ms['plain']:.2f} ms = "
           f"{B * 1e3 / step_ms['plain']:.1f} samples/s (ms per step, runs {json.dumps(runs)}; "
           f"{smi})", flush=True)
-    print(f"QM9 BREAKDOWN kernel-branch step {step_ms['kernel']:.2f} ms: forward + backward "
-          f"{t_fb:.2f} ms, optimizer update {t_opt:.2f} ms ({len(zero_grads)} tensors)",
-          flush=True)
+    print(f"QM9 BREAKDOWN kernel-branch step, inside {len(timed)} more steps (CUDA events): "
+          f"{t_fb + t_opt:.2f} ms a step = forward + backward {t_fb:.2f} ms + optimizer update "
+          f"{t_opt:.2f} ms ({t_opt / (t_fb + t_opt):.1%}, {n_tensors} tensors); the timed "
+          f"runs' step {step_ms['kernel']:.2f} ms", flush=True)
 
     # per kernel at the slice's shapes
     with torch.no_grad():
@@ -1114,7 +1138,7 @@ def qm9_phases(dev, smi) -> list:
         kernel_entry("resid_infer", src + "resid_fwd.cu", at + "1732",
                      qm9_launches["resid_infer"], abs_qm9["resid_infer"], *t["resid_infer"],
                      fma["fwd"], nbytes(inputs_fwd, p4.h_fin, p4.x_fin)),
-        kernel_entry("resid_bwd_rows", src + "resid_bwd.cu", at + "1598",
+        kernel_entry("resid_bwd_rows", src + "resid_bwd_cl.cu", at + "1598",
                      qm9_launches["resid_bwd_rows (cluster)"], abs_qm9["resid_bwd_rows"],
                      *t["resid_bwd_rows"], fma["bwd"], moved_rows, tc=tcf["bwd"]),
         kernel_entry("param_grads", src + "param_grads.cu", at + "1598",

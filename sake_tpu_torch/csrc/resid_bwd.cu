@@ -112,21 +112,6 @@ extern "C" long long sake_resid_bwd_smem_bytes(int B, int N, int F, int H, int R
   return sake::bwd_smem_floats(d) * (long long)sizeof(float);
 }
 
-// Blocks of the one-block rows kernel (resid_bwd_kernel<true>) that one SM
-// holds at these widths; negative: a CUDA error.
-extern "C" int sake_resid_bwd_blocks_per_sm(int B, int N, int F, int H, int R, int K, int C,
-                                            int depth) {
-  sake::Dims d{B, N, F, H, R, K, C, depth};
-  const int smem = (int)(sake::bwd_smem_floats(d) * sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(sake::resid_bwd_kernel<true>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  int n = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, sake::resid_bwd_kernel<true>, 512,
-                                                        smem);
-  return err == cudaSuccess ? n : -(int)err;
-}
-
 // mask: (B, N, N) f32 or null.
 extern "C" int sake_resid_bwd(const float* bh, const float* bx, const float* bv,
                               const float* upd, const float* mask,

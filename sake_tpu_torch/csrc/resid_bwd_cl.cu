@@ -17,25 +17,20 @@
 // products run in 3xTF32 (mma_tf32x3.cuh, four n8 tiles) up to N = 32. Every
 // row goes to the one-block kernel's place, so param_grads.cu and the plain
 // versions read the same rows. No addend: #10's and #19's launches keep the
-// one-block kernel.
+// one-block kernel. make_hidden_fn's calls take this kernel at every batch: on
+// an H100 at N = 29 it measured 0.39-0.76x the one-block kernel's time from B =
+// 64 to 256 (tools/probe_resid.py --phases sweep).
 
 #include "resid_bwd_cl.cuh"
-
-// The tensor-core switch; a probe build may clear it (tools/probe_resid.py
-// times both).
-#ifndef SAKE_CL_TC
-#define SAKE_CL_TC 1
-#endif
 
 namespace sake {
 
 constexpr int kClBwdThreads = 512;
-constexpr bool kClBwdTc = SAKE_CL_TC != 0;
 
 // The kernel's shared memory, in floats: the W ring of the tensor-core
 // products, then the cluster body's carve.
 __host__ __device__ inline long long bwd_cl_smem_floats(const Dims& d) {
-  return (kClBwdTc ? tc_ring_floats_of<true>(d) : 0) + bwd_cl_floats<kClBwdTc>(d);
+  return tc_ring_floats_of<true>(d) + bwd_cl_floats(d);
 }
 
 // Molecule blockIdx.x / 2, receiver rows of cluster rank blockIdx.x % 2
@@ -54,13 +49,13 @@ resid_bwd_cl_kernel(Dims d, const float* __restrict__ bh, const float* __restric
   const float* mb = mask ? mask + (size_t)b * N * N : nullptr;
 
   Carver cv{reinterpret_cast<float*>(smem4)};
-  float* ring = kClBwdTc ? cv.take(tc_ring_floats_of<true>(d)) : nullptr;
-  const BwdSmem S = carve_bwd_cl<kClBwdTc>(cv, d);
+  float* ring = cv.take(tc_ring_floats_of<true>(d));
+  const BwdSmem S = carve_bwd_cl(cv, d);
   SAKE_PROBE_START();
   bwd_begin(d, S, B, b, dh_fin, dx_fin, dv_fin, mb);
   cl_arrive();  // each layer waits before it zeroes its sender sums
   for (int l = d.depth - 1; l >= 0; --l)
-    bwd_layer_cl<kClBwdTc>(d, S, b, l, upd[l], mb, L, LT, bh, bx, bv, RS, RW, ring);
+    bwd_layer_cl(d, S, b, l, upd[l], mb, L, LT, bh, bx, bv, RS, RW, ring);
   cl_wait();  // the other CTA has read this one's last sums: its memory may go
 
   int i0, i1;  // this CTA's nodes

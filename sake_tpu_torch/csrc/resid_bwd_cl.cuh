@@ -4,8 +4,9 @@
 // cl_rows, runs the node part and the row loop for them, and sums its partial
 // sender sums (d_a_j, d_o_j, +d_d0) with the other CTA's for its own senders
 // through distributed shared memory. Every row goes where bwd_layer<true>'s
-// goes. f32, no addend; kTc: the x-mixing pullback and the edge products in
-// 3xTF32 up to N = 32 (tc_dims_of<true>, four n8 tiles of mm_tc).
+// goes. f32, no addend; the x-mixing pullback and the edge products in 3xTF32
+// up to N = 32 (tc_dims_of<true>, four n8 tiles of mm_tc), on the CUDA cores
+// (mm_bwd) above.
 //
 // A body of its own, not a parameter of bwd_layer: with the cluster as a
 // template parameter of bwd_layer, K2, #3 and #11 no longer compiled to their
@@ -21,8 +22,7 @@ namespace sake {
 
 // The cluster body's carve: carve_bwd's buffers, the receiver-indexed ones
 // (sdai, sdoi, sdhatt, sdpsq, sdvn, sdvo, sdxr and the node scratch) for
-// cl_span(N) rows; kTc: d_xm's rows padded (tc_ld_of<true>).
-template <bool kTc>
+// cl_span(N) rows; d_xm's rows padded (tc_ld_of<true>).
 __host__ __device__ inline BwdSmem carve_bwd_cl(Carver& cv, const Dims& d) {
   const long long N = d.N, F = d.F, H = d.H, R = d.R, K = d.K, C = d.C;
   const long long NR = cl_span(d.N);  // receiver rows of this CTA, at most
@@ -65,25 +65,24 @@ __host__ __device__ inline BwdSmem carve_bwd_cl(Carver& cv, const Dims& d) {
   s.srbf = cv.take(N * R);
   s.sdrbf = cv.take(N * R);
   s.sdpre = cv.take(N * R);
-  const long long rows = N * (kTc ? tc_ld_of<true>(d, C) : C) + N * H * K,
+  const long long rows = N * tc_ld_of<true>(d, C) + N * H * K,
                   node = NR * (4 * H + F + 1);
   s.scr = cv.take(rows > node ? rows : node);
   return s;
 }
 
-template <bool kTc>
 __host__ __device__ inline long long bwd_cl_floats(const Dims& d) {
   Carver cv{nullptr};
-  carve_bwd_cl<kTc>(cv, d);
+  carve_bwd_cl(cv, d);
   return cv.off;
 }
 
-// Layer l of the cluster pullback, as bwd_layer<true, false, kTc> (see there)
-// for this CTA's receivers. S from carve_bwd_cl<kTc>. The caller arrives at the
-// cluster barrier once before the first layer and waits once after the last:
-// each layer waits before it zeroes the sums the other CTA read last, and
-// arrives once it has read the other's.
-template <bool kTc>
+// Layer l of the cluster pullback, as bwd_layer<true, false, true> (see there)
+// for this CTA's receivers. S from carve_bwd_cl; ring: the W ring of the
+// tensor-core products. The caller arrives at the cluster barrier once before
+// the first layer and waits once after the last: each layer waits before it
+// zeroes the sums the other CTA read last, and arrives once it has read the
+// other's.
 __device__ __forceinline__ void bwd_layer_cl(const Dims& d, const BwdSmem& S, int b, int l,
                                              float u, const float* __restrict__ mb,
                                              const Leaves& L, const Leaves& LT,
@@ -93,7 +92,7 @@ __device__ __forceinline__ void bwd_layer_cl(const Dims& d, const BwdSmem& S, in
                                              const Rows& RW, float* ring) {
   const int B = d.B, N = d.N, F = d.F, H = d.H, R = d.R, K = d.K, C = d.C;
   const int HK = H * K, NN = N * N;
-  const int ldc = kTc ? tc_ld_of<true>(d, C) : C;  // coeff's, d_xm's row stride
+  const int ldc = tc_ld_of<true>(d, C);  // coeff's, d_xm's row stride
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarp = nt >> 5;
   const int rank = cl_rank();
@@ -339,12 +338,8 @@ __device__ __forceinline__ void bwd_layer_cl(const Dims& d, const BwdSmem& S, in
 
     // d_he_att = d_xm @ w_xmix^T + d_hatt[i] (hatt sums he_att over senders)
     auto st_dha = [&](int r, int c, float a) { sdha[r * HK + c] = a + sdhatt[ri * HK + c]; };
-    if constexpr (kTc) {
-      if (tc_dims_of<true>(d)) mm_tc<tc_tiles<true>()>(N, scf, ldc, WT(W_XMIX), ring, st_dha);
-      else mm_bwd(N, C, HK, scf, ldc, WT(W_XMIX), st_dha);
-    } else {
-      mm_bwd(N, C, HK, scf, ldc, WT(W_XMIX), st_dha);
-    }
+    if (tc_dims_of<true>(d)) mm_tc<tc_tiles<true>()>(N, scf, ldc, WT(W_XMIX), ring, st_dha);
+    else mm_bwd(N, C, HK, scf, ldc, WT(W_XMIX), st_dha);
     __syncthreads();
     SAKE_PROBE(PR_BWD_XMIX);
 
@@ -396,12 +391,8 @@ __device__ __forceinline__ void bwd_layer_cl(const Dims& d, const BwdSmem& S, in
 
     // h_e = silu(e0) @ w_o1 + b_o1: d_e0 in place of e0
     auto st_de0 = [&](int r, int c, float a) { se0[r * H + c] = a * dsiluf_(se0[r * H + c]); };
-    if constexpr (kTc) {
-      if (tc_dims_of<true>(d)) mm_tc_small(N, H, H, sdhe, H, WT(W_O1), st_de0);
-      else mm_bwd(N, H, H, sdhe, H, WT(W_O1), st_de0);
-    } else {
-      mm_bwd(N, H, H, sdhe, H, WT(W_O1), st_de0);
-    }
+    if (tc_dims_of<true>(d)) mm_tc_small(N, H, H, sdhe, H, WT(W_O1), st_de0);
+    else mm_bwd(N, H, H, sdhe, H, WT(W_O1), st_de0);
     for (int e = tid; e < N * H; e += nt) edge_row(RW_DHE, H)[e] = sdhe[e];
     __syncthreads();
     SAKE_PROBE(PR_BWD_O1_MM);
@@ -430,12 +421,8 @@ __device__ __forceinline__ void bwd_layer_cl(const Dims& d, const BwdSmem& S, in
       edge_row(RW_DRBF, R)[r * R + c] = a * pre;
       edge_row(RW_FILT, R)[r * R + c] = srbf[r * R + c] * pre;
     };
-    if constexpr (kTc) {
-      if (tc_dims_of<true>(d)) mm_tc_small(N, H, R, se0, H, WT(W_O_F), st_dfilt);
-      else mm_bwd(N, H, R, se0, H, WT(W_O_F), st_dfilt);
-    } else {
-      mm_bwd(N, H, R, se0, H, WT(W_O_F), st_dfilt);
-    }
+    if (tc_dims_of<true>(d)) mm_tc_small(N, H, R, se0, H, WT(W_O_F), st_dfilt);
+    else mm_bwd(N, H, R, se0, H, WT(W_O_F), st_dfilt);
     __syncthreads();
     SAKE_PROBE(PR_BWD_OF_MM);
 

@@ -60,21 +60,11 @@
 // residual, boundary and final row goes to the same place as the one-block
 // kernel's, so the pullback and the plain versions read the same tensors. Its
 // x-mixing and edge products run on the tensor cores in 3xTF32 up to N = 32
-// (mma_tf32x3.cuh, four n8 tiles). The wrapper takes this route where the
-// one-block kernel would leave SMs idle (resid_ef.cluster_route).
+// (mma_tf32x3.cuh, four n8 tiles). make_hidden_fn's calls take this route at
+// every batch: on an H100 at N = 29 it measured 0.33-0.64x the one-block
+// kernel's time from B = 64 to 256 (tools/probe_resid.py --phases sweep).
 
 #include "resid_fwd.cuh"
-
-// The cluster kernel's block and its tensor-core switch; a probe build may set
-// them (tools/probe_resid.py times the alternatives). 512 threads (128
-// registers, 356 B spilled) measured 2-5% faster than 256 (240 registers, no
-// spill) on an H100 at QM9's (64, 29).
-#ifndef SAKE_CL_FWD_THREADS
-#define SAKE_CL_FWD_THREADS 512
-#endif
-#ifndef SAKE_CL_TC
-#define SAKE_CL_TC 1
-#endif
 
 namespace sake {
 
@@ -123,13 +113,15 @@ int launch_fwd(const sake::Dims& d, const float* h0, const float* xs, const floa
   return (int)cudaGetLastError();
 }
 
-constexpr int kClFwdThreads = SAKE_CL_FWD_THREADS;
-constexpr bool kClFwdTc = SAKE_CL_TC != 0;
+// The cluster kernel's block: 512 threads (128 registers, 356 B spilled)
+// measured 2-5% faster than 256 (240 registers, no spill) on an H100 at QM9's
+// (64, 29).
+constexpr int kClFwdThreads = 512;
 
 // The cluster kernel's shared memory, in floats: the W ring of the
 // tensor-core products, then the kCl carve.
 __host__ __device__ inline long long fwd_cl_smem_floats(const Dims& d) {
-  return (kClFwdTc ? tc_ring_floats_of<true>(d) : 0) + fwd_smem_floats<kClFwdTc, true>(d);
+  return tc_ring_floats_of<true>(d) + fwd_smem_floats<true, true>(d);
 }
 
 // #4's cluster kernel: molecule blockIdx.x / 2, receiver rows of cluster rank
@@ -146,13 +138,12 @@ resid_fwd_cl_kernel(Dims d, const float* __restrict__ h0, const float* __restric
   const float* mb = mask ? mask + (size_t)b * N * N : nullptr;
 
   Carver cv{reinterpret_cast<float*>(smem4)};
-  float* ring = kClFwdTc ? cv.take(tc_ring_floats_of<true>(d)) : nullptr;
-  const FwdSmem S = carve_fwd<kClFwdTc, true>(cv, d);
+  float* ring = cv.take(tc_ring_floats_of<true>(d));
+  const FwdSmem S = carve_fwd<true, true>(cv, d);
   SAKE_PROBE_START();
   fwd_begin(d, S, B, b, h0, xs, v0, mb);
   for (int l = 0; l < d.depth; ++l)
-    fwd_layer<true, true, false, kClFwdTc, true>(d, S, b, l, upd[l], mb, L, bh, bx, bv, RS,
-                                                  ring);
+    fwd_layer<true, true, false, true, true>(d, S, b, l, upd[l], mb, L, bh, bx, bv, RS, ring);
 
   int i0, i1;  // this CTA's nodes
   cl_rows(N, cl_rank(), i0, i1);
@@ -177,21 +168,6 @@ extern "C" long long sake_resid_fwd_cluster_smem_bytes(int B, int N, int F, int 
                                                        int K, int C, int depth) {
   sake::Dims d{B, N, F, H, R, K, C, depth};
   return sake::fwd_cl_smem_floats(d) * (long long)sizeof(float);
-}
-
-// Blocks of the one-block kernel (resid_fwd_kernel<true>) that one SM holds at
-// these widths; negative: a CUDA error.
-extern "C" int sake_resid_fwd_blocks_per_sm(int B, int N, int F, int H, int R, int K, int C,
-                                            int depth) {
-  sake::Dims d{B, N, F, H, R, K, C, depth};
-  const int smem = (int)(sake::fwd_smem_floats(d) * sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(sake::resid_fwd_kernel<true>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  int n = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, sake::resid_fwd_kernel<true>, 256,
-                                                        smem);
-  return err == cudaSuccess ? n : -(int)err;
 }
 
 // Clusters of the cluster kernel the card holds at once; negative: a CUDA error.

@@ -175,8 +175,7 @@ def signatures() -> dict:
         "sake_split_bwd": [I, P, P, P, P, P] + sdims + [P],
     }
     out = {name: (args, I) for name, args in sig.items()}
-    for fn in ("sake_resid_fwd_blocks_per_sm", "sake_resid_bwd_blocks_per_sm",
-               "sake_resid_fwd_cluster_max_active", "sake_resid_bwd_cluster_max_active"):
+    for fn in ("sake_resid_fwd_cluster_max_active", "sake_resid_bwd_cluster_max_active"):
         out[fn] = (dims, I)
     for fn in ("sake_resid_fwd_smem_bytes", "sake_resid_bwd_smem_bytes",
                "sake_resid_fwd_cluster_smem_bytes", "sake_resid_bwd_cluster_smem_bytes",

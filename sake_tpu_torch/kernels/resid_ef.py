@@ -23,8 +23,7 @@ Port of ``sake_tpu/kernels/resid_ef.py``:
   the kernel or raises. With ``cluster=True`` (``make_hidden_fn``'s calls),
   :func:`resid_fwd` and :func:`resid_bwd_rows` launch their cluster kernels
   (one molecule per cluster of two CTAs, its receiver rows split between
-  them) where the one-block kernel would leave SMs idle
-  (:func:`cluster_route`); each route counts its own launches.
+  them); each route counts its own launches.
 - :func:`resid_energy_forces` (JAX ``:978-1330``) orchestrates embed, K1,
   the readout and its seed (plain torch, as the JAX package ran them
   outside Pallas), K2 and ``F = -dx``, per batch chunk so residual memory
@@ -772,22 +771,6 @@ def cluster_rows(N: int, rank: int) -> tuple:
     return i0, min(N, i0 + span)
 
 
-def cluster_route(B: int, blocks_per_sm: int, sms: int) -> bool:
-    """Whether a batch of ``B`` molecules takes the cluster kernel: when the
-    one-block kernel, ``blocks_per_sm`` of whose blocks an SM holds, would
-    leave some of the card's ``sms`` SMs idle."""
-    return B * blocks_per_sm < sms
-
-
-def _takes_cluster(lib, kind: str, dims, dev) -> bool:
-    """:func:`cluster_route` for the one-block kernel of ``kind`` ("fwd": K1,
-    "bwd": K2 with rows) at ``dims`` on ``dev``, its occupancy from
-    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``."""
-    n = getattr(lib, f"sake_resid_{kind}_blocks_per_sm")(*dims)
-    build.check(lib, 0 if n >= 0 else -n, f"sake_resid_{kind}_blocks_per_sm")
-    return cluster_route(dims[0], n, torch.cuda.get_device_properties(dev).multi_processor_count)
-
-
 def _check_smem(lib, entry: str, dims, name: str):
     """Raises when the kernel whose carve ``entry`` sizes exceeds one block's
     shared memory at ``dims``."""
@@ -818,19 +801,15 @@ def resid_fwd(leaves: dict, h0, xs, v0, upd: Sequence[float], mask=None, *,
     """K1: the layer stack's forward with residuals. ``leaves`` from
     :func:`leaves.wide_stack`; ``h0 (B, N, F)``; ``xs``, ``v0 (3, B, N)``;
     ``upd``: per-layer update gates; ``mask``: ``(B, N, N, 1)`` edge mask
-    or None. ``cluster``: take the cluster kernel (#4's, one molecule per
-    cluster of two CTAs) where :func:`cluster_route` says the one-block
-    kernel would leave SMs idle; it counts its launches in
-    ``resid_fwd.cluster_launches``. CPU tensors take the plain version."""
+    or None. ``cluster``: launch the cluster kernel (#4's, one molecule per
+    cluster of two CTAs), counted in ``resid_fwd.cluster_launches``; at N = 29
+    it took 0.33-0.64x the one-block kernel's time on an H100 at every batch
+    from 64 to 256 (``tools/probe_resid.py --phases sweep``). CPU tensors take
+    the plain version."""
     if h0.device.type == "cpu":
         return resid_fwd_plain(leaves, h0, xs, v0, upd, mask=mask)
-    route = "block"
+    out = _launch_fwd(leaves, h0, xs, v0, upd, mask, "cluster" if cluster else "block")
     if cluster:
-        _require_cuda("resid_fwd", h0)
-        if _takes_cluster(build.load(), "fwd", _dims(leaves, h0), h0.device):
-            route = "cluster"
-    out = _launch_fwd(leaves, h0, xs, v0, upd, mask, route)
-    if route == "cluster":
         resid_fwd.cluster_launches += 1
     else:
         resid_fwd.launches += 1
@@ -976,20 +955,16 @@ def resid_bwd_rows(leaves: dict, fwd: FwdOut, upd: Sequence[float], dh, dx, dv, 
     """K2's pullback, also writing every layer's cotangent rows (``ROWS``,
     ``{name: (depth, B, N*N | N, ch)}``) for :func:`param_grads`: the
     pullback half of the JAX training ``bwd_kernel`` (``:1598``). Returns
-    ``(dh, dx, dv, rows)``. ``cluster``: take the cluster kernel (#5's rows
-    kernel, one molecule per cluster of two CTAs) where :func:`cluster_route`
-    says the one-block kernel would leave SMs idle; it counts its launches in
-    ``resid_bwd_rows.cluster_launches``. CPU tensors take the plain version."""
+    ``(dh, dx, dv, rows)``. ``cluster``: launch the cluster kernel (#5's rows
+    kernel, one molecule per cluster of two CTAs), counted in
+    ``resid_bwd_rows.cluster_launches``; at N = 29 it took 0.39-0.76x the
+    one-block kernel's time on an H100 at every batch from 64 to 256. CPU
+    tensors take the plain version."""
     if dh.device.type == "cpu":
         return resid_bwd_rows_plain(leaves, fwd, upd, dh, dx, dv, mask=mask)
-    route = "block"
-    if cluster:
-        _require_cuda("resid_bwd_rows", dh)
-        if _takes_cluster(build.load(), "bwd", _dims(leaves, fwd.bh[0]), dh.device):
-            route = "cluster"
     out = _bwd_launch("resid_bwd_rows", leaves, fwd, upd, dh, dx, dv, mask, leaves_t, True,
-                      route=route)
-    if route == "cluster":
+                      route="cluster" if cluster else "block")
+    if cluster:
         resid_bwd_rows.cluster_launches += 1
     else:
         resid_bwd_rows.launches += 1
@@ -1154,7 +1129,7 @@ def make_hidden_fn(*, n_heads: int = 4, update: Sequence[bool] | bool = True,
     is a ``torch.autograd.Function``: the forward runs K1 (:func:`resid_fwd`,
     with the mask) and keeps its boundaries and residuals; the backward runs
     :func:`resid_train_bwd` and the embedding pullback (both with
-    ``cluster=True``: small batches take the cluster kernels), so gradients reach
+    ``cluster=True``: the cluster kernels), so gradients reach
     every layer leaf, the embedding, ``h`` and ``x``. The readout leaves get
     zeros (the head that reads ``h_fin`` gives them theirs) and ``mask``
     none. Otherwise (the JAX primal-outside-autodiff rule, ``:1819-1821``)

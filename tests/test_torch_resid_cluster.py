@@ -1,8 +1,9 @@
 """The cluster route of #4 and #5's rows kernel (one molecule per cluster of two
-CTAs, its receiver rows split between them): the row split, the route choice,
-the wrappers' refusal to fall back on a failed launch, ``make_hidden_fn`` on CPU
-tensors (the plain versions, against ``jax.grad`` of the linen model) and, on a
-card, both cluster kernels against their plain versions.
+CTAs, its receiver rows split between them): the row split, the route the
+``cluster`` keyword picks, the wrappers' refusal to fall back on a failed
+launch, ``make_hidden_fn`` on CPU tensors (the plain versions, against
+``jax.grad`` of the linen model) and, on a card, both cluster kernels against
+their plain versions.
 
 Tolerances: ``make_hidden_fn``'s gradients ``rtol=2e-3, atol=2e-4`` and its loss
 ``rtol=1e-4`` (``test_torch_hidden.py``'s); on the card 1e-4 relative per tensor
@@ -55,26 +56,28 @@ def test_cluster_rows_mirror_the_kernel_source():
     assert "i0 = rank * s < N ? rank * s : N;" in src and "i1 = i0 + s < N ? i0 + s : N;" in src
 
 
-@pytest.mark.parametrize("B_,N_,per_sm,want", [(64, 29, 1, True), (512, 21, 2, False),
-                                                (66, 29, 2, False), (65, 29, 2, True)])
+@pytest.mark.parametrize("B_", [64, 96, 192, 512])
+@pytest.mark.parametrize("cluster", [False, True])
 @pytest.mark.parametrize("kind", ["fwd", "bwd"])
-def test_route_takes_the_cluster_where_sms_idle(monkeypatch, B_, N_, per_sm, want, kind):
-    """On a 132-SM card (a stub device property) the one-block kernel's
-    blocks an SM decide: QM9's (64, 29) takes the cluster, aspirin's (512,
-    21) the one-block kernel."""
-    calls = []
-
-    def blocks_per_sm(*dims):
-        calls.append(dims)
-        return per_sm
-
-    lib = SimpleNamespace(**{f"sake_resid_{kind}_blocks_per_sm": blocks_per_sm})
-    monkeypatch.setattr(torch.cuda, "get_device_properties",
-                        lambda dev: SimpleNamespace(multi_processor_count=132))
-    dims = (B_, N_, 64, 64, 50, 4, 256, 6)
-    assert resid_ef.cluster_route(B_, per_sm, 132) is want
-    assert resid_ef._takes_cluster(lib, kind, dims, torch.device("cuda", 0)) is want
-    assert calls == [dims]
+def test_route_follows_the_cluster_keyword(monkeypatch, B_, cluster, kind):
+    """On a CUDA tensor (a stub device) ``cluster=True`` launches the cluster
+    kernel at every batch and counts it apart; ``cluster=False`` the one-block
+    kernel. No device property or occupancy query decides it."""
+    routes = []
+    monkeypatch.setattr(resid_ef, "_launch_fwd", lambda *a: routes.append(a[-1]))
+    monkeypatch.setattr(resid_ef, "_bwd_launch",
+                        lambda *a, route: routes.append(route) or (None,) * 4)
+    monkeypatch.setattr(torch.cuda, "get_device_properties", None)
+    cuda = SimpleNamespace(device=SimpleNamespace(type="cuda"), shape=(B_, 29, 64))
+    fn = resid_ef.resid_fwd if kind == "fwd" else resid_ef.resid_bwd_rows
+    before = (fn.launches, fn.cluster_launches)
+    if kind == "fwd":
+        fn({}, cuda, None, None, [1.0] * 6, None, cluster=cluster)
+    else:
+        fn({}, None, [1.0] * 6, cuda, None, None, None, cluster=cluster)
+    assert routes == ["cluster" if cluster else "block"]
+    assert (fn.launches - before[0], fn.cluster_launches - before[1]) == \
+        ((0, 1) if cluster else (1, 0))
 
 
 def _stub_cuda(monkeypatch, lib):

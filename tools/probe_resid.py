@@ -5,6 +5,7 @@ two-CTA cluster), a clock64() probe per phase and product site.
     python3 tools/probe_resid.py                      # check, probe, times
     python3 tools/probe_resid.py --phases check probe  # no timing
     python3 tools/probe_resid.py --reps 5             # more timing rounds
+    python3 tools/probe_resid.py --phases sweep --batches 64 96 128 192 256
 
 The input is chip_smoke.py phase 5's: the first ``qm9_kernel`` training batch
 (B = 64, N = 29, hidden 64, depth 6, 4 heads, its real edge masks), the model
@@ -12,21 +13,22 @@ from the task's seed, random cotangents of h. Builds, all at once:
 
 - the library (``build.build()``);
 - ``csrc/resid_fwd.cu``, ``csrc/resid_bwd.cu`` and ``csrc/resid_bwd_cl.cu`` with
-  ``-DSAKE_PROBE`` (``csrc/probe.cuh``);
-- the cluster kernels without the tensor cores (``-DSAKE_CL_TC=0``) and the
-  cluster forward at 256 threads (``-DSAKE_CL_FWD_THREADS=256``; 512 by default).
+  ``-DSAKE_PROBE`` (``csrc/probe.cuh``).
 
 Prints the card's name and power limit, ptxas's registers and spills of the four
 kernels, the clusters the card holds at once (``cudaOccupancyMaxActiveClusters``)
-and the one-block kernels' blocks an SM; then (phase ``check``) both cluster
+and each kernel's shared memory; then (phase ``check``) both cluster
 kernels against their plain versions (:func:`check_on_card`: 1e-4 relative per
-tensor, two launches bit for bit; CHECK lines); then (``probe``) one launch of each route of #4 and
-#5 on the probe build, each slot's share of the block cycles (thread 0 reads
-the SM clock after a block or cluster barrier and charges the cycles since its
-last mark; the slots sum over every block, so a cluster kernel's shares are
-of both CTAs' cycles); then (``time``) the time per launch (CUDA events, 3
-launches after a warm-up) of every route and variant in rounds that alternate
-them, each round printed, and the means with their spreads (max / min).
+tensor, two launches bit for bit; CHECK lines); then (``probe``) one launch
+of each route of #4 and #5 on the probe build, each slot's share of the block
+cycles (thread 0 reads the SM clock after a block or cluster barrier and
+charges the cycles since its last mark; the slots sum over every block, so a
+cluster kernel's shares are of both CTAs' cycles); then (``time``) the time per launch (CUDA events, 3
+launches after a warm-up) of every route on both builds in rounds that alternate
+them, each round printed, and the means with their spreads (max / min); then
+(``sweep``) both routes of #4 and #5's rows kernel at each of ``--batches``
+(the phase 5 batch repeated along B), in rounds that alternate the routes
+(SWEEP lines: each route's runs, mean, spread, and cluster / one-block).
 """
 
 from __future__ import annotations
@@ -46,9 +48,7 @@ SOURCES = ("resid_fwd.cu", "resid_bwd.cu", "resid_bwd_cl.cu")
 KERNELS = ("resid_fwd_kernelILb1E", "resid_bwd_kernelILb1E", "resid_fwd_cl_kernel",
            "resid_bwd_cl_kernel")
 # the builds beside the library: (name, sources, defines)
-VARIANTS = (("probe", SOURCES, ("SAKE_PROBE",)),
-            ("no_tc", SOURCES, ("SAKE_CL_TC=0",)),
-            ("fwd256", ("resid_fwd.cu",), ("SAKE_CL_FWD_THREADS=256",)))
+VARIANTS = (("probe", SOURCES, ("SAKE_PROBE",)),)
 
 
 def slots():
@@ -134,8 +134,8 @@ def routes(inputs):
 
 
 def check_on_card(dev, inputs=None) -> dict:
-    """The cluster kernels of #4 and #5 (``cluster=True``; their route at B =
-    64) against their plain versions on ``inputs`` (:func:`qm9_inputs` when
+    """The cluster kernels of #4 and #5 (``cluster=True``, ``make_hidden_fn``'s
+    route) against their plain versions on ``inputs`` (:func:`qm9_inputs` when
     None): ``{check: {tensor: max |kernel - plain| / max |plain|}}``, and
     whether a second launch of each gave the first's outputs bit for bit
     (``"bitwise"``). Raises if the wrappers took the one-block route."""
@@ -167,6 +167,53 @@ def check_on_card(dev, inputs=None) -> dict:
         "bitwise": {"resid_fwd_cluster": same(fwd_t(k4[0]), fwd_t(k4[1])),
                     "resid_bwd_rows_cluster": same(bwd_t(k5[0]), bwd_t(k5[1]))},
     }
+
+
+def tiled(inputs, B: int):
+    """:func:`qm9_inputs` with its molecules repeated along the batch up to
+    ``B``."""
+    import torch
+
+    leaves, leaves_t, h0, xs, zs, m4, dh, upd = inputs
+    idx = torch.arange(B, device=h0.device) % h0.shape[0]
+    xs = xs[:, idx].contiguous()
+    return (leaves, leaves_t, h0[idx].contiguous(), xs, torch.zeros_like(xs),
+            m4[idx].contiguous(), dh[idx].contiguous(), upd)
+
+
+def sweep(inputs, batches, reps: int, smi: str) -> dict:
+    """Both routes of #4 and #5's rows kernel at each batch size
+    (``_launch_fwd`` / ``_bwd_launch`` on the route named), in rounds that
+    alternate the order; prints and returns ``{B: {route: mean ms}}``."""
+    import torch
+
+    from sake_tpu_torch.kernels import resid_ef
+
+    out = {}
+    for B in batches:
+        leaves, leaves_t, h0, xs, zs, m4, dh, upd = tiled(inputs, B)
+        with torch.no_grad():
+            fwd = resid_ef._launch_fwd(leaves, h0, xs, zs, upd, m4, "cluster")
+            cases = {f"#4 {r}": (lambda r=r: resid_ef._launch_fwd(leaves, h0, xs, zs, upd, m4,
+                                                                  r))
+                     for r in ("block", "cluster")}
+            cases.update({f"#5 {r}": (lambda r=r: resid_ef._bwd_launch(
+                "resid_bwd_rows", leaves, fwd, upd, dh, zs, zs, m4, leaves_t, True, route=r))
+                for r in ("block", "cluster")})
+            runs = {k: [] for k in cases}
+            for r in range(reps):
+                for k, fn in (cases.items() if r % 2 == 0 else reversed(cases.items())):
+                    runs[k].append(cuda_ms(fn))
+        means = {k: sum(v) / len(v) for k, v in runs.items()}
+        for k, v in runs.items():
+            print(f"SWEEP B={B} N={h0.shape[1]} masked {k}: mean {means[k]:.4f} ms, spread "
+                  f"{max(v) / min(v):.4f}, runs {json.dumps([round(x, 4) for x in v])} ({smi})",
+                  flush=True)
+        print(f"SWEEP B={B} cluster / one-block: #4 {means['#4 cluster'] / means['#4 block']:.4f}"
+              f", #5 {means['#5 cluster'] / means['#5 block']:.4f}", flush=True)
+        out[B] = means
+        del fwd, cases
+    return out
 
 
 def with_lib(lib, fn):
@@ -215,18 +262,15 @@ def probe(lib, inputs, smi: str) -> dict:
 
 
 def occupancy(lib, dims) -> dict:
-    """The one-block kernels' blocks an SM and the cluster kernels' clusters
-    the card holds at once, and their shared memory in bytes, at ``dims``
-    (those of the sources ``lib`` holds)."""
-    entries = {"#4 one-block blocks/SM": "sake_resid_fwd_blocks_per_sm",
-               "#5 one-block blocks/SM": "sake_resid_bwd_blocks_per_sm",
-               "#4 cluster clusters": "sake_resid_fwd_cluster_max_active",
+    """The cluster kernels' clusters the card holds at once, and each
+    kernel's shared memory in bytes, at ``dims``."""
+    entries = {"#4 cluster clusters": "sake_resid_fwd_cluster_max_active",
                "#5 cluster clusters": "sake_resid_bwd_cluster_max_active",
                "#4 one-block smem": "sake_resid_fwd_smem_bytes",
                "#5 one-block smem": "sake_resid_bwd_smem_bytes",
                "#4 cluster smem": "sake_resid_fwd_cluster_smem_bytes",
                "#5 cluster smem": "sake_resid_bwd_cluster_smem_bytes"}
-    return {k: getattr(lib, e)(*dims) for k, e in entries.items() if hasattr(lib, e)}
+    return {k: getattr(lib, e)(*dims) for k, e in entries.items()}
 
 
 def main() -> int:
@@ -235,7 +279,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=3, help="timing rounds")
     ap.add_argument("--phases", nargs="*", default=["check", "probe", "time"],
-                    choices=["check", "probe", "time"])
+                    choices=["check", "probe", "time", "sweep"])
+    ap.add_argument("--batches", nargs="*", type=int, default=[64, 96, 128, 192, 256],
+                    help="batch sizes of the sweep phase")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("probe_resid: no CUDA device", file=sys.stderr)
@@ -258,14 +304,15 @@ def main() -> int:
             errors.append(e)
 
     jobs = [threading.Thread(target=job, args=("plain",))]
-    jobs += [threading.Thread(target=job, args=v) for v in VARIANTS]
+    if {"probe", "time"} & set(args.phases):
+        jobs += [threading.Thread(target=job, args=v) for v in VARIANTS]
     for j in jobs:
         j.start()
     for j in jobs:
         j.join()
     if errors:
         raise errors[0]
-    for key in ("plain", "no_tc", "fwd256"):
+    for key in paths:
         lines = (paths[key].parent / "ptxas.txt").read_text().splitlines()
         for i, line in enumerate(lines):
             if "Compiling entry" in line and any(k in line for k in KERNELS):
@@ -275,14 +322,9 @@ def main() -> int:
 
     inputs = qm9_inputs(dev)
     dims = resid_ef._dims(inputs[0], inputs[2])
-    for key in ("plain", "no_tc", "fwd256"):
-        lib = libs[key]
-        occ = {k: v for k, v in occupancy(lib, dims).items()
-               if key == "plain" or (key == "no_tc" and "cluster" in k)
-               or (key == "fwd256" and k.startswith("#4 cluster"))}
-        print(f"OCCUPANCY {key} at {dims} on "
-              f"{torch.cuda.get_device_properties(dev).multi_processor_count} SMs: "
-              f"{json.dumps(occ)}", flush=True)
+    print(f"OCCUPANCY at {dims} on "
+          f"{torch.cuda.get_device_properties(dev).multi_processor_count} SMs: "
+          f"{json.dumps(occupancy(libs['plain'], dims))}", flush=True)
     ok = True
     if "check" in args.phases:
         res = check_on_card(dev, inputs)
@@ -297,17 +339,15 @@ def main() -> int:
                   flush=True)
     if "probe" in args.phases:
         probe(libs["probe"], inputs, smi)
+    if "sweep" in args.phases:
+        sweep(inputs, args.batches, args.reps, smi)
     if "time" not in args.phases:
         return 0 if ok else 1
 
-    # every route and variant, alternated round by round
-    cases = {}
+    # every route on both builds, alternated round by round
     fns = routes(inputs)
-    takes = {"plain": fns, "probe": fns, "no_tc": ("#4 cluster", "#5 cluster"),
-             "fwd256": ("#4 cluster",)}
-    for key, names in takes.items():
-        for name in names:
-            cases[f"{name} [{key}]"] = (libs[key], fns[name])
+    cases = {f"{name} [{key}]": (libs[key], fn) for key in ("plain", "probe")
+             for name, fn in fns.items()}
     runs = {k: [] for k in cases}
     for r in range(args.reps):
         row = {}
