@@ -126,9 +126,14 @@ Phases (each prints its own lines; any failure exits non-zero):
 14. Sparse training kernels vs plain: ``SparseTrainConfig()``'s box (1024
    atoms, K = 48) at layer 0: #13, #14 with the 11 edge-leaf gradients
    (the rows instantiation and ``csrc/sparse_contract.cu``) and #15
-   (``csrc/sparse_bwd2.cu``, forward-over-reverse, and the contraction)
-   against their plain versions (``torch.func.vjp`` for #15), 1e-4
-   relative per tensor; the clock probe at this box.
+   (``csrc/sparse_bwd2.cu``, forward-over-reverse on dual numbers, its
+   x-mixing and its transpose on ``wgmma`` in 3xTF32 with a slot's value and
+   tangent rows in the two halves of one 64-row tile, and the contraction)
+   against their plain versions (``torch.func.vjp`` for #15), 1e-4 relative
+   per tensor, and a second launch of #15 bitwise equal to the first; #15 on
+   seeded inputs at K = 48, 37 and 16 and at the most slots it takes, one more
+   raising (``tools/probe_sparse.check_bwd2_on_card``,
+   ``check_bwd2_slot_limit``); the clock probe of #13, #14 and #15 at this box.
 15. Sparse step parity: the kernel branch against the plain double-autograd
    branch from one seeded init: step 1's loss and every gradient per leaf
    (1e-4), the energy loss's gradients (1e-4), the first 5 losses (1e-3).
@@ -283,7 +288,7 @@ PEAK_F32_FLOPS, PEAK_BYTES, PEAK_BF16_FLOPS = 67e12, 3.35e12, 989e12
 # the dense TF32 tensor-core rate: #11's and #12's 3xTF32 products take 3 passes
 PEAK_TF32_FLOPS, TF32_PASSES = 495e12, 3
 PROBE_LIB = None  # the clock-probe build of #11 and #12 (tools/probe_fused.py), set by main
-SPARSE_PROBE_LIB = None  # and of #13 and #14 (tools/probe_sparse.py)
+SPARSE_PROBE_LIB = None  # and of #13-#15 (tools/probe_sparse.py)
 # the K of the extra checks of #13 and #14: two and three 64-slot tiles, not a
 # multiple of 8 (and the route's limit, tools/probe_sparse.check_slot_limit)
 SPARSE_EXTRA_K = ((80, 128), (96, 128), (128, 128), (37, 128))  # (K, receiver rows)
@@ -1688,7 +1693,8 @@ def sparse_fma(F, R, H, Kh, C):
     count at the f32 peak, though the kernel sums them in f64. ``tc_fwd`` and
     ``tc_bwd``: of ``fwd`` and ``bwd``, those #13 and #14 run on the tensor
     cores in 3xTF32 (the x-mixing product, and in the pullback its transpose
-    too), which their bounds count at TF32_PASSES passes over the TF32 peak."""
+    too), which their bounds count at TF32_PASSES passes over the TF32 peak;
+    #15 runs ``bwd`` on values and tangents, so twice ``tc_bwd``."""
     HK = H * Kh
     fwd = F * R + F * H + R * H + H * H + H * Kh + HK * C
     pull = HK * C + Kh * H + H * H + H * R + R * F + H * F
@@ -1960,16 +1966,37 @@ def sparse_train_phases(dev, smi) -> list:
                                    *((f"dW.{n}", kg[4][n], pg[4][n]) for n in se.EDGE_LEAVES)]}
     del k13, p13, kg, pg
     k15 = se._launch_bwd2(hg, ai, oi, d0, mf, ep, gp, gh, *cg, wt)
+    r15 = se._launch_bwd2(hg, ai, oi, d0, mf, ep, gp, gh, *cg, wt)
     p15 = se.sparse_bwd2_plain(hg, ai, oi, d0, mf, ep, gp, gh, *cg)
     torch.cuda.synchronize()
+    flat15 = lambda r: [*r[:6], *(r[6][n] for n in se.EDGE_LEAVES)]
+    same = all(torch.equal(a, b) for a, b in zip(flat15(k15), flat15(r15)))
+    print(f"SPARSE TRAIN (N={N}, K={K}) #15 launched twice: outputs bitwise equal {same}",
+          flush=True)
+    if not same:
+        fail("#15 differs from run to run")
     checks["sparse_bwd2"] = [
         *zip(("e_hg", "e_ai", "e_oi", "e_d0", "e_gp", "e_gh"), k15[:6], p15[:6]),
         *((f"dW2.{n}", k15[6][n], p15[6][n]) for n in se.EDGE_LEAVES)]
     abs_tr = check_pairs(f"SPARSE TRAIN (N={N}, K={K}, layer 0)", checks, SPARSE_TOL)
-    del k15, p15, checks
+    del k15, r15, p15, checks
     ps = sparse_probe_module()
+    for K_x, NR_x in ps.BWD2_CASES:
+        try:
+            err = ps.check_bwd2_on_card(K_x, NR_x, dev)
+        except AssertionError as e:
+            fail(f"#15 at K={K_x}: {e}")
+        print(f"SPARSE TRAIN EXTRA K={K_x} (NR={NR_x}, seeded inputs) #15 vs plain: max rel err "
+              f"{err:.3e}, two launches bitwise equal (limit {SPARSE_TOL})", flush=True)
+    try:
+        most, err = ps.check_bwd2_slot_limit(dev)
+    except AssertionError as e:
+        fail(f"#15 at its limit of slots: {e}")
+    print(f"SPARSE TRAIN LIMIT K={most} (the most #15 takes at these widths; seeded inputs) "
+          f"#15 vs plain: max rel err {err:.3e}, two launches bitwise equal (limit "
+          f"{SPARSE_TOL}); K={most + 1} raises", flush=True)
     ps.probe((hg, ai, oi, d0, mf, ep, gp, gh), ps.load(SPARSE_PROBE_LIB),
-             f"N={N} K={K} (sparse_train_kernel, layer 0)", smi)
+             f"N={N} K={K} (sparse_train_kernel, layer 0)", smi, bwd2=True)
 
     # -- 15. step parity against the plain (double autograd) branch ---------------
     def loss_and_grads(kp, loss):
@@ -2068,15 +2095,18 @@ def sparse_train_phases(dev, smi) -> list:
           f"{step_ms['plain']:.2f} ms (runs {json.dumps(runs)}); per kernel (ms, kernel and "
           f"plain) " + json.dumps({k: [round(a, 3), round(b, 3)] for k, (a, b) in t.items()})
           + f" ({smi})", flush=True)
+    with torch.no_grad():
+        e15 = cuda_ms(lambda: ps.bwd2_edge(hg, ai, oi, d0, mf, ep, gp, gh, cg, wt))
     k_c = contraction_library(dev, smi)
     c14, c15 = k_c["#14 with dW"], k_c["#15"]
     print(f"SPARSE TRAIN BREAKDOWN kernel step {step_ms['kernel']:.3f} ms: edge kernels "
           f"{depth}x(#13 {t['sparse_fwd_train'][0]:.3f} + #14 {t['sparse_bwd_train'][0]:.3f} + #14 "
           f"with dW {t['sparse_bwd_grads'][0]:.3f} (rows kernel "
           f"{t['sparse_bwd_grads'][0] - c14:.3f} + contraction {c14:.3f}) + #15 "
-          f"{t['sparse_bwd2'][0]:.3f} (edge kernel {t['sparse_bwd2'][0] - c15:.3f} + contraction "
-          f"{c15:.3f})) = {edge:.3f} ms, the rest (torch glue: node products, gathers and "
-          f"scatters, double autograd, adam) {step_ms['kernel'] - edge:.3f} ms; the contractions "
+          f"{t['sparse_bwd2'][0]:.3f} (edge kernel {t['sparse_bwd2'][0] - c15:.3f}, alone "
+          f"{e15:.3f}, + contraction {c15:.3f})) = {edge:.3f} ms, the rest (torch glue: node "
+          f"products, gathers and scatters, double autograd, adam) "
+          f"{step_ms['kernel'] - edge:.3f} ms; the contractions "
           f"alone timed on rows of the same shapes", flush=True)
     fma = sparse_fma(hg.shape[-1], ai.shape[-1], oi.shape[-1], ep["w_sem"].shape[-1], C)
     E = N * K
@@ -2095,7 +2125,8 @@ def sparse_train_phases(dev, smi) -> list:
         kernel_entry("sparse_bwd2", src + "sparse_bwd2.cu", at + "501",
                      launches["sparse_bwd2"], abs_tr["sparse_bwd2"], *t["sparse_bwd2"],
                      2 * (fma["bwd"] + fma["grads"]) * E,
-                     ins + nbytes(gp, gh, cg) + nbytes(hg, ai, oi, d0, gp, gh, ep)),
+                     ins + nbytes(gp, gh, cg) + nbytes(hg, ai, oi, d0, gp, gh, ep),
+                     tc=2 * fma["tc_bwd"] * E),
     ]
 
 

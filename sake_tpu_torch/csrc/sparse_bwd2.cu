@@ -19,17 +19,25 @@
 // it writes the tangents of pooled, hatt, d_h_g, d_a_i, d_o_i and d_d0 and
 // both halves of the 12 cotangent rows.
 //
-// What bounds it on an H100: f32 multiply-adds, about twice #14's with
-// rows (every product on values and tangents); twice the shared memory per
-// slot, so the wide part runs in chunks of 8 slots at K = 48 (sparse_edge.cuh
-// picks the widest chunk that fits).
+// What bounds it on an H100: multiply-adds, about twice #14's with rows (every
+// product on values and tangents), 82% of them in the x-mixing product and its
+// transpose. Those run on the tensor cores (wgmma_tf32.cuh, 3xTF32 with chunked
+// sums, the planes of #13 and #14): w_xmix carries no tangent, so one 64-row M
+// tile holds 32 slots' values and their tangents (sparse_edge.cuh's
+// edge_wide_dl), and at K = 48 each plane streams twice per row and product.
+// The narrow products and the tail stay on the CUDA cores. A dual slot takes
+// twice a float slot's shared memory, so pre and rbf lie under the product tile
+// and wait in two of the rows across the wide part (carve_wg, dl_park_pre_rbf),
+// and a row takes at most 67 slots at the sparse widths
+// (sake_sparse_bwd2_max_slots).
 
 #include "sparse_edge.cuh"
 
-// c_hg (NR, K, F), c_ai (NR, R), c_oi (NR, H), c_d0 (3, NR, K): the incoming
-// cotangents. Outputs: e_hg, e_ai, e_oi, e_d0 (the inputs' cotangents),
-// e_gp (3, NR, C), e_gh (NR, H * Kh) (the g streams'), and rows / t_rows,
-// the 12 EDGE_ROWS buffers and their tangents.
+// w: as #14's (the 11 edge leaves, the 6 transposes, the packed planes of the
+// forward's and the pullback's x-mixing). c_hg (NR, K, F), c_ai (NR, R), c_oi
+// (NR, H), c_d0 (3, NR, K): the incoming cotangents. Outputs: e_hg, e_ai, e_oi,
+// e_d0 (the inputs' cotangents), e_gp (3, NR, C), e_gh (NR, H * Kh) (the g
+// streams'), and rows / t_rows, the 12 EDGE_ROWS buffers and their tangents.
 extern "C" int sake_sparse_bwd2(const float* hg, const float* ai, const float* oi,
                                 const float* d0, const float* m, const void* const* w,
                                 const float* gp, const float* gh, const float* c_hg,
@@ -61,5 +69,17 @@ extern "C" int sake_sparse_bwd2(const float* hg, const float* ai, const float* o
     A.rows[i] = static_cast<float*>(rows[i]);
     A.t_rows[i] = static_cast<float*>(t_rows[i]);
   }
-  return sake::launch_edge<sake::Dl, true, true, true>(A, stream);
+  return sake::launch_edge_wg<true, true, true, sake::Dl>(A, sake::edge_planes(w), stream);
+}
+
+// The most neighbour slots a row may have at these widths (sparse_edge.cuh's
+// wg_max_slots on dual numbers).
+extern "C" int sake_sparse_bwd2_max_slots(int F, int R, int H, int Kh, int C) {
+  return sake::wg_max_slots<true, true, sake::Dl>(sake::EDims{1, 1, F, R, H, Kh, C});
+}
+
+// The clock probe's slots (probe.cuh), block cycles summed over this source's
+// launches since the last reset; an error unless built with -DSAKE_PROBE.
+extern "C" int sake_sparse_bwd2_probe(unsigned long long* out, int reset) {
+  return sake::probe_read(out, reset);
 }

@@ -13,23 +13,22 @@
 // JAX kernel takes with jax.vjp (see sparse_bwd2.cu).
 //
 // Shared memory holds the row's narrow edge intermediates (K x R, K x H,
-// K x heads); the wide part (the head expansion he_att, K x HK, and the
-// x-mixing product, K x C) runs in chunks of kc slots, since one row's
-// he_att alone is 64 KB at K = 64 and w_xmix (HK x C, 256 KB) cannot sit in
-// shared memory: the x-mixing products (mm_wide) stage 16 rows of the weight
-// at a time in shared memory, the narrow products (mmT) stream their weights
-// from L2, and each thread keeps a small tile of outputs in registers. Every
-// sum runs in a fixed order (one thread per output, no atomics), so results
-// do not vary from run to run. Only __syncthreads synchronises the block.
-//
-// #13 and #14 (the float instantiations, kWg) run the x-mixing product and its
-// transpose on the tensor cores instead (wgmma_tf32.cuh): the whole row, up to
-// 64 slots at a time, is the M tile of one product, so the weight streams from
-// L2 once per row and product; their mbarriers add to the block's barriers.
-// #15 (Dl) keeps the chunked CUDA-core products above. To fit rows of up to
-// 145 slots beside the 66.5 KB product tile, the route lays the buffers that
-// its wide part never touches over that tile and its ring (carve_wg).
+// K x heads). The narrow products run on the CUDA cores: mmT streams its
+// weight from L2, mm_wide stages 16 rows of it at a time in shared memory, and
+// each thread keeps a small tile of outputs in registers. The wide part (the
+// head expansion he_att, K x HK, and the x-mixing product, K x C, whose weight
+// w_xmix is HK x C = 256 KB) runs on the tensor cores (wgmma_tf32.cuh), up to
+// 64 rows at a time as the M tile of one product, so the weight streams from
+// L2 once per tile and product. #13 and #14 (float) put up to 64 slots in a
+// tile (edge_wide_wg); #15 (Dl) puts 32 slots' values and their tangents in
+// one (edge_wide_dl). Every sum runs in a fixed order (one thread per output,
+// no atomics), so results do not vary from run to run. The block synchronises
+// by __syncthreads and the product ring's mbarriers. To fit long rows beside
+// the 66.5 KB product tile, the route lays the buffers that its wide part never
+// touches over that tile and its ring (carve_wg).
 #pragma once
+
+#include <type_traits>
 
 #include "resid_common.cuh"
 #include "wgmma_tf32.cuh"
@@ -58,14 +57,14 @@ struct EdgeW {
 };
 constexpr int kEdgeWPtrs = 17;
 
-// Whether #13 and #14 take these widths on the tensor cores: the x-mixing
-// product's H * heads = C = 256 (wgmma_tf32.cuh).
+// Whether the edge kernels take these widths on the tensor cores: the
+// x-mixing product's H * heads = C = 256 (wgmma_tf32.cuh).
 __host__ __device__ inline bool wg_dims(const EDims& d) {
   return d.H * d.Kh == kWgDepth && d.C == kWgCols;
 }
 
-// The packed hi and lo TF32 planes of the x-mixing weight that #13 and #14
-// read on the tensor cores (sparse_ef.xmix_planes): the forward's (t_xmix
+// The packed hi and lo TF32 planes of the x-mixing weight that the edge
+// kernels read on the tensor cores (sparse_ef.xmix_planes): the forward's (t_xmix
 // rows) and the pullback's (w_xmix rows). They follow the 17 weight pointers.
 struct WgPlanes {
   const float *fwd, *bwd;
@@ -181,8 +180,8 @@ __device__ __forceinline__ void mmT(int n, int kd, int m, AF A, const float* __r
 
 constexpr int kWTile = 16;  // rows of W a wide product stages at a time
 
-// The products whose width is a multiple of 4 (the x-mixing product and its
-// transpose, 82% of the edge FMAs, and the H-wide ones): out(r, c) =
+// The products whose width is a multiple of 4 (the edge row's H- and F-wide
+// ones, and the split path's x-mixing, split_edge.cuh): out(r, c) =
 // sum_k A[r * lda + k] * W[k * m + c], with kWTile rows of W staged in
 // shared memory (Ws, kWTile * m floats) at a time, so each W element is read
 // from L2 once per call, and each thread keeping a 4 x 4 tile of outputs in
@@ -261,20 +260,19 @@ __device__ __forceinline__ void mm_wide(int n, int kd, int m, const T* A, int ld
         for (int t = 0; t < 4; ++t) st(r0 + q, c4 * 4 + t, acc[q][t]);
 }
 
-// Shared-memory layout of one row, in units of T (gp and gh are floats
-// kept in T-sized slots).
+// Shared-memory layout of one row, in units of T but for the cotangents gp and
+// gh, which carry no tangent, and mm_wide's W tile: floats.
 template <class T> struct ESmem {
   T *d0, *m, *r, *t, *ir, *u, *du, *dr;  // 3K, K, K, K, K, 3K, 3K, K
   T *ai, *oi;                             // R, H
-  T *gp, *gh;                             // 3C, HK (cotangents; value only)
+  float *gp, *gh;                         // 3C, HK (cotangents)
   T *hg;                                  // K * max(F, H): h_g, then h_e
   T *pre, *rbf, *e0;                      // K*R, K*R, K*H (e0, then d_e0)
   T *dhe, *df;                            // K*H (silu(e0), then d_h_e), K*R (pullback)
   T *sem, *att, *att2, *datt2;            // K*Kh each
   T *den, *dg;                            // Kh each
-  T *wa, *wb;                             // kc*HK, kc*C
   T *pool, *hatt;                         // 3C, HK (the chain's outputs)
-  float* ws;                              // kWTile * max(C, HK): mm_wide's W tile
+  float* ws;                              // kWTile * max(F, H): mm_wide's W tile
 };
 
 template <class T>
@@ -282,10 +280,12 @@ __host__ __device__ inline T* take_t(Carver& cv, long long n) {
   return reinterpret_cast<T*>(cv.take(n * (long long)(sizeof(T) / sizeof(float))));
 }
 
-// kWg (the tensor-core route): carve_wg places the buffers that its wide part
-// leaves alone (pre, rbf, df, dr, ws); the chain's outputs only with kFwdOut.
-template <class T, bool kPull, bool kWg = false, bool kFwdOut = true>
-__host__ __device__ inline ESmem<T> carve_edge(Carver& cv, const EDims& d, int kc) {
+// The row's buffers but those that carve_wg places beside the tensor-core
+// route's (pre, rbf, df, dr, ws: null here, where they stood before carve_wg
+// took them, which keeps #14's SASS as it was); the chain's outputs only with
+// kFwdOut.
+template <class T, bool kPull, bool kFwdOut>
+__host__ __device__ inline ESmem<T> carve_edge(Carver& cv, const EDims& d) {
   const long long K = d.K, HK = (long long)d.H * d.Kh;
   ESmem<T> S;
   S.d0 = take_t<T>(cv, 3 * K);
@@ -295,42 +295,34 @@ __host__ __device__ inline ESmem<T> carve_edge(Carver& cv, const EDims& d, int k
   S.ir = take_t<T>(cv, K);
   S.u = take_t<T>(cv, 3 * K);
   S.du = kPull ? take_t<T>(cv, 3 * K) : nullptr;
-  S.dr = kPull && !kWg ? take_t<T>(cv, K) : nullptr;
+  S.dr = nullptr;
   S.ai = take_t<T>(cv, d.R);
   S.oi = take_t<T>(cv, d.H);
-  S.gp = kPull ? take_t<T>(cv, 3LL * d.C) : nullptr;
-  S.gh = kPull ? take_t<T>(cv, HK) : nullptr;
+  S.gp = kPull ? cv.take(3LL * d.C) : nullptr;
+  S.gh = kPull ? cv.take(HK) : nullptr;
   S.hg = take_t<T>(cv, K * (d.F > d.H ? d.F : d.H));
-  S.pre = kWg ? nullptr : take_t<T>(cv, K * d.R);
-  S.rbf = kWg ? nullptr : take_t<T>(cv, K * d.R);
+  S.pre = nullptr;
+  S.rbf = nullptr;
   S.e0 = take_t<T>(cv, K * d.H);
   S.dhe = take_t<T>(cv, K * d.H);
-  S.df = kPull && !kWg ? take_t<T>(cv, K * d.R) : nullptr;
+  S.df = nullptr;
   S.sem = take_t<T>(cv, K * d.Kh);
   S.att = take_t<T>(cv, K * d.Kh);
   S.att2 = take_t<T>(cv, K * d.Kh);
   S.datt2 = kPull ? take_t<T>(cv, K * d.Kh) : nullptr;
   S.den = take_t<T>(cv, d.Kh);
   S.dg = take_t<T>(cv, d.Kh);
-  S.wa = take_t<T>(cv, (long long)kc * HK);
-  S.wb = take_t<T>(cv, (long long)kc * d.C);
   S.pool = kFwdOut ? take_t<T>(cv, 3LL * d.C) : nullptr;
   S.hatt = kFwdOut ? take_t<T>(cv, HK) : nullptr;
-  S.ws = kWg ? nullptr : cv.take((long long)kWTile * (d.C > HK ? d.C : HK));
+  S.ws = nullptr;
   return S;
-}
-
-template <class T, bool kPull>
-inline long long edge_smem_bytes(const EDims& d, int kc) {
-  Carver cv{nullptr};
-  carve_edge<T, kPull>(cv, d, kc);
-  return cv.off * (long long)sizeof(float);
 }
 
 // The tensor-core route's buffers beside the row's: the products' 64-slot
 // output tile X (row stride kWgCols + kWgXPad, so that a warp's A fragment
 // reads hit 32 banks), the ring of B stages and its barriers, and the planes;
-// recompute: #14's tail remakes pre and rbf (carve_wg).
+// recompute: pre and rbf lie under X and the ring, and the tail remakes them
+// (#14) or reads them back from the rows where they were parked (#15; carve_wg).
 struct WgCtx {
   float* x;
   WgRing rg;
@@ -341,14 +333,16 @@ struct WgCtx {
 // The row's buffers and the ring's barriers, then X and the ring, with the
 // buffers that the wide part never touches laid over them: d_filt, d_r and
 // mm_wide's W tile, which the pullback's tail writes afresh, and pre and rbf,
-// which #13 is done with by then. #14's tail reads pre and rbf again, so they
-// sit beside X and the ring unless recompute, where the tail remakes them
-// (edge_row): the space a K over 100 needs at the sparse widths, where a slot
-// costs 1,284 B without it and 884 with it.
-template <bool kFwdOut, bool kPull>
+// which #13 is done with by then. The pullback's tail reads pre and rbf again,
+// so they sit beside X and the ring unless recompute, where the tail remakes or
+// reloads them (edge_row): the space a K over 100 needs at the sparse widths,
+// where a slot costs 1,284 B without it and 884 with it (#14), and #15's K = 48
+// (a dual slot costs 1,768 B with it). X, the ring and mm_wide's W tile hold
+// floats, the row's buffers T.
+template <bool kFwdOut, bool kPull, class T = float>
 __host__ __device__ inline WgCtx carve_wg(Carver& cv, const EDims& d, int stages,
-                                          bool recompute, ESmem<float>* S) {
-  ESmem<float> s = carve_edge<float, kPull, true, kFwdOut>(cv, d, 0);
+                                          bool recompute, ESmem<T>* S) {
+  ESmem<T> s = carve_edge<T, kPull, kFwdOut>(cv, d);
   const long long K = d.K;
   WgCtx wg{};
   wg.rg.full = reinterpret_cast<unsigned long long*>(cv.take(4LL * stages));
@@ -357,39 +351,39 @@ __host__ __device__ inline WgCtx carve_wg(Carver& cv, const EDims& d, int stages
   wg.recompute = kPull && recompute;
   const bool over = !kPull || recompute;  // pre and rbf under X and the ring
   if (!over) {
-    s.pre = cv.take(K * d.R);
-    s.rbf = cv.take(K * d.R);
+    s.pre = take_t<T>(cv, K * d.R);
+    s.rbf = take_t<T>(cv, K * d.R);
   }
   float* at = cv.base ? cv.base + cv.off : nullptr;
   Carver wide{at}, rest{at};
   wg.x = wide.take((long long)kWgRows * (kWgCols + kWgXPad));
   wg.rg.ring = wide.take((long long)stages * kWgStage);
   if (over) {
-    s.pre = rest.take(K * d.R);
-    s.rbf = rest.take(K * d.R);
+    s.pre = take_t<T>(rest, K * d.R);
+    s.rbf = take_t<T>(rest, K * d.R);
   }
-  s.df = kPull ? rest.take(K * d.R) : nullptr;
-  s.dr = kPull ? rest.take(K) : nullptr;
+  s.df = kPull ? take_t<T>(rest, K * d.R) : nullptr;
+  s.dr = kPull ? take_t<T>(rest, K) : nullptr;
   s.ws = rest.take((long long)kWTile * (d.F > d.H ? d.F : d.H));  // the H- and F-wide weights
   cv.off += wide.off > rest.off ? wide.off : rest.off;
   if (S) *S = s;
   return wg;
 }
 
-template <bool kFwdOut, bool kPull>
+template <bool kFwdOut, bool kPull, class T = float>
 inline long long edge_wg_smem_bytes(const EDims& d, int stages, bool recompute) {
   Carver cv{nullptr};
-  carve_wg<kFwdOut, kPull>(cv, d, stages, recompute, nullptr);
+  carve_wg<kFwdOut, kPull, T>(cv, d, stages, recompute, nullptr);
   return cv.off * (long long)sizeof(float);
 }
 
 // The most neighbour slots a row may have on the tensor-core route at these
-// widths: its shared memory, with the shallowest ring and #14's tail
+// widths: its shared memory, with the shallowest ring and the pullback's tail
 // recomputing pre and rbf, fits one block.
-template <bool kFwdOut, bool kPull>
+template <bool kFwdOut, bool kPull, class T = float>
 inline int wg_max_slots(EDims d) {
   for (d.K = 1; d.K < (1 << 16); ++d.K)
-    if (edge_wg_smem_bytes<kFwdOut, kPull>(d, kWgMinStages, true) > 232448) break;
+    if (edge_wg_smem_bytes<kFwdOut, kPull, T>(d, kWgMinStages, true) > 232448) break;
   return d.K - 1;
 }
 
@@ -412,14 +406,38 @@ __device__ __forceinline__ void wg_recompute_pre_rbf(const EdgeArgs& A, const ES
   }
 }
 
+// #15 with pre and rbf under X and the ring (carve_wg's recompute): they wait
+// in global memory across the wide part, in the cotangent rows ER_D_PRE and
+// ER_FILT (values and tangents), which the tail writes only after reading them
+// back: out after the narrow phase (in = false), in before the tail's first use
+// (in = true), each between block barriers. Cheaper than remaking them as #14
+// does (a dual pre product), and #15 always writes its rows.
+__device__ __forceinline__ void dl_park_pre_rbf(const EdgeArgs& A, const ESmem<Dl>& S, int row,
+                                                bool in) {
+  const int n = A.d.K * A.d.R;
+  const size_t b = (size_t)row * n;
+  float *pv = A.rows[ER_D_PRE] + b, *pt = A.t_rows[ER_D_PRE] + b;
+  float *rv = A.rows[ER_FILT] + b, *rt = A.t_rows[ER_FILT] + b;
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    if (in) {
+      S.pre[j] = Dl{pv[j], pt[j]};
+      S.rbf[j] = Dl{rv[j], rt[j]};
+    } else {
+      pv[j] = S.pre[j].v;
+      pt[j] = S.pre[j].t;
+      rv[j] = S.rbf[j].v;
+      rt[j] = S.rbf[j].t;
+    }
+  }
+}
+
 // The wide part of a row on the tensor cores (#13, #14): up to kWgRows slots
 // at a time, he_att formed in X (which the product's output then overwrites:
 // no buffer of its own), the x-mixing product and with kPull its transpose by
-// wg_xmix, reading their A fragments from X. The epilogues are the CUDA-core
-// route's (edge_row's chunked loop, #15's), over X in place of wa and wb and
-// with hatt and the ER_HE_ATT rows taken as he_att is formed: a fix to one
-// belongs in the other. One body for both, through views of X or of wa and
-// wb, cost #13 14% on the card and changed #15's SASS (PERF.md).
+// wg_xmix, reading their A fragments from X. #15's edge_wide_dl runs the same
+// epilogues on dual numbers: a fix to one belongs in the other (one body for
+// float and Dl, through views of the buffers, cost #13 14% on the card;
+// PERF.md).
 template <bool kFwdOut, bool kPull, bool kRows>
 __device__ void edge_wide_wg(const EdgeArgs& A, const ESmem<float>& S, int row, WgCtx& wg) {
   const EDims d = A.d;
@@ -520,13 +538,142 @@ __device__ void edge_wide_wg(const EdgeArgs& A, const ESmem<float>& S, int row, 
   }
 }
 
+// The wide part of a row on the tensor cores for #15 (Dl). w_xmix carries no
+// tangent, so a slot's value row and its tangent row multiply the same B: a
+// tile of X holds kWgHalf slots, their values in rows 0 ... 31 and their
+// tangents in rows 32 ... 63, and one wg_xmix gives both halves of 32 dual
+// slots. A row of K slots takes ceil(K / 32) tiles (K = 48: 32, then 16, the
+// unused rows of each half read as zeros and never stored), each plane
+// streaming twice per row and product. The dual tanh pairs row r with row r +
+// 32, which other warps hold: the product stores its sums into X and the
+// epilogue reads both back. The epilogues are edge_wide_wg's, on dual numbers
+// (pair and set read and write a slot's value and tangent in X).
+constexpr int kWgHalf = kWgRows / 2;
+
+template <bool kFwdOut, bool kPull, bool kRows>
+__device__ void edge_wide_dl(const EdgeArgs& A, const ESmem<Dl>& S, int row, WgCtx& wg) {
+  static_assert(kFwdOut && kPull && kRows,
+                "#15 writes the chain's outputs, the pullback's and its rows (and parks pre "
+                "and rbf in them)");
+  const EDims d = A.d;
+  const int K = d.K, H = d.H, Kh = d.Kh, C = d.C, HK = H * Kh;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const size_t eb = (size_t)row * K;
+  const Dl* he = S.hg;
+  const Dl zero{0.f, 0.f};
+  float* X = wg.x;
+  constexpr int ldx = kWgCols + kWgXPad;
+  constexpr int tan = kWgHalf * ldx;  // from a slot's value row to its tangent row
+  auto pair = [&](int e, int c) { return Dl{X[e * ldx + c], X[tan + e * ldx + c]}; };
+  auto set = [&](int e, int c, Dl v) {
+    X[e * ldx + c] = v.v;
+    X[tan + e * ldx + c] = v.t;
+  };
+  // this thread's accesses to the space that the ring shares (carve_wg) come
+  // before the ring's bulk copies
+  wg_fence_proxy();
+  for (int t0 = 0; t0 < K; t0 += kWgHalf) {
+    const int n = min(kWgHalf, K - t0);
+    // tile row r holds slot t0 + r % 32 (its value or its tangent): in use below n
+    auto used = [&](int r) { return (r & (kWgHalf - 1)) < n; };
+    auto af = [&](int r, int k) { return used(r) ? X[r * ldx + k] : 0.f; };
+    // he_att[e, h*Kh + hd] = h_e[e, h] * att2[e, hd], a column per thread;
+    // hatt = sum_K he_att
+    for (int q = tid; q < HK; q += nt) {
+      const int h = q / Kh, hd = q % Kh;
+      Dl sum = zero;
+      for (int e = 0; e < n; ++e) {
+        const Dl a = he[(t0 + e) * H + h] * S.att2[(t0 + e) * Kh + hd];
+        set(e, q, a);
+        sum += a;
+        put_row(A, ER_HE_ATT, (eb + t0 + e) * HK + q, a);
+      }
+      S.hatt[q] = S.hatt[q] + sum;
+    }
+    __syncthreads();
+    SAKE_PROBE(PR_SP_HEATT);
+    // tanh(he_att @ w_xmix): both halves' sums into X, then the dual tanh
+    wg_xmix(kWgRows, af, wg.P.fwd, wg.rg, [&](int r, int c, float v) {
+      if (used(r)) X[r * ldx + c] = v;
+    });
+    __syncthreads();
+    for (int j = tid; j < n * C; j += nt) set(j / C, j % C, tanh_(pair(j / C, j % C)));
+    __syncthreads();
+    SAKE_PROBE(PR_SP_XMIX_F);
+    // pooled_k = sum_K coeff * u_k, coeff = tanh * m
+    for (int c = tid; c < C; c += nt) {
+      Dl p0 = S.pool[c], p1 = S.pool[C + c], p2 = S.pool[2 * C + c];
+      for (int e = 0; e < n; ++e) {
+        const Dl co = pair(e, c) * val(S.m[t0 + e]);
+        p0 += co * S.u[t0 + e];
+        p1 += co * S.u[K + t0 + e];
+        p2 += co * S.u[2 * K + t0 + e];
+      }
+      S.pool[c] = p0;
+      S.pool[C + c] = p1;
+      S.pool[2 * C + c] = p2;
+    }
+    // d_u_k = sum_C coeff * g_pooled_k: a warp a slot, its lanes over C, then
+    // the lanes' sums in a fixed order (warp_sum)
+    for (int e = tid >> 5; e < n; e += nt >> 5) {
+      Dl acc[3] = {zero, zero, zero};
+      for (int c = tid & 31; c < C; c += 32) {
+        const Dl co = pair(e, c);
+#pragma unroll
+        for (int k = 0; k < 3; ++k) acc[k] += co * S.gp[k * C + c];
+      }
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const Dl sum{warp_sum(acc[k].v), warp_sum(acc[k].t)};
+        if ((tid & 31) == 0) S.du[k * K + t0 + e] = sum * val(S.m[t0 + e]);
+      }
+    }
+    __syncthreads();
+    SAKE_PROBE(PR_SP_EPI);
+    // d_xm = d_coeff * m * (1 - tanh^2), d_coeff = sum_k g_pooled_k * u_k
+    for (int j = tid; j < n * C; j += nt) {
+      const int e = j / C, c = j % C;
+      const Dl dco = S.gp[c] * S.u[t0 + e] + S.gp[C + c] * S.u[K + t0 + e] +
+                     S.gp[2 * C + c] * S.u[2 * K + t0 + e];
+      const Dl th = pair(e, c);
+      set(e, c, dco * val(S.m[t0 + e]) * (1.f - th * th));
+    }
+    __syncthreads();
+    SAKE_PROBE(PR_SP_EPI);
+    for (int j = tid; j < n * C; j += nt)
+      put_row(A, ER_D_XM, (eb + t0) * C + j, pair(j / C, j % C));
+    SAKE_PROBE_BARRIER(PR_SP_STORE);
+    // d_he_att = d_xm @ w_xmix^T + g_hatt (g_hatt carries no tangent), into X
+    // (wg_xmix's barrier puts the stores after every read of d_xm)
+    wg_xmix(kWgRows, af, wg.P.bwd, wg.rg, [&](int r, int c, float v) {
+      if (used(r)) X[r * ldx + c] = r < kWgHalf ? v + S.gh[c] : v;
+    });
+    __syncthreads();
+    SAKE_PROBE(PR_SP_XMIX_B);
+    // d_h_e = sum_hd d_he_att * att2; d_att2 = sum_h d_he_att * h_e
+    for (int j = tid; j < n * H; j += nt) {
+      const int e = j / H, h = j % H;
+      Dl acc = zero;
+      for (int hd = 0; hd < Kh; ++hd) acc += pair(e, h * Kh + hd) * S.att2[(t0 + e) * Kh + hd];
+      S.dhe[(t0 + e) * H + h] = acc;
+    }
+    for (int j = tid; j < n * Kh; j += nt) {
+      const int e = j / Kh, hd = j % Kh;
+      Dl acc = zero;
+      for (int h = 0; h < H; ++h) acc += pair(e, h * Kh + hd) * he[(t0 + e) * H + h];
+      S.datt2[(t0 + e) * Kh + hd] = acc;
+    }
+    __syncthreads();
+    SAKE_PROBE(PR_SP_EPI);
+  }
+}
+
 // One receiver row: the chain (kFwdOut: write pooled and hatt), and with
 // kPull its pullback (input cotangents), with kRows also the cotangent
-// rows of the 11 edge-leaf gradients. kWg (float only): the wide part on the
-// tensor cores (edge_wide_wg, with wg), else in chunks of kc slots.
-template <class T, bool kFwdOut, bool kPull, bool kRows, bool kWg = false>
-__device__ void edge_row(const EdgeArgs& A, const ESmem<T>& S, int row, int kc,
-                         WgCtx* wg = nullptr) {
+// rows of the 11 edge-leaf gradients; the wide part on the tensor cores
+// (edge_wide_wg for float, edge_wide_dl for Dl).
+template <class T, bool kFwdOut, bool kPull, bool kRows>
+__device__ void edge_row(const EdgeArgs& A, const ESmem<T>& S, int row, WgCtx& wg) {
   const EDims d = A.d;
   const int K = d.K, F = d.F, R = d.R, H = d.H, Kh = d.Kh, C = d.C, HK = H * Kh;
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -557,8 +704,8 @@ __device__ void edge_row(const EdgeArgs& A, const ESmem<T>& S, int row, int kc,
   for (int j = tid; j < K * F; j += nt) S.hg[j] = ld<T>(A.hg, A.c_hg, eb * F + j);
   if constexpr (kPull) {
     for (int j = tid; j < 3 * C; j += nt)
-      S.gp[j] = mk<T>(A.gp[(size_t)(j / C) * d.NR * C + (size_t)row * C + j % C], 0.f);
-    for (int j = tid; j < HK; j += nt) S.gh[j] = mk<T>(A.gh[(size_t)row * HK + j], 0.f);
+      S.gp[j] = A.gp[(size_t)(j / C) * d.NR * C + (size_t)row * C + j % C];
+    for (int j = tid; j < HK; j += nt) S.gh[j] = A.gh[(size_t)row * HK + j];
   }
   if constexpr (kFwdOut) {
     for (int j = tid; j < 3 * C; j += nt) S.pool[j] = zero;
@@ -578,6 +725,8 @@ __device__ void edge_row(const EdgeArgs& A, const ESmem<T>& S, int row, int kc,
   mm_wide<T>(K, F, H, S.hg, F, W.w_o_j, S.ws,
              [&](int r, int c, T v) { S.e0[r * H + c] = v + S.oi[c]; });
   __syncthreads();
+  if constexpr (std::is_same<T, Dl>::value)
+    if (wg.recompute) dl_park_pre_rbf(A, S, row, false);
   // -- e0 = oji + (rbf * pre) @ w_o_f + r * w_o_r
   mmT<T>(K, R, H, [&](int r, int k) { return S.rbf[r * R + k] * S.pre[r * R + k]; }, W.w_o_f,
          [&](int r, int c, T v) { S.e0[r * H + c] = S.e0[r * H + c] + v + S.r[r] * W.w_o_r[c]; });
@@ -629,98 +778,10 @@ __device__ void edge_row(const EdgeArgs& A, const ESmem<T>& S, int row, int kc,
   __syncthreads();
   SAKE_PROBE(PR_SP_SOFTMAX);
 
-  if constexpr (kWg) {
-    edge_wide_wg<kFwdOut, kPull, kRows>(A, S, row, *wg);
-  } else {
-    // -- the wide part, kc slots at a time (edge_wide_wg runs the same
-    //    epilogues on the tensor-core route)
-    for (int c0 = 0; c0 < K; c0 += kc) {
-      const int n = min(kc, K - c0);
-      // he_att[e, h*Kh + hd] = h_e[e, h] * att2[e, hd]
-      for (int j = tid; j < n * HK; j += nt) {
-        const int e = j / HK, q = j % HK;
-        S.wa[j] = he[(c0 + e) * H + q / Kh] * S.att2[(c0 + e) * Kh + q % Kh];
-      }
-      __syncthreads();
-      SAKE_PROBE(PR_SP_HEATT);
-      // tanh(he_att @ w_xmix)
-      mm_wide<T>(n, HK, C, S.wa, HK, W.w_xmix, S.ws,
-         [&](int r, int c, T v) { S.wb[r * C + c] = tanh_(v); });
-      __syncthreads();
-      SAKE_PROBE(PR_SP_XMIX_F);
-      if constexpr (kFwdOut) {
-        // pooled_k = sum_K coeff * u_k, coeff = tanh * m; hatt = sum_K he_att
-        for (int c = tid; c < C; c += nt) {
-          T p0 = S.pool[c], p1 = S.pool[C + c], p2 = S.pool[2 * C + c];
-          for (int e = 0; e < n; ++e) {
-            const T co = S.wb[e * C + c] * val(S.m[c0 + e]);
-            p0 += co * S.u[c0 + e];
-            p1 += co * S.u[K + c0 + e];
-            p2 += co * S.u[2 * K + c0 + e];
-          }
-          S.pool[c] = p0;
-          S.pool[C + c] = p1;
-          S.pool[2 * C + c] = p2;
-        }
-        for (int j = tid; j < HK; j += nt) {
-          T a = S.hatt[j];
-          for (int e = 0; e < n; ++e) a += S.wa[e * HK + j];
-          S.hatt[j] = a;
-        }
-      }
-      if constexpr (kPull) {
-        // d_u_k = sum_C coeff * g_pooled_k
-        for (int q = tid; q < 3 * n; q += nt) {
-          const int k = q / n, e = q % n;
-          T acc = zero;
-          for (int c = 0; c < C; ++c) acc += S.wb[e * C + c] * S.gp[k * C + c];
-          S.du[k * K + c0 + e] = acc * val(S.m[c0 + e]);
-        }
-        __syncthreads();
-        SAKE_PROBE(PR_SP_EPI);
-        // d_xm = d_coeff * m * (1 - tanh^2), d_coeff = sum_k g_pooled_k * u_k
-        for (int j = tid; j < n * C; j += nt) {
-          const int e = j / C, c = j % C;
-          const T dco = S.gp[c] * S.u[c0 + e] + S.gp[C + c] * S.u[K + c0 + e] +
-                        S.gp[2 * C + c] * S.u[2 * K + c0 + e];
-          const T th = S.wb[j];
-          S.wb[j] = dco * val(S.m[c0 + e]) * (1.f - th * th);
-        }
-        if constexpr (kRows) {
-          SAKE_PROBE_BARRIER(PR_SP_EPI);
-          for (int j = tid; j < n * HK; j += nt)
-            put_row(A, ER_HE_ATT, (eb + c0) * HK + j, S.wa[j]);
-        }
-        __syncthreads();
-        SAKE_PROBE(kRows ? PR_SP_STORE : PR_SP_EPI);
-        if constexpr (kRows) {
-          for (int j = tid; j < n * C; j += nt) put_row(A, ER_D_XM, (eb + c0) * C + j, S.wb[j]);
-          SAKE_PROBE_BARRIER(PR_SP_STORE);
-        }
-        // d_he_att = d_xm @ w_xmix^T + g_hatt
-        mm_wide<T>(n, C, HK, S.wb, C, W.t_xmix, S.ws,
-                   [&](int r, int c, T v) { S.wa[r * HK + c] = v + S.gh[c]; });
-        __syncthreads();
-        SAKE_PROBE(PR_SP_XMIX_B);
-        // d_h_e = sum_hd d_he_att * att2; d_att2 = sum_h d_he_att * h_e
-        for (int j = tid; j < n * H; j += nt) {
-          const int e = j / H, h = j % H;
-          T acc = zero;
-          for (int hd = 0; hd < Kh; ++hd)
-            acc += S.wa[e * HK + h * Kh + hd] * S.att2[(c0 + e) * Kh + hd];
-          S.dhe[(c0 + e) * H + h] = acc;
-        }
-        for (int j = tid; j < n * Kh; j += nt) {
-          const int e = j / Kh, hd = j % Kh;
-          T acc = zero;
-          for (int h = 0; h < H; ++h) acc += S.wa[e * HK + h * Kh + hd] * he[(c0 + e) * H + h];
-          S.datt2[(c0 + e) * Kh + hd] = acc;
-        }
-      }
-      __syncthreads();
-      SAKE_PROBE(PR_SP_EPI);
-    }
-  }
+  if constexpr (std::is_same<T, Dl>::value)
+    edge_wide_dl<kFwdOut, kPull, kRows>(A, S, row, wg);
+  else
+    edge_wide_wg<kFwdOut, kPull, kRows>(A, S, row, wg);
   if constexpr (kFwdOut) {
     for (int j = tid; j < 3 * C; j += nt)
       put(A.pooled, (size_t)(j / C) * d.NR * C + (size_t)row * C + j % C, S.pool[j]);
@@ -765,8 +826,12 @@ __device__ void edge_row(const EdgeArgs& A, const ESmem<T>& S, int row, int kc,
     for (int j = tid; j < K * H; j += nt) put_row(A, ER_D_H_E, eb * H + j, S.dhe[j]);
     SAKE_PROBE_BARRIER(PR_SP_STORE);
   }
-  if constexpr (kWg)
-    if (wg->recompute) wg_recompute_pre_rbf(A, S, row);
+  if (wg.recompute) {
+    if constexpr (std::is_same<T, Dl>::value)
+      dl_park_pre_rbf(A, S, row, true);
+    else
+      wg_recompute_pre_rbf(A, S, row);
+  }
   // -- d_e0 = (d_h_e @ w_o1^T) * silu'(e0), in place of e0
   mm_wide<T>(K, H, H, S.dhe, H, W.t_o1, S.ws,
              [&](int r, int c, T v) { S.e0[r * H + c] = v * dsilu_(S.e0[r * H + c]); });
@@ -848,19 +913,8 @@ __device__ void edge_row(const EdgeArgs& A, const ESmem<T>& S, int row, int kc,
   SAKE_PROBE(PR_SP_TAIL);
 }
 
-// The kernel: one block per receiver row, rows strided over the grid.
-template <class T, bool kFwdOut, bool kPull, bool kRows>
-__global__ void __launch_bounds__(kEdgeThreads, 1) edge_kernel(EdgeArgs A, int kc) {
-  extern __shared__ float4 smem4[];
-  Carver cv{reinterpret_cast<float*>(smem4)};
-  const ESmem<T> S = carve_edge<T, kPull>(cv, A.d, kc);
-  SAKE_PROBE_START();
-  for (int row = blockIdx.x; row < A.d.NR; row += gridDim.x)
-    edge_row<T, kFwdOut, kPull, kRows>(A, S, row, kc);
-}
-
-// #13 and #14: the float instantiations on the tensor cores, the route's
-// buffers carved after the row's.
+// #13 and #14: the float instantiations, the route's buffers carved after the
+// row's; one block per receiver row, rows strided over the grid.
 template <bool kFwdOut, bool kPull, bool kRows>
 __global__ void __launch_bounds__(kEdgeThreads, 1)
     edge_wg_kernel(EdgeArgs A, WgPlanes P, int stages, int recompute) {
@@ -873,22 +927,48 @@ __global__ void __launch_bounds__(kEdgeThreads, 1)
   __syncthreads();
   SAKE_PROBE_START();
   for (int row = blockIdx.x; row < A.d.NR; row += gridDim.x)
-    edge_row<float, kFwdOut, kPull, kRows, true>(A, S, row, 0, &wg);
+    edge_row<float, kFwdOut, kPull, kRows>(A, S, row, wg);
+}
+
+// #15: the Dl instantiation (a kernel of its own, so that the float ones keep
+// their text).
+template <bool kFwdOut, bool kPull, bool kRows>
+__global__ void __launch_bounds__(kEdgeThreads, 1)
+    edge_wg_dl_kernel(EdgeArgs A, WgPlanes P, int stages, int recompute) {
+  extern __shared__ float4 smem4[];
+  Carver cv{reinterpret_cast<float*>(smem4)};
+  ESmem<Dl> S;
+  WgCtx wg = carve_wg<kFwdOut, kPull, Dl>(cv, A.d, stages, recompute != 0, &S);
+  wg.P = P;
+  wg_init(wg.rg);
+  __syncthreads();
+  SAKE_PROBE_START();
+  for (int row = blockIdx.x; row < A.d.NR; row += gridDim.x)
+    edge_row<Dl, kFwdOut, kPull, kRows>(A, S, row, wg);
+}
+
+// The kernel of an instantiation: T float (#13, #14) or Dl (#15).
+template <class T, bool kFwdOut, bool kPull, bool kRows>
+constexpr auto edge_wg_entry() {
+  if constexpr (std::is_same<T, Dl>::value)
+    return edge_wg_dl_kernel<kFwdOut, kPull, kRows>;
+  else
+    return edge_wg_kernel<kFwdOut, kPull, kRows>;
 }
 
 // Launch with the deepest ring (kWgMaxStages ... kWgMinStages) whose shared
 // memory fits one block, first with pre and rbf kept through the wide part, then
-// (#14) with its tail recomputing them; an invalid value where the widths are
-// not the route's (wg_dims) or nothing fits (K over wg_max_slots).
-template <bool kFwdOut, bool kPull, bool kRows>
+// (the pullbacks) with the tail remaking or reloading them; an invalid value where the
+// widths are not the route's (wg_dims) or nothing fits (K over wg_max_slots).
+template <bool kFwdOut, bool kPull, bool kRows, class T = float>
 int launch_edge_wg(const EdgeArgs& A, const WgPlanes& P, void* stream) {
   if (!wg_dims(A.d) || !P.fwd || (kPull && !P.bwd))
     return (int)cudaErrorInvalidValue;
   for (int recompute = 0; recompute <= (kPull ? 1 : 0); ++recompute)
     for (int stages = kWgMaxStages; stages >= kWgMinStages; --stages) {
-      const long long smem = edge_wg_smem_bytes<kFwdOut, kPull>(A.d, stages, recompute);
+      const long long smem = edge_wg_smem_bytes<kFwdOut, kPull, T>(A.d, stages, recompute);
       if (smem > 232448) continue;
-      auto kern = edge_wg_kernel<kFwdOut, kPull, kRows>;
+      auto kern = edge_wg_entry<T, kFwdOut, kPull, kRows>();
       cudaError_t err =
           cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (err != cudaSuccess) return (int)err;
@@ -898,23 +978,6 @@ int launch_edge_wg(const EdgeArgs& A, const WgPlanes& P, void* stream) {
       return (int)cudaGetLastError();
     }
   return (int)cudaErrorInvalidValue;
-}
-
-// Launch with the widest chunk of slots (16, 8, ... 1) whose shared memory
-// fits one block.
-template <class T, bool kFwdOut, bool kPull, bool kRows>
-int launch_edge(const EdgeArgs& A, void* stream) {
-  int kc = 16;
-  while (kc > 1 && edge_smem_bytes<T, kPull>(A.d, kc) > 232448) kc /= 2;
-  const long long smem = edge_smem_bytes<T, kPull>(A.d, kc);
-  if (smem > 232448) return (int)cudaErrorInvalidValue;
-  auto kern = edge_kernel<T, kFwdOut, kPull, kRows>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  if (A.d.NR > 0)
-    kern<<<A.d.NR, kEdgeThreads, smem, static_cast<cudaStream_t>(stream)>>>(A, kc);
-  return (int)cudaGetLastError();
 }
 
 inline WgPlanes edge_planes(const void* const* w) {

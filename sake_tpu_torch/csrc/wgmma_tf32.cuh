@@ -1,9 +1,9 @@
 // The x-mixing product of the sparse edge row on Hopper's warpgroup tensor-core
 // product (wgmma), to f32 accuracy by 3xTF32 with chunked sums: out = A @ W for
 // a tile of up to 64 neighbour slots (the M tile of wgmma.m64n128k8) against
-// a 256 x 256 weight. Used by #13 and #14 (the float instantiations of
-// sparse_edge.cuh's edge_row): the forward tanh(he_att @ w_xmix) and the
-// pullback's d_xm @ w_xmix^T.
+// a 256 x 256 weight. Used by #13, #14 and #15 (sparse_edge.cuh's edge_row; #15
+// with a slot's value and tangent rows in the two halves of the tile): the
+// forward tanh(he_att @ w_xmix) and the pullback's d_xm @ w_xmix^T.
 //
 // The block's two warpgroups split the 256 output columns, 128 each, and both
 // run all 64 rows: each thread keeps 64 f32 accumulators of the running sum and

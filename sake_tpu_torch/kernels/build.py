@@ -138,9 +138,10 @@ def signatures() -> dict:
         "sake_resid_bwd_probe": [P, I],
         "sake_resid_bwd_cl_probe": [P, I],
         "sake_fused_bwd_probe": [P, I],
-        # #13's and #14's clock probes
+        # #13's, #14's and #15's clock probes
         "sake_sparse_fwd_probe": [P, I],
         "sake_sparse_bwd_probe": [P, I],
+        "sake_sparse_bwd2_probe": [P, I],
         # the contractions' clock probes
         "sake_sparse_contract_probe": [P, I],
         "sake_param_grads_probe": [P, I],
@@ -166,9 +167,10 @@ def signatures() -> dict:
         "sake_sparse_bwd_rows": [P] * 6 + [P, P] + [P] * 4 + [P] + edims + [P],
         # ... gp, gh, 4 cotangents, 6 outs, rows, t_rows
         "sake_sparse_bwd2": [P] * 6 + [P, P] + [P] * 4 + [P] * 6 + [P, P] + edims + [P],
-        # the most slots a row may have on #13's and #14's route at (F, R, H, Kh, C)
+        # the most slots a row may have on #13's, #14's and #15's route at (F, R, H, Kh, C)
         "sake_sparse_fwd_max_slots": [I] * 5,
         "sake_sparse_bwd_max_slots": [I] * 5,
+        "sake_sparse_bwd2_max_slots": [I] * 5,
         # n_terms, a, na, g, ng, leaf, E, n_chunks, partial, leaf_off, n_leaves, out, stream
         "sake_sparse_contract": [I, P, P, P, P, P, LL, I, P, P, I, P, P],
         "sake_split_fwd": [I, P, P, P] + sdims + [P],

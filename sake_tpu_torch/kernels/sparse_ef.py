@@ -317,13 +317,13 @@ def _edge_dims(h_g, a_i, o_i, ep):
     return NR, K, F, R, H, Kh, C
 
 
-# the widths the tensor-core x-mixing of #13 and #14 takes (csrc/wgmma_tf32.cuh):
+# the widths the tensor-core x-mixing of #13-#15 takes (csrc/wgmma_tf32.cuh):
 # H * heads = C = 256
 XMIX_TC_WIDTH = 256
 
 
 def xmix_planes(w_xmix) -> list:
-    """The packed hi and lo TF32 planes of ``w_xmix (HK, C)`` that #13 and #14
+    """The packed hi and lo TF32 planes of ``w_xmix (HK, C)`` that #13-#15
     read on the tensor cores (:func:`~sake_tpu_torch.kernels.tf32.wgmma_planes`
     of its K-major forms): the forward's (rows of ``w_xmix^T``) and the
     pullback's (rows of ``w_xmix``)."""
@@ -347,8 +347,8 @@ def _check_edge(name, h_g, a_i, o_i, d0, m, ep, wt=None, tc=True):
     planes of :func:`edge_transposes` (``wt``; for the forward, which reads no
     transpose, None: the planes are made here, returned so that they outlive
     the launch, and the transposes' pointers are null). ``tc``: the kernel runs
-    the x-mixing on the tensor cores (#13, #14), which take only ``H * heads =
-    C = XMIX_TC_WIDTH``."""
+    the x-mixing on the tensor cores (#13-#15 all do), which take only ``H *
+    heads = C = XMIX_TC_WIDTH``."""
     _require_cuda(name, h_g)
     dims = _edge_dims(h_g, a_i, o_i, ep)
     NR, K, F, R, H, Kh, C = dims
@@ -568,8 +568,11 @@ def sparse_bwd2(h_g, a_i, o_i, d0, m, ep, g_pooled, g_hatt, c_hg, c_ai, c_oi, c_
     ``(c_hg, c_ai, c_oi, c_d0)`` of #14's outputs: ``(e_hg, e_ai, e_oi, e_d0
     (3, NR, K), e_gp (3, NR, C), e_gh (NR, HK), {leaf: cotangent})``. On the
     card the pullback runs forward-over-reverse on dual numbers (tangent
-    c) and the contraction kernel sums the augmented rows
-    (:func:`aug_terms`). CPU tensors take the plain version."""
+    c), its x-mixing on the tensor cores as #14's (``H * heads = C =
+    XMIX_TC_WIDTH``, K up to the source's ``sake_sparse_bwd2_max_slots``), and
+    the contraction kernel sums the augmented rows (:func:`aug_terms`).
+    ``wt``: the layer's :func:`edge_transposes`, made here when None. CPU
+    tensors take the plain version."""
     if h_g.device.type == "cpu":
         return sparse_bwd2_plain(h_g, a_i, o_i, d0, m, ep, g_pooled, g_hatt, c_hg, c_ai, c_oi,
                                  c_d0)
@@ -582,7 +585,7 @@ def sparse_bwd2(h_g, a_i, o_i, d0, m, ep, g_pooled, g_hatt, c_hg, c_ai, c_oi, c_
 def _launch_bwd2(h_g, a_i, o_i, d0, m, ep, g_pooled, g_hatt, c_hg, c_ai, c_oi, c_d0,
                  wt=None):
     wt = edge_transposes(ep) if wt is None else wt
-    dims, w, wt = _check_edge("sparse_bwd2", h_g, a_i, o_i, d0, m, ep, wt, tc=False)
+    dims, w, wt = _check_edge("sparse_bwd2", h_g, a_i, o_i, d0, m, ep, wt)
     _check_g(dims, g_pooled, g_hatt, h_g.device)
     NR, K, F, R, H, Kh, C = dims
     dev = h_g.device
@@ -597,6 +600,7 @@ def _launch_bwd2(h_g, a_i, o_i, d0, m, ep, g_pooled, g_hatt, c_hg, c_ai, c_oi, c
     rows = {n: torch.empty(NR * K, wd, device=dev) for n, wd in widths.items()}
     t_rows = {n: torch.empty(NR * K, wd, device=dev) for n, wd in widths.items()}
     lib = build.load()
+    _check_slots("sparse_bwd2", dims, lib.sake_sparse_bwd2_max_slots)
     err = lib.sake_sparse_bwd2(
         h_g.data_ptr(), a_i.data_ptr(), o_i.data_ptr(), d0.data_ptr(), m.data_ptr(), w,
         g_pooled.data_ptr(), g_hatt.data_ptr(), c_hg.data_ptr(), c_ai.data_ptr(),

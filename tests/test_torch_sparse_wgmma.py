@@ -1,4 +1,4 @@
-"""The tensor-core route of the sparse edge kernels #13 and #14
+"""The tensor-core route of the sparse edge kernels #13-#15
 (``csrc/wgmma_tf32.cuh``: the x-mixing product and its transpose on ``wgmma`` in
 3xTF32 with chunked sums), through its plain model and its host side, on the CPU.
 
@@ -15,11 +15,20 @@
   CPU tensors, bit for bit, with every launch count left at 0 (the model too),
   and the wrappers' checks of the route's widths and of the planes' alignment.
 - A K over the route's limit of slots raises, naming the limit.
+- #15's dual tile (``csrc/sparse_edge.cuh``'s ``edge_wide_dl``): 32 slots' value
+  rows stacked over their tangent rows in one 64-row tile give, through the plain
+  model, the value and the tangent products (within 1e-6 of max |ref| of float64,
+  K = 48 and 37, w_xmix and its transpose), the padded rows add nothing, and the
+  dual tanh that pairs tile row r with row r + 32 is the dual-number rule; on CPU
+  tensors ``sparse_bwd2`` is its plain version bit for bit and launches nothing;
+  on the route it raises at other widths and above its limit of slots, before
+  any launch.
 - ``gpu``-marked: ``tools/probe_sparse.py``'s ``check_on_card`` (#13, #14 and #14
   with the leaf gradients against their plain versions on the card at K = 64, 48,
   80, 96, 128 (two and three tiles) and 37 (not a multiple of 8), 1e-4 relative
   per tensor, and two launches bitwise equal) and ``check_slot_limit`` (the same
-  at the most slots the route takes, and one more raising). They skip here;
+  at the most slots the route takes, and one more raising); #15 alike
+  (``check_bwd2_on_card`` at K = 48, 37, 16, ``check_bwd2_slot_limit``). They skip here;
   ``tools/sparse_ab.py`` and ``chip_smoke.py`` run them on the card without
   pytest, whose conftest needs JAX.
 """
@@ -172,6 +181,106 @@ def test_slot_limit_raises_naming_the_largest_k():
         se._check_slots("sparse_bwd", dims, lambda *w: 145)
 
 
+HALF = 32  # the dual tile's slots: values in rows 0 ... 31, tangents in rows 32 ... 63
+
+
+def _dual_tiles(a_v, a_t):
+    """#15's tiles of a row: per 32 slots, their value rows stacked over their
+    tangent rows in a 64-row tile, the unused rows zero; with each tile's count
+    of slots."""
+    for t0 in range(0, a_v.shape[0], HALF):
+        n = min(HALF, a_v.shape[0] - t0)
+        tile = torch.zeros(2 * HALF, a_v.shape[1])
+        tile[:n], tile[HALF:HALF + n] = a_v[t0:t0 + n], a_t[t0:t0 + n]
+        yield tile, n
+
+
+@pytest.mark.parametrize("K", [48, 37])
+@pytest.mark.parametrize("transposed", [False, True], ids=["forward", "pullback"])
+def test_dual_tile_gives_the_value_and_tangent_products(K, transposed):
+    a_v, w = _operands(K, transposed, seed=K)
+    a_t = _operands(K, transposed, seed=K + 1)[0]
+    got_v, got_t = [], []
+    for tile, n in _dual_tiles(a_v, a_t):
+        out = mm_tf32x3_chunked_plain(tile, w)
+        assert not out[n:HALF].any() and not out[HALF + n:].any()  # the padded rows
+        got_v.append(out[:n])
+        got_t.append(out[HALF:HALF + n])
+    assert _rel(torch.cat(got_v), a_v.double() @ w.double()) <= 1e-6
+    assert _rel(torch.cat(got_t), a_t.double() @ w.double()) <= 1e-6
+
+
+def test_dual_tanh_pairs_each_value_row_with_its_tangent_row():
+    """The forward epilogue of #15's dual tile, in float32 as the kernel runs
+    it: slot e's value is tanh(P[e]) and its tangent (1 - value^2) P[e + 32],
+    the dual-number rule tanh(x + dx eps) = tanh x + (1 - tanh^2 x) dx eps."""
+    rng = np.random.default_rng(7)
+    n = 21  # slots in use; the rows between n and 32 (and 32 + n and 64) unused
+    P = rng.standard_normal((2 * HALF, TC)).astype(np.float32)
+    P[n:HALF] = P[HALF + n:] = np.nan
+    val = np.tanh(P[:n])
+    tan = (np.float32(1) - val * val) * P[HALF:HALF + n]
+    x, dx = P[:n].astype(np.float64), P[HALF:HALF + n].astype(np.float64)
+    ref = np.tanh(x)
+    for got, want in ((val, ref), (tan, (1 - ref ** 2) * dx)):
+        assert got.dtype == np.float32 and np.isfinite(got).all()
+        assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+
+
+def test_second_order_wrapper_takes_the_plain_version_on_cpu():
+    hg, ai, oi, d0, m, ep, gp, gh = sparse_inputs(4, 12, seed=2)
+    cg = PS.cotangents(hg, ai, oi, d0)
+    before = se.sparse_bwd2.launches
+    got = se.sparse_bwd2(hg, ai, oi, d0, m, ep, gp, gh, *cg)
+    want = se.sparse_bwd2_plain(hg, ai, oi, d0, m, ep, gp, gh, *cg)
+    for a, b in zip([*got[:6], *got[6].values()], [*want[:6], *want[6].values()]):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert list(got[6]) == list(want[6]) == list(se.EDGE_LEAVES)
+    assert se.sparse_bwd2.launches == before == 0
+
+
+class _NoLaunch:
+    """A stand-in library: #15's limit of slots, and no launch."""
+
+    def __init__(self, most):
+        self.most = most
+
+    def sake_sparse_bwd2_max_slots(self, *widths):
+        return self.most
+
+    def sake_sparse_bwd2(self, *args):
+        raise AssertionError("launched")
+
+
+def test_second_order_route_checks_widths(monkeypatch):
+    """#15 takes only the tensor-core widths (H * heads = C = 256): other
+    widths raise rather than fall back; the CUDA-core check (``tc=False``)
+    still takes them."""
+    monkeypatch.setattr(se, "_require_cuda", lambda name, t: None)
+    monkeypatch.setattr(se.build, "load", lambda: _NoLaunch(67))
+    hg, ai, oi, d0, m, ep, gp, gh = sparse_inputs(2, 8, H=16)  # H * heads = 64
+    with pytest.raises(ValueError, match="sparse_bwd2: the tensor-core x-mixing takes"):
+        se._check_edge("sparse_bwd2", hg, ai, oi, d0, m, ep, se.edge_transposes(ep))
+    se._check_edge("sparse_bwd2", hg, ai, oi, d0, m, ep, se.edge_transposes(ep), tc=False)
+    with pytest.raises(ValueError, match="sparse_bwd2: the tensor-core x-mixing takes"):
+        se._launch_bwd2(hg, ai, oi, d0, m, ep, gp, gh, *PS.cotangents(hg, ai, oi, d0))
+
+
+def test_second_order_slot_limit_raises_naming_it(monkeypatch):
+    """A dual slot takes twice a float slot's shared memory: a K over #15's
+    limit (``sake_sparse_bwd2_max_slots``) raises naming it, before launching."""
+    dims = (2, 68, 64, 50, 64, 4, 256)
+    se._check_slots("sparse_bwd2", dims[:1] + (67,) + dims[2:], lambda *w: 67)
+    with pytest.raises(ValueError, match="sparse_bwd2: .* at most 67 neighbour slots"):
+        se._check_slots("sparse_bwd2", dims, lambda *w: 67)
+    monkeypatch.setattr(se, "_require_cuda", lambda name, t: None)
+    monkeypatch.setattr(se.build, "load", lambda: _NoLaunch(67))
+    hg, ai, oi, d0, m, ep, gp, gh = sparse_inputs(2, 68)
+    with pytest.raises(ValueError, match="at most 67 neighbour slots a row at F=64, R=50, H=64, "
+                                         "heads=4, C=256, not 68"):
+        se._launch_bwd2(hg, ai, oi, d0, m, ep, gp, gh, *PS.cotangents(hg, ai, oi, d0))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("K,NR", PS.CARD_CASES)
 def test_tensor_core_kernels_match_plain_on_card(K, NR):
@@ -185,3 +294,18 @@ def test_slot_limit_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     PS.check_slot_limit(torch.device("cuda"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,NR", PS.BWD2_CASES)
+def test_second_order_kernel_matches_plain_on_card(K, NR):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    PS.check_bwd2_on_card(K, NR, torch.device("cuda"))
+
+
+@pytest.mark.gpu
+def test_second_order_slot_limit_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    PS.check_bwd2_slot_limit(torch.device("cuda"))

@@ -1,7 +1,8 @@
 """Run a kernel source on the CPU against its plain version: #20
 (``csrc/fused_remat_ef.cu``), or with ``--train`` #11 (``csrc/fused_ef.cu``) and
-#12's block (``csrc/fused_bwd.cu``), or with ``--sparse`` #13 (``csrc/sparse_fwd.cu``)
-and #14 in both instantiations (``csrc/sparse_bwd.cu``, with the contraction).
+#12's block (``csrc/fused_bwd.cu``), or with ``--sparse`` #13 (``csrc/sparse_fwd.cu``),
+#14 in both instantiations (``csrc/sparse_bwd.cu``, with the contraction) and #15
+(``csrc/sparse_bwd2.cu``, with the contraction).
 
     EMU_THREADS=128 python tools/cuda_emu/emulate.py                  # hidden 8 and 16
     EMU_THREADS=128 python tools/cuda_emu/emulate.py --hidden 64 --depth 3 --atoms 21
@@ -9,7 +10,7 @@ and #14 in both instantiations (``csrc/sparse_bwd.cu``, with the contraction).
     EMU_THREADS=128 python tools/cuda_emu/emulate.py --train --hidden 8 16 64 --atoms 21
     EMU_THREADS=128 python tools/cuda_emu/emulate.py --helper        # mma_tf32x3.cuh alone
     python tools/cuda_emu/emulate.py --wgmma                          # wgmma_tf32.cuh alone
-    python tools/cuda_emu/emulate.py --sparse --slots 64 48 80 37      # #13, #14 (both)
+    python tools/cuda_emu/emulate.py --sparse --slots 64 48 80 37      # #13, #14, #15
     python tools/cuda_emu/emulate.py --contract                        # the contractions
     EMU_THREADS=128 python tools/cuda_emu/emulate.py --qm9 --hidden 8 16 64 --atoms 29 21 16 7
 
@@ -24,8 +25,9 @@ each output's max relative error against ``fused_primal_plain`` and
 and edge products take the emulated tensor cores. A check before a kernel's first call on
 the card, not a measurement of it. With ``--sparse`` it calls ``sparse_ef``'s
 ``_launch_fwd``, ``_launch_bwd`` and ``_launch_bwd_grads`` on the seeded inputs of
-``tools/probe_sparse.py`` at the sparse widths and ``--slots`` K, whose
-x-mixing takes the emulated ``wgmma``; ``--wgmma`` holds ``wgmma_tf32.cuh``'s
+``tools/probe_sparse.py`` at the sparse widths and ``--slots`` K, and
+``_launch_bwd2`` where K is within #15's limit (67 there), whose x-mixing
+takes the emulated ``wgmma``; ``--wgmma`` holds ``wgmma_tf32.cuh``'s
 product alone against float64. With ``--contract`` it runs the two gradient
 contractions on the emulated f64 tensor cores (``dmma_f64.cuh``):
 ``sparse_ef._contract`` (``csrc/sparse_contract.cu``) on random rows at the
@@ -177,9 +179,9 @@ def check_wgmma(tmp: Path, asan: bool):
 
 
 def check_sparse(K: int, NR: int):
-    """#13, #14 and #14's rows instantiation (and its contraction) against
-    their plain versions at K slots, NR receiver rows; returns the worst
-    relative error."""
+    """#13, #14 and #14's rows instantiation (and its contraction), and #15
+    where K is within its limit, against their plain versions at K slots, NR
+    receiver rows; returns the worst relative error."""
     import importlib.util
 
     from sake_tpu_torch.kernels import sparse_ef as se
@@ -198,11 +200,20 @@ def check_sparse(K: int, NR: int):
     p14 = se.sparse_bwd_plain(hg, ai, oi, d0, m, ep, gp, gh)
     kg = se._launch_bwd_grads(hg, ai, oi, d0, m, ep, gp, gh, wt)
     pg = se.sparse_bwd_plain(hg, ai, oi, d0, m, ep, gp, gh, True)
-    for name, pairs in (
-            ("#13 sparse_fwd", zip(("pooled", "hatt"), k13, p13)),
-            ("#14 sparse_bwd", zip(("d_h_g", "d_a_i", "d_o_i", "d_d0"), k14, p14)),
-            ("#14 sparse_bwd_grads", [*zip(("d_h_g", "d_a_i", "d_o_i", "d_d0"), kg[:4], pg[:4]),
-                                      *((f"dW.{n}", kg[4][n], pg[4][n]) for n in se.EDGE_LEAVES)])):
+    checks = [("#13 sparse_fwd", zip(("pooled", "hatt"), k13, p13)),
+              ("#14 sparse_bwd", zip(("d_h_g", "d_a_i", "d_o_i", "d_d0"), k14, p14)),
+              ("#14 sparse_bwd_grads",
+               [*zip(("d_h_g", "d_a_i", "d_o_i", "d_d0"), kg[:4], pg[:4]),
+                *((f"dW.{n}", kg[4][n], pg[4][n]) for n in se.EDGE_LEAVES)])]
+    widths = (hg.shape[2], ai.shape[1], oi.shape[1], ep["w_sem"].shape[1], gp.shape[-1])
+    if K <= build.load().sake_sparse_bwd2_max_slots(*widths):
+        cg = probe_sparse.cotangents(hg, ai, oi, d0, seed=K)
+        k15 = se._launch_bwd2(hg, ai, oi, d0, m, ep, gp, gh, *cg, wt)
+        p15 = se.sparse_bwd2_plain(hg, ai, oi, d0, m, ep, gp, gh, *cg)
+        checks.append(("#15 sparse_bwd2",
+                       [*zip(("e_hg", "e_ai", "e_oi", "e_d0", "e_gp", "e_gh"), k15[:6], p15[:6]),
+                        *((f"dW2.{n}", k15[6][n], p15[6][n]) for n in se.EDGE_LEAVES)]))
+    for name, pairs in checks:
         errs = {n: rel(a, b) for n, a, b in pairs}
         w = max(errs, key=errs.get)
         worst = max(worst, errs[w])
@@ -404,7 +415,8 @@ def main():
     ap.add_argument("--wgmma", action="store_true",
                     help="wgmma_tf32.cuh's product alone (wgmma_check.cu)")
     ap.add_argument("--sparse", action="store_true",
-                    help="#13 and #14 (csrc/sparse_fwd.cu, csrc/sparse_bwd.cu) in place of #20")
+                    help="#13, #14 and #15 (csrc/sparse_fwd.cu, sparse_bwd.cu, sparse_bwd2.cu) "
+                         "in place of #20")
     ap.add_argument("--slots", type=int, nargs="*", default=[64, 48],
                     help="--sparse: the K of each case")
     ap.add_argument("--rows", type=int, default=3, help="--sparse: receiver rows")
@@ -436,6 +448,8 @@ def main():
                               ("sparse_fwd.cu", ["sake_sparse_fwd", "sake_sparse_fwd_max_slots"]),
                               ("sparse_bwd.cu", ["sake_sparse_bwd", "sake_sparse_bwd_rows",
                                                  "sake_sparse_bwd_max_slots"]),
+                              ("sparse_bwd2.cu", ["sake_sparse_bwd2",
+                                                  "sake_sparse_bwd2_max_slots"]),
                               ("sparse_contract.cu", ["sake_sparse_contract"]))))
             build.load = lambda: libs
             se._require_cuda = lambda name, t: None

@@ -1,14 +1,15 @@
-"""Where the block time of the sparse edge kernels #13 and #14 goes: a clock64()
-probe per phase of the receiver row, at the sparse tasks' shapes on one NVIDIA
-GPU.
+"""Where the block time of the sparse edge kernels #13, #14 and #15 goes: a
+clock64() probe per phase of the receiver row, at the sparse tasks' shapes on one
+NVIDIA GPU.
 
     python3 tools/probe_sparse.py
 
 Builds ``csrc/sparse_fwd.cu`` (#13), ``csrc/sparse_bwd.cu`` (#14 and its rows
-instantiation) and ``csrc/sparse_contract.cu`` twice at once, without and with
-``-DSAKE_PROBE`` (``csrc/probe.cuh``), prints ptxas's registers, shared memory
-and spills of the edge kernels, then at ``SparseMDConfig()``'s box (4096 atoms,
-K = 64) and ``SparseTrainConfig()``'s (1024 atoms, K = 48) launches each kernel
+instantiation), ``csrc/sparse_bwd2.cu`` (#15) and ``csrc/sparse_contract.cu`` twice
+at once, without and with ``-DSAKE_PROBE`` (``csrc/probe.cuh``), prints ptxas's
+registers, shared memory and spills of the edge kernels, then at
+``SparseMDConfig()``'s box (4096 atoms, K = 64) and ``SparseTrainConfig()``'s (1024
+atoms, K = 48; #15, the training path's kernel, only there) launches each kernel
 once on layer 0's inputs on the probe build and prints each slot's share of the
 block cycles (thread 0 reads the SM clock after a block barrier and charges the
 cycles since its last mark; the slots sum over every block of the launch). The
@@ -21,8 +22,10 @@ probe's own cost shows. The card's name and power limit come first.
 It also holds what ``chip_smoke.py``, ``tools/sparse_ab.py``,
 ``tools/cuda_emu/emulate.py`` and ``tests/test_torch_sparse_wgmma.py`` share:
 layer 0's inputs of the sparse boxes (``layer0_inputs``), seeded inputs at the
-sparse widths (``sparse_inputs``), and the checks of #13 and #14 against plain on
-the card (``check_on_card``, ``check_slot_limit``).
+sparse widths (``sparse_inputs``, ``cotangents``), #15's edge kernel alone
+(``bwd2_edge``), and the checks of #13, #14 and #15 against plain on the card
+(``check_on_card``, ``check_slot_limit``, ``check_bwd2_on_card``,
+``check_bwd2_slot_limit``).
 """
 
 from __future__ import annotations
@@ -36,21 +39,26 @@ import sys
 import threading
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCES = ("sparse_fwd.cu", "sparse_bwd.cu", "sparse_contract.cu")
+SOURCES = ("sparse_fwd.cu", "sparse_bwd.cu", "sparse_bwd2.cu", "sparse_contract.cu")
 SLOTS = ("sp_load", "sp_narrow", "sp_softmax", "sp_heatt", "sp_xmix_f", "sp_xmix_b", "sp_epi",
          "sp_tail", "sp_store")  # probe.cuh's PR_SP_* slots, in order
 N_SLOTS = 52  # kProbeSlots
 SLOT0 = 24  # the first of the sparse edge row's slots (PR_SP_LOAD)
-ENTRIES = ("sake_sparse_fwd", "sake_sparse_bwd", "sake_sparse_bwd_rows", "sake_sparse_contract",
-           "sake_sparse_fwd_probe", "sake_sparse_bwd_probe", "sake_sparse_fwd_max_slots",
-           "sake_sparse_bwd_max_slots")
+ENTRIES = ("sake_sparse_fwd", "sake_sparse_bwd", "sake_sparse_bwd_rows", "sake_sparse_bwd2",
+           "sake_sparse_contract", "sake_sparse_fwd_probe", "sake_sparse_bwd_probe",
+           "sake_sparse_bwd2_probe", "sake_sparse_fwd_max_slots", "sake_sparse_bwd_max_slots",
+           "sake_sparse_bwd2_max_slots")
 CASES = (("sparse_md_kernel", 4096, 64), ("sparse_train_kernel", 1024, 48))
 
 
-SPARSE_TOL = 1e-4  # #13's and #14's limit against plain, max relative error per tensor
+SPARSE_TOL = 1e-4  # #13-#15's limit against plain, max relative error per tensor
 # (K, receiver rows) of check_on_card's seeded cases: both tasks' K, two and three
 # 64-slot tiles, one K not a multiple of 8
 CARD_CASES = ((64, 256), (48, 256), (80, 128), (96, 128), (128, 128), (37, 128))
+# and of check_bwd2_on_card's (#15 takes at most 67 slots at these widths): the training
+# task's K (two 32-slot dual tiles, the second half empty), one K not a multiple of
+# 8, one tile
+BWD2_CASES = ((48, 256), (37, 128), (16, 128))
 
 
 def _tc_ab():
@@ -227,23 +235,115 @@ def check_slot_limit(dev, NR=64):
     return most, err
 
 
-def launches(inputs):
-    """#13, #14 and #14's rows instantiation on one input, as callables of the
-    launch helpers (no counters move), the layer's transposes and planes made
-    once, as the model makes them."""
+def cotangents(hg, ai, oi, d0, seed: int = 15):
+    """Random cotangents of #14's outputs, the inputs #15 adds: ``(c_hg, c_ai,
+    c_oi, c_d0)``."""
+    import torch
+
+    gen = torch.Generator(hg.device).manual_seed(seed)
+    return tuple(torch.randn(*a.shape, device=hg.device, generator=gen) for a in (hg, ai, oi, d0))
+
+
+def bwd2_edge(hg, ai, oi, d0, m, ep, gp, gh, cg, wt):
+    """#15's edge kernel alone (``sparse_ef._launch_bwd2`` without its
+    contraction), straight through ``sake_sparse_bwd2``, whose arguments a
+    parent tree with the CUDA-core #15 shares too (``tools/sparse_ab.py`` times
+    both): the input and g-stream cotangents and the 12 rows with their
+    tangents."""
+    import torch
+
+    from sake_tpu_torch.kernels import build
+    from sake_tpu_torch.kernels import sparse_ef as se
+
+    NR, K, F = hg.shape
+    R, H, C, HK = ai.shape[1], oi.shape[1], gp.shape[-1], gh.shape[-1]
+    dims = (NR, K, F, R, H, HK // H, C)
+    w = se._ptrs([ep[n] for n in se.EDGE_LEAVES] + list(wt))
+    outs = [torch.empty_like(a) for a in (hg, ai, oi, d0, gp, gh)]
+    widths = se._row_widths(dims)
+    rows = [torch.empty(NR * K, widths[n], device=hg.device) for n in se.EDGE_ROWS]
+    t_rows = [torch.empty_like(a) for a in rows]
+    lib = build.load()
+    err = lib.sake_sparse_bwd2(*(a.data_ptr() for a in (hg, ai, oi, d0, m)), w, gp.data_ptr(),
+                               gh.data_ptr(), *(a.data_ptr() for a in cg),
+                               *(a.data_ptr() for a in outs), se._ptrs(rows), se._ptrs(t_rows),
+                               *dims, se._stream(hg.device))
+    build.check(lib, err, "sparse_bwd2")
+    return outs, rows, t_rows
+
+
+def check_bwd2_on_card(K, NR, dev, seed=0):
+    """#15 against its plain version (max relative error per tensor of the six
+    cotangents and the 11 leaves' ``dW2``, within ``SPARSE_TOL``), and a second
+    launch bitwise equal to the first, on :func:`sparse_inputs` and
+    :func:`cotangents`; returns the worst error."""
+    import torch
+
+    from sake_tpu_torch.kernels import sparse_ef as se
+
+    cpu = sparse_inputs(NR, K, seed=seed)
+    hg, ai, oi, d0, m, ep, gp, gh = [
+        {n: a.to(dev) for n, a in t.items()} if isinstance(t, dict) else t.to(dev) for t in cpu]
+    cg = cotangents(hg, ai, oi, d0, seed=seed)
+    wt = se.edge_transposes(ep)
+    before = se.sparse_bwd2.launches
+    runs = [se.sparse_bwd2(hg, ai, oi, d0, m, ep, gp, gh, *cg, wt) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert se.sparse_bwd2.launches == before + 2
+    flat = lambda r: [*r[:6], *(r[6][n] for n in se.EDGE_LEAVES)]
+    assert all(torch.equal(a, b) for a, b in zip(flat(runs[0]), flat(runs[1])))
+    with torch.no_grad():
+        want = se.sparse_bwd2_plain(hg, ai, oi, d0, m, ep, gp, gh, *cg)
+    err = max(_rel(a, b.double()) for a, b in zip(flat(runs[0]), flat(want)))
+    assert err <= SPARSE_TOL, err
+    return err
+
+
+def check_bwd2_slot_limit(dev, NR=64):
+    """#15's limit of slots at the sparse widths (at least the training task's
+    48): :func:`check_bwd2_on_card` there, and one slot more raises a ValueError
+    that names the limit. Returns ``(limit, worst error)``."""
+    from sake_tpu_torch.kernels import build
+    from sake_tpu_torch.kernels import sparse_ef as se
+
+    most = build.load().sake_sparse_bwd2_max_slots(64, 50, 64, 4, 256)
+    assert most >= 48, most
+    err = check_bwd2_on_card(most, NR, dev)
+    hg, ai, oi, d0, m, ep, gp, gh = [
+        {n: a.to(dev) for n, a in t.items()} if isinstance(t, dict) else t.to(dev)
+        for t in sparse_inputs(2, most + 1)]
+    try:
+        se.sparse_bwd2(hg, ai, oi, d0, m, ep, gp, gh, *cotangents(hg, ai, oi, d0))
+    except ValueError as e:
+        assert f"at most {most} neighbour slots" in str(e), e
+    else:
+        raise AssertionError(f"#15 took K = {most + 1}, over its limit of {most}")
+    return most, err
+
+
+def launches(inputs, bwd2: bool = False):
+    """#13, #14 and #14's rows instantiation on one input (with ``bwd2`` also
+    #15's edge kernel, :func:`bwd2_edge`, on :func:`cotangents`), as callables
+    of the launch helpers (no counters move), the layer's transposes and planes
+    made once, as the model makes them."""
     from sake_tpu_torch.kernels import sparse_ef as se
 
     hg, ai, oi, d0, m, ep, gp, gh = inputs
     wt = se.edge_transposes(ep)
-    return {"#13 sparse_fwd": (lambda: se._launch_fwd(hg, ai, oi, d0, m, ep, wt), "fwd"),
-            "#14 sparse_bwd": (lambda: se._launch_bwd(hg, ai, oi, d0, m, ep, gp, gh, wt), "bwd"),
-            "#14 sparse_bwd_rows": (lambda: se._launch_bwd_grads(hg, ai, oi, d0, m, ep, gp, gh,
-                                                                 wt), "bwd")}
+    out = {"#13 sparse_fwd": (lambda: se._launch_fwd(hg, ai, oi, d0, m, ep, wt), "fwd"),
+           "#14 sparse_bwd": (lambda: se._launch_bwd(hg, ai, oi, d0, m, ep, gp, gh, wt), "bwd"),
+           "#14 sparse_bwd_rows": (lambda: se._launch_bwd_grads(hg, ai, oi, d0, m, ep, gp, gh,
+                                                                wt), "bwd")}
+    if bwd2:
+        cg = cotangents(hg, ai, oi, d0)
+        out["#15 sparse_bwd2 edge kernel"] = (
+            lambda: bwd2_edge(hg, ai, oi, d0, m, ep, gp, gh, cg, wt), "bwd2")
+    return out
 
 
-def probe(inputs, lib, label: str, smi: str) -> dict:
-    """One launch of each kernel on ``lib`` (a probe build); prints and returns
-    ``{kernel: {slot: share}}``."""
+def probe(inputs, lib, label: str, smi: str, bwd2: bool = False) -> dict:
+    """One launch of each kernel of :func:`launches` on ``lib`` (a probe build);
+    prints and returns ``{kernel: {slot: share}}``."""
     import torch
 
     from sake_tpu_torch.kernels import build
@@ -251,8 +351,8 @@ def probe(inputs, lib, label: str, smi: str) -> dict:
     saved, build._lib = build._lib, lib  # the launch helpers go through build.load()
     out = {}
     try:
-        for name, (fn, src) in launches(inputs).items():
-            entry = lib.sake_sparse_fwd_probe if src == "fwd" else lib.sake_sparse_bwd_probe
+        for name, (fn, src) in launches(inputs, bwd2).items():
+            entry = getattr(lib, f"sake_sparse_{src}_probe")
             ticks = (ctypes.c_ulonglong * N_SLOTS)()
             build.check(lib, entry(ticks, 1), "probe reset")
             with torch.no_grad():
@@ -293,13 +393,14 @@ def main() -> int:
     for workload, N, K in CASES:
         inputs = layer0_inputs(workload, dev)
         label = f"N={inputs[0].shape[0]} K={inputs[0].shape[1]} ({workload})"
-        probe(inputs, libs["probe"], label, smi)
+        bwd2 = workload == "sparse_train_kernel"
+        probe(inputs, libs["probe"], label, smi, bwd2)
         times = {}
         for k, lib in libs.items():
             saved, build._lib = build._lib, lib
             with torch.no_grad():
                 times[k] = {name: round(cuda_ms(fn), 4) for name, (fn, _) in
-                            launches(inputs).items()}
+                            launches(inputs, bwd2).items()}
             build._lib = saved
         print(f"PROBE TIMES {label} (ms per launch): without the probe "
               f"{json.dumps(times['plain'])}; with it {json.dumps(times['probe'])} ({smi})",

@@ -1,27 +1,30 @@
-"""Hold the tensor-core #13 and #14 against the parent commit's kernels on one
-NVIDIA GPU, in one process tree (the sparse sibling of ``tools/tc_ab.py``):
+"""Hold the sparse edge kernels on the tensor cores against the parent commit's
+on one NVIDIA GPU, in one process tree (the sparse sibling of ``tools/tc_ab.py``):
 
     python3 tools/sparse_ab.py --parent <checkout of the parent commit>
 
 1. ``SASS``: builds both trees' kernels at once and compares every object's SASS
-   function by function (``cuobjdump -sass``). The float instantiations of the
-   sparse edge kernel (``edge_kernel<float, ...>``) are gone and the tensor-core
-   ones (``edge_wg_kernel``) are new; every other function, #15's
-   (``edge_kernel<Dl, ...>``) and every dense kernel's included, must be the
-   parent's. The new ones must run their x-mixing on ``wgmma`` (HGMMA ... TF32).
+   function by function (``cuobjdump -sass``). #15's CUDA-core kernel
+   (``edge_kernel<Dl, ...>``) is gone and its tensor-core one
+   (``edge_wg_dl_kernel``) is new, and must run its x-mixing on ``wgmma`` (HGMMA
+   ... TF32); every other function, #13's and #14's (``edge_wg_kernel``) and
+   every dense kernel's included, must be the parent's.
 2. ``TIME``: #13, #14 and #14 with the leaf gradients (its rows instantiation and
    the contraction) at layer 0 of ``SparseMDConfig()``'s box (N 4096, K 64) and
-   ``SparseTrainConfig()``'s (N 1024, K 48), in worker processes that alternate
-   the trees (parent, change, change, parent, parent, change), CUDA events, 5
-   launches after one warm-up; each kernel's runs per tree and their spread.
+   ``SparseTrainConfig()``'s (N 1024, K 48), and at the latter #15's edge kernel
+   alone (``tools/probe_sparse.bwd2_edge``) and whole (with its contraction), in
+   worker processes that alternate the trees (parent, change, change, parent,
+   parent, change), CUDA events, 5 launches after one warm-up; each kernel's runs
+   per tree and their spread.
 3. ``GRADS``: step 1 of ``sparse_train_kernel``'s kernel branch against its plain
    branch (double autograd), per-leaf gradients as max |diff| / max |plain|, and
    the loss, in both trees.
 4. ``GPU_TEST``: the gpu-marked checks of ``tests/test_torch_sparse_wgmma.py``
    (``tools/probe_sparse.py``'s ``check_on_card``: #13, #14 and #14 with dW
-   against plain at K = 64, 48, 80, 96, 128, 37, two launches bitwise equal; and
+   against plain at K = 64, 48, 80, 96, 128, 37, two launches bitwise equal;
    ``check_slot_limit``: the same at the most slots the route takes, one more
-   raising), run without pytest, whose conftest needs JAX.
+   raising; ``check_bwd2_on_card`` and ``check_bwd2_slot_limit``: #15 alike at K
+   = 48, 37, 16 and its own limit), run without pytest, whose conftest needs JAX.
 """
 
 from __future__ import annotations
@@ -83,13 +86,12 @@ def sass_phase(parent: Path) -> bool:
             tf32 = bool(hg) and all("TF32" in line for line in hg)
             print(f"SASS   {f}: {len(hg)} HGMMA instructions, all TF32 {tf32}; "
                   f"[{props['change'].get(f, '?')}]", flush=True)
-            ok &= "edge_wg_kernel" in f and tf32
+            ok &= "edge_wg_dl_kernel" in f and tf32
         for f in gone:
             print(f"SASS   gone {f}: parent [{props['parent'].get(f, '-')}]", flush=True)
-            ok &= "edge_kernelIf" in f
+            ok &= "edge_kernelINS_2DlE" in f  # edge_kernel<sake::Dl, ...>
         ok &= not differ
-    print(f"SASS every kernel but #13's and #14's unchanged, theirs on HGMMA TF32: {ok}",
-          flush=True)
+    print(f"SASS every kernel but #15's unchanged, #15's on HGMMA TF32: {ok}", flush=True)
     return ok
 
 
@@ -116,6 +118,12 @@ def time_worker(label: str) -> dict:
                 lambda: se._launch_bwd(hg, ai, oi, d0, m, ep, gp, gh, wt), reps=5)
             t[f"#14 with dW {shape}"] = TC_AB.cuda_ms(
                 lambda: se._launch_bwd_grads(hg, ai, oi, d0, m, ep, gp, gh, wt), reps=5)
+            if workload == "sparse_train_kernel":
+                cg = PROBE.cotangents(hg, ai, oi, d0)
+                t[f"#15 edge kernel {shape}"] = TC_AB.cuda_ms(
+                    lambda: PROBE.bwd2_edge(hg, ai, oi, d0, m, ep, gp, gh, cg, wt), reps=5)
+                t[f"#15 sparse_bwd2 {shape}"] = TC_AB.cuda_ms(
+                    lambda: se._launch_bwd2(hg, ai, oi, d0, m, ep, gp, gh, *cg, wt), reps=5)
     assert all(np.isfinite(v) for v in t.values())
     print("TC_AB_TIME " + json.dumps({"tree": label, "ms": t}), flush=True)
     return t
@@ -173,6 +181,21 @@ def gpu_test_phase() -> bool:
     except AssertionError as e:
         ok = False
         print(f"GPU_TEST slot limit: FAILED {e!r}", flush=True)
+    for K, NR in PROBE.BWD2_CASES:
+        try:
+            err = PROBE.check_bwd2_on_card(K, NR, dev)
+            print(f"GPU_TEST #15 K={K} NR={NR}: max rel err {err:.3e}, two launches bitwise "
+                  "equal", flush=True)
+        except AssertionError as e:
+            ok = False
+            print(f"GPU_TEST #15 K={K} NR={NR}: FAILED {e!r}", flush=True)
+    try:
+        most, err = PROBE.check_bwd2_slot_limit(dev)
+        print(f"GPU_TEST #15's limit K={most}: max rel err {err:.3e}; K={most + 1} raises",
+              flush=True)
+    except AssertionError as e:
+        ok = False
+        print(f"GPU_TEST #15's slot limit: FAILED {e!r}", flush=True)
     return ok
 
 
