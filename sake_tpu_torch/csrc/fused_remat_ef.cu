@@ -12,36 +12,43 @@
 // dot(bf16(a), bf16(w)) with f32 sums (functional.py:98-105), and its
 // pullback bf16(g @ bf16(w)^T).
 //
-// Design: a persistent grid of one 512-thread block per SM (as #3's kScratch
-// instantiation, fused_ef.cu), each block walking molecules blockIdx.x, +
-// gridDim.x, ...; per molecule it embeds (readout_head.cuh's products), runs
-// K1's body over depth writing only the boundaries (as #21), runs the readout
-// and its seed (readout_seed_head), and per layer in reverse re-runs the layer
-// into a one-layer residual scratch and pulls back through it (remat_step.cuh,
-// as #22). The boundaries (about 35 KB per aspirin molecule at depth 6) and
-// the residuals of one layer (about 0.87 MB) live in device memory, in slots
-// of one molecule per block, so the scratch is the grid's (about 120 MB on
-// 132 SMs), not the batch's, and mostly stays in L2 between the writes and
-// the reads of the same block. The block writes and reads its slots in the
-// same launch: every scratch pointer is a plain (not const __restrict__)
-// kernel argument, so no read is served from the non-coherent cache, and
-// each read follows a __syncthreads after the write.
+// Design: a persistent grid of one 512-thread block per SM, each block walking
+// molecules blockIdx.x, + gridDim.x, ...; per molecule it embeds (readout_head.cuh's
+// products), runs K1's body over depth writing the state entering each layer and
+// the layer's 17 residuals (as K1 does), runs the readout and its seed
+// (readout_seed_head), and pulls the cotangents back over depth in reverse with K2's
+// body on those residuals. The boundaries and residuals of every layer (about 5.3 MB
+// per aspirin molecule at depth 6) live in device memory, in one slot per block, so
+// the scratch is the grid's (about 665 MiB on 132 SMs), not the batch's. The slots
+// are larger than the card's 50 MB L2: each residual goes to HBM once and comes back
+// once. The TPU kernel instead re-ran each layer from its boundary before pulling
+// back through it, to keep VMEM small; on the H100 that re-forward saved no traffic
+// (its one-layer slots, 115 MB on 132 blocks, went through HBM as well) and took a
+// third of the block's cycles (tools/probe_fused.py --k20).
+// The block writes and reads its slots in the same launch: every scratch pointer is
+// a plain (not const __restrict__) kernel argument, so no read is served from the
+// non-coherent cache, and each read follows a __syncthreads after the write.
 //
-// bf16: kBf16 instantiates the same bodies (resid_fwd.cuh, resid_bwd.cuh,
-// readout_head.cuh) with each product's activation operand rounded to bf16 as
-// it is read and each product's pullback rounded before it joins a sum; the
-// wrapper passes the weights already rounded (their transposes too). A
-// product of two bf16 values is exact in f32, so f32 FMAs on the CUDA cores
-// compute the bf16 product exactly; tensor cores (mma.sync / wgmma on bf16
-// operands) are a later change.
+// Products: the x-mixing product and the edge products o_f and o1, forward and
+// pullback, run on the tensor cores (mma_tf32x3.cuh: the kTc bodies, the W ring
+// ahead of their carves) where tc_dims allows (aspirin's widths), on the CUDA cores
+// elsewhere (the narrow models); the route is the shape's, the same for the whole
+// launch (sake_fused_remat_ef_tc). f32: 3xTF32. bf16: kBf16 instantiates the same
+// bodies with each product's activation operand rounded to bf16 as it is read and
+// each product's pullback rounded before it joins a sum; the wrapper passes the
+// weights already rounded (their transposes too). A bf16 weight is exact in TF32, so
+// the tensor-core products take fewer passes (tc_passes): one for the forward's o_f
+// and o1 (both operands bf16 values: exact), two for the x-mixing (bf16(h_e) att is
+// an f32 value) and every pullback product (g is not rounded). The other products
+// run on the CUDA cores, in bf16 as exact products of bf16 values with f32 sums.
 //
-// What bounds it on an H100: as #21 + #22, f32 FMA issue and the per-row
-// synchronisation of one block per molecule (K1's forward body runs in a
-// 512-thread block, one block per SM); bf16 adds the roundings, a few integer
-// operations per operand read.
+// What bounds it on an H100: one 512-thread block per SM and the row loop's block
+// barriers, the products left on the CUDA cores (the node phase, sem, the
+// projections), mma.sync at a fraction of the TF32 rate, and register spills.
 
 #include "readout_head.cuh"
-#include "remat_step.cuh"
+#include "resid_bwd.cuh"
+#include "resid_fwd.cuh"
 
 namespace sake {
 namespace {
@@ -60,18 +67,20 @@ __host__ __device__ inline long long head_buf_floats(const Dims& d, int F_in, in
   return s > r ? s : r;
 }
 
-// The larger of the forward (cotangent state, K1's carve, the head buffer)
-// and the pullback with its re-forward.
+// The W ring of the tensor-core products (none where tc_dims does not take
+// them), the cotangent state (sdh, sdx, sdv), then one region that the forward's
+// carve with the head buffer and the pullback's buffers take in turn.
 __host__ __device__ inline long long fused_remat_smem_floats(const Dims& d, int F_in, int F0) {
   const long long f =
-      bwd_state_floats(d) + fwd_smem_floats(d) + head_buf_floats(d, F_in, F0);
-  const long long b = remat_bwd_smem_floats(d);
-  return f > b ? f : b;
+      bwd_state_floats(d) + fwd_smem_floats<true>(d) + head_buf_floats(d, F_in, F0);
+  const long long b = bwd_smem_floats<true>(d);
+  return tc_ring_floats(d) + (f > b ? f : b);
 }
 
 // d.B: the scratch's slots (the grid); B: the batch. h_raw (B, N, F_in), x
 // (B, N, 3); e_out (B,), f_out (B, N, 3). bh (depth, d.B, N, F), bx, bv
-// (depth, 3, d.B, N): the boundary slots; RS: one layer's residual slots.
+// (depth, 3, d.B, N): the boundary slots; RS: the residual slots of every
+// layer (K1's layout with d.B molecules).
 template <bool kBf16>
 __global__ void __launch_bounds__(kFusedRematThreads, 1)
 fused_remat_ef_kernel(Dims d, int B, const float* __restrict__ h_raw,
@@ -79,12 +88,17 @@ fused_remat_ef_kernel(Dims d, int B, const float* __restrict__ h_raw,
                       Leaves LT, Embed em, Readout ro, float* bh, float* bx, float* bv,
                       Resids RS, float* e_out, float* f_out) {
   extern __shared__ float4 smem4[];
+  float* ring = reinterpret_cast<float*>(smem4);  // the tensor-core products' W ring
+  float* base = ring + tc_ring_floats(d);
   const int N = d.N, F = d.F, F_in = em.F_in, slot = blockIdx.x;
   const int tid = threadIdx.x, nt = blockDim.x;
-  BwdSmem SB;
-  FwdSmem SF;
-  float* buf = reinterpret_cast<float*>(smem4) +
-               remat_carves(reinterpret_cast<float*>(smem4), d, &SB, &SF);
+  // SB from the base (its cotangent state outlives the forward), SF after that state
+  Carver cb{base};
+  const BwdSmem SB = carve_bwd<true>(cb, d);
+  Carver cf{base + bwd_state_floats(d)};
+  const FwdSmem SF = carve_fwd<true>(cf, d);
+  float* buf = base + bwd_state_floats(d) + cf.off;
+  SAKE_PROBE_START();
   for (int m = blockIdx.x; m < B; m += gridDim.x) {
     // the embedding, x, v = 0
     for (int e = tid; e < N * F_in; e += nt) buf[e] = h_raw[(size_t)m * N * F_in + e];
@@ -97,23 +111,50 @@ fused_remat_ef_kernel(Dims d, int B, const float* __restrict__ h_raw,
     mm_head<kBf16>(N, F_in, F, buf, F_in, em.w,
                    [&](int r, int c, float a) { SF.sh[r * F + c] = a + em.b[c]; });
     __syncthreads();
+    SAKE_PROBE(PR_OTHER);
 
-    // forward over depth, keeping the state entering each layer
+    // forward over depth, keeping the state entering each layer and its residuals
     for (int l = 0; l < d.depth; ++l)
-      fwd_layer<false, true, kBf16>(d, SF, slot, l, upd[l], nullptr, L, bh, bx, bv, RS);
+      fwd_layer<true, true, kBf16, true>(d, SF, slot, l, upd[l], nullptr, L, bh, bx, bv, RS,
+                                         ring);
 
     // e and the seed dh_fin into the pullback's state
     readout_seed_head<kBf16>(N, F, ro, SF.sh, nullptr, buf, SB.sdh, e_out + m);
     for (int e = tid; e < 3 * N; e += nt) SB.sdx[e] = SB.sdv[e] = 0.f;
     __syncthreads();
+    SAKE_PROBE(PR_HEAD);
 
-    // per layer in reverse: re-forward from the boundary, pull back
+    // pullback over depth on the layers' residuals (the forward's closing
+    // barrier orders their writes before these reads, through plain pointers)
     for (int l = d.depth - 1; l >= 0; --l)
-      remat_layer<kBf16>(d, SF, SB, slot, l, upd[l], L, LT, bh, bx, bv, RS);
+      bwd_layer<false, kBf16, true>(d, SB, slot, l, upd[l], nullptr, L, LT, bh, bx, bv, RS,
+                                    Rows{}, nullptr, nullptr, nullptr, ring);
     for (int e = tid; e < 3 * N; e += nt)
       f_out[((size_t)m * N + e % N) * 3 + e / N] = -SB.sdx[e];
     __syncthreads();  // the next molecule reuses the shared memory
+    SAKE_PROBE(PR_OTHER);
   }
+}
+
+// One of the bf16 tier's tensor-core products alone, in one block as the
+// bodies call it: out (n, m) = A (n, kd) @ W (kd, m), W of bf16 values. kd = m
+// = 256: mm_tc at 2 passes (the x-mixing and its pullback; n at most 24, A at
+// tc_ld's padded stride); kd at most 64: mm_tc_small at `passes` 1 (the
+// forward's o_f and o1, A rounded to bf16 as read) or 2 (their pullbacks).
+__global__ void __launch_bounds__(kFusedRematThreads, 1)
+tc_product_kernel(int passes, int n, int kd, int m, const float* __restrict__ A,
+                  const float* __restrict__ W, float* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  float* ring = reinterpret_cast<float*>(smem4);
+  float* sa = ring + kTcWarps * kTcStages * kTcStage;
+  const bool wide = kd == kTcK;
+  const int lda = wide ? kd + kTcPad : kd;
+  for (int e = threadIdx.x; e < n * kd; e += blockDim.x) sa[(e / kd) * lda + e % kd] = A[e];
+  __syncthreads();
+  auto st = [&](int r, int c, float v) { out[(size_t)r * m + c] = v; };
+  if (wide) mm_tc<3, 2>(n, sa, lda, W, ring, st);
+  else if (passes == 1) mm_tc_small<1>(n, kd, m, sa, lda, W, st);
+  else mm_tc_small<2>(n, kd, m, sa, lda, W, st);
 }
 
 template <bool kBf16>
@@ -153,10 +194,42 @@ int launch(const Dims& slots, int B, const float* h_raw, const float* x, const f
 }  // namespace
 }  // namespace sake
 
+// The clock probe's slots (probe.cuh), block cycles summed over this source's
+// launches since the last reset; an error unless built with -DSAKE_PROBE.
+extern "C" int sake_fused_remat_ef_probe(unsigned long long* out, int reset) {
+  return sake::probe_read(out, reset);
+}
+
 extern "C" long long sake_fused_remat_ef_smem_bytes(int B, int N, int F, int H, int R, int K,
                                                     int C, int depth, int F_in, int F0) {
   return sake::fused_remat_smem_floats(sake::Dims{B, N, F, H, R, K, C, depth}, F_in, F0) *
          (long long)sizeof(float);
+}
+
+// Whether #20 runs its x-mixing and edge products on the tensor cores at these
+// widths (tc_dims: aspirin's), 1, or on the CUDA cores, 0.
+extern "C" int sake_fused_remat_ef_tc(int B, int N, int F, int H, int R, int K, int C,
+                                      int depth) {
+  return sake::tc_dims(sake::Dims{B, N, F, H, R, K, C, depth}) ? 1 : 0;
+}
+
+// tc_product_kernel on the stream (see there): 0, or cudaErrorInvalidValue for
+// a shape or pass count that no bf16 product of #20 takes.
+extern "C" int sake_fused_remat_ef_tc_product(int passes, const float* A, const float* W,
+                                              float* out, int n, int kd, int m, void* stream) {
+  using namespace sake;
+  const bool wide = kd == kTcK && m == kTcK && n >= 1 && n <= 8 * tc_tiles<false>() &&
+                    passes == tc_passes<true>();
+  const bool small = kd >= 1 && kd <= kTcSmallK && m >= 1 && m <= kTcSmallK && n >= 1 &&
+                     (passes == tc_passes<true, true>() || passes == tc_passes<true>());
+  if (!wide && !small) return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      ((size_t)kTcWarps * kTcStages * kTcStage + (size_t)n * (wide ? kd + kTcPad : kd)) *
+      sizeof(float);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  tc_product_kernel<<<1, kFusedRematThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      passes, n, kd, m, A, W, out);
+  return (int)cudaGetLastError();
 }
 
 // #20's grid for a batch of B: as many blocks as the card holds at once, at
@@ -171,9 +244,9 @@ extern "C" int sake_fused_remat_ef_grid(int bf16, int B, int N, int F, int H, in
 // transposes, w_emb, w0, w1 and w0t then hold bf16-rounded weights). h_raw
 // (B, N, F_in), x (B, N, 3); w_emb (F_in, F), b_emb (F); the readout w0 (F,
 // F0), b0, w1 (F0, O), b1, w0t (F0, F); the scratch of `grid` molecule slots:
-// bh (depth, grid, N, F), bx, bv (depth, 3, grid, N), resid_ptrs one layer's
-// residuals (RESIDS order, (grid, ...)). Writes e_out (B,) and f_out = -dE/dx
-// (B, N, 3).
+// bh (depth, grid, N, F), bx, bv (depth, 3, grid, N), resid_ptrs the residuals
+// of every layer (RESIDS order, (depth, grid, ...)). Writes e_out (B,) and f_out
+// = -dE/dx (B, N, 3).
 extern "C" int sake_fused_remat_ef(int bf16, const float* h_raw, const float* x,
                                    const float* upd, const void* const* leaf_ptrs,
                                    const void* const* leaf_t_ptrs,

@@ -1,7 +1,13 @@
 // The x-mixing product on the tensor cores, to f32 accuracy: out = A @ W for
 // A (n x 256) in shared memory and W (256 x 256) in device memory, by 3xTF32
 // on mma.sync.m16n8k8. Used by the kTc instantiations of the layer bodies
-// (#11, #12), with mm_tc_small below for their edge products o_f and o1.
+// (#11, #12, #20), with mm_tc_small below for their edge products o_f and o1.
+//
+// Passes (kPasses, tc_passes): 3 in f32. In #20's bf16 tier every weight is a
+// bf16 value, which TF32 holds exactly, so W's lo is 0 and its pass is left out:
+// 2 passes (lo(a) hi(w) + hi(a) hi(w)) where the activation operand is an f32
+// value (a pullback's cotangent g, the x-mixing's bf16(h_e) att), 1 (hi(a)
+// hi(w)) where it is rounded to bf16 too (the forward's o_f and o1: exact).
 //
 // 3xTF32: each operand splits as a = hi + lo, hi = tf32(a), lo = tf32(a - hi)
 // (cvt.rna: round to nearest, ties away from zero), and the product sums
@@ -45,6 +51,14 @@ constexpr int kTcSumSteps = 4;  // mm_tc's k-steps per chunk sum (see mm_tc)
 // molecules have at most 21 atoms
 constexpr int kTcMaxN = 22;
 constexpr int kTcSmallK = 64;   // widest k of mm_tc_small (the rbf and hidden widths)
+
+// The passes of a tensor-core product (see the top): 3 in f32; in bf16 (the
+// weight exact in TF32) 1 when the activation operand is a bf16 value too
+// (kExactA), else 2.
+template <bool kBf16, bool kExactA = false>
+__host__ __device__ constexpr int tc_passes() {
+  return kBf16 ? (kExactA ? 1 : 2) : 3;
+}
 
 // Whether the kTc bodies take the tensor cores at these widths (aspirin's:
 // H * K = C = 256, H and R at most 64, N <= 22); otherwise they run the
@@ -119,6 +133,9 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 #endif
 
+// x as an mma operand when it is exact in TF32 (a bf16 value): its own bits.
+__device__ __forceinline__ uint32_t tf32_exact(float x) { return __float_as_uint(x); }
+
 // hi = tf32(x), lo = tf32(x - hi), as the mma's 32-bit operands.
 __device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
   hi = tf32_rna(x);
@@ -154,11 +171,13 @@ __device__ __forceinline__ int tc_stage_at(int kk, int c) {
 // cores' f32 product; tools/mma_bench.py). Each chunk of kTcSumSteps k-steps
 // therefore sums in a chain of mma from zero and joins the running sum by an
 // f32 add (3.7e-7): a chain keeps the tensor cores busy, where an add after
-// every k-step waits on each mma and was slower.
-template <int kTiles, class ST>
+// every k-step waits on each mma and was slower. kPasses: 3, or 2 for a W of
+// bf16 values (its hi only; tc_passes).
+template <int kTiles, int kPasses = 3, class ST>
 __device__ __forceinline__ void mm_tc(int n, const float* A, int lda,
                                       const float* __restrict__ W, float* ring, ST st) {
   constexpr int kSteps = kTcK / 8;
+  static_assert(kPasses == 3 || kPasses == 2, "A is split: 3 passes, or 2 with W exact");
   static_assert((kTcStages & (kTcStages - 1)) == 0, "the ring's slot is a mask");
   static_assert(kSteps % kTcSumSteps == 0, "whole chunks");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarp = blockDim.x >> 5;
@@ -204,10 +223,15 @@ __device__ __forceinline__ void mm_tc(int n, const float* A, int lda,
         __syncwarp();
         const float* sb = my + (ks & (kTcStages - 1)) * kTcStage;
         uint32_t wh[4], wl[4];  // a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
-        tf32_split(sb[woff[0]], wh[0], wl[0]);
-        tf32_split(sb[woff[1]], wh[1], wl[1]);
-        tf32_split(sb[woff[2]], wh[2], wl[2]);
-        tf32_split(sb[woff[3]], wh[3], wl[3]);
+        if constexpr (kPasses == 3) {
+          tf32_split(sb[woff[0]], wh[0], wl[0]);
+          tf32_split(sb[woff[1]], wh[1], wl[1]);
+          tf32_split(sb[woff[2]], wh[2], wl[2]);
+          tf32_split(sb[woff[3]], wh[3], wl[3]);
+        } else {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) wh[q] = tf32_exact(sb[woff[q]]);
+        }
 #pragma unroll
         for (int ni = 0; ni < kTiles; ++ni) {
           float2 x = make_float2(0.f, 0.f);
@@ -215,7 +239,12 @@ __device__ __forceinline__ void mm_tc(int n, const float* A, int lda,
           uint32_t xh0, xl0, xh1, xl1;
           tf32_split(x.x, xh0, xl0);
           tf32_split(x.y, xh1, xl1);
-          mma_tf32x3(part[ni], wh, wl, xh0, xh1, xl0, xl1);
+          if constexpr (kPasses == 3) {
+            mma_tf32x3(part[ni], wh, wl, xh0, xh1, xl0, xl1);
+          } else {  // hi(w) lo(a), then hi(w) hi(a)
+            mma_tf32(part[ni], wh, xl0, xl1);
+            mma_tf32(part[ni], wh, xh0, xh1);
+          }
         }
         __syncwarp();  // the stage is free before a later step's copy lands in it
       }
@@ -249,9 +278,13 @@ __device__ __forceinline__ void mm_tc(int n, const float* A, int lda,
 // product of 64 columns keeps all 16 warps busy (the CUDA-core tiling kept 48
 // threads busy there). The three passes sum in accumulators of their own,
 // added at the end, so a warp's chain of dependent mma is a third as long.
-template <class ST>
+// kPasses (tc_passes): 3; 2 for a W of bf16 values (lo(a) hi(w) + hi(a)
+// hi(w)); 1 for bf16 values on both sides, each A(r, k) rounded to bf16 as it
+// is read (hi(a) hi(w), exact).
+template <int kPasses = 3, class ST>
 __device__ __forceinline__ void mm_tc_small(int n, int kd, int m, const float* A, int lda,
                                             const float* __restrict__ W, ST st) {
+  static_assert(kPasses >= 1 && kPasses <= 3, "1, 2 or 3 passes");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarp = blockDim.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int ntn = (m + 7) >> 3, tasks = ntn * ((n + 15) >> 4);
@@ -270,20 +303,41 @@ __device__ __forceinline__ void mm_tc_small(int n, int kd, int m, const float* A
         const float a2 = ra < n && k2 < kd ? A[(size_t)ra * lda + k2] : 0.f;
         const float a3 = rb < n && k2 < kd ? A[(size_t)rb * lda + k2] : 0.f;
         uint32_t ah[4], al[4], bh0, bl0, bh1, bl1;
-        tf32_split(a0, ah[0], al[0]);
-        tf32_split(a1, ah[1], al[1]);
-        tf32_split(a2, ah[2], al[2]);
-        tf32_split(a3, ah[3], al[3]);
-        tf32_split(w1, bh0, bl0);
-        tf32_split(w2, bh1, bl1);
-        mma_tf32(acc[0], al, bh0, bh1);
-        mma_tf32(acc[1], ah, bl0, bl1);
-        mma_tf32(acc[2], ah, bh0, bh1);
+        if constexpr (kPasses == 3) {
+          tf32_split(a0, ah[0], al[0]);
+          tf32_split(a1, ah[1], al[1]);
+          tf32_split(a2, ah[2], al[2]);
+          tf32_split(a3, ah[3], al[3]);
+          tf32_split(w1, bh0, bl0);
+          tf32_split(w2, bh1, bl1);
+          mma_tf32(acc[0], al, bh0, bh1);
+          mma_tf32(acc[1], ah, bl0, bl1);
+          mma_tf32(acc[2], ah, bh0, bh1);
+        } else if constexpr (kPasses == 2) {
+          tf32_split(a0, ah[0], al[0]);
+          tf32_split(a1, ah[1], al[1]);
+          tf32_split(a2, ah[2], al[2]);
+          tf32_split(a3, ah[3], al[3]);
+          bh0 = tf32_exact(w1);
+          bh1 = tf32_exact(w2);
+          mma_tf32(acc[0], al, bh0, bh1);
+          mma_tf32(acc[2], ah, bh0, bh1);
+        } else {
+          ah[0] = tf32_exact(bf16r(a0));
+          ah[1] = tf32_exact(bf16r(a1));
+          ah[2] = tf32_exact(bf16r(a2));
+          ah[3] = tf32_exact(bf16r(a3));
+          mma_tf32(acc[2], ah, tf32_exact(w1), tf32_exact(w2));
+        }
       }
     }
     float o[4];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) o[q] = (acc[0][q] + acc[1][q]) + acc[2][q];
+    for (int q = 0; q < 4; ++q) {
+      if constexpr (kPasses == 3) o[q] = (acc[0][q] + acc[1][q]) + acc[2][q];
+      else if constexpr (kPasses == 2) o[q] = acc[0][q] + acc[2][q];
+      else o[q] = acc[2][q];
+    }
     const int c = c0 + 2 * t;
     if (ra < n) {
       if (c < m) st(ra, c, o[0]);

@@ -107,7 +107,7 @@ remat_bwd_kernel(Dims d, int l_hi, int l_lo, const float* __restrict__ bh,
     SB.sdv[e] = dx_in ? dv_in[at] : 0.f;
   }
   for (int l = l_hi; l >= l_lo; --l)
-    remat_layer<false>(d, SF, SB, b, l, upd[l], L, LT, bh, bx, bv, RS);
+    remat_layer(d, SF, SB, b, l, upd[l], L, LT, bh, bx, bv, RS);
 
   for (int e = tid; e < N * F; e += nt) dh_out[(size_t)b * N * F + e] = SB.sdh[e];
   for (int e = tid; e < 3 * N; e += nt) {

@@ -1,7 +1,9 @@
 // One layer of the remat pullback: re-run the layer of one molecule from its
 // boundary state into a one-layer residual scratch (K1's body), then pull the
 // cotangent state back through it on those residuals (K2's body). remat_ef.cu
-// runs it in #22 and #24, fused_remat_ef.cu in #20 (also in bf16).
+// runs it in #22 and #24. On an H100 the one-layer slots of a grid go through
+// HBM all the same, so the re-forward saves no traffic: #20 (fused_remat_ef.cu)
+// keeps every layer's residuals instead, and #22 and #24 could too.
 #pragma once
 
 #include "resid_bwd.cuh"
@@ -34,7 +36,6 @@ __device__ __forceinline__ long long remat_carves(float* base, const Dims& d, Bw
 // RS: the one-layer residual scratch (d.B, ...). fwd_begin's and fwd_layer's
 // closing __syncthreads order the re-forward's writes before the pullback,
 // which reads RS through plain pointers.
-template <bool kBf16>
 __device__ __forceinline__ void remat_layer(const Dims& d, const FwdSmem& SF, const BwdSmem& SB,
                                             int b, int l, float u, const Leaves& L,
                                             const Leaves& LT, const float* bh, const float* bx,
@@ -42,9 +43,9 @@ __device__ __forceinline__ void remat_layer(const Dims& d, const FwdSmem& SF, co
   const Leaves Ll = layer_of(L, l), LTl = layer_of(LT, l);
   const size_t bo = (size_t)l * d.B * d.N * d.F, xo = (size_t)l * 3 * d.B * d.N;
   fwd_begin(d, SF, d.B, b, bh + bo, bx + xo, bv + xo, nullptr);
-  fwd_layer<true, false, kBf16>(d, SF, b, 0, u, nullptr, Ll, nullptr, nullptr, nullptr, RS);
-  bwd_layer<false, kBf16>(d, SB, b, 0, u, nullptr, Ll, LTl, bh + bo, bx + xo, bv + xo, RS,
-                          Rows{}, nullptr, nullptr, nullptr);
+  fwd_layer<true, false>(d, SF, b, 0, u, nullptr, Ll, nullptr, nullptr, nullptr, RS);
+  bwd_layer<false>(d, SB, b, 0, u, nullptr, Ll, LTl, bh + bo, bx + xo, bv + xo, RS, Rows{},
+                   nullptr, nullptr, nullptr);
 }
 
 }  // namespace sake

@@ -4,9 +4,10 @@
 // the fused primal (#11) and of one_ef (#3), fused_bwd.cu as the primal
 // cotangent chain of the fused training backward (#12). See resid_bwd.cu for
 // the design and what bounds it. Its kBf16 instantiation (fused_remat_ef.cu,
-// #20) pulls back through the bf16 products; its kTc instantiation (#11,
-// #12) runs the x-mixing pullback on the tensor cores (mma_tf32x3.cuh). #5's
-// cluster kernel runs a body of its own, bwd_layer_cl (resid_bwd_cl.cuh).
+// #20) pulls back through the bf16 products; its kTc instantiation (#11, #12,
+// #20 in both tiers) runs the x-mixing pullback on the tensor cores
+// (mma_tf32x3.cuh). #5's cluster kernel runs a body of its own, bwd_layer_cl
+// (resid_bwd_cl.cuh).
 #pragma once
 
 #include "mma_tf32x3.cuh"
@@ -138,7 +139,8 @@ __device__ __forceinline__ void bwd_begin(const Dims& d, const BwdSmem& S, int B
 // attended sum's terms, f32). kTc: the x-mixing pullback d_xm @ w_xmix^T and
 // the edge products on the tensor cores in 3xTF32 (S from carve_bwd<true>,
 // ring: tc_ring_floats) where tc_dims allows, the CUDA-core products
-// elsewhere; f32 only. Without kTc every product runs on the CUDA cores.
+// elsewhere; with kBf16 on two passes (tc_passes: g split, the bf16 weight
+// exact). Without kTc every product runs on the CUDA cores.
 template <bool kRows, bool kBf16 = false, bool kTc = false>
 __device__ __forceinline__ void bwd_layer(const Dims& d, const BwdSmem& S, int b, int l,
                                           float u, const float* __restrict__ mb,
@@ -156,7 +158,6 @@ __device__ __forceinline__ void bwd_layer(const Dims& d, const BwdSmem& S, int b
   const int lane = tid & 31, warp = tid >> 5, nwarp = nt >> 5;
   const float n_eff = (float)N;
   const bool masked = mb != nullptr;
-  static_assert(!(kTc && kBf16), "the tensor-core products are f32's (3xTF32)");
   float *sdh = S.sdh, *sdx = S.sdx, *sdv = S.sdv, *sh = S.sh, *sx = S.sx, *sv = S.sv,
         *saj = S.saj, *sai = S.sai, *sdaj = S.sdaj, *sdai = S.sdai, *sdoj = S.sdoj,
         *sdoi = S.sdoi, *sdhatt = S.sdhatt, *sdpsq = S.sdpsq, *sdvn = S.sdvn,
@@ -418,7 +419,7 @@ __device__ __forceinline__ void bwd_layer(const Dims& d, const BwdSmem& S, int b
       else sdha[r * HK + c] = a + sdhatt[i * HK + c];
     };
     if constexpr (kTc) {
-      if (tc_dims(d)) mm_tc<3>(N, scf, ldc, WT(W_XMIX), ring, st_dha);
+      if (tc_dims(d)) mm_tc<3, tc_passes<kBf16>()>(N, scf, ldc, WT(W_XMIX), ring, st_dha);
       else mm_bwd(N, C, HK, scf, ldc, WT(W_XMIX), st_dha);
     } else {
       mm_bwd(N, C, HK, scf, C, WT(W_XMIX), st_dha);
@@ -492,7 +493,7 @@ __device__ __forceinline__ void bwd_layer(const Dims& d, const BwdSmem& S, int b
       se0[r * H + c] = rd<kBf16>(a) * dsiluf_(se0[r * H + c]);
     };
     if constexpr (kTc) {
-      if (tc_dims(d)) mm_tc_small(N, H, H, sdhe, H, WT(W_O1), st_de0);
+      if (tc_dims(d)) mm_tc_small<tc_passes<kBf16>()>(N, H, H, sdhe, H, WT(W_O1), st_de0);
       else mm_bwd(N, H, H, sdhe, H, WT(W_O1), st_de0);
     } else {
       mm_bwd(N, H, H, sdhe, H, WT(W_O1), st_de0);
@@ -530,7 +531,7 @@ __device__ __forceinline__ void bwd_layer(const Dims& d, const BwdSmem& S, int b
       }
     };
     if constexpr (kTc) {
-      if (tc_dims(d)) mm_tc_small(N, H, R, se0, H, WT(W_O_F), st_dfilt);
+      if (tc_dims(d)) mm_tc_small<tc_passes<kBf16>()>(N, H, R, se0, H, WT(W_O_F), st_dfilt);
       else mm_bwd(N, H, R, se0, H, WT(W_O_F), st_dfilt);
     } else {
       mm_bwd(N, H, R, se0, H, WT(W_O_F), st_dfilt);

@@ -3,9 +3,10 @@
 // as the forward phase of the fused primal (#11) and of one_ef (#3). See
 // resid_fwd.cu for the design and what bounds it. Its kBf16 instantiation
 // (fused_remat_ef.cu, #20) rounds each product's activation operand to bf16;
-// its kTc instantiation (#11) runs the x-mixing product on the tensor cores
-// (mma_tf32x3.cuh); its kCl instantiation (#4's cluster kernel) takes half of
-// a molecule's receiver rows in each CTA of a two-CTA cluster (cluster.cuh).
+// its kTc instantiation (#11, #20 in both tiers) runs the x-mixing product on
+// the tensor cores (mma_tf32x3.cuh); its kCl instantiation (#4's cluster
+// kernel) takes half of a molecule's receiver rows in each CTA of a two-CTA
+// cluster (cluster.cuh).
 #pragma once
 
 #include "cluster.cuh"
@@ -104,14 +105,15 @@ __device__ __forceinline__ void fwd_begin(const Dims& d, const FwdSmem& S, int B
 // sum hatt stays f32 until its own product rounds it. kTc: the x-mixing
 // product he_att @ w_xmix and the edge products o_f, o1 on the tensor cores in
 // 3xTF32 (S from carve_fwd<true>, ring: tc_ring_floats) where tc_dims allows,
-// the CUDA-core products elsewhere; f32 only. Without kTc the body is the
-// CUDA-core one. kCl: this CTA of a two-CTA cluster (cluster.cuh) takes the
-// receiver rows [i0, i1) of cl_rows (S from carve_fwd<kTc, true>; its
-// receiver-indexed buffers, shatt and sdel, by row - i0), writes their
-// residuals, boundary and node rows, and, once both CTAs are past their row
-// loops, stores its nodes' new (h, x, v) into both CTAs' state, so that each
-// holds every node's state again before the next layer; with kTc its products
-// take the tensor cores up to N = 32 (tc_dims_of, four n8 tiles).
+// the CUDA-core products elsewhere; with kBf16 on fewer passes (tc_passes: o_f
+// and o1 one, the x-mixing, whose operand bf16(h_e) att is no bf16 value, two).
+// Without kTc the body is the CUDA-core one. kCl: this CTA of a two-CTA cluster
+// (cluster.cuh) takes the receiver rows [i0, i1) of cl_rows (S from
+// carve_fwd<kTc, true>; its receiver-indexed buffers, shatt and sdel, by row -
+// i0), writes their residuals, boundary and node rows, and, once both CTAs are
+// past their row loops, stores its nodes' new (h, x, v) into both CTAs' state,
+// so that each holds every node's state again before the next layer; with kTc
+// its products take the tensor cores up to N = 32 (tc_dims_of, four n8 tiles).
 template <bool kResid, bool kBound, bool kBf16 = false, bool kTc = false, bool kCl = false>
 __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b, int l,
                                           float u, const float* __restrict__ mb,
@@ -128,7 +130,6 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
   const int lane = tid & 31, warp = tid >> 5, nwarp = nt >> 5;
   const float n_eff = (float)N;
   const bool masked = mb != nullptr;
-  static_assert(!(kTc && kBf16), "the tensor-core products are f32's (3xTF32)");
   float *sh = S.sh, *sx = S.sx, *sv = S.sv, *saj = S.saj, *sai = S.sai, *soj = S.soj,
         *soi = S.soi, *shatt = S.shatt, *sdel = S.sdel, *scnt = S.scnt, *sd = S.sd,
         *sr = S.sr, *sir = S.sir, *smk = S.smk, *srbf = S.srbf, *se0 = S.se0,
@@ -215,8 +216,9 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
       if constexpr (kResid) RS.p[RS_E0][(erow + r) * H + c] = v;
     };
     if constexpr (kTc) {
-      if (tc_dims_of<kCl>(d)) mm_tc_small(N, R, H, srbf, R, W(W_O_F), st_e0);
-      else mm_fwd(N, R, H, srbf, R, W(W_O_F), st_e0);
+      if (tc_dims_of<kCl>(d)) mm_tc_small<tc_passes<kBf16, true>()>(N, R, H, srbf, R, W(W_O_F),
+                                                                     st_e0);
+      else mm_fwd<kBf16>(N, R, H, srbf, R, W(W_O_F), st_e0);
     } else {
       mm_fwd<kBf16>(N, R, H, srbf, R, W(W_O_F), st_e0);
     }
@@ -233,8 +235,9 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
       if constexpr (kResid) RS.p[RS_H_E][(erow + r) * H + c] = v;
     };
     if constexpr (kTc) {
-      if (tc_dims_of<kCl>(d)) mm_tc_small(N, H, H, se0, H, W(W_O1), st_he);
-      else mm_fwd(N, H, H, se0, H, W(W_O1), st_he);
+      if (tc_dims_of<kCl>(d)) mm_tc_small<tc_passes<kBf16, true>()>(N, H, H, se0, H, W(W_O1),
+                                                                     st_he);
+      else mm_fwd<kBf16>(N, H, H, se0, H, W(W_O1), st_he);
     } else {
       mm_fwd<kBf16>(N, H, H, se0, H, W(W_O1), st_he);
     }
@@ -290,7 +293,7 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
     // attended edges h_e (x) att, hidden-major / head-minor: column h*K + k
     for (int e = tid; e < N * HK; e += nt) {
       const int j = e / HK, q = e % HK;
-      if constexpr (kTc) shea[j * ldx + q] = she[j * H + q / K] * satt[j * K + q % K];
+      if constexpr (kTc) shea[j * ldx + q] = rd<kBf16>(she[j * H + q / K]) * satt[j * K + q % K];
       else shea[e] = rd<kBf16>(she[j * H + q / K]) * satt[j * K + q % K];
     }
     __syncthreads();
@@ -311,7 +314,8 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
       if constexpr (kResid) RS.p[RS_COEFF][(erow + r) * C + c] = v;
     };
     if constexpr (kTc) {
-      if (tc_dims_of<kCl>(d)) mm_tc<tc_tiles<kCl>()>(N, shea, ldx, W(W_XMIX), ring, st_coeff);
+      if (tc_dims_of<kCl>(d))
+        mm_tc<tc_tiles<kCl>(), tc_passes<kBf16>()>(N, shea, ldx, W(W_XMIX), ring, st_coeff);
       else mm_fwd(N, HK, C, shea, ldx, W(W_XMIX), st_coeff);
     } else {
       mm_fwd(N, HK, C, shea, HK, W(W_XMIX), st_coeff);

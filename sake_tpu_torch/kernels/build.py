@@ -138,6 +138,7 @@ def signatures() -> dict:
         "sake_resid_bwd_probe": [P, I],
         "sake_resid_bwd_cl_probe": [P, I],
         "sake_fused_bwd_probe": [P, I],
+        "sake_fused_remat_ef_probe": [P, I],  # #20's
         # #13's, #14's and #15's clock probes
         "sake_sparse_fwd_probe": [P, I],
         "sake_sparse_bwd_probe": [P, I],
@@ -162,6 +163,9 @@ def signatures() -> dict:
         # w1, b1, w0t), bh, bx, bv, resid, e, f; grid; dims; F_in, F0, O
         "sake_fused_remat_ef": [I] + [P] * 19 + [I] + dims + [I, I, I, P],
         "sake_fused_remat_ef_grid": [I] + dims + [I, I],  # ..., F_in, F0
+        "sake_fused_remat_ef_tc": dims,  # 1: the tensor-core route, 0: the CUDA cores
+        # passes, A, W, out, n, kd, m, stream
+        "sake_fused_remat_ef_tc_product": [I, P, P, P, I, I, I, P],
         "sake_sparse_fwd": [P] * 6 + [P, P] + edims + [P],  # pooled, hatt
         "sake_sparse_bwd": [P] * 6 + [P, P] + [P] * 4 + edims + [P],  # gp, gh, 4 outs
         "sake_sparse_bwd_rows": [P] * 6 + [P, P] + [P] * 4 + [P] + edims + [P],

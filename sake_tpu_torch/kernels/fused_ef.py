@@ -4,16 +4,21 @@ Port of ``sake_tpu/kernels/fused_ef.py``, ``fused_energy_forces``
 (``:59-209``). On CUDA tensors :func:`fused_energy_forces` launches
 ``csrc/fused_remat_ef.cu`` (the JAX ``kernel`` ``:94``, pallas_call ``:183``)
 through :func:`fused_ef`: a persistent grid of one molecule per block that
-embeds, runs the forward over depth keeping only each layer's input state,
-the readout and its seed, and per layer in reverse re-runs the layer and
-pulls the cotangents back through it; ``F = -dx``. Every layer runs the
-update branch and is selected by its 0/1 gate, and v starts at zero, as in
-JAX. On CPU tensors it runs the plain version :func:`fused_ef_plain`.
+embeds, runs the forward over depth keeping each layer's input state and
+residuals in the block's slot of device memory (:func:`slot_shapes`), the
+readout and its seed, and pulls the cotangents back over depth in reverse on
+those residuals; ``F = -dx``. Every layer runs the update branch and is
+selected by its 0/1 gate, and v starts at zero, as in JAX. On CPU tensors it
+runs the plain version :func:`fused_ef_plain`.
 
 ``matmul_dtype=torch.bfloat16`` (the default, as JAX's) is the rounding rule
 of ``functional._make_mm`` for every product of the embedding, the layers and
 the readout: the kernel rounds each product's activation operand to bf16 and
 takes the weights already rounded (made here once per call), with f32 sums.
+
+At aspirin's widths (:func:`tensor_core_route`) the x-mixing and the edge
+products run on the tensor cores in both tiers, elsewhere on the CUDA cores;
+:func:`fused_ef` counts its launches by route in ``fused_ef.routes``.
 """
 
 from __future__ import annotations
@@ -33,11 +38,13 @@ from sake_tpu_torch.kernels.functional import (
     readout,
 )
 from sake_tpu_torch.kernels.leaves import LEAF_NAMES, transposed, wide_stack
+from sake_tpu_torch.kernels.tf32 import mm_tf32_plain, mm_tf32x2_plain
 from sake_tpu_torch.kernels.resid_ef import (
     _SMEM_LIMIT,
     RESIDS,
     _check_cuda,
     _check_leaves,
+    _check_tc_leaves,
     _ptrs,
     _require_cuda,
     _resid_shapes,
@@ -99,22 +106,73 @@ def kernel_weights(params: ModelParams, n_heads: int, bf16: bool) -> KernelWeigh
                          (w_emb, b_emb, w0, b0, w1, b1, w0.T.contiguous()))
 
 
+def slot_shapes(grid: int, dims, leaves: dict) -> dict:
+    """The device-memory scratch of #20's ``grid`` molecule slots (one per
+    resident block) at ``dims = (B, N, F, H, R, K, C, depth)``: the state
+    entering each layer (``bh``, ``bx``, ``bv``) and the 17 residual streams of
+    every layer, K1's layouts with ``grid`` molecules."""
+    _, N, F, H, R, K, C, depth = dims
+    return {"bh": (depth, grid, N, F), "bx": (depth, 3, grid, N), "bv": (depth, 3, grid, N),
+            **_resid_shapes((grid, N, F, H, R, K, C, depth), leaves)}
+
+
+def _dims(w: KernelWeights, h):
+    B, N, _ = h.shape
+    depth, F, R = w.leaves["w_in_j"].shape
+    H, K = w.leaves["w_o_j"].shape[-1], w.leaves["w_sem"].shape[-1]
+    return B, N, F, H, R, K, w.leaves["w_xmix"].shape[-1], depth
+
+
+def tensor_core_route(w: KernelWeights, h) -> bool:
+    """Whether #20 takes the tensor cores for ``h (B, N, F_in)`` at these
+    weights' widths (the kernel's ``tc_dims``: H * K = C = 256, H and R at most
+    64, N at most 22), else the CUDA cores."""
+    return bool(build.load().sake_fused_remat_ef_tc(*_dims(w, h)))
+
+
+def tc_product(a, w, passes: int):
+    """One of #20's bf16 tensor-core products alone, for a check of its pass
+    arithmetic (``csrc/mma_tf32x3.cuh``'s ``tc_passes``): ``a (n, k) @ w (k, m)``
+    with ``w`` of bf16 values, in ``passes`` TF32 passes. k = m = 256 (the
+    x-mixing and its pullback, n at most 24): 2 passes on ``mm_tc``. k and m at
+    most 64 (the edge products): 1 pass (the forward's, ``a`` rounded to bf16 as
+    read) or 2 (the pullback's) on ``mm_tc_small``. CPU tensors take the plain
+    models of ``kernels/tf32.py``; a CUDA tensor launches the kernel or raises."""
+    if a.device.type == "cpu":
+        return mm_tf32_plain(bf16_round(a), w) if passes == 1 else mm_tf32x2_plain(a, w)
+    name = "tc_product"
+    _require_cuda(name, a)
+    (n, k), m = a.shape, w.shape[-1]
+    _check_cuda("a", a, (n, k), a.device)
+    _check_cuda("w", w, (k, m), a.device)
+    if w.data_ptr() % 16:  # mm_tc copies w 16 bytes at a time
+        raise ValueError(f"{name}: w must start at a 16-byte aligned address")
+    out = torch.empty(n, m, device=a.device, dtype=torch.float32)
+    lib = build.load()
+    build.check(lib, lib.sake_fused_remat_ef_tc_product(passes, a.data_ptr(), w.data_ptr(),
+                                                        out.data_ptr(), n, k, m,
+                                                        _stream(a.device)), name)
+    return out
+
+
 def launch(w: KernelWeights, h, x, upd: Sequence[float]):
     """One launch of #20 on contiguous f32 CUDA tensors ``h (B, N, F_in)``,
     ``x (B, N, 3)``: ``(E (B,), F (B, N, 3))``. Uncounted: :func:`fused_ef`
-    counts its launches."""
+    counts its launches. w_xmix and its transpose must start 16-byte aligned
+    (the tensor-core route copies them 16 bytes at a time), as
+    :func:`kernel_weights` makes them."""
     name = "fused_energy_forces"
     _require_cuda(name, x)
     dev = x.device
     leaves, head = w.leaves, w.head
-    B, N, F_in = h.shape
-    depth, F, R = leaves["w_in_j"].shape
-    H, K, C = leaves["w_o_j"].shape[-1], leaves["w_sem"].shape[-1], leaves["w_xmix"].shape[-1]
+    F_in = h.shape[-1]
     F0, O = head[2].shape[1], head[4].shape[1]
-    dims = (B, N, F, H, R, K, C, depth)
+    dims = _dims(w, h)
+    B, N, F, H, R, K, C, depth = dims
     _check_cuda("h", h, (B, N, F_in), dev)
     _check_cuda("x", x, (B, N, 3), dev)
     _check_leaves(leaves, dims, dev)
+    _check_tc_leaves(name, leaves, w.leaves_t)
     for n, t in zip(("w_embed", "b_embed", "w_out0", "b_out0", "w_out1", "b_out1", "w_out0.T"),
                     head):
         _check_cuda(n, t, t.shape, dev)
@@ -128,9 +186,9 @@ def launch(w: KernelWeights, h, x, upd: Sequence[float]):
     if grid <= 0:
         raise RuntimeError(f"{name}: no resident block fits the card")
     empty = lambda *s: torch.empty(s, device=dev, dtype=torch.float32)
-    # one molecule slot per block: the boundaries of every layer, one layer's residuals
-    bh, bx, bv = empty(depth, grid, N, F), empty(depth, 3, grid, N), empty(depth, 3, grid, N)
-    resid = {n: empty(*s) for n, s in _resid_shapes((grid, N, F, H, R, K, C, 1), leaves).items()}
+    scratch = {n: empty(*s) for n, s in slot_shapes(grid, dims, leaves).items()}
+    bh, bx, bv = scratch.pop("bh"), scratch.pop("bx"), scratch.pop("bv")
+    resid = scratch
     upd_t = torch.tensor(list(upd), dtype=torch.float32, device=dev)
     e, f = empty(B), empty(B, N, 3)
     err = lib.sake_fused_remat_ef(
@@ -149,17 +207,21 @@ def fused_ef(params: ModelParams, h, x, upd: Sequence[float], *, n_heads: int = 
     """#20: ``(E (B,), F (B, N, 3))`` of raw features ``h (B, N, F_in)`` and
     positions ``x (B, N, 3)`` in one launch, the gates ``upd`` one per layer.
     CPU tensors take the plain version; a CUDA tensor launches the kernel or
-    raises."""
+    raises. Each launch counts in ``fused_ef.launches`` and in
+    ``fused_ef.routes`` under its route."""
     bf16 = is_bf16("fused_energy_forces", matmul_dtype)
     if x.device.type == "cpu":
         return fused_ef_plain(params, h, x, upd, n_heads=n_heads, matmul_dtype=matmul_dtype)
-    out = launch(kernel_weights(params, n_heads, bf16), h.float().contiguous(),
-                 x.float().contiguous(), upd)
+    w, hc = kernel_weights(params, n_heads, bf16), h.float().contiguous()
+    out = launch(w, hc, x.float().contiguous(), upd)
     fused_ef.launches += 1
+    fused_ef.routes[ROUTES[tensor_core_route(w, hc)]] += 1
     return out
 
 
+ROUTES = ("CUDA cores", "tensor cores")  # by tensor_core_route
 fused_ef.launches = 0
+fused_ef.routes = dict.fromkeys(ROUTES, 0)
 
 
 @torch.no_grad()

@@ -699,6 +699,14 @@ def _check_leaves(leaves, dims, device):
         _check_cuda(name, leaves[name], (depth, *shape), device)
 
 
+def _check_tc_leaves(name, leaves, leaves_t):
+    """#11, #12 and #20 copy w_xmix and its transpose into shared memory 16
+    bytes at a time (``csrc/mma_tf32x3.cuh``): both must start 16-byte aligned."""
+    for label, t in (("w_xmix", leaves["w_xmix"]), ("w_xmix.T", leaves_t["w_xmix"])):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {label} must start at a 16-byte aligned address")
+
+
 def _check_all(name, tensors: dict, shapes: dict, device):
     for n, s in shapes.items():  # the name is formatted only for an error
         _check_cuda(lambda n=n: f"{name}.{n}", tensors[n], s, device)

@@ -1,10 +1,13 @@
-"""Plain versions of the 3xTF32 products that ``csrc/mma_tf32x3.cuh`` (#11's
-and #12's x-mixing and edge products, ``mma.sync``) and ``csrc/wgmma_tf32.cuh``
-(#13's and #14's x-mixing, ``wgmma``) run on the tensor cores, for the tests:
-what the split computes and why one TF32 pass is not enough for the f32 tier;
+"""Plain versions of the 3xTF32 products that ``csrc/mma_tf32x3.cuh`` (#11's,
+#12's and #20's x-mixing and edge products, ``mma.sync``) and
+``csrc/wgmma_tf32.cuh`` (#13's and #14's x-mixing, ``wgmma``) run on the tensor
+cores, for the tests: what the split computes and why one TF32 pass is not
+enough for the f32 tier, and the fewer passes of #20's bf16 tier, whose weights
+are bf16 values and so exact in TF32 (:func:`mm_tf32x2_plain`);
 and :func:`wgmma_planes`, the host-side split and packing of a weight that the
 ``wgmma`` route reads (``kernels/sparse_ef.xmix_planes`` calls it once per
-layer). Nothing else on a training or serving path calls them.
+layer), and ``fused_ef.tc_product``, a check of #20's bf16 passes, takes the
+two on CPU tensors. Nothing else on a training or serving path calls them.
 """
 
 from __future__ import annotations
@@ -35,6 +38,15 @@ def mm_tf32x3_plain(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     ah, al = tf32_split(a)
     wh, wl = tf32_split(w)
     return (al @ wh + ah @ wl) + ah @ wh
+
+
+def mm_tf32x2_plain(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` in the two passes that a weight exact in TF32 (a bf16 value)
+    needs: ``lo(a) hi(w) + hi(a) hi(w)``, each product exact in f32, summed in
+    f32 (``mma_tf32x3.cuh``'s ``tc_passes`` of a bf16 pullback product)."""
+    ah, al = tf32_split(a)
+    wh = tf32_round(w)
+    return al @ wh + ah @ wh
 
 
 def mm_tf32_plain(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

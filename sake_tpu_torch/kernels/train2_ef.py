@@ -84,6 +84,7 @@ from sake_tpu_torch.kernels.resid_ef import (
     _check_all,
     _check_cuda,
     _check_leaves,
+    _check_tc_leaves,
     _dims,
     _dsilu,
     _layer,
@@ -753,14 +754,6 @@ def _fused_args(name, params, leaves, h0, upd, leaves_t, smem_fn):
         _check_cuda(f"{leaf}.T", leaves_t[leaf], (depth, *shape[::-1]), dev)
     upd_t = torch.tensor(list(upd), dtype=torch.float32, device=dev)
     return lib, dims, dev, upd_t, ro, F0, O, leaves_t
-
-
-def _check_tc_leaves(name, leaves, leaves_t):
-    """#11 and #12 copy w_xmix and its transpose into shared memory 16 bytes
-    at a time (``csrc/mma_tf32x3.cuh``): both must start 16-byte aligned."""
-    for label, t in (("w_xmix", leaves["w_xmix"]), ("w_xmix.T", leaves_t["w_xmix"])):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: {label} must start at a 16-byte aligned address")
 
 
 def fused_primal_plain(params: ModelParams, leaves: dict, h0, xs, upd: Sequence[float],

@@ -6,8 +6,9 @@ the pullback's against its transpose, the tangent pullback's 42 rows), the split
 product lies within 1e-6 of max |ref| of a float64 product (the f32 tier; the
 kernels' gates are 1e-4 relative per tensor), while one TF32 pass lies beyond
 1e-4. ``tf32_round`` is held bit for bit to the rounding of ``cvt.rna.tf32.f32``.
-On the card, #11 and #12 refuse a w_xmix leaf that does not start 16-byte
-aligned (their products copy it in 16-byte pieces).
+On the card, #11, #12 and #20 (in its bf16 tier, whose weights ``kernel_weights``
+rounds) refuse a w_xmix leaf that does not start 16-byte aligned (their products
+copy it in 16-byte pieces).
 """
 
 import numpy as np
@@ -78,12 +79,12 @@ def test_tf32_round_keeps_nan():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kernel", ["fused_primal", "fused_bwd_block"])
+@pytest.mark.parametrize("kernel", ["fused_primal", "fused_bwd_block", "fused_energy_forces"])
 @pytest.mark.parametrize("leaf", ["w_xmix", "w_xmix.T"])
 def test_tensor_core_kernels_refuse_misaligned_w_xmix(kernel, leaf):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    from sake_tpu_torch.kernels import resid_ef
+    from sake_tpu_torch.kernels import fused_ef, resid_ef
     from sake_tpu_torch.kernels import train2_ef as t2
     from sake_tpu_torch.kernels.adapter import linen_tree, model_params_from_linen
     from sake_tpu_torch.kernels.leaves import transposed, wide_stack
@@ -94,8 +95,12 @@ def test_tensor_core_kernels_refuse_misaligned_w_xmix(kernel, leaf):
     model = SAKEModel(hid, 1, depth, in_features=hid, device="cpu",
                       generator=torch.Generator().manual_seed(0))
     p = model_params_from_linen(linen_tree(model), device=dev)
-    leaves = wide_stack(p, 4)
-    leaves_t = transposed(leaves)
+    if kernel == "fused_energy_forces":
+        w16 = fused_ef.kernel_weights(p, 4, True)
+        leaves, leaves_t = w16.leaves, w16.leaves_t
+    else:
+        leaves = wide_stack(p, 4)
+        leaves_t = transposed(leaves)
     target = leaves if leaf == "w_xmix" else leaves_t
     w = target["w_xmix"]
     shifted = torch.empty(w.numel() + 1, device=dev)[1:].view_as(w)  # 4 bytes past alignment
@@ -108,6 +113,8 @@ def test_tensor_core_kernels_refuse_misaligned_w_xmix(kernel, leaf):
     with pytest.raises(ValueError, match="16-byte aligned"):
         if kernel == "fused_primal":
             t2.fused_primal(p, leaves, h0, xs, upd, leaves_t=leaves_t)
+        elif kernel == "fused_energy_forces":
+            fused_ef.launch(w16, h0, xs.permute(1, 2, 0).contiguous(), upd)
         else:
             fwd = resid_ef.resid_fwd_plain(leaves, h0, xs, torch.zeros_like(xs), upd)
             t2.fused_bwd_block(p, leaves, fwd, upd, torch.randn(3, B, N, generator=g).to(dev),

@@ -382,6 +382,25 @@ def check_qm9(hid: int, depth: int, B: int, N: int, masked: bool, seed: int = 0)
     return worst
 
 
+def check_tc_products(lib):
+    """#20's bf16 tensor-core products alone (``sake_fused_remat_ef_tc_product``)
+    at ``tools/probe_fused.py``'s ``TC_PRODUCTS`` against float64, as
+    chip_smoke.py phase 24 holds them on the card."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import probe_fused
+
+    def product(a, w, passes):
+        out = torch.full((a.shape[0], w.shape[1]), float("nan"))
+        build.check(lib, lib.sake_fused_remat_ef_tc_product(
+            passes, a.data_ptr(), w.data_ptr(), out.data_ptr(), *a.shape, w.shape[1], None),
+            "tc_product")
+        return out
+
+    errs = probe_fused.check_tc_products(torch.device("cpu"), product, seeds=(0,))
+    print(f"bf16 tensor-core products vs float64 (limit {probe_fused.TC_PRODUCT_TOL:.0e}): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()), flush=True)
+
+
 def check(hid: int, depth: int, B: int, N: int, F_in: int, upd, seed: int = 0):
     model = SAKEModel(hid, 1, depth, in_features=F_in, device="cpu",
                       generator=torch.Generator().manual_seed(seed))
@@ -391,15 +410,20 @@ def check(hid: int, depth: int, B: int, N: int, F_in: int, upd, seed: int = 0):
     x = 1.5 * torch.randn(B, N, 3, generator=g)
     rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
     e32, f32 = fused_ef.fused_ef_plain(p, h, x, upd, n_heads=4, matmul_dtype=None)
+    worst = 0.0
     for dtype in (None, torch.bfloat16):
+        w = fused_ef.kernel_weights(p, 4, dtype is not None)
         t0 = time.perf_counter()
-        ek, fk = fused_ef.launch(fused_ef.kernel_weights(p, 4, dtype is not None), h, x, upd)
+        ek, fk = fused_ef.launch(w, h, x, upd)
         secs = time.perf_counter() - t0
         ep, fp = fused_ef.fused_ef_plain(p, h, x, upd, n_heads=4, matmul_dtype=dtype)
-        print(f"hidden {hid} depth {depth} B {B} N {N} gates {upd} {dtype or 'f32'}: kernel "
-              f"vs plain e {rel(ek, ep):.3e} f {rel(fk, fp):.3e}; plain vs plain f32 e "
+        worst = max(worst, rel(ek, ep), rel(fk, fp))
+        print(f"hidden {hid} depth {depth} B {B} N {N} gates {upd} {dtype or 'f32'} on the "
+              f"{fused_ef.ROUTES[fused_ef.tensor_core_route(w, h)]}: kernel vs plain e "
+              f"{rel(ek, ep):.3e} f {rel(fk, fp):.3e}; plain vs plain f32 e "
               f"{rel(ep, e32):.3e} f {rel(fp, f32):.3e}; finite "
               f"{bool(torch.isfinite(fk).all())} ({secs:.1f} s)", flush=True)
+    return worst
 
 
 def main():
@@ -518,9 +542,12 @@ def main():
         build.load = lambda: lib
         fused_ef._require_cuda = lambda name, t: None
         fused_ef._stream = lambda dev: None
+        worst = 0.0
         for hid in args.hidden:  # every layer updating, as the main path
-            check(hid, args.depth, args.batch[0], args.atoms[0], 9 if hid == 64 else 5,
-                  [1.0] * args.depth)
+            worst = max(worst, check(hid, args.depth, args.batch[0], args.atoms[0],
+                                     9 if hid == 64 else 5, [1.0] * args.depth))
+        print(f"worst {worst:.3e}", flush=True)
+        check_tc_products(lib)
 
 
 if __name__ == "__main__":

@@ -1,8 +1,9 @@
-"""Where the block time of #11 and #12 goes: a clock64() probe per phase and
-per product site, at aspirin's full width on one NVIDIA GPU.
+"""Where the block time of #11 and #12 (or of #20) goes: a clock64() probe per
+phase and per product site, at aspirin's full width on one NVIDIA GPU.
 
     python3 tools/probe_fused.py                  # B = 4 and 512
     python3 tools/probe_fused.py --batches 512
+    python3 tools/probe_fused.py --k20            # #20, both tiers, B = 37 and 2048
 
 Builds the kernels (``build.build()``) and, beside them, ``csrc/fused_ef.cu``
 (#11) and ``csrc/fused_bwd.cu`` (#12) with ``-DSAKE_PROBE`` (``csrc/probe.cuh``),
@@ -14,6 +15,11 @@ mark; the slots sum over every block of the launch). The x-mixing slots are the
 four ``he_att @ w_xmix`` sites and the per-row sum beside the forward ones. The
 probe build's time per launch (CUDA events) is printed beside the plain build's,
 so the probe's own cost shows. The card's name and power limit come first.
+
+With ``--k20`` the same for #20 (``csrc/fused_remat_ef.cu``, built alone, with
+and without the probe) in f32 and bf16, at chip_smoke.py phase 24's model and
+inputs (``--batches`` default 37 and 2048): ptxas's lines of both
+instantiations, each slot's share, and both builds' time per launch.
 """
 
 from __future__ import annotations
@@ -64,12 +70,18 @@ def build_probe():
     return build.build(SOURCES, ("SAKE_PROBE",))
 
 
-def load(path):
+def load(path, entries=ENTRIES):
     from sake_tpu_torch.kernels import build
 
-    lib = build.declare(ctypes.CDLL(str(path)), ENTRIES)
+    lib = build.declare(ctypes.CDLL(str(path)), entries)
     lib.sake_error_string = lambda err: b"see cudaGetErrorString"
     return lib
+
+
+def shares_of(ticks):
+    """``(total, {slot: share})`` of a probe read."""
+    total = sum(ticks)
+    return total, {s: round(t / total, 4) for s, t in zip(SLOTS, ticks) if t}
 
 
 def probe(prm, cfg, data, species, dev, B: int, lib, smi: str) -> dict:
@@ -109,8 +121,7 @@ def probe(prm, cfg, data, species, dev, B: int, lib, smi: str) -> dict:
                 fn()
                 torch.cuda.synchronize()
                 build.check(lib, entry(ticks, 1), "probe read")
-                total = sum(ticks)
-                shares = {s: round(t / total, 4) for s, t in zip(SLOTS, ticks) if t}
+                total, shares = shares_of(ticks)
                 xmix = sum(v for s, v in shares.items() if s.endswith("xmix"))
                 mm = sum(v for s, v in shares.items() if s.endswith("_mm"))
                 print(f"PROBE {name} B={B} N={N} depth {depth}: block cycles {total} "
@@ -122,11 +133,128 @@ def probe(prm, cfg, data, species, dev, B: int, lib, smi: str) -> dict:
     return out
 
 
+def k20_inputs(dev, B: int = 2048):
+    """chip_smoke.py phase 24's model (``MD17Config``'s widths, seed 0) and
+    data (2048 synthetic aspirin molecules, seed 0), its first B molecules:
+    ``(params, h (B, N, F_in), x (B, N, 3))``."""
+    import torch
+
+    from sake_tpu_torch.data.md17 import synthesize_md17
+    from sake_tpu_torch.tasks.md17 import MD17Config, make_model, species_onehot
+
+    data = synthesize_md17(n_samples=max(B, 2048), seed=0)
+    species = species_onehot(data.z, int(data.z.max())).to(dev)
+    cfg = MD17Config(hidden_features=64, depth=6, n_heads=4)
+    model = make_model(cfg, species.shape[-1], device=dev,
+                       generator=torch.Generator().manual_seed(0))
+    model.requires_grad_(False)
+    N = len(data.z)
+    return (model.functional_params(), species.expand(B, N, -1).float().contiguous(),
+            torch.as_tensor(data.x[:B], device=dev).float().contiguous())
+
+
+# #20's bf16 tensor-core products at aspirin's widths, as its bodies call them,
+# (n, k, m, passes): the x-mixing and its pullback (mm_tc), the forward's o_f and
+# o1 (mm_tc_small, a rounded to bf16 as read), and their pullbacks
+TC_PRODUCTS = ((21, 256, 256, 2), (21, 50, 64, 1), (21, 64, 64, 1), (21, 64, 64, 2),
+               (21, 64, 50, 2))
+TC_PRODUCT_TOL = 1e-6  # max |diff| / max |float64 ref|, as the CPU tests hold the plain models
+
+
+def check_tc_products(dev, product=None, seeds=(0, 1, 2, 3)) -> dict:
+    """Each of ``TC_PRODUCTS`` through ``product(a, w, passes)``
+    (``fused_ef.tc_product`` by default) on seeded operands on ``dev``: ``a``
+    normal, ``w`` normal / sqrt(k) rounded to bf16. Returns the worst max |diff| /
+    max |ref| over ``seeds`` against the float64 product (of ``bf16(a)`` at one
+    pass), by case name."""
+    import torch
+
+    from sake_tpu_torch.kernels import fused_ef
+    from sake_tpu_torch.kernels.functional import bf16_round
+
+    product = product or fused_ef.tc_product
+    out = {}
+    for n, k, m, passes in TC_PRODUCTS:
+        name = f"{n}x{k}@{k}x{m} {passes} pass{'es' if passes > 1 else ''}"
+        for seed in seeds:
+            rng = np.random.default_rng(seed)
+            a = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32)).to(dev)
+            w = bf16_round(torch.from_numpy(
+                (rng.standard_normal((k, m)) / np.sqrt(k)).astype(np.float32)).to(dev))
+            got = product(a, w, passes)
+            ref = (bf16_round(a) if passes == 1 else a).double() @ w.double()
+            err = float((got.double() - ref).abs().max() / ref.abs().max())
+            out[name] = max(out.get(name, 0.0), err if err == err else float("inf"))
+    return out
+
+
+def probe_k20(batches, smi: str) -> int:
+    """#20's ptxas lines, its probe shares in both tiers per batch, and its
+    time per launch with and without the probe."""
+    import torch
+
+    from sake_tpu_torch.kernels import build, fused_ef
+
+    src = "fused_remat_ef.cu"
+    paths = {}
+    jobs = [threading.Thread(target=lambda: paths.__setitem__("plain", build.build((src,)))),
+            threading.Thread(target=lambda: paths.__setitem__(
+                "probe", build.build((src,), ("SAKE_PROBE",))))]
+    for j in jobs:
+        j.start()
+    for j in jobs:
+        j.join()
+    lines = (paths["plain"].parent / "ptxas.txt").read_text().splitlines()
+    for i, line in enumerate(lines):  # the entry, its stack and spills, its registers
+        if "Compiling entry" in line and "fused_remat_ef_kernel" in line:
+            for ln in lines[i:i + 4]:
+                print(f"PTXAS {ln.strip()}", flush=True)
+    entries = [n for n in build.signatures() if n.startswith("sake_fused_remat_ef")]
+    libs = {k: load(p, entries) for k, p in paths.items()}
+    dev = torch.device("cuda", 0)
+    params, h_all, x_all = k20_inputs(dev, max(batches))
+    upd = [1.0] * len(params.layers)
+    for B in batches:
+        h, x = h_all[:B].contiguous(), x_all[:B].contiguous()
+        for bf16 in (False, True):
+            tier = "bf16" if bf16 else "f32"
+            w = fused_ef.kernel_weights(params, 4, bf16)
+            saved = build._lib
+            try:
+                build._lib = libs["probe"]
+                ticks = (ctypes.c_ulonglong * len(SLOTS))()
+                build.check(libs["probe"], libs["probe"].sake_fused_remat_ef_probe(ticks, 1),
+                            "probe reset")
+                with torch.no_grad():
+                    fused_ef.launch(w, h, x, upd)
+                torch.cuda.synchronize()
+                build.check(libs["probe"], libs["probe"].sake_fused_remat_ef_probe(ticks, 1),
+                            "probe read")
+                total, shares = shares_of(ticks)
+                ms = {}
+                for k, lib in libs.items():
+                    build._lib = lib
+                    with torch.no_grad():
+                        ms[k] = cuda_ms(lambda: fused_ef.launch(w, h, x, upd))
+            finally:
+                build._lib = saved
+            xmix = sum(v for s, v in shares.items() if s.endswith("xmix"))
+            mm = sum(v for s, v in shares.items() if s.endswith("_mm"))
+            print(f"PROBE #20 {tier} B={B} N={x.shape[1]} depth {len(upd)}: block cycles "
+                  f"{total} ({total / B:.4g} per molecule); x-mixing share {xmix:.4f}, edge "
+                  f"products {mm:.4f}; shares "
+                  f"{json.dumps(shares)}; ms per launch without the probe {ms['plain']:.3f}, "
+                  f"with it {ms['probe']:.3f} ({smi})", flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--batches", type=int, nargs="*", default=[4, 512])
+    ap.add_argument("--batches", type=int, nargs="*")
+    ap.add_argument("--k20", action="store_true",
+                    help="#20 (csrc/fused_remat_ef.cu) in place of #11 and #12")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("probe_fused: no CUDA device", file=sys.stderr)
@@ -141,6 +269,9 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.k20:
+        return probe_k20(args.batches or [37, 2048], smi)
+    args.batches = args.batches or [4, 512]
     dev = torch.device("cuda", 0)
 
     # both builds at once: nvcc's processes run in parallel

@@ -3,6 +3,8 @@ GPU, in one process tree:
 
     python3 tools/tc_ab.py --parent <checkout of the parent commit>
     python3 tools/tc_ab.py --parent <checkout> --phases sass time --time-sets qm9
+    python3 tools/tc_ab.py --parent <checkout> --change <another checkout> \
+        --phases time outputs --time-sets fused
 
 1. ``SASS``: builds both trees' kernels at once (``build.build``) and compares
    every object's SASS function by function (``cuobjdump -sass``). Every kernel
@@ -19,15 +21,23 @@ GPU, in one process tree:
    input (the first ``qm9_kernel`` batch, B = 64, N = 29, masked) #4 and #5's
    rows kernel on the route ``make_hidden_fn`` takes in that tree (the cluster
    kernels where the tree has them) and on the one-block route, and the
-   ``qm9_kernel`` train step (5 steps a run, after one); each kernel's runs per
-   tree and their spread.
+   ``qm9_kernel`` train step (5 steps a run, after one). Set ``fused``: #20
+   alone (``csrc/fused_remat_ef.cu`` built by itself) in f32 and bf16 at
+   chip_smoke.py phase 24's B = 2048. Each kernel's runs per tree and their
+   spread.
 3. ``GRADS``: step 1 of ``md17_kernel``'s fused branch against its plain
    branch (double autograd), per-leaf gradients as max |diff| / max |plain|, at
    batch 4 (``MD17Config``'s) and 512, on four (model init, batch order) seeds,
    the first chip_smoke.py's, in both trees.
-4. ``ALIGN``: #11 and #12 refuse a w_xmix leaf (or its transpose) that does not
-   start 16-byte aligned (``tests/test_torch_tf32x3.py``'s gpu-marked test, run
-   without pytest, whose conftest needs JAX).
+4. ``ALIGN``: #11, #12 and #20 refuse a w_xmix leaf (or its transpose) that does
+   not start 16-byte aligned (``tests/test_torch_tf32x3.py``'s gpu-marked test,
+   run without pytest, whose conftest needs JAX).
+5. ``OUTPUTS``: #20's E and F in f32 and bf16 at phase 24's B = 37 and 2048 in a
+   worker of each tree, compared bit for bit (and max |diff| / max |parent|), and
+   each tree's distance at B = 37 from the plain bf16 and f32 versions
+   (``fused_ef_plain`` on the card; phase 24's aspirin check).
+
+``--change`` is the tree held against the parent (this checkout by default).
 
 Full width: hidden 64, depth 6, 4 heads, C 256, R 50, aspirin's 21 atoms, the
 weights and inputs random from fixed seeds.
@@ -76,13 +86,20 @@ def build_tree(root: Path) -> subprocess.Popen:
                             stderr=subprocess.STDOUT, text=True)
 
 
+def anonymous(text: str) -> str:
+    """``text`` with the hashes nvcc puts into an anonymous namespace's name
+    dropped: they differ from tree to tree, and with the source's text."""
+    text = re.sub(r"_GLOBAL__N__[0-9a-f]{8}_", "_GLOBAL__N__", text)
+    return re.sub(r"(_GLOBAL__N__\d+_\w+?_cu)_[0-9a-f]{8}", r"\1", text)
+
+
 def sass_functions(obj: Path) -> dict:
-    """``{function: [instruction lines]}`` of one object's SASS. The hash nvcc
-    gives an anonymous namespace differs from tree to tree: it is dropped."""
+    """``{function: [instruction lines]}`` of one object's SASS (names as
+    ``anonymous`` gives them)."""
     cuobjdump = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump"
     text = subprocess.run([str(cuobjdump), "-sass", str(obj)], capture_output=True, text=True,
                           check=True).stdout
-    text = re.sub(r"_GLOBAL__N__[0-9a-f]{8}_", "_GLOBAL__N__", text)
+    text = anonymous(text)
     funcs, name = {}, None
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
@@ -97,7 +114,7 @@ def sass_functions(obj: Path) -> dict:
 def ptxas_props(ptxas: str) -> dict:
     """``{function: "registers ..., spills ..."}`` from a ptxas -v log."""
     props, name = {}, None
-    for line in re.sub(r"_GLOBAL__N__[0-9a-f]{8}_", "_GLOBAL__N__", ptxas).splitlines():
+    for line in anonymous(ptxas).splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)'?", line)
         if m:
             name = m.group(1)
@@ -106,9 +123,9 @@ def ptxas_props(ptxas: str) -> dict:
     return props
 
 
-def sass_phase(parent: Path, kernels=NEW_KERNELS) -> bool:
+def sass_phase(parent: Path, change: Path, kernels=NEW_KERNELS) -> bool:
     t0 = time.perf_counter()
-    procs = {"parent": build_tree(parent), "change": build_tree(HERE)}
+    procs = {"parent": build_tree(parent), "change": build_tree(change)}
     libs = {}
     for k, p in procs.items():
         out = p.communicate()[0]
@@ -136,7 +153,7 @@ def sass_phase(parent: Path, kernels=NEW_KERNELS) -> bool:
             at = next(i for i, (x, y) in enumerate(zip(a[f] + [""], b[f] + [""])) if x != y)
             print(f"SASS   {f} first differs at instruction {at} of {len(a[f])} / {len(b[f])}: "
                   f"parent {a[f][at:at + 3]} change {b[f][at:at + 3]}", flush=True)
-        if gone or any(not any(k in f for k in kernels) for f in differ + new):
+        if any(not any(k in f for k in kernels) for f in differ + new + gone):
             ok = False
     print(f"SASS every kernel but {list(kernels)} unchanged: {ok}", flush=True)
     return ok
@@ -195,6 +212,100 @@ def qm9_times(dev) -> dict:
     return t
 
 
+def fused_inputs(dev, B: int = 2048):
+    """chip_smoke.py phase 24's model and first B molecules
+    (``tools/probe_fused.k20_inputs``), with #20's library of the tree on
+    ``sys.path``: ``csrc/fused_remat_ef.cu`` built by itself."""
+    import ctypes
+
+    from sake_tpu_torch.kernels import build
+
+    spec = importlib.util.spec_from_file_location("probe_fused", HERE / "tools" / "probe_fused.py")
+    pf = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(pf)
+    names = [n for n in build.signatures() if n.startswith("sake_fused_remat_ef")]
+    lib = ctypes.CDLL(str(build.build(("fused_remat_ef.cu",))))
+    lib = build.declare(lib, [n for n in names if hasattr(lib, n)])
+    lib.sake_error_string = lambda err: b"see cudaGetErrorString"
+    return lib, pf.k20_inputs(dev, B)
+
+
+def fused_times(dev) -> dict:
+    """The ``fused`` set: #20 in both tiers at B = 2048."""
+    import torch
+
+    from sake_tpu_torch.kernels import build, fused_ef
+
+    lib, (p, h, x) = fused_inputs(dev)
+    upd = [1.0] * len(p.layers)
+    t = {}
+    saved, build._lib = build._lib, lib
+    try:
+        with torch.no_grad():
+            for bf16 in (False, True):
+                w = fused_ef.kernel_weights(p, 4, bf16)
+                t[f"#20 {'bf16' if bf16 else 'f32'} B={x.shape[0]} alone"] = cuda_ms(
+                    lambda: fused_ef.launch(w, h, x, upd))
+    finally:
+        build._lib = saved
+    return t
+
+
+def outputs_worker(label: str, out: Path):
+    """#20's E and F (both tiers, B = 37 and 2048) into ``out``; the distance at
+    B = 37 from the plain versions printed."""
+    import torch
+
+    from sake_tpu_torch.kernels import build, fused_ef
+
+    dev = torch.device("cuda", 0)
+    lib, (p, h, x) = fused_inputs(dev)
+    upd = [1.0] * len(p.layers)
+    rel = lambda a, b: float((a - b).abs().max() / (b.abs().max() + 1e-30))
+    res = {}
+    saved, build._lib = build._lib, lib
+    try:
+        with torch.no_grad():
+            for bf16 in (False, True):
+                w = fused_ef.kernel_weights(p, 4, bf16)
+                for B in (37, x.shape[0]):
+                    e, f = fused_ef.launch(w, h[:B].contiguous(), x[:B].contiguous(), upd)
+                    res[("bf16" if bf16 else "f32", B)] = (e.cpu(), f.cpu())
+        plain = {tier: fused_ef.fused_ef_plain(p, h[:37], x[:37], upd, n_heads=4,
+                                               matmul_dtype=dtype)
+                 for tier, dtype in (("f32", None), ("bf16", torch.bfloat16))}
+    finally:
+        build._lib = saved
+    for tier in ("f32", "bf16"):
+        e, f = res[(tier, 37)]
+        print("TC_AB_FUSED_PLAIN " + json.dumps({
+            "tree": label, "tier": tier, "B": 37,
+            **{f"vs_plain_{k}": {"e": rel(e, plain[k][0].cpu()), "f": rel(f, plain[k][1].cpu())}
+               for k in plain}}), flush=True)
+    torch.save(res, out)
+
+
+def outputs_phase(parent: Path, change: Path) -> bool:
+    """Each tree's #20 outputs from a worker of its own, compared."""
+    import tempfile
+
+    import torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = {}
+        for label, root in (("parent", parent), ("change", change)):
+            outs[label] = Path(tmp) / f"{label}.pt"
+            if run_worker("outputs", root, label, [], out=outs[label]) != 0:
+                return False
+        a, b = (torch.load(outs[k]) for k in ("parent", "change"))
+    for key in a:
+        for name, x, y in zip(("e", "f"), a[key], b[key]):
+            print(f"TC_AB_FUSED_OUT {key[0]} B={key[1]} {name}: bitwise equal "
+                  f"{torch.equal(x, y)}, max |change - parent| {float((x - y).abs().max()):.3e}, "
+                  f"relative {float((x - y).abs().max() / x.abs().max()):.3e}", flush=True)
+    return True
+
+
 def time_worker(label: str, sets=("md17",)) -> dict:
     import numpy as np
     import torch
@@ -207,9 +318,12 @@ def time_worker(label: str, sets=("md17",)) -> dict:
     from sake_tpu_torch.kernels.leaves import transposed, wide_stack
     from sake_tpu_torch.models import SAKEModel
 
-    build.load()
     dev = torch.device("cuda", 0)
-    t = qm9_times(dev) if "qm9" in sets else {}
+    t = fused_times(dev) if "fused" in sets else {}
+    if "qm9" in sets or "md17" in sets:
+        build.load()
+    if "qm9" in sets:
+        t |= qm9_times(dev)
     if "md17" not in sets:
         print("TC_AB_TIME " + json.dumps({"tree": label, "ms": t}), flush=True)
         return t
@@ -351,7 +465,7 @@ def align_phase() -> bool:
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     ok = True
-    for kernel in ("fused_primal", "fused_bwd_block"):
+    for kernel in ("fused_primal", "fused_bwd_block", "fused_energy_forces"):
         for leaf in ("w_xmix", "w_xmix.T"):
             try:
                 mod.test_tensor_core_kernels_refuse_misaligned_w_xmix(kernel, leaf)
@@ -362,11 +476,13 @@ def align_phase() -> bool:
     return ok
 
 
-def run_worker(kind: str, root: Path, label: str, times: list, sets=("md17",)) -> int:
+def run_worker(kind: str, root: Path, label: str, times: list, sets=("md17",),
+               out: Path = None) -> int:
     """One worker process on ``root``'s package; its output is passed on and
     its TC_AB_TIME lines are appended to ``times``."""
     proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--worker", kind,
-                           "--root", str(root), "--label", label, "--time-sets", *sets],
+                           "--root", str(root), "--label", label, "--time-sets", *sets,
+                           *(["--out", str(out)] if out else [])],
                           capture_output=True, text=True)
     print(proc.stdout + proc.stderr[-4000:], end="", flush=True)
     times += [json.loads(line.split(" ", 1)[1]) for line in proc.stdout.splitlines()
@@ -393,12 +509,15 @@ def time_summary(times: list):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path)
-    ap.add_argument("--worker", choices=("time", "grads"))
+    ap.add_argument("--change", type=Path, default=HERE)
+    ap.add_argument("--worker", choices=("time", "grads", "outputs"))
     ap.add_argument("--root", type=Path)
     ap.add_argument("--label")
+    ap.add_argument("--out", type=Path)
     ap.add_argument("--phases", nargs="*", default=["sass", "time", "grads", "align"],
-                    choices=["sass", "time", "grads", "align"])
-    ap.add_argument("--time-sets", nargs="*", default=["md17", "qm9"], choices=["md17", "qm9"])
+                    choices=["sass", "time", "grads", "align", "outputs"])
+    ap.add_argument("--time-sets", nargs="*", default=["md17", "qm9"],
+                    choices=["md17", "qm9", "fused"])
     ap.add_argument("--kernels", nargs="*", default=list(NEW_KERNELS),
                     help="SASS: the functions (by a part of their names) that may differ")
     args = ap.parse_args()
@@ -406,6 +525,8 @@ def main() -> int:
         sys.path.insert(0, str(args.root.resolve()))
         if args.worker == "time":
             time_worker(args.label, args.time_sets)
+        elif args.worker == "outputs":
+            outputs_worker(args.label, args.out)
         else:
             grads_worker(args.label)
         return 0
@@ -417,17 +538,19 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip(), flush=True)
-    parent = args.parent.resolve()
+    parent, change = args.parent.resolve(), args.change.resolve()
     ok = True
     if "sass" in args.phases:
-        ok &= sass_phase(parent, tuple(args.kernels))
-    trees = {"parent": parent, "change": HERE}
+        ok &= sass_phase(parent, change, tuple(args.kernels))
+    trees = {"parent": parent, "change": change}
     times = []
     if "time" in args.phases:
         for label in ("parent", "change", "change", "parent", "parent", "change"):
             ok &= run_worker("time", trees[label], label, times, args.time_sets) == 0
     if times:
         time_summary(times)
+    if "outputs" in args.phases:
+        ok &= outputs_phase(parent, change)
     if "grads" in args.phases:
         for label in ("parent", "change"):
             ok &= run_worker("grads", trees[label], label, []) == 0
