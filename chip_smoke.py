@@ -163,7 +163,13 @@ Phases (each prints its own lines; any failure exits non-zero):
    ``fori_bwd_plain`` and ``depthgrid_bwd_plain`` (``torch.func.vjp`` of the
    wide layer), #23 against #21 and #24 against #22; then the four on seeded
    models of hidden 8 (50 rbf channels > H*K = 32) and 16, depth 2, gates
-   [1, 0.4]; limit 1e-4 relative per tensor.
+   [1, 0.4]; limit 1e-4 relative per tensor. #22 and #24 count their launches
+   by route (REMAT ROUTES lines): aspirin's on the tensor cores (3xTF32 on
+   ``mma.sync``), the narrow models' on the CUDA cores, or the phase fails.
+   The re-forward's residual scratch of the last layer against
+   ``layer_fwd_resid`` at aspirin B = 300 (``tools/probe_fused.resid_err``;
+   dh0, dx and dv barely feel the x-mixing at random weights, coeff does),
+   limit 1e-5 relative per residual.
 18. The E + F slice of the kernel API: aspirin requests of B in {37, 512,
    2048} through ``fori_energy_forces`` and ``depthgrid_energy_forces``
    against the plain f32 autograd path with phase 4's limits; #21-#24 must
@@ -2208,6 +2214,25 @@ def remat_phases(dev, smi) -> list:
     counters = (fori_ef.fori_fwd, fori_ef.fori_bwd, depthgrid_ef.depthgrid_fwd,
                 depthgrid_ef.depthgrid_bwd)
     k12 = (resid_ef.resid_fwd, resid_ef.resid_bwd)
+    pulls = (fori_ef.fori_bwd, depthgrid_ef.depthgrid_bwd)  # #22 and #24, counted by route
+
+    def reset_counts():
+        for c in (*counters, *k12):
+            c.launches = 0
+        for c in pulls:
+            c.routes = dict.fromkeys(fori_ef.ROUTES, 0)
+
+    def routes():
+        return {c.__name__: dict(c.routes) for c in pulls}
+
+    def check_routes(label, route):
+        """Fail unless every #22 and #24 launch since the last reset took
+        ``route``, the one the shape selects."""
+        got = routes()
+        print(f"REMAT ROUTES {label}: {json.dumps(got)}", flush=True)
+        if any(n for c in got.values() for r, n in c.items() if r != route) or \
+                not all(c[route] for c in got.values()):
+            fail(f"#22 / #24 {label}: launches off the {route} route: {got}")
 
     # -- 17. #21-#24 against their plain versions at full width, then narrow ------
     Bc = TRAIN_CHECK_B
@@ -2216,8 +2241,10 @@ def remat_phases(dev, smi) -> list:
         xs = xs_all[:Bc].permute(2, 0, 1).contiguous()
         dh = torch.randn(Bc, N, F, device=dev, generator=torch.Generator(dev).manual_seed(7))
     abs_remat = {}
+    reset_counts()
     report_checks(remat_checks(leaves, h0, xs, u6, dh), abs_remat,
                   f"vs plain (B={Bc}, N={N}, depth {depth})", prefix="REMAT")
+    check_routes(f"at aspirin B={Bc}", "tensor cores")
     del h0, xs, dh
     for hid in (8, 16):  # 50 rbf channels against H*K = 32 and 64
         m = SAKEModel(hid, 1, 2, in_features=5, device=dev,
@@ -2225,9 +2252,24 @@ def remat_phases(dev, smi) -> list:
         lv = wide_stack(model_params_from_linen(linen_tree(m), device=dev), 4)
         gen = torch.Generator(dev).manual_seed(hid)
         rnd = lambda *shape: torch.randn(*shape, device=dev, generator=gen)
+        reset_counts()
         report_checks(remat_checks(lv, rnd(4, 7, hid), 1.5 * rnd(3, 4, 7), [1.0, 0.4],
                                    rnd(4, 7, hid)), {}, f"at hidden {hid} (B=4, N=7, depth 2)",
                       prefix="REMAT")
+        check_routes(f"at hidden {hid}", "CUDA cores")
+    with torch.no_grad():  # the re-forward's residuals, which feel the x-mixing
+        pf = probe_module()
+        h0 = embed(params, h_of(Bc)).contiguous()
+        xs = xs_all[:Bc].permute(2, 0, 1).contiguous()
+        bnd = fori_ef.fori_fwd_plain(leaves, h0, xs, u6)
+        err = pf.resid_err(leaves, bnd, u6, resid_ef._readout_seed(params, bnd.h_fin, None)[1])
+        torch.cuda.synchronize()
+    print(f"REMAT RESIDUALS the re-forward's residual scratch of layer {depth - 1} at aspirin "
+          f"B={Bc} vs layer_fwd_resid: max rel err {err:.3e} (limit {pf.REMAT_RESID_TOL:.0e})",
+          flush=True)
+    if not err <= pf.REMAT_RESID_TOL:
+        fail("#22's re-forward residuals beyond their limit")
+    del h0, xs, bnd
 
     # -- 18. the E + F slice through fori_energy_forces and depthgrid_energy_forces
     paths = {"fori": fori_ef.fori_energy_forces,
@@ -2236,8 +2278,7 @@ def remat_phases(dev, smi) -> list:
     def plain_ef(x, chunk=CHECK_CHUNK):
         return chunked_plain_ef(params, species, x, cfg.n_heads, chunk)
 
-    for c in (*counters, *k12):
-        c.launches = 0
+    reset_counts()
     answers = {(name, B): fn(params, h_of(B), xs_all[:B], n_heads=cfg.n_heads)
                for name, fn in paths.items() for B in REMAT_REQUESTS}
     torch.cuda.synchronize()
@@ -2245,6 +2286,7 @@ def remat_phases(dev, smi) -> list:
     print(f"REMAT SLICE launches {json.dumps(launches)}", flush=True)
     if min(c.launches for c in counters) == 0 or any(c.launches for c in k12):
         fail("the fori / depthgrid path did not launch #21-#24, or launched K1 or K2")
+    check_routes("of the E + F slice", "tensor cores")
     refs = {B: plain_ef(xs_all[:B]) for B in REMAT_REQUESTS}
     worst = {"f_err": 0.0, "e_err": 0.0}
     for (name, B), (e, f) in answers.items():
@@ -2317,20 +2359,28 @@ def remat_phases(dev, smi) -> list:
               f"host gaps) {ms[name] - inside - n_chunks * t_seed:.3f} ms", flush=True)
     fma = {k: v * Bk * depth for k, v in layer_fma(N, F, F, 50, cfg.n_heads, 256).items()}
     dims = (Bk, N, F, F, 50, cfg.n_heads, 256, depth)
+    # the pullbacks' tensor-core products (re-forward and pullback) on their route
+    tc = {k: v * Bk * depth for k, v in tc_fma(N, F, 50, cfg.n_heads, 256).items()}
+    tc_pull = (tc["fwd"] + tc["bwd"]) if fori_ef.tensor_core_route(dims) else 0.0
     scratch = 4 * sum(math.prod(s[1:]) for s in resid_ef._resid_shapes(dims, leaves).values())
     dx_out = (dhc, xc, xc)  # the shapes of (dh0, dx, dv)
     fwd_bytes = nbytes(leaves, hc, xc, bnd)
     bwd_bytes = nbytes(leaves, leaves_t, bnd[:3], dhc, dx_out) + 2 * depth * scratch
-    entries = {"fori_fwd": (fma["fwd"], fwd_bytes, "fori_ef.py:133"),
-               "fori_bwd": (fma["fwd"] + fma["bwd"], bwd_bytes, "fori_ef.py:200"),
-               "depthgrid_fwd": (fma["fwd"], fwd_bytes, "depthgrid_ef.py:360"),
-               "depthgrid_bwd": (fma["fwd"] + fma["bwd"], bwd_bytes, "depthgrid_ef.py:438")}
-    print("REMAT BOUNDS (ms, by): " + json.dumps(
-        {k: [round(bound(o, b)[0], 4), bound(o, b)[1]] for k, (o, b, _) in entries.items()}),
-        flush=True)
+    entries = {"fori_fwd": (fma["fwd"], fwd_bytes, "fori_ef.py:133", 0.0),
+               "fori_bwd": (fma["fwd"] + fma["bwd"], bwd_bytes, "fori_ef.py:200", tc_pull),
+               "depthgrid_fwd": (fma["fwd"], fwd_bytes, "depthgrid_ef.py:360", 0.0),
+               "depthgrid_bwd": (fma["fwd"] + fma["bwd"], bwd_bytes, "depthgrid_ef.py:438",
+                                 tc_pull)}
+    print(f"REMAT BOUNDS (ms, by; the pullbacks on their route, {tc_pull / Bk / depth / 1e6:.2f} "
+          f"M of {(fma['fwd'] + fma['bwd']) / Bk / depth / 1e6:.2f} M multiply-adds a molecule "
+          f"and layer in 3xTF32 at {TF32_PASSES} passes over {PEAK_TF32_FLOPS / 1e12:.0f} "
+          f"TFLOP/s and the rest at {PEAK_F32_FLOPS / 1e12:.0f}, beside their CUDA-core bound): "
+          + json.dumps({k: [round(bound(o, b, tc=c)[0], 4), bound(o, b, tc=c)[1]]
+                        + ([round(bound(o, b)[0], 4)] if c else [])
+                        for k, (o, b, _, c) in entries.items()}), flush=True)
     kernels = [kernel_entry(name, "sake_tpu_torch/csrc/remat_ef.cu", "sake_tpu/kernels/" + at,
-                            launches[name], abs_remat[name], *t[name], o, b)
-               for name, (o, b, at) in entries.items()]
+                            launches[name], abs_remat[name], *t[name], o, b, tc=c)
+               for name, (o, b, at, c) in entries.items()]
     del bnd, hc, xc, dhc
 
     # -- 19. force-loss training through make_trainable_energy_forces -------------
@@ -2383,8 +2433,7 @@ def remat_phases(dev, smi) -> list:
         if traj_err > LOSS_TOL:
             fail(f"make_trainable_energy_forces ({side}) losses differ beyond {LOSS_TOL}")
     run = branch("fori", REMAT_TRAIN_LR)
-    for c in (*counters, *k12):
-        c.launches = 0
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     losses = []
@@ -2394,12 +2443,15 @@ def remat_phases(dev, smi) -> list:
     wall = time.perf_counter() - t0
     run_launches = {c.__name__: c.launches for c in (*counters, *k12)}
     print(f"REMAT TRAIN {REMAT_TRAIN_STEPS} adam steps (lr {REMAT_TRAIN_LR}) primal fori at "
-          f"B={Bs}: {wall:.2f} s, launches {json.dumps(run_launches)}; losses "
+          f"B={Bs}: {wall:.2f} s, launches {json.dumps(run_launches)}, #22 by route "
+          f"{json.dumps(fori_ef.fori_bwd.routes)}; losses "
           + json.dumps([float(f"{v:.6f}") for v in losses]), flush=True)
     if not (all(np.isfinite(losses)) and np.mean(losses[-10:]) < np.mean(losses[:10])):
         fail("the fori training loss is not finite or did not fall")
     if min(c.launches for c in counters[:2]) == 0 or any(c.launches for c in k12):
         fail("the fori training run did not launch #21 and #22, or launched K1 or K2")
+    if fori_ef.fori_bwd.routes["CUDA cores"]:
+        fail("the fori training run took #22's CUDA-core route at aspirin's widths")
     del run
 
     # the train step of the three primals and the plain branch, in turns
@@ -2474,8 +2526,7 @@ def remat_phases(dev, smi) -> list:
         traj, md_ms = {}, {k: [] for k in force_fields}
         for side in ("fori", "dispatch", "plain", "plain", "dispatch", "fori"):
             if side == "fori" and not md_ms[side]:
-                for c in (*counters, *k12):
-                    c.launches = 0
+                reset_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = md.velocity_verlet_rollout(force_fields[side], params, x0, v0, masses, MD_DT,
@@ -2484,6 +2535,7 @@ def remat_phases(dev, smi) -> list:
             md_ms[side].append((time.perf_counter() - t0) * 1e3)
             if side == "fori" and len(md_ms[side]) == 1:
                 md_launches = {c.__name__: c.launches for c in (*counters, *k12)}
+                md_routes = dict(fori_ef.fori_bwd.routes)
             traj.setdefault(side, out)
     xs_k, vs_k, es_k = traj["fori"]
     xs_p, vs_p, _ = traj["plain"]
@@ -2493,7 +2545,7 @@ def remat_phases(dev, smi) -> list:
     print(f"REMAT MD velocity Verlet B={Bm}, {MD_STEPS} steps of dt {MD_DT}: fori against plain "
           f"forces, positions at {x_viol:.3e} and velocities at {v_viol:.3e} of the JAX test's "
           f"tolerances (rtol 1e-4 / atol 1e-5, rtol 1e-3 / atol 1e-4); fori launches "
-          f"{json.dumps(md_launches)}; molecule-steps/s "
+          f"{json.dumps(md_launches)}, #22 by route {json.dumps(md_routes)}; molecule-steps/s "
           + json.dumps({k: round(v, 1) for k, v in rate.items()})
           + f" (ms per rollout {json.dumps(md_ms)}; {smi})", flush=True)
     if not (x_viol <= 1.0 and v_viol <= 1.0 and torch.isfinite(es_k).all()):
@@ -2501,6 +2553,8 @@ def remat_phases(dev, smi) -> list:
     if min(md_launches[c.__name__] for c in counters[:2]) == 0 or any(
             md_launches[c.__name__] for c in k12):
         fail("the fori MD rollout did not launch #21 and #22, or launched K1 or K2")
+    if md_routes["CUDA cores"]:
+        fail("the fori MD rollout took #22's CUDA-core route at aspirin's widths")
     return kernels
 
 

@@ -30,17 +30,25 @@
 // molecule, and the scratch of the molecules in flight.
 //
 // Design: the forward runs K1's 256-thread block (two per SM); the pullback
-// one 512-thread block per molecule (K2's size; the forward body loops over
-// the block), its cotangent state in shared memory beside one work region
-// that the re-forward and the pullback take in turn. The residuals pass from
-// the one body to the other through device memory (L2), read through plain
-// (not const __restrict__) pointers after a __syncthreads, so no read is
-// served from the non-coherent cache.
+// one 512-thread block per molecule (K2's size, and mm_tc's 16 warp strips; the
+// forward body loops over the block): the W ring of the tensor-core products,
+// its cotangent state, and one work region that the re-forward and the
+// pullback take in turn, all in shared memory. The residuals pass from the one
+// body to the other through device memory (L2), read through plain (not const
+// __restrict__) pointers after a __syncthreads, so no read is served from the
+// non-coherent cache. The pullback keeps the re-forward on purpose: without it
+// the scratch would hold every layer's residuals, K1 + K2's memory, which is
+// what these paths exist to avoid (remat_step.cuh).
 //
-// What bounds it on an H100: f32 FMA issue and per-row synchronisation, as
-// K1 and K2. #21 and #23 do K1's work without its residual writes; #22 and
-// #24 do K1's and K2's, so E + F costs about one forward more than K1 + K2.
-// The per-layer launches of #23 and #24 add depth launches and a read and
+// What bounds it on an H100: #21 and #23 run K1's CUDA-core body without its
+// residual writes, f32 FMA issue and per-row synchronisation. #22 and #24 run
+// K1's and K2's kTc bodies (remat_layer): at aspirin's widths (tc_dims, reported
+// by sake_remat_bwd_tc) the x-mixing product, its transpose and the edge
+// products o_f and o1 take the tensor cores in 3xTF32 on mma.sync (a fraction
+// of the TF32 rate, mma_tf32x3.cuh), the rest of each row the CUDA cores, with
+// block barriers per row and one 512-thread block per SM; elsewhere every
+// product runs on the CUDA cores. E + F costs about one forward more than K1 +
+// K2. The per-layer launches of #23 and #24 add depth launches and a read and
 // write of the carried state per layer (about 6 KB per aspirin molecule).
 
 #include "remat_step.cuh"
@@ -96,9 +104,11 @@ remat_bwd_kernel(Dims d, int l_hi, int l_lo, const float* __restrict__ bh,
   const int b = blockIdx.x;
   const int B = d.B, N = d.N, F = d.F;
   const int tid = threadIdx.x, nt = blockDim.x;
+  float* ring = reinterpret_cast<float*>(smem4);  // the tensor-core products' W ring
   BwdSmem SB;
   FwdSmem SF;
-  remat_carves(reinterpret_cast<float*>(smem4), d, &SB, &SF);
+  remat_carves(ring + tc_ring_floats(d), d, &SB, &SF);
+  SAKE_PROBE_START();
 
   for (int e = tid; e < N * F; e += nt) SB.sdh[e] = dh_in[(size_t)b * N * F + e];
   for (int e = tid; e < 3 * N; e += nt) {
@@ -107,7 +117,7 @@ remat_bwd_kernel(Dims d, int l_hi, int l_lo, const float* __restrict__ bh,
     SB.sdv[e] = dx_in ? dv_in[at] : 0.f;
   }
   for (int l = l_hi; l >= l_lo; --l)
-    remat_layer(d, SF, SB, b, l, upd[l], L, LT, bh, bx, bv, RS);
+    remat_layer(d, SF, SB, b, l, upd[l], L, LT, bh, bx, bv, RS, ring);
 
   for (int e = tid; e < N * F; e += nt) dh_out[(size_t)b * N * F + e] = SB.sdh[e];
   for (int e = tid; e < 3 * N; e += nt) {
@@ -119,6 +129,20 @@ remat_bwd_kernel(Dims d, int l_hi, int l_lo, const float* __restrict__ bh,
 
 }  // namespace
 }  // namespace sake
+
+// The clock probe's slots (probe.cuh), block cycles summed over this source's
+// launches since the last reset (the forward body's slots: #22's and #24's
+// re-forward; the pullback's: their pullback); an error unless built with
+// -DSAKE_PROBE. Only remat_bwd_kernel starts the probe's clock.
+extern "C" int sake_remat_bwd_probe(unsigned long long* out, int reset) {
+  return sake::probe_read(out, reset);
+}
+
+// Whether #22 and #24 run their x-mixing and edge products on the tensor cores
+// at these widths (tc_dims: aspirin's), 1, or on the CUDA cores, 0.
+extern "C" int sake_remat_bwd_tc(int B, int N, int F, int H, int R, int K, int C, int depth) {
+  return sake::tc_dims(sake::Dims{B, N, F, H, R, K, C, depth}) ? 1 : 0;
+}
 
 extern "C" long long sake_remat_fwd_smem_bytes(int B, int N, int F, int H, int R, int K, int C,
                                                int depth) {

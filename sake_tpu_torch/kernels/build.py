@@ -139,6 +139,7 @@ def signatures() -> dict:
         "sake_resid_bwd_cl_probe": [P, I],
         "sake_fused_bwd_probe": [P, I],
         "sake_fused_remat_ef_probe": [P, I],  # #20's
+        "sake_remat_bwd_probe": [P, I],  # #22's and #24's
         # #13's, #14's and #15's clock probes
         "sake_sparse_fwd_probe": [P, I],
         "sake_sparse_bwd_probe": [P, I],
@@ -159,6 +160,7 @@ def signatures() -> dict:
         # layers l_hi, l_lo; bh, bx, bv, upd, leaves, leaves_t, strides, resid, dh_in,
         # dx_in, dv_in, dh_out, dx_out, dv_out
         "sake_remat_bwd": [I, I] + [P] * 14 + dims + [P],
+        "sake_remat_bwd_tc": dims,  # #22's and #24's route: 1 the tensor cores, 0 the CUDA cores
         # #20: bf16; h, x, upd, leaves, leaves_t, strides, w_emb, b_emb, readout (w0, b0,
         # w1, b1, w0t), bh, bx, bv, resid, e, f; grid; dims; F_in, F0, O
         "sake_fused_remat_ef": [I] + [P] * 19 + [I] + dims + [I, I, I, P],

@@ -28,6 +28,7 @@ from typing import Optional, Sequence
 import torch
 
 from sake_tpu_torch.kernels.fori_ef import (
+    ROUTES,
     Bounds,
     _bwd_setup,
     _fwd_setup,
@@ -150,21 +151,24 @@ def depthgrid_bwd(leaves: dict, bnd: Bounds, upd: Sequence[float], dh_fin, *,
     in reverse, each re-running its layer from the boundary in ``bnd`` (#23's
     output), the cotangent carried in device memory from launch to launch.
     Returns ``(dh0, dx (3, B, N), dv (3, B, N))``. CPU tensors take the plain
-    version."""
+    version. Each launch counts in ``depthgrid_bwd.launches`` and in
+    ``depthgrid_bwd.routes`` under its route (``fori_ef.tensor_core_route``)."""
     if dh_fin.device.type == "cpu":
         return depthgrid_bwd_plain(leaves, bnd, upd, dh_fin)
-    lib, dims, upd_t, leaves_t, res = _bwd_setup("depthgrid_bwd", leaves, bnd, upd, dh_fin,
-                                                 leaves_t)
+    lib, dims, upd_t, leaves_t, res, route = _bwd_setup("depthgrid_bwd", leaves, bnd, upd,
+                                                        dh_fin, leaves_t)
     dh, dx = dh_fin.clone(), torch.zeros_like(bnd.bx[0])  # the carry, in place
     dv = torch.zeros_like(dx)
     for l in reversed(range(dims[7])):
         _launch_bwd(lib, dims, l, l, bnd, upd_t, leaves, leaves_t, res, dh, dx, dv, dh, dx, dv,
                     "depthgrid_bwd")
         depthgrid_bwd.launches += 1
+        depthgrid_bwd.routes[route] += 1
     return dh, dx, dv
 
 
 depthgrid_bwd.launches = 0
+depthgrid_bwd.routes = dict.fromkeys(ROUTES, 0)
 
 
 @torch.no_grad()

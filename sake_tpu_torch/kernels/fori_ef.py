@@ -11,6 +11,12 @@ pulls the cotangents back through it; ``F = -dx``. Per aspirin molecule at
 depth 6 that keeps about 35 KB of boundaries where K1 + K2 keep 5.3 MB of
 residuals, for one forward more of work.
 
+At aspirin's widths (:func:`tensor_core_route`) the pullback's x-mixing product,
+its transpose and the edge products o_f and o1 run on the tensor cores in
+3xTF32 (``csrc/remat_step.cuh``); the narrow models keep the CUDA-core
+products. :func:`fori_bwd` (and ``depthgrid_ef.depthgrid_bwd``) count their
+launches by route in ``.routes``.
+
 The plain versions :func:`fori_fwd_plain` and :func:`fori_bwd_plain` run
 ``resid_ef.layer_fwd_resid`` and ``layer_bwd_resid``. The launch helpers here
 also serve the depth-grid pair (#23, #24) in ``depthgrid_ef``. Each wrapper
@@ -26,12 +32,14 @@ import torch
 
 from sake_tpu_torch.kernels import build
 from sake_tpu_torch.kernels.functional import ModelParams, _f32_only, embed, per_layer
+from sake_tpu_torch.kernels.fused_ef import ROUTES
 from sake_tpu_torch.kernels.leaves import LEAF_NAMES, layer_leaves, transposed, wide_stack
 from sake_tpu_torch.kernels.resid_ef import (
     _SMEM_LIMIT,
     RESIDS,
     _check_cuda,
     _check_leaves,
+    _check_tc_leaves,
     _dims,
     _leaf_shapes,
     _planes,
@@ -135,10 +143,17 @@ def _launch_fwd(lib, dims, l0, l1, h_in, x_in, v_in, upd_t, leaves, out: Bounds,
     build.check(lib, err, name)
 
 
+def tensor_core_route(dims) -> bool:
+    """Whether #22 and #24 take the tensor cores at ``dims`` (``(B, N, F, H, R,
+    K, C, depth)``; the kernel's ``tc_dims``: H * K = C = 256, H and R at most
+    64, N at most 22), else the CUDA cores: an index into ``ROUTES``."""
+    return bool(build.load().sake_remat_bwd_tc(*dims))
+
+
 def _bwd_setup(name, leaves, bnd: Bounds, upd, dh_fin, leaves_t):
     """Checks and scratch of the pullback kernels: ``(lib, dims, upd,
-    leaves_t, res)``, ``res`` one layer's residual scratch ``{name: (B, N*N |
-    N, ch)}``."""
+    leaves_t, res, route)``, ``res`` one layer's residual scratch ``{name: (B,
+    N*N | N, ch)}``, ``route`` the ``ROUTES`` entry the launches take."""
     _require_cuda(name, dh_fin)
     dims = _dims(leaves, bnd.bh[0])
     B, N, F, H, R, K, C, depth = dims
@@ -156,8 +171,11 @@ def _bwd_setup(name, leaves, bnd: Bounds, upd, dh_fin, leaves_t):
         leaves_t = transposed(leaves)
     for leaf, shape in _leaf_shapes(F, H, R, K, C).items():
         _check_cuda(f"{leaf}.T", leaves_t[leaf], (depth, *shape[::-1]), dev)
+    tc = tensor_core_route(dims)
+    if tc:
+        _check_tc_leaves(name, leaves, leaves_t)
     res = {n: torch.empty(s[1:], device=dev) for n, s in _resid_shapes(dims, leaves).items()}
-    return lib, dims, upd_t, leaves_t, res
+    return lib, dims, upd_t, leaves_t, res, ROUTES[tc]
 
 
 def _launch_bwd(lib, dims, l_hi, l_lo, bnd: Bounds, upd_t, leaves, leaves_t, res, dh_in, dx_in,
@@ -195,19 +213,23 @@ def fori_bwd(leaves: dict, bnd: Bounds, upd: Sequence[float], dh_fin, *,
     in reverse in one launch, each layer re-run from its boundary in ``bnd``
     (#21's output). Returns ``(dh0, dx (3, B, N), dv (3, B, N))``. CPU
     tensors take the plain version. ``leaves_t``: ``leaves.transposed(
-    leaves)``, built here when not given."""
+    leaves)``, built here when not given. Each launch counts in
+    ``fori_bwd.launches`` and in ``fori_bwd.routes`` under its route."""
     if dh_fin.device.type == "cpu":
         return fori_bwd_plain(leaves, bnd, upd, dh_fin)
-    lib, dims, upd_t, leaves_t, res = _bwd_setup("fori_bwd", leaves, bnd, upd, dh_fin, leaves_t)
+    lib, dims, upd_t, leaves_t, res, route = _bwd_setup("fori_bwd", leaves, bnd, upd, dh_fin,
+                                                        leaves_t)
     dx = bnd.bx.new_empty(bnd.bx.shape[1:])
     dh0, dv = torch.empty_like(dh_fin), torch.empty_like(dx)
     _launch_bwd(lib, dims, dims[7] - 1, 0, bnd, upd_t, leaves, leaves_t, res, dh_fin, None, None,
                 dh0, dx, dv, "fori_bwd")
     fori_bwd.launches += 1
+    fori_bwd.routes[route] += 1
     return dh0, dx, dv
 
 
 fori_bwd.launches = 0
+fori_bwd.routes = dict.fromkeys(ROUTES, 0)
 
 
 def remat_energy_forces(fwd_fn, bwd_fn, params: ModelParams, h, x, n_heads: int, update,

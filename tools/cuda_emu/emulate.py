@@ -13,6 +13,7 @@
     python tools/cuda_emu/emulate.py --sparse --slots 64 48 80 37      # #13, #14, #15
     python tools/cuda_emu/emulate.py --contract                        # the contractions
     EMU_THREADS=128 python tools/cuda_emu/emulate.py --qm9 --hidden 8 16 64 --atoms 29 21 16 7
+    EMU_THREADS=128 python tools/cuda_emu/emulate.py --remat --hidden 8 16 64 --atoms 21
 
 Compiles the kernel source with g++ against ``cuda_runtime.h`` beside this file
 (one std::thread per CUDA thread; see there), loads it with ctypes in place of
@@ -45,7 +46,12 @@ cluster at once, with distributed shared memory and the cluster barrier) through
 ``--hidden`` x ``--atoms`` N, masked (padded molecules, one of them a single
 atom) and unmasked, against ``resid_fwd_plain`` (boundaries, final state, all 17
 residuals) and ``resid_bwd_rows_plain`` (dh, dx, dv, all 20 rows); at hidden 64
-(H * K = C = 256) and N <= 32 their products take the emulated tensor cores.
+(H * K = C = 256) and N <= 32 their products take the emulated tensor cores. With
+``--remat`` it runs #22 and #24 (``csrc/remat_ef.cu``'s ``remat_bwd_kernel``, one
+launch over every layer and one launch per layer) through ``fori_ef._launch_bwd``
+on the plain forward's boundaries at each ``--hidden`` x ``--atoms`` N (``--depth``
+layers, gates 1 and 0.4), against ``fori_bwd_plain`` and ``depthgrid_bwd_plain``;
+at hidden 64 their products take the emulated tensor cores (``tensor_core_route``).
 ``--asan`` needs the script started with g++'s libasan and libstdc++ preloaded
 (it prints the ``LD_PRELOAD`` line).
 """
@@ -382,6 +388,51 @@ def check_qm9(hid: int, depth: int, B: int, N: int, masked: bool, seed: int = 0)
     return worst
 
 
+def check_remat(hid: int, depth: int, B: int, N: int, seed: int = 0):
+    """#22 and #24 against their plain versions; returns the worst relative
+    error."""
+    from sake_tpu_torch.kernels import depthgrid_ef, fori_ef
+    from sake_tpu_torch.kernels.functional import embed
+    from sake_tpu_torch.kernels.leaves import wide_stack
+
+    F_in = 5
+    model = SAKEModel(hid, 1, depth, in_features=F_in, device="cpu",
+                      generator=torch.Generator().manual_seed(seed))
+    p = model_params_from_linen(linen_tree(model), device="cpu")
+    g = torch.Generator().manual_seed(seed + 1)
+    h0 = embed(p, torch.randn(B, N, F_in, generator=g)).contiguous()
+    xs = 1.5 * torch.randn(3, B, N, generator=g)
+    dh = torch.randn(B, N, hid, generator=g)
+    upd = ([1.0, 0.4] * depth)[:depth]
+    leaves = wide_stack(p, 4)
+    bnd = fori_ef.fori_fwd_plain(leaves, h0, xs, upd)
+    names = ("dh0", "dx", "dv")
+    worst = 0.0
+    for label, plain in (("#22 fori_bwd", fori_ef.fori_bwd_plain),
+                         ("#24 depthgrid_bwd", depthgrid_ef.depthgrid_bwd_plain)):
+        t0 = time.perf_counter()
+        lib, dims, upd_t, leaves_t, res, route = fori_ef._bwd_setup(label, leaves, bnd, upd, dh,
+                                                                   None)
+        dh_, dx, dv = torch.full_like(dh, float("nan")), torch.zeros(3, B, N), torch.zeros(3, B, N)
+        if label.startswith("#22"):
+            fori_ef._launch_bwd(lib, dims, depth - 1, 0, bnd, upd_t, leaves, leaves_t, res, dh,
+                                None, None, dh_, dx, dv, label)
+        else:  # one launch a layer, the carry in place
+            dh_.copy_(dh)
+            for l in reversed(range(depth)):
+                fori_ef._launch_bwd(lib, dims, l, l, bnd, upd_t, leaves, leaves_t, res, dh_, dx,
+                                    dv, dh_, dx, dv, label)
+        want = plain(leaves, bnd, upd, dh)
+        errs = {n: _rel(a, b) for n, a, b in zip(names, (dh_, dx, dv), want)}
+        w = max(errs, key=errs.get)
+        worst = max(worst, errs[w])
+        print(f"{label} hidden {hid} depth {depth} B {B} N {N} gates {upd} on the {route}: max "
+              f"rel err {errs[w]:.3e} ({w}), finite "
+              f"{all(bool(torch.isfinite(t).all()) for t in (dh_, dx, dv))} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    return worst
+
+
 def check_tc_products(lib):
     """#20's bf16 tensor-core products alone (``sake_fused_remat_ef_tc_product``)
     at ``tools/probe_fused.py``'s ``TC_PRODUCTS`` against float64, as
@@ -448,6 +499,8 @@ def main():
                     help="the contractions (csrc/sparse_contract.cu, csrc/param_grads.cu)")
     ap.add_argument("--qm9", action="store_true",
                     help="#4's and #5's cluster kernels (csrc/resid_fwd.cu, csrc/resid_bwd_cl.cu)")
+    ap.add_argument("--remat", action="store_true",
+                    help="#22 and #24 (csrc/remat_ef.cu's remat pullback) in place of #20")
     args = ap.parse_args()
     if args.asan and "libasan" not in os.environ.get("LD_PRELOAD", ""):
         asan = subprocess.run(["g++", "-print-file-name=libasan.so"], capture_output=True,
@@ -520,6 +573,21 @@ def main():
                 for N in args.atoms:
                     for masked in (True, False):
                         worst = max(worst, check_qm9(hid, args.depth, args.batch[0], N, masked))
+        print(f"worst {worst:.3e}", flush=True)
+        return
+    if args.remat:
+        from sake_tpu_torch.kernels import fori_ef
+
+        with tempfile.TemporaryDirectory() as tmp:
+            lib = load(compile_source("remat_ef.cu", Path(tmp), args.asan),
+                       [n for n in build.signatures() if n.startswith("sake_remat")])
+            build.load = lambda: lib
+            fori_ef._require_cuda = lambda name, t: None
+            fori_ef._stream = lambda dev: None
+            worst = 0.0
+            for hid in args.hidden:
+                for N in args.atoms:
+                    worst = max(worst, check_remat(hid, args.depth, args.batch[0], N))
         print(f"worst {worst:.3e}", flush=True)
         return
     if args.train:

@@ -4,6 +4,7 @@ phase and per product site, at aspirin's full width on one NVIDIA GPU.
     python3 tools/probe_fused.py                  # B = 4 and 512
     python3 tools/probe_fused.py --batches 512
     python3 tools/probe_fused.py --k20            # #20, both tiers, B = 37 and 2048
+    python3 tools/probe_fused.py --remat          # #22 and #24, B = 512
 
 Builds the kernels (``build.build()``) and, beside them, ``csrc/fused_ef.cu``
 (#11) and ``csrc/fused_bwd.cu`` (#12) with ``-DSAKE_PROBE`` (``csrc/probe.cuh``),
@@ -20,6 +21,15 @@ With ``--k20`` the same for #20 (``csrc/fused_remat_ef.cu``, built alone, with
 and without the probe) in f32 and bf16, at chip_smoke.py phase 24's model and
 inputs (``--batches`` default 37 and 2048): ptxas's lines of both
 instantiations, each slot's share, and both builds' time per launch.
+
+With ``--remat`` the same for #22 and #24 (``csrc/remat_ef.cu``'s
+``remat_bwd_kernel``, built alone, with and without the probe) at chip_smoke.py
+phase 18's model and the path's chunk (``--batches`` default 512): ptxas's lines
+of ``remat_bwd_kernel``, the route of each launch, and the shares of the
+re-forward (the forward body's slots) against the pullback (the pullback body's),
+of the x-mixing, of o_f and o1, and of the pullback's staging of the residual
+scratch (its reads; the re-forward's writes to it are stores inside the forward's
+row slots, which the probe does not part), with both builds' time per launch.
 """
 
 from __future__ import annotations
@@ -248,6 +258,186 @@ def probe_k20(batches, smi: str) -> int:
     return 0
 
 
+REMAT_TOL = 1e-4  # max |diff| / max |plain| per tensor, chip_smoke.py phase 17's limit
+# the re-forward's residuals (coeff is tanh of the x-mixing product): 3xTF32 keeps
+# each product within 1e-6 of float64, where a dropped pass shows at about 1e-4
+REMAT_RESID_TOL = 1e-5
+
+
+def check_remat(dev, B: int = 37, lib=None) -> dict:
+    """#22 and #24 against ``fori_bwd_plain`` and ``depthgrid_bwd_plain`` on
+    ``dev``: at aspirin's widths (``k20_inputs``' first B molecules, depth 6,
+    the plain forward's boundaries) and at hidden 8 and 16 (random inputs, B =
+    4, N = 7, depth 2, gates 1 and 0.4). Returns ``{case: (worst max |diff| /
+    max |plain| over dh0, dx, dv, route)}``, and at aspirin's widths a case
+    "re-forward residuals" (one #24 launch of the last layer, its residual
+    scratch against ``resid_ef.layer_fwd_resid``'s, worst over the 17, held to
+    ``REMAT_RESID_TOL``: dh0, dx and dv barely feel the x-mixing at these random
+    weights); ``lib``: the library the wrappers launch through (``build.load()``'s
+    when None)."""
+    import torch
+
+    from sake_tpu_torch.kernels import build, depthgrid_ef, fori_ef, resid_ef
+    from sake_tpu_torch.kernels.adapter import linen_tree, model_params_from_linen
+    from sake_tpu_torch.kernels.functional import embed
+    from sake_tpu_torch.kernels.leaves import wide_stack
+    from sake_tpu_torch.models import SAKEModel
+
+    rel = lambda a, b: float((a - b).abs().max() / (b.abs().max() + 1e-30))
+    cases = {}
+    params, h, x = k20_inputs(dev, B)
+    with torch.no_grad():
+        h0 = embed(params, h).contiguous()
+        cases[f"aspirin B={B}"] = (wide_stack(params, 4), h0, x.permute(2, 0, 1).contiguous(),
+                                   [1.0] * len(params.layers), params)
+        for hid in (8, 16):
+            m = SAKEModel(hid, 1, 2, in_features=5, device=dev,
+                          generator=torch.Generator().manual_seed(hid))
+            gen = torch.Generator(dev).manual_seed(hid)
+            rnd = lambda *shape: torch.randn(*shape, device=dev, generator=gen)
+            cases[f"hidden {hid} B=4 N=7"] = (
+                wide_stack(model_params_from_linen(linen_tree(m), device=dev), 4), rnd(4, 7, hid),
+                1.5 * rnd(3, 4, 7), [1.0, 0.4], None)
+    out = {}
+    saved = build._lib
+    try:
+        if lib is not None:
+            build._lib = lib
+        for case, (leaves, h0, xs, upd, prm) in cases.items():
+            with torch.no_grad():
+                bnd = fori_ef.fori_fwd_plain(leaves, h0, xs, upd)
+                gen = torch.Generator(dev).manual_seed(7)
+                dh = (resid_ef._readout_seed(prm, bnd.h_fin, None)[1] if prm is not None else
+                      torch.randn(h0.shape, device=dev, generator=gen))
+                route = fori_ef.ROUTES[fori_ef.tensor_core_route(resid_ef._dims(leaves, h0))]
+                for name, fn, plain in (
+                        ("#22", fori_ef.fori_bwd, fori_ef.fori_bwd_plain),
+                        ("#24", depthgrid_ef.depthgrid_bwd, depthgrid_ef.depthgrid_bwd_plain)):
+                    got, want = fn(leaves, bnd, upd, dh), plain(leaves, bnd, upd, dh)
+                    err = max(rel(a, b) for a, b in zip(got, want))
+                    out[f"{name} {case}"] = (err if err == err else float("inf"), route)
+                if prm is not None:
+                    out[f"re-forward residuals {case}"] = (resid_err(leaves, bnd, upd, dh),
+                                                           route)
+    finally:
+        build._lib = saved
+    return out
+
+
+def resid_err(leaves, bnd, upd, dh) -> float:
+    """One pullback launch of the last layer (#24's), then its residual scratch
+    (that layer's re-forward) against ``resid_ef.layer_fwd_resid``'s: the worst
+    max |diff| / max |plain| over the 17 residuals."""
+    import torch
+
+    from sake_tpu_torch.kernels import fori_ef, resid_ef
+    from sake_tpu_torch.kernels.leaves import layer_leaves
+
+    l = len(upd) - 1
+    lib, dims, upd_t, leaves_t, res, _ = fori_ef._bwd_setup("fori_bwd", leaves, bnd, upd, dh,
+                                                            None)
+    outs = [torch.empty_like(dh), torch.empty_like(bnd.bx[0]), torch.empty_like(bnd.bx[0])]
+    fori_ef._launch_bwd(lib, dims, l, l, bnd, upd_t, leaves, leaves_t, res, dh, None, None, *outs,
+                        "fori_bwd")
+    want = resid_ef.layer_fwd_resid(layer_leaves(leaves, l), bnd.bh[l],
+                                    resid_ef._planes(bnd.bx[l]), resid_ef._planes(bnd.bv[l]),
+                                    upd[l])[3]
+    err = max(float((res[n].reshape(-1) - want[n].reshape(-1)).abs().max()
+                    / (want[n].abs().max() + 1e-30)) for n in resid_ef.RESIDS)
+    return err if err == err else float("inf")
+
+
+def remat_shares(shares: dict) -> dict:
+    """#22's and #24's summary shares of a probe read (``shares_of``)."""
+    part = lambda pred: round(sum(v for s, v in shares.items() if pred(s)), 4)
+    return {"re-forward": part(lambda s: s.startswith("fwd_")),
+            "pullback": part(lambda s: s.startswith("bwd_")),
+            "x-mixing": part(lambda s: s.endswith("_xmix")),
+            "o_f and o1": part(lambda s: s.endswith(("_of_mm", "_o1_mm"))),
+            "scratch reads": part(lambda s: s == "bwd_load")}
+
+
+def probe_remat(batches, smi: str, check_only: bool = False) -> int:
+    """#22's and #24's ptxas lines, their check against plain (``check_remat``),
+    their probe shares and route per batch, and their time per launch with and
+    without the probe (not with ``check_only``)."""
+    import torch
+
+    from sake_tpu_torch.kernels import build, depthgrid_ef, fori_ef, resid_ef
+    from sake_tpu_torch.kernels.functional import embed
+    from sake_tpu_torch.kernels.leaves import transposed, wide_stack
+
+    src = "remat_ef.cu"
+    paths = {}
+    kinds = {"plain": ()} if check_only else {"plain": (), "probe": ("SAKE_PROBE",)}
+    jobs = [threading.Thread(target=lambda k=k, m=m: paths.__setitem__(k, build.build((src,), m)))
+            for k, m in kinds.items()]
+    for j in jobs:
+        j.start()
+    for j in jobs:
+        j.join()
+    lines = (paths["plain"].parent / "ptxas.txt").read_text().splitlines()
+    for i, line in enumerate(lines):  # the entry, its stack and spills, its registers
+        if "Compiling entry" in line and "remat_bwd_kernel" in line:
+            for ln in lines[i:i + 4]:
+                print(f"PTXAS {ln.strip()}", flush=True)
+    entries = [n for n in build.signatures() if n.startswith("sake_remat")]
+    libs = {k: load(p, entries) for k, p in paths.items()}
+    dev = torch.device("cuda", 0)
+    checks = check_remat(dev, lib=libs["plain"])
+    limit = lambda case: REMAT_RESID_TOL if case.startswith("re-forward") else REMAT_TOL
+    for case, (err, route) in checks.items():
+        print(f"CHECK {case} on the {route}: max rel err {err:.3e} (limit {limit(case):.0e})",
+              flush=True)
+    if any(e > limit(c) for c, (e, _) in checks.items()):
+        print("CHECK failed", flush=True)
+        return 1
+    if check_only:
+        return 0
+    params, h_all, x_all = k20_inputs(dev, max(batches))
+    depth = len(params.layers)
+    upd = [1.0] * depth
+    leaves = wide_stack(params, 4)
+    leaves_t = transposed(leaves)
+    for B in batches:
+        with torch.no_grad():
+            h0 = embed(params, h_all[:B]).contiguous()
+            xs = x_all[:B].permute(2, 0, 1).contiguous()
+        saved = build._lib
+        try:
+            build._lib = libs["plain"]
+            with torch.no_grad():
+                bnd = fori_ef.fori_fwd(leaves, h0, xs, upd)
+                dh = resid_ef._readout_seed(params, bnd.h_fin, None)[1]
+            route = fori_ef.ROUTES[fori_ef.tensor_core_route(resid_ef._dims(leaves, h0))]
+            for name, fn in (("#22 fori_bwd", fori_ef.fori_bwd),
+                             ("#24 depthgrid_bwd", depthgrid_ef.depthgrid_bwd)):
+                run = lambda: fn(leaves, bnd, upd, dh, leaves_t=leaves_t)
+                build._lib = libs["probe"]
+                ticks = (ctypes.c_ulonglong * len(SLOTS))()
+                build.check(libs["probe"], libs["probe"].sake_remat_bwd_probe(ticks, 1),
+                            "probe reset")
+                with torch.no_grad():
+                    run()
+                torch.cuda.synchronize()
+                build.check(libs["probe"], libs["probe"].sake_remat_bwd_probe(ticks, 1),
+                            "probe read")
+                total, shares = shares_of(ticks)
+                ms = {}
+                for k, lb in libs.items():
+                    build._lib = lb
+                    with torch.no_grad():
+                        ms[k] = cuda_ms(run)
+                print(f"PROBE {name} B={B} N={h0.shape[1]} depth {depth} on the {route}: block "
+                      f"cycles {total} ({total / B:.4g} per molecule); "
+                      f"{json.dumps(remat_shares(shares))}; shares {json.dumps(shares)}; ms per "
+                      f"call without the probe {ms['plain']:.3f}, with it {ms['probe']:.3f} "
+                      f"({smi})", flush=True)
+        finally:
+            build._lib = saved
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -255,6 +445,10 @@ def main() -> int:
     ap.add_argument("--batches", type=int, nargs="*")
     ap.add_argument("--k20", action="store_true",
                     help="#20 (csrc/fused_remat_ef.cu) in place of #11 and #12")
+    ap.add_argument("--remat", action="store_true",
+                    help="#22 and #24 (csrc/remat_ef.cu) in place of #11 and #12")
+    ap.add_argument("--check-only", action="store_true",
+                    help="--remat: the ptxas lines and the check against plain, no probe or time")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("probe_fused: no CUDA device", file=sys.stderr)
@@ -271,6 +465,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.k20:
         return probe_k20(args.batches or [37, 2048], smi)
+    if args.remat:
+        return probe_remat(args.batches or [512], smi, args.check_only)
     args.batches = args.batches or [4, 512]
     dev = torch.device("cuda", 0)
 

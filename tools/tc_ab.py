@@ -5,11 +5,14 @@ GPU, in one process tree:
     python3 tools/tc_ab.py --parent <checkout> --phases sass time --time-sets qm9
     python3 tools/tc_ab.py --parent <checkout> --change <another checkout> \
         --phases time outputs --time-sets fused
+    python3 tools/tc_ab.py --parent <checkout> --phases sass time --time-sets fori depthgrid \
+        --kernels remat_bwd_kernel
 
 1. ``SASS``: builds both trees' kernels at once (``build.build``) and compares
    every object's SASS function by function (``cuobjdump -sass``). Every kernel
-   but those ``--kernels`` names (by default the cluster kernels of #4 and #5,
-   ``resid_fwd_cl_kernel`` and ``resid_bwd_cl_kernel``; ``fused_ef_kernel`` and
+   but those ``--kernels`` names (by default #22's and #24's ``remat_bwd_kernel``;
+   the cluster kernels of #4 and #5, ``resid_fwd_cl_kernel`` and
+   ``resid_bwd_cl_kernel``, for a change to those; ``fused_ef_kernel`` and
    ``fused_bwd_kernel`` for a change to #11 and #12's block) must compile to the
    parent's instructions; the ptxas lines of the kernels that differ or
    are new are printed beside the parent's.
@@ -23,8 +26,11 @@ GPU, in one process tree:
    kernels where the tree has them) and on the one-block route, and the
    ``qm9_kernel`` train step (5 steps a run, after one). Set ``fused``: #20
    alone (``csrc/fused_remat_ef.cu`` built by itself) in f32 and bf16 at
-   chip_smoke.py phase 24's B = 2048. Each kernel's runs per tree and their
-   spread.
+   chip_smoke.py phase 24's B = 2048. Sets ``fori`` and ``depthgrid``: #21 and
+   #22, or #23 and #24 (``csrc/remat_ef.cu`` built by itself), at chip_smoke.py
+   phase 18's model and the path's chunk, B = 512, and the path's E + F at B =
+   2048 (``fori_energy_forces``, ``depthgrid_energy_forces``) with its peak device
+   memory (TC_AB_PEAK lines). Each kernel's runs per tree and their spread.
 3. ``GRADS``: step 1 of ``md17_kernel``'s fused branch against its plain
    branch (double autograd), per-leaf gradients as max |diff| / max |plain|, at
    batch 4 (``MD17Config``'s) and 512, on four (model init, batch order) seeds,
@@ -56,8 +62,8 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
-# the kernels this change may add or alter: #4's and #5's cluster kernels
-NEW_KERNELS = ("resid_fwd_cl_kernel", "resid_bwd_cl_kernel")
+# the kernels this change may add or alter: #22's and #24's remat pullback
+NEW_KERNELS = ("remat_bwd_kernel",)
 # (model seed, batch seed): chip_smoke.py's step 1 (MD17Config's seed, batch
 # order RandomState(0)), then three more
 SEEDS = ((2666, 0), (0, 1), (1, 2), (2, 3))
@@ -251,6 +257,62 @@ def fused_times(dev) -> dict:
     return t
 
 
+def remat_times(dev, sets, peaks: dict) -> dict:
+    """The ``fori`` and ``depthgrid`` sets: #21 and #22, #23 and #24, at B =
+    512 and their path's E + F at B = 2048, on ``csrc/remat_ef.cu`` built by
+    itself in the tree on ``sys.path``, at ``tools/probe_fused.k20_inputs``
+    (chip_smoke.py phase 18's model and data). The E + F call's peak device
+    memory above what was allocated before it goes into ``peaks`` (MiB)."""
+    import ctypes
+
+    import torch
+
+    from sake_tpu_torch.kernels import build, depthgrid_ef, fori_ef, resid_ef
+    from sake_tpu_torch.kernels.functional import embed
+    from sake_tpu_torch.kernels.leaves import transposed, wide_stack
+
+    spec = importlib.util.spec_from_file_location("probe_fused", HERE / "tools" / "probe_fused.py")
+    pf = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(pf)
+    lib = ctypes.CDLL(str(build.build(("remat_ef.cu",))))
+    lib = build.declare(lib, [n for n in build.signatures()
+                              if n.startswith("sake_remat") and hasattr(lib, n)])
+    lib.sake_error_string = lambda err: b"see cudaGetErrorString"
+    p, h, x = pf.k20_inputs(dev, 2048)
+    upd = [1.0] * len(p.layers)
+    paths = {"fori": (fori_ef, "#21/#22", "fori_fwd", "fori_bwd", "fori_energy_forces"),
+             "depthgrid": (depthgrid_ef, "#23/#24", "depthgrid_fwd", "depthgrid_bwd",
+                           "depthgrid_energy_forces")}
+    t = {}
+    saved, build._lib = build._lib, lib
+    try:
+        with torch.no_grad():
+            leaves = wide_stack(p, 4)
+            leaves_t = transposed(leaves)
+            h0 = embed(p, h[:512]).contiguous()
+            xs = x[:512].permute(2, 0, 1).contiguous()
+            for name in sets:
+                mod, ids, fw, bw, ef = paths[name]
+                f_fn, b_fn, ef_fn = getattr(mod, fw), getattr(mod, bw), getattr(mod, ef)
+                bnd = f_fn(leaves, h0, xs, upd)
+                dh = resid_ef._readout_seed(p, bnd.h_fin, None)[1]
+                fwd_id, bwd_id = ids.split("/")
+                t[f"{fwd_id} {fw} B=512"] = cuda_ms(lambda: f_fn(leaves, h0, xs, upd))
+                t[f"{bwd_id} {bw} B=512"] = cuda_ms(
+                    lambda: b_fn(leaves, bnd, upd, dh, leaves_t=leaves_t))
+                t[f"{ef} B=2048"] = cuda_ms(lambda: ef_fn(p, h, x, n_heads=4))
+                del bnd
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                ef_fn(p, h, x, n_heads=4)
+                torch.cuda.synchronize()
+                peaks[f"{ef} B=2048"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+    finally:
+        build._lib = saved
+    return t
+
+
 def outputs_worker(label: str, out: Path):
     """#20's E and F (both tiers, B = 37 and 2048) into ``out``; the distance at
     B = 37 from the plain versions printed."""
@@ -320,6 +382,11 @@ def time_worker(label: str, sets=("md17",)) -> dict:
 
     dev = torch.device("cuda", 0)
     t = fused_times(dev) if "fused" in sets else {}
+    remat = [k for k in ("fori", "depthgrid") if k in sets]
+    if remat:
+        peaks = {}
+        t |= remat_times(dev, remat, peaks)
+        print("TC_AB_PEAK " + json.dumps({"tree": label, "MiB": peaks}), flush=True)
     if "qm9" in sets or "md17" in sets:
         build.load()
     if "qm9" in sets:
@@ -517,7 +584,7 @@ def main() -> int:
     ap.add_argument("--phases", nargs="*", default=["sass", "time", "grads", "align"],
                     choices=["sass", "time", "grads", "align", "outputs"])
     ap.add_argument("--time-sets", nargs="*", default=["md17", "qm9"],
-                    choices=["md17", "qm9", "fused"])
+                    choices=["md17", "qm9", "fused", "fori", "depthgrid"])
     ap.add_argument("--kernels", nargs="*", default=list(NEW_KERNELS),
                     help="SASS: the functions (by a part of their names) that may differ")
     args = ap.parse_args()
