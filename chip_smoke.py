@@ -14,15 +14,27 @@ Phases (each prints its own lines; any failure exits non-zero):
    states and all 17 residuals), K2 against ``resid_bwd_plain`` (dh, dx,
    dv) and one_ef (#3, ``csrc/fused_ef.cu``) against ``one_ef_plain`` (E, dx),
    unmasked and with random edge masks; max relative error =
-   max|kernel - plain| / max|plain| per tensor, limit 1e-4.
+   max|kernel - plain| / max|plain| per tensor, limit 1e-4 (masked, K1's att
+   residual in two parts: on receiver rows with a live sender against plain; on
+   rows with none, where plain's own att moves by about 1e-3 when its logits move
+   by 1e-7, against plain's formula on K1's own sem_pre residual,
+   ``tools/probe_resid.k1_pairs``). K1 and K2 run
+   through their wrappers on the route the shape takes (aspirin: their
+   tensor-core kernels; the phase fails on a launch off it), forced on their
+   CUDA-core kernels, and at hidden 8 and 16 (the CUDA-core route); each
+   launched twice, the second bitwise equal to the first. Then the routes'
+   tensor-core products alone against float64 (SERVING TC PRODUCTS line,
+   ``tools/probe_resid.check_tc_products``, limit 1e-6).
 4. MD17 slice: ``SAKEModel(64, depth=6, n_heads=4)`` from a seeded init
    serves aspirin E + F requests of B in {1, 37, 512, 2048} through
    ``tasks/md17.make_energy_force_fn`` -> dispatch (K1 + K2 below
    ``ONE_EF_MIN_BATCH``, #3 from it), checked against the plain f32 autograd
    path (chunks of 256): ``f_err = max|dF| / max|F|`` <= 1e-4 and ``e_err =
    max|dE| / max|E|`` on raw (uncolored) energies <= 1e-5. The launch
-   counters of the routed kernels must move. Then both paths are timed at B =
-   2048 in chunks of 512 with CUDA events, in turns, and the kernel path's
+   counters of the routed kernels must move, and every K1 and K2 launch must
+   be on the tensor-core route (SERVING ROUTES line). Then both paths are timed
+   at B = 2048 in chunks of 512 with CUDA events, in turns, K1 and K2 at B =
+   512 beside their CUDA-core kernels and plain versions, and the kernel path's
    time is split into K1 + K2 and the rest. Then #3 against K1 + K2 at B in
    {2048, 4096, 8192}, in turns, and the dispatch threshold that implies;
    then #3's own path, a request of 2048 molecules through
@@ -341,6 +353,13 @@ def contract_probe_module():
     """``tools/probe_contract.py`` (the contractions' probe, their seeded
     inputs and their checks against plain on the card)."""
     return _load("probe_contract", "tools", "probe_contract.py")
+
+
+@functools.lru_cache(maxsize=None)
+def resid_probe_module():
+    """``tools/probe_resid.py`` (K1's and K2's serving checks and their
+    tensor-core products against float64)."""
+    return _load("probe_resid", "tools", "probe_resid.py")
 
 
 @functools.lru_cache(maxsize=None)
@@ -676,29 +695,74 @@ def md17_serving_phases(dev, smi) -> list:
     masks = {"unmasked": None, "masked": tdev((nm37[:, :, None] * nm37[:, None, :])[..., None])}
     abs_md17 = {"resid_fwd": 0.0, "resid_bwd": 0.0, "one_ef": 0.0}
     leaves_t = transposed(leaves)
+    # K1 and K2 on the route each shape takes (aspirin's: the tensor cores) and,
+    # forced, on the CUDA-core kernels; the narrow models' take the CUDA cores
+    narrow = {}
+    for hid in (8, 16):
+        mcfg = MD17Config(hidden_features=hid, depth=FULL["depth"], n_heads=FULL["heads"])
+        nmod = make_model(mcfg, species.shape[-1], device=dev,
+                          generator=torch.Generator().manual_seed(SEED + hid))
+        nmod.requires_grad_(False)
+        np_ = nmod.functional_params()
+        narrow[hid] = (wide_stack(np_, FULL["heads"]),
+                       embed(np_, species.to(dev).expand(Bk, N, -1)).contiguous())
     for label, m4 in masks.items():
-        with torch.no_grad():
-            k1 = resid_ef.resid_fwd(leaves, h37, x37, v37, upd, mask=m4)
-            p1 = resid_ef.resid_fwd_plain(leaves, h37, x37, v37, upd, mask=m4)
-            seeds = (tdev(rng.randn(Bk, N, FULL["hidden"])), tdev(rng.randn(3, Bk, N)),
-                     tdev(rng.randn(3, Bk, N)))
-            k2 = resid_ef.resid_bwd(leaves, p1, upd, *seeds, mask=m4)
-            p2 = resid_ef.resid_bwd_plain(leaves, p1, upd, *seeds, mask=m4)
-            torch.cuda.synchronize()
-        pairs1 = [*zip(("bh", "bx", "bv", "h_fin", "x_fin", "v_fin"), k1[:6], p1[:6]),
-                  *((n, k1.resid[n], p1.resid[n]) for n in resid_ef.RESIDS)]
-        k1_err = {n: rel_err(a, b) for n, a, b in pairs1}
-        k2_err = {n: rel_err(a, b) for n, a, b in zip(("dh", "dx", "dv"), k2, p2)}
-        abs_md17["resid_fwd"] = max(abs_md17["resid_fwd"], *(abs_err(a, b) for _, a, b in pairs1))
-        abs_md17["resid_bwd"] = max(abs_md17["resid_bwd"], *(abs_err(a, b) for a, b in zip(k2, p2)))
-        worst1, worst2 = max(k1_err, key=k1_err.get), max(k2_err, key=k2_err.get)
-        print(f"K1 vs plain {label} (B={Bk}, N={N}, depth 6): max rel err {k1_err[worst1]:.3e} "
-              f"({worst1}) " + json.dumps({k: float(f"{v:.3e}") for k, v in k1_err.items()}),
-              flush=True)
-        print(f"K2 vs plain {label}: max rel err {k2_err[worst2]:.3e} ({worst2}) "
-              + json.dumps({k: float(f"{v:.3e}") for k, v in k2_err.items()}), flush=True)
-        if not (k1_err[worst1] <= K1_TOL and k2_err[worst2] <= K2_TOL):
-            fail(f"{label} kernel vs plain beyond {K1_TOL}")
+        seeds = (tdev(rng.randn(Bk, N, FULL["hidden"])), tdev(rng.randn(3, Bk, N)),
+                 tdev(rng.randn(3, Bk, N)))
+        cases = [("aspirin", "tensor cores", leaves, leaves_t, h37, seeds, None),
+                 ("aspirin", "CUDA cores", leaves, leaves_t, h37, seeds, "CUDA cores")]
+        for hid, (nl, nh) in narrow.items():
+            cases.append((f"hidden {hid}", "CUDA cores", nl, transposed(nl), nh,
+                          (tdev(rng.randn(Bk, N, hid)), *seeds[1:]), None))
+        for model_label, route, lv, lv_t, h_in, sd, forced in cases:
+            before = {c.__name__: dict(c.routes) for c in (resid_ef.resid_fwd, resid_ef.resid_bwd)}
+            with torch.no_grad():
+                p1 = resid_ef.resid_fwd_plain(lv, h_in, x37, v37, upd, mask=m4)
+                p2 = resid_ef.resid_bwd_plain(lv, p1, upd, *sd, mask=m4)
+                if forced:  # the parent's kernels, not counted
+                    k1 = [resid_ef._launch_fwd(lv, h_in, x37, v37, upd, m4, forced)
+                          for _ in range(2)]
+                    k2 = [resid_ef._bwd_launch("resid_bwd", lv, p1, upd, *sd, m4, lv_t, False,
+                                               route=forced)[:3] for _ in range(2)]
+                else:  # the wrappers, on the route the shape takes
+                    k1 = [resid_ef.resid_fwd(lv, h_in, x37, v37, upd, mask=m4) for _ in range(2)]
+                    k2 = [resid_ef.resid_bwd(lv, p1, upd, *sd, mask=m4, leaves_t=lv_t)
+                          for _ in range(2)]
+                torch.cuda.synchronize()
+            took = {c.__name__: {r: c.routes[r] - before[c.__name__][r] for r in c.routes}
+                    for c in (resid_ef.resid_fwd, resid_ef.resid_bwd)}
+            if not forced and any(n != (2 if r == route else 0)
+                                  for t in took.values() for r, n in t.items()):
+                fail(f"K1 / K2 {model_label} {label}: launches off the {route} route: {took}")
+            # the boundaries, the final state and the 17 residuals (masked: att in two
+            # parts, tools/probe_resid.k1_pairs)
+            pairs1 = resid_probe_module().k1_pairs(k1[0], p1, m4)
+            pairs2 = [*zip(("dh", "dx", "dv"), k2[0], p2)]
+            out1 = lambda k: [*k[:6], *(k.resid[n] for n in resid_ef.RESIDS)]
+            bitwise = (all(torch.equal(a, b) for a, b in zip(out1(k1[0]), out1(k1[1])))
+                       and all(torch.equal(a, b) for a, b in zip(k2[0], k2[1])))
+            k1_err = {n: rel_err(a, b) for n, a, b in pairs1}
+            k2_err = {n: rel_err(a, b) for n, a, b in pairs2}
+            if model_label == "aspirin" and not forced:
+                abs_md17["resid_fwd"] = max(abs_md17["resid_fwd"],
+                                            *(abs_err(a, b) for _, a, b in pairs1))
+                abs_md17["resid_bwd"] = max(abs_md17["resid_bwd"],
+                                            *(abs_err(a, b) for _, a, b in pairs2))
+            worst1, worst2 = max(k1_err, key=k1_err.get), max(k2_err, key=k2_err.get)
+            finite = all(bool(torch.isfinite(a).all()) for _, a, _ in pairs1 + pairs2)
+            print(f"K1 vs plain {label} {model_label} on the {route}"
+                  f"{' (forced)' if forced else ''} (B={Bk}, N={N}, depth 6): max rel err "
+                  f"{k1_err[worst1]:.3e} ({worst1}), second launch bitwise {bitwise}, finite "
+                  f"{finite} " + json.dumps({k: float(f"{v:.3e}") for k, v in k1_err.items()}),
+                  flush=True)
+            print(f"K2 vs plain {label} {model_label} on the {route}: max rel err "
+                  f"{k2_err[worst2]:.3e} ({worst2}) "
+                  + json.dumps({k: float(f"{v:.3e}") for k, v in k2_err.items()}), flush=True)
+            if not (k1_err[worst1] <= K1_TOL and k2_err[worst2] <= K2_TOL and bitwise
+                    and finite):
+                fail(f"{label} {model_label} K1 / K2 on the {route} vs plain beyond {K1_TOL}, "
+                     "or a second launch not bitwise equal")
+            del k1, k2, p1, p2
         # #3 from (h37, x37, v = 0): the energy (node-masked readout) and dx
         m3 = m4[..., 0].contiguous() if m4 is not None else None
         with torch.no_grad():
@@ -711,6 +775,15 @@ def md17_serving_phases(dev, smi) -> list:
               + json.dumps({k: float(f"{v:.3e}") for k, v in k3_err.items()}), flush=True)
         if max(k3_err.values()) > K1_TOL or not all(bool(torch.isfinite(a).all()) for a in k3):
             fail(f"{label} one_ef vs plain beyond {K1_TOL}")
+    # the products of K1's and K2's tensor-core route alone against float64: K2's
+    # dh, dx and dv barely feel its x-mixing (a copy with 3xTF32's lo passes
+    # dropped stays within K2_TOL of plain in the CPU emulator), so its products
+    # are held here
+    prod_err = resid_probe_module().check_tc_products(dev)
+    print(f"SERVING TC PRODUCTS vs float64 (limit {resid_probe_module().TC_PRODUCT_TOL:.0e}): "
+          + json.dumps({k: float(f"{v:.3e}") for k, v in prod_err.items()}), flush=True)
+    if max(prod_err.values()) > resid_probe_module().TC_PRODUCT_TOL:
+        fail("K1's or K2's tensor-core products beyond their limit")
 
     # -- 4. the MD17 slice: serve aspirin E + F through K1 + K2 -----------------
     serve = make_energy_force_fn(model, species, e_mean, e_std)
@@ -722,11 +795,19 @@ def md17_serving_phases(dev, smi) -> list:
     serving = (resid_ef.resid_fwd, resid_ef.resid_bwd, one_ef.one_energy_forces)
     for c in serving:
         c.launches = 0
+    for c in serving[:2]:
+        c.routes = dict.fromkeys(resid_ef.ROUTES, 0)
     answers = {B: serve(xs_all[:B]) for B in REQUESTS}
     torch.cuda.synchronize()
     md17_launches = {c.__name__: c.launches for c in serving}
+    serving_routes = {c.__name__: dict(c.routes) for c in serving[:2]}
     print(f"SLICE launches {json.dumps(md17_launches)} (dispatch: one_ef from B >= "
           f"{dispatch.ONE_EF_MIN_BATCH})", flush=True)
+    # every K1 and K2 launch of aspirin's requests on the tensor-core route
+    print(f"SERVING ROUTES B in {list(REQUESTS)}: {json.dumps(serving_routes)}", flush=True)
+    if any(n != (md17_launches[k] if r == "tensor cores" else 0)
+           for k, rs in serving_routes.items() for r, n in rs.items()):
+        fail(f"a serving launch off its shape's route (aspirin: tensor cores): {serving_routes}")
     routed = [n for n, c in zip(md17_launches, serving)
               if dispatch.ONE_EF_MIN_BATCH is not None or c is not one_ef.one_energy_forces]
     if min(md17_launches[n] for n in routed) == 0:
@@ -773,8 +854,15 @@ def md17_serving_phases(dev, smi) -> list:
         t_k2 = cuda_ms(lambda: resid_ef.resid_bwd(leaves, fwd, u6, dh, zc, zc,
                                                   leaves_t=leaves_t))
         t_p2 = cuda_ms(lambda: resid_ef.resid_bwd_plain(leaves, fwd, u6, dh, zc, zc))
-    print(f"TIMING per kernel at B={PATH_CHUNK} depth 6: K1 {t_k1:.2f} ms (plain {t_p1:.2f}), "
-          f"K2 {t_k2:.2f} ms (plain {t_p2:.2f})", flush=True)
+        # the parent's CUDA-core kernels at the same shapes, forced
+        t_k1c = cuda_ms(lambda: resid_ef._launch_fwd(leaves, hc, xc, zc, u6, None, "CUDA cores"))
+        t_k2c = cuda_ms(lambda: resid_ef._bwd_launch("resid_bwd", leaves, fwd, u6, dh, zc, zc,
+                                                     None, leaves_t, False, route="CUDA cores"))
+    r1, r2 = (resid_ef.ROUTES[f(resid_ef._dims(leaves, hc))]
+              for f in (resid_ef.fwd_tensor_core_route, resid_ef.bwd_tensor_core_route))
+    print(f"TIMING per kernel at B={PATH_CHUNK} depth 6: K1 {t_k1:.2f} ms on the {r1} (CUDA-core "
+          f"kernel {t_k1c:.2f}, plain {t_p1:.2f}), K2 {t_k2:.2f} ms on the {r2} (CUDA-core kernel "
+          f"{t_k2c:.2f}, plain {t_p2:.2f}) ({smi})", flush=True)
 
     # where the B = 2048 path's time goes: K1 + K2 per chunk against the rest
     # (leaf restaging, embed, the readout seed, layout copies, host gaps)
@@ -844,16 +932,24 @@ def md17_serving_phases(dev, smi) -> list:
     del h3, x3, h_all, x_big
     dims21 = (N, FULL["hidden"], FULL["hidden"], 50, FULL["heads"], 256)
     fma21 = {k: v * PATH_CHUNK * cfg.depth for k, v in layer_fma(*dims21).items()}
+    # the tensor-core routes' products (the x-mixing, o_f, o1 and their pullbacks)
+    # at 3xTF32's 3 passes over the TF32 peak
+    tc21 = {k: v * PATH_CHUNK * cfg.depth for k, v in tc_fma(*dims21[:1], *dims21[2:]).items()}
+    moved1 = nbytes(leaves, hc, xc, zc, fwd)
+    moved2 = nbytes(leaves, leaves_t, fwd.bh, fwd.bx, fwd.bv, fwd.resid, dh, zc, zc, dh, zc, zc)
+    print(f"BOUND per kernel at B={PATH_CHUNK}: K1 {bound(fma21['fwd'], moved1, tc=tc21['fwd'])} "
+          f"(all f32 {bound(fma21['fwd'], moved1)}), K2 "
+          f"{bound(fma21['bwd'], moved2, tc=tc21['bwd'])} (all f32 {bound(fma21['bwd'], moved2)})",
+          flush=True)
     kernels = [
         kernel_entry("resid_fwd", "sake_tpu_torch/csrc/resid_fwd.cu",
                      "sake_tpu/kernels/resid_ef.py:1099", md17_launches["resid_fwd"],
-                     abs_md17["resid_fwd"], t_k1, t_p1, fma21["fwd"],
-                     nbytes(leaves, hc, xc, zc, fwd)),
+                     abs_md17["resid_fwd"], t_k1, t_p1, fma21["fwd"], moved1,
+                     tc=tc21["fwd"] if r1 == "tensor cores" else 0.0),
         kernel_entry("resid_bwd", "sake_tpu_torch/csrc/resid_bwd.cu",
                      "sake_tpu/kernels/resid_ef.py:1211", md17_launches["resid_bwd"],
-                     abs_md17["resid_bwd"], t_k2, t_p2, fma21["bwd"],
-                     nbytes(leaves, leaves_t, fwd.bh, fwd.bx, fwd.bv, fwd.resid, dh, zc, zc,
-                            dh, zc, zc)),
+                     abs_md17["resid_bwd"], t_k2, t_p2, fma21["bwd"], moved2,
+                     tc=tc21["bwd"] if r2 == "tensor cores" else 0.0),
         one_entry,
     ]
     del fwd, answers

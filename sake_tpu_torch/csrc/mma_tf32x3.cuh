@@ -1,7 +1,8 @@
 // The x-mixing product on the tensor cores, to f32 accuracy: out = A @ W for
 // A (n x 256) in shared memory and W (256 x 256) in device memory, by 3xTF32
 // on mma.sync.m16n8k8. Used by the kTc instantiations of the layer bodies
-// (#11, #12, #20), with mm_tc_small below for their edge products o_f and o1.
+// (K1, K2, #11, #12, #20, #22, #24), with mm_tc_small below for their edge
+// products o_f and o1.
 //
 // Passes (kPasses, tc_passes): 3 in f32. In #20's bf16 tier every weight is a
 // bf16 value, which TF32 holds exactly, so W's lo is 0 and its pass is left out:
@@ -18,7 +19,8 @@
 //
 // Layout: a warp owns a strip of 16 output columns and every row of A (n8
 // tiles of the transposed product, rows >= n read as zeros), so the 16 warps
-// of a 512-thread block cover the 256 columns. A warp streams its strip of W
+// of a 512-thread block cover the 256 columns (K1's 256-thread tensor-core
+// kernel: 8 warps, two strips each, kTcFwdWarps). A warp streams its strip of W
 // through a ring of its own in shared memory, kTcStages k-steps of 8 rows
 // deep, with cp.async: no block barrier, and each element of W is read from
 // L2 once per product (the CUDA-core tiling read it once per 7-row tile).
@@ -42,6 +44,9 @@ constexpr int kTcPad = 8;       // A's row stride is its width + kTcPad
 constexpr int kTcStrip = 16;    // output columns per warp strip
 constexpr int kTcStrips = kTcK / kTcStrip;
 constexpr int kTcWarps = 16;    // ring slots: the warps of a 512-thread block
+// K1's tensor-core route: 256-thread blocks, two a SM, so a ring of 8 warps
+// (each takes two 16-column strips, one after the other)
+constexpr int kTcFwdWarps = 8;
 constexpr int kTcStages = 2;    // ring depth, in k-steps of 8 rows (deeper gained nothing)
 constexpr int kTcStage = 8 * kTcStrip;  // floats of one stage of one warp
 constexpr int kTcSumSteps = 4;  // mm_tc's k-steps per chunk sum (see mm_tc)
@@ -71,9 +76,11 @@ __host__ __device__ inline bool tc_dims(const Dims& d) {
 __host__ __device__ inline int tc_ld(const Dims& d, int w) {
   return tc_dims(d) ? w + kTcPad : w;
 }
-// Floats of the W ring a kTc kernel carves for its bodies (none where not taken).
+// Floats of the W ring a kTc kernel of kWarps warps carves for its bodies (none
+// where not taken).
+template <int kWarps = kTcWarps>
 __host__ __device__ inline long long tc_ring_floats(const Dims& d) {
-  return tc_dims(d) ? (long long)kTcWarps * kTcStages * kTcStage : 0;
+  return tc_dims(d) ? (long long)kWarps * kTcStages * kTcStage : 0;
 }
 
 // The cluster instantiations (kCl: #4 and #5 with a molecule's receivers split
@@ -172,15 +179,20 @@ __device__ __forceinline__ int tc_stage_at(int kk, int c) {
 // therefore sums in a chain of mma from zero and joins the running sum by an
 // f32 add (3.7e-7): a chain keeps the tensor cores busy, where an add after
 // every k-step waits on each mma and was slower. kPasses: 3, or 2 for a W of
-// bf16 values (its hi only; tc_passes).
-template <int kTiles, int kPasses = 3, class ST>
+// bf16 values (its hi only; tc_passes). kWarps: the ring's warp slots
+// (tc_ring_floats<kWarps>); kTcWarps takes the block's warps as it runs, at
+// most 16 (the 512-thread blocks); fewer, such as K1's kTcFwdWarps, takes
+// exactly that many, each warp then taking kTcStrips / kWarps strips in turn.
+template <int kTiles, int kPasses = 3, int kWarps = kTcWarps, class ST>
 __device__ __forceinline__ void mm_tc(int n, const float* A, int lda,
                                       const float* __restrict__ W, float* ring, ST st) {
   constexpr int kSteps = kTcK / 8;
   static_assert(kPasses == 3 || kPasses == 2, "A is split: 3 passes, or 2 with W exact");
   static_assert((kTcStages & (kTcStages - 1)) == 0, "the ring's slot is a mask");
   static_assert(kSteps % kTcSumSteps == 0, "whole chunks");
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarp = blockDim.x >> 5;
+  static_assert(kWarps <= kTcWarps && kTcStrips % kWarps == 0, "whole strips per warp");
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarp = kWarps == kTcWarps ? blockDim.x >> 5 : kWarps;
   const int g = lane >> 2, t = lane & 3;
   float* my = ring + warp * (kTcStages * kTcStage);
   // this lane's 16-byte copy of a stage: row lane / 4, columns 4 (lane % 4) ...

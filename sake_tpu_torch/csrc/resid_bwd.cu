@@ -48,6 +48,16 @@
 // block needs 221 KB of the 227 KB of shared memory a block may have, so
 // N = 32 does not fit: the kernels take N as it comes, unpadded.
 //
+// The tensor-core kernel (resid_bwd_tc_kernel, K2 on MD17 serving's route at
+// aspirin's widths, tc_dims): the same design on the body's kTc instantiation,
+// so the x-mixing pullback d_xm @ w_xmix^T and the edge products' pullbacks
+// through o_f and o1 run in 3xTF32 on mma.sync (mma_tf32x3.cuh), w_xmix^T
+// through mm_tc's 16-warp W ring carved ahead of the body's buffers; one
+// 512-thread block an SM, as resid_bwd_kernel (177,728 bytes at aspirin's N =
+// 21). Elsewhere (the narrow models, N > 22) K2 stays on resid_bwd_kernel, and
+// the rows instantiation (#5's one-block route, #10's, #19's) keeps its
+// CUDA-core products.
+//
 // #5's cluster kernel (one molecule per two-CTA cluster) is resid_bwd_cl.cu's.
 
 #include "resid_bwd.cuh"
@@ -75,6 +85,42 @@ resid_bwd_kernel(Dims d, const float* __restrict__ bh, const float* __restrict__
   bwd_begin(d, S, B, b, dh_fin, dx_fin, dv_fin, mb);
   for (int l = d.depth - 1; l >= 0; --l)
     bwd_layer<kRows>(d, S, b, l, upd[l], mb, L, LT, bh, bx, bv, RS, RW, add_h, add_x, add_v);
+
+  for (int e = tid; e < N * F; e += nt) dh_out[(size_t)b * N * F + e] = S.sdh[e];
+  for (int e = tid; e < 3 * N; e += nt) {
+    const int k = e / N, i = e % N;
+    dx_out[((size_t)k * B + b) * N + i] = S.sdx[e];
+    dv_out[((size_t)k * B + b) * N + i] = S.sdv[e];
+  }
+}
+
+// K2's tensor-core kernel (see the top): its shared memory in floats, the W
+// ring and then the kTc carve.
+__host__ __device__ inline long long bwd_tc_smem_floats(const Dims& d) {
+  return tc_ring_floats(d) + bwd_smem_floats<true>(d);
+}
+
+__global__ void __launch_bounds__(512, 1)
+resid_bwd_tc_kernel(Dims d, const float* __restrict__ bh, const float* __restrict__ bx,
+                    const float* __restrict__ bv, const float* __restrict__ upd,
+                    const float* __restrict__ mask, Leaves L, Leaves LT, Resids RS,
+                    const float* __restrict__ dh_fin, const float* __restrict__ dx_fin,
+                    const float* __restrict__ dv_fin, float* dh_out, float* dx_out,
+                    float* dv_out) {
+  extern __shared__ float4 smem4[];
+  const int b = blockIdx.x;
+  const int B = d.B, N = d.N, F = d.F;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const float* mb = mask ? mask + (size_t)b * N * N : nullptr;
+
+  Carver cv{reinterpret_cast<float*>(smem4)};
+  float* ring = cv.take(tc_ring_floats(d));
+  const BwdSmem S = carve_bwd<true>(cv, d);
+  SAKE_PROBE_START();
+  bwd_begin(d, S, B, b, dh_fin, dx_fin, dv_fin, mb);
+  for (int l = d.depth - 1; l >= 0; --l)
+    bwd_layer<false, false, true>(d, S, b, l, upd[l], mb, L, LT, bh, bx, bv, RS, Rows{},
+                                  nullptr, nullptr, nullptr, ring);
 
   for (int e = tid; e < N * F; e += nt) dh_out[(size_t)b * N * F + e] = S.sdh[e];
   for (int e = tid; e < 3 * N; e += nt) {
@@ -124,6 +170,42 @@ extern "C" int sake_resid_bwd(const float* bh, const float* bx, const float* bv,
                                  mask, leaf_ptrs, leaf_t_ptrs, leaf_strides, resid_ptrs,
                                  dh_fin, dx_fin, dv_fin, dh_out, dx_out, dv_out,
                                  sake::Rows{}, nullptr, nullptr, nullptr, stream);
+}
+
+// Whether K2 takes its tensor-core kernel at these widths and N (tc_dims), 1,
+// or resid_bwd_kernel, 0.
+extern "C" int sake_resid_bwd_tc_route(int B, int N, int F, int H, int R, int K, int C,
+                                       int depth) {
+  return sake::tc_dims(sake::Dims{B, N, F, H, R, K, C, depth}) ? 1 : 0;
+}
+
+extern "C" long long sake_resid_bwd_tc_smem_bytes(int B, int N, int F, int H, int R, int K,
+                                                  int C, int depth) {
+  sake::Dims d{B, N, F, H, R, K, C, depth};
+  return sake::bwd_tc_smem_floats(d) * (long long)sizeof(float);
+}
+
+// K2 on its tensor-core kernel, the arguments of sake_resid_bwd; a shape off
+// that route (tc_dims) is refused with cudaErrorInvalidValue.
+extern "C" int sake_resid_bwd_tc(const float* bh, const float* bx, const float* bv,
+                                 const float* upd, const float* mask,
+                                 const void* const* leaf_ptrs, const void* const* leaf_t_ptrs,
+                                 const long long* leaf_strides, void* const* resid_ptrs,
+                                 const float* dh_fin, const float* dx_fin, const float* dv_fin,
+                                 float* dh_out, float* dx_out, float* dv_out, int B, int N,
+                                 int F, int H, int R, int K, int C, int depth, void* stream) {
+  using namespace sake;
+  const Dims d{B, N, F, H, R, K, C, depth};
+  if (!tc_dims(d)) return (int)cudaErrorInvalidValue;
+  const size_t smem = bwd_tc_smem_floats(d) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(resid_bwd_tc_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  resid_bwd_tc_kernel<<<B, 512, smem, static_cast<cudaStream_t>(stream)>>>(
+      d, bh, bx, bv, upd, mask, leaves_of(leaf_ptrs, leaf_strides),
+      leaves_of(leaf_t_ptrs, leaf_strides), resids_of(resid_ptrs), dh_fin, dx_fin, dv_fin,
+      dh_out, dx_out, dv_out);
+  return (int)cudaGetLastError();
 }
 
 // As sake_resid_bwd, also writing the cotangent rows (row_ptrs in ROWS order).

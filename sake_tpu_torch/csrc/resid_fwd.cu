@@ -63,6 +63,16 @@
 // (mma_tf32x3.cuh, four n8 tiles). make_hidden_fn's calls take this route at
 // every batch: on an H100 at N = 29 it measured 0.33-0.64x the one-block
 // kernel's time from B = 64 to 256 (tools/probe_resid.py --phases sweep).
+//
+// The tensor-core kernel (resid_fwd_tc_kernel, K1 on MD17 serving's route at
+// aspirin's widths): the same one-block-a-molecule design, but the body's kTc
+// instantiation, so the x-mixing product and the edge products o_f and o1 run
+// in 3xTF32 on mma.sync (mma_tf32x3.cuh). It keeps K1's 256 threads and two
+// blocks a SM: mm_tc's W ring is carved for 8 warps (8 KB), each warp taking
+// two of the 16 column strips in turn, where the 512-thread kernels carve 16
+// (16 KB). The route (fwd_tc_route) is tc_dims and two such blocks fitting an
+// SM's shared memory: at hidden 64, 4 heads, R 50 that is N <= 21, aspirin's
+// size and the largest MD17 molecule; elsewhere K1 stays on resid_fwd_kernel.
 
 #include "resid_fwd.cuh"
 
@@ -96,6 +106,58 @@ resid_fwd_kernel(Dims d, const float* __restrict__ h0,
     x_fin[((size_t)k * B + b) * N + i] = S.sx[e];
     if constexpr (kStream) v_fin[((size_t)k * B + b) * N + i] = S.sv[e];
   }
+}
+
+// K1's tensor-core kernel (see the top; its carve and route: resid_fwd.cuh).
+constexpr int kFwdTcThreads = 32 * kTcFwdWarps;
+
+__global__ void __launch_bounds__(kFwdTcThreads, 2)
+resid_fwd_tc_kernel(Dims d, const float* __restrict__ h0, const float* __restrict__ xs,
+                    const float* __restrict__ v0, const float* __restrict__ upd,
+                    const float* __restrict__ mask, Leaves L, float* bh, float* bx, float* bv,
+                    float* h_fin, float* x_fin, float* v_fin, Resids RS) {
+  extern __shared__ float4 smem4[];
+  const int b = blockIdx.x;
+  const int B = d.B, N = d.N, F = d.F;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const float* mb = mask ? mask + (size_t)b * N * N : nullptr;
+
+  Carver cv{reinterpret_cast<float*>(smem4)};
+  float* ring = cv.take(tc_ring_floats<kTcFwdWarps>(d));
+  const FwdSmem S = carve_fwd<true>(cv, d);
+  SAKE_PROBE_START();
+  fwd_begin(d, S, B, b, h0, xs, v0, mb);
+  for (int l = 0; l < d.depth; ++l)
+    fwd_layer<true, true, false, true, false, kTcFwdWarps>(d, S, b, l, upd[l], mb, L, bh, bx,
+                                                           bv, RS, ring);
+
+  for (int e = tid; e < N * F; e += nt) h_fin[(size_t)b * N * F + e] = S.sh[e];
+  for (int e = tid; e < 3 * N; e += nt) {
+    const int k = e / N, i = e % N;
+    x_fin[((size_t)k * B + b) * N + i] = S.sx[e];
+    v_fin[((size_t)k * B + b) * N + i] = S.sv[e];
+  }
+}
+
+// One tensor-core product of K1's or K2's route alone, in one block of kWarps
+// warps as the bodies call it: out (n, m) = A (n, kd) @ W (kd, m) in 3xTF32.
+// kd = m = 256: mm_tc (the x-mixing product and its transpose; n at most 24, A
+// at tc_ld's padded stride); kd, m at most 64: mm_tc_small (o_f, o1 and their
+// pullbacks).
+template <int kWarps>
+__global__ void __launch_bounds__(32 * kWarps, 1)
+resid_tc_product_kernel(int n, int kd, int m, const float* __restrict__ A,
+                  const float* __restrict__ W, float* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  float* ring = reinterpret_cast<float*>(smem4);
+  float* sa = ring + kWarps * kTcStages * kTcStage;
+  const bool wide = kd == kTcK;
+  const int lda = wide ? kd + kTcPad : kd;
+  for (int e = threadIdx.x; e < n * kd; e += blockDim.x) sa[(e / kd) * lda + e % kd] = A[e];
+  __syncthreads();
+  auto st = [&](int r, int c, float v) { out[(size_t)r * m + c] = v; };
+  if (wide) mm_tc<3, 3, kWarps>(n, sa, lda, W, ring, st);
+  else mm_tc_small<3>(n, kd, m, sa, lda, W, st);
 }
 
 template <bool kStream>
@@ -195,6 +257,76 @@ extern "C" int sake_resid_fwd(const float* h0, const float* xs, const float* v0,
   return sake::launch_fwd<true>(sake::Dims{B, N, F, H, R, K, C, depth}, h0, xs, v0, upd,
                                 mask, leaf_ptrs, leaf_strides, bh, bx, bv, h_fin, x_fin,
                                 v_fin, sake::resids_of(resid_ptrs), stream);
+}
+
+// Whether K1 takes its tensor-core kernel at these widths and N, 1, or
+// resid_fwd_kernel, 0 (fwd_tc_route).
+extern "C" int sake_resid_fwd_tc_route(int B, int N, int F, int H, int R, int K, int C,
+                                       int depth) {
+  return sake::fwd_tc_route(sake::Dims{B, N, F, H, R, K, C, depth}) ? 1 : 0;
+}
+
+extern "C" long long sake_resid_fwd_tc_smem_bytes(int B, int N, int F, int H, int R, int K,
+                                                  int C, int depth) {
+  sake::Dims d{B, N, F, H, R, K, C, depth};
+  return sake::fwd_tc_smem_floats(d) * (long long)sizeof(float);
+}
+
+// Blocks of K1's tensor-core kernel an SM holds at once (two by design); negative: a
+// CUDA error.
+extern "C" int sake_resid_fwd_tc_occupancy(int B, int N, int F, int H, int R, int K, int C,
+                                           int depth) {
+  sake::Dims d{B, N, F, H, R, K, C, depth};
+  const size_t smem = sake::fwd_tc_smem_floats(d) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(sake::resid_fwd_tc_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int n = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, sake::resid_fwd_tc_kernel,
+                                                        sake::kFwdTcThreads, smem);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+// K1 on its tensor-core kernel, the arguments of sake_resid_fwd; a shape off
+// that route (fwd_tc_route) is refused with cudaErrorInvalidValue.
+extern "C" int sake_resid_fwd_tc(const float* h0, const float* xs, const float* v0,
+                                 const float* upd, const float* mask,
+                                 const void* const* leaf_ptrs, const long long* leaf_strides,
+                                 float* bh, float* bx, float* bv, float* h_fin, float* x_fin,
+                                 float* v_fin, void* const* resid_ptrs, int B, int N, int F,
+                                 int H, int R, int K, int C, int depth, void* stream) {
+  using namespace sake;
+  const Dims d{B, N, F, H, R, K, C, depth};
+  if (!fwd_tc_route(d)) return (int)cudaErrorInvalidValue;
+  const size_t smem = fwd_tc_smem_floats(d) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(resid_fwd_tc_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  resid_fwd_tc_kernel<<<B, kFwdTcThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      d, h0, xs, v0, upd, mask, leaves_of(leaf_ptrs, leaf_strides), bh, bx, bv, h_fin, x_fin,
+      v_fin, resids_of(resid_ptrs));
+  return (int)cudaGetLastError();
+}
+
+// resid_tc_product_kernel (see there) in a block of `warps` warps: 8 (K1's route) or
+// 16 (K2's); 0, or cudaErrorInvalidValue for a shape no product of theirs takes.
+extern "C" int sake_resid_tc_product(int warps, const float* A, const float* W, float* out,
+                                     int n, int kd, int m, void* stream) {
+  using namespace sake;
+  const bool wide = kd == kTcK && m == kTcK && n >= 1 && n <= 8 * tc_tiles<false>();
+  const bool small = kd >= 1 && kd <= kTcSmallK && m >= 1 && m <= kTcSmallK && n >= 1;
+  if ((!wide && !small) || (warps != kTcFwdWarps && warps != kTcWarps))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      ((size_t)warps * kTcStages * kTcStage + (size_t)n * (wide ? kd + kTcPad : kd)) *
+      sizeof(float);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (warps == kTcFwdWarps)
+    resid_tc_product_kernel<kTcFwdWarps><<<1, 32 * kTcFwdWarps, smem, s>>>(n, kd, m, A, W, out);
+  else
+    resid_tc_product_kernel<kTcWarps><<<1, 32 * kTcWarps, smem, s>>>(n, kd, m, A, W, out);
+  return (int)cudaGetLastError();
 }
 
 // The forward without residuals: pool is a (3, B, N, C) scratch for one

@@ -74,6 +74,21 @@ __host__ __device__ inline long long fwd_smem_floats(const Dims& d) {
   return cv.off;
 }
 
+// K1's tensor-core kernel (resid_fwd.cu): its shared memory in floats, the
+// 8-warp W ring and then the kTc carve.
+__host__ __device__ inline long long fwd_tc_smem_floats(const Dims& d) {
+  return tc_ring_floats<kTcFwdWarps>(d) + fwd_smem_floats<true>(d);
+}
+// An H100 SM's shared memory and what the runtime reserves of it per block.
+constexpr long long kSmemPerSm = 233472, kSmemReservedPerBlock = 1024;
+// Whether K1 takes its tensor-core kernel at d: the products' widths (tc_dims)
+// and two blocks an SM.
+__host__ __device__ inline bool fwd_tc_route(const Dims& d) {
+  return tc_dims(d) &&
+         2 * (fwd_tc_smem_floats(d) * (long long)sizeof(float) + kSmemReservedPerBlock) <=
+             kSmemPerSm;
+}
+
 // The state (h, x, v) of molecule m of a batch of B in (B, N, F) and
 // (3, B, N) layouts into S.sh, S.sx, S.sv (v0 null: zeros), and the sender
 // counts of its mask rows mb (null: no mask).
@@ -114,7 +129,10 @@ __device__ __forceinline__ void fwd_begin(const Dims& d, const FwdSmem& S, int B
 // past their row loops, stores its nodes' new (h, x, v) into both CTAs' state,
 // so that each holds every node's state again before the next layer; with kTc
 // its products take the tensor cores up to N = 32 (tc_dims_of, four n8 tiles).
-template <bool kResid, bool kBound, bool kBf16 = false, bool kTc = false, bool kCl = false>
+// kTcW: the warps of mm_tc's ring (tc_ring_floats<kTcW>): kTcWarps in the
+// 512-thread kernels, kTcFwdWarps in K1's 256-thread tensor-core kernel.
+template <bool kResid, bool kBound, bool kBf16 = false, bool kTc = false, bool kCl = false,
+          int kTcW = kTcWarps>
 __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b, int l,
                                           float u, const float* __restrict__ mb,
                                           const Leaves& L, float* bh, float* bx, float* bv,
@@ -315,7 +333,8 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
     };
     if constexpr (kTc) {
       if (tc_dims_of<kCl>(d))
-        mm_tc<tc_tiles<kCl>(), tc_passes<kBf16>()>(N, shea, ldx, W(W_XMIX), ring, st_coeff);
+        mm_tc<tc_tiles<kCl>(), tc_passes<kBf16>(), kTcW>(N, shea, ldx, W(W_XMIX), ring,
+                                                          st_coeff);
       else mm_fwd(N, HK, C, shea, ldx, W(W_XMIX), st_coeff);
     } else {
       mm_fwd(N, HK, C, shea, HK, W(W_XMIX), st_coeff);

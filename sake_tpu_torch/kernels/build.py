@@ -106,6 +106,15 @@ def signatures() -> dict:
         "sake_resid_fwd_cluster": fwd_in + [P] * 6 + [P] + dims + [P],
         "sake_resid_infer": fwd_in + [P] * 3 + dims + [P],
         "sake_resid_bwd": bwd_in + dims + [P],
+        # K1's and K2's tensor-core kernels: the arguments of the two above
+        "sake_resid_fwd_tc": fwd_in + [P] * 6 + [P] + dims + [P],
+        "sake_resid_bwd_tc": bwd_in + dims + [P],
+        # their routes (1: the tensor-core kernel) and K1's blocks an SM
+        "sake_resid_fwd_tc_route": dims,
+        "sake_resid_bwd_tc_route": dims,
+        "sake_resid_fwd_tc_occupancy": dims,
+        # one product of their routes alone: warps, A, W, out, n, kd, m, stream
+        "sake_resid_tc_product": [I, P, P, P, I, I, I, P],
         # ... rows, add_h, add_x, add_v
         "sake_resid_bwd_rows": bwd_in + [P] * 4 + dims + [P],
         # the cluster route: ... rows (no addend)
@@ -186,6 +195,7 @@ def signatures() -> dict:
     for fn in ("sake_resid_fwd_cluster_max_active", "sake_resid_bwd_cluster_max_active"):
         out[fn] = (dims, I)
     for fn in ("sake_resid_fwd_smem_bytes", "sake_resid_bwd_smem_bytes",
+               "sake_resid_fwd_tc_smem_bytes", "sake_resid_bwd_tc_smem_bytes",
                "sake_resid_fwd_cluster_smem_bytes", "sake_resid_bwd_cluster_smem_bytes",
                "sake_resid_jvp_smem_bytes", "sake_resid_tbwd_smem_bytes",
                "sake_aug_fwd_smem_bytes", "sake_retrace_bwd_smem_bytes",

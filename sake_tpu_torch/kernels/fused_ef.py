@@ -42,6 +42,7 @@ from sake_tpu_torch.kernels.tf32 import mm_tf32_plain, mm_tf32x2_plain
 from sake_tpu_torch.kernels.resid_ef import (
     _SMEM_LIMIT,
     RESIDS,
+    ROUTES,
     _check_cuda,
     _check_leaves,
     _check_tc_leaves,
@@ -219,7 +220,6 @@ def fused_ef(params: ModelParams, h, x, upd: Sequence[float], *, n_heads: int = 
     return out
 
 
-ROUTES = ("CUDA cores", "tensor cores")  # by tensor_core_route
 fused_ef.launches = 0
 fused_ef.routes = dict.fromkeys(ROUTES, 0)
 

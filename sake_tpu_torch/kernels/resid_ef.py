@@ -23,7 +23,12 @@ Port of ``sake_tpu/kernels/resid_ef.py``:
   the kernel or raises. With ``cluster=True`` (``make_hidden_fn``'s calls),
   :func:`resid_fwd` and :func:`resid_bwd_rows` launch their cluster kernels
   (one molecule per cluster of two CTAs, its receiver rows split between
-  them); each route counts its own launches.
+  them); each route counts its own launches. Otherwise :func:`resid_fwd` and
+  :func:`resid_bwd` (MD17 serving's K1 and K2) take their tensor-core kernels
+  where the shape allows (:func:`fwd_tensor_core_route`,
+  :func:`bwd_tensor_core_route`: aspirin's widths, K1 up to 21 atoms so that two
+  blocks fit an SM), the CUDA-core kernels elsewhere, and count each launch
+  under its route in ``.routes``.
 - :func:`resid_energy_forces` (JAX ``:978-1330``) orchestrates embed, K1,
   the readout and its seed (plain torch, as the JAX package ran them
   outside Pallas), K2 and ``F = -dx``, per batch chunk so residual memory
@@ -57,6 +62,7 @@ from sake_tpu_torch.kernels.functional import (
     readout,
 )
 from sake_tpu_torch.kernels.leaves import LEAF_NAMES, layer_leaves, transposed, wide_stack
+from sake_tpu_torch.kernels.tf32 import mm_tf32x3_chunked_plain, mm_tf32x3_plain
 
 # Residuals in kernel-boundary order. Edge residuals are (depth, B, N*N, ch),
 # node residuals (depth, B, N, ch).
@@ -101,6 +107,27 @@ def _dsilu(x):
     return s * (1.0 + x * (1.0 - s))
 
 
+def raw_attention(sem_pre, *, mask=None, n_real=None):
+    """The raw softmax over senders that :func:`layer_fwd_resid` saves as its
+    ``att`` residual, from the semantic logits ``sem_pre (B, N, N, K)``
+    (receiver, sender, head): celu2, the self pair and masked or padded senders
+    pushed down by ``INF``. In a receiver row with no live sender every logit
+    carries the ``-INF`` offset, whose f32 spacing (2^-7) rounds away the low
+    bits of the logits, so that row's softmax moves by up to about 1e-3 when its
+    logits move by 1e-7; no output reads it (the products see the renormalized
+    attention, zero there)."""
+    N = sem_pre.shape[1]
+    logits = torch.where(sem_pre > 0, sem_pre, 2.0 * (torch.exp(sem_pre / 2.0) - 1.0))
+    eye = torch.eye(N, dtype=sem_pre.dtype, device=sem_pre.device)
+    logits = logits - INF * eye[None, :, :, None]
+    if mask is not None:
+        logits = logits - INF * (1.0 - mask)
+    elif n_real is not None and n_real < N:
+        pad = (torch.arange(N, device=sem_pre.device) >= n_real).to(sem_pre.dtype)
+        logits = logits - INF * pad[None, None, :, None]
+    return torch.softmax(logits, dim=-2)
+
+
 def layer_fwd_resid(p: dict, h, xp, vp, upd, *, n_real=None, mask=None):
     """One layer's forward and the residuals the backward reads.
 
@@ -128,15 +155,7 @@ def layer_fwd_resid(p: dict, h, xp, vp, upd, *, n_real=None, mask=None):
     h_e = _silu(e0) @ p["w_o1"] + p["b_o1"]
 
     sem_pre = h_e @ p["w_sem"] + p["b_sem"]
-    logits = torch.where(sem_pre > 0, sem_pre, 2.0 * (torch.exp(sem_pre / 2.0) - 1.0))
-    eye = torch.eye(N, dtype=h.dtype, device=h.device)
-    logits = logits - INF * eye[None, :, :, None]
-    if mask is not None:
-        logits = logits - INF * (1.0 - mask)
-    elif n_real is not None and n_real < N:
-        pad = (torch.arange(N, device=h.device) >= n_real).to(h.dtype)
-        logits = logits - INF * pad[None, None, :, None]
-    att = torch.softmax(logits, dim=-2)  # raw softmax: the saved residual
+    att = raw_attention(sem_pre, mask=mask, n_real=n_real)  # the saved residual
     if mask is not None:
         att_s = att * mask
         denom = att_s.sum(dim=-2, keepdim=True)
@@ -699,10 +718,15 @@ def _check_leaves(leaves, dims, device):
         _check_cuda(name, leaves[name], (depth, *shape), device)
 
 
-def _check_tc_leaves(name, leaves, leaves_t):
-    """#11, #12 and #20 copy w_xmix and its transpose into shared memory 16
-    bytes at a time (``csrc/mma_tf32x3.cuh``): both must start 16-byte aligned."""
-    for label, t in (("w_xmix", leaves["w_xmix"]), ("w_xmix.T", leaves_t["w_xmix"])):
+def _check_tc_leaves(name, leaves, leaves_t=None):
+    """The tensor-core kernels copy w_xmix and its transpose into shared memory
+    16 bytes at a time (``csrc/mma_tf32x3.cuh``): both must start 16-byte
+    aligned (w_xmix alone when ``leaves_t`` is None: K1's route reads no
+    transpose)."""
+    pairs = [("w_xmix", leaves["w_xmix"])]
+    if leaves_t is not None:
+        pairs.append(("w_xmix.T", leaves_t["w_xmix"]))
+    for label, t in pairs:
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {label} must start at a 16-byte aligned address")
 
@@ -804,12 +828,60 @@ def _fwd_args(name, leaves, h0, xs, v0, upd, mask):
     return lib, dims, upd_t, _edge_mask(mask, dims, dev)
 
 
+ROUTES = ("CUDA cores", "tensor cores")  # a kernel's two routes, by tensor_core_route
+
+
+def fwd_tensor_core_route(dims) -> bool:
+    """Whether K1 takes its tensor-core kernel at ``dims`` (``(B, N, F, H, R,
+    K, C, depth)``; the kernel source's ``fwd_tc_route``: ``tc_dims``'s widths,
+    H * K = C = 256 and H, R at most 64, and two blocks an SM, which at
+    aspirin's widths is N at most 21), else its CUDA-core kernel: an index into
+    ``ROUTES``."""
+    return bool(build.load().sake_resid_fwd_tc_route(*dims))
+
+
+def bwd_tensor_core_route(dims) -> bool:
+    """Whether K2 takes its tensor-core kernel at ``dims`` (the kernel
+    source's ``tc_dims``: H * K = C = 256, H and R at most 64, N at most 22),
+    else its CUDA-core kernel: an index into ``ROUTES``."""
+    return bool(build.load().sake_resid_bwd_tc_route(*dims))
+
+
+def tc_product(a, w, warps: int):
+    """One tensor-core product of K1's or K2's route alone, in 3xTF32 in a
+    block of ``warps`` warps (8: K1's, 16: K2's; ``csrc/mma_tf32x3.cuh``):
+    ``a (n, k) @ w (k, m)``. k = m = 256 (the x-mixing and its transpose, n at
+    most 24) on ``mm_tc``; k and m at most 64 (o_f, o1 and their pullbacks) on
+    ``mm_tc_small``. CPU tensors take the plain models of ``kernels/tf32.py``
+    (``mm_tc``'s chunked sums, ``mm_tc_small``'s passes summed apart); a CUDA
+    tensor launches the kernel or raises."""
+    if a.device.type == "cpu":
+        wide = a.shape[-1] == w.shape[-1] == 256
+        return mm_tf32x3_chunked_plain(a, w) if wide else mm_tf32x3_plain(a, w)
+    name = "tc_product"
+    _require_cuda(name, a)
+    (n, k), m = a.shape, w.shape[-1]
+    _check_cuda("a", a, (n, k), a.device)
+    _check_cuda("w", w, (k, m), a.device)
+    if w.data_ptr() % 16:  # mm_tc copies w 16 bytes at a time
+        raise ValueError(f"{name}: w must start at a 16-byte aligned address")
+    out = torch.empty(n, m, device=a.device, dtype=torch.float32)
+    lib = build.load()
+    build.check(lib, lib.sake_resid_tc_product(warps, a.data_ptr(), w.data_ptr(),
+                                               out.data_ptr(), n, k, m, _stream(a.device)),
+                name)
+    return out
+
+
 def resid_fwd(leaves: dict, h0, xs, v0, upd: Sequence[float], mask=None, *,
               cluster: bool = False) -> FwdOut:
     """K1: the layer stack's forward with residuals. ``leaves`` from
     :func:`leaves.wide_stack`; ``h0 (B, N, F)``; ``xs``, ``v0 (3, B, N)``;
     ``upd``: per-layer update gates; ``mask``: ``(B, N, N, 1)`` edge mask
-    or None. ``cluster``: launch the cluster kernel (#4's, one molecule per
+    or None. One block a molecule, on the route its shape takes
+    (:func:`fwd_tensor_core_route`), each launch counted in
+    ``resid_fwd.launches`` and under its route in ``resid_fwd.routes``.
+    ``cluster``: launch the cluster kernel (#4's, one molecule per
     cluster of two CTAs), counted in ``resid_fwd.cluster_launches``; at N = 29
     it took 0.33-0.64x the one-block kernel's time on an H100 at every batch
     from 64 to 256 (``tools/probe_resid.py --phases sweep``). CPU tensors take
@@ -824,14 +896,28 @@ def resid_fwd(leaves: dict, h0, xs, v0, upd: Sequence[float], mask=None, *,
     return out
 
 
+# K1's entries and carves by route
+_FWD_ENTRIES = {"CUDA cores": ("sake_resid_fwd", "sake_resid_fwd_smem_bytes"),
+                "tensor cores": ("sake_resid_fwd_tc", "sake_resid_fwd_tc_smem_bytes"),
+                "cluster": ("sake_resid_fwd_cluster", "sake_resid_fwd_cluster_smem_bytes")}
+
+
 def _launch_fwd(leaves, h0, xs, v0, upd, mask, route="block"):
-    """Checks, allocation and launch of K1 on ``route``: "block" (one block
-    a molecule) or "cluster" (its cluster kernel)."""
+    """Checks, allocation and launch of K1 on ``route``: "block" (:func:`resid_fwd`'s
+    one block a molecule, on the route the shape takes, counted under it in
+    ``resid_fwd.routes``), "CUDA cores" or "tensor cores" (that one-block kernel,
+    not counted; the tensor-core one refuses a shape off its route) or "cluster"
+    (its cluster kernel)."""
     lib, dims, upd_t, m = _fwd_args("resid_fwd", leaves, h0, xs, v0, upd, mask)
     B, N, F, H, R, K, C, depth = dims
-    entry = lib.sake_resid_fwd if route == "block" else lib.sake_resid_fwd_cluster
-    _check_smem(lib, "sake_resid_fwd_smem_bytes" if route == "block"
-                else "sake_resid_fwd_cluster_smem_bytes", dims, "resid_fwd")
+    counted = route == "block"
+    if counted:
+        route = ROUTES[fwd_tensor_core_route(dims)]
+    if route == "tensor cores":
+        _check_tc_leaves("resid_fwd", leaves)
+    entry, carve = _FWD_ENTRIES[route]
+    entry = getattr(lib, entry)
+    _check_smem(lib, carve, dims, "resid_fwd")
     empty = lambda *s: torch.empty(s, device=h0.device, dtype=torch.float32)
     out = FwdOut(
         empty(depth, B, N, F), empty(depth, 3, B, N), empty(depth, 3, B, N),
@@ -845,11 +931,14 @@ def _launch_fwd(leaves, h0, xs, v0, upd, mask, route="block"):
         out.h_fin.data_ptr(), out.x_fin.data_ptr(), out.v_fin.data_ptr(),
         _ptrs([out.resid[n] for n in RESIDS]), *dims, _stream(h0.device),
     )
-    build.check(lib, err, "resid_fwd" if route == "block" else "resid_fwd (cluster)")
+    build.check(lib, err, f"resid_fwd ({route})")
+    if counted:
+        resid_fwd.routes[route] += 1
     return out
 
 
 resid_fwd.launches = 0
+resid_fwd.routes = dict.fromkeys(ROUTES, 0)
 resid_fwd.cluster_launches = 0
 
 
@@ -885,8 +974,12 @@ def _bwd_launch(name, leaves, fwd, upd, dh, dx, dv, mask, leaves_t, want_rows, a
     instantiation that also writes the cotangent rows. ``add``: None, or
     ``(add_h (depth, B, N, F), add_x (depth, 3, B, N), add_v (depth, 3, B,
     N))`` that the rows instantiation adds to the cotangents leaving each
-    layer (the second-order backward's Hessian term). ``route``: "block",
-    or "cluster" for the rows kernel's cluster route (no addend)."""
+    layer (the second-order backward's Hessian term). ``route``: "block" (one
+    block a molecule; K2 on the route its shape takes, counted under it in
+    ``resid_bwd.routes``), "CUDA cores" or "tensor cores" (K2 on that kernel,
+    not counted; the tensor-core one refuses a shape off its route), or
+    "cluster" for the rows kernel's cluster route (no addend). The rows
+    instantiation's one-block kernel has no tensor-core route."""
     _require_cuda(name, dh)
     dims = _dims(leaves, fwd.bh[0])
     B, N, F, H, R, K, C, depth = dims
@@ -902,16 +995,25 @@ def _bwd_launch(name, leaves, fwd, upd, dh, dx, dv, mask, leaves_t, want_rows, a
     if F != H or len(upd) != depth:
         raise ValueError(f"{name}: needs hidden width == feature width and one gate per layer")
     lib = build.load()
+    counted = route == "block" and not want_rows
+    if counted:
+        route = ROUTES[bwd_tensor_core_route(dims)]
     if route == "cluster":
         if not want_rows or add is not None:
             raise ValueError(f"{name}: the cluster route writes the rows and takes no addend")
         _check_smem(lib, "sake_resid_bwd_cluster_smem_bytes", dims, name)
+    elif route in ROUTES and want_rows:
+        raise ValueError(f"{name}: the rows kernel takes the block or the cluster route")
+    elif route == "tensor cores":
+        _check_smem(lib, "sake_resid_bwd_tc_smem_bytes", dims, name)
     else:
         _check_smem(lib, "sake_resid_bwd_smem_bytes", dims, name)
     if leaves_t is None:
         leaves_t = transposed(leaves)
     for leaf, shape in _leaf_shapes(F, H, R, K, C).items():
         _check_cuda(f"{leaf}.T", leaves_t[leaf], (depth, *shape[::-1]), dev)
+    if route == "tensor cores":
+        _check_tc_leaves(name, leaves, leaves_t)
     m = _edge_mask(mask, dims, dev)
     dh_out, dx_out, dv_out = torch.empty_like(dh), torch.empty_like(dx), torch.empty_like(dv)
     rows = ({n: torch.empty(s, device=dev) for n, s in _row_shapes(dims, leaves).items()}
@@ -935,9 +1037,13 @@ def _bwd_launch(name, leaves, fwd, upd, dh, dx, dv, mask, leaves_t, want_rows, a
         err = lib.sake_resid_bwd_rows(*args, _ptrs([rows[n] for n in ROWS]),
                                       *(_ptr(a) for a in (add or (None,) * 3)), *dims,
                                       _stream(dev))
+    elif route == "tensor cores":
+        err = lib.sake_resid_bwd_tc(*args, *dims, _stream(dev))
     else:
         err = lib.sake_resid_bwd(*args, *dims, _stream(dev))
-    build.check(lib, err, name if route == "block" else f"{name} (cluster)")
+    build.check(lib, err, name if route == "block" else f"{name} ({route})")
+    if counted:
+        resid_bwd.routes[route] += 1
     return dh_out, dx_out, dv_out, rows
 
 
@@ -945,9 +1051,11 @@ def resid_bwd(leaves: dict, fwd: FwdOut, upd: Sequence[float], dh, dx, dv, mask=
               *, leaves_t: Optional[dict] = None):
     """K2: pullback of the layer stack from the cotangents of the final
     ``(h (B, N, F), x (3, B, N), v (3, B, N))`` to those of the initial
-    state, reading K1's residuals. CPU tensors take the plain version.
-    ``leaves_t``: ``leaves.transposed(leaves)``, built here when not given;
-    pass it to build it once for several launches."""
+    state, reading K1's residuals, on the route its shape takes
+    (:func:`bwd_tensor_core_route`), each launch counted in
+    ``resid_bwd.launches`` and under its route in ``resid_bwd.routes``. CPU
+    tensors take the plain version. ``leaves_t``: ``leaves.transposed(leaves)``,
+    built here when not given; pass it to build it once for several launches."""
     if dh.device.type == "cpu":
         return resid_bwd_plain(leaves, fwd, upd, dh, dx, dv, mask=mask)
     out = _bwd_launch("resid_bwd", leaves, fwd, upd, dh, dx, dv, mask, leaves_t, False)
@@ -956,6 +1064,7 @@ def resid_bwd(leaves: dict, fwd: FwdOut, upd: Sequence[float], dh, dx, dv, mask=
 
 
 resid_bwd.launches = 0
+resid_bwd.routes = dict.fromkeys(ROUTES, 0)
 
 
 def resid_bwd_rows(leaves: dict, fwd: FwdOut, upd: Sequence[float], dh, dx, dv, mask=None,

@@ -14,6 +14,7 @@
     python tools/cuda_emu/emulate.py --contract                        # the contractions
     EMU_THREADS=128 python tools/cuda_emu/emulate.py --qm9 --hidden 8 16 64 --atoms 29 21 16 7
     EMU_THREADS=128 python tools/cuda_emu/emulate.py --remat --hidden 8 16 64 --atoms 21
+    EMU_THREADS=128 python tools/cuda_emu/emulate.py --serving --hidden 8 16 64 --atoms 21 7 22
 
 Compiles the kernel source with g++ against ``cuda_runtime.h`` beside this file
 (one std::thread per CUDA thread; see there), loads it with ctypes in place of
@@ -52,6 +53,15 @@ launch over every layer and one launch per layer) through ``fori_ef._launch_bwd`
 on the plain forward's boundaries at each ``--hidden`` x ``--atoms`` N (``--depth``
 layers, gates 1 and 0.4), against ``fori_bwd_plain`` and ``depthgrid_bwd_plain``;
 at hidden 64 their products take the emulated tensor cores (``tensor_core_route``).
+With ``--serving`` it runs K1 and K2 (``csrc/resid_fwd.cu``, ``csrc/resid_bwd.cu``)
+on both of their one-block routes through ``resid_ef._launch_fwd`` and
+``_bwd_launch`` at each ``--hidden`` x ``--atoms`` N, masked (padded molecules, one
+a single atom) and unmasked, against ``resid_fwd_plain`` (boundaries, final state,
+all 17 residuals) and ``resid_bwd_plain`` (dh, dx, dv): the CUDA-core kernels
+everywhere, the tensor-core kernels where the shape takes them (K1 at hidden 64 up
+to N = 21, where two blocks fit an SM; K2 up to N = 22; a launch off that route
+must be refused), then K1's and K2's tensor-core products alone
+(``sake_resid_tc_product``) against float64.
 ``--asan`` needs the script started with g++'s libasan and libstdc++ preloaded
 (it prints the ``LD_PRELOAD`` line).
 """
@@ -433,6 +443,91 @@ def check_remat(hid: int, depth: int, B: int, N: int, seed: int = 0):
     return worst
 
 
+def check_serving(hid: int, depth: int, B: int, N: int, masked: bool, seed: int = 0):
+    """K1 and K2 on both one-block routes against their plain versions; returns
+    the worst relative error."""
+    from sake_tpu_torch.kernels import resid_ef
+    from sake_tpu_torch.kernels.functional import embed
+    from sake_tpu_torch.kernels.leaves import transposed, wide_stack
+
+    F_in = 5
+    model = SAKEModel(hid, 1, depth, in_features=F_in, device="cpu",
+                      generator=torch.Generator().manual_seed(seed))
+    p = model_params_from_linen(linen_tree(model), device="cpu")
+    g = torch.Generator().manual_seed(seed + 1)
+    h0 = embed(p, torch.randn(B, N, F_in, generator=g)).contiguous()
+    xs, v0 = 1.5 * torch.randn(3, B, N, generator=g), 0.1 * torch.randn(3, B, N, generator=g)
+    dh, dx, dv = torch.randn(B, N, hid, generator=g), torch.randn(3, B, N, generator=g), \
+        torch.randn(3, B, N, generator=g)
+    upd = ([1.0, 0.4, 0.0] * depth)[:depth]
+    m4 = None
+    if masked:  # the first molecule whole, then a third of it, then a single atom
+        sizes = ([N, max(1, N // 3), 1] * B)[:B]
+        nm = (torch.arange(N)[None, :] < torch.tensor(sizes)[:, None]).float()
+        m4 = (nm[:, :, None] * nm[:, None, :])[..., None].contiguous()
+    leaves = wide_stack(p, 4)
+    leaves_t = transposed(leaves)
+    dims = resid_ef._dims(leaves, h0)
+    label = f"hidden {hid} depth {depth} B {B} N {N} {'masked' if masked else 'unmasked'}"
+    pf = resid_ef.resid_fwd_plain(leaves, h0, xs, v0, upd, mask=m4)
+    pb = resid_ef.resid_bwd_plain(leaves, pf, upd, dh, dx, dv, mask=m4)
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import probe_resid  # K1's pairs (tools/probe_resid.py)
+
+    worst = 0.0
+    takes = {"K1": resid_ef.fwd_tensor_core_route(dims), "K2": resid_ef.bwd_tensor_core_route(dims)}
+    for route in resid_ef.ROUTES:
+        for kern in ("K1", "K2"):
+            t0 = time.perf_counter()
+            if route == "tensor cores" and not takes[kern]:
+                try:  # off the route: refused, no other kernel tried
+                    if kern == "K1":
+                        resid_ef._launch_fwd(leaves, h0, xs, v0, upd, m4, route)
+                    else:
+                        resid_ef._bwd_launch("resid_bwd", leaves, pf, upd, dh, dx, dv, m4,
+                                             leaves_t, False, route=route)
+                except RuntimeError as e:
+                    print(f"{kern} {label} on the {route}: refused ({e})", flush=True)
+                    continue
+                raise RuntimeError(f"{kern} {label}: the tensor-core kernel took a shape off "
+                                   "its route")
+            if kern == "K1":
+                kf = resid_ef._launch_fwd(leaves, h0, xs, v0, upd, m4, route)
+                pairs = probe_resid.k1_pairs(kf, pf, m4)
+            else:
+                kb = resid_ef._bwd_launch("resid_bwd", leaves, pf, upd, dh, dx, dv, m4,
+                                          leaves_t, False, route=route)
+                pairs = [*zip(("dh", "dx", "dv"), kb[:3], pb[:3])]
+            errs = {n: _rel(a, b) for n, a, b in pairs}
+            w = max(errs, key=errs.get)
+            worst = max(worst, errs[w])
+            print(f"{kern} {label} on the {route}: max rel err {errs[w]:.3e} ({w}), finite "
+                  f"{all(bool(torch.isfinite(a).all()) for _, a, _ in pairs)} "
+                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    return worst
+
+
+def check_serving_products(lib):
+    """K1's and K2's tensor-core products alone (``sake_resid_tc_product``)
+    at ``tools/probe_resid.py``'s ``TC_PRODUCTS`` against float64, as
+    chip_smoke.py phase 3 holds them on the card; returns the worst."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import probe_resid
+
+    def product(warps, a, w):
+        out = torch.full((a.shape[0], w.shape[1]), float("nan"))
+        build.check(lib, lib.sake_resid_tc_product(
+            warps, a.data_ptr(), w.data_ptr(), out.data_ptr(), *a.shape, w.shape[1], None),
+            "resid_tc_product")
+        return out
+
+    errs = probe_resid.check_tc_products(torch.device("cpu"), product, seeds=(0,))
+    print(f"K1's and K2's tensor-core products vs float64 (limit "
+          f"{probe_resid.TC_PRODUCT_TOL:.0e}): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()), flush=True)
+    return max(errs.values())
+
+
 def check_tc_products(lib):
     """#20's bf16 tensor-core products alone (``sake_fused_remat_ef_tc_product``)
     at ``tools/probe_fused.py``'s ``TC_PRODUCTS`` against float64, as
@@ -501,6 +596,8 @@ def main():
                     help="#4's and #5's cluster kernels (csrc/resid_fwd.cu, csrc/resid_bwd_cl.cu)")
     ap.add_argument("--remat", action="store_true",
                     help="#22 and #24 (csrc/remat_ef.cu's remat pullback) in place of #20")
+    ap.add_argument("--serving", action="store_true",
+                    help="K1 and K2 on both routes (csrc/resid_fwd.cu, csrc/resid_bwd.cu)")
     args = ap.parse_args()
     if args.asan and "libasan" not in os.environ.get("LD_PRELOAD", ""):
         asan = subprocess.run(["g++", "-print-file-name=libasan.so"], capture_output=True,
@@ -588,6 +685,27 @@ def main():
             for hid in args.hidden:
                 for N in args.atoms:
                     worst = max(worst, check_remat(hid, args.depth, args.batch[0], N))
+        print(f"worst {worst:.3e}", flush=True)
+        return
+    if args.serving:
+        from sake_tpu_torch.kernels import resid_ef
+
+        names = [n for n in build.signatures() if n.startswith("sake_resid_")]
+        with tempfile.TemporaryDirectory() as tmp:
+            paths = [compile_source(src, Path(tmp) / Path(src).stem, args.asan)
+                     for src in ("resid_fwd.cu", "resid_bwd.cu")]
+            libs = Libs(*(load(lp, [n for n in names if hasattr(ctypes.CDLL(str(lp)), n)])
+                          for lp in paths))
+            build.load = lambda: libs
+            resid_ef._require_cuda = lambda name, t: None
+            resid_ef._stream = lambda dev: None
+            worst = 0.0
+            for hid in args.hidden:
+                for N in args.atoms:
+                    for masked in (False, True):
+                        worst = max(worst, check_serving(hid, args.depth, args.batch[0], N,
+                                                         masked))
+            worst = max(worst, check_serving_products(libs))
         print(f"worst {worst:.3e}", flush=True)
         return
     if args.train:

@@ -7,10 +7,13 @@ GPU, in one process tree:
         --phases time outputs --time-sets fused
     python3 tools/tc_ab.py --parent <checkout> --phases sass time --time-sets fori depthgrid \
         --kernels remat_bwd_kernel
+    python3 tools/tc_ab.py --parent <checkout> --phases sass time --time-sets serving
 
 1. ``SASS``: builds both trees' kernels at once (``build.build``) and compares
    every object's SASS function by function (``cuobjdump -sass``). Every kernel
-   but those ``--kernels`` names (by default #22's and #24's ``remat_bwd_kernel``;
+   but those ``--kernels`` names (by default K1's and K2's tensor-core kernels,
+   ``resid_fwd_tc_kernel`` and ``resid_bwd_tc_kernel``, and their products'
+   ``resid_tc_product_kernel``; ``remat_bwd_kernel`` for a change to #22 and #24;
    the cluster kernels of #4 and #5, ``resid_fwd_cl_kernel`` and
    ``resid_bwd_cl_kernel``, for a change to those; ``fused_ef_kernel`` and
    ``fused_bwd_kernel`` for a change to #11 and #12's block) must compile to the
@@ -30,7 +33,12 @@ GPU, in one process tree:
    #22, or #23 and #24 (``csrc/remat_ef.cu`` built by itself), at chip_smoke.py
    phase 18's model and the path's chunk, B = 512, and the path's E + F at B =
    2048 (``fori_energy_forces``, ``depthgrid_energy_forces``) with its peak device
-   memory (TC_AB_PEAK lines). Each kernel's runs per tree and their spread.
+   memory (TC_AB_PEAK lines). Set ``serving``: K1 and K2 through their wrappers
+   (each tree's route) at chip_smoke.py phase 4's per-kernel input (aspirin, B =
+   512; ``tools/probe_resid.serving_inputs``) and MD17 serving's path,
+   ``resid_energy_forces`` at B = 2048 in chunks of 512 (``csrc/resid_fwd.cu`` and
+   ``csrc/resid_bwd.cu`` built by themselves). Each kernel's runs per tree and
+   their spread.
 3. ``GRADS``: step 1 of ``md17_kernel``'s fused branch against its plain
    branch (double autograd), per-leaf gradients as max |diff| / max |plain|, at
    batch 4 (``MD17Config``'s) and 512, on four (model init, batch order) seeds,
@@ -62,8 +70,9 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
-# the kernels this change may add or alter: #22's and #24's remat pullback
-NEW_KERNELS = ("remat_bwd_kernel",)
+# the kernels this change may add or alter: K1's and K2's tensor-core kernels
+# and their products' kernel
+NEW_KERNELS = ("resid_fwd_tc_kernel", "resid_bwd_tc_kernel", "resid_tc_product_kernel")
 # (model seed, batch seed): chip_smoke.py's step 1 (MD17Config's seed, batch
 # order RandomState(0)), then three more
 SEEDS = ((2666, 0), (0, 1), (1, 2), (2, 3))
@@ -313,6 +322,51 @@ def remat_times(dev, sets, peaks: dict) -> dict:
     return t
 
 
+def serving_times(dev) -> dict:
+    """The ``serving`` set: K1 and K2 at B = 512 and ``resid_energy_forces`` at B
+    = 2048, on ``csrc/resid_fwd.cu`` and ``csrc/resid_bwd.cu`` built by themselves
+    in the tree on ``sys.path``."""
+    import ctypes
+
+    import torch
+
+    from sake_tpu_torch.data.md17 import synthesize_md17
+    from sake_tpu_torch.kernels import build, resid_ef
+    from sake_tpu_torch.tasks.md17 import species_onehot
+
+    spec = importlib.util.spec_from_file_location("probe_resid", HERE / "tools" / "probe_resid.py")
+    pr = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(pr)
+    path = build.build(("resid_fwd.cu", "resid_bwd.cu"))
+    lib = ctypes.CDLL(str(path))
+    lib = build.declare(lib, [n for n in build.signatures()
+                              if n.startswith("sake_resid") and hasattr(lib, n)]
+                        + ["sake_error_string"])
+    params, leaves, leaves_t, hc, xc, zc, dh, upd = pr.serving_inputs(dev)
+    data = synthesize_md17(n_samples=2048, seed=0)
+    species = species_onehot(data.z, int(data.z.max())).to(dev)
+    x = torch.as_tensor(data.x, device=dev)
+    h = species.expand(x.shape[0], *species.shape).contiguous()
+    t = {}
+    saved, build._lib = build._lib, lib
+    try:
+        with torch.no_grad():
+            fwd = resid_ef.resid_fwd(leaves, hc, xc, zc, upd)
+            B = hc.shape[0]
+            t[f"K1 resid_fwd B={B}"] = cuda_ms(lambda: resid_ef.resid_fwd(leaves, hc, xc, zc, upd))
+            t[f"K2 resid_bwd B={B}"] = cuda_ms(
+                lambda: resid_ef.resid_bwd(leaves, fwd, upd, dh, zc, zc, leaves_t=leaves_t))
+            del fwd
+            t[f"resid_energy_forces B={x.shape[0]}"] = cuda_ms(
+                lambda: resid_ef.resid_energy_forces(params, h, x, n_heads=4))
+        routes = {f: dict(getattr(getattr(resid_ef, f), "routes", {}))
+                  for f in ("resid_fwd", "resid_bwd")}
+        print("TC_AB_ROUTES " + json.dumps(routes), flush=True)
+    finally:
+        build._lib = saved
+    return t
+
+
 def outputs_worker(label: str, out: Path):
     """#20's E and F (both tiers, B = 37 and 2048) into ``out``; the distance at
     B = 37 from the plain versions printed."""
@@ -382,6 +436,8 @@ def time_worker(label: str, sets=("md17",)) -> dict:
 
     dev = torch.device("cuda", 0)
     t = fused_times(dev) if "fused" in sets else {}
+    if "serving" in sets:
+        t |= serving_times(dev)
     remat = [k for k in ("fori", "depthgrid") if k in sets]
     if remat:
         peaks = {}
@@ -584,7 +640,7 @@ def main() -> int:
     ap.add_argument("--phases", nargs="*", default=["sass", "time", "grads", "align"],
                     choices=["sass", "time", "grads", "align", "outputs"])
     ap.add_argument("--time-sets", nargs="*", default=["md17", "qm9"],
-                    choices=["md17", "qm9", "fused", "fori", "depthgrid"])
+                    choices=["md17", "qm9", "fused", "fori", "depthgrid", "serving"])
     ap.add_argument("--kernels", nargs="*", default=list(NEW_KERNELS),
                     help="SASS: the functions (by a part of their names) that may differ")
     args = ap.parse_args()
