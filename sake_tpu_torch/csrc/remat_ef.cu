@@ -29,7 +29,9 @@
 // at depth 6): the memory of E + F is the boundaries, about 35 KB per
 // molecule, and the scratch of the molecules in flight.
 //
-// Design: the forward runs K1's 256-thread block (two per SM); the pullback
+// Design: the forward runs K1's 256-thread block (two per SM), at aspirin's
+// widths on K1's tensor-core body (remat_fwd_kernel<true>, resid_fwd_tc_kernel's
+// layout: the 8-warp W ring before the kTc carve); the pullback
 // one 512-thread block per molecule (K2's size, and mm_tc's 16 warp strips; the
 // forward body loops over the block): the W ring of the tensor-core products,
 // its cotangent state, and one work region that the re-forward and the
@@ -40,14 +42,17 @@
 // the scratch would hold every layer's residuals, K1 + K2's memory, which is
 // what these paths exist to avoid (remat_step.cuh).
 //
-// What bounds it on an H100: #21 and #23 run K1's CUDA-core body without its
-// residual writes, f32 FMA issue and per-row synchronisation. #22 and #24 run
-// K1's and K2's kTc bodies (remat_layer): at aspirin's widths (tc_dims, reported
-// by sake_remat_bwd_tc) the x-mixing product, its transpose and the edge
-// products o_f and o1 take the tensor cores in 3xTF32 on mma.sync (a fraction
-// of the TF32 rate, mma_tf32x3.cuh), the rest of each row the CUDA cores, with
-// block barriers per row and one 512-thread block per SM; elsewhere every
-// product runs on the CUDA cores. E + F costs about one forward more than K1 +
+// What bounds it on an H100: #21 and #23 run K1's body without its residual
+// writes: where fwd_tc_route holds (aspirin's widths, N <= 21) its kTc
+// instantiation, the x-mixing product and o_f, o1 in 3xTF32 on mma.sync, the
+// rest of each row on the CUDA cores; elsewhere the CUDA-core body, the f32
+// FMA rate and per-row synchronisation. #22 and #24 run K1's and K2's kTc bodies
+// (remat_layer): at aspirin's widths (tc_dims, reported by sake_remat_bwd_tc)
+// the x-mixing product, its transpose and the edge products o_f and o1 take
+// the tensor cores in 3xTF32 on mma.sync (a fraction of the TF32 rate,
+// mma_tf32x3.cuh), the rest of each row the CUDA cores, with block barriers
+// per row and one 512-thread block per SM; elsewhere every product runs on the
+// CUDA cores. E + F costs about one forward more than K1 +
 // K2. The per-layer launches of #23 and #24 add depth launches and a read and
 // write of the carried state per layer (about 6 KB per aspirin molecule).
 
@@ -64,7 +69,14 @@ constexpr int kRematBwdThreads = 512;
 // boundary streams bh (depth, B, N, F), bx, bv (depth, 3, B, N) and the state
 // after layer l1 - 1 to h_out, x_out, v_out (x_out null: h only). pool is the
 // (3, B, N, C) scratch of one layer's pooled vectors. The outputs may be the
-// inputs: each block reads its slot before it writes it.
+// inputs: each block reads its slot before it writes it. kTc: K1's
+// tensor-core body in resid_fwd_tc_kernel's layout, the x-mixing product and
+// the edge products o_f and o1 in 3xTF32 on mma.sync through an 8-warp W ring
+// carved first (256 threads, two blocks an SM), taken where fwd_tc_route
+// holds (aspirin's widths, N <= 21); else the CUDA-core body.
+static_assert(kRematFwdThreads == 32 * kTcFwdWarps);
+
+template <bool kTc>
 __global__ void __launch_bounds__(kRematFwdThreads, 2)
 remat_fwd_kernel(Dims d, int l0, int l1, const float* h_in, const float* x_in,
                  const float* v_in, const float* __restrict__ upd, Leaves L, float* bh,
@@ -74,10 +86,17 @@ remat_fwd_kernel(Dims d, int l0, int l1, const float* h_in, const float* x_in,
   const int B = d.B, N = d.N, F = d.F;
   const int tid = threadIdx.x, nt = blockDim.x;
   Carver cv{reinterpret_cast<float*>(smem4)};
-  const FwdSmem S = carve_fwd(cv, d);
+  [[maybe_unused]] float* ring = nullptr;
+  if constexpr (kTc) ring = cv.take(tc_ring_floats<kTcFwdWarps>(d));
+  const FwdSmem S = carve_fwd<kTc>(cv, d);
   fwd_begin(d, S, B, b, h_in, x_in, v_in, nullptr);
-  for (int l = l0; l < l1; ++l)
-    fwd_layer<false, true>(d, S, b, l, upd[l], nullptr, L, bh, bx, bv, pool);
+  for (int l = l0; l < l1; ++l) {
+    if constexpr (kTc)
+      fwd_layer<false, true, false, true, false, kTcFwdWarps>(d, S, b, l, upd[l], nullptr, L,
+                                                              bh, bx, bv, pool, ring);
+    else
+      fwd_layer<false, true>(d, S, b, l, upd[l], nullptr, L, bh, bx, bv, pool);
+  }
 
   for (int e = tid; e < N * F; e += nt) h_out[(size_t)b * N * F + e] = S.sh[e];
   if (x_out) {
@@ -144,9 +163,17 @@ extern "C" int sake_remat_bwd_tc(int B, int N, int F, int H, int R, int K, int C
   return sake::tc_dims(sake::Dims{B, N, F, H, R, K, C, depth}) ? 1 : 0;
 }
 
+// Whether #21 and #23 take remat_fwd_kernel<true> at these widths and N
+// (fwd_tc_route: aspirin's widths, two blocks an SM), 1, or <false>, 0.
+extern "C" int sake_remat_fwd_tc(int B, int N, int F, int H, int R, int K, int C, int depth) {
+  return sake::fwd_tc_route(sake::Dims{B, N, F, H, R, K, C, depth}) ? 1 : 0;
+}
+
+// The shared memory of the forward kernel the shape takes.
 extern "C" long long sake_remat_fwd_smem_bytes(int B, int N, int F, int H, int R, int K, int C,
                                                int depth) {
-  return sake::fwd_smem_floats(sake::Dims{B, N, F, H, R, K, C, depth}) *
+  const sake::Dims d{B, N, F, H, R, K, C, depth};
+  return (sake::fwd_tc_route(d) ? sake::fwd_tc_smem_floats(d) : sake::fwd_smem_floats(d)) *
          (long long)sizeof(float);
 }
 
@@ -156,11 +183,12 @@ extern "C" long long sake_remat_bwd_smem_bytes(int B, int N, int F, int H, int R
          (long long)sizeof(float);
 }
 
-// Layers [l0, l1) of the forward (#21: 0, depth; #23: l, l + 1). h_in (B, N,
-// F), x_in, v_in (3, B, N; v_in null: zeros); bh (depth, B, N, F), bx, bv
-// (depth, 3, B, N): the boundary streams, written at layers l0 ... l1 - 1;
-// pool: a (3, B, N, C) scratch; h_out (B, N, F), x_out, v_out (3, B, N; x_out
-// null: not written) the state after layer l1 - 1.
+// Layers [l0, l1) of the forward (#21: 0, depth; #23: l, l + 1), on
+// remat_fwd_kernel<true> where fwd_tc_route takes the shape, else <false>.
+// h_in (B, N, F), x_in, v_in (3, B, N; v_in null: zeros);
+// bh (depth, B, N, F), bx, bv (depth, 3, B, N): the boundary streams, written
+// at layers l0 ... l1 - 1; pool: a (3, B, N, C) scratch; h_out (B, N, F),
+// x_out, v_out (3, B, N; x_out null: not written) the state after layer l1 - 1.
 extern "C" int sake_remat_fwd(int l0, int l1, const float* h_in, const float* x_in,
                               const float* v_in, const float* upd, const void* const* leaf_ptrs,
                               const long long* leaf_strides, float* bh, float* bx, float* bv,
@@ -168,18 +196,15 @@ extern "C" int sake_remat_fwd(int l0, int l1, const float* h_in, const float* x_
                               int N, int F, int H, int R, int K, int C, int depth, void* stream) {
   using namespace sake;
   const Dims d{B, N, F, H, R, K, C, depth};
-  Resids RS{};
-  const size_t plane = (size_t)B * N * C;
-  RS.p[RS_POOL0] = pool;
-  RS.p[RS_POOL1] = pool + plane;
-  RS.p[RS_POOL2] = pool + 2 * plane;
-  const size_t smem = fwd_smem_floats(d) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(remat_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const bool tc = fwd_tc_route(d);
+  const auto kernel = tc ? remat_fwd_kernel<true> : remat_fwd_kernel<false>;
+  const size_t smem = (tc ? fwd_tc_smem_floats(d) : fwd_smem_floats(d)) * sizeof(float);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  remat_fwd_kernel<<<B, kRematFwdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      d, l0, l1, h_in, x_in, v_in, upd, leaves_of(leaf_ptrs, leaf_strides), bh, bx, bv, RS,
-      h_out, x_out, v_out);
+  kernel<<<B, kRematFwdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      d, l0, l1, h_in, x_in, v_in, upd, leaves_of(leaf_ptrs, leaf_strides), bh, bx, bv,
+      pool_resids(pool, d), h_out, x_out, v_out);
   return (int)cudaGetLastError();
 }
 

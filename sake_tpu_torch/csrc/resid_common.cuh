@@ -74,6 +74,16 @@ inline Resids resids_of(void* const* ptrs) {
   for (int i = 0; i < kResids; ++i) R.p[i] = static_cast<float*>(ptrs[i]);
   return R;
 }
+// The table of a forward that keeps no residuals: only the pooled vectors, in
+// a one-layer (3, B, N, C) scratch.
+inline Resids pool_resids(float* pool, const Dims& d) {
+  Resids R{};
+  const size_t plane = (size_t)d.B * d.N * d.C;
+  R.p[RS_POOL0] = pool;
+  R.p[RS_POOL1] = pool + plane;
+  R.p[RS_POOL2] = pool + 2 * plane;
+  return R;
+}
 inline Rows rows_of(void* const* ptrs) {
   Rows R;
   for (int i = 0; i < kRows; ++i) R.p[i] = static_cast<float*>(ptrs[i]);

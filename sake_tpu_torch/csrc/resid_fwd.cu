@@ -4,14 +4,15 @@
 // Replaces three TPU kernels of sake_tpu/kernels/resid_ef.py, which all run
 // layer_fwd_resid over depth:
 // - resid_energy_forces -> fwd_kernel (the pallas_call at :1157), the E + F
-//   serving forward: this kernel with kStream, no mask;
+//   serving forward: this kernel, no mask;
 // - make_hidden_fn -> fwd_kernel (:1545, body :1484), the training forward
-//   on padded batches: this kernel with kStream and an edge mask (B, N, N);
+//   on padded batches: this kernel or the cluster kernel below, with an edge
+//   mask (B, N, N);
 // - make_hidden_fn -> infer_kernel (:1780, body :1732), the forward no
-//   backward will read: this kernel without kStream, which writes only the
-//   final h and x.
-// With kStream it writes the boundary states (h, x, v) and the 17 residuals
-// the hand-written backward (resid_bwd.cu) reads. The TPU kernels' velocity
+//   backward will read: the cluster kernel without kStream, which writes only
+//   the final h and x.
+// They write the boundary states (h, x, v) and the 17 residuals the
+// hand-written backward (resid_bwd.cu) reads. The TPU kernels' velocity
 // input is v0 here.
 //
 // Masked semantics (layer_fwd_resid with a mask): logits - 1e5 * (1 - m),
@@ -32,9 +33,10 @@
 // streams the row's edge residuals out; the node MLP, velocity gate and
 // x/v update follow once all rows are done. Weights (about 2 MB for the
 // depth-6 model) are read from device memory and stay in L2. The pooled
-// vectors go to device memory even without kStream (to a (3, B, N, C)
-// scratch the wrapper reuses layer after layer): at N = 29 shared memory
-// cannot hold them beside the row buffers.
+// vectors go to device memory: with the residuals, and without them (the
+// cluster kernel without kStream) to a (3, B, N, C) scratch the wrapper reuses
+// layer after layer: at N = 29 shared memory cannot hold them beside the row
+// buffers.
 //
 // What bounds it on an H100: f32 FMA issue, and the synchronisation of a
 // block that works on one receiver row (N edges) at a time. The widest
@@ -49,7 +51,7 @@
 // block needs 146 KB of shared memory, so one block fits an SM where the
 // launch bounds ask for two.
 //
-// The cluster kernel (resid_fwd_cl_kernel, #4 on QM9's batches): at B = 64
+// The cluster kernel (resid_fwd_cl_kernel, #4 and #6 on QM9's batches): at B = 64
 // one block a molecule leaves 68 of an H100's 132 SMs idle, so a molecule
 // takes a cluster of two CTAs on two SMs. Each holds the whole state,
 // computes the node projections of every sender, and runs the row loop and
@@ -61,8 +63,11 @@
 // kernel's, so the pullback and the plain versions read the same tensors. Its
 // x-mixing and edge products run on the tensor cores in 3xTF32 up to N = 32
 // (mma_tf32x3.cuh, four n8 tiles). make_hidden_fn's calls take this route at
-// every batch: on an H100 at N = 29 it measured 0.33-0.64x the one-block
-// kernel's time from B = 64 to 256 (tools/probe_resid.py --phases sweep).
+// every batch, with the streams (#4) and without them (#6, its evaluation):
+// on an H100 at N = 29 #4 measured 0.33-0.64x the one-block kernel's time
+// from B = 64 to 256 (tools/probe_resid.py --phases sweep). Without the
+// streams only the pooled vectors leave the CTA, to its own rows of a
+// one-layer scratch that stays in L2.
 //
 // The tensor-core kernel (resid_fwd_tc_kernel, K1 on MD17 serving's route at
 // aspirin's widths): the same one-block-a-molecule design, but the body's kTc
@@ -80,7 +85,6 @@ namespace sake {
 
 // Two blocks per SM (<= 128 registers) measured faster than one with
 // more registers at aspirin's N = 21.
-template <bool kStream>
 __global__ void __launch_bounds__(256, 2)
 resid_fwd_kernel(Dims d, const float* __restrict__ h0,
                  const float* __restrict__ xs, const float* __restrict__ v0,
@@ -98,13 +102,13 @@ resid_fwd_kernel(Dims d, const float* __restrict__ h0,
   SAKE_PROBE_START();
   fwd_begin(d, S, B, b, h0, xs, v0, mb);
   for (int l = 0; l < d.depth; ++l)
-    fwd_layer<kStream, kStream>(d, S, b, l, upd[l], mb, L, bh, bx, bv, RS);
+    fwd_layer<true, true>(d, S, b, l, upd[l], mb, L, bh, bx, bv, RS);
 
   for (int e = tid; e < N * F; e += nt) h_fin[(size_t)b * N * F + e] = S.sh[e];
   for (int e = tid; e < 3 * N; e += nt) {
     const int k = e / N, i = e % N;
     x_fin[((size_t)k * B + b) * N + i] = S.sx[e];
-    if constexpr (kStream) v_fin[((size_t)k * B + b) * N + i] = S.sv[e];
+    v_fin[((size_t)k * B + b) * N + i] = S.sv[e];
   }
 }
 
@@ -160,7 +164,6 @@ resid_tc_product_kernel(int n, int kd, int m, const float* __restrict__ A,
   else mm_tc_small<3>(n, kd, m, sa, lda, W, st);
 }
 
-template <bool kStream>
 int launch_fwd(const sake::Dims& d, const float* h0, const float* xs, const float* v0,
                const float* upd, const float* mask, const void* const* leaf_ptrs,
                const long long* leaf_strides, float* bh, float* bx, float* bv, float* h_fin,
@@ -168,9 +171,9 @@ int launch_fwd(const sake::Dims& d, const float* h0, const float* xs, const floa
   const Leaves L = leaves_of(leaf_ptrs, leaf_strides);
   const size_t smem = fwd_smem_floats(d) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      resid_fwd_kernel<kStream>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      resid_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  resid_fwd_kernel<kStream><<<d.B, 256, smem, static_cast<cudaStream_t>(stream)>>>(
+  resid_fwd_kernel<<<d.B, 256, smem, static_cast<cudaStream_t>(stream)>>>(
       d, h0, xs, v0, upd, mask, L, bh, bx, bv, h_fin, x_fin, v_fin, RS);
   return (int)cudaGetLastError();
 }
@@ -186,8 +189,12 @@ __host__ __device__ inline long long fwd_cl_smem_floats(const Dims& d) {
   return tc_ring_floats_of<true>(d) + fwd_smem_floats<true, true>(d);
 }
 
-// #4's cluster kernel: molecule blockIdx.x / 2, receiver rows of cluster rank
-// blockIdx.x % 2 (launched with clusters of kClSize along x).
+// The cluster kernel: molecule blockIdx.x / 2, receiver rows of cluster rank
+// blockIdx.x % 2 (launched with clusters of kClSize along x). kStream: #4's
+// kernel, which writes the boundaries, the 17 residuals and the final (h, x,
+// v); without it #6's, which writes only the final h and x, its pooled
+// vectors to slot b of a one-layer (3, B, N, C) scratch (RS_POOL0-2).
+template <bool kStream>
 __global__ void __launch_bounds__(kClFwdThreads, 1)
 resid_fwd_cl_kernel(Dims d, const float* __restrict__ h0, const float* __restrict__ xs,
                     const float* __restrict__ v0, const float* __restrict__ upd,
@@ -205,7 +212,8 @@ resid_fwd_cl_kernel(Dims d, const float* __restrict__ h0, const float* __restric
   SAKE_PROBE_START();
   fwd_begin(d, S, B, b, h0, xs, v0, mb);
   for (int l = 0; l < d.depth; ++l)
-    fwd_layer<true, true, false, true, true>(d, S, b, l, upd[l], mb, L, bh, bx, bv, RS, ring);
+    fwd_layer<kStream, kStream, false, true, true>(d, S, b, l, upd[l], mb, L, bh, bx, bv, RS,
+                                                   ring);
 
   int i0, i1;  // this CTA's nodes
   cl_rows(N, cl_rank(), i0, i1);
@@ -214,8 +222,27 @@ resid_fwd_cl_kernel(Dims d, const float* __restrict__ h0, const float* __restric
   for (int e = tid; e < 3 * nn; e += nt) {
     const int k = e / nn, i = i0 + e % nn;
     x_fin[((size_t)k * B + b) * N + i] = S.sx[k * N + i];
-    v_fin[((size_t)k * B + b) * N + i] = S.sv[k * N + i];
+    if constexpr (kStream) v_fin[((size_t)k * B + b) * N + i] = S.sv[k * N + i];
   }
+}
+
+// The cluster kernel over B molecules (one cluster of two CTAs each) on
+// `stream`; a refused launch returns its error.
+template <bool kStream>
+int launch_fwd_cl(const Dims& d, const float* h0, const float* xs, const float* v0,
+                  const float* upd, const float* mask, const Leaves& L, float* bh, float* bx,
+                  float* bv, float* h_fin, float* x_fin, float* v_fin, const Resids& RS,
+                  void* stream) {
+  const size_t smem = fwd_cl_smem_floats(d) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(resid_fwd_cl_kernel<kStream>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cl_config(d.B, kClFwdThreads, smem, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, resid_fwd_cl_kernel<kStream>, d, h0, xs, v0, upd, mask, L, bh,
+                           bx, bv, h_fin, x_fin, v_fin, RS);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace sake
@@ -237,13 +264,13 @@ extern "C" int sake_resid_fwd_cluster_max_active(int B, int N, int F, int H, int
                                                  int C, int depth) {
   sake::Dims d{B, N, F, H, R, K, C, depth};
   const size_t smem = sake::fwd_cl_smem_floats(d) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(sake::resid_fwd_cl_kernel,
+  cudaError_t err = cudaFuncSetAttribute(sake::resid_fwd_cl_kernel<true>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = sake::cl_config(B, sake::kClFwdThreads, smem, nullptr, &attr);
   int n = 0;
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveClusters(&n, (const void*)sake::resid_fwd_cl_kernel, &cfg);
+    err = cudaOccupancyMaxActiveClusters(&n, (const void*)sake::resid_fwd_cl_kernel<true>, &cfg);
   return err == cudaSuccess ? n : -(int)err;
 }
 
@@ -254,9 +281,9 @@ extern "C" int sake_resid_fwd(const float* h0, const float* xs, const float* v0,
                               float* bh, float* bx, float* bv, float* h_fin, float* x_fin,
                               float* v_fin, void* const* resid_ptrs, int B, int N, int F,
                               int H, int R, int K, int C, int depth, void* stream) {
-  return sake::launch_fwd<true>(sake::Dims{B, N, F, H, R, K, C, depth}, h0, xs, v0, upd,
-                                mask, leaf_ptrs, leaf_strides, bh, bx, bv, h_fin, x_fin,
-                                v_fin, sake::resids_of(resid_ptrs), stream);
+  return sake::launch_fwd(sake::Dims{B, N, F, H, R, K, C, depth}, h0, xs, v0, upd, mask,
+                          leaf_ptrs, leaf_strides, bh, bx, bv, h_fin, x_fin, v_fin,
+                          sake::resids_of(resid_ptrs), stream);
 }
 
 // Whether K1 takes its tensor-core kernel at these widths and N, 1, or
@@ -329,23 +356,6 @@ extern "C" int sake_resid_tc_product(int warps, const float* A, const float* W, 
   return (int)cudaGetLastError();
 }
 
-// The forward without residuals: pool is a (3, B, N, C) scratch for one
-// layer's pooled vectors.
-extern "C" int sake_resid_infer(const float* h0, const float* xs, const float* v0,
-                                const float* upd, const float* mask,
-                                const void* const* leaf_ptrs, const long long* leaf_strides,
-                                float* h_fin, float* x_fin, float* pool, int B, int N, int F,
-                                int H, int R, int K, int C, int depth, void* stream) {
-  sake::Resids RS{};
-  const size_t plane = (size_t)B * N * C;
-  RS.p[sake::RS_POOL0] = pool;
-  RS.p[sake::RS_POOL1] = pool + plane;
-  RS.p[sake::RS_POOL2] = pool + 2 * plane;
-  return sake::launch_fwd<false>(sake::Dims{B, N, F, H, R, K, C, depth}, h0, xs, v0, upd,
-                                 mask, leaf_ptrs, leaf_strides, nullptr, nullptr, nullptr,
-                                 h_fin, x_fin, nullptr, RS, stream);
-}
-
 // #4's cluster route, the arguments of sake_resid_fwd: one molecule per cluster
 // of two CTAs. A refused launch returns its error.
 extern "C" int sake_resid_fwd_cluster(const float* h0, const float* xs, const float* v0,
@@ -355,19 +365,26 @@ extern "C" int sake_resid_fwd_cluster(const float* h0, const float* xs, const fl
                                       float* bv, float* h_fin, float* x_fin, float* v_fin,
                                       void* const* resid_ptrs, int B, int N, int F, int H,
                                       int R, int K, int C, int depth, void* stream) {
+  return sake::launch_fwd_cl<true>(sake::Dims{B, N, F, H, R, K, C, depth}, h0, xs, v0, upd,
+                                   mask, sake::leaves_of(leaf_ptrs, leaf_strides), bh, bx, bv,
+                                   h_fin, x_fin, v_fin, sake::resids_of(resid_ptrs), stream);
+}
+
+// #6: the forward without residuals on the cluster kernel, one molecule per
+// cluster of two CTAs, each writing the final h and x of its receivers; pool is
+// a (3, B, N, C) scratch for one layer's pooled vectors. A refused launch
+// returns its error.
+extern "C" int sake_resid_infer_cluster(const float* h0, const float* xs, const float* v0,
+                                        const float* upd, const float* mask,
+                                        const void* const* leaf_ptrs,
+                                        const long long* leaf_strides, float* h_fin,
+                                        float* x_fin, float* pool, int B, int N, int F, int H,
+                                        int R, int K, int C, int depth, void* stream) {
   const sake::Dims d{B, N, F, H, R, K, C, depth};
-  const sake::Leaves L = sake::leaves_of(leaf_ptrs, leaf_strides);
-  const sake::Resids RS = sake::resids_of(resid_ptrs);
-  const size_t smem = sake::fwd_cl_smem_floats(d) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(sake::resid_fwd_cl_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = sake::cl_config(B, sake::kClFwdThreads, smem, stream, &attr);
-  err = cudaLaunchKernelEx(&cfg, sake::resid_fwd_cl_kernel, d, h0, xs, v0, upd, mask, L, bh,
-                           bx, bv, h_fin, x_fin, v_fin, RS);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return sake::launch_fwd_cl<false>(d, h0, xs, v0, upd, mask,
+                                    sake::leaves_of(leaf_ptrs, leaf_strides), nullptr, nullptr,
+                                    nullptr, h_fin, x_fin, nullptr, sake::pool_resids(pool, d),
+                                    stream);
 }
 
 // The clock probe's slots (probe.cuh) of this source's kernels.

@@ -104,7 +104,8 @@ def signatures() -> dict:
     sig = {
         "sake_resid_fwd": fwd_in + [P] * 6 + [P] + dims + [P],
         "sake_resid_fwd_cluster": fwd_in + [P] * 6 + [P] + dims + [P],
-        "sake_resid_infer": fwd_in + [P] * 3 + dims + [P],
+        # #6 on the cluster kernel: h_fin, x_fin, pool
+        "sake_resid_infer_cluster": fwd_in + [P] * 3 + dims + [P],
         "sake_resid_bwd": bwd_in + dims + [P],
         # K1's and K2's tensor-core kernels: the arguments of the two above
         "sake_resid_fwd_tc": fwd_in + [P] * 6 + [P] + dims + [P],
@@ -166,6 +167,8 @@ def signatures() -> dict:
         # layers l0, l1; h_in, x_in, v_in, upd, leaves, strides, bh, bx, bv, pool, h_out,
         # x_out, v_out
         "sake_remat_fwd": [I, I] + [P] * 13 + dims + [P],
+        # #21's and #23's route (1: the tensor-core kernel)
+        "sake_remat_fwd_tc": dims,
         # layers l_hi, l_lo; bh, bx, bv, upd, leaves, leaves_t, strides, resid, dh_in,
         # dx_in, dv_in, dh_out, dx_out, dv_out
         "sake_remat_bwd": [I, I] + [P] * 14 + dims + [P],

@@ -129,20 +129,25 @@ def depthgrid_fwd(leaves: dict, h0, xs, upd: Sequence[float]) -> Bounds:
     """#23: the layer stack's forward from ``(h0 (B, N, F), xs (3, B, N), v
     = 0)``, one launch per layer, the state carried in device memory from
     launch to launch; each launch writes the state entering its layer.
-    Returns :class:`fori_ef.Bounds`. CPU tensors take the plain version."""
+    Returns :class:`fori_ef.Bounds`. CPU tensors take the plain version. On the
+    card each launch takes the kernel the shape selects
+    (``fori_ef.fwd_tensor_core_route``), counted in ``depthgrid_fwd.launches``
+    and under its route in ``depthgrid_fwd.routes``."""
     if h0.device.type == "cpu":
         return depthgrid_fwd_plain(leaves, h0, xs, upd)
-    lib, dims, upd_t, out, pool = _fwd_setup("depthgrid_fwd", leaves, h0, xs, upd)
+    lib, dims, upd_t, out, pool, route = _fwd_setup("depthgrid_fwd", leaves, h0, xs, upd)
     h, x, v = out.h_fin, xs.clone(), torch.zeros_like(xs)  # the carry, in place
     h.copy_(h0)
     for l in range(dims[7]):
         _launch_fwd(lib, dims, l, l + 1, h, x, v, upd_t, leaves, out, pool, h, x, v,
                     "depthgrid_fwd")
         depthgrid_fwd.launches += 1
+        depthgrid_fwd.routes[route] += 1
     return out
 
 
 depthgrid_fwd.launches = 0
+depthgrid_fwd.routes = dict.fromkeys(ROUTES, 0)
 
 
 def depthgrid_bwd(leaves: dict, bnd: Bounds, upd: Sequence[float], dh_fin, *,

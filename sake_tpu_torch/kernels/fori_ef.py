@@ -13,9 +13,11 @@ residuals, for one forward more of work.
 
 At aspirin's widths (:func:`tensor_core_route`) the pullback's x-mixing product,
 its transpose and the edge products o_f and o1 run on the tensor cores in
-3xTF32 (``csrc/remat_step.cuh``); the narrow models keep the CUDA-core
-products. :func:`fori_bwd` (and ``depthgrid_ef.depthgrid_bwd``) count their
-launches by route in ``.routes``.
+3xTF32 (``csrc/remat_step.cuh``), and so do the forward's x-mixing, o_f and o1
+(:func:`fwd_tensor_core_route`, K1's rule: up to 21 atoms, where two 256-thread
+blocks fit an SM); the narrow models keep the CUDA-core products. The four
+wrappers (these and ``depthgrid_ef``'s) count their launches by route in
+``.routes``.
 
 The plain versions :func:`fori_fwd_plain` and :func:`fori_bwd_plain` run
 ``resid_ef.layer_fwd_resid`` and ``layer_bwd_resid``. The launch helpers here
@@ -110,10 +112,20 @@ def _gates(name, dims, upd, dev):
     return torch.tensor(list(upd), dtype=torch.float32, device=dev)
 
 
+def fwd_tensor_core_route(dims) -> bool:
+    """Whether #21 and #23 take their tensor-core kernel at ``dims`` (``(B, N,
+    F, H, R, K, C, depth)``; the kernel source's ``fwd_tc_route``, K1's rule:
+    ``tc_dims``'s widths and two 256-thread blocks an SM, which at aspirin's
+    widths is N at most 21), else their CUDA-core kernel: an index into
+    ``ROUTES``."""
+    return bool(build.load().sake_remat_fwd_tc(*dims))
+
+
 def _fwd_setup(name, leaves, h0, xs, upd):
     """Checks and outputs of the forward kernels: ``(lib, dims, upd, out,
-    pool)``, ``out`` the empty :class:`Bounds` and ``pool`` the scratch of one
-    layer's pooled vectors."""
+    pool, route)``, ``out`` the empty :class:`Bounds`, ``pool`` the scratch of
+    one layer's pooled vectors and ``route`` the ``ROUTES`` entry the launches
+    take (:func:`fwd_tensor_core_route`)."""
     _require_cuda(name, h0)
     dims = _dims(leaves, h0)
     B, N, F, H, R, K, C, depth = dims
@@ -125,14 +137,19 @@ def _fwd_setup(name, leaves, h0, xs, upd):
     lib = build.load()
     if lib.sake_remat_fwd_smem_bytes(*dims) > _SMEM_LIMIT:
         raise ValueError(f"{name}: N={N} at these widths exceeds one block's shared memory")
+    route = ROUTES[fwd_tensor_core_route(dims)]
+    if route == "tensor cores":
+        _check_tc_leaves(name, leaves)
     empty = lambda *s: torch.empty(s, device=dev, dtype=torch.float32)
     out = Bounds(empty(depth, B, N, F), empty(depth, 3, B, N), empty(depth, 3, B, N),
                  empty(B, N, F))
-    return lib, dims, upd_t, out, empty(3, B, N, C)
+    return lib, dims, upd_t, out, empty(3, B, N, C), route
 
 
 def _launch_fwd(lib, dims, l0, l1, h_in, x_in, v_in, upd_t, leaves, out: Bounds, pool, h_out,
                 x_out, v_out, name):
+    """One launch of the forward over layers ``[l0, l1)``, on the kernel the
+    shape takes. A refused launch raises."""
     err = lib.sake_remat_fwd(
         l0, l1, h_in.data_ptr(), x_in.data_ptr(), None if v_in is None else v_in.data_ptr(),
         upd_t.data_ptr(), _ptrs([leaves[n] for n in LEAF_NAMES]), _strides(leaves),
@@ -194,17 +211,22 @@ def fori_fwd(leaves: dict, h0, xs, upd: Sequence[float]) -> Bounds:
     """#21: the layer stack's forward from ``(h0 (B, N, F), xs (3, B, N), v =
     0)`` in one launch, writing the state entering each layer and the final
     ``h`` (:class:`Bounds`), no residuals. CPU tensors take the plain
-    version."""
+    version. On the card it takes the kernel its shape selects
+    (:func:`fwd_tensor_core_route`: K1's tensor-core body at aspirin's widths),
+    each launch counted in ``fori_fwd.launches`` and under its route in
+    ``fori_fwd.routes``."""
     if h0.device.type == "cpu":
         return fori_fwd_plain(leaves, h0, xs, upd)
-    lib, dims, upd_t, out, pool = _fwd_setup("fori_fwd", leaves, h0, xs, upd)
+    lib, dims, upd_t, out, pool, route = _fwd_setup("fori_fwd", leaves, h0, xs, upd)
     _launch_fwd(lib, dims, 0, dims[7], h0, xs, None, upd_t, leaves, out, pool, out.h_fin, None,
                 None, "fori_fwd")
     fori_fwd.launches += 1
+    fori_fwd.routes[route] += 1
     return out
 
 
 fori_fwd.launches = 0
+fori_fwd.routes = dict.fromkeys(ROUTES, 0)
 
 
 def fori_bwd(leaves: dict, bnd: Bounds, upd: Sequence[float], dh_fin, *,

@@ -23,12 +23,13 @@ Port of ``sake_tpu/kernels/resid_ef.py``:
   the kernel or raises. With ``cluster=True`` (``make_hidden_fn``'s calls),
   :func:`resid_fwd` and :func:`resid_bwd_rows` launch their cluster kernels
   (one molecule per cluster of two CTAs, its receiver rows split between
-  them); each route counts its own launches. Otherwise :func:`resid_fwd` and
-  :func:`resid_bwd` (MD17 serving's K1 and K2) take their tensor-core kernels
-  where the shape allows (:func:`fwd_tensor_core_route`,
-  :func:`bwd_tensor_core_route`: aspirin's widths, K1 up to 21 atoms so that two
-  blocks fit an SM), the CUDA-core kernels elsewhere, and count each launch
-  under its route in ``.routes``.
+  them); each route counts its own launches. :func:`resid_infer` (the
+  evaluation forward of ``make_hidden_fn``) always takes its cluster kernel.
+  Otherwise :func:`resid_fwd` and :func:`resid_bwd` (MD17 serving's K1 and K2)
+  take their tensor-core kernels where the shape allows
+  (:func:`fwd_tensor_core_route`, :func:`bwd_tensor_core_route`: aspirin's
+  widths, K1 up to 21 atoms so that two blocks fit an SM), the CUDA-core
+  kernels elsewhere, and count each launch under its route in ``.routes``.
 - :func:`resid_energy_forces` (JAX ``:978-1330``) orchestrates embed, K1,
   the readout and its seed (plain torch, as the JAX package ran them
   outside Pallas), K2 and ``F = -dx``, per batch chunk so residual memory
@@ -944,24 +945,34 @@ resid_fwd.cluster_launches = 0
 
 def resid_infer(leaves: dict, h0, xs, v0, upd: Sequence[float], mask=None):
     """The layer stack's forward without residuals or boundary states (JAX
-    ``infer_kernel`` ``:1732``): K1's source built without its streams.
-    Returns the final ``h (B, N, F)`` and ``x (3, B, N)``. CPU tensors take
-    the plain version."""
+    ``infer_kernel`` ``:1732``): K1's source built without its streams, on
+    #4's cluster route at every batch (``csrc/resid_fwd.cu``'s
+    ``resid_fwd_cl_kernel<false>``: one molecule per cluster of two CTAs, the
+    x-mixing and edge products in 3xTF32 up to N = 32), each launch counted in
+    ``resid_infer.launches``. Returns the final ``h (B, N, F)`` and ``x (3, B,
+    N)``. CPU tensors take the plain version."""
     if h0.device.type == "cpu":
         return resid_infer_plain(leaves, h0, xs, v0, upd, mask=mask)
+    out = _launch_infer(leaves, h0, xs, v0, upd, mask)
+    resid_infer.launches += 1
+    return out
+
+
+def _launch_infer(leaves, h0, xs, v0, upd, mask):
+    """Checks, allocation and launch of :func:`resid_infer`'s kernel. A
+    refused launch raises."""
     lib, dims, upd_t, m = _fwd_args("resid_infer", leaves, h0, xs, v0, upd, mask)
-    _check_smem(lib, "sake_resid_fwd_smem_bytes", dims, "resid_infer")
+    _check_smem(lib, "sake_resid_fwd_cluster_smem_bytes", dims, "resid_infer")
     B, N, F, H, R, K, C, depth = dims
     empty = lambda *s: torch.empty(s, device=h0.device, dtype=torch.float32)
     h_fin, x_fin = empty(B, N, F), empty(3, B, N)
     pool = empty(3, B, N, C)  # one layer's pooled vectors, reused layer after layer
-    err = lib.sake_resid_infer(
+    err = lib.sake_resid_infer_cluster(
         h0.data_ptr(), xs.data_ptr(), v0.data_ptr(), upd_t.data_ptr(), _ptr(m),
         _ptrs([leaves[n] for n in LEAF_NAMES]), _strides(leaves),
         h_fin.data_ptr(), x_fin.data_ptr(), pool.data_ptr(), *dims, _stream(h0.device),
     )
     build.check(lib, err, "resid_infer")
-    resid_infer.launches += 1
     return h_fin, x_fin
 
 

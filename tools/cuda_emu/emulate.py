@@ -40,19 +40,26 @@ of the 1024-edge chunk) and at narrow widths (C = 12, R = 6, 3 heads), under
 (``csrc/param_grads.cu``) on ``tools/probe_contract.py``'s random inputs at each
 ``--hidden`` x ``--batch`` x ``--atoms`` (``--depth`` layers) against
 ``param_grads_plain`` and ``param_grads_aug_plain``. With ``--qm9`` it runs the
-cluster kernels of #4 and #5's rows kernel (``csrc/resid_fwd.cu``,
+cluster kernels of #4, #6 and #5's rows kernel (``csrc/resid_fwd.cu``,
 ``csrc/resid_bwd_cl.cu``: one molecule per two-CTA cluster, the emulated CTAs of a
 cluster at once, with distributed shared memory and the cluster barrier) through
-``resid_ef._launch_fwd`` and ``_bwd_launch`` on the cluster route, at each
-``--hidden`` x ``--atoms`` N, masked (padded molecules, one of them a single
+``resid_ef._launch_fwd`` and ``_bwd_launch`` on the cluster route, and #6's (the
+same source's cluster kernel without streams) through ``resid_ef._launch_infer``,
+at each ``--hidden`` x ``--atoms`` N, masked (padded molecules, one of them a single
 atom) and unmasked, against ``resid_fwd_plain`` (boundaries, final state, all 17
-residuals) and ``resid_bwd_rows_plain`` (dh, dx, dv, all 20 rows); at hidden 64
+residuals), ``resid_infer_plain`` (h_fin, x_fin; also whether they equal #4's bit
+for bit) and ``resid_bwd_rows_plain`` (dh, dx, dv, all 20 rows); at hidden 64
 (H * K = C = 256) and N <= 32 their products take the emulated tensor cores. With
-``--remat`` it runs #22 and #24 (``csrc/remat_ef.cu``'s ``remat_bwd_kernel``, one
-launch over every layer and one launch per layer) through ``fori_ef._launch_bwd``
-on the plain forward's boundaries at each ``--hidden`` x ``--atoms`` N (``--depth``
-layers, gates 1 and 0.4), against ``fori_bwd_plain`` and ``depthgrid_bwd_plain``;
-at hidden 64 their products take the emulated tensor cores (``tensor_core_route``).
+``--remat`` it runs #21 and #23 (``csrc/remat_ef.cu``'s forward, one launch over
+every layer and one launch per layer) through ``fori_ef._launch_fwd`` on the
+kernel the shape takes (at hidden 64 and N <= 21 ``remat_fwd_kernel<true>``,
+K1's tensor-core body; at N = 22 and the narrow widths ``<false>``), against
+``fori_fwd_plain`` and ``depthgrid_fwd_plain``;
+then #22 and #24 (``remat_bwd_kernel``, the same two orchestrations) through
+``fori_ef._launch_bwd`` on the plain forward's boundaries at each ``--hidden`` x
+``--atoms`` N (``--depth`` layers, gates 1 and 0.4), against ``fori_bwd_plain`` and
+``depthgrid_bwd_plain``; at hidden 64 their products take the emulated tensor
+cores (``tensor_core_route``).
 With ``--serving`` it runs K1 and K2 (``csrc/resid_fwd.cu``, ``csrc/resid_bwd.cu``)
 on both of their one-block routes through ``resid_ef._launch_fwd`` and
 ``_bwd_launch`` at each ``--hidden`` x ``--atoms`` N, masked (padded molecules, one
@@ -88,9 +95,10 @@ from sake_tpu_torch.kernels.adapter import linen_tree, model_params_from_linen  
 from sake_tpu_torch.models import SAKEModel  # noqa: E402
 
 
-def compile_source(source: str, out_dir: Path, asan: bool, extra_src: Path = None) -> Path:
+def compile_source(source: str, out_dir: Path, asan: bool, extra_src: Path = None,
+                   opt=("-O1", "-g")) -> Path:
     """``csrc/<source>`` (or ``extra_src/<source>``) and its headers, launches
-    rewritten, into a shared library."""
+    rewritten, into a shared library (``opt``: g++'s optimisation flags)."""
     src = out_dir / "src"
     src.mkdir(parents=True, exist_ok=True)
     extra = list(extra_src.glob("*.cu")) if extra_src else []
@@ -102,7 +110,7 @@ def compile_source(source: str, out_dir: Path, asan: bool, extra_src: Path = Non
         (src / p.name).write_text(s)
     lib = out_dir / f"{Path(source).stem}.so"
     flags = ["-fsanitize=address", "-fno-omit-frame-pointer"] if asan else []
-    subprocess.run(["g++", "-std=c++20", "-O1", "-g", "-fPIC", "-shared", *flags,
+    subprocess.run(["g++", "-std=c++20", *opt, "-fPIC", "-shared", *flags,
                     "-I", str(Path(__file__).parent), "-I", str(src), "-x", "c++",
                     str(src / source), "-o", str(lib), "-lpthread"], check=True)
     return lib
@@ -345,8 +353,8 @@ def check_train(hid: int, depth: int, B: int, N: int, seed: int = 0):
 
 
 def check_qm9(hid: int, depth: int, B: int, N: int, masked: bool, seed: int = 0):
-    """#4's and #5's cluster kernels against their plain versions; returns the
-    worst relative error."""
+    """#4's, #6's and #5's cluster kernels against their plain versions; returns
+    the worst relative error."""
     from sake_tpu_torch.kernels import resid_ef
     from sake_tpu_torch.kernels.functional import embed
     from sake_tpu_torch.kernels.leaves import wide_stack
@@ -384,6 +392,17 @@ def check_qm9(hid: int, depth: int, B: int, N: int, masked: bool, seed: int = 0)
           f"{all(bool(torch.isfinite(t).all()) for t in kf[:6])} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
+    k6 = resid_ef._launch_infer(leaves, h0, xs, zs, upd, m4)
+    p6 = resid_ef.resid_infer_plain(leaves, h0, xs, zs, upd, mask=m4)
+    errs = {n: _rel(a, b) for n, a, b in zip(("h_fin", "x_fin"), k6, p6)}
+    w = max(errs, key=errs.get)
+    worst = max(worst, errs[w])
+    same = all(torch.equal(a, b) for a, b in zip(k6, (kf.h_fin, kf.x_fin)))
+    print(f"#6 resid_infer cluster hidden {hid} depth {depth} B {B} N {N} "
+          f"{'masked' if masked else 'unmasked'}: max rel err {errs[w]:.3e} ({w}), finite "
+          f"{all(bool(torch.isfinite(t).all()) for t in k6)}, bitwise #4's h_fin and x_fin "
+          f"{same} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
     kb = resid_ef._bwd_launch("resid_bwd_rows", leaves, pf, upd, dh, dx, dv, m4, None, True,
                               route="cluster")
     pb = resid_ef.resid_bwd_rows_plain(leaves, pf, upd, dh, dx, dv, mask=m4)
@@ -399,8 +418,8 @@ def check_qm9(hid: int, depth: int, B: int, N: int, masked: bool, seed: int = 0)
 
 
 def check_remat(hid: int, depth: int, B: int, N: int, seed: int = 0):
-    """#22 and #24 against their plain versions; returns the worst relative
-    error."""
+    """#21 and #23 on the kernel the shape takes, then #22 and #24, against
+    their plain versions; returns the worst relative error."""
     from sake_tpu_torch.kernels import depthgrid_ef, fori_ef
     from sake_tpu_torch.kernels.functional import embed
     from sake_tpu_torch.kernels.leaves import wide_stack
@@ -416,8 +435,37 @@ def check_remat(hid: int, depth: int, B: int, N: int, seed: int = 0):
     upd = ([1.0, 0.4] * depth)[:depth]
     leaves = wide_stack(p, 4)
     bnd = fori_ef.fori_fwd_plain(leaves, h0, xs, upd)
-    names = ("dh0", "dx", "dv")
     worst = 0.0
+    fn = ("bh", "bx", "bv", "h_fin")
+
+    def launch_fwd(label, per_layer):
+        """The forward's launches as ``fori_fwd`` (one) or ``depthgrid_fwd`` (one
+        a layer, the carry in place) make them, and the route they took."""
+        lib, dims, upd_t, out, pool, route = fori_ef._fwd_setup(label, leaves, h0, xs, upd)
+        if not per_layer:
+            fori_ef._launch_fwd(lib, dims, 0, depth, h0, xs, None, upd_t, leaves, out, pool,
+                                out.h_fin, None, None, label)
+            return out, route
+        h, x, v = out.h_fin, xs.clone(), torch.zeros_like(xs)
+        h.copy_(h0)
+        for l in range(depth):
+            fori_ef._launch_fwd(lib, dims, l, l + 1, h, x, v, upd_t, leaves, out, pool, h, x, v,
+                                label)
+        return out, route
+
+    for label, per_layer, plain in (("#21 fori_fwd", False, fori_ef.fori_fwd_plain),
+                                    ("#23 depthgrid_fwd", True, depthgrid_ef.depthgrid_fwd_plain)):
+        want = plain(leaves, h0, xs, upd)
+        t0 = time.perf_counter()
+        got, route = launch_fwd(label, per_layer)
+        errs = {n: _rel(a, b) for n, a, b in zip(fn, got, want)}
+        w = max(errs, key=errs.get)
+        worst = max(worst, errs[w])
+        print(f"{label} hidden {hid} depth {depth} B {B} N {N} gates {upd} on the {route}: max "
+              f"rel err {errs[w]:.3e} ({w}), finite "
+              f"{all(bool(torch.isfinite(t).all()) for t in got)} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    names = ("dh0", "dx", "dv")
     for label, plain in (("#22 fori_bwd", fori_ef.fori_bwd_plain),
                          ("#24 depthgrid_bwd", depthgrid_ef.depthgrid_bwd_plain)):
         t0 = time.perf_counter()
@@ -593,9 +641,10 @@ def main():
     ap.add_argument("--contract", action="store_true",
                     help="the contractions (csrc/sparse_contract.cu, csrc/param_grads.cu)")
     ap.add_argument("--qm9", action="store_true",
-                    help="#4's and #5's cluster kernels (csrc/resid_fwd.cu, csrc/resid_bwd_cl.cu)")
+                    help="#4's, #6's and #5's cluster kernels (csrc/resid_fwd.cu, "
+                         "csrc/resid_bwd_cl.cu)")
     ap.add_argument("--remat", action="store_true",
-                    help="#22 and #24 (csrc/remat_ef.cu's remat pullback) in place of #20")
+                    help="#21-#24 (csrc/remat_ef.cu's forward and remat pullback) in place of #20")
     ap.add_argument("--serving", action="store_true",
                     help="K1 and K2 on both routes (csrc/resid_fwd.cu, csrc/resid_bwd.cu)")
     args = ap.parse_args()
@@ -659,6 +708,7 @@ def main():
             libs = Libs(*(load(compile_source(src, Path(tmp) / Path(src).stem, args.asan), names)
                           for src, names in (
                               ("resid_fwd.cu", ["sake_resid_fwd_cluster",
+                                                "sake_resid_infer_cluster",
                                                 "sake_resid_fwd_cluster_smem_bytes"]),
                               ("resid_bwd_cl.cu", ["sake_resid_bwd_rows_cluster",
                                                    "sake_resid_bwd_cluster_smem_bytes"]))))

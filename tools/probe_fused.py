@@ -324,6 +324,57 @@ def check_remat(dev, B: int = 37, lib=None) -> dict:
     return out
 
 
+def check_remat_fwd(dev, B: int = 37) -> dict:
+    """#21 and #23 against ``fori_fwd_plain`` and ``depthgrid_fwd_plain`` on
+    ``dev`` (bh, bx, bv, h_fin), through their wrappers on the route the shape
+    takes: at aspirin's widths (``k20_inputs``' first B molecules, depth 6) the
+    tensor cores; at those widths with N = 22 (random inputs, B = 4, depth 6),
+    and at hidden 8 and 16 (random inputs, B = 4, N = 7, depth 2, gates 1 and
+    0.4), the CUDA cores. Returns ``{case: (worst max |diff| / max |plain|,
+    route)}``; raises if a wrapper's launch left the route its shape
+    selects."""
+    import torch
+
+    from sake_tpu_torch.kernels import depthgrid_ef, fori_ef, resid_ef
+    from sake_tpu_torch.kernels.adapter import linen_tree, model_params_from_linen
+    from sake_tpu_torch.kernels.functional import embed
+    from sake_tpu_torch.kernels.leaves import wide_stack
+    from sake_tpu_torch.models import SAKEModel
+
+    rel = lambda a, b: float((a - b).abs().max() / (b.abs().max() + 1e-30))
+    cases = {}
+    params, h, x = k20_inputs(dev, B)
+    with torch.no_grad():
+        leaves, upd = wide_stack(params, 4), [1.0] * len(params.layers)
+        cases[f"aspirin B={B}"] = (leaves, embed(params, h).contiguous(),
+                                   x.permute(2, 0, 1).contiguous(), upd)
+        gen = torch.Generator(dev).manual_seed(22)
+        rnd = lambda *shape: torch.randn(*shape, device=dev, generator=gen)
+        cases["hidden 64 B=4 N=22"] = (leaves, rnd(4, 22, 64), 1.5 * rnd(3, 4, 22), upd)
+        for hid in (8, 16):
+            m = SAKEModel(hid, 1, 2, in_features=5, device=dev,
+                          generator=torch.Generator().manual_seed(hid))
+            cases[f"hidden {hid} B=4 N=7"] = (
+                wide_stack(model_params_from_linen(linen_tree(m), device=dev), 4), rnd(4, 7, hid),
+                1.5 * rnd(3, 4, 7), [1.0, 0.4])
+    out = {}
+    for case, (leaves, h0, xs, upd) in cases.items():
+        route = fori_ef.ROUTES[fori_ef.fwd_tensor_core_route(resid_ef._dims(leaves, h0))]
+        with torch.no_grad():
+            for name, fn, plain in (
+                    ("#21", fori_ef.fori_fwd, fori_ef.fori_fwd_plain),
+                    ("#23", depthgrid_ef.depthgrid_fwd, depthgrid_ef.depthgrid_fwd_plain)):
+                want = plain(leaves, h0, xs, upd)
+                before = dict(fn.routes)
+                got = fn(leaves, h0, xs, upd)
+                taken = [r for r in fn.routes if fn.routes[r] != before[r]]
+                if taken != [route]:
+                    raise RuntimeError(f"{name} {case}: launches on {taken}, not the {route}")
+                err = max(rel(a, b) for a, b in zip(got, want))
+                out[f"{name} {case}"] = (err if err == err else float("inf"), route)
+    return out
+
+
 def resid_err(leaves, bnd, upd, dh) -> float:
     """One pullback launch of the last layer (#24's), then its residual scratch
     (that layer's re-forward) against ``resid_ef.layer_fwd_resid``'s: the worst

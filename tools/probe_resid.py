@@ -66,13 +66,13 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = ("resid_fwd.cu", "resid_bwd.cu", "resid_bwd_cl.cu")
-KERNELS = ("resid_fwd_kernelILb1E", "resid_bwd_kernelILb1E", "resid_fwd_cl_kernel",
+KERNELS = ("16resid_fwd_kernelE", "resid_bwd_kernelILb1E", "resid_fwd_cl_kernelILb1E",
            "resid_bwd_cl_kernel")
 # the builds beside the library: (name, sources, defines)
 VARIANTS = (("probe", SOURCES, ("SAKE_PROBE",)),)
 # --serving: K1's and K2's sources, their kernels on both routes and the products
 SERVING_SOURCES = ("resid_fwd.cu", "resid_bwd.cu")
-SERVING_KERNELS = ("resid_fwd_kernelILb1E", "resid_fwd_tc_kernel", "resid_bwd_kernelILb0E",
+SERVING_KERNELS = ("16resid_fwd_kernelE", "resid_fwd_tc_kernel", "resid_bwd_kernelILb0E",
                    "resid_bwd_tc_kernel", "resid_tc_product_kernel")
 SERVING_B = 512  # resid_energy_forces' chunk
 # the tensor-core products of K1's and K2's routes alone, (n, k, m, warps): the
@@ -166,11 +166,12 @@ def routes(inputs):
 
 
 def check_on_card(dev, inputs=None) -> dict:
-    """The cluster kernels of #4 and #5 (``cluster=True``, ``make_hidden_fn``'s
-    route) against their plain versions on ``inputs`` (:func:`qm9_inputs` when
-    None): ``{check: {tensor: max |kernel - plain| / max |plain|}}``, and
-    whether a second launch of each gave the first's outputs bit for bit
-    (``"bitwise"``). Raises if the wrappers took the one-block route."""
+    """The cluster kernels of #4, #6 and #5 (``make_hidden_fn``'s routes; #6
+    through ``resid_infer``) against their plain versions on ``inputs``
+    (:func:`qm9_inputs` when None): ``{check: {tensor: max |kernel - plain| /
+    max |plain|}}``, and whether a second launch of each gave the first's
+    outputs bit for bit (``"bitwise"``). Raises if the wrappers took the
+    one-block route."""
     import torch
 
     from sake_tpu_torch.kernels import resid_ef
@@ -178,15 +179,17 @@ def check_on_card(dev, inputs=None) -> dict:
     leaves, leaves_t, h0, xs, zs, m4, dh, upd = inputs or qm9_inputs(dev)
     rel = lambda a, b: float((a - b).abs().max() / (b.abs().max() + 1e-30))
     n4, n5 = resid_ef.resid_fwd.cluster_launches, resid_ef.resid_bwd_rows.cluster_launches
+    n6 = resid_ef.resid_infer.launches
     with torch.no_grad():
         k4 = [resid_ef.resid_fwd(leaves, h0, xs, zs, upd, m4, cluster=True) for _ in range(2)]
         p4 = resid_ef.resid_fwd_plain(leaves, h0, xs, zs, upd, mask=m4)
+        k6 = [resid_ef.resid_infer(leaves, h0, xs, zs, upd, m4) for _ in range(2)]
         k5 = [resid_ef.resid_bwd_rows(leaves, p4, upd, dh, zs, zs, m4, leaves_t=leaves_t,
                                       cluster=True) for _ in range(2)]
         p5 = resid_ef.resid_bwd_rows_plain(leaves, p4, upd, dh, zs, zs, mask=m4)
         torch.cuda.synchronize()
     if (resid_ef.resid_fwd.cluster_launches - n4, resid_ef.resid_bwd_rows.cluster_launches - n5) \
-            != (2, 2):
+            != (2, 2) or resid_ef.resid_infer.launches - n6 != 2:
         raise RuntimeError("the cluster route was not taken")
     names = ("bh", "bx", "bv", "h_fin", "x_fin", "v_fin")
     fwd_t = lambda o: [*zip(names, o[:6]), *((n, o.resid[n]) for n in resid_ef.RESIDS)]
@@ -196,8 +199,11 @@ def check_on_card(dev, inputs=None) -> dict:
         "resid_fwd_cluster": {n: rel(a, b) for (n, a), (_, b) in zip(fwd_t(k4[0]), fwd_t(p4))},
         "resid_bwd_rows_cluster": {n: rel(a, b)
                                    for (n, a), (_, b) in zip(bwd_t(k5[0]), bwd_t(p5))},
+        "resid_infer_cluster": {"h_fin": rel(k6[0][0], p4.h_fin),
+                                "x_fin": rel(k6[0][1], p4.x_fin)},
         "bitwise": {"resid_fwd_cluster": same(fwd_t(k4[0]), fwd_t(k4[1])),
-                    "resid_bwd_rows_cluster": same(bwd_t(k5[0]), bwd_t(k5[1]))},
+                    "resid_bwd_rows_cluster": same(bwd_t(k5[0]), bwd_t(k5[1])),
+                    "resid_infer_cluster": all(map(torch.equal, k6[0], k6[1]))},
     }
 
 

@@ -8,29 +8,41 @@ GPU, in one process tree:
     python3 tools/tc_ab.py --parent <checkout> --phases sass time --time-sets fori depthgrid \
         --kernels remat_bwd_kernel
     python3 tools/tc_ab.py --parent <checkout> --phases sass time --time-sets serving
+    python3 tools/tc_ab.py --parent <checkout> --phases sass time --time-sets qm9 fori depthgrid
 
 1. ``SASS``: builds both trees' kernels at once (``build.build``) and compares
    every object's SASS function by function (``cuobjdump -sass``). Every kernel
-   but those ``--kernels`` names (by default K1's and K2's tensor-core kernels,
-   ``resid_fwd_tc_kernel`` and ``resid_bwd_tc_kernel``, and their products'
-   ``resid_tc_product_kernel``; ``remat_bwd_kernel`` for a change to #22 and #24;
+   but those ``--kernels`` names (by default #6's cluster kernel,
+   ``resid_fwd_cl_kernel<false>``, #21's and #23's tensor-core kernel,
+   ``remat_fwd_kernel<true>``, and the one-block forward without streams,
+   ``resid_fwd_kernel<false>``, which #6 ran on before and which is gone;
+   ``resid_fwd_tc_kernel``, ``resid_bwd_tc_kernel`` and
+   ``resid_tc_product_kernel`` for a change to K1 and K2 on MD17 serving's
+   route; ``remat_bwd_kernel`` for a change to #22 and #24;
    the cluster kernels of #4 and #5, ``resid_fwd_cl_kernel`` and
    ``resid_bwd_cl_kernel``, for a change to those; ``fused_ef_kernel`` and
    ``fused_bwd_kernel`` for a change to #11 and #12's block) must compile to the
-   parent's instructions; the ptxas lines of the kernels that differ or
-   are new are printed beside the parent's.
+   parent's instructions (a function whose name changed, as #4's cluster kernel
+   became ``resid_fwd_cl_kernel<true>``, ``remat_fwd_kernel`` became
+   ``remat_fwd_kernel<false>`` and ``resid_fwd_kernel<true>`` a plain
+   ``resid_fwd_kernel``, counts as unchanged when its instructions are the parent's
+   function's); the ptxas lines of the kernels
+   that differ or are new are printed beside the parent's.
 2. ``TIME``: kernels timed in worker processes that alternate the trees
    (parent, change, change, parent, parent, change), CUDA events, 3 launches
    after one warm-up. Set ``md17``: K1, K2, #3 and #20 (f32, bf16) at aspirin
    B = 2048 (#3, #20) or 512, #9, #10, #21-#24 at 512, and #11, #12's block
    and its contraction at 512 and 4. Set ``qm9``: at chip_smoke.py phase 5's
-   input (the first ``qm9_kernel`` batch, B = 64, N = 29, masked) #4 and #5's
-   rows kernel on the route ``make_hidden_fn`` takes in that tree (the cluster
-   kernels where the tree has them) and on the one-block route, and the
+   input (the first ``qm9_kernel`` batch, B = 64, N = 29, masked) #6 through
+   ``resid_infer`` (that tree's route: the cluster kernel where it has one), #4
+   and #5's rows kernel on the route ``make_hidden_fn`` takes in that tree (the
+   cluster kernels where the tree has them) and on the one-block route, and the
    ``qm9_kernel`` train step (5 steps a run, after one). Set ``fused``: #20
    alone (``csrc/fused_remat_ef.cu`` built by itself) in f32 and bf16 at
    chip_smoke.py phase 24's B = 2048. Sets ``fori`` and ``depthgrid``: #21 and
-   #22, or #23 and #24 (``csrc/remat_ef.cu`` built by itself), at chip_smoke.py
+   #22, or #23 and #24 (``csrc/remat_ef.cu`` built by itself; each wrapper on the
+   route its tree takes, so the forwards' tensor-core kernel against the parent's
+   CUDA-core one), at chip_smoke.py
    phase 18's model and the path's chunk, B = 512, and the path's E + F at B =
    2048 (``fori_energy_forces``, ``depthgrid_energy_forces``) with its peak device
    memory (TC_AB_PEAK lines). Set ``serving``: K1 and K2 through their wrappers
@@ -70,9 +82,12 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
-# the kernels this change may add or alter: K1's and K2's tensor-core kernels
-# and their products' kernel
-NEW_KERNELS = ("resid_fwd_tc_kernel", "resid_bwd_tc_kernel", "resid_tc_product_kernel")
+# the kernels this change may add, alter or remove: #6's cluster kernel (the
+# cluster forward without streams; with them, #4's, it must keep the parent's
+# instructions under its template name), #21's and #23's tensor-core kernel
+# (remat_fwd_kernel<false> must keep the parent's remat_fwd_kernel's), and the
+# one-block forward without streams, gone
+NEW_KERNELS = ("resid_fwd_cl_kernelILb0E", "remat_fwd_kernelILb1E", "resid_fwd_kernelILb0E")
 # (model seed, batch seed): chip_smoke.py's step 1 (MD17Config's seed, batch
 # order RandomState(0)), then three more
 SEEDS = ((2666, 0), (0, 1), (1, 2), (2, 3))
@@ -158,7 +173,12 @@ def sass_phase(parent: Path, change: Path, kernels=NEW_KERNELS) -> bool:
         differ = [f for f in b if f in a and a[f] != b[f]]
         new = [f for f in b if f not in a]
         gone = [f for f in a if f not in b]
-        print(f"SASS {obj.stem}.cu: {len(same)} of {len(b)} functions identical to the parent's"
+        # a function renamed (made a template's instantiation) with the parent's instructions
+        renamed = {f: g for f in gone for g in new if a[f] == b[g]}
+        new = [f for f in new if f not in renamed.values()]
+        gone = [f for f in gone if f not in renamed]
+        print(f"SASS {obj.stem}.cu: {len(same) + len(renamed)} of {len(b)} functions identical "
+              f"to the parent's" + (f"; renamed {renamed}" if renamed else "")
               + (f"; differing {differ}" if differ else "") + (f"; new {new}" if new else "")
               + (f"; gone {gone}" if gone else ""), flush=True)
         for f in differ + new:
@@ -197,6 +217,9 @@ def qm9_times(dev) -> dict:
     t = {}
     with torch.no_grad():
         fwd = resid_ef.resid_fwd_plain(leaves, h0, xs, zs, upd, mask=m4)
+        # #6 through its wrapper: the route make_hidden_fn's evaluation takes in this tree
+        t[f"#6 resid_infer masked B={B} N={N}"] = cuda_ms(
+            lambda: resid_ef.resid_infer(leaves, h0, xs, zs, upd, m4))
         for route, k in (("make_hidden_fn's route", kw), ("one-block", {})):
             t[f"#4 resid_fwd masked B={B} N={N} {route}"] = cuda_ms(
                 lambda: resid_ef.resid_fwd(leaves, h0, xs, zs, upd, m4, **k))
