@@ -223,19 +223,27 @@ Phases (each prints its own lines; any failure exits non-zero):
    composed and against ``merged_body``, and #28 against its plain version
    (``torch.func.vjp`` of the bodies); then the same on seeded models of
    hidden 8 (50 rbf channels > H*K = 32) and 16, depth 2; limit 1e-4
-   relative per tensor.
+   relative per tensor. Each pullback launch is counted by route
+   (``split_ef``'s ``.routes``): aspirin's on the tensor cores (``64 // N``
+   receiver rows a tile, ``csrc/split_edge.cuh``'s ``split_tc_kernel``), the
+   narrow models' on the CUDA cores. Then ``tools/probe_split.check_pullbacks``:
+   the three pullbacks at aspirin's widths with N = 21, 22 (two rows a tile) and
+   17 (a last group of two rows), and at hidden 8 and 16 (N = 7), against
+   ``vjp_plain`` within 1e-4, two launches bit for bit, each on its route.
 22. The split E + F slice: aspirin requests of B in {37, 512, 2048} through
    ``split_energy_forces`` (which must launch #25 and #26 only) and
    ``merged_energy_forces`` (#27 and #28 only), neither launching a dense
-   kernel, against the plain f32 autograd path with phase 4's limits. Then
-   at B = 2048 split, merged, K1 + K2 and plain in turns with each path's
-   peak device memory, each new kernel at the path's shapes beside its plain
-   version and its bound, and a BREAKDOWN of both paths.
+   kernel, every pullback on the tensor cores, against the plain f32 autograd
+   path with phase 4's limits. Then at B = 2048 split, merged, K1 + K2 and
+   plain in turns with each path's peak device memory, each new kernel at the
+   path's shapes beside its plain version and its bound (the pullbacks' x-mixing
+   and edge products in 3xTF32 at 3 passes over 495 TFLOP/s, ``split_tc_fma``),
+   and a BREAKDOWN of both paths.
 23. The weight cotangents on the card: at B = 512 the gradient of the summed
    energy with respect to every edge weight of every layer (the CFConv
    tensors, w_sem, b_sem, w_xmix) and x through ``split_ef.model_energy``
-   (split ops and merged op) against plain autograd of the same model, 1e-4
-   relative per leaf.
+   (split ops and merged op, the pullbacks on the tensor cores) against plain
+   autograd of the same model, 1e-4 relative per leaf.
 
 24. #20 (``csrc/fused_remat_ef.cu``, ``kernels.fused_energy_forces``) in f32
    and in its bf16 default: against its plain version (``fused_ef_plain``) at
@@ -370,6 +378,13 @@ def resid_probe_module():
     """``tools/probe_resid.py`` (K1's and K2's serving checks and their
     tensor-core products against float64)."""
     return _load("probe_resid", "tools", "probe_resid.py")
+
+
+@functools.lru_cache(maxsize=None)
+def split_probe_module():
+    """``tools/probe_split.py`` (the split pullbacks' inputs and their checks
+    against plain on the card)."""
+    return _load("probe_split", "tools", "probe_split.py")
 
 
 @functools.lru_cache(maxsize=None)
@@ -2731,33 +2746,32 @@ def split_fma(R, H, K, C):
                 merged_bwd=ea + cp + ea_pull + cp_pull)
 
 
-def split_layer0_args(params, h, x, n_heads: int) -> dict:
-    """Layer 0's arguments of the three split ops, as the entry points build
-    them (embedded species, the node projections in torch)."""
-    import torch
+def split_tc_fma(R, H, K, C):
+    """Of ``split_fma``'s multiply-adds per edge, those a pullback runs on the
+    tensor cores in 3xTF32 on its tensor-core route (``csrc/split_edge.cuh``'s
+    ``split_group``): the edge_att pullback's o_f, o1, d_h_e @ w1^T and d_e0 @
+    w_r^T; the coeff_pool pullback's x-mixing product and its transpose; the
+    merged pullback both. The forwards run none."""
+    ea, cp = 2 * (R * H + H * H), 2 * H * K * C
+    return dict(edge_att_fwd=0, coeff_pool_fwd=0, edge_att_bwd=ea, coeff_pool_bwd=cp,
+                merged_fwd=0, merged_bwd=ea + cp)
 
-    from sake_tpu_torch.kernels import split_ef as se
-    from sake_tpu_torch.kernels.functional import embed
 
-    F = params.w_embed.shape[-1]
-    lp = params.layers[0]
-    e = lp.edge
-    R = e.w_in.shape[-1]
-    with torch.no_grad():
-        hc = embed(params, h)
-        xp = [x[..., k : k + 1].contiguous() for k in range(3)]
-        halves = [(hc @ e.w_in[:F]).contiguous(), (hc @ e.w_in[F:] + e.b_in).contiguous(),
-                  (hc @ e.w_out0[:F]).contiguous(), (hc @ e.w_out0[F : 2 * F]).contiguous()]
-        w = [t.detach().contiguous() for t in se.edge_weights(lp, F, R)]
-        he, att = se.edge_att_body(*xp, *halves, *w)
-    wx = lp.w_xmix.detach().contiguous()
-    return {"edge_att": (*xp, *halves, *w), "coeff_pool": (*xp, he, att, wx),
-            "merged": (*xp, *halves, *w, wx)}
+def split_routes(own) -> dict:
+    """``{wrapper name: {route: launches}}`` of the pullbacks among ``own``."""
+    return {c.__name__: dict(c.routes) for c in own if hasattr(c, "routes")}
+
+
+def reset_split_counts(own):
+    for c in own:
+        c.launches = 0
+        if hasattr(c, "routes"):
+            c.routes = dict.fromkeys(c.routes, 0)
 
 
 def split_checks(args: dict, seed: int) -> dict:
     """#25-#28 against their plain versions on the ops' arguments ``args``
-    (:func:`split_layer0_args`) and seeded cotangents; #27 also against #25's
+    (``tools/probe_split.layer0_args``) and seeded cotangents; #27 also against #25's
     two kernels composed. Checks as :func:`report_checks` takes them."""
     import torch
 
@@ -2813,13 +2827,26 @@ def split_phases(dev, smi) -> list:
     h_of = lambda B: species.expand(B, N, -1)
     own = {"split": (se.edge_att_fwd, se.coeff_pool_fwd, se.edge_att_bwd, se.coeff_pool_bwd),
            "merged": (se.merged_fwd, se.merged_bwd)}
+    every = (*own["split"], *own["merged"])
     dense = dense_counters()
+    ps = split_probe_module()
+
+    def on_route(label: str, want: str):
+        """Fail unless every pullback launch since the counts were reset took
+        the route ``want``."""
+        routes = split_routes(every)
+        print(f"SPLIT ROUTES {label}: {json.dumps(routes)}", flush=True)
+        if any(n for r in routes.values() for k, n in r.items() if k != want):
+            fail(f"split pullbacks {label} off the {want} route: {routes}")
 
     # -- 21. #25-#28 against their plain versions at full width, then narrow -------
     Bc = TRAIN_CHECK_B
     abs_split = {}
-    report_checks(split_checks(split_layer0_args(params, h_of(Bc), xs_all[:Bc], heads), 21),
+    reset_split_counts(every)
+    report_checks(split_checks(ps.layer0_args(params, h_of(Bc), xs_all[:Bc], heads), 21),
                   abs_split, f"vs plain (B={Bc}, N={N}, layer 0)", prefix="SPLIT")
+    on_route(f"at aspirin B={Bc}", "tensor cores")
+    reset_split_counts(every)
     for hid in (8, 16):  # 50 rbf channels against H*K = 32 and 64
         m = SAKEModel(hid, 1, 2, in_features=5, device=dev,
                       generator=torch.Generator().manual_seed(hid))
@@ -2827,25 +2854,37 @@ def split_phases(dev, smi) -> list:
         gen = torch.Generator(dev).manual_seed(hid)
         hm = torch.randn(4, 7, 5, device=dev, generator=gen)
         xm = 1.5 * torch.randn(4, 7, 3, device=dev, generator=gen)
-        report_checks(split_checks(split_layer0_args(pm, hm, xm, 4), hid), {},
+        report_checks(split_checks(ps.layer0_args(pm, hm, xm, 4), hid), {},
                       f"at hidden {hid} (B=4, N=7, depth 2)", prefix="SPLIT")
+    on_route("at hidden 8 and 16", "CUDA cores")
+    # the tensor-core route's groups: three rows a tile (N = 21), two (N = 22), a
+    # last group of two rows (N = 17); the narrow models on the CUDA cores
+    for (label, kind), (err, route, bitwise) in ps.check_pullbacks(dev).items():
+        want = "tensor cores" if label.startswith("hidden 64") else "CUDA cores"
+        print(f"SPLIT ROUTE CHECK {kind}_bwd {label}: max rel err {err:.3e}, route {route}, two "
+              f"launches bitwise {bitwise}", flush=True)
+        if not (err <= SPLIT_TOL and bitwise and route == want):
+            fail(f"SPLIT ROUTE CHECK {kind}_bwd {label}: beyond {SPLIT_TOL}, not bitwise or "
+                 f"off the {want} route")
 
     # -- 22. the E + F slice through split_energy_forces and merged_energy_forces --
     paths = {"split": se.split_energy_forces, "merged": se.merged_energy_forces}
     answers, launches = {}, {}
     for name, fn in paths.items():
-        for c in (*own["split"], *own["merged"], *dense):
+        reset_split_counts(every)
+        for c in dense:
             c.launches = 0
         for B in SPLIT_REQUESTS:
             answers[(name, B)] = fn(params, h_of(B), xs_all[:B], n_heads=heads)
         torch.cuda.synchronize()
-        launches[name] = {c.__name__: c.launches for c in (*own["split"], *own["merged"])}
-        others = [c for c in (*own["split"], *own["merged"]) if c not in own[name]]
+        launches[name] = {c.__name__: c.launches for c in every}
+        others = [c for c in every if c not in own[name]]
         print(f"SPLIT SLICE {name} launches {json.dumps(launches[name])}, dense kernels "
               f"{sum(c.launches for c in dense)}", flush=True)
         if (min(c.launches for c in own[name]) == 0 or any(c.launches for c in others)
                 or any(c.launches for c in dense)):
             fail(f"the {name} path did not launch only its own kernels")
+        on_route(f"of the {name} path", "tensor cores")
 
     def plain_ef(x, chunk=CHECK_CHUNK):
         return chunked_plain_ef(params, species, x, heads, chunk)
@@ -2889,7 +2928,7 @@ def split_phases(dev, smi) -> list:
         for k, v in ms.items()) + f" (runs {json.dumps(runs)}; {smi})", flush=True)
 
     # each kernel at the path's shapes: one layer of the 2048-molecule request
-    args = split_layer0_args(params, hb, xb, heads)
+    args = ps.layer0_args(params, hb, xb, heads)
     with torch.no_grad():
         args["coeff_pool"] = (*args["coeff_pool"][:3], *se.edge_att_fwd(*args["edge_att"]),
                               args["coeff_pool"][5])
@@ -2920,9 +2959,18 @@ def split_phases(dev, smi) -> list:
               + f") = {inside:.3f} ms, the rest (embedding, node-level math, its autograd, "
               f"readout, host gaps) {ms[name] - inside:.3f} ms", flush=True)
     fma = {k: v * Bt * N * N for k, v in split_fma(50, F, heads, 256).items()}
-    print("SPLIT BOUNDS (ms, by): " + json.dumps(
-        {k: [round(bound(fma[k], moved[k])[0], 4), bound(fma[k], moved[k])[1]] for k in t}),
-        flush=True)
+    # the pullbacks' tensor-core products where they take that route (aspirin's)
+    tc_route = {f"{k}_bwd": se.tensor_core_route(k, se._dims(k, a)) for k, a in args.items()}
+    tc = {k: v * Bt * N * N * tc_route.get(k, False)
+          for k, v in split_tc_fma(50, F, heads, 256).items()}
+    print(f"SPLIT BOUNDS (ms, by; the pullbacks' x-mixing and edge products on their "
+          f"tensor-core route in 3xTF32 at {TF32_PASSES} passes over "
+          f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s, the rest at {PEAK_F32_FLOPS / 1e12:.0f}, "
+          f"beside the bound with every product at the f32 rate): " + json.dumps(
+              {k: [round(bound(fma[k], moved[k], tc=tc[k])[0], 4),
+                   bound(fma[k], moved[k], tc=tc[k])[1]]
+                  + ([round(bound(fma[k], moved[k])[0], 4)] if tc[k] else []) for k in t}),
+          flush=True)
     sites = {"edge_att_fwd": ("split_fwd.cu", "split_ef.py:158", "split"),
              "coeff_pool_fwd": ("split_fwd.cu", "split_ef.py:158", "split"),
              "edge_att_bwd": ("split_bwd.cu", "split_ef.py:212", "split"),
@@ -2930,7 +2978,7 @@ def split_phases(dev, smi) -> list:
              "merged_fwd": ("split_fwd.cu", "split_ef.py:448", "merged"),
              "merged_bwd": ("split_bwd.cu", "split_ef.py:513", "merged")}
     kernels = [kernel_entry(k, "sake_tpu_torch/csrc/" + src, "sake_tpu/kernels/" + at,
-                            launches[path][k], abs_split[k], *t[k], fma[k], moved[k])
+                            launches[path][k], abs_split[k], *t[k], fma[k], moved[k], tc=tc[k])
                for k, (src, at, path) in sites.items()]
     del args, cots
 
@@ -2952,8 +3000,7 @@ def split_phases(dev, smi) -> list:
         want = [a + b for a, b in zip(want, g)]
     for merged in (False, True):
         name = "merged" if merged else "split"
-        for c in (*own["split"], *own["merged"]):
-            c.launches = 0
+        reset_split_counts(every)
         with torch.enable_grad():
             e = se.model_energy(prm, hg, xg, n_heads=heads, merged=merged)
             got = torch.autograd.grad(e.sum(), leaves)
@@ -2967,6 +3014,7 @@ def split_phases(dev, smi) -> list:
             fail(f"the {name} weight cotangents beyond {SPLIT_TOL}")
         if min(c.launches for c in own[name]) == 0:
             fail(f"the {name} weight cotangents did not run through its kernels")
+        on_route(f"of the {name} weight cotangents", "tensor cores")
     return kernels
 
 

@@ -38,6 +38,14 @@ enum ProbeSlot {
   // (the barrier waits and the remote stores or reads), and the pullback's
   // node rows
   PR_FWD_OF_MM, PR_FWD_O1_MM, PR_BWD_OF_MM, PR_BWD_O1_MM, PR_FWD_CL, PR_BWD_CL, PR_BWD_ROWS,
+  // the split pullbacks (split_edge.cuh, both routes): loads and geometry, the
+  // forward's edge products o_f and o1, the x-mixing product and its transpose,
+  // their epilogues (he_att, d_u, d_xm, d_h_e, d_att), the rest of the rows,
+  // thread 0's waits at the block barriers (SPLIT_SYNC), the semantic attention
+  // (sem, the softmax and their pullbacks) and the pullback's edge products (d_e0,
+  // d_filtered and their sums)
+  PR_SPL_LOAD, PR_SPL_MM, PR_SPL_XMIX, PR_SPL_EPI, PR_SPL_ROW, PR_SPL_BAR, PR_SPL_SEM,
+  PR_SPL_MM_B,
   kProbeSlots
 };
 

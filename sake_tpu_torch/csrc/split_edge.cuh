@@ -1,6 +1,6 @@
-// The O(N^2) middle of a dense SAKE layer as the split ops compute it, one
-// receiver row at a time, and its hand-written pullback: the body of the
-// split kernels #25-#28 (split_fwd.cu, split_bwd.cu).
+// The O(N^2) middle of a dense SAKE layer as the split ops compute it, and its
+// hand-written pullback: the body of the split kernels #25-#28 (split_fwd.cu,
+// split_bwd.cu).
 //
 // Port of sake_tpu/kernels/split_ef.py: _edge_att_body (:56-75),
 // _coeff_pool_body (:101-116) and _merged_body (:394-403), followed line by
@@ -13,25 +13,54 @@
 // - kCP, the coeff_pool op: positions, h_e and att -> the pooled planes
 //   (B, N, C) x 3 and hatt_sum (B, N, H * Kh);
 // - both, the merged op: h_e and att stay in shared memory.
-// With kPull the row runs its forward again and then the pullback of the
-// cotangents of its outputs; with kRows it also writes the per-edge
-// cotangent rows (SplitRow) whose contraction over all edges is the weight
-// cotangent (sparse_contract.cu sums them in a fixed order).
+// A pullback runs its forward again and then the pullback of the cotangents
+// of its outputs; with kRows it also writes the per-edge cotangent rows
+// (SplitRow) whose contraction over all edges is the weight cotangent
+// (sparse_contract.cu sums them in a fixed order).
 //
 // Everything forward is local to a receiver row i, so a forward block owns
-// one row. The pullback is not: x_j, a_j and o_j get cotangents from every
-// receiver. A pullback block owns a whole molecule, runs its N rows in
-// order and adds the sender-side cotangents into shared memory (N * (R + H
-// + 3) floats) one thread per element, so results do not vary from run to
-// run (no atomics). The products reuse the sparse edge chain's helpers
-// (sparse_edge.cuh): mm_wide stages kWTile rows of a weight (w_xmix is 256
-// KB) in shared memory, mmT streams narrow ones from L2. The head
-// expansion he_att[j, h * Kh + k] = h_e[j, h] * att[j, k] runs in chunks of
-// at most 16 senders. The softmax's cotangent row sums run in f64: they
-// cancel.
+// one row (split_row, kPull false). The pullback is not: x_j, a_j and o_j get
+// cotangents from every receiver. A pullback block owns a whole molecule and
+// adds the sender-side cotangents into shared memory (N * (R + H + 3)
+// floats) one thread per element, in row order, so results do not vary from
+// run to run (no atomics). It has two routes, chosen per shape by split_bwd_tc:
+// - the CUDA-core route (split_kernel, kPull): the molecule's N rows one after
+//   another through split_row. The products reuse the sparse edge chain's
+//   helpers (sparse_edge.cuh): mm_wide stages kWTile rows of a weight (w_xmix
+//   is 256 KB) in shared memory, mmT streams narrow ones from L2; the head
+//   expansion he_att[j, h * Kh + k] = h_e[j, h] * att[j, k] and the x-mixing
+//   run in chunks of at most 16 senders. The forwards #25 and #27 run this
+//   body too, a row a block.
+// - the tensor-core route (split_tc_kernel, split_group): g = 64 / N receiver
+//   rows at a time (three at aspirin's 21 atoms, 63 edges), their edges stacked
+//   as the rows of one 64-row tile X, so that the x-mixing product and its
+//   transpose each run once per group on wgmma in 3xTF32 (wgmma_tf32.cuh's
+//   wg_xmix, w_xmix's packed planes streamed through a ring of bulk copies),
+//   and the edge products o_f, o1, d_h_e @ w1^T and d_e0 @ w_r^T on mma.sync
+//   in 3xTF32 (mma_tf32x3.cuh's mm_tc_small) over the group's edges. The
+//   products with the 4 heads on one side (h_e @ w_sem, d_sem @ w_sem^T) stay
+//   on the CUDA cores (mmT): k or n = 4 fills half an m16n8k8 tile at most.
+//   Taken where H * Kh = 256 (and C = 256 where the op mixes x), R and H are at
+//   most kTcSmallK, N at most kWgRows and the carve fits one block.
+// The softmax's cotangent row sums run in f64 on both routes: they cancel.
 #pragma once
 
 #include "sparse_edge.cuh"
+
+// A block barrier of the split bodies, marked for the clock probe (probe.cuh,
+// -DSAKE_PROBE): thread 0 charges its own work since its last mark to slot,
+// then its wait for the block's slowest thread to PR_SPL_BAR. Otherwise a
+// barrier.
+#ifdef SAKE_PROBE
+#define SPLIT_SYNC(slot)                  \
+  do {                                    \
+    SAKE_PROBE(slot);                     \
+    __syncthreads();                      \
+    SAKE_PROBE(::sake::PR_SPL_BAR);       \
+  } while (0)
+#else
+#define SPLIT_SYNC(slot) __syncthreads()
+#endif
 
 namespace sake {
 
@@ -204,7 +233,7 @@ __device__ void split_row(const SplitArgs& A, const SSmem& S, int b, int i, int 
     for (int q = tid; q < 3 * C; q += nt) S.pool[q] = 0.f;
     for (int q = tid; q < HK; q += nt) S.hs[q] = 0.f;
   }
-  __syncthreads();
+  SPLIT_SYNC(PR_SPL_LOAD);
 
   if constexpr (kEA) {
     // -- pre = a_j + a_i (b_in folded into a_i); rbf = exp(-b (t - m)^2)
@@ -214,24 +243,24 @@ __device__ void split_row(const SplitArgs& A, const SSmem& S, int b, int i, int 
       const float tm = S.t[j] - A.rbf_m[c];
       S.rbf[q] = expf(-A.rbf_b[c] * (tm * tm));
     }
-    __syncthreads();
+    SPLIT_SYNC(PR_SPL_ROW);
     // -- e0 = o_j + o_i + (rbf * pre) @ w_r + r * w_rr + b0
     mmT<float>(N, R, H, [&](int r, int k) { return S.rbf[r * R + k] * S.pre[r * R + k]; }, A.w_r,
                [&](int r, int c, float v) {
                  S.e0[r * H + c] = A.oj[(mol + r) * H + c] + S.oi[c] + v + S.r[r] * A.w_rr[c] +
                                    A.b0[c];
                });
-    __syncthreads();
+    SPLIT_SYNC(PR_SPL_MM);
     for (int q = tid; q < N * H; q += nt) S.se[q] = siluf_(S.e0[q]);
-    __syncthreads();
+    SPLIT_SYNC(PR_SPL_ROW);
     // -- h_e = silu(e0) @ w1 + b1
     mm_wide<float>(N, H, H, S.se, H, A.w1, S.ws,
                    [&](int r, int c, float v) { S.he[r * H + c] = v + A.b1[c]; });
-    __syncthreads();
+    SPLIT_SYNC(PR_SPL_MM);
     // -- sem_pre = h_e @ w_sem + b_sem
     mmT<float, 1>(N, H, Kh, [&](int r, int k) { return S.he[r * H + k]; }, A.w_sem,
                   [&](int r, int c, float v) { S.sem[r * Kh + c] = v + A.b_sem[c]; });
-    __syncthreads();
+    SPLIT_SYNC(PR_SPL_SEM);
     // -- att = softmax over j of celu2(sem_pre) - kInf * [j == i], one thread a head
     for (int k = tid; k < Kh; k += nt) {
       float mx = -INFINITY;
@@ -248,7 +277,7 @@ __device__ void split_row(const SplitArgs& A, const SSmem& S, int b, int i, int 
       }
       for (int j = 0; j < N; ++j) S.att[j * Kh + k] = S.att[j * Kh + k] / sum;
     }
-    __syncthreads();
+    SPLIT_SYNC(PR_SPL_SEM);
     if constexpr (!kCP && !kPull) {
       for (int q = tid; q < N * H; q += nt) A.he_out[eb * H + q] = S.he[q];
       for (int q = tid; q < N * Kh; q += nt) A.att_out[eb * Kh + q] = S.att[q];
@@ -263,11 +292,11 @@ __device__ void split_row(const SplitArgs& A, const SSmem& S, int b, int i, int 
         const int e = q / HK, p = q % HK;
         S.wa[q] = S.he[(c0 + e) * H + p / Kh] * S.att[(c0 + e) * Kh + p % Kh];
       }
-      __syncthreads();
+      SPLIT_SYNC(PR_SPL_EPI);
       // coeff = tanh(he_att @ w_xmix)
       mm_wide<float>(n, HK, C, S.wa, HK, A.w_xmix, S.ws,
                      [&](int r, int c, float v) { S.wb[r * C + c] = tanhf(v); });
-      __syncthreads();
+      SPLIT_SYNC(PR_SPL_XMIX);
       if constexpr (!kPull) {
         // pooled_k = sum_j coeff * d_k * inv_r; hatt_sum = sum_j he_att
         for (int c = tid; c < C; c += nt) {
@@ -296,7 +325,7 @@ __device__ void split_row(const SplitArgs& A, const SSmem& S, int b, int i, int 
           for (int c = 0; c < C; ++c) acc += S.wb[e * C + c] * S.gp[k * C + c];
           S.du[k * N + c0 + e] = acc;
         }
-        __syncthreads();
+        SPLIT_SYNC(PR_SPL_EPI);
         // d_xm = (sum_k g_pooled_k * u_k) * (1 - tanh^2), in place
         for (int q = tid; q < n * C; q += nt) {
           const int e = q / C, c = q % C, j = c0 + e;
@@ -308,13 +337,13 @@ __device__ void split_row(const SplitArgs& A, const SSmem& S, int b, int i, int 
         }
         if constexpr (kRows)
           for (int q = tid; q < n * HK; q += nt) A.rows[SR_HE_ATT][(eb + c0) * HK + q] = S.wa[q];
-        __syncthreads();
+        SPLIT_SYNC(PR_SPL_EPI);
         if constexpr (kRows)
           for (int q = tid; q < n * C; q += nt) A.rows[SR_D_XM][(eb + c0) * C + q] = S.wb[q];
         // d_he_att = d_xm @ w_xmix^T + g_hatt_sum
         mm_wide<float>(n, C, HK, S.wb, C, A.t_xmix, S.ws,
                        [&](int r, int c, float v) { S.wa[r * HK + c] = v + S.ghs[c]; });
-        __syncthreads();
+        SPLIT_SYNC(PR_SPL_XMIX);
         // d_h_e = sum_k d_he_att * att; d_att = sum_h d_he_att * h_e
         for (int q = tid; q < n * H; q += nt) {
           const int e = q / H, h = q % H;
@@ -329,7 +358,7 @@ __device__ void split_row(const SplitArgs& A, const SSmem& S, int b, int i, int 
           S.gatt[(c0 + e) * Kh + k] = acc;
         }
       }
-      __syncthreads();
+      SPLIT_SYNC(PR_SPL_EPI);
     }
     if constexpr (!kPull) {
       for (int q = tid; q < 3 * C; q += nt) A.pool[q / C][row * C + q % C] = S.pool[q];
@@ -351,7 +380,7 @@ __device__ void split_row(const SplitArgs& A, const SSmem& S, int b, int i, int 
         S.sem[p] = (float)((double)S.att[p] * ((double)S.gatt[p] - q)) * dcelu2_(S.sem[p]);
       }
     }
-    __syncthreads();
+    SPLIT_SYNC(PR_SPL_SEM);
     // -- d_h_e = g_h_e + d_sem @ w_sem^T
     mmT<float>(N, Kh, H, [&](int r, int k) { return S.sem[r * Kh + k]; }, A.t_sem,
                [&](int r, int c, float v) { S.ghe[r * H + c] += v; });
@@ -362,13 +391,13 @@ __device__ void split_row(const SplitArgs& A, const SSmem& S, int b, int i, int 
       }
       for (int q = tid; q < N * Kh; q += nt) A.rows[SR_D_SEM][eb * Kh + q] = S.sem[q];
     }
-    __syncthreads();
+    SPLIT_SYNC(PR_SPL_SEM);
     if constexpr (kRows)
       for (int q = tid; q < N * H; q += nt) A.rows[SR_D_H_E][eb * H + q] = S.ghe[q];
     // -- d_e0 = (d_h_e @ w1^T) * silu'(e0), in place of e0
     mm_wide<float>(N, H, H, S.ghe, H, A.t_1, S.ws,
                    [&](int r, int c, float v) { S.e0[r * H + c] = v * dsiluf_(S.e0[r * H + c]); });
-    __syncthreads();
+    SPLIT_SYNC(PR_SPL_MM_B);
     // -- d_r = d_e0 . w_rr; d_filtered = d_e0 @ w_r^T; d_o_i = sum_j d_e0; the
     //    senders' d_o_j += d_e0
     for (int j = tid; j < N; j += nt) {
@@ -388,7 +417,7 @@ __device__ void split_row(const SplitArgs& A, const SSmem& S, int b, int i, int 
       for (int q = tid; q < N * H; q += nt) A.rows[SR_D_E0][eb * H + q] = S.e0[q];
       for (int j = tid; j < N; j += nt) A.rows[SR_R][eb + j] = S.r[j];
     }
-    __syncthreads();
+    SPLIT_SYNC(PR_SPL_MM_B);
     // -- d_t = sum_R d_filtered * pre * rbf * (-2 b (t - m)); d_r -= t d_t
     for (int j = tid; j < N; j += nt) {
       float acc = 0.f;
@@ -408,10 +437,10 @@ __device__ void split_row(const SplitArgs& A, const SSmem& S, int b, int i, int 
         A.rows[SR_FILT][eb * R + q] = S.rbf[q] * S.pre[q];
       }
     }
-    __syncthreads();
+    SPLIT_SYNC(PR_SPL_ROW);
     // -- d_pre = d_filtered * rbf; d_a_i = sum_j d_pre; the senders' d_a_j += d_pre
     for (int q = tid; q < N * R; q += nt) S.df[q] *= S.rbf[q];
-    __syncthreads();
+    SPLIT_SYNC(PR_SPL_ROW);
     for (int c = tid; c < R; c += nt) {
       float acc = 0.f;
       for (int j = 0; j < N; ++j) acc += S.df[j * R + c];
@@ -421,7 +450,7 @@ __device__ void split_row(const SplitArgs& A, const SSmem& S, int b, int i, int 
   }
 
   if constexpr (kPull) {
-    __syncthreads();
+    SPLIT_SYNC(PR_SPL_ROW);
     // -- d_d = d_u inv_r + 2 d d_s, with d_r -= inv_r^2 (d_u . d) and d_s =
     //    d_r * 0.5 / r where |d|^2 > 0 (the relu), into du
     for (int j = tid; j < N; j += nt) {
@@ -431,7 +460,7 @@ __device__ void split_row(const SplitArgs& A, const SSmem& S, int b, int i, int 
       const float ds = S.s[j] > 0.f ? dr * (0.5f / S.r[j]) : 0.f;
       for (int k = 0; k < 3; ++k) S.du[k * N + j] = S.du[k * N + j] * ir + 2.f * S.d[k * N + j] * ds;
     }
-    __syncthreads();
+    SPLIT_SYNC(PR_SPL_ROW);
     // -- d = x_j - x_i: the sender x_j gets d_d, the receiver x_i minus the row's sum
     for (int q = tid; q < 3 * N; q += nt) {
       const int k = q / N, j = q % N;
@@ -441,7 +470,7 @@ __device__ void split_row(const SplitArgs& A, const SSmem& S, int b, int i, int 
       S.ax[q] += v;
     }
   }
-  __syncthreads();  // the next row reuses the buffers
+  SPLIT_SYNC(PR_SPL_ROW);  // the next row reuses the buffers
 }
 
 // The kernel: a forward block owns one receiver row (rows strided over the
@@ -453,6 +482,7 @@ __global__ void __launch_bounds__(kSplitThreads) split_kernel(SplitArgs A) {
   const int kc = split_chunk(A.d.N);
   const SSmem S = carve_split<kEA, kCP, kPull>(cv, A.d, kc);
   const int N = A.d.N;
+  SAKE_PROBE_START();
   if constexpr (!kPull) {
     for (long long row = blockIdx.x; row < (long long)A.d.B * N; row += gridDim.x)
       split_row<kEA, kCP, false, false>(A, S, (int)(row / N), (int)(row % N), kc);
@@ -465,14 +495,14 @@ __global__ void __launch_bounds__(kSplitThreads) split_kernel(SplitArgs A) {
         for (int q = threadIdx.x; q < N * R; q += blockDim.x) S.aaj[q] = 0.f;
         for (int q = threadIdx.x; q < N * H; q += blockDim.x) S.aoj[q] = 0.f;
       }
-      __syncthreads();
+      SPLIT_SYNC(PR_SPL_LOAD);
       for (int i = 0; i < N; ++i) split_row<kEA, kCP, true, kRows>(A, S, b, i, kc);
       for (int q = threadIdx.x; q < 3 * N; q += blockDim.x) A.dx[q / N][mol + q % N] = S.ax[q];
       if constexpr (kEA) {
         for (int q = threadIdx.x; q < N * R; q += blockDim.x) A.d_aj[mol * R + q] = S.aaj[q];
         for (int q = threadIdx.x; q < N * H; q += blockDim.x) A.d_oj[mol * H + q] = S.aoj[q];
       }
-      __syncthreads();
+      SPLIT_SYNC(PR_SPL_ROW);
     }
   }
 }
@@ -493,14 +523,613 @@ int launch_split(const SplitArgs& A, void* stream) {
   return (int)cudaGetLastError();
 }
 
-inline long long split_smem(int op, bool pull, const SDims& d) {
+// ---- the tensor-core pullback route (split_tc_kernel) ------------------------
+
+// Receiver rows a group stacks into the 64-row tile: floor(64 / N), at most N.
+__host__ __device__ inline int split_tc_rows(int N) {
+  const int g = N > 0 ? kWgRows / N : 1;
+  return g < N ? g : N;
+}
+
+constexpr int kSplitMaxHeads = 16;  // the head expansion's pullback keeps a sum a head
+
+// Whether the widths are the route's: the x-mixing's H * Kh = 256 (and C =
+// 256 where the op mixes x, kCP; the edge_att op has no C), the edge
+// products' k at most kTcSmallK, at most kSplitMaxHeads heads, and at least
+// one receiver row a tile.
+__host__ __device__ inline bool split_tc_dims(const SDims& d, bool cp) {
+  return d.N >= 1 && d.N <= kWgRows && d.H * d.Kh == kWgDepth && (!cp || d.C == kWgCols) &&
+         d.R <= kTcSmallK && d.H <= kTcSmallK && d.Kh <= kSplitMaxHeads;
+}
+
+// The route's shared memory: the group's buffers (SSmem, sized for g rows of N
+// edges, M = g N; ai, oi, gp, ghs a row each, gp as [k][row][c]), the
+// molecule's sender-side sums and (kEA) its a_j and o_j, the edge_att weights'
+// vectors, then (kCP) the product tile X and the ring of B stages, with se and df
+// laid over them and over each other: the wide part reads neither (se is o1's
+// operand; df o_f's operand, then d_filtered), and se is made after o_f has read
+// df and read before d_filtered is made. rbf is made again where it is read
+// (split_rbf), so that the edge_att op's carve leaves room for two blocks an SM
+// at aspirin's widths; wa, wb, ws and rbf are not used.
+struct STc {
+  SSmem S;
+  float* x;
+  WgRing rg;
+  float *aj, *oj;                                // N*R, N*H: the molecule's (kEA)
+  float *rbf_m, *rbf_b, *w_rr, *b0, *b1, *b_sem;  // R, R, H, H, H, Kh (kEA)
+  float* w_sem;                                  // H*Kh (kEA)
+};
+
+template <bool kEA, bool kCP>
+__host__ __device__ inline STc carve_split_tc(Carver& cv, const SDims& d, int stages) {
+  const long long N = d.N, R = d.R, H = d.H, Kh = d.Kh, C = d.C, HK = H * Kh;
+  const long long g = split_tc_rows(d.N), M = g * N;
+  STc T{};
+  SSmem& S = T.S;
+  S.d = cv.take(3 * M);
+  S.s = cv.take(M);
+  S.r = cv.take(M);
+  S.t = cv.take(M);
+  S.ir = cv.take(M);
+  S.he = cv.take(M * H);
+  S.att = cv.take(M * Kh);
+  S.ghe = cv.take(M * H);
+  S.gatt = cv.take(M * Kh);
+  S.du = cv.take(3 * M);
+  S.dr = cv.take(M);
+  S.ax = cv.take(3 * N);
+  if (kEA) {
+    S.ai = cv.take(g * R);
+    S.oi = cv.take(g * H);
+    S.pre = cv.take(M * R);
+    S.e0 = cv.take(M * H);
+    S.sem = cv.take(M * Kh);
+    S.aaj = cv.take(N * R);
+    S.aoj = cv.take(N * H);
+    T.aj = cv.take(N * R);
+    T.oj = cv.take(N * H);
+    T.rbf_m = cv.take(R);
+    T.rbf_b = cv.take(R);
+    T.w_rr = cv.take(H);
+    T.b0 = cv.take(H);
+    T.b1 = cv.take(H);
+    T.b_sem = cv.take(Kh);
+    T.w_sem = cv.take(H * Kh);
+  }
+  if (kCP) {
+    S.gp = cv.take(3 * g * C);
+    S.ghs = cv.take(g * HK);
+    T.rg.full = reinterpret_cast<unsigned long long*>(cv.take(4LL * stages));
+    T.rg.empty = T.rg.full ? T.rg.full + stages : nullptr;
+    T.rg.stages = stages;
+  }
+  float* at = cv.base ? cv.base + cv.off : nullptr;
+  Carver wide{at}, rest{at};
+  if (kCP) {
+    T.x = wide.take((long long)kWgRows * (kWgCols + kWgXPad));
+    T.rg.ring = wide.take((long long)stages * kWgStage);
+  }
+  if (kEA) S.se = S.df = rest.take(M * (H > R ? H : R));
+  cv.off += wide.off > rest.off ? wide.off : rest.off;
+  return T;
+}
+
+template <bool kEA, bool kCP>
+inline long long split_tc_smem_bytes(const SDims& d, int stages) {
+  Carver cv{nullptr};
+  carve_split_tc<kEA, kCP>(cv, d, stages);
+  return cv.off * (long long)sizeof(float);
+}
+
+// The deepest ring (kWgMaxStages ... kWgMinStages) whose carve fits one block
+// (kCP; the edge_att op has no ring: 0), or -1 where none does.
+template <bool kEA, bool kCP>
+inline int split_tc_stages(const SDims& d) {
+  if (!kCP) return split_tc_smem_bytes<kEA, kCP>(d, 0) <= kSplitSmemLimit ? 0 : -1;
+  for (int s = kWgMaxStages; s >= kWgMinStages; --s)
+    if (split_tc_smem_bytes<kEA, kCP>(d, s) <= kSplitSmemLimit) return s;
+  return -1;
+}
+
+// The pullback's route: the tensor cores where the widths are the route's and
+// its carve fits, else the CUDA cores (split_kernel).
+template <bool kEA, bool kCP>
+inline bool split_tc_route(const SDims& d) {
+  return split_tc_dims(d, kCP) && split_tc_stages<kEA, kCP>(d) >= 0;
+}
+
+inline bool split_bwd_tc(int op, const SDims& d) {
+#ifdef SAKE_SPLIT_CUDA_CORES  // tools/probe_split.py's probe build of the CUDA-core route
+  return false;
+#endif
+  switch (op) {
+    case OP_EDGE_ATT: return split_tc_route<true, false>(d);
+    case OP_COEFF_POOL: return split_tc_route<false, true>(d);
+    default: return split_tc_route<true, true>(d);
+  }
+}
+
+// n floats from device memory into shared memory, four loads a thread in flight
+// before their stores (the block's threads, strided).
+__device__ __forceinline__ void split_copy(float* __restrict__ dst, const float* __restrict__ src,
+                                           int n) {
+  const int nt = blockDim.x;
+  for (int q0 = threadIdx.x; q0 < n; q0 += 4 * nt) {
+    float v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) v[u] = q0 + u * nt < n ? src[q0 + u * nt] : 0.f;
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (q0 + u * nt < n) dst[q0 + u * nt] = v[u];
+  }
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ double warp_sum_f64(double v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// q / d and q % d by a multiply (the group's index arithmetic: q < 2^16, so
+// the rounded-up reciprocal is exact), in place of an integer division.
+struct FastDiv {
+  unsigned d, m;
+  __host__ __device__ explicit FastDiv(int dv)
+      : d((unsigned)dv), m(dv > 1 ? (unsigned)(((1ull << 32) + dv - 1) / dv) : 0u) {}
+  __device__ __forceinline__ int div(int q) const {
+    return d == 1 ? q : (int)__umulhi((unsigned)q, m);
+  }
+  __device__ __forceinline__ int mod(int q) const { return q - div(q) * (int)d; }
+};
+
+// rbf = exp(-b (t - m)^2) of channel c at t = exp(-r).
+__device__ __forceinline__ float split_rbf(const STc& T, float t, int c) {
+  const float tm = t - T.rbf_m[c];
+  return expf(-T.rbf_b[c] * (tm * tm));
+}
+
+// Rows i0 ... i0 + gn - 1 of molecule b, their M = gn N edges (q = ii N + j for
+// receiver i0 + ii and sender j) stacked in that order: the group's edges are
+// the contiguous range from (b, i0, 0) of every (B, N, N, .) tensor. split_row's
+// steps on M edges at once, the sums over an edge's wide rows by a warp each;
+// the sender-side sums take the rows in order.
+template <bool kEA, bool kCP, bool kRows>
+__device__ void split_group(const SplitArgs& A, STc& T, const WgPlanes& P, int b, int i0,
+                            int gn) {
+  const SDims d = A.d;
+  const int N = d.N, R = d.R, H = d.H, Kh = d.Kh, C = d.C, HK = H * Kh, M = gn * N;
+  const SSmem& S = T.S;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarp = nt >> 5;
+  const size_t mol = (size_t)b * N;  // the molecule's first atom
+  const size_t row0 = mol + i0;      // the group's first receiver
+  const size_t eb = row0 * N;        // the group's first edge (b, i0, 0)
+  const FastDiv fN(N), fR(R), fH(H), fK(Kh);
+
+  // -- geometry: d = x_j - x_i, r = sqrt(relu(|d|^2) + eps), t = exp(-r),
+  //    inv_r = 1 / (r + 1e-5)
+  for (int q = tid; q < M; q += nt) {
+    const int j = fN.mod(q);
+    const size_t row = row0 + fN.div(q);
+    float xj[3], xi[3];
+    for (int k = 0; k < 3; ++k) {
+      xj[k] = A.x[k][mol + j];
+      xi[k] = A.x[k][row];
+    }
+    float s = 0.f;
+    for (int k = 0; k < 3; ++k) {
+      const float dk = xj[k] - xi[k];
+      S.d[k * M + q] = dk;
+      s += dk * dk;
+    }
+    const float r = sqrtf(fmaxf(s, 0.f) + kEps);
+    S.s[q] = s;
+    S.r[q] = r;
+    S.t[q] = expf(-r);
+    S.ir[q] = 1.f / (r + 1e-5f);
+    S.dr[q] = 0.f;
+    for (int k = 0; k < 3; ++k) S.du[k * M + q] = 0.f;
+  }
+  if constexpr (kEA) {
+    split_copy(S.ai, A.ai + row0 * R, gn * R);
+    split_copy(S.oi, A.oi + row0 * H, gn * H);
+  } else {
+    split_copy(S.he, A.he_in + eb * H, M * H);
+    split_copy(S.att, A.att_in + eb * Kh, M * Kh);
+  }
+  if constexpr (kCP) {
+    for (int k = 0; k < 3; ++k) split_copy(S.gp + k * gn * C, A.gp[k] + row0 * C, gn * C);
+    split_copy(S.ghs, A.g_hs + row0 * HK, gn * HK);
+  } else {
+    split_copy(S.ghe, A.g_he + eb * H, M * H);
+    split_copy(S.gatt, A.g_att + eb * Kh, M * Kh);
+  }
+  SPLIT_SYNC(PR_SPL_LOAD);
+
+  if constexpr (kEA) {
+    // -- pre = a_j + a_i (b_in folded into a_i); filtered = rbf * pre, o_f's
+    //    operand, in df
+    for (int q = tid; q < M * R; q += nt) {
+      const int e = fR.div(q), c = q - e * R, ii = fN.div(e);
+      const float pre = T.aj[(e - ii * N) * R + c] + S.ai[ii * R + c];
+      S.pre[q] = pre;
+      S.df[q] = split_rbf(T, S.t[e], c) * pre;
+    }
+    SPLIT_SYNC(PR_SPL_ROW);
+    // -- e0 = o_j + o_i + filtered @ w_r + r * w_rr + b0
+    mm_tc_small(M, R, H, S.df, R, A.w_r, [&](int e, int c, float v) {
+      const int ii = fN.div(e);
+      S.e0[e * H + c] =
+          T.oj[(e - ii * N) * H + c] + S.oi[ii * H + c] + v + S.r[e] * T.w_rr[c] + T.b0[c];
+    });
+    SPLIT_SYNC(PR_SPL_MM);
+    for (int q = tid; q < M * H; q += nt) S.se[q] = siluf_(S.e0[q]);  // over df
+    SPLIT_SYNC(PR_SPL_ROW);
+    // -- h_e = silu(e0) @ w1 + b1
+    mm_tc_small(M, H, H, S.se, H, A.w1,
+                [&](int e, int c, float v) { S.he[e * H + c] = v + T.b1[c]; });
+    SPLIT_SYNC(PR_SPL_MM);
+    // -- sem_pre = h_e @ w_sem + b_sem, a warp an edge
+    for (int e = warp; e < M; e += nwarp) {
+      float part[kSplitMaxHeads];  // this lane's share, a head each
+#pragma unroll
+      for (int c = 0; c < kSplitMaxHeads; ++c) part[c] = 0.f;
+      for (int k = lane; k < H; k += 32) {
+        const float hv = S.he[e * H + k];
+#pragma unroll
+        for (int c = 0; c < kSplitMaxHeads; ++c)
+          if (c < Kh) part[c] += hv * T.w_sem[k * Kh + c];
+      }
+#pragma unroll
+      for (int c = 0; c < kSplitMaxHeads; ++c)
+        if (c < Kh) {
+          const float v = warp_sum(part[c]);
+          if (lane == 0) S.sem[e * Kh + c] = v + T.b_sem[c];
+        }
+    }
+    SPLIT_SYNC(PR_SPL_SEM);
+    // -- att = softmax over j of celu2(sem_pre) - kInf * [j == i], a warp a
+    //    (row, head)
+    for (int p = warp; p < gn * Kh; p += nwarp) {
+      const int ii = p / Kh, i = i0 + ii;
+      float* at = S.att + ii * N * Kh + p % Kh;
+      const float* sm = S.sem + ii * N * Kh + p % Kh;
+      float mx = -INFINITY;
+      for (int j = lane; j < N; j += 32) {
+        const float l = celu2_(sm[j * Kh]) - (j == i ? kInf : 0.f);
+        at[j * Kh] = l;
+        mx = fmaxf(mx, l);
+      }
+      mx = warp_max(mx);
+      float sum = 0.f;
+      for (int j = lane; j < N; j += 32) {
+        const float e = expf(at[j * Kh] - mx);
+        at[j * Kh] = e;
+        sum += e;
+      }
+      sum = warp_sum(sum);
+      for (int j = lane; j < N; j += 32) at[j * Kh] = at[j * Kh] / sum;
+    }
+    SPLIT_SYNC(PR_SPL_SEM);
+  }
+
+  if constexpr (kCP) {
+    float* X = T.x;
+    constexpr int ldx = kWgCols + kWgXPad;
+    // -- he_att[e, h * Kh + k] = h_e[e, h] * att[e, k], the group's edges as the
+    //    tile's rows
+    for (int p = tid; p < HK; p += nt) {
+      const int h = fK.div(p), k = p - h * Kh;
+      for (int e = 0; e < M; ++e) {
+        const float a = S.he[e * H + h] * S.att[e * Kh + k];
+        X[e * ldx + p] = a;
+        if constexpr (kRows) A.rows[SR_HE_ATT][(eb + e) * HK + p] = a;
+      }
+    }
+    // this thread's accesses to the space that the ring shares (se, df) come
+    // before the ring's bulk copies
+    wg_fence_proxy();
+    SPLIT_SYNC(PR_SPL_EPI);
+    // -- coeff = tanh(he_att @ w_xmix), into X
+    auto af = [&](int r, int k) { return X[r * ldx + k]; };
+    wg_xmix(M, af, P.fwd, T.rg, [&](int r, int c, float v) { X[r * ldx + c] = tanhf(v); });
+    SPLIT_SYNC(PR_SPL_XMIX);
+    // -- a warp an edge: d_u_k = sum_C coeff * g_pooled_k (of the edge's
+    //    receiver), and d_xm = (sum_k g_pooled_k * u_k) * (1 - tanh^2) in place
+    for (int e = warp; e < M; e += nwarp) {
+      const float* g0 = S.gp + (e / N) * C;
+      const float* g1 = g0 + gn * C;
+      const float* g2 = g1 + gn * C;
+      const float ir = S.ir[e];
+      const float u0 = S.d[e] * ir, u1 = S.d[M + e] * ir, u2 = S.d[2 * M + e] * ir;
+      float* xr = X + e * ldx;
+      float a0 = 0.f, a1 = 0.f, a2 = 0.f;
+      for (int c = lane; c < C; c += 32) {
+        const float th = xr[c];
+        a0 += th * g0[c];
+        a1 += th * g1[c];
+        a2 += th * g2[c];
+        xr[c] = (g0[c] * u0 + g1[c] * u1 + g2[c] * u2) * (1.f - th * th);
+      }
+      a0 = warp_sum(a0);
+      a1 = warp_sum(a1);
+      a2 = warp_sum(a2);
+      if (lane == 0) {
+        S.du[e] = a0;
+        S.du[M + e] = a1;
+        S.du[2 * M + e] = a2;
+      }
+    }
+    SPLIT_SYNC(PR_SPL_EPI);
+    if constexpr (kRows)
+      for (int e = 0; e < M; ++e)
+        for (int c = tid; c < C; c += nt) A.rows[SR_D_XM][(eb + e) * C + c] = X[e * ldx + c];
+    // -- d_he_att = d_xm @ w_xmix^T + g_hatt_sum, into X (wg_xmix's barrier puts
+    //    the stores after every read of d_xm, the row stores' too)
+    wg_xmix(M, af, P.bwd, T.rg,
+            [&](int r, int c, float v) { X[r * ldx + c] = v + S.ghs[fN.div(r) * HK + c]; });
+    SPLIT_SYNC(PR_SPL_XMIX);
+    // -- a warp an edge: d_h_e = sum_k d_he_att * att; d_att = sum_h d_he_att * h_e
+    for (int e = warp; e < M; e += nwarp) {
+      const float* xr = X + e * ldx;
+      const float* at = S.att + e * Kh;
+      const float* he = S.he + e * H;
+      float part[kSplitMaxHeads];  // this lane's share of d_att, a head each
+#pragma unroll
+      for (int k = 0; k < kSplitMaxHeads; ++k) part[k] = 0.f;
+      for (int h = lane; h < H; h += 32) {
+        const float hv = he[h];
+        float acc = 0.f;
+#pragma unroll
+        for (int k = 0; k < kSplitMaxHeads; ++k)
+          if (k < Kh) {
+            const float x = xr[h * Kh + k];
+            acc += x * at[k];
+            part[k] += x * hv;
+          }
+        S.ghe[e * H + h] = acc;
+      }
+#pragma unroll
+      for (int k = 0; k < kSplitMaxHeads; ++k)
+        if (k < Kh) {
+          const float v = warp_sum(part[k]);
+          if (lane == 0) S.gatt[e * Kh + k] = v;
+        }
+    }
+    SPLIT_SYNC(PR_SPL_EPI);
+    if constexpr (!kEA) {
+      for (int q = tid; q < M * H; q += nt) A.d_he[eb * H + q] = S.ghe[q];
+      for (int q = tid; q < M * Kh; q += nt) A.d_att[eb * Kh + q] = S.gatt[q];
+    }
+  }
+
+  if constexpr (kEA) {
+    // -- softmax and celu2: d_sem = att (g_att - sum_j att g_att) celu2'(sem_pre),
+    //    the row sum in f64, into sem, a warp a (row, head)
+    for (int p = warp; p < gn * Kh; p += nwarp) {
+      const int o = (p / Kh) * N * Kh + p % Kh;
+      double q = 0.0;
+      for (int j = lane; j < N; j += 32)
+        q += (double)S.att[o + j * Kh] * (double)S.gatt[o + j * Kh];
+      q = warp_sum_f64(q);
+      for (int j = lane; j < N; j += 32) {
+        const int e = o + j * Kh;
+        S.sem[e] = (float)((double)S.att[e] * ((double)S.gatt[e] - q)) * dcelu2_(S.sem[e]);
+      }
+    }
+    SPLIT_SYNC(PR_SPL_SEM);
+    // -- d_h_e = g_h_e + d_sem @ w_sem^T
+    for (int q = tid; q < M * H; q += nt) {
+      const int e = fH.div(q), h = q - e * H;
+      float acc = 0.f;
+      for (int k = 0; k < Kh; ++k) acc += S.sem[e * Kh + k] * T.w_sem[h * Kh + k];
+      S.ghe[q] += acc;
+    }
+    if constexpr (kRows) {
+      for (int q = tid; q < M * H; q += nt) {
+        A.rows[SR_H_E][eb * H + q] = S.he[q];
+        A.rows[SR_SE][eb * H + q] = siluf_(S.e0[q]);  // se lies under df: made again
+      }
+      for (int q = tid; q < M * Kh; q += nt) A.rows[SR_D_SEM][eb * Kh + q] = S.sem[q];
+    }
+    SPLIT_SYNC(PR_SPL_SEM);
+    if constexpr (kRows)
+      for (int q = tid; q < M * H; q += nt) A.rows[SR_D_H_E][eb * H + q] = S.ghe[q];
+    // -- d_e0 = (d_h_e @ w1^T) * silu'(e0), in place of e0
+    mm_tc_small(M, H, H, S.ghe, H, A.t_1,
+                [&](int e, int c, float v) { S.e0[e * H + c] = v * dsiluf_(S.e0[e * H + c]); });
+    SPLIT_SYNC(PR_SPL_MM_B);
+    // -- d_filtered = d_e0 @ w_r^T, into df; d_r = d_e0 . w_rr, a warp an edge;
+    //    d_o_i = sum_j d_e0 per row; the senders' d_o_j += d_e0, the rows in order
+    mm_tc_small(M, H, R, S.e0, H, A.t_r, [&](int e, int c, float v) { S.df[e * R + c] = v; });
+    for (int e = warp; e < M; e += nwarp) {
+      float acc = 0.f;
+      for (int h = lane; h < H; h += 32) acc += S.e0[e * H + h] * T.w_rr[h];
+      acc = warp_sum(acc);
+      if (lane == 0) S.dr[e] += acc;
+    }
+    for (int p = tid; p < gn * H; p += nt) {
+      const int ii = p / H, h = p % H;
+      float acc = 0.f;
+      for (int j = 0; j < N; ++j) acc += S.e0[(ii * N + j) * H + h];
+      A.d_oi[row0 * H + p] = acc;
+    }
+    for (int q = tid; q < N * H; q += nt) {
+      float acc = S.aoj[q];
+      for (int ii = 0; ii < gn; ++ii) acc += S.e0[ii * N * H + q];
+      S.aoj[q] = acc;
+    }
+    if constexpr (kRows) {
+      for (int q = tid; q < M * H; q += nt) A.rows[SR_D_E0][eb * H + q] = S.e0[q];
+      for (int q = tid; q < M; q += nt) A.rows[SR_R][eb + q] = S.r[q];
+    }
+    SPLIT_SYNC(PR_SPL_MM_B);
+    // -- d_t = sum_R d_filtered * pre * rbf * (-2 b (t - m)); d_r -= t d_t, a
+    //    warp an edge
+    for (int e = warp; e < M; e += nwarp) {
+      const float t = S.t[e];
+      float acc = 0.f;
+      for (int c = lane; c < R; c += 32) {
+        const float tm = t - T.rbf_m[c];
+        const int q = e * R + c;
+        acc += S.df[q] * S.pre[q] * split_rbf(T, t, c) * (-2.f * T.rbf_b[c] * tm);
+      }
+      acc = warp_sum(acc);
+      if (lane == 0) S.dr[e] += (-t) * acc;
+    }
+    if constexpr (kRows) {
+      for (int q = tid; q < M * R; q += nt) {
+        const int e = fR.div(q), c = q - e * R;
+        const float tm = S.t[e] - T.rbf_m[c];
+        const float rbf = split_rbf(T, S.t[e], c);
+        const float g = S.df[q] * S.pre[q] * rbf;
+        A.rows[SR_Q_M][eb * R + q] = g * (2.f * T.rbf_b[c] * tm);
+        A.rows[SR_Q_B][eb * R + q] = g * (-(tm * tm));
+        A.rows[SR_FILT][eb * R + q] = rbf * S.pre[q];
+      }
+    }
+    SPLIT_SYNC(PR_SPL_ROW);
+    // -- d_pre = d_filtered * rbf; d_a_i = sum_j d_pre per row; the senders'
+    //    d_a_j += d_pre, the rows in order
+    for (int q = tid; q < M * R; q += nt) {
+      const int e = fR.div(q);
+      S.df[q] *= split_rbf(T, S.t[e], q - e * R);
+    }
+    SPLIT_SYNC(PR_SPL_ROW);
+    for (int p = tid; p < gn * R; p += nt) {
+      const int ii = p / R, c = p % R;
+      float acc = 0.f;
+      for (int j = 0; j < N; ++j) acc += S.df[(ii * N + j) * R + c];
+      A.d_ai[row0 * R + p] = acc;
+    }
+    for (int q = tid; q < N * R; q += nt) {
+      float acc = S.aaj[q];
+      for (int ii = 0; ii < gn; ++ii) acc += S.df[ii * N * R + q];
+      S.aaj[q] = acc;
+    }
+  }
+
+  SPLIT_SYNC(PR_SPL_ROW);
+  // -- d_d = d_u inv_r + 2 d d_s, with d_r -= inv_r^2 (d_u . d) and d_s = d_r *
+  //    0.5 / r where |d|^2 > 0 (the relu), into du
+  for (int q = tid; q < M; q += nt) {
+    const float ir = S.ir[q];
+    const float dir =
+        S.du[q] * S.d[q] + S.du[M + q] * S.d[M + q] + S.du[2 * M + q] * S.d[2 * M + q];
+    const float dr = S.dr[q] - (ir * ir) * dir;
+    const float ds = S.s[q] > 0.f ? dr * (0.5f / S.r[q]) : 0.f;
+    for (int k = 0; k < 3; ++k) S.du[k * M + q] = S.du[k * M + q] * ir + 2.f * S.d[k * M + q] * ds;
+  }
+  SPLIT_SYNC(PR_SPL_ROW);
+  // -- d = x_j - x_i: the sender x_j gets d_d, the receiver x_i minus its row's
+  //    sum; the rows in order
+  for (int p = tid; p < 3 * N; p += nt) {
+    const int k = p / N, j = p % N;
+    const float* du = S.du + k * M;
+    float acc = S.ax[p];
+    for (int ii = 0; ii < gn; ++ii) {
+      float v = du[ii * N + j];
+      if (j == i0 + ii)
+        for (int jj = 0; jj < N; ++jj) v -= du[ii * N + jj];
+      acc += v;
+    }
+    S.ax[p] = acc;
+  }
+  SPLIT_SYNC(PR_SPL_ROW);  // the next group reuses the buffers
+}
+
+// The route's kernel: a block owns one molecule (molecules strided over the
+// grid) and runs its receiver rows split_tc_rows at a time; stages: the ring's
+// depth (split_tc_stages). Without the x-mixing (the edge_att op) the carve
+// leaves room for two blocks an SM at aspirin's widths.
+template <bool kEA, bool kCP, bool kRows>
+__global__ void __launch_bounds__(kSplitThreads, kCP ? 1 : 2)
+    split_tc_kernel(SplitArgs A, WgPlanes P, int stages) {
+  extern __shared__ float4 smem4[];
+  Carver cv{reinterpret_cast<float*>(smem4)};
+  STc T = carve_split_tc<kEA, kCP>(cv, A.d, stages);
+  const int N = A.d.N, R = A.d.R, H = A.d.H, g = split_tc_rows(N);
+  if constexpr (kCP) wg_init(T.rg);
+  if constexpr (kEA) {
+    split_copy(T.rbf_m, A.rbf_m, R);
+    split_copy(T.rbf_b, A.rbf_b, R);
+    split_copy(T.w_rr, A.w_rr, H);
+    split_copy(T.b0, A.b0, H);
+    split_copy(T.b1, A.b1, H);
+    split_copy(T.b_sem, A.b_sem, A.d.Kh);
+    split_copy(T.w_sem, A.w_sem, H * A.d.Kh);
+  }
+  __syncthreads();
+  SAKE_PROBE_START();
+  const SSmem& S = T.S;
+  for (int b = blockIdx.x; b < A.d.B; b += gridDim.x) {
+    const size_t mol = (size_t)b * N;
+    for (int q = threadIdx.x; q < 3 * N; q += blockDim.x) S.ax[q] = 0.f;
+    if constexpr (kEA) {
+      for (int q = threadIdx.x; q < N * R; q += blockDim.x) S.aaj[q] = 0.f;
+      for (int q = threadIdx.x; q < N * H; q += blockDim.x) S.aoj[q] = 0.f;
+      split_copy(T.aj, A.aj + mol * R, N * R);
+      split_copy(T.oj, A.oj + mol * H, N * H);
+    }
+    SPLIT_SYNC(PR_SPL_LOAD);
+    for (int i0 = 0; i0 < N; i0 += g)
+      split_group<kEA, kCP, kRows>(A, T, P, b, i0, min(g, N - i0));
+    for (int q = threadIdx.x; q < 3 * N; q += blockDim.x) A.dx[q / N][mol + q % N] = S.ax[q];
+    if constexpr (kEA) {
+      for (int q = threadIdx.x; q < N * R; q += blockDim.x) A.d_aj[mol * R + q] = S.aaj[q];
+      for (int q = threadIdx.x; q < N * H; q += blockDim.x) A.d_oj[mol * H + q] = S.aoj[q];
+    }
+    SPLIT_SYNC(PR_SPL_ROW);
+  }
+}
+
+// Launch on the route, with the deepest ring that fits; an invalid value where
+// the shape is not the route's (split_tc_route) or the op mixes x and a plane is
+// missing.
+template <bool kEA, bool kCP, bool kRows>
+int launch_split_tc(const SplitArgs& A, const WgPlanes& P, void* stream) {
+  const int stages = split_tc_stages<kEA, kCP>(A.d);
+  if (!split_tc_dims(A.d, kCP) || stages < 0 || (kCP && (!P.fwd || !P.bwd)))
+    return (int)cudaErrorInvalidValue;
+  const long long smem = split_tc_smem_bytes<kEA, kCP>(A.d, stages);
+  auto kern = split_tc_kernel<kEA, kCP, kRows>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (A.d.B > 0)
+    kern<<<(unsigned)A.d.B, kSplitThreads, smem, static_cast<cudaStream_t>(stream)>>>(A, P,
+                                                                                     stages);
+  return (int)cudaGetLastError();
+}
+
+// The shared memory of the pullback's kernel at d: the route's carve at its
+// ring's depth where it takes d, else split_kernel's.
+inline long long split_bwd_smem(int op, const SDims& d) {
+  const bool tc = split_bwd_tc(op, d);
   switch (op) {
     case OP_EDGE_ATT:
-      return pull ? split_smem_bytes<true, false, true>(d) : split_smem_bytes<true, false, false>(d);
+      return tc ? split_tc_smem_bytes<true, false>(d, 0) : split_smem_bytes<true, false, true>(d);
     case OP_COEFF_POOL:
-      return pull ? split_smem_bytes<false, true, true>(d) : split_smem_bytes<false, true, false>(d);
+      return tc ? split_tc_smem_bytes<false, true>(d, split_tc_stages<false, true>(d))
+                : split_smem_bytes<false, true, true>(d);
     default:
-      return pull ? split_smem_bytes<true, true, true>(d) : split_smem_bytes<true, true, false>(d);
+      return tc ? split_tc_smem_bytes<true, true>(d, split_tc_stages<true, true>(d))
+                : split_smem_bytes<true, true, true>(d);
+  }
+}
+
+inline long long split_smem(int op, bool pull, const SDims& d) {
+  if (pull) return split_bwd_smem(op, d);
+  switch (op) {
+    case OP_EDGE_ATT: return split_smem_bytes<true, false, false>(d);
+    case OP_COEFF_POOL: return split_smem_bytes<false, true, false>(d);
+    default: return split_smem_bytes<true, true, false>(d);
   }
 }
 

@@ -193,6 +193,9 @@ def signatures() -> dict:
         "sake_sparse_contract": [I, P, P, P, P, P, LL, I, P, P, I, P, P],
         "sake_split_fwd": [I, P, P, P] + sdims + [P],
         "sake_split_bwd": [I, P, P, P, P, P] + sdims + [P],
+        # op, dims: 1 where the pullback takes the tensor-core route
+        "sake_split_bwd_tc": [I] + sdims,
+        "sake_split_bwd_probe": [P, I],  # #26's and #28's clock probe
     }
     out = {name: (args, I) for name, args in sig.items()}
     for fn in ("sake_resid_fwd_cluster_max_active", "sake_resid_bwd_cluster_max_active"):

@@ -28,6 +28,11 @@ kernel. :func:`split_energy_forces` composes the first two,
   on a CUDA tensor they launch their kernel or raise. The weight cotangents
   come from the pullback's per-edge rows (``SPLIT_ROWS``) summed by the
   sparse contraction kernel (``csrc/sparse_contract.cu``), only when asked.
+  A pullback takes one of two kernels by its shape (:func:`tensor_core_route`):
+  at aspirin's widths the tensor-core one (``64 // N`` receiver rows as one
+  64-row tile, the x-mixing and its transpose on ``wgmma``, the edge products
+  on ``mma.sync``, all in 3xTF32), elsewhere the CUDA-core one; each launch
+  counts in the wrapper's ``.launches`` and under its route in ``.routes``.
 
 The hidden-major / head-minor outer product ``he_att[..., h*K + k] =
 h_e[..., h] * att[..., k]`` is a broadcast here and an index in the
@@ -61,12 +66,13 @@ from sake_tpu_torch.kernels.functional import (
 from sake_tpu_torch.kernels.leaves import head_expansion_matrices  # noqa: F401 (re-export)
 from sake_tpu_torch.kernels.resid_ef import (
     _SMEM_LIMIT,
+    ROUTES,
     _check_cuda,
     _require_cuda,
     _stream,
     _unflat_params,
 )
-from sake_tpu_torch.kernels.sparse_ef import _contract, _neg
+from sake_tpu_torch.kernels.sparse_ef import _contract, _neg, xmix_planes
 
 # the weights each op reads, in the JAX argument order
 EDGE_ATT_WEIGHTS = ("rbf_m", "rbf_b", "w_r", "w_rr", "b0", "w1", "b1", "w_sem", "b_sem")
@@ -183,11 +189,33 @@ def _shapes(kind, dims):
     return batched, weights
 
 
+def tensor_core_route(kind, dims) -> bool:
+    """Whether the op's pullback takes its tensor-core kernel at ``dims`` (``(B,
+    N, R, H, K, C)``; the kernel source's ``split_bwd_tc``: H * K = 256, C = 256
+    where the op mixes x, R and H at most 64, N at most 64 and the carve within
+    one block), else its CUDA-core kernel: an index into ``ROUTES``."""
+    return bool(build.load().sake_split_bwd_tc(_OPS[kind], *dims))
+
+
+def _route(kind, args) -> str:
+    return ROUTES[tensor_core_route(kind, _dims(kind, args))]
+
+
+def _check_planes(name, planes, H, K, C, dev):
+    HK = H * K
+    for n, a, shape in (("forward", planes[0], (HK // 8, 2, C // 8, 2, 8, 4)),
+                        ("pullback", planes[1], (C // 8, 2, HK // 8, 2, 8, 4))):
+        _check_cuda(f"the {n} x-mixing planes", a, shape, dev)
+        if a.data_ptr() % 16:  # the ring's bulk copies need 16-byte addresses
+            raise ValueError(f"{name}: the {n} x-mixing planes must start 16-byte aligned")
+
+
 def _setup(name, kind, args, pull):
     """Checks shared by the launches; ``(lib, dims, input pointers, weight
     pointers, the tensors they point to)``. The pullback also reads the
-    transposes, made here; the caller keeps the last item alive until its
-    launch is queued."""
+    transposes, made here, and on the tensor-core route the packed planes of
+    w_xmix (:func:`~sake_tpu_torch.kernels.sparse_ef.xmix_planes`, once a
+    call); the caller keeps the last item alive until its launch is queued."""
     _require_cuda(name, args[0])
     dims = _dims(kind, args)
     nb = N_BATCHED[kind]
@@ -209,6 +237,12 @@ def _setup(name, kind, args, pull):
             if src in w:
                 ts[n] = w[src].T.contiguous()
     wp = [w.get(n) for n in MERGED_WEIGHTS] + [ts.get(n) for n in ("t_r", "t_1", "t_sem", "t_xmix")]
+    if pull:
+        planes = [None, None]
+        if "w_xmix" in w and lib.sake_split_bwd_tc(_OPS[kind], *dims):
+            planes = xmix_planes(w["w_xmix"])
+            _check_planes(name, planes, *dims[3:], dev)
+        wp += planes
     return lib, dims, _ptrs_opt(ins), _ptrs_opt(wp), (ins, wp)
 
 
@@ -311,37 +345,45 @@ def merged_fwd(*args):
 def edge_att_bwd(args, cots, weights: bool = False):
     """#26 for the edge_att op: from the cotangents ``(g_h_e, g_att)``, the
     cotangents of the 7 batched inputs and, with ``weights``, of the 9
-    weights (else None). CPU tensors take the plain version."""
+    weights (else None). CPU tensors take the plain version; on the card the
+    kernel of :func:`tensor_core_route`."""
     if args[0].device.type == "cpu":
         return vjp_plain("edge_att", args, cots, weights)
     out = _launch_bwd("edge_att_bwd", "edge_att", args, cots, weights)
     edge_att_bwd.launches += 1
+    edge_att_bwd.routes[_route("edge_att", args)] += 1
     return out
 
 
 def coeff_pool_bwd(args, cots, weights: bool = False):
     """#26 for the coeff_pool op: from ``(g_pooled0..2, g_hatt_sum)``, the
     cotangents of ``(x0, x1, x2, h_e, att)`` and, with ``weights``, of
-    ``w_xmix``. CPU tensors take the plain version."""
+    ``w_xmix``. CPU tensors take the plain version; on the card the kernel of
+    :func:`tensor_core_route`."""
     if args[0].device.type == "cpu":
         return vjp_plain("coeff_pool", args, cots, weights)
     out = _launch_bwd("coeff_pool_bwd", "coeff_pool", args, cots, weights)
     coeff_pool_bwd.launches += 1
+    coeff_pool_bwd.routes[_route("coeff_pool", args)] += 1
     return out
 
 
 def merged_bwd(args, cots, weights: bool = False):
     """#28: the pullback of :func:`merged_fwd`, recomputing h_e and att
-    inside. CPU tensors take the plain version."""
+    inside. CPU tensors take the plain version; on the card the kernel of
+    :func:`tensor_core_route`."""
     if args[0].device.type == "cpu":
         return vjp_plain("merged", args, cots, weights)
     out = _launch_bwd("merged_bwd", "merged", args, cots, weights)
     merged_bwd.launches += 1
+    merged_bwd.routes[_route("merged", args)] += 1
     return out
 
 
 for _fn in (edge_att_fwd, coeff_pool_fwd, merged_fwd, edge_att_bwd, coeff_pool_bwd, merged_bwd):
     _fn.launches = 0
+for _fn in (edge_att_bwd, coeff_pool_bwd, merged_bwd):
+    _fn.routes = dict.fromkeys(ROUTES, 0)
 FWD = {"edge_att": edge_att_fwd, "coeff_pool": coeff_pool_fwd, "merged": merged_fwd}
 BWD = {"edge_att": edge_att_bwd, "coeff_pool": coeff_pool_bwd, "merged": merged_bwd}
 

@@ -148,6 +148,9 @@ inline void __syncwarp(unsigned = 0xffffffffu) {
 }
 template <class T>
 inline T __ldg(const T* p) { return *p; }
+inline unsigned __umulhi(unsigned a, unsigned b) {
+  return (unsigned)(((unsigned long long)a * b) >> 32);
+}
 inline unsigned __float_as_uint(float f) {
   unsigned u;
   std::memcpy(&u, &f, 4);

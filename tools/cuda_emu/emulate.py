@@ -15,6 +15,7 @@
     EMU_THREADS=128 python tools/cuda_emu/emulate.py --qm9 --hidden 8 16 64 --atoms 29 21 16 7
     EMU_THREADS=128 python tools/cuda_emu/emulate.py --remat --hidden 8 16 64 --atoms 21
     EMU_THREADS=128 python tools/cuda_emu/emulate.py --serving --hidden 8 16 64 --atoms 21 7 22
+    python tools/cuda_emu/emulate.py --split --hidden 8 16 64 --atoms 21 22 7 17
 
 Compiles the kernel source with g++ against ``cuda_runtime.h`` beside this file
 (one std::thread per CUDA thread; see there), loads it with ctypes in place of
@@ -69,6 +70,16 @@ everywhere, the tensor-core kernels where the shape takes them (K1 at hidden 64 
 to N = 21, where two blocks fit an SM; K2 up to N = 22; a launch off that route
 must be refused), then K1's and K2's tensor-core products alone
 (``sake_resid_tc_product``) against float64.
+With ``--split`` it runs the split pullbacks #26 (the edge_att and coeff_pool ops)
+and #28 (the merged op) of ``csrc/split_bwd.cu`` through ``split_ef._launch_bwd``
+(the weight cotangents through ``csrc/sparse_contract.cu``) at each ``--hidden`` x
+``--atoms`` N (``--batch`` molecules; ``tools/probe_split.check_pullbacks``: with
+and without weight cotangents, twice bit for bit) against ``split_ef.vjp_plain``,
+on the kernel the shape takes: at hidden 64 (H * K = C = 256) the tensor-core
+route, ``64 // N`` receiver rows a tile (N = 21: three; 22: two; 17: a last
+group of two; 7: one group of seven), its x-mixing on the emulated ``wgmma`` and
+its edge products on the emulated ``mma.sync``; the CUDA-core route at hidden 8
+and 16.
 ``--asan`` needs the script started with g++'s libasan and libstdc++ preloaded
 (it prints the ``LD_PRELOAD`` line).
 """
@@ -242,6 +253,34 @@ def check_sparse(K: int, NR: int):
         w = max(errs, key=errs.get)
         worst = max(worst, errs[w])
         print(f"{name} K {K} NR {NR}: max rel err {errs[w]:.3e} ({w})", flush=True)
+    print(f"  ({time.perf_counter() - t0:.1f} s)", flush=True)
+    return worst
+
+
+def check_split(hid: int, B: int, N: int) -> float:
+    """#26 (both ops) and #28 on the route the shape takes against
+    ``vjp_plain`` (``tools/probe_split.check_pullbacks``); returns the worst
+    relative error, and fails where the route is not the one expected at these
+    widths (the tensor cores at hidden 64) or two launches differ."""
+    import importlib.util
+
+    from sake_tpu_torch.kernels import split_ef as se
+
+    spec = importlib.util.spec_from_file_location("probe_split", ROOT / "tools" / "probe_split.py")
+    ps = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ps)
+    t0 = time.perf_counter()
+    res = ps.check_pullbacks(
+        torch.device("cpu"), ((f"hidden {hid}, B={B}, N={N}", hid, B, N),),
+        launch=lambda kind, a, c, w: se._launch_bwd(f"{kind}_bwd", kind, a, c, w))
+    worst = 0.0
+    want = "tensor cores" if hid == 64 else "CUDA cores"
+    for (label, kind), (err, route, bitwise) in res.items():
+        print(f"split {kind}_bwd {label}: max rel err {err:.3e}, route {route}, two launches "
+              f"bitwise {bitwise}", flush=True)
+        if route != want or not bitwise:
+            sys.exit(f"split {kind}_bwd {label}: route {route} (want {want}), bitwise {bitwise}")
+        worst = max(worst, err)
     print(f"  ({time.perf_counter() - t0:.1f} s)", flush=True)
     return worst
 
@@ -647,6 +686,8 @@ def main():
                     help="#21-#24 (csrc/remat_ef.cu's forward and remat pullback) in place of #20")
     ap.add_argument("--serving", action="store_true",
                     help="K1 and K2 on both routes (csrc/resid_fwd.cu, csrc/resid_bwd.cu)")
+    ap.add_argument("--split", action="store_true",
+                    help="#26 and #28 on the route each shape takes (csrc/split_bwd.cu)")
     args = ap.parse_args()
     if args.asan and "libasan" not in os.environ.get("LD_PRELOAD", ""):
         asan = subprocess.run(["g++", "-print-file-name=libasan.so"], capture_output=True,
@@ -735,6 +776,25 @@ def main():
             for hid in args.hidden:
                 for N in args.atoms:
                     worst = max(worst, check_remat(hid, args.depth, args.batch[0], N))
+        print(f"worst {worst:.3e}", flush=True)
+        return
+    if args.split:
+        from sake_tpu_torch.kernels import sparse_ef as se
+        from sake_tpu_torch.kernels import split_ef
+
+        with tempfile.TemporaryDirectory() as tmp:
+            libs = Libs(*(load(compile_source(src, Path(tmp) / Path(src).stem, args.asan), names)
+                          for src, names in (
+                              ("split_fwd.cu", ["sake_split_smem_bytes"]),
+                              ("split_bwd.cu", ["sake_split_bwd", "sake_split_bwd_tc"]),
+                              ("sparse_contract.cu", ["sake_sparse_contract"]))))
+            build.load = lambda: libs
+            split_ef._require_cuda = lambda name, t: None
+            split_ef._stream = se._stream = lambda dev: None
+            worst = 0.0
+            for hid in args.hidden:
+                for N in args.atoms:
+                    worst = max(worst, check_split(hid, args.batch[0], N))
         print(f"worst {worst:.3e}", flush=True)
         return
     if args.serving:

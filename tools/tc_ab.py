@@ -9,14 +9,14 @@ GPU, in one process tree:
         --kernels remat_bwd_kernel
     python3 tools/tc_ab.py --parent <checkout> --phases sass time --time-sets serving
     python3 tools/tc_ab.py --parent <checkout> --phases sass time --time-sets qm9 fori depthgrid
+    python3 tools/tc_ab.py --parent <checkout> --phases sass time --time-sets split
 
 1. ``SASS``: builds both trees' kernels at once (``build.build``) and compares
    every object's SASS function by function (``cuobjdump -sass``). Every kernel
-   but those ``--kernels`` names (by default #6's cluster kernel,
-   ``resid_fwd_cl_kernel<false>``, #21's and #23's tensor-core kernel,
-   ``remat_fwd_kernel<true>``, and the one-block forward without streams,
-   ``resid_fwd_kernel<false>``, which #6 ran on before and which is gone;
-   ``resid_fwd_tc_kernel``, ``resid_bwd_tc_kernel`` and
+   but those ``--kernels`` names (by default the split pullbacks' tensor-core
+   kernel, ``split_tc_kernel``, in its six instantiations; ``resid_fwd_cl_kernelILb0E``,
+   ``remat_fwd_kernelILb1E`` and ``resid_fwd_kernelILb0E`` for a change to #6,
+   #21 and #23; ``resid_fwd_tc_kernel``, ``resid_bwd_tc_kernel`` and
    ``resid_tc_product_kernel`` for a change to K1 and K2 on MD17 serving's
    route; ``remat_bwd_kernel`` for a change to #22 and #24;
    the cluster kernels of #4 and #5, ``resid_fwd_cl_kernel`` and
@@ -49,8 +49,13 @@ GPU, in one process tree:
    (each tree's route) at chip_smoke.py phase 4's per-kernel input (aspirin, B =
    512; ``tools/probe_resid.serving_inputs``) and MD17 serving's path,
    ``resid_energy_forces`` at B = 2048 in chunks of 512 (``csrc/resid_fwd.cu`` and
-   ``csrc/resid_bwd.cu`` built by themselves). Each kernel's runs per tree and
-   their spread.
+   ``csrc/resid_bwd.cu`` built by themselves). Set ``split``: #25's two forwards,
+   #26's two pullbacks, #27 and #28 through their wrappers (each tree's route) at
+   chip_smoke.py phase 22's per-kernel input (layer 0 of aspirin B = 2048;
+   ``tools/probe_split.aspirin_model``, seeded cotangents), and the split and
+   merged E + F at B = 2048 (``split_energy_forces``, ``merged_energy_forces``;
+   ``csrc/split_fwd.cu`` and ``csrc/split_bwd.cu`` built by themselves). Each
+   kernel's runs per tree and their spread.
 3. ``GRADS``: step 1 of ``md17_kernel``'s fused branch against its plain
    branch (double autograd), per-leaf gradients as max |diff| / max |plain|, at
    batch 4 (``MD17Config``'s) and 512, on four (model init, batch order) seeds,
@@ -82,12 +87,10 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
-# the kernels this change may add, alter or remove: #6's cluster kernel (the
-# cluster forward without streams; with them, #4's, it must keep the parent's
-# instructions under its template name), #21's and #23's tensor-core kernel
-# (remat_fwd_kernel<false> must keep the parent's remat_fwd_kernel's), and the
-# one-block forward without streams, gone
-NEW_KERNELS = ("resid_fwd_cl_kernelILb0E", "remat_fwd_kernelILb1E", "resid_fwd_kernelILb0E")
+# the kernels this change may add, alter or remove: the split pullbacks'
+# tensor-core kernel (split_kernel, the forwards #25 and #27 and the CUDA-core
+# pullbacks, must keep the parent's instructions)
+NEW_KERNELS = ("split_tc_kernel",)
 # (model seed, batch seed): chip_smoke.py's step 1 (MD17Config's seed, batch
 # order RandomState(0)), then three more
 SEEDS = ((2666, 0), (0, 1), (1, 2), (2, 3))
@@ -390,6 +393,51 @@ def serving_times(dev) -> dict:
     return t
 
 
+def split_times(dev) -> dict:
+    """The ``split`` set: #25-#28 at one layer of aspirin B = 2048 and the split
+    and merged E + F at B = 2048, on ``csrc/split_fwd.cu`` and
+    ``csrc/split_bwd.cu`` built by themselves in the tree on ``sys.path``; each
+    pullback's route is printed (TC_AB_ROUTES)."""
+    import ctypes
+
+    import torch
+
+    from sake_tpu_torch.kernels import build
+    from sake_tpu_torch.kernels import split_ef as se
+
+    spec = importlib.util.spec_from_file_location("probe_split", HERE / "tools" / "probe_split.py")
+    ps = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ps)
+    lib = ctypes.CDLL(str(build.build(("split_fwd.cu", "split_bwd.cu"))))
+    lib = build.declare(lib, [n for n in build.signatures()
+                              if n.startswith("sake_split") and hasattr(lib, n)])
+    lib.sake_error_string = lambda err: b"see cudaGetErrorString"
+    params, h, x = ps.aspirin_model(dev, 2048)
+    args = ps.layer0_args(params, h, x, 4)
+    t = {}
+    saved, build._lib = build._lib, lib
+    try:
+        with torch.no_grad():
+            args["coeff_pool"] = (*args["coeff_pool"][:3], *se.edge_att_fwd(*args["edge_att"]),
+                                  args["coeff_pool"][5])
+            cots = ps.cotangents(args, seed=22)
+            ids = {"edge_att": ("#25", "#26"), "coeff_pool": ("#25", "#26"),
+                   "merged": ("#27", "#28")}
+            for kind, a in args.items():
+                fid, bid = ids[kind]
+                t[f"{fid} {kind}_fwd B=2048"] = cuda_ms(lambda: se.FWD[kind](*a))
+                t[f"{bid} {kind}_bwd B=2048"] = cuda_ms(lambda: se.BWD[kind](a, cots[kind]))
+        del args, cots
+        for name in ("split_energy_forces", "merged_energy_forces"):
+            fn = getattr(se, name)
+            t[f"{name} B=2048"] = cuda_ms(lambda: fn(params, h, x, n_heads=4))
+        routes = {f"{k}_bwd": dict(getattr(se.BWD[k], "routes", {})) for k in se.BWD}
+        print("TC_AB_ROUTES " + json.dumps(routes), flush=True)
+    finally:
+        build._lib = saved
+    return t
+
+
 def outputs_worker(label: str, out: Path):
     """#20's E and F (both tiers, B = 37 and 2048) into ``out``; the distance at
     B = 37 from the plain versions printed."""
@@ -461,6 +509,8 @@ def time_worker(label: str, sets=("md17",)) -> dict:
     t = fused_times(dev) if "fused" in sets else {}
     if "serving" in sets:
         t |= serving_times(dev)
+    if "split" in sets:
+        t |= split_times(dev)
     remat = [k for k in ("fori", "depthgrid") if k in sets]
     if remat:
         peaks = {}
@@ -663,7 +713,7 @@ def main() -> int:
     ap.add_argument("--phases", nargs="*", default=["sass", "time", "grads", "align"],
                     choices=["sass", "time", "grads", "align", "outputs"])
     ap.add_argument("--time-sets", nargs="*", default=["md17", "qm9"],
-                    choices=["md17", "qm9", "fused", "fori", "depthgrid", "serving"])
+                    choices=["md17", "qm9", "fused", "fori", "depthgrid", "serving", "split"])
     ap.add_argument("--kernels", nargs="*", default=list(NEW_KERNELS),
                     help="SASS: the functions (by a part of their names) that may differ")
     args = ap.parse_args()
