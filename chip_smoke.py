@@ -223,26 +223,28 @@ Phases (each prints its own lines; any failure exits non-zero):
    composed and against ``merged_body``, and #28 against its plain version
    (``torch.func.vjp`` of the bodies); then the same on seeded models of
    hidden 8 (50 rbf channels > H*K = 32) and 16, depth 2; limit 1e-4
-   relative per tensor. Each pullback launch is counted by route
+   relative per tensor. Each forward and pullback launch is counted by route
    (``split_ef``'s ``.routes``): aspirin's on the tensor cores (``64 // N``
-   receiver rows a tile, ``csrc/split_edge.cuh``'s ``split_tc_kernel``), the
-   narrow models' on the CUDA cores. Then ``tools/probe_split.check_pullbacks``:
-   the three pullbacks at aspirin's widths with N = 21, 22 (two rows a tile) and
-   17 (a last group of two rows), and at hidden 8 and 16 (N = 7), against
-   ``vjp_plain`` within 1e-4, two launches bit for bit, each on its route.
+   receiver rows a tile, ``csrc/split_edge.cuh``'s ``split_tc_fwd_kernel`` and
+   ``split_tc_kernel``), the narrow models' on the CUDA cores. Then
+   ``tools/probe_split.check_forwards`` and ``check_pullbacks``: the three
+   forwards and the three pullbacks at aspirin's widths with N = 21, 22 (two rows
+   a tile) and 17 (a last group of two rows), and at hidden 8 and 16 (N = 7),
+   against the plain bodies and ``vjp_plain`` within 1e-4, two launches bit for
+   bit, each on its route.
 22. The split E + F slice: aspirin requests of B in {37, 512, 2048} through
    ``split_energy_forces`` (which must launch #25 and #26 only) and
    ``merged_energy_forces`` (#27 and #28 only), neither launching a dense
-   kernel, every pullback on the tensor cores, against the plain f32 autograd
-   path with phase 4's limits. Then at B = 2048 split, merged, K1 + K2 and
-   plain in turns with each path's peak device memory, each new kernel at the
-   path's shapes beside its plain version and its bound (the pullbacks' x-mixing
-   and edge products in 3xTF32 at 3 passes over 495 TFLOP/s, ``split_tc_fma``),
-   and a BREAKDOWN of both paths.
+   kernel, every forward and pullback on the tensor cores, against the plain f32
+   autograd path with phase 4's limits. Then at B = 2048 split, merged, K1 + K2
+   and plain in turns with each path's peak device memory, each new kernel at the
+   path's shapes beside its plain version and its bound (the x-mixing and edge
+   products on the tensor-core route in 3xTF32 at 3 passes over 495 TFLOP/s,
+   ``split_tc_fma``), and a BREAKDOWN of both paths.
 23. The weight cotangents on the card: at B = 512 the gradient of the summed
    energy with respect to every edge weight of every layer (the CFConv
    tensors, w_sem, b_sem, w_xmix) and x through ``split_ef.model_energy``
-   (split ops and merged op, the pullbacks on the tensor cores) against plain
+   (split ops and merged op, every launch on the tensor cores) against plain
    autograd of the same model, 1e-4 relative per leaf.
 
 24. #20 (``csrc/fused_remat_ef.cu``, ``kernels.fused_energy_forces``) in f32
@@ -382,7 +384,7 @@ def resid_probe_module():
 
 @functools.lru_cache(maxsize=None)
 def split_probe_module():
-    """``tools/probe_split.py`` (the split pullbacks' inputs and their checks
+    """``tools/probe_split.py`` (the split kernels' inputs and their checks
     against plain on the card)."""
     return _load("probe_split", "tools", "probe_split.py")
 
@@ -2747,18 +2749,20 @@ def split_fma(R, H, K, C):
 
 
 def split_tc_fma(R, H, K, C):
-    """Of ``split_fma``'s multiply-adds per edge, those a pullback runs on the
+    """Of ``split_fma``'s multiply-adds per edge, those a kernel runs on the
     tensor cores in 3xTF32 on its tensor-core route (``csrc/split_edge.cuh``'s
-    ``split_group``): the edge_att pullback's o_f, o1, d_h_e @ w1^T and d_e0 @
-    w_r^T; the coeff_pool pullback's x-mixing product and its transpose; the
-    merged pullback both. The forwards run none."""
-    ea, cp = 2 * (R * H + H * H), 2 * H * K * C
-    return dict(edge_att_fwd=0, coeff_pool_fwd=0, edge_att_bwd=ea, coeff_pool_bwd=cp,
-                merged_fwd=0, merged_bwd=ea + cp)
+    ``split_group_fwd`` and ``split_group``): the edge_att forward's o_f and o1,
+    and its pullback's also d_h_e @ w1^T and d_e0 @ w_r^T; the coeff_pool
+    forward's x-mixing product, and its pullback's also the transpose; the merged
+    op's both."""
+    ea, cp = R * H + H * H, H * K * C
+    return dict(edge_att_fwd=ea, coeff_pool_fwd=cp, edge_att_bwd=2 * ea, coeff_pool_bwd=2 * cp,
+                merged_fwd=ea + cp, merged_bwd=2 * (ea + cp))
 
 
 def split_routes(own) -> dict:
-    """``{wrapper name: {route: launches}}`` of the pullbacks among ``own``."""
+    """``{wrapper name: {route: launches}}`` of the forwards and pullbacks among
+    ``own``."""
     return {c.__name__: dict(c.routes) for c in own if hasattr(c, "routes")}
 
 
@@ -2832,12 +2836,12 @@ def split_phases(dev, smi) -> list:
     ps = split_probe_module()
 
     def on_route(label: str, want: str):
-        """Fail unless every pullback launch since the counts were reset took
-        the route ``want``."""
+        """Fail unless every forward and pullback launch since the counts were
+        reset took the route ``want``."""
         routes = split_routes(every)
         print(f"SPLIT ROUTES {label}: {json.dumps(routes)}", flush=True)
         if any(n for r in routes.values() for k, n in r.items() if k != want):
-            fail(f"split pullbacks {label} off the {want} route: {routes}")
+            fail(f"split kernels {label} off the {want} route: {routes}")
 
     # -- 21. #25-#28 against their plain versions at full width, then narrow -------
     Bc = TRAIN_CHECK_B
@@ -2859,13 +2863,14 @@ def split_phases(dev, smi) -> list:
     on_route("at hidden 8 and 16", "CUDA cores")
     # the tensor-core route's groups: three rows a tile (N = 21), two (N = 22), a
     # last group of two rows (N = 17); the narrow models on the CUDA cores
-    for (label, kind), (err, route, bitwise) in ps.check_pullbacks(dev).items():
-        want = "tensor cores" if label.startswith("hidden 64") else "CUDA cores"
-        print(f"SPLIT ROUTE CHECK {kind}_bwd {label}: max rel err {err:.3e}, route {route}, two "
-              f"launches bitwise {bitwise}", flush=True)
-        if not (err <= SPLIT_TOL and bitwise and route == want):
-            fail(f"SPLIT ROUTE CHECK {kind}_bwd {label}: beyond {SPLIT_TOL}, not bitwise or "
-                 f"off the {want} route")
+    for d, res in (("fwd", ps.check_forwards(dev)), ("bwd", ps.check_pullbacks(dev))):
+        for (label, kind), (err, route, bitwise) in res.items():
+            want = "tensor cores" if label.startswith("hidden 64") else "CUDA cores"
+            print(f"SPLIT ROUTE CHECK {kind}_{d} {label}: max rel err {err:.3e}, route {route}, "
+                  f"two launches bitwise {bitwise}", flush=True)
+            if not (err <= SPLIT_TOL and bitwise and route == want):
+                fail(f"SPLIT ROUTE CHECK {kind}_{d} {label}: beyond {SPLIT_TOL}, not bitwise or "
+                     f"off the {want} route")
 
     # -- 22. the E + F slice through split_energy_forces and merged_energy_forces --
     paths = {"split": se.split_energy_forces, "merged": se.merged_energy_forces}
@@ -2959,11 +2964,11 @@ def split_phases(dev, smi) -> list:
               + f") = {inside:.3f} ms, the rest (embedding, node-level math, its autograd, "
               f"readout, host gaps) {ms[name] - inside:.3f} ms", flush=True)
     fma = {k: v * Bt * N * N for k, v in split_fma(50, F, heads, 256).items()}
-    # the pullbacks' tensor-core products where they take that route (aspirin's)
-    tc_route = {f"{k}_bwd": se.tensor_core_route(k, se._dims(k, a)) for k, a in args.items()}
-    tc = {k: v * Bt * N * N * tc_route.get(k, False)
-          for k, v in split_tc_fma(50, F, heads, 256).items()}
-    print(f"SPLIT BOUNDS (ms, by; the pullbacks' x-mixing and edge products on their "
+    # the tensor-core products where the kernel takes that route (aspirin's)
+    tc_route = {f"{k}_{d}": se.tensor_core_route(k, se._dims(k, a), d == "bwd")
+                for k, a in args.items() for d in ("fwd", "bwd")}
+    tc = {k: v * Bt * N * N * tc_route[k] for k, v in split_tc_fma(50, F, heads, 256).items()}
+    print(f"SPLIT BOUNDS (ms, by; the x-mixing and edge products on the "
           f"tensor-core route in 3xTF32 at {TF32_PASSES} passes over "
           f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s, the rest at {PEAK_F32_FLOPS / 1e12:.0f}, "
           f"beside the bound with every product at the f32 rate): " + json.dumps(

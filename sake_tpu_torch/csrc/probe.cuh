@@ -43,9 +43,11 @@ enum ProbeSlot {
   // their epilogues (he_att, d_u, d_xm, d_h_e, d_att), the rest of the rows,
   // thread 0's waits at the block barriers (SPLIT_SYNC), the semantic attention
   // (sem, the softmax and their pullbacks) and the pullback's edge products (d_e0,
-  // d_filtered and their sums)
+  // d_filtered and their sums); then the forwards' tensor-core route: thread 0's
+  // waits for the x-mixing's ring (wg_xmix), and the epilogue (hatt_sum, the
+  // pooled planes and the stores of h_e and att)
   PR_SPL_LOAD, PR_SPL_MM, PR_SPL_XMIX, PR_SPL_EPI, PR_SPL_ROW, PR_SPL_BAR, PR_SPL_SEM,
-  PR_SPL_MM_B,
+  PR_SPL_MM_B, PR_SPL_RING, PR_SPL_POOL,
   kProbeSlots
 };
 

@@ -18,19 +18,21 @@
 // (SplitRow) whose contraction over all edges is the weight cotangent
 // (sparse_contract.cu sums them in a fixed order).
 //
-// Everything forward is local to a receiver row i, so a forward block owns
-// one row (split_row, kPull false). The pullback is not: x_j, a_j and o_j get
-// cotangents from every receiver. A pullback block owns a whole molecule and
-// adds the sender-side cotangents into shared memory (N * (R + H + 3)
-// floats) one thread per element, in row order, so results do not vary from
-// run to run (no atomics). It has two routes, chosen per shape by split_bwd_tc:
-// - the CUDA-core route (split_kernel, kPull): the molecule's N rows one after
-//   another through split_row. The products reuse the sparse edge chain's
-//   helpers (sparse_edge.cuh): mm_wide stages kWTile rows of a weight (w_xmix
-//   is 256 KB) in shared memory, mmT streams narrow ones from L2; the head
-//   expansion he_att[j, h * Kh + k] = h_e[j, h] * att[j, k] and the x-mixing
-//   run in chunks of at most 16 senders. The forwards #25 and #27 run this
-//   body too, a row a block.
+// Everything forward is local to a receiver row i, so a forward block needs no
+// molecule of its own. The pullback does: x_j, a_j and o_j get cotangents from
+// every receiver. A pullback block owns a whole molecule and adds the
+// sender-side cotangents into shared memory (N * (R + H + 3) floats) one thread
+// per element, in row order, so results do not vary from run to run (no
+// atomics). Both directions have two routes, chosen per shape by split_bwd_tc
+// and split_fwd_tc:
+// - the CUDA-core route (split_kernel): the pullback runs the molecule's N rows
+//   one after another through split_row (kPull), the forward one row a block.
+//   The products reuse the sparse edge chain's helpers (sparse_edge.cuh):
+//   mm_wide stages kWTile rows of a weight (w_xmix is 256 KB) in shared memory,
+//   mmT streams narrow ones from L2; the head expansion he_att[j, h * Kh + k] =
+//   h_e[j, h] * att[j, k] and the x-mixing run in chunks of at most 16 senders.
+//   The forwards #25 and #27 take it where the widths are not the tensor-core
+//   route's (hidden 8 and 16: H * Kh != 256).
 // - the tensor-core route (split_tc_kernel, split_group): g = 64 / N receiver
 //   rows at a time (three at aspirin's 21 atoms, 63 edges), their edges stacked
 //   as the rows of one 64-row tile X, so that the x-mixing product and its
@@ -41,7 +43,11 @@
 //   products with the 4 heads on one side (h_e @ w_sem, d_sem @ w_sem^T) stay
 //   on the CUDA cores (mmT): k or n = 4 fills half an m16n8k8 tile at most.
 //   Taken where H * Kh = 256 (and C = 256 where the op mixes x), R and H are at
-//   most kTcSmallK, N at most kWgRows and the carve fits one block.
+//   most kTcSmallK, N at most kWgRows and the carve fits one block. The
+//   forwards' kernel (split_tc_fwd_kernel, split_group_fwd) runs the forward
+//   half of the same group on the same products, with the JAX bodies' epilogue
+//   (hatt_sum, the pooled planes; no sender-side sums), a block striding over
+//   the groups of all molecules.
 // The softmax's cotangent row sums run in f64 on both routes: they cancel.
 #pragma once
 
@@ -1108,6 +1114,377 @@ int launch_split_tc(const SplitArgs& A, const WgPlanes& P, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// ---- the tensor-core forward route (split_tc_fwd_kernel) ---------------------
+
+// A forward block strides over the groups (b, i0) of all molecules, a_j and o_j
+// read from device memory. The ops that mix x run one block an SM, which leaves
+// a thread the registers for the x-mixing's 128 accumulators (two blocks of 256
+// threads get 128 registers a thread).
+
+// The row stride of an operand of mm_tc_small with k columns: k rounded up to
+// 8, with 8 added where that is a multiple of 16, so that a warp's fragment
+// loads (8 rows by 4 k) meet two-way bank conflicts at most (64 floats a row
+// would put all 8 rows on the same banks: eight-way).
+__host__ __device__ inline int split_ld(int k) { return ((k + 7) & ~7) | 8; }
+
+// The forward route's shared memory, for g rows of N edges (M = g N): (kEA) r
+// and t, the group's a_i and o_i, filtered (o_f's operand) with h_e over it
+// (the edge_att op: o1 writes h_e after o_f has read filtered; where the op
+// mixes x, h_e lies in the first H columns of X's rows), silu(e0) (o1's
+// operand), sem_pre and att, the weights' vectors; (kCP) u_k = d_k inv_r, the
+// ring's barriers, the product tile X and the ring of B stages. filtered and
+// silu(e0) have rows
+// split_ld apart. Nothing lies over the ring, so its copies may start whenever
+// it is free (wg_prefill).
+struct SFwd {
+  float *r, *t, *u;                                      // M, M (kEA); 3M (kCP)
+  float *ai, *oi;                                        // g*R, g*H (kEA)
+  float *df, *he, *se, *sem, *att;                       // M*ld(R) (h_e M*H), M*ld(H), M*Kh x 2
+  float *rbf_m, *rbf_b, *w_rr, *b0, *b1, *b_sem, *w_sem;  // R, R, H, H, H, Kh, H*Kh
+  float* x;
+  WgRing rg;
+};
+
+template <bool kEA, bool kCP>
+__host__ __device__ inline SFwd carve_split_fwd(Carver& cv, const SDims& d, int stages) {
+  const long long N = d.N, R = d.R, H = d.H, Kh = d.Kh;
+  const long long g = split_tc_rows(d.N), M = g * N;
+  SFwd F{};
+  if (kEA) {
+    F.r = cv.take(M);
+    F.t = cv.take(M);
+    F.ai = cv.take(g * R);
+    F.oi = cv.take(g * H);
+    const long long ldf = split_ld(d.R);
+    F.df = cv.take(M * (kCP || ldf > H ? ldf : H));
+    F.he = kCP ? nullptr : F.df;
+    F.se = cv.take(M * split_ld(d.H));
+    F.sem = cv.take(M * Kh);
+    F.att = cv.take(M * Kh);
+    F.rbf_m = cv.take(R);
+    F.rbf_b = cv.take(R);
+    F.w_rr = cv.take(H);
+    F.b0 = cv.take(H);
+    F.b1 = cv.take(H);
+    F.b_sem = cv.take(Kh);
+    F.w_sem = cv.take(H * Kh);
+  }
+  if (kCP) {
+    F.u = cv.take(3 * M);
+    F.rg.full = reinterpret_cast<unsigned long long*>(cv.take(4LL * stages));
+    F.rg.empty = F.rg.full ? F.rg.full + stages : nullptr;
+    F.rg.stages = stages;
+    F.x = cv.take((long long)kWgRows * (kWgCols + kWgXPad));
+    F.rg.ring = cv.take((long long)stages * kWgStage);
+  }
+  return F;
+}
+
+template <bool kEA, bool kCP>
+inline long long split_fwd_smem_bytes(const SDims& d, int stages) {
+  Carver cv{nullptr};
+  carve_split_fwd<kEA, kCP>(cv, d, stages);
+  return cv.off * (long long)sizeof(float);
+}
+
+// The forward's ring: the deepest (kWgMaxStages ... kWgMinStages) whose carve
+// fits its blocks an SM (the edge_att op has no ring: 0), or -1 where none does.
+template <bool kEA, bool kCP>
+inline int split_fwd_stages(const SDims& d) {
+  if (!kCP) return split_fwd_smem_bytes<kEA, kCP>(d, 0) <= kSplitSmemLimit ? 0 : -1;
+  for (int s = kWgMaxStages; s >= kWgMinStages; --s)
+    if (split_fwd_smem_bytes<kEA, kCP>(d, s) <= kSplitSmemLimit) return s;
+  return -1;
+}
+
+// The forward's route: the pullback's widths (split_tc_dims) and a carve that
+// fits, else the CUDA cores (split_kernel, a row a block).
+inline bool split_fwd_tc(int op, const SDims& d) {
+#ifdef SAKE_SPLIT_CUDA_CORES  // tools/probe_split.py's probe build of the CUDA-core route
+  return false;
+#endif
+  switch (op) {
+    case OP_EDGE_ATT: return split_tc_dims(d, false) && split_fwd_stages<true, false>(d) >= 0;
+    case OP_COEFF_POOL: return split_tc_dims(d, true) && split_fwd_stages<false, true>(d) >= 0;
+    default: return split_tc_dims(d, true) && split_fwd_stages<true, true>(d) >= 0;
+  }
+}
+
+// Rows i0 ... i0 + gn - 1 of molecule b, their M = gn N edges stacked as in
+// split_group: the forward of the JAX bodies on M edges at once, the sums over
+// an edge's wide rows by a warp each, the sums over senders in sender order.
+// aj, oj: the molecule's a_j and o_j (kEA); prefill: the block has a next
+// group, whose x-mixing's ring may start to fill once this one's is done.
+template <bool kEA, bool kCP>
+__device__ void split_group_fwd(const SplitArgs& A, const SFwd& F, WgRing& rg,
+                                const WgPlanes& P, const float* aj, const float* oj, int b,
+                                int i0, int gn, bool prefill) {
+  const SDims d = A.d;
+  const int N = d.N, R = d.R, H = d.H, Kh = d.Kh, C = d.C, HK = H * Kh, M = gn * N;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarp = nt >> 5;
+  const size_t mol = (size_t)b * N;  // the molecule's first atom
+  const size_t row0 = mol + i0;      // the group's first receiver
+  const size_t eb = row0 * N;        // the group's first edge (b, i0, 0)
+  const FastDiv fN(N), fR(R);
+  constexpr int ldx = kWgCols + kWgXPad;
+  float* X = F.x;
+  float* he = kCP ? X : F.he;  // h_e's rows (kEA), ldh apart
+  const int ldh = kCP ? ldx : H, ldf = split_ld(R), lde = split_ld(H);
+
+  // -- geometry: r = sqrt(relu(|d|^2) + eps) and t = exp(-r) (kEA); u_k = d_k /
+  //    (r + 1e-5) (kCP)
+  for (int q = tid; q < M; q += nt) {
+    const int j = fN.mod(q);
+    const size_t row = row0 + fN.div(q);
+    float dk[3], s = 0.f;
+    for (int k = 0; k < 3; ++k) {
+      dk[k] = A.x[k][mol + j] - A.x[k][row];
+      s += dk[k] * dk[k];
+    }
+    const float r = sqrtf(fmaxf(s, 0.f) + kEps);
+    if constexpr (kEA) {
+      F.r[q] = r;
+      F.t[q] = expf(-r);
+    }
+    if constexpr (kCP) {
+      const float ir = 1.f / (r + 1e-5f);
+      for (int k = 0; k < 3; ++k) F.u[k * M + q] = dk[k] * ir;
+    }
+  }
+
+  if constexpr (kEA) {
+    split_copy(F.ai, A.ai + row0 * R, gn * R);
+    split_copy(F.oi, A.oi + row0 * H, gn * H);
+    SPLIT_SYNC(PR_SPL_LOAD);
+    // -- filtered = rbf * pre, pre = a_j + a_i (b_in folded into a_i), rbf =
+    //    exp(-b (t - m)^2)
+    for (int q = tid; q < M * R; q += nt) {
+      const int e = fR.div(q), c = q - e * R, ii = fN.div(e);
+      const float pre = aj[(e - ii * N) * R + c] + F.ai[ii * R + c];
+      const float tm = F.t[e] - F.rbf_m[c];
+      F.df[e * ldf + c] = expf(-F.rbf_b[c] * (tm * tm)) * pre;
+    }
+    SPLIT_SYNC(PR_SPL_ROW);
+    // -- silu(e0), e0 = o_j + o_i + filtered @ w_r + r * w_rr + b0
+    mm_tc_small(M, R, H, F.df, ldf, A.w_r, [&](int e, int c, float v) {
+      const int ii = fN.div(e);
+      F.se[e * lde + c] =
+          siluf_(oj[(e - ii * N) * H + c] + F.oi[ii * H + c] + v + F.r[e] * F.w_rr[c] + F.b0[c]);
+    });
+    SPLIT_SYNC(PR_SPL_MM);
+    // -- h_e = silu(e0) @ w1 + b1
+    mm_tc_small(M, H, H, F.se, lde, A.w1,
+                [&](int e, int c, float v) { he[e * ldh + c] = v + F.b1[c]; });
+    SPLIT_SYNC(PR_SPL_MM);
+    // -- the edge_att op's h_e out: the group's edges are one contiguous range
+    if constexpr (!kCP)
+      for (int q = tid; q < M * H; q += nt) A.he_out[eb * H + q] = he[q];
+    // -- sem_pre = h_e @ w_sem + b_sem, a warp an edge (w_sem's rows as float4:
+    //    Kh is 4, 8 or 16)
+    for (int e = warp; e < M; e += nwarp) {
+      float part[kSplitMaxHeads];  // this lane's share, a head each
+#pragma unroll
+      for (int c = 0; c < kSplitMaxHeads; ++c) part[c] = 0.f;
+      for (int k = lane; k < H; k += 32) {
+        const float hv = he[e * ldh + k];
+#pragma unroll
+        for (int c = 0; c < kSplitMaxHeads; c += 4)
+          if (c < Kh) {
+            const float4 w = *reinterpret_cast<const float4*>(F.w_sem + k * Kh + c);
+            part[c] += hv * w.x;
+            part[c + 1] += hv * w.y;
+            part[c + 2] += hv * w.z;
+            part[c + 3] += hv * w.w;
+          }
+      }
+#pragma unroll
+      for (int c = 0; c < kSplitMaxHeads; ++c)
+        if (c < Kh) {
+          const float v = warp_sum(part[c]);
+          if (lane == 0) F.sem[e * Kh + c] = v + F.b_sem[c];
+        }
+    }
+    SPLIT_SYNC(PR_SPL_SEM);
+    // -- att = softmax over j of celu2(sem_pre) - kInf * [j == i], a warp a
+    //    (row, head)
+    for (int p = warp; p < gn * Kh; p += nwarp) {
+      const int ii = p / Kh, i = i0 + ii;
+      float* at = F.att + ii * N * Kh + p % Kh;
+      const float* sm = F.sem + ii * N * Kh + p % Kh;
+      float mx = -INFINITY;
+      for (int j = lane; j < N; j += 32) {
+        const float l = celu2_(sm[j * Kh]) - (j == i ? kInf : 0.f);
+        at[j * Kh] = l;
+        mx = fmaxf(mx, l);
+      }
+      mx = warp_max(mx);
+      float sum = 0.f;
+      for (int j = lane; j < N; j += 32) {
+        const float e = expf(at[j * Kh] - mx);
+        at[j * Kh] = e;
+        sum += e;
+      }
+      sum = warp_sum(sum);
+      for (int j = lane; j < N; j += 32) at[j * Kh] = at[j * Kh] / sum;
+    }
+    SPLIT_SYNC(PR_SPL_SEM);
+    if constexpr (!kCP) {
+      // -- the edge_att op's att out; the next group writes none of what this reads
+      //    before its first barrier
+      for (int q = tid; q < M * Kh; q += nt) A.att_out[eb * Kh + q] = F.att[q];
+      SAKE_PROBE(PR_SPL_POOL);
+    }
+  } else {
+    SAKE_PROBE_BARRIER(PR_SPL_LOAD);
+  }
+
+  if constexpr (kCP) {
+    // -- he_att[e, h * Kh + k] = h_e[e, h] * att[e, k] into X's row e, a warp an
+    //    edge, two edges at a time: the lanes read both rows' h_e (from device
+    //    memory, or in place from X's rows) and att before any lane writes, then
+    //    write a lane's Kh values of each h as float4 (Kh = 256 / H is 4, 8 or 16)
+    const float* hs = kEA ? X : A.he_in + eb * H;
+    const int lds = kEA ? ldx : H;
+    const float* as = kEA ? F.att : A.att_in + eb * Kh;
+    auto ld = [](const float* p) {
+      if constexpr (kEA) return *p;
+      else return __ldg(p);
+    };
+    constexpr int kU = kTcSmallK / 32;  // h a lane
+    for (int e0 = warp; e0 < M; e0 += 2 * nwarp) {
+      float hv[2][kU], av[2][kSplitMaxHeads];
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        const int e = e0 + v * nwarp;
+#pragma unroll
+        for (int u = 0; u < kU; ++u)
+          hv[v][u] = e < M && lane + 32 * u < H ? ld(hs + e * lds + lane + 32 * u) : 0.f;
+#pragma unroll
+        for (int k = 0; k < kSplitMaxHeads; ++k)
+          av[v][k] = e < M && k < Kh ? ld(as + e * Kh + k) : 0.f;
+      }
+      __syncwarp();
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        const int e = e0 + v * nwarp;
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+          const int h = lane + 32 * u;
+          if (e < M && h < H)
+#pragma unroll
+            for (int k = 0; k < kSplitMaxHeads; k += 4)
+              if (k < Kh)
+                *reinterpret_cast<float4*>(X + e * ldx + h * Kh + k) =
+                    float4{hv[v][u] * av[v][k], hv[v][u] * av[v][k + 1],
+                           hv[v][u] * av[v][k + 2], hv[v][u] * av[v][k + 3]};
+        }
+      }
+    }
+    SPLIT_SYNC(PR_SPL_EPI);
+    // -- hatt_sum = sum_j he_att, the senders in order, before the x-mixing
+    //    overwrites X
+    for (int q = tid; q < gn * HK; q += nt) {
+      const int ii = q / HK, p = q - ii * HK;
+      const float* xc = X + ii * N * ldx + p;
+      float a = 0.f;
+      for (int j = 0; j < N; ++j) a += xc[j * ldx];
+      A.hs[row0 * HK + q] = a;
+    }
+    SAKE_PROBE(PR_SPL_POOL);
+    // -- coeff = tanh(he_att @ w_xmix), into X, the ring's first stages already
+    //    on their way; then the next group's
+    auto af = [&](int r, int k) { return X[r * ldx + k]; };
+    wg_xmix<true, PR_SPL_XMIX, PR_SPL_RING>(
+        M, af, P.fwd, rg, [&](int r, int c, float v) { X[r * ldx + c] = tanhf(v); });
+    if (prefill) wg_prefill(rg, P.fwd);
+    SPLIT_SYNC(PR_SPL_XMIX);
+    // -- pooled_k = sum_j coeff * u_k, the senders in order
+    for (int q = tid; q < gn * C; q += nt) {
+      const int ii = q / C, c = q - ii * C;
+      const float* xc = X + ii * N * ldx + c;
+      const float* u = F.u + ii * N;
+      float p0 = 0.f, p1 = 0.f, p2 = 0.f;
+      for (int j = 0; j < N; ++j) {
+        const float co = xc[j * ldx];
+        p0 += co * u[j];
+        p1 += co * u[M + j];
+        p2 += co * u[2 * M + j];
+      }
+      A.pool[0][row0 * C + q] = p0;
+      A.pool[1][row0 * C + q] = p1;
+      A.pool[2][row0 * C + q] = p2;
+    }
+    SPLIT_SYNC(PR_SPL_POOL);  // the next group reuses X and u
+  }
+}
+
+// The forward route's kernel: a block strides over the groups of split_tc_rows
+// receiver rows; stages: the ring's depth (split_fwd_stages). The grid holds
+// as many blocks as the card runs at once. The edge_att op's forward is
+// latency-bound (mm_tc_small's chains, the warp-wide sums): four blocks an SM at
+// 64 registers a thread, no spills at aspirin's widths.
+template <bool kEA, bool kCP>
+__global__ void __launch_bounds__(kSplitThreads, kCP ? 1 : 4)
+    split_tc_fwd_kernel(SplitArgs A, WgPlanes P, int stages) {
+  extern __shared__ float4 smem4[];
+  Carver cv{reinterpret_cast<float*>(smem4)};
+  SFwd F = carve_split_fwd<kEA, kCP>(cv, A.d, stages);
+  const int N = A.d.N, R = A.d.R, H = A.d.H, g = split_tc_rows(N), ng = (N + g - 1) / g;
+  if constexpr (kCP) wg_init(F.rg);
+  if constexpr (kEA) {
+    split_copy(F.rbf_m, A.rbf_m, R);
+    split_copy(F.rbf_b, A.rbf_b, R);
+    split_copy(F.w_rr, A.w_rr, H);
+    split_copy(F.b0, A.b0, H);
+    split_copy(F.b1, A.b1, H);
+    split_copy(F.b_sem, A.b_sem, A.d.Kh);
+    split_copy(F.w_sem, A.w_sem, H * A.d.Kh);
+  }
+  __syncthreads();
+  SAKE_PROBE_START();
+  const long long items = (long long)A.d.B * ng;
+  if constexpr (kCP)
+    if (blockIdx.x < items) wg_prefill(F.rg, P.fwd);
+  for (long long w = blockIdx.x; w < items; w += gridDim.x) {
+    const int b = (int)(w / ng), k = (int)(w % ng);
+    const size_t mol = (size_t)b * N;
+    const float* aj = kEA ? A.aj + mol * R : nullptr;
+    const float* oj = kEA ? A.oj + mol * H : nullptr;
+    split_group_fwd<kEA, kCP>(A, F, F.rg, P, aj, oj, b, k * g, min(g, N - k * g),
+                              w + gridDim.x < items);
+  }
+}
+
+// Launch on the route, with the deepest ring that fits; an invalid value where
+// the shape is not the route's (split_fwd_tc) or the op mixes x and its plane is
+// missing.
+template <bool kEA, bool kCP>
+int launch_split_tc_fwd(const SplitArgs& A, const WgPlanes& P, void* stream) {
+  const int stages = split_fwd_stages<kEA, kCP>(A.d);
+  if (!split_tc_dims(A.d, kCP) || stages < 0 || (kCP && !P.fwd))
+    return (int)cudaErrorInvalidValue;
+  const long long smem = split_fwd_smem_bytes<kEA, kCP>(A.d, stages);
+  auto kern = split_tc_fwd_kernel<kEA, kCP>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kSplitThreads,
+                                                           (size_t)smem)) != cudaSuccess)
+    return (int)err;
+  const int g = split_tc_rows(A.d.N);
+  const long long items = (long long)A.d.B * ((A.d.N + g - 1) / g);
+  const long long full = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  const long long grid = items < full ? items : full;
+  if (grid > 0)
+    kern<<<(unsigned)grid, kSplitThreads, smem, static_cast<cudaStream_t>(stream)>>>(A, P,
+                                                                                    stages);
+  return (int)cudaGetLastError();
+}
+
 // The shared memory of the pullback's kernel at d: the route's carve at its
 // ring's depth where it takes d, else split_kernel's.
 inline long long split_bwd_smem(int op, const SDims& d) {
@@ -1124,12 +1501,20 @@ inline long long split_bwd_smem(int op, const SDims& d) {
   }
 }
 
+// The shared memory of the op's forward (pull false) or pullback kernel at d: the
+// kernel its route launches.
 inline long long split_smem(int op, bool pull, const SDims& d) {
   if (pull) return split_bwd_smem(op, d);
+  const bool tc = split_fwd_tc(op, d);
   switch (op) {
-    case OP_EDGE_ATT: return split_smem_bytes<true, false, false>(d);
-    case OP_COEFF_POOL: return split_smem_bytes<false, true, false>(d);
-    default: return split_smem_bytes<true, true, false>(d);
+    case OP_EDGE_ATT:
+      return tc ? split_fwd_smem_bytes<true, false>(d, 0) : split_smem_bytes<true, false, false>(d);
+    case OP_COEFF_POOL:
+      return tc ? split_fwd_smem_bytes<false, true>(d, split_fwd_stages<false, true>(d))
+                : split_smem_bytes<false, true, false>(d);
+    default:
+      return tc ? split_fwd_smem_bytes<true, true>(d, split_fwd_stages<true, true>(d))
+                : split_smem_bytes<true, true, false>(d);
   }
 }
 

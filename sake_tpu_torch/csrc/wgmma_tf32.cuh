@@ -184,13 +184,24 @@ __device__ __forceinline__ void wg_init(const WgRing& rg) {
   }
 }
 
+// Thread 0: copy the first k-steps of a packed weight (as many as the ring holds)
+// into the ring for the next wg_xmix<true>, so that they land while the block
+// does other work. Every generic access to the ring's space comes before it.
+__device__ __forceinline__ void wg_prefill(const WgRing& rg, const float* __restrict__ bpk) {
+  if (threadIdx.x == 0)
+    for (int s = 0; s < rg.stages && s < kWgSteps; ++s) wg_fill(rg, bpk, rg.q + s, s);
+}
+
 // out(r, c) = sum_k af(r, k) B(k, c) for r < n <= 64, c < 256, k < 256, each
 // handed to st(r, c, value); rows r >= n read as zeros and are not stored. bpk:
 // the packed hi and lo planes of B (kWgSteps stages of kWgStage floats, 16-byte
 // aligned). All 256 threads of the block take part (two warpgroups); af reads
 // what the caller's barriers have made ready; a block barrier separates the
 // last read of af from the first st, so st may overwrite what af read.
-template <class AF, class ST>
+// kPrefilled: the caller's wg_prefill has started the first k-steps' copies.
+// kSlot, kWaitSlot (the clock probe's, probe.cuh; -1 none): thread 0 charges
+// its time before each wait for a k-step's stage to kSlot, the wait to kWaitSlot.
+template <bool kPrefilled = false, int kSlot = -1, int kWaitSlot = -1, class AF, class ST>
 __device__ __forceinline__ void wg_xmix(int n, AF af, const float* __restrict__ bpk, WgRing& rg,
                                         ST st) {
   static_assert(kTcSumSteps % 2 == 0 && kWgSteps % kTcSumSteps == 0,
@@ -199,8 +210,10 @@ __device__ __forceinline__ void wg_xmix(int n, AF af, const float* __restrict__ 
   const int g = lane >> 2, t = lane & 3;
   const int r0 = 16 * ((tid >> 5) & 3) + g, r1 = r0 + 8;  // this thread's A and D rows
   const unsigned q0 = rg.q;
-  if (tid == 0)
-    for (int s = 0; s < rg.stages && s < kWgSteps; ++s) wg_fill(rg, bpk, q0 + s, s);
+  if constexpr (!kPrefilled) {
+    if (tid == 0)
+      for (int s = 0; s < rg.stages && s < kWgSteps; ++s) wg_fill(rg, bpk, q0 + s, s);
+  }
   __syncwarp();  // the warp converges before its aligned wgmma instructions
   float acc[64], part[64];
 #pragma unroll
@@ -217,7 +230,9 @@ __device__ __forceinline__ void wg_xmix(int n, AF af, const float* __restrict__ 
     tf32_split(r1 < n ? af(r1, k + 4) : 0.f, ah[buf][3], al[buf][3]);
     const unsigned q = q0 + ks;
     const int s = (int)(q % (unsigned)rg.stages);
+    if constexpr (kWaitSlot >= 0) SAKE_PROBE(kSlot);
     mbar_wait(&rg.full[s], (q / (unsigned)rg.stages) & 1);
+    if constexpr (kWaitSlot >= 0) SAKE_PROBE(kWaitSlot);
     const float* hi = rg.ring + (size_t)s * kWgStage + wgi * (kWgPlane / 2);
     const uint64_t dh = wg_desc(hi), dl = wg_desc(hi + kWgPlane);
     wg_fence();

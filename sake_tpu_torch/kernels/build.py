@@ -193,8 +193,10 @@ def signatures() -> dict:
         "sake_sparse_contract": [I, P, P, P, P, P, LL, I, P, P, I, P, P],
         "sake_split_fwd": [I, P, P, P] + sdims + [P],
         "sake_split_bwd": [I, P, P, P, P, P] + sdims + [P],
-        # op, dims: 1 where the pullback takes the tensor-core route
+        # op, dims: 1 where the forward (pullback) takes the tensor-core route
+        "sake_split_fwd_tc": [I] + sdims,
         "sake_split_bwd_tc": [I] + sdims,
+        "sake_split_fwd_probe": [P, I],  # #25's and #27's clock probe
         "sake_split_bwd_probe": [P, I],  # #26's and #28's clock probe
     }
     out = {name: (args, I) for name, args in sig.items()}

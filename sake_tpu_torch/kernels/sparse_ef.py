@@ -322,13 +322,14 @@ def _edge_dims(h_g, a_i, o_i, ep):
 XMIX_TC_WIDTH = 256
 
 
-def xmix_planes(w_xmix) -> list:
+def xmix_planes(w_xmix, pullback: bool = True) -> list:
     """The packed hi and lo TF32 planes of ``w_xmix (HK, C)`` that #13-#15
     read on the tensor cores (:func:`~sake_tpu_torch.kernels.tf32.wgmma_planes`
     of its K-major forms): the forward's (rows of ``w_xmix^T``) and the
-    pullback's (rows of ``w_xmix``)."""
+    pullback's (rows of ``w_xmix``; None where ``pullback`` is False, for a
+    kernel that reads only the forward's)."""
     hi, lo = tf32_split(w_xmix.detach())  # once for both forms
-    return [wgmma_planes(hi.T, (hi.T, lo.T)), wgmma_planes(hi, (hi, lo))]
+    return [wgmma_planes(hi.T, (hi.T, lo.T)), wgmma_planes(hi, (hi, lo)) if pullback else None]
 
 
 def edge_transposes(ep) -> list:

@@ -28,11 +28,12 @@ kernel. :func:`split_energy_forces` composes the first two,
   on a CUDA tensor they launch their kernel or raise. The weight cotangents
   come from the pullback's per-edge rows (``SPLIT_ROWS``) summed by the
   sparse contraction kernel (``csrc/sparse_contract.cu``), only when asked.
-  A pullback takes one of two kernels by its shape (:func:`tensor_core_route`):
-  at aspirin's widths the tensor-core one (``64 // N`` receiver rows as one
-  64-row tile, the x-mixing and its transpose on ``wgmma``, the edge products
-  on ``mma.sync``, all in 3xTF32), elsewhere the CUDA-core one; each launch
-  counts in the wrapper's ``.launches`` and under its route in ``.routes``.
+  A forward and a pullback each take one of two kernels by the shape and the
+  direction (:func:`tensor_core_route`): at aspirin's widths the tensor-core
+  one (``64 // N`` receiver rows as one 64-row tile, the x-mixing, and for a
+  pullback its transpose, on ``wgmma``, the edge products on ``mma.sync``, all
+  in 3xTF32), elsewhere the CUDA-core one; each launch counts in the wrapper's
+  ``.launches`` and under its route in ``.routes``.
 
 The hidden-major / head-minor outer product ``he_att[..., h*K + k] =
 h_e[..., h] * att[..., k]`` is a broadcast here and an index in the
@@ -189,22 +190,26 @@ def _shapes(kind, dims):
     return batched, weights
 
 
-def tensor_core_route(kind, dims) -> bool:
-    """Whether the op's pullback takes its tensor-core kernel at ``dims`` (``(B,
-    N, R, H, K, C)``; the kernel source's ``split_bwd_tc``: H * K = 256, C = 256
-    where the op mixes x, R and H at most 64, N at most 64 and the carve within
+def tensor_core_route(kind, dims, pull: bool) -> bool:
+    """Whether the op's pullback (``pull``) or forward takes its tensor-core
+    kernel at ``dims`` (``(B, N, R, H, K, C)``; the kernel sources'
+    ``split_bwd_tc`` and ``split_fwd_tc``: H * K = 256, C = 256 where the op
+    mixes x, R and H at most 64, N at most 64 and the direction's carve within
     one block), else its CUDA-core kernel: an index into ``ROUTES``."""
-    return bool(build.load().sake_split_bwd_tc(_OPS[kind], *dims))
+    lib = build.load()
+    return bool((lib.sake_split_bwd_tc if pull else lib.sake_split_fwd_tc)(_OPS[kind], *dims))
 
 
-def _route(kind, args) -> str:
-    return ROUTES[tensor_core_route(kind, _dims(kind, args))]
+def _route(kind, args, pull: bool) -> str:
+    return ROUTES[tensor_core_route(kind, _dims(kind, args), pull)]
 
 
-def _check_planes(name, planes, H, K, C, dev):
+def _check_planes(name, planes, pull, H, K, C, dev):
+    """The planes the direction reads: the forward's, and the pullback's where
+    ``pull``."""
     HK = H * K
     for n, a, shape in (("forward", planes[0], (HK // 8, 2, C // 8, 2, 8, 4)),
-                        ("pullback", planes[1], (C // 8, 2, HK // 8, 2, 8, 4))):
+                        ("pullback", planes[1], (C // 8, 2, HK // 8, 2, 8, 4)))[:1 + pull]:
         _check_cuda(f"the {n} x-mixing planes", a, shape, dev)
         if a.data_ptr() % 16:  # the ring's bulk copies need 16-byte addresses
             raise ValueError(f"{name}: the {n} x-mixing planes must start 16-byte aligned")
@@ -213,9 +218,11 @@ def _check_planes(name, planes, H, K, C, dev):
 def _setup(name, kind, args, pull):
     """Checks shared by the launches; ``(lib, dims, input pointers, weight
     pointers, the tensors they point to)``. The pullback also reads the
-    transposes, made here, and on the tensor-core route the packed planes of
-    w_xmix (:func:`~sake_tpu_torch.kernels.sparse_ef.xmix_planes`, once a
-    call); the caller keeps the last item alive until its launch is queued."""
+    transposes, made here; where the direction's tensor-core route mixes x, the
+    kernel reads the packed planes of w_xmix
+    (:func:`~sake_tpu_torch.kernels.sparse_ef.xmix_planes`, once a call; for
+    the forward only its own, the pullback's slot None); the caller keeps the
+    last item alive until its launch is queued."""
     _require_cuda(name, args[0])
     dims = _dims(kind, args)
     nb = N_BATCHED[kind]
@@ -237,12 +244,11 @@ def _setup(name, kind, args, pull):
             if src in w:
                 ts[n] = w[src].T.contiguous()
     wp = [w.get(n) for n in MERGED_WEIGHTS] + [ts.get(n) for n in ("t_r", "t_1", "t_sem", "t_xmix")]
-    if pull:
-        planes = [None, None]
-        if "w_xmix" in w and lib.sake_split_bwd_tc(_OPS[kind], *dims):
-            planes = xmix_planes(w["w_xmix"])
-            _check_planes(name, planes, *dims[3:], dev)
-        wp += planes
+    planes = [None, None]
+    if "w_xmix" in w and tensor_core_route(kind, dims, pull):
+        planes = xmix_planes(w["w_xmix"], pull)
+        _check_planes(name, planes, pull, *dims[3:], dev)
+    wp += planes
     return lib, dims, _ptrs_opt(ins), _ptrs_opt(wp), (ins, wp)
 
 
@@ -313,32 +319,36 @@ def _launch_bwd(name, kind, args, cots, weights):
 def edge_att_fwd(*args):
     """#25, the edge_att body: ``(x0, x1, x2 (B, N, 1), a_j, a_i (B, N, R),
     o_j, o_i (B, N, H), *EDGE_ATT_WEIGHTS) -> (h_e, att)``. CPU tensors take
-    the plain version."""
+    the plain version; on the card the kernel of :func:`tensor_core_route`."""
     if args[0].device.type == "cpu":
         return edge_att_body(*args)
     out = _launch_fwd("edge_att_fwd", "edge_att", args)
     edge_att_fwd.launches += 1
+    edge_att_fwd.routes[_route("edge_att", args, False)] += 1
     return out
 
 
 def coeff_pool_fwd(*args):
     """#25, the coeff_pool body: ``(x0, x1, x2, h_e, att, w_xmix) ->
     (pooled0, pooled1, pooled2, hatt_sum)``. CPU tensors take the plain
-    version."""
+    version; on the card the kernel of :func:`tensor_core_route`."""
     if args[0].device.type == "cpu":
         return coeff_pool_body(*args)
     out = _launch_fwd("coeff_pool_fwd", "coeff_pool", args)
     coeff_pool_fwd.launches += 1
+    coeff_pool_fwd.routes[_route("coeff_pool", args, False)] += 1
     return out
 
 
 def merged_fwd(*args):
     """#27: the edge_att inputs and ``w_xmix`` -> the coeff_pool outputs in
-    one kernel. CPU tensors take the plain version."""
+    one kernel. CPU tensors take the plain version; on the card the kernel of
+    :func:`tensor_core_route`."""
     if args[0].device.type == "cpu":
         return merged_body(*args)
     out = _launch_fwd("merged_fwd", "merged", args)
     merged_fwd.launches += 1
+    merged_fwd.routes[_route("merged", args, False)] += 1
     return out
 
 
@@ -351,7 +361,7 @@ def edge_att_bwd(args, cots, weights: bool = False):
         return vjp_plain("edge_att", args, cots, weights)
     out = _launch_bwd("edge_att_bwd", "edge_att", args, cots, weights)
     edge_att_bwd.launches += 1
-    edge_att_bwd.routes[_route("edge_att", args)] += 1
+    edge_att_bwd.routes[_route("edge_att", args, True)] += 1
     return out
 
 
@@ -364,7 +374,7 @@ def coeff_pool_bwd(args, cots, weights: bool = False):
         return vjp_plain("coeff_pool", args, cots, weights)
     out = _launch_bwd("coeff_pool_bwd", "coeff_pool", args, cots, weights)
     coeff_pool_bwd.launches += 1
-    coeff_pool_bwd.routes[_route("coeff_pool", args)] += 1
+    coeff_pool_bwd.routes[_route("coeff_pool", args, True)] += 1
     return out
 
 
@@ -376,13 +386,12 @@ def merged_bwd(args, cots, weights: bool = False):
         return vjp_plain("merged", args, cots, weights)
     out = _launch_bwd("merged_bwd", "merged", args, cots, weights)
     merged_bwd.launches += 1
-    merged_bwd.routes[_route("merged", args)] += 1
+    merged_bwd.routes[_route("merged", args, True)] += 1
     return out
 
 
 for _fn in (edge_att_fwd, coeff_pool_fwd, merged_fwd, edge_att_bwd, coeff_pool_bwd, merged_bwd):
     _fn.launches = 0
-for _fn in (edge_att_bwd, coeff_pool_bwd, merged_bwd):
     _fn.routes = dict.fromkeys(ROUTES, 0)
 FWD = {"edge_att": edge_att_fwd, "coeff_pool": coeff_pool_fwd, "merged": merged_fwd}
 BWD = {"edge_att": edge_att_bwd, "coeff_pool": coeff_pool_bwd, "merged": merged_bwd}

@@ -15,7 +15,7 @@
     EMU_THREADS=128 python tools/cuda_emu/emulate.py --qm9 --hidden 8 16 64 --atoms 29 21 16 7
     EMU_THREADS=128 python tools/cuda_emu/emulate.py --remat --hidden 8 16 64 --atoms 21
     EMU_THREADS=128 python tools/cuda_emu/emulate.py --serving --hidden 8 16 64 --atoms 21 7 22
-    python tools/cuda_emu/emulate.py --split --hidden 8 16 64 --atoms 21 22 7 17
+    python tools/cuda_emu/emulate.py --split --hidden 8 16 64 --atoms 21 22 7 17 --batch 2
 
 Compiles the kernel source with g++ against ``cuda_runtime.h`` beside this file
 (one std::thread per CUDA thread; see there), loads it with ctypes in place of
@@ -70,16 +70,18 @@ everywhere, the tensor-core kernels where the shape takes them (K1 at hidden 64 
 to N = 21, where two blocks fit an SM; K2 up to N = 22; a launch off that route
 must be refused), then K1's and K2's tensor-core products alone
 (``sake_resid_tc_product``) against float64.
-With ``--split`` it runs the split pullbacks #26 (the edge_att and coeff_pool ops)
-and #28 (the merged op) of ``csrc/split_bwd.cu`` through ``split_ef._launch_bwd``
-(the weight cotangents through ``csrc/sparse_contract.cu``) at each ``--hidden`` x
-``--atoms`` N (``--batch`` molecules; ``tools/probe_split.check_pullbacks``: with
-and without weight cotangents, twice bit for bit) against ``split_ef.vjp_plain``,
-on the kernel the shape takes: at hidden 64 (H * K = C = 256) the tensor-core
-route, ``64 // N`` receiver rows a tile (N = 21: three; 22: two; 17: a last
-group of two; 7: one group of seven), its x-mixing on the emulated ``wgmma`` and
-its edge products on the emulated ``mma.sync``; the CUDA-core route at hidden 8
-and 16.
+With ``--split`` it runs the split forwards #25 (the edge_att and coeff_pool ops)
+and #27 (the merged op) of ``csrc/split_fwd.cu`` through ``split_ef._launch_fwd``
+against the plain bodies (``tools/probe_split.check_forwards``: twice bit for
+bit), then the pullbacks #26 and #28 of ``csrc/split_bwd.cu`` through
+``split_ef._launch_bwd`` (the weight cotangents through
+``csrc/sparse_contract.cu``; ``tools/probe_split.check_pullbacks``: with and
+without weight cotangents, twice bit for bit) against ``split_ef.vjp_plain``, at
+each ``--hidden`` x ``--atoms`` N (``--batch`` molecules), each on the kernel the
+shape takes: at hidden 64 (H * K = C = 256) the tensor-core route, ``64 // N``
+receiver rows a tile (N = 21: three; 22: two; 17: a last group of two; 7: one
+group of seven), the x-mixing on the emulated ``wgmma`` and the edge products on
+the emulated ``mma.sync``; the CUDA-core route at hidden 8 and 16.
 ``--asan`` needs the script started with g++'s libasan and libstdc++ preloaded
 (it prints the ``LD_PRELOAD`` line).
 """
@@ -258,10 +260,11 @@ def check_sparse(K: int, NR: int):
 
 
 def check_split(hid: int, B: int, N: int) -> float:
-    """#26 (both ops) and #28 on the route the shape takes against
-    ``vjp_plain`` (``tools/probe_split.check_pullbacks``); returns the worst
-    relative error, and fails where the route is not the one expected at these
-    widths (the tensor cores at hidden 64) or two launches differ."""
+    """#25 (both ops) and #27 on the route the shape takes against the plain
+    bodies (``tools/probe_split.check_forwards``), then #26 (both ops) and #28
+    against ``vjp_plain`` (``check_pullbacks``); returns the worst relative
+    error, and fails where the route is not the one expected at these widths
+    (the tensor cores at hidden 64) or two launches differ."""
     import importlib.util
 
     from sake_tpu_torch.kernels import split_ef as se
@@ -270,17 +273,22 @@ def check_split(hid: int, B: int, N: int) -> float:
     ps = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(ps)
     t0 = time.perf_counter()
-    res = ps.check_pullbacks(
-        torch.device("cpu"), ((f"hidden {hid}, B={B}, N={N}", hid, B, N),),
-        launch=lambda kind, a, c, w: se._launch_bwd(f"{kind}_bwd", kind, a, c, w))
+    case = ((f"hidden {hid}, B={B}, N={N}", hid, B, N),)
+    cpu = torch.device("cpu")
+    res = {"fwd": ps.check_forwards(cpu, case, launch=lambda kind, a: se._launch_fwd(
+               f"{kind}_fwd", kind, a)),
+           "bwd": ps.check_pullbacks(cpu, case, launch=lambda kind, a, c, w: se._launch_bwd(
+               f"{kind}_bwd", kind, a, c, w))}
     worst = 0.0
     want = "tensor cores" if hid == 64 else "CUDA cores"
-    for (label, kind), (err, route, bitwise) in res.items():
-        print(f"split {kind}_bwd {label}: max rel err {err:.3e}, route {route}, two launches "
-              f"bitwise {bitwise}", flush=True)
-        if route != want or not bitwise:
-            sys.exit(f"split {kind}_bwd {label}: route {route} (want {want}), bitwise {bitwise}")
-        worst = max(worst, err)
+    for d, r in res.items():
+        for (label, kind), (err, route, bitwise) in r.items():
+            print(f"split {kind}_{d} {label}: max rel err {err:.3e}, route {route}, two "
+                  f"launches bitwise {bitwise}", flush=True)
+            if route != want or not bitwise:
+                sys.exit(f"split {kind}_{d} {label}: route {route} (want {want}), bitwise "
+                         f"{bitwise}")
+            worst = max(worst, err)
     print(f"  ({time.perf_counter() - t0:.1f} s)", flush=True)
     return worst
 
@@ -687,7 +695,8 @@ def main():
     ap.add_argument("--serving", action="store_true",
                     help="K1 and K2 on both routes (csrc/resid_fwd.cu, csrc/resid_bwd.cu)")
     ap.add_argument("--split", action="store_true",
-                    help="#26 and #28 on the route each shape takes (csrc/split_bwd.cu)")
+                    help="#25-#28 on the route each shape takes (csrc/split_fwd.cu, "
+                         "csrc/split_bwd.cu)")
     args = ap.parse_args()
     if args.asan and "libasan" not in os.environ.get("LD_PRELOAD", ""):
         asan = subprocess.run(["g++", "-print-file-name=libasan.so"], capture_output=True,
@@ -785,7 +794,8 @@ def main():
         with tempfile.TemporaryDirectory() as tmp:
             libs = Libs(*(load(compile_source(src, Path(tmp) / Path(src).stem, args.asan), names)
                           for src, names in (
-                              ("split_fwd.cu", ["sake_split_smem_bytes"]),
+                              ("split_fwd.cu", ["sake_split_fwd", "sake_split_fwd_tc",
+                                                "sake_split_smem_bytes"]),
                               ("split_bwd.cu", ["sake_split_bwd", "sake_split_bwd_tc"]),
                               ("sparse_contract.cu", ["sake_sparse_contract"]))))
             build.load = lambda: libs

@@ -49,7 +49,7 @@ SOURCES = ("sparse_contract.cu", "param_grads.cu")
 SLOTS = ("sc_stage", "sc_mma", "sc_store", "sc_sum", "pg_xmix_stage", "pg_xmix_mma",
          "pg_xmix_flush", "pg_wide_stage", "pg_wide_mma", "pg_wide_flush", "pg_narrow",
          "pg_sum")  # probe.cuh's PR_SC_* and PR_PG_* slots, in order
-N_SLOTS = 60  # kProbeSlots
+N_SLOTS = 62  # kProbeSlots
 SLOT0 = 33  # PR_SC_STAGE
 ENTRIES = ("sake_sparse_contract", "sake_param_grads", "sake_param_grads_aug",
            "sake_sparse_contract_probe", "sake_param_grads_probe")

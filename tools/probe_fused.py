@@ -55,7 +55,7 @@ SLOTS = ("fwd_pre", "fwd_row", "fwd_xmix", "fwd_node", "bwd_pre", "bwd_row", "bw
          "pg_wide_mma", "pg_wide_flush", "pg_narrow", "pg_sum", "fwd_of_mm", "fwd_o1_mm",
          "bwd_of_mm", "bwd_o1_mm", "fwd_cl", "bwd_cl", "bwd_rows", "spl_load", "spl_mm",
          "spl_xmix", "spl_epi", "spl_row", "spl_bar", "spl_sem",
-         "spl_mm_b")  # probe.cuh's ProbeSlot order
+         "spl_mm_b", "spl_ring", "spl_pool")  # probe.cuh's ProbeSlot order
 KERNELS = ("fused_ef_kernelILb0E", "fused_bwd_kernel", "param_grads_kernelILb1E")
 ENTRIES = ("sake_fused_primal", "sake_fused_ef_smem_bytes", "sake_fused_bwd",
            "sake_fused_bwd_smem_bytes", "sake_fused_ef_probe", "sake_fused_bwd_probe")

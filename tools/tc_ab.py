@@ -13,8 +13,9 @@ GPU, in one process tree:
 
 1. ``SASS``: builds both trees' kernels at once (``build.build``) and compares
    every object's SASS function by function (``cuobjdump -sass``). Every kernel
-   but those ``--kernels`` names (by default the split pullbacks' tensor-core
-   kernel, ``split_tc_kernel``, in its six instantiations; ``resid_fwd_cl_kernelILb0E``,
+   but those ``--kernels`` names (by default the split forwards' tensor-core
+   kernel, ``split_tc_fwd_kernel``, in its three instantiations;
+   ``split_tc_kernel`` for a change to the split pullbacks; ``resid_fwd_cl_kernelILb0E``,
    ``remat_fwd_kernelILb1E`` and ``resid_fwd_kernelILb0E`` for a change to #6,
    #21 and #23; ``resid_fwd_tc_kernel``, ``resid_bwd_tc_kernel`` and
    ``resid_tc_product_kernel`` for a change to K1 and K2 on MD17 serving's
@@ -29,7 +30,8 @@ GPU, in one process tree:
    function's); the ptxas lines of the kernels
    that differ or are new are printed beside the parent's.
 2. ``TIME``: kernels timed in worker processes that alternate the trees
-   (parent, change, change, parent, parent, change), CUDA events, 3 launches
+   (parent, change, change, parent, parent, change; that ``--rounds`` times),
+   CUDA events, 3 launches
    after one warm-up. Set ``md17``: K1, K2, #3 and #20 (f32, bf16) at aspirin
    B = 2048 (#3, #20) or 512, #9, #10, #21-#24 at 512, and #11, #12's block
    and its contraction at 512 and 4. Set ``qm9``: at chip_smoke.py phase 5's
@@ -50,7 +52,8 @@ GPU, in one process tree:
    512; ``tools/probe_resid.serving_inputs``) and MD17 serving's path,
    ``resid_energy_forces`` at B = 2048 in chunks of 512 (``csrc/resid_fwd.cu`` and
    ``csrc/resid_bwd.cu`` built by themselves). Set ``split``: #25's two forwards,
-   #26's two pullbacks, #27 and #28 through their wrappers (each tree's route) at
+   #26's two pullbacks, #27 and #28 through their wrappers (each tree's route,
+   printed per wrapper: TC_AB_ROUTES) at
    chip_smoke.py phase 22's per-kernel input (layer 0 of aspirin B = 2048;
    ``tools/probe_split.aspirin_model``, seeded cotangents), and the split and
    merged E + F at B = 2048 (``split_energy_forces``, ``merged_energy_forces``;
@@ -87,10 +90,10 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
-# the kernels this change may add, alter or remove: the split pullbacks'
-# tensor-core kernel (split_kernel, the forwards #25 and #27 and the CUDA-core
-# pullbacks, must keep the parent's instructions)
-NEW_KERNELS = ("split_tc_kernel",)
+# the kernels this change may add, alter or remove: the split forwards'
+# tensor-core kernel (split_kernel, the CUDA-core forwards and pullbacks, and the
+# pullbacks' split_tc_kernel must keep the parent's instructions)
+NEW_KERNELS = ("split_tc_fwd_kernel",)
 # (model seed, batch seed): chip_smoke.py's step 1 (MD17Config's seed, batch
 # order RandomState(0)), then three more
 SEEDS = ((2666, 0), (0, 1), (1, 2), (2, 3))
@@ -397,7 +400,8 @@ def split_times(dev) -> dict:
     """The ``split`` set: #25-#28 at one layer of aspirin B = 2048 and the split
     and merged E + F at B = 2048, on ``csrc/split_fwd.cu`` and
     ``csrc/split_bwd.cu`` built by themselves in the tree on ``sys.path``; each
-    pullback's route is printed (TC_AB_ROUTES)."""
+    wrapper's routes are printed (TC_AB_ROUTES; a tree whose forwards count no
+    route has none)."""
     import ctypes
 
     import torch
@@ -431,7 +435,8 @@ def split_times(dev) -> dict:
         for name in ("split_energy_forces", "merged_energy_forces"):
             fn = getattr(se, name)
             t[f"{name} B=2048"] = cuda_ms(lambda: fn(params, h, x, n_heads=4))
-        routes = {f"{k}_bwd": dict(getattr(se.BWD[k], "routes", {})) for k in se.BWD}
+        routes = {f"{k}_{d}": dict(getattr(fns[k], "routes", {}))
+                  for d, fns in (("fwd", se.FWD), ("bwd", se.BWD)) for k in fns}
         print("TC_AB_ROUTES " + json.dumps(routes), flush=True)
     finally:
         build._lib = saved
@@ -716,6 +721,8 @@ def main() -> int:
                     choices=["md17", "qm9", "fused", "fori", "depthgrid", "serving", "split"])
     ap.add_argument("--kernels", nargs="*", default=list(NEW_KERNELS),
                     help="SASS: the functions (by a part of their names) that may differ")
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="TIME: how often the six alternating processes run")
     args = ap.parse_args()
     if args.worker:
         sys.path.insert(0, str(args.root.resolve()))
@@ -741,7 +748,7 @@ def main() -> int:
     trees = {"parent": parent, "change": change}
     times = []
     if "time" in args.phases:
-        for label in ("parent", "change", "change", "parent", "parent", "change"):
+        for label in ("parent", "change", "change", "parent", "parent", "change") * args.rounds:
             ok &= run_worker("time", trees[label], label, times, args.time_sets) == 0
     if times:
         time_summary(times)
