@@ -279,6 +279,38 @@ Phases (each prints its own lines; any failure exits non-zero):
    the limit the CPU tests hold the plain models to: a pass too few misses by
    about 2e-4.
 
+25. resid_ef's bf16 tier (bf16 edge products and bf16 residual streams, all
+   but r and t: the JAX package's production setting), on K1, K2, #4, #5 and
+   #6. At aspirin's full width B = 37 (K1 and K2 on the tensor cores, and
+   forced on their CUDA-core kernels) and at hidden 8 and 16 (the CUDA cores),
+   unmasked and masked: the kernels against the plain bf16 version on the card,
+   each f32 output (boundaries, final state, r, t; K2's dh, dx, dv, on the
+   plain streams and on K1's) within ``BF16_TOL`` and no farther from plain
+   bf16 than plain bf16 is from plain f32 (K2 on the plain streams: than plain
+   bf16 is from f32 products on the same streams), the bf16 streams bf16 tensors within
+   ``BF16_STREAM_TOL`` of plain (att on receiver rows with a live sender: no
+   output reads the others), each twice bit for bit. Then aspirin requests of B
+   in {37, 512, 2048} through ``dispatch_energy_forces`` with the JAX dispatch's
+   keywords (``edge_matmul_dtype`` and ``resid_dtype`` bf16, ``resid_lowp=
+   LOWP_X``), launches counted from 0 (BF16 SERVING ROUTES: the tensor cores),
+   against the plain f32 oracle: f_err <= max(2e-3, 2 x the plain bf16
+   version's f_err) (``bench.py:164``) and |kernel - plain bf16| <= plain
+   bf16's f_err. K1 and K2 timed in both tiers at B = 512, the served path and
+   its peak device memory at B = 2048 in both tiers. Then QM9 (B = 64, N = 29,
+   masked, ``qm9_kernel``'s model): #4, #6 and #5's rows kernel on their
+   cluster routes against plain bf16 (as above; #5 against the f32 products'
+   distance on the same streams), the contraction within ``BF16_CONTRACT_TOL``
+   of the plain one on the same streams and rows with its sums in float64
+   (``f64_sums``); each twice bit for bit. Then ``make_hidden_fn`` in the tier
+   (launches counted from 0):
+   h_fin within ``BF16_TOL`` and every leaf's gradient of a weighted readout
+   loss within ``BF16_GRAD_TOL`` of the plain bf16 version and no farther from
+   it than plain bf16 is from plain f32; each timed in both tiers. Bounds count
+   every edge product (o_f, o1, the semantic logits, the x-mixing, their
+   pullbacks and weight contractions) at the 989 TFLOP/s dense bf16 peak in
+   one pass, the rest at 67 TFLOP/s, and the bf16 streams at 2 bytes an
+   element.
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -328,6 +360,21 @@ SPLIT_TOL = 1e-4  # the split kernels and the weight cotangents, relative per te
 SPLIT_REQUESTS = (37, 512, 2048)  # phase 22's E + F requests through #25-#28
 SPLIT_GRAD_B = 512  # phase 23's batch
 FUSED_REQUESTS = (37, 512, 2048)  # phase 24's E + F requests through #20
+BF16_REQUESTS = (37, 512, 2048)  # phase 25's aspirin requests in resid_ef's bf16 tier
+# phase 25: the bf16 tier's kernels against its plain version on the card, relative per
+# output: the f32 outputs, K2's cotangents, E and F, h_fin (and no farther than plain
+# bf16 lies from plain f32; K2 and #5 on plain's streams no farther than plain bf16 lies
+# from the f32 products on the same streams); the gradients of every leaf through
+# make_hidden_fn (a flipped bf16 rounding spreads over depth 6; and no farther than plain
+# bf16 lies from plain f32, leaf by leaf); the bf16 residual streams, relative to a
+# stream's max (a flipped rounding moves an element by one bf16 step, at most 2^-7 of
+# its size); the contraction against the plain one on the same streams and rows with its
+# sums in float64 (f64_sums), as the kernel's are: what is left is the f32 rounding of
+# the result and of the operands the two form alike
+BF16_TOL = 1e-3
+BF16_GRAD_TOL = 1e-2
+BF16_STREAM_TOL = 2.0**-7
+BF16_CONTRACT_TOL = 1e-6
 # #20 bf16 against plain bf16 on the narrow models, relative per output (the CPU
 # test's limit; plain bf16 lies about 2e-3 to 1e-2 from plain f32 there)
 FUSED_NARROW_BF16_TOL = 1e-3
@@ -675,6 +722,7 @@ def main() -> int:
     kernels += remat_phases(dev, smi)
     kernels += split_phases(dev, smi)
     kernels += fused_phases(dev, smi)
+    kernels += bf16_phases(dev, smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -3265,6 +3313,540 @@ def fused_phases(dev, smi) -> list:
                                     "sake_tpu/kernels/fused_ef.py:94", launches[mode],
                                     abs_fused[f"fused_ef_{mode}"], k_ms, p_ms, fma, moved,
                                     peak=peaks[mode], tc=btc))
+    return entries
+
+
+def edge_fma(N, H, R, K, C):
+    """Of ``layer_fma``'s multiply-adds, the edge products that resid_ef's bf16
+    tier rounds to bf16 on both sides: o_f, o1, the semantic logits, the
+    x-mixing, their pullbacks and the four edge leaves' weight contractions."""
+    E, HK = N * N, H * K
+    one = E * (R * H + H * H + H * K + HK * C)
+    return dict(fwd=one, bwd=one, grads=one)
+
+
+def entry16(name, source, replaces, launches, max_abs_err, ms, plain_ms, fma, edge, moved):
+    """A kernel entry of the bf16 tier: its edge products at the dense bf16 peak in
+    one pass, the rest over the f32 peak, or its bytes (the bf16 streams at 2 bytes
+    an element) over the memory rate."""
+    t_ops = (2 * (fma - edge) / PEAK_F32_FLOPS + 2 * edge / PEAK_BF16_FLOPS) * 1e3
+    t_bytes = moved / PEAK_BYTES * 1e3
+    bound_ms, bound_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
+                max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
+def tier_pairs(k, p, mask=None):
+    """K1's outputs ``k`` against ``p`` (``FwdOut``s of the bf16 tier): the f32
+    outputs (boundaries, final state, r, t) and the bf16 streams apart; masked, att
+    on receiver rows with a live sender only (no output reads the others). Fails
+    unless every stream of ``k`` but r and t is a bf16 tensor."""
+    import torch
+
+    from sake_tpu_torch.kernels import resid_ef
+
+    if any(k.resid[n].dtype != torch.bfloat16 for n in resid_ef.RESID_LOWP):
+        fail("a bf16-tier forward wrote a low-precision stream in another dtype")
+
+    f32 = [*zip(("bh", "bx", "bv", "h_fin", "x_fin", "v_fin"), k[:6], p[:6]),
+           *((n, k.resid[n], p.resid[n]) for n in ("r", "t"))]
+    low = [(n, k.resid[n], p.resid[n]) for n in resid_ef.RESIDS
+           if n in resid_ef.RESID_LOWP and n != "att"]
+    att_k, att_p = k.resid["att"].float(), p.resid["att"].float()
+    if mask is not None:
+        depth, B, NN, _ = att_k.shape
+        N = mask.shape[1]
+        live = (mask.reshape(B, N, N).sum(-1) > 0).to(att_k.dtype)
+        rows = live[:, :, None].expand(B, N, N).reshape(1, B, NN, 1)
+        att_k, att_p = att_k * rows, att_p * rows
+    return f32, low + [("att", att_k, att_p)]
+
+
+def gate_tier(label, pairs, ref32: dict, tol: float, stream_pairs=()) -> float:
+    """Each (name, kernel, plain bf16) of ``pairs`` within ``tol`` relative and no
+    farther than plain bf16 lies from plain f32 (``ref32[name]``, that distance),
+    each bf16 stream of ``stream_pairs`` within BF16_STREAM_TOL;
+    prints the line and fails beyond; returns the max absolute error."""
+    import torch
+
+    errs = {n: rel_err(a.float(), b.float()) for n, a, b in pairs}
+    serr = {n: rel_err(a.float(), b.float()) for n, a, b in stream_pairs}
+    finite = all(bool(torch.isfinite(a.float()).all()) for _, a, _ in [*pairs, *stream_pairs])
+    w = max(errs, key=errs.get)
+    bad = [n for n in errs if errs[n] > tol or errs[n] > ref32[n]]
+    bad += [n for n in serr if serr[n] > BF16_STREAM_TOL]
+    print(f"BF16 {label}: max rel err {errs[w]:.3e} ({w}; plain bf16 from plain f32 there "
+          f"{ref32[w]:.3e}); streams max rel err "
+          f"{max(serr.values()) if serr else 0.0:.3e}; finite {finite} "
+          + json.dumps({k: [float(f"{v:.2e}"), float(f"{ref32[k]:.2e}")]
+                        for k, v in errs.items()}), flush=True)
+    if bad or not finite:
+        fail(f"bf16 tier {label}: beyond its limits at {bad} (limit {tol}, and plain bf16's "
+             f"distance from plain f32; streams {BF16_STREAM_TOL}), or a non-finite value")
+    return max(abs_err(a.float(), b.float()) for _, a, b in pairs)
+
+
+def f64_sums():
+    """A context in which every ``@`` and ``torch.matmul`` sums in float64 and
+    returns its first operand's dtype: a plain version's operands formed as they
+    are, its products' sums as exact as an f64-summing kernel's."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+
+    mms = (torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__)
+
+    class F64Sums(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func in mms:
+                a, b = args
+                return torch.matmul(a.double(), b.double()).to(a.dtype)
+            return func(*args, **(kwargs or {}))
+
+    return F64Sums()
+
+
+def widened(fwd):
+    """``fwd`` (an ``FwdOut`` of the bf16 tier) with its bf16 streams widened to
+    f32 tensors: the plain versions read it in the f32 tier, with f32 products."""
+    return fwd._replace(resid={n: v.float() for n, v in fwd.resid.items()})
+
+
+def plain_tier_ef(params, h, x, bf16: bool, n_heads: int, chunk: int):
+    """E and F of ``resid_energy_forces`` through the plain versions of K1 and K2
+    on the tensors' device (the card): the plain bf16 tier, or the plain f32."""
+    import torch
+
+    from sake_tpu_torch.kernels import resid_ef
+    from sake_tpu_torch.kernels.functional import embed
+    from sake_tpu_torch.kernels.leaves import wide_stack
+
+    leaves = wide_stack(params, n_heads)
+    upd = [1.0] * len(params.layers)
+    es, fs = [], []
+    with torch.no_grad():
+        for s in range(0, x.shape[0], chunk):
+            xs = x[s : s + chunk].permute(2, 0, 1).contiguous()
+            zs = torch.zeros_like(xs)
+            fwd = resid_ef.resid_fwd_plain(leaves, embed(params, h[s : s + chunk]), xs, zs, upd,
+                                           bf16=bf16)
+            e, dh = resid_ef._readout_seed(params, fwd.h_fin, None)
+            dx = resid_ef.resid_bwd_plain(leaves, fwd, upd, dh, zs, zs)[1]
+            es.append(e)
+            fs.append(-dx.permute(1, 2, 0))
+    return torch.cat(es), torch.cat(fs)
+
+
+def bf16_phases(dev, smi) -> list:
+    """Phase 25 (see the module docstring); returns its kernel entries."""
+    import torch
+
+    from sake_tpu_torch.data.md17 import synthesize_md17
+    from sake_tpu_torch.data.qm9 import dimenet_split, load_qm9
+    from sake_tpu_torch.kernels import dispatch, resid_ef
+    from sake_tpu_torch.kernels.functional import embed, readout
+    from sake_tpu_torch.kernels.leaves import LEAF_NAMES, transposed, wide_stack
+    from sake_tpu_torch.tasks import qm9 as task
+    from sake_tpu_torch.tasks.md17 import MD17Config, make_model, species_onehot
+    from sake_tpu_torch.train import shuffle_batches
+
+    t_phase = time.perf_counter()
+    data = synthesize_md17(n_samples=max(BF16_REQUESTS), seed=SEED)
+    species = species_onehot(data.z, int(data.z.max()))
+    heads, depth = FULL["heads"], FULL["depth"]
+    cfg = MD17Config(hidden_features=FULL["hidden"], depth=depth, n_heads=heads)
+    model = make_model(cfg, species.shape[-1], device=dev,
+                       generator=torch.Generator().manual_seed(SEED))
+    model.requires_grad_(False)
+    params = model.functional_params()
+    leaves = wide_stack(params, heads)
+    N = len(data.z)
+    tier = dict(edge_matmul_dtype=torch.bfloat16, resid_dtype=torch.bfloat16,
+                resid_lowp=dispatch.LOWP_X)
+
+    # -- 25a. K1 and K2 in the tier against plain bf16, B = 37 ---------------------
+    rng = np.random.RandomState(SEED + 25)
+    Bk = 37
+    tdev = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
+    x37 = tdev(data.x[:Bk].transpose(2, 0, 1))
+    h37 = embed(params, species.to(dev).expand(Bk, N, -1)).contiguous()
+    v37 = tdev(0.1 * rng.randn(3, Bk, N))
+    upd = [1.0, 0.3, 0.0, 1.0, 1.0, 1.0][:depth]  # the gate at 0 < upd < 1, and off
+    nm37 = (np.arange(N)[None] < rng.randint(3, N + 1, size=Bk)[:, None]).astype(np.float32)
+    nm37[0] = 0.0
+    masks = {"unmasked": None, "masked": tdev((nm37[:, :, None] * nm37[:, None, :])[..., None])}
+    cases = [("aspirin", leaves, h37, None), ("aspirin", leaves, h37, "CUDA cores")]
+    for hid in (8, 16):
+        nmod = make_model(MD17Config(hidden_features=hid, depth=depth, n_heads=heads),
+                          species.shape[-1], device=dev,
+                          generator=torch.Generator().manual_seed(SEED + hid))
+        nmod.requires_grad_(False)
+        np_ = nmod.functional_params()
+        cases.append((f"hidden {hid}", wide_stack(np_, heads),
+                      embed(np_, species.to(dev).expand(Bk, N, -1)).contiguous(), None))
+    abs16 = {"resid_fwd": 0.0, "resid_bwd": 0.0}
+    for label, m4 in masks.items():
+        for model_label, lv, h_in, forced in cases:
+            lv_t = transposed(lv)
+            sd = (tdev(rng.randn(*h_in.shape)), tdev(rng.randn(3, Bk, N)),
+                  tdev(rng.randn(3, Bk, N)))
+            before = {c.__name__: dict(c.routes) for c in (resid_ef.resid_fwd, resid_ef.resid_bwd)}
+            with torch.no_grad():
+                p1 = resid_ef.resid_fwd_plain(lv, h_in, x37, v37, upd, mask=m4, bf16=True)
+                p1_32 = resid_ef.resid_fwd_plain(lv, h_in, x37, v37, upd, mask=m4)
+                p2 = resid_ef.resid_bwd_plain(lv, p1, upd, *sd, mask=m4)
+                p2_32 = resid_ef.resid_bwd_plain(lv, p1_32, upd, *sd, mask=m4)
+                p2_w = resid_ef.resid_bwd_plain(lv, widened(p1), upd, *sd, mask=m4)
+                if forced:
+                    k1 = [resid_ef._launch_fwd(lv, h_in, x37, v37, upd, m4, forced, bf16=True)
+                          for _ in range(2)]
+                    k2 = [resid_ef._bwd_launch("resid_bwd", lv, p1, upd, *sd, m4, lv_t, False,
+                                               route=forced)[:3] for _ in range(2)]
+                    k21 = resid_ef._bwd_launch("resid_bwd", lv, k1[0], upd, *sd, m4, lv_t, False,
+                                               route=forced)[:3]
+                else:
+                    k1 = [resid_ef.resid_fwd(lv, h_in, x37, v37, upd, mask=m4, bf16=True)
+                          for _ in range(2)]
+                    k2 = [resid_ef.resid_bwd(lv, p1, upd, *sd, mask=m4, leaves_t=lv_t)
+                          for _ in range(2)]
+                    k21 = resid_ef.resid_bwd(lv, k1[0], upd, *sd, mask=m4, leaves_t=lv_t)
+                torch.cuda.synchronize()
+            took = {c.__name__: {r: c.routes[r] - before[c.__name__][r] for r in c.routes}
+                    for c in (resid_ef.resid_fwd, resid_ef.resid_bwd)}
+            dims = resid_ef._dims(lv, h_in)
+            route = {"resid_fwd": resid_ef.ROUTES[resid_ef.fwd_tensor_core_route(dims)],
+                     "resid_bwd": resid_ef.ROUTES[resid_ef.bwd_tensor_core_route(dims)]}
+            if not forced and any(n != ((3 if k == "resid_bwd" else 2) if r == route[k] else 0)
+                                  for k, t in took.items() for r, n in t.items()):
+                fail(f"bf16 K1 / K2 {model_label} {label}: a launch off its route: {took}")
+            f32_1, low_1 = tier_pairs(k1[0], p1, m4)
+            ref1, _ = tier_pairs(p1, p1_32, m4)
+            out1 = lambda k: [*k[:6], *(k.resid[n] for n in resid_ef.RESIDS)]
+            bitwise = (all(torch.equal(a, b) for a, b in zip(out1(k1[0]), out1(k1[1])))
+                       and all(torch.equal(a, b) for a, b in zip(k2[0], k2[1])))
+            on = f"{model_label} {label} on the {forced or route['resid_fwd']}" + (
+                " (forced)" if forced else "")
+            if not bitwise:
+                fail(f"bf16 {on}: a second launch differs from the first")
+            d32 = {n: rel_err(b.float(), c.float()) for (n, b, c) in ref1}
+            a1 = gate_tier(f"K1 vs plain bf16 {on} (B={Bk}, N={N}, depth {depth}), second launch "
+                           "bitwise", f32_1, d32, BF16_TOL, low_1)
+            names2 = ("dh", "dx", "dv")
+            # K2 on plain's streams: against the distance of the tier's products alone
+            # (plain bf16 from f32 products on the same bf16 streams)
+            d_mm = {n: rel_err(a, b) for n, a, b in zip(names2, p2, p2_w)}
+            a2 = gate_tier(f"K2 vs plain bf16 {on.replace(route['resid_fwd'], route['resid_bwd'])}"
+                           " on plain's streams (reference: f32 products on those streams)",
+                           [*zip(names2, k2[0], p2)], d_mm, BF16_TOL)
+            d32 = {n: rel_err(a, b) for n, a, b in zip(names2, p2, p2_32)}
+            gate_tier(f"K2 on K1's streams vs plain bf16 {on}", [*zip(names2, k21, p2)], d32,
+                      BF16_TOL)
+            if model_label == "aspirin" and not forced:
+                abs16["resid_fwd"] = max(abs16["resid_fwd"], a1)
+                abs16["resid_bwd"] = max(abs16["resid_bwd"], a2)
+            del k1, k2, k21, p1, p1_32, p2, p2_32, p2_w
+
+    # -- 25b. aspirin requests through the dispatch in the tier --------------------
+    xs_all = torch.as_tensor(data.x, device=dev)
+    h_of = lambda B: species.to(dev).expand(B, N, -1)
+    counted = (resid_ef.resid_fwd, resid_ef.resid_bwd)
+    for c in counted:
+        c.launches = 0
+        c.routes = dict.fromkeys(resid_ef.ROUTES, 0)
+    answers = {B: dispatch.dispatch_energy_forces(params, h_of(B), xs_all[:B], n_heads=heads,
+                                                  **tier)
+               for B in BF16_REQUESTS}
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counted}
+    routes = {c.__name__: dict(c.routes) for c in counted}
+    print(f"BF16 SERVING ROUTES B in {list(BF16_REQUESTS)} (dispatch_energy_forces, "
+          f"{json.dumps({k: str(v) for k, v in tier.items() if k != 'resid_lowp'})}): "
+          f"launches {json.dumps(launches)}, by route {json.dumps(routes)}", flush=True)
+    if min(launches.values()) == 0 or any(
+            n != (launches[k] if r == "tensor cores" else 0)
+            for k, rs in routes.items() for r, n in rs.items()):
+        fail(f"the bf16 serving path did not launch K1 and K2 on their aspirin route: {routes}")
+    worst = {}
+    for B, (e, f) in answers.items():
+        if e.shape != (B,) or f.shape != (B, N, 3) or not (
+                torch.isfinite(e).all() and torch.isfinite(f).all()):
+            fail(f"bf16 serving B={B}: shapes {tuple(e.shape)} {tuple(f.shape)} or non-finite")
+        e_ref, f_ref = chunked_plain_ef(params, species, xs_all[:B], heads, CHECK_CHUNK)
+        pe, pf = plain_tier_ef(params, h_of(B), xs_all[:B], True, heads, PATH_CHUNK)
+        p_err = rel_err(pf, f_ref)
+        gate = max(2e-3, 2 * p_err)
+        err = {"f_err": rel_err(f, f_ref), "e_err": rel_err(e, e_ref), "plain_bf16_f_err": p_err,
+               "plain_bf16_e_err": rel_err(pe, e_ref), "vs_plain_bf16": rel_err(f, pf),
+               "e_vs_plain_bf16": rel_err(e, pe)}
+        worst = {k: max(worst.get(k, 0.0), v) for k, v in err.items()}
+        print(f"BF16 SLICE B={B} against the plain f32 oracle: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
+              + f" (f_err <= max(2e-3, 2 x plain bf16's) = {gate:.3e}; |kernel - plain bf16| <= "
+              "plain bf16's f_err)", flush=True)
+        if err["f_err"] > gate or err["vs_plain_bf16"] > p_err:
+            fail(f"bf16 serving B={B} beyond its gate")
+        del e_ref, f_ref, pe, pf
+    del answers
+
+    # -- 25c. K1, K2 and the served path timed in both tiers ------------------------
+    xc = xs_all[:PATH_CHUNK].permute(2, 0, 1).contiguous()
+    hc = embed(params, h_of(PATH_CHUNK)).contiguous()
+    zc = torch.zeros_like(xc)
+    u6 = [1.0] * depth
+    leaves16 = resid_ef.edge_bf16_leaves(leaves)
+    leaves_t16 = transposed(leaves16)
+    leaves_t = transposed(leaves)
+    with torch.no_grad():
+        fwd32 = resid_ef.resid_fwd(leaves, hc, xc, zc, u6)
+        fwd16 = resid_ef.resid_fwd(leaves16, hc, xc, zc, u6, bf16=True)
+        dh = torch.randn(hc.shape, device=dev, generator=torch.Generator(dev).manual_seed(2))
+        runs = {k: [] for k in ("K1 f32", "K1 bf16", "K2 f32", "K2 bf16")}
+        timed = {
+            "K1 f32": lambda: resid_ef.resid_fwd(leaves, hc, xc, zc, u6),
+            "K1 bf16": lambda: resid_ef.resid_fwd(leaves16, hc, xc, zc, u6, bf16=True),
+            "K2 f32": lambda: resid_ef.resid_bwd(leaves, fwd32, u6, dh, zc, zc,
+                                                 leaves_t=leaves_t),
+            "K2 bf16": lambda: resid_ef.resid_bwd(leaves16, fwd16, u6, dh, zc, zc,
+                                                  leaves_t=leaves_t16),
+        }
+        for side in (*timed, *reversed(timed)):
+            runs[side].append(cuda_ms(timed[side]))
+        t_p1 = cuda_ms(lambda: resid_ef.resid_fwd_plain(leaves, hc, xc, zc, u6, bf16=True))
+        t_p2 = cuda_ms(lambda: resid_ef.resid_bwd_plain(leaves, fwd16, u6, dh, zc, zc))
+    ms = {k: sum(v) / len(v) for k, v in runs.items()}
+    stream_mb = {t: nbytes(f.resid) / 2**20 for t, f in (("f32", fwd32), ("bf16", fwd16))}
+    print(f"BF16 TIMING per kernel at B={PATH_CHUNK}, depth {depth}, aspirin (ms; the routes "
+          f"the shape takes): " + json.dumps({k: round(v, 3) for k, v in ms.items()})
+          + f"; plain bf16 K1 {t_p1:.3f}, K2 {t_p2:.3f}; residual streams of the chunk "
+          f"{stream_mb['f32']:.2f} MiB f32, {stream_mb['bf16']:.2f} MiB bf16 (runs "
+          f"{json.dumps(runs)}; {smi})", flush=True)
+    Bt = max(BF16_REQUESTS)
+    path = {"f32": lambda: resid_ef.resid_energy_forces(params, h_of(Bt), xs_all[:Bt],
+                                                        n_heads=heads),
+            "bf16": lambda: resid_ef.resid_energy_forces(params, h_of(Bt), xs_all[:Bt],
+                                                         n_heads=heads, **tier)}
+    pruns, peak = {k: [] for k in path}, {}
+    for side in ("f32", "bf16", "bf16", "f32"):
+        pruns[side].append(cuda_ms(path[side]))
+    for side, fn in path.items():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        peak[side] = (torch.cuda.max_memory_allocated() - base) / 2**20
+        del out
+    print(f"BF16 PATH B={Bt} resid_energy_forces (chunk {PATH_CHUNK}): " + "; ".join(
+        f"{k} {sum(v) / len(v):.2f} ms = {Bt * 1e3 * len(v) / sum(v):.1f} evals/s, peak device "
+        f"memory {peak[k]:.1f} MiB" for k, v in pruns.items())
+        + f" (runs {json.dumps(pruns)}; {smi})", flush=True)
+    dims21 = (N, FULL["hidden"], FULL["hidden"], 50, heads, 256)
+    fma21 = {k: v * PATH_CHUNK * depth for k, v in layer_fma(*dims21).items()}
+    edge21 = {k: v * PATH_CHUNK * depth for k, v in edge_fma(N, *dims21[2:]).items()}
+    moved1 = nbytes(leaves16, hc, xc, zc, fwd16)
+    moved2 = nbytes(leaves16, leaves_t16, fwd16.bh, fwd16.bx, fwd16.bv, fwd16.resid, dh, zc,
+                    zc, dh, zc, zc)
+    src, at = "sake_tpu_torch/csrc/", "sake_tpu/kernels/resid_ef.py:"
+    entries = [
+        entry16("resid_fwd_bf16", src + "resid_fwd.cu", at + "1099", launches["resid_fwd"],
+                abs16["resid_fwd"], ms["K1 bf16"], t_p1, fma21["fwd"], edge21["fwd"], moved1),
+        entry16("resid_bwd_bf16", src + "resid_bwd.cu", at + "1211", launches["resid_bwd"],
+                abs16["resid_bwd"], ms["K2 bf16"], t_p2, fma21["bwd"], edge21["bwd"], moved2),
+    ]
+    print(f"BF16 BOUND per kernel at B={PATH_CHUNK}: K1 {entries[0]['bound_ms']:.4f} ms "
+          f"({entries[0]['bound_by']}), K2 {entries[1]['bound_ms']:.4f} ms "
+          f"({entries[1]['bound_by']}) (edge products at {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s "
+          f"in one pass, the rest at {PEAK_F32_FLOPS / 1e12:.0f}, {moved1} and {moved2} bytes "
+          f"over {PEAK_BYTES / 1e12:.2f} TB/s)", flush=True)
+    del fwd32, fwd16
+
+    # -- 25d. QM9 in the tier: #4, #5, #6 and make_hidden_fn --------------------------
+    qcfg = task.QM9Config(use_kernel_backbone=True, data_parallel=False, n_samples=640)
+    qdata = load_qm9(None, qcfg.n_samples, seed=qcfg.seed)
+    tr_idx, _, _ = dimenet_split(len(qdata.x))
+    n_classes = int(qdata.charges.max()) + 1
+    train = task.prepare_split(qdata, tr_idx, n_classes, float(qdata.y[tr_idx].mean()),
+                               float(qdata.y[tr_idx].std()), dev)
+    batch = shuffle_batches(np.random.RandomState(qcfg.seed), train, qcfg.batch_size)[0]
+    B, Nq = batch["x"].shape[:2]
+    F = qcfg.hidden_features
+    qmodel = task.QM9Model(qcfg, n_classes, device=dev,
+                           generator=torch.Generator().manual_seed(qcfg.seed))
+    kp = task.make_forward(qcfg, qmodel)[0]["kp"]
+    kp = type(kp)(*[t.detach() if isinstance(t, torch.Tensor) else t for t in kp])
+    kp = kp._replace(layers=tuple(type(lp)(type(lp.edge)(*[t.detach() for t in lp.edge]),
+                                           *[t.detach() for t in lp[1:]]) for lp in kp.layers))
+    qleaves = wide_stack(kp, qcfg.n_heads)
+    qleaves_t = transposed(qleaves)
+    qupd = [1.0] * qcfg.depth
+    m4 = batch["edge_mask"][..., None].contiguous()
+    with torch.no_grad():
+        h0 = embed(kp, batch["species"]).contiguous()
+        xs = batch["x"].permute(2, 0, 1).contiguous()
+        zs = torch.zeros_like(xs)
+        dhq = torch.randn(B, Nq, F, device=dev, generator=torch.Generator(dev).manual_seed(3))
+        p4 = resid_ef.resid_fwd_plain(qleaves, h0, xs, zs, qupd, mask=m4, bf16=True)
+        p4_32 = resid_ef.resid_fwd_plain(qleaves, h0, xs, zs, qupd, mask=m4)
+        k4 = [resid_ef.resid_fwd(qleaves, h0, xs, zs, qupd, mask=m4, cluster=True, bf16=True)
+              for _ in range(2)]
+        k6 = [resid_ef.resid_infer(qleaves, h0, xs, zs, qupd, mask=m4, bf16=True)
+              for _ in range(2)]
+        p6 = resid_ef.resid_infer_plain(qleaves, h0, xs, zs, qupd, mask=m4, bf16=True)
+        p6_32 = resid_ef.resid_infer_plain(qleaves, h0, xs, zs, qupd, mask=m4)
+        k5 = [resid_ef.resid_bwd_rows(qleaves, p4, qupd, dhq, zs, zs, mask=m4,
+                                      leaves_t=qleaves_t, cluster=True) for _ in range(2)]
+        p5 = resid_ef.resid_bwd_rows_plain(qleaves, p4, qupd, dhq, zs, zs, mask=m4)
+        p5_32 = resid_ef.resid_bwd_rows_plain(qleaves, p4_32, qupd, dhq, zs, zs, mask=m4)
+        p5_w = resid_ef.resid_bwd_plain(qleaves, widened(p4), qupd, dhq, zs, zs, mask=m4)
+        kg = [resid_ef.param_grads(qleaves, p4, k5[0][3]) for _ in range(2)]
+        with f64_sums():
+            pg = resid_ef.param_grads_plain(qleaves, p4, k5[0][3])
+        pg_32 = resid_ef.param_grads_plain(qleaves, p4_32, p5_32[3])
+        torch.cuda.synchronize()
+    out1 = lambda k: [*k[:6], *(k.resid[n] for n in resid_ef.RESIDS)]
+    bitwise = {"#4": all(torch.equal(a, b) for a, b in zip(out1(k4[0]), out1(k4[1]))),
+               "#6": all(torch.equal(a, b) for a, b in zip(k6[0], k6[1])),
+               "#5": all(torch.equal(a, b) for a, b in zip(
+                   [*k5[0][:3], *k5[0][3].values()], [*k5[1][:3], *k5[1][3].values()])),
+               "param_grads": all(torch.equal(kg[0][n], kg[1][n]) for n in LEAF_NAMES)}
+    print(f"BF16 QM9 BITWISE second launch: {json.dumps(bitwise)}", flush=True)
+    if not all(bitwise.values()):
+        fail("bf16 QM9: a kernel's second launch differs from its first")
+    on = f"(B={B}, N={Nq}, depth {qcfg.depth}, masked, the cluster route)"
+    f32_4, low_4 = tier_pairs(k4[0], p4, m4)
+    ref4, _ = tier_pairs(p4, p4_32, m4)
+    abs_q = {"#4": gate_tier(f"QM9 #4 vs plain bf16 {on}", f32_4,
+                             {n: rel_err(b.float(), c.float()) for n, b, c in ref4}, BF16_TOL,
+                             low_4)}
+    abs_q["#6"] = gate_tier(f"QM9 #6 vs plain bf16 {on}", [*zip(("h_fin", "x_fin"), k6[0], p6)],
+                            {n: rel_err(a, b) for n, a, b in zip(("h_fin", "x_fin"), p6, p6_32)},
+                            BF16_TOL)
+    names5 = ("dh", "dx", "dv")
+    abs_q["#5"] = gate_tier(f"QM9 #5 rows kernel vs plain bf16 {on} (dh, dx, dv; reference: "
+                            "f32 products on the same streams)",
+                            [*zip(names5, k5[0][:3], p5[:3])],
+                            {n: rel_err(a, b) for n, a, b in zip(names5, p5[:3], p5_w)},
+                            BF16_TOL)
+    gpairs = [(f"{n}[{l}]", kg[0][n][l], pg[n][l]) for n in LEAF_NAMES for l in range(qcfg.depth)]
+    gref = {f"{n}[{l}]": rel_err(pg[n][l], pg_32[n][l]) for n in LEAF_NAMES
+            for l in range(qcfg.depth)}
+    abs_q["param_grads"] = gate_tier(f"QM9 param_grads vs plain bf16 on the kernel's rows, its "
+                                     f"sums in float64 {on}", gpairs, gref, BF16_CONTRACT_TOL)
+    del k4, k6, k5, kg, p5, p5_32, p5_w, pg, pg_32, p6, p6_32
+
+    # make_hidden_fn in the tier, launches counted from 0: h_fin and every leaf's
+    # gradient of a weighted readout loss against the plain bf16 stack on the card
+    w = torch.randn(B, device=dev, generator=torch.Generator(dev).manual_seed(4))
+    nmask = batch["node_mask"]
+    cl = (resid_ef.resid_fwd, resid_ef.resid_bwd_rows)
+    others = (resid_ef.resid_infer, resid_ef.param_grads, resid_ef.resid_bwd)
+    for c in (*cl, *others):
+        c.launches = 0
+    for c in cl:
+        c.cluster_launches = 0
+    hidden = resid_ef.make_hidden_fn(n_heads=qcfg.n_heads, **tier)
+    flat = [t.detach().clone().requires_grad_(True) for t in resid_ef.flat_params(kp)]
+    kpg = resid_ef._unflat_params(flat, qcfg.depth)
+    hf = hidden(kpg, batch["species"], batch["x"], batch["edge_mask"])
+    loss = ((readout(kpg, hf)[..., 0] * nmask).sum(-1) * w).sum()
+    got = torch.autograd.grad(loss, flat, allow_unused=True)
+    with torch.no_grad():
+        hf_eval = hidden(kp, batch["species"], batch["x"], batch["edge_mask"])
+    torch.cuda.synchronize()
+    qlaunch = {"resid_fwd (cluster)": resid_ef.resid_fwd.cluster_launches,
+               "resid_bwd_rows (cluster)": resid_ef.resid_bwd_rows.cluster_launches,
+               **{c.__name__: c.launches for c in (*cl, *others)}}
+    print(f"BF16 QM9 make_hidden_fn launches {json.dumps(qlaunch)}", flush=True)
+    if (qlaunch["resid_fwd (cluster)"], qlaunch["resid_bwd_rows (cluster)"],
+            qlaunch["param_grads"], qlaunch["resid_infer"]) != (1, 1, 1, 1) or (
+            qlaunch["resid_fwd"] or qlaunch["resid_bwd_rows"] or qlaunch["resid_bwd"]):
+        fail(f"bf16 make_hidden_fn did not launch #4, #5, the contraction and #6 once each on "
+             f"their routes: {qlaunch}")
+
+    def plain_hidden(bf16):
+        """h_fin and the gradient of every flat leaf through the plain stack."""
+        with torch.no_grad():
+            fwd = resid_ef.resid_fwd_plain(qleaves, h0, xs, zs, qupd, mask=m4, bf16=bf16)
+        hfp = fwd.h_fin.detach().requires_grad_(True)
+        lp_ = ((readout(kp, hfp)[..., 0] * nmask).sum(-1) * w).sum()
+        (dhf,) = torch.autograd.grad(lp_, hfp)
+        with torch.no_grad():
+            dh0, _, _, rows = resid_ef.resid_bwd_rows_plain(qleaves, fwd, qupd, dhf, zs, zs,
+                                                            mask=m4)
+            g = resid_ef.param_grads_plain(qleaves, fwd, rows)
+            h2 = batch["species"].reshape(B * Nq, -1)
+            dh2 = dh0.reshape(B * Nq, F)
+            out = [h2.T @ dh2, dh2.sum(0)]
+            for l in range(qcfg.depth):
+                lpg = resid_ef.unsplit_layer_grads({n: g[n][l] for n in LEAF_NAMES})
+                out += [*lpg.edge, *lpg[1:]]
+        return fwd.h_fin, out
+
+    hp, gp = plain_hidden(True)
+    hp32, gp32 = plain_hidden(False)
+    gate_tier(f"QM9 make_hidden_fn h_fin vs plain bf16 {on}", [("h_fin", hf.detach(), hp),
+                                                               ("h_fin eval", hf_eval, hp)],
+              {"h_fin": rel_err(hp, hp32), "h_fin eval": rel_err(hp, hp32)}, BF16_TOL)
+    n_layer = len(gp)
+    gpairs = [(f"leaf {i}", got[i], gp[i]) for i in range(n_layer)]
+    gate_tier(f"QM9 make_hidden_fn gradient of every leaf vs plain bf16 {on}", gpairs,
+              {f"leaf {i}": rel_err(gp[i], gp32[i]) for i in range(n_layer)}, BF16_GRAD_TOL)
+    del hf, got, hf_eval, hp, gp, hp32, gp32
+
+    # timing, both tiers, and the entries
+    with torch.no_grad():
+        q16 = resid_ef.edge_bf16_leaves(qleaves)
+        rows16 = resid_ef.resid_bwd_rows(q16, p4, qupd, dhq, zs, zs, mask=m4, cluster=True)[3]
+        rows32 = resid_ef.resid_bwd_rows(qleaves, p4_32, qupd, dhq, zs, zs, mask=m4,
+                                         cluster=True)[3]
+        tq = {
+            "#4": (lambda: resid_ef.resid_fwd(qleaves, h0, xs, zs, qupd, m4, cluster=True),
+                   lambda: resid_ef.resid_fwd(q16, h0, xs, zs, qupd, m4, cluster=True,
+                                              bf16=True),
+                   lambda: resid_ef.resid_fwd_plain(qleaves, h0, xs, zs, qupd, m4, bf16=True)),
+            "#6": (lambda: resid_ef.resid_infer(qleaves, h0, xs, zs, qupd, m4),
+                   lambda: resid_ef.resid_infer(q16, h0, xs, zs, qupd, m4, bf16=True),
+                   lambda: resid_ef.resid_infer_plain(qleaves, h0, xs, zs, qupd, m4, bf16=True)),
+            "#5 rows": (lambda: resid_ef.resid_bwd_rows(qleaves, p4_32, qupd, dhq, zs, zs, m4,
+                                                        cluster=True),
+                        lambda: resid_ef.resid_bwd_rows(q16, p4, qupd, dhq, zs, zs, m4,
+                                                        cluster=True),
+                        lambda: resid_ef.resid_bwd_rows_plain(qleaves, p4, qupd, dhq, zs, zs,
+                                                              m4)),
+            "param_grads": (lambda: resid_ef.param_grads(qleaves, p4_32, rows32),
+                            lambda: resid_ef.param_grads(qleaves, p4, rows16),
+                            lambda: resid_ef.param_grads_plain(qleaves, p4, rows16)),
+        }
+        qt = {}
+        for k, (f32_fn, bf_fn, plain_fn) in tq.items():
+            a, b_ = [], []
+            for side in ("f32", "bf16", "bf16", "f32"):
+                (a if side == "f32" else b_).append(cuda_ms(f32_fn if side == "f32" else bf_fn))
+            qt[k] = (sum(a) / 2, sum(b_) / 2, cuda_ms(plain_fn, reps=1))
+        grads16 = resid_ef.param_grads(qleaves, p4, rows16)
+    print(f"BF16 QM9 TIMING per kernel (ms: f32, bf16, plain bf16) {on}: "
+          + json.dumps({k: [round(x, 3) for x in v] for k, v in qt.items()}) + f" ({smi})",
+          flush=True)
+    fmaq = {k: v * B * qcfg.depth for k, v in layer_fma(Nq, F, F, 50, qcfg.n_heads, 256).items()}
+    edgeq = {k: v * B * qcfg.depth for k, v in edge_fma(Nq, F, 50, qcfg.n_heads, 256).items()}
+    inq = (q16, h0, xs, zs, m4)
+    entries += [
+        entry16("resid_fwd_masked_bf16", src + "resid_fwd.cu", at + "1484",
+                qlaunch["resid_fwd (cluster)"], abs_q["#4"], qt["#4"][1], qt["#4"][2],
+                fmaq["fwd"], edgeq["fwd"], nbytes(inq, p4)),
+        entry16("resid_infer_bf16", src + "resid_fwd.cu", at + "1732", qlaunch["resid_infer"],
+                abs_q["#6"], qt["#6"][1], qt["#6"][2], fmaq["fwd"], edgeq["fwd"],
+                nbytes(inq, p4.h_fin, p4.x_fin)),
+        entry16("resid_bwd_rows_bf16", src + "resid_bwd_cl.cu", at + "1598",
+                qlaunch["resid_bwd_rows (cluster)"], abs_q["#5"], qt["#5 rows"][1],
+                qt["#5 rows"][2], fmaq["bwd"], edgeq["bwd"],
+                nbytes(q16, transposed(q16), p4.bh, p4.bx, p4.bv, p4.resid, m4, dhq, zs, zs,
+                       dhq, zs, zs, rows16)),
+        entry16("param_grads_bf16", src + "param_grads.cu", at + "1598", qlaunch["param_grads"],
+                abs_q["param_grads"], qt["param_grads"][1], qt["param_grads"][2],
+                fmaq["grads"], edgeq["grads"], nbytes(qleaves, p4.bh, p4.resid, rows16, grads16)),
+    ]
+    print(f"BF16 PHASE {time.perf_counter() - t_phase:.1f} s", flush=True)
     return entries
 
 

@@ -9,6 +9,8 @@
 // 2 passes (lo(a) hi(w) + hi(a) hi(w)) where the activation operand is an f32
 // value (a pullback's cotangent g, the x-mixing's bf16(h_e) att), 1 (hi(a)
 // hi(w)) where it is rounded to bf16 too (the forward's o_f and o1: exact).
+// In resid_ef's bf16 tier (K1, K2, #4-#6) both operands of every edge product
+// are rounded to bf16, so every such product takes 1 pass.
 //
 // 3xTF32: each operand splits as a = hi + lo, hi = tf32(a), lo = tf32(a - hi)
 // (cvt.rna: round to nearest, ties away from zero), and the product sums
@@ -179,15 +181,17 @@ __device__ __forceinline__ int tc_stage_at(int kk, int c) {
 // therefore sums in a chain of mma from zero and joins the running sum by an
 // f32 add (3.7e-7): a chain keeps the tensor cores busy, where an add after
 // every k-step waits on each mma and was slower. kPasses: 3, or 2 for a W of
-// bf16 values (its hi only; tc_passes). kWarps: the ring's warp slots
-// (tc_ring_floats<kWarps>); kTcWarps takes the block's warps as it runs, at
-// most 16 (the 512-thread blocks); fewer, such as K1's kTcFwdWarps, takes
-// exactly that many, each warp then taking kTcStrips / kWarps strips in turn.
+// bf16 values (its hi only; tc_passes), or 1 for a W of bf16 values and A
+// rounded to bf16 as it is read (resid_ef's bf16 tier: exact products).
+// kWarps: the ring's warp slots (tc_ring_floats<kWarps>); kTcWarps takes the
+// block's warps as it runs, at most 16 (the 512-thread blocks); fewer, such as
+// K1's kTcFwdWarps, takes exactly that many, each warp then taking kTcStrips /
+// kWarps strips in turn.
 template <int kTiles, int kPasses = 3, int kWarps = kTcWarps, class ST>
 __device__ __forceinline__ void mm_tc(int n, const float* A, int lda,
                                       const float* __restrict__ W, float* ring, ST st) {
   constexpr int kSteps = kTcK / 8;
-  static_assert(kPasses == 3 || kPasses == 2, "A is split: 3 passes, or 2 with W exact");
+  static_assert(kPasses >= 1 && kPasses <= 3, "3 passes, 2 with W exact, 1 with both exact");
   static_assert((kTcStages & (kTcStages - 1)) == 0, "the ring's slot is a mask");
   static_assert(kSteps % kTcSumSteps == 0, "whole chunks");
   static_assert(kWarps <= kTcWarps && kTcStrips % kWarps == 0, "whole strips per warp");
@@ -248,14 +252,18 @@ __device__ __forceinline__ void mm_tc(int n, const float* A, int lda,
         for (int ni = 0; ni < kTiles; ++ni) {
           float2 x = make_float2(0.f, 0.f);
           if (pa[ni]) x = *reinterpret_cast<const float2*>(pa[ni] + 8 * ks);
-          uint32_t xh0, xl0, xh1, xl1;
-          tf32_split(x.x, xh0, xl0);
-          tf32_split(x.y, xh1, xl1);
-          if constexpr (kPasses == 3) {
-            mma_tf32x3(part[ni], wh, wl, xh0, xh1, xl0, xl1);
-          } else {  // hi(w) lo(a), then hi(w) hi(a)
-            mma_tf32(part[ni], wh, xl0, xl1);
-            mma_tf32(part[ni], wh, xh0, xh1);
+          if constexpr (kPasses == 1) {  // bf16(a) hi(w): exact
+            mma_tf32(part[ni], wh, tf32_exact(bf16r(x.x)), tf32_exact(bf16r(x.y)));
+          } else {
+            uint32_t xh0, xl0, xh1, xl1;
+            tf32_split(x.x, xh0, xl0);
+            tf32_split(x.y, xh1, xl1);
+            if constexpr (kPasses == 3) {
+              mma_tf32x3(part[ni], wh, wl, xh0, xh1, xl0, xl1);
+            } else {  // hi(w) lo(a), then hi(w) hi(a)
+              mma_tf32(part[ni], wh, xl0, xl1);
+              mma_tf32(part[ni], wh, xh0, xh1);
+            }
           }
         }
         __syncwarp();  // the stage is free before a later step's copy lands in it

@@ -47,6 +47,13 @@
 // holds each row twice: a against g_p + t_g, then t_a against g_t, into the
 // same sums.
 //
+// resid_ef's bf16 tier (sake_param_grads16, the kernels' kE16): the residual
+// streams but r and t are bf16 tensors, read through Src<float, true>; the
+// four edge leaves (w_o_f, w_o1, w_sem, w_xmix: JAX's _EDGE_MM_LEAVES, whose
+// contractions run at the edge products' tier) round both operands to bf16 as
+// they are formed, and every sum stays f64 and ordered. Its wide tiles all go
+// through the loaders: a simple route, not yet a fast one.
+//
 // What bounds it on an H100: f64 multiply-adds on DMMA at 67 TFLOP/s. The
 // w_xmix contraction is most of the work: 256 x 256 outputs over B * N^2
 // edge rows per layer (about 3.5 G multiply-adds at QM9's batch 64, N = 29;
@@ -120,13 +127,23 @@ struct Tables {
 };
 
 // Operands as floats (one set of tables) or as dual numbers (the values'
-// tables and their tangents').
-template <class T>
+// tables and their tangents'). kLow: floats of resid_ef's bf16 tier, whose
+// residual streams but r and t are bf16 tensors: the table holds their base
+// pointers, read as Bf16 elements (get_res).
+template <class T, bool kLow = false>
 struct Src;
 template <>
 struct Src<float> {
   const Tables* v;
   __device__ float at(int a, int i, size_t off) const { return v->arr(a, i)[off]; }
+};
+template <>
+struct Src<float, true> {
+  const Tables* v;
+  __device__ float at(int a, int i, size_t off) const {
+    const bool low = a == A_RS && i != RS_R && i != RS_T;
+    return low ? get_res(reinterpret_cast<const Bf16*>(v->arr(a, i)), off) : v->arr(a, i)[off];
+  }
 };
 template <>
 struct Src<Dl> {
@@ -154,12 +171,12 @@ struct GradArgs {
   bool ring_ok[kLeaves];    // a wide leaf's raw rows stream through the ring (else the loaders)
 
   // element c of a node (atom n) or edge (e) row of layer l, width ch
-  template <class T>
-  __device__ T node(const Src<T>& s, int a, int i, int l, size_t n, int ch, int c) const {
+  template <class T, bool kLow>
+  __device__ T node(const Src<T, kLow>& s, int a, int i, int l, size_t n, int ch, int c) const {
     return s.at(a, i, ((size_t)l * d.B * d.N + n) * ch + c);
   }
-  template <class T>
-  __device__ T edge(const Src<T>& s, int a, int i, int l, size_t e, int ch, int c) const {
+  template <class T, bool kLow>
+  __device__ T edge(const Src<T, kLow>& s, int a, int i, int l, size_t e, int ch, int c) const {
     return s.at(a, i, ((size_t)l * d.B * d.N * d.N + e) * ch + c);
   }
 };
@@ -169,8 +186,8 @@ __device__ __forceinline__ Dl silu(Dl x) { return silu_d(x); }
 
 // Operand a (column r) of a leaf's contraction at global row `row` of
 // layer l: a node index, an edge index, or k * B * N + node for w_vmix.
-template <int LEAF, class T>
-__device__ __forceinline__ T load_a(const GradArgs& g, const Src<T>& s, int l, size_t row,
+template <int LEAF, class T, bool kLow>
+__device__ __forceinline__ T load_a(const GradArgs& g, const Src<T, kLow>& s, int l, size_t row,
                                     int r) {
   const int F = g.d.F, H = g.d.H, R = g.d.R, K = g.d.K, C = g.d.C, HK = g.d.H * g.d.K;
   auto nd = [&](int a, int i, int ch, int c) { return g.node(s, a, i, l, row, ch, c); };
@@ -233,8 +250,8 @@ __device__ __forceinline__ T load_a(const GradArgs& g, const Src<T>& s, int l, s
 }
 
 // Operand g (column c); a row sum contracts against ones.
-template <int LEAF, class T>
-__device__ __forceinline__ T load_g(const GradArgs& g, const Src<T>& s, int l, size_t row,
+template <int LEAF, class T, bool kLow>
+__device__ __forceinline__ T load_g(const GradArgs& g, const Src<T, kLow>& s, int l, size_t row,
                                     int c) {
   const int F = g.d.F, H = g.d.H, R = g.d.R, K = g.d.K, C = g.d.C;
   auto nd = [&](int i, int ch) { return g.node(s, A_RW, i, l, row, ch, c); };
@@ -262,6 +279,18 @@ __device__ __forceinline__ T load_g(const GradArgs& g, const Src<T>& s, int l, s
     if constexpr (sizeof(T) == sizeof(float)) return 1.f;
     else return Dl{1.f, 0.f};
   }
+}
+
+// The four leaves whose contraction runs at the edge products' tier (the JAX
+// _EDGE_MM_LEAVES): in resid_ef's bf16 tier (kE16) both operands of their
+// contractions are rounded to bf16 before the f64 products.
+__host__ __device__ constexpr bool edge_mm_leaf(int leaf) {
+  return leaf == W_O_F || leaf == W_O1 || leaf == W_SEM || leaf == W_XMIX;
+}
+template <int LEAF, bool kE16>
+__device__ __forceinline__ float edge_rd(float x) {
+  if constexpr (kE16 && edge_mm_leaf(LEAF)) return bf16r(x);
+  else return x;
 }
 
 // A layer's rows of a leaf: its edges, atoms, or (w_vmix) the three pooled
@@ -307,7 +336,7 @@ struct WideTile {
 // (NT = 2) elements are loaded and formed into registers by prefetch, before
 // the previous stage's products, and stored by stage; a wider one's are formed
 // and stored four at a time.
-template <int LEAF, bool kAug, int NT>
+template <int LEAF, bool kAug, int NT, bool kE16 = false>
 struct LoaderFill {
   static constexpr int TN = 32 * NT, qa = kDmK * kDmM / kDmThreads;
   static constexpr int qb = kDmK * TN / kDmThreads;
@@ -329,6 +358,12 @@ struct LoaderFill {
     const bool second = kAug && v >= per;
     const long long row = w.r_begin + (long long)s * per + (second ? v - per : v);
     if (row >= w.r_end || j >= (kA ? w.m_live : w.n_live)) return 0.f;
+    if constexpr (kE16) {  // the bf16 tier (no augmented contraction)
+      const Src<float, true> sl{&g->P};
+      if constexpr (kA)
+        return edge_rd<LEAF, true>(load_a<LEAF>(*g, sl, w.l, row, w.col_a(j, g->d.K)));
+      else return edge_rd<LEAF, true>(load_g<LEAF>(*g, sl, w.l, row, w.c0 + j));
+    }
     if constexpr (kA) {
       const int r = w.col_a(j, g->d.K);
       if (!kAug) return load_a<LEAF>(*g, sp, w.l, row, r);
@@ -531,7 +566,7 @@ struct StreamFill {
 
 // out[r, c] = sum over the chunk's rows of a[row, r] * g[row, c] for one
 // wide tile (augmented: a against g_p + t_g, then t_a against g_t), on DMMA.
-template <int LEAF, bool kAug>
+template <int LEAF, bool kAug, bool kE16 = false>
 __device__ void contract_wide(const GradArgs& g, const WideTile& w, double* out, float* ring) {
   constexpr int NT = tile_nt(LEAF);
   constexpr int per = stage_rows<kAug>();
@@ -539,7 +574,7 @@ __device__ void contract_wide(const GradArgs& g, const WideTile& w, double* out,
   constexpr int mma_slot = LEAF == W_XMIX ? PR_PG_XMIX_MMA : PR_PG_WIDE_MMA;
   const int n_stages = (int)((w.r_end - w.r_begin + per - 1) / per);
   DmTile<NT> acc;
-  if constexpr (stream_spec(LEAF).form != FORM_LOADER) {
+  if constexpr (stream_spec(LEAF).form != FORM_LOADER && !kE16) {
     if (g.ring_ok[LEAF]) {
       constexpr StreamSpec sp = stream_spec(LEAF);
       constexpr bool kX = sp.form == FORM_XMIX;
@@ -571,7 +606,7 @@ __device__ void contract_wide(const GradArgs& g, const WideTile& w, double* out,
     }
   }
   if (stream_spec(LEAF).form == FORM_LOADER || !g.ring_ok[LEAF]) {
-    LoaderFill<LEAF, kAug, NT> fill;
+    LoaderFill<LEAF, kAug, NT, kE16> fill;
     fill.g = &g;
     fill.w = w;
     fill.ring = ring;
@@ -593,27 +628,27 @@ __host__ __device__ inline int narrow_cols(int ra) { return ra <= 8 ? 8 : kTile;
 // double; the row groups are summed in order at the end. These are the
 // row sums, whose terms cancel (a softmax's cotangents sum to zero over
 // its senders), so f32 sums lose digits the plain version keeps.
-template <int LEAF, bool kAug>
+template <int LEAF, bool kAug, bool kE16 = false>
 __device__ void contract_narrow(const GradArgs& g, int l, long long r_begin, long long r_end,
                                 int r0, int ra, int cg, double* out, double* sm) {
   const int cols = narrow_cols(ra), groups = kThreads / cols;
   const int rl = threadIdx.x % cols, rg = threadIdx.x / cols;
   const int r = r0 + rl;
-  const Src<float> sp{&g.P};
+  const Src<float, kE16> sp{&g.P};
   const Src<Dl> sd{&g.Tv, &g.Tt};
   double acc[kNarrowMax];
 #pragma unroll
   for (int c = 0; c < kNarrowMax; ++c) acc[c] = 0.0;
   if (r < ra) {
     for (long long row = r_begin + rg; row < r_end; row += groups) {
-      const double a = load_a<LEAF>(g, sp, l, row, r);
+      const double a = edge_rd<LEAF, kE16>(load_a<LEAF>(g, sp, l, row, r));
       // augmented: a_p g_p + t_a g_t + a_t t_g (a row sum: s_p + t(s_t))
       Dl at{0.f, 0.f};
       if constexpr (kAug) at = load_a<LEAF>(g, sd, l, row, r);
 #pragma unroll
       for (int c = 0; c < kNarrowMax; ++c) {
         if (c < cg) {
-          acc[c] = fma(a, (double)load_g<LEAF>(g, sp, l, row, c), acc[c]);
+          acc[c] = fma(a, (double)edge_rd<LEAF, kE16>(load_g<LEAF>(g, sp, l, row, c)), acc[c]);
           if constexpr (kAug) {
             const Dl gt = load_g<LEAF>(g, sd, l, row, c);
             acc[c] = fma((double)at.t, (double)gt.v, fma((double)at.v, (double)gt.t, acc[c]));
@@ -661,7 +696,7 @@ __device__ void chunk_of(const GradArgs& g, int chunk, long long* r_begin, long 
   *r_end = min(rows, *r_begin + span);
 }
 
-template <int LEAF, bool kAug>
+template <int LEAF, bool kAug, bool kE16 = false>
 __device__ void wide_block(const GradArgs& g, const BlockPlace& p, float* ring) {
   WideTile w;
   w.l = p.l;
@@ -681,13 +716,15 @@ __device__ void wide_block(const GradArgs& g, const BlockPlace& p, float* ring) 
     w.r0 = w.rt * kDmM;
     w.m_live = min(kDmM, g.ra[LEAF] - w.r0);
   }
-  contract_wide<LEAF, kAug>(g, w, p.out(g), ring);
+  contract_wide<LEAF, kAug, kE16>(g, w, p.out(g), ring);
 }
 
 // The wide leaves' tiles 32 NT wide, one per block: w_xmix's (NT = 8) and the
 // others' (NT = 2) are separate kernels, so that the narrower tiles run with
 // the registers and shared memory of their own, several blocks to an SM.
-template <bool kAug, int NT>
+// kE16: resid_ef's bf16 tier (the residual streams but r and t bf16, the four
+// edge leaves' operands rounded; every wide tile through the loaders).
+template <bool kAug, int NT, bool kE16 = false>
 __global__ void __launch_bounds__(kThreads) param_grads_wide(const GradArgs g) {
   extern __shared__ float4 smem4[];
   SAKE_PROBE_START();
@@ -695,7 +732,7 @@ __global__ void __launch_bounds__(kThreads) param_grads_wide(const GradArgs g) {
   float* ring = reinterpret_cast<float*>(smem4);
 #define SAKE_LEAF(X) \
   case X:            \
-    if constexpr (tile_nt(X) == NT) wide_block<X, kAug>(g, p, ring); \
+    if constexpr (tile_nt(X) == NT) wide_block<X, kAug, kE16>(g, p, ring); \
     break;
   switch (p.leaf) {
     SAKE_LEAF(W_IN_J) SAKE_LEAF(W_IN_I) SAKE_LEAF(W_O_J) SAKE_LEAF(W_O_I) SAKE_LEAF(W_O_F)
@@ -706,7 +743,7 @@ __global__ void __launch_bounds__(kThreads) param_grads_wide(const GradArgs g) {
 #undef SAKE_LEAF
 }
 
-template <bool kAug>
+template <bool kAug, bool kE16 = false>
 __global__ void __launch_bounds__(kThreads) param_grads_narrow(const GradArgs g) {
   __shared__ double sm[kThreads * kNarrowMax];
   SAKE_PROBE_START();
@@ -718,7 +755,7 @@ __global__ void __launch_bounds__(kThreads) param_grads_narrow(const GradArgs g)
 #define SAKE_LEAF(X)                                                        \
   case X:                                                                   \
     chunk_of<X>(g, p.chunk, &r_begin, &r_end);                              \
-    contract_narrow<X, kAug>(g, p.l, r_begin, r_end, r0, ra, cg, out, sm); \
+    contract_narrow<X, kAug, kE16>(g, p.l, r_begin, r_end, r0, ra, cg, out, sm); \
     break;
   switch (p.leaf) {
     SAKE_LEAF(B_IN) SAKE_LEAF(RBF_M) SAKE_LEAF(RBF_B) SAKE_LEAF(W_O_R) SAKE_LEAF(B_O0)
@@ -766,18 +803,18 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 
 // Launches the wide tiles 32 NT wide (blocks of them), each with kDmRing ring
 // slots of `slot` floats.
-template <bool kAug, int NT>
+template <bool kAug, int NT, bool kE16 = false>
 cudaError_t launch_wide(const GradArgs& g, long long blocks, int slot, cudaStream_t s) {
   if (blocks == 0) return cudaSuccess;
   const int smem = kDmRing * slot * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(param_grads_wide<kAug, NT>,
+  cudaError_t err = cudaFuncSetAttribute(param_grads_wide<kAug, NT, kE16>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  param_grads_wide<kAug, NT><<<(unsigned)blocks, kThreads, smem, s>>>(g);
+  param_grads_wide<kAug, NT, kE16><<<(unsigned)blocks, kThreads, smem, s>>>(g);
   return cudaGetLastError();
 }
 
-template <bool kAug>
+template <bool kAug, bool kE16 = false>
 int launch_grads(GradArgs& g, const void* const* leaf_ptrs, const long long* leaf_strides,
                  double* partial, float* out, int n_chunks, void* stream) {
   if (n_chunks < 1) return (int)cudaErrorInvalidValue;
@@ -817,7 +854,7 @@ int launch_grads(GradArgs& g, const void* const* leaf_ptrs, const long long* lea
     auto ok = [&](const float* p, int w, int tile_w) {
       return aligned16(p) && (rows * w) % 4 == 0 && (w <= tile_w || w % 4 == 0);
     };
-    bool on = !narrow_leaf(leaf) && sp.form != FORM_LOADER &&
+    bool on = !kE16 && !narrow_leaf(leaf) && sp.form != FORM_LOADER &&
               ok(table(tv, sp.a_arr, sp.a_idx), wa, kDmM) &&
               ok(g.P.rw[sp.g_idx], wg, 32 * tile_nt(leaf)) &&
               (!xmix || (g.d.K <= kDmM && ok(tv.rw[RW_ATT2], g.d.K, kDmM)));
@@ -836,10 +873,10 @@ int launch_grads(GradArgs& g, const void* const* leaf_ptrs, const long long* lea
     }
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_wide<kAug, 8>(g, blocks[2], slot[1], s);
-  if (err == cudaSuccess) err = launch_wide<kAug, 2>(g, blocks[1], slot[0], s);
+  cudaError_t err = launch_wide<kAug, 8, kE16>(g, blocks[2], slot[1], s);
+  if (err == cudaSuccess) err = launch_wide<kAug, 2, kE16>(g, blocks[1], slot[0], s);
   if (err != cudaSuccess) return (int)err;
-  param_grads_narrow<kAug><<<(unsigned)blocks[0], kThreads, 0, s>>>(g);
+  param_grads_narrow<kAug, kE16><<<(unsigned)blocks[0], kThreads, 0, s>>>(g);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   sum_rows(partial, out, off, g.n_chunks, s);
@@ -861,6 +898,21 @@ extern "C" int sake_param_grads(const float* bh, const void* const* leaf_ptrs,
   g.d = Dims{B, N, F, H, R, K, C, depth};
   g.P = tables(bh, resid_ptrs, row_ptrs);
   return launch_grads<false>(g, leaf_ptrs, leaf_strides, partial, out, n_chunks, stream);
+}
+
+// sake_param_grads in resid_ef's bf16 tier: the residual streams but r and t
+// bf16 tensors, the rows those of the bf16 tier's pullback (att2 rounded); the
+// four edge leaves' operands rounded to bf16 before their f64 products.
+extern "C" int sake_param_grads16(const float* bh, const void* const* leaf_ptrs,
+                                  const long long* leaf_strides, void* const* resid_ptrs,
+                                  void* const* row_ptrs, double* partial, float* out,
+                                  int n_chunks, int B, int N, int F, int H, int R, int K, int C,
+                                  int depth, void* stream) {
+  using namespace sake;
+  GradArgs g;
+  g.d = Dims{B, N, F, H, R, K, C, depth};
+  g.P = tables(bh, resid_ptrs, row_ptrs);
+  return launch_grads<false, true>(g, leaf_ptrs, leaf_strides, partial, out, n_chunks, stream);
 }
 
 // The augmented gradients: row_ptrs the primal chain's rows, trow_ptrs the

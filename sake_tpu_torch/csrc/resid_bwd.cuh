@@ -140,17 +140,28 @@ __device__ __forceinline__ void bwd_begin(const Dims& d, const BwdSmem& S, int B
 // the edge products on the tensor cores in 3xTF32 (S from carve_bwd<true>,
 // ring: tc_ring_floats) where tc_dims allows, the CUDA-core products
 // elsewhere; with kBf16 on two passes (tc_passes: g split, the bf16 weight
-// exact). Without kTc every product runs on the CUDA cores.
-template <bool kRows, bool kBf16 = false, bool kTc = false>
+// exact). Without kTc every product runs on the CUDA cores. kE16: the pullback
+// of fwd_layer's kE16 (resid_ef's bf16 tier, JAX's mm_edge in bf16): the
+// residual streams but r and t read as bf16 (get_res), each edge product's
+// cotangent (d_xm, d_sem_pre, d_h_e, d_e0) rounded as it is read against the
+// rounded weight (LT holds w_o_f, w_o1, w_sem, w_xmix rounded), one pass on the
+// tensor cores; the head expansion's terms bf16(d_he_att bf16(att2)) and
+// bf16(d_he_att h_e) rounded before their sums; node products f32. It writes
+// no rows: the bf16 tier's rows are bwd_layer_cl's.
+template <bool kRows, bool kBf16 = false, bool kTc = false, bool kE16 = false>
 __device__ __forceinline__ void bwd_layer(const Dims& d, const BwdSmem& S, int b, int l,
                                           float u, const float* __restrict__ mb,
                                           const Leaves& L, const Leaves& LT,
                                           const float* __restrict__ bh,
                                           const float* __restrict__ bx,
-                                          const float* __restrict__ bv, const Resids& RS,
-                                          const Rows& RW, const float* __restrict__ add_h,
+                                          const float* __restrict__ bv,
+                                          const ResidsOf<kE16>& RS, const Rows& RW,
+                                          const float* __restrict__ add_h,
                                           const float* __restrict__ add_x,
                                           const float* __restrict__ add_v, float* ring = nullptr) {
+  static_assert(!(kE16 && kBf16), "one bf16 tier");
+  static_assert(!(kE16 && kRows), "the bf16 tier's rows are bwd_layer_cl's");
+  constexpr int kXmixPasses = kE16 ? 1 : tc_passes<kBf16>();  // on the tensor cores
   const int B = d.B, N = d.N, F = d.F, H = d.H, R = d.R, K = d.K, C = d.C;
   const int HK = H * K, NN = N * N;
   [[maybe_unused]] const int ldc = kTc ? tc_ld(d, C) : C;  // kTc: coeff's, d_xm's row stride
@@ -202,9 +213,9 @@ __device__ __forceinline__ void bwd_layer(const Dims& d, const BwdSmem& S, int b
           [&](int r, int c, float a) { sai[r * R + c] = a; });
 
   // position/velocity gates: x_out = x + u*v_new, v_out = v + u*(v_new - v)
-  const float* g1 = RS.p[RS_G1] + lb * N;
+  const ResOf<kE16>* g1 = RS.p[RS_G1] + lb * N;
   for (int i = tid; i < N; i += nt) {
-    const float sg = sigmoidf_(g1[i]);
+    const float sg = sigmoidf_(get_res(g1, i));
     const float gate = 2.f * sg;
     float d_gate = 0.f;
 #pragma unroll
@@ -221,10 +232,10 @@ __device__ __forceinline__ void bwd_layer(const Dims& d, const BwdSmem& S, int b
   // gate MLP: g1 = silu(g0) @ w_vel1, g0 = h_out @ w_vel0 + b_vel0
   {
     const float* wv1 = W(W_VEL1);
-    const float* g0 = RS.p[RS_G0] + lb * N * H;
+    const ResOf<kE16>* g0 = RS.p[RS_G0] + lb * N * H;
     for (int e = tid; e < N * H; e += nt) {
       const int i = e / H, h = e % H;
-      sdg0[e] = rd<kBf16>(sdg1[i] * wv1[h]) * dsiluf_(g0[e]);
+      sdg0[e] = rd<kBf16>(sdg1[i] * wv1[h]) * dsiluf_(get_res(g0, e));
     }
   }
   __syncthreads();
@@ -234,15 +245,15 @@ __device__ __forceinline__ void bwd_layer(const Dims& d, const BwdSmem& S, int b
 
   // h_out = h_in + silu(uv), uv = silu(node_pre) @ w_node1 + b_node1
   {
-    const float* uv = RS.p[RS_UV] + lb * N * F;
-    for (int e = tid; e < N * F; e += nt) sduv[e] = sdh[e] * dsiluf_(uv[e]);
+    const ResOf<kE16>* uv = RS.p[RS_UV] + lb * N * F;
+    for (int e = tid; e < N * F; e += nt) sduv[e] = sdh[e] * dsiluf_(get_res(uv, e));
   }
   __syncthreads();
   {
-    const float* np = RS.p[RS_NODE_PRE] + lb * N * H;
+    const ResOf<kE16>* np = RS.p[RS_NODE_PRE] + lb * N * H;
     mm_bwd(N, F, H, sduv, F, WT(W_NODE1),
             [&](int r, int c, float a) {
-              sdnp[r * H + c] = rd<kBf16>(a) * dsiluf_(np[r * H + c]);
+              sdnp[r * H + c] = rd<kBf16>(a) * dsiluf_(get_res(np, r * H + c));
             });
   }
   __syncthreads();
@@ -253,18 +264,18 @@ __device__ __forceinline__ void bwd_layer(const Dims& d, const BwdSmem& S, int b
   mm_bwd(N, H, HK, sdnp, H, WT(W_NODE_AGG),
           [&](int r, int c, float a) { sdhatt[r * HK + c] = rd<kBf16>(a); });
   {
-    const float* ps1 = RS.p[RS_PS1] + lb * N * H;
+    const ResOf<kE16>* ps1 = RS.p[RS_PS1] + lb * N * H;
     mm_bwd(N, H, H, sdnp, H, WT(W_NODE_COMB),
             [&](int r, int c, float a) {
-              sdps1[r * H + c] = rd<kBf16>(a) * dsiluf_(ps1[r * H + c]);
+              sdps1[r * H + c] = rd<kBf16>(a) * dsiluf_(get_res(ps1, r * H + c));
             });
   }
   __syncthreads();
   {
-    const float* ps0 = RS.p[RS_PS0] + lb * N * H;
+    const ResOf<kE16>* ps0 = RS.p[RS_PS0] + lb * N * H;
     mm_bwd(N, H, H, sdps1, H, WT(W_POST1),
             [&](int r, int c, float a) {
-              sdps0[r * H + c] = rd<kBf16>(a) * dsiluf_(ps0[r * H + c]);
+              sdps0[r * H + c] = rd<kBf16>(a) * dsiluf_(get_res(ps0, r * H + c));
             });
   }
   __syncthreads();
@@ -275,8 +286,8 @@ __device__ __forceinline__ void bwd_layer(const Dims& d, const BwdSmem& S, int b
   const float* w_o_r = W(W_O_R);
   const float* rbf_m = W(RBF_M);
   const float* rbf_b = W(RBF_B);
-  const float* pool[3] = {RS.p[RS_POOL0] + lb * N * C, RS.p[RS_POOL1] + lb * N * C,
-                          RS.p[RS_POOL2] + lb * N * C};
+  const ResOf<kE16>* pool[3] = {RS.p[RS_POOL0] + lb * N * C, RS.p[RS_POOL1] + lb * N * C,
+                                RS.p[RS_POOL2] + lb * N * C};
 
   // the node rows, before the row loop reuses their scratch
   SAKE_PROBE_BARRIER(PR_BWD_PRE);
@@ -318,36 +329,49 @@ __device__ __forceinline__ void bwd_layer(const Dims& d, const BwdSmem& S, int b
         if constexpr (kBf16)
           sdp[k * C + c] = bf16r(sdvn[k * N + i] / dvd * wvmix[c]) +
                            2.f * pool[k][i * C + c] * sdpsq[i * C + c] / (pd * pd);
+        else if constexpr (kE16)
+          sdp[k * C + c] = sdvn[k * N + i] * wvmix[c] / dvd +
+                           2.f * get_res(pool[k], i * C + c) * sdpsq[i * C + c] / (pd * pd);
         else
           sdp[k * C + c] = sdvn[k * N + i] * wvmix[c] / dvd +
                            2.f * pool[k][i * C + c] * sdpsq[i * C + c] / (pd * pd);
       }
     }
     for (int j = tid; j < N; j += nt) {
-      const float r = RS.p[RS_R][erow + j];
+      const float r = res_r(RS)[erow + j];
       sr[j] = r;
-      st[j] = RS.p[RS_T][erow + j];
+      st[j] = res_t(RS)[erow + j];
       sir[j] = 1.f / (r + 1e-5f);
       smk[j] = masked ? mb[i * N + j] : 1.f;
 #pragma unroll
       for (int k = 0; k < 3; ++k) sd[k * N + j] = sx[k * N + j] - sx[k * N + i];
     }
-    if constexpr (kTc) {
-      if (ldc == C) {
-        load_smem(scf, RS.p[RS_COEFF] + erow * C, N * C);
-      } else {  // row by row into the padded rows, in float4 (C is 256 here)
-        const float4* cf = reinterpret_cast<const float4*>(RS.p[RS_COEFF] + erow * C);
-        for (int e = tid; e < N * C / 4; e += nt)
-          reinterpret_cast<float4*>(scf + (e / (C / 4)) * ldc)[e % (C / 4)] = cf[e];
-      }
+    if constexpr (kE16) {  // the bf16 streams, widened as they are read
+      for (int e = tid; e < N * C; e += nt)
+        scf[(e / C) * ldc + e % C] = get_res(RS.p[RS_COEFF], erow * C + e);
+      load_low(she, RS.p[RS_H_E] + erow * H, N * H);
+      load_low(se0, RS.p[RS_E0] + erow * H, N * H);
+      load_low(satt, RS.p[RS_ATT] + erow * K, N * K);
+      load_low(ssem, RS.p[RS_SEM_PRE] + erow * K, N * K);
+      load_low(srbf, RS.p[RS_RBF] + erow * R, N * R);
     } else {
-      load_smem(scf, RS.p[RS_COEFF] + erow * C, N * C);
+      if constexpr (kTc) {
+        if (ldc == C) {
+          load_smem(scf, RS.p[RS_COEFF] + erow * C, N * C);
+        } else {  // row by row into the padded rows, in float4 (C is 256 here)
+          const float4* cf = reinterpret_cast<const float4*>(RS.p[RS_COEFF] + erow * C);
+          for (int e = tid; e < N * C / 4; e += nt)
+            reinterpret_cast<float4*>(scf + (e / (C / 4)) * ldc)[e % (C / 4)] = cf[e];
+        }
+      } else {
+        load_smem(scf, RS.p[RS_COEFF] + erow * C, N * C);
+      }
+      load_smem(she, RS.p[RS_H_E] + erow * H, N * H);
+      load_smem(se0, RS.p[RS_E0] + erow * H, N * H);
+      load_smem(satt, RS.p[RS_ATT] + erow * K, N * K);
+      load_smem(ssem, RS.p[RS_SEM_PRE] + erow * K, N * K);
+      load_smem(srbf, RS.p[RS_RBF] + erow * R, N * R);
     }
-    load_smem(she, RS.p[RS_H_E] + erow * H, N * H);
-    load_smem(se0, RS.p[RS_E0] + erow * H, N * H);
-    load_smem(satt, RS.p[RS_ATT] + erow * K, N * K);
-    load_smem(ssem, RS.p[RS_SEM_PRE] + erow * K, N * K);
-    load_smem(srbf, RS.p[RS_RBF] + erow * R, N * R);
     __syncthreads();
     SAKE_PROBE(PR_BWD_LOAD);
 
@@ -419,10 +443,10 @@ __device__ __forceinline__ void bwd_layer(const Dims& d, const BwdSmem& S, int b
       else sdha[r * HK + c] = a + sdhatt[i * HK + c];
     };
     if constexpr (kTc) {
-      if (tc_dims(d)) mm_tc<3, tc_passes<kBf16>()>(N, scf, ldc, WT(W_XMIX), ring, st_dha);
-      else mm_bwd(N, C, HK, scf, ldc, WT(W_XMIX), st_dha);
+      if (tc_dims(d)) mm_tc<3, kXmixPasses>(N, scf, ldc, WT(W_XMIX), ring, st_dha);
+      else mm_bwd<kE16>(N, C, HK, scf, ldc, WT(W_XMIX), st_dha);
     } else {
-      mm_bwd(N, C, HK, scf, C, WT(W_XMIX), st_dha);
+      mm_bwd<kE16>(N, C, HK, scf, C, WT(W_XMIX), st_dha);
     }
     __syncthreads();
     SAKE_PROBE(PR_BWD_XMIX);
@@ -435,6 +459,8 @@ __device__ __forceinline__ void bwd_layer(const Dims& d, const BwdSmem& S, int b
         if constexpr (kBf16) {
           const float a2 = satt2[j * K + k];
           s += bf16r(a2 * sdha[j * HK + h * K + k]) + sdhatt[i * HK + h * K + k] * a2;
+        } else if constexpr (kE16) {
+          s += bf16r(sdha[j * HK + h * K + k] * bf16r(satt2[j * K + k]));
         } else {
           s += sdha[j * HK + h * K + k] * satt2[j * K + k];
         }
@@ -448,6 +474,8 @@ __device__ __forceinline__ void bwd_layer(const Dims& d, const BwdSmem& S, int b
         if constexpr (kBf16) {
           const float he = she[j * H + h];
           s += sdha[j * HK + h * K + k] * bf16r(he) + sdhatt[i * HK + h * K + k] * he;
+        } else if constexpr (kE16) {
+          s += bf16r(sdha[j * HK + h * K + k] * she[j * H + h]);
         } else {
           s += sdha[j * HK + h * K + k] * she[j * H + h];
         }
@@ -483,8 +511,8 @@ __device__ __forceinline__ void bwd_layer(const Dims& d, const BwdSmem& S, int b
     }
     __syncthreads();
     SAKE_PROBE(PR_BWD_ROW);
-    mm_bwd(N, K, H, sdat, K, WT(W_SEM),
-            [&](int r, int c, float a) { sdhe[r * H + c] += rd<kBf16>(a); });
+    mm_bwd<kE16>(N, K, H, sdat, K, WT(W_SEM),
+                 [&](int r, int c, float a) { sdhe[r * H + c] += rd<kBf16>(a); });
     __syncthreads();
     SAKE_PROBE(PR_BWD_MM);
 
@@ -493,10 +521,10 @@ __device__ __forceinline__ void bwd_layer(const Dims& d, const BwdSmem& S, int b
       se0[r * H + c] = rd<kBf16>(a) * dsiluf_(se0[r * H + c]);
     };
     if constexpr (kTc) {
-      if (tc_dims(d)) mm_tc_small<tc_passes<kBf16>()>(N, H, H, sdhe, H, WT(W_O1), st_de0);
-      else mm_bwd(N, H, H, sdhe, H, WT(W_O1), st_de0);
+      if (tc_dims(d)) mm_tc_small<kXmixPasses>(N, H, H, sdhe, H, WT(W_O1), st_de0);
+      else mm_bwd<kE16>(N, H, H, sdhe, H, WT(W_O1), st_de0);
     } else {
-      mm_bwd(N, H, H, sdhe, H, WT(W_O1), st_de0);
+      mm_bwd<kE16>(N, H, H, sdhe, H, WT(W_O1), st_de0);
     }
     if constexpr (kRows)
       for (int e = tid; e < N * H; e += nt) edge_row(RW_DHE, H)[e] = sdhe[e];
@@ -531,10 +559,10 @@ __device__ __forceinline__ void bwd_layer(const Dims& d, const BwdSmem& S, int b
       }
     };
     if constexpr (kTc) {
-      if (tc_dims(d)) mm_tc_small<tc_passes<kBf16>()>(N, H, R, se0, H, WT(W_O_F), st_dfilt);
-      else mm_bwd(N, H, R, se0, H, WT(W_O_F), st_dfilt);
+      if (tc_dims(d)) mm_tc_small<kXmixPasses>(N, H, R, se0, H, WT(W_O_F), st_dfilt);
+      else mm_bwd<kE16>(N, H, R, se0, H, WT(W_O_F), st_dfilt);
     } else {
-      mm_bwd(N, H, R, se0, H, WT(W_O_F), st_dfilt);
+      mm_bwd<kE16>(N, H, R, se0, H, WT(W_O_F), st_dfilt);
     }
     __syncthreads();
     SAKE_PROBE(PR_BWD_OF_MM);

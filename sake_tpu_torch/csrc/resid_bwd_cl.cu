@@ -70,6 +70,43 @@ resid_bwd_cl_kernel(Dims d, const float* __restrict__ bh, const float* __restric
   }
 }
 
+// #5's rows kernel in resid_ef's bf16 tier (bwd_layer_cl's kE16): the kernel
+// above on the bf16 residual streams, LT's edge weights rounded.
+__global__ void __launch_bounds__(kClBwdThreads, 1)
+resid_bwd_cl16_kernel(Dims d, const float* __restrict__ bh, const float* __restrict__ bx,
+                      const float* __restrict__ bv, const float* __restrict__ upd,
+                      const float* __restrict__ mask, Leaves L, Leaves LT, Resids16 RS,
+                      const float* __restrict__ dh_fin, const float* __restrict__ dx_fin,
+                      const float* __restrict__ dv_fin, float* dh_out, float* dx_out,
+                      float* dv_out, Rows RW) {
+  extern __shared__ float4 smem4[];
+  const int b = blockIdx.x / kClSize;
+  const int B = d.B, N = d.N, F = d.F;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const float* mb = mask ? mask + (size_t)b * N * N : nullptr;
+
+  Carver cv{reinterpret_cast<float*>(smem4)};
+  float* ring = cv.take(tc_ring_floats_of<true>(d));
+  const BwdSmem S = carve_bwd_cl(cv, d);
+  SAKE_PROBE_START();
+  bwd_begin(d, S, B, b, dh_fin, dx_fin, dv_fin, mb);
+  cl_arrive();
+  for (int l = d.depth - 1; l >= 0; --l)
+    bwd_layer_cl<true>(d, S, b, l, upd[l], mb, L, LT, bh, bx, bv, RS, RW, ring);
+  cl_wait();
+
+  int i0, i1;
+  cl_rows(N, cl_rank(), i0, i1);
+  const int nn = i1 - i0;
+  for (int e = tid; e < nn * F; e += nt)
+    dh_out[((size_t)b * N + i0) * F + e] = S.sdh[i0 * F + e];
+  for (int e = tid; e < 3 * nn; e += nt) {
+    const int k = e / nn, i = i0 + e % nn;
+    dx_out[((size_t)k * B + b) * N + i] = S.sdx[k * N + i];
+    dv_out[((size_t)k * B + b) * N + i] = S.sdv[k * N + i];
+  }
+}
+
 }  // namespace sake
 
 extern "C" long long sake_resid_bwd_cluster_smem_bytes(int B, int N, int F, int H, int R,
@@ -123,6 +160,31 @@ extern "C" int sake_resid_bwd_rows_cluster(const float* bh, const float* bx, con
 }
 
 // The clock probe's slots (probe.cuh) of this source's kernel.
+// #5's rows kernel in the bf16 tier: the arguments of sake_resid_bwd_rows_cluster,
+// the low-precision residual streams bf16 tensors (all but r and t), L's and
+// LT's four edge weights rounded to bf16.
+extern "C" int sake_resid_bwd_rows_cluster16(
+    const float* bh, const float* bx, const float* bv, const float* upd, const float* mask,
+    const void* const* leaf_ptrs, const void* const* leaf_t_ptrs, const long long* leaf_strides,
+    void* const* resid_ptrs, const float* dh_fin, const float* dx_fin, const float* dv_fin,
+    float* dh_out, float* dx_out, float* dv_out, void* const* row_ptrs, int B, int N, int F,
+    int H, int R, int K, int C, int depth, void* stream) {
+  using namespace sake;
+  const Dims d{B, N, F, H, R, K, C, depth};
+  const size_t smem = bwd_cl_smem_floats(d) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(resid_bwd_cl16_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cl_config(B, kClBwdThreads, smem, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, resid_bwd_cl16_kernel, d, bh, bx, bv, upd, mask,
+                           leaves_of(leaf_ptrs, leaf_strides), leaves_of(leaf_t_ptrs, leaf_strides),
+                           resids16_of(resid_ptrs), dh_fin, dx_fin, dv_fin, dh_out, dx_out, dv_out,
+                           rows_of(row_ptrs));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 extern "C" int sake_resid_bwd_cl_probe(unsigned long long* out, int reset) {
   return sake::probe_read(out, reset);
 }

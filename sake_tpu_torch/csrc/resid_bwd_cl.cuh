@@ -82,14 +82,16 @@ __host__ __device__ inline long long bwd_cl_floats(const Dims& d) {
 // tensor-core products. The caller arrives at the cluster barrier once before
 // the first layer and waits once after the last: each layer waits before it
 // zeroes the sums the other CTA read last, and arrives once it has read the
-// other's.
+// other's. kE16: resid_ef's bf16 tier, as bwd_layer's kE16 (see there).
+template <bool kE16 = false>
 __device__ __forceinline__ void bwd_layer_cl(const Dims& d, const BwdSmem& S, int b, int l,
                                              float u, const float* __restrict__ mb,
                                              const Leaves& L, const Leaves& LT,
                                              const float* __restrict__ bh,
                                              const float* __restrict__ bx,
-                                             const float* __restrict__ bv, const Resids& RS,
-                                             const Rows& RW, float* ring) {
+                                             const float* __restrict__ bv,
+                                             const ResidsOf<kE16>& RS, const Rows& RW,
+                                             float* ring) {
   const int B = d.B, N = d.N, F = d.F, H = d.H, R = d.R, K = d.K, C = d.C;
   const int HK = H * K, NN = N * N;
   const int ldc = tc_ld_of<true>(d, C);  // coeff's, d_xm's row stride
@@ -146,10 +148,10 @@ __device__ __forceinline__ void bwd_layer_cl(const Dims& d, const BwdSmem& S, in
   mm_bwd(N, F, R, sh, F, W(W_IN_I), [&](int r, int c, float a) { sai[r * R + c] = a; });
 
   // position/velocity gates: x_out = x + u*v_new, v_out = v + u*(v_new - v)
-  const float* g1 = RS.p[RS_G1] + ln;
+  const ResOf<kE16>* g1 = RS.p[RS_G1] + ln;
   for (int r = tid; r < nn; r += nt) {
     const int i = i0 + r;
-    const float sg = sigmoidf_(g1[r]);
+    const float sg = sigmoidf_(get_res(g1, r));
     const float gate = 2.f * sg;
     float d_gate = 0.f;
 #pragma unroll
@@ -166,8 +168,9 @@ __device__ __forceinline__ void bwd_layer_cl(const Dims& d, const BwdSmem& S, in
   // gate MLP: g1 = silu(g0) @ w_vel1, g0 = h_out @ w_vel0 + b_vel0
   {
     const float* wv1 = W(W_VEL1);
-    const float* g0 = RS.p[RS_G0] + ln * H;
-    for (int e = tid; e < nn * H; e += nt) sdg0[e] = sdg1[e / H] * wv1[e % H] * dsiluf_(g0[e]);
+    const ResOf<kE16>* g0 = RS.p[RS_G0] + ln * H;
+    for (int e = tid; e < nn * H; e += nt)
+      sdg0[e] = sdg1[e / H] * wv1[e % H] * dsiluf_(get_res(g0, e));
   }
   __syncthreads();
   mm_bwd(nn, H, F, sdg0, H, WT(W_VEL0),
@@ -176,14 +179,15 @@ __device__ __forceinline__ void bwd_layer_cl(const Dims& d, const BwdSmem& S, in
 
   // h_out = h_in + silu(uv), uv = silu(node_pre) @ w_node1 + b_node1
   {
-    const float* uv = RS.p[RS_UV] + ln * F;
-    for (int e = tid; e < nn * F; e += nt) sduv[e] = sdhi[e] * dsiluf_(uv[e]);
+    const ResOf<kE16>* uv = RS.p[RS_UV] + ln * F;
+    for (int e = tid; e < nn * F; e += nt) sduv[e] = sdhi[e] * dsiluf_(get_res(uv, e));
   }
   __syncthreads();
   {
-    const float* np = RS.p[RS_NODE_PRE] + ln * H;
-    mm_bwd(nn, F, H, sduv, F, WT(W_NODE1),
-           [&](int r, int c, float a) { sdnp[r * H + c] = a * dsiluf_(np[r * H + c]); });
+    const ResOf<kE16>* np = RS.p[RS_NODE_PRE] + ln * H;
+    mm_bwd(nn, F, H, sduv, F, WT(W_NODE1), [&](int r, int c, float a) {
+      sdnp[r * H + c] = a * dsiluf_(get_res(np, r * H + c));
+    });
   }
   __syncthreads();
 
@@ -192,15 +196,17 @@ __device__ __forceinline__ void bwd_layer_cl(const Dims& d, const BwdSmem& S, in
   mm_bwd(nn, H, HK, sdnp, H, WT(W_NODE_AGG),
          [&](int r, int c, float a) { sdhatt[r * HK + c] = a; });
   {
-    const float* ps1 = RS.p[RS_PS1] + ln * H;
-    mm_bwd(nn, H, H, sdnp, H, WT(W_NODE_COMB),
-           [&](int r, int c, float a) { sdps1[r * H + c] = a * dsiluf_(ps1[r * H + c]); });
+    const ResOf<kE16>* ps1 = RS.p[RS_PS1] + ln * H;
+    mm_bwd(nn, H, H, sdnp, H, WT(W_NODE_COMB), [&](int r, int c, float a) {
+      sdps1[r * H + c] = a * dsiluf_(get_res(ps1, r * H + c));
+    });
   }
   __syncthreads();
   {
-    const float* ps0 = RS.p[RS_PS0] + ln * H;
-    mm_bwd(nn, H, H, sdps1, H, WT(W_POST1),
-           [&](int r, int c, float a) { sdps0[r * H + c] = a * dsiluf_(ps0[r * H + c]); });
+    const ResOf<kE16>* ps0 = RS.p[RS_PS0] + ln * H;
+    mm_bwd(nn, H, H, sdps1, H, WT(W_POST1), [&](int r, int c, float a) {
+      sdps0[r * H + c] = a * dsiluf_(get_res(ps0, r * H + c));
+    });
   }
   __syncthreads();
   mm_bwd(nn, H, C, sdps0, H, WT(W_POST0), [&](int r, int c, float a) { sdpsq[r * C + c] = a; });
@@ -209,8 +215,8 @@ __device__ __forceinline__ void bwd_layer_cl(const Dims& d, const BwdSmem& S, in
   const float* w_o_r = W(W_O_R);
   const float* rbf_m = W(RBF_M);
   const float* rbf_b = W(RBF_B);
-  const float* pool[3] = {RS.p[RS_POOL0] + lb * N * C, RS.p[RS_POOL1] + lb * N * C,
-                          RS.p[RS_POOL2] + lb * N * C};
+  const ResOf<kE16>* pool[3] = {RS.p[RS_POOL0] + lb * N * C, RS.p[RS_POOL1] + lb * N * C,
+                                RS.p[RS_POOL2] + lb * N * C};
 
   // the node rows, before the row loop reuses their scratch
   SAKE_PROBE_BARRIER(PR_BWD_PRE);
@@ -232,8 +238,9 @@ __device__ __forceinline__ void bwd_layer_cl(const Dims& d, const BwdSmem& S, in
   for (int e = tid; e < nn * C; e += nt) {
     const int i = i0 + e / C, c = e % C;
     const float pd = pool_denom(masked, scnt[i], n_eff);
-    const float n0 = pool[0][i * C + c] / pd, n1 = pool[1][i * C + c] / pd,
-                n2 = pool[2][i * C + c] / pd;
+    const float n0 = get_res(pool[0], i * C + c) / pd,
+                n1 = get_res(pool[1], i * C + c) / pd,
+                n2 = get_res(pool[2], i * C + c) / pd;
     node_row(RW_PSQ, i, C)[c] = n0 * n0 + n1 * n1 + n2 * n2;
   }
   __syncthreads();
@@ -252,29 +259,39 @@ __device__ __forceinline__ void bwd_layer_cl(const Dims& d, const BwdSmem& S, in
 #pragma unroll
       for (int k = 0; k < 3; ++k)
         sdp[k * C + c] = sdvn[k * nn + ri] * wvmix[c] / dvd +
-                         2.f * pool[k][i * C + c] * sdpsq[ri * C + c] / (pd * pd);
+                         2.f * get_res(pool[k], i * C + c) * sdpsq[ri * C + c] / (pd * pd);
     }
     for (int j = tid; j < N; j += nt) {
-      const float r = RS.p[RS_R][erow + j];
+      const float r = res_r(RS)[erow + j];
       sr[j] = r;
-      st[j] = RS.p[RS_T][erow + j];
+      st[j] = res_t(RS)[erow + j];
       sir[j] = 1.f / (r + 1e-5f);
       smk[j] = masked ? mb[i * N + j] : 1.f;
 #pragma unroll
       for (int k = 0; k < 3; ++k) sd[k * N + j] = sx[k * N + j] - sx[k * N + i];
     }
-    if (ldc == C) {
-      load_smem(scf, RS.p[RS_COEFF] + erow * C, N * C);
-    } else {  // row by row into the padded rows, in float4 (C is 256 here)
-      const float4* cf = reinterpret_cast<const float4*>(RS.p[RS_COEFF] + erow * C);
-      for (int e = tid; e < N * C / 4; e += nt)
-        reinterpret_cast<float4*>(scf + (e / (C / 4)) * ldc)[e % (C / 4)] = cf[e];
+    if constexpr (kE16) {  // the bf16 streams, widened as they are read
+      for (int e = tid; e < N * C; e += nt)
+        scf[(e / C) * ldc + e % C] = get_res(RS.p[RS_COEFF], erow * C + e);
+      load_low(she, RS.p[RS_H_E] + erow * H, N * H);
+      load_low(se0, RS.p[RS_E0] + erow * H, N * H);
+      load_low(satt, RS.p[RS_ATT] + erow * K, N * K);
+      load_low(ssem, RS.p[RS_SEM_PRE] + erow * K, N * K);
+      load_low(srbf, RS.p[RS_RBF] + erow * R, N * R);
+    } else {
+      if (ldc == C) {
+        load_smem(scf, RS.p[RS_COEFF] + erow * C, N * C);
+      } else {  // row by row into the padded rows, in float4 (C is 256 here)
+        const float4* cf = reinterpret_cast<const float4*>(RS.p[RS_COEFF] + erow * C);
+        for (int e = tid; e < N * C / 4; e += nt)
+          reinterpret_cast<float4*>(scf + (e / (C / 4)) * ldc)[e % (C / 4)] = cf[e];
+      }
+      load_smem(she, RS.p[RS_H_E] + erow * H, N * H);
+      load_smem(se0, RS.p[RS_E0] + erow * H, N * H);
+      load_smem(satt, RS.p[RS_ATT] + erow * K, N * K);
+      load_smem(ssem, RS.p[RS_SEM_PRE] + erow * K, N * K);
+      load_smem(srbf, RS.p[RS_RBF] + erow * R, N * R);
     }
-    load_smem(she, RS.p[RS_H_E] + erow * H, N * H);
-    load_smem(se0, RS.p[RS_E0] + erow * H, N * H);
-    load_smem(satt, RS.p[RS_ATT] + erow * K, N * K);
-    load_smem(ssem, RS.p[RS_SEM_PRE] + erow * K, N * K);
-    load_smem(srbf, RS.p[RS_RBF] + erow * R, N * R);
     __syncthreads();
     SAKE_PROBE(PR_BWD_LOAD);
 
@@ -329,17 +346,18 @@ __device__ __forceinline__ void bwd_layer_cl(const Dims& d, const BwdSmem& S, in
     // hatt[i] = sum_j h_e[j] (x) att2[j]; the row's att2
     for (int q = tid; q < HK; q += nt) {
       float s = 0.f;
-      for (int j = 0; j < N; ++j) s += she[j * H + q / K] * satt2[j * K + q % K];
+      for (int j = 0; j < N; ++j) s += she[j * H + q / K] * rd<kE16>(satt2[j * K + q % K]);
       node_row(RW_HATT, i, HK)[q] = s;
     }
-    for (int e = tid; e < N * K; e += nt) edge_row(RW_ATT2, K)[e] = satt2[e];
+    for (int e = tid; e < N * K; e += nt) edge_row(RW_ATT2, K)[e] = rd<kE16>(satt2[e]);
     __syncthreads();
     SAKE_PROBE(PR_BWD_ROW);
 
     // d_he_att = d_xm @ w_xmix^T + d_hatt[i] (hatt sums he_att over senders)
     auto st_dha = [&](int r, int c, float a) { sdha[r * HK + c] = a + sdhatt[ri * HK + c]; };
-    if (tc_dims_of<true>(d)) mm_tc<tc_tiles<true>()>(N, scf, ldc, WT(W_XMIX), ring, st_dha);
-    else mm_bwd(N, C, HK, scf, ldc, WT(W_XMIX), st_dha);
+    if (tc_dims_of<true>(d))
+      mm_tc<tc_tiles<true>(), kE16 ? 1 : 3>(N, scf, ldc, WT(W_XMIX), ring, st_dha);
+    else mm_bwd<kE16>(N, C, HK, scf, ldc, WT(W_XMIX), st_dha);
     __syncthreads();
     SAKE_PROBE(PR_BWD_XMIX);
 
@@ -347,13 +365,19 @@ __device__ __forceinline__ void bwd_layer_cl(const Dims& d, const BwdSmem& S, in
     for (int e = tid; e < N * H; e += nt) {
       const int j = e / H, h = e % H;
       float s = 0.f;
-      for (int k = 0; k < K; ++k) s += sdha[j * HK + h * K + k] * satt2[j * K + k];
+      for (int k = 0; k < K; ++k) {
+        if constexpr (kE16) s += bf16r(sdha[j * HK + h * K + k] * bf16r(satt2[j * K + k]));
+        else s += sdha[j * HK + h * K + k] * satt2[j * K + k];
+      }
       sdhe[e] = s;
     }
     for (int e = tid; e < N * K; e += nt) {
       const int j = e / K, k = e % K;
       float s = 0.f;
-      for (int h = 0; h < H; ++h) s += sdha[j * HK + h * K + k] * she[j * H + h];
+      for (int h = 0; h < H; ++h) {
+        if constexpr (kE16) s += bf16r(sdha[j * HK + h * K + k] * she[j * H + h]);
+        else s += sdha[j * HK + h * K + k] * she[j * H + h];
+      }
       sdat[e] = s;
     }
     __syncthreads();
@@ -385,14 +409,15 @@ __device__ __forceinline__ void bwd_layer_cl(const Dims& d, const BwdSmem& S, in
     }
     __syncthreads();
     SAKE_PROBE(PR_BWD_ROW);
-    mm_bwd(N, K, H, sdat, K, WT(W_SEM), [&](int r, int c, float a) { sdhe[r * H + c] += a; });
+    mm_bwd<kE16>(N, K, H, sdat, K, WT(W_SEM),
+                 [&](int r, int c, float a) { sdhe[r * H + c] += a; });
     __syncthreads();
     SAKE_PROBE(PR_BWD_MM);
 
     // h_e = silu(e0) @ w_o1 + b_o1: d_e0 in place of e0
     auto st_de0 = [&](int r, int c, float a) { se0[r * H + c] = a * dsiluf_(se0[r * H + c]); };
-    if (tc_dims_of<true>(d)) mm_tc_small(N, H, H, sdhe, H, WT(W_O1), st_de0);
-    else mm_bwd(N, H, H, sdhe, H, WT(W_O1), st_de0);
+    if (tc_dims_of<true>(d)) mm_tc_small<kE16 ? 1 : 3>(N, H, H, sdhe, H, WT(W_O1), st_de0);
+    else mm_bwd<kE16>(N, H, H, sdhe, H, WT(W_O1), st_de0);
     for (int e = tid; e < N * H; e += nt) edge_row(RW_DHE, H)[e] = sdhe[e];
     __syncthreads();
     SAKE_PROBE(PR_BWD_O1_MM);
@@ -421,8 +446,8 @@ __device__ __forceinline__ void bwd_layer_cl(const Dims& d, const BwdSmem& S, in
       edge_row(RW_DRBF, R)[r * R + c] = a * pre;
       edge_row(RW_FILT, R)[r * R + c] = srbf[r * R + c] * pre;
     };
-    if (tc_dims_of<true>(d)) mm_tc_small(N, H, R, se0, H, WT(W_O_F), st_dfilt);
-    else mm_bwd(N, H, R, se0, H, WT(W_O_F), st_dfilt);
+    if (tc_dims_of<true>(d)) mm_tc_small<kE16 ? 1 : 3>(N, H, R, se0, H, WT(W_O_F), st_dfilt);
+    else mm_bwd<kE16>(N, H, R, se0, H, WT(W_O_F), st_dfilt);
     __syncthreads();
     SAKE_PROBE(PR_BWD_OF_MM);
 

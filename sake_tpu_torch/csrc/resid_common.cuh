@@ -5,6 +5,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "probe.cuh"
 
 namespace sake {
@@ -55,6 +57,33 @@ struct Resids {
   float* p[kResids];
 };
 
+// An element of a bf16 residual stream (resid_ef's bf16 tier): the upper 16
+// bits of bf16r's value. It is read and written only through get_res and
+// put_res.
+struct Bf16 {
+  unsigned short bits;
+};
+
+// The residual table of resid_ef's bf16 tier: every stream but r and t holds
+// Bf16 elements (p[RS_R] and p[RS_T] are null); r and t stay f32.
+struct Resids16 {
+  Bf16* p[kResids];
+  float* r;
+  float* t;
+};
+// The table of a tier: Resids16 in the bf16 one (kLow), else Resids.
+template <bool kLow>
+using ResidsOf = std::conditional_t<kLow, Resids16, Resids>;
+// The element type of a low-precision stream of a tier.
+template <bool kLow>
+using ResOf = std::conditional_t<kLow, Bf16, float>;
+
+// The f32 streams r and t of either table.
+__host__ __device__ __forceinline__ float* res_r(const Resids& R) { return R.p[RS_R]; }
+__host__ __device__ __forceinline__ float* res_t(const Resids& R) { return R.p[RS_T]; }
+__host__ __device__ __forceinline__ float* res_r(const Resids16& R) { return R.r; }
+__host__ __device__ __forceinline__ float* res_t(const Resids16& R) { return R.t; }
+
 struct Dims {
   int B, N, F, H, R, K, C, depth;
 };
@@ -72,6 +101,14 @@ inline Leaves leaves_of(const void* const* ptrs, const long long* strides) {
 inline Resids resids_of(void* const* ptrs) {
   Resids R;
   for (int i = 0; i < kResids; ++i) R.p[i] = static_cast<float*>(ptrs[i]);
+  return R;
+}
+inline Resids16 resids16_of(void* const* ptrs) {
+  Resids16 R;
+  for (int i = 0; i < kResids; ++i)
+    R.p[i] = i == RS_R || i == RS_T ? nullptr : static_cast<Bf16*>(ptrs[i]);
+  R.r = static_cast<float*>(ptrs[RS_R]);
+  R.t = static_cast<float*>(ptrs[RS_T]);
   return R;
 }
 // The table of a forward that keeps no residuals: only the pooled vectors, in
@@ -190,6 +227,25 @@ template <bool kBf16>
 __device__ __forceinline__ float rd(float x) {
   if constexpr (kBf16) return bf16r(x);
   else return x;
+}
+
+// Element i of a residual stream: an f32 one, or a bf16 one of resid_ef's
+// bf16 tier (put_res rounds to nearest, ties to even, as bf16r).
+template <class I>
+__device__ __forceinline__ void put_res(float* p, I i, float v) {
+  p[i] = v;
+}
+template <class I>
+__device__ __forceinline__ void put_res(Bf16* p, I i, float v) {
+  p[i].bits = (unsigned short)(__float_as_uint(bf16r(v)) >> 16);
+}
+template <class I>
+__device__ __forceinline__ float get_res(const float* p, I i) {
+  return p[i];
+}
+template <class I>
+__device__ __forceinline__ float get_res(const Bf16* p, I i) {
+  return __uint_as_float((unsigned)p[i].bits << 16);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -336,6 +392,11 @@ __device__ __forceinline__ void load_smem(float* dst, const float* src, int n) {
   } else {
     for (int e = threadIdx.x; e < n; e += blockDim.x) dst[e] = src[e];
   }
+}
+
+// dst[0:n] = n elements of a bf16 residual stream from src, widened to f32.
+__device__ __forceinline__ void load_low(float* dst, const Bf16* src, int n) {
+  for (int e = threadIdx.x; e < n; e += blockDim.x) dst[e] = get_res(src, e);
 }
 
 // Carves 16-byte-aligned float buffers out of dynamic shared memory. With

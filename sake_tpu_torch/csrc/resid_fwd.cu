@@ -78,6 +78,14 @@
 // (16 KB). The route (fwd_tc_route) is tc_dims and two such blocks fitting an
 // SM's shared memory: at hidden 64, 4 heads, R 50 that is N <= 21, aspirin's
 // size and the largest MD17 molecule; elsewhere K1 stays on resid_fwd_kernel.
+//
+// resid_ef's bf16 tier (the JAX package's production setting: edge products
+// with both operands in bf16, every residual stream but r and t stored as bf16)
+// runs the same bodies with fwd_layer's kE16 in kernels of their own
+// (resid_fwd16_kernel, K1 on either route; resid_fwd_cl16_kernel, #4 and #6),
+// each with a one-layer f32 scratch of the pooled vectors, which the body's node
+// phase reads where the f32 kernels read their pooled streams back. The f32
+// kernels above and below are untouched by it.
 
 #include "resid_fwd.cuh"
 
@@ -164,6 +172,37 @@ resid_tc_product_kernel(int n, int kd, int m, const float* __restrict__ A,
   else mm_tc_small<3>(n, kd, m, sa, lda, W, st);
 }
 
+// K1 in the bf16 tier (see the top): kTc the tensor-core kernel's carve, ring
+// and products, else resid_fwd_kernel's. pool16: a (3, B, N, C) f32 scratch.
+template <bool kTc>
+__global__ void __launch_bounds__(256, 2)
+resid_fwd16_kernel(Dims d, const float* __restrict__ h0, const float* __restrict__ xs,
+                   const float* __restrict__ v0, const float* __restrict__ upd,
+                   const float* __restrict__ mask, Leaves L, float* bh, float* bx, float* bv,
+                   float* h_fin, float* x_fin, float* v_fin, Resids16 RS, float* pool16) {
+  extern __shared__ float4 smem4[];
+  const int b = blockIdx.x;
+  const int B = d.B, N = d.N, F = d.F;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const float* mb = mask ? mask + (size_t)b * N * N : nullptr;
+
+  Carver cv{reinterpret_cast<float*>(smem4)};
+  float* ring = kTc ? cv.take(tc_ring_floats<kTcFwdWarps>(d)) : nullptr;
+  const FwdSmem S = carve_fwd<kTc>(cv, d);
+  SAKE_PROBE_START();
+  fwd_begin(d, S, B, b, h0, xs, v0, mb);
+  for (int l = 0; l < d.depth; ++l)
+    fwd_layer<true, true, false, kTc, false, kTcFwdWarps, true>(d, S, b, l, upd[l], mb, L, bh,
+                                                                bx, bv, RS, ring, pool16);
+
+  for (int e = tid; e < N * F; e += nt) h_fin[(size_t)b * N * F + e] = S.sh[e];
+  for (int e = tid; e < 3 * N; e += nt) {
+    const int k = e / N, i = e % N;
+    x_fin[((size_t)k * B + b) * N + i] = S.sx[e];
+    v_fin[((size_t)k * B + b) * N + i] = S.sv[e];
+  }
+}
+
 int launch_fwd(const sake::Dims& d, const float* h0, const float* xs, const float* v0,
                const float* upd, const float* mask, const void* const* leaf_ptrs,
                const long long* leaf_strides, float* bh, float* bx, float* bv, float* h_fin,
@@ -226,6 +265,42 @@ resid_fwd_cl_kernel(Dims d, const float* __restrict__ h0, const float* __restric
   }
 }
 
+// The cluster kernel in the bf16 tier (see the top): #4 (kStream: RS the bf16
+// streams, pool16 a (3, B, N, C) f32 scratch) or #6 (RS its f32 pooled scratch,
+// pool16 unused).
+template <bool kStream>
+__global__ void __launch_bounds__(kClFwdThreads, 1)
+resid_fwd_cl16_kernel(Dims d, const float* __restrict__ h0, const float* __restrict__ xs,
+                      const float* __restrict__ v0, const float* __restrict__ upd,
+                      const float* __restrict__ mask, Leaves L, float* bh, float* bx,
+                      float* bv, float* h_fin, float* x_fin, float* v_fin,
+                      ResidsOf<kStream> RS, float* pool16) {
+  extern __shared__ float4 smem4[];
+  const int b = blockIdx.x / kClSize;
+  const int B = d.B, N = d.N, F = d.F;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const float* mb = mask ? mask + (size_t)b * N * N : nullptr;
+
+  Carver cv{reinterpret_cast<float*>(smem4)};
+  float* ring = cv.take(tc_ring_floats_of<true>(d));
+  const FwdSmem S = carve_fwd<true, true>(cv, d);
+  SAKE_PROBE_START();
+  fwd_begin(d, S, B, b, h0, xs, v0, mb);
+  for (int l = 0; l < d.depth; ++l)
+    fwd_layer<kStream, kStream, false, true, true, kTcWarps, true>(d, S, b, l, upd[l], mb, L, bh,
+                                                                   bx, bv, RS, ring, pool16);
+
+  int i0, i1;  // this CTA's nodes
+  cl_rows(N, cl_rank(), i0, i1);
+  const int nn = i1 - i0;
+  for (int e = tid; e < nn * F; e += nt) h_fin[((size_t)b * N + i0) * F + e] = S.sh[i0 * F + e];
+  for (int e = tid; e < 3 * nn; e += nt) {
+    const int k = e / nn, i = i0 + e % nn;
+    x_fin[((size_t)k * B + b) * N + i] = S.sx[k * N + i];
+    if constexpr (kStream) v_fin[((size_t)k * B + b) * N + i] = S.sv[k * N + i];
+  }
+}
+
 // The cluster kernel over B molecules (one cluster of two CTAs each) on
 // `stream`; a refused launch returns its error.
 template <bool kStream>
@@ -241,6 +316,37 @@ int launch_fwd_cl(const Dims& d, const float* h0, const float* xs, const float* 
   const cudaLaunchConfig_t cfg = cl_config(d.B, kClFwdThreads, smem, stream, &attr);
   err = cudaLaunchKernelEx(&cfg, resid_fwd_cl_kernel<kStream>, d, h0, xs, v0, upd, mask, L, bh,
                            bx, bv, h_fin, x_fin, v_fin, RS);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// K1 (route: "tensor cores" when kTc), #4 (kCl, kStream) or #6 (kCl) in the
+// bf16 tier; a refused launch returns its error.
+template <bool kTc, bool kCl, bool kStream>
+int launch_fwd16(const Dims& d, const float* h0, const float* xs, const float* v0,
+                 const float* upd, const float* mask, const Leaves& L, float* bh, float* bx,
+                 float* bv, float* h_fin, float* x_fin, float* v_fin,
+                 const ResidsOf<kStream>& RS, float* pool16, void* stream) {
+  cudaError_t err;
+  if constexpr (kCl) {
+    const size_t smem = fwd_cl_smem_floats(d) * sizeof(float);
+    err = cudaFuncSetAttribute(resid_fwd_cl16_kernel<kStream>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = cl_config(d.B, kClFwdThreads, smem, stream, &attr);
+    err = cudaLaunchKernelEx(&cfg, resid_fwd_cl16_kernel<kStream>, d, h0, xs, v0, upd, mask, L,
+                             bh, bx, bv, h_fin, x_fin, v_fin, RS, pool16);
+  } else {
+    if (kTc && !fwd_tc_route(d)) return (int)cudaErrorInvalidValue;
+    const size_t smem = (kTc ? fwd_tc_smem_floats(d) : fwd_smem_floats(d)) * sizeof(float);
+    err = cudaFuncSetAttribute(resid_fwd16_kernel<kTc>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    resid_fwd16_kernel<kTc><<<d.B, 256, smem, static_cast<cudaStream_t>(stream)>>>(
+        d, h0, xs, v0, upd, mask, L, bh, bx, bv, h_fin, x_fin, v_fin, RS, pool16);
+    err = cudaSuccess;
+  }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -385,6 +491,50 @@ extern "C" int sake_resid_infer_cluster(const float* h0, const float* xs, const 
                                     sake::leaves_of(leaf_ptrs, leaf_strides), nullptr, nullptr,
                                     nullptr, h_fin, x_fin, nullptr, sake::pool_resids(pool, d),
                                     stream);
+}
+
+// The bf16 tier's entries (resid_ef's edge_matmul_dtype and resid_dtype bf16):
+// the arguments of their f32 counterparts above, the low-precision residual
+// streams bf16 tensors (all but r and t), L's four edge weights (w_o_f, w_o1,
+// w_sem, w_xmix) rounded to bf16, and pool16 a (3, B, N, C) f32 scratch.
+// route: 0 K1's CUDA-core kernel, 1 its tensor-core kernel (fwd_tc_route, else
+// refused), 2 #4's cluster kernel.
+extern "C" int sake_resid_fwd16(int route, const float* h0, const float* xs, const float* v0,
+                                const float* upd, const float* mask,
+                                const void* const* leaf_ptrs, const long long* leaf_strides,
+                                float* bh, float* bx, float* bv, float* h_fin, float* x_fin,
+                                float* v_fin, void* const* resid_ptrs, float* pool16, int B,
+                                int N, int F, int H, int R, int K, int C, int depth,
+                                void* stream) {
+  using namespace sake;
+  const Dims d{B, N, F, H, R, K, C, depth};
+  const Leaves L = leaves_of(leaf_ptrs, leaf_strides);
+  const Resids16 RS = resids16_of(resid_ptrs);
+  switch (route) {
+    case 0: return launch_fwd16<false, false, true>(d, h0, xs, v0, upd, mask, L, bh, bx, bv,
+                                                    h_fin, x_fin, v_fin, RS, pool16, stream);
+    case 1: return launch_fwd16<true, false, true>(d, h0, xs, v0, upd, mask, L, bh, bx, bv,
+                                                   h_fin, x_fin, v_fin, RS, pool16, stream);
+    case 2: return launch_fwd16<true, true, true>(d, h0, xs, v0, upd, mask, L, bh, bx, bv, h_fin,
+                                                  x_fin, v_fin, RS, pool16, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// #6 in the bf16 tier: the arguments of sake_resid_infer_cluster, L's edge
+// weights rounded.
+extern "C" int sake_resid_infer_cluster16(const float* h0, const float* xs, const float* v0,
+                                          const float* upd, const float* mask,
+                                          const void* const* leaf_ptrs,
+                                          const long long* leaf_strides, float* h_fin,
+                                          float* x_fin, float* pool, int B, int N, int F, int H,
+                                          int R, int K, int C, int depth, void* stream) {
+  using namespace sake;
+  const Dims d{B, N, F, H, R, K, C, depth};
+  return launch_fwd16<true, true, false>(d, h0, xs, v0, upd, mask,
+                                         leaves_of(leaf_ptrs, leaf_strides), nullptr, nullptr,
+                                         nullptr, h_fin, x_fin, nullptr, pool_resids(pool, d),
+                                         nullptr, stream);
 }
 
 // The clock probe's slots (probe.cuh) of this source's kernels.

@@ -131,15 +131,31 @@ __device__ __forceinline__ void fwd_begin(const Dims& d, const FwdSmem& S, int B
 // its products take the tensor cores up to N = 32 (tc_dims_of, four n8 tiles).
 // kTcW: the warps of mm_tc's ring (tc_ring_floats<kTcW>): kTcWarps in the
 // 512-thread kernels, kTcFwdWarps in K1's 256-thread tensor-core kernel.
+// kE16: resid_ef's bf16 tier (JAX's edge_matmul_dtype and resid_dtype bf16):
+// both operands of each edge product (o_f, o1, the semantic logits, the
+// x-mixing) rounded to bf16 (L holds those four weights already rounded; the
+// activation is rounded as it is read), f32 sums, on the tensor cores in one
+// pass; the x-mixing's operand is bf16(bf16(h_e) bf16(att)) and hatt sums the
+// unrounded products; node products stay f32. Every residual stream but r and
+// t is written as bf16 (put_res; RS a Resids16 with kResid), while the body
+// goes on with the f32 values:
+// its pooled vectors also go, in f32, to slot b of a one-layer (3, d.B, N, C)
+// scratch pool16 (with kResid), which its node phase reads.
 template <bool kResid, bool kBound, bool kBf16 = false, bool kTc = false, bool kCl = false,
-          int kTcW = kTcWarps>
+          int kTcW = kTcWarps, bool kE16 = false>
 __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b, int l,
                                           float u, const float* __restrict__ mb,
                                           const Leaves& L, float* bh, float* bx, float* bv,
-                                          const Resids& RS, float* ring = nullptr) {
+                                          const ResidsOf<kE16 && kResid>& RS,
+                                          float* ring = nullptr, float* pool16 = nullptr) {
+  static_assert(!(kE16 && kBf16), "one bf16 tier");
   const int B = d.B, N = d.N, F = d.F, H = d.H, R = d.R, K = d.K, C = d.C;
   const int HK = H * K, NN = N * N;
   [[maybe_unused]] const int ldx = kTc ? tc_ld_of<kCl>(d, HK) : HK;  // kTc: shea's row stride
+  // the edge products' passes on the tensor cores: o_f and o1, the x-mixing
+  constexpr int kEdgePasses = kE16 ? 1 : tc_passes<kBf16, true>();
+  constexpr int kXmixPasses = kE16 ? 1 : tc_passes<kBf16>();
+  constexpr bool kRoundEdge = kBf16 || kE16;  // the edge products round their activation
   const int tid = threadIdx.x, nt = blockDim.x;
   // this CTA's receiver rows [i0, i1), nn of them: all N without kCl
   int i0 = 0, i1 = N;
@@ -210,8 +226,8 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
       sir[N + j] = expf(-r);  // t
       smk[j] = masked ? mb[i * N + j] : 1.f;
       if constexpr (kResid) {
-        RS.p[RS_R][erow + j] = r;
-        RS.p[RS_T][erow + j] = sir[N + j];
+        res_r(RS)[erow + j] = r;
+        res_t(RS)[erow + j] = sir[N + j];
       }
     }
     __syncthreads();
@@ -221,7 +237,7 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
       const int j = e / R, c = e % R;
       const float z = sir[N + j] - rbf_m[c];
       const float v = expf(-rbf_b[c] * (z * z));
-      if constexpr (kResid) RS.p[RS_RBF][erow * R + e] = v;
+      if constexpr (kResid) put_res(RS.p[RS_RBF], erow * R + e, v);
       srbf[e] = v * (saj[e] + sai[i * R + c]);
     }
     __syncthreads();
@@ -231,14 +247,13 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
     auto st_e0 = [&](int r, int c, float a) {
       const float v = soj[r * H + c] + soi[i * H + c] + a + sr[r] * w_o_r[c] + b_o0[c];
       se0[r * H + c] = v;
-      if constexpr (kResid) RS.p[RS_E0][(erow + r) * H + c] = v;
+      if constexpr (kResid) put_res(RS.p[RS_E0], (erow + r) * H + c, v);
     };
     if constexpr (kTc) {
-      if (tc_dims_of<kCl>(d)) mm_tc_small<tc_passes<kBf16, true>()>(N, R, H, srbf, R, W(W_O_F),
-                                                                     st_e0);
-      else mm_fwd<kBf16>(N, R, H, srbf, R, W(W_O_F), st_e0);
+      if (tc_dims_of<kCl>(d)) mm_tc_small<kEdgePasses>(N, R, H, srbf, R, W(W_O_F), st_e0);
+      else mm_fwd<kRoundEdge>(N, R, H, srbf, R, W(W_O_F), st_e0);
     } else {
-      mm_fwd<kBf16>(N, R, H, srbf, R, W(W_O_F), st_e0);
+      mm_fwd<kRoundEdge>(N, R, H, srbf, R, W(W_O_F), st_e0);
     }
     __syncthreads();
     SAKE_PROBE(PR_FWD_OF_MM);
@@ -250,24 +265,23 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
     auto st_he = [&](int r, int c, float a) {
       const float v = a + b_o1[c];
       she[r * H + c] = v;
-      if constexpr (kResid) RS.p[RS_H_E][(erow + r) * H + c] = v;
+      if constexpr (kResid) put_res(RS.p[RS_H_E], (erow + r) * H + c, v);
     };
     if constexpr (kTc) {
-      if (tc_dims_of<kCl>(d)) mm_tc_small<tc_passes<kBf16, true>()>(N, H, H, se0, H, W(W_O1),
-                                                                     st_he);
-      else mm_fwd<kBf16>(N, H, H, se0, H, W(W_O1), st_he);
+      if (tc_dims_of<kCl>(d)) mm_tc_small<kEdgePasses>(N, H, H, se0, H, W(W_O1), st_he);
+      else mm_fwd<kRoundEdge>(N, H, H, se0, H, W(W_O1), st_he);
     } else {
-      mm_fwd<kBf16>(N, H, H, se0, H, W(W_O1), st_he);
+      mm_fwd<kRoundEdge>(N, H, H, se0, H, W(W_O1), st_he);
     }
     __syncthreads();
     SAKE_PROBE(PR_FWD_O1_MM);
 
     // semantic logits
-    mm_fwd<kBf16>(N, H, K, she, H, W(W_SEM),
+    mm_fwd<kRoundEdge>(N, H, K, she, H, W(W_SEM),
            [&](int r, int c, float a) {
              const float v = a + b_sem[c];
              ssem[r * K + c] = v;
-             if constexpr (kResid) RS.p[RS_SEM_PRE][(erow + r) * K + c] = v;
+             if constexpr (kResid) put_res(RS.p[RS_SEM_PRE], (erow + r) * K + c, v);
            });
     __syncthreads();
     SAKE_PROBE(PR_FWD_MM);
@@ -298,7 +312,7 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
         const float a = satt[j * K + k] / sum;
         satt[j * K + k] = a;
         live += a * smk[j];
-        if constexpr (kResid) RS.p[RS_ATT][(erow + j) * K + k] = a;
+        if constexpr (kResid) put_res(RS.p[RS_ATT], (erow + j) * K + k, a);
       }
       if (masked) {
         live = warp_sum(live);
@@ -311,8 +325,9 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
     // attended edges h_e (x) att, hidden-major / head-minor: column h*K + k
     for (int e = tid; e < N * HK; e += nt) {
       const int j = e / HK, q = e % HK;
-      if constexpr (kTc) shea[j * ldx + q] = rd<kBf16>(she[j * H + q / K]) * satt[j * K + q % K];
-      else shea[e] = rd<kBf16>(she[j * H + q / K]) * satt[j * K + q % K];
+      if constexpr (kTc)
+        shea[j * ldx + q] = rd<kRoundEdge>(she[j * H + q / K]) * rd<kE16>(satt[j * K + q % K]);
+      else shea[e] = rd<kRoundEdge>(she[j * H + q / K]) * rd<kE16>(satt[j * K + q % K]);
     }
     __syncthreads();
     SAKE_PROBE(PR_FWD_ROW);
@@ -329,15 +344,14 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
     auto st_coeff = [&](int r, int c, float a) {
       const float v = tanhf(a) * smk[r];
       scf[r * C + c] = v;
-      if constexpr (kResid) RS.p[RS_COEFF][(erow + r) * C + c] = v;
+      if constexpr (kResid) put_res(RS.p[RS_COEFF], (erow + r) * C + c, v);
     };
     if constexpr (kTc) {
       if (tc_dims_of<kCl>(d))
-        mm_tc<tc_tiles<kCl>(), tc_passes<kBf16>(), kTcW>(N, shea, ldx, W(W_XMIX), ring,
-                                                          st_coeff);
-      else mm_fwd(N, HK, C, shea, ldx, W(W_XMIX), st_coeff);
+        mm_tc<tc_tiles<kCl>(), kXmixPasses, kTcW>(N, shea, ldx, W(W_XMIX), ring, st_coeff);
+      else mm_fwd<kE16>(N, HK, C, shea, ldx, W(W_XMIX), st_coeff);
     } else {
-      mm_fwd(N, HK, C, shea, HK, W(W_XMIX), st_coeff);
+      mm_fwd<kE16>(N, HK, C, shea, HK, W(W_XMIX), st_coeff);
     }
     __syncthreads();
     SAKE_PROBE(PR_FWD_XMIX);
@@ -350,9 +364,18 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
 #pragma unroll
         for (int k = 0; k < 3; ++k) p[k] += cf * (sd[k * N + j] * sir[j]);
       }
-      RS.p[RS_POOL0][(lp * N + i) * C + c] = p[0];
-      RS.p[RS_POOL1][(lp * N + i) * C + c] = p[1];
-      RS.p[RS_POOL2][(lp * N + i) * C + c] = p[2];
+      if constexpr (kE16 && kResid) {
+        const size_t plane = (size_t)B * N * C;
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          put_res(RS.p[RS_POOL0 + k], (lp * N + i) * C + c, p[k]);
+          pool16[k * plane + ((size_t)b * N + i) * C + c] = p[k];
+        }
+      } else {
+        RS.p[RS_POOL0][(lp * N + i) * C + c] = p[0];
+        RS.p[RS_POOL1][(lp * N + i) * C + c] = p[1];
+        RS.p[RS_POOL2][(lp * N + i) * C + c] = p[2];
+      }
     }
     __syncthreads();
     SAKE_PROBE(PR_FWD_ROW);
@@ -363,9 +386,15 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
 
   // ---- node phase: this CTA's receivers, r = i - i0 < nn -------------------
   // (scf, se0, she, snp, suv, sg0, sg1 and sdel by r, the state by i)
-  const float* pool[3] = {RS.p[RS_POOL0] + lp * N * C + i0 * C,
-                          RS.p[RS_POOL1] + lp * N * C + i0 * C,
-                          RS.p[RS_POOL2] + lp * N * C + i0 * C};
+  const float* pool[3];
+  if constexpr (kE16 && kResid) {  // the f32 pooled vectors of the scratch
+#pragma unroll
+    for (int k = 0; k < 3; ++k) pool[k] = pool16 + ((size_t)k * B + b) * N * C + i0 * C;
+  } else {
+    pool[0] = RS.p[RS_POOL0] + lp * N * C + i0 * C;
+    pool[1] = RS.p[RS_POOL1] + lp * N * C + i0 * C;
+    pool[2] = RS.p[RS_POOL2] + lp * N * C + i0 * C;
+  }
   for (int e = tid; e < nn * C; e += nt) {
     const float pd = pool_denom(masked, scnt[i0 + e / C], n_eff);
     const float n0 = pool[0][e] / pd, n1 = pool[1][e] / pd, n2 = pool[2][e] / pd;
@@ -389,7 +418,7 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
          [&](int r, int c, float a) {
            const float v = a + b_post0[c];
            se0[r * H + c] = v;
-           if constexpr (kResid) RS.p[RS_PS0][(ln + r) * H + c] = v;
+           if constexpr (kResid) put_res(RS.p[RS_PS0], (ln + r) * H + c, v);
          });
   __syncthreads();
   for (int e = tid; e < nn * H; e += nt) se0[e] = siluf_(se0[e]);
@@ -399,7 +428,7 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
          [&](int r, int c, float a) {
            const float v = a + b_post1[c];
            she[r * H + c] = v;
-           if constexpr (kResid) RS.p[RS_PS1][(ln + r) * H + c] = v;
+           if constexpr (kResid) put_res(RS.p[RS_PS1], (ln + r) * H + c, v);
          });
   __syncthreads();
   for (int e = tid; e < nn * H; e += nt) she[e] = siluf_(she[e]);  // h_comb
@@ -417,7 +446,7 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
          [&](int r, int c, float a) { snp[r * H + c] += a; });
   __syncthreads();
   for (int e = tid; e < nn * H; e += nt) {
-    if constexpr (kResid) RS.p[RS_NODE_PRE][ln * H + e] = snp[e];
+    if constexpr (kResid) put_res(RS.p[RS_NODE_PRE], ln * H + e, snp[e]);
     snp[e] = siluf_(snp[e]);
   }
   __syncthreads();
@@ -426,7 +455,7 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
          [&](int r, int c, float a) {
            const float v = a + b_node1[c];
            suv[r * F + c] = v;
-           if constexpr (kResid) RS.p[RS_UV][(ln + r) * F + c] = v;
+           if constexpr (kResid) put_res(RS.p[RS_UV], (ln + r) * F + c, v);
          });
   __syncthreads();
   for (int e = tid; e < nn * F; e += nt) shi[e] = shi[e] + siluf_(suv[e]);  // h_out
@@ -436,7 +465,7 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
   const float* b_vel0 = W(B_VEL0);
   mm_fwd<kBf16>(nn, F, H, shi, F, W(W_VEL0), [&](int r, int c, float a) {
     const float v = a + b_vel0[c];
-    if constexpr (kResid) RS.p[RS_G0][(ln + r) * H + c] = v;
+    if constexpr (kResid) put_res(RS.p[RS_G0], (ln + r) * H + c, v);
     sg0[r * H + c] = siluf_(v);
   });
   __syncthreads();
@@ -448,7 +477,7 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
       s = warp_sum(s);
       if (lane == 0) {
         sg1[r] = s;
-        if constexpr (kResid) RS.p[RS_G1][ln + r] = s;
+        if constexpr (kResid) put_res(RS.p[RS_G1], ln + r, s);
       }
     }
   }

@@ -122,6 +122,15 @@ def signatures() -> dict:
         "sake_resid_bwd_rows_cluster": bwd_in + [P] + dims + [P],
         # bh, leaves, strides, resid, rows, partial, out, n_chunks
         "sake_param_grads": [P] * 7 + [I] + dims + [P],
+        # resid_ef's bf16 tier: K1 (route 0 CUDA cores, 1 tensor cores, 2 #4's
+        # cluster) with a pooled scratch after the residuals; #6; K2 (route 0, 1) or
+        # the rows kernel (2) with rows and the addend; #5's cluster rows kernel; the
+        # contraction
+        "sake_resid_fwd16": [I] + fwd_in + [P] * 6 + [P, P] + dims + [P],
+        "sake_resid_infer_cluster16": fwd_in + [P] * 3 + dims + [P],
+        "sake_resid_bwd16": [I] + bwd_in + dims + [P],
+        "sake_resid_bwd_rows_cluster16": bwd_in + [P] + dims + [P],
+        "sake_param_grads16": [P] * 7 + [I] + dims + [P],
         # bh, bx, bv, upd, leaves, strides, resid, tx0, tbh, tbx, tbv, 3 finals, tresid
         "sake_resid_jvp": [P] * 15 + dims + [P],
         # bh, bx, bv, tbh, tbx, tbv, upd, leaves, leaves_t, strides, resid, tresid,

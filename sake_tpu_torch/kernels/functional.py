@@ -96,6 +96,38 @@ def _f32_only(name, *dtypes):
         raise NotImplementedError(f"{name}: the port computes in f32 only")
 
 
+def _bf16_edge_tier(name, *, matmul_dtype, edge_matmul_dtype, resid_dtype, resid_lowp,
+                    lowp, **f32_only) -> bool:
+    """The counterpart of :func:`_f32_only` for ``resid_ef``'s one bf16 tier,
+    the JAX package's production setting: True for ``edge_matmul_dtype`` and
+    ``resid_dtype`` both bf16, False for both None or f32, with ``resid_lowp``
+    None or equal to ``lowp`` (the default low-precision set) either way. Every
+    other combination raises, naming it: bf16 node products (``matmul_dtype``),
+    the keywords of ``f32_only`` other than None or f32 (``pool_dtype``,
+    ``pool_matmul_dtype``), another ``resid_lowp``, and bf16 edge products
+    with f32 residual streams or the reverse."""
+    if matmul_dtype not in (None, torch.float32):
+        raise NotImplementedError(f"{name}: matmul_dtype={matmul_dtype} (bf16 node products) "
+                                  "is not ported; the port's bf16 tier is edge_matmul_dtype "
+                                  "and resid_dtype bf16")
+    for kw, d in f32_only.items():
+        if d not in (None, torch.float32):
+            raise NotImplementedError(f"{name}: {kw}={d} is not ported")
+    if resid_lowp is not None and set(resid_lowp) != set(lowp):
+        raise NotImplementedError(f"{name}: resid_lowp={sorted(resid_lowp)} is not ported; "
+                                  "only the default set (every residual but r and t)")
+    tiers = []
+    for kw, d in (("edge_matmul_dtype", edge_matmul_dtype), ("resid_dtype", resid_dtype)):
+        if d not in (None, torch.float32, torch.bfloat16):
+            raise NotImplementedError(f"{name}: {kw}={d} is not ported")
+        tiers.append(d is torch.bfloat16)
+    if tiers[0] != tiers[1]:
+        raise NotImplementedError(
+            f"{name}: edge_matmul_dtype={edge_matmul_dtype} with resid_dtype={resid_dtype} is "
+            "not ported; bf16 edge products and bf16 residual streams go together")
+    return tiers[0]
+
+
 def is_bf16(name, matmul_dtype) -> bool:
     """True for ``torch.bfloat16``, False for None or f32; any other
     ``matmul_dtype`` raises."""

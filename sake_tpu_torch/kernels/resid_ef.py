@@ -55,8 +55,9 @@ from sake_tpu_torch.kernels.functional import (
     CFConvParams,
     LayerParams,
     ModelParams,
-    _f32_only,
+    _bf16_edge_tier,
     _silu,
+    bf16_round,
     embed,
     flat_params,
     per_layer,
@@ -71,6 +72,33 @@ EDGE_RESIDS = ("r", "t", "rbf", "e0", "h_e", "sem_pre", "att", "coeff")
 NODE_RESIDS = ("pool0", "pool1", "pool2", "ps0", "ps1", "node_pre", "uv",
                "g0", "g1")
 RESIDS = EDGE_RESIDS + NODE_RESIDS
+
+# The bf16 tier (JAX ``edge_matmul_dtype`` and ``resid_dtype`` bf16, the
+# production setting of every JAX task that runs these kernels): the residual
+# streams stored in bf16, every one but the geometry planes r and t (JAX
+# ``_RESID_LOWP``, ``resid_ef.py:130``), and the leaves whose products (and
+# weight-gradient contractions) round both operands to bf16 (JAX
+# ``_EDGE_MM_LEAVES``, ``:760``).
+RESID_LOWP = frozenset(RESIDS) - {"r", "t"}
+EDGE_MM_LEAVES = ("w_o_f", "w_o1", "w_sem", "w_xmix")
+
+
+def stream_dtype(name: str, bf16: bool):
+    """The dtype of residual stream ``name`` in the f32 tier or the bf16 one."""
+    return torch.bfloat16 if bf16 and name in RESID_LOWP else torch.float32
+
+
+def edge_bf16_leaves(leaves: dict) -> dict:
+    """``leaves`` (or their transposes) with the four edge weights rounded to
+    bf16, as the bf16 tier's kernels read them."""
+    return {n: bf16_round(a).contiguous() if n in EDGE_MM_LEAVES else a
+            for n, a in leaves.items()}
+
+
+def _edge_mm(bf16: bool):
+    """The edge products ``a @ w``: f32, or the bf16 tier's (both operands
+    rounded to bf16, f32 sums; JAX ``_make_mm_prec(bfloat16, None)``)."""
+    return (lambda a, w: bf16_round(a) @ bf16_round(w)) if bf16 else torch.matmul
 
 # Cotangent rows of the pullback that the parameter gradients contract (the
 # operands of the JAX ``mm_pairs`` that are not residuals), in kernel order.
@@ -129,7 +157,7 @@ def raw_attention(sem_pre, *, mask=None, n_real=None):
     return torch.softmax(logits, dim=-2)
 
 
-def layer_fwd_resid(p: dict, h, xp, vp, upd, *, n_real=None, mask=None):
+def layer_fwd_resid(p: dict, h, xp, vp, upd, *, n_real=None, mask=None, bf16=False):
     """One layer's forward and the residuals the backward reads.
 
     ``p``: one layer's leaves (``leaves.split_layer``); ``h (B, N, F)``;
@@ -137,6 +165,11 @@ def layer_fwd_resid(p: dict, h, xp, vp, upd, *, n_real=None, mask=None):
     update; ``mask``: ``(B, N, N, 1)`` edge mask or None; ``n_real``: real
     atoms when the last ``N - n_real`` are padding (pad senders masked,
     divisor ``n_real``). Returns ``(h_out, xp_out, vp_out, resid)``.
+    ``bf16``: the bf16 tier's edge products (JAX ``mm_edge`` in bf16): o_f,
+    o1, the semantic logits, the two head expansions (``bf16(h_e) (x)
+    bf16(att2)``, exact in f32) and the x-mixing (which rounds that product
+    again) take both operands rounded to bf16; node products stay f32 and the
+    residuals are returned in f32 (the streams round them).
     """
     B, N, F = h.shape
     n_eff = float(n_real if n_real is not None else N)
@@ -149,13 +182,14 @@ def layer_fwd_resid(p: dict, h, xp, vp, upd, *, n_real=None, mask=None):
     pre = a_j[:, None, :, :] + a_i[:, :, None, :]
     t = torch.exp(-r)
     rbf = torch.exp(-p["rbf_b"] * (t - p["rbf_m"]) ** 2)
+    me = _edge_mm(bf16)
     o_j = h @ p["w_o_j"]
     o_i = h @ p["w_o_i"]
-    o_f = (rbf * pre) @ p["w_o_f"]
+    o_f = me(rbf * pre, p["w_o_f"])
     e0 = o_j[:, None] + o_i[:, :, None] + o_f + r * p["w_o_r"][0] + p["b_o0"]
-    h_e = _silu(e0) @ p["w_o1"] + p["b_o1"]
+    h_e = me(_silu(e0), p["w_o1"]) + p["b_o1"]
 
-    sem_pre = h_e @ p["w_sem"] + p["b_sem"]
+    sem_pre = me(h_e, p["w_sem"]) + p["b_sem"]
     att = raw_attention(sem_pre, mask=mask, n_real=n_real)  # the saved residual
     if mask is not None:
         att_s = att * mask
@@ -166,8 +200,12 @@ def layer_fwd_resid(p: dict, h, xp, vp, upd, *, n_real=None, mask=None):
 
     K = att.shape[-1]
     H = h_e.shape[-1]
-    h_e_att = (h_e[..., :, None] * att2[..., None, :]).reshape(B, N, N, H * K)
-    coeff = torch.tanh(h_e_att @ p["w_xmix"])
+    if bf16:
+        h_e_att = (bf16_round(h_e)[..., :, None] * bf16_round(att2)[..., None, :]).reshape(
+            B, N, N, H * K)
+    else:
+        h_e_att = (h_e[..., :, None] * att2[..., None, :]).reshape(B, N, N, H * K)
+    coeff = torch.tanh(me(h_e_att, p["w_xmix"]))
     if mask is not None:
         coeff = coeff * mask
     inv_r = 1.0 / (r + 1e-5)
@@ -209,7 +247,7 @@ def layer_fwd_resid(p: dict, h, xp, vp, upd, *, n_real=None, mask=None):
 
 
 def layer_bwd_resid(p: dict, resid: dict, h_in, xp, vp, upd, d_h_out, d_xp_out,
-                    d_vp_out, *, n_real=None, mask=None, want_param_grads=False):
+                    d_vp_out, *, n_real=None, mask=None, want_param_grads=False, bf16=False):
     """Hand-derived pullback of :func:`layer_fwd_resid` w.r.t. its inputs
     ``(h, xp, vp)``. Only ``a_j``/``a_i`` are recomputed from ``h_in``;
     every nonlinearity is evaluated on the saved residuals. Returns
@@ -217,7 +255,11 @@ def layer_bwd_resid(p: dict, resid: dict, h_in, xp, vp, upd, d_h_out, d_xp_out,
     layer's gradient of every ``LEAF_NAMES`` leaf (:func:`layer_param_grads`),
     and with ``want_param_grads="rows"`` instead the cotangent rows ``dW``
     is contracted from (``ROWS``: edge rows ``(B, N*N, ch)``, node rows
-    ``(B, N, ch)``)."""
+    ``(B, N, ch)``). ``bf16``: the pullback of the bf16 tier's forward (JAX's
+    with ``mm_edge`` in bf16): each edge product's cotangent and weight
+    rounded to bf16, the head expansion's terms ``bf16(d_he_att bf16(att2))``
+    and ``bf16(d_he_att bf16(h_e))`` rounded before their sums; its rows hold
+    att2 rounded, and hatt sums ``bf16(h_e) bf16(att2)``."""
     B, N, F = h_in.shape
     C = p["w_xmix"].shape[-1]
     n_eff = float(n_real if n_real is not None else N)
@@ -280,7 +322,8 @@ def layer_bwd_resid(p: dict, resid: dict, h_in, xp, vp, upd, d_h_out, d_xp_out,
     d_xm = d_coeff * (1.0 - coeff * coeff)
     if mask is not None:
         d_xm = d_xm * mask
-    d_he_att = d_xm @ p["w_xmix"].T + d_hatt[:, :, None, :]
+    me = _edge_mm(bf16)
+    d_he_att = me(d_xm, p["w_xmix"].T) + d_hatt[:, :, None, :]
 
     # he_att[..., h*K + k] = h_e[..., h] * att2[..., k]
     K = att.shape[-1]
@@ -293,8 +336,14 @@ def layer_bwd_resid(p: dict, resid: dict, h_in, xp, vp, upd, d_h_out, d_xp_out,
     else:
         att2 = att
     d_he_att4 = d_he_att.reshape(B, N, N, H, K)
-    d_h_e = (d_he_att4 * att2[..., None, :]).sum(dim=-1)
-    d_att2 = (d_he_att4 * h_e[..., :, None]).sum(dim=-2)
+    if bf16:  # heE = bf16(h_e), attE = bf16(att2); each term rounded before the sum
+        he_e, att_e = bf16_round(h_e), bf16_round(att2)
+        d_h_e = bf16_round(d_he_att4 * att_e[..., None, :]).sum(dim=-1)
+        d_att2 = bf16_round(d_he_att4 * he_e[..., :, None]).sum(dim=-2)
+    else:
+        he_e, att_e = h_e, att2
+        d_h_e = (d_he_att4 * att2[..., None, :]).sum(dim=-1)
+        d_att2 = (d_he_att4 * h_e[..., :, None]).sum(dim=-2)
     if mask is not None:
         live = (denom != 0.0).to(att.dtype)
         d_att = (d_att2 / dg
@@ -306,16 +355,16 @@ def layer_bwd_resid(p: dict, resid: dict, h_in, xp, vp, upd, d_h_out, d_xp_out,
     d_logits = att * (d_att - (d_att * att).sum(dim=-2, keepdim=True))
     dcelu = torch.where(sem_pre > 0, torch.ones_like(sem_pre), torch.exp(sem_pre / 2.0))
     d_sem_pre = d_logits * dcelu
-    d_h_e = d_h_e + d_sem_pre @ p["w_sem"].T
+    d_h_e = d_h_e + me(d_sem_pre, p["w_sem"].T)
 
     # h_e = silu(e0) @ w_o1 + b_o1
-    d_e0 = (d_h_e @ p["w_o1"].T) * _dsilu(e0)
+    d_e0 = me(d_h_e, p["w_o1"].T) * _dsilu(e0)
 
     # e0 = o_j[j] + o_i[i] + o_f + r * w_o_r + b_o0
     d_o_j = d_e0.sum(dim=-3)
     d_o_i = d_e0.sum(dim=-2)
     d_r = d_r + (d_e0 * p["w_o_r"][0]).sum(dim=-1, keepdim=True)
-    d_filtered = d_e0 @ p["w_o_f"].T
+    d_filtered = me(d_e0, p["w_o_f"].T)
     a_j = h_in @ p["w_in_j"] + p["b_in"]
     a_i = h_in @ p["w_in_i"]
     pre = a_j[:, None, :, :] + a_i[:, :, None, :]
@@ -340,9 +389,9 @@ def layer_bwd_resid(p: dict, resid: dict, h_in, xp, vp, upd, d_h_out, d_xp_out,
 
     # the cotangent rows the parameter gradients contract (JAX :678-737)
     e2 = lambda a: a.reshape(B, N * N, -1)
-    he_att = (h_e[..., :, None] * att2[..., None, :]).reshape(B, N, N, H * K)
+    he_att = (he_e[..., :, None] * att_e[..., None, :]).reshape(B, N, N, H * K)
     rows = dict(
-        de0=e2(d_e0), dhe=e2(d_h_e), dsem=e2(d_sem_pre), dxm=e2(d_xm), att2=e2(att2),
+        de0=e2(d_e0), dhe=e2(d_h_e), dsem=e2(d_sem_pre), dxm=e2(d_xm), att2=e2(att_e),
         filt=e2(rbf * pre), drbf=e2(d_rbf),
         daj=d_a_j, dai=d_a_i, doj=d_o_j, doi=d_o_i, dps0=d_ps0, dps1=d_ps1,
         dnp=d_node_pre, duv=d_uv, dg0=d_g0, dg1=d_g1,
@@ -353,23 +402,27 @@ def layer_bwd_resid(p: dict, resid: dict, h_in, xp, vp, upd, d_h_out, d_xp_out,
     )
     if want_param_grads == "rows":
         return d_h, d_xp, d_vp, rows
-    return d_h, d_xp, d_vp, layer_param_grads(p, resid, h_in, rows)
+    return d_h, d_xp, d_vp, layer_param_grads(p, resid, h_in, rows, bf16=bf16)
 
 
-def layer_param_grads(p: dict, resid: dict, h_in, rows: dict) -> dict:
+def layer_param_grads(p: dict, resid: dict, h_in, rows: dict, *, bf16=False) -> dict:
     """One layer's gradient of every ``LEAF_NAMES`` leaf, from its residuals,
     its input ``h_in`` and the cotangent rows of :func:`layer_bwd_resid`:
     row contractions ``a^T @ g`` for the weights and row sums for the
     biases and offsets (JAX ``:678-773``). The plain version of the
-    ``param_grads`` kernel."""
+    ``param_grads`` kernel. ``bf16``: the contractions of ``EDGE_MM_LEAVES``
+    round both operands to bf16 (JAX ``mm_edge_t``), from the bf16 tier's
+    rows."""
     flat = lambda a: a.reshape(-1, a.shape[-1])
     mmt = lambda a, g: flat(a).T @ flat(g)
+    mme = (lambda a, g: mmt(bf16_round(a), bf16_round(g))) if bf16 else mmt
     # row sums in f64: their terms cancel (a softmax's cotangents sum to zero
     # over its senders), and an f32 sum of the b_sem rows lost 3e-5 of the
     # result's size on an H100
     rsum = lambda g: flat(g).double().sum(dim=0, keepdim=True).to(g.dtype)
     r, t, rbf, e0, h_e = (resid[n] for n in ("r", "t", "rbf", "e0", "h_e"))
-    he_att = (h_e[..., :, None] * rows["att2"][..., None, :]).flatten(-2)
+    he_e = bf16_round(h_e) if bf16 else h_e  # JAX heE = mm_edge(h_e, e_rep)
+    he_att = (he_e[..., :, None] * rows["att2"][..., None, :]).flatten(-2)
     tm = t - p["rbf_m"]
     q = rows["drbf"] * rbf
     ddel = rows["ddel"]
@@ -378,10 +431,10 @@ def layer_param_grads(p: dict, resid: dict, h_in, rows: dict) -> dict:
         w_in_j=mmt(h_in, rows["daj"]), w_in_i=mmt(h_in, rows["dai"]), b_in=rsum(rows["daj"]),
         rbf_m=rsum(q * (2.0 * p["rbf_b"] * tm)), rbf_b=rsum(q * (-(tm * tm))),
         w_o_j=mmt(h_in, rows["doj"]), w_o_i=mmt(h_in, rows["doi"]),
-        w_o_f=mmt(rows["filt"], rows["de0"]), w_o_r=rsum(rows["de0"] * r),
-        b_o0=rsum(rows["de0"]), w_o1=mmt(_silu(e0), rows["dhe"]), b_o1=rsum(rows["dhe"]),
-        w_sem=mmt(h_e, rows["dsem"]), b_sem=rsum(rows["dsem"]),
-        w_xmix=mmt(he_att, rows["dxm"]),
+        w_o_f=mme(rows["filt"], rows["de0"]), w_o_r=rsum(rows["de0"] * r),
+        b_o0=rsum(rows["de0"]), w_o1=mme(_silu(e0), rows["dhe"]), b_o1=rsum(rows["dhe"]),
+        w_sem=mme(h_e, rows["dsem"]), b_sem=rsum(rows["dsem"]),
+        w_xmix=mme(he_att, rows["dxm"]),
         w_post0=mmt(rows["psq"], rows["dps0"]), b_post0=rsum(rows["dps0"]),
         w_post1=mmt(_silu(resid["ps0"]), rows["dps1"]), b_post1=rsum(rows["dps1"]),
         w_node_h=mmt(h_in, dnp), w_node_agg=mmt(rows["hatt"], dnp),
@@ -575,37 +628,53 @@ def _layer(d: dict, l: int) -> dict:
     return {n: a[l] for n, a in d.items()}
 
 
-def resid_fwd_plain(leaves: dict, h0, xs, v0, upd: Sequence[float], mask=None) -> FwdOut:
-    """Plain version of K1: :func:`layer_fwd_resid` over depth."""
+def _layer_f32(d: dict, l: int) -> dict:
+    """Layer ``l`` of the residual streams, as f32 (the bf16 tier's widened)."""
+    return {n: a[l].float() for n, a in d.items()}
+
+
+def stream_tier(fwd: FwdOut) -> bool:
+    """Whether ``fwd``'s residual streams are the bf16 tier's."""
+    return fwd.resid["h_e"].dtype == torch.bfloat16
+
+
+def resid_fwd_plain(leaves: dict, h0, xs, v0, upd: Sequence[float], mask=None,
+                    bf16=False) -> FwdOut:
+    """Plain version of K1: :func:`layer_fwd_resid` over depth. ``bf16``: the
+    bf16 tier, whose streams but r and t are bf16 tensors (``stream_dtype``)."""
     h, xp, vp = h0, _planes(xs), _planes(v0)
     bh, bx, bv, res = [], [], [], {n: [] for n in RESIDS}
     for l, u in enumerate(upd):
         bh.append(h)
         bx.append(_unplanes(xp))
         bv.append(_unplanes(vp))
-        h, xp, vp, r = layer_fwd_resid(layer_leaves(leaves, l), h, xp, vp, u, mask=mask)
+        h, xp, vp, r = layer_fwd_resid(layer_leaves(leaves, l), h, xp, vp, u, mask=mask,
+                                       bf16=bf16)
         for n in RESIDS:
             res[n].append(r[n])
     return FwdOut(torch.stack(bh), torch.stack(bx), torch.stack(bv), h,
                   _unplanes(xp), _unplanes(vp),
-                  {n: torch.stack(v) for n, v in res.items()})
+                  {n: torch.stack(v).to(stream_dtype(n, bf16)) for n, v in res.items()})
 
 
-def resid_infer_plain(leaves: dict, h0, xs, v0, upd: Sequence[float], mask=None):
+def resid_infer_plain(leaves: dict, h0, xs, v0, upd: Sequence[float], mask=None, bf16=False):
     """Plain version of :func:`resid_infer`: the final ``h`` and ``x``."""
     h, xp, vp = h0, _planes(xs), _planes(v0)
     for l, u in enumerate(upd):
-        h, xp, vp, _ = layer_fwd_resid(layer_leaves(leaves, l), h, xp, vp, u, mask=mask)
+        h, xp, vp, _ = layer_fwd_resid(layer_leaves(leaves, l), h, xp, vp, u, mask=mask,
+                                       bf16=bf16)
     return h, _unplanes(xp)
 
 
 def _bwd_plain(leaves, fwd, upd, dh, dx, dv, mask, want):
     dxp, dvp = _planes(dx), _planes(dv)
     per = [None] * len(upd)
+    bf16 = stream_tier(fwd)
     for l in reversed(range(len(upd))):
         out = layer_bwd_resid(
-            layer_leaves(leaves, l), _layer(fwd.resid, l), fwd.bh[l], _planes(fwd.bx[l]),
+            layer_leaves(leaves, l), _layer_f32(fwd.resid, l), fwd.bh[l], _planes(fwd.bx[l]),
             _planes(fwd.bv[l]), upd[l], dh, dxp, dvp, mask=mask, want_param_grads=want,
+            bf16=bf16,
         )
         dh, dxp, dvp = out[:3]
         per[l] = out[3:]
@@ -614,8 +683,9 @@ def _bwd_plain(leaves, fwd, upd, dh, dx, dv, mask, want):
 
 def resid_bwd_plain(leaves: dict, fwd: FwdOut, upd: Sequence[float], dh, dx, dv,
                     mask=None):
-    """Plain version of K2: :func:`layer_bwd_resid` in reverse depth.
-    Returns the cotangents of the initial ``(h, x, v)``."""
+    """Plain version of K2: :func:`layer_bwd_resid` in reverse depth (in the
+    tier of ``fwd``'s streams). Returns the cotangents of the initial ``(h, x,
+    v)``."""
     return _bwd_plain(leaves, fwd, upd, dh, dx, dv, mask, False)[:3]
 
 
@@ -630,9 +700,10 @@ def resid_bwd_rows_plain(leaves: dict, fwd: FwdOut, upd: Sequence[float], dh, dx
 def param_grads_plain(leaves: dict, fwd: FwdOut, rows: dict) -> dict:
     """Plain version of :func:`param_grads`: :func:`layer_param_grads` per
     layer, ``{name: (depth, r, c)}``."""
+    bf16 = stream_tier(fwd)
     per = [
-        layer_param_grads(layer_leaves(leaves, l), _layer(fwd.resid, l), fwd.bh[l],
-                          _layer(rows, l))
+        layer_param_grads(layer_leaves(leaves, l), _layer_f32(fwd.resid, l), fwd.bh[l],
+                          _layer(rows, l), bf16=bf16)
         for l in range(fwd.bh.shape[0])
     ]
     return {n: torch.stack([p[n] for p in per]) for n in LEAF_NAMES}
@@ -735,6 +806,20 @@ def _check_tc_leaves(name, leaves, leaves_t=None):
 def _check_all(name, tensors: dict, shapes: dict, device):
     for n, s in shapes.items():  # the name is formatted only for an error
         _check_cuda(lambda n=n: f"{name}.{n}", tensors[n], s, device)
+
+
+def _check_resid(resid: dict, dims, leaves, device, bf16: bool):
+    """The 17 residual streams, in the tier's dtypes (``stream_dtype``)."""
+    for n, s in _resid_shapes(dims, leaves).items():
+        t = resid[n]
+        if bf16 and n in RESID_LOWP:
+            if t.device != device or t.dtype != torch.bfloat16 or not t.is_contiguous():
+                raise ValueError(f"resid.{n}: needs a contiguous bfloat16 tensor on {device} in "
+                                 "the bf16 tier")
+            if t.shape != s:
+                raise ValueError(f"resid.{n}: shape {tuple(t.shape)}, kernel expects {s}")
+        else:
+            _check_cuda(f"resid.{n}", t, s, device)
 
 
 def _ptrs(tensors):
@@ -875,7 +960,7 @@ def tc_product(a, w, warps: int):
 
 
 def resid_fwd(leaves: dict, h0, xs, v0, upd: Sequence[float], mask=None, *,
-              cluster: bool = False) -> FwdOut:
+              cluster: bool = False, bf16: bool = False) -> FwdOut:
     """K1: the layer stack's forward with residuals. ``leaves`` from
     :func:`leaves.wide_stack`; ``h0 (B, N, F)``; ``xs``, ``v0 (3, B, N)``;
     ``upd``: per-layer update gates; ``mask``: ``(B, N, N, 1)`` edge mask
@@ -885,11 +970,15 @@ def resid_fwd(leaves: dict, h0, xs, v0, upd: Sequence[float], mask=None, *,
     ``cluster``: launch the cluster kernel (#4's, one molecule per
     cluster of two CTAs), counted in ``resid_fwd.cluster_launches``; at N = 29
     it took 0.33-0.64x the one-block kernel's time on an H100 at every batch
-    from 64 to 256 (``tools/probe_resid.py --phases sweep``). CPU tensors take
-    the plain version."""
+    from 64 to 256 (``tools/probe_resid.py --phases sweep``). ``bf16``: the bf16
+    tier (:func:`layer_fwd_resid`'s, streams in ``stream_dtype``) on the same
+    routes, its kernels' edge weights rounded here (:func:`edge_bf16_leaves`).
+    CPU tensors take the plain version."""
     if h0.device.type == "cpu":
-        return resid_fwd_plain(leaves, h0, xs, v0, upd, mask=mask)
-    out = _launch_fwd(leaves, h0, xs, v0, upd, mask, "cluster" if cluster else "block")
+        return resid_fwd_plain(leaves, h0, xs, v0, upd, mask=mask, bf16=bf16)
+    route = "cluster" if cluster else "block"
+    out = (_launch_fwd(leaves, h0, xs, v0, upd, mask, route, bf16=True) if bf16
+           else _launch_fwd(leaves, h0, xs, v0, upd, mask, route))
     if cluster:
         resid_fwd.cluster_launches += 1
     else:
@@ -897,42 +986,53 @@ def resid_fwd(leaves: dict, h0, xs, v0, upd: Sequence[float], mask=None, *,
     return out
 
 
-# K1's entries and carves by route
+# K1's entries and carves by route, and the route argument of its bf16 tier's
+# entry
 _FWD_ENTRIES = {"CUDA cores": ("sake_resid_fwd", "sake_resid_fwd_smem_bytes"),
                 "tensor cores": ("sake_resid_fwd_tc", "sake_resid_fwd_tc_smem_bytes"),
                 "cluster": ("sake_resid_fwd_cluster", "sake_resid_fwd_cluster_smem_bytes")}
+_FWD16_ROUTES = {"CUDA cores": 0, "tensor cores": 1, "cluster": 2}
 
 
-def _launch_fwd(leaves, h0, xs, v0, upd, mask, route="block"):
+def _launch_fwd(leaves, h0, xs, v0, upd, mask, route="block", bf16=False):
     """Checks, allocation and launch of K1 on ``route``: "block" (:func:`resid_fwd`'s
     one block a molecule, on the route the shape takes, counted under it in
     ``resid_fwd.routes``), "CUDA cores" or "tensor cores" (that one-block kernel,
     not counted; the tensor-core one refuses a shape off its route) or "cluster"
-    (its cluster kernel)."""
+    (its cluster kernel). ``bf16``: the bf16 tier's kernel of that route
+    (``sake_resid_fwd16``)."""
     lib, dims, upd_t, m = _fwd_args("resid_fwd", leaves, h0, xs, v0, upd, mask)
     B, N, F, H, R, K, C, depth = dims
     counted = route == "block"
     if counted:
         route = ROUTES[fwd_tensor_core_route(dims)]
+    if bf16:
+        leaves = edge_bf16_leaves(leaves)
     if route == "tensor cores":
         _check_tc_leaves("resid_fwd", leaves)
     entry, carve = _FWD_ENTRIES[route]
-    entry = getattr(lib, entry)
     _check_smem(lib, carve, dims, "resid_fwd")
-    empty = lambda *s: torch.empty(s, device=h0.device, dtype=torch.float32)
+    empty = lambda *s, dtype=torch.float32: torch.empty(s, device=h0.device, dtype=dtype)
     out = FwdOut(
         empty(depth, B, N, F), empty(depth, 3, B, N), empty(depth, 3, B, N),
         empty(B, N, F), empty(3, B, N), empty(3, B, N),
-        {n: empty(*s) for n, s in _resid_shapes(dims, leaves).items()},
+        {n: empty(*s, dtype=stream_dtype(n, bf16))
+         for n, s in _resid_shapes(dims, leaves).items()},
     )
-    err = entry(
+    args = (
         h0.data_ptr(), xs.data_ptr(), v0.data_ptr(), upd_t.data_ptr(), _ptr(m),
         _ptrs([leaves[n] for n in LEAF_NAMES]), _strides(leaves),
         out.bh.data_ptr(), out.bx.data_ptr(), out.bv.data_ptr(),
         out.h_fin.data_ptr(), out.x_fin.data_ptr(), out.v_fin.data_ptr(),
-        _ptrs([out.resid[n] for n in RESIDS]), *dims, _stream(h0.device),
+        _ptrs([out.resid[n] for n in RESIDS]),
     )
-    build.check(lib, err, f"resid_fwd ({route})")
+    if bf16:  # the body's f32 pooled vectors, one layer at a time
+        pool16 = empty(3, B, N, C)
+        err = lib.sake_resid_fwd16(_FWD16_ROUTES[route], *args, pool16.data_ptr(), *dims,
+                                   _stream(h0.device))
+    else:
+        err = getattr(lib, entry)(*args, *dims, _stream(h0.device))
+    build.check(lib, err, f"resid_fwd ({route}{', bf16' if bf16 else ''})")
     if counted:
         resid_fwd.routes[route] += 1
     return out
@@ -943,31 +1043,37 @@ resid_fwd.routes = dict.fromkeys(ROUTES, 0)
 resid_fwd.cluster_launches = 0
 
 
-def resid_infer(leaves: dict, h0, xs, v0, upd: Sequence[float], mask=None):
+def resid_infer(leaves: dict, h0, xs, v0, upd: Sequence[float], mask=None, *,
+                bf16: bool = False):
     """The layer stack's forward without residuals or boundary states (JAX
     ``infer_kernel`` ``:1732``): K1's source built without its streams, on
     #4's cluster route at every batch (``csrc/resid_fwd.cu``'s
     ``resid_fwd_cl_kernel<false>``: one molecule per cluster of two CTAs, the
     x-mixing and edge products in 3xTF32 up to N = 32), each launch counted in
     ``resid_infer.launches``. Returns the final ``h (B, N, F)`` and ``x (3, B,
-    N)``. CPU tensors take the plain version."""
+    N)``. ``bf16``: the bf16 tier's products (its kernel
+    ``sake_resid_infer_cluster16``). CPU tensors take the plain version."""
     if h0.device.type == "cpu":
-        return resid_infer_plain(leaves, h0, xs, v0, upd, mask=mask)
-    out = _launch_infer(leaves, h0, xs, v0, upd, mask)
+        return resid_infer_plain(leaves, h0, xs, v0, upd, mask=mask, bf16=bf16)
+    out = (_launch_infer(leaves, h0, xs, v0, upd, mask, bf16=True) if bf16
+           else _launch_infer(leaves, h0, xs, v0, upd, mask))
     resid_infer.launches += 1
     return out
 
 
-def _launch_infer(leaves, h0, xs, v0, upd, mask):
+def _launch_infer(leaves, h0, xs, v0, upd, mask, bf16=False):
     """Checks, allocation and launch of :func:`resid_infer`'s kernel. A
     refused launch raises."""
     lib, dims, upd_t, m = _fwd_args("resid_infer", leaves, h0, xs, v0, upd, mask)
+    if bf16:
+        leaves = edge_bf16_leaves(leaves)
     _check_smem(lib, "sake_resid_fwd_cluster_smem_bytes", dims, "resid_infer")
     B, N, F, H, R, K, C, depth = dims
     empty = lambda *s: torch.empty(s, device=h0.device, dtype=torch.float32)
     h_fin, x_fin = empty(B, N, F), empty(3, B, N)
     pool = empty(3, B, N, C)  # one layer's pooled vectors, reused layer after layer
-    err = lib.sake_resid_infer_cluster(
+    entry = lib.sake_resid_infer_cluster16 if bf16 else lib.sake_resid_infer_cluster
+    err = entry(
         h0.data_ptr(), xs.data_ptr(), v0.data_ptr(), upd_t.data_ptr(), _ptr(m),
         _ptrs([leaves[n] for n in LEAF_NAMES]), _strides(leaves),
         h_fin.data_ptr(), x_fin.data_ptr(), pool.data_ptr(), *dims, _stream(h0.device),
@@ -990,16 +1096,20 @@ def _bwd_launch(name, leaves, fwd, upd, dh, dx, dv, mask, leaves_t, want_rows, a
     ``resid_bwd.routes``), "CUDA cores" or "tensor cores" (K2 on that kernel,
     not counted; the tensor-core one refuses a shape off its route), or
     "cluster" for the rows kernel's cluster route (no addend). The rows
-    instantiation's one-block kernel has no tensor-core route."""
+    instantiation's one-block kernel has no tensor-core route. The tier is
+    that of ``fwd``'s streams (:func:`stream_tier`): the bf16 tier's kernels
+    (``sake_resid_bwd16``, ``sake_resid_bwd_rows_cluster16``) take the four
+    edge weights rounded here; its rows take the cluster route only."""
     _require_cuda(name, dh)
     dims = _dims(leaves, fwd.bh[0])
     B, N, F, H, R, K, C, depth = dims
     dev = dh.device
+    bf16 = stream_tier(fwd)
     _check_leaves(leaves, dims, dev)
     _check_cuda("bh", fwd.bh, (depth, B, N, F), dev)
     _check_cuda("bx", fwd.bx, (depth, 3, B, N), dev)
     _check_cuda("bv", fwd.bv, (depth, 3, B, N), dev)
-    _check_all("resid", fwd.resid, _resid_shapes(dims, leaves), dev)
+    _check_resid(fwd.resid, dims, leaves, dev, bf16)
     _check_cuda("dh", dh, (B, N, F), dev)
     _check_cuda("dx", dx, (3, B, N), dev)
     _check_cuda("dv", dv, (3, B, N), dev)
@@ -1015,12 +1125,18 @@ def _bwd_launch(name, leaves, fwd, upd, dh, dx, dv, mask, leaves_t, want_rows, a
         _check_smem(lib, "sake_resid_bwd_cluster_smem_bytes", dims, name)
     elif route in ROUTES and want_rows:
         raise ValueError(f"{name}: the rows kernel takes the block or the cluster route")
+    elif bf16 and want_rows:
+        raise NotImplementedError(
+            f"{name}: the bf16 tier's rows take the cluster route only; the one-block "
+            "rows kernel (route 'block') has no bf16 tier")
     elif route == "tensor cores":
         _check_smem(lib, "sake_resid_bwd_tc_smem_bytes", dims, name)
     else:
         _check_smem(lib, "sake_resid_bwd_smem_bytes", dims, name)
     if leaves_t is None:
         leaves_t = transposed(leaves)
+    if bf16:
+        leaves, leaves_t = edge_bf16_leaves(leaves), edge_bf16_leaves(leaves_t)
     for leaf, shape in _leaf_shapes(F, H, R, K, C).items():
         _check_cuda(f"{leaf}.T", leaves_t[leaf], (depth, *shape[::-1]), dev)
     if route == "tensor cores":
@@ -1037,22 +1153,26 @@ def _bwd_launch(name, leaves, fwd, upd, dh, dx, dv, mask, leaves_t, want_rows, a
         dh.data_ptr(), dx.data_ptr(), dv.data_ptr(),
         dh_out.data_ptr(), dx_out.data_ptr(), dv_out.data_ptr(),
     ]
-    if route == "cluster":
-        err = lib.sake_resid_bwd_rows_cluster(*args, _ptrs([rows[n] for n in ROWS]), *dims,
-                                              _stream(dev))
+    if want_rows and add is not None:
+        for n, a, s in zip(("add_h", "add_x", "add_v"), add,
+                           ((depth, B, N, F), (depth, 3, B, N), (depth, 3, B, N))):
+            _check_cuda(n, a, s, dev)
+    row_ptrs = _ptrs([rows[n] for n in ROWS]) if want_rows else None
+    adds = [_ptr(a) for a in (add or (None,) * 3)]
+    if bf16 and route == "cluster":
+        err = lib.sake_resid_bwd_rows_cluster16(*args, row_ptrs, *dims, _stream(dev))
+    elif bf16:
+        err = lib.sake_resid_bwd16(int(route == "tensor cores"), *args, *dims, _stream(dev))
+    elif route == "cluster":
+        err = lib.sake_resid_bwd_rows_cluster(*args, row_ptrs, *dims, _stream(dev))
     elif want_rows:
-        if add is not None:
-            for n, a, s in zip(("add_h", "add_x", "add_v"), add,
-                               ((depth, B, N, F), (depth, 3, B, N), (depth, 3, B, N))):
-                _check_cuda(n, a, s, dev)
-        err = lib.sake_resid_bwd_rows(*args, _ptrs([rows[n] for n in ROWS]),
-                                      *(_ptr(a) for a in (add or (None,) * 3)), *dims,
-                                      _stream(dev))
+        err = lib.sake_resid_bwd_rows(*args, row_ptrs, *adds, *dims, _stream(dev))
     elif route == "tensor cores":
         err = lib.sake_resid_bwd_tc(*args, *dims, _stream(dev))
     else:
         err = lib.sake_resid_bwd(*args, *dims, _stream(dev))
-    build.check(lib, err, name if route == "block" else f"{name} ({route})")
+    tier = ", bf16" if bf16 else ""
+    build.check(lib, err, f"{name}{tier}" if route == "block" else f"{name} ({route}{tier})")
     if counted:
         resid_bwd.routes[route] += 1
     return dh_out, dx_out, dv_out, rows
@@ -1066,7 +1186,8 @@ def resid_bwd(leaves: dict, fwd: FwdOut, upd: Sequence[float], dh, dx, dv, mask=
     (:func:`bwd_tensor_core_route`), each launch counted in
     ``resid_bwd.launches`` and under its route in ``resid_bwd.routes``. CPU
     tensors take the plain version. ``leaves_t``: ``leaves.transposed(leaves)``,
-    built here when not given; pass it to build it once for several launches."""
+    built here when not given; pass it to build it once for several launches.
+    The tier is that of ``fwd``'s streams."""
     if dh.device.type == "cpu":
         return resid_bwd_plain(leaves, fwd, upd, dh, dx, dv, mask=mask)
     out = _bwd_launch("resid_bwd", leaves, fwd, upd, dh, dx, dv, mask, leaves_t, False)
@@ -1086,8 +1207,9 @@ def resid_bwd_rows(leaves: dict, fwd: FwdOut, upd: Sequence[float], dh, dx, dv, 
     ``(dh, dx, dv, rows)``. ``cluster``: launch the cluster kernel (#5's rows
     kernel, one molecule per cluster of two CTAs), counted in
     ``resid_bwd_rows.cluster_launches``; at N = 29 it took 0.39-0.76x the
-    one-block kernel's time on an H100 at every batch from 64 to 256. CPU
-    tensors take the plain version."""
+    one-block kernel's time on an H100 at every batch from 64 to 256. On bf16
+    streams (the bf16 tier) only the cluster kernel has the tier: the one-block
+    route raises ``NotImplementedError``. CPU tensors take the plain version."""
     if dh.device.type == "cpu":
         return resid_bwd_rows_plain(leaves, fwd, upd, dh, dx, dv, mask=mask)
     out = _bwd_launch("resid_bwd_rows", leaves, fwd, upd, dh, dx, dv, mask, leaves_t, True,
@@ -1109,7 +1231,9 @@ def param_grads(leaves: dict, fwd: FwdOut, rows: dict) -> dict:
     the rows of :func:`resid_bwd_rows`: the parameter-gradient half of the
     JAX training ``bwd_kernel`` (``:1598``), its wide leaves on the f64
     tensor cores and its narrow ones in f64 on the CUDA cores
-    (``csrc/param_grads.cu``). CPU tensors take the plain version."""
+    (``csrc/param_grads.cu``). In the tier of ``fwd``'s streams: the bf16
+    tier's kernel (``sake_param_grads16``) rounds both operands of the four
+    edge leaves' contractions. CPU tensors take the plain version."""
     if fwd.bh.device.type == "cpu":
         return param_grads_plain(leaves, fwd, rows)
     out = _launch_param_grads(leaves, fwd, rows)
@@ -1124,17 +1248,18 @@ def _launch_param_grads(leaves: dict, fwd: FwdOut, rows: dict) -> dict:
     dev = fwd.bh.device
     _check_leaves(leaves, dims, dev)
     _check_cuda("bh", fwd.bh, (depth, B, N, F), dev)
-    _check_all("resid", fwd.resid, _resid_shapes(dims, leaves), dev)
+    bf16 = stream_tier(fwd)
+    _check_resid(fwd.resid, dims, leaves, dev, bf16)
     _check_all("rows", rows, _row_shapes(dims, leaves), dev)
     shapes = _leaf_shapes(F, H, R, K, C)
     n_chunks, partial, out, sizes = _grad_scratch(dims, dev)
     lib = build.load()
-    err = lib.sake_param_grads(
+    err = (lib.sake_param_grads16 if bf16 else lib.sake_param_grads)(
         fwd.bh.data_ptr(), _ptrs([leaves[n] for n in LEAF_NAMES]), _strides(leaves),
         _ptrs([fwd.resid[n] for n in RESIDS]), _ptrs([rows[n] for n in ROWS]),
         partial.data_ptr(), out.data_ptr(), n_chunks, *dims, _stream(dev),
     )
-    build.check(lib, err, "param_grads")
+    build.check(lib, err, "param_grads (bf16)" if bf16 else "param_grads")
     return {n: a.view(depth, *shapes[n]) for n, a in zip(LEAF_NAMES, out.split(sizes))}
 
 
@@ -1192,15 +1317,21 @@ def resid_energy_forces(
     the readout seed and K2. ``chunk`` bounds how many molecules' residuals
     are alive at once (f32: about 5.3 MB per aspirin molecule at depth 6).
 
-    The JAX keywords, under the policy of ``make_ef_train2``: the bf16 tier
-    (``matmul_dtype``, ``edge_matmul_dtype``, ``pool_dtype``,
-    ``pool_matmul_dtype``, ``resid_dtype`` other than f32, ``resid_lowp``)
-    and the TPU-only ``spatial_mode`` raise; accepted with no counterpart are
-    ``batch_tile``, ``pad_atoms`` and ``batch_parallel`` (one molecule per
-    block, N as it comes), the precisions (every product is f32) and
-    ``interpret`` (CPU tensors take the plain versions)."""
-    _f32_only("resid_energy_forces", matmul_dtype, edge_matmul_dtype, resid_dtype, resid_lowp,
-              pool_dtype, pool_matmul_dtype)
+    The JAX keywords: ``edge_matmul_dtype`` and ``resid_dtype`` both bf16
+    (with ``resid_lowp`` None or the default set, ``RESID_LOWP``) run the bf16
+    tier, the JAX package's production setting (:func:`layer_fwd_resid`'s
+    ``bf16``; its streams bf16, r and t excepted); f32 (or None) runs the f32
+    tier. Every other combination raises (``_bf16_edge_tier``): bf16 node
+    products (``matmul_dtype``), ``pool_dtype``, ``pool_matmul_dtype``, another
+    ``resid_lowp``, one of the two without the other, and the TPU-only
+    ``spatial_mode``. Accepted with no counterpart are ``batch_tile``,
+    ``pad_atoms`` and ``batch_parallel`` (one molecule per block, N as it
+    comes), the precisions (every f32 product is f32) and ``interpret`` (CPU
+    tensors take the plain versions)."""
+    bf16 = _bf16_edge_tier("resid_energy_forces", matmul_dtype=matmul_dtype,
+                           edge_matmul_dtype=edge_matmul_dtype, resid_dtype=resid_dtype,
+                           resid_lowp=resid_lowp, lowp=RESID_LOWP, pool_dtype=pool_dtype,
+                           pool_matmul_dtype=pool_matmul_dtype)
     if spatial_mode is not None:
         raise NotImplementedError("resid_energy_forces: spatial_mode is a TPU-only probe")
     B = h.shape[0]
@@ -1216,7 +1347,7 @@ def resid_energy_forces(
         xs = x[sl].permute(2, 0, 1).float().contiguous()
         zeros = torch.zeros_like(xs)
         m4 = mask[sl][..., None] if mask is not None else None
-        fwd = resid_fwd(leaves, h0[sl].contiguous(), xs, zeros, upd, mask=m4)
+        fwd = resid_fwd(leaves, h0[sl].contiguous(), xs, zeros, upd, mask=m4, bf16=bf16)
         e, dh_fin = _readout_seed(
             params, fwd.h_fin, node_mask[sl] if node_mask is not None else None
         )
@@ -1263,16 +1394,20 @@ def make_hidden_fn(*, n_heads: int = 4, update: Sequence[bool] | bool = True,
     none. Otherwise (the JAX primal-outside-autodiff rule, ``:1819-1821``)
     it runs :func:`resid_infer`, which writes no residuals.
 
-    Not ported yet, and raising when asked for: ``want_x`` (the forecast
-    shape with a position output) and the bf16 tier (``matmul_dtype``,
-    ``edge_matmul_dtype``, ``resid_dtype`` other than f32, ``resid_lowp``).
-    Accepted with no counterpart: ``batch_tile`` and ``pad_atoms`` (one
-    molecule per block, N as it comes), the precisions (every product is
-    f32) and ``interpret`` (CPU tensors take the plain versions).
+    ``edge_matmul_dtype`` and ``resid_dtype`` both bf16 (``resid_lowp`` None or
+    ``RESID_LOWP``) run every kernel in the bf16 tier, as JAX's ``qm9_kernel``
+    trains (:func:`resid_energy_forces` says which combinations raise). Not
+    ported yet, and raising when asked for: ``want_x`` (the forecast shape with
+    a position output). Accepted with no counterpart: ``batch_tile`` and
+    ``pad_atoms`` (one molecule per block, N as it comes), the precisions
+    (every f32 product is f32) and ``interpret`` (CPU tensors take the plain
+    versions).
     """
     if want_x:
         raise NotImplementedError("make_hidden_fn: want_x is not ported yet")
-    _f32_only("make_hidden_fn", matmul_dtype, edge_matmul_dtype, resid_dtype, resid_lowp)
+    bf16 = _bf16_edge_tier("make_hidden_fn", matmul_dtype=matmul_dtype,
+                           edge_matmul_dtype=edge_matmul_dtype, resid_dtype=resid_dtype,
+                           resid_lowp=resid_lowp, lowp=RESID_LOWP)
 
     def prep(params, h, x, mask):
         upd = [1.0 if u else 0.0 for u in per_layer(update, len(params.layers))]
@@ -1287,7 +1422,8 @@ def make_hidden_fn(*, n_heads: int = 4, update: Sequence[bool] | bool = True,
         def forward(ctx, mask, h, x, *flat):
             params = _unflat_params(flat, (len(flat) - 6) // _LAYER_TENSORS)
             leaves, upd, h0, xs, m4 = prep(params, h, x, mask)
-            fwd = resid_fwd(leaves, h0, xs, torch.zeros_like(xs), upd, mask=m4, cluster=True)
+            fwd = resid_fwd(leaves, h0, xs, torch.zeros_like(xs), upd, mask=m4, cluster=True,
+                            bf16=bf16)
             # h_fin is this function's output: keep the rest, not a cycle through it
             ctx.fwd, ctx.leaves, ctx.upd, ctx.m4 = fwd._replace(h_fin=None), leaves, upd, m4
             ctx.readout = flat[-4:]
@@ -1317,7 +1453,7 @@ def make_hidden_fn(*, n_heads: int = 4, update: Sequence[bool] | bool = True,
             return Hidden.apply(mask, h, x, *flat)
         with torch.no_grad():
             leaves, upd, h0, xs, m4 = prep(params, h, x, mask)
-            return resid_infer(leaves, h0, xs, torch.zeros_like(xs), upd, mask=m4)[0]
+            return resid_infer(leaves, h0, xs, torch.zeros_like(xs), upd, mask=m4, bf16=bf16)[0]
 
     return hidden
 

@@ -70,6 +70,12 @@ everywhere, the tensor-core kernels where the shape takes them (K1 at hidden 64 
 to N = 21, where two blocks fit an SM; K2 up to N = 22; a launch off that route
 must be refused), then K1's and K2's tensor-core products alone
 (``sake_resid_tc_product``) against float64.
+``--bf16`` runs ``--serving`` and ``--qm9`` in resid_ef's bf16 tier (bf16 edge
+products and residual streams: the kernels' kE16 instantiations, through the
+wrappers' ``bf16`` and the tier's streams) against the plain bf16 versions, and
+with ``--qm9`` also the contraction (``csrc/param_grads.cu``'s
+``sake_param_grads16``) against ``param_grads_plain``; each line also prints the
+plain bf16 version's distance from the plain f32 one.
 With ``--split`` it runs the split forwards #25 (the edge_att and coeff_pool ops)
 and #27 (the merged op) of ``csrc/split_fwd.cu`` through ``split_ef._launch_fwd``
 against the plain bodies (``tools/probe_split.check_forwards``: twice bit for
@@ -399,9 +405,11 @@ def check_train(hid: int, depth: int, B: int, N: int, seed: int = 0):
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
-def check_qm9(hid: int, depth: int, B: int, N: int, masked: bool, seed: int = 0):
-    """#4's, #6's and #5's cluster kernels against their plain versions; returns
-    the worst relative error."""
+def check_qm9(hid: int, depth: int, B: int, N: int, masked: bool, seed: int = 0,
+              bf16: bool = False):
+    """#4's, #6's and #5's cluster kernels against their plain versions (in the
+    bf16 tier with ``bf16``, then also the contraction); returns the worst
+    relative error."""
     from sake_tpu_torch.kernels import resid_ef
     from sake_tpu_torch.kernels.functional import embed
     from sake_tpu_torch.kernels.leaves import wide_stack
@@ -426,26 +434,27 @@ def check_qm9(hid: int, depth: int, B: int, N: int, masked: bool, seed: int = 0)
     zs = torch.zeros_like(xs)
     worst = 0.0
     t0 = time.perf_counter()
-    kf = resid_ef._launch_fwd(leaves, h0, xs, zs, upd, m4, "cluster")
-    pf = resid_ef.resid_fwd_plain(leaves, h0, xs, zs, upd, mask=m4)
+    kf = resid_ef._launch_fwd(leaves, h0, xs, zs, upd, m4, "cluster", bf16=bf16)
+    pf = resid_ef.resid_fwd_plain(leaves, h0, xs, zs, upd, mask=m4, bf16=bf16)
+    tier = " bf16" if bf16 else ""
     names = ("bh", "bx", "bv", "h_fin", "x_fin", "v_fin")
     errs = {**{n: _rel(a, b) for n, a, b in zip(names, kf[:6], pf[:6])},
             **{n: _rel(kf.resid[n], pf.resid[n]) for n in resid_ef.RESIDS}}
     w = max(errs, key=errs.get)
     worst = max(worst, errs[w])
     ranges = [resid_ef.cluster_rows(N, r) for r in range(resid_ef.CLUSTER_SIZE)]
-    print(f"#4 resid_fwd cluster hidden {hid} depth {depth} B {B} N {N} rows {ranges} "
+    print(f"#4{tier} resid_fwd cluster hidden {hid} depth {depth} B {B} N {N} rows {ranges} "
           f"{'masked' if masked else 'unmasked'}: max rel err {errs[w]:.3e} ({w}), finite "
           f"{all(bool(torch.isfinite(t).all()) for t in kf[:6])} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
-    k6 = resid_ef._launch_infer(leaves, h0, xs, zs, upd, m4)
-    p6 = resid_ef.resid_infer_plain(leaves, h0, xs, zs, upd, mask=m4)
+    k6 = resid_ef._launch_infer(leaves, h0, xs, zs, upd, m4, bf16=bf16)
+    p6 = resid_ef.resid_infer_plain(leaves, h0, xs, zs, upd, mask=m4, bf16=bf16)
     errs = {n: _rel(a, b) for n, a, b in zip(("h_fin", "x_fin"), k6, p6)}
     w = max(errs, key=errs.get)
     worst = max(worst, errs[w])
     same = all(torch.equal(a, b) for a, b in zip(k6, (kf.h_fin, kf.x_fin)))
-    print(f"#6 resid_infer cluster hidden {hid} depth {depth} B {B} N {N} "
+    print(f"#6{tier} resid_infer cluster hidden {hid} depth {depth} B {B} N {N} "
           f"{'masked' if masked else 'unmasked'}: max rel err {errs[w]:.3e} ({w}), finite "
           f"{all(bool(torch.isfinite(t).all()) for t in k6)}, bitwise #4's h_fin and x_fin "
           f"{same} ({time.perf_counter() - t0:.1f} s)", flush=True)
@@ -457,10 +466,24 @@ def check_qm9(hid: int, depth: int, B: int, N: int, masked: bool, seed: int = 0)
             **{n: _rel(kb[3][n], pb[3][n]) for n in resid_ef.ROWS}}
     w = max(errs, key=errs.get)
     worst = max(worst, errs[w])
-    print(f"#5 resid_bwd_rows cluster hidden {hid} depth {depth} B {B} N {N} "
+    print(f"#5{tier} resid_bwd_rows cluster hidden {hid} depth {depth} B {B} N {N} "
           f"{'masked' if masked else 'unmasked'}: max rel err {errs[w]:.3e} ({w}), finite "
           f"{all(bool(torch.isfinite(t).all()) for t in kb[:3])} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    if bf16:  # the contraction on the kernel's rows, and the tier's own distance
+        t0 = time.perf_counter()
+        kg = resid_ef._launch_param_grads(leaves, pf, kb[3])
+        pg = resid_ef.param_grads_plain(leaves, pf, kb[3])
+        errs = {n: _rel(kg[n], pg[n]) for n in pg}
+        w = max(errs, key=errs.get)
+        worst = max(worst, errs[w])
+        p32 = resid_ef.resid_fwd_plain(leaves, h0, xs, zs, upd, mask=m4)
+        pb32 = resid_ef.resid_bwd_rows_plain(leaves, p32, upd, dh, dx, dv, mask=m4)
+        g32 = resid_ef.param_grads_plain(leaves, p32, pb32[3])
+        tier_d = max(_rel(pg[n], g32[n]) for n in pg)
+        print(f"#5 bf16 param_grads hidden {hid} depth {depth} B {B} N {N} "
+              f"{'masked' if masked else 'unmasked'}: max rel err {errs[w]:.3e} ({w}); plain "
+              f"bf16 from plain f32 {tier_d:.3e} ({time.perf_counter() - t0:.1f} s)", flush=True)
     return worst
 
 
@@ -538,9 +561,10 @@ def check_remat(hid: int, depth: int, B: int, N: int, seed: int = 0):
     return worst
 
 
-def check_serving(hid: int, depth: int, B: int, N: int, masked: bool, seed: int = 0):
-    """K1 and K2 on both one-block routes against their plain versions; returns
-    the worst relative error."""
+def check_serving(hid: int, depth: int, B: int, N: int, masked: bool, seed: int = 0,
+                  bf16: bool = False):
+    """K1 and K2 on both one-block routes against their plain versions (in the
+    bf16 tier with ``bf16``); returns the worst relative error."""
     from sake_tpu_torch.kernels import resid_ef
     from sake_tpu_torch.kernels.functional import embed
     from sake_tpu_torch.kernels.leaves import transposed, wide_stack
@@ -563,9 +587,15 @@ def check_serving(hid: int, depth: int, B: int, N: int, masked: bool, seed: int 
     leaves = wide_stack(p, 4)
     leaves_t = transposed(leaves)
     dims = resid_ef._dims(leaves, h0)
-    label = f"hidden {hid} depth {depth} B {B} N {N} {'masked' if masked else 'unmasked'}"
-    pf = resid_ef.resid_fwd_plain(leaves, h0, xs, v0, upd, mask=m4)
+    label = (f"{'bf16 ' if bf16 else ''}hidden {hid} depth {depth} B {B} N {N} "
+             f"{'masked' if masked else 'unmasked'}")
+    pf = resid_ef.resid_fwd_plain(leaves, h0, xs, v0, upd, mask=m4, bf16=bf16)
     pb = resid_ef.resid_bwd_plain(leaves, pf, upd, dh, dx, dv, mask=m4)
+    if bf16:
+        p32 = resid_ef.resid_fwd_plain(leaves, h0, xs, v0, upd, mask=m4)
+        pb32 = resid_ef.resid_bwd_plain(leaves, p32, upd, dh, dx, dv, mask=m4)
+        print(f"plain bf16 from plain f32, {label}: K1 h_fin {_rel(pf.h_fin, p32.h_fin):.3e}, "
+              f"K2 dx {_rel(pb[1], pb32[1]):.3e}, dh {_rel(pb[0], pb32[0]):.3e}", flush=True)
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     import probe_resid  # K1's pairs (tools/probe_resid.py)
 
@@ -577,7 +607,7 @@ def check_serving(hid: int, depth: int, B: int, N: int, masked: bool, seed: int 
             if route == "tensor cores" and not takes[kern]:
                 try:  # off the route: refused, no other kernel tried
                     if kern == "K1":
-                        resid_ef._launch_fwd(leaves, h0, xs, v0, upd, m4, route)
+                        resid_ef._launch_fwd(leaves, h0, xs, v0, upd, m4, route, bf16=bf16)
                     else:
                         resid_ef._bwd_launch("resid_bwd", leaves, pf, upd, dh, dx, dv, m4,
                                              leaves_t, False, route=route)
@@ -587,7 +617,7 @@ def check_serving(hid: int, depth: int, B: int, N: int, masked: bool, seed: int 
                 raise RuntimeError(f"{kern} {label}: the tensor-core kernel took a shape off "
                                    "its route")
             if kern == "K1":
-                kf = resid_ef._launch_fwd(leaves, h0, xs, v0, upd, m4, route)
+                kf = resid_ef._launch_fwd(leaves, h0, xs, v0, upd, m4, route, bf16=bf16)
                 pairs = probe_resid.k1_pairs(kf, pf, m4)
             else:
                 kb = resid_ef._bwd_launch("resid_bwd", leaves, pf, upd, dh, dx, dv, m4,
@@ -596,6 +626,12 @@ def check_serving(hid: int, depth: int, B: int, N: int, masked: bool, seed: int 
             errs = {n: _rel(a, b) for n, a, b in pairs}
             w = max(errs, key=errs.get)
             worst = max(worst, errs[w])
+            if bf16 and kern == "K1":  # the f32 outputs apart from the bf16 streams
+                f32 = {n: e for n, e in errs.items() if n in ("bh", "bx", "bv", "h_fin", "x_fin",
+                                                              "v_fin", "r", "t")}
+                w32 = max(f32, key=f32.get)
+                print(f"{kern} {label} on the {route}: f32 outputs max rel err {f32[w32]:.3e} "
+                      f"({w32})", flush=True)
             print(f"{kern} {label} on the {route}: max rel err {errs[w]:.3e} ({w}), finite "
                   f"{all(bool(torch.isfinite(a).all()) for _, a, _ in pairs)} "
                   f"({time.perf_counter() - t0:.1f} s)", flush=True)
@@ -692,6 +728,8 @@ def main():
                          "csrc/resid_bwd_cl.cu)")
     ap.add_argument("--remat", action="store_true",
                     help="#21-#24 (csrc/remat_ef.cu's forward and remat pullback) in place of #20")
+    ap.add_argument("--bf16", action="store_true",
+                    help="--serving, --qm9: resid_ef's bf16 tier")
     ap.add_argument("--serving", action="store_true",
                     help="K1 and K2 on both routes (csrc/resid_fwd.cu, csrc/resid_bwd.cu)")
     ap.add_argument("--split", action="store_true",
@@ -759,9 +797,13 @@ def main():
                           for src, names in (
                               ("resid_fwd.cu", ["sake_resid_fwd_cluster",
                                                 "sake_resid_infer_cluster",
-                                                "sake_resid_fwd_cluster_smem_bytes"]),
+                                                "sake_resid_fwd_cluster_smem_bytes",
+                                                "sake_resid_fwd16",
+                                                "sake_resid_infer_cluster16"]),
                               ("resid_bwd_cl.cu", ["sake_resid_bwd_rows_cluster",
-                                                   "sake_resid_bwd_cluster_smem_bytes"]))))
+                                                   "sake_resid_bwd_cluster_smem_bytes",
+                                                   "sake_resid_bwd_rows_cluster16"]),
+                              ("param_grads.cu", ["sake_param_grads16"]))))
             build.load = lambda: libs
             resid_ef._require_cuda = lambda name, t: None
             resid_ef._stream = lambda dev: None
@@ -769,7 +811,8 @@ def main():
             for hid in args.hidden:
                 for N in args.atoms:
                     for masked in (True, False):
-                        worst = max(worst, check_qm9(hid, args.depth, args.batch[0], N, masked))
+                        worst = max(worst, check_qm9(hid, args.depth, args.batch[0], N, masked,
+                                                     bf16=args.bf16))
         print(f"worst {worst:.3e}", flush=True)
         return
     if args.remat:
@@ -824,8 +867,9 @@ def main():
                 for N in args.atoms:
                     for masked in (False, True):
                         worst = max(worst, check_serving(hid, args.depth, args.batch[0], N,
-                                                         masked))
-            worst = max(worst, check_serving_products(libs))
+                                                         masked, bf16=args.bf16))
+            if not args.bf16:
+                worst = max(worst, check_serving_products(libs))
         print(f"worst {worst:.3e}", flush=True)
         return
     if args.train:

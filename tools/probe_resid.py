@@ -272,8 +272,9 @@ def k1_pairs(k, p, mask) -> list:
     N = mask.shape[1]
     live = (mask.reshape(B, N, N).sum(-1) > 0).to(att_k.dtype)  # (B, N) receivers
     rows = live[:, :, None].expand(B, N, N).reshape(1, B, NN, 1)
-    sem = k.resid["sem_pre"].reshape(depth, B, N, N, K)
-    ref = torch.stack([resid_ef.raw_attention(sem[l], mask=mask) for l in range(depth)])
+    sem = k.resid["sem_pre"].float().reshape(depth, B, N, N, K)  # bf16 in the bf16 tier
+    ref = torch.stack([resid_ef.raw_attention(sem[l], mask=mask)
+                       for l in range(depth)]).to(att_k.dtype)
     return pairs + [("att (rows with a live sender)", att_k * rows, att_p * rows),
                     ("att (rows with none, from its own sem_pre)", att_k * (1 - rows),
                      ref.reshape(att_k.shape) * (1 - rows))]

@@ -3,6 +3,7 @@ routes, at MD17 aspirin's shapes on one NVIDIA GPU.
 
     python3 tools/probe_split.py
     python3 tools/probe_split.py --check     # the forwards and pullbacks against plain alone
+    python3 tools/probe_split.py --d-b-sem   # #28's d_b_sem against float64 (d_b_sem)
 
 Builds ``csrc/split_fwd.cu`` and ``csrc/split_bwd.cu`` four ways at once: plain,
 with ``-DSAKE_PROBE`` (``csrc/probe.cuh``), and both again with
@@ -357,6 +358,36 @@ def check_on_card(dev) -> bool:
     return ok
 
 
+def d_b_sem(dev, B: int = 300, seed: int = 21) -> dict:
+    """#28's d_b_sem (the merged pullback with weight cotangents) and the plain
+    f32 version's (``split_ef.vjp_plain``) against the plain version in float64,
+    at chip_smoke.py phase 21's input: layer 0 of :func:`aspirin_model` at its
+    first B of 2048 molecules, the cotangents of seed ``seed``
+    (:func:`cotangents`). d_b_sem sums d_sem over every edge, and that sum
+    cancels, so it is the one pullback output near its gate there. Returns
+    ``{"kernel": e, "plain_f32": e, "kernel_vs_plain_f32": e}``, max relative
+    errors, and prints them."""
+    import torch
+
+    from sake_tpu_torch.kernels import split_ef as se
+
+    params, h, x = aspirin_model(dev)
+    args = layer0_args(params, h[:B], x[:B], 4)
+    a, cots = args["merged"], cotangents(args, seed)["merged"]
+    i = se.WEIGHTS["merged"].index("b_sem")
+    kw = se.BWD["merged"](a, cots, True)[1][i]
+    pw = se.vjp_plain("merged", a, cots, True)[1][i]
+    ref = se.vjp_plain("merged", [t.double() for t in a], [c.double() for c in cots], True)[1][i]
+    torch.cuda.synchronize()
+    out = {"kernel": _rel(kw.double(), ref), "plain_f32": _rel(pw.double(), ref),
+           "kernel_vs_plain_f32": _rel(kw, pw)}
+    print(f"PROBE_SPLIT D_B_SEM #28 (merged pullback, B={B}, N={a[0].shape[1]}) against its "
+          f"plain version in float64: kernel {out['kernel']:.3e}, plain f32 "
+          f"{out['plain_f32']:.3e}; kernel against plain f32 {out['kernel_vs_plain_f32']:.3e}",
+          flush=True)
+    return out
+
+
 def main() -> int:
     import argparse
 
@@ -365,6 +396,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--check", action="store_true",
                     help="check_on_card only (no probe): the forwards and pullbacks against plain")
+    ap.add_argument("--d-b-sem", action="store_true",
+                    help="d_b_sem only (no probe): #28's d_b_sem against float64")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     if not torch.cuda.is_available():
@@ -375,6 +408,9 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     if args.check:
         return 0 if check_on_card(dev) else 1
+    if args.d_b_sem:
+        d_b_sem(dev)
+        return 0
     ok = check_on_card(dev)
     probe(dev)
     return 0 if ok else 1
