@@ -310,6 +310,33 @@ Phases (each prints its own lines; any failure exits non-zero):
    pullbacks and weight contractions) at the 989 TFLOP/s dense bf16 peak in
    one pass, the rest at 67 TFLOP/s, and the bf16 streams at 2 bytes an
    element.
+26. ``make_ef_train2``'s fused mode in that tier (MD17 training: #11
+   ``csrc/fused_ef16.cu``, #12's block ``csrc/fused_bwd16.cu`` and #12's contraction
+   ``sake_param_grads_aug16``) on ``MD17Config``'s model (aspirin, hidden 64,
+   depth 6, 4 heads, seed-0 weights) at B = 4 and 512: #11 against the plain bf16
+   primal (F within max(2e-3, 2 x the plain bf16 primal's f_err from the plain f32
+   one), ``bench.py:164``; boundaries, final state, r, t and the E plane no farther
+   from plain bf16, in the root-mean-square norm, than plain bf16 lies from f32,
+   floor ``TRAIN_TOL``, and no element beyond ``BF16_STREAM_TOL`` of the tensor's
+   max (``gate_widened``: a flipped rounding moves a few elements by about the
+   tier's own rounding, so their maximum can exceed the tier's distance); the bf16
+   streams within ``BF16_STREAM_TOL``); #12's block on the plain bf16 primal's
+   streams against the plain bf16 block (dh0, dx0, the readout partials, the
+   tangent streams and every row, each as ``gate_widened`` against the f32 tier on
+   the same streams, the share of moved elements printed); the contraction on the
+   block's streams and rows against plain with f64 sums within
+   ``BF16_CONTRACT_TOL``, the four edge leaves within ``BF16_FLIP_SHARE`` of the
+   tier's own distance there where that is larger; each twice bit for bit. Then
+   one step of the tier's fused branch (``tasks/md17.make_branch``'s colouring and
+   parameters) against its plain bf16 path (#11 and #12 swapped for their plain
+   versions), loss and every leaf within ``STEP16_SHARE`` times plain bf16's
+   distance from the f32 fused branch in the root-mean-square norm (a flip
+   cascades through depth 6; that distance and the kernel's own printed);
+   a training run of ``TRAIN16_STEPS`` steps at B = 4 with the task's optimizer
+   (launches counted from 0: only the three tier kernels, a falling loss); each
+   kernel and the fused step timed in both tiers in turns (means and spreads),
+   the step's peak device memory, the plain bf16 times and the bounds (as phase
+   25's).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -375,6 +402,27 @@ BF16_TOL = 1e-3
 BF16_GRAD_TOL = 1e-2
 BF16_STREAM_TOL = 2.0**-7
 BF16_CONTRACT_TOL = 1e-6
+# phase 26: an edge leaf's augmented contraction in the tier, as a share of the tier's
+# own distance there (plain bf16 from f32 products on the same rows). The kernel forms
+# the tangent of silu(e0) (w_o1's operand) as silu'(e0) t_e0, torch's jvp in another
+# float order, so a few of that operand's bf16 roundings flip: each moves one term by
+# a bf16 step, where every term of the tier's distance carries its operands'
+# roundings; a skipped or misplaced rounding would show at a share near 1
+BF16_FLIP_SHARE = 0.1
+# phase 26: #11's and #12's block outputs against plain bf16, in the norm, as a share of
+# plain bf16's distance from the f32 tier on the same inputs. Sound kernels read 0.04 to
+# 0.27 (an H100); a kernel that skipped the tier's roundings would read about 1. Below
+# 0.5 the kernel also lies at least half the tier's distance from f32 (the triangle
+# inequality), so the gate holds from both sides
+TIER16_SHARE = 0.5
+# phase 26: step 1 of the tier's fused branch against its plain bf16 path, in the norm,
+# as a share of plain bf16's distance from the f32 branch (see train16_phases); and the
+# median over the tensors of the kernel step's distance from the f32 branch, as a share
+# of plain bf16's, at least STEP16_FAR_MIN (a step that ran f32 reads about 0)
+STEP16_SHARE = 2.0
+STEP16_FAR_MIN = 0.5
+TRAIN16_STEPS = 250  # phase 26's training run in the tier: one epoch of MD17Config's 1000 at B = 4
+TRAIN16_ROUNDS = 3  # phase 26's timing rounds, each f32, bf16, bf16, f32
 # #20 bf16 against plain bf16 on the narrow models, relative per output (the CPU
 # test's limit; plain bf16 lies about 2e-3 to 1e-2 from plain f32 there)
 FUSED_NARROW_BF16_TOL = 1e-3
@@ -484,6 +532,17 @@ def nbytes(*trees) -> int:
         elif isinstance(t, (list, tuple)):
             total += nbytes(*t)
     return total
+
+
+# The residual streams the weight-gradient contraction reads (csrc/param_grads.cu's
+# load_a and its staged operands): it never reads sem_pre, att, coeff or g1
+GRADS_STREAMS = ("r", "t", "rbf", "e0", "h_e", "ps0", "ps1", "node_pre", "pool0", "pool1",
+                 "pool2", "uv", "g0")
+
+
+def grads_streams(resid: dict) -> dict:
+    """The streams of ``resid`` that the contraction reads (``GRADS_STREAMS``)."""
+    return {n: resid[n] for n in GRADS_STREAMS}
 
 
 def layer_fma(N, F, H, R, K, C):
@@ -723,6 +782,7 @@ def main() -> int:
     kernels += split_phases(dev, smi)
     kernels += fused_phases(dev, smi)
     kernels += bf16_phases(dev, smi)
+    kernels += train16_phases(dev, smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -1353,7 +1413,7 @@ def qm9_phases(dev, smi) -> list:
                      *t["resid_bwd_rows"], fma["bwd"], moved_rows, tc=tcf["bwd"]),
         kernel_entry("param_grads", src + "param_grads.cu", at + "1598",
                      qm9_launches["param_grads"], abs_qm9["param_grads"], *t["param_grads"],
-                     fma["grads"], nbytes(leaves, p4.bh, p4.resid, rows, grads)),
+                     fma["grads"], nbytes(leaves, p4.bh, grads_streams(p4.resid), rows, grads)),
     ]
 
 
@@ -1735,8 +1795,8 @@ def md17_train_phases(dev, smi) -> list:
                                   tfwd.bx, tfwd.bv, tfwd.resid, dth_s, tb),
                 resid_bwd_aug=nbytes(leaves, leaves_t, fwd.bh, fwd.bx, fwd.bv, fwd.resid, dh_s,
                                      tb[3], ba),
-                param_grads_aug=nbytes(leaves, fwd.bh, tfwd.bh, fwd.resid, tfwd.resid, ba[3],
-                                       tb[4], tb[5], grads),
+                param_grads_aug=nbytes(leaves, fwd.bh, tfwd.bh, grads_streams(fwd.resid),
+                                       grads_streams(tfwd.resid), ba[3], tb[4], tb[5], grads),
             )
             del fwd, tfwd, tb, ba, grads
         zero_grads = [torch.zeros_like(p) for p in tree_leaves(prm)]
@@ -1780,8 +1840,8 @@ def md17_train_phases(dev, smi) -> list:
             moved.update(
                 fused_primal=nbytes(leaves, leaves_t, h0, xs, fwd, e_k, dx_k),
                 fused_bwd_block=nbytes(leaves, leaves_t, fwd, tx0, g_e, blk),
-                fused_bwd_grads=nbytes(leaves, fwd.bh, blk[2].bh, fwd.resid, blk[2].resid,
-                                       blk[3:], grads, ro),
+                fused_bwd_grads=nbytes(leaves, fwd.bh, blk[2].bh, grads_streams(fwd.resid),
+                                       grads_streams(blk[2].resid), blk[3:], grads, ro),
             )
             del fwd, blk, grads
         zero_grads = [torch.zeros_like(p) for p in tree_leaves(prm)]
@@ -3844,9 +3904,410 @@ def bf16_phases(dev, smi) -> list:
                        dhq, zs, zs, rows16)),
         entry16("param_grads_bf16", src + "param_grads.cu", at + "1598", qlaunch["param_grads"],
                 abs_q["param_grads"], qt["param_grads"][1], qt["param_grads"][2],
-                fmaq["grads"], edgeq["grads"], nbytes(qleaves, p4.bh, p4.resid, rows16, grads16)),
+                fmaq["grads"], edgeq["grads"],
+                nbytes(qleaves, p4.bh, grads_streams(p4.resid), rows16, grads16)),
     ]
     print(f"BF16 PHASE {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return entries
+
+
+def tier_dist(got, want) -> tuple:
+    """``(rms, max)`` distance of ``got`` from ``want``: ||got - want|| / ||want||
+    and max |got - want| / max |want|, and the share of elements that differ by
+    more than 1e-5 of max |want|."""
+    d = (got.float() - want.float()).abs()
+    w = want.float().abs()
+    return (float(d.norm() / (w.norm() + 1e-30)), float(d.max() / (w.max() + 1e-30)),
+            float((d > 1e-5 * w.max()).float().mean()))
+
+
+def gate_widened(label, pairs, ref: dict, floor: float) -> float:
+    """Each (name, kernel, plain bf16) of ``pairs`` no farther from plain bf16, in
+    the root-mean-square norm, than ``TIER16_SHARE`` of the distance plain bf16 lies
+    from the f32 tier on the same inputs (``ref[name]``, that ``tier_dist``; the
+    ``widened`` rule), or of ``floor`` (TRAIN_TOL: the f32 kernels' limit) where the
+    tier moves a tensor less; and no element farther than ``BF16_STREAM_TOL`` of
+    the tensor's max (a flipped rounding moves an element by about one bf16 step of
+    an operand).
+    Kernel and plain round an operand the other way where their sums, in other
+    orders, straddle a bf16 midpoint; such a flip moves a few elements by about
+    the tier's own rounding there, so the maximum, unlike the norm, can exceed
+    the tier's distance. Prints the line and fails beyond; returns the max
+    absolute error."""
+    import torch
+
+    errs = {n: tier_dist(a, b) for n, a, b in pairs}
+    finite = all(bool(torch.isfinite(a.float()).all()) for _, a, _ in pairs)
+    share = {n: errs[n][0] / max(ref[n][0], floor) for n in errs}
+    w = max(share, key=share.get)
+    m = max(errs, key=lambda n: errs[n][1])
+    print(f"BF16 TRAIN {label}: largest share of plain bf16's distance {share[w]:.3f} (limit "
+          f"{TIER16_SHARE}; {w}: rms {errs[w][0]:.3e} from plain bf16, which lies "
+          f"{ref[w][0]:.3e} from f32; floor {floor:.0e}); max rel "
+          f"err {errs[m][1]:.3e} ({m}, plain bf16 {ref[m][1]:.3e} from f32; limit "
+          f"{BF16_STREAM_TOL:.3e}), {errs[m][2]:.2%} of its elements moved; finite {finite}",
+          flush=True)
+    if share[w] > TIER16_SHARE or errs[m][1] > BF16_STREAM_TOL or not finite:
+        fail(f"bf16 tier {label}: {w} or {m} beyond its limits, or a non-finite value")
+    return max(abs_err(a.float(), b.float()) for _, a, b in pairs)
+
+
+def block_outputs(o) -> list:
+    """#12's block outputs ``(dh0, dx0, tfwd, rows, rows_t, t_rows, ro_part)`` as
+    named tensors (the tangent streams widened)."""
+    return [("dh0", o[0]), ("dx0", o[1]), ("ro_part", o[6]),
+            *zip(("tbh", "tbx", "tbv"), o[2][:3]),
+            *((f"t.{n}", v.float()) for n, v in o[2].resid.items()),
+            *((f"{k}.{n}", o[i][n]) for i, k in ((3, "rows"), (4, "rows_t"), (5, "t_rows"))
+              for n in o[i])]
+
+
+def train16_phases(dev, smi) -> list:
+    """Phase 26 (see the module docstring); returns its kernel entries."""
+    import contextlib
+    import functools
+
+    import torch
+
+    from sake_tpu_torch.data.md17 import load_md17
+    from sake_tpu_torch.kernels import resid_ef
+    from sake_tpu_torch.kernels import train2_ef as t2
+    from sake_tpu_torch.kernels.functional import embed
+    from sake_tpu_torch.kernels.leaves import LEAF_NAMES, transposed, wide_stack
+    from sake_tpu_torch.tasks import md17 as task
+    from sake_tpu_torch.train import (
+        TrainState,
+        make_optimizer,
+        shuffle_batches,
+        warmup_cosine_schedule,
+    )
+
+    t_phase = time.perf_counter()
+    cfg = task.MD17Config(use_kernel_ef=True, aug_mode="fused")
+    data = load_md17(cfg.molecule, None, n_samples=max(cfg.n_train, max(TRAIN_BATCHES)))
+    species = task.species_onehot(data.z, int(data.z.max()))
+    e_mean, e_std = float(data.e[:cfg.n_train].mean()), float(data.e[:cfg.n_train].std())
+    N, F, depth, heads = len(data.z), cfg.hidden_features, cfg.depth, cfg.n_heads
+    tdev = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
+    train = {"x": tdev(data.x), "e": tdev(data.e), "f": tdev(data.f)}
+    tier = dict(edge_matmul_dtype=torch.bfloat16, resid_dtype=torch.bfloat16)
+    model = task.make_model(cfg, species.shape[-1], device=dev,
+                            generator=torch.Generator().manual_seed(SEED))
+    fused3 = (t2.fused_primal, t2.fused_bwd_block, t2.fused_bwd_grads)
+
+    def branch(tier_kw):
+        """The task's kernel branch (``make_branch``: its colouring, its
+        parameters) with ``make_ef_train2`` built with ``tier_kw``."""
+        real = task.make_ef_train2
+        task.make_ef_train2 = functools.partial(real, **tier_kw)
+        try:
+            prm, ef_fn, _ = task.make_branch(cfg, model, species, e_mean, e_std)
+        finally:
+            task.make_ef_train2 = real
+        return dict(params=prm, ef=ef_fn)
+
+    @contextlib.contextmanager
+    def plain_fused():
+        """The fused mode on the card through #11's and #12's plain versions."""
+        saved = t2._fused_primal, t2.fused_bwd
+        t2._fused_primal = (lambda prm, lv, h0, xs, upd, *, leaves_t=None, bf16=False:
+                            t2.fused_primal_plain(prm, lv, h0, xs, upd, bf16=bf16))
+        t2.fused_bwd = (lambda prm, lv, fwd, upd, tx0, g_e, *, leaves_t=None:
+                        t2.fused_bwd_plain(prm, lv, fwd, upd, tx0, g_e))
+        try:
+            yield
+        finally:
+            t2._fused_primal, t2.fused_bwd = saved
+
+    kp = branch({})["params"]
+    kp = type(kp)(*[t.detach() if isinstance(t, torch.Tensor) else t for t in kp])
+    kp = kp._replace(layers=tuple(type(lp)(type(lp.edge)(*[t.detach() for t in lp.edge]),
+                                           *[t.detach() for t in lp[1:]]) for lp in kp.layers))
+    leaves = wide_stack(kp, heads)
+    leaves_t = transposed(leaves)
+    upd = [1.0] * depth
+    gen = torch.Generator(dev).manual_seed(26)
+
+    # -- 26a. #11, #12's block and #12's contraction in the tier against plain bf16 --
+    abs16 = dict.fromkeys(("fused_primal", "fused_bwd_block", "fused_bwd_grads"), 0.0)
+    for B in TRAIN_BATCHES:
+        on = f"(B={B}, N={N}, depth {depth}, aspirin)"
+        with torch.no_grad():
+            h0 = embed(kp, species.to(dev).expand(B, N, -1)).contiguous()
+            xs = train["x"][:B].permute(2, 0, 1).contiguous()
+            tx0 = torch.randn(3, B, N, device=dev, generator=gen)
+            g_e = torch.randn(B, device=dev, generator=gen)
+            k11 = [t2.fused_primal(kp, leaves, h0, xs, upd, leaves_t=leaves_t, bf16=True)
+                   for _ in range(2)]
+            p11 = t2.fused_primal_plain(kp, leaves, h0, xs, upd, bf16=True)
+            p11_32 = t2.fused_primal_plain(kp, leaves, h0, xs, upd)
+            torch.cuda.synchronize()
+        out11 = lambda k: [*k[0][:6], *(k[0].resid[n] for n in resid_ef.RESIDS), k[1], k[2]]
+        if not all(torch.equal(a, b) for a, b in zip(out11(k11[0]), out11(k11[1]))):
+            fail(f"bf16 #11 {on}: a second launch differs from the first")
+        f32_11, low_11 = tier_pairs(k11[0][0], p11[0])
+        ref11, _ = tier_pairs(p11[0], p11_32[0])
+        ref11 = {n: tier_dist(b, c) for n, b, c in ref11}
+        a11 = gate_widened(f"#11 fused_primal (csrc/fused_ef16.cu) vs plain bf16 {on}, second "
+                           "launch bitwise: boundaries, final state, r, t, the E plane",
+                           [*f32_11, ("e", k11[0][1], p11[1])],
+                           {**ref11, "e": tier_dist(p11[1], p11_32[1])}, TRAIN_TOL)
+        serr = {n: rel_err(a.float(), b.float()) for n, a, b in low_11}
+        f_err, p_err = rel_err(k11[0][2], p11_32[2]), rel_err(p11[2], p11_32[2])
+        gate = max(2e-3, 2 * p_err)
+        print(f"BF16 TRAIN #11 {on}: F f_err {f_err:.3e} against the plain f32 primal (limit "
+              f"max(2e-3, 2 x plain bf16's {p_err:.3e}) = {gate:.3e}), {rel_err(k11[0][2], p11[2]):.3e}"
+              f" from plain bf16; bf16 streams max rel err {max(serr.values()):.3e} (limit "
+              f"{BF16_STREAM_TOL:.3e}) " + json.dumps({k: float(f"{v:.2e}") for k, v in serr.items()}),
+              flush=True)
+        if f_err > gate or max(serr.values()) > BF16_STREAM_TOL or not torch.isfinite(k11[0][2]).all():
+            fail(f"bf16 #11 {on}: forces or streams beyond their limits")
+        abs16["fused_primal"] = max(abs16["fused_primal"], a11, abs_err(k11[0][2], p11[2]))
+        del k11, p11_32, f32_11, low_11
+
+        # #12's block on the plain bf16 primal's streams
+        fwd = p11[0]
+        with torch.no_grad():
+            kb = [t2.fused_bwd_block(kp, leaves, fwd, upd, tx0, g_e, leaves_t=leaves_t)
+                  for _ in range(2)]
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for (_, a), (_, b) in zip(block_outputs(kb[0]),
+                                                                  block_outputs(kb[1]))):
+                fail(f"bf16 #12 block {on}: a second launch differs from the first")
+            kb = kb[0]
+            if any(kb[2].resid[n].dtype != torch.bfloat16 for n in resid_ef.RESID_LOWP):
+                fail("bf16 #12 block wrote a low-precision tangent stream in another dtype")
+            pb = t2.fused_bwd_block_plain(kp, leaves, fwd, upd, tx0, g_e)
+            pb_w = t2.fused_bwd_block_plain(kp, leaves, widened(fwd), upd, tx0, g_e)
+            torch.cuda.synchronize()
+        ref = {n: tier_dist(a, b) for (n, a), (_, b) in zip(block_outputs(pb),
+                                                             block_outputs(pb_w))}
+        del pb_w
+        pairs = [(n, a, b) for (n, a), (_, b) in zip(block_outputs(kb), block_outputs(pb))]
+        abs16["fused_bwd_block"] = max(abs16["fused_bwd_block"], gate_widened(
+            f"#12 block (csrc/fused_bwd16.cu) vs plain bf16 on plain's primal streams {on}, "
+            "second launch bitwise: dh0, dx0, the readout partials, the tangent streams, "
+            "every row (reference: the f32 tier on the same streams)", pairs, ref, TRAIN_TOL))
+        del pb, pairs
+
+        # #12's contraction on the block's streams and rows, against plain with f64 sums
+        with torch.no_grad():
+            kg = [t2.fused_bwd_grads(kp, leaves, fwd, *kb[2:]) for _ in range(2)]
+            with f64_sums():
+                pg = t2.param_grads_aug_plain(leaves, fwd, *kb[2:6])
+                # the f32 tier's products on the same streams and rows
+                pg_w = t2.param_grads_aug_plain(leaves, widened(fwd), widened(kb[2]), *kb[3:6])
+            ro_want = kb[6].double().sum(dim=0).float()
+            torch.cuda.synchronize()
+        if not (all(torch.equal(kg[0][0][n], kg[1][0][n]) for n in LEAF_NAMES)
+                and all(torch.equal(a, b) for a, b in zip(kg[0][1], kg[1][1]))):
+            fail(f"bf16 #12 contraction {on}: a second launch differs from the first")
+        gerr = {f"{n}[{l}]": rel_err(kg[0][0][n][l], pg[n][l]) for n in LEAF_NAMES
+                for l in range(depth)}
+        gerr["readout"] = rel_err(torch.cat([a.reshape(-1) for a in kg[0][1]]), ro_want)
+        limit = dict.fromkeys(gerr, BF16_CONTRACT_TOL)
+        share = {}
+        for n in resid_ef.EDGE_MM_LEAVES:
+            for l in range(depth):
+                d = rel_err(pg[n][l], pg_w[n][l])
+                share[f"{n}[{l}]"] = gerr[f"{n}[{l}]"] / d
+                limit[f"{n}[{l}]"] = max(BF16_CONTRACT_TOL, BF16_FLIP_SHARE * d)
+        w = max(gerr, key=lambda k: gerr[k] / limit[k])
+        o = max((k for k in gerr if k not in share), key=gerr.get)
+        e = max(share, key=share.get)
+        print(f"BF16 TRAIN #12 contraction (sake_param_grads_aug16) vs plain on the block's "
+              f"streams and rows, its sums in float64 {on}, second launch bitwise: nearest its "
+              f"limit {w} {gerr[w]:.3e} (limit {limit[w]:.3e}); the other leaves max rel err "
+              f"{gerr[o]:.3e} ({o}; limit {BF16_CONTRACT_TOL:.0e}); the four edge leaves at most "
+              f"{share[e]:.3e} of the tier's own distance ({e}: {gerr[e]:.3e}; limit "
+              f"{BF16_FLIP_SHARE} of it, or {BF16_CONTRACT_TOL:.0e}) "
+              + json.dumps({k: float(f"{v:.2e}") for k, v in share.items()}), flush=True)
+        if gerr[w] > limit[w]:
+            fail(f"bf16 #12 contraction {on}: {w} beyond its limit")
+        abs16["fused_bwd_grads"] = max(abs16["fused_bwd_grads"], max(
+            abs_err(kg[0][0][n], pg[n]) for n in LEAF_NAMES))
+        del kg, pg, pg_w, kb, fwd, p11, h0, xs, tx0, g_e
+
+    # -- 26b. one step of the tier's fused branch through the task ------------------
+    batches = shuffle_batches(np.random.RandomState(cfg.seed),
+                              {k: v[:cfg.n_train] for k, v in train.items()}, cfg.batch_size)
+    weight = cfg.energy_loss_weight
+    loss16, g16 = md17_loss_and_grads(branch(tier), batches[0], weight)
+    loss32, g32 = md17_loss_and_grads(branch({}), batches[0], weight)
+    with plain_fused():
+        lossp, gp = md17_loss_and_grads(branch(tier), batches[0], weight)
+    # a step at depth 6 sits downstream of every layer's roundings: once one flips, the
+    # operands after it round apart too, so kernel and plain bf16 differ by about the
+    # tier's own distance (on an H100: b_vel0 of layer 4 at 0.999 of it in the norm; layer
+    # 4's b_sem, a sum that cancels, 1.5e-2 at its largest element); the step is held
+    # to twice that distance in the norm, and to lie as far from the f32 branch as plain
+    # bf16 does (the median share, at least STEP16_FAR_MIN), which a step that skipped
+    # the tier's roundings would not
+    names = ["loss", *(f"leaf {i}" for i in range(len(g16)))]
+    kern, plain, f32 = [loss16, *g16], [lossp, *gp], [loss32, *g32]
+    dist = {n: (tier_dist(a, b), tier_dist(b, c), tier_dist(a, c))
+            for n, a, b, c in zip(names, kern, plain, f32)}
+    share = {n: e[0] / max(d[0], TRAIN_TOL) for n, (e, d, _) in dist.items()}
+    w = max(share, key=share.get)
+    far = [dk[0] / d[0] for e, d, dk in dist.values() if d[0] >= TRAIN_TOL]
+    finite = all(bool(torch.isfinite(a).all()) for a in kern)
+    print(f"BF16 TRAIN step 1 of the fused branch in the tier (B={cfg.batch_size}, task "
+          f"colouring) vs its plain bf16 path, the loss and every leaf's gradient: largest share "
+          f"of plain bf16's distance from the f32 fused branch {share[w]:.3f} ({w}: rms "
+          f"{dist[w][0][0]:.3e} against {dist[w][1][0]:.3e}; limit {STEP16_SHARE}, floor "
+          f"{TRAIN_TOL:.0e}), max rel err there {dist[w][0][1]:.3e}; the kernel step from the f32 "
+          f"branch, as a share of plain bf16's distance, median {float(np.median(far)):.3f} "
+          f"(limit at least {STEP16_FAR_MIN}; range {min(far):.3f}-{max(far):.3f}); finite "
+          f"{finite}", flush=True)
+    if share[w] > STEP16_SHARE or float(np.median(far)) < STEP16_FAR_MIN or not finite:
+        fail(f"bf16 tier step 1: {w} beyond {STEP16_SHARE} x plain bf16's distance, the step "
+             f"nearer the f32 branch than {STEP16_FAR_MIN} of plain bf16's distance, or a "
+             "non-finite value")
+    d32 = [rel_err(a, b) for a, b in zip(g16, g32)]
+    print(f"BF16 TRAIN step 1 in the tier vs the f32 fused branch: loss {float(loss16):.7f} vs "
+          f"{float(loss32):.7f} (rel {rel_err(loss16, loss32):.2e}); gradients max rel "
+          f"{max(d32):.3e} (leaf {int(np.argmax(d32))}), median {float(np.median(d32)):.3e}",
+          flush=True)
+    del g16, g32, gp
+
+    # -- 26c. a short training run in the tier, launches counted from 0 ------------
+    br = branch(tier)
+    state = TrainState.create(params=br["params"], tx=make_optimizer(
+        warmup_cosine_schedule(cfg.learning_rate, TRAIN16_STEPS)))
+    step = task.make_step_fn(br["ef"], weight)
+    for c in dense_counters():
+        c.launches = 0
+    for c in fused3:
+        c.tiers = dict.fromkeys(t2.TIERS, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = []
+    for b_ in batches[:TRAIN16_STEPS]:
+        state, loss = step(state, b_)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = torch.stack(losses).cpu()
+    launches = {c.__name__: c.launches for c in dense_counters() if c.launches}
+    tiers = {c.__name__: dict(c.tiers) for c in fused3}
+    print(f"BF16 TRAIN RUN {len(losses)} steps of the fused branch in the tier at B="
+          f"{cfg.batch_size} in {wall:.2f} s: launches {json.dumps(launches)}, by tier "
+          f"{json.dumps(tiers)}; loss first {float(losses[0]):.6f} last {float(losses[-1]):.6f} "
+          f"(means of the first and last 20 steps {float(losses[:20].mean()):.6f} "
+          f"{float(losses[-20:].mean()):.6f})", flush=True)
+    n = len(losses)
+    if launches != {c.__name__: n for c in fused3} or any(
+            t != {"f32": 0, "bf16": n} for t in tiers.values()):
+        fail("the tier's training run launched other kernels than #11, #12's block and "
+             "#12's contraction in the tier")
+    if not (torch.isfinite(losses).all() and losses[-20:].mean() < losses[:20].mean()):
+        fail("the tier's training loss is not finite or did not fall")
+    run_launches = {c.__name__: c.launches for c in fused3}
+    del br, state, step
+
+    # -- 26d. timing: each kernel and the fused step in both tiers, in turns ---------
+    src, at = "sake_tpu_torch/csrc/", "sake_tpu/kernels/train2_ef.py:"
+    dims = (N, F, F, 50, heads, 256)
+    entries = []
+    for B in TRAIN_BATCHES:
+        with torch.no_grad():
+            h0 = embed(kp, species.to(dev).expand(B, N, -1)).contiguous()
+            xs = train["x"][:B].permute(2, 0, 1).contiguous()
+            tx0 = torch.randn(3, B, N, device=dev, generator=gen)
+            g_e = torch.randn(B, device=dev, generator=gen)
+            prim = {b: t2.fused_primal(kp, leaves, h0, xs, upd, leaves_t=leaves_t, bf16=b)
+                    for b in (False, True)}
+            blk = {b: t2.fused_bwd_block(kp, leaves, prim[b][0], upd, tx0, g_e,
+                                         leaves_t=leaves_t) for b in (False, True)}
+            fns = {}
+            for b, side in ((False, "f32"), (True, "bf16")):
+                fns[("fused_primal", side)] = functools.partial(
+                    t2.fused_primal, kp, leaves, h0, xs, upd, leaves_t=leaves_t, bf16=b)
+                fns[("fused_bwd_block", side)] = functools.partial(
+                    t2.fused_bwd_block, kp, leaves, prim[b][0], upd, tx0, g_e,
+                    leaves_t=leaves_t)
+                fns[("fused_bwd_grads", side)] = functools.partial(
+                    t2.fused_bwd_grads, kp, leaves, prim[b][0], *blk[b][2:])
+            runs = {k: [] for k in fns}
+            for _ in range(TRAIN16_ROUNDS):
+                for side in ("f32", "bf16", "bf16", "f32"):
+                    for name in ("fused_primal", "fused_bwd_block", "fused_bwd_grads"):
+                        runs[(name, side)].append(cuda_ms(fns[(name, side)]))
+            fwd16 = prim[True][0]
+
+            def grads_plain():
+                with f64_sums():
+                    return t2.param_grads_aug_plain(leaves, fwd16, *blk[True][2:6])
+
+            plain = {"fused_primal": cuda_ms(lambda: t2.fused_primal_plain(
+                         kp, leaves, h0, xs, upd, bf16=True), reps=1),
+                     "fused_bwd_block": cuda_ms(lambda: t2.fused_bwd_block_plain(
+                         kp, leaves, fwd16, upd, tx0, g_e), reps=1),
+                     "fused_bwd_grads": cuda_ms(grads_plain, reps=1)}
+        stat = {f"{k[0]} {k[1]}": (float(np.mean(v)), float(np.std(v))) for k, v in runs.items()}
+        print(f"BF16 TRAIN TIMING per kernel at B={B}, N={N}, depth {depth} (ms, mean and "
+              f"standard deviation of {len(next(iter(runs.values())))} runs, f32 and bf16 in "
+              f"turns; {smi}): " + json.dumps({k: [round(m, 3), round(sd, 3)]
+                                                for k, (m, sd) in stat.items()})
+              + "; plain bf16 " + json.dumps({k: round(v, 3) for k, v in plain.items()}),
+              flush=True)
+
+        # the fused step in both tiers, in turns, and its peak device memory
+        batch = ({k: v[:B] for k, v in train.items()} if B > cfg.batch_size else batches[0])
+        steps = {}
+        for side, kw in (("f32", {}), ("bf16", tier)):
+            b_ = branch(kw)
+            st = TrainState.create(params=b_["params"], tx=make_optimizer(
+                warmup_cosine_schedule(cfg.learning_rate, 1000)))
+            steps[side] = functools.partial(task.make_step_fn(b_["ef"], weight), st, batch)
+        sruns = {k: [] for k in steps}
+        for _ in range(TRAIN16_ROUNDS):
+            for side in ("f32", "bf16", "bf16", "f32"):
+                sruns[side].append(cuda_ms(steps[side]))
+        peak = {}
+        for side, fn in steps.items():
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fn()
+            torch.cuda.synchronize()
+            peak[side] = (torch.cuda.max_memory_allocated() - base) / 2**20
+        print(f"BF16 TRAIN STEP at B={B} (make_step_fn, fused mode; ms, mean and standard "
+              f"deviation, in turns; {smi}): " + "; ".join(
+                  f"{k} {np.mean(v):.3f} +- {np.std(v):.3f} ms, peak device memory "
+                  f"{peak[k]:.1f} MiB" for k, v in sruns.items()), flush=True)
+        del steps
+
+        fma = {k: v * B * depth for k, v in layer_fma(*dims).items()}
+        one = edge_fma(N, *dims[2:])["fwd"] * B * depth
+        lv16 = resid_ef.edge_bf16_leaves(leaves)
+        moved = {
+            "fused_primal": nbytes(lv16, transposed(lv16), h0, xs, prim[True]),
+            "fused_bwd_block": nbytes(lv16, transposed(lv16), fwd16, tx0, g_e, blk[True]),
+            # the streams the loaders read, the rows, the readout partials, the gradients
+            "fused_bwd_grads": nbytes(leaves, fwd16.bh, blk[True][2].bh,
+                                      grads_streams(fwd16.resid),
+                                      grads_streams(blk[True][2].resid), *blk[True][3:7],
+                                      fns[("fused_bwd_grads", "bf16")]()),
+        }
+        ops = {"fused_primal": (fma["fwd"] + fma["bwd"], 2 * one),
+               "fused_bwd_block": (fma["jvp"] + fma["tbwd"] + fma["bwd"], 4 * one),
+               "fused_bwd_grads": (fma["grads_aug"], 2 * one)}
+        where = {"fused_primal": ("fused_ef16.cu", "1239"),
+                 "fused_bwd_block": ("fused_bwd16.cu", "1750"),
+                 "fused_bwd_grads": ("param_grads.cu", "1750")}
+        at_b = [entry16(f"{k}_bf16", src + where[k][0], at + where[k][1], run_launches[k],
+                        abs16[k], stat[f"{k} bf16"][0], plain[k], *ops[k], moved[k])
+                for k in where]
+        print(f"BF16 TRAIN BOUND per kernel at B={B}: " + json.dumps(
+            {e["name"]: [round(e["bound_ms"], 4), e["bound_by"]] for e in at_b})
+            + f" (edge products at {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s in one pass, the "
+            f"rest at {PEAK_F32_FLOPS / 1e12:.0f}, bytes over {PEAK_BYTES / 1e12:.2f} TB/s, "
+            "the bf16 streams at 2 bytes)", flush=True)
+        if B == max(TRAIN_BATCHES):  # the entries carry B = 512
+            entries = at_b
+        del prim, blk, fns, h0, xs, tx0, g_e, fwd16, lv16, at_b
+    print(f"BF16 TRAIN PHASE {time.perf_counter() - t_phase:.1f} s", flush=True)
     return entries
 
 

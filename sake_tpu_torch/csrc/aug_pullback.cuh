@@ -55,14 +55,16 @@ __host__ __device__ inline long long aug_pullback_floats(const Dims& d) {
 // tangent chain's rows (TRW) and their tangents (TTW) there. gscratch: this
 // molecule's 2N * (H*K + C) floats of device memory. kTc: both bodies' x-mixing
 // and edge products on the tensor cores (mma_tf32x3.cuh; ring: tc_ring_floats
-// of shared memory outside work).
-template <bool kTc = false>
+// of shared memory outside work). kE16: both bodies in resid_ef's bf16 tier
+// (RS and TR Resids16; L and LT with the four edge weights rounded), the rows
+// f32.
+template <bool kTc = false, bool kE16 = false>
 __device__ __forceinline__ void aug_pullback_layer(
     const Dims& d, const Carry& P, float* work, int b, int l, float u, const Leaves& L,
     const Leaves& LT, const float* __restrict__ bh, const float* __restrict__ bx,
     const float* __restrict__ bv, const float* __restrict__ tbh, const float* __restrict__ tbx,
-    const float* __restrict__ tbv, const Resids& RS, const Resids& TR, const Rows& RW,
-    const Rows& TRW, const Rows& TTW, float* gscratch, float* ring = nullptr) {
+    const float* __restrict__ tbv, const ResidsOf<kE16>& RS, const ResidsOf<kE16>& TR,
+    const Rows& RW, const Rows& TRW, const Rows& TTW, float* gscratch, float* ring = nullptr) {
   const int N = d.N, F = d.F, tid = threadIdx.x, nt = blockDim.x;
   Carver ct{work};
   TbSmem ST = carve_tb<kTc>(ct, d);
@@ -72,15 +74,15 @@ __device__ __forceinline__ void aug_pullback_layer(
   ST.sdxs = P.ct_dxs;
   ST.sdxr = P.ct_dxr;
   ST.sdvo = P.ct_dvo;
-  tbwd_layer<kTc>(d, ST, b, l, u, L, LT, bh, bx, bv, tbh, tbx, tbv, RS, TR, TRW, TTW, gscratch,
-                  nullptr, nullptr, nullptr, ring);
+  tbwd_layer<kTc, kE16>(d, ST, b, l, u, L, LT, bh, bx, bv, tbh, tbx, tbv, RS, TR, TRW, TTW,
+                        gscratch, nullptr, nullptr, nullptr, ring);
   Carver cb{work};
   BwdSmem SB = carve_bwd<kTc>(cb, d);
   SB.sdh = P.cp_dh;
   SB.sdx = P.cp_dx;
   SB.sdv = P.cp_dv;
-  bwd_layer<true, false, kTc>(d, SB, b, l, u, nullptr, L, LT, bh, bx, bv, RS, RW, nullptr,
-                              nullptr, nullptr, ring);
+  bwd_layer<true, false, kTc, kE16>(d, SB, b, l, u, nullptr, L, LT, bh, bx, bv, RS, RW,
+                                    nullptr, nullptr, nullptr, ring);
   // the layer's Hessian terms, the tangents the tangent pullback left
   for (int e = tid; e < N * F; e += nt) P.cp_dh[e] += P.ct_dh[N * F + e];
   for (int e = tid; e < 3 * N; e += nt) {

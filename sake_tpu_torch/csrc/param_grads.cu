@@ -52,7 +52,13 @@
 // four edge leaves (w_o_f, w_o1, w_sem, w_xmix: JAX's _EDGE_MM_LEAVES, whose
 // contractions run at the edge products' tier) round both operands to bf16 as
 // they are formed, and every sum stays f64 and ordered. Its wide tiles all go
-// through the loaders: a simple route, not yet a fast one.
+// through the loaders: a simple route, not yet a fast one. Augmented in that
+// tier (sake_param_grads_aug16, #12's contraction in the tier): the primal and
+// tangent streams are bf16 (Src<Dl, true>), and an edge leaf's three terms a^T
+// g_p, t_a^T g_t and a^T t_g round each operand apart (JAX's
+// contract_param_pairs and contract_param_pair_tangents with mm_edge_t in
+// bf16): the stage's first half holds bf16(a) against bf16(g_p) + bf16(t_g),
+// summed in f32 (two bf16 values: exact unless their exponents lie 16 apart).
 //
 // What bounds it on an H100: f64 multiply-adds on DMMA at 67 TFLOP/s. The
 // w_xmix contraction is most of the work: 256 x 256 outputs over B * N^2
@@ -150,6 +156,14 @@ struct Src<Dl> {
   const Tables *v, *t;
   __device__ Dl at(int a, int i, size_t off) const {
     return {v->arr(a, i)[off], t->arr(a, i)[off]};
+  }
+};
+template <>
+struct Src<Dl, true> {
+  const Tables *v, *t;
+  __device__ Dl at(int a, int i, size_t off) const {
+    const Src<float, true> sv{v}, st{t};
+    return {sv.at(a, i, off), st.at(a, i, off)};
   }
 };
 
@@ -358,11 +372,25 @@ struct LoaderFill {
     const bool second = kAug && v >= per;
     const long long row = w.r_begin + (long long)s * per + (second ? v - per : v);
     if (row >= w.r_end || j >= (kA ? w.m_live : w.n_live)) return 0.f;
-    if constexpr (kE16) {  // the bf16 tier (no augmented contraction)
+    if constexpr (kE16 && !kAug) {  // the bf16 tier
       const Src<float, true> sl{&g->P};
       if constexpr (kA)
         return edge_rd<LEAF, true>(load_a<LEAF>(*g, sl, w.l, row, w.col_a(j, g->d.K)));
       else return edge_rd<LEAF, true>(load_g<LEAF>(*g, sl, w.l, row, w.c0 + j));
+    } else if constexpr (kE16) {  // the bf16 tier augmented: g_p and t_g rounded apart
+      const Src<float, true> lp{&g->P}, lv{&g->Tv};
+      const Src<Dl, true> ld{&g->Tv, &g->Tt};
+      if constexpr (kA) {
+        const int r = w.col_a(j, g->d.K);
+        if (!second) return edge_rd<LEAF, true>(load_a<LEAF>(*g, lv, w.l, row, r));
+        return edge_rd<LEAF, true>(load_a<LEAF>(*g, ld, w.l, row, r).t);
+      } else {
+        const int c = w.c0 + j;
+        if (!second)
+          return edge_rd<LEAF, true>(load_g<LEAF>(*g, lp, w.l, row, c)) +
+                 edge_rd<LEAF, true>(load_g<LEAF>(*g, ld, w.l, row, c).t);
+        return edge_rd<LEAF, true>(load_g<LEAF>(*g, lv, w.l, row, c));
+      }
     }
     if constexpr (kA) {
       const int r = w.col_a(j, g->d.K);
@@ -635,7 +663,7 @@ __device__ void contract_narrow(const GradArgs& g, int l, long long r_begin, lon
   const int rl = threadIdx.x % cols, rg = threadIdx.x / cols;
   const int r = r0 + rl;
   const Src<float, kE16> sp{&g.P};
-  const Src<Dl> sd{&g.Tv, &g.Tt};
+  const Src<Dl, kE16> sd{&g.Tv, &g.Tt};
   double acc[kNarrowMax];
 #pragma unroll
   for (int c = 0; c < kNarrowMax; ++c) acc[c] = 0.0;
@@ -649,7 +677,12 @@ __device__ void contract_narrow(const GradArgs& g, int l, long long r_begin, lon
       for (int c = 0; c < kNarrowMax; ++c) {
         if (c < cg) {
           acc[c] = fma(a, (double)edge_rd<LEAF, kE16>(load_g<LEAF>(g, sp, l, row, c)), acc[c]);
-          if constexpr (kAug) {
+          if constexpr (kAug && kE16) {  // each term's operands rounded apart
+            const Dl gt = load_g<LEAF>(g, sd, l, row, c);
+            acc[c] = fma((double)edge_rd<LEAF, true>(at.t), (double)edge_rd<LEAF, true>(gt.v),
+                         fma((double)edge_rd<LEAF, true>(at.v),
+                             (double)edge_rd<LEAF, true>(gt.t), acc[c]));
+          } else if constexpr (kAug) {
             const Dl gt = load_g<LEAF>(g, sd, l, row, c);
             acc[c] = fma((double)at.t, (double)gt.v, fma((double)at.v, (double)gt.t, acc[c]));
           }
@@ -913,6 +946,32 @@ extern "C" int sake_param_grads16(const float* bh, const void* const* leaf_ptrs,
   g.d = Dims{B, N, F, H, R, K, C, depth};
   g.P = tables(bh, resid_ptrs, row_ptrs);
   return launch_grads<false, true>(g, leaf_ptrs, leaf_strides, partial, out, n_chunks, stream);
+}
+
+// The augmented gradients in resid_ef's bf16 tier (#12's contraction in the
+// tier): the arguments of sake_param_grads_aug below, the primal's and the
+// tangent's residual streams (resid_ptrs, tresid_ptrs) bf16 tensors but r and
+// t, the rows f32.
+extern "C" int sake_param_grads_aug16(const float* bh, const float* tbh,
+                                      const void* const* leaf_ptrs,
+                                      const long long* leaf_strides, void* const* resid_ptrs,
+                                      void* const* tresid_ptrs, void* const* row_ptrs,
+                                      void* const* trow_ptrs, void* const* ttrow_ptrs,
+                                      double* partial, float* out, const float* ro_part,
+                                      float* ro_out, long long ro_len, int n_chunks, int B,
+                                      int N, int F, int H, int R, int K, int C, int depth,
+                                      void* stream) {
+  using namespace sake;
+  GradArgs g;
+  g.d = Dims{B, N, F, H, R, K, C, depth};
+  g.P = tables(bh, resid_ptrs, row_ptrs);
+  g.Tv = tables(bh, resid_ptrs, trow_ptrs);
+  g.Tt = tables(tbh, tresid_ptrs, ttrow_ptrs);
+  const int err =
+      launch_grads<true, true>(g, leaf_ptrs, leaf_strides, partial, out, n_chunks, stream);
+  if (err != 0 || ro_part == nullptr) return err;
+  sum_rows(ro_part, ro_out, ro_len, B, static_cast<cudaStream_t>(stream));
+  return (int)cudaGetLastError();
 }
 
 // The augmented gradients: row_ptrs the primal chain's rows, trow_ptrs the

@@ -146,8 +146,10 @@ __device__ __forceinline__ void bwd_begin(const Dims& d, const BwdSmem& S, int B
 // cotangent (d_xm, d_sem_pre, d_h_e, d_e0) rounded as it is read against the
 // rounded weight (LT holds w_o_f, w_o1, w_sem, w_xmix rounded), one pass on the
 // tensor cores; the head expansion's terms bf16(d_he_att bf16(att2)) and
-// bf16(d_he_att h_e) rounded before their sums; node products f32. It writes
-// no rows: the bf16 tier's rows are bwd_layer_cl's.
+// bf16(d_he_att h_e) rounded before their sums; node products f32. With
+// kRows (only #12's primal chain in that tier, fused_bwd16.cu) its rows are
+// those of layer_bwd_resid(bf16=True): att2 rounded, hatt summing h_e (a bf16
+// value) times att2 rounded, psq from the rounded pooled vectors.
 template <bool kRows, bool kBf16 = false, bool kTc = false, bool kE16 = false>
 __device__ __forceinline__ void bwd_layer(const Dims& d, const BwdSmem& S, int b, int l,
                                           float u, const float* __restrict__ mb,
@@ -160,7 +162,6 @@ __device__ __forceinline__ void bwd_layer(const Dims& d, const BwdSmem& S, int b
                                           const float* __restrict__ add_x,
                                           const float* __restrict__ add_v, float* ring = nullptr) {
   static_assert(!(kE16 && kBf16), "one bf16 tier");
-  static_assert(!(kE16 && kRows), "the bf16 tier's rows are bwd_layer_cl's");
   constexpr int kXmixPasses = kE16 ? 1 : tc_passes<kBf16>();  // on the tensor cores
   const int B = d.B, N = d.N, F = d.F, H = d.H, R = d.R, K = d.K, C = d.C;
   const int HK = H * K, NN = N * N;
@@ -308,8 +309,14 @@ __device__ __forceinline__ void bwd_layer(const Dims& d, const BwdSmem& S, int b
     }
     for (int e = tid; e < N * C; e += nt) {
       const float pd = pool_denom(masked, scnt[e / C], n_eff);
-      const float n0 = pool[0][e] / pd, n1 = pool[1][e] / pd, n2 = pool[2][e] / pd;
-      node_row(RW_PSQ, e / C, C)[e % C] = n0 * n0 + n1 * n1 + n2 * n2;
+      if constexpr (kE16) {
+        const float n0 = get_res(pool[0], e) / pd, n1 = get_res(pool[1], e) / pd,
+                    n2 = get_res(pool[2], e) / pd;
+        node_row(RW_PSQ, e / C, C)[e % C] = n0 * n0 + n1 * n1 + n2 * n2;
+      } else {
+        const float n0 = pool[0][e] / pd, n1 = pool[1][e] / pd, n2 = pool[2][e] / pd;
+        node_row(RW_PSQ, e / C, C)[e % C] = n0 * n0 + n1 * n1 + n2 * n2;
+      }
     }
   }
   __syncthreads();
@@ -428,10 +435,16 @@ __device__ __forceinline__ void bwd_layer(const Dims& d, const BwdSmem& S, int b
       // hatt[i] = sum_j h_e[j] (x) att2[j]; the row's att2
       for (int q = tid; q < HK; q += nt) {
         float s = 0.f;
-        for (int j = 0; j < N; ++j) s += she[j * H + q / K] * satt2[j * K + q % K];
+        for (int j = 0; j < N; ++j) {
+          if constexpr (kE16) s += she[j * H + q / K] * bf16r(satt2[j * K + q % K]);
+          else s += she[j * H + q / K] * satt2[j * K + q % K];
+        }
         node_row(RW_HATT, i, HK)[q] = s;
       }
-      for (int e = tid; e < N * K; e += nt) edge_row(RW_ATT2, K)[e] = satt2[e];
+      for (int e = tid; e < N * K; e += nt) {
+        if constexpr (kE16) edge_row(RW_ATT2, K)[e] = bf16r(satt2[e]);
+        else edge_row(RW_ATT2, K)[e] = satt2[e];
+      }
     }
     __syncthreads();
     SAKE_PROBE(PR_BWD_ROW);

@@ -111,6 +111,12 @@ inline Resids16 resids16_of(void* const* ptrs) {
   R.t = static_cast<float*>(ptrs[RS_T]);
   return R;
 }
+// The table of either tier: Resids16 with kLow, else Resids.
+template <bool kLow>
+inline ResidsOf<kLow> resids_as(void* const* ptrs) {
+  if constexpr (kLow) return resids16_of(ptrs);
+  else return resids_of(ptrs);
+}
 // The table of a forward that keeps no residuals: only the pooled vectors, in
 // a one-layer (3, B, N, C) scratch.
 inline Resids pool_resids(float* pool, const Dims& d) {

@@ -3,7 +3,8 @@
 // it over depth (#9); fused_bwd.cu runs it as phase 1 of the fused training
 // backward (#12). See resid_jvp.cu for the design and what bounds it. Its
 // kTc instantiation (#12) runs the x-mixing product on the tensor cores
-// (mma_tf32x3.cuh).
+// (mma_tf32x3.cuh); its kE16 instantiation (#12 in resid_ef's bf16 tier,
+// fused_bwd16.cu) is the tangent forward of that tier.
 #pragma once
 
 #include "mma_tf32x3.cuh"
@@ -14,10 +15,10 @@ namespace sake {
 constexpr int kJvpTileCols = 4;      // columns per tile in mm_tiled
 constexpr int kJvpTiledMinCols = 16; // narrowest tiled product
 
-template <class ST>
+template <bool kRoundA = false, class ST>
 __device__ __forceinline__ void mm_jvp(int n, int kd, int m, const float* A, int lda,
                                        const float* __restrict__ W, ST st) {
-  mm_smem<kJvpTileCols, kJvpTiledMinCols>(n, kd, m, A, lda, W, st);
+  mm_smem<kJvpTileCols, kJvpTiledMinCols, kRoundA>(n, kd, m, A, lda, W, st);
 }
 
 // Shared-memory buffers of the tangent forward, in floats: the tangent state and the layer's
@@ -97,14 +98,27 @@ __device__ __forceinline__ void jvp_begin(const Dims& d, const JvpSmem& S, int B
 // tbh null no tangent boundary is written. kTc: the x-mixing and edge products
 // on the tensor cores in 3xTF32 (S from carve_jvp<true>, ring: tc_ring_floats)
 // where tc_dims allows; without it every product runs on the CUDA cores.
-template <bool kTc = false>
+// kE16: resid_ef's bf16 tier (layer_jvp_resid with JAX's mm_edge in bf16):
+// the primal streams RS and the tangent streams TR are Resids16 (bf16 but r
+// and t; read widened by get_res, written rounded by put_res); the tangent
+// edge products t_o_f, t_h_e, t_sem_pre and the x-mixing round both operands
+// (L holds w_o_f, w_o1, w_sem, w_xmix rounded; the activation is rounded as
+// it is read), one pass on the tensor cores; t_he_att forms from bf16(t_h_e),
+// bf16(att), bf16(h_e) and bf16(t_att) (att and h_e are bf16 values already),
+// and t_hatt sums it unrounded. The row loop goes on with the f32 tangents it
+// stores rounded; its tangent pooled vectors also go, in f32, to slot b of a
+// one-layer (3, d.B, N, C) scratch tpool16, which the node phase reads (the
+// stream holds them rounded).
+template <bool kTc = false, bool kE16 = false>
 __device__ __forceinline__ void jvp_layer(const Dims& d, const JvpSmem& S, int b, int l,
                                           float u, const Leaves& L,
                                           const float* __restrict__ bh,
                                           const float* __restrict__ bx,
-                                          const float* __restrict__ bv, const Resids& RS,
-                                          float* tbh, float* tbx, float* tbv,
-                                          const Resids& TR, float* ring = nullptr) {
+                                          const float* __restrict__ bv,
+                                          const ResidsOf<kE16>& RS, float* tbh, float* tbx,
+                                          float* tbv, const ResidsOf<kE16>& TR,
+                                          float* ring = nullptr, float* tpool16 = nullptr) {
+  constexpr int kPasses = kE16 ? 1 : 3;  // of the tensor-core products
   const int B = d.B, N = d.N, F = d.F, H = d.H, R = d.R, K = d.K, C = d.C;
   const int HK = H * K, NN = N * N;
   [[maybe_unused]] const int ldx = kTc ? tc_ld(d, HK) : HK;  // kTc: shea's row stride
@@ -129,7 +143,7 @@ __device__ __forceinline__ void jvp_layer(const Dims& d, const JvpSmem& S, int b
   const float* rbf_b = W(RBF_B);
   const float* w_o_r = W(W_O_R);
   // this layer's node stream r (width ch) of molecule b, atom 0
-  auto node = [&](const Resids& Q, int r, int ch) { return Q.p[r] + lb * N * ch; };
+  auto node = [&](const auto& Q, int r, int ch) { return Q.p[r] + lb * N * ch; };
 
   // tangent boundary state out, primal boundary state in
   for (int e = tid; e < N * F; e += nt) {
@@ -162,14 +176,22 @@ __device__ __forceinline__ void jvp_layer(const Dims& d, const JvpSmem& S, int b
 
   for (int i = 0; i < N; ++i) {
     // edge stream r (width ch) of this molecule and layer at edge (i, 0)
-    auto edge = [&](const Resids& Q, int r, int ch) {
+    auto edge = [&](const auto& Q, int r, int ch) {
       return Q.p[r] + (lb * NN + (size_t)i * N) * ch;
     };
+    // the f32 streams r and t at edge (i, 0)
+    [[maybe_unused]] const size_t eo = lb * NN + (size_t)i * N;
 
     // geometry: r = sqrt(relu(|d|^2) + eps), t = exp(-r), and their tangents
     for (int j = tid; j < N; j += nt) {
-      const float r = edge(RS, RS_R, 1)[j];
-      const float t = edge(RS, RS_T, 1)[j];
+      float r, t;
+      if constexpr (kE16) {
+        r = res_r(RS)[eo + j];
+        t = res_t(RS)[eo + j];
+      } else {
+        r = edge(RS, RS_R, 1)[j];
+        t = edge(RS, RS_T, 1)[j];
+      }
       float ts = 0.f;
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
@@ -186,21 +208,34 @@ __device__ __forceinline__ void jvp_layer(const Dims& d, const JvpSmem& S, int b
       str[j] = tr;
       stir[j] = -(ir * ir) * tr;
       stt[j] = -t * tr;
-      edge(TR, RS_R, 1)[j] = tr;
-      edge(TR, RS_T, 1)[j] = -t * tr;
+      if constexpr (kE16) {
+        res_r(TR)[eo + j] = tr;
+        res_t(TR)[eo + j] = -t * tr;
+      } else {
+        edge(TR, RS_R, 1)[j] = tr;
+        edge(TR, RS_T, 1)[j] = -t * tr;
+      }
     }
     __syncthreads();
 
     // rbf = exp(-b (t - m)^2): t_rbf; t_filtered = t_rbf * pre + rbf * t_pre
     {
-      const float* rbf = edge(RS, RS_RBF, R);
-      const float* tt = edge(RS, RS_T, 1);
-      float* trbf = edge(TR, RS_RBF, R);
+      const auto* rbf = edge(RS, RS_RBF, R);
+      const float* tt;
+      if constexpr (kE16) tt = res_t(RS) + eo;
+      else tt = edge(RS, RS_T, 1);
+      auto* trbf = edge(TR, RS_RBF, R);
       for (int e = tid; e < N * R; e += nt) {
         const int j = e / R, c = e % R;
-        const float v = rbf[e] * (-2.f * rbf_b[c] * (tt[j] - rbf_m[c])) * stt[j];
-        trbf[e] = v;
-        sfilt[e] = v * (saj[e] + sai[i * R + c]) + rbf[e] * (staj[e] + stai[i * R + c]);
+        if constexpr (kE16) {
+          const float v = get_res(rbf, e) * (-2.f * rbf_b[c] * (tt[j] - rbf_m[c])) * stt[j];
+          put_res(trbf, e, v);
+          sfilt[e] = v * (saj[e] + sai[i * R + c]) + get_res(rbf, e) * (staj[e] + stai[i * R + c]);
+        } else {
+          const float v = rbf[e] * (-2.f * rbf_b[c] * (tt[j] - rbf_m[c])) * stt[j];
+          trbf[e] = v;
+          sfilt[e] = v * (saj[e] + sai[i * R + c]) + rbf[e] * (staj[e] + stai[i * R + c]);
+        }
       }
     }
     __syncthreads();
@@ -208,18 +243,23 @@ __device__ __forceinline__ void jvp_layer(const Dims& d, const JvpSmem& S, int b
 
     // t_e0 = t_o_j[j] + t_o_i[i] + t_filtered @ w_o_f + t_r * w_o_r; se = dsilu(e0) * t_e0
     {
-      const float* e0 = edge(RS, RS_E0, H);
-      float* te0 = edge(TR, RS_E0, H);
+      const auto* e0 = edge(RS, RS_E0, H);
+      auto* te0 = edge(TR, RS_E0, H);
       auto st_te0 = [&](int r, int c, float a) {
         const float v = stoj[r * H + c] + stoi[i * H + c] + a + str[r] * w_o_r[c];
-        te0[r * H + c] = v;
-        se[r * H + c] = dsiluf_(e0[r * H + c]) * v;
+        if constexpr (kE16) {
+          put_res(te0, r * H + c, v);
+          se[r * H + c] = dsiluf_(get_res(e0, r * H + c)) * v;
+        } else {
+          te0[r * H + c] = v;
+          se[r * H + c] = dsiluf_(e0[r * H + c]) * v;
+        }
       };
       if constexpr (kTc) {
-        if (tc_dims(d)) mm_tc_small(N, R, H, sfilt, R, W(W_O_F), st_te0);
-        else mm_jvp(N, R, H, sfilt, R, W(W_O_F), st_te0);
+        if (tc_dims(d)) mm_tc_small<kPasses>(N, R, H, sfilt, R, W(W_O_F), st_te0);
+        else mm_jvp<kE16>(N, R, H, sfilt, R, W(W_O_F), st_te0);
       } else {
-        mm_jvp(N, R, H, sfilt, R, W(W_O_F), st_te0);
+        mm_jvp<kE16>(N, R, H, sfilt, R, W(W_O_F), st_te0);
       }
     }
     __syncthreads();
@@ -227,16 +267,17 @@ __device__ __forceinline__ void jvp_layer(const Dims& d, const JvpSmem& S, int b
 
     // t_h_e = (dsilu(e0) * t_e0) @ w_o1
     {
-      float* the = edge(TR, RS_H_E, H);
+      auto* the = edge(TR, RS_H_E, H);
       auto st_the = [&](int r, int c, float a) {
         she[r * H + c] = a;
-        the[r * H + c] = a;
+        if constexpr (kE16) put_res(the, r * H + c, a);
+        else the[r * H + c] = a;
       };
       if constexpr (kTc) {
-        if (tc_dims(d)) mm_tc_small(N, H, H, se, H, W(W_O1), st_the);
-        else mm_jvp(N, H, H, se, H, W(W_O1), st_the);
+        if (tc_dims(d)) mm_tc_small<kPasses>(N, H, H, se, H, W(W_O1), st_the);
+        else mm_jvp<kE16>(N, H, H, se, H, W(W_O1), st_the);
       } else {
-        mm_jvp(N, H, H, se, H, W(W_O1), st_the);
+        mm_jvp<kE16>(N, H, H, se, H, W(W_O1), st_the);
       }
     }
     __syncthreads();
@@ -244,10 +285,11 @@ __device__ __forceinline__ void jvp_layer(const Dims& d, const JvpSmem& S, int b
 
     // t_sem_pre = t_h_e @ w_sem
     {
-      float* tsem = edge(TR, RS_SEM_PRE, K);
-      mm_jvp(N, H, K, she, H, W(W_SEM), [&](int r, int c, float a) {
+      auto* tsem = edge(TR, RS_SEM_PRE, K);
+      mm_jvp<kE16>(N, H, K, she, H, W(W_SEM), [&](int r, int c, float a) {
         stl[r * K + c] = a;
-        tsem[r * K + c] = a;
+        if constexpr (kE16) put_res(tsem, r * K + c, a);
+        else tsem[r * K + c] = a;
       });
     }
     __syncthreads();
@@ -257,24 +299,34 @@ __device__ __forceinline__ void jvp_layer(const Dims& d, const JvpSmem& S, int b
     // dcelu(sem_pre) * t_sem_pre (the additive masks are constant),
     // t_att = att * (t_logits - sum_j att * t_logits); one warp per head
     {
-      const float* att = edge(RS, RS_ATT, K);
-      const float* sem = edge(RS, RS_SEM_PRE, K);
-      float* tatt = edge(TR, RS_ATT, K);
+      const auto* att = edge(RS, RS_ATT, K);
+      const auto* sem = edge(RS, RS_SEM_PRE, K);
+      auto* tatt = edge(TR, RS_ATT, K);
       for (int k = warp; k < K; k += nwarp) {
         float s = 0.f;
         for (int j = lane; j < N; j += 32) {
-          const float sp = sem[j * K + k];
-          const float tl = (sp > 0.f ? 1.f : expf(sp / 2.f)) * stl[j * K + k];
-          stl[j * K + k] = tl;
-          s += att[j * K + k] * tl;
+          if constexpr (kE16) {
+            const float sp = get_res(sem, j * K + k);
+            const float tl = (sp > 0.f ? 1.f : expf(sp / 2.f)) * stl[j * K + k];
+            stl[j * K + k] = tl;
+            s += get_res(att, j * K + k) * tl;
+          } else {
+            const float sp = sem[j * K + k];
+            const float tl = (sp > 0.f ? 1.f : expf(sp / 2.f)) * stl[j * K + k];
+            stl[j * K + k] = tl;
+            s += att[j * K + k] * tl;
+          }
         }
         s = warp_sum(s);
         for (int j = lane; j < N; j += 32) {
-          const float a = att[j * K + k];
+          float a;
+          if constexpr (kE16) a = get_res(att, j * K + k);
+          else a = att[j * K + k];
           const float v = a * (stl[j * K + k] - s);
           satt[j * K + k] = a;
           stat[j * K + k] = v;
-          tatt[j * K + k] = v;
+          if constexpr (kE16) put_res(tatt, j * K + k, v);
+          else tatt[j * K + k] = v;
         }
       }
     }
@@ -282,10 +334,13 @@ __device__ __forceinline__ void jvp_layer(const Dims& d, const JvpSmem& S, int b
 
     // t_he_att[j, h*K + k] = t_h_e[j, h] * att[j, k] + h_e[j, h] * t_att[j, k]
     {
-      const float* h_e = edge(RS, RS_H_E, H);
+      const auto* h_e = edge(RS, RS_H_E, H);
       for (int e = tid; e < N * HK; e += nt) {
         const int j = e / HK, q = e % HK, h = q / K, k = q % K;
-        if constexpr (kTc)
+        if constexpr (kE16)  // att and h_e are bf16 values: both products exact
+          shea[j * ldx + q] = bf16r(she[j * H + h]) * satt[j * K + k] +
+                              get_res(h_e, j * H + h) * bf16r(stat[j * K + k]);
+        else if constexpr (kTc)
           shea[j * ldx + q] = she[j * H + h] * satt[j * K + k] + h_e[j * H + h] * stat[j * K + k];
         else
           shea[e] = she[j * H + h] * satt[j * K + k] + h_e[j * H + h] * stat[j * K + k];
@@ -304,19 +359,22 @@ __device__ __forceinline__ void jvp_layer(const Dims& d, const JvpSmem& S, int b
       sthatt[i * HK + q] = s;
     }
     {
-      const float* cf = edge(RS, RS_COEFF, C);
-      float* tcf = edge(TR, RS_COEFF, C);
+      const auto* cf = edge(RS, RS_COEFF, C);
+      auto* tcf = edge(TR, RS_COEFF, C);
       auto st_tcoeff = [&](int r, int c, float a) {
-        const float f = cf[r * C + c];
+        float f;
+        if constexpr (kE16) f = get_res(cf, r * C + c);
+        else f = cf[r * C + c];
         const float v = (1.f - f * f) * a;
         scf[r * C + c] = v;
-        tcf[r * C + c] = v;
+        if constexpr (kE16) put_res(tcf, r * C + c, v);
+        else tcf[r * C + c] = v;
       };
       if constexpr (kTc) {
-        if (tc_dims(d)) mm_tc<3>(N, shea, ldx, W(W_XMIX), ring, st_tcoeff);
-        else mm_jvp(N, HK, C, shea, ldx, W(W_XMIX), st_tcoeff);
+        if (tc_dims(d)) mm_tc<3, kPasses>(N, shea, ldx, W(W_XMIX), ring, st_tcoeff);
+        else mm_jvp<kE16>(N, HK, C, shea, ldx, W(W_XMIX), st_tcoeff);
       } else {
-        mm_jvp(N, HK, C, shea, HK, W(W_XMIX), st_tcoeff);
+        mm_jvp<kE16>(N, HK, C, shea, HK, W(W_XMIX), st_tcoeff);
       }
     }
     __syncthreads();
@@ -324,19 +382,33 @@ __device__ __forceinline__ void jvp_layer(const Dims& d, const JvpSmem& S, int b
 
     // t_pooled_k[i] = sum_j t_coeff * u_k + coeff * t_u_k, u_k = d_k / (r + 1e-5)
     {
-      const float* cf = edge(RS, RS_COEFF, C);
+      const auto* cf = edge(RS, RS_COEFF, C);
       for (int c = tid; c < C; c += nt) {
         float p[3] = {0.f, 0.f, 0.f};
         for (int j = 0; j < N; ++j) {
-          const float tc = scf[j * C + c], f = cf[j * C + c];
+          float tc, f;
+          if constexpr (kE16) {
+            tc = scf[j * C + c];
+            f = get_res(cf, j * C + c);
+          } else {
+            tc = scf[j * C + c], f = cf[j * C + c];
+          }
           const float ir = sir[j], tir = stir[j];
 #pragma unroll
           for (int k = 0; k < 3; ++k)
             p[k] += tc * (sd[k * N + j] * ir) + f * (std_[k * N + j] * ir + sd[k * N + j] * tir);
         }
-        node(TR, RS_POOL0, C)[i * C + c] = p[0];
-        node(TR, RS_POOL1, C)[i * C + c] = p[1];
-        node(TR, RS_POOL2, C)[i * C + c] = p[2];
+        if constexpr (kE16) {
+#pragma unroll
+          for (int k = 0; k < 3; ++k) {
+            put_res(node(TR, RS_POOL0 + k, C), i * C + c, p[k]);
+            tpool16[((size_t)k * B + b) * N * C + i * C + c] = p[k];
+          }
+        } else {
+          node(TR, RS_POOL0, C)[i * C + c] = p[0];
+          node(TR, RS_POOL1, C)[i * C + c] = p[1];
+          node(TR, RS_POOL2, C)[i * C + c] = p[2];
+        }
       }
     }
     __syncthreads();
@@ -344,12 +416,24 @@ __device__ __forceinline__ void jvp_layer(const Dims& d, const JvpSmem& S, int b
   }
 
   // ---- node phase ------------------------------------------------------
-  const float* pool[3] = {node(RS, RS_POOL0, C), node(RS, RS_POOL1, C), node(RS, RS_POOL2, C)};
-  const float* tpool[3] = {node(TR, RS_POOL0, C), node(TR, RS_POOL1, C), node(TR, RS_POOL2, C)};
+  const ResOf<kE16>* pool[3] = {node(RS, RS_POOL0, C), node(RS, RS_POOL1, C),
+                                node(RS, RS_POOL2, C)};
+  const float* tpool[3];
+  if constexpr (kE16) {  // the f32 tangent pooled vectors of the scratch
+#pragma unroll
+    for (int k = 0; k < 3; ++k) tpool[k] = tpool16 + ((size_t)k * B + b) * N * C;
+  } else {
+    tpool[0] = node(TR, RS_POOL0, C);
+    tpool[1] = node(TR, RS_POOL1, C);
+    tpool[2] = node(TR, RS_POOL2, C);
+  }
   for (int e = tid; e < N * C; e += nt) {  // t_pool_sq = sum_k 2 (p_k / n)(t_p_k / n)
     float s = 0.f;
 #pragma unroll
-    for (int k = 0; k < 3; ++k) s += 2.f * (pool[k][e] / n_eff) * (tpool[k][e] / n_eff);
+    for (int k = 0; k < 3; ++k) {
+      if constexpr (kE16) s += 2.f * (get_res(pool[k], e) / n_eff) * (tpool[k][e] / n_eff);
+      else s += 2.f * (pool[k][e] / n_eff) * (tpool[k][e] / n_eff);
+    }
     scf[e] = s;
   }
   {
@@ -365,20 +449,30 @@ __device__ __forceinline__ void jvp_layer(const Dims& d, const JvpSmem& S, int b
   __syncthreads();
 
   {
-    const float* ps0 = node(RS, RS_PS0, H);
-    float* tps0 = node(TR, RS_PS0, H);
+    const auto* ps0 = node(RS, RS_PS0, H);
+    auto* tps0 = node(TR, RS_PS0, H);
     mm_jvp(N, C, H, scf, C, W(W_POST0), [&](int r, int c, float a) {
-      tps0[r * H + c] = a;
-      se[r * H + c] = dsiluf_(ps0[r * H + c]) * a;
+      if constexpr (kE16) {
+        put_res(tps0, r * H + c, a);
+        se[r * H + c] = dsiluf_(get_res(ps0, r * H + c)) * a;
+      } else {
+        tps0[r * H + c] = a;
+        se[r * H + c] = dsiluf_(ps0[r * H + c]) * a;
+      }
     });
   }
   __syncthreads();
   {
-    const float* ps1 = node(RS, RS_PS1, H);
-    float* tps1 = node(TR, RS_PS1, H);
+    const auto* ps1 = node(RS, RS_PS1, H);
+    auto* tps1 = node(TR, RS_PS1, H);
     mm_jvp(N, H, H, se, H, W(W_POST1), [&](int r, int c, float a) {
-      tps1[r * H + c] = a;
-      she[r * H + c] = dsiluf_(ps1[r * H + c]) * a;  // t_h_comb
+      if constexpr (kE16) {
+        put_res(tps1, r * H + c, a);
+        she[r * H + c] = dsiluf_(get_res(ps1, r * H + c)) * a;  // t_h_comb
+      } else {
+        tps1[r * H + c] = a;
+        she[r * H + c] = dsiluf_(ps1[r * H + c]) * a;  // t_h_comb
+      }
     });
   }
   __syncthreads();
@@ -392,56 +486,73 @@ __device__ __forceinline__ void jvp_layer(const Dims& d, const JvpSmem& S, int b
   mm_jvp(N, H, H, she, H, W(W_NODE_COMB), [&](int r, int c, float a) { stnp[r * H + c] += a; });
   __syncthreads();
   {
-    const float* np = node(RS, RS_NODE_PRE, H);
-    float* tnp = node(TR, RS_NODE_PRE, H);
+    const auto* np = node(RS, RS_NODE_PRE, H);
+    auto* tnp = node(TR, RS_NODE_PRE, H);
     for (int e = tid; e < N * H; e += nt) {
-      tnp[e] = stnp[e];
-      stnp[e] = dsiluf_(np[e]) * stnp[e];
+      if constexpr (kE16) {
+        put_res(tnp, e, stnp[e]);
+        stnp[e] = dsiluf_(get_res(np, e)) * stnp[e];
+      } else {
+        tnp[e] = stnp[e];
+        stnp[e] = dsiluf_(np[e]) * stnp[e];
+      }
     }
   }
   __syncthreads();
   {
-    float* tuv = node(TR, RS_UV, F);
+    auto* tuv = node(TR, RS_UV, F);
     mm_jvp(N, H, F, stnp, H, W(W_NODE1), [&](int r, int c, float a) {
-      tuv[r * F + c] = a;
+      if constexpr (kE16) put_res(tuv, r * F + c, a);
+      else tuv[r * F + c] = a;
       stuv[r * F + c] = a;
     });
   }
   __syncthreads();
   {  // t_h_out = th + dsilu(uv) * t_uv
-    const float* uv = node(RS, RS_UV, F);
-    for (int e = tid; e < N * F; e += nt) sth[e] += dsiluf_(uv[e]) * stuv[e];
+    const auto* uv = node(RS, RS_UV, F);
+    for (int e = tid; e < N * F; e += nt) {
+      if constexpr (kE16) sth[e] += dsiluf_(get_res(uv, e)) * stuv[e];
+      else sth[e] += dsiluf_(uv[e]) * stuv[e];
+    }
   }
   __syncthreads();
 
   // velocity gate: t_g0 = t_h_out @ w_vel0, t_g1 = (dsilu(g0) * t_g0) @ w_vel1
   {
-    const float* g0 = node(RS, RS_G0, H);
-    float* tg0 = node(TR, RS_G0, H);
+    const auto* g0 = node(RS, RS_G0, H);
+    auto* tg0 = node(TR, RS_G0, H);
     mm_jvp(N, F, H, sth, F, W(W_VEL0), [&](int r, int c, float a) {
-      tg0[r * H + c] = a;
-      stg0[r * H + c] = dsiluf_(g0[r * H + c]) * a;
+      if constexpr (kE16) {
+        put_res(tg0, r * H + c, a);
+        stg0[r * H + c] = dsiluf_(get_res(g0, r * H + c)) * a;
+      } else {
+        tg0[r * H + c] = a;
+        stg0[r * H + c] = dsiluf_(g0[r * H + c]) * a;
+      }
     });
   }
   __syncthreads();
   {
     const float* wv1 = W(W_VEL1);
-    float* tg1 = node(TR, RS_G1, 1);
+    auto* tg1 = node(TR, RS_G1, 1);
     for (int i = warp; i < N; i += nwarp) {
       float s = 0.f;
       for (int h = lane; h < H; h += 32) s += stg0[i * H + h] * wv1[h];
       s = warp_sum(s);
       if (lane == 0) {
         stg1[i] = s;
-        tg1[i] = s;
+        if constexpr (kE16) put_res(tg1, i, s);
+        else tg1[i] = s;
       }
     }
   }
   __syncthreads();
   {
-    const float* g1 = node(RS, RS_G1, 1);
+    const auto* g1 = node(RS, RS_G1, 1);
     for (int i = tid; i < N; i += nt) {
-      const float sg = sigmoidf_(g1[i]);
+      float sg;
+      if constexpr (kE16) sg = sigmoidf_(get_res(g1, i));
+      else sg = sigmoidf_(g1[i]);
       const float gate = 2.f * sg, tgate = 2.f * sg * (1.f - sg) * stg1[i];
 #pragma unroll
       for (int k = 0; k < 3; ++k) {

@@ -3,7 +3,9 @@
 // block. resid_tbwd.cu runs it over depth in reverse (#10's tangent chain);
 // fused_bwd.cu runs it in phase 2 of the fused training backward (#12). See
 // resid_tbwd.cu for the design and what bounds it. Its kTc instantiation
-// (#12) runs the x-mixing pullback on the tensor cores (mma_tf32x3.cuh).
+// (#12) runs the x-mixing pullback on the tensor cores (mma_tf32x3.cuh); its
+// kE16 instantiation (#12 in resid_ef's bf16 tier, fused_bwd16.cu) is the
+// tangent pullback of that tier.
 #pragma once
 
 #include "mma_tf32x3.cuh"
@@ -14,10 +16,10 @@ namespace sake {
 constexpr int kTbTileCols = 2;        // columns per tile in mm_tiled
 constexpr int kTbTiledMinCols = 128;  // narrowest tiled product
 
-template <class ST>
+template <bool kRoundA = false, class ST>
 __device__ __forceinline__ void mm_tb(int n, int kd, int m, const float* A, int lda,
                                       const float* __restrict__ W, ST st) {
-  mm_smem<kTbTileCols, kTbTiledMinCols>(n, kd, m, A, lda, W, st);
+  mm_smem<kTbTileCols, kTbTiledMinCols, kRoundA>(n, kd, m, A, lda, W, st);
 }
 
 // element i of a dual buffer whose tangents start n floats after its values
@@ -110,8 +112,15 @@ __device__ __forceinline__ void tbwd_begin(const Dims& d, const TbSmem& S, int B
 // null. gscratch: this molecule's 2N * (H*K + C) floats of device memory.
 // kTc: the x-mixing pullback (2N rows) and the edge products on the tensor
 // cores in 3xTF32 (S from carve_tb<true>, ring: tc_ring_floats) where tc_dims
-// allows; without it every product runs on the CUDA cores.
-template <bool kTc = false>
+// allows; without it every product runs on the CUDA cores. kE16: the jvp of
+// bwd_layer's kE16 (resid_ef's bf16 tier): RS and TR are Resids16, read
+// widened (get_res); each edge product rounds its value rows and its tangent
+// rows apart (JAX's jvp of a rounding rounds the tangent), one pass on the
+// tensor cores (LT holds the four edge weights rounded); the head expansion's
+// terms bf16(d_he_att att) and bf16(d_he_att h_e) are rounded value and
+// tangent apart before their sums (att, h_e and their tangents are bf16
+// values); the rows stay f32.
+template <bool kTc = false, bool kE16 = false>
 __device__ __forceinline__ void tbwd_layer(const Dims& d, const TbSmem& S, int b, int l,
                                            float u, const Leaves& L, const Leaves& LT,
                                            const float* __restrict__ bh,
@@ -119,10 +128,12 @@ __device__ __forceinline__ void tbwd_layer(const Dims& d, const TbSmem& S, int b
                                            const float* __restrict__ bv,
                                            const float* __restrict__ tbh,
                                            const float* __restrict__ tbx,
-                                           const float* __restrict__ tbv, const Resids& RS,
-                                           const Resids& TR, const Rows& RW, const Rows& TW,
-                                           float* gscratch, float* add_h, float* add_x,
-                                           float* add_v, float* ring = nullptr) {
+                                           const float* __restrict__ tbv,
+                                           const ResidsOf<kE16>& RS, const ResidsOf<kE16>& TR,
+                                           const Rows& RW, const Rows& TW, float* gscratch,
+                                           float* add_h, float* add_x, float* add_v,
+                                           float* ring = nullptr) {
+  constexpr int kPasses = kE16 ? 1 : 3;  // of the tensor-core products
   const int B = d.B, N = d.N, F = d.F, H = d.H, R = d.R, K = d.K, C = d.C;
   const int HK = H * K, NN = N * N;
   [[maybe_unused]] const int ldc = kTc ? tc_ld(d, C) : C;  // kTc: d_xm's row stride
@@ -153,7 +164,10 @@ __device__ __forceinline__ void tbwd_layer(const Dims& d, const TbSmem& S, int b
   auto WT = [&](int leaf) { return LT.at(leaf, l); };
   // dual element of a node residual stream r of width ch (atom i, column c)
   auto nres = [&](int r, int ch, size_t at) {
-    return Dl{RS.p[r][lb * N * ch + at], TR.p[r][lb * N * ch + at]};
+    if constexpr (kE16)
+      return Dl{get_res(RS.p[r], lb * N * ch + at), get_res(TR.p[r], lb * N * ch + at)};
+    else
+      return Dl{RS.p[r][lb * N * ch + at], TR.p[r][lb * N * ch + at]};
   };
   // a node row (atom i) of width ch: its value and tangent rows
   auto node_row = [&](int row, int i, int ch) { return RW.p[row] + (lb * N + i) * ch; };
@@ -245,7 +259,12 @@ __device__ __forceinline__ void tbwd_layer(const Dims& d, const TbSmem& S, int b
   const float* rbf_m = W(RBF_M);
   const float* rbf_b = W(RBF_B);
   const size_t pl = lb * N * C;  // this molecule and layer's pooled planes
-  auto pool = [&](int k, size_t at) { return Dl{RS.p[RS_POOL0 + k][pl + at], TR.p[RS_POOL0 + k][pl + at]}; };
+  auto pool = [&](int k, size_t at) {
+    if constexpr (kE16)
+      return Dl{get_res(RS.p[RS_POOL0 + k], pl + at), get_res(TR.p[RS_POOL0 + k], pl + at)};
+    else
+      return Dl{RS.p[RS_POOL0 + k][pl + at], TR.p[RS_POOL0 + k][pl + at]};
+  };
 
   // the node rows and their tangents
   for (int e = tid; e < N * H; e += nt) {
@@ -289,7 +308,13 @@ __device__ __forceinline__ void tbwd_layer(const Dims& d, const TbSmem& S, int b
     const size_t erow = lb * NN + (size_t)i * N;
     // dual element of an edge residual stream r of width ch at sender j
     auto eres = [&](int r, int ch, size_t at) {
-      return Dl{RS.p[r][erow * ch + at], TR.p[r][erow * ch + at]};
+      if constexpr (kE16) {  // r and t: the f32 streams (ch 1)
+        if (r == RS_R) return Dl{res_r(RS)[erow + at], res_r(TR)[erow + at]};
+        if (r == RS_T) return Dl{res_t(RS)[erow + at], res_t(TR)[erow + at]};
+        return Dl{get_res(RS.p[r], erow * ch + at), get_res(TR.p[r], erow * ch + at)};
+      } else {
+        return Dl{RS.p[r][erow * ch + at], TR.p[r][erow * ch + at]};
+      }
     };
     auto edge_row = [&](int row, int ch) { return RW.p[row] + erow * ch; };
     auto edge_trow = [&](int row, int ch) { return TW.p[row] + erow * ch; };
@@ -375,14 +400,14 @@ __device__ __forceinline__ void tbwd_layer(const Dims& d, const TbSmem& S, int b
     };
     if constexpr (kTc) {
       if (tc_dims(d)) {  // the values' rows, then the tangents' (three n8 tiles each)
-        mm_tc<3>(N, sX, ldc, WT(W_XMIX), ring, st_dha);
-        mm_tc<3>(N, sX + (size_t)N * ldc, ldc, WT(W_XMIX), ring,
-                 [&](int r, int c, float a) { st_dha(N + r, c, a); });
+        mm_tc<3, kPasses>(N, sX, ldc, WT(W_XMIX), ring, st_dha);
+        mm_tc<3, kPasses>(N, sX + (size_t)N * ldc, ldc, WT(W_XMIX), ring,
+                          [&](int r, int c, float a) { st_dha(N + r, c, a); });
       } else {
-        mm_tb(2 * N, C, HK, sX, ldc, WT(W_XMIX), st_dha);
+        mm_tb<kE16>(2 * N, C, HK, sX, ldc, WT(W_XMIX), st_dha);
       }
     } else {
-      mm_tb(2 * N, C, HK, sX, C, WT(W_XMIX), st_dha);
+      mm_tb<kE16>(2 * N, C, HK, sX, C, WT(W_XMIX), st_dha);
     }
     __syncthreads();
     SAKE_PROBE(PR_TB_XMIX);
@@ -392,13 +417,27 @@ __device__ __forceinline__ void tbwd_layer(const Dims& d, const TbSmem& S, int b
     for (int e = tid; e < N * H; e += nt) {
       const int j = e / H, h = e % H;
       Dl s{0.f, 0.f};
-      for (int k = 0; k < K; ++k) s += ld(sY, NHK, j * HK + h * K + k) * ld(satt, NK, j * K + k);
+      for (int k = 0; k < K; ++k) {
+        if constexpr (kE16) {
+          const Dl q = ld(sY, NHK, j * HK + h * K + k) * ld(satt, NK, j * K + k);
+          s += Dl{bf16r(q.v), bf16r(q.t)};
+        } else {
+          s += ld(sY, NHK, j * HK + h * K + k) * ld(satt, NK, j * K + k);
+        }
+      }
       st2(sX, NH, e, s);
     }
     for (int e = tid; e < N * K; e += nt) {
       const int j = e / K, k = e % K;
       Dl s{0.f, 0.f};
-      for (int h = 0; h < H; ++h) s += ld(sY, NHK, j * HK + h * K + k) * eres(RS_H_E, H, (size_t)j * H + h);
+      for (int h = 0; h < H; ++h) {
+        if constexpr (kE16) {
+          const Dl q = ld(sY, NHK, j * HK + h * K + k) * eres(RS_H_E, H, (size_t)j * H + h);
+          s += Dl{bf16r(q.v), bf16r(q.t)};
+        } else {
+          s += ld(sY, NHK, j * HK + h * K + k) * eres(RS_H_E, H, (size_t)j * H + h);
+        }
+      }
       st2(sdat, NK, e, s);
     }
     __syncthreads();
@@ -422,7 +461,8 @@ __device__ __forceinline__ void tbwd_layer(const Dims& d, const TbSmem& S, int b
     }
     __syncthreads();
     SAKE_PROBE(PR_TB_ROW);
-    mm_tb(2 * N, K, H, sdat, K, WT(W_SEM), [&](int r, int c, float a) { sX[r * H + c] += a; });
+    mm_tb<kE16>(2 * N, K, H, sdat, K, WT(W_SEM),
+                [&](int r, int c, float a) { sX[r * H + c] += a; });
     __syncthreads();
     SAKE_PROBE(PR_TB_MM);
 
@@ -433,10 +473,10 @@ __device__ __forceinline__ void tbwd_layer(const Dims& d, const TbSmem& S, int b
     }
     auto st_de0 = [&](int r, int c, float a) { sY[r * H + c] = a; };
     if constexpr (kTc) {
-      if (tc_dims(d)) mm_tc_small(2 * N, H, H, sX, H, WT(W_O1), st_de0);
-      else mm_tb(2 * N, H, H, sX, H, WT(W_O1), st_de0);
+      if (tc_dims(d)) mm_tc_small<kPasses>(2 * N, H, H, sX, H, WT(W_O1), st_de0);
+      else mm_tb<kE16>(2 * N, H, H, sX, H, WT(W_O1), st_de0);
     } else {
-      mm_tb(2 * N, H, H, sX, H, WT(W_O1), st_de0);
+      mm_tb<kE16>(2 * N, H, H, sX, H, WT(W_O1), st_de0);
     }
     __syncthreads();
     SAKE_PROBE(PR_TB_MM);
@@ -466,10 +506,10 @@ __device__ __forceinline__ void tbwd_layer(const Dims& d, const TbSmem& S, int b
     // o_f = (rbf * pre) @ w_o_f: d_filtered (into sX)
     auto st_dfilt = [&](int r, int c, float a) { sX[r * R + c] = a; };
     if constexpr (kTc) {
-      if (tc_dims(d)) mm_tc_small(2 * N, H, R, sY, H, WT(W_O_F), st_dfilt);
-      else mm_tb(2 * N, H, R, sY, H, WT(W_O_F), st_dfilt);
+      if (tc_dims(d)) mm_tc_small<kPasses>(2 * N, H, R, sY, H, WT(W_O_F), st_dfilt);
+      else mm_tb<kE16>(2 * N, H, R, sY, H, WT(W_O_F), st_dfilt);
     } else {
-      mm_tb(2 * N, H, R, sY, H, WT(W_O_F), st_dfilt);
+      mm_tb<kE16>(2 * N, H, R, sY, H, WT(W_O_F), st_dfilt);
     }
     __syncthreads();
     SAKE_PROBE(PR_TB_MM);

@@ -150,6 +150,11 @@ def signatures() -> dict:
         # bh, bx, bv, upd, leaves, leaves_t, strides, resid, h_fin, tx0, g_e, readout,
         # tbh, tbx, tbv, tresid, rows, rows_t, t_rows, scratch, dh0, dx0, ro_part
         "sake_fused_bwd": [P] * 27 + dims + [I, I, P],
+        # #11, #12's block and #12's contraction in resid_ef's bf16 tier: the arguments
+        # above, #11 and #12's block with an f32 pooled scratch after them
+        "sake_fused_primal16": [P] * 21 + dims + [I, I, P],
+        "sake_fused_bwd16": [P] * 28 + dims + [I, I, P],
+        "sake_param_grads_aug16": [P] * 13 + [LL, I] + dims + [P],
         # the clock probes (probe.cuh) of #11 and #12, of K1's and K2's sources:
         # out (slots,) u64, reset
         "sake_fused_ef_probe": [P, I],
@@ -218,7 +223,8 @@ def signatures() -> dict:
                "sake_aug_fwd_smem_bytes", "sake_retrace_bwd_smem_bytes",
                "sake_remat_fwd_smem_bytes", "sake_remat_bwd_smem_bytes"):
         out[fn] = (dims, LL)
-    for fn in ("sake_fused_ef_smem_bytes", "sake_fused_bwd_smem_bytes"):  # ..., F0
+    for fn in ("sake_fused_ef_smem_bytes", "sake_fused_bwd_smem_bytes",  # ..., F0
+               "sake_fused_primal16_smem_bytes", "sake_fused_bwd16_smem_bytes"):
         out[fn] = (dims + [I], LL)
     out["sake_fused_remat_ef_smem_bytes"] = (dims + [I, I], LL)
     out["sake_split_smem_bytes"] = ([I, I] + sdims, LL)

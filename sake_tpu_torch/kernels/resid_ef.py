@@ -447,13 +447,18 @@ def layer_param_grads(p: dict, resid: dict, h_in, rows: dict, *, bf16=False) -> 
 
 
 def layer_jvp_resid(p: dict, resid: dict, h, xp, vp, th, txp, tvp, upd, *, n_real=None,
-                    mask=None):
+                    mask=None, bf16=False):
     """Tangent-only forward of one layer (JAX ``:791-975``): pushes the
     tangent state ``(th, txp, tvp)`` through :func:`layer_fwd_resid`'s map
     on the saved primal residuals. Only ``a_j``/``a_i`` and the head
     expansion ``h_e (x) att2`` are recomputed, as in the pullback. Returns
     ``(th_out, txp_out, tvp_out, tresid)``, ``tresid`` the tangent of the
-    residual dict. The plain version of the ``resid_jvp`` kernel."""
+    residual dict. The plain version of the ``resid_jvp`` kernel. ``bf16``:
+    the bf16 tier's tangent products (JAX's with ``mm_edge`` in bf16): t_o_f,
+    t_h_e and t_sem_pre round both operands; the head expansions ``bf16(h_e)``,
+    ``bf16(att2)``, ``bf16(t_h_e)`` and ``bf16(t_att2)`` are rounded before
+    ``t_he_att`` forms, and the x-mixing rounds ``t_he_att`` again; node
+    products and the tangent residuals stay f32 (the streams round them)."""
     B, N, F = h.shape
     n_eff = float(n_real if n_real is not None else N)
 
@@ -478,10 +483,11 @@ def layer_jvp_resid(p: dict, resid: dict, h, xp, vp, th, txp, tvp, upd, *, n_rea
     t_t = -t * t_r
     t_rbf = rbf * (-2.0 * p["rbf_b"] * (t - p["rbf_m"])) * t_t
     t_filtered = t_rbf * pre + rbf * t_pre
+    me = _edge_mm(bf16)
     t_e0 = ((th @ p["w_o_j"])[:, None] + (th @ p["w_o_i"])[:, :, None]
-            + t_filtered @ p["w_o_f"] + t_r * p["w_o_r"][0])
-    t_h_e = (_dsilu(e0) * t_e0) @ p["w_o1"]
-    t_sem_pre = t_h_e @ p["w_sem"]
+            + me(t_filtered, p["w_o_f"]) + t_r * p["w_o_r"][0])
+    t_h_e = me(_dsilu(e0) * t_e0, p["w_o1"])
+    t_sem_pre = me(t_h_e, p["w_sem"])
     dcelu = torch.where(sem_pre > 0, torch.ones_like(sem_pre), torch.exp(sem_pre / 2.0))
     t_logits = dcelu * t_sem_pre  # the additive -INF masks are constant
     # softmax jvp on the saved raw softmax (over senders)
@@ -500,10 +506,11 @@ def layer_jvp_resid(p: dict, resid: dict, h, xp, vp, th, txp, tvp, upd, *, n_rea
 
     K = att.shape[-1]
     H = h_e.shape[-1]
-    t_he_att = (t_h_e[..., :, None] * att2[..., None, :]
-                + h_e[..., :, None] * t_att2[..., None, :]).reshape(B, N, N, H * K)
+    rd = bf16_round if bf16 else (lambda a: a)  # JAX heE, attE, t_heE, t_attE
+    t_he_att = (rd(t_h_e)[..., :, None] * rd(att2)[..., None, :]
+                + rd(h_e)[..., :, None] * rd(t_att2)[..., None, :]).reshape(B, N, N, H * K)
     # the saved coeff is masked; at mask = 0 the (1 - coeff^2) = 1 is zeroed
-    t_coeff = (1.0 - coeff * coeff) * (t_he_att @ p["w_xmix"])
+    t_coeff = (1.0 - coeff * coeff) * me(t_he_att, p["w_xmix"])
     if mask is not None:
         t_coeff = t_coeff * mask
 
@@ -548,7 +555,8 @@ def layer_jvp_resid(p: dict, resid: dict, h, xp, vp, th, txp, tvp, upd, *, n_rea
 
 
 def layer_bwd_resid_jvp(p: dict, resid: dict, h_in, xp, vp, upd, d_h_out, d_xp_out,
-                        d_vp_out, tresid: dict, th, txp, tvp, *, n_real=None, mask=None):
+                        d_vp_out, tresid: dict, th, txp, tvp, *, n_real=None, mask=None,
+                        bf16=False):
     """The tangent pullback of one layer: the jvp of :func:`layer_bwd_resid`
     (with its cotangent rows) along ``(tresid, th, txp, tvp)``, the
     cotangents ``(d_h_out, d_xp_out, d_vp_out)`` held fixed, as the JAX
@@ -557,26 +565,31 @@ def layer_bwd_resid_jvp(p: dict, resid: dict, h_in, xp, vp, upd, d_h_out, d_xp_o
     Returns ``((d_h, d_xp, d_vp, rows), (hc, xc, vc, t_rows))``: the pullback
     ``J^T c`` and its rows, and their tangents, whose first three are the
     Hessian-vector term the primal cotangent chain adds. The plain version
-    of the ``resid_tbwd`` kernel."""
+    of the ``resid_tbwd`` kernel. ``bf16``: the jvp of the bf16 tier's
+    pullback; ``torch.func.jvp`` of a rounding to bf16 rounds the tangent too
+    (as JAX's jvp of ``astype``), so each edge product rounds its value
+    operand and its tangent operand apart."""
 
     def pullback(resid_, h_, xp_, vp_):
         return layer_bwd_resid(p, resid_, h_, xp_, vp_, upd, d_h_out, d_xp_out, d_vp_out,
-                               n_real=n_real, mask=mask, want_param_grads="rows")
+                               n_real=n_real, mask=mask, want_param_grads="rows", bf16=bf16)
 
     return torch.func.jvp(pullback, (resid, h_in, list(xp), list(vp)),
                           (tresid, th, list(txp), list(tvp)))
 
 
 def layer_param_grads_tangent(p: dict, resid: dict, h_in, rows: dict, tresid: dict, th,
-                              t_rows: dict) -> dict:
+                              t_rows: dict, *, bf16=False) -> dict:
     """Tangent of :func:`layer_param_grads` along ``(tresid, th, t_rows)``:
     ``t_a^T g + a^T t_g`` for every contraction and the tangents of the bias
     and offset row sums, the JAX ``contract_param_pair_tangents`` plus the
     tangent of its bias ``dW`` (``resid_ef.py:738-788``). With the rows of
     :func:`layer_bwd_resid_jvp` it is the second-order half of one layer's
     parameter gradient; the plain version of the tangent half of the
-    ``param_grads_aug`` kernel."""
-    return torch.func.jvp(lambda r_, h_, w_: layer_param_grads(p, r_, h_, w_),
+    ``param_grads_aug`` kernel. ``bf16``: the bf16 tier's, ``t_a^T g`` and
+    ``a^T t_g`` of ``EDGE_MM_LEAVES`` each with both operands rounded (JAX
+    ``contract_param_pair_tangents`` with ``mm_edge_t`` in bf16)."""
+    return torch.func.jvp(lambda r_, h_, w_: layer_param_grads(p, r_, h_, w_, bf16=bf16),
                           (resid, h_in, rows), (tresid, th, t_rows))[1]
 
 

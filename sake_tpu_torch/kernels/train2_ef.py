@@ -51,6 +51,13 @@ runs the tangent forward, the seed head and both cotangent chains in one
 kernel, then the augmented contraction sums the leaves' and the readout's
 gradients).
 
+Fused mode also runs in resid_ef's bf16 tier (JAX's production setting,
+``edge_matmul_dtype`` and ``resid_dtype`` bf16): #11 (``csrc/fused_ef16.cu``),
+#12's block (``csrc/fused_bwd16.cu``) and the augmented contraction
+(``sake_param_grads_aug16``) are the bodies' bf16 instantiations, the plain
+versions take the tier from the streams (:func:`resid_ef.stream_tier`); the
+other modes compute in f32 only.
+
 :func:`make_ef_train2` wraps it as a ``torch.autograd.Function``. Each
 kernel wrapper takes its plain version only for CPU tensors; on a CUDA
 tensor it launches its kernel or raises.
@@ -68,7 +75,7 @@ from sake_tpu_torch.kernels import build, resid_ef
 from sake_tpu_torch.kernels.depthgrid_ef import layer_forward_wide
 from sake_tpu_torch.kernels.functional import (
     ModelParams,
-    _f32_only,
+    _bf16_edge_tier,
     _silu,
     embed,
     flat_params,
@@ -88,6 +95,7 @@ from sake_tpu_torch.kernels.resid_ef import (
     _dims,
     _dsilu,
     _layer,
+    _layer_f32,
     _leaf_shapes,
     _planes,
     _ptrs,
@@ -103,6 +111,8 @@ from sake_tpu_torch.kernels.resid_ef import (
     layer_jvp_resid,
     layer_param_grads,
     layer_param_grads_tangent,
+    stream_dtype,
+    stream_tier,
     unsplit_layer_grads,
 )
 
@@ -115,7 +125,10 @@ def resid_jvp_plain(leaves: dict, fwd: FwdOut, upd: Sequence[float], tx0) -> Fwd
     """Plain version of :func:`resid_jvp`: :func:`layer_jvp_resid` over
     depth from the tangent seed ``(0, tx0 (3, B, N), 0)``, in the layout of
     ``FwdOut`` (tangent boundaries, final tangent state, tangent
-    residuals)."""
+    residuals). In the tier of ``fwd``'s streams (:func:`resid_ef.stream_tier`):
+    in the bf16 tier the tangent streams are bf16 tensors but r and t, as the
+    primal's (``stream_dtype``)."""
+    bf16 = stream_tier(fwd)
     th = torch.zeros_like(fwd.bh[0])
     txp, tvp = _planes(tx0), _planes(torch.zeros_like(tx0))
     tbh, tbx, tbv, tres = [], [], [], {n: [] for n in RESIDS}
@@ -124,13 +137,14 @@ def resid_jvp_plain(leaves: dict, fwd: FwdOut, upd: Sequence[float], tx0) -> Fwd
         tbx.append(_unplanes(txp))
         tbv.append(_unplanes(tvp))
         th, txp, tvp, tr = layer_jvp_resid(
-            layer_leaves(leaves, l), _layer(fwd.resid, l), fwd.bh[l], _planes(fwd.bx[l]),
-            _planes(fwd.bv[l]), th, txp, tvp, u,
+            layer_leaves(leaves, l), _layer_f32(fwd.resid, l), fwd.bh[l], _planes(fwd.bx[l]),
+            _planes(fwd.bv[l]), th, txp, tvp, u, bf16=bf16,
         )
         for n in RESIDS:
             tres[n].append(tr[n])
     return FwdOut(torch.stack(tbh), torch.stack(tbx), torch.stack(tbv), th, _unplanes(txp),
-                  _unplanes(tvp), {n: torch.stack(v) for n, v in tres.items()})
+                  _unplanes(tvp),
+                  {n: torch.stack(v).to(stream_dtype(n, bf16)) for n, v in tres.items()})
 
 
 def resid_tbwd_plain(leaves: dict, fwd: FwdOut, tfwd: FwdOut, upd: Sequence[float], dh, dx,
@@ -141,15 +155,17 @@ def resid_tbwd_plain(leaves: dict, fwd: FwdOut, tfwd: FwdOut, upd: Sequence[floa
     Returns ``(dh0, dx0, dv0, add, rows, t_rows)``: the cotangents of the
     initial state, ``add = (add_h (depth, B, N, F), add_x, add_v (depth, 3,
     B, N))`` the tangents of each layer's pullback (the Hessian terms), and
-    the depth-stacked cotangent rows and their tangents."""
+    the depth-stacked cotangent rows and their tangents. In the tier of
+    ``fwd``'s streams."""
     dxp, dvp = _planes(dx), _planes(dv)
     depth = len(upd)
     per = [None] * depth
+    bf16 = stream_tier(fwd)
     for l in reversed(range(depth)):
         (dh, dxp, dvp, rows), (hc, xc, vc, t_rows) = layer_bwd_resid_jvp(
-            layer_leaves(leaves, l), _layer(fwd.resid, l), fwd.bh[l], _planes(fwd.bx[l]),
-            _planes(fwd.bv[l]), upd[l], dh, dxp, dvp, _layer(tfwd.resid, l), tfwd.bh[l],
-            _planes(tfwd.bx[l]), _planes(tfwd.bv[l]),
+            layer_leaves(leaves, l), _layer_f32(fwd.resid, l), fwd.bh[l], _planes(fwd.bx[l]),
+            _planes(fwd.bv[l]), upd[l], dh, dxp, dvp, _layer_f32(tfwd.resid, l), tfwd.bh[l],
+            _planes(tfwd.bx[l]), _planes(tfwd.bv[l]), bf16=bf16,
         )
         per[l] = (hc, _unplanes(xc), _unplanes(vc), rows, t_rows)
     add = tuple(torch.stack([p[k] for p in per]) for k in range(3))
@@ -161,15 +177,17 @@ def resid_bwd_aug_plain(leaves: dict, fwd: FwdOut, upd: Sequence[float], dh, dx,
                         add: tuple):
     """Plain version of :func:`resid_bwd_aug`: :func:`layer_bwd_resid` with
     its rows in reverse depth, ``add[k][l]`` added to the cotangents leaving
-    layer ``l``. Returns ``(dh0, dx0, dv0, rows)``."""
+    layer ``l``. Returns ``(dh0, dx0, dv0, rows)``. In the tier of ``fwd``'s
+    streams."""
     dxp, dvp = _planes(dx), _planes(dv)
     add_h, add_x, add_v = add
     depth = len(upd)
     rows = [None] * depth
+    bf16 = stream_tier(fwd)
     for l in reversed(range(depth)):
         dh, dxp, dvp, rows[l] = layer_bwd_resid(
-            layer_leaves(leaves, l), _layer(fwd.resid, l), fwd.bh[l], _planes(fwd.bx[l]),
-            _planes(fwd.bv[l]), upd[l], dh, dxp, dvp, want_param_grads="rows",
+            layer_leaves(leaves, l), _layer_f32(fwd.resid, l), fwd.bh[l], _planes(fwd.bx[l]),
+            _planes(fwd.bv[l]), upd[l], dh, dxp, dvp, want_param_grads="rows", bf16=bf16,
         )
         dh = dh + add_h[l]
         dxp = [a + b for a, b in zip(dxp, _planes(add_x[l]))]
@@ -183,13 +201,16 @@ def param_grads_aug_plain(leaves: dict, fwd: FwdOut, tfwd: FwdOut, rows: dict,
     """Plain version of :func:`param_grads_aug`: per layer, the contraction
     of the primal chain's rows (:func:`layer_param_grads`) plus the tangent
     of the contraction of the tangent chain's rows
-    (:func:`layer_param_grads_tangent`). ``{name: (depth, r, c)}``."""
+    (:func:`layer_param_grads_tangent`). ``{name: (depth, r, c)}``. In the
+    tier of ``fwd``'s streams."""
     out = {n: [] for n in LEAF_NAMES}
+    bf16 = stream_tier(fwd)
     for l in range(fwd.bh.shape[0]):
-        p, res = layer_leaves(leaves, l), _layer(fwd.resid, l)
-        g = layer_param_grads(p, res, fwd.bh[l], _layer(rows, l))
+        p, res = layer_leaves(leaves, l), _layer_f32(fwd.resid, l)
+        g = layer_param_grads(p, res, fwd.bh[l], _layer(rows, l), bf16=bf16)
         tg = layer_param_grads_tangent(p, res, fwd.bh[l], _layer(rows_t, l),
-                                       _layer(tfwd.resid, l), tfwd.bh[l], _layer(t_rows, l))
+                                       _layer_f32(tfwd.resid, l), tfwd.bh[l], _layer(t_rows, l),
+                                       bf16=bf16)
         for n in LEAF_NAMES:
             out[n].append(g[n] + tg[n])
     return {n: torch.stack(v) for n, v in out.items()}
@@ -296,19 +317,26 @@ def _check_bnd(name, fwd: FwdOut, dims, dev):
     _check_cuda(f"{name}.bv", fwd.bv, (depth, 3, B, N), dev)
 
 
-def _check_fwd(name, fwd: FwdOut, dims, leaves, dev):
+def _check_fwd(name, fwd: FwdOut, dims, leaves, dev, tier: bool = False):
+    """``fwd``'s boundaries and streams; ``tier``: the kernel also takes the
+    bf16 tier's streams (``stream_dtype``), else they raise."""
     _check_bnd(name, fwd, dims, dev)
-    _check_all(f"{name}.resid", fwd.resid, _resid_shapes(dims, leaves), dev)
+    if stream_tier(fwd) and not tier:
+        raise NotImplementedError(
+            f"{name}: this kernel has no bf16 tier; make_ef_train2 runs the tier in "
+            "aug_mode='fused' only (#11, #12's block and its contraction)")
+    resid_ef._check_resid(fwd.resid, dims, leaves, dev, stream_tier(fwd))
 
 
-def _common(name, leaves, fwd, upd=None, smem_fn=None):
+def _common(name, leaves, fwd, upd=None, smem_fn=None, tier: bool = False):
     """Checks every kernel here makes; returns ``(lib, dims, dev, upd)``, the
-    update gates as the kernels read them (when given)."""
+    update gates as the kernels read them (when given). ``tier``: as
+    :func:`_check_fwd`'s."""
     dims = _dims(leaves, fwd.bh[0])
     B, N, F, H, R, K, C, depth = dims
     dev = fwd.bh.device
     _check_leaves(leaves, dims, dev)
-    _check_fwd("fwd", fwd, dims, leaves, dev)
+    _check_fwd("fwd", fwd, dims, leaves, dev, tier)
     if F != H or (upd is not None and len(upd) != depth):
         raise ValueError(f"{name}: needs hidden width == feature width and one gate per layer")
     lib = build.load()
@@ -430,10 +458,15 @@ def _launch_param_grads_aug(leaves, fwd, tfwd, rows, rows_t, t_rows, ro_part=Non
                             ro_shapes=None):
     """Every leaf's gradient per layer; with ``ro_part (B, len)``, per-molecule
     partials of tensors of ``ro_shapes``, also their sums over the batch
-    (else None)."""
-    lib, dims, dev, _ = _common("param_grads_aug", leaves, fwd)
+    (else None). In the tier of ``fwd``'s streams: the bf16 tier's
+    contraction (``sake_param_grads_aug16``) on the bf16 primal and tangent
+    streams, the four edge leaves' terms with both operands rounded."""
+    lib, dims, dev, _ = _common("param_grads_aug", leaves, fwd, tier=True)
     B, N, F, H, R, K, C, depth = dims
-    _check_fwd("tfwd", tfwd, dims, leaves, dev)
+    bf16 = stream_tier(fwd)
+    _check_fwd("tfwd", tfwd, dims, leaves, dev, tier=True)
+    if stream_tier(tfwd) != bf16:
+        raise ValueError("param_grads_aug: the primal and tangent streams of one tier")
     for name, rw in (("rows", rows), ("rows_t", rows_t), ("t_rows", t_rows)):
         _check_all(name, rw, _row_shapes(dims, leaves), dev)
     shapes = _leaf_shapes(F, H, R, K, C)
@@ -443,7 +476,7 @@ def _launch_param_grads_aug(leaves, fwd, tfwd, rows, rows_t, t_rows, ro_part=Non
     if ro_part is not None:
         _check_cuda("ro_part", ro_part, (B, sum(ro_sizes)), dev)
         ro_out = torch.empty(sum(ro_sizes), device=dev)
-    err = lib.sake_param_grads_aug(
+    err = (lib.sake_param_grads_aug16 if bf16 else lib.sake_param_grads_aug)(
         fwd.bh.data_ptr(), tfwd.bh.data_ptr(), _ptrs([leaves[n] for n in LEAF_NAMES]),
         _strides(leaves), _ptrs([fwd.resid[n] for n in RESIDS]),
         _ptrs([tfwd.resid[n] for n in RESIDS]), _ptrs([rows[n] for n in ROWS]),
@@ -451,7 +484,7 @@ def _launch_param_grads_aug(leaves, fwd, tfwd, rows, rows_t, t_rows, ro_part=Non
         partial.data_ptr(), out.data_ptr(), resid_ef._ptr(ro_part), resid_ef._ptr(ro_out),
         sum(ro_sizes), n_chunks, *dims, resid_ef._stream(dev),
     )
-    build.check(lib, err, "param_grads_aug")
+    build.check(lib, err, "param_grads_aug (bf16)" if bf16 else "param_grads_aug")
     grads = {n: a.view(depth, *shapes[n]) for n, a in zip(LEAF_NAMES, out.split(sizes))}
     if ro_out is None:
         return grads, None
@@ -757,60 +790,78 @@ def _fused_args(name, params, leaves, h0, upd, leaves_t, smem_fn):
 
 
 def fused_primal_plain(params: ModelParams, leaves: dict, h0, xs, upd: Sequence[float],
-                       mask=None):
+                       mask=None, bf16=False):
     """Plain version of :func:`fused_primal` (and of one_ef's kernel): K1's
     plain stack from ``(h0, xs, v = 0)``, the readout (summed over the
     diagonal atoms of ``mask (B, N, N)`` when given) and its seed, K2's plain
-    stack. Returns ``(fwd, e (B,), dx (3, B, N))``."""
+    stack. Returns ``(fwd, e (B,), dx (3, B, N))``. ``bf16``: resid_ef's bf16
+    tier (K1's and K2's plain bf16 stacks, the streams bf16 but r and t; the
+    readout stays f32)."""
     zeros = torch.zeros_like(xs)
     m4 = mask[..., None] if mask is not None else None
-    fwd = resid_ef.resid_fwd_plain(leaves, h0, xs, zeros, upd, mask=m4)
+    fwd = resid_ef.resid_fwd_plain(leaves, h0, xs, zeros, upd, mask=m4, bf16=bf16)
     node_mask = torch.diagonal(mask, dim1=-2, dim2=-1) if mask is not None else None
     e, dh_fin = _readout_seed(params, fwd.h_fin, node_mask)
     return fwd, e, resid_ef.resid_bwd_plain(leaves, fwd, upd, dh_fin, zeros, zeros, mask=m4)[1]
 
 
-def _launch_fused_primal(params, leaves, h0, xs, upd, leaves_t):
+def _launch_fused_primal(params, leaves, h0, xs, upd, leaves_t, bf16=False):
     lib, dims, dev, upd_t, ro, F0, O, leaves_t = _fused_args(
-        "fused_primal", params, leaves, h0, upd, leaves_t, "sake_fused_ef_smem_bytes")
+        "fused_primal", params, leaves, h0, upd, leaves_t,
+        "sake_fused_primal16_smem_bytes" if bf16 else "sake_fused_ef_smem_bytes")
+    if bf16:  # the tier's kernel reads the four edge weights rounded
+        leaves, leaves_t = resid_ef.edge_bf16_leaves(leaves), resid_ef.edge_bf16_leaves(leaves_t)
     _check_tc_leaves("fused_primal", leaves, leaves_t)
     B, N, F, H, R, K, C, depth = dims
     _check_cuda("h0", h0, (B, N, F), dev)
     _check_cuda("xs", xs, (3, B, N), dev)
-    empty = lambda *s: torch.empty(s, device=dev, dtype=torch.float32)
+    empty = lambda *s, dtype=torch.float32: torch.empty(s, device=dev, dtype=dtype)
     fwd = FwdOut(
         empty(depth, B, N, F), empty(depth, 3, B, N), empty(depth, 3, B, N),
         empty(B, N, F), empty(3, B, N), empty(3, B, N),
-        {n: empty(*s) for n, s in _resid_shapes(dims, leaves).items()},
+        {n: empty(*s, dtype=stream_dtype(n, bf16))
+         for n, s in _resid_shapes(dims, leaves).items()},
     )
     e, dx = empty(B), empty(3, B, N)
-    err = lib.sake_fused_primal(
+    args = (
         h0.data_ptr(), xs.data_ptr(), upd_t.data_ptr(), _ptrs([leaves[n] for n in LEAF_NAMES]),
         _ptrs([leaves_t[n] for n in LEAF_NAMES]), _strides(leaves), *(t.data_ptr() for t in ro),
         fwd.bh.data_ptr(), fwd.bx.data_ptr(), fwd.bv.data_ptr(),
         _ptrs([fwd.resid[n] for n in RESIDS]), fwd.h_fin.data_ptr(), fwd.x_fin.data_ptr(),
-        fwd.v_fin.data_ptr(), e.data_ptr(), dx.data_ptr(), *dims, F0, O, resid_ef._stream(dev),
+        fwd.v_fin.data_ptr(), e.data_ptr(), dx.data_ptr(),
     )
-    build.check(lib, err, "fused_primal")
+    if bf16:  # the forward body's f32 pooled vectors, one layer at a time
+        pool16 = empty(3, B, N, C)
+        err = lib.sake_fused_primal16(*args, pool16.data_ptr(), *dims, F0, O,
+                                      resid_ef._stream(dev))
+    else:
+        err = lib.sake_fused_primal(*args, *dims, F0, O, resid_ef._stream(dev))
+    build.check(lib, err, "fused_primal (bf16)" if bf16 else "fused_primal")
     return fwd, e, dx
 
 
 def fused_primal(params: ModelParams, leaves: dict, h0, xs, upd: Sequence[float], *,
-                 leaves_t: Optional[dict] = None):
+                 leaves_t: Optional[dict] = None, bf16: bool = False):
     """#11, the fused primal (``csrc/fused_ef.cu``; JAX ``_fused_primal``'s
     kernel ``train2_ef.py:1239``, pallas_call ``:1320``): in one launch, K1's
     forward from ``(h0 (B, N, F), xs (3, B, N), v = 0)`` writing the boundary
     states and residuals (``FwdOut``, as :func:`shared_fwd`), the readout's
     energy and seed in f32, and K2's pullback. Returns ``(fwd, e (B,), dx (3,
-    B, N))``, ``F = -dx``. CPU tensors take the plain version."""
+    B, N))``, ``F = -dx``. ``bf16``: resid_ef's bf16 tier (``csrc/
+    fused_ef16.cu``: K1's and K2's bodies in their tier, the streams bf16 but r
+    and t; the readout f32). CPU tensors take the plain version."""
     if h0.device.type == "cpu":
-        return fused_primal_plain(params, leaves, h0, xs, upd)
-    out = _launch_fused_primal(params, leaves, h0, xs, upd, leaves_t)
+        return fused_primal_plain(params, leaves, h0, xs, upd, bf16=bf16)
+    out = _launch_fused_primal(params, leaves, h0, xs, upd, leaves_t, bf16)
     fused_primal.launches += 1
+    fused_primal.tiers[TIERS[bf16]] += 1
     return out
 
 
+# #11's and #12's launches by tier, beside their totals
+TIERS = ("f32", "bf16")
 fused_primal.launches = 0
+fused_primal.tiers = dict.fromkeys(TIERS, 0)
 _fused_primal = fused_primal  # make_ef_train2's argument of that name shadows it
 
 
@@ -852,25 +903,31 @@ def fused_bwd_block_plain(params: ModelParams, leaves: dict, fwd: FwdOut,
 
 
 def _launch_fused_bwd_block(params, leaves, fwd, upd, tx0, g_e, leaves_t):
+    bf16 = stream_tier(fwd)
     lib, dims, dev, upd_t, ro, F0, O, leaves_t = _fused_args(
-        "fused_bwd_block", params, leaves, fwd.bh[0], upd, leaves_t, "sake_fused_bwd_smem_bytes")
+        "fused_bwd_block", params, leaves, fwd.bh[0], upd, leaves_t,
+        "sake_fused_bwd16_smem_bytes" if bf16 else "sake_fused_bwd_smem_bytes")
+    if bf16:  # the tier's kernel reads the four edge weights rounded
+        leaves, leaves_t = resid_ef.edge_bf16_leaves(leaves), resid_ef.edge_bf16_leaves(leaves_t)
     _check_tc_leaves("fused_bwd_block", leaves, leaves_t)
     B, N, F, H, R, K, C, depth = dims
-    _check_fwd("fwd", fwd, dims, leaves, dev)
+    _check_fwd("fwd", fwd, dims, leaves, dev, tier=True)
     _check_cuda("h_fin", fwd.h_fin, (B, N, F), dev)
     _check_cuda("tx0", tx0, (3, B, N), dev)
     _check_cuda("g_e", g_e, (B,), dev)
-    empty = lambda *s: torch.empty(s, device=dev, dtype=torch.float32)
-    # the tangent forward's streams; its final state stays in the kernel
+    empty = lambda *s, dtype=torch.float32: torch.empty(s, device=dev, dtype=dtype)
+    # the tangent forward's streams (in the tier of the primal's); its final
+    # state stays in the kernel
     tfwd = FwdOut(empty(depth, B, N, F), empty(depth, 3, B, N), empty(depth, 3, B, N),
                   None, None, None,
-                  {n: empty(*s) for n, s in _resid_shapes(dims, leaves).items()})
+                  {n: empty(*s, dtype=stream_dtype(n, bf16))
+                   for n, s in _resid_shapes(dims, leaves).items()})
     rows, rows_t, t_rows = ({n: empty(*s) for n, s in _row_shapes(dims, leaves).items()}
                             for _ in range(3))
     scratch = empty(B, 2 * N * (H * K + C))  # per block: d_hatt, d_pool_sq with tangents
     dh0, dx0 = empty(B, N, F), empty(3, B, N)
     ro_part = empty(B, sum(math.prod(s) for s in _readout_shapes(F, F0, O)))
-    err = lib.sake_fused_bwd(
+    args = (
         fwd.bh.data_ptr(), fwd.bx.data_ptr(), fwd.bv.data_ptr(), upd_t.data_ptr(),
         _ptrs([leaves[n] for n in LEAF_NAMES]), _ptrs([leaves_t[n] for n in LEAF_NAMES]),
         _strides(leaves), _ptrs([fwd.resid[n] for n in RESIDS]), fwd.h_fin.data_ptr(),
@@ -878,10 +935,15 @@ def _launch_fused_bwd_block(params, leaves, fwd, upd, tx0, g_e, leaves_t):
         tfwd.bh.data_ptr(), tfwd.bx.data_ptr(), tfwd.bv.data_ptr(),
         _ptrs([tfwd.resid[n] for n in RESIDS]), _ptrs([rows[n] for n in ROWS]),
         _ptrs([rows_t[n] for n in ROWS]), _ptrs([t_rows[n] for n in ROWS]), scratch.data_ptr(),
-        dh0.data_ptr(), dx0.data_ptr(), ro_part.data_ptr(), *dims, F0, O,
-        resid_ef._stream(dev),
+        dh0.data_ptr(), dx0.data_ptr(), ro_part.data_ptr(),
     )
-    build.check(lib, err, "fused_bwd_block")
+    if bf16:  # the tangent forward's f32 pooled vectors, one layer of a molecule a block
+        tpool16 = empty(3, B, N, C)
+        err = lib.sake_fused_bwd16(*args, tpool16.data_ptr(), *dims, F0, O,
+                                   resid_ef._stream(dev))
+    else:
+        err = lib.sake_fused_bwd(*args, *dims, F0, O, resid_ef._stream(dev))
+    build.check(lib, err, "fused_bwd_block (bf16)" if bf16 else "fused_bwd_block")
     return dh0, dx0, tfwd, rows, rows_t, t_rows, ro_part
 
 
@@ -896,15 +958,20 @@ def fused_bwd_block(params: ModelParams, leaves: dict, fwd: FwdOut, upd: Sequenc
     chain's cotangents, the tangent forward's streams (its final state is
     None on the card), both chains' rows and the tangent chain's row
     tangents, and the per-molecule readout gradients ``(B, F*F0 + F0 + F0*O
-    + O)``. CPU tensors take the plain version."""
+    + O)``. In the tier of ``fwd``'s streams: on the bf16 tier's streams
+    (#11's with ``bf16``) the tier's kernel (``csrc/fused_bwd16.cu``), whose
+    tangent streams are bf16 but r and t. CPU tensors take the plain
+    version."""
     if tx0.device.type == "cpu":
         return fused_bwd_block_plain(params, leaves, fwd, upd, tx0, g_e)
     out = _launch_fused_bwd_block(params, leaves, fwd, upd, tx0, g_e, leaves_t)
     fused_bwd_block.launches += 1
+    fused_bwd_block.tiers[TIERS[stream_tier(fwd)]] += 1
     return out
 
 
 fused_bwd_block.launches = 0
+fused_bwd_block.tiers = dict.fromkeys(TIERS, 0)
 
 
 def fused_bwd_grads(params: ModelParams, leaves: dict, fwd: FwdOut, tfwd: FwdOut, rows: dict,
@@ -913,7 +980,8 @@ def fused_bwd_grads(params: ModelParams, leaves: dict, fwd: FwdOut, tfwd: FwdOut
     leaf's gradient per layer (``{name: (depth, r, c)}``, as
     :func:`param_grads_aug`) and the readout gradients ``(d_w_out0, d_b_out0,
     d_w_out1, d_b_out1)``, the sums of ``ro_part`` over the molecules in
-    order. CPU tensors take the plain version."""
+    order. In the tier of ``fwd``'s streams (``sake_param_grads_aug16`` on the
+    bf16 tier's). CPU tensors take the plain version."""
     shapes = _readout_shapes(params.w_out0.shape[0], *params.w_out1.shape)
     if fwd.bh.device.type == "cpu":
         ro = ro_part.double().sum(dim=0).float().split([math.prod(s) for s in shapes])
@@ -922,10 +990,12 @@ def fused_bwd_grads(params: ModelParams, leaves: dict, fwd: FwdOut, tfwd: FwdOut
     _require_cuda("fused_bwd_grads", fwd.bh)
     out = _launch_param_grads_aug(leaves, fwd, tfwd, rows, rows_t, t_rows, ro_part, shapes)
     fused_bwd_grads.launches += 1
+    fused_bwd_grads.tiers[TIERS[stream_tier(fwd)]] += 1
     return out
 
 
 fused_bwd_grads.launches = 0
+fused_bwd_grads.tiers = dict.fromkeys(TIERS, 0)
 
 
 def fused_bwd_plain(params: ModelParams, leaves: dict, fwd: FwdOut, upd: Sequence[float], tx0,
@@ -1006,19 +1076,39 @@ def make_ef_train2(
     alive at once: the primal and the backward run per chunk of that many
     molecules.
 
-    Not ported yet, and raising when asked for: the bf16 tier
-    (``matmul_dtype``, ``edge_matmul_dtype``, ``resid_dtype`` other than f32,
-    ``resid_lowp``) and the TPU-only MXU pooling ``spatial_mode``. Accepted
-    with no counterpart: ``batch_tile`` and ``aug_batch_tile`` (the kernels
-    take one molecule per block), ``pad_atoms`` (the kernels take N as it
-    comes, unpadded), ``precision`` and ``edge_precision`` (every product is
-    f32 on the CUDA cores) and ``interpret`` (CPU tensors take the plain
-    versions). ``fused_primal`` and ``shared_chunk`` are read only in the
-    modes that keep the primal's streams.
+    The bf16 tier, JAX's production setting (``edge_matmul_dtype`` and
+    ``resid_dtype`` both bf16, ``resid_lowp`` None or ``resid_ef.RESID_LOWP``),
+    runs in ``aug_mode="fused"``: every edge product of #11 and #12 rounds both
+    operands to bf16 (f32 sums), the residual streams of the primal and of the
+    tangent forward are bf16 but r and t (``resid_ef.stream_dtype``), and the
+    contraction rounds both operands of each term of the four edge leaves;
+    node products, boundary states, the readout and the energy the loss sees
+    stay f32, as in JAX (``:1239-1385``, ``:1750-1901``). With ``fused_primal``
+    False the tier raises, as in every other mode.
+
+    Not ported yet, and raising when asked for: the bf16 tier in the
+    ``"shared"``, ``"resid"`` and ``"retrace"`` modes (their kernels #7-#10 and
+    #16-#19 have no bf16 instantiation yet), bf16 node products
+    (``matmul_dtype``), any other combination of the tier's keywords, and the
+    TPU-only MXU pooling ``spatial_mode``. Accepted with no counterpart:
+    ``batch_tile`` and ``aug_batch_tile`` (the kernels take one molecule per
+    block), ``pad_atoms`` (the kernels take N as it comes, unpadded),
+    ``precision`` and ``edge_precision`` (f32 products are f32 to within
+    3xTF32's rounding) and ``interpret`` (CPU tensors take the plain versions).
+    ``fused_primal`` and ``shared_chunk`` are read only in the modes that keep
+    the primal's streams.
     """
     if aug_mode not in ("retrace", "resid", "shared", "fused"):
         raise ValueError(f"unknown aug_mode {aug_mode!r}")
-    _f32_only("make_ef_train2", matmul_dtype, edge_matmul_dtype, resid_dtype, resid_lowp)
+    bf16 = _bf16_edge_tier("make_ef_train2", matmul_dtype=matmul_dtype,
+                           edge_matmul_dtype=edge_matmul_dtype, resid_dtype=resid_dtype,
+                           resid_lowp=resid_lowp, lowp=resid_ef.RESID_LOWP)
+    if bf16 and (aug_mode != "fused" or fused_primal is False):
+        raise NotImplementedError(
+            f"make_ef_train2: the bf16 tier (edge_matmul_dtype and resid_dtype bf16) runs in "
+            f"aug_mode='fused' with the fused primal only; aug_mode={aug_mode!r}"
+            f"{', fused_primal=False' if aug_mode == 'fused' else ''} is not ported in that "
+            "tier yet (ROADMAP.md, Queue 2 B1)")
     if spatial_mode is not None:
         raise NotImplementedError("make_ef_train2: spatial_mode is a TPU-only probe")
     # shared and fused modes carry the primal's streams to the backward
@@ -1047,7 +1137,7 @@ def make_ef_train2(
             xs = x[sl].permute(2, 0, 1).float().contiguous()
             if use_fused_primal:
                 fwd, _, dx = _fused_primal(params, leaves, h0[sl].contiguous(), xs, upd,
-                                           leaves_t=leaves_t)
+                                           leaves_t=leaves_t, bf16=bf16)
                 e = readout(params, fwd.h_fin).sum(dim=(-2, -1))
             else:
                 fwd = shared_fwd(leaves, h0[sl].contiguous(), xs, upd)

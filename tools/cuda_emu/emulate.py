@@ -8,6 +8,7 @@
     EMU_THREADS=128 python tools/cuda_emu/emulate.py --hidden 64 --depth 3 --atoms 21
     EMU_THREADS=128 python tools/cuda_emu/emulate.py --asan          # AddressSanitizer
     EMU_THREADS=128 python tools/cuda_emu/emulate.py --train --hidden 8 16 64 --atoms 21
+    EMU_THREADS=128 python tools/cuda_emu/emulate.py --train --bf16 --hidden 8 64 --atoms 7 21
     EMU_THREADS=128 python tools/cuda_emu/emulate.py --helper        # mma_tf32x3.cuh alone
     python tools/cuda_emu/emulate.py --wgmma                          # wgmma_tf32.cuh alone
     python tools/cuda_emu/emulate.py --sparse --slots 64 48 80 37      # #13, #14, #15
@@ -74,8 +75,12 @@ must be refused), then K1's and K2's tensor-core products alone
 products and residual streams: the kernels' kE16 instantiations, through the
 wrappers' ``bf16`` and the tier's streams) against the plain bf16 versions, and
 with ``--qm9`` also the contraction (``csrc/param_grads.cu``'s
-``sake_param_grads16``) against ``param_grads_plain``; each line also prints the
-plain bf16 version's distance from the plain f32 one.
+``sake_param_grads16``) against ``param_grads_plain``; with ``--train`` #11
+(``csrc/fused_ef16.cu``), #12's block (``csrc/fused_bwd16.cu``) and the augmented
+contraction (``sake_param_grads_aug16``) at each ``--hidden`` x ``--atoms`` against
+``fused_primal_plain``, ``fused_bwd_block_plain`` and ``param_grads_aug_plain``
+(sums in float64) in the tier; each line also prints the plain bf16 version's
+distance from the plain f32 one.
 With ``--split`` it runs the split forwards #25 (the edge_att and coeff_pool ops)
 and #27 (the merged op) of ``csrc/split_fwd.cu`` through ``split_ef._launch_fwd``
 against the plain bodies (``tools/probe_split.check_forwards``: twice bit for
@@ -405,6 +410,86 @@ def check_train(hid: int, depth: int, B: int, N: int, seed: int = 0):
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
+def check_train16(hid: int, depth: int, B: int, N: int, seed: int = 0) -> float:
+    """#11, #12's block and #12's contraction in resid_ef's bf16 tier against their
+    plain bf16 versions, each line with the plain bf16 version's distance from the
+    plain f32 one; #12 on the plain bf16 primal's streams, the contraction on the
+    plain block's streams and rows with its sums in float64 (chip_smoke.f64_sums).
+    Returns the worst relative error."""
+    import chip_smoke
+
+    from sake_tpu_torch.kernels import resid_ef
+    from sake_tpu_torch.kernels import train2_ef as t2
+    from sake_tpu_torch.kernels.functional import embed
+    from sake_tpu_torch.kernels.leaves import transposed, wide_stack
+
+    F_in = 9 if hid == 64 else 5
+    model = SAKEModel(hid, 1, depth, in_features=F_in, device="cpu",
+                      generator=torch.Generator().manual_seed(seed))
+    p = model_params_from_linen(linen_tree(model), device="cpu")
+    g = torch.Generator().manual_seed(seed + 1)
+    h = torch.randn(B, N, F_in, generator=g)
+    xs = 1.5 * torch.randn(3, B, N, generator=g)
+    tx0, g_e = torch.randn(3, B, N, generator=g), torch.randn(B, generator=g)
+    upd = [1.0] * depth
+    leaves = wide_stack(p, 4)
+    leaves_t = transposed(leaves)
+    h0 = embed(p, h).contiguous()
+    label = f"hidden {hid} depth {depth} B {B} N {N}"
+    worst = 0.0
+
+    def report(name, pairs, ref, t0):
+        nonlocal worst
+        errs = {n: _rel(a.float(), b.float()) for n, a, b in pairs}
+        w = max(errs, key=errs.get)
+        worst = max(worst, errs[w])
+        finite = all(bool(torch.isfinite(a.float()).all()) for _, a, _ in pairs)
+        # the share of the tier's own distance, where the tier moves the tensor
+        ratio = {n: e / ref[n] for n, e in errs.items() if ref.get(n, 0.0) >= 1e-5}
+        r = max(ratio, key=ratio.get)
+        print(f"{name} bf16 {label}: max rel err {errs[w]:.3e} ({w}; plain bf16 from plain f32 "
+              f"there {ref.get(w, float('nan')):.3e}); largest share of that distance "
+              f"{ratio[r]:.3e} ({r}: {errs[r]:.3e}); finite {finite} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    t0 = time.perf_counter()
+    kf, ke, kdx = t2._launch_fused_primal(p, leaves, h0, xs, upd, leaves_t, bf16=True)
+    pf, pe, pdx = t2.fused_primal_plain(p, leaves, h0, xs, upd, bf16=True)
+    pf32, pe32, pdx32 = t2.fused_primal_plain(p, leaves, h0, xs, upd)
+    if any(kf.resid[n].dtype != torch.bfloat16 for n in resid_ef.RESID_LOWP):
+        raise SystemExit("#11 bf16 wrote a low-precision stream in another dtype")
+    names = ("bh", "bx", "bv", "h_fin", "x_fin", "v_fin")
+    pairs = [("e", ke, pe), ("dx", kdx, pdx), *zip(names, kf[:6], pf[:6]),
+             *((n, kf.resid[n], pf.resid[n]) for n in pf.resid)]
+    ref = {n: _rel(a.float(), b.float()) for n, a, b in
+           [("e", pe, pe32), ("dx", pdx, pdx32), *zip(names, pf[:6], pf32[:6]),
+            *((n, pf.resid[n], pf32.resid[n]) for n in pf.resid)]}
+    report("#11 fused_primal", pairs, ref, t0)
+
+    t0 = time.perf_counter()
+    kb = t2._launch_fused_bwd_block(p, leaves, pf, upd, tx0, g_e, leaves_t)
+    pb = t2.fused_bwd_block_plain(p, leaves, pf, upd, tx0, g_e)
+    pb32 = t2.fused_bwd_block_plain(p, leaves, pf32, upd, tx0, g_e)
+    if any(kb[2].resid[n].dtype != torch.bfloat16 for n in resid_ef.RESID_LOWP):
+        raise SystemExit("#12 bf16 wrote a low-precision tangent stream in another dtype")
+    flat = lambda o: [("dh0", o[0]), ("dx0", o[1]), ("ro_part", o[6]),
+                      *zip(("tbh", "tbx", "tbv"), o[2][:3]),
+                      *((f"t.{n}", o[2].resid[n]) for n in o[2].resid),
+                      *((f"{i}.{n}", o[i][n]) for i in (3, 4, 5) for n in o[i])]
+    pairs = [(n, a, b) for (n, a), (_, b) in zip(flat(kb), flat(pb))]
+    ref = {n: _rel(a.float(), b.float()) for (n, a), (_, b) in zip(flat(pb), flat(pb32))}
+    report("#12 fused_bwd_block", pairs, ref, t0)
+
+    t0 = time.perf_counter()
+    kg = t2._launch_param_grads_aug(leaves, pf, pb[2], pb[3], pb[4], pb[5])[0]
+    with chip_smoke.f64_sums():
+        pg = t2.param_grads_aug_plain(leaves, pf, pb[2], pb[3], pb[4], pb[5])
+    pg32 = t2.param_grads_aug_plain(leaves, pf32, pb32[2], pb32[3], pb32[4], pb32[5])
+    report("#12 param_grads_aug", [(n, kg[n], pg[n]) for n in pg],
+           {n: _rel(pg[n], pg32[n]) for n in pg}, t0)
+    return worst
+
+
 def check_qm9(hid: int, depth: int, B: int, N: int, masked: bool, seed: int = 0,
               bf16: bool = False):
     """#4's, #6's and #5's cluster kernels against their plain versions (in the
@@ -729,7 +814,7 @@ def main():
     ap.add_argument("--remat", action="store_true",
                     help="#21-#24 (csrc/remat_ef.cu's forward and remat pullback) in place of #20")
     ap.add_argument("--bf16", action="store_true",
-                    help="--serving, --qm9: resid_ef's bf16 tier")
+                    help="--serving, --qm9, --train: resid_ef's bf16 tier")
     ap.add_argument("--serving", action="store_true",
                     help="K1 and K2 on both routes (csrc/resid_fwd.cu, csrc/resid_bwd.cu)")
     ap.add_argument("--split", action="store_true",
@@ -870,6 +955,27 @@ def main():
                                                          masked, bf16=args.bf16))
             if not args.bf16:
                 worst = max(worst, check_serving_products(libs))
+        print(f"worst {worst:.3e}", flush=True)
+        return
+    if args.train and args.bf16:
+        from sake_tpu_torch.kernels import resid_ef
+        from sake_tpu_torch.kernels import train2_ef as t2
+
+        with tempfile.TemporaryDirectory() as tmp:
+            libs = Libs(*(load(compile_source(src, Path(tmp) / Path(src).stem, args.asan), names)
+                          for src, names in (
+                              ("fused_ef16.cu", ["sake_fused_primal16",
+                                                 "sake_fused_primal16_smem_bytes"]),
+                              ("fused_bwd16.cu", ["sake_fused_bwd16",
+                                                  "sake_fused_bwd16_smem_bytes"]),
+                              ("param_grads.cu", ["sake_param_grads_aug16"]))))
+            build.load = lambda: libs
+            t2._require_cuda = resid_ef._require_cuda = lambda name, t: None
+            resid_ef._stream = lambda dev: None
+            worst = 0.0
+            for hid in args.hidden:
+                for N in args.atoms:
+                    worst = max(worst, check_train16(hid, args.depth, args.batch[0], N))
         print(f"worst {worst:.3e}", flush=True)
         return
     if args.train:
