@@ -97,7 +97,11 @@ Phases (each prints its own lines; any failure exits non-zero):
    branch (double autograd through the functional model) from one seeded
    init at B = 4: E and F of each kernel primal against the functional path
    (as phase 4's limits), step 1's loss and every gradient (1e-4 relative
-   per leaf), the first 5 losses (1e-3 relative).
+   per leaf), the first 5 losses (1e-3 relative). Phases 8-10 hold the f32
+   kernels: their configurations set ``kernel_interpret`` (the task trains its
+   kernel branch in resid_ef's bf16 tier without it, JAX's rule; the port has
+   no interpret mode, so the keyword does nothing else; phase 26 runs the
+   tier).
 10. MD17 slices: ``registry.get_workload("md17_kernel")`` (``MD17Config(
    use_kernel_ef=True)``, fused mode) with n_valid 200 and 2 epochs of 250
    steps (cut from 1000 and 100), then with ``aug_mode`` shared and resid
@@ -168,7 +172,10 @@ Phases (each prints its own lines; any failure exits non-zero):
    summed) and its w_xmix term in f64 and in f32 (TF32 off): the sparse
    kernel on layer 0's rows of this box under #14's and #15's terms,
    ``csrc/param_grads.cu`` over all six layers (QM9's B = 64, N = 29 for #5;
-   MD17's B = 4 and 512, N = 21, augmented, for #12).
+   MD17's B = 4 and 512, N = 21, augmented, for #12), and #17's contraction in
+   resid_ef's bf16 tier (``sake_retrace_grads16``, one layer at B = 512, its
+   edge weights rounded per 2 molecules) beside the tier's yardstick
+   (``whole_tier``: the four edge leaves' products in bf16, the rest in f32).
 
 17. Remat kernels vs plain: at aspirin's full width, B = 300 (the serving
    path's inputs: embedded species, v = 0, every layer updating, a random
@@ -310,10 +317,13 @@ Phases (each prints its own lines; any failure exits non-zero):
    pullbacks and weight contractions) at the 989 TFLOP/s dense bf16 peak in
    one pass, the rest at 67 TFLOP/s, and the bf16 streams at 2 bytes an
    element.
-26. ``make_ef_train2``'s fused mode in that tier (MD17 training: #11
+26. ``make_ef_train2`` in that tier, every mode (MD17 training: #11
    ``csrc/fused_ef16.cu``, #12's block ``csrc/fused_bwd16.cu`` and #12's contraction
-   ``sake_param_grads_aug16``) on ``MD17Config``'s model (aspirin, hidden 64,
-   depth 6, 4 heads, seed-0 weights) at B = 4 and 512: #11 against the plain bf16
+   ``sake_param_grads_aug16``; #9 ``csrc/resid_jvp16.cu``, #10's tangent chain
+   ``csrc/resid_tbwd16.cu``, its rows kernel ``csrc/resid_bwd16.cu`` and its
+   contraction; #18 and #16 ``csrc/aug_fwd16.cu``, #19 (#10's launches on #18's
+   streams), #17 ``csrc/retrace_bwd16.cu``) on ``MD17Config``'s model (aspirin,
+   hidden 64, depth 6, 4 heads, seed-0 weights) at B = 4 and 512: #11 against the plain bf16
    primal (F within max(2e-3, 2 x the plain bf16 primal's f_err from the plain f32
    one), ``bench.py:164``; boundaries, final state, r, t and the E plane no farther
    from plain bf16, in the root-mean-square norm, than plain bf16 lies from f32,
@@ -326,17 +336,31 @@ Phases (each prints its own lines; any failure exits non-zero):
    the same streams, the share of moved elements printed); the contraction on the
    block's streams and rows against plain with f64 sums within
    ``BF16_CONTRACT_TOL``, the four edge leaves within ``BF16_FLIP_SHARE`` of the
-   tier's own distance there where that is larger; each twice bit for bit. Then
-   one step of the tier's fused branch (``tasks/md17.make_branch``'s colouring and
-   parameters) against its plain bf16 path (#11 and #12 swapped for their plain
-   versions), loss and every leaf within ``STEP16_SHARE`` times plain bf16's
-   distance from the f32 fused branch in the root-mean-square norm (a flip
-   cascades through depth 6; that distance and the kernel's own printed);
-   a training run of ``TRAIN16_STEPS`` steps at B = 4 with the task's optimizer
-   (launches counted from 0: only the three tier kernels, a falling loss); each
-   kernel and the fused step timed in both tiers in turns (means and spreads),
-   the step's peak device memory, the plain bf16 times and the bounds (as phase
-   25's).
+   tier's own distance there where that is larger; each twice bit for bit. #7
+   (K1's tier kernel through ``shared_fwd``) against the plain bf16 K1 (boundaries,
+   final state and streams, ``gate_widened`` against the plain f32 K1) and #8 (K2's
+   through ``shared_bwd``) on plain #7's streams (dx, against f32 products on those
+   streams), each twice bit for bit. On
+   the plain bf16 primal's streams #9 and then #10's three launches (each output
+   and every row and row tangent as #12's block, the contraction as #12's); #18,
+   then #10's launches on plain #18's streams (#19); #16 and #17 on plain #16's
+   boundaries, #17's edge weights rounded per the task's batch tile (against the
+   plain f32 #16 and #17 for reference; #17's plain version is ``torch.func``'s vjp
+   of the jvp of the layer, with f64 sums). Then step 1 of each mode's branch in
+   the tier (fused, shared, resid, retrace and fused with ``fused_primal=False``;
+   ``tasks/md17.make_branch``'s colouring and parameters, launches counted from 0:
+   every kernel of the mode in the tier and no other) against its plain bf16 path
+   (the kernels swapped for their plain versions), loss and every leaf within
+   ``STEP16_SHARE`` times plain bf16's distance from the mode's f32 branch in the
+   root-mean-square norm (a flip cascades through depth 6; that distance and the
+   kernel's own printed), and at least ``STEP16_FAR_MIN`` of it away from the f32
+   branch; ``registry.get_workload("md17_kernel")`` at its default (the tier,
+   fused mode; ``MD17_TIER_RUN``: one epoch of 250 steps at B = 4, n_valid 200)
+   through the task's ``run`` (launches counted from 0: only the three fused tier
+   kernels, a falling loss, finite MAE); each kernel and each mode's step timed in
+   both tiers in turns (means and spreads), the step's peak device memory, the
+   plain bf16 times and the bounds (as phase 25's). The new kernels' launches in
+   the kernels line are those of their mode's step 1.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -371,10 +395,15 @@ TRAIN_TOL = 1e-4  # MD17 training kernels and step-1 gradients, relative per ten
 TRAIN_CHECK_B = 300  # three waves of one block per SM on 132 SMs
 TRAIN_BATCHES = (4, 512)  # MD17Config's batch, and bench_md17_train.py's
 # the slice's cut: MD17Config() validates on 1000 molecules and trains 100 epochs
-MD17_RUN = dict(n_valid=200, n_epochs=2, epochs_per_block=1)
-MD17_SHARED_RUN = dict(n_valid=200, n_epochs=1, epochs_per_block=1)  # shared, resid: 250 steps
+# phases 8-10 hold the f32 kernels: the task trains its kernel branch in resid_ef's bf16
+# tier unless kernel_interpret (JAX's rule, which the JAX tests use to hold that branch to
+# the f32 plain one; the port has no interpret mode, so the keyword does nothing else)
+MD17_RUN = dict(n_valid=200, n_epochs=2, epochs_per_block=1, kernel_interpret=True)
+MD17_SHARED_RUN = dict(n_valid=200, n_epochs=1, epochs_per_block=1,
+                       kernel_interpret=True)  # shared, resid: 250 steps
 # retrace mode, cut further to fit the time budget: 100 steps on 400 molecules
-MD17_RETRACE_RUN = dict(n_train=400, n_valid=200, n_epochs=1, epochs_per_block=1)
+MD17_RETRACE_RUN = dict(n_train=400, n_valid=200, n_epochs=1, epochs_per_block=1,
+                        kernel_interpret=True)
 SPARSE_TOL = 1e-4  # the sparse edge kernels and the sparse training step, relative per tensor
 SPARSE_CELL_CAPACITY = 48  # the periodic run's cell list (about 12 atoms a cell at 0.05 / A^3)
 SPARSE_PERIODIC_STEPS = 20
@@ -421,7 +450,8 @@ TIER16_SHARE = 0.5
 # of plain bf16's, at least STEP16_FAR_MIN (a step that ran f32 reads about 0)
 STEP16_SHARE = 2.0
 STEP16_FAR_MIN = 0.5
-TRAIN16_STEPS = 250  # phase 26's training run in the tier: one epoch of MD17Config's 1000 at B = 4
+# phase 26's run of md17_kernel in the tier: one epoch of MD17Config's 1000 at B = 4
+MD17_TIER_RUN = dict(n_valid=200, n_epochs=1, epochs_per_block=1)
 TRAIN16_ROUNDS = 3  # phase 26's timing rounds, each f32, bf16, bf16, f32
 # #20 bf16 against plain bf16 on the narrow models, relative per output (the CPU
 # test's limit; plain bf16 lies about 2e-3 to 1e-2 from plain f32 there)
@@ -447,7 +477,8 @@ SPARSE_EXTRA_K = ((80, 128), (96, 128), (128, 128), (37, 128))  # (K, receiver r
 # the cases of tools/probe_contract.py (by the start of their labels) whose kernel
 # and yardsticks phase 16 times
 LIBRARY_CASES = ("sparse #14 with dW", "sparse #15", "#5 (qm9_kernel)",
-                 "#12 augmented (md17_kernel) B=4 ", "#12 augmented (md17_kernel) B=512 ")
+                 "#12 augmented (md17_kernel) B=4 ", "#12 augmented (md17_kernel) B=512 ",
+                 "#17 bf16 tier, one layer, B=512 ")
 
 def _load(name: str, *path):
     here = os.path.dirname(os.path.abspath(__file__))
@@ -3710,7 +3741,7 @@ def bf16_phases(dev, smi) -> list:
     entries = [
         entry16("resid_fwd_bf16", src + "resid_fwd.cu", at + "1099", launches["resid_fwd"],
                 abs16["resid_fwd"], ms["K1 bf16"], t_p1, fma21["fwd"], edge21["fwd"], moved1),
-        entry16("resid_bwd_bf16", src + "resid_bwd.cu", at + "1211", launches["resid_bwd"],
+        entry16("resid_bwd_bf16", src + "resid_bwd16.cu", at + "1211", launches["resid_bwd"],
                 abs16["resid_bwd"], ms["K2 bf16"], t_p2, fma21["bwd"], edge21["bwd"], moved2),
     ]
     print(f"BF16 BOUND per kernel at B={PATH_CHUNK}: K1 {entries[0]['bound_ms']:.4f} ms "
@@ -3952,6 +3983,127 @@ def gate_widened(label, pairs, ref: dict, floor: float) -> float:
     return max(abs_err(a.float(), b.float()) for _, a, b in pairs)
 
 
+def gate_contraction16(label, kg: dict, pg: dict, pg_w: dict, depth: int, ro=None) -> None:
+    """A tier contraction's leaves ``kg`` (``{name: (depth, r, c)}``) against the plain
+    ones ``pg`` with their sums in float64: every leaf within BF16_CONTRACT_TOL, the
+    four edge leaves within BF16_FLIP_SHARE of the tier's own distance there (``pg``
+    from ``pg_w``, f32 products on the same streams and rows) where that is larger;
+    ``ro``: the readout sums ``(kernel, want)``, also within BF16_CONTRACT_TOL. Prints
+    the line and fails beyond."""
+    from sake_tpu_torch.kernels import resid_ef
+    from sake_tpu_torch.kernels.leaves import LEAF_NAMES
+
+    gerr = {f"{n}[{l}]": rel_err(kg[n][l], pg[n][l]) for n in LEAF_NAMES for l in range(depth)}
+    if ro is not None:
+        gerr["readout"] = rel_err(*ro)
+    limit = dict.fromkeys(gerr, BF16_CONTRACT_TOL)
+    share = {}
+    for n in resid_ef.EDGE_MM_LEAVES:
+        for l in range(depth):
+            d = rel_err(pg[n][l], pg_w[n][l])
+            share[f"{n}[{l}]"] = gerr[f"{n}[{l}]"] / d
+            limit[f"{n}[{l}]"] = max(BF16_CONTRACT_TOL, BF16_FLIP_SHARE * d)
+    w = max(gerr, key=lambda k: gerr[k] / limit[k])
+    o = max((k for k in gerr if k not in share), key=gerr.get)
+    e = max(share, key=share.get)
+    print(f"BF16 TRAIN {label}, its sums in float64, second launch bitwise: nearest its "
+          f"limit {w} {gerr[w]:.3e} (limit {limit[w]:.3e}); the other leaves max rel err "
+          f"{gerr[o]:.3e} ({o}; limit {BF16_CONTRACT_TOL:.0e}); the four edge leaves at most "
+          f"{share[e]:.3e} of the tier's own distance ({e}: {gerr[e]:.3e}; limit "
+          f"{BF16_FLIP_SHARE} of it, or {BF16_CONTRACT_TOL:.0e}) "
+          + json.dumps({k: float(f"{v:.2e}") for k, v in share.items()}), flush=True)
+    if gerr[w] > limit[w]:
+        fail(f"bf16 tier {label}: {w} beyond its limit")
+
+
+def fwd_outputs(f, tag: str = "") -> list:
+    """An ``FwdOut``'s tensors as named tensors: boundaries, the final state where
+    it has one, and its streams (widened)."""
+    return [*((tag + n, t) for n, t in zip(("bh", "bx", "bv", "h_fin", "x_fin", "v_fin"), f[:6])
+              if t is not None),
+            *((f"{tag}r.{n}", v.float()) for n, v in f.resid.items())]
+
+
+def chain_outputs(o) -> list:
+    """#10's tangent chain ``(dh0, dx0, dv0, add, rows, t_rows)`` as named tensors,
+    row by row."""
+    return [*zip(("dh0", "dx0", "dv0"), o[:3]), *zip(("add_h", "add_x", "add_v"), o[3]),
+            *((f"rows_t.{n}", o[4][n]) for n in o[4]), *((f"t_rows.{n}", o[5][n]) for n in o[5])]
+
+
+def rows_outputs(o) -> list:
+    """#10's primal chain ``(dh0, dx0, dv0, rows)`` as named tensors, row by row."""
+    return [*zip(("dh0", "dx0", "dv0"), o[:3]), *((f"rows.{n}", o[3][n]) for n in o[3])]
+
+
+def twice(label, fn, flat):
+    """``fn()`` launched twice: fails unless the second launch's outputs (``flat``
+    of them, named tensors) equal the first's bit for bit; returns the first."""
+    import torch
+
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for (_, x), (_, y) in zip(flat(a), flat(b))):
+        fail(f"bf16 {label}: a second launch differs from the first")
+    return a
+
+
+def aug10_checks(label, leaves, leaves_t, fwd, tfwd, upd, dh, dth, abs16: dict) -> float:
+    """#10's three launches in the tier on the streams ``fwd``, ``tfwd``, each twice
+    bit for bit against its plain bf16 version: the tangent chain from ``dth`` (its
+    outputs and every row and row tangent, ``gate_widened``), the primal chain from
+    ``dh`` with the plain Hessian terms as its addend (every row), and the
+    contraction on the plain rows against plain with its sums in float64
+    (``gate_contraction16``). Raises ``abs16``'s entries; returns the largest
+    absolute error."""
+    import torch
+
+    from sake_tpu_torch.kernels import train2_ef as t2
+    from sake_tpu_torch.kernels.leaves import LEAF_NAMES
+
+    pairs = lambda k, p: [(n, a, b) for (n, a), (_, b) in zip(k, p)]
+    ref = lambda p, w: {n: tier_dist(a, b) for (n, a), (_, b) in zip(p, w)}
+    zs = torch.zeros_like(fwd.bx[0])
+    with torch.no_grad():
+        kb = twice(f"{label} resid_tbwd", lambda: t2.resid_tbwd(
+            leaves, fwd, tfwd, upd, dth, zs, zs, leaves_t=leaves_t), chain_outputs)
+        pb = t2.resid_tbwd_plain(leaves, fwd, tfwd, upd, dth, zs, zs)
+        pb_w = t2.resid_tbwd_plain(leaves, widened(fwd), widened(tfwd), upd, dth, zs, zs)
+        torch.cuda.synchronize()
+    a_tb = gate_widened(
+        f"{label} resid_tbwd (csrc/resid_tbwd16.cu) vs plain bf16, second launch bitwise: "
+        "dh0, dx0, dv0, the Hessian terms, every row and row tangent (reference: the f32 tier "
+        "on the same streams)", pairs(chain_outputs(kb), chain_outputs(pb)),
+        ref(chain_outputs(pb), chain_outputs(pb_w)), TRAIN_TOL)
+    del kb, pb_w
+    with torch.no_grad():
+        kr = twice(f"{label} resid_bwd_aug", lambda: t2.resid_bwd_aug(
+            leaves, fwd, upd, dh, zs, zs, pb[3], leaves_t=leaves_t), rows_outputs)
+        pr = t2.resid_bwd_aug_plain(leaves, fwd, upd, dh, zs, zs, pb[3])
+        pr_w = t2.resid_bwd_aug_plain(leaves, widened(fwd), upd, dh, zs, zs, pb[3])
+        torch.cuda.synchronize()
+    a_r = gate_widened(
+        f"{label} resid_bwd_aug (the rows kernel of csrc/resid_bwd16.cu) vs plain bf16 with "
+        "plain's Hessian terms, second launch bitwise: dh0, dx0, dv0, every row (reference: "
+        "the f32 tier on the same streams)", pairs(rows_outputs(kr), rows_outputs(pr)),
+        ref(rows_outputs(pr), rows_outputs(pr_w)), TRAIN_TOL)
+    del kr, pr_w
+    with torch.no_grad():
+        kg = twice(f"{label} param_grads_aug", lambda: t2.param_grads_aug(
+            leaves, fwd, tfwd, pr[3], pb[4], pb[5]), lambda g: [(n, g[n]) for n in LEAF_NAMES])
+        with f64_sums():
+            pg = t2.param_grads_aug_plain(leaves, fwd, tfwd, pr[3], pb[4], pb[5])
+            pg_w = t2.param_grads_aug_plain(leaves, widened(fwd), widened(tfwd), pr[3], pb[4],
+                                            pb[5])
+        torch.cuda.synchronize()
+    gate_contraction16(f"{label} contraction (sake_param_grads_aug16) vs plain on plain's rows",
+                       kg, pg, pg_w, fwd.bh.shape[0])
+    a_g = max(abs_err(kg[n], pg[n]) for n in LEAF_NAMES)
+    for k, a in (("resid_tbwd", a_tb), ("resid_bwd_aug", a_r), ("param_grads_aug", a_g)):
+        abs16[k] = max(abs16[k], a)
+    return max(a_tb, a_r, a_g)
+
+
 def block_outputs(o) -> list:
     """#12's block outputs ``(dh0, dx0, tfwd, rows, rows_t, t_rows, ro_part)`` as
     named tensors (the tangent streams widened)."""
@@ -3965,6 +4117,7 @@ def block_outputs(o) -> list:
 def train16_phases(dev, smi) -> list:
     """Phase 26 (see the module docstring); returns its kernel entries."""
     import contextlib
+    import dataclasses
     import functools
 
     import torch
@@ -3975,12 +4128,15 @@ def train16_phases(dev, smi) -> list:
     from sake_tpu_torch.kernels.functional import embed
     from sake_tpu_torch.kernels.leaves import LEAF_NAMES, transposed, wide_stack
     from sake_tpu_torch.tasks import md17 as task
+    from sake_tpu_torch.tasks.registry import get_workload
     from sake_tpu_torch.train import (
         TrainState,
         make_optimizer,
+        run_epoch,
         shuffle_batches,
         warmup_cosine_schedule,
     )
+    from sake_tpu_torch.train.metrics import MetricLogger
 
     t_phase = time.perf_counter()
     cfg = task.MD17Config(use_kernel_ef=True, aug_mode="fused")
@@ -3990,36 +4146,65 @@ def train16_phases(dev, smi) -> list:
     N, F, depth, heads = len(data.z), cfg.hidden_features, cfg.depth, cfg.n_heads
     tdev = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
     train = {"x": tdev(data.x), "e": tdev(data.e), "f": tdev(data.f)}
-    tier = dict(edge_matmul_dtype=torch.bfloat16, resid_dtype=torch.bfloat16)
     model = task.make_model(cfg, species.shape[-1], device=dev,
                             generator=torch.Generator().manual_seed(SEED))
     fused3 = (t2.fused_primal, t2.fused_bwd_block, t2.fused_bwd_grads)
 
-    def branch(tier_kw):
+    def branch(bf16: bool, aug_mode: str = "fused", **kw):
         """The task's kernel branch (``make_branch``: its colouring, its
-        parameters) with ``make_ef_train2`` built with ``tier_kw``."""
+        parameters) in ``aug_mode``, in the tier or in f32 (the task's rule:
+        ``kernel_interpret`` keeps it f32), ``make_ef_train2`` also given ``kw``."""
+        c = dataclasses.replace(cfg, aug_mode=aug_mode, kernel_interpret=not bf16)
         real = task.make_ef_train2
-        task.make_ef_train2 = functools.partial(real, **tier_kw)
+        task.make_ef_train2 = functools.partial(real, **kw)
         try:
-            prm, ef_fn, _ = task.make_branch(cfg, model, species, e_mean, e_std)
+            prm, ef_fn, _ = task.make_branch(c, model, species, e_mean, e_std)
         finally:
             task.make_ef_train2 = real
         return dict(params=prm, ef=ef_fn)
 
     @contextlib.contextmanager
-    def plain_fused():
-        """The fused mode on the card through #11's and #12's plain versions."""
-        saved = t2._fused_primal, t2.fused_bwd
-        t2._fused_primal = (lambda prm, lv, h0, xs, upd, *, leaves_t=None, bf16=False:
-                            t2.fused_primal_plain(prm, lv, h0, xs, upd, bf16=bf16))
-        t2.fused_bwd = (lambda prm, lv, fwd, upd, tx0, g_e, *, leaves_t=None:
-                        t2.fused_bwd_plain(prm, lv, fwd, upd, tx0, g_e))
+    def plain_train():
+        """``make_ef_train2``'s modes on the card through their kernels' plain
+        versions (the resid mode's primal through K1's and K2's)."""
+        zeros = lambda f: torch.zeros_like(f.bx[0])
+        plain = dict(
+            _fused_primal=lambda prm, lv, h0, xs, upd, *, leaves_t=None, bf16=False:
+                t2.fused_primal_plain(prm, lv, h0, xs, upd, bf16=bf16),
+            fused_bwd=lambda prm, lv, fwd, upd, tx0, g_e, *, leaves_t=None:
+                t2.fused_bwd_plain(prm, lv, fwd, upd, tx0, g_e),
+            shared_fwd=lambda lv, h0, xs, upd, *, bf16=False:
+                resid_ef.resid_fwd_plain(lv, h0, xs, torch.zeros_like(xs), upd, bf16=bf16),
+            shared_bwd=lambda lv, fwd, upd, dh, *, leaves_t=None:
+                resid_ef.resid_bwd_plain(lv, fwd, upd, dh, zeros(fwd), zeros(fwd))[1],
+            resid_jvp=t2.resid_jvp_plain,
+            resid_aug_bwd=lambda lv, fwd, tfwd, upd, dh, dth, *, leaves_t=None:
+                t2.resid_aug_bwd_plain(lv, fwd, tfwd, upd, dh, dth),
+            aug_fwd=lambda lv, h0, xs, upd, tx0, *, bf16=False:
+                t2.aug_fwd_plain(lv, h0, xs, upd, tx0, bf16=bf16),
+            aug_bwd=lambda lv, fwd, tfwd, upd, dh, dth, *, leaves_t=None:
+                t2.resid_aug_bwd_plain(lv, fwd, tfwd, upd, dh, dth),
+            retrace_fwd=lambda lv, h0, xs, upd, tx0, *, bf16=False:
+                t2.retrace_fwd_plain(lv, h0, xs, upd, tx0, bf16=bf16),
+            retrace_bwd=lambda lv, fwd, tfwd, upd, dh, dth, *, leaves_t=None, bf16=False,
+                tile=None: t2.retrace_bwd_plain(lv, fwd, tfwd, upd, dh, dth, bf16=bf16,
+                                                tile=tile))
+        saved = {n: getattr(t2, n) for n in plain}
+        saved_ef = resid_ef.resid_energy_forces
+        for n, f in plain.items():
+            setattr(t2, n, f)
+        resid_ef.resid_energy_forces = (
+            lambda prm, h, x, *, n_heads, chunk, edge_matmul_dtype, **_:
+            plain_tier_ef(prm, h, x, edge_matmul_dtype is torch.bfloat16, n_heads,
+                          chunk or x.shape[0]))
         try:
             yield
         finally:
-            t2._fused_primal, t2.fused_bwd = saved
+            for n, f in saved.items():
+                setattr(t2, n, f)
+            resid_ef.resid_energy_forces = saved_ef
 
-    kp = branch({})["params"]
+    kp = branch(False)["params"]
     kp = type(kp)(*[t.detach() if isinstance(t, torch.Tensor) else t for t in kp])
     kp = kp._replace(layers=tuple(type(lp)(type(lp.edge)(*[t.detach() for t in lp.edge]),
                                            *[t.detach() for t in lp[1:]]) for lp in kp.layers))
@@ -4028,8 +4213,12 @@ def train16_phases(dev, smi) -> list:
     upd = [1.0] * depth
     gen = torch.Generator(dev).manual_seed(26)
 
-    # -- 26a. #11, #12's block and #12's contraction in the tier against plain bf16 --
-    abs16 = dict.fromkeys(("fused_primal", "fused_bwd_block", "fused_bwd_grads"), 0.0)
+    # -- 26a. each kernel of the tier against its plain bf16 version: #11, #12's block
+    # and #12's contraction (fused mode), #9, #10's three launches, #18 and #19 -------
+    abs16 = dict.fromkeys(("fused_primal", "fused_bwd_block", "fused_bwd_grads", "shared_fwd",
+                           "shared_bwd", "resid_jvp", "resid_tbwd", "resid_bwd_aug",
+                           "param_grads_aug", "aug_fwd", "aug_bwd", "retrace_fwd",
+                           "retrace_bwd"), 0.0)
     for B in TRAIN_BATCHES:
         on = f"(B={B}, N={N}, depth {depth}, aspirin)"
         with torch.no_grad():
@@ -4102,40 +4291,161 @@ def train16_phases(dev, smi) -> list:
         if not (all(torch.equal(kg[0][0][n], kg[1][0][n]) for n in LEAF_NAMES)
                 and all(torch.equal(a, b) for a, b in zip(kg[0][1], kg[1][1]))):
             fail(f"bf16 #12 contraction {on}: a second launch differs from the first")
-        gerr = {f"{n}[{l}]": rel_err(kg[0][0][n][l], pg[n][l]) for n in LEAF_NAMES
-                for l in range(depth)}
-        gerr["readout"] = rel_err(torch.cat([a.reshape(-1) for a in kg[0][1]]), ro_want)
-        limit = dict.fromkeys(gerr, BF16_CONTRACT_TOL)
-        share = {}
-        for n in resid_ef.EDGE_MM_LEAVES:
-            for l in range(depth):
-                d = rel_err(pg[n][l], pg_w[n][l])
-                share[f"{n}[{l}]"] = gerr[f"{n}[{l}]"] / d
-                limit[f"{n}[{l}]"] = max(BF16_CONTRACT_TOL, BF16_FLIP_SHARE * d)
-        w = max(gerr, key=lambda k: gerr[k] / limit[k])
-        o = max((k for k in gerr if k not in share), key=gerr.get)
-        e = max(share, key=share.get)
-        print(f"BF16 TRAIN #12 contraction (sake_param_grads_aug16) vs plain on the block's "
-              f"streams and rows, its sums in float64 {on}, second launch bitwise: nearest its "
-              f"limit {w} {gerr[w]:.3e} (limit {limit[w]:.3e}); the other leaves max rel err "
-              f"{gerr[o]:.3e} ({o}; limit {BF16_CONTRACT_TOL:.0e}); the four edge leaves at most "
-              f"{share[e]:.3e} of the tier's own distance ({e}: {gerr[e]:.3e}; limit "
-              f"{BF16_FLIP_SHARE} of it, or {BF16_CONTRACT_TOL:.0e}) "
-              + json.dumps({k: float(f"{v:.2e}") for k, v in share.items()}), flush=True)
-        if gerr[w] > limit[w]:
-            fail(f"bf16 #12 contraction {on}: {w} beyond its limit")
+        gate_contraction16(f"#12 contraction (sake_param_grads_aug16) vs plain on the block's "
+                           f"streams and rows {on}", kg[0][0], pg, pg_w, depth,
+                           (torch.cat([a.reshape(-1) for a in kg[0][1]]), ro_want))
         abs16["fused_bwd_grads"] = max(abs16["fused_bwd_grads"], max(
             abs_err(kg[0][0][n], pg[n]) for n in LEAF_NAMES))
-        del kg, pg, pg_w, kb, fwd, p11, h0, xs, tx0, g_e
+        del kg, pg, pg_w, kb, p11
 
-    # -- 26b. one step of the tier's fused branch through the task ------------------
+        # #7 and #8, the shared primal: K1's and K2's tier kernels through shared_fwd
+        # and shared_bwd, each twice bit for bit against its plain bf16 version (#7:
+        # reference the plain f32 K1; #8 on plain #7's streams, reference f32 products
+        # on those streams, as K2's tier check)
+        with torch.no_grad():
+            dh = torch.randn(B, N, F, device=dev, generator=gen)
+            k7 = twice(f"#7 {on}", lambda: t2.shared_fwd(leaves, h0, xs, upd, bf16=True),
+                       fwd_outputs)
+            p7 = resid_ef.resid_fwd_plain(leaves, h0, xs, torch.zeros_like(xs), upd, bf16=True)
+            p7_32 = resid_ef.resid_fwd_plain(leaves, h0, xs, torch.zeros_like(xs), upd)
+            torch.cuda.synchronize()
+        tier_pairs(k7, p7)  # fails unless its streams but r and t are bf16 tensors
+        abs16["shared_fwd"] = max(abs16["shared_fwd"], gate_widened(
+            f"#7 shared_fwd (K1's tier kernel, csrc/resid_fwd.cu) vs plain bf16 {on}, second "
+            "launch bitwise: boundaries, final state and streams (reference: the plain f32 K1)",
+            [(n, a, b) for (n, a), (_, b) in zip(fwd_outputs(k7), fwd_outputs(p7))],
+            {n: tier_dist(a, b) for (n, a), (_, b) in zip(fwd_outputs(p7), fwd_outputs(p7_32))},
+            TRAIN_TOL))
+        del k7, p7_32
+        with torch.no_grad():
+            k8 = twice(f"#8 {on}", lambda: t2.shared_bwd(leaves, p7, upd, dh, leaves_t=leaves_t),
+                       lambda dx: [("dx", dx)])
+            zs = torch.zeros_like(p7.bx[0])
+            p8 = resid_ef.resid_bwd_plain(leaves, p7, upd, dh, zs, zs)[1]
+            p8_w = resid_ef.resid_bwd_plain(leaves, widened(p7), upd, dh, zs, zs)[1]
+            torch.cuda.synchronize()
+        abs16["shared_bwd"] = max(abs16["shared_bwd"], gate_widened(
+            f"#8 shared_bwd (K2's tier kernel, csrc/resid_bwd16.cu) vs plain bf16 on plain #7's "
+            f"streams {on}, second launch bitwise: dx (reference: f32 products on those streams)",
+            [("dx", k8, p8)], {"dx": tier_dist(p8, p8_w)}, TRAIN_TOL))
+        del k8, p8, p8_w, p7
+
+        # the shared mode's #9 and #10 on the plain bf16 primal's streams (K1's stack,
+        # #7), then #18 and #19 (#10's three launches on #18's streams), each against
+        # its plain bf16 version as #12's block is (gate_widened: the f32 tier on the same
+        # streams for reference; #18 against the plain f32 #18 on the same inputs)
+        with torch.no_grad():
+            dth = torch.randn(B, N, F, device=dev, generator=gen)
+            kt = twice(f"#9 {on}", lambda: t2.resid_jvp(leaves, fwd, upd, tx0), fwd_outputs)
+            pt = t2.resid_jvp_plain(leaves, fwd, upd, tx0)
+            pt_w = t2.resid_jvp_plain(leaves, widened(fwd), upd, tx0)
+            torch.cuda.synchronize()
+        if any(kt.resid[n].dtype != torch.bfloat16 for n in resid_ef.RESID_LOWP):
+            fail("bf16 #9 wrote a low-precision tangent stream in another dtype")
+        abs16["resid_jvp"] = max(abs16["resid_jvp"], gate_widened(
+            f"#9 resid_jvp (csrc/resid_jvp16.cu) vs plain bf16 on plain's primal streams {on}, "
+            "second launch bitwise: the tangent boundaries, final state and streams",
+            [(n, a, b) for (n, a), (_, b) in zip(fwd_outputs(kt), fwd_outputs(pt))],
+            {n: tier_dist(a, b) for (n, a), (_, b) in zip(fwd_outputs(pt), fwd_outputs(pt_w))},
+            TRAIN_TOL))
+        del kt, pt_w
+        a10 = aug10_checks(f"#10 {on}", leaves, leaves_t, fwd, pt, upd, dh, dth, abs16)
+        del pt, fwd
+        with torch.no_grad():
+            both = lambda o: [*fwd_outputs(o[0], "p."), *fwd_outputs(o[1], "t.")]
+            ka = twice(f"#18 {on}", lambda: t2.aug_fwd(leaves, h0, xs, upd, tx0, bf16=True),
+                       both)
+            pa = t2.aug_fwd_plain(leaves, h0, xs, upd, tx0, bf16=True)
+            pa32 = t2.aug_fwd_plain(leaves, h0, xs, upd, tx0)
+            torch.cuda.synchronize()
+        if any(f.resid[n].dtype != torch.bfloat16 for f in ka for n in resid_ef.RESID_LOWP):
+            fail("bf16 #18 wrote a low-precision stream in another dtype")
+        abs16["aug_fwd"] = max(abs16["aug_fwd"], gate_widened(
+            f"#18 aug_fwd (csrc/aug_fwd16.cu) vs plain bf16 {on}, second launch bitwise: both "
+            "states' boundaries, final states and streams (reference: the plain f32 #18)",
+            [(n, a, b) for (n, a), (_, b) in zip(both(ka), both(pa))],
+            {n: tier_dist(a, b) for (n, a), (_, b) in zip(both(pa), both(pa32))}, TRAIN_TOL))
+        del ka, pa32
+        a19 = aug10_checks(f"#19 (#10's launches on #18's streams) {on}", leaves, leaves_t, *pa,
+                           upd, dh, dth, abs16)
+        abs16["aug_bwd"] = max(abs16["aug_bwd"], a19)
+        del pa
+
+        # retrace mode: #16, then #17 on plain #16's boundaries, its edge weights rounded
+        # per the task's batch tile (reference: the plain f32 #16 and #17)
+        with torch.no_grad():
+            fin = lambda o: [(f"{k}.{n}", a) for k, f in zip("pt", o)
+                             for n, a in zip(("bh", "bx", "bv", "h_fin", "x_fin", "v_fin"), f[:6])]
+            kr = twice(f"#16 {on}", lambda: t2.retrace_fwd(leaves, h0, xs, upd, tx0, bf16=True),
+                       fin)
+            pr = t2.retrace_fwd_plain(leaves, h0, xs, upd, tx0, bf16=True)
+            pr32 = t2.retrace_fwd_plain(leaves, h0, xs, upd, tx0)
+            torch.cuda.synchronize()
+        abs16["retrace_fwd"] = max(abs16["retrace_fwd"], gate_widened(
+            f"#16 retrace_fwd (csrc/aug_fwd16.cu) vs plain bf16 {on}, second launch bitwise: "
+            "both states' boundaries and final states (reference: the plain f32 #16)",
+            [(n, a, b) for (n, a), (_, b) in zip(fin(kr), fin(pr))],
+            {n: tier_dist(a, b) for (n, a), (_, b) in zip(fin(pr), fin(pr32))}, TRAIN_TOL))
+        del kr, pr32
+        out17 = lambda o: [("dh0", o[0]), ("dx0", o[1]), ("dth0", o[2]),
+                           *((n, o[3][n]) for n in LEAF_NAMES)]
+        with torch.no_grad():
+            k17 = twice(f"#17 {on}", lambda: t2.retrace_bwd(
+                leaves, *pr, upd, dh, dth, leaves_t=leaves_t, bf16=True, tile=cfg.aug_batch_tile),
+                out17)
+            with f64_sums():
+                p17 = t2.retrace_bwd_plain(leaves, *pr, upd, dh, dth, bf16=True,
+                                           tile=cfg.aug_batch_tile)
+            p17_32 = t2.retrace_bwd_plain(leaves, *pr, upd, dh, dth)
+            torch.cuda.synchronize()
+        abs16["retrace_bwd"] = max(abs16["retrace_bwd"], gate_widened(
+            f"#17 retrace_bwd (csrc/retrace_bwd16.cu, its contraction) vs plain bf16 (jvp then "
+            f"vjp of the layer, f64 sums) on plain #16's boundaries {on}, edge weights rounded per "
+            f"{cfg.aug_batch_tile} molecules, second launch bitwise: dh0, dx0, dth0 and every "
+            "leaf (reference: the plain f32 #17)",
+            [(n, a, b) for (n, a), (_, b) in zip(out17(k17), out17(p17))],
+            {n: tier_dist(a, b) for (n, a), (_, b) in zip(out17(p17), out17(p17_32))}, TRAIN_TOL))
+        del k17, p17, p17_32, pr, h0, xs, tx0, g_e, dh, dth
+
+    # -- 26b. step 1 of each mode in the tier through the task, launches counted ----
     batches = shuffle_batches(np.random.RandomState(cfg.seed),
                               {k: v[:cfg.n_train] for k, v in train.items()}, cfg.batch_size)
     weight = cfg.energy_loss_weight
-    loss16, g16 = md17_loss_and_grads(branch(tier), batches[0], weight)
-    loss32, g32 = md17_loss_and_grads(branch({}), batches[0], weight)
-    with plain_fused():
-        lossp, gp = md17_loss_and_grads(branch(tier), batches[0], weight)
+    k12 = (resid_ef.resid_fwd, resid_ef.resid_bwd)
+    aug10 = (t2.resid_tbwd, t2.resid_bwd_aug, t2.param_grads_aug)
+    # each mode of the tier and the kernels its step must launch, every one in the tier
+    modes = {
+        "fused": (("fused", {}), fused3),
+        "shared": (("shared", {}), (t2.shared_fwd, t2.shared_bwd, t2.resid_jvp, *aug10, *k12)),
+        "resid": (("resid", {}), (t2.aug_fwd, t2.aug_bwd, *aug10, *k12)),
+        "retrace": (("retrace", {}), (t2.retrace_fwd, t2.retrace_bwd, *k12)),
+        "fused, fused_primal=False": (("fused", {"fused_primal": False}),
+                                      (t2.shared_fwd, t2.shared_bwd, t2.fused_bwd_block,
+                                       t2.fused_bwd_grads, *k12)),
+    }
+    tiered = tuple(dict.fromkeys(c for _, cs in modes.values() for c in cs))
+
+    def counted(fn):
+        """``fn()`` with every dense kernel's launches and every tier count from 0;
+        returns its result, the launches that moved and the tiers of ``tiered``."""
+        for c in dense_counters():
+            c.launches = 0
+        for c in tiered:
+            c.tiers = dict.fromkeys(t2.TIERS, 0)
+        torch.cuda.synchronize()
+        out = fn()
+        torch.cuda.synchronize()
+        return (out, {c.__name__: c.launches for c in dense_counters() if c.launches},
+                {c.__name__: dict(c.tiers) for c in tiered})
+
+    def tier_only(label, launches, tiers, kernels):
+        """Fails unless exactly ``kernels`` launched, each only in the tier."""
+        want = {c.__name__ for c in kernels}
+        if set(launches) != want or any(tiers[n] != {"f32": 0, "bf16": launches[n]}
+                                        for n in want):
+            fail(f"bf16 tier {label}: launched {launches} (tiers {tiers}), not every kernel of "
+                 f"{sorted(want)} and those in the tier only")
+
     # a step at depth 6 sits downstream of every layer's roundings: once one flips, the
     # operands after it round apart too, so kernel and plain bf16 differ by about the
     # tier's own distance (on an H100: b_vel0 of layer 4 at 0.999 of it in the norm; layer
@@ -4143,71 +4453,91 @@ def train16_phases(dev, smi) -> list:
     # to twice that distance in the norm, and to lie as far from the f32 branch as plain
     # bf16 does (the median share, at least STEP16_FAR_MIN), which a step that skipped
     # the tier's roundings would not
-    names = ["loss", *(f"leaf {i}" for i in range(len(g16)))]
-    kern, plain, f32 = [loss16, *g16], [lossp, *gp], [loss32, *g32]
-    dist = {n: (tier_dist(a, b), tier_dist(b, c), tier_dist(a, c))
-            for n, a, b, c in zip(names, kern, plain, f32)}
-    share = {n: e[0] / max(d[0], TRAIN_TOL) for n, (e, d, _) in dist.items()}
-    w = max(share, key=share.get)
-    far = [dk[0] / d[0] for e, d, dk in dist.values() if d[0] >= TRAIN_TOL]
-    finite = all(bool(torch.isfinite(a).all()) for a in kern)
-    print(f"BF16 TRAIN step 1 of the fused branch in the tier (B={cfg.batch_size}, task "
-          f"colouring) vs its plain bf16 path, the loss and every leaf's gradient: largest share "
-          f"of plain bf16's distance from the f32 fused branch {share[w]:.3f} ({w}: rms "
-          f"{dist[w][0][0]:.3e} against {dist[w][1][0]:.3e}; limit {STEP16_SHARE}, floor "
-          f"{TRAIN_TOL:.0e}), max rel err there {dist[w][0][1]:.3e}; the kernel step from the f32 "
-          f"branch, as a share of plain bf16's distance, median {float(np.median(far)):.3f} "
-          f"(limit at least {STEP16_FAR_MIN}; range {min(far):.3f}-{max(far):.3f}); finite "
-          f"{finite}", flush=True)
-    if share[w] > STEP16_SHARE or float(np.median(far)) < STEP16_FAR_MIN or not finite:
-        fail(f"bf16 tier step 1: {w} beyond {STEP16_SHARE} x plain bf16's distance, the step "
-             f"nearer the f32 branch than {STEP16_FAR_MIN} of plain bf16's distance, or a "
-             "non-finite value")
-    d32 = [rel_err(a, b) for a, b in zip(g16, g32)]
-    print(f"BF16 TRAIN step 1 in the tier vs the f32 fused branch: loss {float(loss16):.7f} vs "
-          f"{float(loss32):.7f} (rel {rel_err(loss16, loss32):.2e}); gradients max rel "
-          f"{max(d32):.3e} (leaf {int(np.argmax(d32))}), median {float(np.median(d32)):.3e}",
-          flush=True)
-    del g16, g32, gp
+    step_launches = {}
+    for label, ((mode, kw), kernels) in modes.items():
+        (loss16, g16), launched, tiers = counted(
+            lambda: md17_loss_and_grads(branch(True, mode, **kw), batches[0], weight))
+        tier_only(f"step 1 ({label})", launched, tiers, kernels)
+        step_launches[label] = launched
+        loss32, g32 = md17_loss_and_grads(branch(False, mode, **kw), batches[0], weight)
+        with plain_train():
+            lossp, gp = md17_loss_and_grads(branch(True, mode, **kw), batches[0], weight)
+        names = ["loss", *(f"leaf {i}" for i in range(len(g16)))]
+        kern, plain, f32 = [loss16, *g16], [lossp, *gp], [loss32, *g32]
+        dist = {n: (tier_dist(a, b), tier_dist(b, c), tier_dist(a, c))
+                for n, a, b, c in zip(names, kern, plain, f32)}
+        share = {n: e[0] / max(d[0], TRAIN_TOL) for n, (e, d, _) in dist.items()}
+        w = max(share, key=share.get)
+        far = [dk[0] / d[0] for e, d, dk in dist.values() if d[0] >= TRAIN_TOL]
+        finite = all(bool(torch.isfinite(a).all()) for a in kern)
+        print(f"BF16 TRAIN step 1 of the {label} branch in the tier (B={cfg.batch_size}, task "
+              f"colouring) vs its plain bf16 path, the loss and every leaf's gradient: largest "
+              f"share of plain bf16's distance from the f32 branch {share[w]:.3f} ({w}: rms "
+              f"{dist[w][0][0]:.3e} against {dist[w][1][0]:.3e}; limit {STEP16_SHARE}, floor "
+              f"{TRAIN_TOL:.0e}), max rel err there {dist[w][0][1]:.3e}; the kernel step from the "
+              f"f32 branch, as a share of plain bf16's distance, median "
+              f"{float(np.median(far)):.3f} (limit at least {STEP16_FAR_MIN}; range "
+              f"{min(far):.3f}-{max(far):.3f}); finite {finite}; launches "
+              f"{json.dumps(launched)}, each in the tier", flush=True)
+        if share[w] > STEP16_SHARE or float(np.median(far)) < STEP16_FAR_MIN or not finite:
+            fail(f"bf16 tier step 1 ({label}): {w} beyond {STEP16_SHARE} x plain bf16's "
+                 f"distance, the step nearer the f32 branch than {STEP16_FAR_MIN} of plain "
+                 "bf16's distance, or a non-finite value")
+        d32 = [rel_err(a, b) for a, b in zip(g16, g32)]
+        print(f"BF16 TRAIN step 1 ({label}) in the tier vs the f32 branch: loss "
+              f"{float(loss16):.7f} vs {float(loss32):.7f} (rel {rel_err(loss16, loss32):.2e}); "
+              f"gradients max rel {max(d32):.3e} (leaf {int(np.argmax(d32))}), median "
+              f"{float(np.median(d32)):.3e}", flush=True)
+        del g16, g32, gp
 
-    # -- 26c. a short training run in the tier, launches counted from 0 ------------
-    br = branch(tier)
-    state = TrainState.create(params=br["params"], tx=make_optimizer(
-        warmup_cosine_schedule(cfg.learning_rate, TRAIN16_STEPS)))
-    step = task.make_step_fn(br["ef"], weight)
-    for c in dense_counters():
-        c.launches = 0
-    for c in fused3:
-        c.tiers = dict.fromkeys(t2.TIERS, 0)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    losses = []
-    for b_ in batches[:TRAIN16_STEPS]:
-        state, loss = step(state, b_)
-        losses.append(loss)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    losses = torch.stack(losses).cpu()
-    launches = {c.__name__: c.launches for c in dense_counters() if c.launches}
-    tiers = {c.__name__: dict(c.tiers) for c in fused3}
-    print(f"BF16 TRAIN RUN {len(losses)} steps of the fused branch in the tier at B="
-          f"{cfg.batch_size} in {wall:.2f} s: launches {json.dumps(launches)}, by tier "
-          f"{json.dumps(tiers)}; loss first {float(losses[0]):.6f} last {float(losses[-1]):.6f} "
-          f"(means of the first and last 20 steps {float(losses[:20].mean()):.6f} "
-          f"{float(losses[-20:].mean()):.6f})", flush=True)
-    n = len(losses)
-    if launches != {c.__name__: n for c in fused3} or any(
-            t != {"f32": 0, "bf16": n} for t in tiers.values()):
-        fail("the tier's training run launched other kernels than #11, #12's block and "
-             "#12's contraction in the tier")
+    # -- 26c. md17_kernel from the registry at its default: the tier, fused mode -----
+    run_k, cfg_k = get_workload("md17_kernel", **MD17_TIER_RUN)
+    if not (cfg_k.use_kernel_ef and cfg_k.aug_mode == "fused" and not cfg_k.kernel_interpret):
+        fail(f"md17_kernel is not the fused kernel branch in the tier: {cfg_k}")
+    step_losses = []
+
+    def recording_epoch(step_fn, state, batches_):
+        state, losses = run_epoch(step_fn, state, batches_)
+        step_losses.append(losses)
+        return state, losses
+
+    task.run_epoch = recording_epoch  # keeps every step's loss of the run
+    try:
+        t0 = time.perf_counter()
+        (_, results), launches, tiers = counted(
+            lambda: run_k(cfg_k, MetricLogger(stream=sys.stdout), device=dev))
+        wall = time.perf_counter() - t0
+    finally:
+        task.run_epoch = run_epoch
+    losses = torch.cat(step_losses).cpu()
+    print(f"BF16 TRAIN RUN md17_kernel at its default (the tier, fused mode; "
+          f"{json.dumps(MD17_TIER_RUN)}): {len(losses)} steps at B={cfg_k.batch_size} in "
+          f"{wall:.2f} s with the evaluation; launches {json.dumps(launches)}, by tier "
+          f"{json.dumps({n: tiers[n] for n in launches})}; loss first {float(losses[0]):.6f} last "
+          f"{float(losses[-1]):.6f} (means of the first and last 20 steps "
+          f"{float(losses[:20].mean()):.6f} {float(losses[-20:].mean()):.6f}); E MAE "
+          f"{results['e_mae_kcalmol']:.4f} kcal/mol, F MAE {results['f_mae_kcalmol']:.4f} "
+          "kcal/mol", flush=True)
+    tier_only("md17_kernel run", launches, tiers, fused3)
     if not (torch.isfinite(losses).all() and losses[-20:].mean() < losses[:20].mean()):
-        fail("the tier's training loss is not finite or did not fall")
-    run_launches = {c.__name__: c.launches for c in fused3}
-    del br, state, step
+        fail("md17_kernel's training loss in the tier is not finite or did not fall")
+    if not all(np.isfinite(results[k]) for k in ("e_mae_kcalmol", "f_mae_kcalmol")):
+        fail("non-finite md17_kernel evaluation in the tier")
+    # each kernel's launches on its own path: the md17_kernel run's, and the new kernels'
+    # from their mode's step
+    run_launches = {c.__name__: launches[c.__name__] for c in fused3}
+    run_launches.update({k: step_launches["shared"][k] for k in
+                         ("shared_fwd", "shared_bwd", "resid_jvp", "resid_tbwd", "resid_bwd_aug",
+                          "param_grads_aug")})
+    run_launches.update({k: step_launches["resid"][k] for k in ("aug_fwd", "aug_bwd")})
+    run_launches.update({k: step_launches["retrace"][k] for k in ("retrace_fwd", "retrace_bwd")})
 
-    # -- 26d. timing: each kernel and the fused step in both tiers, in turns ---------
+    # -- 26d. timing: each kernel and each mode's step in both tiers, in turns -------
     src, at = "sake_tpu_torch/csrc/", "sake_tpu/kernels/train2_ef.py:"
     dims = (N, F, F, 50, heads, 256)
+    fused_names = ("fused_primal", "fused_bwd_block", "fused_bwd_grads")
+    mode_names = ("shared_fwd", "shared_bwd", "resid_jvp", "resid_tbwd", "resid_bwd_aug",
+                  "param_grads_aug", "aug_fwd", "aug_bwd", "retrace_fwd", "retrace_bwd")
     entries = []
     for B in TRAIN_BATCHES:
         with torch.no_grad():
@@ -4215,35 +4545,100 @@ def train16_phases(dev, smi) -> list:
             xs = train["x"][:B].permute(2, 0, 1).contiguous()
             tx0 = torch.randn(3, B, N, device=dev, generator=gen)
             g_e = torch.randn(B, device=dev, generator=gen)
-            prim = {b: t2.fused_primal(kp, leaves, h0, xs, upd, leaves_t=leaves_t, bf16=b)
-                    for b in (False, True)}
-            blk = {b: t2.fused_bwd_block(kp, leaves, prim[b][0], upd, tx0, g_e,
-                                         leaves_t=leaves_t) for b in (False, True)}
-            fns = {}
-            for b, side in ((False, "f32"), (True, "bf16")):
-                fns[("fused_primal", side)] = functools.partial(
-                    t2.fused_primal, kp, leaves, h0, xs, upd, leaves_t=leaves_t, bf16=b)
-                fns[("fused_bwd_block", side)] = functools.partial(
-                    t2.fused_bwd_block, kp, leaves, prim[b][0], upd, tx0, g_e,
-                    leaves_t=leaves_t)
-                fns[("fused_bwd_grads", side)] = functools.partial(
-                    t2.fused_bwd_grads, kp, leaves, prim[b][0], *blk[b][2:])
-            runs = {k: [] for k in fns}
-            for _ in range(TRAIN16_ROUNDS):
-                for side in ("f32", "bf16", "bf16", "f32"):
-                    for name in ("fused_primal", "fused_bwd_block", "fused_bwd_grads"):
-                        runs[(name, side)].append(cuda_ms(fns[(name, side)]))
-            fwd16 = prim[True][0]
+            dh = torch.randn(B, N, F, device=dev, generator=gen)
+            dth = torch.randn(B, N, F, device=dev, generator=gen)
+            zs = torch.zeros_like(xs)
+
+            def inputs(b, group):
+                """Each kernel's inputs of ``group`` in tier ``b``: its own upstream
+                kernels' outputs (the fused mode's, or the shared and resid modes')."""
+                if group is fused_names:
+                    prim = t2.fused_primal(kp, leaves, h0, xs, upd, leaves_t=leaves_t, bf16=b)
+                    return dict(prim=prim, blk=t2.fused_bwd_block(kp, leaves, prim[0], upd, tx0,
+                                                                  g_e, leaves_t=leaves_t))
+                fwd = t2.shared_fwd(leaves, h0, xs, upd, bf16=b)
+                tfwd = t2.resid_jvp(leaves, fwd, upd, tx0)
+                tb = t2.resid_tbwd(leaves, fwd, tfwd, upd, dth, zs, zs, leaves_t=leaves_t)
+                ba = t2.resid_bwd_aug(leaves, fwd, upd, dh, zs, zs, tb[3], leaves_t=leaves_t)
+                return dict(fwd=fwd, tfwd=tfwd, tb=tb, ba=ba,
+                            af=t2.aug_fwd(leaves, h0, xs, upd, tx0, bf16=b),
+                            rf=t2.retrace_fwd(leaves, h0, xs, upd, tx0, bf16=b))
+
+            def timed(b, v, side):
+                """The kernels of one group in tier ``b`` on their inputs ``v``."""
+                p = functools.partial
+                make = dict(
+                    fused_primal=lambda: p(t2.fused_primal, kp, leaves, h0, xs, upd,
+                                           leaves_t=leaves_t, bf16=b),
+                    fused_bwd_block=lambda: p(t2.fused_bwd_block, kp, leaves, v["prim"][0], upd,
+                                              tx0, g_e, leaves_t=leaves_t),
+                    fused_bwd_grads=lambda: p(t2.fused_bwd_grads, kp, leaves, v["prim"][0],
+                                              *v["blk"][2:]),
+                    shared_fwd=lambda: p(t2.shared_fwd, leaves, h0, xs, upd, bf16=b),
+                    shared_bwd=lambda: p(t2.shared_bwd, leaves, v["fwd"], upd, dh,
+                                         leaves_t=leaves_t),
+                    resid_jvp=lambda: p(t2.resid_jvp, leaves, v["fwd"], upd, tx0),
+                    resid_tbwd=lambda: p(t2.resid_tbwd, leaves, v["fwd"], v["tfwd"], upd, dth, zs,
+                                         zs, leaves_t=leaves_t),
+                    resid_bwd_aug=lambda: p(t2.resid_bwd_aug, leaves, v["fwd"], upd, dh, zs, zs,
+                                            v["tb"][3], leaves_t=leaves_t),
+                    param_grads_aug=lambda: p(t2.param_grads_aug, leaves, v["fwd"], v["tfwd"],
+                                              v["ba"][3], *v["tb"][4:6]),
+                    aug_fwd=lambda: p(t2.aug_fwd, leaves, h0, xs, upd, tx0, bf16=b),
+                    aug_bwd=lambda: p(t2.aug_bwd, leaves, *v["af"], upd, dh, dth,
+                                      leaves_t=leaves_t),
+                    retrace_fwd=lambda: p(t2.retrace_fwd, leaves, h0, xs, upd, tx0, bf16=b),
+                    retrace_bwd=lambda: p(t2.retrace_bwd, leaves, *v["rf"], upd, dh, dth,
+                                          leaves_t=leaves_t, bf16=b, tile=cfg.aug_batch_tile))
+                return {(k, side): make[k]() for k in v["names"]}
+
+            # one group at a time (the fused mode's kernels, then the other modes'):
+            # both tiers' inputs of a group are alive at once, in turns
+            runs, io16, fns16 = {}, {}, {}
+            for group in (fused_names, mode_names):
+                fns = {}
+                for b, side in ((False, "f32"), (True, "bf16")):
+                    v = dict(inputs(b, group), names=group)
+                    fns.update(timed(b, v, side))
+                    if b:
+                        io16.update(v)
+                runs.update({k: [] for k in fns})
+                for _ in range(TRAIN16_ROUNDS):
+                    for side in ("f32", "bf16", "bf16", "f32"):
+                        for name in group:
+                            runs[(name, side)].append(cuda_ms(fns[(name, side)]))
+                fns16.update({k: f for (k, side), f in fns.items() if side == "bf16"})
+                del fns, v
+            v16 = io16
+            fwd16, tfwd16 = v16["fwd"], v16["tfwd"]
 
             def grads_plain():
                 with f64_sums():
-                    return t2.param_grads_aug_plain(leaves, fwd16, *blk[True][2:6])
+                    return t2.param_grads_aug_plain(leaves, v16["prim"][0], *v16["blk"][2:6])
 
-            plain = {"fused_primal": cuda_ms(lambda: t2.fused_primal_plain(
-                         kp, leaves, h0, xs, upd, bf16=True), reps=1),
-                     "fused_bwd_block": cuda_ms(lambda: t2.fused_bwd_block_plain(
-                         kp, leaves, fwd16, upd, tx0, g_e), reps=1),
-                     "fused_bwd_grads": cuda_ms(grads_plain, reps=1)}
+            def aug_grads_plain():
+                with f64_sums():
+                    return t2.param_grads_aug_plain(leaves, fwd16, tfwd16, v16["ba"][3],
+                                                    *v16["tb"][4:6])
+
+            plain_fns = dict(
+                fused_primal=lambda: t2.fused_primal_plain(kp, leaves, h0, xs, upd, bf16=True),
+                fused_bwd_block=lambda: t2.fused_bwd_block_plain(kp, leaves, v16["prim"][0], upd,
+                                                                 tx0, g_e),
+                fused_bwd_grads=grads_plain,
+                shared_fwd=lambda: resid_ef.resid_fwd_plain(leaves, h0, xs, zs, upd, bf16=True),
+                shared_bwd=lambda: resid_ef.resid_bwd_plain(leaves, fwd16, upd, dh, zs, zs),
+                resid_jvp=lambda: t2.resid_jvp_plain(leaves, fwd16, upd, tx0),
+                resid_tbwd=lambda: t2.resid_tbwd_plain(leaves, fwd16, tfwd16, upd, dth, zs, zs),
+                resid_bwd_aug=lambda: t2.resid_bwd_aug_plain(leaves, fwd16, upd, dh, zs, zs,
+                                                             v16["tb"][3]),
+                param_grads_aug=aug_grads_plain,
+                aug_fwd=lambda: t2.aug_fwd_plain(leaves, h0, xs, upd, tx0, bf16=True),
+                aug_bwd=lambda: t2.resid_aug_bwd_plain(leaves, *v16["af"], upd, dh, dth),
+                retrace_fwd=lambda: t2.retrace_fwd_plain(leaves, h0, xs, upd, tx0, bf16=True),
+                retrace_bwd=lambda: t2.retrace_bwd_plain(leaves, *v16["rf"], upd, dh, dth,
+                                                         bf16=True, tile=cfg.aug_batch_tile))
+            plain = {k: cuda_ms(f, reps=1) for k, f in plain_fns.items()}
         stat = {f"{k[0]} {k[1]}": (float(np.mean(v)), float(np.std(v))) for k, v in runs.items()}
         print(f"BF16 TRAIN TIMING per kernel at B={B}, N={N}, depth {depth} (ms, mean and "
               f"standard deviation of {len(next(iter(runs.values())))} runs, f32 and bf16 in "
@@ -4252,50 +4647,87 @@ def train16_phases(dev, smi) -> list:
               + "; plain bf16 " + json.dumps({k: round(v, 3) for k, v in plain.items()}),
               flush=True)
 
-        # the fused step in both tiers, in turns, and its peak device memory
+        # each mode's step in both tiers, in turns, and its peak device memory
         batch = ({k: v[:B] for k, v in train.items()} if B > cfg.batch_size else batches[0])
-        steps = {}
-        for side, kw in (("f32", {}), ("bf16", tier)):
-            b_ = branch(kw)
-            st = TrainState.create(params=b_["params"], tx=make_optimizer(
-                warmup_cosine_schedule(cfg.learning_rate, 1000)))
-            steps[side] = functools.partial(task.make_step_fn(b_["ef"], weight), st, batch)
-        sruns = {k: [] for k in steps}
-        for _ in range(TRAIN16_ROUNDS):
-            for side in ("f32", "bf16", "bf16", "f32"):
-                sruns[side].append(cuda_ms(steps[side]))
-        peak = {}
-        for side, fn in steps.items():
-            torch.cuda.synchronize()
-            base = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            fn()
-            torch.cuda.synchronize()
-            peak[side] = (torch.cuda.max_memory_allocated() - base) / 2**20
-        print(f"BF16 TRAIN STEP at B={B} (make_step_fn, fused mode; ms, mean and standard "
-              f"deviation, in turns; {smi}): " + "; ".join(
-                  f"{k} {np.mean(v):.3f} +- {np.std(v):.3f} ms, peak device memory "
-                  f"{peak[k]:.1f} MiB" for k, v in sruns.items()), flush=True)
-        del steps
+        for label, ((mode, kw), _) in modes.items():
+            steps = {}
+            for side, bf16 in (("f32", False), ("bf16", True)):
+                b_ = branch(bf16, mode, **kw)
+                st = TrainState.create(params=b_["params"], tx=make_optimizer(
+                    warmup_cosine_schedule(cfg.learning_rate, 1000)))
+                steps[side] = functools.partial(task.make_step_fn(b_["ef"], weight), st, batch)
+            sruns = {k: [] for k in steps}
+            for _ in range(TRAIN16_ROUNDS):
+                for side in ("f32", "bf16", "bf16", "f32"):
+                    sruns[side].append(cuda_ms(steps[side]))
+            peak = {}
+            for side, fn in steps.items():
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                fn()
+                torch.cuda.synchronize()
+                peak[side] = (torch.cuda.max_memory_allocated() - base) / 2**20
+            print(f"BF16 TRAIN STEP at B={B} (make_step_fn, {label} mode; ms, mean and standard "
+                  f"deviation, in turns; {smi}): " + "; ".join(
+                      f"{k} {np.mean(v):.3f} +- {np.std(v):.3f} ms, peak device memory "
+                      f"{peak[k]:.1f} MiB" for k, v in sruns.items()), flush=True)
+            del steps
 
         fma = {k: v * B * depth for k, v in layer_fma(*dims).items()}
         one = edge_fma(N, *dims[2:])["fwd"] * B * depth
         lv16 = resid_ef.edge_bf16_leaves(leaves)
+        lt16 = transposed(lv16)
+        bnd = lambda f: [f.bh, f.bx, f.bv]
+        af16 = v16["af"]
         moved = {
-            "fused_primal": nbytes(lv16, transposed(lv16), h0, xs, prim[True]),
-            "fused_bwd_block": nbytes(lv16, transposed(lv16), fwd16, tx0, g_e, blk[True]),
+            "fused_primal": nbytes(lv16, lt16, h0, xs, v16["prim"]),
+            "fused_bwd_block": nbytes(lv16, lt16, v16["prim"][0], tx0, g_e, v16["blk"]),
             # the streams the loaders read, the rows, the readout partials, the gradients
-            "fused_bwd_grads": nbytes(leaves, fwd16.bh, blk[True][2].bh,
-                                      grads_streams(fwd16.resid),
-                                      grads_streams(blk[True][2].resid), *blk[True][3:7],
-                                      fns[("fused_bwd_grads", "bf16")]()),
+            "fused_bwd_grads": nbytes(leaves, v16["prim"][0].bh, v16["blk"][2].bh,
+                                      grads_streams(v16["prim"][0].resid),
+                                      grads_streams(v16["blk"][2].resid), *v16["blk"][3:7],
+                                      fns16["fused_bwd_grads"]()),
+            "shared_fwd": nbytes(lv16, h0, xs, fwd16),
+            "shared_bwd": nbytes(lv16, lt16, bnd(fwd16), fwd16.resid, dh, xs),
+            "resid_jvp": nbytes(lv16, bnd(fwd16), fwd16.resid, tx0, tfwd16),
+            "resid_tbwd": nbytes(lv16, lt16, bnd(fwd16), fwd16.resid, bnd(tfwd16),
+                                 tfwd16.resid, dth, v16["tb"]),
+            "resid_bwd_aug": nbytes(lv16, lt16, bnd(fwd16), fwd16.resid, dh, v16["tb"][3],
+                                    v16["ba"]),
+            "param_grads_aug": nbytes(leaves, fwd16.bh, tfwd16.bh, grads_streams(fwd16.resid),
+                                      grads_streams(tfwd16.resid), v16["ba"][3],
+                                      *v16["tb"][4:6], fns16["param_grads_aug"]()),
+            "aug_fwd": nbytes(lv16, h0, xs, tx0, af16),
+            "aug_bwd": nbytes(lv16, lt16, [bnd(f) for f in af16], [f.resid for f in af16], dh,
+                              dth, fns16["aug_bwd"]()),
+            "retrace_fwd": nbytes(lv16, h0, xs, tx0, [f[:6] for f in v16["rf"]]),
+            "retrace_bwd": nbytes(lv16, lt16, [bnd(f) for f in v16["rf"]], dh, dth,
+                                  fns16["retrace_bwd"]()),
         }
         ops = {"fused_primal": (fma["fwd"] + fma["bwd"], 2 * one),
                "fused_bwd_block": (fma["jvp"] + fma["tbwd"] + fma["bwd"], 4 * one),
-               "fused_bwd_grads": (fma["grads_aug"], 2 * one)}
+               "fused_bwd_grads": (fma["grads_aug"], 2 * one),
+               "shared_fwd": (fma["fwd"], one), "shared_bwd": (fma["bwd"], one),
+               "resid_jvp": (fma["jvp"], one), "resid_tbwd": (fma["tbwd"], 2 * one),
+               "resid_bwd_aug": (fma["bwd"], one), "param_grads_aug": (fma["grads_aug"], 2 * one),
+               "aug_fwd": (fma["fwd"] + fma["jvp"], 2 * one),
+               "aug_bwd": (fma["tbwd"] + fma["bwd"] + fma["grads_aug"], 5 * one),
+               "retrace_fwd": (fma["fwd"] + fma["jvp"], 2 * one),
+               # the tier's one pullback (values and tangents) and the contraction
+               "retrace_bwd": (fma["fwd"] + fma["jvp"] + fma["tbwd"] + fma["grads_aug"],
+                               6 * one)}
         where = {"fused_primal": ("fused_ef16.cu", "1239"),
                  "fused_bwd_block": ("fused_bwd16.cu", "1750"),
-                 "fused_bwd_grads": ("param_grads.cu", "1750")}
+                 "fused_bwd_grads": ("param_grads.cu", "1750"),
+                 "shared_fwd": ("resid_fwd.cu", "1030"), "shared_bwd": ("resid_bwd16.cu", "1110"),
+                 "resid_jvp": ("resid_jvp16.cu", "1397"),
+                 "resid_tbwd": ("resid_tbwd16.cu", "1507"),
+                 "resid_bwd_aug": ("resid_bwd16.cu", "1507"),
+                 "param_grads_aug": ("param_grads.cu", "1507"),
+                 "aug_fwd": ("aug_fwd16.cu", "584"), "aug_bwd": ("resid_tbwd16.cu", "723"),
+                 "retrace_fwd": ("aug_fwd16.cu", "270"),
+                 "retrace_bwd": ("retrace_bwd16.cu", "379")}
         at_b = [entry16(f"{k}_bf16", src + where[k][0], at + where[k][1], run_launches[k],
                         abs16[k], stat[f"{k} bf16"][0], plain[k], *ops[k], moved[k])
                 for k in where]
@@ -4306,7 +4738,8 @@ def train16_phases(dev, smi) -> list:
             "the bf16 streams at 2 bytes)", flush=True)
         if B == max(TRAIN_BATCHES):  # the entries carry B = 512
             entries = at_b
-        del prim, blk, fns, h0, xs, tx0, g_e, fwd16, lv16, at_b
+        del io16, fns16, runs, v16, fwd16, tfwd16, af16, h0, xs, tx0, g_e, dh, dth, lv16, lt16
+        del at_b
     print(f"BF16 TRAIN PHASE {time.perf_counter() - t_phase:.1f} s", flush=True)
     return entries
 

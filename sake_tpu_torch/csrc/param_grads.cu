@@ -59,6 +59,12 @@
 // contract_param_pairs and contract_param_pair_tangents with mm_edge_t in
 // bf16): the stage's first half holds bf16(a) against bf16(g_p) + bf16(t_g),
 // summed in f32 (two bf16 values: exact unless their exponents lie 16 apart).
+// #17 in that tier (sake_retrace_grads16, the retrace backward's one-layer f32
+// scratch): JAX differentiates mm_edge, so an edge leaf's gradient is, per
+// batch tile, bf16(sum bf16(a) P) + bf16(sum bf16(t_a) c_t) added in f32, the
+// tiles added in f32: each term is a plain contraction on the loaders (kRt)
+// over chunks cut at the tiles, its sums rounded as the chunks are added
+// (retrace_sum_tiles16); the 25 other leaves take the f32 augmented route.
 //
 // What bounds it on an H100: f64 multiply-adds on DMMA at 67 TFLOP/s. The
 // w_xmix contraction is most of the work: 256 x 256 outputs over B * N^2
@@ -307,6 +313,26 @@ __device__ __forceinline__ float edge_rd(float x) {
   else return x;
 }
 
+// #17's edge weights in the bf16 tier (sake_retrace_grads16): operand a of an
+// edge leaf and its tangent as JAX's autodiff of mm_edge forms them from the
+// f32 one-layer scratch (Tv: the primal's residuals and forward rows; Tt:
+// the tangent's): each factor rounded to bf16, and w_xmix's product
+// bf16(h_e) (x) bf16(att2) rounded again.
+template <int LEAF>
+__device__ __forceinline__ Dl retrace_a16(const GradArgs& g, int l, size_t row, int r) {
+  const Src<Dl> s{&g.Tv, &g.Tt};
+  const int H = g.d.H, R = g.d.R, K = g.d.K;
+  auto ed = [&](int a, int i, int ch, int c) { return g.edge(s, a, i, l, row, ch, c); };
+  auto rd = [](Dl x) { return Dl{bf16r(x.v), bf16r(x.t)}; };
+  if constexpr (LEAF == W_O_F) return rd(ed(A_RW, RW_FILT, R, r));
+  else if constexpr (LEAF == W_O1) return rd(silu(ed(A_RS, RS_E0, H, r)));
+  else if constexpr (LEAF == W_SEM) return rd(ed(A_RS, RS_H_E, H, r));
+  else {
+    static_assert(LEAF == W_XMIX, "only the edge leaves round as #17's tier does");
+    return rd(rd(ed(A_RS, RS_H_E, H, r / K)) * rd(ed(A_RW, RW_ATT2, K, r % K)));
+  }
+}
+
 // A layer's rows of a leaf: its edges, atoms, or (w_vmix) the three pooled
 // planes' atoms in turn; row r is the loaders' global row r.
 template <int LEAF>
@@ -350,7 +376,10 @@ struct WideTile {
 // (NT = 2) elements are loaded and formed into registers by prefetch, before
 // the previous stage's products, and stored by stage; a wider one's are formed
 // and stored four at a time.
-template <int LEAF, bool kAug, int NT, bool kE16 = false>
+// kRt (1 or 2): one term of #17's edge weights in the bf16 tier, the primal's
+// bf16(a) against the primal chain's cotangent (Tt's rows) or the tangent's
+// bf16(t_a) against the tangent chain's (Tv's), as a plain contraction.
+template <int LEAF, bool kAug, int NT, bool kE16 = false, int kRt = 0>
 struct LoaderFill {
   static constexpr int TN = 32 * NT, qa = kDmK * kDmM / kDmThreads;
   static constexpr int qb = kDmK * TN / kDmThreads;
@@ -372,7 +401,15 @@ struct LoaderFill {
     const bool second = kAug && v >= per;
     const long long row = w.r_begin + (long long)s * per + (second ? v - per : v);
     if (row >= w.r_end || j >= (kA ? w.m_live : w.n_live)) return 0.f;
-    if constexpr (kE16 && !kAug) {  // the bf16 tier
+    if constexpr (kRt != 0) {
+      if constexpr (kA) {
+        const Dl a = retrace_a16<LEAF>(*g, w.l, row, w.col_a(j, g->d.K));
+        return kRt == 1 ? a.v : a.t;
+      } else {
+        const Dl c = load_g<LEAF>(*g, sd, w.l, row, w.c0 + j);
+        return kRt == 1 ? c.t : c.v;
+      }
+    } else if constexpr (kE16 && !kAug) {  // the bf16 tier
       const Src<float, true> sl{&g->P};
       if constexpr (kA)
         return edge_rd<LEAF, true>(load_a<LEAF>(*g, sl, w.l, row, w.col_a(j, g->d.K)));
@@ -594,7 +631,7 @@ struct StreamFill {
 
 // out[r, c] = sum over the chunk's rows of a[row, r] * g[row, c] for one
 // wide tile (augmented: a against g_p + t_g, then t_a against g_t), on DMMA.
-template <int LEAF, bool kAug, bool kE16 = false>
+template <int LEAF, bool kAug, bool kE16 = false, int kRt = 0>
 __device__ void contract_wide(const GradArgs& g, const WideTile& w, double* out, float* ring) {
   constexpr int NT = tile_nt(LEAF);
   constexpr int per = stage_rows<kAug>();
@@ -602,7 +639,7 @@ __device__ void contract_wide(const GradArgs& g, const WideTile& w, double* out,
   constexpr int mma_slot = LEAF == W_XMIX ? PR_PG_XMIX_MMA : PR_PG_WIDE_MMA;
   const int n_stages = (int)((w.r_end - w.r_begin + per - 1) / per);
   DmTile<NT> acc;
-  if constexpr (stream_spec(LEAF).form != FORM_LOADER && !kE16) {
+  if constexpr (stream_spec(LEAF).form != FORM_LOADER && !kE16 && kRt == 0) {
     if (g.ring_ok[LEAF]) {
       constexpr StreamSpec sp = stream_spec(LEAF);
       constexpr bool kX = sp.form == FORM_XMIX;
@@ -633,8 +670,8 @@ __device__ void contract_wide(const GradArgs& g, const WideTile& w, double* out,
       dm_wait<0>();
     }
   }
-  if (stream_spec(LEAF).form == FORM_LOADER || !g.ring_ok[LEAF]) {
-    LoaderFill<LEAF, kAug, NT, kE16> fill;
+  if (kRt != 0 || stream_spec(LEAF).form == FORM_LOADER || !g.ring_ok[LEAF]) {
+    LoaderFill<LEAF, kAug, NT, kE16, kRt> fill;
     fill.g = &g;
     fill.w = w;
     fill.ring = ring;
@@ -656,7 +693,7 @@ __host__ __device__ inline int narrow_cols(int ra) { return ra <= 8 ? 8 : kTile;
 // double; the row groups are summed in order at the end. These are the
 // row sums, whose terms cancel (a softmax's cotangents sum to zero over
 // its senders), so f32 sums lose digits the plain version keeps.
-template <int LEAF, bool kAug, bool kE16 = false>
+template <int LEAF, bool kAug, bool kE16 = false, int kRt = 0>
 __device__ void contract_narrow(const GradArgs& g, int l, long long r_begin, long long r_end,
                                 int r0, int ra, int cg, double* out, double* sm) {
   const int cols = narrow_cols(ra), groups = kThreads / cols;
@@ -669,6 +706,18 @@ __device__ void contract_narrow(const GradArgs& g, int l, long long r_begin, lon
   for (int c = 0; c < kNarrowMax; ++c) acc[c] = 0.0;
   if (r < ra) {
     for (long long row = r_begin + rg; row < r_end; row += groups) {
+      if constexpr (kRt != 0) {  // one term of #17's tier (LoaderFill's kRt)
+        const Dl ad = retrace_a16<LEAF>(g, l, row, r);
+        const double a = kRt == 1 ? ad.v : ad.t;
+#pragma unroll
+        for (int c = 0; c < kNarrowMax; ++c) {
+          if (c < cg) {
+            const Dl gt = load_g<LEAF>(g, sd, l, row, c);
+            acc[c] = fma(a, (double)(kRt == 1 ? gt.t : gt.v), acc[c]);
+          }
+        }
+        continue;
+      }
       const double a = edge_rd<LEAF, kE16>(load_a<LEAF>(g, sp, l, row, r));
       // augmented: a_p g_p + t_a g_t + a_t t_g (a row sum: s_p + t(s_t))
       Dl at{0.f, 0.f};
@@ -813,6 +862,114 @@ __global__ void sum_chunks(const T* __restrict__ partial, float* out, long long 
   SAKE_PROBE_BARRIER(PR_PG_SUM);
 }
 
+// ---- #17's edge weights in the bf16 tier ----------------------------------
+// JAX differentiates mm_edge per batch tile: an edge weight's gradient is
+// bf16(sum bf16(a) P) + bf16(sum bf16(t_a) c_t) per tile of `tile` molecules,
+// the two added in f32 and the tiles' sums added in f32. Each term is a plain
+// contraction on DMMA (LoaderFill's kRt), over chunks that never cross a
+// tile: tile t's edge rows are cut into `sub` chunks, and the chunks of the
+// primal term (n_tc = tiles x sub) come before the tangent term's among
+// GradArgs' n_chunks, so BlockPlace and the partial sums keep their layout.
+struct RtSplit {
+  long long tile_rows;  // a tile's edge rows in a layer: tile N^2
+  int sub, n_tc;
+  __device__ void rows(long long rows, int cc, long long* rb, long long* re) const {
+    const long long tb = min(rows, (cc / sub) * tile_rows), te = min(rows, tb + tile_rows);
+    const long long span = (tile_rows + sub - 1) / sub;
+    *rb = min(te, tb + (cc % sub) * span);
+    *re = min(te, *rb + span);
+  }
+};
+
+template <int LEAF, int kRt>
+__device__ void retrace_wide_block(const GradArgs& g, const BlockPlace& p, long long rb,
+                                   long long re, float* ring) {
+  WideTile w;
+  w.l = p.l;
+  w.rt = p.tile / g.tiles_c[LEAF];
+  w.ct = p.tile % g.tiles_c[LEAF];
+  w.r_begin = rb;
+  w.r_end = re;
+  w.c0 = w.ct * 32 * tile_nt(LEAF);
+  w.n_live = min(32 * tile_nt(LEAF), g.cg[LEAF] - w.c0);
+  if (LEAF == W_XMIX) {
+    w.head = w.rt % g.d.K;
+    w.h0 = (w.rt / g.d.K) * kDmM;
+    w.r0 = 0;
+    w.m_live = min(kDmM, g.d.H - w.h0);
+  } else {
+    w.head = -1;
+    w.h0 = 0;
+    w.r0 = w.rt * kDmM;
+    w.m_live = min(kDmM, g.ra[LEAF] - w.r0);
+  }
+  contract_wide<LEAF, false, false, kRt>(g, w, p.out(g), ring);
+}
+
+// w_xmix's tiles (NT = 8), or w_o_f's and w_o1's (NT = 2), of both terms.
+template <int NT>
+__global__ void __launch_bounds__(kThreads) retrace_grads16_wide(const GradArgs g,
+                                                                 const RtSplit rs) {
+  extern __shared__ float4 smem4[];
+  SAKE_PROBE_START();
+  const BlockPlace p(g, g.first[NT == 8 ? 2 : 1]);
+  float* ring = reinterpret_cast<float*>(smem4);
+  const bool primal = p.chunk < rs.n_tc;
+  long long rb, re;
+  rs.rows(leaf_rows<W_XMIX>(g.d), p.chunk % rs.n_tc, &rb, &re);
+  if constexpr (NT == 8) {
+    if (primal) retrace_wide_block<W_XMIX, 1>(g, p, rb, re, ring);
+    else retrace_wide_block<W_XMIX, 2>(g, p, rb, re, ring);
+  } else if (p.leaf == W_O_F) {
+    if (primal) retrace_wide_block<W_O_F, 1>(g, p, rb, re, ring);
+    else retrace_wide_block<W_O_F, 2>(g, p, rb, re, ring);
+  } else {
+    if (primal) retrace_wide_block<W_O1, 1>(g, p, rb, re, ring);
+    else retrace_wide_block<W_O1, 2>(g, p, rb, re, ring);
+  }
+}
+
+// w_sem's (narrow: K columns), of both terms.
+__global__ void __launch_bounds__(kThreads) retrace_grads16_narrow(const GradArgs g,
+                                                                   const RtSplit rs) {
+  __shared__ double sm[kThreads * kNarrowMax];
+  SAKE_PROBE_START();
+  const BlockPlace p(g, g.first[0]);
+  long long rb, re;
+  rs.rows(leaf_rows<W_SEM>(g.d), p.chunk % rs.n_tc, &rb, &re);
+  const int r0 = p.tile * g.row_tile[W_SEM], ra = g.ra[W_SEM], cg = g.cg[W_SEM];
+  if (p.chunk < rs.n_tc)
+    contract_narrow<W_SEM, false, false, 1>(g, p.l, rb, re, r0, ra, cg, p.out(g), sm);
+  else contract_narrow<W_SEM, false, false, 2>(g, p.l, rb, re, r0, ra, cg, p.out(g), sm);
+}
+
+// The four leaves' places: segment k of the partial sums (src[k], len[k]
+// floats) goes to out + dst[k].
+struct RtOut {
+  long long src[4], dst[4], len[4];
+};
+
+// out: per tile, each term's chunks summed in f64 in order, rounded to bf16
+// (through f32), the two added in f32 and the tiles' sums in f32, in order.
+__global__ void retrace_sum_tiles16(const double* __restrict__ partial, float* out, RtOut o,
+                                    long long total, int n_tc, int sub) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
+       i += (long long)gridDim.x * blockDim.x) {
+    int k = 0;
+    while (k < 3 && i >= o.src[k] + o.len[k]) ++k;
+    float acc = 0.f;
+    for (int c0 = 0; c0 < n_tc; c0 += sub) {
+      double sp = 0.0, st = 0.0;
+      for (int c = c0; c < c0 + sub; ++c) {
+        sp += partial[(size_t)c * total + i];
+        st += partial[(size_t)(n_tc + c) * total + i];
+      }
+      acc += bf16r((float)sp) + bf16r((float)st);
+    }
+    out[o.dst[k] + i - o.src[k]] = acc;
+  }
+}
+
 }  // namespace sake
 
 namespace sake {
@@ -847,9 +1004,12 @@ cudaError_t launch_wide(const GradArgs& g, long long blocks, int slot, cudaStrea
   return cudaGetLastError();
 }
 
+// skip_edge: no blocks for the four edge leaves (their outputs are left to
+// launch_retrace16).
 template <bool kAug, bool kE16 = false>
 int launch_grads(GradArgs& g, const void* const* leaf_ptrs, const long long* leaf_strides,
-                 double* partial, float* out, int n_chunks, void* stream) {
+                 double* partial, float* out, int n_chunks, void* stream,
+                 bool skip_edge = false) {
   if (n_chunks < 1) return (int)cudaErrorInvalidValue;
   g.n_chunks = n_chunks;
   g.L = leaves_of(leaf_ptrs, leaf_strides);
@@ -865,8 +1025,9 @@ int launch_grads(GradArgs& g, const void* const* leaf_ptrs, const long long* lea
     const int tn = 32 * tile_nt(leaf);
     g.tiles_c[leaf] = nar ? 1 : (g.cg[leaf] + tn - 1) / tn;
     g.row_tile[leaf] = nar ? narrow_cols(g.ra[leaf]) : kDmM;
-    g.tiles[leaf] = nar ? (g.ra[leaf] + g.row_tile[leaf] - 1) / g.row_tile[leaf]
-                        : tiles_r(leaf, g.d, g.ra[leaf]) * g.tiles_c[leaf];
+    g.tiles[leaf] = skip_edge && edge_mm_leaf(leaf) ? 0
+                    : nar ? (g.ra[leaf] + g.row_tile[leaf] - 1) / g.row_tile[leaf]
+                          : tiles_r(leaf, g.d, g.ra[leaf]) * g.tiles_c[leaf];
     for (int k = 0; k < 3; ++k) g.first[k][leaf] = (int)blocks[k];
     blocks[nar ? 0 : (tile_nt(leaf) == 8 ? 2 : 1)] += (long long)g.tiles[leaf] * n_chunks * g.d.depth;
     g.off[leaf] = off;
@@ -913,6 +1074,74 @@ int launch_grads(GradArgs& g, const void* const* leaf_ptrs, const long long* lea
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   sum_rows(partial, out, off, g.n_chunks, s);
+  return (int)cudaGetLastError();
+}
+
+template <int NT>
+cudaError_t launch_retrace16_wide(const GradArgs& g, const RtSplit& rs, long long blocks,
+                                  cudaStream_t s) {
+  if (blocks == 0) return cudaSuccess;
+  const int smem = kDmRing * kDmK * (dm_ldr(kDmM) + dm_ldr(32 * NT)) * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(retrace_grads16_wide<NT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  retrace_grads16_wide<NT><<<(unsigned)blocks, kThreads, smem, s>>>(g, rs);
+  return cudaGetLastError();
+}
+
+// #17's four edge weights in the bf16 tier into out, at main's offsets (the
+// launch_grads that left them out): g holds the tables, partial (2 n_tc, the
+// four leaves' floats) f64.
+int launch_retrace16(GradArgs g, const GradArgs& main, const void* const* leaf_ptrs,
+                     const long long* leaf_strides, double* partial, float* out, int tile,
+                     int sub, cudaStream_t s) {
+  if (tile < 1 || sub < 1) return (int)cudaErrorInvalidValue;
+  RtSplit rs;
+  rs.tile_rows = (long long)tile * g.d.N * g.d.N;
+  rs.sub = sub;
+  rs.n_tc = (g.d.B + tile - 1) / tile * sub;
+  g.n_chunks = 2 * rs.n_tc;
+  g.L = leaves_of(leaf_ptrs, leaf_strides);
+  g.partial = partial;
+  RtOut o;
+  long long off = 0, blocks[3] = {0, 0, 0};
+  int k = 0;
+  for (int leaf = 0; leaf < kLeaves; ++leaf) {
+    int rows, cols;
+    leaf_shape(leaf, g.d, &rows, &cols);
+    g.ra[leaf] = rows == 1 ? cols : rows;
+    g.cg[leaf] = rows == 1 ? 1 : cols;
+    const bool nar = narrow_leaf(leaf), edge = edge_mm_leaf(leaf);
+    if (edge && nar && g.cg[leaf] > kNarrowMax) return (int)cudaErrorInvalidValue;
+    const int tn = 32 * tile_nt(leaf);
+    g.tiles_c[leaf] = nar ? 1 : (g.cg[leaf] + tn - 1) / tn;
+    g.row_tile[leaf] = nar ? narrow_cols(g.ra[leaf]) : kDmM;
+    g.tiles[leaf] = !edge ? 0
+                    : nar ? (g.ra[leaf] + g.row_tile[leaf] - 1) / g.row_tile[leaf]
+                          : tiles_r(leaf, g.d, g.ra[leaf]) * g.tiles_c[leaf];
+    for (int q = 0; q < 3; ++q) g.first[q][leaf] = (int)blocks[q];
+    blocks[nar ? 0 : (tile_nt(leaf) == 8 ? 2 : 1)] +=
+        (long long)g.tiles[leaf] * g.n_chunks * g.d.depth;
+    g.off[leaf] = off;
+    g.ring_ok[leaf] = false;
+    if (edge) {
+      o.src[k] = off;
+      o.dst[k] = main.off[leaf];
+      o.len[k++] = (long long)g.d.depth * rows * cols;
+      off += (long long)g.d.depth * rows * cols;
+    }
+  }
+  for (int q = 0; q < 3; ++q) g.first[q][kLeaves] = (int)blocks[q];
+  g.total = off;
+  cudaError_t err = launch_retrace16_wide<8>(g, rs, blocks[2], s);
+  if (err == cudaSuccess) err = launch_retrace16_wide<2>(g, rs, blocks[1], s);
+  if (err != cudaSuccess) return (int)err;
+  if (blocks[0] > 0) retrace_grads16_narrow<<<(unsigned)blocks[0], kThreads, 0, s>>>(g, rs);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long grid = (off + kThreads - 1) / kThreads;
+  retrace_sum_tiles16<<<(unsigned)(grid < 4096 ? grid : 4096), kThreads, 0, s>>>(
+      partial, out, o, off, rs.n_tc, sub);
   return (int)cudaGetLastError();
 }
 
@@ -998,6 +1227,35 @@ extern "C" int sake_param_grads_aug(const float* bh, const float* tbh,
   if (err != 0 || ro_part == nullptr) return err;
   sum_rows(ro_part, ro_out, ro_len, B, static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
+}
+
+// #17's contraction in resid_ef's bf16 tier, one call per layer of the retrace
+// backward (retrace_bwd16.cu): the arguments of sake_param_grads_aug on the
+// f32 one-layer scratch (row_ptrs the primal chain's rows, zero but the
+// forward rows; trow_ptrs the tangent chain's; ttrow_ptrs their tangents, the
+// primal chain's cotangents), the 25 other leaves as there; the four edge
+// weights as JAX's autodiff of mm_edge gives them per batch tile of `tile`
+// molecules (launch_retrace16), each tile's rows cut into `sub` chunks;
+// partial16 (2 ceil(B / tile) sub, their floats) f64 scratch.
+extern "C" int sake_retrace_grads16(const float* bh, const float* tbh,
+                                    const void* const* leaf_ptrs,
+                                    const long long* leaf_strides, void* const* resid_ptrs,
+                                    void* const* tresid_ptrs, void* const* row_ptrs,
+                                    void* const* trow_ptrs, void* const* ttrow_ptrs,
+                                    double* partial, float* out, double* partial16,
+                                    int n_chunks, int tile, int sub, int B, int N, int F, int H,
+                                    int R, int K, int C, int depth, void* stream) {
+  using namespace sake;
+  GradArgs g;
+  g.d = Dims{B, N, F, H, R, K, C, depth};
+  g.P = tables(bh, resid_ptrs, row_ptrs);
+  g.Tv = tables(bh, resid_ptrs, trow_ptrs);
+  g.Tt = tables(tbh, tresid_ptrs, ttrow_ptrs);
+  const int err = launch_grads<true>(g, leaf_ptrs, leaf_strides, partial, out, n_chunks,
+                                     stream, true);
+  if (err != 0) return err;
+  return launch_retrace16(g, g, leaf_ptrs, leaf_strides, partial16, out, tile, sub,
+                          static_cast<cudaStream_t>(stream));
 }
 
 // The clock probe's slots (probe.cuh): out (kProbeSlots,), zeroed when reset.

@@ -59,10 +59,8 @@
 // CUDA-core products.
 //
 // resid_ef's bf16 tier (bwd_layer's kE16: the bf16 residual streams, the edge
-// products with both operands in bf16) runs K2 in a kernel of its own,
-// resid_bwd16_kernel, on both of K2's routes. The rows instantiation has no
-// bf16 tier: the tier's rows are #5's cluster kernel's. The f32 kernels are
-// untouched by it.
+// products with both operands in bf16) runs K2 and the rows instantiation in
+// kernels of their own (resid_bwd16.cu). The f32 kernels are untouched by it.
 //
 // #5's cluster kernel (one molecule per two-CTA cluster) is resid_bwd_cl.cu's.
 
@@ -100,12 +98,6 @@ resid_bwd_kernel(Dims d, const float* __restrict__ bh, const float* __restrict__
   }
 }
 
-// K2's tensor-core kernel (see the top): its shared memory in floats, the W
-// ring and then the kTc carve.
-__host__ __device__ inline long long bwd_tc_smem_floats(const Dims& d) {
-  return tc_ring_floats(d) + bwd_smem_floats<true>(d);
-}
-
 __global__ void __launch_bounds__(512, 1)
 resid_bwd_tc_kernel(Dims d, const float* __restrict__ bh, const float* __restrict__ bx,
                     const float* __restrict__ bv, const float* __restrict__ upd,
@@ -134,55 +126,6 @@ resid_bwd_tc_kernel(Dims d, const float* __restrict__ bh, const float* __restric
     dx_out[((size_t)k * B + b) * N + i] = S.sdx[e];
     dv_out[((size_t)k * B + b) * N + i] = S.sdv[e];
   }
-}
-
-// K2 in the bf16 tier (see the top): kTc its tensor-core route, else the CUDA
-// cores.
-template <bool kTc>
-__global__ void __launch_bounds__(512)
-resid_bwd16_kernel(Dims d, const float* __restrict__ bh, const float* __restrict__ bx,
-                   const float* __restrict__ bv, const float* __restrict__ upd,
-                   const float* __restrict__ mask, Leaves L, Leaves LT, Resids16 RS,
-                   const float* __restrict__ dh_fin, const float* __restrict__ dx_fin,
-                   const float* __restrict__ dv_fin, float* dh_out, float* dx_out,
-                   float* dv_out) {
-  extern __shared__ float4 smem4[];
-  const int b = blockIdx.x;
-  const int B = d.B, N = d.N, F = d.F;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const float* mb = mask ? mask + (size_t)b * N * N : nullptr;
-
-  Carver cv{reinterpret_cast<float*>(smem4)};
-  float* ring = kTc ? cv.take(tc_ring_floats(d)) : nullptr;
-  const BwdSmem S = carve_bwd<kTc>(cv, d);
-  SAKE_PROBE_START();
-  bwd_begin(d, S, B, b, dh_fin, dx_fin, dv_fin, mb);
-  for (int l = d.depth - 1; l >= 0; --l)
-    bwd_layer<false, false, kTc, true>(d, S, b, l, upd[l], mb, L, LT, bh, bx, bv, RS, Rows{},
-                                       nullptr, nullptr, nullptr, ring);
-
-  for (int e = tid; e < N * F; e += nt) dh_out[(size_t)b * N * F + e] = S.sdh[e];
-  for (int e = tid; e < 3 * N; e += nt) {
-    const int k = e / N, i = e % N;
-    dx_out[((size_t)k * B + b) * N + i] = S.sdx[e];
-    dv_out[((size_t)k * B + b) * N + i] = S.sdv[e];
-  }
-}
-
-template <bool kTc>
-int launch_bwd16(const Dims& d, const float* bh, const float* bx, const float* bv,
-                 const float* upd, const float* mask, const Leaves& L, const Leaves& LT,
-                 const Resids16& RS, const float* dh_fin, const float* dx_fin,
-                 const float* dv_fin, float* dh_out, float* dx_out, float* dv_out,
-                 void* stream) {
-  if (kTc && !tc_dims(d)) return (int)cudaErrorInvalidValue;
-  const size_t smem = (kTc ? bwd_tc_smem_floats(d) : bwd_smem_floats(d)) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(resid_bwd16_kernel<kTc>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  resid_bwd16_kernel<kTc><<<d.B, 512, smem, static_cast<cudaStream_t>(stream)>>>(
-      d, bh, bx, bv, upd, mask, L, LT, RS, dh_fin, dx_fin, dv_fin, dh_out, dx_out, dv_out);
-  return (int)cudaGetLastError();
 }
 
 template <bool kRows>
@@ -281,31 +224,6 @@ extern "C" int sake_resid_bwd_rows(const float* bh, const float* bx, const float
                                 mask, leaf_ptrs, leaf_t_ptrs, leaf_strides, resid_ptrs,
                                 dh_fin, dx_fin, dv_fin, dh_out, dx_out, dv_out,
                                 sake::rows_of(row_ptrs), add_h, add_x, add_v, stream);
-}
-
-// The bf16 tier's K2 (see the top): the arguments of sake_resid_bwd, the
-// low-precision residual streams bf16 tensors (all but r and t), L's and LT's
-// four edge weights (w_o_f, w_o1, w_sem, w_xmix) rounded to bf16. route: 0 the
-// CUDA cores, 1 the tensor cores (tc_dims, else refused). The bf16 tier's rows
-// take #5's cluster kernel (resid_bwd_cl.cu) only.
-extern "C" int sake_resid_bwd16(int route, const float* bh, const float* bx, const float* bv,
-                                const float* upd, const float* mask,
-                                const void* const* leaf_ptrs, const void* const* leaf_t_ptrs,
-                                const long long* leaf_strides, void* const* resid_ptrs,
-                                const float* dh_fin, const float* dx_fin, const float* dv_fin,
-                                float* dh_out, float* dx_out, float* dv_out, int B, int N, int F,
-                                int H, int R, int K, int C, int depth, void* stream) {
-  using namespace sake;
-  const Dims d{B, N, F, H, R, K, C, depth};
-  const Leaves L = leaves_of(leaf_ptrs, leaf_strides), LT = leaves_of(leaf_t_ptrs, leaf_strides);
-  const Resids16 RS = resids16_of(resid_ptrs);
-  switch (route) {
-    case 0: return launch_bwd16<false>(d, bh, bx, bv, upd, mask, L, LT, RS, dh_fin, dx_fin,
-                                       dv_fin, dh_out, dx_out, dv_out, stream);
-    case 1: return launch_bwd16<true>(d, bh, bx, bv, upd, mask, L, LT, RS, dh_fin, dx_fin,
-                                      dv_fin, dh_out, dx_out, dv_out, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }
 
 // The clock probe's slots (probe.cuh) of this source's kernels.

@@ -95,6 +95,12 @@ __host__ __device__ inline long long bwd_smem_floats(const Dims& d) {
   return cv.off;
 }
 
+// K2's tensor-core kernels (resid_bwd.cu, resid_bwd16.cu): their shared
+// memory in floats, the W ring and then the kTc carve.
+__host__ __device__ inline long long bwd_tc_smem_floats(const Dims& d) {
+  return tc_ring_floats(d) + bwd_smem_floats<true>(d);
+}
+
 // Floats of the cotangent state (sdh, sdx, sdv) that carve_bwd takes first: a
 // kernel that runs another body between layers carves that body's buffers
 // after them, so the state outlives it.
@@ -147,7 +153,8 @@ __device__ __forceinline__ void bwd_begin(const Dims& d, const BwdSmem& S, int B
 // rounded weight (LT holds w_o_f, w_o1, w_sem, w_xmix rounded), one pass on the
 // tensor cores; the head expansion's terms bf16(d_he_att bf16(att2)) and
 // bf16(d_he_att h_e) rounded before their sums; node products f32. With
-// kRows (only #12's primal chain in that tier, fused_bwd16.cu) its rows are
+// kRows (#12's primal chain in that tier, fused_bwd16.cu, and the one-block
+// rows kernel's, resid_bwd16.cu) its rows are
 // those of layer_bwd_resid(bf16=True): att2 rounded, hatt summing h_e (a bf16
 // value) times att2 rounded, psq from the rounded pooled vectors.
 template <bool kRows, bool kBf16 = false, bool kTc = false, bool kE16 = false>

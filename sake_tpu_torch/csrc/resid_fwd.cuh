@@ -140,15 +140,19 @@ __device__ __forceinline__ void fwd_begin(const Dims& d, const FwdSmem& S, int B
 // t is written as bf16 (put_res; RS a Resids16 with kResid), while the body
 // goes on with the f32 values:
 // its pooled vectors also go, in f32, to slot b of a one-layer (3, d.B, N, C)
-// scratch pool16 (with kResid), which its node phase reads.
+// scratch pool16 (with kResid), which its node phase reads. kLowRes (default
+// kE16): whether the streams are bf16; kE16 without it (#18's and #16's bodies in
+// the tier, whose tangent JAX computes from the f32 values) writes every stream
+// in f32 (RS a Resids) and reads its pooled vectors back from it.
 template <bool kResid, bool kBound, bool kBf16 = false, bool kTc = false, bool kCl = false,
-          int kTcW = kTcWarps, bool kE16 = false>
+          int kTcW = kTcWarps, bool kE16 = false, bool kLowRes = kE16>
 __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b, int l,
                                           float u, const float* __restrict__ mb,
                                           const Leaves& L, float* bh, float* bx, float* bv,
-                                          const ResidsOf<kE16 && kResid>& RS,
+                                          const ResidsOf<kLowRes && kResid>& RS,
                                           float* ring = nullptr, float* pool16 = nullptr) {
   static_assert(!(kE16 && kBf16), "one bf16 tier");
+  static_assert(kE16 || !kLowRes, "bf16 streams belong to the bf16 tier");
   const int B = d.B, N = d.N, F = d.F, H = d.H, R = d.R, K = d.K, C = d.C;
   const int HK = H * K, NN = N * N;
   [[maybe_unused]] const int ldx = kTc ? tc_ld_of<kCl>(d, HK) : HK;  // kTc: shea's row stride
@@ -364,7 +368,7 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
 #pragma unroll
         for (int k = 0; k < 3; ++k) p[k] += cf * (sd[k * N + j] * sir[j]);
       }
-      if constexpr (kE16 && kResid) {
+      if constexpr (kLowRes && kResid) {
         const size_t plane = (size_t)B * N * C;
 #pragma unroll
         for (int k = 0; k < 3; ++k) {
@@ -387,7 +391,7 @@ __device__ __forceinline__ void fwd_layer(const Dims& d, const FwdSmem& S, int b
   // ---- node phase: this CTA's receivers, r = i - i0 < nn -------------------
   // (scf, se0, she, snp, suv, sg0, sg1 and sdel by r, the state by i)
   const float* pool[3];
-  if constexpr (kE16 && kResid) {  // the f32 pooled vectors of the scratch
+  if constexpr (kLowRes && kResid) {  // the f32 pooled vectors of the scratch
 #pragma unroll
     for (int k = 0; k < 3; ++k) pool[k] = pool16 + ((size_t)k * B + b) * N * C + i0 * C;
   } else {

@@ -11,8 +11,9 @@
 // training path it serves, it takes no edge mask (layer_jvp_resid's masked
 // renormalization tangent stays in the plain version).
 //
-// The per-layer body is jvp_layer (resid_jvp.cuh), which fused_bwd.cu (#12)
-// shares.
+// The per-layer body is jvp_layer and the kernel resid_jvp_kernel
+// (resid_jvp.cuh); fused_bwd.cu (#12) shares the body, resid_jvp16.cu runs the
+// kernel in resid_ef's bf16 tier.
 //
 // Design: K1's, with every primal value read from the residual streams
 // instead of recomputed. One thread block per molecule loops over depth with
@@ -37,36 +38,6 @@
 
 #include "resid_jvp.cuh"
 
-namespace sake {
-namespace {
-
-__global__ void __launch_bounds__(256)
-resid_jvp_kernel(Dims d, const float* __restrict__ bh, const float* __restrict__ bx,
-                 const float* __restrict__ bv, const float* __restrict__ upd, Leaves L,
-                 Resids RS, const float* __restrict__ tx0, float* tbh, float* tbx, float* tbv,
-                 float* th_fin, float* tx_fin, float* tv_fin, Resids TR) {
-  extern __shared__ float4 smem4[];
-  const int b = blockIdx.x;
-  const int B = d.B, N = d.N, F = d.F;
-  const int tid = threadIdx.x, nt = blockDim.x;
-
-  Carver cv{reinterpret_cast<float*>(smem4)};
-  const JvpSmem S = carve_jvp(cv, d);
-  jvp_begin(d, S, B, b, tx0);
-  for (int l = 0; l < d.depth; ++l)
-    jvp_layer(d, S, b, l, upd[l], L, bh, bx, bv, RS, tbh, tbx, tbv, TR);
-
-  for (int e = tid; e < N * F; e += nt) th_fin[(size_t)b * N * F + e] = S.sth[e];
-  for (int e = tid; e < 3 * N; e += nt) {
-    const int k = e / N, i = e % N;
-    tx_fin[((size_t)k * B + b) * N + i] = S.stx[e];
-    tv_fin[((size_t)k * B + b) * N + i] = S.stv[e];
-  }
-}
-
-}  // namespace
-}  // namespace sake
-
 extern "C" long long sake_resid_jvp_smem_bytes(int B, int N, int F, int H, int R, int K, int C,
                                                int depth) {
   return sake::jvp_smem_floats(sake::Dims{B, N, F, H, R, K, C, depth}) *
@@ -84,15 +55,7 @@ extern "C" int sake_resid_jvp(const float* bh, const float* bx, const float* bv,
                               float* th_fin, float* tx_fin, float* tv_fin,
                               void* const* tresid_ptrs, int B, int N, int F, int H, int R, int K,
                               int C, int depth, void* stream) {
-  using namespace sake;
-  const Dims d{B, N, F, H, R, K, C, depth};
-  const Leaves L = leaves_of(leaf_ptrs, leaf_strides);
-  const Resids RS = resids_of(resid_ptrs), TR = resids_of(tresid_ptrs);
-  const size_t smem = jvp_smem_floats(d) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(resid_jvp_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  resid_jvp_kernel<<<B, 256, smem, static_cast<cudaStream_t>(stream)>>>(
-      d, bh, bx, bv, upd, L, RS, tx0, tbh, tbx, tbv, th_fin, tx_fin, tv_fin, TR);
-  return (int)cudaGetLastError();
+  return sake::launch_jvp<false>(bh, bx, bv, upd, leaf_ptrs, leaf_strides, resid_ptrs, tx0, tbh,
+                                 tbx, tbv, th_fin, tx_fin, tv_fin, tresid_ptrs,
+                                 sake::Dims{B, N, F, H, R, K, C, depth}, stream);
 }

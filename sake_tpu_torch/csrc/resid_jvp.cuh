@@ -108,16 +108,22 @@ __device__ __forceinline__ void jvp_begin(const Dims& d, const JvpSmem& S, int B
 // and t_hatt sums it unrounded. The row loop goes on with the f32 tangents it
 // stores rounded; its tangent pooled vectors also go, in f32, to slot b of a
 // one-layer (3, d.B, N, C) scratch tpool16, which the node phase reads (the
-// stream holds them rounded).
-template <bool kTc = false, bool kE16 = false>
+// stream holds them rounded). kLowRes (default kE16): whether RS and TR are
+// the bf16 streams; kE16 without it (#18 in the tier: JAX's jax.jvp of
+// layer_fwd_resid, which rounds the residuals only as it stores them) reads
+// the primal's f32 residuals, rounds att and h_e where t_he_att takes them,
+// writes every tangent stream in f32 and reads its tangent pooled vectors
+// back from TR (tpool16 unused).
+template <bool kTc = false, bool kE16 = false, bool kLowRes = kE16>
 __device__ __forceinline__ void jvp_layer(const Dims& d, const JvpSmem& S, int b, int l,
                                           float u, const Leaves& L,
                                           const float* __restrict__ bh,
                                           const float* __restrict__ bx,
                                           const float* __restrict__ bv,
-                                          const ResidsOf<kE16>& RS, float* tbh, float* tbx,
-                                          float* tbv, const ResidsOf<kE16>& TR,
+                                          const ResidsOf<kLowRes>& RS, float* tbh, float* tbx,
+                                          float* tbv, const ResidsOf<kLowRes>& TR,
                                           float* ring = nullptr, float* tpool16 = nullptr) {
+  static_assert(kE16 || !kLowRes, "bf16 streams belong to the bf16 tier");
   constexpr int kPasses = kE16 ? 1 : 3;  // of the tensor-core products
   const int B = d.B, N = d.N, F = d.F, H = d.H, R = d.R, K = d.K, C = d.C;
   const int HK = H * K, NN = N * N;
@@ -337,9 +343,12 @@ __device__ __forceinline__ void jvp_layer(const Dims& d, const JvpSmem& S, int b
       const auto* h_e = edge(RS, RS_H_E, H);
       for (int e = tid; e < N * HK; e += nt) {
         const int j = e / HK, q = e % HK, h = q / K, k = q % K;
-        if constexpr (kE16)  // att and h_e are bf16 values: both products exact
+        if constexpr (kLowRes)  // att and h_e are bf16 values: both products exact
           shea[j * ldx + q] = bf16r(she[j * H + h]) * satt[j * K + k] +
                               get_res(h_e, j * H + h) * bf16r(stat[j * K + k]);
+        else if constexpr (kE16)  // the f32 att and h_e rounded as JAX's heE and attE
+          shea[j * ldx + q] = bf16r(she[j * H + h]) * bf16r(satt[j * K + k]) +
+                              bf16r(h_e[j * H + h]) * bf16r(stat[j * K + k]);
         else if constexpr (kTc)
           shea[j * ldx + q] = she[j * H + h] * satt[j * K + k] + h_e[j * H + h] * stat[j * K + k];
         else
@@ -398,7 +407,7 @@ __device__ __forceinline__ void jvp_layer(const Dims& d, const JvpSmem& S, int b
           for (int k = 0; k < 3; ++k)
             p[k] += tc * (sd[k * N + j] * ir) + f * (std_[k * N + j] * ir + sd[k * N + j] * tir);
         }
-        if constexpr (kE16) {
+        if constexpr (kLowRes) {
 #pragma unroll
           for (int k = 0; k < 3; ++k) {
             put_res(node(TR, RS_POOL0 + k, C), i * C + c, p[k]);
@@ -416,10 +425,10 @@ __device__ __forceinline__ void jvp_layer(const Dims& d, const JvpSmem& S, int b
   }
 
   // ---- node phase ------------------------------------------------------
-  const ResOf<kE16>* pool[3] = {node(RS, RS_POOL0, C), node(RS, RS_POOL1, C),
-                                node(RS, RS_POOL2, C)};
+  const ResOf<kLowRes>* pool[3] = {node(RS, RS_POOL0, C), node(RS, RS_POOL1, C),
+                                   node(RS, RS_POOL2, C)};
   const float* tpool[3];
-  if constexpr (kE16) {  // the f32 tangent pooled vectors of the scratch
+  if constexpr (kLowRes) {  // the f32 tangent pooled vectors of the scratch
 #pragma unroll
     for (int k = 0; k < 3; ++k) tpool[k] = tpool16 + ((size_t)k * B + b) * N * C;
   } else {
@@ -566,4 +575,58 @@ __device__ __forceinline__ void jvp_layer(const Dims& d, const JvpSmem& S, int b
   SAKE_PROBE(PR_JVP_NODE);
 }
 
+namespace {
+
+// #9's kernel (resid_jvp.cu): one block per molecule runs jvp_layer over depth
+// from the tangent seed (0, tx0, 0) and writes the final tangent state. kE16:
+// #9 in resid_ef's bf16 tier (resid_jvp16.cu): jvp_layer's kE16 on the bf16
+// streams RS and TR, with its f32 tangent pooled scratch, the one argument in
+// Pool.
+template <bool kE16 = false, class... Pool>
+__global__ void __launch_bounds__(256)
+resid_jvp_kernel(Dims d, const float* __restrict__ bh, const float* __restrict__ bx,
+                 const float* __restrict__ bv, const float* __restrict__ upd, Leaves L,
+                 ResidsOf<kE16> RS, const float* __restrict__ tx0, float* tbh, float* tbx,
+                 float* tbv, float* th_fin, float* tx_fin, float* tv_fin, ResidsOf<kE16> TR,
+                 Pool... tpool16) {
+  static_assert(sizeof...(Pool) == (kE16 ? 1 : 0), "the tier's pooled scratch");
+  extern __shared__ float4 smem4[];
+  const int b = blockIdx.x;
+  const int B = d.B, N = d.N, F = d.F;
+  const int tid = threadIdx.x, nt = blockDim.x;
+
+  Carver cv{reinterpret_cast<float*>(smem4)};
+  const JvpSmem S = carve_jvp(cv, d);
+  jvp_begin(d, S, B, b, tx0);
+  for (int l = 0; l < d.depth; ++l)
+    jvp_layer<false, kE16>(d, S, b, l, upd[l], L, bh, bx, bv, RS, tbh, tbx, tbv, TR, nullptr,
+                           tpool16...);
+
+  for (int e = tid; e < N * F; e += nt) th_fin[(size_t)b * N * F + e] = S.sth[e];
+  for (int e = tid; e < 3 * N; e += nt) {
+    const int k = e / N, i = e % N;
+    tx_fin[((size_t)k * B + b) * N + i] = S.stx[e];
+    tv_fin[((size_t)k * B + b) * N + i] = S.stv[e];
+  }
+}
+
+// The arguments of sake_resid_jvp (and, with kE16, the tier's pooled scratch).
+template <bool kE16, class... Pool>
+int launch_jvp(const float* bh, const float* bx, const float* bv, const float* upd,
+               const void* const* leaf_ptrs, const long long* leaf_strides,
+               void* const* resid_ptrs, const float* tx0, float* tbh, float* tbx, float* tbv,
+               float* th_fin, float* tx_fin, float* tv_fin, void* const* tresid_ptrs,
+               const Dims& d, void* stream, Pool... tpool16) {
+  const Leaves L = leaves_of(leaf_ptrs, leaf_strides);
+  const ResidsOf<kE16> RS = resids_as<kE16>(resid_ptrs), TR = resids_as<kE16>(tresid_ptrs);
+  const size_t smem = jvp_smem_floats(d) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(resid_jvp_kernel<kE16, Pool...>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  resid_jvp_kernel<kE16, Pool...><<<d.B, 256, smem, static_cast<cudaStream_t>(stream)>>>(
+      d, bh, bx, bv, upd, L, RS, tx0, tbh, tbx, tbv, th_fin, tx_fin, tv_fin, TR, tpool16...);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
 }  // namespace sake

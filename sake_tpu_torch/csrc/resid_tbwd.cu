@@ -15,8 +15,9 @@
 // and their tangents, and returns the chain's cotangents of the initial
 // state. No edge mask, as the MD17 training path it serves.
 //
-// The per-layer body is tbwd_layer (resid_tbwd.cuh), which fused_bwd.cu
-// (#12) shares.
+// The per-layer body is tbwd_layer and the kernel resid_tbwd_kernel
+// (resid_tbwd.cuh); fused_bwd.cu (#12) shares the body, resid_tbwd16.cu runs the
+// kernel in resid_ef's bf16 tier.
 //
 // Design: K2's (one block per molecule walking the layers in reverse, node
 // phase then one receiver row at a time, sender sums accumulated in shared
@@ -43,42 +44,6 @@
 
 #include "resid_tbwd.cuh"
 
-namespace sake {
-namespace {
-
-__global__ void __launch_bounds__(512)
-resid_tbwd_kernel(Dims d, const float* __restrict__ bh, const float* __restrict__ bx,
-                  const float* __restrict__ bv, const float* __restrict__ tbh,
-                  const float* __restrict__ tbx, const float* __restrict__ tbv,
-                  const float* __restrict__ upd, Leaves L, Leaves LT, Resids RS, Resids TR,
-                  const float* __restrict__ dh_fin, const float* __restrict__ dx_fin,
-                  const float* __restrict__ dv_fin, float* dh_out, float* dx_out,
-                  float* dv_out, float* add_h, float* add_x, float* add_v, Rows RW, Rows TW,
-                  float* scratch) {
-  extern __shared__ float4 smem4[];
-  const int b = blockIdx.x;
-  const int B = d.B, N = d.N, F = d.F, HK = d.H * d.K, C = d.C;
-  const int tid = threadIdx.x, nt = blockDim.x;
-
-  Carver cv{reinterpret_cast<float*>(smem4)};
-  const TbSmem S = carve_tb(cv, d);
-  float* gscratch = scratch + (size_t)b * 2 * N * (HK + C);
-  tbwd_begin(d, S, B, b, dh_fin, dx_fin, dv_fin);
-  for (int l = d.depth - 1; l >= 0; --l)
-    tbwd_layer(d, S, b, l, upd[l], L, LT, bh, bx, bv, tbh, tbx, tbv, RS, TR, RW, TW, gscratch,
-               add_h, add_x, add_v);
-
-  for (int e = tid; e < N * F; e += nt) dh_out[(size_t)b * N * F + e] = S.sdh[e];
-  for (int e = tid; e < 3 * N; e += nt) {
-    const int k = e / N, i = e % N;
-    dx_out[((size_t)k * B + b) * N + i] = S.sdx[e];
-    dv_out[((size_t)k * B + b) * N + i] = S.sdv[e];
-  }
-}
-
-}  // namespace
-}  // namespace sake
-
 extern "C" long long sake_resid_tbwd_smem_bytes(int B, int N, int F, int H, int R, int K, int C,
                                                 int depth) {
   return sake::tb_smem_floats(sake::Dims{B, N, F, H, R, K, C, depth}) *
@@ -102,17 +67,9 @@ extern "C" int sake_resid_tbwd(const float* bh, const float* bx, const float* bv
                                float* add_x, float* add_v, void* const* row_ptrs,
                                void* const* trow_ptrs, float* scratch, int B, int N, int F,
                                int H, int R, int K, int C, int depth, void* stream) {
-  using namespace sake;
-  const Dims d{B, N, F, H, R, K, C, depth};
-  const Leaves L = leaves_of(leaf_ptrs, leaf_strides), LT = leaves_of(leaf_t_ptrs, leaf_strides);
-  const Resids RS = resids_of(resid_ptrs), TR = resids_of(tresid_ptrs);
-  const Rows RW = rows_of(row_ptrs), TW = rows_of(trow_ptrs);
-  const size_t smem = tb_smem_floats(d) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(resid_tbwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  resid_tbwd_kernel<<<B, 512, smem, static_cast<cudaStream_t>(stream)>>>(
-      d, bh, bx, bv, tbh, tbx, tbv, upd, L, LT, RS, TR, dh_fin, dx_fin, dv_fin, dh_out, dx_out,
-      dv_out, add_h, add_x, add_v, RW, TW, scratch);
-  return (int)cudaGetLastError();
+  return sake::launch_tbwd<false>(bh, bx, bv, tbh, tbx, tbv, upd, leaf_ptrs, leaf_t_ptrs,
+                                  leaf_strides, resid_ptrs, tresid_ptrs, dh_fin, dx_fin, dv_fin,
+                                  dh_out, dx_out, dv_out, add_h, add_x, add_v, row_ptrs,
+                                  trow_ptrs, scratch, sake::Dims{B, N, F, H, R, K, C, depth},
+                                  stream);
 }

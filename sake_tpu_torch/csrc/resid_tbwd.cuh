@@ -34,10 +34,13 @@ struct TbSmem {
   float *sdh, *sdx, *sdv, *sdxs, *sdxr, *sdvo, *sdvn, *sh, *sx, *sv, *saj, *sai, *sdaj, *sdai,
       *sdoj, *sdoi;
   float *sdp, *sgeo, *sdd, *satt, *sdat, *sX, *sY;
+  // kAd's tangents of the chain's state dx, dv (set by the caller, not carved)
+  float *sdx_t, *sdv_t;
 };
 
-// kTc: the carve of the kTc body (d_xm's rows padded, tc_ld).
-template <bool kTc = false>
+// kTc: the carve of the kTc body (d_xm's rows padded, tc_ld). kAd: of the
+// body's kAd instantiation (d_v_new with its tangent).
+template <bool kTc = false, bool kAd = false>
 __host__ __device__ inline TbSmem carve_tb(Carver& cv, const Dims& d) {
   const long long N = d.N, F = d.F, H = d.H, R = d.R, K = d.K, C = d.C;
   TbSmem s;
@@ -47,7 +50,7 @@ __host__ __device__ inline TbSmem carve_tb(Carver& cv, const Dims& d) {
   s.sdxs = cv.take(6 * N);      // dual: + d_d0 summed at the sender
   s.sdxr = cv.take(6 * N);      // dual: - d_d0 summed at the receiver
   s.sdvo = cv.take(6 * N);      // dual: d_v_in
-  s.sdvn = cv.take(3 * N);      // d_v_new (no tangent)
+  s.sdvn = cv.take(kAd ? 6 * N : 3 * N);  // d_v_new (kAd: dual)
   s.sh = cv.take(2 * N * F);    // dual: h_in
   s.sx = cv.take(6 * N);        // dual: x planes
   s.sv = cv.take(6 * N);        // dual: v planes
@@ -79,10 +82,10 @@ __host__ __device__ inline TbSmem carve_tb(Carver& cv, const Dims& d) {
   return s;
 }
 
-template <bool kTc = false>
+template <bool kTc = false, bool kAd = false>
 __host__ __device__ inline long long tb_smem_floats(const Dims& d) {
   Carver cv{nullptr};
-  carve_tb<kTc>(cv, d);
+  carve_tb<kTc, kAd>(cv, d);
   return cv.off;
 }
 
@@ -119,8 +122,19 @@ __device__ __forceinline__ void tbwd_begin(const Dims& d, const TbSmem& S, int B
 // tensor cores (LT holds the four edge weights rounded); the head expansion's
 // terms bf16(d_he_att att) and bf16(d_he_att h_e) are rounded value and
 // tangent apart before their sums (att, h_e and their tangents are bf16
-// values); the rows stay f32.
-template <bool kTc = false, bool kE16 = false>
+// values); the rows stay f32. kLowRes (default kE16): whether RS and TR are
+// the bf16 streams. kAd (with kE16, f32 streams, no kTc; #17 in the tier,
+// retrace_bwd16.cu): the pullback as JAX differentiates the augmented layer
+// (jax.vjp of jax.jvp), whose tangent pullback's tangent is the primal chain:
+// the tangents of the chain's state are the caller's, not zero (the tangent
+// half of S.sdh, and S.sdx_t, S.sdv_t, which it overwrites with the layer
+// input's: then the tangent half of every cotangent is the primal chain's
+// cotangent, Hessian terms included, and the tangent rows its rows); every
+// cotangent that flows into a rounded operand is rounded after its sum, the
+// edge products' results (not their operands) and the head expansions' sums
+// (of terms with att, h_e and their tangents rounded, not the terms); no
+// Hessian term is written (add_h null).
+template <bool kTc = false, bool kE16 = false, bool kLowRes = kE16, bool kAd = false>
 __device__ __forceinline__ void tbwd_layer(const Dims& d, const TbSmem& S, int b, int l,
                                            float u, const Leaves& L, const Leaves& LT,
                                            const float* __restrict__ bh,
@@ -129,11 +143,19 @@ __device__ __forceinline__ void tbwd_layer(const Dims& d, const TbSmem& S, int b
                                            const float* __restrict__ tbh,
                                            const float* __restrict__ tbx,
                                            const float* __restrict__ tbv,
-                                           const ResidsOf<kE16>& RS, const ResidsOf<kE16>& TR,
+                                           const ResidsOf<kLowRes>& RS,
+                                           const ResidsOf<kLowRes>& TR,
                                            const Rows& RW, const Rows& TW, float* gscratch,
                                            float* add_h, float* add_x, float* add_v,
                                            float* ring = nullptr) {
+  static_assert(kE16 || !kLowRes, "bf16 streams belong to the bf16 tier");
+  static_assert(!kAd || (kE16 && !kLowRes && !kTc), "kAd: the tier on f32 streams");
   constexpr int kPasses = kE16 ? 1 : 3;  // of the tensor-core products
+  constexpr bool kRoundOp = kE16 && !kAd;  // the edge products round their operand
+  // kAd: an edge product's result (a cotangent into a rounded operand) rounded
+  const auto rd_ad = [](float x) { return rd<kAd>(x); };
+  // kAd: att, h_e and their tangents rounded as the head expansions take them
+  const auto rd2 = [](Dl x) { return kAd ? Dl{bf16r(x.v), bf16r(x.t)} : x; };
   const int B = d.B, N = d.N, F = d.F, H = d.H, R = d.R, K = d.K, C = d.C;
   const int HK = H * K, NN = N * N;
   [[maybe_unused]] const int ldc = kTc ? tc_ld(d, C) : C;  // kTc: d_xm's row stride
@@ -174,10 +196,11 @@ __device__ __forceinline__ void tbwd_layer(const Dims& d, const TbSmem& S, int b
   auto node_trow = [&](int row, int i, int ch) { return TW.p[row] + (lb * N + i) * ch; };
 
   // layer inputs and their tangents; this layer's tangents start at zero
+  // (kAd: at the caller's)
   for (int e = tid; e < N * F; e += nt) {
     sh[e] = bh[lb * N * F + e];
     sh[NF + e] = tbh[lb * N * F + e];
-    sdh[NF + e] = 0.f;
+    if constexpr (!kAd) sdh[NF + e] = 0.f;
   }
   for (int e = tid; e < 3 * N; e += nt) {
     const int k = e / N, i = e % N;
@@ -205,10 +228,18 @@ __device__ __forceinline__ void tbwd_layer(const Dims& d, const TbSmem& S, int b
     Dl d_gate{0.f, 0.f};
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
-      const float dvn = u * (sdx[k * N + i] + sdv[k * N + i]);
-      sdvn[k * N + i] = dvn;
-      d_gate += dvn * ld(sv, 3 * N, k * N + i);
-      st2(sdvo, 3 * N, k * N + i, Dl{gate.v * dvn + (1.f - u) * sdv[k * N + i], gate.t * dvn});
+      if constexpr (kAd) {  // the state's tangents: dv_new and d_v_in dual
+        const Dl dx{sdx[k * N + i], S.sdx_t[k * N + i]}, dv{sdv[k * N + i], S.sdv_t[k * N + i]};
+        const Dl dvn = u * (dx + dv);
+        st2(sdvn, 3 * N, k * N + i, dvn);
+        d_gate += dvn * ld(sv, 3 * N, k * N + i);
+        st2(sdvo, 3 * N, k * N + i, gate * dvn + (1.f - u) * dv);
+      } else {
+        const float dvn = u * (sdx[k * N + i] + sdv[k * N + i]);
+        sdvn[k * N + i] = dvn;
+        d_gate += dvn * ld(sv, 3 * N, k * N + i);
+        st2(sdvo, 3 * N, k * N + i, Dl{gate.v * dvn + (1.f - u) * sdv[k * N + i], gate.t * dvn});
+      }
     }
     st2(sdg1, N, i, d_gate * (2.f * sg) * (Dl{1.f, 0.f} - sg));
   }
@@ -288,7 +319,7 @@ __device__ __forceinline__ void tbwd_layer(const Dims& d, const TbSmem& S, int b
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
       node_row(RW_DDEL, i, 3)[k] = sdvn[k * N + i] / n_eff;
-      node_trow(RW_DDEL, i, 3)[k] = 0.f;
+      node_trow(RW_DDEL, i, 3)[k] = kAd ? sdvn[3 * N + k * N + i] / n_eff : 0.f;
     }
   }
   for (int e = tid; e < N * C; e += nt) {
@@ -319,12 +350,13 @@ __device__ __forceinline__ void tbwd_layer(const Dims& d, const TbSmem& S, int b
     auto edge_row = [&](int row, int ch) { return RW.p[row] + erow * ch; };
     auto edge_trow = [&](int row, int ch) { return TW.p[row] + erow * ch; };
 
-    // d_pooled for row i (the v_mix term has no tangent)
+    // d_pooled for row i (the v_mix term has no tangent; kAd: its tangent)
     for (int c = tid; c < C; c += nt) {
       const Dl dq = ld(gpsq, (size_t)N * C, (size_t)i * C + c);
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
-        const Dl v = Dl{sdvn[k * N + i] * wvmix[c] / n_eff, 0.f} +
+        const Dl v = Dl{sdvn[k * N + i] * wvmix[c] / n_eff,
+                        kAd ? sdvn[3 * N + k * N + i] * wvmix[c] / n_eff : 0.f} +
                      (2.f / (n_eff * n_eff)) * (pool(k, (size_t)i * C + c) * dq);
         st2(sdp, 3 * C, k * C + c, v);
       }
@@ -383,7 +415,8 @@ __device__ __forceinline__ void tbwd_layer(const Dims& d, const TbSmem& S, int b
     // hatt[i] = sum_j h_e[j] (x) att[j], and the row's att (no mask: att2 = att)
     for (int q = tid; q < HK; q += nt) {
       Dl s{0.f, 0.f};
-      for (int j = 0; j < N; ++j) s += eres(RS_H_E, H, (size_t)j * H + q / K) * ld(satt, NK, j * K + q % K);
+      for (int j = 0; j < N; ++j)
+        s += rd2(eres(RS_H_E, H, (size_t)j * H + q / K)) * rd2(ld(satt, NK, j * K + q % K));
       node_row(RW_HATT, i, HK)[q] = s.v;
       node_trow(RW_HATT, i, HK)[q] = s.t;
     }
@@ -396,7 +429,7 @@ __device__ __forceinline__ void tbwd_layer(const Dims& d, const TbSmem& S, int b
 
     // d_he_att = d_xm @ w_xmix^T + d_hatt[i] (2N rows)
     auto st_dha = [&](int r, int c, float a) {
-      sY[r * HK + c] = a + ghatt[(size_t)(r < N ? i : N + i) * HK + c];
+      sY[r * HK + c] = rd_ad(a) + ghatt[(size_t)(r < N ? i : N + i) * HK + c];
     };
     if constexpr (kTc) {
       if (tc_dims(d)) {  // the values' rows, then the tangents' (three n8 tiles each)
@@ -407,7 +440,7 @@ __device__ __forceinline__ void tbwd_layer(const Dims& d, const TbSmem& S, int b
         mm_tb<kE16>(2 * N, C, HK, sX, ldc, WT(W_XMIX), st_dha);
       }
     } else {
-      mm_tb<kE16>(2 * N, C, HK, sX, C, WT(W_XMIX), st_dha);
+      mm_tb<kRoundOp>(2 * N, C, HK, sX, C, WT(W_XMIX), st_dha);
     }
     __syncthreads();
     SAKE_PROBE(PR_TB_XMIX);
@@ -418,27 +451,31 @@ __device__ __forceinline__ void tbwd_layer(const Dims& d, const TbSmem& S, int b
       const int j = e / H, h = e % H;
       Dl s{0.f, 0.f};
       for (int k = 0; k < K; ++k) {
-        if constexpr (kE16) {
+        if constexpr (kAd) {
+          s += ld(sY, NHK, j * HK + h * K + k) * rd2(ld(satt, NK, j * K + k));
+        } else if constexpr (kE16) {
           const Dl q = ld(sY, NHK, j * HK + h * K + k) * ld(satt, NK, j * K + k);
           s += Dl{bf16r(q.v), bf16r(q.t)};
         } else {
           s += ld(sY, NHK, j * HK + h * K + k) * ld(satt, NK, j * K + k);
         }
       }
-      st2(sX, NH, e, s);
+      st2(sX, NH, e, rd2(s));
     }
     for (int e = tid; e < N * K; e += nt) {
       const int j = e / K, k = e % K;
       Dl s{0.f, 0.f};
       for (int h = 0; h < H; ++h) {
-        if constexpr (kE16) {
+        if constexpr (kAd) {
+          s += ld(sY, NHK, j * HK + h * K + k) * rd2(eres(RS_H_E, H, (size_t)j * H + h));
+        } else if constexpr (kE16) {
           const Dl q = ld(sY, NHK, j * HK + h * K + k) * eres(RS_H_E, H, (size_t)j * H + h);
           s += Dl{bf16r(q.v), bf16r(q.t)};
         } else {
           s += ld(sY, NHK, j * HK + h * K + k) * eres(RS_H_E, H, (size_t)j * H + h);
         }
       }
-      st2(sdat, NK, e, s);
+      st2(sdat, NK, e, rd2(s));
     }
     __syncthreads();
 
@@ -461,8 +498,8 @@ __device__ __forceinline__ void tbwd_layer(const Dims& d, const TbSmem& S, int b
     }
     __syncthreads();
     SAKE_PROBE(PR_TB_ROW);
-    mm_tb<kE16>(2 * N, K, H, sdat, K, WT(W_SEM),
-                [&](int r, int c, float a) { sX[r * H + c] += a; });
+    mm_tb<kRoundOp>(2 * N, K, H, sdat, K, WT(W_SEM),
+                    [&](int r, int c, float a) { sX[r * H + c] += rd_ad(a); });
     __syncthreads();
     SAKE_PROBE(PR_TB_MM);
 
@@ -471,12 +508,12 @@ __device__ __forceinline__ void tbwd_layer(const Dims& d, const TbSmem& S, int b
       edge_row(RW_DHE, H)[e] = sX[e];
       edge_trow(RW_DHE, H)[e] = sX[NH + e];
     }
-    auto st_de0 = [&](int r, int c, float a) { sY[r * H + c] = a; };
+    auto st_de0 = [&](int r, int c, float a) { sY[r * H + c] = rd_ad(a); };
     if constexpr (kTc) {
       if (tc_dims(d)) mm_tc_small<kPasses>(2 * N, H, H, sX, H, WT(W_O1), st_de0);
       else mm_tb<kE16>(2 * N, H, H, sX, H, WT(W_O1), st_de0);
     } else {
-      mm_tb<kE16>(2 * N, H, H, sX, H, WT(W_O1), st_de0);
+      mm_tb<kRoundOp>(2 * N, H, H, sX, H, WT(W_O1), st_de0);
     }
     __syncthreads();
     SAKE_PROBE(PR_TB_MM);
@@ -504,12 +541,12 @@ __device__ __forceinline__ void tbwd_layer(const Dims& d, const TbSmem& S, int b
       if (lane == 0) sdr[j] += s;
     }
     // o_f = (rbf * pre) @ w_o_f: d_filtered (into sX)
-    auto st_dfilt = [&](int r, int c, float a) { sX[r * R + c] = a; };
+    auto st_dfilt = [&](int r, int c, float a) { sX[r * R + c] = rd_ad(a); };
     if constexpr (kTc) {
       if (tc_dims(d)) mm_tc_small<kPasses>(2 * N, H, R, sY, H, WT(W_O_F), st_dfilt);
       else mm_tb<kE16>(2 * N, H, R, sY, H, WT(W_O_F), st_dfilt);
     } else {
-      mm_tb<kE16>(2 * N, H, R, sY, H, WT(W_O_F), st_dfilt);
+      mm_tb<kRoundOp>(2 * N, H, R, sY, H, WT(W_O_F), st_dfilt);
     }
     __syncthreads();
     SAKE_PROBE(PR_TB_MM);
@@ -606,6 +643,10 @@ __device__ __forceinline__ void tbwd_layer(const Dims& d, const TbSmem& S, int b
       add_x[at] = sdxs[3 * N + e] - sdxr[3 * N + e];
       add_v[at] = sdvo[3 * N + e];
     }
+    if constexpr (kAd) {
+      S.sdx_t[e] = S.sdx_t[e] + sdxs[3 * N + e] - sdxr[3 * N + e];
+      S.sdv_t[e] = sdvo[3 * N + e];
+    }
     sdx[e] = sdx[e] + sdxs[e] - sdxr[e];
     sdv[e] = sdvo[e];
   }
@@ -613,4 +654,66 @@ __device__ __forceinline__ void tbwd_layer(const Dims& d, const TbSmem& S, int b
   SAKE_PROBE(PR_TB_NODE);
 }
 
+namespace {
+
+// #10's tangent chain kernel (resid_tbwd.cu): one block per molecule runs
+// tbwd_layer over depth in reverse from the chain's cotangent of the final
+// state. kE16: in resid_ef's bf16 tier (resid_tbwd16.cu), tbwd_layer's kE16 on
+// the bf16 streams RS and TR.
+template <bool kE16 = false>
+__global__ void __launch_bounds__(512)
+resid_tbwd_kernel(Dims d, const float* __restrict__ bh, const float* __restrict__ bx,
+                  const float* __restrict__ bv, const float* __restrict__ tbh,
+                  const float* __restrict__ tbx, const float* __restrict__ tbv,
+                  const float* __restrict__ upd, Leaves L, Leaves LT, ResidsOf<kE16> RS,
+                  ResidsOf<kE16> TR,
+                  const float* __restrict__ dh_fin, const float* __restrict__ dx_fin,
+                  const float* __restrict__ dv_fin, float* dh_out, float* dx_out,
+                  float* dv_out, float* add_h, float* add_x, float* add_v, Rows RW, Rows TW,
+                  float* scratch) {
+  extern __shared__ float4 smem4[];
+  const int b = blockIdx.x;
+  const int B = d.B, N = d.N, F = d.F, HK = d.H * d.K, C = d.C;
+  const int tid = threadIdx.x, nt = blockDim.x;
+
+  Carver cv{reinterpret_cast<float*>(smem4)};
+  const TbSmem S = carve_tb(cv, d);
+  float* gscratch = scratch + (size_t)b * 2 * N * (HK + C);
+  tbwd_begin(d, S, B, b, dh_fin, dx_fin, dv_fin);
+  for (int l = d.depth - 1; l >= 0; --l)
+    tbwd_layer<false, kE16>(d, S, b, l, upd[l], L, LT, bh, bx, bv, tbh, tbx, tbv, RS, TR, RW, TW,
+                            gscratch, add_h, add_x, add_v);
+
+  for (int e = tid; e < N * F; e += nt) dh_out[(size_t)b * N * F + e] = S.sdh[e];
+  for (int e = tid; e < 3 * N; e += nt) {
+    const int k = e / N, i = e % N;
+    dx_out[((size_t)k * B + b) * N + i] = S.sdx[e];
+    dv_out[((size_t)k * B + b) * N + i] = S.sdv[e];
+  }
+}
+
+// The arguments of sake_resid_tbwd.
+template <bool kE16>
+int launch_tbwd(const float* bh, const float* bx, const float* bv, const float* tbh,
+                const float* tbx, const float* tbv, const float* upd,
+                const void* const* leaf_ptrs, const void* const* leaf_t_ptrs,
+                const long long* leaf_strides, void* const* resid_ptrs,
+                void* const* tresid_ptrs, const float* dh_fin, const float* dx_fin,
+                const float* dv_fin, float* dh_out, float* dx_out, float* dv_out, float* add_h,
+                float* add_x, float* add_v, void* const* row_ptrs, void* const* trow_ptrs,
+                float* scratch, const Dims& d, void* stream) {
+  const Leaves L = leaves_of(leaf_ptrs, leaf_strides), LT = leaves_of(leaf_t_ptrs, leaf_strides);
+  const ResidsOf<kE16> RS = resids_as<kE16>(resid_ptrs), TR = resids_as<kE16>(tresid_ptrs);
+  const Rows RW = rows_of(row_ptrs), TW = rows_of(trow_ptrs);
+  const size_t smem = tb_smem_floats(d) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(resid_tbwd_kernel<kE16>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  resid_tbwd_kernel<kE16><<<d.B, 512, smem, static_cast<cudaStream_t>(stream)>>>(
+      d, bh, bx, bv, tbh, tbx, tbv, upd, L, LT, RS, TR, dh_fin, dx_fin, dv_fin, dh_out, dx_out,
+      dv_out, add_h, add_x, add_v, RW, TW, scratch);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
 }  // namespace sake

@@ -123,12 +123,13 @@ def signatures() -> dict:
         # bh, leaves, strides, resid, rows, partial, out, n_chunks
         "sake_param_grads": [P] * 7 + [I] + dims + [P],
         # resid_ef's bf16 tier: K1 (route 0 CUDA cores, 1 tensor cores, 2 #4's
-        # cluster) with a pooled scratch after the residuals; #6; K2 (route 0, 1) or
-        # the rows kernel (2) with rows and the addend; #5's cluster rows kernel; the
+        # cluster) with a pooled scratch after the residuals; #6; K2 (route 0, 1); the
+        # one-block rows kernel with rows and the addend; #5's cluster rows kernel; the
         # contraction
         "sake_resid_fwd16": [I] + fwd_in + [P] * 6 + [P, P] + dims + [P],
         "sake_resid_infer_cluster16": fwd_in + [P] * 3 + dims + [P],
         "sake_resid_bwd16": [I] + bwd_in + dims + [P],
+        "sake_resid_bwd_rows16": bwd_in + [P] * 4 + dims + [P],
         "sake_resid_bwd_rows_cluster16": bwd_in + [P] + dims + [P],
         "sake_param_grads16": [P] * 7 + [I] + dims + [P],
         # bh, bx, bv, upd, leaves, strides, resid, tx0, tbh, tbx, tbv, 3 finals, tresid
@@ -136,6 +137,10 @@ def signatures() -> dict:
         # bh, bx, bv, tbh, tbx, tbv, upd, leaves, leaves_t, strides, resid, tresid,
         # dh, dx, dv, 3 outs, add_h, add_x, add_v, rows, t_rows, scratch
         "sake_resid_tbwd": [P] * 24 + dims + [P],
+        # #9 and #10's tangent chain in the bf16 tier: #9's arguments with an f32
+        # pooled scratch after them, #10's as they are
+        "sake_resid_jvp16": [P] * 16 + dims + [P],
+        "sake_resid_tbwd16": [P] * 24 + dims + [P],
         # bh, tbh, leaves, strides, resid, tresid, rows, rows_t, t_rows, partial, out,
         # ro_part, ro_out, ro_len, n_chunks
         "sake_param_grads_aug": [P] * 13 + [LL, I] + dims + [P],
@@ -175,6 +180,15 @@ def signatures() -> dict:
         # h_fin, x_fin, v_fin, resid, tresid
         "sake_aug_fwd": [P] * 20 + dims + [P],
         "sake_retrace_fwd": [P] * 20 + dims + [P],
+        # #18 in the bf16 tier: ... the one-layer f32 scratches, then the streams; #16's
+        # as sake_retrace_fwd's
+        "sake_aug_fwd16": [P] * 22 + dims + [P],
+        "sake_retrace_fwd16": [P] * 20 + dims + [P],
+        # #17 in the bf16 tier: layer, as sake_retrace_bwd's without its third row
+        # set; then its contraction: sake_param_grads_aug's first 11, partial16;
+        # n_chunks, tile, sub
+        "sake_retrace_bwd16": [I] + [P] * 21 + dims + [P],
+        "sake_retrace_grads16": [P] * 12 + [I, I, I] + dims + [P],
         # layer, bh, bx, bv, tbh, tbx, tbv, upd, leaves, leaves_t, strides, resid, tresid,
         # rows, rows_t, t_rows, scratch, cp_dh, cp_dx, cp_dv, ct_dh, ct_dx, ct_dv
         "sake_retrace_bwd": [I] + [P] * 22 + dims + [P],
@@ -221,6 +235,7 @@ def signatures() -> dict:
                "sake_resid_fwd_cluster_smem_bytes", "sake_resid_bwd_cluster_smem_bytes",
                "sake_resid_jvp_smem_bytes", "sake_resid_tbwd_smem_bytes",
                "sake_aug_fwd_smem_bytes", "sake_retrace_bwd_smem_bytes",
+               "sake_retrace_bwd16_smem_bytes",
                "sake_remat_fwd_smem_bytes", "sake_remat_bwd_smem_bytes"):
         out[fn] = (dims, LL)
     for fn in ("sake_fused_ef_smem_bytes", "sake_fused_bwd_smem_bytes",  # ..., F0

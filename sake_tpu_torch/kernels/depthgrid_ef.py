@@ -37,12 +37,20 @@ from sake_tpu_torch.kernels.fori_ef import (
     remat_energy_forces,
     stack_plain,
 )
-from sake_tpu_torch.kernels.functional import EPSILON, INF, ModelParams, _celu2, _f32_only, _silu
+from sake_tpu_torch.kernels.functional import (
+    EPSILON,
+    INF,
+    ModelParams,
+    _celu2,
+    _f32_only,
+    _silu,
+    bf16_round,
+)
 from sake_tpu_torch.kernels.leaves import head_expansion_matrices, layer_leaves
-from sake_tpu_torch.kernels.resid_ef import _planes, _unplanes
+from sake_tpu_torch.kernels.resid_ef import _edge_mm, _planes, _unplanes
 
 
-def layer_forward_wide(p: dict, h, xp, vp, upd, *, n_real=None):
+def layer_forward_wide(p: dict, h, xp, vp, upd, *, n_real=None, bf16=False, mm=None):
     """One dense SAKE layer on one layer's wide leaves ``p``.
 
     ``h (B, N, F)``, ``xp``/``vp`` three ``(B, N, 1)`` planes, ``upd`` in
@@ -50,7 +58,11 @@ def layer_forward_wide(p: dict, h, xp, vp, upd, *, n_real=None):
     atoms are padding, pad senders are masked out of the attention and the
     mean divisors use ``n_real``. Returns ``(h_out, xp_out, vp_out)``. As in
     JAX, the attended edges are ``(h_e @ E_rep) * (att @ E_tile)`` with the
-    0/1 head expansion matrices."""
+    0/1 head expansion matrices. ``bf16``: JAX's ``mm_edge`` in bf16 (resid_ef's
+    bf16 tier): o_f, o1, the semantic logits, both head expansions and the
+    x-mixing take both operands rounded to bf16, f32 sums; node products f32.
+    ``mm``: ``mm(a, leaf)`` in place of the four edge products ``a @ p[leaf]``
+    (``EDGE_MM_LEAVES``, by their weight; default ``_edge_mm(bf16)``)."""
     B, N, F = h.shape
     K = p["w_sem"].shape[-1]
     H = p["w_o_j"].shape[-1]
@@ -65,13 +77,15 @@ def layer_forward_wide(p: dict, h, xp, vp, upd, *, n_real=None):
     a_i = h @ p["w_in_i"]
     pre = a_j[:, None, :, :] + a_i[:, :, None, :]
     rbf = torch.exp(-p["rbf_b"] * (torch.exp(-r) - p["rbf_m"]) ** 2)
-    o_f = (rbf * pre) @ p["w_o_f"]
+    rd = bf16_round if bf16 else (lambda t: t)
+    me = mm or (lambda a, leaf: _edge_mm(bf16)(a, p[leaf]))
+    o_f = me(rbf * pre, "w_o_f")
     e0 = (h @ p["w_o_j"])[:, None] + (h @ p["w_o_i"])[:, :, None] + o_f + r * p["w_o_r"][0] \
         + p["b_o0"]
-    h_e = _silu(e0) @ p["w_o1"] + p["b_o1"]
+    h_e = me(_silu(e0), "w_o1") + p["b_o1"]
 
     # semantic attention over senders j
-    logits = _celu2(h_e @ p["w_sem"] + p["b_sem"])
+    logits = _celu2(me(h_e, "w_sem") + p["b_sem"])
     logits = logits - INF * torch.eye(N, dtype=h.dtype, device=h.device)[None, :, :, None]
     if n_real is not None and n_real < N:
         pad = (torch.arange(N, device=h.device) >= n_real).to(h.dtype)
@@ -79,8 +93,8 @@ def layer_forward_wide(p: dict, h, xp, vp, upd, *, n_real=None):
     att = torch.softmax(logits, dim=-2)
 
     # attended edges, wide (hidden-major / head-minor)
-    h_e_att = (h_e @ e_rep) * (att @ e_tile)
-    coeff = torch.tanh(h_e_att @ p["w_xmix"])
+    h_e_att = (rd(h_e) @ e_rep) * (rd(att) @ e_tile)
+    coeff = torch.tanh(me(h_e_att, "w_xmix"))
 
     # pooled spatial attention
     inv_r = 1.0 / (r + 1e-5)

@@ -996,6 +996,7 @@ def resid_fwd(leaves: dict, h0, xs, v0, upd: Sequence[float], mask=None, *,
         resid_fwd.cluster_launches += 1
     else:
         resid_fwd.launches += 1
+    resid_fwd.tiers[TIERS[bf16]] += 1
     return out
 
 
@@ -1051,9 +1052,12 @@ def _launch_fwd(leaves, h0, xs, v0, upd, mask, route="block", bf16=False):
     return out
 
 
+# the kernels' launches by tier (both routes), beside their totals
+TIERS = ("f32", "bf16")
 resid_fwd.launches = 0
 resid_fwd.routes = dict.fromkeys(ROUTES, 0)
 resid_fwd.cluster_launches = 0
+resid_fwd.tiers = dict.fromkeys(TIERS, 0)
 
 
 def resid_infer(leaves: dict, h0, xs, v0, upd: Sequence[float], mask=None, *,
@@ -1111,8 +1115,9 @@ def _bwd_launch(name, leaves, fwd, upd, dh, dx, dv, mask, leaves_t, want_rows, a
     "cluster" for the rows kernel's cluster route (no addend). The rows
     instantiation's one-block kernel has no tensor-core route. The tier is
     that of ``fwd``'s streams (:func:`stream_tier`): the bf16 tier's kernels
-    (``sake_resid_bwd16``, ``sake_resid_bwd_rows_cluster16``) take the four
-    edge weights rounded here; its rows take the cluster route only."""
+    (``sake_resid_bwd16``, ``sake_resid_bwd_rows16``,
+    ``sake_resid_bwd_rows_cluster16``) take the four edge weights rounded
+    here."""
     _require_cuda(name, dh)
     dims = _dims(leaves, fwd.bh[0])
     B, N, F, H, R, K, C, depth = dims
@@ -1138,10 +1143,6 @@ def _bwd_launch(name, leaves, fwd, upd, dh, dx, dv, mask, leaves_t, want_rows, a
         _check_smem(lib, "sake_resid_bwd_cluster_smem_bytes", dims, name)
     elif route in ROUTES and want_rows:
         raise ValueError(f"{name}: the rows kernel takes the block or the cluster route")
-    elif bf16 and want_rows:
-        raise NotImplementedError(
-            f"{name}: the bf16 tier's rows take the cluster route only; the one-block "
-            "rows kernel (route 'block') has no bf16 tier")
     elif route == "tensor cores":
         _check_smem(lib, "sake_resid_bwd_tc_smem_bytes", dims, name)
     else:
@@ -1174,6 +1175,8 @@ def _bwd_launch(name, leaves, fwd, upd, dh, dx, dv, mask, leaves_t, want_rows, a
     adds = [_ptr(a) for a in (add or (None,) * 3)]
     if bf16 and route == "cluster":
         err = lib.sake_resid_bwd_rows_cluster16(*args, row_ptrs, *dims, _stream(dev))
+    elif bf16 and want_rows:
+        err = lib.sake_resid_bwd_rows16(*args, row_ptrs, *adds, *dims, _stream(dev))
     elif bf16:
         err = lib.sake_resid_bwd16(int(route == "tensor cores"), *args, *dims, _stream(dev))
     elif route == "cluster":
@@ -1197,7 +1200,8 @@ def resid_bwd(leaves: dict, fwd: FwdOut, upd: Sequence[float], dh, dx, dv, mask=
     ``(h (B, N, F), x (3, B, N), v (3, B, N))`` to those of the initial
     state, reading K1's residuals, on the route its shape takes
     (:func:`bwd_tensor_core_route`), each launch counted in
-    ``resid_bwd.launches`` and under its route in ``resid_bwd.routes``. CPU
+    ``resid_bwd.launches``, under its route in ``resid_bwd.routes`` and under
+    its tier in ``resid_bwd.tiers``. CPU
     tensors take the plain version. ``leaves_t``: ``leaves.transposed(leaves)``,
     built here when not given; pass it to build it once for several launches.
     The tier is that of ``fwd``'s streams."""
@@ -1205,11 +1209,13 @@ def resid_bwd(leaves: dict, fwd: FwdOut, upd: Sequence[float], dh, dx, dv, mask=
         return resid_bwd_plain(leaves, fwd, upd, dh, dx, dv, mask=mask)
     out = _bwd_launch("resid_bwd", leaves, fwd, upd, dh, dx, dv, mask, leaves_t, False)
     resid_bwd.launches += 1
+    resid_bwd.tiers[TIERS[stream_tier(fwd)]] += 1
     return out[:3]
 
 
 resid_bwd.launches = 0
 resid_bwd.routes = dict.fromkeys(ROUTES, 0)
+resid_bwd.tiers = dict.fromkeys(TIERS, 0)
 
 
 def resid_bwd_rows(leaves: dict, fwd: FwdOut, upd: Sequence[float], dh, dx, dv, mask=None,
@@ -1221,8 +1227,9 @@ def resid_bwd_rows(leaves: dict, fwd: FwdOut, upd: Sequence[float], dh, dx, dv, 
     kernel, one molecule per cluster of two CTAs), counted in
     ``resid_bwd_rows.cluster_launches``; at N = 29 it took 0.39-0.76x the
     one-block kernel's time on an H100 at every batch from 64 to 256. On bf16
-    streams (the bf16 tier) only the cluster kernel has the tier: the one-block
-    route raises ``NotImplementedError``. CPU tensors take the plain version."""
+    streams (the bf16 tier) both routes take their tier's kernel
+    (``csrc/resid_bwd16.cu``, ``csrc/resid_bwd_cl.cu``). CPU tensors take the
+    plain version."""
     if dh.device.type == "cpu":
         return resid_bwd_rows_plain(leaves, fwd, upd, dh, dx, dv, mask=mask)
     out = _bwd_launch("resid_bwd_rows", leaves, fwd, upd, dh, dx, dv, mask, leaves_t, True,

@@ -51,12 +51,18 @@ runs the tangent forward, the seed head and both cotangent chains in one
 kernel, then the augmented contraction sums the leaves' and the readout's
 gradients).
 
-Fused mode also runs in resid_ef's bf16 tier (JAX's production setting,
-``edge_matmul_dtype`` and ``resid_dtype`` bf16): #11 (``csrc/fused_ef16.cu``),
-#12's block (``csrc/fused_bwd16.cu``) and the augmented contraction
-(``sake_param_grads_aug16``) are the bodies' bf16 instantiations, the plain
-versions take the tier from the streams (:func:`resid_ef.stream_tier`); the
-other modes compute in f32 only.
+Every mode also runs in resid_ef's bf16 tier (JAX's production setting,
+``edge_matmul_dtype`` and ``resid_dtype`` bf16) on the bodies' bf16
+instantiations: #11 (``csrc/fused_ef16.cu``), #12's block
+(``csrc/fused_bwd16.cu``), K1 and K2 for #7 and #8, #9 (``csrc/resid_jvp16.cu``),
+#10's tangent chain (``csrc/resid_tbwd16.cu``), its primal chain (the one-block
+rows kernel of ``csrc/resid_bwd16.cu``), #18 and #16 (``csrc/aug_fwd16.cu``),
+#17 (``csrc/retrace_bwd16.cu``, with a rounding layout of its own: JAX
+differentiates the layer there) and the augmented contraction
+(``sake_param_grads_aug16``). The plain versions take the tier from the
+streams (:func:`resid_ef.stream_tier`), or from ``bf16`` where no stream is
+given; each tier kernel's wrapper counts its launches under its tier
+(``.tiers``).
 
 :func:`make_ef_train2` wraps it as a ``torch.autograd.Function``. Each
 kernel wrapper takes its plain version only for CPU tensors; on a CUDA
@@ -77,6 +83,7 @@ from sake_tpu_torch.kernels.functional import (
     ModelParams,
     _bf16_edge_tier,
     _silu,
+    bf16_round,
     embed,
     flat_params,
     per_layer,
@@ -87,6 +94,7 @@ from sake_tpu_torch.kernels.resid_ef import (
     _SMEM_LIMIT,
     RESIDS,
     ROWS,
+    TIERS,
     FwdOut,
     _check_all,
     _check_cuda,
@@ -259,46 +267,99 @@ def _jvp_stack(layer_fn, leaves: dict, h0, xs, upd: Sequence[float], tx0):
     return out(bnd, state, res), out(tbnd, tstate, tres)
 
 
-def aug_fwd_plain(leaves: dict, h0, xs, upd: Sequence[float], tx0):
+def aug_fwd_plain(leaves: dict, h0, xs, upd: Sequence[float], tx0, bf16=False):
     """Plain version of :func:`aug_fwd`: ``torch.func.jvp`` of
     :func:`resid_ef.layer_fwd_resid` over depth. Returns ``(fwd, tfwd)``, the
-    primal and tangent boundaries, final states and residuals."""
-    return _jvp_stack(lambda p, h, xp, vp, u: resid_ef.layer_fwd_resid(p, h, xp, vp, u),
+    primal and tangent boundaries, final states and residuals. ``bf16``: the
+    bf16 tier (``layer_fwd_resid(bf16=True)``, whose jvp rounds the tangents of
+    the edge products' operands); as in JAX (``train2_ef.py:632-635``), both
+    residual sets are rounded only as they are stored, bf16 tensors but r and
+    t, so the tangent is computed from the primal's f32 values."""
+    fwd, tfwd = _jvp_stack(
+        lambda p, h, xp, vp, u: resid_ef.layer_fwd_resid(p, h, xp, vp, u, bf16=bf16),
+        leaves, h0, xs, upd, tx0)
+    store = lambda f: f._replace(resid={n: v.to(stream_dtype(n, bf16))
+                                        for n, v in f.resid.items()})
+    return store(fwd), store(tfwd)
+
+
+def retrace_fwd_plain(leaves: dict, h0, xs, upd: Sequence[float], tx0, bf16=False):
+    """Plain version of :func:`retrace_fwd`: ``torch.func.jvp`` of
+    :func:`depthgrid_ef.layer_forward_wide` over depth. Returns ``(fwd,
+    tfwd)`` as :func:`aug_fwd_plain`, without residuals. ``bf16``: the bf16
+    tier (the layer's ``bf16``: its edge products' operands rounded, every
+    intermediate f32)."""
+    return _jvp_stack(lambda p, h, xp, vp, u: layer_forward_wide(p, h, xp, vp, u, bf16=bf16),
                       leaves, h0, xs, upd, tx0)
 
 
-def retrace_fwd_plain(leaves: dict, h0, xs, upd: Sequence[float], tx0):
-    """Plain version of :func:`retrace_fwd`: ``torch.func.jvp`` of
-    :func:`depthgrid_ef.layer_forward_wide` over depth. Returns ``(fwd,
-    tfwd)`` as :func:`aug_fwd_plain`, without residuals."""
-    return _jvp_stack(layer_forward_wide, leaves, h0, xs, upd, tx0)
-
-
 def retrace_bwd_plain(leaves: dict, fwd: FwdOut, tfwd: FwdOut, upd: Sequence[float], dh_fin,
-                      dth_fin):
+                      dth_fin, bf16=False, tile: Optional[int] = None):
     """Plain version of :func:`retrace_bwd` (JAX ``bwd_kernel``
     ``train2_ef.py:379-456``): per layer in reverse, ``torch.func.vjp`` of
     ``torch.func.jvp`` of :func:`depthgrid_ef.layer_forward_wide` from the
     layer's primal and tangent boundaries, the leaves among its inputs, pulls
     the cotangents of the augmented state ``(h, x, v, th, tx, tv)`` back and
     gives the layer's leaf gradients. Returns ``(dh0, dx0, dth0, grads)`` as
-    :func:`resid_aug_bwd_plain`."""
+    :func:`resid_aug_bwd_plain`.
+
+    ``bf16``: the bf16 tier, as JAX differentiates it: every cotangent that
+    flows into a rounded operand is rounded after its sum (the transpose of
+    a rounding), and an edge weight's gradient is that of its two products,
+    the primal's ``bf16(a)^T P`` and the tangent's ``bf16(t_a)^T c_t``, each
+    rounded to bf16 and the two added in f32 (JAX adds them in bf16, which
+    XLA keeps at f32 in the jitted kernel), per ``tile`` molecules (JAX's batch
+    tile; the whole batch when None), the tiles' sums added in f32. The edge
+    weights enter the vjp as constants; their gradients come from the
+    cotangents of the products' outputs (zero taps added there through
+    ``layer_forward_wide``'s ``mm``, and their tangents)."""
     zeros = _planes(torch.zeros_like(fwd.bx[0]))
     cot = (dh_fin, zeros, zeros, dth_fin, zeros, zeros)
     grads = [None] * len(upd)
     for l in reversed(range(len(upd))):
         u = upd[l]
+        p = layer_leaves(leaves, l)
+        if not bf16:
+            def aug(p, h, xp, vp, th, txp, tvp):
+                o, to = torch.func.jvp(lambda a, b, c: layer_forward_wide(p, a, b, c, u),
+                                       (h, xp, vp), (th, txp, tvp))
+                return (*o, *to)
 
-        def aug(p, h, xp, vp, th, txp, tvp):
-            o, to = torch.func.jvp(lambda a, b, c: layer_forward_wide(p, a, b, c, u),
-                                   (h, xp, vp), (th, txp, tvp))
-            return (*o, *to)
+            _, vjp = torch.func.vjp(aug, p, fwd.bh[l], _planes(fwd.bx[l]), _planes(fwd.bv[l]),
+                                    tfwd.bh[l], _planes(tfwd.bx[l]), _planes(tfwd.bv[l]))
+            grads[l], *cot = vjp(cot)
+            cot = tuple(cot)
+            continue
+        edge = {n: p[n] for n in resid_ef.EDGE_MM_LEAVES}
+        rest = {n: a for n, a in p.items() if n not in edge}
+        B, N = fwd.bh.shape[1:3]
+        taps = {n: fwd.bh.new_zeros(B, N, N, p[n].shape[-1]) for n in edge}
 
-        _, vjp = torch.func.vjp(aug, layer_leaves(leaves, l), fwd.bh[l], _planes(fwd.bx[l]),
-                                _planes(fwd.bv[l]), tfwd.bh[l], _planes(tfwd.bx[l]),
-                                _planes(tfwd.bv[l]))
-        grads[l], *cot = vjp(cot)
+        def aug16(rest, h, xp, vp, th, txp, tvp, taps, t_taps):
+            def tapped(a, b, c, t):
+                ops = {}
+
+                def mm(x, leaf):  # each product's operand as it takes it, a tap on its output
+                    ops[leaf] = bf16_round(x)
+                    return ops[leaf] @ bf16_round(edge[leaf]) + t[leaf]
+
+                return (*layer_forward_wide({**rest, **edge}, a, b, c, u, bf16=True, mm=mm), ops)
+
+            o, to = torch.func.jvp(tapped, (h, xp, vp, taps), (th, txp, tvp, t_taps))
+            return (*o[:3], *to[:3]), (o[3], to[3])
+
+        _, vjp, (ops, t_ops) = torch.func.vjp(
+            aug16, rest, fwd.bh[l], _planes(fwd.bx[l]), _planes(fwd.bv[l]), tfwd.bh[l],
+            _planes(tfwd.bx[l]), _planes(tfwd.bv[l]), taps, taps, has_aux=True)
+        g, *cot, c_p, c_t = vjp(cot)
         cot = tuple(cot)
+        step = tile or B
+        flat = lambda a: a.reshape(-1, a.shape[-1])
+        for n in edge:
+            g[n] = sum(bf16_round(flat(ops[n][s:s + step]).T @ flat(c_p[n][s:s + step]))
+                       + bf16_round(flat(t_ops[n][s:s + step]).T @ flat(c_t[n][s:s + step]))
+                       for s in range(0, B, step))
+        grads[l] = g
     return (cot[0], _unplanes(cot[1]), cot[3],
             {n: torch.stack([g[n] for g in grads]) for n in LEAF_NAMES})
 
@@ -317,26 +378,28 @@ def _check_bnd(name, fwd: FwdOut, dims, dev):
     _check_cuda(f"{name}.bv", fwd.bv, (depth, 3, B, N), dev)
 
 
-def _check_fwd(name, fwd: FwdOut, dims, leaves, dev, tier: bool = False):
-    """``fwd``'s boundaries and streams; ``tier``: the kernel also takes the
-    bf16 tier's streams (``stream_dtype``), else they raise."""
+def _check_fwd(name, fwd: FwdOut, dims, leaves, dev):
+    """``fwd``'s boundaries and streams, in either tier (``stream_dtype``)."""
     _check_bnd(name, fwd, dims, dev)
-    if stream_tier(fwd) and not tier:
-        raise NotImplementedError(
-            f"{name}: this kernel has no bf16 tier; make_ef_train2 runs the tier in "
-            "aug_mode='fused' only (#11, #12's block and its contraction)")
     resid_ef._check_resid(fwd.resid, dims, leaves, dev, stream_tier(fwd))
 
 
-def _common(name, leaves, fwd, upd=None, smem_fn=None, tier: bool = False):
+def _check_tier(name, fwd: FwdOut, tfwd: FwdOut) -> bool:
+    """The tier of ``fwd``'s streams, which ``tfwd``'s must share."""
+    bf16 = stream_tier(fwd)
+    if stream_tier(tfwd) != bf16:
+        raise ValueError(f"{name}: the primal and tangent streams of one tier")
+    return bf16
+
+
+def _common(name, leaves, fwd, upd=None, smem_fn=None):
     """Checks every kernel here makes; returns ``(lib, dims, dev, upd)``, the
-    update gates as the kernels read them (when given). ``tier``: as
-    :func:`_check_fwd`'s."""
+    update gates as the kernels read them (when given)."""
     dims = _dims(leaves, fwd.bh[0])
     B, N, F, H, R, K, C, depth = dims
     dev = fwd.bh.device
     _check_leaves(leaves, dims, dev)
-    _check_fwd("fwd", fwd, dims, leaves, dev, tier)
+    _check_fwd("fwd", fwd, dims, leaves, dev)
     if F != H or (upd is not None and len(upd) != depth):
         raise ValueError(f"{name}: needs hidden width == feature width and one gate per layer")
     lib = build.load()
@@ -349,22 +412,31 @@ def _common(name, leaves, fwd, upd=None, smem_fn=None, tier: bool = False):
 def _launch_resid_jvp(leaves, fwd, upd, tx0) -> FwdOut:
     lib, dims, dev, upd_t = _common("resid_jvp", leaves, fwd, upd, "sake_resid_jvp_smem_bytes")
     B, N, F, H, R, K, C, depth = dims
+    bf16 = stream_tier(fwd)
     _check_cuda("tx0", tx0, (3, B, N), dev)
-    empty = lambda *s: torch.empty(s, device=dev, dtype=torch.float32)
+    if bf16:  # the tier's kernel reads the four edge weights rounded
+        leaves = resid_ef.edge_bf16_leaves(leaves)
+    empty = lambda *s, dtype=torch.float32: torch.empty(s, device=dev, dtype=dtype)
     out = FwdOut(
         empty(depth, B, N, F), empty(depth, 3, B, N), empty(depth, 3, B, N),
         empty(B, N, F), empty(3, B, N), empty(3, B, N),
-        {n: empty(*s) for n, s in _resid_shapes(dims, leaves).items()},
+        {n: empty(*s, dtype=stream_dtype(n, bf16))
+         for n, s in _resid_shapes(dims, leaves).items()},
     )
-    err = lib.sake_resid_jvp(
+    args = (
         fwd.bh.data_ptr(), fwd.bx.data_ptr(), fwd.bv.data_ptr(), upd_t.data_ptr(),
         _ptrs([leaves[n] for n in LEAF_NAMES]), _strides(leaves),
         _ptrs([fwd.resid[n] for n in RESIDS]), tx0.data_ptr(),
         out.bh.data_ptr(), out.bx.data_ptr(), out.bv.data_ptr(),
         out.h_fin.data_ptr(), out.x_fin.data_ptr(), out.v_fin.data_ptr(),
-        _ptrs([out.resid[n] for n in RESIDS]), *dims, resid_ef._stream(dev),
+        _ptrs([out.resid[n] for n in RESIDS]),
     )
-    build.check(lib, err, "resid_jvp")
+    if bf16:  # the tangent's f32 pooled vectors, one layer at a time
+        tpool16 = empty(3, B, N, C)
+        err = lib.sake_resid_jvp16(*args, tpool16.data_ptr(), *dims, resid_ef._stream(dev))
+    else:
+        err = lib.sake_resid_jvp(*args, *dims, resid_ef._stream(dev))
+    build.check(lib, err, "resid_jvp (bf16)" if bf16 else "resid_jvp")
     return out
 
 
@@ -372,17 +444,21 @@ def resid_jvp(leaves: dict, fwd: FwdOut, upd: Sequence[float], tx0) -> FwdOut:
     """#9, the tangent-only forward (``csrc/resid_jvp.cu``; JAX
     ``tfwd_kernel`` ``train2_ef.py:1397``): ``layer_jvp_resid`` over depth
     on K1's boundaries and residuals ``fwd``, from the tangent seed ``(0,
-    tx0 (3, B, N), 0)``. Returns the tangent in the layout of ``FwdOut``.
+    tx0 (3, B, N), 0)``. Returns the tangent in the layout of ``FwdOut``. In
+    the tier of ``fwd``'s streams: on the bf16 tier's the tier's kernel
+    (``csrc/resid_jvp16.cu``), whose tangent streams are bf16 but r and t.
     CPU tensors take the plain version."""
     if tx0.device.type == "cpu":
         return resid_jvp_plain(leaves, fwd, upd, tx0)
     _require_cuda("resid_jvp", tx0)
     out = _launch_resid_jvp(leaves, fwd, upd, tx0)
     resid_jvp.launches += 1
+    resid_jvp.tiers[TIERS[stream_tier(fwd)]] += 1
     return out
 
 
 resid_jvp.launches = 0
+resid_jvp.tiers = dict.fromkeys(TIERS, 0)
 
 
 def _launch_resid_tbwd(leaves, fwd, tfwd, upd, dh, dx, dv, leaves_t):
@@ -390,6 +466,7 @@ def _launch_resid_tbwd(leaves, fwd, tfwd, upd, dh, dx, dv, leaves_t):
                                     "sake_resid_tbwd_smem_bytes")
     B, N, F, H, R, K, C, depth = dims
     _check_fwd("tfwd", tfwd, dims, leaves, dev)
+    bf16 = _check_tier("resid_tbwd", fwd, tfwd)
     _check_cuda("dh", dh, (B, N, F), dev)
     _check_cuda("dx", dx, (3, B, N), dev)
     _check_cuda("dv", dv, (3, B, N), dev)
@@ -397,6 +474,8 @@ def _launch_resid_tbwd(leaves, fwd, tfwd, upd, dh, dx, dv, leaves_t):
         leaves_t = transposed(leaves)
     for leaf, shape in _leaf_shapes(F, H, R, K, C).items():
         _check_cuda(f"{leaf}.T", leaves_t[leaf], (depth, *shape[::-1]), dev)
+    if bf16:  # the tier's kernel reads the four edge weights rounded
+        leaves, leaves_t = resid_ef.edge_bf16_leaves(leaves), resid_ef.edge_bf16_leaves(leaves_t)
     empty = lambda *s: torch.empty(s, device=dev, dtype=torch.float32)
     dh_out, dx_out, dv_out = empty(B, N, F), empty(3, B, N), empty(3, B, N)
     add = (empty(depth, B, N, F), empty(depth, 3, B, N), empty(depth, 3, B, N))
@@ -404,7 +483,7 @@ def _launch_resid_tbwd(leaves, fwd, tfwd, upd, dh, dx, dv, leaves_t):
     t_rows = {n: empty(*s) for n, s in _row_shapes(dims, leaves).items()}
     # per molecule: d_hatt and d_pool_sq with their tangents, read row by row
     scratch = empty(B, 2 * N * (H * K + C))
-    err = lib.sake_resid_tbwd(
+    err = (lib.sake_resid_tbwd16 if bf16 else lib.sake_resid_tbwd)(
         fwd.bh.data_ptr(), fwd.bx.data_ptr(), fwd.bv.data_ptr(),
         tfwd.bh.data_ptr(), tfwd.bx.data_ptr(), tfwd.bv.data_ptr(), upd_t.data_ptr(),
         _ptrs([leaves[n] for n in LEAF_NAMES]), _ptrs([leaves_t[n] for n in LEAF_NAMES]),
@@ -414,7 +493,7 @@ def _launch_resid_tbwd(leaves, fwd, tfwd, upd, dh, dx, dv, leaves_t):
         *(a.data_ptr() for a in add), _ptrs([rows[n] for n in ROWS]),
         _ptrs([t_rows[n] for n in ROWS]), scratch.data_ptr(), *dims, resid_ef._stream(dev),
     )
-    build.check(lib, err, "resid_tbwd")
+    build.check(lib, err, "resid_tbwd (bf16)" if bf16 else "resid_tbwd")
     return dh_out, dx_out, dv_out, add, rows, t_rows
 
 
@@ -425,16 +504,20 @@ def resid_tbwd(leaves: dict, fwd: FwdOut, tfwd: FwdOut, upd: Sequence[float], dh
     ``train2_ef.py:1585-1598``): the pullback of ``(dh, dx, dv)`` through
     the layers in reverse, each with its tangent along the tangent forward
     ``tfwd``. Returns ``(dh0, dx0, dv0, add, rows, t_rows)`` as
-    :func:`resid_tbwd_plain`. CPU tensors take the plain version."""
+    :func:`resid_tbwd_plain`. In the tier of the streams: on the bf16 tier's
+    the tier's kernel (``csrc/resid_tbwd16.cu``). CPU tensors take the plain
+    version."""
     if dh.device.type == "cpu":
         return resid_tbwd_plain(leaves, fwd, tfwd, upd, dh, dx, dv)
     _require_cuda("resid_tbwd", dh)
     out = _launch_resid_tbwd(leaves, fwd, tfwd, upd, dh, dx, dv, leaves_t)
     resid_tbwd.launches += 1
+    resid_tbwd.tiers[TIERS[stream_tier(fwd)]] += 1
     return out
 
 
 resid_tbwd.launches = 0
+resid_tbwd.tiers = dict.fromkeys(TIERS, 0)
 
 
 def resid_bwd_aug(leaves: dict, fwd: FwdOut, upd: Sequence[float], dh, dx, dv, add: tuple,
@@ -442,16 +525,20 @@ def resid_bwd_aug(leaves: dict, fwd: FwdOut, upd: Sequence[float], dh, dx, dv, a
     """The primal cotangent chain of #10: K2 with its rows (``csrc/
     resid_bwd.cu``, ``kRows``), adding ``add[k][l]`` (the Hessian terms of
     :func:`resid_tbwd`) to the cotangents leaving layer ``l``. Returns
-    ``(dh0, dx0, dv0, rows)``. CPU tensors take the plain version."""
+    ``(dh0, dx0, dv0, rows)``. In the tier of ``fwd``'s streams: on the bf16
+    tier's the tier's rows kernel (``csrc/resid_bwd16.cu``). CPU tensors take
+    the plain version."""
     if dh.device.type == "cpu":
         return resid_bwd_aug_plain(leaves, fwd, upd, dh, dx, dv, add)
     out = resid_ef._bwd_launch("resid_bwd_aug", leaves, fwd, upd, dh, dx, dv, None,
                                leaves_t, True, add)
     resid_bwd_aug.launches += 1
+    resid_bwd_aug.tiers[TIERS[stream_tier(fwd)]] += 1
     return out
 
 
 resid_bwd_aug.launches = 0
+resid_bwd_aug.tiers = dict.fromkeys(TIERS, 0)
 
 
 def _launch_param_grads_aug(leaves, fwd, tfwd, rows, rows_t, t_rows, ro_part=None,
@@ -461,12 +548,10 @@ def _launch_param_grads_aug(leaves, fwd, tfwd, rows, rows_t, t_rows, ro_part=Non
     (else None). In the tier of ``fwd``'s streams: the bf16 tier's
     contraction (``sake_param_grads_aug16``) on the bf16 primal and tangent
     streams, the four edge leaves' terms with both operands rounded."""
-    lib, dims, dev, _ = _common("param_grads_aug", leaves, fwd, tier=True)
+    lib, dims, dev, _ = _common("param_grads_aug", leaves, fwd)
     B, N, F, H, R, K, C, depth = dims
-    bf16 = stream_tier(fwd)
-    _check_fwd("tfwd", tfwd, dims, leaves, dev, tier=True)
-    if stream_tier(tfwd) != bf16:
-        raise ValueError("param_grads_aug: the primal and tangent streams of one tier")
+    _check_fwd("tfwd", tfwd, dims, leaves, dev)
+    bf16 = _check_tier("param_grads_aug", fwd, tfwd)
     for name, rw in (("rows", rows), ("rows_t", rows_t), ("t_rows", t_rows)):
         _check_all(name, rw, _row_shapes(dims, leaves), dev)
     shapes = _leaf_shapes(F, H, R, K, C)
@@ -496,17 +581,20 @@ def param_grads_aug(leaves: dict, fwd: FwdOut, tfwd: FwdOut, rows: dict, rows_t:
     """The parameter gradients of #10 (``csrc/param_grads.cu``, its
     augmented instantiation; the ``dW_a + dW_t`` sums of JAX ``bwd_kernel``
     ``train2_ef.py:1568-1607``): every leaf's gradient per layer, summed
-    over the batch, ``{name: (depth, r, c)}``. CPU tensors take the plain
-    version."""
+    over the batch, ``{name: (depth, r, c)}``. In the tier of ``fwd``'s
+    streams (``sake_param_grads_aug16`` on the bf16 tier's). CPU tensors take
+    the plain version."""
     if fwd.bh.device.type == "cpu":
         return param_grads_aug_plain(leaves, fwd, tfwd, rows, rows_t, t_rows)
     _require_cuda("param_grads_aug", fwd.bh)
     out = _launch_param_grads_aug(leaves, fwd, tfwd, rows, rows_t, t_rows)[0]
     param_grads_aug.launches += 1
+    param_grads_aug.tiers[TIERS[stream_tier(fwd)]] += 1
     return out
 
 
 param_grads_aug.launches = 0
+param_grads_aug.tiers = dict.fromkeys(TIERS, 0)
 
 
 def resid_aug_bwd(leaves: dict, fwd: FwdOut, tfwd: FwdOut, upd: Sequence[float], dh_fin,
@@ -536,7 +624,7 @@ def _layer_resids(dims, leaves) -> dict:
     return {n: s[1:] for n, s in _resid_shapes(dims, leaves).items()}
 
 
-def _launch_aug_fwd(leaves, h0, xs, upd, tx0, stream: bool):
+def _launch_aug_fwd(leaves, h0, xs, upd, tx0, stream: bool, bf16: bool = False):
     name = "aug_fwd" if stream else "retrace_fwd"
     _require_cuda(name, h0)
     dims = _dims(leaves, h0)
@@ -552,58 +640,80 @@ def _launch_aug_fwd(leaves, h0, xs, upd, tx0, stream: bool):
     if lib.sake_aug_fwd_smem_bytes(*dims) > _SMEM_LIMIT:
         raise ValueError(f"{name}: N={N} at these widths exceeds one block's shared memory")
     upd_t = torch.tensor(list(upd), dtype=torch.float32, device=dev)
-    empty = lambda *s: torch.empty(s, device=dev, dtype=torch.float32)
+    if bf16:  # the tier's kernel reads the four edge weights rounded
+        leaves = resid_ef.edge_bf16_leaves(leaves)
+    empty = lambda *s, dtype=torch.float32: torch.empty(s, device=dev, dtype=dtype)
     shapes = _resid_shapes(dims, leaves) if stream else _layer_resids(dims, leaves)
-    res, tres = ({n: empty(*s) for n, s in shapes.items()} for _ in range(2))
+    # #18's tier stores bf16 streams; #16's scratch stays f32 in either tier
+    res, tres = ({n: empty(*s, dtype=stream_dtype(n, bf16 and stream))
+                  for n, s in shapes.items()} for _ in range(2))
     fwd, tfwd = (FwdOut(empty(depth, B, N, F), empty(depth, 3, B, N), empty(depth, 3, B, N),
                         empty(B, N, F), empty(3, B, N), empty(3, B, N), r)
                  for r in (res, tres))
-    err = (lib.sake_aug_fwd if stream else lib.sake_retrace_fwd)(
-        h0.data_ptr(), xs.data_ptr(), tx0.data_ptr(), upd_t.data_ptr(),
-        _ptrs([leaves[n] for n in LEAF_NAMES]), _strides(leaves),
-        *(t.data_ptr() for f in (fwd, tfwd) for t in f[:6]),
-        _ptrs([res[n] for n in RESIDS]), _ptrs([tres[n] for n in RESIDS]), *dims,
-        resid_ef._stream(dev),
-    )
-    build.check(lib, err, name)
+    args = (h0.data_ptr(), xs.data_ptr(), tx0.data_ptr(), upd_t.data_ptr(),
+            _ptrs([leaves[n] for n in LEAF_NAMES]), _strides(leaves),
+            *(t.data_ptr() for f in (fwd, tfwd) for t in f[:6]))
+    if bf16 and stream:  # both bodies' f32 residuals, one layer at a time, stored from there
+        scratch = [{n: empty(*s) for n, s in _layer_resids(dims, leaves).items()}
+                   for _ in range(2)]
+        err = lib.sake_aug_fwd16(*args, *(_ptrs([r[n] for n in RESIDS])
+                                          for r in (*scratch, res, tres)),
+                                 *dims, resid_ef._stream(dev))
+    elif bf16:
+        err = lib.sake_retrace_fwd16(*args, _ptrs([res[n] for n in RESIDS]),
+                                     _ptrs([tres[n] for n in RESIDS]), *dims,
+                                     resid_ef._stream(dev))
+    else:
+        err = (lib.sake_aug_fwd if stream else lib.sake_retrace_fwd)(
+            *args, _ptrs([res[n] for n in RESIDS]), _ptrs([tres[n] for n in RESIDS]), *dims,
+            resid_ef._stream(dev))
+    build.check(lib, err, f"{name} (bf16)" if bf16 else name)
     if not stream:  # the residuals of the last layer were scratch
         fwd, tfwd = fwd._replace(resid=None), tfwd._replace(resid=None)
     return fwd, tfwd
 
 
-def aug_fwd(leaves: dict, h0, xs, upd: Sequence[float], tx0):
+def aug_fwd(leaves: dict, h0, xs, upd: Sequence[float], tx0, *, bf16: bool = False):
     """#18, the resid-mode augmented forward (``csrc/aug_fwd.cu``; JAX
     ``_aug_grad_resid._pipe``'s ``fwd_kernel`` ``train2_ef.py:584``,
     pallas_call ``:668``): ``jax.jvp`` of ``layer_fwd_resid`` over depth
     from ``(h0 (B, N, F), xs (3, B, N), v = 0)`` along ``(0, tx0, 0)``, in one
     launch. Returns ``(fwd, tfwd)``: the primal and tangent boundaries, final
     states and all 17 residuals of each, as :func:`aug_fwd_plain`, which CPU
-    tensors take."""
+    tensors take. ``bf16``: resid_ef's bf16 tier (``csrc/aug_fwd16.cu``: the
+    bodies' bf16 edge products on f32 residuals, both residual sets stored as
+    bf16 but r and t)."""
     if h0.device.type == "cpu":
-        return aug_fwd_plain(leaves, h0, xs, upd, tx0)
-    out = _launch_aug_fwd(leaves, h0, xs, upd, tx0, True)
+        return aug_fwd_plain(leaves, h0, xs, upd, tx0, bf16=bf16)
+    out = _launch_aug_fwd(leaves, h0, xs, upd, tx0, True, bf16)
     aug_fwd.launches += 1
+    aug_fwd.tiers[TIERS[bf16]] += 1
     return out
 
 
 aug_fwd.launches = 0
+aug_fwd.tiers = dict.fromkeys(TIERS, 0)
 
 
-def retrace_fwd(leaves: dict, h0, xs, upd: Sequence[float], tx0):
+def retrace_fwd(leaves: dict, h0, xs, upd: Sequence[float], tx0, *, bf16: bool = False):
     """#16, the retrace-mode augmented forward (``csrc/aug_fwd.cu`` without
     residual streams; JAX ``_aug_grad``'s ``fwd_kernel`` ``train2_ef.py:270``,
     pallas_call ``:330``): #18's layers, each layer's residuals kept only in a
     per-molecule scratch for its tangent. Returns ``(fwd, tfwd)``: the 14
     boundary planes per layer and the final states (``resid`` None), as
-    :func:`retrace_fwd_plain`, which CPU tensors take."""
+    :func:`retrace_fwd_plain`, which CPU tensors take. ``bf16``: resid_ef's
+    bf16 tier (``csrc/aug_fwd16.cu``: the bodies' bf16 edge products, the
+    scratch f32)."""
     if h0.device.type == "cpu":
-        return retrace_fwd_plain(leaves, h0, xs, upd, tx0)
-    out = _launch_aug_fwd(leaves, h0, xs, upd, tx0, False)
+        return retrace_fwd_plain(leaves, h0, xs, upd, tx0, bf16=bf16)
+    out = _launch_aug_fwd(leaves, h0, xs, upd, tx0, False, bf16)
     retrace_fwd.launches += 1
+    retrace_fwd.tiers[TIERS[bf16]] += 1
     return out
 
 
 retrace_fwd.launches = 0
+retrace_fwd.tiers = dict.fromkeys(TIERS, 0)
 
 
 def aug_bwd(leaves: dict, fwd: FwdOut, tfwd: FwdOut, upd: Sequence[float], dh_fin, dth_fin, *,
@@ -611,18 +721,22 @@ def aug_bwd(leaves: dict, fwd: FwdOut, tfwd: FwdOut, upd: Sequence[float], dh_fi
     """#19, the resid-mode augmented backward (JAX ``_pipe``'s ``bwd_kernel``
     ``train2_ef.py:723``, pallas_call ``:837``): #10's mathematics (JAX
     ``:1506`` says so), so #10's launches (:func:`resid_aug_bwd`) on #18's
-    streams. Counted apart from #10's other callers. Returns ``(dh0, dx0,
-    dth0, grads)`` as :func:`resid_aug_bwd_plain`, which CPU tensors take."""
+    streams, in their tier. Counted apart from #10's other callers. Returns
+    ``(dh0, dx0, dth0, grads)`` as :func:`resid_aug_bwd_plain`, which CPU
+    tensors take."""
     out = resid_aug_bwd(leaves, fwd, tfwd, upd, dh_fin, dth_fin, leaves_t=leaves_t)
-    if dh_fin.is_cuda:
+    if dh_fin.device.type != "cpu":
         aug_bwd.launches += 1
+        aug_bwd.tiers[TIERS[stream_tier(fwd)]] += 1
     return out
 
 
 aug_bwd.launches = 0
+aug_bwd.tiers = dict.fromkeys(TIERS, 0)
 
 
-def _launch_retrace_bwd(leaves, fwd, tfwd, upd, dh_fin, dth_fin, leaves_t):
+def _launch_retrace_bwd(leaves, fwd, tfwd, upd, dh_fin, dth_fin, leaves_t, bf16=False,
+                        tile=None):
     _require_cuda("retrace_bwd", dh_fin)
     dims = _dims(leaves, fwd.bh[0])
     B, N, F, H, R, K, C, depth = dims
@@ -635,12 +749,16 @@ def _launch_retrace_bwd(leaves, fwd, tfwd, upd, dh_fin, dth_fin, leaves_t):
     if F != H or len(upd) != depth:
         raise ValueError("retrace_bwd: needs hidden width == feature width and one gate per layer")
     lib = build.load()
-    if lib.sake_retrace_bwd_smem_bytes(*dims) > _SMEM_LIMIT:
+    smem = lib.sake_retrace_bwd16_smem_bytes if bf16 else lib.sake_retrace_bwd_smem_bytes
+    if smem(*dims) > _SMEM_LIMIT:
         raise ValueError(f"retrace_bwd: N={N} at these widths exceeds one block's shared memory")
     if leaves_t is None:
         leaves_t = transposed(leaves)
     for leaf, shape in _leaf_shapes(F, H, R, K, C).items():
         _check_cuda(f"{leaf}.T", leaves_t[leaf], (depth, *shape[::-1]), dev)
+    if bf16:
+        return _launch_retrace_bwd16(lib, dims, leaves, leaves_t, fwd, tfwd, upd, dh_fin, dth_fin,
+                                     tile or B)
     upd_t = torch.tensor(list(upd), dtype=torch.float32, device=dev)
     empty = lambda *s: torch.empty(s, device=dev, dtype=torch.float32)
     # one layer's residuals and rows: only the running layer's are alive
@@ -675,8 +793,88 @@ def _launch_retrace_bwd(leaves, fwd, tfwd, upd, dh_fin, dth_fin, leaves_t):
     return cp[0], cp[1], ct[0], {n: torch.cat([g[n] for g in per]) for n in LEAF_NAMES}
 
 
+# the rows that hold forward values (the contraction's operands), not cotangents
+FORWARD_ROWS = ("att2", "filt", "hatt", "psq")
+
+
+def _launch_retrace_grads16(leaves, fwd, tfwd, rows, rows_t, t_rows, tile):
+    """#17's contraction in the bf16 tier (``sake_retrace_grads16``,
+    ``csrc/param_grads.cu``) on f32 streams and rows, as
+    :func:`_launch_param_grads_aug` takes them: the augmented contraction for
+    the 25 other leaves, and the four edge weights' two terms, bf16(a) against
+    the primal chain's cotangent (``t_rows``) and bf16(t_a) against the tangent
+    chain's (``rows_t``), each summed per ``tile`` molecules and rounded to
+    bf16, the two and the tiles added in f32, on the same DMMA tiles."""
+    lib, dims, dev, _ = _common("retrace_grads16", leaves, fwd)
+    B, N, F, H, R, K, C, depth = dims
+    _check_fwd("tfwd", tfwd, dims, leaves, dev)
+    if _check_tier("retrace_grads16", fwd, tfwd):
+        raise ValueError("retrace_grads16: #17's scratch is f32 in the bf16 tier")
+    for name, rw in (("rows", rows), ("rows_t", rows_t), ("t_rows", t_rows)):
+        _check_all(name, rw, _row_shapes(dims, leaves), dev)
+    shapes = _leaf_shapes(F, H, R, K, C)
+    n_chunks, partial, out, sizes = resid_ef._grad_scratch(dims, dev)
+    n_tiles = -(-B // tile)
+    sub = -(-n_chunks // n_tiles)  # chunks a tile, so that each term fills the card as f32's
+    partial16 = torch.empty(2 * n_tiles * sub,
+                            depth * sum(math.prod(shapes[n]) for n in resid_ef.EDGE_MM_LEAVES),
+                            device=dev, dtype=torch.float64)
+    err = lib.sake_retrace_grads16(
+        fwd.bh.data_ptr(), tfwd.bh.data_ptr(), _ptrs([leaves[n] for n in LEAF_NAMES]),
+        _strides(leaves), _ptrs([fwd.resid[n] for n in RESIDS]),
+        _ptrs([tfwd.resid[n] for n in RESIDS]), _ptrs([rows[n] for n in ROWS]),
+        _ptrs([rows_t[n] for n in ROWS]), _ptrs([t_rows[n] for n in ROWS]), partial.data_ptr(),
+        out.data_ptr(), partial16.data_ptr(), n_chunks, tile, sub, *dims, resid_ef._stream(dev))
+    build.check(lib, err, "retrace_grads16")
+    return {n: a.view(depth, *shapes[n]) for n, a in zip(LEAF_NAMES, out.split(sizes))}
+
+
+def _launch_retrace_bwd16(lib, dims, leaves, leaves_t, fwd, tfwd, upd, dh_fin, dth_fin, tile):
+    """#17 in the bf16 tier (``csrc/retrace_bwd16.cu``), per layer in reverse: the
+    kernel's one pullback, then the layer's leaf gradients
+    (:func:`_launch_retrace_grads16`) from the tangent chain's rows ``rows_t`` and
+    their tangents, the primal chain's rows, as ``t_rows`` (the primal chain's own
+    row set zero but its forward rows, which the contraction reads as
+    operands), the edge weights rounded per ``tile`` molecules."""
+    B, N, F, H, R, K, C, depth = dims
+    dev = dh_fin.device
+    upd_t = torch.tensor(list(upd), dtype=torch.float32, device=dev)
+    lv16, lt16 = resid_ef.edge_bf16_leaves(leaves), resid_ef.edge_bf16_leaves(leaves_t)
+    empty = lambda *s: torch.empty(s, device=dev, dtype=torch.float32)
+    res, tres = ({n: empty(*s) for n, s in _layer_resids(dims, leaves).items()}
+                 for _ in range(2))
+    row_shapes = {n: s[1:] for n, s in _row_shapes(dims, leaves).items()}
+    rows_t, t_rows = ({n: empty(*s) for n, s in row_shapes.items()} for _ in range(2))
+    rows = {n: rows_t[n] if n in FORWARD_ROWS else torch.zeros(s, device=dev)
+            for n, s in row_shapes.items()}
+    scratch = empty(B, 2 * N * (H * K + C))
+    zeros = lambda: torch.zeros(3, B, N, device=dev)
+    cp = (dh_fin.clone(), zeros(), zeros())
+    ct = (dth_fin.clone(), zeros(), zeros())
+    one = lambda d: {n: a[None] for n, a in d.items()}
+    per = [None] * depth
+    for l in reversed(range(depth)):
+        err = lib.sake_retrace_bwd16(
+            l, *(t.data_ptr() for t in (fwd.bh, fwd.bx, fwd.bv, tfwd.bh, tfwd.bx, tfwd.bv)),
+            upd_t.data_ptr(), _ptrs([lv16[n] for n in LEAF_NAMES]),
+            _ptrs([lt16[n] for n in LEAF_NAMES]), _strides(leaves),
+            _ptrs([res[n] for n in RESIDS]), _ptrs([tres[n] for n in RESIDS]),
+            _ptrs([rows_t[n] for n in ROWS]), _ptrs([t_rows[n] for n in ROWS]),
+            scratch.data_ptr(), *(t.data_ptr() for t in (*cp, *ct)), *dims,
+            resid_ef._stream(dev))
+        build.check(lib, err, "retrace_bwd (bf16)")
+        retrace_bwd.launches += 1
+        sl = slice(l, l + 1)
+        f1, t1 = (FwdOut(f.bh[sl], f.bx[sl], f.bv[sl], None, None, None, one(r))
+                  for f, r in ((fwd, res), (tfwd, tres)))
+        per[l] = _launch_retrace_grads16({n: a[sl] for n, a in leaves.items()}, f1, t1,
+                                         one(rows), one(rows_t), one(t_rows), tile)
+    return cp[0], cp[1], ct[0], {n: torch.cat([g[n] for g in per]) for n in LEAF_NAMES}
+
+
 def retrace_bwd(leaves: dict, fwd: FwdOut, tfwd: FwdOut, upd: Sequence[float], dh_fin, dth_fin,
-                *, leaves_t: Optional[dict] = None):
+                *, leaves_t: Optional[dict] = None, bf16: bool = False,
+                tile: Optional[int] = None):
     """#17, the retrace-mode augmented backward (``csrc/retrace_bwd.cu``; JAX
     ``_aug_grad``'s ``bwd_kernel`` ``train2_ef.py:379``, pallas_call
     ``:464``): per layer in reverse, one launch re-forwards the layer for the
@@ -684,43 +882,56 @@ def retrace_bwd(leaves: dict, fwd: FwdOut, tfwd: FwdOut, upd: Sequence[float], d
     one-layer scratch and runs #10's two pullback bodies on it; then the
     augmented contraction (``csrc/param_grads.cu``) of that layer's rows.
     Returns ``(dh0, dx0, dth0, grads)`` as :func:`retrace_bwd_plain`, which
-    CPU tensors take."""
+    CPU tensors take. ``bf16``: resid_ef's bf16 tier as JAX differentiates it
+    (``csrc/retrace_bwd16.cu``; :func:`retrace_bwd_plain`'s ``bf16``), the
+    edge weights' gradients rounded per ``tile`` molecules (the whole batch
+    when None). Counted by tier, each layer's launch."""
     if dh_fin.device.type == "cpu":
-        return retrace_bwd_plain(leaves, fwd, tfwd, upd, dh_fin, dth_fin)
-    return _launch_retrace_bwd(leaves, fwd, tfwd, upd, dh_fin, dth_fin, leaves_t)
+        return retrace_bwd_plain(leaves, fwd, tfwd, upd, dh_fin, dth_fin, bf16=bf16, tile=tile)
+    before = retrace_bwd.launches
+    out = _launch_retrace_bwd(leaves, fwd, tfwd, upd, dh_fin, dth_fin, leaves_t, bf16, tile)
+    retrace_bwd.tiers[TIERS[bf16]] += retrace_bwd.launches - before
+    return out
 
 
 retrace_bwd.launches = 0
+retrace_bwd.tiers = dict.fromkeys(TIERS, 0)
 
 
-def shared_fwd(leaves: dict, h0, xs, upd: Sequence[float]) -> FwdOut:
+def shared_fwd(leaves: dict, h0, xs, upd: Sequence[float], *, bf16: bool = False) -> FwdOut:
     """#7, the shared-mode primal forward (JAX ``fwd_kernel``
     ``train2_ef.py:1030``, pallas_call ``:1069``): K1 (``resid_fwd``) from
     ``(h0, xs, v = 0)``, whose boundaries and residuals the backward keeps.
-    Counted apart from K1's other callers."""
-    out = resid_ef.resid_fwd(leaves, h0, xs, torch.zeros_like(xs), upd)
-    if h0.is_cuda:
+    ``bf16``: resid_ef's bf16 tier (K1's tier kernel, the streams bf16 but r
+    and t). Counted apart from K1's other callers, by tier."""
+    out = resid_ef.resid_fwd(leaves, h0, xs, torch.zeros_like(xs), upd, bf16=bf16)
+    if h0.device.type != "cpu":
         shared_fwd.launches += 1
+        shared_fwd.tiers[TIERS[bf16]] += 1
     return out
 
 
 shared_fwd.launches = 0
+shared_fwd.tiers = dict.fromkeys(TIERS, 0)
 
 
 def shared_bwd(leaves: dict, fwd: FwdOut, upd: Sequence[float], dh_fin, *,
                leaves_t: Optional[dict] = None):
     """#8, the force backward of the shared primal (JAX ``fbwd_kernel``
     ``train2_ef.py:1110``, pallas_call ``:1155``): K2 (``resid_bwd``), input
-    cotangents only. Returns ``dx (3, B, N)``, so ``F = -dx``. Counted apart
-    from K2's other callers."""
+    cotangents only. Returns ``dx (3, B, N)``, so ``F = -dx``. In the tier of
+    ``fwd``'s streams (K2's tier kernel on the bf16 tier's). Counted apart
+    from K2's other callers, by tier."""
     zeros = torch.zeros_like(fwd.bx[0])
     _, dx, _ = resid_ef.resid_bwd(leaves, fwd, upd, dh_fin, zeros, zeros, leaves_t=leaves_t)
-    if dh_fin.is_cuda:
+    if dh_fin.device.type != "cpu":
         shared_bwd.launches += 1
+        shared_bwd.tiers[TIERS[stream_tier(fwd)]] += 1
     return dx
 
 
 shared_bwd.launches = 0
+shared_bwd.tiers = dict.fromkeys(TIERS, 0)
 
 
 # --------------------------------------------------------------------------
@@ -858,8 +1069,6 @@ def fused_primal(params: ModelParams, leaves: dict, h0, xs, upd: Sequence[float]
     return out
 
 
-# #11's and #12's launches by tier, beside their totals
-TIERS = ("f32", "bf16")
 fused_primal.launches = 0
 fused_primal.tiers = dict.fromkeys(TIERS, 0)
 _fused_primal = fused_primal  # make_ef_train2's argument of that name shadows it
@@ -911,7 +1120,7 @@ def _launch_fused_bwd_block(params, leaves, fwd, upd, tx0, g_e, leaves_t):
         leaves, leaves_t = resid_ef.edge_bf16_leaves(leaves), resid_ef.edge_bf16_leaves(leaves_t)
     _check_tc_leaves("fused_bwd_block", leaves, leaves_t)
     B, N, F, H, R, K, C, depth = dims
-    _check_fwd("fwd", fwd, dims, leaves, dev, tier=True)
+    _check_fwd("fwd", fwd, dims, leaves, dev)
     _check_cuda("h_fin", fwd.h_fin, (B, N, F), dev)
     _check_cuda("tx0", tx0, (3, B, N), dev)
     _check_cuda("g_e", g_e, (B,), dev)
@@ -1078,21 +1287,27 @@ def make_ef_train2(
 
     The bf16 tier, JAX's production setting (``edge_matmul_dtype`` and
     ``resid_dtype`` both bf16, ``resid_lowp`` None or ``resid_ef.RESID_LOWP``),
-    runs in ``aug_mode="fused"``: every edge product of #11 and #12 rounds both
+    runs in every mode and with either primal: every edge product rounds both
     operands to bf16 (f32 sums), the residual streams of the primal and of the
     tangent forward are bf16 but r and t (``resid_ef.stream_dtype``), and the
     contraction rounds both operands of each term of the four edge leaves;
     node products, boundary states, the readout and the energy the loss sees
-    stay f32, as in JAX (``:1239-1385``, ``:1750-1901``). With ``fused_primal``
-    False the tier raises, as in every other mode.
+    stay f32, as in JAX (``:1239-1385``, ``:1750-1901``). The primal of the
+    resid and retrace modes is :func:`resid_ef.resid_energy_forces` in the
+    tier (JAX ``primal_fn`` ``:223-233``). The resid mode's #18 computes the
+    tangent from the primal's f32 values and rounds both residual sets only as
+    it stores them (JAX ``:632-635``). The retrace mode stores nothing in bf16
+    and rounds as JAX differentiates the layer (``:100-115``, ``:415-440``):
+    each cotangent that flows into a rounded operand after its sum, and an edge
+    weight's gradient as its two products' rounded terms per batch tile
+    (``aug_batch_tile``, else ``batch_tile``; :func:`retrace_bwd_plain`).
 
-    Not ported yet, and raising when asked for: the bf16 tier in the
-    ``"shared"``, ``"resid"`` and ``"retrace"`` modes (their kernels #7-#10 and
-    #16-#19 have no bf16 instantiation yet), bf16 node products
+    Not ported yet, and raising when asked for: bf16 node products
     (``matmul_dtype``), any other combination of the tier's keywords, and the
     TPU-only MXU pooling ``spatial_mode``. Accepted with no counterpart:
     ``batch_tile`` and ``aug_batch_tile`` (the kernels take one molecule per
-    block), ``pad_atoms`` (the kernels take N as it comes, unpadded),
+    block; the retrace mode's tier rounds per that tile), ``pad_atoms`` (the
+    kernels take N as it comes, unpadded),
     ``precision`` and ``edge_precision`` (f32 products are f32 to within
     3xTF32's rounding) and ``interpret`` (CPU tensors take the plain versions).
     ``fused_primal`` and ``shared_chunk`` are read only in the modes that keep
@@ -1103,16 +1318,11 @@ def make_ef_train2(
     bf16 = _bf16_edge_tier("make_ef_train2", matmul_dtype=matmul_dtype,
                            edge_matmul_dtype=edge_matmul_dtype, resid_dtype=resid_dtype,
                            resid_lowp=resid_lowp, lowp=resid_ef.RESID_LOWP)
-    if bf16 and (aug_mode != "fused" or fused_primal is False):
-        raise NotImplementedError(
-            f"make_ef_train2: the bf16 tier (edge_matmul_dtype and resid_dtype bf16) runs in "
-            f"aug_mode='fused' with the fused primal only; aug_mode={aug_mode!r}"
-            f"{', fused_primal=False' if aug_mode == 'fused' else ''} is not ported in that "
-            "tier yet (ROADMAP.md, Queue 2 B1)")
     if spatial_mode is not None:
         raise NotImplementedError("make_ef_train2: spatial_mode is a TPU-only probe")
     # shared and fused modes carry the primal's streams to the backward
     streams = aug_mode in ("shared", "fused")
+    tile = aug_batch_tile if aug_batch_tile is not None else batch_tile
     use_fused_primal = aug_mode == "fused" if fused_primal is None else fused_primal
 
     def prep(params, h):
@@ -1129,7 +1339,8 @@ def make_ef_train2(
         """``(e, f)`` and, with ``keep``, each chunk's ``FwdOut``."""
         if not streams:
             e, f = resid_ef.resid_energy_forces(params, h, x, n_heads=n_heads, update=update,
-                                                chunk=chunk)
+                                                chunk=chunk, edge_matmul_dtype=edge_matmul_dtype,
+                                                resid_dtype=resid_dtype, resid_lowp=resid_lowp)
             return e, f, []
         upd, leaves, leaves_t, h0 = prep(params, h)
         es, fs, fwds = [], [], []
@@ -1140,7 +1351,7 @@ def make_ef_train2(
                                            leaves_t=leaves_t, bf16=bf16)
                 e = readout(params, fwd.h_fin).sum(dim=(-2, -1))
             else:
-                fwd = shared_fwd(leaves, h0[sl].contiguous(), xs, upd)
+                fwd = shared_fwd(leaves, h0[sl].contiguous(), xs, upd, bf16=bf16)
                 e, dh_fin = _readout_seed(params, fwd.h_fin, None)
                 dx = shared_bwd(leaves, fwd, upd, dh_fin, leaves_t=leaves_t)
             es.append(e)
@@ -1158,12 +1369,17 @@ def make_ef_train2(
                              leaves_t=leaves_t)
         if aug_mode == "shared":
             tfwd = resid_jvp(leaves, fwd, upd, tx0)
+        elif aug_mode == "resid":
+            fwd, tfwd = aug_fwd(leaves, h0, xs, upd, tx0, bf16=bf16)
         else:
-            fwd, tfwd = (aug_fwd if aug_mode == "resid" else retrace_fwd)(leaves, h0, xs, upd,
-                                                                          tx0)
+            fwd, tfwd = retrace_fwd(leaves, h0, xs, upd, tx0, bf16=bf16)
         ro, dh_fin, dth_fin = head_grads(params, fwd.h_fin, tfwd.h_fin, g_e)
-        bwd = retrace_bwd if aug_mode == "retrace" else (
-            aug_bwd if aug_mode == "resid" else resid_aug_bwd)
+        if aug_mode == "retrace":
+            # the tier rounds an edge weight's gradient per JAX batch tile
+            dh0, dx0, _, g = retrace_bwd(leaves, fwd, tfwd, upd, dh_fin, dth_fin,
+                                         leaves_t=leaves_t, bf16=bf16, tile=tile)
+            return dh0, dx0, ro, g
+        bwd = aug_bwd if aug_mode == "resid" else resid_aug_bwd
         dh0, dx0, _, g = bwd(leaves, fwd, tfwd, upd, dh_fin, dth_fin, leaves_t=leaves_t)
         return dh0, dx0, ro, g
 

@@ -20,9 +20,13 @@ MAE in kcal/mol. Epochs are Python loops over batches, reshuffled with a
 seed of the optimizer step (the JAX package draws the permutation from
 ``PRNGKey(step)``: the same rule, other bits). Not ported yet: checkpoints
 (``checkpoint_dir`` raises) and ``select_best_checkpoint``.
-``kernel_batch_tile``, ``aug_batch_tile`` and ``kernel_interpret`` are
-accepted for the JAX configurations' sake; the port's kernels take one
-molecule per block and have no interpret mode.
+``kernel_batch_tile`` and ``aug_batch_tile`` are accepted for the JAX
+configurations' sake; the port's kernels take one molecule per block. The
+kernel branch trains in JAX's tier rule (``:163-167``): resid_ef's bf16 tier
+(bf16 edge products and bf16 residual streams, JAX's production setting)
+unless ``kernel_interpret``, which keeps it in f32. The port's kernels have
+no interpret mode, so that is ``kernel_interpret``'s only effect; the JAX
+tests set it to hold the kernel branch to the f32 plain one.
 """
 
 from __future__ import annotations
@@ -151,8 +155,10 @@ def make_branch(cfg: MD17Config, model: SAKEModel, species: torch.Tensor, e_mean
     if cfg.use_kernel_ef:
         ef_raw = make_ef_train2(
             n_heads=cfg.n_heads, update=True, batch_tile=cfg.kernel_batch_tile,
-            aug_batch_tile=cfg.aug_batch_tile, pad_atoms=True, aug_mode=cfg.aug_mode,
-            interpret=cfg.kernel_interpret,
+            aug_batch_tile=cfg.aug_batch_tile,
+            edge_matmul_dtype=None if cfg.kernel_interpret else torch.bfloat16,
+            resid_dtype=torch.float32 if cfg.kernel_interpret else torch.bfloat16,
+            pad_atoms=True, aug_mode=cfg.aug_mode, interpret=cfg.kernel_interpret,
         )
         params = model_params_from_linen(linen_tree(model),
                                          device=next(model.parameters()).device)

@@ -2,8 +2,9 @@
 E + F, colored, through ``tasks/md17.make_energy_force_fn`` -> ``SAKEModel``
 -> ``kernels/dispatch``, plain K1/K2 stacks on the CPU, vs the JAX linen
 path), force-loss training (one step of each branch, the kernel branch in
-all four modes, against the JAX ``make_step_fn`` on its plain branch, and ``run``
-end to end) and the task registry against the JAX one.
+all four modes with ``kernel_interpret`` (f32), against the JAX ``make_step_fn``
+on its plain branch, the kernel branch's tier rule, and ``run`` end to end) and
+the task registry against the JAX one.
 
 Tolerances: serving ``rtol=2e-4, atol=2e-5``; a training step's loss
 ``rtol=1e-4`` and its updated parameters ``rtol=1e-5, atol=1e-6`` (one adam
@@ -135,8 +136,10 @@ def test_train_step_matches_jax_plain_branch(use_kernel_ef, aug_mode):
     state_j, loss_j = step_j(state_j, batch_j)
     want = jax.tree.map(np.asarray, state_j.params)
 
+    # kernel_interpret, as JAX's tests/test_tasks.py sets it: the kernel branch in
+    # f32, held to the f32 plain step (without it the branch trains in the bf16 tier)
     cfg = MD17Config(hidden_features=16, depth=2, use_kernel_ef=use_kernel_ef,
-                     aug_mode=aug_mode)
+                     aug_mode=aug_mode, kernel_interpret=True)
     species = species_onehot(data.z, int(data.z.max()))
     model = make_model(cfg, species.shape[-1], device="cpu")
     load_linen_params(model, jax.tree.map(np.asarray, params))
@@ -155,6 +158,23 @@ def test_train_step_matches_jax_plain_branch(use_kernel_ef, aug_mode):
     for i, (a, b) in enumerate(zip(got, ref)):
         np.testing.assert_allclose(a.detach().numpy(), b.numpy(), err_msg=f"leaf {i}",
                                    **STEP_PARAM_TOL)
+
+
+@pytest.mark.parametrize("aug_mode", ["fused", "shared", "resid", "retrace"])
+def test_kernel_branch_takes_the_jax_tier_rule(monkeypatch, aug_mode):
+    """The kernel branch builds ``make_ef_train2`` as JAX's task does
+    (``tasks/md17.py:163-167``), in every mode: bf16 edge products and bf16
+    residual streams unless ``kernel_interpret``, f32 with it."""
+    built = []
+    monkeypatch.setattr(task, "make_ef_train2", lambda **kw: built.append(kw) or None)
+    species = species_onehot(ASPIRIN_Z, int(max(ASPIRIN_Z)))
+    for interp in (False, True):
+        cfg = MD17Config(hidden_features=8, depth=1, n_heads=2, use_kernel_ef=True,
+                         aug_mode=aug_mode, kernel_interpret=interp)
+        task.make_branch(cfg, make_model(cfg, species.shape[-1], device="cpu"), species, 0.0,
+                         1.0)
+    assert [(kw["aug_mode"], kw["edge_matmul_dtype"], kw["resid_dtype"]) for kw in built] == [
+        (aug_mode, torch.bfloat16, torch.bfloat16), (aug_mode, None, torch.float32)]
 
 
 def _pick(tree, like):

@@ -309,7 +309,7 @@ def test_unported_bf16_combinations_raise(kw):
 
 
 def test_other_modules_keep_raising_on_the_tier():
-    from sake_tpu_torch.kernels import depthgrid_ef, fori_ef, one_ef, train2_ef, train_ef
+    from sake_tpu_torch.kernels import depthgrid_ef, fori_ef, one_ef, train_ef
 
     tp = _tiny_model()
     h, x = torch.zeros(1, 3, F_IN), torch.randn(1, 3, 3)
@@ -317,7 +317,6 @@ def test_other_modules_keep_raising_on_the_tier():
     for call in (lambda: one_ef.one_energy_forces(tp, h, x, **BF16),
                  lambda: fori_ef.fori_energy_forces(tp, h, x, **edge),
                  lambda: depthgrid_ef.depthgrid_energy_forces(tp, h, x, **edge),
-                 lambda: train2_ef.make_ef_train2(**BF16),
                  lambda: train_ef.make_trainable_energy_forces(**edge)):
         with pytest.raises(NotImplementedError):
             call()
@@ -332,7 +331,7 @@ def _stub(calls):
         return lambda *a: calls.append((name, a[0] if routed else None)) or 0
 
     names = ("sake_resid_fwd16", "sake_resid_bwd16", "sake_resid_infer_cluster16",
-             "sake_resid_bwd_rows_cluster16", "sake_param_grads16")
+             "sake_resid_bwd_rows_cluster16", "sake_param_grads16", "sake_resid_bwd_rows16")
     return SimpleNamespace(
         **{n: entry(n, i < 2) for i, n in enumerate(names)},
         **{f"sake_resid_{k}_smem_bytes": (lambda *d: 0)
@@ -347,8 +346,8 @@ def test_tier_wrappers_launch_the_tier_entries(monkeypatch, N):
     """On CUDA tensors (meta tensors here) the tier's wrappers launch the tier's
     entries on every route the f32 tier has: K1 on its tensor-core route up to
     21 atoms, K2 up to 22, the CUDA cores beyond; #4, #5, #6 on their cluster
-    kernels; the contraction; with bf16 streams and the edge weights rounded.
-    The one-block rows kernel has no bf16 tier: that route raises."""
+    kernels; the one-block rows kernel; the contraction; with bf16 streams and
+    the edge weights rounded."""
     calls = []
     monkeypatch.setattr(build, "load", lambda: _stub(calls))
     monkeypatch.setattr(resid_ef, "_require_cuda", lambda name, t: None)
@@ -363,12 +362,11 @@ def test_tier_wrappers_launch_the_tier_entries(monkeypatch, N):
     m4 = torch.empty(3, N, N, 1, device="meta")
     fc = resid_ef.resid_fwd(leaves, h0, xs, xs, upd, m4, cluster=True, bf16=True)
     _, _, _, rows = resid_ef.resid_bwd_rows(leaves, fc, upd, h0, xs, xs, m4, cluster=True)
-    with pytest.raises(NotImplementedError, match="cluster route only"):
-        resid_ef.resid_bwd_rows(leaves, fc, upd, h0, xs, xs, m4)
+    resid_ef.resid_bwd_rows(leaves, fc, upd, h0, xs, xs, m4)
     resid_ef.param_grads(leaves, fc, rows)
     resid_ef.resid_infer(leaves, h0, xs, xs, upd, m4, bf16=True)
     assert calls == [("sake_resid_fwd16", 1 if N <= 21 else 0),
                      ("sake_resid_bwd16", 1 if N <= 22 else 0),
                      ("sake_resid_fwd16", 2), ("sake_resid_bwd_rows_cluster16", None),
-                     ("sake_param_grads16", None),
+                     ("sake_resid_bwd_rows16", None), ("sake_param_grads16", None),
                      ("sake_resid_infer_cluster16", None)]

@@ -267,32 +267,38 @@ def test_tier_streams_are_bf16_but_r_and_t():
             assert f.bh.dtype == f.bx.dtype == torch.float32
 
 
-@pytest.mark.parametrize("kw", [
-    dict(aug_mode="shared"), dict(aug_mode="resid"), dict(aug_mode="retrace"),
-    dict(aug_mode="fused", fused_primal=False),
+@pytest.mark.parametrize("kw,match", [
+    (dict(aug_mode="shared", matmul_dtype=torch.bfloat16, **BF16), "matmul_dtype"),
+    (dict(aug_mode="resid", edge_matmul_dtype=torch.bfloat16), "go together"),
+    (dict(aug_mode="retrace", resid_lowp=("r",), **BF16), "resid_lowp"),
+    (dict(aug_mode="fused", fused_primal=False, spatial_mode="pool", **BF16), "spatial_mode"),
 ])
-def test_non_fused_modes_raise_on_the_tier(kw):
-    with pytest.raises(NotImplementedError, match="bf16 tier"):
-        train2_ef.make_ef_train2(**kw, **BF16)
+def test_non_fused_modes_raise_on_the_tier(kw, match):
+    """Every mode takes the tier; each still raises on the keyword combinations
+    that are not ported, naming them."""
+    with pytest.raises(NotImplementedError, match=match):
+        train2_ef.make_ef_train2(**kw)
 
 
 def _stub(calls):
     """A library whose launch entries record their names and succeed; the smem
     entries answer 0."""
     names = ("sake_fused_primal", "sake_fused_primal16", "sake_fused_bwd", "sake_fused_bwd16",
-             "sake_param_grads_aug", "sake_param_grads_aug16")
+             "sake_param_grads_aug", "sake_param_grads_aug16", "sake_resid_jvp16",
+             "sake_resid_tbwd16")
     return SimpleNamespace(
         **{n: (lambda *a, n=n: calls.append(n) or 0) for n in names},
         **{f"sake_{k}_smem_bytes": (lambda *d: 0)
-           for k in ("fused_ef", "fused_primal16", "fused_bwd", "fused_bwd16")},
+           for k in ("fused_ef", "fused_primal16", "fused_bwd", "fused_bwd16", "resid_jvp",
+                     "resid_tbwd")},
         sake_error_string=lambda err: b"refused")
 
 
 def test_tier_wrappers_launch_the_tier_entries(monkeypatch):
     """On CUDA tensors (meta tensors here) #11, #12's block and #12's contraction
     launch their tier entries on the tier's streams and the f32 entries on f32
-    streams, each counted under its tier; the f32-only kernels of the other
-    modes refuse the tier's streams."""
+    streams, each counted under its tier; so do #9 and #10's tangent chain on
+    the tier's streams."""
     calls = []
     monkeypatch.setattr(build, "load", lambda: _stub(calls))
     monkeypatch.setattr(train2_ef, "_require_cuda", lambda name, t: None)
@@ -320,8 +326,8 @@ def test_tier_wrappers_launch_the_tier_entries(monkeypatch):
         assert c.tiers["bf16"] - before[c.__name__]["bf16"] == 1
         assert c.tiers["f32"] - before[c.__name__]["f32"] == 1
     fwd16 = train2_ef.fused_primal(params, leaves, h0, xs, upd, bf16=True)[0]
-    with pytest.raises(NotImplementedError, match="no bf16 tier"):
-        train2_ef.resid_jvp(leaves, fwd16, upd, xs)
-    with pytest.raises(NotImplementedError, match="no bf16 tier"):
-        train2_ef.resid_tbwd(leaves, fwd16, fwd16, upd, h0, xs, xs,
-                             leaves_t=transposed(leaves))
+    calls.clear()
+    tfwd16 = train2_ef.resid_jvp(leaves, fwd16, upd, xs)
+    assert resid_ef.stream_tier(tfwd16)
+    train2_ef.resid_tbwd(leaves, fwd16, tfwd16, upd, h0, xs, xs, leaves_t=transposed(leaves))
+    assert calls == ["sake_resid_jvp16", "sake_resid_tbwd16"]

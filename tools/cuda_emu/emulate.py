@@ -410,16 +410,25 @@ def check_train(hid: int, depth: int, B: int, N: int, seed: int = 0):
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
-def check_train16(hid: int, depth: int, B: int, N: int, seed: int = 0) -> float:
-    """#11, #12's block and #12's contraction in resid_ef's bf16 tier against their
-    plain bf16 versions, each line with the plain bf16 version's distance from the
-    plain f32 one; #12 on the plain bf16 primal's streams, the contraction on the
-    plain block's streams and rows with its sums in float64 (chip_smoke.f64_sums).
-    Returns the worst relative error."""
-    import chip_smoke
+def _report16(name, label, pairs, ref, t0) -> float:
+    """One tier kernel's line: its largest relative error against the plain bf16
+    version, the plain bf16 version's distance from the plain f32 one there,
+    and the largest share of that distance over the tensors the tier moves.
+    Returns the largest error."""
+    errs = {n: _rel(a.float(), b.float()) for n, a, b in pairs}
+    w = max(errs, key=errs.get)
+    finite = all(bool(torch.isfinite(a.float()).all()) for _, a, _ in pairs)
+    ratio = {n: e / ref[n] for n, e in errs.items() if ref.get(n, 0.0) >= 1e-5}
+    r = max(ratio, key=ratio.get)
+    print(f"{name} bf16 {label}: max rel err {errs[w]:.3e} ({w}; plain bf16 from plain f32 "
+          f"there {ref.get(w, float('nan')):.3e}); largest share of that distance "
+          f"{ratio[r]:.3e} ({r}: {errs[r]:.3e}); finite {finite} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    return errs[w]
 
-    from sake_tpu_torch.kernels import resid_ef
-    from sake_tpu_torch.kernels import train2_ef as t2
+
+def _train_inputs(hid: int, depth: int, B: int, N: int, seed: int):
+    """A seeded model's ``(params, leaves, leaves_t, h0, xs, tx0, g_e, upd)``."""
     from sake_tpu_torch.kernels.functional import embed
     from sake_tpu_torch.kernels.leaves import transposed, wide_stack
 
@@ -431,26 +440,116 @@ def check_train16(hid: int, depth: int, B: int, N: int, seed: int = 0) -> float:
     h = torch.randn(B, N, F_in, generator=g)
     xs = 1.5 * torch.randn(3, B, N, generator=g)
     tx0, g_e = torch.randn(3, B, N, generator=g), torch.randn(B, generator=g)
-    upd = [1.0] * depth
     leaves = wide_stack(p, 4)
-    leaves_t = transposed(leaves)
-    h0 = embed(p, h).contiguous()
+    return p, leaves, transposed(leaves), embed(p, h).contiguous(), xs, tx0, g_e, [1.0] * depth
+
+
+def check_modes16(hid: int, depth: int, B: int, N: int, seed: int = 0) -> float:
+    """The tier kernels of make_ef_train2's shared, resid and retrace modes
+    against their plain bf16 versions: #9 (``sake_resid_jvp16``) on the plain
+    bf16 K1 streams, #10's tangent chain (``sake_resid_tbwd16``) and primal chain
+    (the one-block rows kernel ``sake_resid_bwd_rows16`` with the plain Hessian
+    terms as its addend) on those and the plain #9's, #18 (``sake_aug_fwd16``),
+    #16 (``sake_retrace_fwd16``) and #17 (``sake_retrace_bwd16`` with its
+    contraction ``sake_retrace_grads16``) on plain #16's boundaries, its edge
+    weights rounded per tile of 1 and of 2 molecules.
+    Each line with the plain bf16 version's distance from the plain f32 one.
+    Returns the worst relative error."""
+    from sake_tpu_torch.kernels import resid_ef
+    from sake_tpu_torch.kernels import train2_ef as t2
+
+    p, leaves, leaves_t, h0, xs, tx0, g_e, upd = _train_inputs(hid, depth, B, N, seed)
+    label = f"hidden {hid} depth {depth} B {B} N {N}"
+    g = torch.Generator().manual_seed(seed + 2)
+    dh = torch.randn(B, N, hid, generator=g)
+    zeros = torch.zeros_like(xs)
+    fwd = resid_ef.resid_fwd_plain(leaves, h0, xs, zeros, upd, bf16=True)
+    fwd32 = resid_ef.resid_fwd_plain(leaves, h0, xs, zeros, upd)
+    worst = 0.0
+    state = lambda o: [("bh", o.bh), ("bx", o.bx), ("bv", o.bv), ("h_fin", o.h_fin),
+                       ("x_fin", o.x_fin), *((f"r.{n}", o.resid[n]) for n in o.resid)]
+
+    def pairs_ref(k, pb, p32):
+        return ([(n, a, b) for (n, a), (_, b) in zip(k, pb)],
+                {n: _rel(a.float(), b.float()) for (n, a), (_, b) in zip(pb, p32)})
+
+    t0 = time.perf_counter()
+    kt = t2._launch_resid_jvp(leaves, fwd, upd, tx0)
+    pt, pt32 = (t2.resid_jvp_plain(leaves, f, upd, tx0) for f in (fwd, fwd32))
+    if any(kt.resid[n].dtype != torch.bfloat16 for n in resid_ef.RESID_LOWP):
+        raise SystemExit("#9 bf16 wrote a low-precision tangent stream in another dtype")
+    worst = max(worst, _report16("#9 resid_jvp", label,
+                                 *pairs_ref(state(kt), state(pt), state(pt32)), t0))
+
+    t0 = time.perf_counter()
+    flat = lambda o: [("dh0", o[0]), ("dx0", o[1]), ("dv0", o[2]),
+                      *((f"add{i}", a) for i, a in enumerate(o[3])),
+                      *((f"{i}.{n}", o[i][n]) for i in (4, 5) for n in o[i])]
+    kb = t2._launch_resid_tbwd(leaves, fwd, pt, upd, dh, zeros, zeros, leaves_t)
+    pb, pb32 = (t2.resid_tbwd_plain(leaves, f, t, upd, dh, zeros, zeros)
+                for f, t in ((fwd, pt), (fwd32, pt32)))
+    worst = max(worst, _report16("#10 resid_tbwd", label,
+                                 *pairs_ref(flat(kb), flat(pb), flat(pb32)), t0))
+
+    t0 = time.perf_counter()
+    flat = lambda o: [("dh0", o[0]), ("dx0", o[1]), ("dv0", o[2]),
+                      *((f"rows.{n}", o[3][n]) for n in o[3])]
+    kr = resid_ef._bwd_launch("resid_bwd_aug", leaves, fwd, upd, dh, zeros, zeros, None,
+                              leaves_t, True, pb[3])
+    pr, pr32 = (t2.resid_bwd_aug_plain(leaves, f, upd, dh, zeros, zeros, a)
+                for f, a in ((fwd, pb[3]), (fwd32, pb32[3])))
+    worst = max(worst, _report16("#10 resid_bwd_aug (rows)", label,
+                                 *pairs_ref(flat(kr), flat(pr), flat(pr32)), t0))
+
+    t0 = time.perf_counter()
+    ka = t2._launch_aug_fwd(leaves, h0, xs, upd, tx0, True, True)
+    pa, pa32 = (t2.aug_fwd_plain(leaves, h0, xs, upd, tx0, bf16=b) for b in (True, False))
+    if any(f.resid[n].dtype != torch.bfloat16 for f in ka for n in resid_ef.RESID_LOWP):
+        raise SystemExit("#18 bf16 wrote a low-precision stream in another dtype")
+    both = lambda o: [(f"{k}.{n}", a) for k, f in zip("pt", o) for n, a in state(f)]
+    worst = max(worst, _report16("#18 aug_fwd", label,
+                                 *pairs_ref(both(ka), both(pa), both(pa32)), t0))
+
+    # retrace mode: #16 and #17 (every layer, its contraction and its edge weights,
+    # rounded per tile of 1 and of 2 molecules) against their plain bf16 versions
+    t0 = time.perf_counter()
+    fin = lambda o: [(f"{k}.{n}", a) for k, f in zip("pt", o)
+                     for n, a in zip(("bh", "bx", "bv", "h_fin", "x_fin", "v_fin"), f[:6])]
+    kr16 = t2._launch_aug_fwd(leaves, h0, xs, upd, tx0, False, True)
+    pr16, pr32 = (t2.retrace_fwd_plain(leaves, h0, xs, upd, tx0, bf16=b) for b in (True, False))
+    worst = max(worst, _report16("#16 retrace_fwd", label,
+                                 *pairs_ref(fin(kr16), fin(pr16), fin(pr32)), t0))
+    t0 = time.perf_counter()
+    flat = lambda o: [("dh0", o[0]), ("dx0", o[1]), ("dth0", o[2]),
+                      *((f"g.{n}", o[3][n]) for n in o[3])]
+    for tile in (1, 2):
+        kb17 = t2._launch_retrace_bwd(leaves, *pr16, upd, dh, dh, leaves_t, True, tile)
+        pb17, pb32 = (t2.retrace_bwd_plain(leaves, *pr16, upd, dh, dh, bf16=b, tile=tile)
+                      for b in (True, False))
+        worst = max(worst, _report16(f"#17 retrace_bwd (tile {tile})", label,
+                                     *pairs_ref(flat(kb17), flat(pb17), flat(pb32)), t0))
+        t0 = time.perf_counter()
+    return worst
+
+
+def check_train16(hid: int, depth: int, B: int, N: int, seed: int = 0) -> float:
+    """#11, #12's block and #12's contraction in resid_ef's bf16 tier against their
+    plain bf16 versions, each line with the plain bf16 version's distance from the
+    plain f32 one; #12 on the plain bf16 primal's streams, the contraction on the
+    plain block's streams and rows with its sums in float64 (chip_smoke.f64_sums).
+    Returns the worst relative error."""
+    import chip_smoke
+
+    from sake_tpu_torch.kernels import resid_ef
+    from sake_tpu_torch.kernels import train2_ef as t2
+
+    p, leaves, leaves_t, h0, xs, tx0, g_e, upd = _train_inputs(hid, depth, B, N, seed)
     label = f"hidden {hid} depth {depth} B {B} N {N}"
     worst = 0.0
 
     def report(name, pairs, ref, t0):
         nonlocal worst
-        errs = {n: _rel(a.float(), b.float()) for n, a, b in pairs}
-        w = max(errs, key=errs.get)
-        worst = max(worst, errs[w])
-        finite = all(bool(torch.isfinite(a.float()).all()) for _, a, _ in pairs)
-        # the share of the tier's own distance, where the tier moves the tensor
-        ratio = {n: e / ref[n] for n, e in errs.items() if ref.get(n, 0.0) >= 1e-5}
-        r = max(ratio, key=ratio.get)
-        print(f"{name} bf16 {label}: max rel err {errs[w]:.3e} ({w}; plain bf16 from plain f32 "
-              f"there {ref.get(w, float('nan')):.3e}); largest share of that distance "
-              f"{ratio[r]:.3e} ({r}: {errs[r]:.3e}); finite {finite} "
-              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        worst = max(worst, _report16(name, label, pairs, ref, t0))
 
     t0 = time.perf_counter()
     kf, ke, kdx = t2._launch_fused_primal(p, leaves, h0, xs, upd, leaves_t, bf16=True)
@@ -796,6 +895,9 @@ def main():
     ap.add_argument("--atoms", type=int, nargs="*", default=[7])
     ap.add_argument("--asan", action="store_true")
     ap.add_argument("--train", action="store_true", help="#11 and #12 in place of #20")
+    ap.add_argument("--modes", action="store_true",
+                    help="the bf16 tier of make_ef_train2's shared, resid and retrace modes: #9, "
+                         "#10's tangent chain and rows kernel, #18, #16, #17")
     ap.add_argument("--helper", action="store_true",
                     help="mma_tf32x3.cuh's products alone (mma_check.cu)")
     ap.add_argument("--wgmma", action="store_true",
@@ -955,6 +1057,33 @@ def main():
                                                          masked, bf16=args.bf16))
             if not args.bf16:
                 worst = max(worst, check_serving_products(libs))
+        print(f"worst {worst:.3e}", flush=True)
+        return
+    if args.modes:
+        from sake_tpu_torch.kernels import resid_ef
+        from sake_tpu_torch.kernels import train2_ef as t2
+
+        with tempfile.TemporaryDirectory() as tmp:
+            libs = Libs(*(load(compile_source(src, Path(tmp) / Path(src).stem, args.asan), names)
+                          for src, names in (
+                              ("resid_jvp16.cu", ["sake_resid_jvp16"]),
+                              ("resid_jvp.cu", ["sake_resid_jvp_smem_bytes"]),
+                              ("resid_tbwd16.cu", ["sake_resid_tbwd16"]),
+                              ("resid_tbwd.cu", ["sake_resid_tbwd_smem_bytes"]),
+                              ("resid_bwd16.cu", ["sake_resid_bwd_rows16"]),
+                              ("resid_bwd.cu", ["sake_resid_bwd_smem_bytes"]),
+                              ("aug_fwd16.cu", ["sake_aug_fwd16", "sake_retrace_fwd16"]),
+                              ("aug_fwd.cu", ["sake_aug_fwd_smem_bytes"]),
+                              ("retrace_bwd16.cu", ["sake_retrace_bwd16",
+                                                    "sake_retrace_bwd16_smem_bytes"]),
+                              ("param_grads.cu", ["sake_retrace_grads16"]))))
+            build.load = lambda: libs
+            t2._require_cuda = resid_ef._require_cuda = lambda name, t: None
+            resid_ef._stream = lambda dev: None
+            worst = 0.0
+            for hid in args.hidden:
+                for N in args.atoms:
+                    worst = max(worst, check_modes16(hid, args.depth, args.batch[0], N))
         print(f"worst {worst:.3e}", flush=True)
         return
     if args.train and args.bf16:

@@ -52,7 +52,7 @@ SLOTS = ("sc_stage", "sc_mma", "sc_store", "sc_sum", "pg_xmix_stage", "pg_xmix_m
 N_SLOTS = 62  # kProbeSlots
 SLOT0 = 33  # PR_SC_STAGE
 ENTRIES = ("sake_sparse_contract", "sake_param_grads", "sake_param_grads_aug",
-           "sake_sparse_contract_probe", "sake_param_grads_probe")
+           "sake_retrace_grads16", "sake_sparse_contract_probe", "sake_param_grads_probe")
 # the rows that are a wide leaf's operand a (functions of the forward)
 A_ROWS = ("att2", "filt", "hatt", "psq")
 # (label, B, N, augmented, layers): the dense cases (#17 contracts one layer a launch)
@@ -60,6 +60,10 @@ DENSE = (("#12 augmented (md17_kernel) B=4 N=21", 4, 21, True, 6),
          ("#12 augmented (md17_kernel) B=512 N=21", 512, 21, True, 6),
          ("#17 augmented, one layer, B=512 N=21", 512, 21, True, 1),
          ("#5 (qm9_kernel) B=64 N=29", 64, 29, False, 6))
+# #17's contraction in the bf16 tier (sake_retrace_grads16, one layer of the
+# retrace backward's f32 scratch), its edge weights rounded per md17's batch tile
+DENSE16 = (("#17 bf16 tier, one layer, B=512 N=21", 512, 21, 1),)
+RETRACE_TILE = 2
 SPLIT_B = 2048  # #26's batch (aspirin's N = 21, a layer)
 
 def _module(name: str, *path):
@@ -214,7 +218,10 @@ def _yard_dense(B: int, N: int, aug: bool, depth: int, dev, seed: int = 7) -> di
     one batched ``torch.matmul`` per leaf in f64 over random operands of its
     shapes (rows: edges, atoms or w_vmix's pooled rows; augmented, twice the
     rows: a against g_p + t_g stacked over t_a against g_t; a row sum against a
-    column of ones), their times summed, and the w_xmix leaf's in f64 and f32."""
+    column of ones), their times summed, and the w_xmix leaf's in f64 and f32;
+    and the yardstick of resid_ef's bf16 tier (``whole_tier``): the same
+    products with the four edge leaves' operands materialised in bf16 (one
+    ``torch.matmul`` each, f32 accumulation) and the others' in f32, summed."""
     import torch
 
     from sake_tpu_torch.kernels import resid_ef as re_
@@ -224,7 +231,7 @@ def _yard_dense(B: int, N: int, aug: bool, depth: int, dev, seed: int = 7) -> di
     gen = torch.Generator(dev).manual_seed(seed)
     mm = lambda x, y: torch.matmul(x.transpose(-2, -1), y)
     shapes = re_._leaf_shapes(64, 64, 50, 4, 256)
-    out = {"whole_f64": 0.0}
+    out = {"whole_f64": 0.0, "whole_tier": 0.0}
     for leaf in LEAF_NAMES:
         r, c = shapes[leaf]
         ra, cg = (c, 1) if r == 1 else (r, c)
@@ -233,6 +240,10 @@ def _yard_dense(B: int, N: int, aug: bool, depth: int, dev, seed: int = 7) -> di
         x = torch.randn(depth, rows, ra, device=dev, generator=gen, dtype=torch.float64)
         y = torch.randn(depth, rows, cg, device=dev, generator=gen, dtype=torch.float64)
         out["whole_f64"] += tc.cuda_ms(lambda: mm(x, y))
+        dt = torch.bfloat16 if leaf in re_.EDGE_MM_LEAVES else torch.float32
+        xt, yt = x.to(dt), y.to(dt)
+        out["whole_tier"] += tc.cuda_ms(lambda: mm(xt, yt))
+        del xt, yt
         if leaf == "w_xmix":
             for dt in (torch.float64, torch.float32):
                 xd, yd = x.to(dt), y.to(dt)
@@ -292,6 +303,12 @@ def cases(dev, names=None) -> dict:
                   (lambda ins=ins: resid_ef.param_grads(*ins)))
             out[label] = (fn, "sake_param_grads_probe",
                           lambda B=B, N=N, aug=aug, depth=depth: _yard_dense(B, N, aug, depth, dev))
+    for label, B, N, depth in DENSE16:
+        if want(label):
+            ins = dense_inputs(B, N, True, dev, depth=depth)
+            out[label] = (lambda ins=ins: t2._launch_retrace_grads16(*ins, RETRACE_TILE),
+                          "sake_param_grads_probe",
+                          lambda B=B, N=N, depth=depth: _yard_dense(B, N, True, depth, dev))
     return out
 
 
@@ -307,8 +324,9 @@ def library(cs: dict, smi: str) -> dict:
             row = {"kernel": tc.cuda_ms(fn), **yard()}
         out[name] = {k: round(v, 4) for k, v in row.items()}
         print(f"LIBRARY {name}: the kernel alone, the whole function as torch.matmul f64 per term "
-              f"summed, its w_xmix term(s) as one torch.matmul (ms) {json.dumps(out[name])} "
-              f"({smi})", flush=True)
+              f"summed, its w_xmix term(s) as one torch.matmul, and (dense) the bf16 tier's "
+              f"yardstick, the edge leaves' terms in bf16 and the rest in f32 (ms) "
+              f"{json.dumps(out[name])} ({smi})", flush=True)
     return out
 
 
